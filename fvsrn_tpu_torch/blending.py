@@ -1,0 +1,38 @@
+"""Front-to-back "over" compositing of per-step contributions.
+
+Counterpart of ``fvsrn_tpu/blending.py``. The contribution carries its
+absorption (already scaled by the stepsize) in the w channel:
+``beer_lambert`` turns it into alpha = 1 - exp(-absorption), ``alpha``
+into min(1, absorption).
+"""
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+BLEND_BEER_LAMBERT = "beer_lambert"
+BLEND_ALPHA = "alpha"
+
+
+def current_alpha(absorption: Tensor, mode: str) -> Tensor:
+    if mode == BLEND_BEER_LAMBERT:
+        return 1.0 - torch.exp(-absorption)
+    if mode == BLEND_ALPHA:
+        return torch.clamp(absorption, max=1.0)
+    raise ValueError(f"unknown blend mode {mode}")
+
+
+def blend_step(acc_rgb: Tensor, acc_alpha: Tensor, contrib_rgba: Tensor,
+               mode: str = BLEND_BEER_LAMBERT,
+               acc_depth: Tensor | None = None,
+               contrib_depth: Tensor | None = None):
+    """One front-to-back step: acc_rgb (..., 3), acc_alpha (..., 1),
+    contrib_rgba (..., 4). Returns the updated accumulators, plus depth
+    when given (blended with the same weight as color)."""
+    ca = current_alpha(contrib_rgba[..., 3:4], mode)
+    w = (1.0 - acc_alpha) * ca
+    out_rgb = acc_rgb + w * contrib_rgba[..., :3]
+    out_alpha = acc_alpha + (1.0 - acc_alpha) * ca
+    if acc_depth is None:
+        return out_rgb, out_alpha
+    return out_rgb, out_alpha, acc_depth + w * contrib_depth

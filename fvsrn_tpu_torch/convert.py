@@ -1,0 +1,50 @@
+"""Build the port's SRN from weights exported by the JAX package.
+
+The arrays are keyed by their pytree path in the JAX network
+(``input.fourier_matrix``, ``layers.{i}.weight``, ``layers.{i}.bias``,
+``latent.static_grid``); ``meta`` carries the static fields, which the
+arrays cannot hold. ``tools/export_torch_weights.py`` writes both.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.latent import LatentSpace
+from .models.srn import InputParametrization, Layer, SceneRepresentationNetwork
+
+SUPPORTED_KEYS = ("input.fourier_matrix", "latent.static_grid")
+
+
+def srn_from_arrays(arrays: dict[str, np.ndarray],
+                    meta: dict) -> SceneRepresentationNetwork:
+    """``meta``: {"layers": [{"activation", "activation_param"}, ...],
+    "output_mode", "has_direction", "disable_direction_in_fourier"}.
+    Raises on arrays the port cannot represent yet (time Fourier
+    features, keyframed grids, latent vectors)."""
+    n_layers = len(meta["layers"])
+    expected = set(SUPPORTED_KEYS) | {
+        f"layers.{i}.{p}" for i in range(n_layers) for p in ("weight",
+                                                             "bias")}
+    unknown = set(arrays) - expected
+    if unknown:
+        raise NotImplementedError(
+            f"arrays not supported by the port yet: {sorted(unknown)}")
+
+    def t(key):
+        a = arrays.get(key)
+        return None if a is None else torch.from_numpy(
+            np.array(a, dtype=np.float32))
+
+    inp = InputParametrization(
+        fourier_matrix=t("input.fourier_matrix"),
+        has_direction=bool(meta.get("has_direction", False)),
+        disable_direction_in_fourier=bool(
+            meta.get("disable_direction_in_fourier", True)))
+    layers = [Layer(t(f"layers.{i}.weight"), t(f"layers.{i}.bias"),
+                    activation=spec["activation"],
+                    activation_param=spec["activation_param"])
+              for i, spec in enumerate(meta["layers"])]
+    latent = LatentSpace(static_grid=t("latent.static_grid"))
+    return SceneRepresentationNetwork(inp, layers, latent,
+                                      output_mode=meta["output_mode"])

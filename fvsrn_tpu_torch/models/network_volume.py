@@ -1,0 +1,48 @@
+"""An SRN seen as a volume.
+
+Counterpart of ``fvsrn_tpu/models/network_volume.py``: wraps a
+``SceneRepresentationNetwork`` behind the volume contract
+(``eval_density`` plus the box) so the plain ray marchers can sample it.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import Tensor, nn
+
+from .srn import SceneRepresentationNetwork
+
+
+class VolumeInterpolationNetwork(nn.Module):
+    def __init__(self, network: SceneRepresentationNetwork,
+                 box_min=(-0.5, -0.5, -0.5), box_size=(1.0, 1.0, 1.0)):
+        super().__init__()
+        self.network = network
+        dev = next(network.parameters()).device
+        self.register_buffer("box_min", torch.as_tensor(
+            box_min, dtype=torch.float32, device=dev))
+        self.register_buffer("box_size", torch.as_tensor(
+            box_size, dtype=torch.float32, device=dev))
+
+    @property
+    def outputs_color(self) -> bool:
+        """True for rgbo networks, whose output skips the TF."""
+        return not self.network.output_mode.startswith("density")
+
+    def eval_density(self, position: Tensor,
+                     direction: Optional[Tensor] = None):
+        """World position (..., 3) -> (value, is_inside). Density
+        networks give value (...,), rgbo networks (..., 4)."""
+        lead = position.shape[:-1]
+        pos01 = (position - self.box_min) / self.box_size
+        inside = (pos01 >= 0).all(dim=-1) & (pos01 <= 1).all(dim=-1)
+        x = pos01.reshape(-1, 3)
+        if self.network.use_direction:
+            d = (torch.zeros_like(position) if direction is None
+                 else direction.expand(position.shape))
+            x = torch.cat([x, d.reshape(-1, 3)], dim=1)
+        out = self.network(x, mode="screen")
+        if self.outputs_color:
+            return out.reshape(lead + (4,)), inside
+        return out.reshape(lead), inside

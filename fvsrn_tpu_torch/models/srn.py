@@ -1,0 +1,119 @@
+"""Scene representation network (SRN).
+
+Counterpart of ``fvsrn_tpu/models/srn.py``: Fourier input
+parametrization, a stack of linear layers with the activation zoo, the
+output parametrizations, and latent-grid conditioning. Weights follow
+``nn.Linear`` conventions, (out, in), as in the JAX package. Networks
+are built from exported arrays (``fvsrn_tpu_torch.convert``), not
+trained here.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import Tensor, nn
+
+from .activations import apply_activation
+from .latent import LatentSpace
+
+OUTPUT_MODES = ("density", "density:direct", "rgbo", "rgbo:direct",
+                "rgbo:exp")
+
+
+class InputParametrization(nn.Module):
+    """Fourier features on positions in [0, 1]^3: the output is
+    [base inputs, cos(x B^T), sin(x B^T), extra channels], with
+    ``fourier_matrix`` B (F, 3|6) premultiplied by 2*pi."""
+
+    def __init__(self, fourier_matrix: Optional[Tensor] = None,
+                 has_direction: bool = False,
+                 disable_direction_in_fourier: bool = True):
+        super().__init__()
+        self.fourier_matrix = (nn.Parameter(fourier_matrix)
+                               if fourier_matrix is not None else None)
+        self.has_direction = has_direction
+        self.disable_direction_in_fourier = disable_direction_in_fourier
+
+    @property
+    def num_fourier(self) -> int:
+        return (0 if self.fourier_matrix is None
+                else self.fourier_matrix.shape[0])
+
+    def num_input_channels(self) -> int:
+        return 6 if self.has_direction else 3
+
+    def forward(self, x: Tensor) -> Tensor:
+        n_in = self.num_input_channels()
+        parts = [x[:, :n_in]]
+        if self.fourier_matrix is not None:
+            n_f = self.fourier_matrix.shape[1]
+            f = x[:, :n_f] @ self.fourier_matrix.T
+            parts += [torch.cos(f), torch.sin(f)]
+        parts.append(x[:, n_in:])
+        return torch.cat(parts, dim=1)
+
+
+class Layer(nn.Module):
+    """One linear layer, weight (out, in), followed by its activation."""
+
+    def __init__(self, weight: Tensor, bias: Tensor,
+                 activation: str = "None", activation_param: float = 1.0):
+        super().__init__()
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias)
+        self.activation = activation
+        self.activation_param = float(activation_param)
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = x @ self.weight.T + self.bias
+        return apply_activation(self.activation, y, self.activation_param)
+
+
+def apply_output(mode: str, x: Tensor, eval_mode: str = "screen") -> Tensor:
+    """Output parametrization of the last layer's pre-activation."""
+    if mode == "density":
+        return torch.sigmoid(x)
+    if mode == "density:direct":
+        return torch.clamp(x, 0.0, 1.0) if eval_mode == "screen" else x
+    rgb, absorption = x[..., :3], x[..., 3:]
+    if mode == "rgbo":
+        rgb = torch.sigmoid(rgb)
+        absorption = nn.functional.softplus(absorption)
+    elif mode == "rgbo:direct":
+        if eval_mode == "screen":
+            rgb = torch.clamp(rgb, 0.0, 1.0)
+            absorption = torch.clamp(absorption, min=0.0)
+    elif mode == "rgbo:exp":
+        rgb = torch.sigmoid(rgb)
+        absorption = torch.exp(absorption)
+    else:
+        raise ValueError(f"unknown output mode {mode}")
+    return torch.cat([rgb, absorption], dim=-1)
+
+
+class SceneRepresentationNetwork(nn.Module):
+    def __init__(self, input: InputParametrization, layers: Sequence[Layer],
+                 latent: LatentSpace, output_mode: str = "density"):
+        super().__init__()
+        if output_mode not in OUTPUT_MODES:
+            raise ValueError(f"output_mode must be one of {OUTPUT_MODES}")
+        self.input = input
+        self.layers = nn.ModuleList(layers)
+        self.latent = latent
+        self.output_mode = output_mode
+
+    @property
+    def use_direction(self) -> bool:
+        return self.input.has_direction
+
+    def forward(self, x: Tensor, mode: str = "screen") -> Tensor:
+        """x (N, 3) positions in [0, 1]^3, or (N, 6) with direction.
+        Returns (N, 1) for density networks, (N, 4) for rgbo ones."""
+        if mode not in ("screen", "world"):
+            raise ValueError(mode)
+        y = torch.cat([x] + self.latent.evaluate(x[:, :3]), dim=1)
+        y = self.input(y)
+        for layer in self.layers:
+            y = layer(y)
+        return apply_output(self.output_mode, y, mode)

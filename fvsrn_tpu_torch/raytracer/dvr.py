@@ -1,0 +1,106 @@
+"""Direct volume rendering by constant stepping, plain PyTorch.
+
+Counterpart of ``fvsrn_tpu/raytracer/dvr.py``: the reference march and
+the oracle of the fused kernel. A Python loop over a fixed step count
+with per-ray validity masks, front-to-back compositing, optional
+alpha early-out. With ``lattice=True`` samples sit on the global step
+lattice t = k*stepsize (first sample at ceil(tmin/stepsize)*stepsize),
+the sampling of the fused megakernel; ``tmax_in`` clamps each ray's
+march (the saturation clip of the product render).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, NamedTuple, Optional
+
+import torch
+from torch import Tensor
+
+from .. import blending
+from ..utils.device import strict_f32
+from ..utils.vecmath import intersect_aabb
+
+
+class RayEvaluationOutput(NamedTuple):
+    color: Tensor   # (..., 4) rgba
+    depth: Tensor   # (..., 1) alpha-weighted depth
+
+
+@dataclass(frozen=True)
+class RayEvaluationSteppingDvr:
+    """Configuration of the stepping evaluator; ``stepsize`` in world
+    units."""
+    stepsize: float = 0.005
+    alpha_early_out: float = 0.999
+    density_min: float = 0.0
+    density_max: float = 1.0
+    blend_mode: str = blending.BLEND_BEER_LAMBERT
+    enable_early_out: bool = True
+
+    @classmethod
+    def make(cls, **kwargs) -> "RayEvaluationSteppingDvr":
+        """Numbers are rounded to float32, as the JAX package stores
+        them, so every path marches with the same stepsize."""
+        def f32(v):
+            return float(torch.tensor(float(v), dtype=torch.float32))
+        return cls(**{k: (f32(v) if isinstance(v, (int, float))
+                          and not isinstance(v, bool) else v)
+                      for k, v in kwargs.items()})
+
+
+def max_steps_bound(box_size, stepsize: float) -> int:
+    """Step count bound: the box diagonal over the stepsize, plus one."""
+    diag = math.sqrt(sum(float(s) ** 2 for s in box_size))
+    return int(math.ceil(diag / float(stepsize))) + 1
+
+
+@torch.no_grad()
+def trace_dvr(ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
+              config: RayEvaluationSteppingDvr, max_steps: int,
+              tmax_in: Optional[Tensor] = None,
+              lattice: bool = False) -> RayEvaluationOutput:
+    """March rays (..., 3) through ``volume`` (``eval_density`` + box)
+    with the TF ``tf``. Returns rgba and depth."""
+    if getattr(volume, "outputs_color", False):
+        raise NotImplementedError("marching color-output volumes is not "
+                                  "ported yet")
+    strict_f32()
+    dtype = ray_start.dtype
+    tmin, tmax = intersect_aabb(ray_start, ray_dir,
+                                volume.box_min.to(dtype),
+                                volume.box_size.to(dtype))
+    tmin = torch.clamp(tmin, min=0.0)
+    if tmax_in is not None:
+        tmax = torch.minimum(tmax, tmax_in.reshape(tmax.shape).to(dtype))
+    h = float(config.stepsize)
+    inv_range = 1.0 / (config.density_max - config.density_min)
+    lead = ray_start.shape[:-1]
+    rgb = torch.zeros(lead + (3,), dtype=dtype, device=ray_start.device)
+    alpha = torch.zeros(lead + (1,), dtype=dtype, device=ray_start.device)
+    depth = torch.zeros_like(alpha)
+    prev = torch.full_like(alpha, -1.0)
+    k0 = torch.ceil(tmin / h) if lattice else None
+
+    for i in range(max_steps):
+        t = (k0 + i) * h if lattice else tmin + i * h
+        valid = t <= tmax
+        if config.enable_early_out:
+            valid = valid & (alpha < config.alpha_early_out)
+        position = ray_start + ray_dir * t
+        value = volume.eval_density(position, ray_dir)[0][..., None]
+        density2 = (value - config.density_min) * inv_range
+        require = valid & (value >= config.density_min)
+        color = tf.eval_normalized(torch.clamp(density2[..., 0], 0, 1),
+                                   None, prev[..., 0], h)
+        color = torch.where(require, color, torch.zeros_like(color))
+        prev = density2
+        contribute = valid & (color[..., 3:4] > 0)
+        new_rgb, new_alpha, new_depth = blending.blend_step(
+            rgb, alpha, color, config.blend_mode,
+            acc_depth=depth, contrib_depth=t)
+        rgb = torch.where(contribute, new_rgb, rgb)
+        alpha = torch.where(contribute, new_alpha, alpha)
+        depth = torch.where(contribute, new_depth, depth)
+    return RayEvaluationOutput(color=torch.cat([rgb, alpha], dim=-1),
+                               depth=depth)

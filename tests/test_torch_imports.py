@@ -1,0 +1,51 @@
+"""The port stands alone: importing every module of ``fvsrn_tpu_torch``
+loads neither ``jax`` nor ``fvsrn_tpu``, and no file of the port (nor
+``chip_smoke.py``) names them."""
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "fvsrn_tpu_torch")
+
+IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import fvsrn_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "fvsrn_tpu"))
+print(len(sys.modules), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_import_loads_no_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _port_files():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith((".py", ".cu", ".cuh")):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_sources_name_no_jax():
+    pattern = re.compile(r"\bjax\b|\bjaxlib\b|\bfvsrn_tpu\.")
+    files = list(_port_files())
+    assert len(files) > 15
+    offenders = []
+    for path in files:
+        with open(path) as f:
+            for n, line in enumerate(f, 1):
+                if pattern.search(line):
+                    offenders.append(f"{os.path.relpath(path, ROOT)}:{n}: "
+                                     f"{line.strip()}")
+    assert not offenders, "\n".join(offenders)

@@ -2,15 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from this checkout, renders the dense
-flagship through the product path (``LoadedModel.prepare_network_render``
-in FUSED mode, 512x512, world stepsize 1/512), holds each kernel against
-its plain PyTorch version and the render against the plain lattice
-oracle, times the render, and prints one JSON line per kernel and a last
-line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
+Builds the port's CUDA kernels from this checkout and drives the port's
+two main paths on the card:
+
+- phases 3-6, the product render: the dense flagship through
+  ``LoadedModel.prepare_network_render`` in FUSED mode (512x512, world
+  stepsize 1/512), the kernel against its plain PyTorch version, the
+  render against the plain lattice oracle, and its timing;
+- phases 7-10, screen-space training: ``train.main.run`` in screen mode
+  at the flagship's widths (512x512, 1/512, 2 cameras, 2 epochs) through
+  the differentiable forward and backward kernels; the kernels against
+  their plain differentiable version at full frame and against autograd
+  through the float32 lattice oracle on 64 tiles; the training step's
+  timing.
+
+Prints one JSON line with every kernel and a last line
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before that line. Exits non-zero without a CUDA device.
 """
+import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -23,7 +35,22 @@ STEPSIZE = 1.0 / 512
 CAMERA = dict(pitch=0.3, yaw=0.5, distance=1.6)
 KERNEL_TOL = 1e-4      # kernel vs its plain version, same inputs
 ORACLE_TOL = 2e-2      # bf16-table render vs the f32 lattice oracle
+# kernel vs plain, relative norm error per leaf: on an H100 the kernels read
+# 3.94e-5 at most (float32 summation order); a plain version that split the
+# clips' ties 0.5/0.5 read 5.83e-4
+GRAD_TOL = 2e-4
+ORACLE_GRAD_TOL = 5e-3  # vs the f32 lattice oracle (bench.py:68-69)
+ORACLE_TILES = 64      # 16384 rays, the oracle subset of bench.py:67
 TIMED_CAMERAS = 4
+TIMED_STEPS = 3
+TRAIN_ARGS = ["IMPLICIT:MARSCHNER_LOBB", "--mode", "screen",
+              "--layers", "32:32:32", "--activation", "SnakeAlt:2",
+              "--fouriercount", "14", "--outputmode", "density:direct",
+              "--volumetric_features_channels", "16",
+              "--volumetric_features_resolution", "32",
+              "--screen_size", str(WIDTH), "--stepsize", str(STEPSIZE),
+              "--screen_cameras", "2", "-i", "2", "-o", "Adam",
+              "-lr", "1e-3"]
 # H100 SXM published dense peaks (NVIDIA data sheet) at 700 W
 PEAK_BF16_TC = 989e12
 PEAK_F32 = 67e12
@@ -65,6 +92,288 @@ def sample_flops(net):
     return 2 * (3 * f + mlp) + trilerp + 24
 
 
+def adjoint_flops(net):
+    """Operations of one contributing sample's adjoint beyond its forward
+    evaluation: the transposed layers (as many multiply-adds as the
+    forward), the weight gradient's outer products (one multiply-add per
+    parameter), d_cos/d_sin -> d_B and the trilerp adjoint. (The backward
+    kernel also evaluates each contributing sample's MLP a second time;
+    that is its own choice, work done and not part of the bound.)"""
+    f = net.input.num_fourier
+    params = sum(p.numel() for n, p in net.named_parameters()
+                 if not n.startswith("latent."))
+    mlp = sum(l.weight.numel() for l in net.layers)
+    return 2 * mlp + 2 * params + 4 * f + 8 * 16 * 2
+
+
+def rel_err(a, b):
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def grads_of(net, tf_leaf):
+    g = {n: p.grad.detach().clone() for n, p in net.named_parameters()}
+    g["tf"] = tf_leaf.grad.detach().clone()
+    return g
+
+
+def cuda_once(fn):
+    """(result, device milliseconds) of one call of ``fn``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def training(smi, reset_counts, counts, npz, tf, cam):
+    """Phases 7-10, the second main path: screen-space training. Returns
+    the kernels' JSON rows."""
+    from fvsrn_tpu_torch.camera import generate_rays
+    from fvsrn_tpu_torch.models.network_volume import \
+        VolumeInterpolationNetwork
+    from fvsrn_tpu_torch.ops import fused_mega
+    from fvsrn_tpu_torch.ops.fused_dvr import (block_ray_permutation,
+                                               probe_saturation_tmax)
+    from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
+                                               max_steps_bound, trace_dvr)
+    from fvsrn_tpu_torch.train import main as train_main
+    from fvsrn_tpu_torch.train.checkpoints import load_weights
+    from fvsrn_tpu_torch.train.optimizer import make_optimizer
+    from fvsrn_tpu_torch.volume.implicit import VolumeInterpolationImplicit
+
+    dev = torch.device("cuda")
+    root = os.path.dirname(os.path.abspath(__file__))
+    box = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))
+    n_rays = WIDTH * HEIGHT
+
+    # 7. the second main path: the trainer's entry point
+    out_dir = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    opt = vars(train_main.init_parser().parse_args(
+        TRAIN_ARGS[:1] + [os.path.join(out_dir, "train_run.npz")]
+        + TRAIN_ARGS[1:]))
+    steps = opt["screen_cameras"] * opt["epochs"]
+    reset_counts()
+    t0 = time.perf_counter()
+    result = train_main.run(opt)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = counts()
+    hist = result["history"]
+    print(f"phase 7 trainer: train.main.run screen {WIDTH}x{HEIGHT} "
+          f"h=1/{round(1 / STEPSIZE)}, {steps} steps in {train_s:.1f} s "
+          f"(dataset included), fused {result['fused']}, losses {hist}, "
+          f"launches {train_counts}", flush=True)
+    check(result["fused"], "the trainer did not take the fused route")
+    check(len(hist) == opt["epochs"] and all(math.isfinite(v) for v in hist),
+          f"losses {hist}")
+    check(train_counts["mega_fwd_diff"] >= steps
+          and train_counts["mega_bwd"] >= steps,
+          f"the trainer launched {train_counts} in {steps} steps")
+
+    # 8. kernels vs their plain version at full frame: dense flagship, L1
+    # loss against the implicit field's render at the smoke camera
+    net = load_weights(npz).to(dev)
+    tf_d = tf.tensor.to(dev)
+    rs, rd = generate_rays(cam, WIDTH, HEIGHT, device=dev)
+    perm, _ = block_ray_permutation(WIDTH, HEIGHT, 16, 16, device=dev)
+    rs = rs.reshape(-1, 3)[perm].contiguous()
+    rd = rd.reshape(-1, 3)[perm].contiguous()
+    cfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE)
+    steps_max = max_steps_bound(box[1], STEPSIZE)
+    with torch.no_grad():
+        target = trace_dvr(rs, rd, VolumeInterpolationImplicit.make(
+            "MARSCHNER_LOBB", device=dev), tf.to(dev), cfg,
+            steps_max).color
+
+    def fwd_bwd(fn, rays_s, rays_d, cotangent, **kw):
+        """(image, samples, grads, fwd ms, bwd ms) of one fwd+bwd, the
+        backward seeded with ``cotangent(image)``."""
+        net.zero_grad(set_to_none=True)
+        tf_leaf = tf_d.clone().requires_grad_(True)
+        (img, samples), f_ms = cuda_once(lambda: fn(
+            rays_s, rays_d, net, *box, tf_leaf, stepsize=STEPSIZE,
+            differentiable=True, return_samples=True, **kw))
+        d_out = cotangent(img.detach())
+        _, b_ms = cuda_once(lambda: img.backward(d_out))
+        return img.detach(), samples, grads_of(net, tf_leaf), f_ms, b_ms
+
+    def l1(img):
+        return (img - target).abs().mean()
+
+    l1_seed = {}
+
+    def l1_cotangent(img):
+        """The L1 loss's cotangent sign(img - target) / n, taken from the
+        first image it sees (the plain one) and reused: where the two
+        images straddle the target by ~1e-6 its sign would differ."""
+        if "d" not in l1_seed:
+            l1_seed["d"] = torch.sign(img - target) / img.numel()
+        return l1_seed["d"]
+
+    img_p, samples_p, g_p, plain_fwd_ms, plain_bwd_ms = fwd_bwd(
+        fused_mega.mega_trace_dvr_plain, rs, rd, l1_cotangent)
+    fwd_bwd(fused_mega.mega_trace_dvr, rs, rd, l1_cotangent)  # warm-up
+    img_k, samples_k, g_k, _, _ = fwd_bwd(fused_mega.mega_trace_dvr, rs, rd,
+                                          l1_cotangent)
+    img_err = float((img_k - img_p).abs().max())
+    grad_rel = {n: rel_err(g_k[n], g_p[n]) for n in g_p}
+    grad_abs = max(float((g_k[n] - g_p[n]).abs().max()) for n in g_p)
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"phase 8 kernels vs plain, full frame: image max|d| "
+          f"{img_err:.3e} (tol {KERNEL_TOL}), samples "
+          f"{int(samples_k.sum())} vs {int(samples_p.sum())}, grad rel "
+          f"norm err max {grad_rel[worst]:.3e} ({worst}, tol {GRAD_TOL}), "
+          f"grad max|d| {grad_abs:.3e}; plain fwd {plain_fwd_ms:.1f} ms, "
+          f"bwd {plain_bwd_ms:.1f} ms", flush=True)
+    print("  per leaf: " + ", ".join(f"{n} {v:.2e}"
+                                     for n, v in grad_rel.items()))
+    check(img_err <= KERNEL_TOL, f"image kernel vs plain {img_err}")
+    check(all(float(g.norm()) > 0 for g in g_p.values()), "a zero gradient")
+    check(grad_rel[worst] <= GRAD_TOL, f"grad kernel vs plain {grad_rel}")
+
+    # 9. kernels vs autograd through the f32 lattice oracle on 64 whole
+    # tiles of the product render's rays and saturation clip
+    vol = VolumeInterpolationNetwork(net, *box)
+    with torch.no_grad():
+        clip = probe_saturation_tmax(rs, rd, vol, tf.to(dev),
+                                     stepsize=STEPSIZE, max_steps=steps_max,
+                                     coarse=8, margin_steps=16)
+    tiles = torch.arange(0, n_rays // 256, n_rays // 256 // ORACLE_TILES,
+                         device=dev)[:ORACLE_TILES]
+    sel = (tiles[:, None] * 256 + torch.arange(256, device=dev)).reshape(-1)
+    o_rs, o_rd, o_clip = rs[sel], rd[sel], clip[sel]
+
+    def sq(img):
+        return (img ** 2).mean()
+
+    img_o, _, g_o, _, _ = fwd_bwd(fused_mega.mega_trace_dvr, o_rs, o_rd,
+                                  lambda img: 2.0 * img / img.numel(),
+                                  tmax_clip=o_clip)
+    net.zero_grad(set_to_none=True)
+    tf_leaf = tf_d.clone().requires_grad_(True)
+    ocfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE,
+                                         enable_early_out=False)
+    ref = trace_dvr(o_rs, o_rd, vol, type(tf)(tf_leaf), ocfg, steps_max,
+                    tmax_in=o_clip, lattice=True, checkpoint_chunk=64).color
+    sq(ref).backward()
+    g_ref = grads_of(net, tf_leaf)
+    o_img_err = float((img_o - ref.detach()).abs().max())
+    o_grad = {n: rel_err(g_o[n], g_ref[n]) for n in g_ref}
+    o_worst = max(o_grad, key=o_grad.get)
+    print(f"phase 9 kernels vs f32 lattice oracle, {sel.numel()} rays: "
+          f"image max|d| {o_img_err:.3e} (tol {ORACLE_TOL}), grad rel norm "
+          f"err max {o_grad[o_worst]:.3e} ({o_worst}, tol {ORACLE_GRAD_TOL})",
+          flush=True)
+    check(o_img_err < ORACLE_TOL, f"image kernel vs oracle {o_img_err}")
+    check(o_grad[o_worst] < ORACLE_GRAD_TOL, f"grad vs oracle {o_grad}")
+
+    # 10. timing: one training step (fwd, loss, bwd, Adam) on the flagship
+    tnet = copy.deepcopy(net)
+    opt_, sched = make_optimizer(tnet.parameters(), "Adam", lr=1e-3)
+
+    def train_step():
+        opt_.zero_grad(set_to_none=True)
+        img = fused_mega.mega_trace_dvr(rs, rd, tnet, *box, tf_d,
+                                        stepsize=STEPSIZE,
+                                        differentiable=True)
+        l1(img).backward()
+        opt_.step()
+        sched.step()
+
+    step_ms = cuda_ms(train_step, TIMED_STEPS)
+    spec = fused_mega._spec(net, *box, stepsize=STEPSIZE, seg=32, tile=256,
+                            density_min=0.0, density_max=1.0,
+                            enable_early_out=True)
+    rays = fused_mega.ray_packet(rs, rd, *box, STEPSIZE)
+    params = fused_mega._params(net, tf_d)
+    widths = fused_mega._widths(params)
+    weights = fused_mega._pack_weights(params)
+    table = fused_mega.latent_table(params[2], torch.float32)
+    n_seg = fused_mega.segments_needed(rays, spec)
+    fwd = fused_mega._launch_fwd(rays, weights, table, spec, *widths[:3],
+                                 n_seg_max=n_seg)
+    d_out = torch.sign(fwd[0] - target) / fwd[0].numel()
+    fwd_ms = cuda_ms(lambda: fused_mega._launch_fwd(
+        rays, weights, table, spec, *widths[:3], n_seg_max=n_seg),
+        TIMED_STEPS)
+    bwd_ms = cuda_ms(lambda: fused_mega._launch_bwd(
+        rays, weights, table, fwd[2], fwd[3], d_out, spec, *widths),
+        TIMED_STEPS)
+    # the same backward with no latent channel scatters no atomics: the
+    # difference is the latent-gradient scatter's share of the kernel
+    no_scatter_ms = cuda_ms(lambda: fused_mega._launch_bwd(
+        rays, weights, table, fwd[2], fwd[3], d_out, spec, *widths[:3], 0),
+        TIMED_STEPS)
+    scatter_share = 1.0 - no_scatter_ms / bwd_ms
+    work = fused_mega._launch_bwd(rays, weights, table, fwd[2], fwd[3],
+                                  d_out, spec, *widths)[2].sum(dim=0)
+    n_samples = int(fwd[1].sum())
+    n_replayed, n_contrib = int(work[0]), int(work[1])
+    carries_bytes = int(fwd[3].sum()) * 256 * 16
+    table_bytes = table.numel() * 4
+    fwd_flops = n_samples * sample_flops(net)
+    fwd_bytes = (n_rays * (32 + 16) + carries_bytes + table_bytes
+                 + weights.numel() * 4)
+    bwd_flops = (n_replayed * sample_flops(net)
+                 + n_contrib * adjoint_flops(net))
+    bwd_work_flops = bwd_flops + n_contrib * sample_flops(net)
+    bwd_bytes = (n_rays * (32 + 16) + carries_bytes + 2 * table_bytes
+                 + rays.shape[0] // 256 * weights.numel() * 4)
+
+    def bound(flops, nbytes, peak):
+        return max(flops / peak, nbytes / PEAK_BYTES) * 1e3
+
+    rows = []
+    for name, replaces, ms, plain, flops, nbytes, err_, extra in (
+            ("mega_fwd_diff", "fvsrn_tpu/ops/fused_mega.py:962", fwd_ms,
+             plain_fwd_ms, fwd_flops, fwd_bytes, img_err,
+             {"samples": n_samples}),
+            ("mega_bwd", "fvsrn_tpu/ops/fused_mega.py:1023", bwd_ms,
+             plain_bwd_ms, bwd_flops, bwd_bytes, grad_abs,
+             {"grad_rel_err": grad_rel[worst], "samples_replayed":
+              n_replayed, "samples_contributing": n_contrib,
+              "no_scatter_ms": no_scatter_ms,
+              "scatter_share": scatter_share,
+              "work_gflop": bwd_work_flops / 1e9})):
+        b_tc = bound(flops, nbytes, PEAK_BF16_TC)
+        b_32 = bound(flops, nbytes, PEAK_F32)
+        by = ("operations" if flops / PEAK_BF16_TC > nbytes / PEAK_BYTES
+              else "bytes")
+        print(f"phase 10 {name} [{smi}]: {ms:.3f} ms/launch, plain "
+              f"{plain:.1f} ms; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} "
+              f"MB; bound {b_tc:.4f} ms (bf16 tensor cores, share "
+              f"{b_tc / ms:.4f}), {b_32:.4f} ms (f32 CUDA cores, share "
+              f"{b_32 / ms:.4f}), bound by {by}", flush=True)
+        rows.append(dict({
+            "name": name, "route": "cuda",
+            "source": "fvsrn_tpu_torch/csrc/" + ("mega_bwd.cu"
+                                                 if name == "mega_bwd"
+                                                 else "mega_fwd.cu"),
+            "replaces": replaces, "launches": train_counts[name],
+            "max_abs_err": err_, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_tc, "bound_by": by,
+            "library_ms": None, "bound_f32_ms": b_32,
+            "oracle_max_abs_err": o_img_err,
+            "oracle_grad_rel_err": o_grad[o_worst]}, **extra))
+    print(f"phase 10 training step [{smi}]: {step_ms:.3f} ms/step "
+          f"(fwd + L1 + bwd + Adam, mean of {TIMED_STEPS} after a warm-up), "
+          f"{n_rays / step_ms / 1e3:.3f} Mrays/s; kernels fwd {fwd_ms:.3f} "
+          f"+ bwd {bwd_ms:.3f} ms (without the latent scatter "
+          f"{no_scatter_ms:.3f} ms, scatter share {scatter_share:.3f}); "
+          f"plain fwd+bwd "
+          f"{plain_fwd_ms + plain_bwd_ms:.1f} ms; backward work done "
+          f"{bwd_work_flops / 1e9:.1f} GFLOP (the bound's "
+          f"{bwd_flops / 1e9:.1f} plus the MLP recomputed); "
+          f"samples/step {n_samples} "
+          f"(replayed {n_replayed}, contributing {n_contrib}), carries "
+          f"{carries_bytes / 1e6:.1f} MB, n_seg_max {n_seg}", flush=True)
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -92,13 +401,24 @@ def main():
 
     # 2. build every kernel of the path (one nvcc per source, together)
     t0 = time.perf_counter()
-    secs = _build.build(["mega_fwd"])
+    secs = _build.build(["mega_fwd", "mega_bwd"])
     print(f"phase 2 build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
-    print(_build.ptxas_report("mega_fwd").strip(), flush=True)
+    print(_build.ptxas_report("mega_fwd").strip())
+    print(_build.ptxas_report("mega_bwd").strip(), flush=True)
 
-    # 3. the main path: product render of the dense flagship
-    tf, npz = dense_scene()
+    def reset_counts():
+        fused_mega.LAUNCHES = 0
+        fused_mega.DIFF_LAUNCHES = 0
+        fused_mega.BWD_LAUNCHES = 0
+
+    def counts():
+        return {"mega_fwd": fused_mega.LAUNCHES,
+                "mega_fwd_diff": fused_mega.DIFF_LAUNCHES,
+                "mega_bwd": fused_mega.BWD_LAUNCHES}
+
+    # 3. the first main path: product render of the dense flagship
+    _, tf, npz = dense_scene()
     cfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE)
     model = LoadedModel.from_checkpoint(npz, tf=tf, config=cfg)
     cam = CameraOnASphere.make(**CAMERA)
@@ -106,17 +426,18 @@ def main():
     render = model.prepare_network_render(cam, WIDTH, HEIGHT, "FUSED")
     torch.cuda.synchronize()
     plan_s = time.perf_counter() - t0
-    fused_mega.LAUNCHES = 0
+    reset_counts()
     img = render()
     torch.cuda.synchronize()
-    launches = fused_mega.LAUNCHES
+    render_counts = counts()
+    launches = render_counts["mega_fwd"]
     check(tuple(img.shape) == (HEIGHT, WIDTH, 4), f"shape {img.shape}")
     check(bool(torch.isfinite(img).all()), "non-finite pixels")
     amax = float(img[..., 3].max())
     check(amax > 0.5, f"alpha max {amax}")
     check(launches > 0, "the render did not launch mega_fwd")
     print(f"phase 3 render: {WIDTH}x{HEIGHT} h=1/{round(1 / STEPSIZE)} "
-          f"alpha max {amax:.4f}, mega_fwd launches {launches}, "
+          f"alpha max {amax:.4f}, launches {render_counts}, "
           f"planning {plan_s:.2f} s", flush=True)
 
     # 4. kernel vs its plain version on the same rays and clip
@@ -135,9 +456,10 @@ def main():
                                      model.box_size)
     ocfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE,
                                          enable_early_out=False)
-    oracle = trace_dvr(render.ray_start, render.ray_dir, vol, render.tf,
-                       ocfg, max_steps_bound(model.box_size, STEPSIZE),
-                       tmax_in=render.tmax_clip, lattice=True).color
+    with torch.no_grad():
+        oracle = trace_dvr(render.ray_start, render.ray_dir, vol, render.tf,
+                           ocfg, max_steps_bound(model.box_size, STEPSIZE),
+                           tmax_in=render.tmax_clip, lattice=True).color
     oerr = float((got - oracle).abs().max())
     print(f"phase 5 kernel vs lattice oracle: max|d| {oerr:.3e} "
           f"(tol {ORACLE_TOL})", flush=True)
@@ -165,16 +487,21 @@ def main():
           f"{bound_f32_s * 1e3 / kernel_ms:.4f}), bound by operations "
           f"({flops / 1e9:.1f} GFLOP, {io_bytes / 1e6:.1f} MB)", flush=True)
 
-    # 7. kernels
-    print(json.dumps({"kernels": [{
+    render_row = {
         "name": "mega_fwd", "route": "cuda",
         "source": "fvsrn_tpu_torch/csrc/mega_fwd.cu",
         "replaces": "fvsrn_tpu/ops/fused_mega.py:274",
         "launches": launches, "max_abs_err": err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-        "bound_by": "operations", "library_ms": None,
+        "bound_by": ("operations" if flops / PEAK_BF16_TC
+                     > io_bytes / PEAK_BYTES else "bytes"),
+        "library_ms": None,
         "bound_f32_ms": bound_f32_s * 1e3, "frame_ms": mean_ms,
-        "samples": n_samples, "oracle_max_abs_err": oerr}]}))
+        "samples": n_samples, "oracle_max_abs_err": oerr}
+    train_rows = training(smi, reset_counts, counts, npz, tf, cam)
+
+    # 11. kernels
+    print(json.dumps({"kernels": [render_row] + train_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

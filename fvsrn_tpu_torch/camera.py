@@ -3,7 +3,8 @@
 Counterpart of ``fvsrn_tpu/camera.py``: ``CameraOnASphere`` (pitch, yaw
 and distance around a center), its (B, 3, 3) reference frame [origin;
 right; up] and one ray per pixel center, returned channel-last as
-(B, H, W, 3) like the JAX package.
+(B, H, W, 3) like the JAX package. A camera may be batched (B, 3);
+``fibonacci_sphere_cameras`` builds the screen-space training cameras.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import math
 from dataclasses import dataclass
 from typing import Optional, Union
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -124,3 +126,24 @@ def generate_rays(matrix_or_camera: Union[Tensor, CameraOnASphere],
     ray_start = eye.expand(batch, height, width, 3)
     ray_dir = direction.expand(batch, height, width, 3)
     return ray_start, ray_dir
+
+
+def fibonacci_sphere_cameras(n: int, center=(0.0, 0.0, 0.0), distance=1.0,
+                             orientation="Ym",
+                             fov_y_radians=math.radians(45.0),
+                             pitch_range=(-80.0, 80.0)) -> CameraOnASphere:
+    """``n`` batched cameras on a fibonacci spiral around the object, the
+    screen-space training distribution. Angles are computed in float64
+    with numpy, then stored as float32, as in the JAX package."""
+    i = np.arange(n, dtype=np.float64) + 0.5
+    phi = np.arccos(1 - 2 * i / n)          # polar angle in [0, pi]
+    golden = np.pi * (1 + 5 ** 0.5)
+    theta = np.mod(golden * i, 2 * np.pi)   # azimuth
+    pitch = np.clip(np.pi / 2 - phi, math.radians(pitch_range[0]),
+                    math.radians(pitch_range[1]))
+    pyd = np.stack([pitch, theta, np.full(n, distance)], axis=-1)
+    return CameraOnASphere(
+        center=torch.tensor(np.broadcast_to(
+            np.asarray(center, np.float32), (n, 3)).copy()),
+        pitch_yaw_distance=torch.tensor(np.asarray(pyd, np.float32)),
+        orientation=orientation, fov_y_radians=fov_y_radians)

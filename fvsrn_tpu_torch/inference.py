@@ -128,6 +128,7 @@ class LoadedModel:
         rd = rd.reshape(-1, 3).contiguous()
         vol = VolumeInterpolationNetwork(net, self.box_min, self.box_size)
         if mode == "PLAIN32":
+            @torch.no_grad()
             def render_plain():
                 color = trace_dvr(rs, rd, vol, tf, self.config, steps).color
                 return color.reshape(height, width, 4)

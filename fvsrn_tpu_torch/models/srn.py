@@ -4,17 +4,22 @@ Counterpart of ``fvsrn_tpu/models/srn.py``: Fourier input
 parametrization, a stack of linear layers with the activation zoo, the
 output parametrizations, and latent-grid conditioning. Weights follow
 ``nn.Linear`` conventions, (out, in), as in the JAX package. Networks
-are built from exported arrays (``fvsrn_tpu_torch.convert``), not
-trained here.
+are built from exported arrays (``fvsrn_tpu_torch.convert``) or freshly
+by ``SceneRepresentationNetwork.make``, whose numpy draws repeat the JAX
+package's, so one seed gives bit-identical initial weights; every array
+is an ``nn.Parameter`` that the screen trainer (``train/screen.py``)
+updates.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import Tensor, nn
 
-from .activations import apply_activation
+from .activations import apply_activation, parse_activation
 from .latent import LatentSpace
 
 OUTPUT_MODES = ("density", "density:direct", "rgbo", "rgbo:direct",
@@ -35,6 +40,30 @@ class InputParametrization(nn.Module):
         self.has_direction = has_direction
         self.disable_direction_in_fourier = disable_direction_in_fourier
 
+    @classmethod
+    def make(cls, num_fourier: int = 0, fourier_std: float = 1.0,
+             has_direction: bool = False,
+             disable_direction_in_fourier: bool = True,
+             seed: int = 42) -> "InputParametrization":
+        """Gaussian (``fourier_std`` > 0) or NeRF block-identity
+        (``fourier_std`` <= 0) Fourier matrix, drawn with
+        ``np.random.default_rng(seed)``."""
+        rng = np.random.default_rng(seed)
+        out = 6 if (has_direction and not disable_direction_in_fourier) else 3
+        b = None
+        if num_fourier > 0:
+            if fourier_std > 0:
+                b = rng.normal(0.0, fourier_std, (num_fourier, out))
+                b = b * (2 * np.pi)
+            else:
+                blocks = int(np.ceil(num_fourier / out))
+                b = np.concatenate([2.0 ** i * np.eye(out)
+                                    for i in range(blocks)],
+                                   axis=0)[:num_fourier] * (2 * np.pi)
+            b = torch.from_numpy(b.astype(np.float32))
+        return cls(b, has_direction=has_direction,
+                   disable_direction_in_fourier=disable_direction_in_fourier)
+
     @property
     def num_fourier(self) -> int:
         return (0 if self.fourier_matrix is None
@@ -42,6 +71,9 @@ class InputParametrization(nn.Module):
 
     def num_input_channels(self) -> int:
         return 6 if self.has_direction else 3
+
+    def num_output_channels(self) -> int:
+        return self.num_input_channels() + 2 * self.num_fourier
 
     def forward(self, x: Tensor) -> Tensor:
         n_in = self.num_input_channels()
@@ -102,6 +134,44 @@ class SceneRepresentationNetwork(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.latent = latent
         self.output_mode = output_mode
+
+    @classmethod
+    def make(cls, *, layers: str = "32:32:32", activation: str = "SnakeAlt:2",
+             output_mode: str = "density", num_fourier: int = 14,
+             fourier_std: float = 1.0, use_direction: bool = False,
+             disable_direction_in_fourier: bool = True,
+             latent: Optional[LatentSpace] = None,
+             seed: int = 42) -> "SceneRepresentationNetwork":
+        """Build with torch ``nn.Linear``'s default init, drawn with
+        ``np.random.default_rng(seed + 1)`` (the Fourier matrix with
+        ``seed``) in the JAX package's order."""
+        if output_mode not in OUTPUT_MODES:
+            raise ValueError(f"output_mode must be one of {OUTPUT_MODES}")
+        latent = latent if latent is not None else LatentSpace()
+        inp = InputParametrization.make(
+            num_fourier=num_fourier, fourier_std=fourier_std,
+            has_direction=use_direction,
+            disable_direction_in_fourier=disable_direction_in_fourier,
+            seed=seed)
+        act_name, act_param = parse_activation(activation)
+        sizes = [int(s) for s in layers.split(":")]
+        out_channels = 1 if output_mode.startswith("density") else 4
+        rng = np.random.default_rng(seed + 1)
+        layer_list = []
+        last = inp.num_output_channels() + latent.total_channels
+        specs = [(s, (act_name, act_param)) for s in sizes]
+        specs.append((out_channels, ("None", 1.0)))
+        for i, (size, act) in enumerate(specs):
+            bound = 1.0 / math.sqrt(last)
+            w = rng.uniform(-bound, bound, (size, last)).astype(np.float32)
+            b = rng.uniform(-bound, bound, (size,)).astype(np.float32)
+            if i == len(sizes) and out_channels == 4:
+                b = np.abs(b) + 1.0     # positive initial output
+            layer_list.append(Layer(torch.from_numpy(w), torch.from_numpy(b),
+                                    activation=act[0],
+                                    activation_param=act[1]))
+            last = size
+        return cls(inp, layer_list, latent, output_mode=output_mode)
 
     @property
     def use_direction(self) -> bool:

@@ -89,12 +89,14 @@ def build(names) -> dict[str, float]:
 
 
 def ptxas_report(name: str) -> str:
-    """The ptxas lines of ``name``'s build log ('' if not built here)."""
+    """The ptxas lines of ``name``'s build log: registers, shared memory,
+    stack frame and spills of each kernel ('' if not built here)."""
     log = library_path(name)[:-3] + ".log"
     if not os.path.exists(log):
         return ""
     with open(log) as f:
-        return "".join(line for line in f if "ptxas" in line)
+        return "".join(line for line in f
+                       if "ptxas" in line or "stack frame" in line)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,12 +1,15 @@
-"""Fused SRN volume-rendering march, forward: the CUDA kernel and its
-plain PyTorch version.
+"""Fused SRN volume-rendering march: the CUDA kernels and their plain
+PyTorch versions, forward and backward.
 
-Replaces ``fvsrn_tpu/ops/fused_mega.py:_mega_fwd_kernel`` (the
-non-differentiable launch of ``mega_trace_dvr``). ``mega_trace_dvr``
-launches ``csrc/mega_fwd.cu`` for CUDA tensors and runs
-``mega_trace_dvr_plain`` for CPU tensors; on a CUDA tensor it never
-falls back to the plain version. Both return rgba (R, 4) in the order of
-the input rays, and optionally the number of samples each ray tile
+Replaces the TPU kernels of ``fvsrn_tpu/ops/fused_mega.py``:
+``_mega_fwd_kernel`` in its render launch and in its differentiable launch
+(``_make_mega_op``'s forward, which also stores the carry entering every
+(tile, segment)), and ``_mega_bwd_kernel`` (``_make_mega_op``'s backward).
+``mega_trace_dvr`` launches ``csrc/mega_fwd.cu`` (and, for gradients,
+``csrc/mega_bwd.cu`` through a ``torch.autograd.Function``) for CUDA
+tensors and runs the plain versions for CPU tensors; on a CUDA tensor it
+never falls back to a plain version. Both return rgba (R, 4) in the order
+of the input rays, and optionally the number of samples each ray tile
 evaluated.
 
 What is computed (the semantics of the TPU kernel, not its layout):
@@ -16,14 +19,23 @@ ceil(tmin/stepsize), in segments of ``seg`` points. A segment runs when
 some ray of the tile has a live point in it (t <= tmax after the clip,
 k >= the ray's own first point) and, with the early-out, while some ray
 of the tile has alpha < 0.999 at the segment's start.
-Each live sample: trilinear latent fetch from the grid stored as bf16
-(the product path's table), Fourier features, the MLP in float32, the
-density head, the piecewise-linear TF, Beer-Lambert "over".
+Each live sample: trilinear latent fetch (bf16 table for the render,
+float32 for training), Fourier features, the MLP in float32, the density
+head, the piecewise-linear TF, Beer-Lambert "over".
 
-Bound of the kernel on the H100: operations (about 7.6 kFLOP and 110
-transcendentals per sample, 44 bytes per ray). This first kernel runs
-the MLP on the float32 CUDA cores, one sample per thread at a time,
-weights broadcast from shared memory and the bf16 latent table in L2;
+The gradient is that of the TPU kernel's adjoint, which fixes the
+subgradients at the clips: a sample that absorbs nothing passes no
+gradient; the TF knot positions get gradients only strictly inside an
+interval; the clips of the density (0 < d < 1) and of ``density:direct``
+(0 < y < 1) are strict. The plain versions write these gates with
+``torch.where`` so that autograd reproduces them, and the backward
+replays the forward's tile vote on the stored incoming carries.
+
+Bound of the kernels on the H100: operations (the forward about 7.6 kFLOP
+and 110 transcendentals per sample, 44 bytes per ray; the backward about
+four times the forward's work per contributing sample). These first
+kernels run the MLP on the float32 CUDA cores, one sample per thread at a
+time, weights broadcast from shared memory and the latent table in L2;
 tensor-core layers (mma/wgmma over samples batched per warpgroup) are
 later work.
 """
@@ -31,26 +43,48 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import Tensor
 
+from ..models.activations import apply_activation
 from ..models.latent import grid_sample_3d
-from ..models.srn import SceneRepresentationNetwork, apply_output
+from ..models.srn import SceneRepresentationNetwork
 from ..utils.device import strict_f32
 from ..utils.vecmath import intersect_aabb
 from . import _build
 
-# kernel launches since the last reset (the plain version never counts)
+# kernel launches since the last reset (the plain versions never count):
+# the render forward, the differentiable forward, the backward
 LAUNCHES = 0
+DIFF_LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 KERNEL_TILE = 256
+KERNEL_SEG = 32          # the backward kernel's segment length
 HIDDEN = 32
 LATENT_CHANNELS = 16
+MAX_FOURIER = 32         # the kernels' compile-time limits (mega_common.cuh)
+MAX_HIDDEN_LAYERS = 6
+MAX_TF_POINTS = 16
 TABLE_DTYPE = torch.bfloat16
 EARLY_ALPHA = 0.999      # the tile vote's threshold, as in the JAX package
 _PLAIN_CHUNK_SAMPLES = 1 << 21
+
+
+class MarchSpec(NamedTuple):
+    """What one march needs besides its tensors."""
+    stepsize: float
+    seg: int
+    tile: int
+    density_min: float
+    density_max: float
+    early_alpha: float          # 2.0 disables the vote
+    box_min: tuple
+    box_size: tuple
+    activations: tuple          # (name, param) of every layer
+    output_mode: str
 
 
 def ray_packet(ray_start: Tensor, ray_dir: Tensor, box_min, box_size,
@@ -89,36 +123,237 @@ def _check_network(net: SceneRepresentationNetwork):
         raise NotImplementedError("fused march: density output modes only")
     if net.use_direction:
         raise NotImplementedError("fused march: no direction input")
+    fm = net.input.fourier_matrix
+    if fm is not None and fm.shape[1] != 3:
+        raise NotImplementedError("fused march: positional Fourier only")
 
 
-def _shade(net: SceneRepresentationNetwork, grid: Optional[Tensor],
-           tf: Tensor, pos01: Tensor, valid: Tensor, h: float,
-           density_min: float, density_max: float):
-    """(rgb, absorption) of samples at ``pos01`` (..., 3): the network
-    (latent fetch from ``grid``), the density head, the piecewise TF with
-    its interior-knot interval choice. Invalid samples absorb nothing."""
-    x = pos01.reshape(-1, 3)
-    feats = [x] + ([grid_sample_3d(grid, x)] if grid is not None else [])
-    y = net.input(torch.cat(feats, dim=1))
+def _spec(net, box_min, box_size, *, stepsize, seg, tile, density_min,
+          density_max, enable_early_out) -> MarchSpec:
+    return MarchSpec(
+        stepsize=float(stepsize), seg=int(seg), tile=int(tile),
+        density_min=float(density_min), density_max=float(density_max),
+        early_alpha=EARLY_ALPHA if enable_early_out else 2.0,
+        box_min=tuple(float(v) for v in box_min),
+        box_size=tuple(float(v) for v in box_size),
+        activations=tuple((l.activation, l.activation_param)
+                          for l in net.layers),
+        output_mode=net.output_mode)
+
+
+def _params(net: SceneRepresentationNetwork, tf: Tensor) -> list:
+    """The march's differentiable inputs, in the autograd Functions'
+    order: TF, Fourier matrix ((0, 3) when there is none), latent grid,
+    then every layer's weight and bias."""
+    fm = net.input.fourier_matrix
+    if fm is None:
+        fm = torch.zeros(0, 3, device=tf.device)
+    out = [tf, fm, net.latent.static_grid]
     for layer in net.layers:
-        y = layer(y)
-    value = apply_output(net.output_mode, y).reshape(valid.shape)
-    d = torch.clamp((value - density_min) * (1.0 / (density_max
-                                                     - density_min)),
-                    0.0, 1.0)
+        out += [layer.weight, layer.bias]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
+
+def _gated_clip01(x: Tensor) -> Tensor:
+    """clip(x, 0, 1) whose gradient passes only where 0 < x < 1."""
+    return torch.where(x <= 0.0, torch.zeros_like(x),
+                       torch.where(x >= 1.0, torch.ones_like(x), x))
+
+
+def _shade(spec: MarchSpec, params: list, pos01: Tensor, valid: Tensor):
+    """(rgb, ca) of samples at ``pos01`` (..., 3): the network (latent
+    fetch from the grid), the density head, the piecewise TF with its
+    interior-knot interval choice, Beer-Lambert alpha. Samples that do
+    not count absorb nothing; samples that absorb nothing pass no
+    gradient."""
+    tf, fourier, grid = params[0], params[1], params[2]
+    layers = params[3:]
+    x = pos01.reshape(-1, 3)
+    feats = [x]
+    if fourier.shape[0]:
+        f = x @ fourier.T
+        feats += [torch.cos(f), torch.sin(f)]
+    if grid is not None:
+        feats.append(grid_sample_3d(grid, x))
+    y = torch.cat(feats, dim=1)
+    n_layers = len(layers) // 2
+    for i in range(n_layers):
+        y = y @ layers[2 * i].T + layers[2 * i + 1]
+        name, p = spec.activations[i]
+        y = apply_activation(name, y, p)
+    y = y[:, 0].reshape(valid.shape)
+    if spec.output_mode == "density:direct":
+        value = _gated_clip01(y)
+    else:
+        value = torch.sigmoid(y)
+    h = spec.stepsize
+    density2 = ((value - spec.density_min)
+                * (1.0 / (spec.density_max - spec.density_min)))
+    d = _gated_clip01(density2)
     iv = torch.zeros_like(d, dtype=torch.int64)
     for q in range(1, tf.shape[0] - 1):
         iv += (tf[q, 4] <= d).to(torch.int64)
     c0, c1 = tf[iv], tf[iv + 1]
-    frac = ((torch.minimum(torch.maximum(d, c0[..., 4]), c1[..., 4])
-             - c0[..., 4]) / (c1[..., 4] - c0[..., 4]))
+    p0, p1 = c0[..., 4], c1[..., 4]
+    interior = (d > p0) & (d < p1)
+    frac = torch.where(interior, (d - p0) / (p1 - p0), (d >= p1).to(d.dtype))
     rgba = c0[..., :4] + frac[..., None] * (c1[..., :4] - c0[..., :4])
-    require = valid & (value >= density_min)
-    return rgba[..., :3], torch.where(require, rgba[..., 3] * h,
-                                      torch.zeros_like(d))
+    require = valid & (value >= spec.density_min)
+    absn = torch.where(require, rgba[..., 3] * h, torch.zeros_like(d))
+    ca = 1.0 - torch.exp(-absn)
+    contrib = require & (absn > 0)
+    rgb = rgba[..., :3]
+    return (torch.where(contrib[..., None], rgb, rgb.detach()),
+            torch.where(contrib, ca, ca.detach()))
 
 
-@torch.no_grad()
+def _tile_geometry(rays: Tensor, tile: int):
+    """(packet (T, tile, 8), k0r, tmx (T, tile), k0t (T, 1))."""
+    n_tiles = rays.shape[0] // tile
+    packet = rays.reshape(n_tiles, tile, 8)
+    k0r, tmx = packet[..., 6], packet[..., 7]
+    # the tile's lattice base: every ray counts, box-missing ones too
+    k0t = torch.where(torch.isnan(k0r), torch.inf, k0r).amin(
+        dim=1, keepdim=True)
+    return packet, k0r, tmx, k0t
+
+
+def _segment_state(spec, k0r, tmx, k0t, s):
+    """(later, alive) per tile at segment ``s``: some ray has a lattice
+    point at or after the segment's start / inside the segment."""
+    h = spec.stepsize
+    ka = k0t + float(s * spec.seg)
+    first = torch.maximum(k0r, ka) * h
+    later = (first <= tmx).any(dim=1)
+    alive = (first <= torch.minimum(tmx, (ka + float(spec.seg - 1)) * h)
+             ).any(dim=1)
+    return later, alive
+
+
+def _segment(spec, params, packet, k0t, s, carry):
+    """March segment ``s`` of the tiles in ``packet`` (n, tile, 8) from
+    their incoming ``carry`` (n, tile, 4). Returns (outgoing carry,
+    samples evaluated per tile)."""
+    h = spec.stepsize
+    dev = packet.device
+    bmin = torch.tensor(spec.box_min, dtype=torch.float32, device=dev)
+    bsize = torch.tensor(spec.box_size, dtype=torch.float32, device=dev)
+    steps = torch.arange(spec.seg, dtype=torch.float32, device=dev)
+    k = (k0t + float(s * spec.seg))[:, :, None] + steps
+    k = k.expand(-1, packet.shape[1], -1)
+    valid = ((k * h <= packet[..., 7:8]) & (k >= packet[..., 6:7]))
+    p = packet[:, :, None, :]
+    pos01 = (p[..., 0:3] + (k * h)[..., None] * p[..., 3:6] - bmin) / bsize
+    color, ca = _shade(spec, params, pos01, valid)
+    c, a = carry[..., :3], carry[..., 3]
+    for j in range(spec.seg):          # front-to-back "over"
+        w = (1.0 - a) * ca[..., j]
+        c = c + w[..., None] * color[..., j, :]
+        a = a + (1.0 - a) * ca[..., j]
+    return torch.cat([c, a[..., None]], dim=-1), valid.sum(dim=(1, 2))
+
+
+def _chunks(idx: Tensor, spec: MarchSpec):
+    return idx.split(max(1, _PLAIN_CHUNK_SAMPLES // (spec.tile * spec.seg)))
+
+
+def _plain_march(spec: MarchSpec, rays: Tensor, params: list, *,
+                 store: bool = False):
+    """The plain forward: (rgba (R, 4), samples per tile, carries
+    (T, S, tile, 4) or None, segments visited per tile or None)."""
+    tile = spec.tile
+    packet, k0r, tmx, k0t = _tile_geometry(rays, tile)
+    n_tiles = packet.shape[0]
+    dev = rays.device
+    carry = torch.zeros(n_tiles, tile, 4, device=dev)
+    samples = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+    count = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+    stopped = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
+    carries = []
+    for s in range(1 << 30):
+        later, alive = _segment_state(spec, k0r, tmx, k0t, s)
+        if not bool(later.any()):
+            break                        # no tile has lattice points left
+        vote = (carry[..., 3] < spec.early_alpha).any(dim=1)
+        if store:
+            visiting = later & ~stopped
+            carries.append(carry.clone())
+            count[visiting] = s + 1
+            stopped |= visiting & ~vote
+        for idx in _chunks(torch.nonzero(alive & vote).flatten(), spec):
+            carry[idx], n = _segment(spec, params, packet[idx], k0t[idx], s,
+                                     carry[idx])
+            samples[idx] += n
+    out = carry.reshape(-1, 4)
+    if not store:
+        return out, samples, None, None
+    stack = (torch.stack(carries, dim=1) if carries
+             else carry.new_zeros(n_tiles, 0, tile, 4))
+    return out, samples, stack, count
+
+
+def _plain_backward(spec: MarchSpec, rays: Tensor, params: list,
+                    carries: Tensor, count: Tensor, d_out: Tensor) -> list:
+    """Gradients of ``params`` from the rgba cotangent: segments in
+    reverse, the vote replayed on the stored carries, each segment re-run
+    from its stored carry under autograd."""
+    tile = spec.tile
+    packet, k0r, tmx, k0t = _tile_geometry(rays, tile)
+    leaves = [None if p is None else p.detach().requires_grad_()
+              for p in params]
+    grads = [None if p is None else torch.zeros_like(p) for p in params]
+    used = [i for i, p in enumerate(leaves) if p is not None]
+    dcarry = d_out.reshape(-1, tile, 4).to(torch.float32).clone()
+    for s in reversed(range(carries.shape[1])):
+        _, alive = _segment_state(spec, k0r, tmx, k0t, s)
+        cs = carries[:, s]
+        vote = (cs[..., 3] < spec.early_alpha).any(dim=1)
+        run = (count > s) & alive & vote
+        for idx in _chunks(torch.nonzero(run).flatten(), spec):
+            with torch.enable_grad():
+                cin = cs[idx].detach().requires_grad_()
+                cout, _ = _segment(spec, leaves, packet[idx], k0t[idx], s,
+                                   cin)
+                g = torch.autograd.grad(
+                    cout, [cin] + [leaves[i] for i in used], dcarry[idx],
+                    allow_unused=True)
+            dcarry[idx] = g[0]
+            for i, gi in zip(used, g[1:]):
+                if gi is not None:
+                    grads[i] += gi
+    return grads
+
+
+class _PlainMarch(torch.autograd.Function):
+    """The plain differentiable march: the forward stores the carries
+    entering every visited segment, the backward re-runs the segments in
+    reverse (``_plain_backward``)."""
+
+    @staticmethod
+    def forward(ctx, rays, spec, *params):
+        out, samples, carries, count = _plain_march(spec, rays, list(params),
+                                                    store=True)
+        ctx.spec = spec
+        ctx.has_grid = params[2] is not None
+        saved = [p for p in params if p is not None]
+        ctx.save_for_backward(rays, carries, count, *saved)
+        ctx.mark_non_differentiable(samples)
+        return out, samples
+
+    @staticmethod
+    def backward(ctx, d_out, _d_samples):
+        rays, carries, count, *saved = ctx.saved_tensors
+        params = list(saved)
+        if not ctx.has_grid:
+            params.insert(2, None)
+        grads = _plain_backward(ctx.spec, rays, params, carries, count, d_out)
+        return (None, None, *grads)
+
+
 def mega_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
                          net: SceneRepresentationNetwork, box_min, box_size,
                          tf_tensor: Tensor, *, stepsize: float,
@@ -126,132 +361,309 @@ def mega_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
                          seg: int = 32, tile: int = KERNEL_TILE,
                          density_min: float = 0.0, density_max: float = 1.0,
                          enable_early_out: bool = True,
+                         differentiable: bool = False,
+                         table_dtype: Optional[torch.dtype] = None,
                          return_samples: bool = False):
     """Plain PyTorch version of :func:`mega_trace_dvr`: the same schedule
-    vectorized over tiles and rays, a Python loop over segments."""
+    vectorized over tiles and rays, a Python loop over segments; with
+    ``differentiable`` an autograd Function with the kernels' gradient."""
     strict_f32()
     _check_network(net)
+    if ray_start.requires_grad or ray_dir.requires_grad:
+        raise NotImplementedError("fused march: gradients with respect to "
+                                  "the rays are not ported yet")
     rays = ray_packet(ray_start, ray_dir, box_min, box_size, stepsize,
                       tmax_clip)
     if rays.shape[0] % tile:
         raise ValueError(f"ray count {rays.shape[0]} must be a multiple "
                          f"of tile={tile}")
-    dev = rays.device
-    bmin = torch.as_tensor(box_min, dtype=torch.float32, device=dev)
-    bsize = torch.as_tensor(box_size, dtype=torch.float32, device=dev)
-    tf = _tf_points(tf_tensor).to(dev)
-    grid = net.latent.static_grid
-    if grid is not None:
+    spec = _spec(net, box_min, box_size, stepsize=stepsize, seg=seg,
+                 tile=tile, density_min=density_min,
+                 density_max=density_max, enable_early_out=enable_early_out)
+    params = _params(net, _tf_points(tf_tensor).to(rays.device))
+    table_dtype = _table_dtype(table_dtype, differentiable)
+    if params[2] is not None and table_dtype != torch.float32:
         # the kernel's storage rounding, then float32 math
-        grid = grid.to(TABLE_DTYPE).to(torch.float32)
-    h = float(stepsize)
-    n_tiles = rays.shape[0] // tile
-    packet = rays.reshape(n_tiles, tile, 8)
-    k0r, tmx = packet[..., 6], packet[..., 7]
-    # the tile's lattice base: every ray counts, box-missing ones too
-    k0t = torch.where(torch.isnan(k0r), torch.inf, k0r).amin(
-        dim=1, keepdim=True)
-    rgb = torch.zeros(n_tiles, tile, 3, device=dev)
-    alpha = torch.zeros(n_tiles, tile, device=dev)
-    samples = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
-    early = EARLY_ALPHA if enable_early_out else 2.0
-    steps = torch.arange(seg, dtype=torch.float32, device=dev)
-    chunk = max(1, _PLAIN_CHUNK_SAMPLES // (tile * seg))
-    for s in range(1 << 30):
-        ka = k0t + float(s * seg)
-        first = torch.maximum(k0r, ka) * h
-        if not bool((first <= tmx).any()):
-            break                        # no tile has lattice points left
-        alive = (first <= torch.minimum(tmx, (ka + float(seg - 1)) * h)
-                 ).any(dim=1)
-        vote = (alpha < early).any(dim=1)
-        for idx in torch.nonzero(alive & vote).flatten().split(chunk):
-            k = (ka[idx][:, :, None] + steps).expand(-1, tile, -1)
-            valid = ((k * h <= tmx[idx][..., None])
-                     & (k >= k0r[idx][..., None]))
-            p = packet[idx][:, :, None, :]
-            pos01 = (p[..., 0:3] + (k * h)[..., None] * p[..., 3:6]
-                     - bmin) / bsize
-            color, absn = _shade(net, grid, tf, pos01, valid, h,
-                                 density_min, density_max)
-            ca = 1.0 - torch.exp(-absn)
-            a, c = alpha[idx], rgb[idx]
-            for j in range(seg):     # front-to-back "over"
-                w = (1.0 - a) * ca[..., j]
-                c = c + w[..., None] * color[..., j, :]
-                a = a + (1.0 - a) * ca[..., j]
-            alpha[idx], rgb[idx] = a, c
-            samples[idx] += valid.sum(dim=(1, 2))
-    out = torch.cat([rgb, alpha[..., None]], -1).reshape(-1, 4)
+        params[2] = params[2].to(table_dtype).to(torch.float32)
+    if differentiable:
+        out, samples = _PlainMarch.apply(rays, spec, *params)
+    else:
+        with torch.no_grad():
+            out, samples, _, _ = _plain_march(spec, rays, params)
     return (out, samples) if return_samples else out
 
 
-def _pack_weights(net: SceneRepresentationNetwork, tf: Tensor) -> Tensor:
-    """The kernel's packed float32 weights (layout in csrc/mega_fwd.cu)."""
-    dev = tf.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    fm = net.input.fourier_matrix
-    b = (fm.to(**f32) if fm is not None else torch.zeros(0, 3, **f32))
-    w1 = net.layers[0].weight.to(**f32)
-    cl = net.latent.total_channels
+def _table_dtype(table_dtype, differentiable: bool) -> torch.dtype:
+    if table_dtype is None:
+        return torch.float32 if differentiable else TABLE_DTYPE
+    if differentiable and table_dtype != torch.float32:
+        raise NotImplementedError("fused march: training runs with a "
+                                  "float32 latent table only")
+    if table_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"unsupported latent table dtype {table_dtype}")
+    return table_dtype
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+
+
+def _pack_weights(params: list) -> Tensor:
+    """The kernels' packed float32 weights (layout in csrc/mega_common.cuh):
+    Fourier B, layer 1 with its latent columns zero-padded to 16, its
+    bias, the hidden layers, their biases, the output row and bias, TF."""
+    tf, fourier, grid = params[0], params[1], params[2]
+    layers = params[3:]
+    f32 = dict(dtype=torch.float32, device=tf.device)
+    w1 = layers[0].to(**f32)
+    cl = 0 if grid is None else grid.shape[0]
     w1 = torch.cat([w1, torch.zeros(w1.shape[0], LATENT_CHANNELS - cl,
                                     **f32)], dim=1)
-    hidden = net.layers[1:-1]
-    out = net.layers[-1]
-    parts = [b, w1, net.layers[0].bias.to(**f32)]
-    parts += [l.weight.to(**f32) for l in hidden]
-    parts += [l.bias.to(**f32) for l in hidden]
-    parts += [out.weight.to(**f32), out.bias.to(**f32), tf]
+    hidden_w = layers[2:-2:2]
+    hidden_b = layers[3:-2:2]
+    parts = [fourier.to(**f32), w1, layers[1].to(**f32)]
+    parts += [w.to(**f32) for w in hidden_w]
+    parts += [b.to(**f32) for b in hidden_b]
+    parts += [layers[-2].to(**f32), layers[-1].to(**f32), tf.to(**f32)]
     return torch.cat([p.reshape(-1) for p in parts]).contiguous()
 
 
-def latent_table(net: SceneRepresentationNetwork) -> Tensor:
-    """The latent grid (C, D, H, W) as the kernel's channel-last
-    (D, H, W, 16) bf16 table, channels zero-padded to 16."""
-    grid = net.latent.static_grid
+def _unpack_grads(dw: Tensor, params: list) -> list:
+    """Per-parameter gradients from the packed gradient ``dw`` (the
+    inverse of :func:`_pack_weights`; padded latent columns dropped)."""
+    tf, fourier, grid = params[0], params[1], params[2]
+    layers = params[3:]
+    n_hidden = len(layers) // 2 - 2
+    f = fourier.shape[0]
+    k1 = 3 + 2 * f + LATENT_CHANNELS
+    sizes = [("fourier", f * 3), ("w1", HIDDEN * k1), ("b1", HIDDEN),
+             ("wh", n_hidden * HIDDEN * HIDDEN), ("bh", n_hidden * HIDDEN),
+             ("wo", HIDDEN), ("bo", 1), ("tf", tf.numel())]
+    parts = dict(zip([n for n, _ in sizes],
+                     dw.split([n for _, n in sizes])))
+    d_layers = [parts["w1"].reshape(HIDDEN, k1)[:, :layers[0].shape[1]],
+                parts["b1"]]
+    wh = parts["wh"].reshape(n_hidden, HIDDEN, HIDDEN)
+    bh = parts["bh"].reshape(n_hidden, HIDDEN)
+    for i in range(n_hidden):
+        d_layers += [wh[i], bh[i]]
+    d_layers += [parts["wo"].reshape(1, HIDDEN), parts["bo"]]
+    return ([parts["tf"].reshape(tf.shape), parts["fourier"].reshape(f, 3),
+             None] + d_layers)
+
+
+def latent_table(grid: Tensor, dtype: torch.dtype = TABLE_DTYPE) -> Tensor:
+    """The latent grid (C, D, H, W) as the kernels' channel-last
+    (D, H, W, 16) table, channels zero-padded to 16."""
     c = grid.shape[0]
     t = grid.detach().permute(1, 2, 3, 0)
     if c < LATENT_CHANNELS:
         t = torch.cat([t, t.new_zeros(t.shape[:3] + (LATENT_CHANNELS - c,))],
                       dim=3)
-    return t.to(TABLE_DTYPE).contiguous()
+    return t.to(dtype).contiguous()
 
 
-def _check_kernel_inputs(net, rays: Tensor, tile: int):
-    """What the kernel takes: the product network's shape (32-wide
-    SnakeAlt layers, ``density:direct`` head, a latent grid of <= 16
-    channels, positional Fourier features) and 256-ray tiles."""
+def _kernel_table(grid: Optional[Tensor], dtype: torch.dtype,
+                  device) -> Tensor:
+    """The kernels' table of ``grid``; without a grid, one zero voxel
+    (every latent feature 0, no latent channel read back)."""
+    if grid is None:
+        return torch.zeros(1, 1, 1, LATENT_CHANNELS, dtype=dtype,
+                           device=device)
+    return latent_table(grid, dtype)
+
+
+def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
+                         differentiable: bool = False):
+    """What the kernels take: the product network's shape (32-wide
+    SnakeAlt layers, ``density:direct`` head, no latent grid or one of
+    <= 16 channels, positional Fourier features), 256-ray tiles, and for
+    the backward 32-point segments and constant rays. Everything else
+    raises ``NotImplementedError``: the kernels do not take it yet."""
     if tile != KERNEL_TILE:
         raise NotImplementedError(f"CUDA kernel: tile={KERNEL_TILE} only")
     if rays.shape[0] % tile:
         raise ValueError(f"ray count {rays.shape[0]} must be a multiple "
                          f"of tile={tile}")
+    if rays.requires_grad:
+        raise NotImplementedError("CUDA kernel: gradients with respect to "
+                                  "the rays are not ported yet")
     widths = {l.weight.shape[0] for l in net.layers[:-1]}
     acts = {(l.activation, l.activation_param) for l in net.layers[:-1]}
     if (widths != {HIDDEN} or len(acts) != 1
             or next(iter(acts))[0] != "SnakeAlt"
-            or net.output_mode != "density:direct"):
+            or net.output_mode != "density:direct"
+            or not 2 <= len(net.layers) <= MAX_HIDDEN_LAYERS + 2):
         raise NotImplementedError("CUDA kernel: 32-wide SnakeAlt layers "
                                   "and a density:direct head only")
     grid = net.latent.static_grid
-    if grid is None or grid.shape[0] > LATENT_CHANNELS:
+    if grid is not None and grid.shape[0] > LATENT_CHANNELS:
         raise NotImplementedError("CUDA kernel: a latent grid of <= 16 "
                                   "channels")
     fm = net.input.fourier_matrix
-    if fm is not None and fm.shape[1] != 3:
-        raise NotImplementedError("CUDA kernel: positional Fourier only")
+    if fm is not None and (fm.shape[1] != 3 or fm.shape[0] > MAX_FOURIER):
+        raise NotImplementedError("CUDA kernel: positional Fourier only, "
+                                  f"at most {MAX_FOURIER} features")
+    if differentiable and seg != KERNEL_SEG:
+        raise NotImplementedError(f"CUDA backward: seg={KERNEL_SEG} only")
 
 
-def _bind(lib: ctypes.CDLL):
+def _check_tensors(dev, **tensors):
+    for name, t in tensors.items():
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _bind_fwd(lib: ctypes.CDLL):
     fn = lib.mega_fwd_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, i, p, p, i, i, i, i, i, i, i, f, i,
+    fn.argtypes = [p, p, i, p, i, p, p, p, p, i, i, i, i, i, i, i, f, i, i,
                    f, f, f, f, f, f, f, f, f, f, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-@torch.no_grad()
+def _bind_bwd(lib: ctypes.CDLL):
+    fn = lib.mega_bwd_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f,
+                   i, i, f, f, f, f, f, f, f, f, f, f, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def segments_needed(rays: Tensor, spec: MarchSpec) -> int:
+    """Segments the longest tile can visit, from this call's rays: the
+    lattice points between the tile's base k0t and its last live point
+    (at most ``max_steps_bound`` plus the tile's spread of entry points),
+    plus one segment of slack for rounding. Syncs with the device once."""
+    _, k0r, tmx, k0t = _tile_geometry(rays, spec.tile)
+    h = spec.stepsize
+    live = k0r * h <= tmx
+    last = torch.where(live, torch.floor(tmx / h), -torch.inf).amax(dim=1)
+    need = torch.where(live.any(dim=1),
+                       torch.floor((last - k0t[:, 0]) / spec.seg) + 1.0,
+                       torch.zeros_like(last))
+    return int(need.max().item()) + 1 if need.numel() else 1
+
+
+def _launch_fwd(rays: Tensor, weights: Tensor, table: Tensor, spec: MarchSpec,
+                n_fourier: int, n_hidden: int, tf_points: int,
+                n_seg_max: Optional[int] = None):
+    """Launch csrc/mega_fwd.cu. With ``n_seg_max`` it also stores the
+    incoming carries and the segments visited. Returns (out, samples,
+    carries or None, count or None)."""
+    dev = rays.device
+    n_tiles = rays.shape[0] // spec.tile
+    f32 = table.dtype == torch.float32
+    out = torch.empty(rays.shape[0], 4, dtype=torch.float32, device=dev)
+    samples = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    carries = count = None
+    if n_seg_max is not None:
+        carries = torch.empty(n_tiles, n_seg_max, spec.tile, 4,
+                              dtype=torch.float32, device=dev)
+        count = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    _check_tensors(dev, rays=rays, weights=weights, table=table)
+    gz, gy, gx = table.shape[:3]
+    launch = _bind_fwd(_build.load("mega_fwd"))
+    with torch.cuda.device(dev):
+        err = launch(
+            rays.data_ptr(), table.data_ptr(), int(f32), weights.data_ptr(),
+            weights.numel(), out.data_ptr(), samples.data_ptr(),
+            carries.data_ptr() if carries is not None else None,
+            count.data_ptr() if count is not None else None,
+            rays.shape[0], gx, gy, gz, n_fourier, n_hidden, tf_points,
+            spec.activations[0][1], spec.seg,
+            n_seg_max if n_seg_max is not None else 1 << 30,
+            spec.stepsize, spec.density_min,
+            1.0 / (spec.density_max - spec.density_min), spec.early_alpha,
+            *spec.box_min, *spec.box_size, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"mega_fwd launch failed with CUDA error {err}")
+    return out, samples, carries, count
+
+
+def _launch_bwd(rays, weights, table, carries, count, d_out, spec,
+                n_fourier, n_hidden, tf_points, n_lat):
+    """Launch csrc/mega_bwd.cu. Returns (packed weight gradient summed
+    over tiles, table gradient (D, H, W, 16), (tiles, 2) samples replayed
+    and contributing)."""
+    dev = rays.device
+    n_tiles = rays.shape[0] // spec.tile
+    d_out = d_out.to(torch.float32).contiguous()
+    d_rows = torch.empty(n_tiles, weights.numel(), dtype=torch.float32,
+                         device=dev)
+    d_table = torch.zeros_like(table, dtype=torch.float32)
+    work = torch.empty(n_tiles, 2, dtype=torch.int32, device=dev)
+    _check_tensors(dev, rays=rays, weights=weights, table=table,
+                   carries=carries, count=count, d_out=d_out)
+    if table.dtype != torch.float32 or d_out.shape != (rays.shape[0], 4):
+        raise ValueError("backward: float32 table and (R, 4) cotangent")
+    gz, gy, gx = table.shape[:3]
+    launch = _bind_bwd(_build.load("mega_bwd"))
+    with torch.cuda.device(dev):
+        err = launch(
+            rays.data_ptr(), table.data_ptr(), weights.data_ptr(),
+            weights.numel(), carries.data_ptr(), count.data_ptr(),
+            d_out.data_ptr(), d_rows.data_ptr(), d_table.data_ptr(),
+            work.data_ptr(), rays.shape[0], gx, gy, gz, n_lat, n_fourier,
+            n_hidden, tf_points, spec.activations[0][1], spec.seg,
+            carries.shape[1],
+            spec.stepsize, spec.density_min,
+            1.0 / (spec.density_max - spec.density_min), spec.early_alpha,
+            *spec.box_min, *spec.box_size, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"mega_bwd launch failed with CUDA error {err}")
+    return d_rows.sum(dim=0), d_table, work
+
+
+def _widths(params: list) -> tuple[int, int, int, int]:
+    """(n_fourier, n_hidden, tf_points, latent channels)."""
+    return (params[1].shape[0], len(params[3:]) // 2 - 2, params[0].shape[0],
+            0 if params[2] is None else params[2].shape[0])
+
+
+class _KernelMarch(torch.autograd.Function):
+    """The differentiable march on the card: the forward launches
+    csrc/mega_fwd.cu storing the carries, the backward csrc/mega_bwd.cu."""
+
+    @staticmethod
+    def forward(ctx, rays, spec, *params):
+        params = list(params)
+        n_fourier, n_hidden, tf_points, n_lat = _widths(params)
+        weights = _pack_weights(params)
+        table = _kernel_table(params[2], torch.float32, rays.device)
+        out, samples, carries, count = _launch_fwd(
+            rays, weights, table, spec, n_fourier, n_hidden, tf_points,
+            n_seg_max=segments_needed(rays, spec))
+        global DIFF_LAUNCHES
+        DIFF_LAUNCHES += 1
+        ctx.spec = spec
+        ctx.save_for_backward(rays, weights, table, carries, count, *params)
+        ctx.mark_non_differentiable(samples)
+        return out, samples
+
+    @staticmethod
+    def backward(ctx, d_out, _d_samples):
+        rays, weights, table, carries, count, *params = ctx.saved_tensors
+        n_fourier, n_hidden, tf_points, n_lat = _widths(params)
+        dw, d_table, _ = _launch_bwd(rays, weights, table, carries, count,
+                                  d_out, ctx.spec, n_fourier, n_hidden,
+                                  tf_points, n_lat)
+        global BWD_LAUNCHES
+        BWD_LAUNCHES += 1
+        grads = _unpack_grads(dw, params)
+        if n_lat:
+            grads[2] = d_table[..., :n_lat].permute(3, 0, 1, 2).contiguous()
+        return (None, None, *grads)
+
+
 def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                    net: SceneRepresentationNetwork, box_min, box_size,
                    tf_tensor: Tensor, *, stepsize: float,
@@ -259,14 +671,19 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                    seg: int = 32, tile: int = KERNEL_TILE,
                    density_min: float = 0.0, density_max: float = 1.0,
                    enable_early_out: bool = True,
+                   differentiable: bool = False,
+                   table_dtype: Optional[torch.dtype] = None,
                    return_samples: bool = False):
-    """Fused SRN march forward (see the module doc). CUDA tensors launch
-    the kernel, CPU tensors run :func:`mega_trace_dvr_plain`. Returns
-    rgba (R, 4), and the samples evaluated per tile with
-    ``return_samples``."""
+    """Fused SRN march (see the module doc). CUDA tensors launch the
+    kernels, CPU tensors run :func:`mega_trace_dvr_plain`. The render
+    (``differentiable=False``) reads a bf16 latent table by default; with
+    ``differentiable=True`` the result carries gradients to the network's
+    parameters and to ``tf_tensor``, from a float32 table. Returns rgba
+    (R, 4), and the samples evaluated per tile with ``return_samples``."""
     kw = dict(stepsize=stepsize, tmax_clip=tmax_clip, seg=seg, tile=tile,
               density_min=density_min, density_max=density_max,
               enable_early_out=enable_early_out,
+              differentiable=differentiable, table_dtype=table_dtype,
               return_samples=return_samples)
     if ray_start.device.type == "cpu":
         return mega_trace_dvr_plain(ray_start, ray_dir, net, box_min,
@@ -277,34 +694,25 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
     dev = ray_start.device
     rays = ray_packet(ray_start, ray_dir, box_min, box_size, stepsize,
                       tmax_clip)
-    _check_kernel_inputs(net, rays, tile)
-    tf = _tf_points(tf_tensor).to(dev).contiguous()
-    weights = _pack_weights(net, tf)
-    table = latent_table(net).to(dev)
-    if table.data_ptr() % 16:
-        raise ValueError("latent table must be 16-byte aligned")
-    for name, t in (("rays", rays), ("weights", weights), ("table", table)):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {dev}")
-    gz, gy, gx = table.shape[:3]
-    n_tiles = rays.shape[0] // tile
-    out = torch.empty(rays.shape[0], 4, dtype=torch.float32, device=dev)
-    samples = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    bmin = [float(v) for v in box_min]
-    bsize = [float(v) for v in box_size]
-    launch = _bind(_build.load("mega_fwd"))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(
-            rays.data_ptr(), table.data_ptr(), weights.data_ptr(),
-            weights.numel(), out.data_ptr(), samples.data_ptr(),
-            rays.shape[0], gx, gy, gz, net.input.num_fourier,
-            len(net.layers) - 2, tf.shape[0],
-            net.layers[0].activation_param, seg, float(stepsize),
-            float(density_min), 1.0 / (density_max - density_min),
-            EARLY_ALPHA if enable_early_out else 2.0, *bmin, *bsize, stream)
-    if err != 0:
-        raise RuntimeError(f"mega_fwd launch failed with CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
+    _check_kernel_inputs(net, rays, tile, seg, differentiable)
+    spec = _spec(net, box_min, box_size, stepsize=stepsize, seg=seg,
+                 tile=tile, density_min=density_min,
+                 density_max=density_max, enable_early_out=enable_early_out)
+    tf = _tf_points(tf_tensor).to(dev)
+    if tf.shape[0] > MAX_TF_POINTS:
+        raise NotImplementedError(f"CUDA kernel: at most {MAX_TF_POINTS} "
+                                  "TF control points")
+    params = _params(net, tf)
+    table_dtype = _table_dtype(table_dtype, differentiable)
+    if differentiable:
+        out, samples = _KernelMarch.apply(rays, spec, *params)
+    else:
+        with torch.no_grad():
+            n_fourier, n_hidden, tf_points, _ = _widths(params)
+            out, samples, _, _ = _launch_fwd(
+                rays, _pack_weights(params),
+                _kernel_table(params[2], table_dtype, dev), spec, n_fourier,
+                n_hidden, tf_points)
+        global LAUNCHES
+        LAUNCHES += 1
     return (out, samples) if return_samples else out

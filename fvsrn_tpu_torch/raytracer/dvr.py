@@ -7,6 +7,11 @@ alpha early-out. With ``lattice=True`` samples sit on the global step
 lattice t = k*stepsize (first sample at ceil(tmin/stepsize)*stepsize),
 the sampling of the fused megakernel; ``tmax_in`` clamps each ray's
 march (the saturation clip of the product render).
+
+The march is differentiable (autograd through the loop): it is the
+gradient oracle of the fused backward and the plain route of screen
+training. ``checkpoint_chunk`` recomputes the network in the backward
+instead of storing every step's activations.
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 from torch import Tensor
+
+from torch.utils.checkpoint import checkpoint
 
 from .. import blending
 from ..utils.device import strict_f32
@@ -55,13 +62,18 @@ def max_steps_bound(box_size, stepsize: float) -> int:
     return int(math.ceil(diag / float(stepsize))) + 1
 
 
-@torch.no_grad()
 def trace_dvr(ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
               config: RayEvaluationSteppingDvr, max_steps: int,
               tmax_in: Optional[Tensor] = None,
-              lattice: bool = False) -> RayEvaluationOutput:
+              lattice: bool = False,
+              checkpoint_chunk: Optional[int] = None) -> RayEvaluationOutput:
     """March rays (..., 3) through ``volume`` (``eval_density`` + box)
-    with the TF ``tf``. Returns rgba and depth."""
+    with the TF ``tf``. Returns rgba and depth.
+
+    ``checkpoint_chunk``: None stores every step for the backward; c >= 1
+    runs the march in chunks of c steps under ``torch.utils.checkpoint``,
+    so the backward keeps one carry per chunk and recomputes the chunk
+    (the JAX package's checkpointed chunks of its scan)."""
     if getattr(volume, "outputs_color", False):
         raise NotImplementedError("marching color-output volumes is not "
                                   "ported yet")
@@ -82,7 +94,7 @@ def trace_dvr(ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
     prev = torch.full_like(alpha, -1.0)
     k0 = torch.ceil(tmin / h) if lattice else None
 
-    for i in range(max_steps):
+    def step(i, rgb, alpha, depth, prev):
         t = (k0 + i) * h if lattice else tmin + i * h
         valid = t <= tmax
         if config.enable_early_out:
@@ -94,13 +106,29 @@ def trace_dvr(ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
         color = tf.eval_normalized(torch.clamp(density2[..., 0], 0, 1),
                                    None, prev[..., 0], h)
         color = torch.where(require, color, torch.zeros_like(color))
-        prev = density2
         contribute = valid & (color[..., 3:4] > 0)
         new_rgb, new_alpha, new_depth = blending.blend_step(
             rgb, alpha, color, config.blend_mode,
             acc_depth=depth, contrib_depth=t)
-        rgb = torch.where(contribute, new_rgb, rgb)
-        alpha = torch.where(contribute, new_alpha, alpha)
-        depth = torch.where(contribute, new_depth, depth)
+        return (torch.where(contribute, new_rgb, rgb),
+                torch.where(contribute, new_alpha, alpha),
+                torch.where(contribute, new_depth, depth), density2)
+
+    def chunk(first, n, *carry):
+        for i in range(first, first + n):
+            carry = step(i, *carry)
+        return carry
+
+    carry = (rgb, alpha, depth, prev)
+    if checkpoint_chunk is None or not torch.is_grad_enabled():
+        carry = chunk(0, max_steps, *carry)
+    else:
+        c = int(checkpoint_chunk)
+        if c < 1:
+            raise ValueError("checkpoint_chunk must be >= 1")
+        for first in range(0, max_steps, c):
+            carry = checkpoint(chunk, first, min(c, max_steps - first),
+                               *carry, use_reentrant=False)
+    rgb, alpha, depth, _ = carry
     return RayEvaluationOutput(color=torch.cat([rgb, alpha], dim=-1),
                                depth=depth)

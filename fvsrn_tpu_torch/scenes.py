@@ -1,24 +1,50 @@
 """Benchmark scenes of the port.
 
-Counterpart of ``fvsrn_tpu/scenes.py`` for the dense flagship: the
-Marschner-Lobb SRN with a ramp-from-zero TF, under which every density
-maps to a nonzero opacity (no empty space to skip). The analytic volume
-and the sparse scene are not ported yet.
+Counterpart of ``fvsrn_tpu/scenes.py``: each scene is (analytic volume,
+TF, weights path).
+
+- ``dense``: the Marschner-Lobb flagship with a ramp-from-zero TF, under
+  which every density maps to a nonzero opacity (no empty space to skip);
+- ``sparse``: the MULTI_SHELL field with a zero-opacity band below
+  density 0.30. Its trained weights are not exported to the port's
+  ``.npz`` yet, so asking for the scene raises.
 """
 from __future__ import annotations
 
 import os
 
 from .transfer import TransferFunctionPiecewiseLinear
+from .volume.implicit import VolumeInterpolationImplicit
 
 ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets")
 
+# the zero band of the sparse TF: opacity == 0 for density < this
+SPARSE_ZERO_BAND = 0.30
+
 
 def dense_scene():
-    """(tf, weights_path) of the dense-TF flagship; the weights are the
-    ``.npz`` export of ``assets/flagship_mlobb.hdf5``."""
+    """(volume, tf, weights_path) of the dense-TF flagship; the weights
+    are the ``.npz`` export of ``assets/flagship_mlobb.hdf5``."""
+    volume = VolumeInterpolationImplicit.make("MARSCHNER_LOBB")
     tf = TransferFunctionPiecewiseLinear.make(
         rgb=[[0.1, 0.1, 0.8], [0.9, 0.4, 0.1], [1.0, 1.0, 0.6]],
         opacity=[0.0, 10.0, 30.0], positions=[0.0, 0.5, 1.0])
-    return tf, os.path.join(ASSET_DIR, "flagship_mlobb_torch.npz")
+    return volume, tf, os.path.join(ASSET_DIR, "flagship_mlobb_torch.npz")
+
+
+def sparse_scene():
+    """(volume, tf, weights_path) of the sparse-TF flagship. Raises while
+    ``assets/flagship_shell.hdf5`` has no ``.npz`` export."""
+    path = os.path.join(ASSET_DIR, "flagship_shell_torch.npz")
+    if not os.path.exists(path):
+        raise NotImplementedError(
+            "the sparse flagship's weights are not exported for the port "
+            f"yet ({os.path.relpath(path, os.path.dirname(ASSET_DIR))})")
+    volume = VolumeInterpolationImplicit.make("MULTI_SHELL")
+    tf = TransferFunctionPiecewiseLinear.make(
+        rgb=[[0.2, 0.4, 1.0], [0.2, 0.4, 1.0], [1.0, 0.6, 0.15],
+             [1.0, 0.95, 0.7]],
+        opacity=[0.0, 0.0, 18.0, 40.0],
+        positions=[0.0, SPARSE_ZERO_BAND, 0.6, 1.0])
+    return volume, tf, path

@@ -1,14 +1,19 @@
-"""Read network weights exported for the port.
+"""Network weights on disk for the port: the ``.npz`` run file.
 
 The JAX package stores weights as a pickled JAX tree inside an hdf5 run
 file, which only unpickles where JAX and the JAX package import. The
 port reads instead the ``.npz`` that ``tools/export_torch_weights.py``
-writes from such a run file: named float32 arrays plus a JSON ``meta``
-entry, read with numpy alone (no pickle).
+writes from such a run file, and writes the same layout at the end of a
+training run (``save_run``): named float32 arrays keyed by their path in
+the network (``input.fourier_matrix``, ``layers.{i}.weight``,
+``latent.static_grid``) plus a JSON ``meta`` entry with the static
+fields, read back with numpy alone (no pickle). A run file's ``meta``
+also holds the run's options and its per-epoch loss history.
 """
 from __future__ import annotations
 
 import json
+import os
 
 import numpy as np
 
@@ -30,3 +35,34 @@ def load_weights(path: str) -> SceneRepresentationNetwork:
     """The SRN of an exported ``.npz``, on the CPU."""
     arrays, meta = load_arrays(path)
     return srn_from_arrays(arrays, meta)
+
+
+def network_meta(network: SceneRepresentationNetwork) -> dict:
+    """The static fields ``srn_from_arrays`` needs besides the arrays."""
+    return {
+        "layers": [{"activation": l.activation,
+                    "activation_param": float(l.activation_param)}
+                   for l in network.layers],
+        "output_mode": network.output_mode,
+        "has_direction": bool(network.input.has_direction),
+        "disable_direction_in_fourier": bool(
+            network.input.disable_direction_in_fourier),
+    }
+
+
+def save_run(path: str, network: SceneRepresentationNetwork,
+             options: dict, history: list) -> None:
+    """Write ``network`` with the run's ``options`` (str/int/float/bool
+    values) and per-epoch loss ``history`` to ``path`` (the ``.npz``
+    layout above, written at exactly ``path``)."""
+    arrays = {name: p.detach().cpu().numpy().astype(np.float32)
+              for name, p in network.named_parameters()}
+    meta = dict(network_meta(network),
+                options={k: v for k, v in options.items()
+                         if isinstance(v, (str, int, float, bool))},
+                history=[float(v) for v in history])
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **{META_KEY: np.asarray(json.dumps(meta, sort_keys=True))},
+                 **arrays)
+    os.replace(tmp, path)

@@ -1,0 +1,173 @@
+"""Training entry point: screen-space SRN fitting.
+
+Counterpart of ``fvsrn_tpu/train/main.py`` for ``--mode screen``: the
+same options, the network and latent-grid initialization from the seed,
+ground truth from an implicit scene, the fused march's kernels when the
+configuration is one they take (``--no_fused`` for the plain march), and
+a ``.npz`` run file (``train.checkpoints.save_run``) written every
+``--save_frequency`` epochs and at the end. Runs on the card unless
+``--device cpu`` is given. Not ported yet: ``--mode world``,
+``--data_parallel``, ``--tensorboard`` and scene JSON files.
+
+Usage:
+  python -m fvsrn_tpu_torch.train.main IMPLICIT:MARSCHNER_LOBB out.npz
+      --mode screen --layers 32:32:32 --activation SnakeAlt:2 ...
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..models.latent import LatentSpace
+from ..models.srn import SceneRepresentationNetwork
+from ..raytracer.dvr import RayEvaluationSteppingDvr, max_steps_bound
+from ..transfer import TransferFunctionPiecewiseLinear
+from ..utils.device import resolve_device
+from ..volume.implicit import VolumeInterpolationImplicit
+from .checkpoints import save_run
+from .losses import LossNetScreen
+from .optimizer import make_optimizer
+from .screen import (build_screen_dataset, fused_screen_supported,
+                     screen_mega_kwargs, train_screen)
+
+
+def init_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Train a scene representation network")
+    p.add_argument("scene", help="IMPLICIT:<EQUATION>")
+    p.add_argument("output", help="output .npz run file")
+
+    g = p.add_argument_group("Network")
+    g.add_argument("--layers", default="32:32:32")
+    g.add_argument("--activation", default="SnakeAlt:2")
+    g.add_argument("--outputmode", default="density:direct",
+                   choices=["density", "density:direct", "rgbo",
+                            "rgbo:direct", "rgbo:exp"])
+    g.add_argument("--fouriercount", type=int, default=14)
+    g.add_argument("--fourierstd", type=float, default=1.0,
+                   help="<=0 selects the NeRF block-identity matrix")
+    g.add_argument("--volumetric_features_channels", type=int, default=0)
+    g.add_argument("--volumetric_features_resolution", type=int,
+                   default=0)
+    g.add_argument("--volumetric_features_std", type=float, default=0.01)
+    g.add_argument("--seed", type=int, default=42)
+
+    g = p.add_argument_group("Data")
+    g.add_argument("--mode", choices=["world", "screen"], default="world",
+                   help="world is not ported yet")
+    g.add_argument("--screen_cameras", type=int, default=16)
+    g.add_argument("--screen_size", type=int, default=64)
+    g.add_argument("--data_parallel", type=int, default=0)
+
+    g = p.add_argument_group("Optimization")
+    g.add_argument("-o", "--optimizer", default="Adam")
+    g.add_argument("-lr", type=float, default=0.01)
+    g.add_argument("-i", "--epochs", type=int, default=50)
+    g.add_argument("--lr_gamma", type=float, default=0.5)
+    g.add_argument("--lr_step", type=int, default=500)
+
+    g = p.add_argument_group("Loss")
+    g.add_argument("-l1", type=float, default=1.0)
+    g.add_argument("-l2", type=float, default=0.0)
+    g.add_argument("--dssim", type=float, default=0.0)
+
+    g = p.add_argument_group("Output")
+    g.add_argument("--save_frequency", type=int, default=10)
+    g.add_argument("--tensorboard", default=None)
+    g.add_argument("--stepsize", type=float, default=1 / 128)
+    g.add_argument("--no_fused", action="store_true",
+                   help="screen mode: the plain march instead of the "
+                        "fused kernels")
+    g.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (the plain versions)")
+    return p
+
+
+def _resolve_scene(spec: str):
+    """(volume, tf, stepping config) of ``IMPLICIT:<EQUATION>``."""
+    if not spec.startswith("IMPLICIT:"):
+        raise NotImplementedError("scene JSON files are not ported yet; "
+                                  "use IMPLICIT:<EQUATION>")
+    vol = VolumeInterpolationImplicit.make(spec.split(":", 1)[1])
+    tf = TransferFunctionPiecewiseLinear.make(
+        rgb=[[0.9, 0.4, 0.1], [1.0, 1.0, 0.6]],
+        opacity=[0.0, 20.0], positions=[0.0, 1.0])
+    return vol, tf, RayEvaluationSteppingDvr.make(stepsize=1 / 128)
+
+
+def run(opt: dict) -> dict:
+    """Programmatic entry; returns {'history', 'network', 'fused'}."""
+    if opt["mode"] != "screen":
+        raise NotImplementedError("--mode world is not ported yet")
+    for key in ("data_parallel", "tensorboard"):
+        if opt.get(key):
+            raise NotImplementedError(f"--{key} is not ported yet")
+    dev = resolve_device(opt.get("device", "cuda"))
+    volume, tf, ray_config = _resolve_scene(opt["scene"])
+    ray_config = RayEvaluationSteppingDvr.make(
+        **dict(ray_config.__dict__, stepsize=opt["stepsize"]))
+
+    latent = LatentSpace()
+    if (opt["volumetric_features_channels"] > 0
+            and opt["volumetric_features_resolution"] > 0):
+        rng = np.random.default_rng(opt["seed"])
+        r = opt["volumetric_features_resolution"]
+        latent = LatentSpace(static_grid=torch.from_numpy((
+            rng.standard_normal(
+                (opt["volumetric_features_channels"], r, r, r))
+            * opt["volumetric_features_std"]).astype(np.float32)))
+    net = SceneRepresentationNetwork.make(
+        layers=opt["layers"], activation=opt["activation"],
+        output_mode=opt["outputmode"], num_fourier=opt["fouriercount"],
+        fourier_std=opt["fourierstd"], latent=latent,
+        seed=opt["seed"]).to(dev)
+    optimizer = make_optimizer(net.parameters(), opt["optimizer"],
+                               lr=opt["lr"], lr_step=opt["lr_step"],
+                               lr_gamma=opt["lr_gamma"])
+    loss = LossNetScreen(l1=opt["l1"], l2=opt["l2"], dssim=opt["dssim"])
+    ds = build_screen_dataset(volume, tf, ray_config,
+                              num_cameras=opt["screen_cameras"],
+                              width=opt["screen_size"],
+                              height=opt["screen_size"], device=dev)
+    max_steps = max_steps_bound((1.0, 1.0, 1.0), float(ray_config.stepsize))
+    use_fused = (not opt.get("no_fused")
+                 and fused_screen_supported(net, tf, ds.width, ds.height))
+    fused_kwargs = None
+    if use_fused:
+        fused_kwargs = screen_mega_kwargs(ds)
+        print("screen mode: fused march enabled (--no_fused for the plain "
+              "march)", file=sys.stderr)
+
+    history = []
+    t_start = time.time()
+
+    def epoch_cb(e, network, loss_val):
+        history.append(loss_val)
+        if (e + 1) % opt["save_frequency"] == 0:
+            save_run(opt["output"], network, opt, history)
+
+    net, _ = train_screen(
+        net, ds, tf, ray_config, loss, optimizer, epochs=opt["epochs"],
+        max_steps=max_steps,
+        generator=torch.Generator().manual_seed(opt["seed"]),
+        use_fused=use_fused, fused_kwargs=fused_kwargs, callback=epoch_cb)
+    save_run(opt["output"], net, dict(opt, seconds=time.time() - t_start),
+             history)
+    return {"history": history, "network": net, "fused": use_fused}
+
+
+def main(argv=None):
+    opt = vars(init_parser().parse_args(argv))
+    result = run(opt)
+    h = result["history"]
+    print(f"trained {len(h)} epochs; loss {h[0]:.5f} -> {h[-1]:.5f}; "
+          f"run file: {opt['output']}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

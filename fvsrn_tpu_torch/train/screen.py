@@ -1,0 +1,191 @@
+"""Screen-space SRN training: a differentiable render and an image loss.
+
+Counterpart of ``fvsrn_tpu/train/screen.py``:
+
+- ``build_screen_dataset``: fibonacci-sphere cameras and ground-truth
+  renders of the reference volume by the plain ``trace_dvr``;
+- ``evaluate_screen``: the differentiable render of the SRN plus the image
+  loss, through the fused march (``ops.fused_mega.mega_trace_dvr`` with
+  ``differentiable=True``: the CUDA kernels on the card, their plain
+  versions on the CPU) or through the plain ``trace_dvr`` with per-step
+  checkpointing;
+- ``train_screen``: the epoch loop over camera minibatches, one Adam step
+  and one scheduler step per minibatch, aborting on a non-finite loss.
+
+Camera order is drawn with a seeded ``torch.Generator``; it cannot repeat
+the JAX package's random order. The hdf5 dataset cache and the
+data-parallel loop are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from ..camera import fibonacci_sphere_cameras, generate_rays
+from ..models.network_volume import VolumeInterpolationNetwork
+from ..ops.fused_dvr import block_ray_permutation
+from ..ops.fused_mega import (KERNEL_SEG, KERNEL_TILE, LATENT_CHANNELS,
+                              mega_trace_dvr)
+from ..raytracer.dvr import (RayEvaluationSteppingDvr, max_steps_bound,
+                             trace_dvr)
+from ..transfer import TransferFunctionPiecewiseLinear
+from ..utils.device import resolve_device
+from .losses import LossNetScreen
+
+
+class ScreenDataset(NamedTuple):
+    """Per-camera rays and ground-truth rgba images (flattened)."""
+    ray_start: Tensor   # (C, H*W, 3)
+    ray_dir: Tensor     # (C, H*W, 3)
+    targets: Tensor     # (C, H*W, 4)
+    width: int
+    height: int
+
+
+def build_screen_dataset(volume, tf, config: RayEvaluationSteppingDvr, *,
+                         num_cameras: int = 16, width: int = 64,
+                         height: int = 64, distance: float = 1.6,
+                         center=(0.0, 0.0, 0.0),
+                         max_steps: Optional[int] = None,
+                         render_chunk: int = 1 << 18,
+                         cache_path: Optional[str] = None,
+                         device="cuda") -> ScreenDataset:
+    """Render ground-truth images of ``volume`` from fibonacci-sphere
+    cameras on ``device``. ``render_chunk`` rays are marched at a time
+    (the result does not depend on it)."""
+    if cache_path is not None:
+        raise NotImplementedError("the screen dataset cache is not ported "
+                                  "yet")
+    dev = resolve_device(device)
+    volume = volume.to(dev)
+    tf = tf.to(dev)
+    cams = fibonacci_sphere_cameras(num_cameras, center=center,
+                                    distance=distance)
+    start, direction = generate_rays(cams, width, height, device=dev)
+    start = start.reshape(num_cameras, -1, 3).contiguous()
+    direction = direction.reshape(num_cameras, -1, 3).contiguous()
+    if max_steps is None:
+        max_steps = max_steps_bound(volume.box_size.tolist(),
+                                    float(config.stepsize))
+    targets = []
+    with torch.no_grad():
+        for c in range(num_cameras):
+            targets.append(torch.cat([
+                trace_dvr(start[c, i:i + render_chunk],
+                          direction[c, i:i + render_chunk], volume, tf,
+                          config, max_steps).color
+                for i in range(0, start.shape[1], render_chunk)]))
+    return ScreenDataset(start, direction, torch.stack(targets), width,
+                         height)
+
+
+def fused_screen_supported(network, tf, width: int, height: int) -> bool:
+    """Whether screen training routes through the fused march, by the JAX
+    package's rule: a piecewise-linear TF, images that tile into 16x16
+    pixel blocks with at least one 256-ray tile, and no latent grid or one
+    of <= 16 channels. The network is not screened here: where the fused
+    march does not take it yet, ``mega_trace_dvr`` raises
+    ``NotImplementedError`` (``--no_fused`` selects the plain march)."""
+    if not isinstance(tf, TransferFunctionPiecewiseLinear):
+        return False
+    if width % 16 or height % 16 or width * height < KERNEL_TILE:
+        return False
+    grid = network.latent.static_grid
+    return grid is None or grid.shape[0] <= LATENT_CHANNELS
+
+
+def screen_mega_kwargs(dataset: ScreenDataset) -> dict:
+    """The ``fused_kwargs`` of :func:`evaluate_screen`: the 16x16
+    pixel-block permutation that makes every 256-ray tile spatially
+    coherent. (The JAX package also certifies a latent footprint here for
+    the TPU's resident slab; the CUDA kernels fetch from the whole table
+    and need none.)"""
+    perm, inv = block_ray_permutation(dataset.width, dataset.height, 16, 16,
+                                      device=dataset.ray_start.device)
+    return dict(block_perm=perm, block_perm_inv=inv)
+
+
+def evaluate_screen(network, batch_rays_start: Tensor,
+                    batch_rays_dir: Tensor, batch_targets: Tensor, tf,
+                    config: RayEvaluationSteppingDvr, loss: LossNetScreen,
+                    max_steps: int, width: int, height: int,
+                    use_fused: bool = False,
+                    fused_kwargs: Optional[dict] = None):
+    """Differentiable render + image loss: (total, individual terms).
+    ``use_fused`` routes the render through the fused march (32-point
+    segments, 256-ray tiles in the order ``fused_kwargs`` from
+    :func:`screen_mega_kwargs` gives, the tile vote on); otherwise the
+    plain march runs with per-step checkpointing."""
+    netvol = VolumeInterpolationNetwork(network)
+    if use_fused:
+        perm = (fused_kwargs or {}).get("block_perm")
+        inv = (fused_kwargs or {}).get("block_perm_inv")
+        hw = width * height
+        rs = batch_rays_start.reshape(-1, hw, 3)
+        rd = batch_rays_dir.reshape(-1, hw, 3)
+        if perm is not None:
+            rs, rd = rs[:, perm], rd[:, perm]
+        color = mega_trace_dvr(
+            rs.reshape(-1, 3), rd.reshape(-1, 3), network,
+            netvol.box_min.tolist(), netvol.box_size.tolist(), tf.tensor,
+            stepsize=float(config.stepsize), seg=KERNEL_SEG,
+            tile=KERNEL_TILE, differentiable=True)
+        color = color.reshape(-1, hw, 4)
+        if inv is not None:
+            color = color[:, inv]
+        color = color.reshape(-1, 4)
+    else:
+        color = trace_dvr(batch_rays_start.reshape(-1, 3),
+                          batch_rays_dir.reshape(-1, 3), netvol, tf, config,
+                          max_steps, checkpoint_chunk=1).color
+    b = batch_targets.shape[0] if batch_targets.ndim == 3 else 1
+    pred = color.reshape(b, height, width, 4).permute(0, 3, 1, 2)
+    ref = batch_targets.reshape(b, height, width, 4).permute(0, 3, 1, 2)
+    return loss(pred, ref, return_individual=True)
+
+
+def train_screen(network, dataset: ScreenDataset, tf,
+                 config: RayEvaluationSteppingDvr, loss: LossNetScreen,
+                 optimizer, *, epochs: int, cameras_per_batch: int = 1,
+                 max_steps: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None,
+                 use_fused: bool = False,
+                 fused_kwargs: Optional[dict] = None,
+                 callback: Optional[Callable] = None):
+    """Epoch loop over camera minibatches. ``optimizer`` is the
+    ``(torch.optim.Optimizer, scheduler)`` pair of
+    ``train.optimizer.make_optimizer``; the scheduler steps after every
+    update. Returns (network, history of per-epoch mean losses)."""
+    opt, scheduler = optimizer
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    n_cams = dataset.ray_start.shape[0]
+    if max_steps is None:
+        max_steps = max_steps_bound((1.0, 1.0, 1.0), float(config.stepsize))
+    tf = tf.to(dataset.ray_start.device)
+    history = []
+    for e in range(epochs):
+        perm = torch.randperm(n_cams, generator=generator)
+        totals = []
+        for i in range(0, n_cams, cameras_per_batch):
+            idx = perm[i:i + cameras_per_batch].to(dataset.ray_start.device)
+            opt.zero_grad(set_to_none=True)
+            total, _ = evaluate_screen(
+                network, dataset.ray_start[idx], dataset.ray_dir[idx],
+                dataset.targets[idx], tf, config, loss, max_steps,
+                dataset.width, dataset.height, use_fused=use_fused,
+                fused_kwargs=fused_kwargs)
+            total.backward()
+            opt.step()
+            scheduler.step()
+            totals.append(float(total.detach()))
+        history.append(float(np.mean(totals)))
+        if callback is not None:
+            callback(e, network, history[-1])
+        if not np.isfinite(history[-1]):
+            raise FloatingPointError(
+                f"screen training loss became non-finite at epoch {e}")
+    return network, history

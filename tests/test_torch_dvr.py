@@ -1,7 +1,11 @@
 """Port parity, plain ray marcher: ``trace_dvr`` of ``fvsrn_tpu_torch``
 against ``fvsrn_tpu`` at 32x32, stepsize 1/64 (CPU, atol 2e-5), in
 lattice mode with a per-ray tmax clamp (the fused kernel's oracle) and in
-the reference's per-ray mode with the alpha early-out."""
+the reference's per-ray mode with the alpha early-out; and its autograd
+gradients against ``jax.grad`` of the JAX march (atol 2e-5, rtol 1e-3,
+the gradient contract of tests/test_fused.py), with and without
+``checkpoint_chunk``."""
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -71,7 +75,47 @@ def test_trace_dvr(scene, lattice, early_out, clipped):
                     tmax_in=torch.tensor(clip) if clipped else None,
                     lattice=lattice)
     assert np.asarray(want.color)[:, 3].max() > 0.5
-    np.testing.assert_allclose(got.color.numpy(), np.asarray(want.color),
-                               atol=ATOL)
-    np.testing.assert_allclose(got.depth.numpy(), np.asarray(want.depth),
-                               atol=1e-4)
+    np.testing.assert_allclose(got.color.detach().numpy(),
+                               np.asarray(want.color), atol=ATOL)
+    np.testing.assert_allclose(got.depth.detach().numpy(),
+                               np.asarray(want.depth), atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk", [None, 7])
+def test_trace_dvr_gradients(scene, chunk):
+    """d(sum(w * rgba))/d(every network leaf and the TF), lattice march
+    with the clip, no early-out (the fused backward's oracle)."""
+    jnet, rs, rd, clip = scene
+    n = 256                                    # a 16x16 subset of rays
+    rs, rd, clip = rs[:n * 4:4], rd[:n * 4:4], clip[:n * 4:4]
+    steps = jmax_steps((1.0, 1.0, 1.0), H)
+    w = np.random.default_rng(5).uniform(-1, 1, (n, 4)).astype(np.float32)
+    jcfg = JCfg.make(stepsize=H, enable_early_out=False)
+
+    def jloss(net, tf):
+        color = jtrace(jnp.asarray(rs), jnp.asarray(rd), JVolume.make(net),
+                       tf, jcfg, steps, tmax_in=jnp.asarray(clip)[:, None],
+                       lattice=True).color
+        return jnp.sum(color * w)
+
+    jtf = JTF.make(rgb=RGB, opacity=OPACITY, positions=POSITIONS)
+    gnet, gtf = jax.grad(jloss, argnums=(0, 1))(jnet, jtf)
+    want, _ = network_arrays(gnet)
+    net = srn_from_arrays(*network_arrays(jnet))
+    tf = TransferFunctionPiecewiseLinear.make(RGB, OPACITY, POSITIONS)
+    tf.tensor.requires_grad_(True)
+    color = trace_dvr(torch.tensor(rs), torch.tensor(rd),
+                      VolumeInterpolationNetwork(net), tf,
+                      RayEvaluationSteppingDvr.make(stepsize=H,
+                                                    enable_early_out=False),
+                      steps, tmax_in=torch.tensor(clip), lattice=True,
+                      checkpoint_chunk=chunk).color
+    (color * torch.tensor(w)).sum().backward()
+    got = {name: p.grad.numpy() for name, p in net.named_parameters()}
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert np.abs(want[name]).max() > 0, name
+        np.testing.assert_allclose(got[name], want[name], atol=2e-5,
+                                   rtol=1e-3, err_msg=name)
+    np.testing.assert_allclose(tf.tensor.grad.numpy(), np.asarray(gtf.tensor),
+                               atol=2e-5, rtol=1e-3)

@@ -34,7 +34,7 @@ def models():
     _, jtf, ckpt = jdense_scene()
     jm = JLoadedModel.from_checkpoint(ckpt, tf=jtf)
     jm.config = JCfg.make(stepsize=H)
-    tf, npz = dense_scene()
+    _, tf, npz = dense_scene()
     m = LoadedModel.from_checkpoint(
         npz, tf=tf, config=RayEvaluationSteppingDvr.make(stepsize=H))
     return jm, m

@@ -1,5 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. This file imports no JAX, so it runs where the GPU is:
+card: the render forward, the differentiable forward (image, stored
+carries, segments visited) and the backward (every gradient leaf, also
+with no latent grid and with a TF whose first knot absorbs). This
+file imports no JAX, so it runs where the GPU is:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
@@ -19,6 +22,7 @@ from fvsrn_tpu_torch.ops import fused_mega
 from fvsrn_tpu_torch.ops.fused_dvr import block_ray_permutation
 from fvsrn_tpu_torch.scenes import dense_scene
 from fvsrn_tpu_torch.train.checkpoints import load_weights
+from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
 
 torch.set_num_threads(1)
 ATOL = 1e-4       # float32 kernel vs plain: the fused-vs-oracle contract
@@ -26,14 +30,18 @@ BOX = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))
 
 
 def random_net(seed=3, activation="SnakeAlt", output_mode="density:direct",
-               channels=8, fourier=6, width=32):
-    """A 3-hidden-layer SRN with torch Linear-style random weights."""
+               channels=8, fourier=6, width=32, out_bias=0.4):
+    """A 3-hidden-layer SRN with torch Linear-style random weights; no
+    latent grid with ``channels=0``. ``out_bias`` sets the density's
+    level (0.4 a visible density, 0.0 clips about half the samples at
+    0)."""
     rng = np.random.default_rng(seed)
     sizes = [3 + 2 * fourier + channels, width, width, width, 1]
     arrays = {"input.fourier_matrix": rng.normal(0.0, 2 * math.pi,
-                                                 (fourier, 3)),
-              "latent.static_grid": rng.standard_normal(
-                  (channels, 8, 8, 8)) * 0.3}
+                                                 (fourier, 3))}
+    grid = rng.standard_normal((channels, 8, 8, 8)) * 0.3
+    if channels:
+        arrays["latent.static_grid"] = grid
     layers = []
     for i, (n_in, n_out) in enumerate(zip(sizes[:-1], sizes[1:])):
         bound = 1.0 / math.sqrt(n_in)
@@ -42,9 +50,14 @@ def random_net(seed=3, activation="SnakeAlt", output_mode="density:direct",
         arrays[f"layers.{i}.bias"] = rng.uniform(-bound, bound, n_out)
         layers.append({"activation": activation if i < 3 else "None",
                        "activation_param": 2.0})
-    arrays["layers.3.bias"] = np.asarray([0.4])   # a visible density
+    arrays["layers.3.bias"] = np.asarray([out_bias])
     return srn_from_arrays(arrays, {"layers": layers,
                                     "output_mode": output_mode})
+
+
+def needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
 
 def block_rays(width, device, distance=1.6):
@@ -59,9 +72,8 @@ def block_rays(width, device, distance=1.6):
 @pytest.mark.parametrize("which", ["random", "flagship"])
 @pytest.mark.parametrize("early_out", [True, False])
 def test_mega_kernel_matches_plain(which, early_out):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    tf, npz = dense_scene()
+    needs_card()
+    _, tf, npz = dense_scene()
     net = (random_net() if which == "random" else load_weights(npz)).cuda()
     rs, rd = block_rays(64, "cuda")
     clip = torch.empty(rs.shape[0], device="cuda").uniform_(
@@ -80,6 +92,120 @@ def test_mega_kernel_matches_plain(which, early_out):
     assert torch.equal(samples.long(), samples_plain)
 
 
+def case_net(which):
+    """The network of a card case: "random", "nogrid" (random, without a
+    latent grid) or "flagship"."""
+    _, _, npz = dense_scene()
+    if which == "flagship":
+        return load_weights(npz).cuda()
+    return random_net(channels=0 if which == "nogrid" else 8).cuda()
+
+
+def diff_case(which, early_out, net=None, tf=None):
+    """(net, tf, packet, spec) of a 64x64 clipped view on the card."""
+    net = case_net(which) if net is None else net
+    tf = dense_scene()[1].tensor if tf is None else tf
+    rs, rd = block_rays(64, "cuda")
+    clip = torch.empty(rs.shape[0], device="cuda").uniform_(
+        1.0, 2.2, generator=torch.Generator("cuda").manual_seed(0))
+    h = 1 / 128
+    spec = fused_mega._spec(net, *BOX, stepsize=h, seg=32, tile=256,
+                            density_min=0.0, density_max=1.0,
+                            enable_early_out=early_out)
+    rays = fused_mega.ray_packet(rs, rd, *BOX, h, clip)
+    return net, tf.cuda(), rays, spec
+
+
+@pytest.mark.parametrize("which", ["random", "nogrid", "flagship"])
+@pytest.mark.parametrize("early_out", [True, False])
+def test_mega_diff_forward_matches_plain(which, early_out):
+    """Row 2: image, the carries entering every visited segment, and the
+    number of segments each tile visited."""
+    needs_card()
+    net, tf, rays, spec = diff_case(which, early_out)
+    params = fused_mega._params(net, tf)
+    n_fourier, n_hidden, tf_points, _ = fused_mega._widths(params)
+    n_seg = fused_mega.segments_needed(rays, spec)
+    with torch.no_grad():
+        out, samples, carries, count = fused_mega._launch_fwd(
+            rays, fused_mega._pack_weights(params),
+            fused_mega._kernel_table(params[2], torch.float32, rays.device),
+            spec,
+            n_fourier, n_hidden, tf_points, n_seg_max=n_seg)
+        torch.cuda.synchronize()
+        want, want_samples, want_carries, want_count = \
+            fused_mega._plain_march(spec, rays, params, store=True)
+    assert float(want[:, 3].max()) > 0.5
+    torch.testing.assert_close(out, want, rtol=0, atol=ATOL)
+    assert torch.equal(samples.long(), want_samples)
+    assert torch.equal(count.long(), want_count)
+    for t in range(count.shape[0]):
+        c = int(count[t])
+        torch.testing.assert_close(carries[t, :c], want_carries[t, :c],
+                                   rtol=0, atol=ATOL)
+
+
+def kernel_and_plain_grads(net, tf, rays, spec):
+    """Gradients of sum(w * rgba), w random, through the kernels and
+    through the plain version: two dicts keyed by leaf, the TF as "tf"."""
+    w = torch.empty(rays.shape[0], 4, device="cuda").uniform_(
+        -1, 1, generator=torch.Generator("cuda").manual_seed(1))
+    grads = {}
+    for fn in (fused_mega._KernelMarch, fused_mega._PlainMarch):
+        net.zero_grad(set_to_none=True)
+        tf_leaf = tf.clone().requires_grad_(True)
+        before = fused_mega.BWD_LAUNCHES
+        img, _ = fn.apply(rays, spec, *fused_mega._params(net, tf_leaf))
+        (img * w).sum().backward()
+        torch.cuda.synchronize()
+        launched = fused_mega.BWD_LAUNCHES - before
+        assert launched == (1 if fn is fused_mega._KernelMarch else 0)
+        g = {n: p.grad.clone() for n, p in net.named_parameters()}
+        g["tf"] = tf_leaf.grad.clone()
+        grads[fn] = g
+    return grads[fused_mega._KernelMarch], grads[fused_mega._PlainMarch]
+
+
+def rel_err(got, want):
+    assert float(want.norm()) > 0
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("which", ["random", "nogrid", "flagship"])
+@pytest.mark.parametrize("early_out", [True, False])
+def test_mega_backward_matches_plain(which, early_out):
+    """Row 3: every gradient leaf (Fourier matrix, each weight and bias,
+    the latent grid, the TF) within a relative norm error of 1e-3."""
+    needs_card()
+    got, want = kernel_and_plain_grads(*diff_case(which, early_out))
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert rel_err(got[name], want[name]) <= 1e-3, name
+
+
+@pytest.mark.parametrize("early_out", [True, False])
+def test_mega_backward_absorbing_first_knot(early_out):
+    """About half the samples clip at value 0, exactly at the first knot
+    of a TF that absorbs there: the kernel's adjoint gives those samples'
+    knot positions no gradient (interior-only), as the plain version's
+    gates do. The TF's knot-position column is also compared alone."""
+    needs_card()
+    net = random_net(out_bias=0.0).cuda()
+    x = torch.rand(4096, 3, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0))
+    with torch.no_grad():
+        clipped = float((net(x)[:, 0] == 0).float().mean())
+    assert 0.1 < clipped < 0.9
+    tf = TransferFunctionPiecewiseLinear.make(
+        rgb=[[0.9, 0.1, 0.1], [0.1, 0.9, 0.1], [0.1, 0.1, 0.9]],
+        opacity=[2.0, 10.0, 30.0], positions=[0.0, 0.45, 1.0]).tensor
+    got, want = kernel_and_plain_grads(*diff_case("random", early_out,
+                                                  net=net, tf=tf))
+    for name in want:
+        assert rel_err(got[name], want[name]) <= 1e-3, name
+    assert rel_err(got["tf"][:, 4], want["tf"][:, 4]) <= 1e-3
+
+
 @pytest.mark.parametrize("net_kw,tile", [
     (dict(activation="ReLU"), 256), (dict(output_mode="density"), 256),
     (dict(channels=20), 256), (dict(width=16), 256), ({}, 64)])
@@ -88,3 +214,16 @@ def test_mega_kernel_rejects_what_it_does_not_take(net_kw, tile):
     with pytest.raises(NotImplementedError):
         fused_mega._check_kernel_inputs(random_net(**net_kw), rays, tile)
     fused_mega._check_kernel_inputs(random_net(), rays, 256)
+    fused_mega._check_kernel_inputs(random_net(channels=0), rays, 256)
+
+
+@pytest.mark.parametrize("case", ["ray_grads", "seg"])
+def test_mega_backward_rejects_what_it_does_not_take(case):
+    """The backward kernel takes no ray gradients and 32-point segments."""
+    rays = torch.zeros(512, 8, requires_grad=(case == "ray_grads"))
+    seg = 16 if case == "seg" else 32
+    with pytest.raises(NotImplementedError):
+        fused_mega._check_kernel_inputs(random_net(), rays, 256, seg,
+                                        differentiable=True)
+    fused_mega._check_kernel_inputs(random_net(), rays.detach(), 256, 32,
+                                    differentiable=True)

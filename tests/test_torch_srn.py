@@ -64,7 +64,7 @@ def flagship():
     _, _, ckpt = jdense_scene()
     with RunCheckpoint(ckpt, "r") as ck:
         jnet = ck.load_weights()
-    return jnet, load_weights(dense_scene()[1])
+    return jnet, load_weights(dense_scene()[2])
 
 
 def test_srn_forward_flagship(flagship, rng):

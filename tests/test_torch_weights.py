@@ -20,7 +20,7 @@ def jnet():
 
 
 def test_npz_equals_checkpoint_leaves(jnet):
-    arrays, meta = load_arrays(dense_scene()[1])
+    arrays, meta = load_arrays(dense_scene()[2])
     leaves, _ = jax.tree_util.tree_flatten_with_path(jnet)
     assert set(arrays) == {_key_name(p) for p, _ in leaves}
     for path, leaf in leaves:
@@ -34,7 +34,7 @@ def test_npz_equals_checkpoint_leaves(jnet):
 
 
 def test_srn_from_arrays_rebuilds_every_layer(jnet):
-    net = load_weights(dense_scene()[1])
+    net = load_weights(dense_scene()[2])
     assert len(net.layers) == len(jnet.layers) == 4
     for layer, jl in zip(net.layers, jnet.layers):
         np.testing.assert_array_equal(layer.weight.detach().numpy(),
@@ -57,14 +57,14 @@ def test_export_reproduces_committed_npz(tmp_path):
     out = str(tmp_path / "w.npz")
     export(jdense_scene()[2], out)
     got, meta = load_arrays(out)
-    want, want_meta = load_arrays(dense_scene()[1])
+    want, want_meta = load_arrays(dense_scene()[2])
     assert meta == want_meta and set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
 
 
 def test_srn_from_arrays_rejects_unported_leaves():
-    arrays, meta = load_arrays(dense_scene()[1])
+    arrays, meta = load_arrays(dense_scene()[2])
     arrays["latent.time_grid"] = np.zeros((2, 4, 4, 4, 4), np.float32)
     with pytest.raises(NotImplementedError):
         srn_from_arrays(arrays, meta)

@@ -104,7 +104,7 @@ def main():
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     _build.build(["mega_fwd"])
-    tf, npz = dense_scene()
+    _, tf, npz = dense_scene()
     model = LoadedModel.from_checkpoint(
         npz, tf=tf, config=RayEvaluationSteppingDvr.make(stepsize=STEPSIZE))
     cams = {f"rotation{i}": c for i, c in

@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout and drives the port's
-two main paths on the card:
+main paths on the card:
 
 - phases 3-6, the product render: the dense flagship through
   ``LoadedModel.prepare_network_render`` in FUSED mode (512x512, world
@@ -14,7 +14,14 @@ two main paths on the card:
   the differentiable forward and backward kernels; the kernels against
   their plain differentiable version at full frame and against autograd
   through the float32 lattice oracle on 64 tiles; the training step's
-  timing.
+  timing;
+- phases A-E, the FUSED renders of the per-segment engine
+  (``csrc/segment_fwd.cu``): route 2 of the dense flagship at 1920x1080
+  (A, timed), of a network without a latent grid (B) and of a color-output
+  network with a 24-channel grid (C); route 1b, the bucketed lattice
+  march of a grid over the megakernel's slab budget (D); the FUSED and
+  FUSED_BF16 isosurface render (E). Each against the engine's plain
+  version, and A, C and E against the plain per-ray marches.
 
 Prints one JSON line with every kernel and a last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -30,6 +37,7 @@ import time
 
 import torch
 
+DEVICE = "cuda"
 WIDTH = HEIGHT = 512
 STEPSIZE = 1.0 / 512
 CAMERA = dict(pitch=0.3, yaw=0.5, distance=1.6)
@@ -43,6 +51,16 @@ ORACLE_GRAD_TOL = 5e-3  # vs the f32 lattice oracle (bench.py:68-69)
 ORACLE_TILES = 64      # 16384 rays, the oracle subset of bench.py:67
 TIMED_CAMERAS = 4
 TIMED_STEPS = 3
+SEG_WIDTH, SEG_HEIGHT = 1920, 1080   # phase A: not multiples of 16
+RGBO_SIZE = 504                      # phase C
+ISO_VALUE = 0.5                      # phase E
+# phase E: share of rays whose first-hit sample may flip on float32 noise
+# (the fused and plain networks differ by ~1e-6), and of pixels a bf16
+# table may move past ORACLE_TOL (a table rounded to bf16 moves values by
+# ~1e-3: a flip wherever the crossing sample is that close to the
+# isovalue)
+ISO_FLIP_SHARE = 1e-4
+ISO_BF16_SHARE = 0.05
 TRAIN_ARGS = ["IMPLICIT:MARSCHNER_LOBB", "--mode", "screen",
               "--layers", "32:32:32", "--activation", "SnakeAlt:2",
               "--fouriercount", "14", "--outputmode", "density:direct",
@@ -374,6 +392,207 @@ def training(smi, reset_counts, counts, npz, tf, cam):
     return rows
 
 
+def max_err(a, b):
+    return float((a - b).abs().max())
+
+
+def segment_paths(smi, reset_counts, counts, npz, tf, cam):
+    """Phases A-E: the FUSED renders of the per-segment engine. Returns
+    the kernel's JSON row."""
+    import numpy as np
+
+    from fvsrn_tpu_torch.camera import camera_matrix, generate_rays
+    from fvsrn_tpu_torch.inference import LoadedModel, pad_rays
+    from fvsrn_tpu_torch.models.latent import LatentSpace
+    from fvsrn_tpu_torch.models.network_volume import \
+        VolumeInterpolationNetwork
+    from fvsrn_tpu_torch.models.srn import SceneRepresentationNetwork
+    from fvsrn_tpu_torch.ops.fused_dvr import (fused_trace_dvr,
+                                               fused_trace_dvr_plain,
+                                               mega_supported)
+    from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
+                                               max_steps_bound, trace_dvr)
+    from fvsrn_tpu_torch.raytracer.iso import RayEvaluationSteppingIso
+    from fvsrn_tpu_torch.train.checkpoints import load_weights
+
+    cfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE)
+    steps_max = max_steps_bound((1.0, 1.0, 1.0), STEPSIZE)
+    flagship = LoadedModel.from_checkpoint(npz, tf=tf, config=cfg)
+    errs = {}
+
+    def drive(name, model, width, height, route):
+        """Render one frame through the entry point with the counts reset
+        just before; check the route, the launches and the image."""
+        render = model.prepare_network_render(cam, width, height, "FUSED")
+        reset_counts()
+        img = render()
+        torch.cuda.synchronize()
+        c = counts()
+        check(render.route == route, f"{name}: route {render.route}")
+        check(c["segment_fwd"] > 0 and c["mega_fwd"] == 0,
+              f"{name}: launches {c}")
+        check(tuple(img.shape) == (height, width, 4), f"{name}: shape")
+        check(bool(torch.isfinite(img).all()), f"{name}: non-finite pixels")
+        return render, img, c
+
+    def vs_plain(name, render):
+        (got, st), k_ms = cuda_once(lambda: render.march(return_stats=True))
+        (want, st_p), p_ms = cuda_once(lambda: render.march(
+            fused_trace_dvr_plain, return_stats=True))
+        errs[name] = max_err(got, want)
+        check(errs[name] <= KERNEL_TOL, f"{name}: kernel vs plain "
+              f"{errs[name]}")
+        return got, st, st_p, p_ms
+
+    def per_ray_oracle(render, n):
+        vol = VolumeInterpolationNetwork(render.network, (-0.5,) * 3,
+                                         (1.0,) * 3)
+        with torch.no_grad():
+            return trace_dvr(render.ray_start[:n], render.ray_dir[:n], vol,
+                             render.tf, cfg, steps_max).color
+
+    # A. route 2 of the dense flagship: 1920x1080 is no multiple of 16
+    n_a = SEG_WIDTH * SEG_HEIGHT
+    render, img, c_a = drive("phase A", flagship, SEG_WIDTH, SEG_HEIGHT,
+                             "segment")
+    got, st, st_p, plain_ms = vs_plain("A", render)
+    stop, samples = int(st.stop), int(st.samples)
+    scheduled = render.ray_start.shape[0] * stop * 32
+    oracle = per_ray_oracle(render, n_a)
+    oerr = max_err(got[:n_a], oracle)
+    check(oerr < ORACLE_TOL, f"phase A: vs per-ray trace_dvr {oerr}")
+    mean_ms, std_ms, frames = flagship.time_rendering(
+        LoadedModel.rotation_cameras(TIMED_CAMERAS), SEG_WIDTH, SEG_HEIGHT)
+    kernel_ms = cuda_ms(lambda: render.march(), 3)
+    flops = samples * sample_flops(render.network)
+    io_bytes = (render.ray_start.shape[0] * (8 + 4) * 4
+                + render.network.latent.static_grid.numel() * 2 + 15_000)
+    bound_s = max(flops / PEAK_BF16_TC, io_bytes / PEAK_BYTES)
+    bound_f32_s = max(flops / PEAK_F32, io_bytes / PEAK_BYTES)
+    bound_by = ("operations" if flops / PEAK_BF16_TC > io_bytes / PEAK_BYTES
+                else "bytes")
+    print(f"phase A route 2 [{smi}]: flagship {SEG_WIDTH}x{SEG_HEIGHT} "
+          f"h=1/{round(1 / STEPSIZE)}, launches {c_a}, kernel vs plain "
+          f"max|d| {errs['A']:.3e} (tol {KERNEL_TOL}), vs per-ray f32 "
+          f"trace_dvr {oerr:.3e} (tol {ORACLE_TOL}); stop S {stop} (plain "
+          f"{int(st_p.stop)}), samples valid {samples} (plain "
+          f"{int(st_p.samples)}), scheduled R*S*seg {scheduled}; frame "
+          f"{mean_ms:.3f} ms (std {std_ms:.3f}, {len(frames)} cameras), "
+          f"{n_a / mean_ms / 1e3:.3f} Mrays/s; kernel {kernel_ms:.3f} ms "
+          f"({kernel_ms * 1e6 / samples:.3f} ns/valid sample); plain "
+          f"{plain_ms:.1f} ms; bound {bound_s * 1e3:.4f} ms (bf16 tensor "
+          f"cores, share {bound_s * 1e3 / kernel_ms:.4f}), "
+          f"{bound_f32_s * 1e3:.4f} ms (f32 CUDA cores, share "
+          f"{bound_f32_s * 1e3 / kernel_ms:.4f}), bound by {bound_by} "
+          f"({flops / 1e9:.1f} GFLOP)", flush=True)
+
+    # B. route 2, no latent grid: the trainer's default network
+    net_b = SceneRepresentationNetwork.make(
+        layers="32:32:32", activation="SnakeAlt:2",
+        output_mode="density:direct", num_fourier=14, seed=42)
+    render, _, c_b = drive("phase B", LoadedModel(net_b, tf, config=cfg),
+                           WIDTH, HEIGHT, "segment")
+    _, st, _, _ = vs_plain("B", render)
+    print(f"phase B route 2, no grid: {WIDTH}x{HEIGHT}, launches {c_b}, "
+          f"kernel vs plain max|d| {errs['B']:.3e}, S {int(st.stop)}, "
+          f"samples {int(st.samples)}", flush=True)
+
+    # C. route 2, color output, 24 channels (float32 features)
+    rng = np.random.default_rng(7)
+    grid = torch.from_numpy((rng.standard_normal((24, 32, 32, 32)) * 0.5
+                             ).astype(np.float32))
+    net_c = SceneRepresentationNetwork.make(
+        layers="48:48:48", activation="Sine:3", output_mode="rgbo",
+        num_fourier=14, latent=LatentSpace(static_grid=grid), seed=7)
+    render, img, c_c = drive("phase C", LoadedModel(net_c, tf, config=cfg),
+                             RGBO_SIZE, RGBO_SIZE, "segment")
+    got, st, _, _ = vs_plain("C", render)
+    n_c = RGBO_SIZE * RGBO_SIZE
+    oerr_c = max_err(got[:n_c], per_ray_oracle(render, n_c))
+    check(oerr_c < ORACLE_TOL, f"phase C: vs per-ray trace_dvr {oerr_c}")
+    print(f"phase C route 2, rgbo 48:48:48 Sine:3, 24x32^3 grid: "
+          f"{RGBO_SIZE}x{RGBO_SIZE}, launches {c_c}, kernel vs plain "
+          f"max|d| {errs['C']:.3e}, vs per-ray trace_dvr {oerr_c:.3e}, "
+          f"S {int(st.stop)}, alpha max {float(img[..., 3].max()):.3f}",
+          flush=True)
+
+    # D. route 1b: a 16x64^3 grid fails the megakernel's slab budget
+    net_d = load_weights(npz)
+    g = net_d.latent.static_grid
+    with torch.no_grad():
+        net_d.latent.static_grid = torch.nn.Parameter(torch.from_numpy((
+            np.random.default_rng(11).standard_normal((16, 64, 64, 64))
+            * float(g.std())).astype(np.float32)))
+    check(not mega_supported((16, 64, 64, 64), torch.bfloat16),
+          "phase D: the grid fits the slab")
+    render, _, c_d = drive("phase D", LoadedModel(net_d, tf, config=cfg),
+                           WIDTH, HEIGHT, "bucketed")
+    _, st, _, _ = vs_plain("D", render)
+    print(f"phase D route 1b, flagship net with a 16x64^3 grid: "
+          f"{WIDTH}x{HEIGHT}, {len(render.plan.group_sizes)} buckets, "
+          f"launches {c_d}, kernel vs plain max|d| {errs['D']:.3e}, "
+          f"stops {st.stop.tolist()}, samples {int(st.samples)}", flush=True)
+
+    # E. the isosurface render, FUSED (f32 table) and FUSED_BF16. A ray
+    # whose first-hit sample lies within float32 noise (~1e-6) of the
+    # isovalue can flip to the next sample between two evaluations of the
+    # network; bisection then brackets the crossing from the other side
+    # and the shade moves by ~1e-4 (a bf16 table flips many more rays,
+    # some from hit to miss). So the iso checks bound the share of rays
+    # off the tolerance, and print the largest difference.
+    iso = RayEvaluationSteppingIso.make(stepsize=STEPSIZE,
+                                        isovalue=ISO_VALUE)
+    want = flagship.render_network_iso(cam, WIDTH, HEIGHT, iso, "PLAIN32")
+    hit = float((want[..., 3] > 0.5).float().mean())
+    check(0.05 < hit < 0.95, f"phase E: hit share {hit}")
+    rs, rd = generate_rays(camera_matrix(cam), WIDTH, HEIGHT,
+                           cam.fov_y_radians, device=DEVICE)
+    rs, rd, _ = pad_rays(rs.reshape(-1, 3), rd.reshape(-1, 3), 128)
+    raw_args = (rs, rd, copy.deepcopy(flagship.network).to(DEVICE),
+                (-0.5,) * 3, (1.0,) * 3, tf.tensor.to(DEVICE))
+    raw_kw = dict(stepsize=STEPSIZE, max_steps=steps_max, seg=32, tile=128,
+                  iso_value=ISO_VALUE)
+    raw_k = fused_trace_dvr(*raw_args, **raw_kw)
+    raw_p = fused_trace_dvr_plain(*raw_args, **raw_kw)
+    flips = float(((raw_k[:, 3] != raw_p[:, 3])
+                   | ((raw_k[:, 3] > 0.5) & (raw_k[:, 0] != raw_p[:, 0])))
+                  .float().mean())
+    print(f"phase E iso march kernel vs plain, {WIDTH}x{HEIGHT}: first-hit "
+          f"samples differing on {flips:.2e} of the rays (limit "
+          f"{ISO_FLIP_SHARE}), depth max|d| {max_err(raw_k, raw_p):.3e}",
+          flush=True)
+    check(flips <= ISO_FLIP_SHARE, f"phase E: iso march flips {flips}")
+    for mode, tol, share_max in (("FUSED", KERNEL_TOL, ISO_FLIP_SHARE),
+                                 ("FUSED_BF16", ORACLE_TOL,
+                                  ISO_BF16_SHARE)):
+        reset_counts()
+        (out, st), ms = cuda_once(lambda: flagship.render_network_iso(
+            cam, WIDTH, HEIGHT, iso, mode, return_stats=True))
+        c_e = counts()
+        check(c_e["segment_fwd"] > 0, f"phase E {mode}: launches {c_e}")
+        diff = (out - want).abs().amax(dim=-1)
+        off = float((diff > tol).float().mean())
+        errs["E " + mode] = float(diff.max())
+        print(f"phase E iso {mode}: {WIDTH}x{HEIGHT}, isovalue {ISO_VALUE},"
+              f" hit share {hit:.4f}, launches {c_e}, vs PLAIN32 trace_iso: "
+              f"pixels off {tol} {off:.2e} (limit {share_max}), max|d| "
+              f"{errs['E ' + mode]:.3e}; S {int(st.stop)}, samples "
+              f"{int(st.samples)}, render {ms:.1f} ms", flush=True)
+        check(off <= share_max, f"phase E {mode}: {off} of the pixels off")
+
+    return {
+        "name": "segment_fwd", "route": "cuda",
+        "source": "fvsrn_tpu_torch/csrc/segment_fwd.cu",
+        "replaces": "fvsrn_tpu/ops/fused_dvr.py:1626",
+        "launches": c_a["segment_fwd"],
+        "max_abs_err": max(errs[k] for k in "ABCD"),
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+        "bound_by": bound_by, "library_ms": None, "bound_f32_ms": bound_f32_s * 1e3,
+        "frame_ms": mean_ms, "stop": stop, "samples_valid": samples,
+        "samples_scheduled": scheduled, "oracle_max_abs_err": oerr,
+        "phase_errors": errs, "iso_hit_share": hit}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -384,7 +603,7 @@ def main():
     from fvsrn_tpu_torch.inference import LoadedModel
     from fvsrn_tpu_torch.models.network_volume import \
         VolumeInterpolationNetwork
-    from fvsrn_tpu_torch.ops import _build, fused_mega
+    from fvsrn_tpu_torch.ops import _build, fused_dvr, fused_mega
     from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
                                                max_steps_bound, trace_dvr)
     from fvsrn_tpu_torch.scenes import dense_scene
@@ -401,21 +620,23 @@ def main():
 
     # 2. build every kernel of the path (one nvcc per source, together)
     t0 = time.perf_counter()
-    secs = _build.build(["mega_fwd", "mega_bwd"])
+    secs = _build.build(["mega_fwd", "mega_bwd", "segment_fwd"])
     print(f"phase 2 build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
-    print(_build.ptxas_report("mega_fwd").strip())
-    print(_build.ptxas_report("mega_bwd").strip(), flush=True)
+    for name in secs:
+        print(_build.ptxas_report(name).strip(), flush=True)
 
     def reset_counts():
         fused_mega.LAUNCHES = 0
         fused_mega.DIFF_LAUNCHES = 0
         fused_mega.BWD_LAUNCHES = 0
+        fused_dvr.SEGMENT_LAUNCHES = 0
 
     def counts():
         return {"mega_fwd": fused_mega.LAUNCHES,
                 "mega_fwd_diff": fused_mega.DIFF_LAUNCHES,
-                "mega_bwd": fused_mega.BWD_LAUNCHES}
+                "mega_bwd": fused_mega.BWD_LAUNCHES,
+                "segment_fwd": fused_dvr.SEGMENT_LAUNCHES}
 
     # 3. the first main path: product render of the dense flagship
     _, tf, npz = dense_scene()
@@ -499,9 +720,11 @@ def main():
         "bound_f32_ms": bound_f32_s * 1e3, "frame_ms": mean_ms,
         "samples": n_samples, "oracle_max_abs_err": oerr}
     train_rows = training(smi, reset_counts, counts, npz, tf, cam)
+    segment_row = segment_paths(smi, reset_counts, counts, npz, tf, cam)
 
     # 11. kernels
-    print(json.dumps({"kernels": [render_row] + train_rows}))
+    print(json.dumps({"kernels": [render_row] + train_rows
+                      + [segment_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,163 @@
+// Per-sample device code shared by every fused march of the port: the
+// megakernel (mega_fwd.cu, mega_bwd.cu through mega_common.cuh) and the
+// per-segment engine (segment_fwd.cu). The trilinear latent fetch with
+// grid_sample semantics from a channel-last table in rows of 16 channels,
+// its adjoint, the Fourier phase, the piecewise-linear TF with its
+// interval choice, and the front-to-back "over" step.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace march {
+
+constexpr int kLat = 16;        // channels in one table row (zero padded)
+
+// The 8 corners of a trilinear fetch with grid_sample semantics
+// (align_corners=False, border clamp): x in [0, 1] maps to voxel centers
+// at (i + 0.5) / n. `row` is the voxel's index in (z, y, x) order.
+struct Corners {
+  size_t row[8];
+  float w[8];
+};
+
+__device__ __forceinline__ void corner_axis(float x, int n, int& lo, int& hi,
+                                            float& f) {
+  float v = x * (float)n - 0.5f;
+  float fl = floorf(v);
+  f = v - fl;
+  fl = fminf(fmaxf(fl, -1.0f), (float)n);
+  int i = (int)fl;
+  lo = min(max(i, 0), n - 1);
+  hi = min(max(i + 1, 0), n - 1);
+}
+
+__device__ __forceinline__ void grid_corners(int gx, int gy, int gz, float x0,
+                                             float x1, float x2,
+                                             Corners& c) {
+  int lx, hx, ly, hy, lz, hz;
+  float fx, fy, fz;
+  corner_axis(x0, gx, lx, hx, fx);
+  corner_axis(x1, gy, ly, hy, fy);
+  corner_axis(x2, gz, lz, hz, fz);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int cx = k & 1, cy = (k >> 1) & 1, cz = k >> 2;
+    c.w[k] = (cz ? fz : 1.0f - fz) * (cy ? fy : 1.0f - fy)
+             * (cx ? fx : 1.0f - fx);
+    c.row[k] = ((size_t)(cz ? hz : lz) * gy + (cy ? hy : ly)) * gx
+               + (cx ? hx : lx);
+  }
+}
+
+// Table element types, one 16-channel row per call: bf16 (2 x 16 bytes)
+// and float32 (4 x 16 bytes).
+struct Bf16Table {
+  static __device__ __forceinline__ void add(const void* table, size_t row,
+                                             float w, float* lat) {
+    const uint4* p = static_cast<const uint4*>(table) + row * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint4 q = __ldg(p + h);
+      const uint32_t u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float* l = lat + 8 * h + 2 * i;
+        l[0] = fmaf(w, __uint_as_float(u[i] << 16), l[0]);
+        l[1] = fmaf(w, __uint_as_float(u[i] & 0xffff0000u), l[1]);
+      }
+    }
+  }
+};
+
+struct F32Table {
+  static __device__ __forceinline__ void add(const void* table, size_t row,
+                                             float w, float* lat) {
+    const float4* p = static_cast<const float4*>(table) + row * 4;
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const float4 q = __ldg(p + h);
+      lat[4 * h] = fmaf(w, q.x, lat[4 * h]);
+      lat[4 * h + 1] = fmaf(w, q.y, lat[4 * h + 1]);
+      lat[4 * h + 2] = fmaf(w, q.z, lat[4 * h + 2]);
+      lat[4 * h + 3] = fmaf(w, q.w, lat[4 * h + 3]);
+    }
+  }
+};
+
+// Channels 16*chunk .. 16*chunk+15 of the trilinear fetch from a table of
+// `chunks` 16-channel rows per voxel.
+template <typename Table>
+__device__ __forceinline__ void trilerp16(const void* table,
+                                          const Corners& c, int chunks,
+                                          int chunk, float* lat) {
+#pragma unroll
+  for (int i = 0; i < kLat; ++i) lat[i] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    Table::add(table, c.row[k] * chunks + chunk, c.w[k], lat);
+}
+
+// Adjoint of the float32 trilerp of a 16-channel table: d_table[corner] +=
+// w * d_lat, by sm_90's 16-byte vector atomics (four a corner; `n_lat`
+// real channels).
+__device__ __forceinline__ void trilerp_adjoint(float* d_table,
+                                                const Corners& c,
+                                                const float* d_lat,
+                                                int n_lat) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    float* row = d_table + c.row[k] * kLat;
+#pragma unroll
+    for (int q = 0; q < kLat / 4; ++q) {
+      if (4 * q >= n_lat) break;
+      const float w = c.w[k];
+      atomicAdd(reinterpret_cast<float4*>(row) + q,
+                make_float4(w * d_lat[4 * q], w * d_lat[4 * q + 1],
+                            w * d_lat[4 * q + 2], w * d_lat[4 * q + 3]));
+    }
+  }
+}
+
+// Phase of Fourier feature i: row i of B (F, 3) dotted with (x0, x1, x2).
+__device__ __forceinline__ float fourier_phase(const float* B, int i,
+                                               float x0, float x1,
+                                               float x2) {
+  return B[3 * i] * x0 + B[3 * i + 1] * x1 + B[3 * i + 2] * x2;
+}
+
+// The piecewise-linear TF at a normalized density d in [0, 1], control
+// points (tf_points, 5) as [r, g, b, absorption, position]: the interval
+// is the number of interior knots <= d.
+struct TfSample {
+  int iv;
+  float frac, r, g, b, op;
+};
+
+__device__ __forceinline__ void tf_lookup(const float* TF, int tf_points,
+                                          float d, TfSample& s) {
+  int iv = 0;
+  for (int q = 1; q < tf_points - 1; ++q) iv += (TF[q * 5 + 4] <= d);
+  const float* c0 = TF + iv * 5;
+  const float* c1 = c0 + 5;
+  s.iv = iv;
+  s.frac = (fminf(fmaxf(d, c0[4]), c1[4]) - c0[4]) / (c1[4] - c0[4]);
+  s.r = c0[0] + s.frac * (c1[0] - c0[0]);
+  s.g = c0[1] + s.frac * (c1[1] - c0[1]);
+  s.b = c0[2] + s.frac * (c1[2] - c0[2]);
+  s.op = c0[3] + s.frac * (c1[3] - c0[3]);
+}
+
+// One front-to-back "over" step of a sample of color (r, g, b) and alpha
+// `a` into the ray's carry.
+__device__ __forceinline__ void over(float& cr, float& cg, float& cb,
+                                     float& ca, float r, float g, float b,
+                                     float a) {
+  const float w = (1.0f - ca) * a;
+  cr = fmaf(w, r, cr);
+  cg = fmaf(w, g, cg);
+  cb = fmaf(w, b, cb);
+  ca = ca + (1.0f - ca) * a;
+}
+
+}  // namespace march

@@ -1,19 +1,20 @@
-// Device code shared by the fused march's forward (mega_fwd.cu) and
-// backward (mega_bwd.cu): the packed-weight layout, the trilinear latent
-// fetch with grid_sample semantics and its adjoint, SnakeAlt with its
-// derivative, the SRN's MLP, the density:direct head and the piecewise-
-// linear TF with its interval choice. Both kernels evaluate a sample with
-// the same function (`shade`), so the backward's replay reproduces the
-// forward's values and gates.
+// Device code shared by the megakernel's forward (mega_fwd.cu) and
+// backward (mega_bwd.cu): the packed-weight layout, SnakeAlt with its
+// derivative, the SRN's MLP, the density:direct head. The per-sample
+// pieces every fused march shares (trilinear latent fetch and its
+// adjoint, Fourier phase, piecewise-linear TF, the "over" step) are in
+// march_common.cuh. Both kernels evaluate a sample with the same function
+// (`shade`), so the backward's replay reproduces the forward's values and
+// gates.
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "march_common.cuh"
 
 namespace mega {
 
+using namespace march;
+
 constexpr int kHid = 32;        // hidden width
-constexpr int kLat = 16;        // latent channels in the table (zero padded)
 constexpr int kTile = 256;      // rays per block = threads per block
 constexpr int kMaxFourier = 32;
 constexpr int kMaxHidden = 6;   // hidden->hidden layers
@@ -87,105 +88,16 @@ __device__ __forceinline__ float snake_alt_deriv(float x, float p) {
   return 1.0f / (2.0f * p) + sinf(2.0f * p * x);
 }
 
-// The 8 corners of a trilinear fetch with grid_sample semantics
-// (align_corners=False, border clamp): x in [0, 1] maps to voxel centers
-// at (i + 0.5) / n. Row r of the channel-last table holds voxel r.
-struct Corners {
-  size_t row[8];
-  float w[8];
-};
-
-__device__ __forceinline__ void corner_axis(float x, int n, int& lo, int& hi,
-                                            float& f) {
-  float v = x * (float)n - 0.5f;
-  float fl = floorf(v);
-  f = v - fl;
-  fl = fminf(fmaxf(fl, -1.0f), (float)n);
-  int i = (int)fl;
-  lo = min(max(i, 0), n - 1);
-  hi = min(max(i + 1, 0), n - 1);
-}
-
+// The trilinear fetch of the (gz, gy, gx, 16) table (march_common.cuh).
 __device__ __forceinline__ void corners(const March& P, float x0, float x1,
                                         float x2, Corners& c) {
-  int lx, hx, ly, hy, lz, hz;
-  float fx, fy, fz;
-  corner_axis(x0, P.gx, lx, hx, fx);
-  corner_axis(x1, P.gy, ly, hy, fy);
-  corner_axis(x2, P.gz, lz, hz, fz);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int cx = k & 1, cy = (k >> 1) & 1, cz = k >> 2;
-    c.w[k] = (cz ? fz : 1.0f - fz) * (cy ? fy : 1.0f - fy)
-             * (cx ? fx : 1.0f - fx);
-    c.row[k] = ((size_t)(cz ? hz : lz) * P.gy + (cy ? hy : ly)) * P.gx
-               + (cx ? hx : lx);
-  }
+  grid_corners(P.gx, P.gy, P.gz, x0, x1, x2, c);
 }
-
-// Table element types: bf16 (the render's table, 2 x 16 bytes a corner)
-// and float32 (the training table, 4 x 16 bytes a corner).
-struct Bf16Table {
-  static __device__ __forceinline__ void add(const void* table, size_t row,
-                                             float w, float* lat) {
-    const uint4* p = static_cast<const uint4*>(table) + row * 2;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint4 q = __ldg(p + h);
-      const uint32_t u[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float* l = lat + 8 * h + 2 * i;
-        l[0] = fmaf(w, __uint_as_float(u[i] << 16), l[0]);
-        l[1] = fmaf(w, __uint_as_float(u[i] & 0xffff0000u), l[1]);
-      }
-    }
-  }
-};
-
-struct F32Table {
-  static __device__ __forceinline__ void add(const void* table, size_t row,
-                                             float w, float* lat) {
-    const float4* p = static_cast<const float4*>(table) + row * 4;
-#pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      const float4 q = __ldg(p + h);
-      lat[4 * h] = fmaf(w, q.x, lat[4 * h]);
-      lat[4 * h + 1] = fmaf(w, q.y, lat[4 * h + 1]);
-      lat[4 * h + 2] = fmaf(w, q.z, lat[4 * h + 2]);
-      lat[4 * h + 3] = fmaf(w, q.w, lat[4 * h + 3]);
-    }
-  }
-};
 
 template <typename Table>
 __device__ __forceinline__ void trilerp(const March& P, const Corners& c,
                                         float* lat) {
-#pragma unroll
-  for (int i = 0; i < kLat; ++i) lat[i] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) Table::add(P.table, c.row[k], c.w[k], lat);
-}
-
-// Adjoint of the float32 trilerp: d_table[corner] += w * d_lat, by sm_90's
-// 16-byte vector atomics (four a corner; `n_lat` real channels).
-
-__device__ __forceinline__ void trilerp_adjoint(float* d_table,
-                                                const Corners& c,
-                                                const float* d_lat,
-                                                int n_lat) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    float* row = d_table + c.row[k] * kLat;
-#pragma unroll
-    for (int q = 0; q < kLat / 4; ++q) {
-      if (4 * q >= n_lat) break;
-      const float w = c.w[k];
-      atomicAdd(reinterpret_cast<float4*>(row) + q,
-                make_float4(w * d_lat[4 * q], w * d_lat[4 * q + 1],
-                            w * d_lat[4 * q + 2], w * d_lat[4 * q + 3]));
-    }
-  }
+  trilerp16<Table>(P.table, c, 1, 0, lat);
 }
 
 // What the backward keeps of one sample's MLP evaluation: the first
@@ -215,10 +127,8 @@ __device__ __forceinline__ float mlp(const Net& N, float x0, float x1,
     keep->in1[0] = x0; keep->in1[1] = x1; keep->in1[2] = x2;
   }
   for (int i = 0; i < F; ++i) {
-    const float f = N.B[3 * i] * x0 + N.B[3 * i + 1] * x1
-                    + N.B[3 * i + 2] * x2;
     float sn, cs;
-    sincosf(f, &sn, &cs);
+    sincosf(fourier_phase(N.B, i, x0, x1, x2), &sn, &cs);
     if (kKeep) {
       keep->in1[3 + i] = cs;
       keep->in1[3 + F + i] = sn;
@@ -270,24 +180,8 @@ __device__ __forceinline__ float mlp(const Net& N, float x0, float x1,
   return y;
 }
 
-// The piecewise-linear TF at a normalized density d in [0, 1]: the
-// interval is the number of interior knots <= d.
-struct TfSample {
-  int iv;
-  float frac, r, g, b, op;
-};
-
 __device__ __forceinline__ void tf_eval(const Net& N, float d, TfSample& s) {
-  int iv = 0;
-  for (int q = 1; q < N.tf_points - 1; ++q) iv += (N.TF[q * 5 + 4] <= d);
-  const float* c0 = N.TF + iv * 5;
-  const float* c1 = c0 + 5;
-  s.iv = iv;
-  s.frac = (fminf(fmaxf(d, c0[4]), c1[4]) - c0[4]) / (c1[4] - c0[4]);
-  s.r = c0[0] + s.frac * (c1[0] - c0[0]);
-  s.g = c0[1] + s.frac * (c1[1] - c0[1]);
-  s.b = c0[2] + s.frac * (c1[2] - c0[2]);
-  s.op = c0[3] + s.frac * (c1[3] - c0[3]);
+  tf_lookup(N.TF, N.tf_points, d, s);
 }
 
 // One lattice sample: latent fetch, MLP, density:direct head, TF. Returns

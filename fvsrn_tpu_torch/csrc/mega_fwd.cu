@@ -90,11 +90,7 @@ __global__ void __launch_bounds__(kTile) mega_fwd_kernel(const March P,
       if (!shade<Table, false>(P, N, x0, x1, x2, sh, nullptr)) continue;
       const float absn = sh.tf.op * h;
       const float a = 1.0f - expf(-absn);  // Beer-Lambert
-      const float w = (1.0f - ca) * a;
-      cr = fmaf(w, sh.tf.r, cr);
-      cg = fmaf(w, sh.tf.g, cg);
-      cb = fmaf(w, sh.tf.b, cb);
-      ca = ca + (1.0f - ca) * a;
+      over(cr, cg, cb, ca, sh.tf.r, sh.tf.g, sh.tf.b, a);
     }
   }
 

@@ -2,15 +2,28 @@
 
 Counterpart of ``fvsrn_tpu/inference.py``. Modes:
 
-- ``FUSED``: the product render. Rays in 16x16 pixel blocks, the
-  camera-static saturation probe clamps each ray's march, and the fused
-  march (``ops.fused_mega.mega_trace_dvr``) runs with a bf16 latent table
-  and float32 math: the CUDA kernel on the card, its plain version on the
-  CPU.
-- ``PLAIN32``: the plain float32 march (``raytracer.dvr.trace_dvr``).
+- ``FUSED`` and ``FUSED_BF16`` (the same render for DVR): bf16 latent
+  table, float32 math, routed as the JAX package routes them:
+  1. a latent grid that fits the JAX megakernel's slab
+     (``ops.fused_dvr.mega_supported``) at W and H multiples of 16: rays
+     in 16x16 pixel blocks, the camera-static saturation probe clamps
+     each ray's march (density networks), the megakernel
+     (``ops.fused_mega.mega_trace_dvr``);
+  1b. any other grid of <= 16 channels at those sizes: the same blocks
+     and clip, march-length buckets of ray tiles
+     (``ops.fused_dvr.plan_ray_buckets``), each marched by the
+     per-segment engine on the lattice (``fused_trace_dvr_bucketed``);
+  2. no grid, more than 16 channels, or W or H not a multiple of 16:
+     the per-segment engine with per-ray sampling on 128-ray tiles, the
+     rays padded with start (0, 0, 0) and direction (1, 1, 1), no clip.
+  The kernels run on the card, their plain versions on the CPU.
+- ``PLAIN32``: the plain float32 march (``raytracer.dvr.trace_dvr``);
+  ``PLAIN16`` the same with every weight rounded through bf16.
 
-``FUSED_BF16`` and ``PLAIN16`` are not ported yet, nor is the fused
-engine for image sizes that are not multiples of 16.
+``render_network_iso`` renders an isosurface: FUSED (float32 table) and
+FUSED_BF16 (bf16 table) on the per-segment engine
+(``ops.fused_dvr.fused_trace_iso``), any other mode by the plain
+``raytracer.iso.trace_iso``.
 
 Everything runs on ``device``, "cuda" unless the caller asks for the
 CPU; a CUDA request without a card raises.
@@ -27,26 +40,33 @@ from torch import Tensor
 from .camera import CameraOnASphere, camera_matrix, generate_rays
 from .models.network_volume import VolumeInterpolationNetwork
 from .models.srn import SceneRepresentationNetwork
-from .ops.fused_dvr import block_ray_permutation, probe_saturation_tmax
+from .ops.fused_dvr import (block_ray_permutation, fused_trace_dvr,
+                            fused_trace_dvr_bucketed, fused_trace_iso,
+                            mega_supported, plan_ray_buckets,
+                            probe_saturation_tmax)
 from .ops.fused_mega import mega_trace_dvr
 from .raytracer.dvr import RayEvaluationSteppingDvr, max_steps_bound, trace_dvr
+from .raytracer.iso import RayEvaluationSteppingIso, trace_iso
 from .train.checkpoints import load_weights
 from .transfer import TransferFunctionPiecewiseLinear
 from .utils.device import resolve_device
 
-EVAL_MODES = ("FUSED", "PLAIN32")
-_NOT_PORTED = ("FUSED_BF16", "PLAIN16")
+EVAL_MODES = ("FUSED", "FUSED_BF16", "PLAIN32", "PLAIN16")
 
-# the product path's fixed choices (fvsrn_tpu/inference.py)
+# the fused routes' fixed choices (fvsrn_tpu/inference.py)
 BLOCK = 16
 SEG = 32
 TILE = BLOCK * BLOCK
+SEGMENT_TILE = 128
+N_BUCKETS = 6
+QUANTIZE = 128
 
 
 class FusedRender:
-    """A prepared FUSED render of one camera: block-ordered rays, their
-    saturation clip and the device copies of network and TF. Calling it
-    renders one (H, W, 4) frame."""
+    """A prepared FUSED render of one camera on route 1 (the megakernel):
+    block-ordered rays, their saturation clip and the device copies of
+    network and TF. Calling it renders one (H, W, 4) frame."""
+    route = "mega"
 
     def __init__(self, ray_start: Tensor, ray_dir: Tensor, inv: Tensor,
                  tmax_clip: Tensor, network, tf, box_min,
@@ -73,6 +93,78 @@ class FusedRender:
     def __call__(self) -> Tensor:
         """One frame, back in row-major order: (H, W, 4)."""
         return self.march()[self.inv].reshape(self.height, self.width, 4)
+
+
+class BucketedRender(FusedRender):
+    """Route 1b: the megakernel's block-ordered rays and clip, marched by
+    the per-segment engine on the lattice once per bucket of ``plan``
+    (which carries the clip in its own order). ``march(fn)`` takes
+    :func:`fused_trace_dvr` or its plain version."""
+    route = "bucketed"
+
+    def __init__(self, *args, plan=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.plan = plan
+
+    def march(self, fn=fused_trace_dvr, **overrides):
+        kw = dict(self.march_kwargs, **overrides)
+        return fused_trace_dvr_bucketed(
+            self.ray_start, self.ray_dir, self.network, self.box_min,
+            self.box_size, self.tf.tensor, plan=self.plan, engine="scan",
+            march=fn, **kw)
+
+
+class SegmentRender:
+    """Route 2: row-major rays padded to whole 128-ray tiles, marched by
+    the per-segment engine with per-ray sampling and no clip. Calling it
+    renders one (H, W, 4) frame."""
+    route = "segment"
+
+    def __init__(self, ray_start: Tensor, ray_dir: Tensor, pad: int,
+                 network, tf, box_min, box_size, width: int, height: int,
+                 march_kwargs: dict):
+        self.ray_start = ray_start
+        self.ray_dir = ray_dir
+        self.pad = pad
+        self.network = network
+        self.tf = tf
+        self.box_min = box_min
+        self.box_size = box_size
+        self.width = width
+        self.height = height
+        self.march_kwargs = march_kwargs
+
+    def march(self, fn=fused_trace_dvr, **overrides):
+        """``fn`` on this frame's padded rays; returns its raw output."""
+        kw = dict(self.march_kwargs, **overrides)
+        return fn(self.ray_start, self.ray_dir, self.network, self.box_min,
+                  self.box_size, self.tf.tensor, **kw)
+
+    def __call__(self) -> Tensor:
+        out = self.march()
+        n = out.shape[0] - self.pad
+        return out[:n].reshape(self.height, self.width, 4)
+
+
+def pad_rays(rs: Tensor, rd: Tensor, tile: int):
+    """Rays padded to a multiple of ``tile`` as the JAX package pads them:
+    start (0, 0, 0), direction (1, 1, 1). Padding rays march like any
+    other ray (and may set the call's stop). Returns (rs, rd, pad)."""
+    pad = (-rs.shape[0]) % tile
+    if pad:
+        rs = torch.cat([rs, rs.new_zeros(pad, 3)], dim=0)
+        rd = torch.cat([rd, rd.new_ones(pad, 3)], dim=0)
+    return rs.contiguous(), rd.contiguous(), pad
+
+
+def round_bf16(net):
+    """A copy of ``net`` with every weight rounded through bf16 (the
+    PLAIN16 mode)."""
+    out = copy.deepcopy(net)
+    with torch.no_grad():
+        for p in out.parameters():
+            p.copy_(p.to(torch.bfloat16).to(p.dtype))
+    return out
 
 
 class LoadedModel:
@@ -110,11 +202,10 @@ class LoadedModel:
                                height: int, mode: str = "FUSED", *,
                                device="cuda"):
         """A zero-argument callable rendering (H, W, 4), with the
-        per-camera planning (rays, block order, saturation probe) done
-        here. Snapshot semantics: the network and TF are copied to
-        ``device`` now; later changes to the model do not reach it."""
-        if mode in _NOT_PORTED:
-            raise NotImplementedError(f"mode {mode} is not ported yet")
+        per-camera planning (rays, block order, saturation probe, bucket
+        plan) done here; a FUSED render tells its route by ``.route``.
+        Snapshot semantics: the network and TF are copied to ``device``
+        now; later changes to the model do not reach it."""
         if mode not in EVAL_MODES:
             raise ValueError(f"mode must be one of {EVAL_MODES}")
         dev = resolve_device(device)
@@ -126,40 +217,95 @@ class LoadedModel:
                                camera.fov_y_radians, device=dev)
         rs = rs.reshape(-1, 3).contiguous()
         rd = rd.reshape(-1, 3).contiguous()
-        vol = VolumeInterpolationNetwork(net, self.box_min, self.box_size)
-        if mode == "PLAIN32":
+        if not mode.startswith("FUSED"):
+            if mode == "PLAIN16":
+                net = round_bf16(net)
+            vol = VolumeInterpolationNetwork(net, self.box_min,
+                                             self.box_size)
+
             @torch.no_grad()
             def render_plain():
                 color = trace_dvr(rs, rd, vol, tf, self.config, steps).color
                 return color.reshape(height, width, 4)
             return render_plain
 
-        if width % BLOCK or height % BLOCK:
-            raise NotImplementedError(
-                f"FUSED needs width and height divisible by {BLOCK}; the "
-                "per-segment engine for other sizes is not ported yet")
-        if (net.latent.static_grid is None
-                or not net.output_mode.startswith("density")):
-            raise NotImplementedError("FUSED for networks without a latent "
-                                      "grid or with color output is not "
-                                      "ported yet")
+        kw = dict(stepsize=stepsize, seg=SEG,
+                  density_min=float(self.config.density_min),
+                  density_max=float(self.config.density_max))
+        grid = net.latent.static_grid
+        if (grid is None or grid.shape[0] > 16 or width % BLOCK
+                or height % BLOCK):
+            # route 2
+            rs, rd, pad = pad_rays(rs, rd, SEGMENT_TILE)
+            return SegmentRender(rs, rd, pad, net, tf, self.box_min,
+                                 self.box_size, width, height,
+                                 dict(kw, max_steps=steps, tile=SEGMENT_TILE,
+                                      table_dtype=torch.bfloat16))
         perm, inv = block_ray_permutation(width, height, BLOCK, BLOCK,
                                           device=dev)
         rs, rd = rs[perm].contiguous(), rd[perm].contiguous()
-        clip = probe_saturation_tmax(rs, rd, vol, tf, stepsize=stepsize,
-                                     max_steps=steps, coarse=8,
-                                     margin_steps=16)
-        kw = dict(stepsize=stepsize, seg=SEG, tile=TILE,
-                  density_min=float(self.config.density_min),
-                  density_max=float(self.config.density_max))
-        return FusedRender(rs, rd, inv, clip, net, tf, self.box_min,
-                           self.box_size, width, height, kw)
+        clip = None
+        if net.output_mode.startswith("density"):
+            vol = VolumeInterpolationNetwork(net, self.box_min,
+                                             self.box_size)
+            clip = probe_saturation_tmax(rs, rd, vol, tf, stepsize=stepsize,
+                                         max_steps=steps, coarse=8,
+                                         margin_steps=16)
+        if mega_supported(tuple(grid.shape), torch.bfloat16):
+            # route 1
+            return FusedRender(rs, rd, inv, clip, net, tf, self.box_min,
+                               self.box_size, width, height,
+                               dict(kw, tile=TILE))
+        # route 1b
+        c, gd, gh, gw = grid.shape
+        plan = plan_ray_buckets(
+            rs.cpu().numpy(), rd.cpu().numpy(), self.box_min, self.box_size,
+            stepsize=stepsize, seg=SEG, tile=TILE, n_buckets=N_BUCKETS,
+            grid_sizes=(gw, gh, gd), quantize=QUANTIZE,
+            tmax_clip=clip.cpu().numpy() if clip is not None else None)
+        return BucketedRender(rs, rd, inv, clip, net, tf, self.box_min,
+                              self.box_size, width, height,
+                              dict(kw, tile=TILE, latent_mode="boxfeat",
+                                   table_dtype=torch.bfloat16), plan=plan)
 
     def render_network(self, camera: CameraOnASphere, width: int,
                        height: int, mode: str = "FUSED", *,
                        device="cuda") -> Tensor:
         return self.prepare_network_render(camera, width, height, mode,
                                            device=device)()
+
+    def render_network_iso(self, camera: CameraOnASphere, width: int,
+                           height: int, iso_config: RayEvaluationSteppingIso,
+                           mode: str = "FUSED", *, device="cuda",
+                           return_stats: bool = False):
+        """Isosurface render, (H, W, 4): FUSED (float32 latent table) and
+        FUSED_BF16 (bf16 table) march on the per-segment engine over
+        128-ray tiles of padded rays, then bisect and shade per ray;
+        other modes by the plain ``trace_iso``. With ``return_stats``
+        (FUSED modes) also the march's ``SegmentStats``."""
+        if mode not in EVAL_MODES:
+            raise ValueError(f"mode must be one of {EVAL_MODES}")
+        dev = resolve_device(device)
+        net = copy.deepcopy(self.network).to(dev).eval()
+        steps = max_steps_bound(self.box_size, float(iso_config.stepsize))
+        rs, rd = generate_rays(camera_matrix(camera), width, height,
+                               camera.fov_y_radians, device=dev)
+        rs = rs.reshape(-1, 3)
+        rd = rd.reshape(-1, 3)
+        if not mode.startswith("FUSED"):
+            vol = VolumeInterpolationNetwork(net, self.box_min,
+                                             self.box_size)
+            color = trace_iso(rs, rd, vol, iso_config, steps).color
+            return color.reshape(height, width, 4)
+        rs, rd, pad = pad_rays(rs, rd, SEGMENT_TILE)
+        out, stats = fused_trace_iso(
+            rs, rd, net, self.box_min, self.box_size, iso_config,
+            max_steps=steps, tile=SEGMENT_TILE,
+            table_dtype=(torch.bfloat16 if mode == "FUSED_BF16"
+                         else torch.float32), return_stats=True)
+        color = out.color[:out.color.shape[0] - pad].reshape(height, width,
+                                                            4)
+        return (color, stats) if return_stats else color
 
     def time_rendering(self, cameras, width: int = 512, height: int = 512,
                        mode: str = "FUSED", repeats: int = 4, *,

@@ -2,7 +2,10 @@
 
 Counterpart of ``fvsrn_tpu/models/network_volume.py``: wraps a
 ``SceneRepresentationNetwork`` behind the volume contract
-(``eval_density`` plus the box) so the plain ray marchers can sample it.
+(``eval_density``, ``eval_normal`` plus the box) so the plain ray
+marchers can sample it. ``gradient_mode`` picks the normal: "adjoint"
+differentiates the density with autograd, "fd" takes forward
+differences of ``fd_step``, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -16,9 +19,14 @@ from .srn import SceneRepresentationNetwork
 
 class VolumeInterpolationNetwork(nn.Module):
     def __init__(self, network: SceneRepresentationNetwork,
-                 box_min=(-0.5, -0.5, -0.5), box_size=(1.0, 1.0, 1.0)):
+                 box_min=(-0.5, -0.5, -0.5), box_size=(1.0, 1.0, 1.0),
+                 gradient_mode: str = "adjoint", fd_step: float = 1e-3):
         super().__init__()
+        if gradient_mode not in ("adjoint", "fd"):
+            raise ValueError(f"unknown gradient mode {gradient_mode}")
         self.network = network
+        self.gradient_mode = gradient_mode
+        self.fd_step = float(fd_step)
         dev = next(network.parameters()).device
         self.register_buffer("box_min", torch.as_tensor(
             box_min, dtype=torch.float32, device=dev))
@@ -46,3 +54,23 @@ class VolumeInterpolationNetwork(nn.Module):
         if self.outputs_color:
             return out.reshape(lead + (4,)), inside
         return out.reshape(lead), inside
+
+    def eval_normal(self, position: Tensor,
+                    direction: Optional[Tensor] = None) -> Tensor:
+        """Gradient of the density with respect to the world position,
+        (..., 3); no graph is kept."""
+        if self.outputs_color:
+            raise ValueError("normals are only defined for density networks")
+        if self.gradient_mode == "fd":
+            h = self.fd_step
+            offs = torch.eye(3, dtype=position.dtype,
+                             device=position.device) * h
+            d0 = self.eval_density(position, direction)[0]
+            return torch.stack(
+                [(self.eval_density(position + offs[i], direction)[0] - d0)
+                 / h for i in range(3)], dim=-1).detach()
+        with torch.enable_grad():
+            p = position.detach().requires_grad_(True)
+            value = self.eval_density(p, direction)[0]
+            (grad,) = torch.autograd.grad(value.sum(), p)
+        return grad

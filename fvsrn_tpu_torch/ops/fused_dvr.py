@@ -1,26 +1,99 @@
-"""Host-side planning of the fused march.
+"""The per-segment fused march and the host-side planning of the fused
+render.
 
-Counterpart of the planning half of ``fvsrn_tpu/ops/fused_dvr.py``:
+Counterpart of ``fvsrn_tpu/ops/fused_dvr.py``:
 
+- ``fused_trace_dvr`` is the per-segment engine (the TPU kernel
+  ``_segment_kernel``, forward only): CUDA tensors launch
+  ``csrc/segment_fwd.cu``, CPU tensors run ``fused_trace_dvr_plain``; on
+  a CUDA tensor it never falls back to the plain version;
+- ``fused_trace_iso`` is the isosurface render on that engine: the
+  kernel's first-hit epilogue, then per-ray bisection and shading in plain
+  PyTorch (``raytracer.iso.refine_and_shade``), as in the JAX package;
+- ``plan_ray_buckets`` / ``fused_trace_dvr_bucketed`` run the engine once
+  per march-length bucket of ray tiles, the route of latent grids that
+  fail ``mega_supported``;
 - ``block_ray_permutation`` regroups row-major rays into pixel blocks so
-  that each ray tile of the fused kernel is spatially coherent;
+  that each ray tile is spatially coherent;
 - ``probe_saturation_tmax`` is the camera-static saturation probe: a
   coarse alpha-only march of the same network and TF that clamps each
   ray's march where it saturates. It is plain PyTorch on the device, as
   it is plain JAX (no Pallas kernel) in the JAX package.
 
-The bucket planner of the JAX package (``plan_ray_buckets``) only
-reorders whole tiles so that a TPU grid of fixed trip count pays less;
-the CUDA kernel loops over each tile's own segments instead, so the
-port has no counterpart.
+What ``fused_trace_dvr`` computes (the semantics of the TPU engine, not
+its layout). Segments of ``seg`` samples, per-ray sampling t = tmin + k*h,
+or with ``latent_mode="boxfeat"`` and a grid of <= 16 channels the global
+lattice t = k*h from the ray tile's base k0t (the minimum of
+ceil(tmin/h) over the ``tile`` rays; a sample counts from the ray's own
+k0 on). The stop is global to the call: segment s runs for every ray
+while some ray of the call is alive at s (segment start <= tmax, alpha <
+``alpha_early_out`` on entry), at most ``n_seg`` segments; so a saturated
+ray keeps compositing until the call's last live ray is done. Latent
+features: a grid of <= 16 channels is read rounded to ``table_dtype``
+(the JAX package's neighborhood table), a wider one in float32. Each
+valid sample: the network (every activation, the five output heads,
+direction input), then the piecewise TF (density heads; a sample counts
+when its value >= density_min) or the head's own rgb with absorption o*h
+(rgbo heads), Beer-Lambert or alpha "over". With ``iso_value`` the march
+records the first sample whose density exceeds it: rgba = (depth, 0, 0,
+found), and a hit ray is dead. Differentiable marches, normals and
+shading, and TF modes other than piecewise raise ``NotImplementedError``.
+
+Bound of the kernel on the H100: operations (the dense flagship's sample
+costs ~7.6 kFLOP and ~110 transcendentals against 32 bytes per ray). This
+first version runs the MLP on the float32 CUDA cores, one sample per
+thread; tensor-core layers over batched samples are later work.
 """
 from __future__ import annotations
 
+import ctypes
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
 import torch
 from torch import Tensor
 
+from ..models.activations import apply_activation
+from ..models.latent import grid_sample_3d
+from ..models.srn import SceneRepresentationNetwork, apply_output
 from ..utils.device import strict_f32
 from ..utils.vecmath import intersect_aabb
+from . import _build
+
+# kernel launches since the last reset (two a call: the march and its
+# continuation up to the call's stop); the plain version never counts
+SEGMENT_LAUNCHES = 0
+
+# the JAX megakernel's VMEM budget for its latent slab: the route rule of
+# the fused render (a grid over it takes the bucketed per-segment engine)
+SLAB_VMEM_LIMIT = 6 * 2 ** 20
+KERNEL_WIDTHS = (32, 48, 64)     # hidden widths of the kernel's instances
+MAX_LATENT_CHANNELS = 64
+MAX_FOURIER = 32                 # the kernel's limits (segment_fwd.cu)
+MAX_HIDDEN_LAYERS = 6
+MAX_TF_POINTS = 16
+_ACTIVATIONS = {"None": 0, "NONE": 0, "ReLU": 1, "Sine": 2, "Sigmoid": 3,
+                "Softplus": 4, "Snake": 5, "SnakeAlt": 6}
+_HEADS = {"density": 0, "density:direct": 1, "rgbo": 2, "rgbo:direct": 3,
+          "rgbo:exp": 4}
+_PLAIN_CHUNK_SAMPLES = 1 << 21
+_FAR = 3.0e38
+
+
+def mega_supported(grid_shape, table_dtype=torch.float32) -> bool:
+    """Whether a (C, D, H, W) latent grid fits the JAX megakernel's
+    VMEM-resident slab (worst-case y padding assumed): the JAX formula,
+    kept as the port's route rule, since the route decides the image."""
+    if grid_shape is None:
+        return True
+    c, d, h, w = grid_shape
+    if c > 16:
+        return False
+    nxb_tot = (w + 2 + 7) // 8
+    yp = -(-(h + 2) // 8) * 8 + 24
+    itemsize = torch.empty(0, dtype=table_dtype).element_size()
+    return (d + 2) * yp * nxb_tot * 128 * itemsize <= SLAB_VMEM_LIMIT
 
 
 def block_ray_permutation(width: int, height: int, block_w: int = 16,
@@ -82,3 +155,706 @@ def probe_saturation_tmax(ray_start: Tensor, ray_dir: Tensor, volume, tf, *,
                            t, tsat)
     clip = torch.where(torch.isfinite(tsat), tsat + margin_steps * h, tmax)
     return torch.minimum(tmax, clip)[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# planning of the bucketed route
+
+
+def _slab_exit(rs: np.ndarray, rd: np.ndarray, box_min, box_size):
+    """(tmin >= 0, tmax) of the planner's slab test (zero direction
+    components replaced by 1e-12), numpy float32."""
+    bmin = np.asarray(box_min, np.float32)
+    bsize = np.asarray(box_size, np.float32)
+    inv = 1.0 / np.where(rd == 0, 1e-12, rd)
+    t0 = (bmin - rs) * inv
+    t1 = (bmin + bsize - rs) * inv
+    tmin = np.maximum(np.minimum(t0, t1).max(axis=1), 0.0)
+    return tmin, np.maximum(t0, t1).min(axis=1)
+
+
+def certify_segments(ray_start, ray_dir, box_min, box_size, *,
+                     stepsize: float, seg: int, tile: int,
+                     tmax_clip=None) -> int:
+    """The lattice march's segment count for a concrete ray set: the
+    longest tile's span from its base k0t (every ray counts) to its last
+    lattice point, over ``seg`` (the n_seg of the JAX package's
+    ``certify_boxfeat``; its footprint sizes serve a TPU gather and have
+    no counterpart here)."""
+    rs = np.asarray(ray_start, np.float32)
+    rd = np.asarray(ray_dir, np.float32)
+    h = np.float32(stepsize)
+    tmin, tmax = _slab_exit(rs, rd, box_min, box_size)
+    tmin = tmin.astype(np.float32)
+    tmax = tmax.astype(np.float32)
+    if tmax_clip is not None:
+        tmax = np.minimum(tmax, np.asarray(tmax_clip, np.float32))
+    n_tiles = rs.shape[0] // tile
+    k0t = np.ceil(tmin / h).reshape(n_tiles, tile).min(axis=1)
+    span = np.floor(tmax / h).reshape(n_tiles, tile).max(axis=1) - k0t + 1
+    return max(1, int(np.ceil(max(float(span.max()), 1.0) / seg)))
+
+
+class RayBucketPlan(NamedTuple):
+    """Static plan of march-length tile buckets (see
+    :func:`plan_ray_buckets`)."""
+    perm: np.ndarray          # (R,) tile-granular ray permutation
+    inv: np.ndarray           # its inverse
+    group_sizes: tuple        # rays per live group (multiples of tile)
+    group_steps: tuple        # max_steps per group
+    group_segments: tuple     # the engine's segment count per group
+    dead: int                 # leading rays whose tiles never hit the box
+    tmax_clip: Optional[np.ndarray] = None  # (R,) permuted per-ray clip
+
+
+def plan_ray_buckets(ray_start, ray_dir, box_min, box_size, *,
+                     stepsize: float, seg: int, tile: int,
+                     n_buckets: int = 4, grid_sizes=None,
+                     quantize: int = 0, tmax_clip=None) -> RayBucketPlan:
+    """Sort ray tiles by their lattice span and cut them into
+    ``n_buckets`` contiguous groups, each marched by its own call of the
+    engine (its own global stop and segment count). Host-side numpy, as
+    in the JAX package; tile contents are not reordered. ``quantize`` > 0
+    makes the plan's shape camera-stable: equal splits of all tiles
+    (none sliced off as dead) and step counts rounded up to its
+    multiples. ``grid_sizes`` (x, y, z) marks a lattice (boxfeat) plan,
+    whose segment counts are certified per group."""
+    rs = np.asarray(ray_start, np.float32)
+    rd = np.asarray(ray_dir, np.float32)
+    h = np.float32(stepsize)
+    n_tiles = rs.shape[0] // tile
+    tmin, tmax = _slab_exit(rs, rd, box_min, box_size)
+    if tmax_clip is not None:
+        tmax = np.minimum(tmax, np.asarray(tmax_clip, np.float32))
+    k0 = np.ceil(tmin / h)
+    k1 = np.floor(tmax / h)
+    alive = (tmax > tmin) & (k1 >= k0)
+    k0t = np.where(alive, k0, np.inf).reshape(n_tiles, tile).min(axis=1)
+    k1t = np.where(alive, k1, -np.inf).reshape(n_tiles, tile).max(axis=1)
+    span_t = np.maximum(np.where(np.isfinite(k0t), k1t - k0t + 1, 0.0), 0.0)
+    order_t = np.argsort(span_t, kind="stable")
+    perm = (order_t[:, None] * tile + np.arange(tile)).ravel()
+    inv_p = np.argsort(perm)
+    spans_sorted = span_t[order_t]
+    n_dead = 0 if quantize else int(np.sum(spans_sorted <= 0))
+    clip_p = (np.asarray(tmax_clip, np.float32)[perm]
+              if tmax_clip is not None else None)
+    sizes, steps, segments = [], [], []
+    if n_tiles - n_dead > 0:
+        edges = np.linspace(n_dead, n_tiles, n_buckets + 1).astype(int)
+        rs_p, rd_p = rs[perm], rd[perm]
+        for a, b in zip(edges[:-1], edges[1:]):
+            if b <= a:
+                continue
+            g_steps = max(int(spans_sorted[a:b].max()), 1)
+            if quantize:
+                g_steps = -(-g_steps // quantize) * quantize
+            sizes.append((b - a) * tile)
+            steps.append(g_steps)
+            n_seg = certify_segments(
+                rs_p[a * tile:b * tile], rd_p[a * tile:b * tile], box_min,
+                box_size, stepsize=stepsize, seg=seg, tile=tile,
+                tmax_clip=(clip_p[a * tile:b * tile]
+                           if clip_p is not None else None))
+            if quantize and grid_sizes is not None:
+                n_seg = max(n_seg, -(-g_steps // seg))
+            segments.append(n_seg)
+    return RayBucketPlan(perm=perm, inv=inv_p, group_sizes=tuple(sizes),
+                         group_steps=tuple(steps),
+                         group_segments=tuple(segments), dead=n_dead * tile,
+                         tmax_clip=clip_p)
+
+
+# ---------------------------------------------------------------------------
+# the per-segment engine
+
+
+class SegmentSpec(NamedTuple):
+    """What one call of the engine needs besides its tensors."""
+    stepsize: float             # rounded to float32
+    seg: int
+    n_seg: int
+    lattice: bool
+    density_min: float
+    density_max: float
+    early_alpha: float          # 2.0 disables the early-out
+    blend_alpha: bool           # "alpha" blending, else Beer-Lambert
+    iso_value: Optional[float]
+    box_min: tuple
+    box_size: tuple
+    activation: tuple           # (name, param) of every hidden layer
+    output_mode: str
+
+
+class SegmentStats(NamedTuple):
+    """Of one call: samples evaluated (valid samples; for iso, up to the
+    hit) and the stop S, the number of segments the call ran. Tensors, so
+    reading them does not stall the card until asked."""
+    samples: Tensor
+    stop: Tensor
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def _check_segment_request(net, *, differentiable, need_normals, tf_mode,
+                           iso_value):
+    if differentiable:
+        raise NotImplementedError("fused_trace_dvr: the differentiable "
+                                  "per-segment engine is not ported yet")
+    if need_normals:
+        raise NotImplementedError("fused_trace_dvr: normals and shading "
+                                  "are not ported yet")
+    if tf_mode != "piecewise":
+        raise NotImplementedError(f"fused_trace_dvr: TF mode {tf_mode!r} "
+                                  "is not ported yet")
+    if iso_value is not None and not net.output_mode.startswith("density"):
+        raise ValueError("fused iso marching: density networks only")
+    if len(net.layers) < 2:
+        raise ValueError("fused_trace_dvr: the network needs a hidden layer")
+
+
+def _segment_rays(ray_start, ray_dir, box_min, box_size, h, tile, lattice,
+                  tmax_clip):
+    """(rays (R, 8) [start, dir, a, tmax], kbase (R,) or None): a = tmin
+    (per-ray sampling) or k0_ray = ceil(tmin/h) (lattice), kbase the
+    lattice base of the ray's tile (NaN-propagating minimum, as the JAX
+    package takes it)."""
+    rs = ray_start.reshape(-1, 3).to(torch.float32)
+    rd = ray_dir.reshape(-1, 3).to(torch.float32)
+    dev = rs.device
+    tmin, tmax = intersect_aabb(
+        rs, rd, torch.as_tensor(box_min, dtype=torch.float32, device=dev),
+        torch.as_tensor(box_size, dtype=torch.float32, device=dev))
+    tmin = torch.clamp(tmin, min=0.0)
+    if tmax_clip is not None:
+        tmax = torch.minimum(tmax, tmax_clip.reshape(tmax.shape).to(
+            device=dev, dtype=torch.float32))
+    kbase = None
+    a = tmin
+    if lattice:
+        a = torch.ceil(tmin / h)
+        kbase = a.reshape(-1, tile).amin(dim=1).repeat_interleave(tile)
+        kbase = kbase.contiguous()
+    return torch.cat([rs, rd, a, tmax], dim=1).contiguous(), kbase
+
+
+def _segment_setup(ray_start, ray_dir, net, box_min, box_size, *, stepsize,
+                   max_steps, density_min, density_max, blend_mode,
+                   alpha_early_out, enable_early_out, seg, tile,
+                   differentiable, latent_mode, n_seg, need_normals,
+                   iso_value, tf_mode, tmax_clip):
+    """(spec, rays, kbase): the checks and the ray packet of a call."""
+    _check_segment_request(net, differentiable=differentiable,
+                           need_normals=need_normals, tf_mode=tf_mode,
+                           iso_value=iso_value)
+    if blend_mode not in ("beer_lambert", "alpha"):
+        raise ValueError(f"unknown blend mode {blend_mode}")
+    if ray_start.reshape(-1, 3).shape[0] % tile:
+        raise ValueError(f"ray count {ray_start.reshape(-1, 3).shape[0]} "
+                         f"must be a multiple of tile={tile} (pad the rays)")
+    grid = net.latent.static_grid
+    lattice = (latent_mode == "boxfeat" and grid is not None
+               and grid.shape[0] <= 16)
+    h = _f32(stepsize)
+    rays, kbase = _segment_rays(ray_start, ray_dir, box_min, box_size, h,
+                                tile, lattice, tmax_clip)
+    if n_seg is None:
+        if lattice:
+            n_seg = certify_segments(
+                ray_start.reshape(-1, 3).detach().cpu().numpy(),
+                ray_dir.reshape(-1, 3).detach().cpu().numpy(), box_min,
+                box_size, stepsize=stepsize, seg=seg, tile=tile,
+                tmax_clip=(tmax_clip.detach().cpu().numpy()
+                           if tmax_clip is not None else None))
+        else:
+            n_seg = (int(max_steps) + seg - 1) // seg
+    spec = SegmentSpec(
+        stepsize=h, seg=int(seg), n_seg=int(n_seg), lattice=lattice,
+        density_min=float(density_min), density_max=float(density_max),
+        early_alpha=float(alpha_early_out) if enable_early_out else 2.0,
+        blend_alpha=blend_mode == "alpha",
+        iso_value=None if iso_value is None else _f32(iso_value),
+        box_min=tuple(float(v) for v in box_min),
+        box_size=tuple(float(v) for v in box_size),
+        activation=(net.layers[0].activation,
+                    net.layers[0].activation_param),
+        output_mode=net.output_mode)
+    return spec, rays, kbase
+
+
+def _latent_grid(net, table_dtype) -> Optional[Tensor]:
+    """The latent grid as the engine reads it: a grid of <= 16 channels
+    rounded to ``table_dtype`` (the JAX package's neighborhood table), a
+    wider one in float32."""
+    grid = net.latent.static_grid
+    if grid is None:
+        return None
+    grid = grid.detach().to(torch.float32)
+    if grid.shape[0] <= 16 and table_dtype != torch.float32:
+        grid = grid.to(table_dtype).to(torch.float32)
+    return grid
+
+
+def _network_values(spec: SegmentSpec, net, grid, x01: Tensor,
+                    dirs: Tensor) -> Tensor:
+    """The engine's network on samples (N, 3): layer 0's activation on
+    every hidden layer and a linear output row, as the TPU engine
+    evaluates it, then the output head. (N, 1) or (N, 4)."""
+    feats = [x01]
+    if net.use_direction:
+        feats.append(dirs)
+    if grid is not None:
+        feats.append(grid_sample_3d(grid, x01))
+    y = net.input(torch.cat(feats, dim=1))
+    name, p = spec.activation
+    for layer in net.layers[:-1]:
+        y = apply_activation(name, y @ layer.weight.T + layer.bias, p)
+    y = y @ net.layers[-1].weight.T + net.layers[-1].bias
+    return apply_output(spec.output_mode, y, "screen")
+
+
+def _piecewise(tf: Tensor, d: Tensor) -> Tensor:
+    """rgba of the piecewise-linear TF (R, 5) at d in [0, 1]: the interval
+    is the number of interior knots <= d."""
+    iv = torch.zeros_like(d, dtype=torch.int64)
+    for q in range(1, tf.shape[0] - 1):
+        iv += (tf[q, 4] <= d).to(torch.int64)
+    c0, c1 = tf[iv], tf[iv + 1]
+    p0, p1 = c0[..., 4], c1[..., 4]
+    frac = (torch.minimum(torch.maximum(d, p0), p1) - p0) / (p1 - p0)
+    return c0[..., :4] + frac[..., None] * (c1[..., :4] - c0[..., :4])
+
+
+def _plain_segment(spec, net, grid, tf, rays, kbase, s, carry):
+    """Segment ``s`` of the rays (n, 8) from their ``carry`` (n, 4).
+    Returns (carry, samples evaluated)."""
+    dev = rays.device
+    h = torch.tensor(spec.stepsize, dtype=torch.float32, device=dev)
+    k = (float(s * spec.seg)
+         + torch.arange(spec.seg, dtype=torch.float32, device=dev))[None, :]
+    a, tmx = rays[:, 6:7], rays[:, 7:8]
+    if spec.lattice:
+        kk = kbase[:, None] + k
+        t = kk * h
+        valid = (t <= tmx) & (kk >= a)
+    else:
+        t = a + k * h
+        valid = t <= tmx
+    rs, rd = rays[:, None, 0:3], rays[:, None, 3:6]
+    bmin = torch.tensor(spec.box_min, dtype=torch.float32, device=dev)
+    bsize = torch.tensor(spec.box_size, dtype=torch.float32, device=dev)
+    x01 = ((rs + t[..., None] * rd - bmin) / bsize).reshape(-1, 3)
+    dirs = rd.expand(-1, spec.seg, -1).reshape(-1, 3)
+    vals = _network_values(spec, net, grid, x01, dirs).reshape(
+        rays.shape[0], spec.seg, -1)
+    carry = carry.clone()
+    if spec.iso_value is not None:
+        inside = valid & (vals[..., 0] > spec.iso_value)
+        found = carry[:, 3] > 0.5
+        before = (torch.cumsum(inside.to(torch.int32), dim=1)
+                  - inside.to(torch.int32)) > 0
+        n = (valid & ~found[:, None] & ~before).sum()
+        t_hit = torch.where(inside, t, torch.full_like(t, _FAR)).amin(dim=1)
+        hit = ~found & (t_hit < 1.0e38)
+        carry[:, 0] = torch.where(hit, t_hit, carry[:, 0])
+        carry[:, 3] = torch.where(hit, torch.ones_like(t_hit), carry[:, 3])
+        return carry, n
+    if spec.output_mode.startswith("density"):
+        v = vals[..., 0]
+        d = torch.clamp((v - spec.density_min)
+                        * (1.0 / (spec.density_max - spec.density_min)),
+                        0.0, 1.0)
+        rgba = _piecewise(tf, d)
+        rgb, absn = rgba[..., :3], rgba[..., 3] * h
+        require = valid & (v >= spec.density_min)
+    else:
+        rgb, absn = vals[..., :3], vals[..., 3] * h
+        require = valid
+    absn = torch.where(require, absn, torch.zeros_like(absn))
+    rgb = torch.where(require[..., None], rgb, torch.zeros_like(rgb))
+    ca = (torch.clamp(absn, max=1.0) if spec.blend_alpha
+          else 1.0 - torch.exp(-absn))
+    c, alpha = carry[:, :3], carry[:, 3]
+    for j in range(spec.seg):           # front-to-back "over"
+        w = (1.0 - alpha) * ca[:, j]
+        c = c + w[:, None] * rgb[:, j]
+        alpha = alpha + (1.0 - alpha) * ca[:, j]
+    return torch.cat([c, alpha[:, None]], dim=1), valid.sum()
+
+
+@torch.no_grad()
+def _plain_march(spec: SegmentSpec, net, grid, tf, rays: Tensor,
+                 kbase: Optional[Tensor]):
+    """The plain engine: (rgba (R, 4), SegmentStats). Segment s runs while
+    some ray of the call is alive at s; every ray whose segment start is
+    still <= tmax composites it."""
+    dev = rays.device
+    carry = torch.zeros(rays.shape[0], 4, dtype=torch.float32, device=dev)
+    samples = torch.zeros((), dtype=torch.int64, device=dev)
+    a, tmx = rays[:, 6], rays[:, 7]
+    stop = 0
+    chunk = max(1, _PLAIN_CHUNK_SAMPLES // spec.seg)
+    for s in range(spec.n_seg):
+        s0 = _f32(np.float32(s * spec.seg) * np.float32(spec.stepsize))
+        t0 = ((kbase + float(s * spec.seg)) * spec.stepsize if spec.lattice
+              else a + s0)
+        done = t0 > tmx
+        if not bool((~(done | (carry[:, 3] >= spec.early_alpha))).any()):
+            break
+        stop = s + 1
+        for idx in torch.nonzero(~done).flatten().split(chunk):
+            carry[idx], n = _plain_segment(
+                spec, net, grid, tf, rays[idx],
+                kbase[idx] if kbase is not None else None, s, carry[idx])
+            samples += n
+    return carry, SegmentStats(samples,
+                               torch.tensor(stop, dtype=torch.int64))
+
+
+def _tf_points(tf_tensor: Tensor, device) -> Tensor:
+    tf = tf_tensor.detach().to(device=device, dtype=torch.float32)
+    if tf.ndim != 2 or tf.shape[1] != 5 or tf.shape[0] < 2:
+        raise ValueError("piecewise TF tensor must be (R >= 2, 5)")
+    return tf
+
+
+def fused_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
+                          net: SceneRepresentationNetwork, box_min, box_size,
+                          tf_tensor: Tensor, *, stepsize: float,
+                          max_steps: int, density_min: float = 0.0,
+                          density_max: float = 1.0,
+                          blend_mode: str = "beer_lambert",
+                          alpha_early_out: float = 0.999,
+                          enable_early_out: bool = True, seg: int = 32,
+                          tile: int = 256, differentiable: bool = False,
+                          latent_mode: str = "table",
+                          table_dtype: torch.dtype = torch.float32,
+                          n_seg: Optional[int] = None,
+                          need_normals: bool = False, iso_value=None,
+                          tf_mode: str = "piecewise",
+                          tmax_clip: Optional[Tensor] = None,
+                          return_stats: bool = False):
+    """Plain PyTorch version of :func:`fused_trace_dvr`: the same
+    schedule and stop, vectorized over the rays of each segment in chunks,
+    a Python loop over segments."""
+    strict_f32()
+    spec, rays, kbase = _segment_setup(
+        ray_start, ray_dir, net, box_min, box_size, stepsize=stepsize,
+        max_steps=max_steps, density_min=density_min,
+        density_max=density_max, blend_mode=blend_mode,
+        alpha_early_out=alpha_early_out, enable_early_out=enable_early_out,
+        seg=seg, tile=tile, differentiable=differentiable,
+        latent_mode=latent_mode, n_seg=n_seg, need_normals=need_normals,
+        iso_value=iso_value, tf_mode=tf_mode, tmax_clip=tmax_clip)
+    out, stats = _plain_march(spec, net, _latent_grid(net, table_dtype),
+                              _tf_points(tf_tensor, rays.device), rays,
+                              kbase)
+    return (out, stats) if return_stats else out
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+
+
+def kernel_width(net) -> int:
+    """The hidden width of the kernel instance that takes ``net``: its
+    hidden layers' width rounded up to 32, 48 or 64 (zero padding is
+    exact); raises ``NotImplementedError`` for what the kernel does not
+    take."""
+    widths = {l.weight.shape[0] for l in net.layers[:-1]}
+    if len(widths) != 1 or max(widths) > KERNEL_WIDTHS[-1]:
+        raise NotImplementedError("segment kernel: hidden layers of one "
+                                  f"width <= {KERNEL_WIDTHS[-1]} only")
+    width = next(iter(widths))
+    return next(w for w in KERNEL_WIDTHS if w >= width)
+
+
+def _check_kernel_inputs(net, tf: Tensor):
+    """What csrc/segment_fwd.cu takes; the rest raises
+    ``NotImplementedError``."""
+    kernel_width(net)
+    if len(net.layers) - 2 > MAX_HIDDEN_LAYERS:
+        raise NotImplementedError(f"segment kernel: at most "
+                                  f"{MAX_HIDDEN_LAYERS + 1} hidden layers")
+    if net.input.num_fourier > MAX_FOURIER:
+        raise NotImplementedError(f"segment kernel: at most {MAX_FOURIER} "
+                                  "Fourier features")
+    grid = net.latent.static_grid
+    if grid is not None and grid.shape[0] > MAX_LATENT_CHANNELS:
+        raise NotImplementedError("segment kernel: at most "
+                                  f"{MAX_LATENT_CHANNELS} latent channels")
+    if tf.shape[0] > MAX_TF_POINTS:
+        raise NotImplementedError(f"segment kernel: at most {MAX_TF_POINTS} "
+                                  "TF control points")
+    if net.layers[0].activation not in _ACTIVATIONS:
+        raise NotImplementedError(f"segment kernel: activation "
+                                  f"{net.layers[0].activation}")
+
+
+def _latent_chunks(net) -> int:
+    grid = net.latent.static_grid
+    return 0 if grid is None else -(-grid.shape[0] // 16)
+
+
+def pack_segment_weights(net, tf: Tensor) -> Tensor:
+    """The kernel's packed float32 weights (layout in csrc/segment_fwd.cu,
+    ``Wts``: matrices input-major), hidden width zero-padded to
+    :func:`kernel_width`."""
+    f32 = dict(dtype=torch.float32, device=tf.device)
+    hp = kernel_width(net)
+    fm = net.input.fourier_matrix
+    nf = net.input.num_fourier
+    b = torch.zeros(nf, 3, **f32)
+    bd = torch.zeros(nf, 3, **f32)
+    if nf:
+        b = fm[:, :3].detach().to(**f32)
+        if fm.shape[1] == 6:
+            bd = fm[:, 3:6].detach().to(**f32)
+    n_in = net.input.num_input_channels()
+    w1 = net.layers[0].weight.detach().to(**f32)
+    n_lat = w1.shape[1] - n_in - 2 * nf
+    w1p = torch.zeros(6 + 2 * nf + 16 * _latent_chunks(net), hp, **f32)
+    width = w1.shape[0]
+    w1p[:n_in, :width] = w1[:, :n_in].T
+    w1p[6:6 + 2 * nf, :width] = w1[:, n_in:n_in + 2 * nf].T
+    w1p[6 + 2 * nf:6 + 2 * nf + n_lat, :width] = w1[:, n_in + 2 * nf:].T
+
+    def pad(t, rows, cols=None):
+        t = t.detach().to(**f32)
+        out = torch.zeros((rows,) if cols is None else (rows, cols), **f32)
+        if cols is None:
+            out[:t.shape[0]] = t
+        else:
+            out[:t.shape[0], :t.shape[1]] = t
+        return out
+
+    hidden = net.layers[1:-1]
+    parts = [w1p, pad(net.layers[0].bias, hp)]
+    parts += [pad(l.weight.T, hp, hp) for l in hidden]
+    parts += [pad(l.bias, hp) for l in hidden]
+    parts += [pad(net.layers[-1].weight, 4, hp),
+              pad(net.layers[-1].bias, 4), b, bd, tf]
+    return torch.cat([p.reshape(-1) for p in parts]).contiguous()
+
+
+def segment_table(net, table_dtype: torch.dtype, device) -> Tensor:
+    """The latent grid (C, D, H, W) as the kernel's channel-last
+    (D, H, W, 16 * chunks) table, channels zero-padded: ``table_dtype``
+    for <= 16 channels, float32 above. Without a grid, one zero voxel
+    (not read)."""
+    grid = net.latent.static_grid
+    if grid is None:
+        return torch.zeros(1, 1, 1, 16, dtype=torch.float32, device=device)
+    c = grid.shape[0]
+    dtype = table_dtype if c <= 16 else torch.float32
+    t = grid.detach().to(device=device, dtype=torch.float32).permute(
+        1, 2, 3, 0)
+    width = 16 * _latent_chunks(net)
+    if c < width:
+        t = torch.cat([t, t.new_zeros(t.shape[:3] + (width - c,))], dim=3)
+    return t.to(dtype).contiguous()
+
+
+def _bind(lib: ctypes.CDLL):
+    fn = lib.segment_fwd_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = ([p, p, p, i, p, i, p, p, p] + [i] * 10 + [f] + [i] * 5
+                   + [f] + [i, i] + [f] * 4 + [f] * 6 + [i, p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_tensors(dev, **tensors):
+    for name, t in tensors.items():
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def launch_segment(spec: SegmentSpec, net, rays: Tensor,
+                   kbase: Optional[Tensor], weights: Tensor, table: Tensor,
+                   tf_points: int):
+    """Launch csrc/segment_fwd.cu twice (the march, then the
+    continuation up to the call's stop). Returns (rgba (R, 4),
+    SegmentStats)."""
+    global SEGMENT_LAUNCHES
+    dev = rays.device
+    n_rays = rays.shape[0]
+    out = torch.empty(n_rays, 4, dtype=torch.float32, device=dev)
+    death = torch.empty(n_rays, dtype=torch.int32, device=dev)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    _check_tensors(dev, rays=rays, weights=weights, table=table)
+    if spec.lattice:
+        _check_tensors(dev, kbase=kbase)
+    if weights.dtype != torch.float32 or table.dtype not in (
+            torch.float32, torch.bfloat16):
+        raise ValueError("float32 weights and a bf16 or float32 table")
+    gz, gy, gx = table.shape[:3]
+    nf = net.input.num_fourier
+    fn = _bind(_build.load("segment_fwd"))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for phase in (0, 1):
+            err = fn(
+                rays.data_ptr(), kbase.data_ptr() if spec.lattice else None,
+                table.data_ptr(), int(table.dtype == torch.float32),
+                weights.data_ptr(), weights.numel(), out.data_ptr(),
+                death.data_ptr(), stats.data_ptr(), n_rays, gx, gy, gz,
+                _latent_chunks(net), nf, len(net.layers) - 2,
+                kernel_width(net), tf_points,
+                _ACTIVATIONS[spec.activation[0]], spec.activation[1],
+                _HEADS[spec.output_mode], int(net.use_direction),
+                int(spec.lattice), int(spec.blend_alpha),
+                int(spec.iso_value is not None),
+                0.0 if spec.iso_value is None else spec.iso_value, spec.seg,
+                spec.n_seg, spec.stepsize, spec.density_min,
+                1.0 / (spec.density_max - spec.density_min),
+                spec.early_alpha, *spec.box_min, *spec.box_size, phase,
+                stream)
+            if err != 0:
+                raise RuntimeError(f"segment_fwd launch (phase {phase}) "
+                                   f"failed with CUDA error {err}")
+            SEGMENT_LAUNCHES += 1
+    return out, SegmentStats(stats[1], stats[0])
+
+
+def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
+                    net: SceneRepresentationNetwork, box_min, box_size,
+                    tf_tensor: Tensor, *, stepsize: float, max_steps: int,
+                    density_min: float = 0.0, density_max: float = 1.0,
+                    blend_mode: str = "beer_lambert",
+                    alpha_early_out: float = 0.999,
+                    enable_early_out: bool = True, seg: int = 32,
+                    tile: int = 256, differentiable: bool = False,
+                    latent_mode: str = "table",
+                    table_dtype: torch.dtype = torch.float32,
+                    n_seg: Optional[int] = None, need_normals: bool = False,
+                    iso_value=None, tf_mode: str = "piecewise",
+                    tmax_clip: Optional[Tensor] = None,
+                    return_stats: bool = False):
+    """The per-segment fused march (see the module doc) of rays (R, 3),
+    R a multiple of ``tile``. CUDA tensors launch the kernel, CPU tensors
+    run :func:`fused_trace_dvr_plain`. ``n_seg`` overrides the segment
+    count (ceil(max_steps/seg), or certified in lattice mode). Returns
+    rgba (R, 4), and :class:`SegmentStats` with ``return_stats``."""
+    kw = dict(stepsize=stepsize, max_steps=max_steps,
+              density_min=density_min, density_max=density_max,
+              blend_mode=blend_mode, alpha_early_out=alpha_early_out,
+              enable_early_out=enable_early_out, seg=seg, tile=tile,
+              differentiable=differentiable, latent_mode=latent_mode,
+              table_dtype=table_dtype, n_seg=n_seg,
+              need_normals=need_normals, iso_value=iso_value,
+              tf_mode=tf_mode, tmax_clip=tmax_clip,
+              return_stats=return_stats)
+    if ray_start.device.type == "cpu":
+        return fused_trace_dvr_plain(ray_start, ray_dir, net, box_min,
+                                     box_size, tf_tensor, **kw)
+    if ray_start.device.type != "cuda":
+        raise ValueError(f"unsupported device {ray_start.device}")
+    kw.pop("return_stats")
+    kw.pop("table_dtype")
+    spec, rays, kbase = _segment_setup(ray_start, ray_dir, net, box_min,
+                                       box_size, **kw)
+    tf = _tf_points(tf_tensor, rays.device)
+    _check_kernel_inputs(net, tf)
+    with torch.no_grad():
+        out, stats = launch_segment(
+            spec, net, rays, kbase, pack_segment_weights(net, tf),
+            segment_table(net, table_dtype, rays.device), tf.shape[0])
+    return (out, stats) if return_stats else out
+
+
+# ---------------------------------------------------------------------------
+# routes on the engine
+
+
+def fused_trace_dvr_bucketed(ray_start: Tensor, ray_dir: Tensor, net,
+                             box_min, box_size, tf_tensor: Tensor, *,
+                             plan: RayBucketPlan, engine: str = "scan",
+                             march=None, **kwargs):
+    """Run the engine once per bucket of ``plan`` and reassemble the
+    output in the input ray order. ``engine="scan"`` is the per-segment
+    engine in lattice mode (``march``: :func:`fused_trace_dvr` or its
+    plain version), ``"mega"`` the megakernel
+    (``ops.fused_mega.mega_trace_dvr``). ``kwargs`` go to each call, with
+    ``tmax_clip`` and the segment count from the plan. With
+    ``return_stats`` the second result sums the buckets' samples and holds
+    their stops as a tensor."""
+    return_stats = kwargs.pop("return_stats", False)
+    kwargs.pop("max_steps", None)
+    dev = ray_start.device
+    perm = torch.as_tensor(plan.perm, device=dev)
+    rs = ray_start.reshape(-1, 3)[perm]
+    rd = ray_dir.reshape(-1, 3)[perm]
+    outs, samples, stops = [], [], []
+    ofs = plan.dead
+    for size, g_steps, g_seg in zip(plan.group_sizes, plan.group_steps,
+                                    plan.group_segments):
+        clip = (torch.as_tensor(plan.tmax_clip[ofs:ofs + size], device=dev)
+                if plan.tmax_clip is not None else None)
+        sl = slice(ofs, ofs + size)
+        if engine == "mega":
+            from .fused_mega import mega_trace_dvr
+            fn = march or mega_trace_dvr
+            mk = {k: v for k, v in kwargs.items()
+                  if k not in ("latent_mode", "n_seg")}
+            out = fn(rs[sl].contiguous(), rd[sl].contiguous(), net, box_min,
+                     box_size, tf_tensor, tmax_clip=clip,
+                     return_samples=return_stats, **mk)
+            if return_stats:
+                out, smp = out
+                samples.append(smp.sum())
+        elif engine == "scan":
+            fn = march or fused_trace_dvr
+            out = fn(rs[sl], rd[sl], net, box_min, box_size, tf_tensor,
+                     max_steps=g_steps, n_seg=g_seg, tmax_clip=clip,
+                     return_stats=return_stats, **kwargs)
+            if return_stats:
+                out, st = out
+                samples.append(st.samples)
+                stops.append(st.stop)
+        else:
+            raise ValueError(f"unknown engine {engine!r}")
+        outs.append(out)
+        ofs += size
+    if plan.dead:
+        outs.insert(0, outs[0].new_zeros(plan.dead, 4))
+    out = torch.cat(outs, dim=0)[torch.as_tensor(plan.inv, device=dev)]
+    if not return_stats:
+        return out
+    return out, SegmentStats(
+        torch.stack(samples).sum() if samples else torch.zeros(()),
+        torch.stack([s.to(dev) for s in stops]) if stops else None)
+
+
+def fused_trace_iso(ray_start: Tensor, ray_dir: Tensor, net, box_min,
+                    box_size, config, *, max_steps: int, seg: int = 32,
+                    tile: int = 256, table_dtype: torch.dtype = torch.float32,
+                    march=None, return_stats: bool = False):
+    """Isosurface render on the per-segment engine: the kernel's first-hit
+    march (a hit ray is dead), then bisection and shading per ray in
+    plain PyTorch against the float32 network. ``config``: a
+    ``raytracer.iso.RayEvaluationSteppingIso``; ``march``:
+    :func:`fused_trace_dvr` (default) or its plain version. Returns
+    ``RayEvaluationOutput`` (and the march's stats)."""
+    from ..models.network_volume import VolumeInterpolationNetwork
+    from ..raytracer.iso import refine_and_shade
+
+    dummy_tf = torch.tensor([[1.0, 1.0, 1.0, 0.0, 0.0],
+                             [1.0, 1.0, 1.0, 1.0, 1.0]],
+                            device=ray_start.device)
+    raw, stats = (march or fused_trace_dvr)(
+        ray_start, ray_dir, net, box_min, box_size, dummy_tf,
+        stepsize=float(config.stepsize), max_steps=max_steps, seg=seg,
+        tile=tile, enable_early_out=True, alpha_early_out=0.999,
+        table_dtype=table_dtype, iso_value=float(config.isovalue),
+        return_stats=True)
+    vol = VolumeInterpolationNetwork(net, box_min, box_size)
+    rs = ray_start.reshape(-1, 3)
+    rd = ray_dir.reshape(-1, 3)
+    out = refine_and_shade(rs, rd, vol, config, raw[:, 0:1],
+                           raw[:, 3:4] > 0.5)
+    return (out, stats) if return_stats else out

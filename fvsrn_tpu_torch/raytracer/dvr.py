@@ -6,7 +6,8 @@ with per-ray validity masks, front-to-back compositing, optional
 alpha early-out. With ``lattice=True`` samples sit on the global step
 lattice t = k*stepsize (first sample at ceil(tmin/stepsize)*stepsize),
 the sampling of the fused megakernel; ``tmax_in`` clamps each ray's
-march (the saturation clip of the product render).
+march (the saturation clip of the product render). Color-output (rgbo)
+volumes skip the TF: the sample's rgb is its color, its absorption o*h.
 
 The march is differentiable (autograd through the loop): it is the
 gradient oracle of the fused backward and the plain route of screen
@@ -74,9 +75,7 @@ def trace_dvr(ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
     runs the march in chunks of c steps under ``torch.utils.checkpoint``,
     so the backward keeps one carry per chunk and recomputes the chunk
     (the JAX package's checkpointed chunks of its scan)."""
-    if getattr(volume, "outputs_color", False):
-        raise NotImplementedError("marching color-output volumes is not "
-                                  "ported yet")
+    skip_tf = getattr(volume, "outputs_color", False)
     strict_f32()
     dtype = ray_start.dtype
     tmin, tmax = intersect_aabb(ray_start, ray_dir,
@@ -100,12 +99,19 @@ def trace_dvr(ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
         if config.enable_early_out:
             valid = valid & (alpha < config.alpha_early_out)
         position = ray_start + ray_dir * t
-        value = volume.eval_density(position, ray_dir)[0][..., None]
-        density2 = (value - config.density_min) * inv_range
-        require = valid & (value >= config.density_min)
-        color = tf.eval_normalized(torch.clamp(density2[..., 0], 0, 1),
-                                   None, prev[..., 0], h)
-        color = torch.where(require, color, torch.zeros_like(color))
+        if skip_tf:
+            # color field: the volume gives rgbo, absorption scaled by h
+            value4 = volume.eval_density(position, ray_dir)[0]
+            color = torch.cat([value4[..., :3], value4[..., 3:4] * h], -1)
+            color = torch.where(valid, color, torch.zeros_like(color))
+            density2 = prev
+        else:
+            value = volume.eval_density(position, ray_dir)[0][..., None]
+            density2 = (value - config.density_min) * inv_range
+            require = valid & (value >= config.density_min)
+            color = tf.eval_normalized(torch.clamp(density2[..., 0], 0, 1),
+                                       None, prev[..., 0], h)
+            color = torch.where(require, color, torch.zeros_like(color))
         contribute = valid & (color[..., 3:4] > 0)
         new_rgb, new_alpha, new_depth = blending.blend_step(
             rgb, alpha, color, config.blend_mode,

@@ -4,7 +4,7 @@ lattice mode with a per-ray tmax clamp (the fused kernel's oracle) and in
 the reference's per-ray mode with the alpha early-out; and its autograd
 gradients against ``jax.grad`` of the JAX march (atol 2e-5, rtol 1e-3,
 the gradient contract of tests/test_fused.py), with and without
-``checkpoint_chunk``."""
+``checkpoint_chunk``; color-output (rgbo) networks, which skip the TF."""
 import jax
 import numpy as np
 import jax.numpy as jnp
@@ -119,3 +119,29 @@ def test_trace_dvr_gradients(scene, chunk):
                                    rtol=1e-3, err_msg=name)
     np.testing.assert_allclose(tf.tensor.grad.numpy(), np.asarray(gtf.tensor),
                                atol=2e-5, rtol=1e-3)
+
+
+@pytest.mark.parametrize("output_mode", ["rgbo", "rgbo:direct"])
+def test_trace_dvr_color_output(scene, output_mode):
+    """An rgbo network gives each sample its color and absorption o*h, no
+    TF: per-ray march with the alpha early-out, as the JAX package."""
+    _, rs, rd, _ = scene
+    rng = np.random.default_rng(9)
+    jnet = JSRN.make(layers="32:32", activation="ReLU", num_fourier=6,
+                     output_mode=output_mode,
+                     latent=JLatent(static_grid=(rng.standard_normal(
+                         (8, 8, 8, 8)) * 0.3).astype(np.float32)), seed=9)
+    steps = jmax_steps((1.0, 1.0, 1.0), H)
+    jtf = JTF.make(rgb=RGB, opacity=OPACITY, positions=POSITIONS)
+    want = jtrace(jnp.asarray(rs), jnp.asarray(rd), JVolume.make(jnet), jtf,
+                  JCfg.make(stepsize=H), steps)
+    vol = VolumeInterpolationNetwork(srn_from_arrays(*network_arrays(jnet)))
+    assert vol.outputs_color
+    with torch.no_grad():
+        got = trace_dvr(torch.tensor(rs), torch.tensor(rd), vol,
+                        TransferFunctionPiecewiseLinear.make(
+                            RGB, OPACITY, POSITIONS),
+                        RayEvaluationSteppingDvr.make(stepsize=H), steps)
+    assert np.asarray(want.color)[:, 3].max() > 0.05
+    np.testing.assert_allclose(got.color.numpy(), np.asarray(want.color),
+                               atol=ATOL)

@@ -6,6 +6,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "fvsrn_tpu_torch")
 
@@ -25,6 +27,27 @@ def test_import_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
                           env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+IMPORT_ONE = r"""
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "fvsrn_tpu"))
+sys.exit(1 if bad else 0)
+"""
+
+
+@pytest.mark.parametrize("module", ["fvsrn_tpu_torch.ops.fused_dvr",
+                                    "fvsrn_tpu_torch.raytracer.iso"])
+def test_slice_module_imports_alone(module):
+    """The modules of the fused per-segment and isosurface renders import
+    on their own, loading no JAX."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", IMPORT_ONE, module],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

@@ -2,7 +2,7 @@
 flagship (``LoadedModel.render_network`` in FUSED mode, through the
 plain version of the fused march on the CPU) against the JAX package's
 (Pallas interpret mode) at 32x32, stepsize 1/128, atol 1e-4; PLAIN32
-against PLAIN32; and the port's device and mode guards."""
+against PLAIN32; and the port's device, mode and route guards."""
 import numpy as np
 import pytest
 import torch
@@ -20,6 +20,8 @@ from fvsrn_tpu.raytracer.dvr import max_steps_bound
 from fvsrn_tpu.scenes import dense_scene as jdense_scene
 from fvsrn_tpu_torch.camera import CameraOnASphere
 from fvsrn_tpu_torch.inference import LoadedModel
+from fvsrn_tpu_torch.models.latent import LatentSpace
+from fvsrn_tpu_torch.models.srn import SceneRepresentationNetwork
 from fvsrn_tpu_torch.raytracer.dvr import RayEvaluationSteppingDvr
 from fvsrn_tpu_torch.scenes import dense_scene
 
@@ -92,15 +94,28 @@ def test_default_device_is_cuda(models):
 
 
 def test_mode_and_size_guards(models):
+    """Every mode of the JAX package is served: W or H not a multiple of
+    16 takes the per-segment engine (route 2), FUSED_BF16 is FUSED for
+    DVR and PLAIN16 a plain render; an unknown mode raises, and so does
+    the megakernel's route for a network it does not take (color
+    output: queued)."""
     _, m = models
     cam = CameraOnASphere.make(**CAM)
-    with pytest.raises(NotImplementedError):
-        m.prepare_network_render(cam, 24, 32, "FUSED", device="cpu")
-    for mode in ("FUSED_BF16", "PLAIN16"):
-        with pytest.raises(NotImplementedError):
-            m.prepare_network_render(cam, W, W, mode, device="cpu")
+    assert m.prepare_network_render(cam, 24, 32, "FUSED",
+                                    device="cpu").route == "segment"
+    assert m.prepare_network_render(cam, W, W, "FUSED_BF16",
+                                    device="cpu").route == "mega"
+    assert m.prepare_network_render(cam, W, W, "PLAIN16",
+                                    device="cpu")().shape == (W, W, 4)
     with pytest.raises(ValueError):
         m.prepare_network_render(cam, W, W, "BOGUS", device="cpu")
+    rgbo = LoadedModel(SceneRepresentationNetwork.make(
+        output_mode="rgbo", latent=LatentSpace(static_grid=torch.zeros(
+            4, 8, 8, 8))), m.tf, config=m.config)
+    render = rgbo.prepare_network_render(cam, W, W, "FUSED", device="cpu")
+    assert render.route == "mega"
+    with pytest.raises(NotImplementedError):
+        render()
 
 
 def test_rotation_cameras():

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the render forward, the differentiable forward (image, stored
-carries, segments visited) and the backward (every gradient leaf, also
-with no latent grid and with a TF whose first knot absorbs). This
+card: the megakernel's render forward, its differentiable forward
+(image, stored carries, segments visited) and backward (every gradient
+leaf, also with no latent grid and with a TF whose first knot absorbs),
+and the per-segment engine (csrc/segment_fwd.cu: every network and
+option it takes, image, samples and the call's stop). This
 file imports no JAX, so it runs where the GPU is:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
@@ -18,7 +20,8 @@ import torch
 
 from fvsrn_tpu_torch.camera import CameraOnASphere, generate_rays
 from fvsrn_tpu_torch.convert import srn_from_arrays
-from fvsrn_tpu_torch.ops import fused_mega
+from fvsrn_tpu_torch.inference import pad_rays
+from fvsrn_tpu_torch.ops import fused_dvr, fused_mega
 from fvsrn_tpu_torch.ops.fused_dvr import block_ray_permutation
 from fvsrn_tpu_torch.scenes import dense_scene
 from fvsrn_tpu_torch.train.checkpoints import load_weights
@@ -30,29 +33,34 @@ BOX = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))
 
 
 def random_net(seed=3, activation="SnakeAlt", output_mode="density:direct",
-               channels=8, fourier=6, width=32, out_bias=0.4):
+               channels=8, fourier=6, width=32, out_bias=0.4, direction=False):
     """A 3-hidden-layer SRN with torch Linear-style random weights; no
     latent grid with ``channels=0``. ``out_bias`` sets the density's
     level (0.4 a visible density, 0.0 clips about half the samples at
-    0)."""
+    0); ``direction`` adds the ray direction to the input and to the
+    Fourier features."""
     rng = np.random.default_rng(seed)
-    sizes = [3 + 2 * fourier + channels, width, width, width, 1]
+    n_out_head = 1 if output_mode.startswith("density") else 4
+    n_in = 6 if direction else 3
+    sizes = [n_in + 2 * fourier + channels, width, width, width, n_out_head]
     arrays = {"input.fourier_matrix": rng.normal(0.0, 2 * math.pi,
-                                                 (fourier, 3))}
+                                                 (fourier, n_in))}
     grid = rng.standard_normal((channels, 8, 8, 8)) * 0.3
     if channels:
         arrays["latent.static_grid"] = grid
     layers = []
-    for i, (n_in, n_out) in enumerate(zip(sizes[:-1], sizes[1:])):
-        bound = 1.0 / math.sqrt(n_in)
-        arrays[f"layers.{i}.weight"] = rng.uniform(-bound, bound,
-                                                   (n_out, n_in))
-        arrays[f"layers.{i}.bias"] = rng.uniform(-bound, bound, n_out)
+    for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
+        bound = 1.0 / math.sqrt(a)
+        arrays[f"layers.{i}.weight"] = rng.uniform(-bound, bound, (b, a))
+        arrays[f"layers.{i}.bias"] = rng.uniform(-bound, bound, b)
         layers.append({"activation": activation if i < 3 else "None",
                        "activation_param": 2.0})
-    arrays["layers.3.bias"] = np.asarray([out_bias])
-    return srn_from_arrays(arrays, {"layers": layers,
-                                    "output_mode": output_mode})
+    if n_out_head == 1:
+        arrays["layers.3.bias"] = np.asarray([out_bias])
+    return srn_from_arrays(arrays, {
+        "layers": layers, "output_mode": output_mode,
+        "has_direction": direction,
+        "disable_direction_in_fourier": not direction})
 
 
 def needs_card():
@@ -227,3 +235,66 @@ def test_mega_backward_rejects_what_it_does_not_take(case):
                                         differentiable=True)
     fused_mega._check_kernel_inputs(random_net(), rays.detach(), 256, 32,
                                     differentiable=True)
+
+
+SEGMENT_CASES = {
+    "flagship_bf16_table": dict(net="flagship", table_dtype=torch.bfloat16),
+    "flagship_f32_table": dict(net="flagship"),
+    "nogrid": dict(net=dict(channels=0)),
+    "grid20_f32": dict(net=dict(channels=20)),
+    "grid40_width48": dict(net=dict(channels=40, width=48)),
+    "width64_relu": dict(net=dict(width=64, activation="ReLU")),
+    "width20_sine": dict(net=dict(width=20, activation="Sine")),
+    "softplus_density_head": dict(net=dict(activation="Softplus",
+                                           output_mode="density")),
+    "snake": dict(net=dict(activation="Snake")),
+    "sigmoid": dict(net=dict(activation="Sigmoid")),
+    "rgbo": dict(net=dict(output_mode="rgbo")),
+    "rgbo_direct": dict(net=dict(output_mode="rgbo:direct")),
+    "rgbo_exp": dict(net=dict(output_mode="rgbo:exp")),
+    "direction": dict(net=dict(direction=True)),
+    "thin_seg16": dict(net=dict(out_bias=0.0), kw=dict(seg=16)),
+    "alpha_blend": dict(net={}, kw=dict(blend_mode="alpha")),
+    "no_early_out": dict(net={}, kw=dict(enable_early_out=False)),
+    "lattice_bf16": dict(net={}, table_dtype=torch.bfloat16,
+                         kw=dict(latent_mode="boxfeat", tile=256)),
+    "iso": dict(net=dict(output_mode="density"), kw=dict(iso_value=0.55)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_segment_kernel_matches_plain(case):
+    """Row 4: the per-segment engine's kernel against its plain version on
+    a 60x44 view padded to whole tiles: image, samples evaluated and
+    the call's stop. Two launches a call, none by the plain version."""
+    needs_card()
+    spec = SEGMENT_CASES[case]
+    _, tf, npz = dense_scene()
+    net = (load_weights(npz) if spec["net"] == "flagship"
+           else random_net(**spec["net"])).cuda()
+    rs, rd = generate_rays(CameraOnASphere.make(pitch=0.3, yaw=0.8,
+                                                distance=1.6),
+                           60, 44, device="cuda")
+    kw = dict(dict(stepsize=1 / 128, max_steps=222, seg=32, tile=128,
+                   table_dtype=spec.get("table_dtype", torch.float32),
+                   return_stats=True), **spec.get("kw", {}))
+    rs, rd, _ = pad_rays(rs.reshape(-1, 3), rd.reshape(-1, 3), kw["tile"])
+    args = (rs, rd, net, *BOX, tf.tensor.cuda())
+    before = fused_dvr.SEGMENT_LAUNCHES
+    got, stats = fused_dvr.fused_trace_dvr(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_dvr.SEGMENT_LAUNCHES == before + 2
+    want, want_stats = fused_dvr.fused_trace_dvr_plain(*args, **kw)
+    assert fused_dvr.SEGMENT_LAUNCHES == before + 2
+    assert float(want[:, 3].max()) > 0.05
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    assert int(stats.samples) == int(want_stats.samples)
+    assert int(stats.stop) == int(want_stats.stop)
+
+
+@pytest.mark.parametrize("net_kw", [dict(width=96), dict(channels=80)])
+def test_segment_kernel_rejects_what_it_does_not_take(net_kw):
+    tf = dense_scene()[1].tensor
+    with pytest.raises(NotImplementedError):
+        fused_dvr._check_kernel_inputs(random_net(**net_kw), tf)
+    fused_dvr._check_kernel_inputs(random_net(width=64, channels=40), tf)

@@ -1,16 +1,25 @@
 """The flagship's weights as the port reads them: the committed ``.npz``
 export equals the JAX checkpoint's leaves exactly, and
-``convert.srn_from_arrays`` rebuilds every layer from it."""
+``convert.srn_from_arrays`` rebuilds every layer from it; the other
+kinds of network the fused renders take (color heads, direction input,
+wide latent grids) cross the same way and evaluate alike."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+from fvsrn_tpu.models.latent import LatentSpace as JLatent
+from fvsrn_tpu.models.network_volume import \
+    VolumeInterpolationNetwork as JVolume
+from fvsrn_tpu.models.srn import SceneRepresentationNetwork as JSRN
 from fvsrn_tpu.scenes import dense_scene as jdense_scene
 from fvsrn_tpu.train.checkpoints import RunCheckpoint
 from fvsrn_tpu_torch.convert import srn_from_arrays
+from fvsrn_tpu_torch.models.network_volume import VolumeInterpolationNetwork
 from fvsrn_tpu_torch.scenes import dense_scene
 from fvsrn_tpu_torch.train.checkpoints import load_arrays, load_weights
-from tools.export_torch_weights import _key_name, export
+from tools.export_torch_weights import _key_name, export, save_network
 
 
 @pytest.fixture(scope="module")
@@ -68,3 +77,50 @@ def test_srn_from_arrays_rejects_unported_leaves():
     arrays["latent.time_grid"] = np.zeros((2, 4, 4, 4, 4), np.float32)
     with pytest.raises(NotImplementedError):
         srn_from_arrays(arrays, meta)
+
+
+KINDS = {
+    "rgbo": dict(output_mode="rgbo"),
+    "rgbo_direct": dict(output_mode="rgbo:direct"),
+    "rgbo_exp": dict(output_mode="rgbo:exp"),
+    "direction_fourier": dict(use_direction=True,
+                              disable_direction_in_fourier=False),
+    "direction_plain": dict(use_direction=True),
+    "grid20": dict(channels=20),
+    "grid40_sine": dict(channels=40, activation="Sine:3"),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_network_kinds_cross_through_npz(kind, tmp_path):
+    """Each kind, written by the export tool and read by
+    ``load_weights``: the same leaves and the same ``eval_density`` as the
+    JAX network at random positions and directions (float32, atol 1e-5)."""
+    spec = dict(KINDS[kind])
+    channels = spec.pop("channels", 8)
+    rng = np.random.default_rng(3)
+    grid = (rng.standard_normal((channels, 8, 8, 8)) * 0.4).astype(
+        np.float32)
+    jnet = JSRN.make(**dict(dict(layers="48:48", activation="SnakeAlt:2",
+                                 num_fourier=6, output_mode="density",
+                                 latent=JLatent(static_grid=grid), seed=3),
+                            **spec))
+    path = str(tmp_path / "w.npz")
+    arrays = save_network(jnet, path)
+    net = load_weights(path)
+    got_arrays = dict(net.named_parameters())
+    assert sorted(got_arrays) == sorted(arrays)
+    for key, a in arrays.items():
+        np.testing.assert_array_equal(got_arrays[key].detach().numpy(), a)
+    assert net.output_mode == jnet.output_mode
+    assert net.use_direction == bool(jnet.input.has_direction)
+    pos = rng.uniform(-0.6, 0.6, (257, 3)).astype(np.float32)
+    d = rng.standard_normal((257, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    want, _ = JVolume.make(jnet).eval_density(jnp.asarray(pos),
+                                              jnp.asarray(d))
+    with torch.no_grad():
+        got, _ = VolumeInterpolationNetwork(net).eval_density(
+            torch.tensor(pos), torch.tensor(d))
+    assert got.shape == tuple(np.shape(want))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)

@@ -47,16 +47,22 @@ def network_arrays(net) -> tuple[dict[str, np.ndarray], dict]:
     return arrays, meta
 
 
+def save_network(net, dst: str) -> dict[str, np.ndarray]:
+    """Write a ``fvsrn_tpu`` network to ``dst`` in the port's ``.npz``
+    layout; returns its arrays."""
+    arrays, meta = network_arrays(net)
+    np.savez(dst, meta=np.asarray(json.dumps(meta, sort_keys=True)),
+             **arrays)
+    return arrays
+
+
 def export(src: str = DEFAULT_IN, dst: str = DEFAULT_OUT,
            epoch=None) -> dict[str, np.ndarray]:
     sys.path.insert(0, ROOT)
     from fvsrn_tpu.train.checkpoints import RunCheckpoint
     with RunCheckpoint(src, "r") as ck:
         net = ck.load_weights(epoch)
-    arrays, meta = network_arrays(net)
-    np.savez(dst, meta=np.asarray(json.dumps(meta, sort_keys=True)),
-             **arrays)
-    return arrays
+    return save_network(net, dst)
 
 
 if __name__ == "__main__":

@@ -21,7 +21,15 @@ main paths on the card:
   network with a 24-channel grid (C); route 1b, the bucketed lattice
   march of a grid over the megakernel's slab budget (D); the FUSED and
   FUSED_BF16 isosurface render (E). Each against the engine's plain
-  version, and A, C and E against the plain per-ray marches.
+  version, and A, C and E against the plain per-ray marches;
+- phases F-G, screen training through the per-segment engine's scan
+  route (``evaluate_screen``'s default engine: ``csrc/segment_fwd.cu``
+  storing carries, ``csrc/segment_bwd.cu``): ``train_screen`` on the
+  dense flagship at 512x512, 1/512 (2 cameras, 1 epoch), one timed step
+  and each kernel, the kernels against the plain pair at full frame (F);
+  then the plain pair on the flagship at 256x256, a color-output network
+  with a 24-channel grid and direction input, lattice sampling, and
+  autograd through the plain per-ray march on 16384 rays (G).
 
 Prints one JSON line with every kernel and a last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -593,6 +601,256 @@ def segment_paths(smi, reset_counts, counts, npz, tf, cam):
         "phase_errors": errs, "iso_hit_share": hit}
 
 
+def scan_training(smi, reset_counts, counts, npz, tf, cam):
+    """Phases F-G: screen training through the per-segment engine's
+    differentiable march. Returns the two kernels' JSON rows."""
+    import numpy as np
+
+    from fvsrn_tpu_torch.camera import generate_rays
+    from fvsrn_tpu_torch.models.latent import LatentSpace
+    from fvsrn_tpu_torch.models.network_volume import \
+        VolumeInterpolationNetwork
+    from fvsrn_tpu_torch.models.srn import SceneRepresentationNetwork
+    from fvsrn_tpu_torch.ops import fused_dvr
+    from fvsrn_tpu_torch.ops.fused_dvr import (block_ray_permutation,
+                                               fused_trace_dvr,
+                                               fused_trace_dvr_plain)
+    from fvsrn_tpu_torch.ops.fused_dvr_bwd import launch_segment_bwd
+    from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
+                                               max_steps_bound, trace_dvr)
+    from fvsrn_tpu_torch.train.checkpoints import load_weights
+    from fvsrn_tpu_torch.train.losses import LossNetScreen
+    from fvsrn_tpu_torch.train.optimizer import make_optimizer
+    from fvsrn_tpu_torch.train.screen import (build_screen_dataset,
+                                              evaluate_screen, train_screen)
+    from fvsrn_tpu_torch.volume.implicit import VolumeInterpolationImplicit
+
+    dev = torch.device("cuda")
+    box = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))
+    cfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE)
+    steps_max = max_steps_bound(box[1], STEPSIZE)
+    scan_kw = dict(stepsize=STEPSIZE, max_steps=steps_max,
+                   enable_early_out=False)
+    tf_d = tf.tensor.to(dev)
+    loss = LossNetScreen(l1=1.0)
+    n_rays = WIDTH * HEIGHT
+
+    # F. the slice's main path: train_screen on the scan engine (no
+    # fused_kwargs: evaluate_screen's default engine)
+    ds = build_screen_dataset(VolumeInterpolationImplicit.make(
+        "MARSCHNER_LOBB"), tf, cfg, num_cameras=2, width=WIDTH,
+        height=HEIGHT, device=dev)
+    net = load_weights(npz).to(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, hist = train_screen(net, ds, tf, cfg, loss, make_optimizer(
+        net.parameters(), "Adam", lr=1e-3), epochs=1, max_steps=steps_max,
+        use_fused=True, fused_kwargs=None)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    c_f = counts()
+    print(f"phase F train_screen, scan engine: {WIDTH}x{HEIGHT} "
+          f"h=1/{round(1 / STEPSIZE)}, 2 cameras x 1 epoch in "
+          f"{train_s:.1f} s, losses {hist}, launches {c_f}", flush=True)
+    check(len(hist) == 1 and all(math.isfinite(v) for v in hist),
+          f"phase F: losses {hist}")
+    check(c_f["segment_fwd_diff"] >= 2 and c_f["segment_bwd"] >= 2
+          and c_f["mega_fwd_diff"] == 0 and c_f["mega_bwd"] == 0,
+          f"phase F: launches {c_f}")
+
+    # F. timing: one training step (fwd, L1, bwd, Adam) and each kernel
+    tnet = copy.deepcopy(net)
+    tf_dev = tf.to(dev)
+    opt_, sched = make_optimizer(tnet.parameters(), "Adam", lr=1e-3)
+
+    def train_step():
+        opt_.zero_grad(set_to_none=True)
+        total, _ = evaluate_screen(tnet, ds.ray_start[:1], ds.ray_dir[:1],
+                                   ds.targets[:1], tf_dev, cfg, loss,
+                                   steps_max, WIDTH, HEIGHT, use_fused=True)
+        total.backward()
+        opt_.step()
+        sched.step()
+
+    step_ms = cuda_ms(train_step, TIMED_STEPS)
+    # each kernel alone, on the smoke camera's rays (row-major, as the scan
+    # route takes them)
+    rs, rd = generate_rays(cam, WIDTH, HEIGHT, device=dev)
+    rs, rd = rs.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()
+    spec, rays, kbase = fused_dvr._segment_setup(
+        rs, rd, net, *box, density_min=0.0, density_max=1.0,
+        blend_mode="beer_lambert", alpha_early_out=0.999, seg=32, tile=256,
+        differentiable=True, latent_mode="table", table_dtype=torch.float32,
+        n_seg=None, need_normals=False, iso_value=None, tf_mode="piecewise",
+        tmax_clip=None, **scan_kw)
+    weights = fused_dvr.pack_segment_weights(net, tf_d)
+    table = fused_dvr.segment_table(net, torch.float32, dev)
+    fwd_args = (spec, net, rays, kbase, weights, table, tf_d.shape[0])
+    out, st, carries, death = fused_dvr.launch_segment(*fwd_args,
+                                                       store_carries=True)
+    d_out = torch.empty(out.shape, device=dev).uniform_(
+        -1, 1, generator=torch.Generator(dev).manual_seed(3)) / out.numel()
+    bwd_args = (spec, net, rays, kbase, weights, table, carries, death,
+                d_out, tf_d.shape[0])
+    fwd_ms = cuda_ms(lambda: fused_dvr.launch_segment(
+        *fwd_args, store_carries=True), TIMED_STEPS)
+    bwd_ms = cuda_ms(lambda: launch_segment_bwd(*bwd_args), TIMED_STEPS)
+    work = launch_segment_bwd(*bwd_args)[2]
+    n_valid, n_replayed, n_contrib = (int(st.samples), int(work[0]),
+                                      int(work[1]))
+    carry_bytes = int(death.sum()) * 16
+    stop = int(st.stop)
+
+    def run(fn, rs_, rd_, net_, cotangent=None, **kw):
+        """(image, grads, fwd ms, bwd ms, cotangent) of one fwd+bwd of the
+        scan engine's differentiable march, seeded with ``cotangent`` or
+        with that of mean(image^2). (A coherent loss: under a random-sign
+        cotangent each leaf's gradient is a cancelling sum whose norm
+        grows like sqrt(samples), and one strictly gated sample that
+        flips on float32 noise reads ~1/sqrt(samples) relative.)"""
+        net_.zero_grad(set_to_none=True)
+        tf_leaf = tf_d.clone().requires_grad_(True)
+        img, f_ms = cuda_once(lambda: fn(rs_, rd_, net_, *box, tf_leaf,
+                                         differentiable=True,
+                                         **dict(scan_kw, **kw)))
+        if cotangent is None:
+            cotangent = 2.0 * img.detach() / img.numel()
+        _, b_ms = cuda_once(lambda: img.backward(cotangent))
+        g = {n: p.grad.detach().clone() for n, p in net_.named_parameters()}
+        if not net_.output_mode.startswith("rgbo"):   # rgbo reads no TF
+            g["tf"] = tf_leaf.grad.detach().clone()
+        return img.detach(), g, f_ms, b_ms, cotangent
+
+    errs = {}
+
+    def vs_plain(name, rs_, rd_, net_, **kw):
+        """Kernels vs the plain pair on the same inputs; returns the plain
+        fwd and bwd ms."""
+        img_p, g_p, p_f, p_b, cot = run(fused_trace_dvr_plain, rs_, rd_,
+                                        net_, **kw)
+        img_k, g_k, _, _, _ = run(fused_trace_dvr, rs_, rd_, net_, cot, **kw)
+        rel = {n: rel_err(g_k[n], g_p[n]) for n in g_p}
+        worst = max(rel, key=rel.get)
+        errs[name] = (max_err(img_k, img_p),
+                      max(max_err(g_k[n], g_p[n]) for n in g_p), rel[worst])
+        print(f"  {name}: {rs_.shape[0]} rays, image max|d| "
+              f"{errs[name][0]:.3e} (tol {KERNEL_TOL}), grad rel norm err "
+              f"max {rel[worst]:.3e} ({worst}, tol {GRAD_TOL}), grad max|d| "
+              f"{errs[name][1]:.3e}; plain fwd {p_f:.1f} ms, bwd "
+              f"{p_b:.1f} ms", flush=True)
+        check(errs[name][0] <= KERNEL_TOL, f"{name}: image {errs[name]}")
+        check(all(float(g.norm()) > 0 for g in g_p.values()),
+              f"{name}: a zero gradient")
+        check(rel[worst] <= GRAD_TOL, f"{name}: gradients {rel}")
+        return p_f, p_b
+
+    print(f"phase F kernels vs plain pair, full frame:", flush=True)
+    plain_fwd_ms, plain_bwd_ms = vs_plain("F flagship 512", rs, rd, net)
+
+    # G. kernels vs the plain pair on more of what the engine serves
+    print("phase G kernels vs plain pair:", flush=True)
+    rs_g, rd_g = generate_rays(cam, 256, 256, device=dev)
+    vs_plain("G flagship 256", rs_g.reshape(-1, 3), rd_g.reshape(-1, 3), net)
+    rng = np.random.default_rng(7)
+    grid = torch.from_numpy((rng.standard_normal((24, 32, 32, 32)) * 0.5
+                             ).astype(np.float32))
+    net_c = SceneRepresentationNetwork.make(
+        layers="48:48:48", activation="Sine:3", output_mode="rgbo",
+        num_fourier=14, latent=LatentSpace(static_grid=grid),
+        use_direction=True, disable_direction_in_fourier=False,
+        seed=7).to(dev)
+    rs_c, rd_c = generate_rays(cam, 64, 64, device=dev)
+    vs_plain("G rgbo 48:48:48 Sine:3 24ch dir 64", rs_c.reshape(-1, 3),
+             rd_c.reshape(-1, 3), net_c)
+    rs_l, rd_l = generate_rays(cam, 128, 128, device=dev)
+    perm, _ = block_ray_permutation(128, 128, 16, 16, device=dev)
+    vs_plain("G flagship lattice 128", rs_l.reshape(-1, 3)[perm],
+             rd_l.reshape(-1, 3)[perm], net, latent_mode="boxfeat")
+
+    # G. kernels vs autograd through the plain per-ray f32 march, on 64
+    # row-major tiles spread over the frame
+    tiles = torch.arange(0, n_rays // 256, n_rays // 256 // ORACLE_TILES,
+                         device=dev)[:ORACLE_TILES]
+    sel = (tiles[:, None] * 256 + torch.arange(256, device=dev)).reshape(-1)
+    o_rs, o_rd = rs[sel].contiguous(), rd[sel].contiguous()
+    img_o, g_o, _, _, _ = run(fused_trace_dvr, o_rs, o_rd, net)
+    net.zero_grad(set_to_none=True)
+    tf_leaf = tf_d.clone().requires_grad_(True)
+    ref = trace_dvr(o_rs, o_rd, VolumeInterpolationNetwork(net, *box),
+                    type(tf)(tf_leaf),
+                    RayEvaluationSteppingDvr.make(stepsize=STEPSIZE,
+                                                  enable_early_out=False),
+                    steps_max, checkpoint_chunk=64).color
+    (ref ** 2).mean().backward()
+    g_ref = grads_of(net, tf_leaf)
+    o_img = max_err(img_o, ref.detach())
+    o_rel = {n: rel_err(g_o[n], g_ref[n]) for n in g_ref}
+    o_worst = max(o_rel, key=o_rel.get)
+    print(f"  vs autograd through the per-ray f32 trace_dvr, {sel.numel()} "
+          f"rays: image max|d| {o_img:.3e} (tol {ORACLE_TOL}), grad rel "
+          f"norm err max {o_rel[o_worst]:.3e} ({o_worst}, tol "
+          f"{ORACLE_GRAD_TOL})", flush=True)
+    check(o_img < ORACLE_TOL, f"phase G: image vs oracle {o_img}")
+    check(o_rel[o_worst] < ORACLE_GRAD_TOL, f"phase G: grads vs oracle "
+          f"{o_rel}")
+
+    table_bytes = table.numel() * 4
+    ray_bytes = n_rays * (32 + 16)
+    fwd_flops = n_valid * sample_flops(net)
+    fwd_bytes = (ray_bytes + carry_bytes + n_rays * 4 + table_bytes
+                 + weights.numel() * 4)
+    bwd_flops = (n_replayed * sample_flops(net)
+                 + n_contrib * adjoint_flops(net))
+    bwd_bytes = (ray_bytes + carry_bytes + n_rays * 4 + 2 * table_bytes
+                 + 2 * weights.numel() * 4)
+
+    def bound(flops, nbytes, peak):
+        return max(flops / peak, nbytes / PEAK_BYTES) * 1e3
+
+    img_err = max(e[0] for e in errs.values())
+    grad_abs = max(e[1] for e in errs.values())
+    grad_rel = max(e[2] for e in errs.values())
+    rows = []
+    for name, replaces, source, ms, plain, flops, nbytes, err_ in (
+            ("segment_fwd_diff", "fvsrn_tpu/ops/fused_dvr_bwd.py:1144",
+             "segment_fwd.cu", fwd_ms, plain_fwd_ms, fwd_flops, fwd_bytes,
+             img_err),
+            ("segment_bwd", "fvsrn_tpu/ops/fused_dvr_bwd.py:1272",
+             "segment_bwd.cu", bwd_ms, plain_bwd_ms, bwd_flops, bwd_bytes,
+             grad_abs)):
+        b_tc = bound(flops, nbytes, PEAK_BF16_TC)
+        b_32 = bound(flops, nbytes, PEAK_F32)
+        by = ("operations" if flops / PEAK_BF16_TC > nbytes / PEAK_BYTES
+              else "bytes")
+        print(f"phase F {name} [{smi}]: {ms:.3f} ms/launch, plain "
+              f"{plain:.1f} ms; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} "
+              f"MB; bound {b_tc:.4f} ms (bf16 tensor cores, share "
+              f"{b_tc / ms:.4f}), {b_32:.4f} ms (f32 CUDA cores, share "
+              f"{b_32 / ms:.4f}), bound by {by}", flush=True)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "fvsrn_tpu_torch/csrc/" + source,
+            "replaces": replaces, "launches": c_f[name],
+            "max_abs_err": err_, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_tc, "bound_by": by, "library_ms": None,
+            "bound_f32_ms": b_32, "grad_rel_err": grad_rel,
+            "oracle_max_abs_err": o_img,
+            "oracle_grad_rel_err": o_rel[o_worst],
+            "samples_valid": n_valid, "samples_replayed": n_replayed,
+            "samples_contributing": n_contrib, "carry_bytes": carry_bytes,
+            "stop": stop, "n_seg": spec.n_seg})
+    print(f"phase F training step, scan engine [{smi}]: {step_ms:.3f} "
+          f"ms/step (fwd + L1 + bwd + Adam, mean of {TIMED_STEPS} after a "
+          f"warm-up), {n_rays / step_ms / 1e3:.3f} Mrays/s; kernels fwd "
+          f"{fwd_ms:.3f} + bwd {bwd_ms:.3f} ms "
+          f"({bwd_ms * 1e6 / max(n_valid, 1):.3f} ns/valid sample); valid "
+          f"samples {n_valid} (replayed {n_replayed}, contributing "
+          f"{n_contrib}), stop {stop} of n_seg {spec.n_seg}, carries "
+          f"{carry_bytes / 1e6:.1f} MB stored ({spec.n_seg * n_rays * 16 / 1e6:.1f}"
+          f" MB allocated)", flush=True)
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -603,7 +861,8 @@ def main():
     from fvsrn_tpu_torch.inference import LoadedModel
     from fvsrn_tpu_torch.models.network_volume import \
         VolumeInterpolationNetwork
-    from fvsrn_tpu_torch.ops import _build, fused_dvr, fused_mega
+    from fvsrn_tpu_torch.ops import (_build, fused_dvr, fused_dvr_bwd,
+                                     fused_mega)
     from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
                                                max_steps_bound, trace_dvr)
     from fvsrn_tpu_torch.scenes import dense_scene
@@ -620,7 +879,7 @@ def main():
 
     # 2. build every kernel of the path (one nvcc per source, together)
     t0 = time.perf_counter()
-    secs = _build.build(["mega_fwd", "mega_bwd", "segment_fwd"])
+    secs = _build.build(_build.SOURCES)
     print(f"phase 2 build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
     for name in secs:
@@ -631,12 +890,16 @@ def main():
         fused_mega.DIFF_LAUNCHES = 0
         fused_mega.BWD_LAUNCHES = 0
         fused_dvr.SEGMENT_LAUNCHES = 0
+        fused_dvr_bwd.SEGMENT_DIFF_LAUNCHES = 0
+        fused_dvr_bwd.SEGMENT_BWD_LAUNCHES = 0
 
     def counts():
         return {"mega_fwd": fused_mega.LAUNCHES,
                 "mega_fwd_diff": fused_mega.DIFF_LAUNCHES,
                 "mega_bwd": fused_mega.BWD_LAUNCHES,
-                "segment_fwd": fused_dvr.SEGMENT_LAUNCHES}
+                "segment_fwd": fused_dvr.SEGMENT_LAUNCHES,
+                "segment_fwd_diff": fused_dvr_bwd.SEGMENT_DIFF_LAUNCHES,
+                "segment_bwd": fused_dvr_bwd.SEGMENT_BWD_LAUNCHES}
 
     # 3. the first main path: product render of the dense flagship
     _, tf, npz = dense_scene()
@@ -721,10 +984,11 @@ def main():
         "samples": n_samples, "oracle_max_abs_err": oerr}
     train_rows = training(smi, reset_counts, counts, npz, tf, cam)
     segment_row = segment_paths(smi, reset_counts, counts, npz, tf, cam)
+    scan_rows = scan_training(smi, reset_counts, counts, npz, tf, cam)
 
     # 11. kernels
     print(json.dumps({"kernels": [render_row] + train_rows
-                      + [segment_row]}))
+                      + [segment_row] + scan_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

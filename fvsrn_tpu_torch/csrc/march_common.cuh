@@ -1,9 +1,13 @@
 // Per-sample device code shared by every fused march of the port: the
 // megakernel (mega_fwd.cu, mega_bwd.cu through mega_common.cuh) and the
-// per-segment engine (segment_fwd.cu). The trilinear latent fetch with
-// grid_sample semantics from a channel-last table in rows of 16 channels,
-// its adjoint, the Fourier phase, the piecewise-linear TF with its
-// interval choice, and the front-to-back "over" step.
+// per-segment engine (segment_fwd.cu, segment_bwd.cu through
+// segment_common.cuh). The trilinear latent fetch with grid_sample
+// semantics from a channel-last table in rows of 16 channels, its adjoint,
+// the Fourier phase, the activations with their derivatives, the output
+// heads with their adjoints, the piecewise-linear TF with its interval
+// choice and its adjoint, and the front-to-back "over" step. The adjoints
+// gate every clip strictly (a gradient passes only strictly inside it),
+// as the TPU kernels' hand-written adjoints do.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,6 +16,100 @@
 namespace march {
 
 constexpr int kLat = 16;        // channels in one table row (zero padded)
+
+enum Act { kNone = 0, kReLU, kSine, kSigmoid, kSoftplus, kSnake, kSnakeAlt };
+enum Head { kDensity = 0, kDensityDirect, kRgbo, kRgboDirect, kRgboExp };
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+__device__ __forceinline__ float softplus(float x) {  // torch's threshold 20
+  return x > 20.0f ? x : log1pf(expf(x));
+}
+
+// One neuron's activation (the switch is uniform across the block).
+__device__ __forceinline__ float activation(float x, int act, float p) {
+  switch (act) {
+    case kReLU: return fmaxf(x, 0.0f);
+    case kSine: return sinf(p * x);
+    case kSigmoid: return sigmoid(x);
+    case kSoftplus: return softplus(x);
+    case kSnake: {
+      const float s = sinf(p * x);
+      return x + s * s / p;
+    }
+    case kSnakeAlt: return (x + 1.0f - cosf(2.0f * p * x)) / (2.0f * p);
+    default: return x;
+  }
+}
+
+// Its derivative at the pre-activation x (ReLU's is 0 at 0).
+__device__ __forceinline__ float activation_deriv(float x, int act, float p) {
+  switch (act) {
+    case kReLU: return x > 0.0f ? 1.0f : 0.0f;
+    case kSine: return p * cosf(p * x);
+    case kSigmoid: {
+      const float s = sigmoid(x);
+      return s * (1.0f - s);
+    }
+    case kSoftplus: return sigmoid(x);
+    case kSnake: return 1.0f + sinf(2.0f * p * x);
+    case kSnakeAlt: return 1.0f / (2.0f * p) + sinf(2.0f * p * x);
+    default: return 1.0f;
+  }
+}
+
+// The output head on the last layer's pre-activation y: 1 value for the
+// density heads, 4 (rgb, absorption) for the rgbo heads.
+__device__ __forceinline__ void head_value(int head, const float* y,
+                                           float* out) {
+  switch (head) {
+    case kDensity:
+      out[0] = sigmoid(y[0]);
+      break;
+    case kDensityDirect:
+      out[0] = fminf(fmaxf(y[0], 0.0f), 1.0f);
+      break;
+    case kRgbo:
+      for (int r = 0; r < 3; ++r) out[r] = sigmoid(y[r]);
+      out[3] = softplus(y[3]);
+      break;
+    case kRgboDirect:
+      for (int r = 0; r < 3; ++r) out[r] = fminf(fmaxf(y[r], 0.0f), 1.0f);
+      out[3] = fmaxf(y[3], 0.0f);
+      break;
+    default:  // kRgboExp
+      for (int r = 0; r < 3; ++r) out[r] = sigmoid(y[r]);
+      out[3] = expf(y[3]);
+      break;
+  }
+}
+
+// Adjoint of head_value: d_y from the cotangent d_out of its outputs
+// (`out` the values it returned).
+__device__ __forceinline__ void head_adjoint(int head, const float* y,
+                                             const float* out,
+                                             const float* d_out,
+                                             float* d_y) {
+  switch (head) {
+    case kDensity:
+      d_y[0] = d_out[0] * out[0] * (1.0f - out[0]);
+      break;
+    case kDensityDirect:
+      d_y[0] = (y[0] > 0.0f && y[0] < 1.0f) ? d_out[0] : 0.0f;
+      break;
+    case kRgboDirect:
+      for (int r = 0; r < 3; ++r)
+        d_y[r] = (y[r] > 0.0f && y[r] < 1.0f) ? d_out[r] : 0.0f;
+      d_y[3] = y[3] > 0.0f ? d_out[3] : 0.0f;
+      break;
+    default:  // kRgbo, kRgboExp: sigmoid rgb
+      for (int r = 0; r < 3; ++r) d_y[r] = d_out[r] * out[r] * (1.0f - out[r]);
+      d_y[3] = d_out[3] * (head == kRgbo ? sigmoid(y[3]) : out[3]);
+      break;
+  }
+}
 
 // The 8 corners of a trilinear fetch with grid_sample semantics
 // (align_corners=False, border clamp): x in [0, 1] maps to voxel centers
@@ -98,16 +196,18 @@ __device__ __forceinline__ void trilerp16(const void* table,
     Table::add(table, c.row[k] * chunks + chunk, c.w[k], lat);
 }
 
-// Adjoint of the float32 trilerp of a 16-channel table: d_table[corner] +=
-// w * d_lat, by sm_90's 16-byte vector atomics (four a corner; `n_lat`
-// real channels).
+// Adjoint of the float32 trilerp of channels 16*chunk .. 16*chunk+15 of a
+// table of `chunks` 16-channel rows per voxel: d_table[corner] += w *
+// d_lat, by sm_90's 16-byte vector atomics (four a corner; `n_lat` real
+// channels in the row).
 __device__ __forceinline__ void trilerp_adjoint(float* d_table,
                                                 const Corners& c,
                                                 const float* d_lat,
-                                                int n_lat) {
+                                                int n_lat, int chunks = 1,
+                                                int chunk = 0) {
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    float* row = d_table + c.row[k] * kLat;
+    float* row = d_table + (c.row[k] * chunks + chunk) * kLat;
 #pragma unroll
     for (int q = 0; q < kLat / 4; ++q) {
       if (4 * q >= n_lat) break;
@@ -146,6 +246,31 @@ __device__ __forceinline__ void tf_lookup(const float* TF, int tf_points,
   s.g = c0[1] + s.frac * (c1[1] - c0[1]);
   s.b = c0[2] + s.frac * (c1[2] - c0[2]);
   s.op = c0[3] + s.frac * (c1[3] - c0[3]);
+}
+
+// Adjoint of tf_lookup at d (the same sample `s`): the cotangent dc of its
+// (r, g, b, absorption) goes into the control points' gradient `tfg`
+// (tf_points, 5), knot positions only strictly inside the interval.
+// Returns the cotangent of d.
+__device__ __forceinline__ float tf_adjoint(const float* TF,
+                                            const TfSample& s, float d,
+                                            const float* dc, float* tfg) {
+  const float* c0 = TF + s.iv * 5;
+  const float* c1 = c0 + 5;
+  float* g0 = tfg + s.iv * 5;
+  float* g1 = g0 + 5;
+  float d_frac = 0.0f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    g0[q] += dc[q] * (1.0f - s.frac);
+    g1[q] += dc[q] * s.frac;
+    d_frac += dc[q] * (c1[q] - c0[q]);
+  }
+  if (!(d > c0[4] && d < c1[4])) return 0.0f;
+  const float inv_dp = 1.0f / (c1[4] - c0[4]);
+  g0[4] += d_frac * (s.frac - 1.0f) * inv_dp;
+  g1[4] += -d_frac * s.frac * inv_dp;
+  return d_frac * inv_dp;
 }
 
 // One front-to-back "over" step of a sample of color (r, g, b) and alpha

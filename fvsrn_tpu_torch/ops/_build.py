@@ -23,6 +23,9 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "fvsrn_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# every source of the port (csrc/<name>.cu)
+SOURCES = ("mega_fwd", "mega_bwd", "segment_fwd", "segment_bwd")
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 

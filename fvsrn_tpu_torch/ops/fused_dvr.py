@@ -4,9 +4,12 @@ render.
 Counterpart of ``fvsrn_tpu/ops/fused_dvr.py``:
 
 - ``fused_trace_dvr`` is the per-segment engine (the TPU kernel
-  ``_segment_kernel``, forward only): CUDA tensors launch
-  ``csrc/segment_fwd.cu``, CPU tensors run ``fused_trace_dvr_plain``; on
-  a CUDA tensor it never falls back to the plain version;
+  ``_segment_kernel``): CUDA tensors launch ``csrc/segment_fwd.cu``, CPU
+  tensors run ``fused_trace_dvr_plain``; on a CUDA tensor it never falls
+  back to the plain version. With ``differentiable=True`` it applies the
+  autograd Functions of ``ops.fused_dvr_bwd`` (the TPU's
+  ``make_segment_op``: the forward storing carries, the backward
+  ``csrc/segment_bwd.cu``);
 - ``fused_trace_iso`` is the isosurface render on that engine: the
   kernel's first-hit epilogue, then per-ray bisection and shading in plain
   PyTorch (``raytracer.iso.refine_and_shade``), as in the JAX package;
@@ -36,8 +39,10 @@ direction input), then the piecewise TF (density heads; a sample counts
 when its value >= density_min) or the head's own rgb with absorption o*h
 (rgbo heads), Beer-Lambert or alpha "over". With ``iso_value`` the march
 records the first sample whose density exceeds it: rgba = (depth, 0, 0,
-found), and a hit ray is dead. Differentiable marches, normals and
-shading, and TF modes other than piecewise raise ``NotImplementedError``.
+found), and a hit ray is dead. The differentiable march has no
+early-out (every segment runs; the JAX package's fixed-count scan) and a
+float32 table; normals and shading, TF modes other than piecewise, and a
+bf16 table under ``differentiable=True`` raise ``NotImplementedError``.
 
 Bound of the kernel on the H100: operations (the dense flagship's sample
 costs ~7.6 kFLOP and ~110 transcendentals against 32 bytes per ray). This
@@ -52,14 +57,16 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import Tensor
 
 from ..models.activations import apply_activation
 from ..models.latent import grid_sample_3d
-from ..models.srn import SceneRepresentationNetwork, apply_output
+from ..models.srn import SceneRepresentationNetwork
 from ..utils.device import strict_f32
 from ..utils.vecmath import intersect_aabb
 from . import _build
+from .fused_mega import _gated_clip01, _params
 
 # kernel launches since the last reset (two a call: the march and its
 # continuation up to the call's stop); the plain version never counts
@@ -73,6 +80,7 @@ MAX_LATENT_CHANNELS = 64
 MAX_FOURIER = 32                 # the kernel's limits (segment_fwd.cu)
 MAX_HIDDEN_LAYERS = 6
 MAX_TF_POINTS = 16
+MAX_BWD_SEG = 32                 # segment_bwd.cu's segment length limit
 _ACTIVATIONS = {"None": 0, "NONE": 0, "ReLU": 1, "Sine": 2, "Sigmoid": 3,
                 "Softplus": 4, "Snake": 5, "SnakeAlt": 6}
 _HEADS = {"density": 0, "density:direct": 1, "rgbo": 2, "rgbo:direct": 3,
@@ -284,6 +292,7 @@ class SegmentSpec(NamedTuple):
     box_size: tuple
     activation: tuple           # (name, param) of every hidden layer
     output_mode: str
+    direction: bool             # the ray direction is a network input
 
 
 class SegmentStats(NamedTuple):
@@ -299,18 +308,19 @@ def _f32(x: float) -> float:
 
 
 def _check_segment_request(net, *, differentiable, need_normals, tf_mode,
-                           iso_value):
-    if differentiable:
-        raise NotImplementedError("fused_trace_dvr: the differentiable "
-                                  "per-segment engine is not ported yet")
+                           iso_value, table_dtype):
     if need_normals:
         raise NotImplementedError("fused_trace_dvr: normals and shading "
                                   "are not ported yet")
     if tf_mode != "piecewise":
         raise NotImplementedError(f"fused_trace_dvr: TF mode {tf_mode!r} "
                                   "is not ported yet")
-    if iso_value is not None and not net.output_mode.startswith("density"):
-        raise ValueError("fused iso marching: density networks only")
+    if iso_value is not None and (differentiable or not
+                                  net.output_mode.startswith("density")):
+        raise ValueError("fused iso marching: forward-only density networks")
+    if differentiable and table_dtype != torch.float32:
+        raise NotImplementedError("fused_trace_dvr: the differentiable march "
+                                  "takes a float32 latent table only")
     if len(net.layers) < 2:
         raise ValueError("fused_trace_dvr: the network needs a hidden layer")
 
@@ -343,12 +353,15 @@ def _segment_rays(ray_start, ray_dir, box_min, box_size, h, tile, lattice,
 def _segment_setup(ray_start, ray_dir, net, box_min, box_size, *, stepsize,
                    max_steps, density_min, density_max, blend_mode,
                    alpha_early_out, enable_early_out, seg, tile,
-                   differentiable, latent_mode, n_seg, need_normals,
-                   iso_value, tf_mode, tmax_clip):
-    """(spec, rays, kbase): the checks and the ray packet of a call."""
+                   differentiable, latent_mode, table_dtype, n_seg,
+                   need_normals, iso_value, tf_mode, tmax_clip):
+    """(spec, rays, kbase): the checks and the ray packet of a call. The
+    differentiable march has no early-out (the JAX package's rule,
+    fvsrn_tpu/ops/fused_dvr.py:2466-2473: its fixed-count scan composites
+    every sample, so its backward must not gate on alpha)."""
     _check_segment_request(net, differentiable=differentiable,
                            need_normals=need_normals, tf_mode=tf_mode,
-                           iso_value=iso_value)
+                           iso_value=iso_value, table_dtype=table_dtype)
     if blend_mode not in ("beer_lambert", "alpha"):
         raise ValueError(f"unknown blend mode {blend_mode}")
     if ray_start.reshape(-1, 3).shape[0] % tile:
@@ -358,8 +371,9 @@ def _segment_setup(ray_start, ray_dir, net, box_min, box_size, *, stepsize,
     lattice = (latent_mode == "boxfeat" and grid is not None
                and grid.shape[0] <= 16)
     h = _f32(stepsize)
-    rays, kbase = _segment_rays(ray_start, ray_dir, box_min, box_size, h,
-                                tile, lattice, tmax_clip)
+    rays, kbase = _segment_rays(ray_start.detach(), ray_dir.detach(),
+                                box_min, box_size, h, tile, lattice,
+                                tmax_clip)
     if n_seg is None:
         if lattice:
             n_seg = certify_segments(
@@ -373,63 +387,107 @@ def _segment_setup(ray_start, ray_dir, net, box_min, box_size, *, stepsize,
     spec = SegmentSpec(
         stepsize=h, seg=int(seg), n_seg=int(n_seg), lattice=lattice,
         density_min=float(density_min), density_max=float(density_max),
-        early_alpha=float(alpha_early_out) if enable_early_out else 2.0,
+        early_alpha=(float(alpha_early_out)
+                     if enable_early_out and not differentiable else 2.0),
         blend_alpha=blend_mode == "alpha",
         iso_value=None if iso_value is None else _f32(iso_value),
         box_min=tuple(float(v) for v in box_min),
         box_size=tuple(float(v) for v in box_size),
         activation=(net.layers[0].activation,
                     net.layers[0].activation_param),
-        output_mode=net.output_mode)
+        output_mode=net.output_mode, direction=net.use_direction)
     return spec, rays, kbase
 
 
-def _latent_grid(net, table_dtype) -> Optional[Tensor]:
-    """The latent grid as the engine reads it: a grid of <= 16 channels
-    rounded to ``table_dtype`` (the JAX package's neighborhood table), a
-    wider one in float32."""
-    grid = net.latent.static_grid
-    if grid is None:
-        return None
-    grid = grid.detach().to(torch.float32)
-    if grid.shape[0] <= 16 and table_dtype != torch.float32:
-        grid = grid.to(table_dtype).to(torch.float32)
-    return grid
+def segment_params(net, tf: Tensor, table_dtype=torch.float32) -> list:
+    """The engine's inputs as the autograd Functions take them: the TF,
+    the Fourier matrix ((0, 3) when there is none), the latent grid (or
+    None), then every layer's weight and bias. A grid of <= 16 channels is
+    read rounded to ``table_dtype`` (the JAX package's neighborhood
+    table), a wider one in float32."""
+    params = _params(net, tf)
+    grid = params[2]
+    if (grid is not None and grid.shape[0] <= 16
+            and table_dtype != torch.float32):
+        params[2] = grid.detach().to(table_dtype).to(torch.float32)
+    return params
 
 
-def _network_values(spec: SegmentSpec, net, grid, x01: Tensor,
+def _gated_relu(x: Tensor) -> Tensor:
+    """max(x, 0) whose gradient passes only where x > 0."""
+    return torch.where(x > 0.0, x, torch.zeros_like(x))
+
+
+def _head(mode: str, y: Tensor) -> Tensor:
+    """The output head on the last layer's pre-activation, its clips
+    gated strictly (a gradient passes only strictly inside), as the TPU
+    kernel's adjoint gates them."""
+    if mode == "density":
+        return torch.sigmoid(y)
+    if mode == "density:direct":
+        return _gated_clip01(y)
+    rgb, o = y[..., :3], y[..., 3:]
+    if mode == "rgbo":
+        return torch.cat([torch.sigmoid(rgb), F.softplus(o)], dim=-1)
+    if mode == "rgbo:direct":
+        return torch.cat([_gated_clip01(rgb), _gated_relu(o)], dim=-1)
+    if mode == "rgbo:exp":
+        return torch.cat([torch.sigmoid(rgb), torch.exp(o)], dim=-1)
+    raise ValueError(f"unknown output mode {mode}")
+
+
+def _network_values(spec: SegmentSpec, params: list, x01: Tensor,
                     dirs: Tensor) -> Tensor:
     """The engine's network on samples (N, 3): layer 0's activation on
     every hidden layer and a linear output row, as the TPU engine
     evaluates it, then the output head. (N, 1) or (N, 4)."""
+    fourier, grid = params[1], params[2]
+    layers = params[3:]
     feats = [x01]
-    if net.use_direction:
+    if spec.direction:
         feats.append(dirs)
+    if fourier.shape[0]:
+        xin = x01 if fourier.shape[1] == 3 else torch.cat([x01, dirs], 1)
+        f = xin @ fourier.T
+        feats += [torch.cos(f), torch.sin(f)]
     if grid is not None:
         feats.append(grid_sample_3d(grid, x01))
-    y = net.input(torch.cat(feats, dim=1))
+    y = torch.cat(feats, dim=1)
     name, p = spec.activation
-    for layer in net.layers[:-1]:
-        y = apply_activation(name, y @ layer.weight.T + layer.bias, p)
-    y = y @ net.layers[-1].weight.T + net.layers[-1].bias
-    return apply_output(spec.output_mode, y, "screen")
+    for i in range(len(layers) // 2 - 1):
+        y = y @ layers[2 * i].T + layers[2 * i + 1]
+        y = _gated_relu(y) if name == "ReLU" else apply_activation(name, y, p)
+    y = y @ layers[-2].T + layers[-1]
+    return _head(spec.output_mode, y)
 
 
 def _piecewise(tf: Tensor, d: Tensor) -> Tensor:
     """rgba of the piecewise-linear TF (R, 5) at d in [0, 1]: the interval
-    is the number of interior knots <= d."""
+    is the number of interior knots <= d; the knot positions get a
+    gradient only strictly inside the interval. A select over the
+    intervals, as the TPU kernel writes it, so that the TF's gradient is
+    a reduction over the samples (a gather's backward adds them one by
+    one into a few rows, and that float32 sum drifts with the sample
+    count)."""
     iv = torch.zeros_like(d, dtype=torch.int64)
     for q in range(1, tf.shape[0] - 1):
         iv += (tf[q, 4] <= d).to(torch.int64)
-    c0, c1 = tf[iv], tf[iv + 1]
-    p0, p1 = c0[..., 4], c1[..., 4]
-    frac = (torch.minimum(torch.maximum(d, p0), p1) - p0) / (p1 - p0)
-    return c0[..., :4] + frac[..., None] * (c1[..., :4] - c0[..., :4])
+    rgba = d.new_zeros(d.shape + (4,))
+    for k in range(tf.shape[0] - 1):
+        p0, p1 = tf[k, 4], tf[k + 1, 4]
+        interior = (d > p0) & (d < p1)
+        width = torch.where(p1 > p0, p1 - p0, torch.ones_like(p1))
+        frac = torch.where(interior, (d - p0) / width, (d >= p1).to(d.dtype))
+        v = tf[k, :4] + frac[..., None] * (tf[k + 1, :4] - tf[k, :4])
+        rgba = torch.where((iv == k)[..., None], v, rgba)
+    return rgba
 
 
-def _plain_segment(spec, net, grid, tf, rays, kbase, s, carry):
+def _plain_segment(spec, params, rays, kbase, s, carry):
     """Segment ``s`` of the rays (n, 8) from their ``carry`` (n, 4).
-    Returns (carry, samples evaluated)."""
+    Returns (carry, samples evaluated). Differentiable in ``params`` and
+    ``carry`` with the TPU kernel's gradient: a sample that absorbs
+    nothing passes none."""
     dev = rays.device
     h = torch.tensor(spec.stepsize, dtype=torch.float32, device=dev)
     k = (float(s * spec.seg)
@@ -447,10 +505,10 @@ def _plain_segment(spec, net, grid, tf, rays, kbase, s, carry):
     bsize = torch.tensor(spec.box_size, dtype=torch.float32, device=dev)
     x01 = ((rs + t[..., None] * rd - bmin) / bsize).reshape(-1, 3)
     dirs = rd.expand(-1, spec.seg, -1).reshape(-1, 3)
-    vals = _network_values(spec, net, grid, x01, dirs).reshape(
+    vals = _network_values(spec, params, x01, dirs).reshape(
         rays.shape[0], spec.seg, -1)
-    carry = carry.clone()
     if spec.iso_value is not None:
+        carry = carry.clone()
         inside = valid & (vals[..., 0] > spec.iso_value)
         found = carry[:, 3] > 0.5
         before = (torch.cumsum(inside.to(torch.int32), dim=1)
@@ -463,19 +521,20 @@ def _plain_segment(spec, net, grid, tf, rays, kbase, s, carry):
         return carry, n
     if spec.output_mode.startswith("density"):
         v = vals[..., 0]
-        d = torch.clamp((v - spec.density_min)
-                        * (1.0 / (spec.density_max - spec.density_min)),
-                        0.0, 1.0)
-        rgba = _piecewise(tf, d)
+        d = _gated_clip01((v - spec.density_min)
+                          * (1.0 / (spec.density_max - spec.density_min)))
+        rgba = _piecewise(params[0], d)
         rgb, absn = rgba[..., :3], rgba[..., 3] * h
         require = valid & (v >= spec.density_min)
     else:
         rgb, absn = vals[..., :3], vals[..., 3] * h
         require = valid
     absn = torch.where(require, absn, torch.zeros_like(absn))
-    rgb = torch.where(require[..., None], rgb, torch.zeros_like(rgb))
-    ca = (torch.clamp(absn, max=1.0) if spec.blend_alpha
-          else 1.0 - torch.exp(-absn))
+    ca = (torch.where(absn < 1.0, absn, torch.ones_like(absn))
+          if spec.blend_alpha else 1.0 - torch.exp(-absn))
+    contrib = require & (absn > 0)
+    rgb = torch.where(contrib[..., None], rgb, rgb.detach())
+    ca = torch.where(contrib, ca, ca.detach())
     c, alpha = carry[:, :3], carry[:, 3]
     for j in range(spec.seg):           # front-to-back "over"
         w = (1.0 - alpha) * ca[:, j]
@@ -484,37 +543,45 @@ def _plain_segment(spec, net, grid, tf, rays, kbase, s, carry):
     return torch.cat([c, alpha[:, None]], dim=1), valid.sum()
 
 
-@torch.no_grad()
-def _plain_march(spec: SegmentSpec, net, grid, tf, rays: Tensor,
-                 kbase: Optional[Tensor]):
-    """The plain engine: (rgba (R, 4), SegmentStats). Segment s runs while
-    some ray of the call is alive at s; every ray whose segment start is
-    still <= tmax composites it."""
+def _plain_march(spec: SegmentSpec, params: list, rays: Tensor,
+                 kbase: Optional[Tensor], store: bool = False):
+    """The plain engine: (rgba (R, 4), SegmentStats, carries). Segment s
+    runs while some ray of the call is alive at s; every ray whose segment
+    start is still <= tmax composites it. With ``store`` ``carries`` is the
+    list of the (R, 4) carries entering each segment run, else None."""
     dev = rays.device
     carry = torch.zeros(rays.shape[0], 4, dtype=torch.float32, device=dev)
     samples = torch.zeros((), dtype=torch.int64, device=dev)
-    a, tmx = rays[:, 6], rays[:, 7]
     stop = 0
     chunk = max(1, _PLAIN_CHUNK_SAMPLES // spec.seg)
+    carries = [] if store else None
     for s in range(spec.n_seg):
-        s0 = _f32(np.float32(s * spec.seg) * np.float32(spec.stepsize))
-        t0 = ((kbase + float(s * spec.seg)) * spec.stepsize if spec.lattice
-              else a + s0)
-        done = t0 > tmx
+        done = _segment_done(spec, rays, kbase, s)
         if not bool((~(done | (carry[:, 3] >= spec.early_alpha))).any()):
             break
         stop = s + 1
+        if store:
+            carries.append(carry.clone())
         for idx in torch.nonzero(~done).flatten().split(chunk):
             carry[idx], n = _plain_segment(
-                spec, net, grid, tf, rays[idx],
+                spec, params, rays[idx],
                 kbase[idx] if kbase is not None else None, s, carry[idx])
             samples += n
-    return carry, SegmentStats(samples,
-                               torch.tensor(stop, dtype=torch.int64))
+    stats = SegmentStats(samples, torch.tensor(stop, dtype=torch.int64))
+    return carry, stats, carries
+
+
+def _segment_done(spec: SegmentSpec, rays: Tensor, kbase, s: int) -> Tensor:
+    """(R,) bool: the ray's segment ``s`` starts past its tmax (it has no
+    valid sample left)."""
+    s0 = _f32(np.float32(s * spec.seg) * np.float32(spec.stepsize))
+    t0 = ((kbase + float(s * spec.seg)) * spec.stepsize if spec.lattice
+          else rays[:, 6] + s0)
+    return t0 > rays[:, 7]
 
 
 def _tf_points(tf_tensor: Tensor, device) -> Tensor:
-    tf = tf_tensor.detach().to(device=device, dtype=torch.float32)
+    tf = tf_tensor.to(device=device, dtype=torch.float32)
     if tf.ndim != 2 or tf.shape[1] != 5 or tf.shape[0] < 2:
         raise ValueError("piecewise TF tensor must be (R >= 2, 5)")
     return tf
@@ -535,23 +602,45 @@ def fused_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
                           need_normals: bool = False, iso_value=None,
                           tf_mode: str = "piecewise",
                           tmax_clip: Optional[Tensor] = None,
-                          return_stats: bool = False):
+                          return_stats: bool = False, **tpu_schedule):
     """Plain PyTorch version of :func:`fused_trace_dvr`: the same
     schedule and stop, vectorized over the rays of each segment in chunks,
-    a Python loop over segments."""
+    a Python loop over segments; with ``differentiable`` the autograd
+    Function ``ops.fused_dvr_bwd._PlainSegmentMarch`` with the kernels'
+    gradient."""
     strict_f32()
+    _tpu_schedule(tpu_schedule)
     spec, rays, kbase = _segment_setup(
         ray_start, ray_dir, net, box_min, box_size, stepsize=stepsize,
         max_steps=max_steps, density_min=density_min,
         density_max=density_max, blend_mode=blend_mode,
         alpha_early_out=alpha_early_out, enable_early_out=enable_early_out,
         seg=seg, tile=tile, differentiable=differentiable,
-        latent_mode=latent_mode, n_seg=n_seg, need_normals=need_normals,
-        iso_value=iso_value, tf_mode=tf_mode, tmax_clip=tmax_clip)
-    out, stats = _plain_march(spec, net, _latent_grid(net, table_dtype),
-                              _tf_points(tf_tensor, rays.device), rays,
-                              kbase)
+        latent_mode=latent_mode, table_dtype=table_dtype, n_seg=n_seg,
+        need_normals=need_normals, iso_value=iso_value, tf_mode=tf_mode,
+        tmax_clip=tmax_clip)
+    params = segment_params(net, _tf_points(tf_tensor, rays.device),
+                            table_dtype)
+    if differentiable:
+        from .fused_dvr_bwd import _PlainSegmentMarch
+        out, samples, stop = _PlainSegmentMarch.apply(rays, kbase, spec,
+                                                      *params)
+        stats = SegmentStats(samples, stop)
+    else:
+        with torch.no_grad():
+            out, stats, _ = _plain_march(spec, params, rays, kbase)
     return (out, stats) if return_stats else out
+
+
+def _tpu_schedule(kwargs: dict):
+    """``segment_remat`` and ``stash_backward`` choose how the TPU keeps
+    the backward's residuals (recompute each segment's forward, or stash
+    its activations); the result is the same, and this port's design
+    (stored carries, recomputed activations) has no such choice: accepted
+    and ignored. Anything else raises ``TypeError``."""
+    unknown = set(kwargs) - {"segment_remat", "stash_backward"}
+    if unknown:
+        raise TypeError(f"fused_trace_dvr: unexpected options {unknown}")
 
 
 # ---------------------------------------------------------------------------
@@ -571,9 +660,10 @@ def kernel_width(net) -> int:
     return next(w for w in KERNEL_WIDTHS if w >= width)
 
 
-def _check_kernel_inputs(net, tf: Tensor):
-    """What csrc/segment_fwd.cu takes; the rest raises
-    ``NotImplementedError``."""
+def _check_kernel_inputs(net, tf: Tensor, seg: int = 32,
+                         differentiable: bool = False):
+    """What csrc/segment_fwd.cu (and, for gradients, segment_bwd.cu)
+    takes; the rest raises ``NotImplementedError``."""
     kernel_width(net)
     if len(net.layers) - 2 > MAX_HIDDEN_LAYERS:
         raise NotImplementedError(f"segment kernel: at most "
@@ -591,6 +681,9 @@ def _check_kernel_inputs(net, tf: Tensor):
     if net.layers[0].activation not in _ACTIVATIONS:
         raise NotImplementedError(f"segment kernel: activation "
                                   f"{net.layers[0].activation}")
+    if differentiable and seg > MAX_BWD_SEG:
+        raise NotImplementedError(f"segment backward kernel: seg <= "
+                                  f"{MAX_BWD_SEG} only")
 
 
 def _latent_chunks(net) -> int:
@@ -599,9 +692,9 @@ def _latent_chunks(net) -> int:
 
 
 def pack_segment_weights(net, tf: Tensor) -> Tensor:
-    """The kernel's packed float32 weights (layout in csrc/segment_fwd.cu,
-    ``Wts``: matrices input-major), hidden width zero-padded to
-    :func:`kernel_width`."""
+    """The kernel's packed float32 weights (layout in
+    csrc/segment_common.cuh, ``Wts``: matrices input-major), hidden width
+    zero-padded to :func:`kernel_width`."""
     f32 = dict(dtype=torch.float32, device=tf.device)
     hp = kernel_width(net)
     fm = net.input.fourier_matrix
@@ -635,7 +728,7 @@ def pack_segment_weights(net, tf: Tensor) -> Tensor:
     parts += [pad(l.weight.T, hp, hp) for l in hidden]
     parts += [pad(l.bias, hp) for l in hidden]
     parts += [pad(net.layers[-1].weight, 4, hp),
-              pad(net.layers[-1].bias, 4), b, bd, tf]
+              pad(net.layers[-1].bias, 4), b, bd, tf.detach()]
     return torch.cat([p.reshape(-1) for p in parts]).contiguous()
 
 
@@ -660,7 +753,7 @@ def segment_table(net, table_dtype: torch.dtype, device) -> Tensor:
 def _bind(lib: ctypes.CDLL):
     fn = lib.segment_fwd_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([p, p, p, i, p, i, p, p, p] + [i] * 10 + [f] + [i] * 5
+    fn.argtypes = ([p, p, p, i, p, i, p, p, p, p] + [i] * 10 + [f] + [i] * 5
                    + [f] + [i, i] + [f] * 4 + [f] * 6 + [i, p])
     fn.restype = ctypes.c_int
     return fn
@@ -676,16 +769,25 @@ def _check_tensors(dev, **tensors):
 
 def launch_segment(spec: SegmentSpec, net, rays: Tensor,
                    kbase: Optional[Tensor], weights: Tensor, table: Tensor,
-                   tf_points: int):
-    """Launch csrc/segment_fwd.cu twice (the march, then the
-    continuation up to the call's stop). Returns (rgba (R, 4),
-    SegmentStats)."""
+                   tf_points: int, store_carries: bool = False):
+    """Launch csrc/segment_fwd.cu: the march, then the continuation up to
+    the call's stop; with ``store_carries`` (a march with no early-out)
+    the march alone, storing the carries. Returns (rgba (R, 4),
+    SegmentStats, carries (n_seg, R, 4) or None, death (R,) int32: the
+    segments each ray ran)."""
     global SEGMENT_LAUNCHES
     dev = rays.device
     n_rays = rays.shape[0]
     out = torch.empty(n_rays, 4, dtype=torch.float32, device=dev)
     death = torch.empty(n_rays, dtype=torch.int32, device=dev)
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    carries = None
+    if store_carries:
+        if spec.early_alpha < 1.5:
+            raise ValueError("carries are stored by a march with no "
+                             "early-out")
+        carries = torch.empty(spec.n_seg, n_rays, 4, dtype=torch.float32,
+                              device=dev)
     _check_tensors(dev, rays=rays, weights=weights, table=table)
     if spec.lattice:
         _check_tensors(dev, kbase=kbase)
@@ -697,13 +799,14 @@ def launch_segment(spec: SegmentSpec, net, rays: Tensor,
     fn = _bind(_build.load("segment_fwd"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for phase in (0, 1):
+        for phase in ((0,) if store_carries else (0, 1)):
             err = fn(
                 rays.data_ptr(), kbase.data_ptr() if spec.lattice else None,
                 table.data_ptr(), int(table.dtype == torch.float32),
                 weights.data_ptr(), weights.numel(), out.data_ptr(),
-                death.data_ptr(), stats.data_ptr(), n_rays, gx, gy, gz,
-                _latent_chunks(net), nf, len(net.layers) - 2,
+                death.data_ptr(), stats.data_ptr(),
+                carries.data_ptr() if carries is not None else None, n_rays,
+                gx, gy, gz, _latent_chunks(net), nf, len(net.layers) - 2,
                 kernel_width(net), tf_points,
                 _ACTIVATIONS[spec.activation[0]], spec.activation[1],
                 _HEADS[spec.output_mode], int(net.use_direction),
@@ -717,8 +820,9 @@ def launch_segment(spec: SegmentSpec, net, rays: Tensor,
             if err != 0:
                 raise RuntimeError(f"segment_fwd launch (phase {phase}) "
                                    f"failed with CUDA error {err}")
-            SEGMENT_LAUNCHES += 1
-    return out, SegmentStats(stats[1], stats[0])
+            if not store_carries:
+                SEGMENT_LAUNCHES += 1
+    return out, SegmentStats(stats[1], stats[0]), carries, death
 
 
 def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
@@ -734,12 +838,17 @@ def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                     n_seg: Optional[int] = None, need_normals: bool = False,
                     iso_value=None, tf_mode: str = "piecewise",
                     tmax_clip: Optional[Tensor] = None,
-                    return_stats: bool = False):
+                    return_stats: bool = False, **tpu_schedule):
     """The per-segment fused march (see the module doc) of rays (R, 3),
     R a multiple of ``tile``. CUDA tensors launch the kernel, CPU tensors
     run :func:`fused_trace_dvr_plain`. ``n_seg`` overrides the segment
-    count (ceil(max_steps/seg), or certified in lattice mode). Returns
-    rgba (R, 4), and :class:`SegmentStats` with ``return_stats``."""
+    count (ceil(max_steps/seg), or certified in lattice mode). With
+    ``differentiable`` the result carries gradients to the network's
+    parameters and to ``tf_tensor`` (float32 table, no early-out: every
+    segment runs); the rays get none, as from the JAX package's custom
+    VJP. ``segment_remat``/``stash_backward`` are accepted and ignored
+    (:func:`_tpu_schedule`). Returns rgba (R, 4), and
+    :class:`SegmentStats` with ``return_stats``."""
     kw = dict(stepsize=stepsize, max_steps=max_steps,
               density_min=density_min, density_max=density_max,
               blend_mode=blend_mode, alpha_early_out=alpha_early_out,
@@ -747,23 +856,29 @@ def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
               differentiable=differentiable, latent_mode=latent_mode,
               table_dtype=table_dtype, n_seg=n_seg,
               need_normals=need_normals, iso_value=iso_value,
-              tf_mode=tf_mode, tmax_clip=tmax_clip,
-              return_stats=return_stats)
+              tf_mode=tf_mode, tmax_clip=tmax_clip)
     if ray_start.device.type == "cpu":
         return fused_trace_dvr_plain(ray_start, ray_dir, net, box_min,
-                                     box_size, tf_tensor, **kw)
+                                     box_size, tf_tensor,
+                                     return_stats=return_stats, **kw,
+                                     **tpu_schedule)
     if ray_start.device.type != "cuda":
         raise ValueError(f"unsupported device {ray_start.device}")
-    kw.pop("return_stats")
-    kw.pop("table_dtype")
+    _tpu_schedule(tpu_schedule)
     spec, rays, kbase = _segment_setup(ray_start, ray_dir, net, box_min,
                                        box_size, **kw)
     tf = _tf_points(tf_tensor, rays.device)
-    _check_kernel_inputs(net, tf)
-    with torch.no_grad():
-        out, stats = launch_segment(
-            spec, net, rays, kbase, pack_segment_weights(net, tf),
-            segment_table(net, table_dtype, rays.device), tf.shape[0])
+    _check_kernel_inputs(net, tf, seg, differentiable)
+    if differentiable:
+        from .fused_dvr_bwd import _SegmentKernelMarch
+        out, samples, stop = _SegmentKernelMarch.apply(
+            rays, kbase, spec, net, *segment_params(net, tf))
+        stats = SegmentStats(samples, stop)
+    else:
+        with torch.no_grad():
+            out, stats, _, _ = launch_segment(
+                spec, net, rays, kbase, pack_segment_weights(net, tf),
+                segment_table(net, table_dtype, rays.device), tf.shape[0])
     return (out, stats) if return_stats else out
 
 

@@ -18,7 +18,8 @@ global lattice t = k*stepsize from k0t, the minimum over ALL its rays of
 ceil(tmin/stepsize), in segments of ``seg`` points. A segment runs when
 some ray of the tile has a live point in it (t <= tmax after the clip,
 k >= the ray's own first point) and, with the early-out, while some ray
-of the tile has alpha < 0.999 at the segment's start.
+of the tile has alpha < ``alpha_early_out`` (0.999) at the segment's
+start.
 Each live sample: trilinear latent fetch (bf16 table for the render,
 float32 for training), Fourier features, the MLP in float32, the density
 head, the piecewise-linear TF, Beer-Lambert "over".
@@ -129,11 +130,12 @@ def _check_network(net: SceneRepresentationNetwork):
 
 
 def _spec(net, box_min, box_size, *, stepsize, seg, tile, density_min,
-          density_max, enable_early_out) -> MarchSpec:
+          density_max, enable_early_out,
+          alpha_early_out=EARLY_ALPHA) -> MarchSpec:
     return MarchSpec(
         stepsize=float(stepsize), seg=int(seg), tile=int(tile),
         density_min=float(density_min), density_max=float(density_max),
-        early_alpha=EARLY_ALPHA if enable_early_out else 2.0,
+        early_alpha=float(alpha_early_out) if enable_early_out else 2.0,
         box_min=tuple(float(v) for v in box_min),
         box_size=tuple(float(v) for v in box_size),
         activations=tuple((l.activation, l.activation_param)
@@ -360,6 +362,7 @@ def mega_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
                          tmax_clip: Optional[Tensor] = None,
                          seg: int = 32, tile: int = KERNEL_TILE,
                          density_min: float = 0.0, density_max: float = 1.0,
+                         alpha_early_out: float = EARLY_ALPHA,
                          enable_early_out: bool = True,
                          differentiable: bool = False,
                          table_dtype: Optional[torch.dtype] = None,
@@ -379,7 +382,8 @@ def mega_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
                          f"of tile={tile}")
     spec = _spec(net, box_min, box_size, stepsize=stepsize, seg=seg,
                  tile=tile, density_min=density_min,
-                 density_max=density_max, enable_early_out=enable_early_out)
+                 density_max=density_max, enable_early_out=enable_early_out,
+                 alpha_early_out=alpha_early_out)
     params = _params(net, _tf_points(tf_tensor).to(rays.device))
     table_dtype = _table_dtype(table_dtype, differentiable)
     if params[2] is not None and table_dtype != torch.float32:
@@ -670,6 +674,7 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                    tmax_clip: Optional[Tensor] = None,
                    seg: int = 32, tile: int = KERNEL_TILE,
                    density_min: float = 0.0, density_max: float = 1.0,
+                   alpha_early_out: float = EARLY_ALPHA,
                    enable_early_out: bool = True,
                    differentiable: bool = False,
                    table_dtype: Optional[torch.dtype] = None,
@@ -682,6 +687,7 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
     (R, 4), and the samples evaluated per tile with ``return_samples``."""
     kw = dict(stepsize=stepsize, tmax_clip=tmax_clip, seg=seg, tile=tile,
               density_min=density_min, density_max=density_max,
+              alpha_early_out=alpha_early_out,
               enable_early_out=enable_early_out,
               differentiable=differentiable, table_dtype=table_dtype,
               return_samples=return_samples)
@@ -697,7 +703,8 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
     _check_kernel_inputs(net, rays, tile, seg, differentiable)
     spec = _spec(net, box_min, box_size, stepsize=stepsize, seg=seg,
                  tile=tile, density_min=density_min,
-                 density_max=density_max, enable_early_out=enable_early_out)
+                 density_max=density_max, enable_early_out=enable_early_out,
+                 alpha_early_out=alpha_early_out)
     tf = _tf_points(tf_tensor).to(dev)
     if tf.shape[0] > MAX_TF_POINTS:
         raise NotImplementedError(f"CUDA kernel: at most {MAX_TF_POINTS} "

@@ -5,10 +5,13 @@ Counterpart of ``fvsrn_tpu/train/screen.py``:
 - ``build_screen_dataset``: fibonacci-sphere cameras and ground-truth
   renders of the reference volume by the plain ``trace_dvr``;
 - ``evaluate_screen``: the differentiable render of the SRN plus the image
-  loss, through the fused march (``ops.fused_mega.mega_trace_dvr`` with
-  ``differentiable=True``: the CUDA kernels on the card, their plain
-  versions on the CPU) or through the plain ``trace_dvr`` with per-step
-  checkpointing;
+  loss, through a fused march chosen by the JAX package's engine rule
+  (``fused_kwargs["engine"]``: "scan", the default, is the per-segment
+  engine's ``ops.fused_dvr.fused_trace_dvr(differentiable=True)``;
+  "mega", which :func:`screen_mega_kwargs` sets, the megakernel's
+  ``ops.fused_mega.mega_trace_dvr``; the CUDA kernels on the card, their
+  plain versions on the CPU) or through the plain ``trace_dvr`` with
+  per-step checkpointing;
 - ``train_screen``: the epoch loop over camera minibatches, one Adam step
   and one scheduler step per minibatch, aborting on a non-finite loss.
 
@@ -26,7 +29,7 @@ from torch import Tensor
 
 from ..camera import fibonacci_sphere_cameras, generate_rays
 from ..models.network_volume import VolumeInterpolationNetwork
-from ..ops.fused_dvr import block_ray_permutation
+from ..ops.fused_dvr import block_ray_permutation, fused_trace_dvr
 from ..ops.fused_mega import (KERNEL_SEG, KERNEL_TILE, LATENT_CHANNELS,
                               mega_trace_dvr)
 from ..raytracer.dvr import (RayEvaluationSteppingDvr, max_steps_bound,
@@ -98,14 +101,19 @@ def fused_screen_supported(network, tf, width: int, height: int) -> bool:
 
 
 def screen_mega_kwargs(dataset: ScreenDataset) -> dict:
-    """The ``fused_kwargs`` of :func:`evaluate_screen`: the 16x16
-    pixel-block permutation that makes every 256-ray tile spatially
-    coherent. (The JAX package also certifies a latent footprint here for
-    the TPU's resident slab; the CUDA kernels fetch from the whole table
-    and need none.)"""
+    """The ``fused_kwargs`` of :func:`evaluate_screen` that select the
+    megakernel (``engine="mega"``), with the 16x16 pixel-block
+    permutation that makes every 256-ray tile spatially coherent. (The JAX
+    package also certifies a latent footprint here for the TPU's resident
+    slab; the CUDA kernels fetch from the whole table and need none.)"""
     perm, inv = block_ray_permutation(dataset.width, dataset.height, 16, 16,
                                       device=dataset.ray_start.device)
-    return dict(block_perm=perm, block_perm_inv=inv)
+    return dict(engine="mega", block_perm=perm, block_perm_inv=inv,
+                seg=KERNEL_SEG, tile=KERNEL_TILE)
+
+
+# fused_kwargs that only the TPU kernels read
+_TPU_ONLY_KWARGS = ("interpret", "subbox")
 
 
 def evaluate_screen(network, batch_rays_start: Tensor,
@@ -115,28 +123,43 @@ def evaluate_screen(network, batch_rays_start: Tensor,
                     use_fused: bool = False,
                     fused_kwargs: Optional[dict] = None):
     """Differentiable render + image loss: (total, individual terms).
-    ``use_fused`` routes the render through the fused march (32-point
-    segments, 256-ray tiles in the order ``fused_kwargs`` from
-    :func:`screen_mega_kwargs` gives, the tile vote on); otherwise the
-    plain march runs with per-step checkpointing."""
+    ``use_fused`` routes the render through a fused march by the JAX
+    package's rule: ``fused_kwargs["engine"]`` "scan" (the default) runs
+    the per-segment engine's differentiable march (per-ray sampling, no
+    early-out: every segment runs), "mega" (:func:`screen_mega_kwargs`)
+    the megakernel on rays reordered by ``block_perm`` (32-point
+    segments, 256-ray tiles, the tile vote unless ``enable_early_out`` is
+    False). The remaining keys go to the march (``seg``, ``tile``,
+    ``enable_early_out``, ``alpha_early_out``, ``density_min``,
+    ``density_max``, ``table_dtype``, ``latent_mode``, ...); ``interpret``
+    and ``subbox``, which only the TPU kernels read, are accepted and
+    ignored. Otherwise the plain march runs with per-step checkpointing."""
     netvol = VolumeInterpolationNetwork(network)
-    if use_fused:
-        perm = (fused_kwargs or {}).get("block_perm")
-        inv = (fused_kwargs or {}).get("block_perm_inv")
+    box = (netvol.box_min.tolist(), netvol.box_size.tolist())
+    fk = {k: v for k, v in (fused_kwargs or {}).items()
+          if k not in _TPU_ONLY_KWARGS}
+    engine = fk.pop("engine", "scan") if use_fused else "scan"
+    if use_fused and engine == "mega":
+        perm = fk.pop("block_perm", None)
+        inv = fk.pop("block_perm_inv", None)
         hw = width * height
         rs = batch_rays_start.reshape(-1, hw, 3)
         rd = batch_rays_dir.reshape(-1, hw, 3)
         if perm is not None:
             rs, rd = rs[:, perm], rd[:, perm]
         color = mega_trace_dvr(
-            rs.reshape(-1, 3), rd.reshape(-1, 3), network,
-            netvol.box_min.tolist(), netvol.box_size.tolist(), tf.tensor,
-            stepsize=float(config.stepsize), seg=KERNEL_SEG,
-            tile=KERNEL_TILE, differentiable=True)
+            rs.reshape(-1, 3), rd.reshape(-1, 3), network, *box, tf.tensor,
+            stepsize=float(config.stepsize), differentiable=True, **fk)
         color = color.reshape(-1, hw, 4)
         if inv is not None:
             color = color[:, inv]
         color = color.reshape(-1, 4)
+    elif use_fused:
+        color = fused_trace_dvr(
+            batch_rays_start.reshape(-1, 3), batch_rays_dir.reshape(-1, 3),
+            network, *box, tf.tensor, stepsize=float(config.stepsize),
+            max_steps=max_steps, enable_early_out=False, differentiable=True,
+            **fk)
     else:
         color = trace_dvr(batch_rays_start.reshape(-1, 3),
                           batch_rays_dir.reshape(-1, 3), netvol, tf, config,

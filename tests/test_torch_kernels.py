@@ -2,9 +2,11 @@
 card: the megakernel's render forward, its differentiable forward
 (image, stored carries, segments visited) and backward (every gradient
 leaf, also with no latent grid and with a TF whose first knot absorbs),
-and the per-segment engine (csrc/segment_fwd.cu: every network and
-option it takes, image, samples and the call's stop). This
-file imports no JAX, so it runs where the GPU is:
+the per-segment engine (csrc/segment_fwd.cu: every network and option it
+takes, image, samples and the call's stop) and its differentiable pair
+(csrc/segment_fwd.cu storing carries, csrc/segment_bwd.cu: image and
+every gradient leaf over the same networks and options). This file
+imports no JAX, so it runs where the GPU is:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
@@ -21,7 +23,7 @@ import torch
 from fvsrn_tpu_torch.camera import CameraOnASphere, generate_rays
 from fvsrn_tpu_torch.convert import srn_from_arrays
 from fvsrn_tpu_torch.inference import pad_rays
-from fvsrn_tpu_torch.ops import fused_dvr, fused_mega
+from fvsrn_tpu_torch.ops import fused_dvr, fused_dvr_bwd, fused_mega
 from fvsrn_tpu_torch.ops.fused_dvr import block_ray_permutation
 from fvsrn_tpu_torch.scenes import dense_scene
 from fvsrn_tpu_torch.train.checkpoints import load_weights
@@ -298,3 +300,65 @@ def test_segment_kernel_rejects_what_it_does_not_take(net_kw):
     with pytest.raises(NotImplementedError):
         fused_dvr._check_kernel_inputs(random_net(**net_kw), tf)
     fused_dvr._check_kernel_inputs(random_net(width=64, channels=40), tf)
+
+
+# the per-segment engine's differentiable pair over SEGMENT_CASES: a float32
+# table (the bf16 cases train on float32), no iso march
+SEGMENT_GRAD_CASES = sorted(set(SEGMENT_CASES) - {"flagship_bf16_table",
+                                                  "iso"})
+
+
+@pytest.mark.parametrize("case", SEGMENT_GRAD_CASES)
+def test_segment_grad_kernel_matches_plain(case):
+    """Rows 5-6: the image of the carry-storing forward and every gradient
+    leaf of the backward against the plain differentiable pair, on a 60x44
+    view padded to whole tiles: image <= 1e-4, each leaf within a relative
+    norm error of 1e-3. One launch of each kernel, none by the plain
+    pair."""
+    needs_card()
+    spec = SEGMENT_CASES[case]
+    _, tf, npz = dense_scene()
+    net = (load_weights(npz) if spec["net"] == "flagship"
+           else random_net(**spec["net"])).cuda()
+    rs, rd = generate_rays(CameraOnASphere.make(pitch=0.3, yaw=0.8,
+                                                distance=1.6),
+                           60, 44, device="cuda")
+    kw = dict(dict(stepsize=1 / 128, max_steps=222, seg=32, tile=128),
+              **spec.get("kw", {}), differentiable=True)
+    rs, rd, _ = pad_rays(rs.reshape(-1, 3), rd.reshape(-1, 3), kw["tile"])
+    w = torch.empty(rs.shape[0], 4, device="cuda").uniform_(
+        -1, 1, generator=torch.Generator("cuda").manual_seed(1))
+    got = {}
+    for fn in (fused_dvr.fused_trace_dvr, fused_dvr.fused_trace_dvr_plain):
+        net.zero_grad(set_to_none=True)
+        tf_leaf = tf.tensor.cuda().requires_grad_(True)
+        before = (fused_dvr_bwd.SEGMENT_DIFF_LAUNCHES,
+                  fused_dvr_bwd.SEGMENT_BWD_LAUNCHES)
+        img = fn(rs, rd, net, *BOX, tf_leaf, **kw)
+        (img * w).sum().backward()
+        torch.cuda.synchronize()
+        launched = (fused_dvr_bwd.SEGMENT_DIFF_LAUNCHES - before[0],
+                    fused_dvr_bwd.SEGMENT_BWD_LAUNCHES - before[1])
+        assert launched == ((1, 1) if fn is fused_dvr.fused_trace_dvr
+                            else (0, 0))
+        g = {n: p.grad.clone() for n, p in net.named_parameters()}
+        if not net.output_mode.startswith("rgbo"):   # rgbo reads no TF
+            g["tf"] = tf_leaf.grad.clone()
+        got[fn] = (img.detach(), g)
+    (img_k, g_k), (img_p, g_p) = got.values()
+    assert float(img_p[:, 3].max()) > 0.05
+    torch.testing.assert_close(img_k, img_p, rtol=0, atol=ATOL)
+    assert sorted(g_k) == sorted(g_p)
+    for name in g_p:
+        assert rel_err(g_k[name], g_p[name]) <= 1e-3, name
+
+
+def test_segment_grad_kernel_rejects_what_it_does_not_take():
+    """The backward kernel takes segments of at most 32 samples."""
+    tf = dense_scene()[1].tensor
+    with pytest.raises(NotImplementedError):
+        fused_dvr._check_kernel_inputs(random_net(), tf, seg=64,
+                                       differentiable=True)
+    fused_dvr._check_kernel_inputs(random_net(), tf, seg=64)
+    fused_dvr._check_kernel_inputs(random_net(), tf, seg=32,
+                                   differentiable=True)

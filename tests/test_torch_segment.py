@@ -344,8 +344,8 @@ def test_engine_rejects_what_is_not_ported():
     _, tf = tfs(RAMP)
     rs, rd = rays16()
     kw = dict(stepsize=H, max_steps=112, seg=SEG, tile=TILE)
-    for bad in (dict(differentiable=True), dict(need_normals=True),
-                dict(tf_mode="texture")):
+    for bad in (dict(differentiable=True, table_dtype=torch.bfloat16),
+                dict(need_normals=True), dict(tf_mode="texture")):
         with pytest.raises(NotImplementedError):
             fused_trace_dvr(t(rs), t(rd), net, BMIN, BSIZE, tf.tensor,
                             **kw, **bad)

@@ -8,6 +8,7 @@ within a relative norm error of 1e-4). CPU only; the JAX megakernel runs
 in Pallas interpret mode."""
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,8 +22,11 @@ from fvsrn_tpu.raytracer.dvr import RayEvaluationSteppingDvr as JCfg
 from fvsrn_tpu.train import losses as jlosses
 from fvsrn_tpu.train import main as jmain
 from fvsrn_tpu.train.optimizer import step_lr as jstep_lr
+from fvsrn_tpu.train.screen import ScreenDataset as JScreenDataset
 from fvsrn_tpu.train.screen import build_screen_dataset as jbuild
+from fvsrn_tpu.train.screen import evaluate_screen as jevaluate_screen
 from fvsrn_tpu.train.screen import fused_screen_supported as jsupported
+from fvsrn_tpu.train.screen import screen_mega_kwargs as jmega_kwargs
 from fvsrn_tpu.transfer import TransferFunctionPiecewiseLinear as JTF
 from fvsrn_tpu.volume.implicit import IMPLICIT_EQUATIONS as JEQ
 from fvsrn_tpu.volume.implicit import VolumeInterpolationImplicit as JImplicit
@@ -33,11 +37,17 @@ from fvsrn_tpu_torch.raytracer.dvr import RayEvaluationSteppingDvr
 from fvsrn_tpu_torch.train import losses, main
 from fvsrn_tpu_torch.train.checkpoints import load_arrays, load_weights
 from fvsrn_tpu_torch.train.optimizer import make_optimizer, step_lr
-from fvsrn_tpu_torch.train.screen import (build_screen_dataset,
-                                          fused_screen_supported)
+from fvsrn_tpu_torch.train.screen import (ScreenDataset,
+                                          build_screen_dataset,
+                                          evaluate_screen,
+                                          fused_screen_supported,
+                                          screen_mega_kwargs)
 from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
 from fvsrn_tpu_torch.volume.implicit import (IMPLICIT_EQUATIONS,
                                              VolumeInterpolationImplicit)
+from fvsrn_tpu.camera import CameraOnASphere as JCam
+from fvsrn_tpu.raytracer.dvr import max_steps_bound
+from fvsrn_tpu_torch.convert import srn_from_arrays
 from tools.export_torch_weights import network_arrays
 
 torch.set_num_threads(1)
@@ -245,3 +255,83 @@ def test_trainer_rejects_what_is_not_ported(extra, tmp_path):
                                              + ["--device", "cpu"]))
     with pytest.raises(NotImplementedError):
         main.run(opt)
+
+
+def f4_case():
+    """Fault F4's setup: a seeded 32:32:32 SnakeAlt:2 network (6 Fourier
+    features, 8-channel 8^3 grid, seed 7), one 16x16 camera, h = 1/32, L1
+    against a zero target. Returns (JAX args, port args) of
+    ``evaluate_screen`` up to ``use_fused``/``fused_kwargs``, and the two
+    datasets."""
+    rng = np.random.default_rng(7)
+    grid = (rng.standard_normal((8, 8, 8, 8)) * 0.3).astype(np.float32)
+    jnet = JSRN.make(layers="32:32:32", activation="SnakeAlt:2",
+                     num_fourier=6, output_mode="density:direct",
+                     latent=JLatent(static_grid=grid), seed=7)
+    rs, rd = jgenerate_rays(JCam.make(pitch=0.3, yaw=0.8, distance=1.6), 16,
+                            16)
+    rs = np.asarray(rs).reshape(1, -1, 3)
+    rd = np.asarray(rd).reshape(1, -1, 3)
+    tgt = np.zeros((1, 256, 4), np.float32)
+    tf = dict(rgb=[[0.9, 0.1, 0.1], [0.1, 0.9, 0.1], [0.1, 0.1, 0.9]],
+              opacity=[2.0, 10.0, 30.0], positions=[0.0, 0.45, 1.0])
+    h = 1 / 32
+    steps = max_steps_bound((1.0, 1.0, 1.0), h)
+    jargs = (jnet, jnp.asarray(rs), jnp.asarray(rd), jnp.asarray(tgt),
+             JTF.make(**tf), JCfg.make(stepsize=h),
+             jlosses.LossNetScreen(l1=1.0), steps, 16, 16)
+    net = srn_from_arrays(*network_arrays(jnet))
+    args = (net, torch.tensor(rs), torch.tensor(rd), torch.tensor(tgt),
+            TransferFunctionPiecewiseLinear.make(**tf),
+            RayEvaluationSteppingDvr.make(stepsize=h),
+            losses.LossNetScreen(l1=1.0), steps, 16, 16)
+    return (jargs, args, JScreenDataset(*jargs[1:4], 16, 16),
+            ScreenDataset(*args[1:4], 16, 16))
+
+
+def f4_loss_and_grads(jargs, args, jfk, fk):
+    """(JAX loss, grads), (port loss, grads) of one ``evaluate_screen``."""
+    def jloss(net):
+        return jevaluate_screen(net, *jargs[1:], use_fused=True,
+                                fused_kwargs=jfk)[0]
+
+    jl, jg = jax.value_and_grad(jloss)(jargs[0])
+    net = args[0]
+    net.zero_grad(set_to_none=True)
+    total, _ = evaluate_screen(*args, use_fused=True, fused_kwargs=fk)
+    total.backward()
+    return ((float(jl), network_arrays(jg)[0]),
+            (float(total.detach()),
+             {n: p.grad.numpy() for n, p in net.named_parameters()}))
+
+
+@pytest.mark.parametrize("engine", ["scan", "mega"])
+def test_evaluate_screen_engine_matches_jax(engine):
+    """Fault F4: ``evaluate_screen(use_fused=True)`` takes the JAX
+    package's engine: the per-segment scan by default (no early-out),
+    the megakernel only with ``engine="mega"``
+    (``screen_mega_kwargs``); loss rtol 1e-5, gradients atol 2e-5 / rtol
+    1e-3. The parent sent the default call to the megakernel with its
+    tile vote, 4.0e-3 off the JAX loss here."""
+    jargs, args, jds, ds = f4_case()
+    if engine == "scan":
+        jfk, fk = dict(interpret=True), None
+    else:
+        h, steps = float(np.asarray(jargs[5].stepsize)), jargs[7]
+        jfk = dict(jmega_kwargs(jds, jargs[0], stepsize=h, max_steps=steps,
+                                interpret=True), enable_early_out=False)
+        fk = dict(screen_mega_kwargs(ds), enable_early_out=False)
+    (jl, jg), (loss, grads) = f4_loss_and_grads(jargs, args, jfk, fk)
+    np.testing.assert_allclose(loss, jl, rtol=1e-5)
+    assert sorted(grads) == sorted(jg)
+    for name in jg:
+        assert np.abs(jg[name]).max() > 0, name
+        np.testing.assert_allclose(grads[name], jg[name], atol=2e-5,
+                                   rtol=1e-3, err_msg=name)
+    if engine == "scan":
+        # the parent's route for the default call: the megakernel, rays
+        # in row-major order, the tile vote on
+        with torch.no_grad():
+            parent, _ = evaluate_screen(*args, use_fused=True,
+                                        fused_kwargs=dict(engine="mega"))
+        assert abs(float(parent) - jl) > 1e-3

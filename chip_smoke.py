@@ -29,7 +29,17 @@ main paths on the card:
   and each kernel, the kernels against the plain pair at full frame (F);
   then the plain pair on the flagship at 256x256, a color-output network
   with a 24-channel grid and direction input, lattice sampling, and
-  autograd through the plain per-ray march on 16384 rays (G).
+  autograd through the plain per-ray march on 16384 rays (G);
+- phases H-I, Monte-Carlo path tracing through the fused sample evaluator
+  (``csrc/sample_eval.cu``): the kernel alone on 2^20 seeded positions of
+  the dense flagship, value and position gradient against its plain
+  version, a bf16 table against the float32 one, timed (H); then
+  ``trace_mc(use_fused=True)`` on the flagship at 512x512 (HG g=0.3, 2
+  bounces, 256 iterations) against ``trace_mc`` on the plain
+  ``eval_density`` with the same key, timed with and without live-ray
+  compaction and with the host's live-ray check every 1, 4, 8 and 16 rounds,
+  one frame with the kernel's launches timed, and the frame's first
+  launch (512x512 positions) alone against its plain version, timed (I).
 
 Prints one JSON line with every kernel and a last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -39,6 +49,7 @@ import copy
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -69,6 +80,11 @@ ISO_VALUE = 0.5                      # phase E
 # isovalue)
 ISO_FLIP_SHARE = 1e-4
 ISO_BF16_SHARE = 0.05
+SAMPLE_POSITIONS = 1 << 20           # phase H
+MC_MATCH_SHARE = 0.98                # phase I: rays of the fused frame within
+MC_TOL = 1e-3                        # MC_TOL of the plain one (a knife-edge
+                                     # collision may flip on float32 noise)
+MC_REPS = 5                          # phase I: frames per schedule
 TRAIN_ARGS = ["IMPLICIT:MARSCHNER_LOBB", "--mode", "screen",
               "--layers", "32:32:32", "--activation", "SnakeAlt:2",
               "--fouriercount", "14", "--outputmode", "density:direct",
@@ -108,14 +124,15 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def sample_flops(net):
+def sample_flops(net, composite=True):
     """Floating-point operations of one evaluated sample, from the weight
     shapes: Fourier projection, the MLP's multiply-adds, the trilerp of
-    16 channels over 8 corners with its weights, TF and compositing."""
+    16 channels over 8 corners with its weights, and with ``composite``
+    TF and compositing (the sample evaluator does neither)."""
     f = net.input.num_fourier
     mlp = sum(l.weight.numel() for l in net.layers)
     trilerp = 8 * 16 * 2 + 8 * 3
-    return 2 * (3 * f + mlp) + trilerp + 24
+    return 2 * (3 * f + mlp) + trilerp + (24 if composite else 0)
 
 
 def adjoint_flops(net):
@@ -851,6 +868,252 @@ def scan_training(smi, reset_counts, counts, npz, tf, cam):
     return rows
 
 
+def monte_carlo(smi, reset_counts, counts, npz, tf, cam):
+    """Phases H-I: the sample evaluator alone, then Monte-Carlo path
+    tracing through it. Returns the kernel's JSON row."""
+    from fvsrn_tpu_torch.camera import generate_rays
+    from fvsrn_tpu_torch.inference import LoadedModel
+    from fvsrn_tpu_torch.models.network_volume import \
+        VolumeInterpolationNetwork
+    from fvsrn_tpu_torch.ops import fused_dvr, fused_eval
+    from fvsrn_tpu_torch.phase import PhaseFunctionHenyeyGreenstein
+    from fvsrn_tpu_torch.raytracer import montecarlo
+    from fvsrn_tpu_torch.raytracer.montecarlo import (RayEvaluationMonteCarlo,
+                                                      trace_mc)
+    from fvsrn_tpu_torch.utils.prng import prng_key
+
+    dev = torch.device("cuda")
+    model = LoadedModel.from_checkpoint(npz, tf=tf)
+    net = model.network.to(dev)
+    box = (model.box_min, model.box_size)
+    vol = VolumeInterpolationNetwork(net, *box)
+    n = SAMPLE_POSITIONS
+
+    # H. the kernel alone: positions over the box with 20% spill, unit
+    # directions (the flagship reads none)
+    gen = torch.Generator(dev).manual_seed(0)
+    pos = torch.rand(n, 3, device=dev, generator=gen) * 1.4 - 0.7
+    d = torch.randn(n, 3, device=dev, generator=gen)
+    d = d / d.norm(dim=1, keepdim=True)
+    pos01 = ((pos - vol.box_min) / vol.box_size).contiguous()
+    value_k, inside_k = fused_eval.make_fused_eval(net, *box)(pos, d)
+    with torch.no_grad():
+        _, inside_p = vol.eval_density(pos, d)
+    value_p, _ = fused_eval.fused_eval_plain(net, pos01)
+    err = max_err(value_k, value_p)
+    check(err <= KERNEL_TOL, f"phase H: value kernel vs plain {err}")
+    check(bool(torch.equal(inside_k, inside_p)), "phase H: inside masks")
+    # the gradient on interior positions where both versions took the
+    # same clip gate: a density within float32 noise of a clip edge may
+    # clip in one and not the other (counted, bounded by ISO_FLIP_SHARE)
+    def clipped(v):
+        return (v <= 0.0) | (v >= 1.0)
+    inner = (pos.abs() < 0.45).all(dim=1)
+    flips = inner & (clipped(value_k) != clipped(value_p))
+    n_flips = int(flips.sum())
+    check(n_flips <= ISO_FLIP_SHARE * int(inner.sum()),
+          f"phase H: {n_flips} clip gates differ")
+    inner = inner & ~flips
+    _, _, grad_k = fused_eval.make_fused_eval(net, *box, want_grad=True)(
+        pos, d)
+    _, grad_p = fused_eval.fused_eval_plain(net, pos01, want_grad=True)
+    grad_rel = rel_err(grad_k[inner], grad_p[inner] / vol.box_size)
+    check(grad_rel <= GRAD_TOL, f"phase H: gradient kernel vs autograd "
+          f"{grad_rel}")
+    value_bf, _ = fused_eval.make_fused_eval(
+        net, *box, table_dtype=torch.bfloat16)(pos, d)
+    bf_err = max_err(value_bf, value_p)
+    check(bf_err < ORACLE_TOL, f"phase H: bf16 table vs f32 plain {bf_err}")
+    no_tf = torch.tensor(fused_eval._NO_TF, device=dev)
+    weights = fused_dvr.pack_segment_weights(net, no_tf)
+    tables = {dt: fused_dvr.segment_table(net, dt, dev)
+              for dt in (torch.float32, torch.bfloat16)}
+
+    def launch(dt=torch.float32, want_grad=False):
+        return fused_eval.launch_sample_eval(net, pos01, None, weights,
+                                             tables[dt], want_grad)
+
+    def bounds(n_pos):
+        """The float32-table evaluator's bound on ``n_pos`` positions: its
+        operations (no TF, no compositing) at the bf16 tensor-core and the
+        float32 peak, 16 bytes a position plus the table and weights.
+        Returns (bf16 TC ms, f32 ms, bound_by)."""
+        flops = n_pos * sample_flops(net, composite=False)
+        nbytes = (n_pos * 16 + tables[torch.float32].numel() * 4
+                  + weights.numel() * 4)
+        by = ("operations" if flops / PEAK_BF16_TC > nbytes / PEAK_BYTES
+              else "bytes")
+        return (max(flops / PEAK_BF16_TC, nbytes / PEAK_BYTES) * 1e3,
+                max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3, by)
+
+    k_ms = cuda_ms(launch, 10)
+    kg_ms = cuda_ms(lambda: launch(want_grad=True), 10)
+    kbf_ms = cuda_ms(lambda: launch(torch.bfloat16), 10)
+    plain_ms = cuda_ms(lambda: fused_eval.fused_eval_plain(net, pos01), 3)
+    b_tc, b_32, bound_by = bounds(n)
+    print(f"phase H sample_eval [{smi}]: flagship, {n} positions, value "
+          f"kernel vs plain max|d| {err:.3e} (tol {KERNEL_TOL}), inside "
+          f"masks equal, gradient vs autograd rel norm err {grad_rel:.3e} "
+          f"on {int(inner.sum())} interior positions (tol {GRAD_TOL}; "
+          f"{n_flips} left out whose clip gate differs), bf16 "
+          f"table vs f32 plain {bf_err:.3e} (tol {ORACLE_TOL}); kernel "
+          f"{k_ms:.4f} ms/launch ({k_ms * 1e6 / n:.4f} ns/position), "
+          f"gradient instance {kg_ms:.4f} ms, bf16 table {kbf_ms:.4f} ms; "
+          f"plain {plain_ms:.3f} ms; {n * sample_flops(net, False) / 1e9:.3f}"
+          f" GFLOP; bound {b_tc:.5f} ms (bf16 tensor cores, share "
+          f"{b_tc / k_ms:.5f}) / {b_32:.5f} ms (f32, share "
+          f"{b_32 / k_ms:.4f}), bound by {bound_by}", flush=True)
+
+    # I. the slice's main path: trace_mc through the fused sampler at the
+    # smoke camera, tools/bench_mc.py's configuration
+    phase = PhaseFunctionHenyeyGreenstein.make(g=0.3)
+    config = RayEvaluationMonteCarlo.make(max_absorption=30.0,
+                                          num_bounces=2, max_iterations=256)
+    rs, rd = generate_rays(cam, WIDTH, HEIGHT, device=dev)
+    rs, rd = rs.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()
+    tf_dev = tf.to(dev)
+    key = prng_key(7)
+
+    def frame(use_fused=True, compact=False):
+        return trace_mc(key, rs, rd, vol, tf_dev, phase, config,
+                        use_fused=use_fused, compact=compact)
+
+    reset_counts()
+    out_f, first_ms = cuda_once(frame)
+    c_i = counts()
+    check(c_i["sample_eval"] > 0, f"phase I: launches {c_i}")
+    out_p, plain_frame_ms = cuda_once(lambda: frame(use_fused=False))
+    check(counts()["sample_eval"] == c_i["sample_eval"],
+          "phase I: the plain frame launched the kernel")
+    a, b = out_f.color, out_p.color
+    check(bool(torch.isfinite(a).all()) and tuple(a.shape) == (
+        WIDTH * HEIGHT, 4), "phase I: the fused frame")
+    close = ((a - b).abs() < MC_TOL).all(dim=-1)
+    share = float(close.float().mean())
+    alpha = float(a[:, 3].mean())
+    print(f"phase I trace_mc fused vs plain [{smi}]: flagship "
+          f"{WIDTH}x{HEIGHT}, HG g=0.3, 2 bounces, max_iterations 256, "
+          f"launches {c_i}, tracking rounds {c_i['tracking_rounds']}, "
+          f"positions {c_i['sample_eval_positions']}; rays within {MC_TOL}: "
+          f"{share:.5f} (limit {MC_MATCH_SHARE}), max|d| over all "
+          f"{max_err(a, b):.3e}; alpha mean {alpha:.4f}, emission mean "
+          f"{float(a[:, :3].mean()):.4f}; first fused frame {first_ms:.1f} "
+          f"ms, plain frame {plain_frame_ms:.1f} ms", flush=True)
+    check(share >= MC_MATCH_SHARE, f"phase I: only {share} of the rays "
+          f"within {MC_TOL}")
+    check(0.05 < alpha < 0.95 and float(a[:, :3].max()) > 0,
+          f"phase I: alpha mean {alpha}")
+
+    # the frame under each schedule, interleaved: a host-bound frame's
+    # time drifts by tens of percent within one call, so each repetition
+    # runs every schedule once, in a rotated order, and the median is
+    # kept. Schedules: compaction off and on; the host read of "any ray
+    # walks" every 1, 4, 8 and 16 rounds (a read waits for the device; a
+    # round past a walk's end costs a round of launches)
+    live_every = montecarlo.LIVE_CHECK_EVERY
+    schedules = [(False, e) for e in (1, 4, 8, 16)] + [(True, live_every)]
+    frames = {s_: [] for s_ in schedules}
+    per = {}
+    try:
+        frame()
+        for rep in range(MC_REPS):
+            for i in range(len(schedules)):
+                s_ = schedules[(i + rep) % len(schedules)]
+                montecarlo.LIVE_CHECK_EVERY = s_[1]
+                reset_counts()
+                frames[s_].append(cuda_once(lambda: frame(compact=s_[0]))[1])
+                c = counts()
+                per[s_] = {k: c[k] for k in ("tracking_rounds",
+                                             "sample_eval_positions",
+                                             "sample_eval")}
+    finally:
+        montecarlo.LIVE_CHECK_EVERY = live_every
+    med = {s_: statistics.median(v) for s_, v in frames.items()}
+    for s_ in schedules:
+        print(f"phase I timing [{smi}], compact={s_[0]}, live-ray read "
+              f"every {s_[1]} rounds: {med[s_]:.1f} ms/frame (median of "
+              f"{MC_REPS}, interleaved; min {min(frames[s_]):.1f}, max "
+              f"{max(frames[s_]):.1f}), {WIDTH * HEIGHT / med[s_] / 1e3:.4f} "
+              f"Mrays/s; per frame {per[s_]['tracking_rounds']} tracking "
+              f"rounds, {per[s_]['sample_eval_positions']} positions, "
+              f"{per[s_]['sample_eval']} sample_eval launches; frames "
+              f"{' '.join(f'{t:.1f}' for t in frames[s_])}", flush=True)
+    default, compacted = (False, live_every), (True, live_every)
+
+    # one frame with CUDA events around every launch of the kernel (an
+    # event pair also spans the host's launch latency while the device
+    # waits on the host); the first launch's inputs are kept to time the
+    # path's launch alone
+    events, first = [], []
+    untimed = fused_eval.launch_sample_eval
+
+    def timed(*args):
+        if not first:
+            first.extend(a.clone() if torch.is_tensor(a) else a
+                         for a in args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = untimed(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    fused_eval.launch_sample_eval = timed
+    try:
+        _, inst_ms = cuda_once(frame)
+    finally:
+        fused_eval.launch_sample_eval = untimed
+    kern_ms = sum(s_.elapsed_time(e_) for s_, e_ in events)
+    print(f"phase I instrumented frame [{smi}], compact=False: frame "
+          f"{inst_ms:.1f} ms, {len(events)} sample_eval launches "
+          f"{kern_ms:.2f} ms by events, the share {kern_ms / inst_ms:.4f}",
+          flush=True)
+
+    # the path's launch alone: the frame's first launch, its own positions
+    pos_path, g_path = first[1], first[5]
+    n_path = pos_path.shape[0]
+    check(n_path == WIDTH * HEIGHT and not g_path,
+          f"phase I: first launch {n_path} positions")
+    err_path = max_err(untimed(*first),
+                       fused_eval.fused_eval_plain(net, pos_path)[0])
+    check(err_path <= KERNEL_TOL, f"phase I: path launch kernel vs plain "
+          f"{err_path}")
+    path_ms = cuda_ms(lambda: untimed(*first), 20)
+    path_plain_ms = cuda_ms(
+        lambda: fused_eval.fused_eval_plain(net, pos_path), 5)
+    p_tc, p_32, p_by = bounds(n_path)
+    print(f"phase I path launch alone [{smi}]: {n_path} positions, kernel "
+          f"vs plain max|d| {err_path:.3e}; kernel {path_ms:.4f} ms "
+          f"({path_ms * 1e6 / n_path:.4f} ns/position; x "
+          f"{len(events)} launches = {path_ms * len(events):.1f} ms, share "
+          f"of the frame {path_ms * len(events) / inst_ms:.4f}), plain "
+          f"{path_plain_ms:.3f} ms; bound {p_tc:.5f} ms (bf16 tensor cores, "
+          f"share {p_tc / path_ms:.5f}) / {p_32:.5f} ms (f32, share "
+          f"{p_32 / path_ms:.4f}), bound by {p_by}", flush=True)
+    return {
+        "name": "sample_eval", "route": "cuda",
+        "source": "fvsrn_tpu_torch/csrc/sample_eval.cu",
+        "replaces": "fvsrn_tpu/ops/fused_eval.py:42",
+        "launches": c_i["sample_eval"], "max_abs_err": max(err, err_path),
+        "ms": path_ms, "plain_ms": path_plain_ms, "bound_ms": p_tc,
+        "bound_by": p_by, "library_ms": None, "bound_f32_ms": p_32,
+        "positions": n_path, "big_positions": n, "big_ms": k_ms,
+        "big_plain_ms": plain_ms, "big_bound_ms": b_tc,
+        "big_bound_f32_ms": b_32, "big_grad_ms": kg_ms,
+        "big_bf16_ms": kbf_ms, "grad_rel_err": grad_rel,
+        "gate_flips": n_flips, "bf16_max_abs_err": bf_err,
+        "frame_ms": med[default], "frame_ms_compact": med[compacted],
+        "plain_frame_ms": plain_frame_ms,
+        "per_frame": per[default], "per_frame_compact": per[compacted],
+        "frame_kernel_ms_events": kern_ms,
+        "frame_kernel_ms_alone": path_ms * len(events),
+        "live_check_ms": {str(e): med[(False, e)] for e in (1, 4, 8, 16)},
+        "frames_ms": {f"compact={c},every={e}": v
+                      for (c, e), v in frames.items()},
+        "rays_within_tol": share}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -862,7 +1125,8 @@ def main():
     from fvsrn_tpu_torch.models.network_volume import \
         VolumeInterpolationNetwork
     from fvsrn_tpu_torch.ops import (_build, fused_dvr, fused_dvr_bwd,
-                                     fused_mega)
+                                     fused_eval, fused_mega)
+    from fvsrn_tpu_torch.raytracer import montecarlo
     from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
                                                max_steps_bound, trace_dvr)
     from fvsrn_tpu_torch.scenes import dense_scene
@@ -892,6 +1156,9 @@ def main():
         fused_dvr.SEGMENT_LAUNCHES = 0
         fused_dvr_bwd.SEGMENT_DIFF_LAUNCHES = 0
         fused_dvr_bwd.SEGMENT_BWD_LAUNCHES = 0
+        fused_eval.SAMPLE_EVAL_LAUNCHES = 0
+        fused_eval.SAMPLE_EVAL_POSITIONS = 0
+        montecarlo.TRACKING_ROUNDS = 0
 
     def counts():
         return {"mega_fwd": fused_mega.LAUNCHES,
@@ -899,7 +1166,10 @@ def main():
                 "mega_bwd": fused_mega.BWD_LAUNCHES,
                 "segment_fwd": fused_dvr.SEGMENT_LAUNCHES,
                 "segment_fwd_diff": fused_dvr_bwd.SEGMENT_DIFF_LAUNCHES,
-                "segment_bwd": fused_dvr_bwd.SEGMENT_BWD_LAUNCHES}
+                "segment_bwd": fused_dvr_bwd.SEGMENT_BWD_LAUNCHES,
+                "sample_eval": fused_eval.SAMPLE_EVAL_LAUNCHES,
+                "sample_eval_positions": fused_eval.SAMPLE_EVAL_POSITIONS,
+                "tracking_rounds": montecarlo.TRACKING_ROUNDS}
 
     # 3. the first main path: product render of the dense flagship
     _, tf, npz = dense_scene()
@@ -985,10 +1255,11 @@ def main():
     train_rows = training(smi, reset_counts, counts, npz, tf, cam)
     segment_row = segment_paths(smi, reset_counts, counts, npz, tf, cam)
     scan_rows = scan_training(smi, reset_counts, counts, npz, tf, cam)
+    mc_row = monte_carlo(smi, reset_counts, counts, npz, tf, cam)
 
     # 11. kernels
     print(json.dumps({"kernels": [render_row] + train_rows
-                      + [segment_row] + scan_rows}))
+                      + [segment_row] + scan_rows + [mc_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

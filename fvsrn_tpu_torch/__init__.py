@@ -11,11 +11,13 @@ from .inference import LoadedModel
 from .models.network_volume import VolumeInterpolationNetwork
 from .models.srn import SceneRepresentationNetwork
 from .raytracer.dvr import RayEvaluationSteppingDvr, max_steps_bound, trace_dvr
+from .raytracer.montecarlo import RayEvaluationMonteCarlo, trace_mc
 from .transfer import TransferFunctionPiecewiseLinear
 
 __all__ = [
     "CameraOnASphere", "camera_matrix", "generate_rays", "LoadedModel",
     "VolumeInterpolationNetwork", "SceneRepresentationNetwork",
     "RayEvaluationSteppingDvr", "max_steps_bound", "trace_dvr",
+    "RayEvaluationMonteCarlo", "trace_mc",
     "TransferFunctionPiecewiseLinear",
 ]

@@ -137,22 +137,6 @@ __device__ __forceinline__ void reduce_rows(const float* stage, int row0,
     g[e] += row_sum(stage + (row0 + e) * kStrideB);
 }
 
-// w[0:H] (16-byte aligned, shared memory) . v[0:H]
-template <int H>
-__device__ __forceinline__ float dot_row(const float* w, const float* v) {
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-  float acc = 0.0f;
-#pragma unroll
-  for (int q = 0; q < H / 4; ++q) {
-    const float4 x = w4[q];
-    acc = fmaf(x.x, v[4 * q], acc);
-    acc = fmaf(x.y, v[4 * q + 1], acc);
-    acc = fmaf(x.z, v[4 * q + 2], acc);
-    acc = fmaf(x.w, v[4 * q + 3], acc);
-  }
-  return acc;
-}
-
 // Shared memory: the packed weights, the staging rows (stage_rows x
 // kStrideB), the activation scratch (H rows of kBlockB).
 template <int H>

@@ -1,8 +1,9 @@
 // Device code shared by the per-segment engine's forward (segment_fwd.cu)
-// and backward (segment_bwd.cu): the call's parameters, the packed-weight
-// layout, the SRN on one sample and the sampling of a ray. Both kernels
-// evaluate a sample with the same functions, so the backward's replay
-// reproduces the forward's values and gates.
+// and backward (segment_bwd.cu) and the sample evaluator (sample_eval.cu):
+// the call's parameters, the packed-weight layout, the SRN on one sample
+// and the sampling of a ray. The kernels evaluate a sample with the same
+// functions, so the backward's replay reproduces the forward's values and
+// gates, and the evaluator computes the march's network.
 #pragma once
 
 #include "march_common.cuh"
@@ -83,6 +84,22 @@ __device__ __forceinline__ void axpy(float* acc, const float* w, float x) {
     acc[4 * q + 2] = fmaf(v.z, x, acc[4 * q + 2]);
     acc[4 * q + 3] = fmaf(v.w, x, acc[4 * q + 3]);
   }
+}
+
+// w[0:H] (16-byte aligned, shared memory) . v[0:H]
+template <int H>
+__device__ __forceinline__ float dot_row(const float* w, const float* v) {
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  float acc = 0.0f;
+#pragma unroll
+  for (int q = 0; q < H / 4; ++q) {
+    const float4 x = w4[q];
+    acc = fmaf(x.x, v[4 * q], acc);
+    acc = fmaf(x.y, v[4 * q + 1], acc);
+    acc = fmaf(x.z, v[4 * q + 2], acc);
+    acc = fmaf(x.w, v[4 * q + 3], acc);
+  }
+  return acc;
 }
 
 // What the backward keeps of one sample's network evaluation: the first

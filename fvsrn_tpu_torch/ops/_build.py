@@ -24,7 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # every source of the port (csrc/<name>.cu)
-SOURCES = ("mega_fwd", "mega_bwd", "segment_fwd", "segment_bwd")
+SOURCES = ("mega_fwd", "mega_bwd", "segment_fwd", "segment_bwd",
+           "sample_eval")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

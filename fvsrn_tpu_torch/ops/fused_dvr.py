@@ -436,15 +436,17 @@ def _head(mode: str, y: Tensor) -> Tensor:
     raise ValueError(f"unknown output mode {mode}")
 
 
-def _network_values(spec: SegmentSpec, params: list, x01: Tensor,
-                    dirs: Tensor) -> Tensor:
-    """The engine's network on samples (N, 3): layer 0's activation on
-    every hidden layer and a linear output row, as the TPU engine
-    evaluates it, then the output head. (N, 1) or (N, 4)."""
+def _network_values(params: list, x01: Tensor, dirs: Tensor, *,
+                    direction: bool, activation: tuple,
+                    output_mode: str) -> Tensor:
+    """The engine's network on samples (N, 3) (``params`` as
+    :func:`segment_params` gives them): layer 0's ``activation`` (name,
+    param) on every hidden layer and a linear output row, as the TPU
+    kernels evaluate it, then the output head. (N, 1) or (N, 4)."""
     fourier, grid = params[1], params[2]
     layers = params[3:]
     feats = [x01]
-    if spec.direction:
+    if direction:
         feats.append(dirs)
     if fourier.shape[0]:
         xin = x01 if fourier.shape[1] == 3 else torch.cat([x01, dirs], 1)
@@ -453,12 +455,12 @@ def _network_values(spec: SegmentSpec, params: list, x01: Tensor,
     if grid is not None:
         feats.append(grid_sample_3d(grid, x01))
     y = torch.cat(feats, dim=1)
-    name, p = spec.activation
+    name, p = activation
     for i in range(len(layers) // 2 - 1):
         y = y @ layers[2 * i].T + layers[2 * i + 1]
         y = _gated_relu(y) if name == "ReLU" else apply_activation(name, y, p)
     y = y @ layers[-2].T + layers[-1]
-    return _head(spec.output_mode, y)
+    return _head(output_mode, y)
 
 
 def _piecewise(tf: Tensor, d: Tensor) -> Tensor:
@@ -505,7 +507,9 @@ def _plain_segment(spec, params, rays, kbase, s, carry):
     bsize = torch.tensor(spec.box_size, dtype=torch.float32, device=dev)
     x01 = ((rs + t[..., None] * rd - bmin) / bsize).reshape(-1, 3)
     dirs = rd.expand(-1, spec.seg, -1).reshape(-1, 3)
-    vals = _network_values(spec, params, x01, dirs).reshape(
+    vals = _network_values(params, x01, dirs, direction=spec.direction,
+                           activation=spec.activation,
+                           output_mode=spec.output_mode).reshape(
         rays.shape[0], spec.seg, -1)
     if spec.iso_value is not None:
         carry = carry.clone()

@@ -33,6 +33,7 @@ from ..utils.vecmath import intersect_aabb
 class RayEvaluationOutput(NamedTuple):
     color: Tensor   # (..., 4) rgba
     depth: Tensor   # (..., 1) alpha-weighted depth
+    normal: Optional[Tensor] = None   # (..., 3), where the evaluator has one
 
 
 @dataclass(frozen=True)

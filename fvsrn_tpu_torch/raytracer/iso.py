@@ -18,7 +18,7 @@ import torch
 from torch import Tensor
 
 from ..utils.device import strict_f32
-from ..utils.vecmath import intersect_aabb
+from ..utils.vecmath import intersect_aabb, safe_normalize
 from .dvr import RayEvaluationOutput
 
 SURFACE_FEATURE_OFF = "off"
@@ -48,13 +48,6 @@ class RayEvaluationSteppingIso:
         return cls(stepsize=_f32(stepsize), isovalue=_f32(isovalue),
                    binary_search_steps=int(binary_search_steps),
                    surface_feature=surface_feature)
-
-
-def safe_normalize(v: Tensor) -> Tensor:
-    """v / |v|, or 0 where |v|^2 <= 1e-12."""
-    n2 = torch.sum(v * v, dim=-1, keepdim=True)
-    n = torch.sqrt(torch.clamp(n2, min=1e-20))
-    return torch.where(n2 > 1e-12, v / n, torch.zeros_like(v))
 
 
 def _shade(volume: Any, position: Tensor, ray_dir: Tensor, found: Tensor):

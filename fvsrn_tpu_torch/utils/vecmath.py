@@ -8,10 +8,29 @@ import torch
 from torch import Tensor
 
 
+def dot(a: Tensor, b: Tensor, keepdim: bool = True) -> Tensor:
+    """Sum of a * b over the last axis."""
+    return torch.sum(a * b, dim=-1, keepdim=keepdim)
+
+
+def cross(a: Tensor, b: Tensor) -> Tensor:
+    """Cross product over the last axis (broadcasting)."""
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b, dim=-1)
+
+
 def normalize(v: Tensor) -> Tensor:
     """Normalize along the last axis (no epsilon, like the reference's
     plain ``normalize``)."""
     return v / torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+
+
+def safe_normalize(v: Tensor) -> Tensor:
+    """v / |v|, or 0 where |v|^2 <= 1e-12 (the reference's
+    ``safeNormalize``)."""
+    n2 = torch.sum(v * v, dim=-1, keepdim=True)
+    n = torch.sqrt(torch.clamp(n2, min=1e-20))
+    return torch.where(n2 > 1e-12, v / n, torch.zeros_like(v))
 
 
 def intersect_aabb(ray_start: Tensor, ray_dir: Tensor, box_min: Tensor,

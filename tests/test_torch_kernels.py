@@ -5,7 +5,9 @@ leaf, also with no latent grid and with a TF whose first knot absorbs),
 the per-segment engine (csrc/segment_fwd.cu: every network and option it
 takes, image, samples and the call's stop) and its differentiable pair
 (csrc/segment_fwd.cu storing carries, csrc/segment_bwd.cu: image and
-every gradient leaf over the same networks and options). This file
+every gradient leaf over the same networks and options) and the sample
+evaluator (csrc/sample_eval.cu: density and its position gradient at
+scattered positions). This file
 imports no JAX, so it runs where the GPU is:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
@@ -23,7 +25,8 @@ import torch
 from fvsrn_tpu_torch.camera import CameraOnASphere, generate_rays
 from fvsrn_tpu_torch.convert import srn_from_arrays
 from fvsrn_tpu_torch.inference import pad_rays
-from fvsrn_tpu_torch.ops import fused_dvr, fused_dvr_bwd, fused_mega
+from fvsrn_tpu_torch.ops import (fused_dvr, fused_dvr_bwd, fused_eval,
+                                 fused_mega)
 from fvsrn_tpu_torch.ops.fused_dvr import block_ray_permutation
 from fvsrn_tpu_torch.scenes import dense_scene
 from fvsrn_tpu_torch.train.checkpoints import load_weights
@@ -362,3 +365,51 @@ def test_segment_grad_kernel_rejects_what_it_does_not_take():
     fused_dvr._check_kernel_inputs(random_net(), tf, seg=64)
     fused_dvr._check_kernel_inputs(random_net(), tf, seg=32,
                                    differentiable=True)
+
+
+SAMPLE_CASES = {
+    "flagship_f32_table": dict(net="flagship"),
+    "flagship_bf16_table": dict(net="flagship", table_dtype=torch.bfloat16),
+    "nogrid_width64": dict(net=dict(channels=0, width=64)),
+    "grid16_width48_sine": dict(net=dict(channels=16, width=48,
+                                         activation="Sine")),
+    "width20_relu": dict(net=dict(width=20, activation="ReLU")),
+    "snake_density_head": dict(net=dict(activation="Snake",
+                                        output_mode="density")),
+    "direction": dict(net=dict(direction=True)),
+}
+
+
+@pytest.mark.parametrize("want_grad", [False, True])
+@pytest.mark.parametrize("case", sorted(SAMPLE_CASES))
+def test_sample_eval_kernel_matches_plain(case, want_grad):
+    """Row 7: the sample evaluator against its plain version on 5000
+    positions (not a multiple of the block) with 20% spill past the box
+    and unit directions: values <= 1e-4, the inside mask equal, and the
+    position gradient within a relative norm error of 1e-3 on interior
+    positions. One launch a call, none by the plain version."""
+    needs_card()
+    spec = SAMPLE_CASES[case]
+    _, _, npz = dense_scene()
+    net = (load_weights(npz) if spec["net"] == "flagship"
+           else random_net(**spec["net"])).cuda()
+    table_dtype = spec.get("table_dtype", torch.float32)
+    gen = torch.Generator("cuda").manual_seed(0)
+    pos = torch.rand(5000, 3, device="cuda", generator=gen) * 1.4 - 0.7
+    d = torch.randn(5000, 3, device="cuda", generator=gen)
+    d = d / d.norm(dim=1, keepdim=True)
+    ev = fused_eval.make_fused_eval(net, *BOX, table_dtype=table_dtype,
+                                    want_grad=want_grad)
+    before = fused_eval.SAMPLE_EVAL_LAUNCHES
+    got = ev(pos, d)
+    torch.cuda.synchronize()
+    assert fused_eval.SAMPLE_EVAL_LAUNCHES == before + 1
+    value, grad = fused_eval.fused_eval_plain(
+        net, pos + 0.5, d if net.use_direction else None,
+        want_grad=want_grad, table_dtype=table_dtype)
+    assert fused_eval.SAMPLE_EVAL_LAUNCHES == before + 1
+    assert torch.equal(got[1], ((pos >= -0.5) & (pos <= 0.5)).all(dim=1))
+    torch.testing.assert_close(got[0], value, rtol=0, atol=ATOL)
+    if want_grad:
+        inner = (pos.abs() < 0.45).all(dim=1)
+        assert rel_err(got[2][inner], grad[inner]) <= 1e-3

@@ -39,7 +39,17 @@ main paths on the card:
   ``eval_density`` with the same key, timed with and without live-ray
   compaction and with the host's live-ray check every 1, 4, 8 and 16 rounds,
   one frame with the kernel's launches timed, and the frame's first
-  launch (512x512 positions) alone against its plain version, timed (I).
+  launch (512x512 positions) alone against its plain version, timed (I);
+- phase J, the sparse arm: the sparse flagship (a TF with a zero-opacity
+  band) at 512x512, 1/512 through ``prepare_network_render`` in FUSED
+  mode with occupancy culling (the ``segment_active`` mask in all three
+  megakernel launches) and one masked training step: the culled share,
+  culled vs unculled, kernel vs plain, the lattice oracle with
+  bench.py's sparse gates, the step's network gradients, timings;
+- phase K, TPU kernel rows 8-11 (``csrc/probes.cu``): the port's probe
+  tools at the JAX tools' shapes, each kernel against the tools' NumPy
+  oracles and its plain version, timed beside its bound and the library
+  call.
 
 Prints one JSON line with every kernel and a last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -67,6 +77,11 @@ ORACLE_TOL = 2e-2      # bf16-table render vs the f32 lattice oracle
 # clips' ties 0.5/0.5 read 5.83e-4
 GRAD_TOL = 2e-4
 ORACLE_GRAD_TOL = 5e-3  # vs the f32 lattice oracle (bench.py:68-69)
+# phase J, the sparse arm vs the f32 lattice oracle (bench.py:80-82): the
+# bf16 table's rounding, amplified by the zero-band TF's steep edge
+SPARSE_P99_TOL = 2e-2
+SPARSE_MAX_TOL = 1.5e-1
+SPARSE_GRAD_TOL = 2e-2
 ORACLE_TILES = 64      # 16384 rays, the oracle subset of bench.py:67
 TIMED_CAMERAS = 4
 TIMED_STEPS = 3
@@ -1114,6 +1129,257 @@ def monte_carlo(smi, reset_counts, counts, npz, tf, cam):
         "rays_within_tol": share}
 
 
+def sparse_arm(smi, reset_counts, counts, cam):
+    """Phase J, the sparse arm: the sparse flagship (MULTI_SHELL, a TF
+    with a zero-opacity band) through the FUSED product render with
+    occupancy culling, and one masked training step with network-only
+    gradients. Returns its figures (they ride on the mega_fwd row)."""
+    import numpy as np
+
+    from fvsrn_tpu_torch.inference import ALPHA_SKIP, LoadedModel
+    from fvsrn_tpu_torch.models.network_volume import \
+        VolumeInterpolationNetwork
+    from fvsrn_tpu_torch.ops import fused_mega
+    from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
+                                               max_steps_bound, trace_dvr)
+    from fvsrn_tpu_torch.scenes import sparse_scene
+
+    box = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))
+    steps_max = max_steps_bound(box[1], STEPSIZE)
+    _, tf, npz = sparse_scene()
+    model = LoadedModel.from_checkpoint(
+        npz, tf=tf, config=RayEvaluationSteppingDvr.make(stepsize=STEPSIZE))
+
+    # planning: the occupancy grid (zero-band probe, 128^3, fine=2), then
+    # the camera's plan and mask
+    t0 = time.perf_counter()
+    occ = model._occupancy_grid(STEPSIZE)
+    occ_s = time.perf_counter() - t0
+    check(occ is not None, "phase J: the sparse TF built no occupancy grid")
+    t0 = time.perf_counter()
+    render = model.prepare_network_render(cam, WIDTH, HEIGHT, "FUSED")
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    mask = render.segment_active
+    check(render.route == "mega" and mask is not None,
+          f"phase J: route {render.route}, mask {mask is not None}")
+    unculled = model.prepare_network_render(cam, WIDTH, HEIGHT, "FUSED",
+                                            occupancy_culling=False)
+    net = render.network
+    step_net = copy.deepcopy(net)
+    tf_d = render.tf.tensor
+    opt = torch.optim.SGD(step_net.parameters(), lr=1e-7)
+
+    def masked_step(rs, rd, clip, m):
+        """One fwd+bwd+SGD step of mean(rgba^2) through the masked
+        differentiable march (a copy of the network is trained, the TF
+        is not)."""
+        opt.zero_grad(set_to_none=True)
+        img = fused_mega.mega_trace_dvr(
+            rs, rd, step_net, *box, tf_d, stepsize=STEPSIZE, tmax_clip=clip,
+            differentiable=True, segment_active=m)
+        (img ** 2).mean().backward()
+        opt.step()
+
+    # the main path: the culled frame and one masked step
+    reset_counts()
+    img = render()
+    masked_step(render.ray_start, render.ray_dir, render.tmax_clip, mask)
+    torch.cuda.synchronize()
+    c_j = counts()
+    check(c_j["mega_fwd"] > 0 and c_j["mega_fwd_diff"] > 0
+          and c_j["mega_bwd"] > 0, f"phase J: launches {c_j}")
+    check(tuple(img.shape) == (HEIGHT, WIDTH, 4)
+          and bool(torch.isfinite(img).all()), "phase J: the culled frame")
+    amax = float(img[..., 3].max())
+    check(amax > 0.5, f"phase J: alpha max {amax}")
+
+    # the culled share of (tile, segment) programs, of all and of those
+    # with a live lattice point
+    spec = fused_mega._spec(render.network, *box, stepsize=STEPSIZE, seg=32,
+                            tile=256, density_min=0.0, density_max=1.0,
+                            enable_early_out=True)
+    rays = fused_mega.ray_packet(render.ray_start, render.ray_dir, *box,
+                                 STEPSIZE, render.tmax_clip)
+    _, k0r, tmx, k0t = fused_mega._tile_geometry(rays, 256)
+    live = torch.stack([fused_mega._segment_state(spec, k0r, tmx, k0t, s)[1]
+                        for s in range(mask.shape[1])], dim=1)
+    culled = 1.0 - float(mask.float().mean())
+    culled_live = float((live & ~mask).sum()) / max(1, int(live.sum()))
+    img_u = unculled()
+    d_cull = max_err(img, img_u)
+    bitwise = bool(torch.equal(img, img_u))
+    cull_tol = steps_max * ALPHA_SKIP
+    got, samples = render.march(return_samples=True)
+    _, samples_u = unculled.march(return_samples=True)
+    plain, samples_p = render.march(fused_mega.mega_trace_dvr_plain,
+                                    return_samples=True)
+    err = max_err(got, plain)
+    print(f"phase J sparse arm: MULTI_SHELL flagship {WIDTH}x{HEIGHT} "
+          f"h=1/{round(1 / STEPSIZE)}, occupancy grid {tuple(occ.shape)} "
+          f"({float(occ.mean()):.4f} occupied) in {occ_s:.2f} s, camera "
+          f"plan {plan_s:.2f} s; mask {tuple(mask.shape)}: culled "
+          f"{culled:.4f} of (tile, segment) programs, {culled_live:.4f} of "
+          f"the live ones; samples {int(samples.sum())} culled vs "
+          f"{int(samples_u.sum())} unculled; launches {c_j}", flush=True)
+    print(f"phase J culled vs unculled: max|d| {d_cull:.3e} (tol "
+          f"{cull_tol:.3e}), bitwise equal {bitwise}; kernel vs plain "
+          f"(same mask) max|d| {err:.3e} (tol {KERNEL_TOL}), samples "
+          f"{int(samples.sum())} vs {int(samples_p.sum())}", flush=True)
+    check(d_cull <= cull_tol, f"phase J: culled vs unculled {d_cull}")
+    check(err <= KERNEL_TOL, f"phase J: kernel vs plain {err}")
+
+    # the f32 lattice oracle at the same clip on 64 tiles, spread evenly
+    # over the tiles that take samples (bench.py's sparse gates)
+    hit = torch.nonzero(samples_u > 0).flatten()
+    tiles = hit[torch.linspace(0, hit.numel() - 1, ORACLE_TILES,
+                               device=hit.device).long()]
+    sel = (tiles[:, None] * 256 + torch.arange(256, device=hit.device)
+           ).reshape(-1)
+    o_rs, o_rd = render.ray_start[sel], render.ray_dir[sel]
+    o_clip, o_mask = render.tmax_clip[sel], mask[tiles]
+    vol = VolumeInterpolationNetwork(net, *box)
+    ocfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE,
+                                         enable_early_out=False)
+    with torch.no_grad():
+        oracle = trace_dvr(o_rs, o_rd, vol, render.tf, ocfg, steps_max,
+                           tmax_in=o_clip, lattice=True).color
+    ad = (got[sel] - oracle).abs()
+    o_max = float(ad.max())
+    o_p99 = float(torch.quantile(ad.flatten(), 0.99))
+
+    # the masked step on those tiles: kernel vs plain, and vs autograd
+    # through the oracle, network leaves only
+    def net_grads(fn):
+        net.zero_grad(set_to_none=True)
+        out = fn()
+        (out ** 2).mean().backward()
+        return {n: p.grad.detach().clone() for n, p in net.named_parameters()}
+
+    kw = dict(stepsize=STEPSIZE, tmax_clip=o_clip, differentiable=True,
+              segment_active=o_mask)
+    g_k = net_grads(lambda: fused_mega.mega_trace_dvr(
+        o_rs, o_rd, net, *box, tf_d, **kw))
+    g_p, gp_ms = cuda_once(lambda: net_grads(
+        lambda: fused_mega.mega_trace_dvr_plain(o_rs, o_rd, net, *box, tf_d,
+                                                **kw)))
+    g_o = net_grads(lambda: trace_dvr(
+        o_rs, o_rd, vol, render.tf, ocfg, steps_max, tmax_in=o_clip,
+        lattice=True, checkpoint_chunk=64).color)
+    rel_p = {n: rel_err(g_k[n], g_p[n]) for n in g_p}
+    rel_o = {n: rel_err(g_k[n], g_o[n]) for n in g_o}
+    wp, wo = max(rel_p, key=rel_p.get), max(rel_o, key=rel_o.get)
+    print(f"phase J vs f32 lattice oracle, {sel.numel()} rays: image max|d| "
+          f"{o_max:.3e} (tol {SPARSE_MAX_TOL}), p99 {o_p99:.3e} (tol "
+          f"{SPARSE_P99_TOL}); masked step network grads: kernel vs plain "
+          f"rel err max {rel_p[wp]:.3e} ({wp}, tol {GRAD_TOL}), vs oracle "
+          f"{rel_o[wo]:.3e} ({wo}, tol {SPARSE_GRAD_TOL}); plain fwd+bwd "
+          f"{gp_ms:.1f} ms", flush=True)
+    check(o_max <= SPARSE_MAX_TOL and o_p99 <= SPARSE_P99_TOL,
+          f"phase J: vs oracle max {o_max} p99 {o_p99}")
+    check(all(float(g.norm()) > 0 for g in g_p.values()),
+          "phase J: a zero network gradient")
+    check(rel_p[wp] <= GRAD_TOL, f"phase J: grads kernel vs plain {rel_p}")
+    check(rel_o[wo] <= SPARSE_GRAD_TOL, f"phase J: grads vs oracle {rel_o}")
+
+    # timing: the product frame (time_rendering, culled by default), the
+    # culled and unculled frames and kernels at the bench camera, and the
+    # masked and unmasked training steps
+    mean_ms, std_ms, frames = model.time_rendering(
+        LoadedModel.rotation_cameras(TIMED_CAMERAS), WIDTH, HEIGHT)
+    frame_ms = cuda_ms(render, 10)
+    frame_u_ms = cuda_ms(unculled, 10)
+    kernel_ms = cuda_ms(lambda: render.march(), 10)
+    kernel_u_ms = cuda_ms(lambda: unculled.march(), 10)
+    full = (render.ray_start, render.ray_dir, render.tmax_clip)
+    step_ms = cuda_ms(lambda: masked_step(*full, mask), TIMED_STEPS)
+    step_u_ms = cuda_ms(lambda: masked_step(*full, None), TIMED_STEPS)
+    n_rays = WIDTH * HEIGHT
+    print(f"phase J timing [{smi}]: product render (time_rendering, "
+          f"culled) {mean_ms:.3f} ms/frame (std {std_ms:.3f}, {len(frames)} "
+          f"cameras), {n_rays / mean_ms / 1e3:.3f} Mrays/s; bench camera "
+          f"frame culled {frame_ms:.3f} / unculled {frame_u_ms:.3f} ms, "
+          f"kernel {kernel_ms:.3f} / {kernel_u_ms:.3f} ms; masked step "
+          f"(fwd + mean(rgba^2) + bwd + SGD) {step_ms:.3f} ms, "
+          f"{n_rays / step_ms / 1e3:.3f} Mrays/s, unmasked {step_u_ms:.3f} "
+          f"ms", flush=True)
+    return {"frame_ms": mean_ms, "frame_std_ms": std_ms,
+            "bench_frame_ms": frame_ms, "bench_frame_unculled_ms": frame_u_ms,
+            "kernel_ms": kernel_ms, "kernel_unculled_ms": kernel_u_ms,
+            "step_ms": step_ms, "step_unmasked_ms": step_u_ms,
+            "culled": culled, "culled_live": culled_live,
+            "samples": int(samples.sum()),
+            "samples_unculled": int(samples_u.sum()),
+            "cull_max_abs_diff": d_cull, "cull_bitwise": bitwise,
+            "kernel_vs_plain": err, "oracle_max": o_max, "oracle_p99": o_p99,
+            "grad_rel_plain": rel_p[wp], "grad_rel_oracle": rel_o[wo],
+            "occupancy_s": occ_s, "plan_s": plan_s, "launches": c_j}
+
+
+def probe_rows(smi):
+    """Phase K, TPU kernel rows 8-11: the port's probe tools
+    (``fvsrn_tpu_torch/tools/``) at the JAX tools' shapes, each kernel
+    against the JAX tools' NumPy oracles, then against its plain version,
+    with the library call beside it. Returns the kernels' JSON rows."""
+    from fvsrn_tpu_torch.ops import probes
+    from fvsrn_tpu_torch.tools import probe_lane_gather, proto_mega
+
+    # the main path: the tools' runs, with the counts set to 0 before
+    probes.reset_counts()
+    proto = proto_mega.run("cuda")
+    gathers = probe_lane_gather.run_all("cuda")
+    torch.cuda.synchronize()
+    c_k = probes.counts()
+    check(all(v > 0 for v in c_k.values()), f"phase K: launches {c_k}")
+    check(proto["ok"], f"phase K: proto_mega vs oracle {proto}")
+    for _, res in gathers:
+        check(res["ok"], f"phase K: {res['name']} vs oracle {res}")
+
+    # then each against its plain version and the library call
+    cases = {"proto_mega": [dict(proto, name="proto_mega",
+                                 **proto_mega.run("cuda", compare=True))]}
+    for (kernel, fn), (_, res) in zip(probe_lane_gather.PROBES, gathers):
+        res.update(fn("cuda", compare=True))
+        cases.setdefault(kernel, []).append(res)
+    sources = {"proto_mega": "tools/proto_mega.py:78",
+               "gather_single": "tools/probe_lane_gather.py:46",
+               "gather_chunked": "tools/probe_lane_gather.py:78",
+               "onehot_resolve": "tools/probe_lane_gather.py:103"}
+    rows = []
+    for name, replaces in sources.items():
+        runs = cases[name]
+        for r in runs:
+            r["bound_ms"] = r["bytes"] / PEAK_BYTES * 1e3
+            err = r.get("max_abs_err", r.get("out_rel_err"))
+            per = ("" if name == "proto_mega" else
+                   f" ({r['us'] * 1e3 / probe_lane_gather.N:.4f} ns/sample)")
+            print(f"phase K {r['name']} [{smi}]: {r['us']:.2f} us/launch"
+                  f"{per}, vs oracle {err:.3e}, vs plain "
+                  f"{r['plain_max_abs_err']:.3e}; bound "
+                  f"{r['bound_ms'] * 1e3:.3f} us ({r['bytes'] / 1e6:.3f} MB, "
+                  f"share {r['bound_ms'] * 1e3 / r['us']:.4f}); plain "
+                  f"{r['plain_us']:.1f} us; library "
+                  + (f"{r['library_us']:.2f} us" if "library_us" in r
+                     else "none"), flush=True)
+            check(r["plain_max_abs_err"] <= (1e-5 if name == "proto_mega"
+                                             else 0.0),
+                  f"phase K: {r['name']} kernel vs plain {r}")
+        first = runs[0]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "fvsrn_tpu_torch/csrc/probes.cu", "replaces": replaces,
+            "launches": c_k[name],
+            "max_abs_err": max(r["plain_max_abs_err"] for r in runs),
+            "ms": first["us"] / 1e3, "plain_ms": first["plain_us"] / 1e3,
+            "bound_ms": first["bound_ms"], "bound_by": "bytes",
+            "library_ms": (first["library_us"] / 1e3
+                           if "library_us" in first else None),
+            "cases": {r["name"]: {k: r[k] for k in (
+                "us", "plain_us", "bound_ms", "library_us")
+                if k in r} for r in runs}})
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1256,10 +1522,12 @@ def main():
     segment_row = segment_paths(smi, reset_counts, counts, npz, tf, cam)
     scan_rows = scan_training(smi, reset_counts, counts, npz, tf, cam)
     mc_row = monte_carlo(smi, reset_counts, counts, npz, tf, cam)
+    render_row["sparse"] = sparse_arm(smi, reset_counts, counts, cam)
+    probe = probe_rows(smi)
 
     # 11. kernels
     print(json.dumps({"kernels": [render_row] + train_rows
-                      + [segment_row] + scan_rows + [mc_row]}))
+                      + [segment_row] + scan_rows + [mc_row] + probe}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -11,7 +11,8 @@
 // Segments run in reverse from the tile's last visited one (the forward
 // stored their count and incoming carries); a segment is replayed only
 // where the forward ran it: some ray of the tile has a live point in it
-// and the STORED incoming carry passes the vote (min alpha < early_alpha).
+// and the STORED incoming carry passes the vote (min alpha < early_alpha),
+// and the forward's occupancy mask (if any) keeps it.
 // Skipped segments pass the carry cotangent through unchanged.
 //
 // Per segment and thread:
@@ -132,7 +133,7 @@ __global__ void __launch_bounds__(kTile) mega_bwd_kernel(const March P,
     const float ka = R.k0t + (float)s * segf;
     const float first = fmaxf(R.k0r, ka) * h;
     const bool alive = first <= fminf(R.tmx, (ka + (segf - 1.0f)) * h);
-    const bool active = __syncthreads_or(alive);
+    const bool active = __syncthreads_or(alive) && segment_on(P, s);
     const float4 cin = A.carries[((size_t)blockIdx.x * P.n_seg_max + s)
                                  * kTile + threadIdx.x];
     const bool vote = __syncthreads_or(cin.w < P.early_alpha);
@@ -343,7 +344,8 @@ static int stage_rows(int n_fourier, int tf_points) {
 // rgba cotangent `d_out` (R, 4). Writes `d_weights` (tiles x n_weights
 // partial rows, packed as the weights) and `tile_work` (tiles x 2: samples
 // replayed, samples contributing), and ADDS into `d_table` (zeroed by the
-// caller). seg must be 32. Returns cudaGetLastError() (0 on success).
+// caller). `seg_active` is the forward's mask (or null). seg must be 32.
+// Returns cudaGetLastError() (0 on success).
 extern "C" int mega_bwd_launch(
     const float* rays, const float* table, const float* weights,
     int n_weights, const float* carries, const int* seg_count,
@@ -353,7 +355,7 @@ extern "C" int mega_bwd_launch(
     float stepsize,
     float density_min, float inv_range, float early_alpha, float bmin_x,
     float bmin_y, float bmin_z, float bsize_x, float bsize_y, float bsize_z,
-    void* stream) {
+    const uint8_t* seg_active, int mask_cols, void* stream) {
   if (seg != kSeg || n_fourier > kMaxFourier || n_hidden > kMaxHidden
       || tf_points > kMaxTf || tf_points < 2 || n_lat > kLat)
     return (int)cudaErrorInvalidValue;
@@ -363,6 +365,8 @@ extern "C" int mega_bwd_launch(
   fill_march(P, rays, table, weights, n_weights, gx, gy, gz, n_fourier,
              n_hidden, tf_points, act_param, seg, n_seg_max, stepsize,
              density_min, inv_range, early_alpha, bmin, bsize);
+  P.seg_active = seg_active;
+  P.mask_cols = mask_cols;
   BwdArgs A;
   A.carries = reinterpret_cast<const float4*>(carries);
   A.seg_count = seg_count;

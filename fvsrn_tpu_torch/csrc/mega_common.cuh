@@ -34,6 +34,8 @@ struct March {
   int n_seg_max;            // segments a tile may visit (carry storage)
   float stepsize, density_min, inv_range, early_alpha;
   float bmin[3], bsize[3];
+  const uint8_t* seg_active;  // (tiles, mask_cols) occupancy mask, or null
+  int mask_cols;
 };
 
 // Packed float32 weights, in this order: Fourier matrix B (F, 3); layer 1
@@ -271,6 +273,20 @@ inline void fill_march(March& P, const float* rays, const void* table,
     P.bmin[i] = bmin[i];
     P.bsize[i] = bsize[i];
   }
+  P.seg_active = nullptr;
+  P.mask_cols = 0;
+}
+
+// The caller's per-(tile, segment) occupancy mask (the JAX kernel's
+// `segment_active`), ANDed into a segment's activity by both kernels: a 0
+// culls the segment before any sample of it is evaluated. No mask
+// (kMasked false, or a null mask), or a segment past the mask's last
+// column, culls nothing. Uniform across the block.
+template <bool kMasked = true>
+__device__ __forceinline__ bool segment_on(const March& P, int s) {
+  if (!kMasked) return true;
+  return P.seg_active == nullptr || s >= P.mask_cols
+         || P.seg_active[(size_t)blockIdx.x * P.mask_cols + s] != 0;
 }
 
 }  // namespace mega

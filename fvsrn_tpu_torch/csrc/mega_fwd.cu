@@ -24,6 +24,7 @@
 //    segment runs only when some ray of the tile has a live point in it,
 //    and only while some ray of the tile has alpha < early_alpha (the vote
 //    is taken at the segment's start, on the carry of the previous one);
+//    the caller's occupancy mask, when given, culls a segment besides;
 //  - a sample counts when t <= tmax (already clipped) and k >= k0_ray, and
 //    its value is >= density_min.
 // A per-ray early-out would give another image; the vote is per tile.
@@ -48,7 +49,7 @@ struct FwdOut {
   int* seg_count;           // (R / 256,) segments visited, or null
 };
 
-template <typename Table>
+template <typename Table, bool kMasked>
 __global__ void __launch_bounds__(kTile) mega_fwd_kernel(const March P,
                                                          const FwdOut O) {
   extern __shared__ float sw[];
@@ -71,7 +72,7 @@ __global__ void __launch_bounds__(kTile) mega_fwd_kernel(const March P,
     const bool later = first <= R.tmx;   // a live point at or after ka
     const bool alive = first <= fminf(R.tmx, (ka + (segf - 1.0f)) * h);
     if (!__syncthreads_or(later)) break;          // the tile is done
-    const bool active = __syncthreads_or(alive);
+    const bool active = __syncthreads_or(alive) && segment_on<kMasked>(P, s);
     if (O.carries != nullptr)
       O.carries[((size_t)blockIdx.x * P.n_seg_max + s) * kTile
                 + threadIdx.x] = make_float4(cr, cg, cb, ca);
@@ -108,19 +109,30 @@ __global__ void __launch_bounds__(kTile) mega_fwd_kernel(const March P,
   }
 }
 
-template <typename Table>
-int launch(const March& P, const FwdOut& O, int n_rays, cudaStream_t stream) {
+template <typename Table, bool kMasked>
+int launch_instance(const March& P, const FwdOut& O, int n_rays,
+                    cudaStream_t stream) {
   const size_t smem = (size_t)P.n_weights * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        mega_fwd_kernel<Table>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        mega_fwd_kernel<Table, kMasked>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = n_rays / kTile;
   if (blocks > 0)
-    mega_fwd_kernel<Table><<<blocks, kTile, smem, stream>>>(P, O);
+    mega_fwd_kernel<Table, kMasked><<<blocks, kTile, smem, stream>>>(P, O);
   return (int)cudaGetLastError();
+}
+
+// The masked march is its own instance: the unmasked one (every render
+// without a zero band, and training) compiles as if the mask did not
+// exist, and keeps its registers.
+template <typename Table>
+int launch(const March& P, const FwdOut& O, int n_rays, cudaStream_t stream) {
+  return P.seg_active != nullptr
+             ? launch_instance<Table, true>(P, O, n_rays, stream)
+             : launch_instance<Table, false>(P, O, n_rays, stream);
 }
 
 }  // namespace
@@ -128,7 +140,9 @@ int launch(const March& P, const FwdOut& O, int n_rays, cudaStream_t stream) {
 // Weights packed as in mega_common.cuh (`Net`). `table` is (gz, gy, gx, 16)
 // bf16 (table_f32 = 0) or float32 (table_f32 = 1). `carries` and
 // `seg_count` may be null (the render); otherwise carries holds
-// n_seg_max x 256 float4 per tile. n_rays must be a multiple of 256.
+// n_seg_max x 256 float4 per tile. `seg_active` (tiles x mask_cols bytes,
+// or null) culls segments (mega_common.cuh `segment_on`). n_rays must be a
+// multiple of 256.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int mega_fwd_launch(
     const float* rays, const void* table, int table_f32, const float* weights,
@@ -137,7 +151,7 @@ extern "C" int mega_fwd_launch(
     int n_hidden, int tf_points, float act_param, int seg, int n_seg_max,
     float stepsize, float density_min, float inv_range, float early_alpha,
     float bmin_x, float bmin_y, float bmin_z, float bsize_x, float bsize_y,
-    float bsize_z, void* stream) {
+    float bsize_z, const uint8_t* seg_active, int mask_cols, void* stream) {
   if (n_fourier > kMaxFourier || n_hidden > kMaxHidden
       || tf_points > kMaxTf || tf_points < 2)
     return (int)cudaErrorInvalidValue;
@@ -147,6 +161,8 @@ extern "C" int mega_fwd_launch(
   fill_march(P, rays, table, weights, n_weights, gx, gy, gz, n_fourier,
              n_hidden, tf_points, act_param, seg, n_seg_max, stepsize,
              density_min, inv_range, early_alpha, bmin, bsize);
+  P.seg_active = seg_active;
+  P.mask_cols = mask_cols;
   FwdOut O;
   O.out = out;
   O.tile_samples = tile_samples;

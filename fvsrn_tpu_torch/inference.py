@@ -8,7 +8,10 @@ Counterpart of ``fvsrn_tpu/inference.py``. Modes:
      (``ops.fused_dvr.mega_supported``) at W and H multiples of 16: rays
      in 16x16 pixel blocks, the camera-static saturation probe clamps
      each ray's march (density networks), the megakernel
-     (``ops.fused_mega.mega_trace_dvr``);
+     (``ops.fused_mega.mega_trace_dvr``); where the TF has a zero-opacity
+     band, (tile, segment) programs in transparent space are culled by an
+     occupancy mask built from the kernel's own tile geometry
+     (``ops.occupancy.kernel_segment_occupancy``);
   1b. any other grid of <= 16 channels at those sizes: the same blocks
      and clip, march-length buckets of ray tiles
      (``ops.fused_dvr.plan_ray_buckets``), each marched by the
@@ -45,6 +48,7 @@ from .ops.fused_dvr import (block_ray_permutation, fused_trace_dvr,
                             mega_supported, plan_ray_buckets,
                             probe_saturation_tmax)
 from .ops.fused_mega import mega_trace_dvr
+from .ops.occupancy import build_occupancy, kernel_segment_occupancy
 from .raytracer.dvr import RayEvaluationSteppingDvr, max_steps_bound, trace_dvr
 from .raytracer.iso import RayEvaluationSteppingIso, trace_iso
 from .train.checkpoints import load_weights
@@ -60,17 +64,26 @@ TILE = BLOCK * BLOCK
 SEGMENT_TILE = 128
 N_BUCKETS = 6
 QUANTIZE = 128
+# occupancy culling (fvsrn_tpu/inference.py:_occupancy_grid): a grid is
+# built only when more than ZERO_BAND_SHARE of the TF's samples fall below
+# ALPHA_SKIP; 128^3 macrocells, 2 density samples per cell axis
+ALPHA_SKIP = 1e-5
+ZERO_BAND_SHARE = 0.02
+OCCUPANCY_RESOLUTION = 128
+OCCUPANCY_FINE = 2
 
 
 class FusedRender:
     """A prepared FUSED render of one camera on route 1 (the megakernel):
-    block-ordered rays, their saturation clip and the device copies of
-    network and TF. Calling it renders one (H, W, 4) frame."""
+    block-ordered rays, their saturation clip, the occupancy mask (or
+    None) and the device copies of network and TF. Calling it renders one
+    (H, W, 4) frame."""
     route = "mega"
 
     def __init__(self, ray_start: Tensor, ray_dir: Tensor, inv: Tensor,
                  tmax_clip: Tensor, network, tf, box_min,
-                 box_size, width: int, height: int, march_kwargs: dict):
+                 box_size, width: int, height: int, march_kwargs: dict,
+                 segment_active: Optional[Tensor] = None):
         self.ray_start = ray_start
         self.ray_dir = ray_dir
         self.inv = inv
@@ -82,11 +95,14 @@ class FusedRender:
         self.width = width
         self.height = height
         self.march_kwargs = march_kwargs
+        self.segment_active = segment_active
 
     def march(self, fn=mega_trace_dvr, **overrides):
         """``fn`` (the kernel's wrapper or its plain version) on this
-        frame's block-ordered rays; returns its raw output."""
-        kw = dict(self.march_kwargs, tmax_clip=self.tmax_clip, **overrides)
+        frame's block-ordered rays, with its clip and occupancy mask;
+        returns its raw output."""
+        kw = dict(self.march_kwargs, tmax_clip=self.tmax_clip,
+                  segment_active=self.segment_active, **overrides)
         return fn(self.ray_start, self.ray_dir, self.network, self.box_min,
                   self.box_size, self.tf.tensor, **kw)
 
@@ -198,12 +214,52 @@ class LoadedModel:
                                      distance=distance)
                 for i in range(num)]
 
+    def _occupancy_grid(self, stepsize: float, alpha_skip: float = ALPHA_SKIP,
+                        *, device="cuda"):
+        """The TF-occupancy macrocell grid of ``ops.occupancy`` for
+        culling, cached per stepsize, ``alpha_skip`` and TF. None when the
+        TF has no real zero band (at most ZERO_BAND_SHARE of 1025 TF
+        samples below ``alpha_skip``): a ramp-from-zero TF leaves nothing
+        to cull, and the probe spares the bounding pass."""
+        key = (round(stepsize, 9), alpha_skip,
+               hash(self.tf.tensor.detach().cpu().numpy().tobytes()))
+        cache = self.__dict__.setdefault("_occ_cache", {})
+        if key in cache:
+            return cache[key]
+        dev = resolve_device(device)
+        tf = self.tf.to(dev)
+        n = 1025
+        op = tf.eval_normalized(torch.linspace(0.0, 1.0, n, device=dev),
+                                torch.zeros(n, 3, device=dev),
+                                torch.full((n,), -1.0, device=dev), 1.0)[:, 3]
+        occ = None
+        if float((op * stepsize < alpha_skip).float().mean()) > \
+                ZERO_BAND_SHARE:
+            net = copy.deepcopy(self.network).to(dev).eval()
+            occ = build_occupancy(
+                VolumeInterpolationNetwork(net, self.box_min, self.box_size),
+                tf, resolution=OCCUPANCY_RESOLUTION, fine=OCCUPANCY_FINE,
+                stepsize=stepsize, alpha_skip=alpha_skip,
+                density_min=float(self.config.density_min),
+                density_max=float(self.config.density_max))
+        cache[key] = occ
+        return occ
+
     def prepare_network_render(self, camera: CameraOnASphere, width: int,
                                height: int, mode: str = "FUSED", *,
+                               saturation_clip: bool = True,
+                               occupancy_culling: bool = True,
+                               table_dtype: Optional[torch.dtype] = None,
                                device="cuda"):
         """A zero-argument callable rendering (H, W, 4), with the
         per-camera planning (rays, block order, saturation probe, bucket
-        plan) done here; a FUSED render tells its route by ``.route``.
+        plan, occupancy mask) done here; a FUSED render tells its route by
+        ``.route``. ``saturation_clip``: clamp each ray's march at the
+        probe's saturation depth (density networks, routes 1 and 1b).
+        ``occupancy_culling``: on route 1 with a density network, cull the
+        (tile, segment) programs in transparent space when the TF has a
+        zero band (image within ~max_steps * ALPHA_SKIP). ``table_dtype``:
+        the latent table's type, bf16 by default.
         Snapshot semantics: the network and TF are copied to ``device``
         now; later changes to the model do not reach it."""
         if mode not in EVAL_MODES:
@@ -229,7 +285,9 @@ class LoadedModel:
                 return color.reshape(height, width, 4)
             return render_plain
 
-        kw = dict(stepsize=stepsize, seg=SEG,
+        table_dtype = table_dtype if table_dtype is not None \
+            else torch.bfloat16
+        kw = dict(stepsize=stepsize, seg=SEG, table_dtype=table_dtype,
                   density_min=float(self.config.density_min),
                   density_max=float(self.config.density_max))
         grid = net.latent.static_grid
@@ -239,23 +297,31 @@ class LoadedModel:
             rs, rd, pad = pad_rays(rs, rd, SEGMENT_TILE)
             return SegmentRender(rs, rd, pad, net, tf, self.box_min,
                                  self.box_size, width, height,
-                                 dict(kw, max_steps=steps, tile=SEGMENT_TILE,
-                                      table_dtype=torch.bfloat16))
+                                 dict(kw, max_steps=steps, tile=SEGMENT_TILE))
         perm, inv = block_ray_permutation(width, height, BLOCK, BLOCK,
                                           device=dev)
         rs, rd = rs[perm].contiguous(), rd[perm].contiguous()
+        density = (net.output_mode.startswith("density")
+                   and hasattr(tf, "eval_normalized"))
         clip = None
-        if net.output_mode.startswith("density"):
+        if saturation_clip and density:
             vol = VolumeInterpolationNetwork(net, self.box_min,
                                              self.box_size)
             clip = probe_saturation_tmax(rs, rd, vol, tf, stepsize=stepsize,
                                          max_steps=steps, coarse=8,
                                          margin_steps=16)
-        if mega_supported(tuple(grid.shape), torch.bfloat16):
+        if mega_supported(tuple(grid.shape), table_dtype):
             # route 1
+            mask = None
+            occ = (self._occupancy_grid(stepsize, device=dev)
+                   if occupancy_culling and density else None)
+            if occ is not None:
+                mask = kernel_segment_occupancy(
+                    rs, rd, occ, self.box_min, self.box_size,
+                    stepsize=stepsize, seg=SEG, tile=TILE, tmax_clip=clip)
             return FusedRender(rs, rd, inv, clip, net, tf, self.box_min,
                                self.box_size, width, height,
-                               dict(kw, tile=TILE))
+                               dict(kw, tile=TILE), segment_active=mask)
         # route 1b
         c, gd, gh, gw = grid.shape
         plan = plan_ray_buckets(
@@ -265,14 +331,16 @@ class LoadedModel:
             tmax_clip=clip.cpu().numpy() if clip is not None else None)
         return BucketedRender(rs, rd, inv, clip, net, tf, self.box_min,
                               self.box_size, width, height,
-                              dict(kw, tile=TILE, latent_mode="boxfeat",
-                                   table_dtype=torch.bfloat16), plan=plan)
+                              dict(kw, tile=TILE, latent_mode="boxfeat"),
+                              plan=plan)
 
     def render_network(self, camera: CameraOnASphere, width: int,
-                       height: int, mode: str = "FUSED", *,
-                       device="cuda") -> Tensor:
+                       height: int, mode: str = "FUSED", *, device="cuda",
+                       **plan_kwargs) -> Tensor:
+        """One frame; ``plan_kwargs`` go to :meth:`prepare_network_render`
+        (``saturation_clip``, ``occupancy_culling``, ``table_dtype``)."""
         return self.prepare_network_render(camera, width, height, mode,
-                                           device=device)()
+                                           device=device, **plan_kwargs)()
 
     def render_network_iso(self, camera: CameraOnASphere, width: int,
                            height: int, iso_config: RayEvaluationSteppingIso,

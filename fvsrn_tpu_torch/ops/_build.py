@@ -25,7 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # every source of the port (csrc/<name>.cu)
 SOURCES = ("mega_fwd", "mega_bwd", "segment_fwd", "segment_bwd",
-           "sample_eval")
+           "sample_eval", "probes")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

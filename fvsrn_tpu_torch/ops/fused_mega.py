@@ -19,7 +19,8 @@ ceil(tmin/stepsize), in segments of ``seg`` points. A segment runs when
 some ray of the tile has a live point in it (t <= tmax after the clip,
 k >= the ray's own first point) and, with the early-out, while some ray
 of the tile has alpha < ``alpha_early_out`` (0.999) at the segment's
-start.
+start; and, with a ``segment_active`` mask (TF-aware empty-space culling,
+``ops/occupancy.py``), where the mask keeps the (tile, segment).
 Each live sample: trilinear latent fetch (bf16 table for the render,
 float32 for training), Fourier features, the MLP in float32, the density
 head, the piecewise-linear TF, Beer-Lambert "over".
@@ -224,6 +225,32 @@ def _tile_geometry(rays: Tensor, tile: int):
     return packet, k0r, tmx, k0t
 
 
+def _check_mask(segment_active: Optional[Tensor], n_tiles: int,
+                dev) -> Optional[Tensor]:
+    """The occupancy mask as the kernels read it: (n_tiles, n_cols) uint8 on
+    ``dev``, nonzero where a (tile, segment) may run. Raises on another
+    shape. A segment past the last column is not culled (the JAX package
+    asks for at least its certified segment count; the port's march stops
+    by itself, so a short mask only culls less)."""
+    if segment_active is None:
+        return None
+    m = torch.as_tensor(segment_active, device=dev)
+    if m.ndim != 2 or m.shape[0] != n_tiles or m.shape[1] < 1:
+        raise ValueError(f"segment_active shape {tuple(m.shape)} "
+                         f"incompatible with (n_tiles, >=1 segments) = "
+                         f"({n_tiles}, n_seg)")
+    if m.dtype.is_floating_point or m.dtype.is_complex:
+        raise ValueError("segment_active must be a bool or integer mask")
+    return (m != 0).to(torch.uint8).contiguous()
+
+
+def _masked(run: Tensor, mask: Optional[Tensor], s: int) -> Tensor:
+    """``run`` (per tile) ANDed with column ``s`` of the occupancy mask."""
+    if mask is None or s >= mask.shape[1]:
+        return run
+    return run & mask[:, s].bool()
+
+
 def _segment_state(spec, k0r, tmx, k0t, s):
     """(later, alive) per tile at segment ``s``: some ray has a lattice
     point at or after the segment's start / inside the segment."""
@@ -264,7 +291,7 @@ def _chunks(idx: Tensor, spec: MarchSpec):
 
 
 def _plain_march(spec: MarchSpec, rays: Tensor, params: list, *,
-                 store: bool = False):
+                 store: bool = False, mask: Optional[Tensor] = None):
     """The plain forward: (rgba (R, 4), samples per tile, carries
     (T, S, tile, 4) or None, segments visited per tile or None)."""
     tile = spec.tile
@@ -286,7 +313,8 @@ def _plain_march(spec: MarchSpec, rays: Tensor, params: list, *,
             carries.append(carry.clone())
             count[visiting] = s + 1
             stopped |= visiting & ~vote
-        for idx in _chunks(torch.nonzero(alive & vote).flatten(), spec):
+        run = _masked(alive & vote, mask, s)
+        for idx in _chunks(torch.nonzero(run).flatten(), spec):
             carry[idx], n = _segment(spec, params, packet[idx], k0t[idx], s,
                                      carry[idx])
             samples[idx] += n
@@ -299,7 +327,8 @@ def _plain_march(spec: MarchSpec, rays: Tensor, params: list, *,
 
 
 def _plain_backward(spec: MarchSpec, rays: Tensor, params: list,
-                    carries: Tensor, count: Tensor, d_out: Tensor) -> list:
+                    carries: Tensor, count: Tensor, d_out: Tensor,
+                    mask: Optional[Tensor] = None) -> list:
     """Gradients of ``params`` from the rgba cotangent: segments in
     reverse, the vote replayed on the stored carries, each segment re-run
     from its stored carry under autograd."""
@@ -314,7 +343,7 @@ def _plain_backward(spec: MarchSpec, rays: Tensor, params: list,
         _, alive = _segment_state(spec, k0r, tmx, k0t, s)
         cs = carries[:, s]
         vote = (cs[..., 3] < spec.early_alpha).any(dim=1)
-        run = (count > s) & alive & vote
+        run = _masked((count > s) & alive & vote, mask, s)
         for idx in _chunks(torch.nonzero(run).flatten(), spec):
             with torch.enable_grad():
                 cin = cs[idx].detach().requires_grad_()
@@ -336,10 +365,11 @@ class _PlainMarch(torch.autograd.Function):
     reverse (``_plain_backward``)."""
 
     @staticmethod
-    def forward(ctx, rays, spec, *params):
+    def forward(ctx, rays, spec, mask, *params):
         out, samples, carries, count = _plain_march(spec, rays, list(params),
-                                                    store=True)
+                                                    store=True, mask=mask)
         ctx.spec = spec
+        ctx.mask = mask
         ctx.has_grid = params[2] is not None
         saved = [p for p in params if p is not None]
         ctx.save_for_backward(rays, carries, count, *saved)
@@ -352,8 +382,9 @@ class _PlainMarch(torch.autograd.Function):
         params = list(saved)
         if not ctx.has_grid:
             params.insert(2, None)
-        grads = _plain_backward(ctx.spec, rays, params, carries, count, d_out)
-        return (None, None, *grads)
+        grads = _plain_backward(ctx.spec, rays, params, carries, count, d_out,
+                                ctx.mask)
+        return (None, None, None, *grads)
 
 
 def mega_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
@@ -366,6 +397,7 @@ def mega_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
                          enable_early_out: bool = True,
                          differentiable: bool = False,
                          table_dtype: Optional[torch.dtype] = None,
+                         segment_active: Optional[Tensor] = None,
                          return_samples: bool = False):
     """Plain PyTorch version of :func:`mega_trace_dvr`: the same schedule
     vectorized over tiles and rays, a Python loop over segments; with
@@ -385,15 +417,16 @@ def mega_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
                  density_max=density_max, enable_early_out=enable_early_out,
                  alpha_early_out=alpha_early_out)
     params = _params(net, _tf_points(tf_tensor).to(rays.device))
+    mask = _check_mask(segment_active, rays.shape[0] // tile, rays.device)
     table_dtype = _table_dtype(table_dtype, differentiable)
     if params[2] is not None and table_dtype != torch.float32:
         # the kernel's storage rounding, then float32 math
         params[2] = params[2].to(table_dtype).to(torch.float32)
     if differentiable:
-        out, samples = _PlainMarch.apply(rays, spec, *params)
+        out, samples = _PlainMarch.apply(rays, spec, mask, *params)
     else:
         with torch.no_grad():
-            out, samples, _, _ = _plain_march(spec, rays, params)
+            out, samples, _, _ = _plain_march(spec, rays, params, mask=mask)
     return (out, samples) if return_samples else out
 
 
@@ -528,7 +561,7 @@ def _bind_fwd(lib: ctypes.CDLL):
     fn = lib.mega_fwd_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, p, i, p, i, p, p, p, p, i, i, i, i, i, i, i, f, i, i,
-                   f, f, f, f, f, f, f, f, f, f, p]
+                   f, f, f, f, f, f, f, f, f, f, p, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -537,7 +570,7 @@ def _bind_bwd(lib: ctypes.CDLL):
     fn = lib.mega_bwd_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f,
-                   i, i, f, f, f, f, f, f, f, f, f, f, p]
+                   i, i, f, f, f, f, f, f, f, f, f, f, p, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -548,20 +581,33 @@ def segments_needed(rays: Tensor, spec: MarchSpec) -> int:
     (at most ``max_steps_bound`` plus the tile's spread of entry points),
     plus one segment of slack for rounding. Syncs with the device once."""
     _, k0r, tmx, k0t = _tile_geometry(rays, spec.tile)
-    h = spec.stepsize
+    return _segments_needed(k0r, tmx, k0t, spec.stepsize, spec.seg)
+
+
+def _segments_needed(k0r: Tensor, tmx: Tensor, k0t: Tensor, h: float,
+                     seg: int) -> int:
+    """:func:`segments_needed` from the tile geometry of
+    :func:`_tile_geometry`."""
     live = k0r * h <= tmx
     last = torch.where(live, torch.floor(tmx / h), -torch.inf).amax(dim=1)
     need = torch.where(live.any(dim=1),
-                       torch.floor((last - k0t[:, 0]) / spec.seg) + 1.0,
+                       torch.floor((last - k0t[:, 0]) / seg) + 1.0,
                        torch.zeros_like(last))
     return int(need.max().item()) + 1 if need.numel() else 1
 
 
+def _mask_args(mask: Optional[Tensor]):
+    """(pointer, columns) of an occupancy mask from :func:`_check_mask`."""
+    return (None, 0) if mask is None else (mask.data_ptr(), mask.shape[1])
+
+
 def _launch_fwd(rays: Tensor, weights: Tensor, table: Tensor, spec: MarchSpec,
                 n_fourier: int, n_hidden: int, tf_points: int,
-                n_seg_max: Optional[int] = None):
+                n_seg_max: Optional[int] = None,
+                mask: Optional[Tensor] = None):
     """Launch csrc/mega_fwd.cu. With ``n_seg_max`` it also stores the
-    incoming carries and the segments visited. Returns (out, samples,
+    incoming carries and the segments visited; ``mask`` is a
+    :func:`_check_mask` occupancy mask or None. Returns (out, samples,
     carries or None, count or None)."""
     dev = rays.device
     n_tiles = rays.shape[0] // spec.tile
@@ -587,14 +633,14 @@ def _launch_fwd(rays: Tensor, weights: Tensor, table: Tensor, spec: MarchSpec,
             n_seg_max if n_seg_max is not None else 1 << 30,
             spec.stepsize, spec.density_min,
             1.0 / (spec.density_max - spec.density_min), spec.early_alpha,
-            *spec.box_min, *spec.box_size, _stream(dev))
+            *spec.box_min, *spec.box_size, *_mask_args(mask), _stream(dev))
     if err != 0:
         raise RuntimeError(f"mega_fwd launch failed with CUDA error {err}")
     return out, samples, carries, count
 
 
 def _launch_bwd(rays, weights, table, carries, count, d_out, spec,
-                n_fourier, n_hidden, tf_points, n_lat):
+                n_fourier, n_hidden, tf_points, n_lat, mask=None):
     """Launch csrc/mega_bwd.cu. Returns (packed weight gradient summed
     over tiles, table gradient (D, H, W, 16), (tiles, 2) samples replayed
     and contributing)."""
@@ -621,7 +667,7 @@ def _launch_bwd(rays, weights, table, carries, count, d_out, spec,
             carries.shape[1],
             spec.stepsize, spec.density_min,
             1.0 / (spec.density_max - spec.density_min), spec.early_alpha,
-            *spec.box_min, *spec.box_size, _stream(dev))
+            *spec.box_min, *spec.box_size, *_mask_args(mask), _stream(dev))
     if err != 0:
         raise RuntimeError(f"mega_bwd launch failed with CUDA error {err}")
     return d_rows.sum(dim=0), d_table, work
@@ -638,17 +684,18 @@ class _KernelMarch(torch.autograd.Function):
     csrc/mega_fwd.cu storing the carries, the backward csrc/mega_bwd.cu."""
 
     @staticmethod
-    def forward(ctx, rays, spec, *params):
+    def forward(ctx, rays, spec, mask, *params):
         params = list(params)
         n_fourier, n_hidden, tf_points, n_lat = _widths(params)
         weights = _pack_weights(params)
         table = _kernel_table(params[2], torch.float32, rays.device)
         out, samples, carries, count = _launch_fwd(
             rays, weights, table, spec, n_fourier, n_hidden, tf_points,
-            n_seg_max=segments_needed(rays, spec))
+            n_seg_max=segments_needed(rays, spec), mask=mask)
         global DIFF_LAUNCHES
         DIFF_LAUNCHES += 1
         ctx.spec = spec
+        ctx.mask = mask
         ctx.save_for_backward(rays, weights, table, carries, count, *params)
         ctx.mark_non_differentiable(samples)
         return out, samples
@@ -659,13 +706,13 @@ class _KernelMarch(torch.autograd.Function):
         n_fourier, n_hidden, tf_points, n_lat = _widths(params)
         dw, d_table, _ = _launch_bwd(rays, weights, table, carries, count,
                                   d_out, ctx.spec, n_fourier, n_hidden,
-                                  tf_points, n_lat)
+                                  tf_points, n_lat, ctx.mask)
         global BWD_LAUNCHES
         BWD_LAUNCHES += 1
         grads = _unpack_grads(dw, params)
         if n_lat:
             grads[2] = d_table[..., :n_lat].permute(3, 0, 1, 2).contiguous()
-        return (None, None, *grads)
+        return (None, None, None, *grads)
 
 
 def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
@@ -678,19 +725,25 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                    enable_early_out: bool = True,
                    differentiable: bool = False,
                    table_dtype: Optional[torch.dtype] = None,
+                   segment_active: Optional[Tensor] = None,
                    return_samples: bool = False):
     """Fused SRN march (see the module doc). CUDA tensors launch the
     kernels, CPU tensors run :func:`mega_trace_dvr_plain`. The render
     (``differentiable=False``) reads a bf16 latent table by default; with
     ``differentiable=True`` the result carries gradients to the network's
-    parameters and to ``tf_tensor``, from a float32 table. Returns rgba
+    parameters and to ``tf_tensor``, from a float32 table.
+    ``segment_active``: an (n_tiles, n_seg) bool occupancy mask ANDed into
+    every (tile, segment)'s activity, forward and backward: a culled
+    segment evaluates no sample (image error bounded by the occupancy
+    threshold; TF gradients of culled samples are dropped, the network's
+    are exact where the culled samples are transparent). Returns rgba
     (R, 4), and the samples evaluated per tile with ``return_samples``."""
     kw = dict(stepsize=stepsize, tmax_clip=tmax_clip, seg=seg, tile=tile,
               density_min=density_min, density_max=density_max,
               alpha_early_out=alpha_early_out,
               enable_early_out=enable_early_out,
               differentiable=differentiable, table_dtype=table_dtype,
-              return_samples=return_samples)
+              segment_active=segment_active, return_samples=return_samples)
     if ray_start.device.type == "cpu":
         return mega_trace_dvr_plain(ray_start, ray_dir, net, box_min,
                                     box_size, tf_tensor, **kw)
@@ -710,16 +763,17 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
         raise NotImplementedError(f"CUDA kernel: at most {MAX_TF_POINTS} "
                                   "TF control points")
     params = _params(net, tf)
+    mask = _check_mask(segment_active, rays.shape[0] // tile, dev)
     table_dtype = _table_dtype(table_dtype, differentiable)
     if differentiable:
-        out, samples = _KernelMarch.apply(rays, spec, *params)
+        out, samples = _KernelMarch.apply(rays, spec, mask, *params)
     else:
         with torch.no_grad():
             n_fourier, n_hidden, tf_points, _ = _widths(params)
             out, samples, _, _ = _launch_fwd(
                 rays, _pack_weights(params),
                 _kernel_table(params[2], table_dtype, dev), spec, n_fourier,
-                n_hidden, tf_points)
+                n_hidden, tf_points, mask=mask)
         global LAUNCHES
         LAUNCHES += 1
     return (out, samples) if return_samples else out

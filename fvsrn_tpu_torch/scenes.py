@@ -6,8 +6,7 @@ TF, weights path).
 - ``dense``: the Marschner-Lobb flagship with a ramp-from-zero TF, under
   which every density maps to a nonzero opacity (no empty space to skip);
 - ``sparse``: the MULTI_SHELL field with a zero-opacity band below
-  density 0.30. Its trained weights are not exported to the port's
-  ``.npz`` yet, so asking for the scene raises.
+  density 0.30, where occupancy culling has empty space to skip.
 """
 from __future__ import annotations
 
@@ -34,17 +33,12 @@ def dense_scene():
 
 
 def sparse_scene():
-    """(volume, tf, weights_path) of the sparse-TF flagship. Raises while
-    ``assets/flagship_shell.hdf5`` has no ``.npz`` export."""
-    path = os.path.join(ASSET_DIR, "flagship_shell_torch.npz")
-    if not os.path.exists(path):
-        raise NotImplementedError(
-            "the sparse flagship's weights are not exported for the port "
-            f"yet ({os.path.relpath(path, os.path.dirname(ASSET_DIR))})")
+    """(volume, tf, weights_path) of the sparse-TF flagship; the weights
+    are the ``.npz`` export of ``assets/flagship_shell.hdf5``."""
     volume = VolumeInterpolationImplicit.make("MULTI_SHELL")
     tf = TransferFunctionPiecewiseLinear.make(
         rgb=[[0.2, 0.4, 1.0], [0.2, 0.4, 1.0], [1.0, 0.6, 0.15],
              [1.0, 0.95, 0.7]],
         opacity=[0.0, 0.0, 18.0, 40.0],
         positions=[0.0, SPARSE_ZERO_BAND, 0.6, 1.0])
-    return volume, tf, path
+    return volume, tf, os.path.join(ASSET_DIR, "flagship_shell_torch.npz")

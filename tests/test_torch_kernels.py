@@ -7,7 +7,8 @@ takes, image, samples and the call's stop) and its differentiable pair
 (csrc/segment_fwd.cu storing carries, csrc/segment_bwd.cu: image and
 every gradient leaf over the same networks and options) and the sample
 evaluator (csrc/sample_eval.cu: density and its position gradient at
-scattered positions). This file
+scattered positions), the occupancy mask in all three megakernel
+launches, and the probe kernels of rows 8-11 (csrc/probes.cu). This file
 imports no JAX, so it runs where the GPU is:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
@@ -158,9 +159,11 @@ def test_mega_diff_forward_matches_plain(which, early_out):
                                    rtol=0, atol=ATOL)
 
 
-def kernel_and_plain_grads(net, tf, rays, spec):
+def kernel_and_plain_grads(net, tf, rays, spec, mask=None):
     """Gradients of sum(w * rgba), w random, through the kernels and
-    through the plain version: two dicts keyed by leaf, the TF as "tf"."""
+    through the plain version (both with the occupancy ``mask`` of
+    ``fused_mega._check_mask``, or none): two dicts keyed by leaf, the TF
+    as "tf"."""
     w = torch.empty(rays.shape[0], 4, device="cuda").uniform_(
         -1, 1, generator=torch.Generator("cuda").manual_seed(1))
     grads = {}
@@ -168,7 +171,8 @@ def kernel_and_plain_grads(net, tf, rays, spec):
         net.zero_grad(set_to_none=True)
         tf_leaf = tf.clone().requires_grad_(True)
         before = fused_mega.BWD_LAUNCHES
-        img, _ = fn.apply(rays, spec, *fused_mega._params(net, tf_leaf))
+        img, _ = fn.apply(rays, spec, mask,
+                          *fused_mega._params(net, tf_leaf))
         (img * w).sum().backward()
         torch.cuda.synchronize()
         launched = fused_mega.BWD_LAUNCHES - before
@@ -217,6 +221,95 @@ def test_mega_backward_absorbing_first_knot(early_out):
     for name in want:
         assert rel_err(got[name], want[name]) <= 1e-3, name
     assert rel_err(got["tf"][:, 4], want["tf"][:, 4]) <= 1e-3
+
+
+def random_mask(rays, spec, seed=2):
+    """A seeded occupancy mask culling about a third of the (tile,
+    segment) programs."""
+    n_seg = fused_mega.segments_needed(rays, spec)
+    keep = torch.rand(rays.shape[0] // 256, n_seg, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(seed))
+    return fused_mega._check_mask(keep > 0.33, rays.shape[0] // 256,
+                                  rays.device)
+
+
+@pytest.mark.parametrize("which", ["random", "flagship"])
+@pytest.mark.parametrize("early_out", [True, False])
+def test_mega_masked_matches_plain(which, early_out):
+    """B1: the occupancy mask in all three launches. The render forward
+    (bf16 table), the differentiable forward's image and carries, and
+    every gradient leaf of the backward against the plain versions with
+    the same mask; the mask culls samples."""
+    needs_card()
+    net, tf, rays, spec = diff_case(which, early_out)
+    mask = random_mask(rays, spec)
+    rs, rd = block_rays(64, "cuda")
+    clip = torch.empty(rs.shape[0], device="cuda").uniform_(
+        1.0, 2.2, generator=torch.Generator("cuda").manual_seed(0))
+    kw = dict(stepsize=1 / 128, tmax_clip=clip, enable_early_out=early_out,
+              return_samples=True)
+    args = (rs, rd, net, *BOX, tf)
+    got, samples = fused_mega.mega_trace_dvr(*args, segment_active=mask, **kw)
+    want, samples_plain = fused_mega.mega_trace_dvr_plain(
+        *args, segment_active=mask, **kw)
+    _, unmasked = fused_mega.mega_trace_dvr(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    assert torch.equal(samples.long(), samples_plain)
+    assert int(samples.sum()) < int(unmasked.sum())
+    params = fused_mega._params(net, tf)
+    n_fourier, n_hidden, tf_points, _ = fused_mega._widths(params)
+    with torch.no_grad():
+        out, _, carries, count = fused_mega._launch_fwd(
+            rays, fused_mega._pack_weights(params),
+            fused_mega._kernel_table(params[2], torch.float32, rays.device),
+            spec, n_fourier, n_hidden, tf_points,
+            n_seg_max=fused_mega.segments_needed(rays, spec), mask=mask)
+        want, _, want_carries, want_count = fused_mega._plain_march(
+            spec, rays, params, store=True, mask=mask)
+    torch.testing.assert_close(out, want, rtol=0, atol=ATOL)
+    assert torch.equal(count.long(), want_count)
+    for t in range(count.shape[0]):
+        c = int(count[t])
+        torch.testing.assert_close(carries[t, :c], want_carries[t, :c],
+                                   rtol=0, atol=ATOL)
+    got, want = kernel_and_plain_grads(net, tf, rays, spec, mask)
+    for name in want:
+        assert rel_err(got[name], want[name]) <= 1e-3, name
+
+
+@pytest.mark.parametrize("case", ["gather_f32", "gather_bf16",
+                                  "chunked_928", "onehot_128",
+                                  "onehot_928", "proto"])
+def test_probe_kernels_match_plain(case):
+    """Rows 8-11 (csrc/probes.cu) against their plain versions and the JAX
+    tools' NumPy oracles, at the tools' shapes: the gathers and the
+    resolve exact, the prototype's output within 1e-5 relative and its
+    counts exact; each launch counted."""
+    needs_card()
+    from fvsrn_tpu_torch.ops import probes
+    from fvsrn_tpu_torch.tools import probe_lane_gather as g
+    from fvsrn_tpu_torch.tools import proto_mega
+    probes.reset_counts()
+    if case == "proto":
+        res = proto_mega.run("cuda", iters=2)
+        assert res["ok"] and res["dtab_abs_err"] == 0.0
+        cmp = proto_mega.run("cuda", compare=True)
+        assert cmp["plain_max_abs_err"] <= 1e-5
+        assert probes.counts()["proto_mega"] >= 3
+        return
+    fn = {"gather_f32": lambda **k: g.probe_gather_single(torch.float32,
+                                                          "cuda", **k),
+          "gather_bf16": lambda **k: g.probe_gather_single(torch.bfloat16,
+                                                           "cuda", **k),
+          "chunked_928": lambda **k: g.probe_gather_chunked(928, "cuda",
+                                                            **k),
+          "onehot_128": lambda **k: g.probe_onehot(128, "cuda", **k),
+          "onehot_928": lambda **k: g.probe_onehot(928, "cuda", **k)}[case]
+    res = fn(iters=2)
+    assert res["ok"] and res["max_abs_err"] == 0.0
+    assert fn(iters=2, compare=True)["plain_max_abs_err"] == 0.0
+    assert sum(probes.counts().values()) >= 4
 
 
 @pytest.mark.parametrize("net_kw,tile", [

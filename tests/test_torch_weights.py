@@ -14,10 +14,11 @@ from fvsrn_tpu.models.network_volume import \
     VolumeInterpolationNetwork as JVolume
 from fvsrn_tpu.models.srn import SceneRepresentationNetwork as JSRN
 from fvsrn_tpu.scenes import dense_scene as jdense_scene
+from fvsrn_tpu.scenes import sparse_scene as jsparse_scene
 from fvsrn_tpu.train.checkpoints import RunCheckpoint
 from fvsrn_tpu_torch.convert import srn_from_arrays
 from fvsrn_tpu_torch.models.network_volume import VolumeInterpolationNetwork
-from fvsrn_tpu_torch.scenes import dense_scene
+from fvsrn_tpu_torch.scenes import dense_scene, sparse_scene
 from fvsrn_tpu_torch.train.checkpoints import load_arrays, load_weights
 from tools.export_torch_weights import _key_name, export, save_network
 
@@ -70,6 +71,40 @@ def test_export_reproduces_committed_npz(tmp_path):
     assert meta == want_meta and set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_shell_export_reproduces_committed_npz(tmp_path):
+    """The sparse flagship crosses the same way: ``sparse_scene()`` names
+    the committed ``.npz``, which the export tool reproduces from the run
+    file bit for bit."""
+    path = sparse_scene()[2]
+    assert path.endswith("flagship_shell_torch.npz")
+    out = str(tmp_path / "shell.npz")
+    export(jsparse_scene()[2], out)
+    got, meta = load_arrays(out)
+    want, want_meta = load_arrays(path)
+    assert meta == want_meta and set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_shell_density_matches_jax():
+    """The port's density of the sparse flagship equals the JAX package's
+    at seeded positions over the box and a little beyond (atol 1e-5)."""
+    with RunCheckpoint(jsparse_scene()[2], "r") as ck:
+        jnet = ck.load_weights()
+    net = load_weights(sparse_scene()[2])
+    assert tuple(net.latent.static_grid.shape) == (16, 32, 32, 32)
+    assert net.output_mode == jnet.output_mode == "density:direct"
+    pos = np.random.default_rng(9).uniform(-0.55, 0.55, (4099, 3)).astype(
+        np.float32)
+    want, _ = JVolume.make(jnet).eval_density(jnp.asarray(pos),
+                                              jnp.zeros((4099, 3)))
+    with torch.no_grad():
+        got, _ = VolumeInterpolationNetwork(net).eval_density(
+            torch.tensor(pos))
+    assert float(np.asarray(want).max()) > 0.3
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
 def test_srn_from_arrays_rejects_unported_leaves():

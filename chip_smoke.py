@@ -164,6 +164,20 @@ def adjoint_flops(net):
     return 2 * mlp + 2 * params + 4 * f + 8 * 16 * 2
 
 
+def ptxas_summary(name):
+    """Registers, stack, spills and shared memory of each kernel instance
+    in ``name``'s ptxas report, one line each."""
+    from fvsrn_tpu_torch.ops import _build
+
+    lines, props = [], None
+    for line in _build.ptxas_report(name).splitlines():
+        if "Function properties for" in line:
+            props = line.split("for ")[-1].strip()
+        elif props and ("stack frame" in line or "registers" in line):
+            lines.append(f"{props}: {line.strip()}")
+    return "; ".join(lines)
+
+
 def rel_err(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
@@ -396,7 +410,8 @@ def training(smi, reset_counts, counts, npz, tf, cam):
               n_replayed, "samples_contributing": n_contrib,
               "no_scatter_ms": no_scatter_ms,
               "scatter_share": scatter_share,
-              "work_gflop": bwd_work_flops / 1e9})):
+              "work_gflop": bwd_work_flops / 1e9,
+              "ptxas": ptxas_summary("mega_bwd")})):
         b_tc = bound(flops, nbytes, PEAK_BF16_TC)
         b_32 = bound(flops, nbytes, PEAK_F32)
         by = ("operations" if flops / PEAK_BF16_TC > nbytes / PEAK_BYTES
@@ -727,6 +742,11 @@ def scan_training(smi, reset_counts, counts, npz, tf, cam):
     fwd_ms = cuda_ms(lambda: fused_dvr.launch_segment(
         *fwd_args, store_carries=True), TIMED_STEPS)
     bwd_ms = cuda_ms(lambda: launch_segment_bwd(*bwd_args), TIMED_STEPS)
+    # the same backward scattering no latent gradient: the difference is
+    # the scatter's share of the kernel
+    no_scatter_ms = cuda_ms(lambda: launch_segment_bwd(*bwd_args, n_lat=0),
+                            TIMED_STEPS)
+    scatter_share = 1.0 - no_scatter_ms / bwd_ms
     work = launch_segment_bwd(*bwd_args)[2]
     n_valid, n_replayed, n_contrib = (int(st.samples), int(work[0]),
                                       int(work[1]))
@@ -870,12 +890,18 @@ def scan_training(smi, reset_counts, counts, npz, tf, cam):
             "oracle_grad_rel_err": o_rel[o_worst],
             "samples_valid": n_valid, "samples_replayed": n_replayed,
             "samples_contributing": n_contrib, "carry_bytes": carry_bytes,
-            "stop": stop, "n_seg": spec.n_seg})
+            "stop": stop, "n_seg": spec.n_seg}
+            | ({"no_scatter_ms": no_scatter_ms,
+                "scatter_share": scatter_share,
+                "ptxas": ptxas_summary("segment_bwd")}
+               if name == "segment_bwd" else {}))
     print(f"phase F training step, scan engine [{smi}]: {step_ms:.3f} "
           f"ms/step (fwd + L1 + bwd + Adam, mean of {TIMED_STEPS} after a "
           f"warm-up), {n_rays / step_ms / 1e3:.3f} Mrays/s; kernels fwd "
           f"{fwd_ms:.3f} + bwd {bwd_ms:.3f} ms "
-          f"({bwd_ms * 1e6 / max(n_valid, 1):.3f} ns/valid sample); valid "
+          f"({bwd_ms * 1e6 / max(n_valid, 1):.3f} ns/valid sample; without "
+          f"the latent scatter {no_scatter_ms:.3f} ms, scatter share "
+          f"{scatter_share:.3f}); valid "
           f"samples {n_valid} (replayed {n_replayed}, contributing "
           f"{n_contrib}), stop {stop} of n_seg {spec.n_seg}, carries "
           f"{carry_bytes / 1e6:.1f} MB stored ({spec.n_seg * n_rays * 16 / 1e6:.1f}"

@@ -1,11 +1,11 @@
 // Device code shared by the megakernel's forward (mega_fwd.cu) and
-// backward (mega_bwd.cu): the packed-weight layout, SnakeAlt with its
-// derivative, the SRN's MLP, the density:direct head. The per-sample
-// pieces every fused march shares (trilinear latent fetch and its
-// adjoint, Fourier phase, piecewise-linear TF, the "over" step) are in
-// march_common.cuh. Both kernels evaluate a sample with the same function
-// (`shade`), so the backward's replay reproduces the forward's values and
-// gates.
+// backward (mega_bwd.cu): the packed-weight layout, the call's geometry,
+// the tile's rays and occupancy mask; the forward's SRN on one sample
+// (SnakeAlt MLP, density:direct head, `shade`). The per-sample pieces every
+// fused march shares (trilinear latent fetch and its adjoint, Fourier
+// phase, piecewise-linear TF, the "over" step) are in march_common.cuh.
+// The backward evaluates its samples as tiles (sample_mlp.cuh): its replay
+// agrees with `shade` to float32 rounding, not bit for bit.
 #pragma once
 
 #include "march_common.cuh"
@@ -19,7 +19,6 @@ constexpr int kTile = 256;      // rays per block = threads per block
 constexpr int kMaxFourier = 32;
 constexpr int kMaxHidden = 6;   // hidden->hidden layers
 constexpr int kMaxTf = 16;      // TF control points
-constexpr int kMaxK1 = 3 + 2 * kMaxFourier + kLat;
 
 // Geometry and options of one march, shared by both kernels.
 struct March {
@@ -81,13 +80,9 @@ __device__ inline Net carve(const float* w, const March& P) {
   return N;
 }
 
-// SnakeAlt: (x + 1 - cos(2 p x)) / (2 p); its derivative 1/(2p) + sin(2 p x)
+// SnakeAlt: (x + 1 - cos(2 p x)) / (2 p)
 __device__ __forceinline__ float snake_alt(float x, float p) {
   return (x + 1.0f - cosf(2.0f * p * x)) / (2.0f * p);
-}
-
-__device__ __forceinline__ float snake_alt_deriv(float x, float p) {
-  return 1.0f / (2.0f * p) + sinf(2.0f * p * x);
 }
 
 // The trilinear fetch of the (gz, gy, gx, 16) table (march_common.cuh).
@@ -102,22 +97,11 @@ __device__ __forceinline__ void trilerp(const March& P, const Corners& c,
   trilerp16<Table>(P.table, c, 1, 0, lat);
 }
 
-// What the backward keeps of one sample's MLP evaluation: the first
-// layer's input [pos, cos, sin, latent], every hidden layer's output and
-// the activation's derivative at its pre-activation.
-struct Keep {
-  float in1[kMaxK1];
-  float hs[(kMaxHidden + 1) * kHid];
-  float dact[(kMaxHidden + 1) * kHid];
-};
-
 // The SRN on one sample: layer 1 over [pos, cos(Bx), sin(Bx), latent],
 // SnakeAlt hidden layers, the linear output row. Returns the output's
-// pre-activation y; with kKeep it also fills `keep`.
-template <bool kKeep>
+// pre-activation y.
 __device__ __forceinline__ float mlp(const Net& N, float x0, float x1,
-                                     float x2, const float* lat,
-                                     Keep* keep) {
+                                     float x2, const float* lat) {
   const int F = N.F, K1 = N.K1;
   float acc[kHid];
 #pragma unroll
@@ -125,16 +109,9 @@ __device__ __forceinline__ float mlp(const Net& N, float x0, float x1,
     const float* w = N.W1 + o * K1;
     acc[o] = fmaf(w[0], x0, fmaf(w[1], x1, fmaf(w[2], x2, N.b1[o])));
   }
-  if (kKeep) {
-    keep->in1[0] = x0; keep->in1[1] = x1; keep->in1[2] = x2;
-  }
   for (int i = 0; i < F; ++i) {
     float sn, cs;
     sincosf(fourier_phase(N.B, i, x0, x1, x2), &sn, &cs);
-    if (kKeep) {
-      keep->in1[3 + i] = cs;
-      keep->in1[3 + F + i] = sn;
-    }
 #pragma unroll
     for (int o = 0; o < kHid; ++o) {
       const float* w = N.W1 + o * K1 + 3;
@@ -143,7 +120,6 @@ __device__ __forceinline__ float mlp(const Net& N, float x0, float x1,
   }
 #pragma unroll
   for (int c = 0; c < kLat; ++c) {
-    if (kKeep) keep->in1[3 + 2 * F + c] = lat[c];
 #pragma unroll
     for (int o = 0; o < kHid; ++o)
       acc[o] = fmaf(N.W1[o * K1 + 3 + 2 * F + c], lat[c], acc[o]);
@@ -152,10 +128,6 @@ __device__ __forceinline__ float mlp(const Net& N, float x0, float x1,
 #pragma unroll
   for (int o = 0; o < kHid; ++o) {
     hid[o] = snake_alt(acc[o], N.p);
-    if (kKeep) {
-      keep->hs[o] = hid[o];
-      keep->dact[o] = snake_alt_deriv(acc[o], N.p);
-    }
   }
   for (int l = 0; l < N.n_hidden; ++l) {
     const float* W = N.Wh + l * kHid * kHid;
@@ -170,10 +142,6 @@ __device__ __forceinline__ float mlp(const Net& N, float x0, float x1,
 #pragma unroll
     for (int o = 0; o < kHid; ++o) {
       hid[o] = snake_alt(acc[o], N.p);
-      if (kKeep) {
-        keep->hs[(l + 1) * kHid + o] = hid[o];
-        keep->dact[(l + 1) * kHid + o] = snake_alt_deriv(acc[o], N.p);
-      }
     }
   }
   float y = N.bo[0];
@@ -195,14 +163,13 @@ struct Shaded {
   Corners c;
 };
 
-template <typename Table, bool kKeep>
+template <typename Table>
 __device__ __forceinline__ bool shade(const March& P, const Net& N, float x0,
-                                      float x1, float x2, Shaded& s,
-                                      Keep* keep) {
+                                      float x1, float x2, Shaded& s) {
   float lat[kLat];
   corners(P, x0, x1, x2, s.c);
   trilerp<Table>(P, s.c, lat);
-  s.y = mlp<kKeep>(N, x0, x1, x2, lat, keep);
+  s.y = mlp(N, x0, x1, x2, lat);
   s.value = fminf(fmaxf(s.y, 0.0f), 1.0f);  // density:direct
   if (!(s.value >= P.density_min)) return false;
   const float d = fminf(fmaxf((s.value - P.density_min) * P.inv_range, 0.0f),

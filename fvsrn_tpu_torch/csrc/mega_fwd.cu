@@ -88,7 +88,7 @@ __global__ void __launch_bounds__(kTile) mega_fwd_kernel(const March P,
       float x0, x1, x2;
       sample_pos(P, R, t, x0, x1, x2);
       Shaded sh;
-      if (!shade<Table, false>(P, N, x0, x1, x2, sh, nullptr)) continue;
+      if (!shade<Table>(P, N, x0, x1, x2, sh)) continue;
       const float absn = sh.tf.op * h;
       const float a = 1.0f - expf(-absn);  // Beer-Lambert
       over(cr, cg, cb, ca, sh.tf.r, sh.tf.g, sh.tf.b, a);

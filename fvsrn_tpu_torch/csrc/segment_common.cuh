@@ -1,9 +1,10 @@
 // Device code shared by the per-segment engine's forward (segment_fwd.cu)
 // and backward (segment_bwd.cu) and the sample evaluator (sample_eval.cu):
 // the call's parameters, the packed-weight layout, the SRN on one sample
-// and the sampling of a ray. The kernels evaluate a sample with the same
-// functions, so the backward's replay reproduces the forward's values and
-// gates, and the evaluator computes the march's network.
+// and the sampling of a ray. The forward and the evaluator evaluate a
+// sample with the same functions; the backward evaluates its samples as
+// tiles (sample_mlp.cuh), its replay agreeing with `network` to float32
+// rounding, not bit for bit.
 #pragma once
 
 #include "march_common.cuh"

@@ -688,6 +688,12 @@ def _check_kernel_inputs(net, tf: Tensor, seg: int = 32,
     if differentiable and seg > MAX_BWD_SEG:
         raise NotImplementedError(f"segment backward kernel: seg <= "
                                   f"{MAX_BWD_SEG} only")
+    if differentiable:
+        from .sample_mlp import check_plan
+        nf = net.input.num_fourier
+        check_plan("segment backward kernel", kernel_width(net),
+                   6 + 2 * nf + 16 * _latent_chunks(net),
+                   len(net.layers) - 2, nf, tf.shape[0])
 
 
 def _latent_chunks(net) -> int:

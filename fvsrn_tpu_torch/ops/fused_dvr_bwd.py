@@ -31,7 +31,10 @@ get none: a zero gradient, as the JAX package's custom VJP returns
 Bound of the backward on the H100: operations (per contributing sample
 the forward's network again, its transposed layers and the weight
 gradient's outer products) against the stored carries and the latent
-gradient. This first kernel runs on the float32 CUDA cores.
+gradient. The backward runs its network work on the batched sample MLP
+(``csrc/sample_mlp.cuh``, host side ``ops/sample_mlp.py``): tiles of
+(ray, sample) rows whose layers, transposed layers and weight gradients
+are TF32 three-pass tensor-core products (float32-accurate).
 """
 from __future__ import annotations
 
@@ -125,14 +128,35 @@ def _bind_bwd(lib: ctypes.CDLL):
     return fn
 
 
+def device_smem_plan(hidden: int, n_fourier: int, chunks: int,
+                     n_hidden: int, tf_points: int):
+    """(bytes, tile rows, weight-row padding) of the shared-memory plan
+    csrc/segment_bwd.cu takes for these widths, or None when none fits
+    (the device's own ``choose_plan``; ``ops.sample_mlp.smem_plan``
+    mirrors it)."""
+    lib = _build.load("segment_bwd")
+    fn = lib.segment_bwd_smem
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_long * 3)()
+    if fn(hidden, n_fourier, chunks, n_hidden, tf_points, out) != 0:
+        return None
+    return tuple(int(v) for v in out)
+
+
 def launch_segment_bwd(spec: SegmentSpec, net, rays: Tensor,
                        kbase: Optional[Tensor], weights: Tensor,
                        table: Tensor, carries: Tensor, death: Tensor,
-                       d_out: Tensor, tf_points: int):
+                       d_out: Tensor, tf_points: int,
+                       partial_rows: bool = False,
+                       n_lat: Optional[int] = None):
     """Launch csrc/segment_bwd.cu on the forward's ``carries`` and
     ``death``. Returns (packed weight gradient summed over the blocks'
-    partial rows, float32 table gradient (D, H, W, 16 * chunks), [samples
-    replayed, samples contributing] int64)."""
+    partial rows, or with ``partial_rows`` the rows themselves, float32
+    table gradient (D, H, W, 16 * chunks), [samples replayed, samples
+    contributing] int64). ``n_lat`` overrides the latent channels whose
+    gradient is scattered (0: none, to time the kernel without its
+    scatter)."""
     dev = rays.device
     n_rays = rays.shape[0]
     d_out = d_out.to(torch.float32).contiguous()
@@ -158,7 +182,8 @@ def launch_segment_bwd(spec: SegmentSpec, net, rays: Tensor,
             carries.data_ptr(), death.data_ptr(), d_out.data_ptr(),
             d_rows.data_ptr(), d_table.data_ptr(), work.data_ptr(), n_rays,
             gx, gy, gz, _latent_chunks(net),
-            0 if grid is None else grid.shape[0], net.input.num_fourier,
+            (0 if grid is None else grid.shape[0]) if n_lat is None
+            else n_lat, net.input.num_fourier,
             len(net.layers) - 2, kernel_width(net), tf_points,
             _ACTIVATIONS[spec.activation[0]], spec.activation[1],
             _HEADS[spec.output_mode], int(net.use_direction),
@@ -168,7 +193,7 @@ def launch_segment_bwd(spec: SegmentSpec, net, rays: Tensor,
             *spec.box_size, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_bwd launch failed with CUDA error {err}")
-    return d_rows.sum(dim=0), d_table, work
+    return (d_rows if partial_rows else d_rows.sum(dim=0)), d_table, work
 
 
 def unpack_segment_grads(dw: Tensor, net, params: list) -> list:

@@ -35,11 +35,12 @@ replays the forward's tile vote on the stored incoming carries.
 
 Bound of the kernels on the H100: operations (the forward about 7.6 kFLOP
 and 110 transcendentals per sample, 44 bytes per ray; the backward about
-four times the forward's work per contributing sample). These first
-kernels run the MLP on the float32 CUDA cores, one sample per thread at a
-time, weights broadcast from shared memory and the latent table in L2;
-tensor-core layers (mma/wgmma over samples batched per warpgroup) are
-later work.
+four times the forward's work per contributing sample). The forward
+runs the MLP on the float32 CUDA cores, one sample per thread at a time,
+weights broadcast from shared memory and the latent table in L2. The
+backward batches the samples of 32-ray groups into tiles and runs every
+layer, transposed layer and weight gradient as a TF32 three-pass
+tensor-core product (``csrc/sample_mlp.cuh``).
 """
 from __future__ import annotations
 
@@ -640,10 +641,11 @@ def _launch_fwd(rays: Tensor, weights: Tensor, table: Tensor, spec: MarchSpec,
 
 
 def _launch_bwd(rays, weights, table, carries, count, d_out, spec,
-                n_fourier, n_hidden, tf_points, n_lat, mask=None):
+                n_fourier, n_hidden, tf_points, n_lat, mask=None,
+                partial_rows=False):
     """Launch csrc/mega_bwd.cu. Returns (packed weight gradient summed
-    over tiles, table gradient (D, H, W, 16), (tiles, 2) samples replayed
-    and contributing)."""
+    over tiles, or with ``partial_rows`` the tiles' rows, table gradient
+    (D, H, W, 16), (tiles, 2) samples replayed and contributing)."""
     dev = rays.device
     n_tiles = rays.shape[0] // spec.tile
     d_out = d_out.to(torch.float32).contiguous()
@@ -670,7 +672,7 @@ def _launch_bwd(rays, weights, table, carries, count, d_out, spec,
             *spec.box_min, *spec.box_size, *_mask_args(mask), _stream(dev))
     if err != 0:
         raise RuntimeError(f"mega_bwd launch failed with CUDA error {err}")
-    return d_rows.sum(dim=0), d_table, work
+    return (d_rows if partial_rows else d_rows.sum(dim=0)), d_table, work
 
 
 def _widths(params: list) -> tuple[int, int, int, int]:

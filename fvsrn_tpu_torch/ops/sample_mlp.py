@@ -1,0 +1,110 @@
+"""Host side of the batched sample MLP (``csrc/sample_mlp.cuh``), the
+device layer both training backwards (``csrc/segment_bwd.cu``,
+``csrc/mega_bwd.cu``) compute their network products on.
+
+- :func:`tf32_split`: the three-pass TF32 split the kernels apply to every
+  product operand (``split`` in the header): ``x = hi + lo``, both
+  rounded to TF32 (10 explicit mantissa bits, round to nearest, ties away
+  from zero, as ``cvt.rna.tf32.f32``), so that ``hi*hi' + hi*lo' +
+  lo*hi'`` carries a float32 product to within about 2^-21.
+- :func:`smem_plan`: the shared-memory plan a launch takes (``make_plan``
+  and ``choose_plan`` in the header): region sizes in floats, the tile's
+  rows M (64, 48, 32 or 16) and the weight rows' padding: the largest
+  with which an SM holds two blocks, else the largest that fits in the
+  227 KB a block may use; :func:`check_plan` raises for
+  widths no plan fits.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import Tensor
+
+SMEM_LIMIT = 232448      # bytes of shared memory a block may use (227 KB)
+SMEM_TWO = 115712        # bytes each of two blocks an SM holds
+GROUP = 32               # rays of a group (one warp's lanes)
+SEG_MAX = 32             # samples per segment
+ROW_FLOATS = 24          # per-row scalars of a tile
+RAY_FLOATS = 12          # per-ray scalars a kernel stages
+# the plans tried, in order: (tile rows, weight-row padding)
+CANDIDATES = ((64, 8), (48, 8), (32, 8), (16, 8), (16, 0))
+
+
+def _round_tf32(x: Tensor) -> Tensor:
+    """float32 -> TF32 (low 13 mantissa bits zero), round to nearest with
+    ties away from zero; inf and NaN pass unchanged."""
+    bits = x.contiguous().view(torch.int32)
+    finite = (bits & 0x7F800000) != 0x7F800000
+    sign = bits & ~0x7FFFFFFF
+    mag = (bits & 0x7FFFFFFF) + 0x1000          # half of the dropped ulp
+    rounded = sign | (mag & ~0x1FFF)
+    return torch.where(finite, rounded, bits).view(torch.float32)
+
+
+def tf32_split(x: Tensor) -> tuple[Tensor, Tensor]:
+    """(hi, lo), both TF32, with hi + lo within 2^-22 |x| of float32 x."""
+    x = x.to(torch.float32)
+    hi = _round_tf32(x)
+    return hi, _round_tf32(x - hi)
+
+
+def _take(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+@dataclass(frozen=True)
+class Plan:
+    tile_rows: int
+    pad: int
+    regions: dict
+
+    @property
+    def floats(self) -> int:
+        return sum(self.regions.values())
+
+    @property
+    def bytes(self) -> int:
+        return 4 * self.floats
+
+
+def make_plan(hidden: int, k1: int, n_hidden: int, n_fourier: int,
+              tf_points: int, tile_rows: int, pad: int) -> Plan:
+    """The regions (floats, each rounded up to 4) of one tile size."""
+    r16 = -(-k1 // 16) * 16
+    ldx, lda, ldw = r16 + 4, hidden + 4, hidden + pad
+    n_vec = (hidden + n_hidden * hidden + 4 * hidden + 4 + 6 * n_fourier
+             + 5 * tf_points)
+    acts = (n_hidden + 1) * tile_rows * lda
+    regions = dict(
+        W1=r16 * ldw, Wh=n_hidden * hidden * ldw, vec=n_vec,
+        X=tile_rows * ldx, dact=acts, hreg=max(acts, tile_rows * ldx),
+        rows=tile_rows * ROW_FLOATS, sc=2 * GROUP * SEG_MAX,
+        sray=GROUP * RAY_FLOATS, masks=4 * GROUP, list=GROUP * SEG_MAX // 2,
+        misc=8)
+    return Plan(tile_rows, pad, {k: _take(v) for k, v in regions.items()})
+
+
+def smem_plan(hidden: int, k1: int, n_hidden: int, n_fourier: int,
+              tf_points: int) -> Plan | None:
+    """The first of :data:`CANDIDATES` with which an SM holds two blocks,
+    else the first that fits one, or None."""
+    for limit in (SMEM_TWO, SMEM_LIMIT):
+        for rows, pad in CANDIDATES:
+            plan = make_plan(hidden, k1, n_hidden, n_fourier, tf_points,
+                             rows, pad)
+            if plan.bytes <= limit:
+                return plan
+    return None
+
+
+def check_plan(kernel: str, hidden: int, k1: int, n_hidden: int,
+               n_fourier: int, tf_points: int) -> Plan:
+    """:func:`smem_plan`, raising ``NotImplementedError`` when none fits."""
+    plan = smem_plan(hidden, k1, n_hidden, n_fourier, tf_points)
+    if plan is None:
+        raise NotImplementedError(
+            f"{kernel}: no shared-memory plan fits in {SMEM_LIMIT} bytes for "
+            f"width {hidden}, first-layer input {k1}, {n_hidden} hidden "
+            f"layers, {n_fourier} Fourier features, {tf_points} TF points")
+    return plan

@@ -506,3 +506,191 @@ def test_sample_eval_kernel_matches_plain(case, want_grad):
     if want_grad:
         inner = (pos.abs() < 0.45).all(dim=1)
         assert rel_err(got[2][inner], grad[inner]) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the redesigned training backwards (csrc/sample_mlp.cuh): compaction edges,
+# widths, Fourier counts, determinism
+
+SEG_GRAD_KW = dict(stepsize=1 / 128, max_steps=222, seg=32, tile=128)
+OPAQUE_TF = dict(rgb=[[0.9, 0.1, 0.1], [0.1, 0.9, 0.1], [0.1, 0.1, 0.9]],
+                 opacity=[2.0, 10.0, 30.0], positions=[0.0, 0.45, 1.0])
+
+
+def segment_grads_match(net, rs, rd, tf, **kw):
+    """The scan engine's kernel pair against its plain pair on the same
+    rays: image <= 1e-4 and every gradient leaf of sum(w * rgba), w
+    seeded, within a relative norm error of 1e-3."""
+    kw = dict(SEG_GRAD_KW, **kw, differentiable=True)
+    w = torch.empty(rs.shape[0], 4, device="cuda").uniform_(
+        -1, 1, generator=torch.Generator("cuda").manual_seed(1))
+    got = []
+    for fn in (fused_dvr.fused_trace_dvr, fused_dvr.fused_trace_dvr_plain):
+        net.zero_grad(set_to_none=True)
+        tf_leaf = tf.cuda().requires_grad_(True)
+        img = fn(rs, rd, net, *BOX, tf_leaf, **kw)
+        (img * w).sum().backward()
+        torch.cuda.synchronize()
+        g = {n: p.grad.clone() for n, p in net.named_parameters()}
+        if not net.output_mode.startswith("rgbo"):
+            g["tf"] = tf_leaf.grad.clone()
+        got.append((img.detach(), g))
+    (img_k, g_k), (img_p, g_p) = got
+    torch.testing.assert_close(img_k, img_p, rtol=0, atol=ATOL)
+    assert sorted(g_k) == sorted(g_p)
+    for name in g_p:
+        assert g_k[name].shape == g_p[name].shape, name
+        if g_p[name].numel():      # no Fourier feature: an empty matrix
+            assert rel_err(g_k[name], g_p[name]) <= 1e-3, name
+
+
+def segment_bwd_direct(net, rs, rd, tf, partial_rows=False, **kw):
+    """One launch of each kernel of the pair through their wrappers:
+    (backward's gradient or partial rows, table gradient, [replayed,
+    contributing], valid samples of the forward)."""
+    kw = dict(SEG_GRAD_KW, **kw)
+    spec, rays, kbase = fused_dvr._segment_setup(
+        rs, rd, net, *BOX, density_min=0.0, density_max=1.0,
+        blend_mode="beer_lambert", alpha_early_out=0.999, seg=kw["seg"],
+        tile=kw["tile"], differentiable=True, latent_mode="table",
+        table_dtype=torch.float32, n_seg=None, need_normals=False,
+        iso_value=None, tf_mode="piecewise", tmax_clip=None,
+        stepsize=kw["stepsize"], max_steps=kw["max_steps"],
+        enable_early_out=False)
+    tf = tf.cuda()
+    weights = fused_dvr.pack_segment_weights(net, tf)
+    table = fused_dvr.segment_table(net, torch.float32, rs.device)
+    out, st, carries, death = fused_dvr.launch_segment(
+        spec, net, rays, kbase, weights, table, tf.shape[0],
+        store_carries=True)
+    d_out = 2.0 * out / out.numel()
+    dw, d_table, work = fused_dvr_bwd.launch_segment_bwd(
+        spec, net, rays, kbase, weights, table, carries, death, d_out,
+        tf.shape[0], partial_rows=partial_rows)
+    torch.cuda.synchronize()
+    return dw, d_table, work.tolist(), int(st.samples)
+
+
+def test_segment_bwd_every_sample_contributes():
+    """Parallel rays through the whole box, a sigmoid density head and a
+    TF that absorbs everywhere: every valid sample contributes, so each
+    segment's tiles are full."""
+    needs_card()
+    net = random_net(output_mode="density").cuda()
+    tf = TransferFunctionPiecewiseLinear.make(**OPAQUE_TF).tensor
+    g = torch.linspace(-0.45, 0.45, 16, device="cuda")
+    xy = torch.stack(torch.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    rs = torch.cat([xy, torch.full_like(xy[:, :1], -1.0)], 1).contiguous()
+    rd = torch.zeros_like(rs)
+    rd[:, 2] = 1.0
+    _, _, work, n_valid = segment_bwd_direct(net, rs, rd, tf)
+    assert work == [n_valid, n_valid] and n_valid >= 256 * 128
+    segment_grads_match(net, rs, rd, tf)
+
+
+def test_segment_bwd_one_contributing_sample():
+    """A block where one ray grazes the box's edge (a chord shorter than a
+    step: one sample) and every other ray misses it: the compaction's
+    edge, one row in one tile of one group."""
+    needs_card()
+    net = random_net(output_mode="density").cuda()
+    tf = TransferFunctionPiecewiseLinear.make(**OPAQUE_TF).tensor
+    rs = torch.tensor([[2.0, 2.0, 2.0]], device="cuda").repeat(128, 1)
+    rd = torch.tensor([[1.0, 0.0, 0.0]], device="cuda").repeat(128, 1)
+    rs[37] = torch.tensor([0.498, -0.501, 0.1])
+    rd[37] = torch.tensor([1.0, 1.0, 0.0]) / math.sqrt(2.0)
+    dw, _, work, n_valid = segment_bwd_direct(net, rs, rd, tf)
+    assert n_valid == 1 and work == [1, 1]
+    assert float(dw.abs().max()) > 0
+    segment_grads_match(net, rs, rd, tf)
+
+
+def test_segment_bwd_ray_count_off_the_block():
+    """1000 rays: a multiple of neither the block's 64 rays nor a tile."""
+    needs_card()
+    net = random_net().cuda()
+    tf = dense_scene()[1].tensor
+    rs, rd = generate_rays(CameraOnASphere.make(pitch=0.3, yaw=0.8,
+                                                distance=1.6),
+                           40, 25, device="cuda")
+    segment_grads_match(net, rs.reshape(-1, 3).contiguous(),
+                        rd.reshape(-1, 3).contiguous(), tf, tile=8)
+
+
+@pytest.mark.parametrize("fourier", [0, 32])
+@pytest.mark.parametrize("width", [32, 48, 64])
+def test_segment_bwd_widths_and_fourier(width, fourier):
+    """Each hidden width's instance with no Fourier feature and with the
+    kernels' largest count."""
+    needs_card()
+    net = random_net(width=width, fourier=fourier).cuda()
+    tf = dense_scene()[1].tensor
+    rs, rd = generate_rays(CameraOnASphere.make(pitch=0.3, yaw=0.8,
+                                                distance=1.6),
+                           60, 44, device="cuda")
+    rs, rd, _ = pad_rays(rs.reshape(-1, 3), rd.reshape(-1, 3), 128)
+    segment_grads_match(net, rs, rd, tf)
+
+
+def test_segment_bwd_deterministic():
+    """Two launches give bitwise-equal partial rows: every weight-gradient
+    entry of a block is owned by one thread."""
+    needs_card()
+    net = random_net(direction=True).cuda()
+    tf = dense_scene()[1].tensor
+    rs, rd = generate_rays(CameraOnASphere.make(pitch=0.3, yaw=0.8,
+                                                distance=1.6),
+                           60, 44, device="cuda")
+    rs, rd, _ = pad_rays(rs.reshape(-1, 3), rd.reshape(-1, 3), 128)
+    a = segment_bwd_direct(net, rs, rd, tf, partial_rows=True)
+    b = segment_bwd_direct(net, rs, rd, tf, partial_rows=True)
+    assert a[0].shape[0] == -(-rs.shape[0] // 64)
+    assert float(a[0].abs().max()) > 0
+    assert torch.equal(a[0], b[0])
+
+
+@pytest.mark.parametrize("hidden", [32, 48, 64])
+def test_segment_bwd_smem_plan_matches_device(hidden):
+    """The device's shared-memory plan equals ops.sample_mlp's mirror at
+    the flagship's widths and at the kernels' largest limits."""
+    needs_card()
+    from fvsrn_tpu_torch.ops import sample_mlp
+    for nf, chunks, nh, tp in ((14, 1, 2, 8), (32, 4, 6, 16)):
+        plan = sample_mlp.smem_plan(hidden, 6 + 2 * nf + 16 * chunks, nh, nf,
+                                    tp)
+        assert fused_dvr_bwd.device_smem_plan(hidden, nf, chunks, nh, tp) \
+            == (plan.bytes, plan.tile_rows, plan.pad)
+
+
+@pytest.mark.parametrize("fourier", [0, 32])
+def test_mega_backward_fourier_counts(fourier):
+    """Row 3 with no Fourier feature and with the kernels' largest count:
+    every gradient leaf within a relative norm error of 1e-3."""
+    needs_card()
+    net = random_net(fourier=fourier).cuda()
+    got, want = kernel_and_plain_grads(*diff_case("random", True, net=net))
+    for name in want:
+        assert got[name].shape == want[name].shape, name
+        if want[name].numel():
+            assert rel_err(got[name], want[name]) <= 1e-3, name
+
+
+def test_mega_backward_deterministic():
+    """Two launches of row 3 give bitwise-equal partial rows."""
+    needs_card()
+    net, tf, rays, spec = diff_case("random", True)
+    params = fused_mega._params(net, tf)
+    widths = fused_mega._widths(params)
+    weights = fused_mega._pack_weights(params)
+    table = fused_mega._kernel_table(params[2], torch.float32, rays.device)
+    fwd = fused_mega._launch_fwd(rays, weights, table, spec, *widths[:3],
+                                 n_seg_max=fused_mega.segments_needed(rays,
+                                                                      spec))
+    d_out = 2.0 * fwd[0] / fwd[0].numel()
+    rows = [fused_mega._launch_bwd(rays, weights, table, fwd[2], fwd[3],
+                                   d_out, spec, *widths,
+                                   partial_rows=True)[0] for _ in range(2)]
+    torch.cuda.synchronize()
+    assert rows[0].shape[0] == rays.shape[0] // 256
+    assert float(rows[0].abs().max()) > 0
+    assert torch.equal(rows[0], rows[1])

@@ -1,0 +1,95 @@
+"""Host side of the training backwards' batched sample MLP
+(fvsrn_tpu_torch/ops/sample_mlp.py, mirror of csrc/sample_mlp.cuh): the
+three-pass TF32 split of the products' operands and the shared-memory
+plan of a launch. The device's own plan is held to this mirror on the
+card (tests/test_torch_kernels.py::test_segment_bwd_smem_plan_matches_device).
+"""
+import numpy as np
+import pytest
+import torch
+
+from fvsrn_tpu_torch.ops import fused_dvr
+from fvsrn_tpu_torch.ops.sample_mlp import (SMEM_LIMIT, SMEM_TWO,
+                                            check_plan, make_plan, smem_plan,
+                                            tf32_split)
+
+
+def _values(seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(20000) * np.exp(rng.uniform(-30, 30, 20000))
+    # the products' operands: normal floats, far from overflow (hi of the
+    # largest float rounds to inf) and from the subnormals (lo loses bits)
+    edge = [1.0, -1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12, 3.0e30, -1.2e-30,
+            1.0 - 2.0 ** -24, 2.0 ** -100 * (1.0 + 2.0 ** -11)]
+    return torch.from_numpy(np.concatenate([x, edge]).astype(np.float32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tf32_split_round_trip(seed):
+    """hi and lo are TF32 (low 13 mantissa bits zero) and hi + lo gives
+    the float32 value back within 2^-22 of its magnitude."""
+    x = _values(seed)
+    hi, lo = tf32_split(x)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert bool((err <= 2.0 ** -22 * x.double().abs()).all())
+    # hi alone is the TF32 rounding: within half a TF32 ulp
+    assert bool(((hi.double() - x.double()).abs()
+                 <= 2.0 ** -11 * x.double().abs()).all())
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    """cvt.rna.tf32.f32: round to nearest, ties away from zero."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2 ** -23,
+                      one + 1.5 * ulp], dtype=torch.float32)
+    hi, _ = tf32_split(x)
+    assert hi.tolist() == [one + ulp, -(one + ulp), one, one + 2 * ulp]
+
+
+@pytest.mark.parametrize("hidden", [32, 48, 64])
+def test_plan_fits_at_the_kernels_limits(hidden):
+    """At the per-segment kernels' largest Fourier count, latent channels,
+    hidden layers and TF points a plan fits in 227 KB."""
+    k1 = 6 + 2 * fused_dvr.MAX_FOURIER + fused_dvr.MAX_LATENT_CHANNELS
+    plan = smem_plan(hidden, k1, fused_dvr.MAX_HIDDEN_LAYERS,
+                     fused_dvr.MAX_FOURIER, fused_dvr.MAX_TF_POINTS)
+    assert plan is not None and plan.bytes <= SMEM_LIMIT
+    assert plan.tile_rows in (16, 32, 48, 64) and plan.pad in (0, 8)
+    assert check_plan("k", hidden, k1, fused_dvr.MAX_HIDDEN_LAYERS,
+                      fused_dvr.MAX_FOURIER, fused_dvr.MAX_TF_POINTS) == plan
+
+
+@pytest.mark.parametrize("case", ["segment_64_max", "segment_flagship",
+                                  "mega_max"])
+def test_plan_regions(case):
+    """The tile and padding each width takes, and the regions' sum (hand
+    counted from csrc/sample_mlp.cuh's make_plan): the flagship's widths
+    take the largest tile with which an SM holds two blocks; the largest
+    limits one block of 16 rows."""
+    args, rows, pad, nbytes = {
+        "segment_64_max": ((64, 134, 6, 32, 16), 16, 0, 223344),
+        "segment_flagship": ((32, 50, 2, 14, 8), 64, 8, 113056),
+        "mega_max": ((32, 83, 6, 32, 16), 16, 8, 101104)}[case]
+    plan = smem_plan(*args)
+    assert (plan.tile_rows, plan.pad, plan.bytes) == (rows, pad, nbytes)
+    assert all(v % 4 == 0 for v in plan.regions.values())
+    assert (plan.bytes <= SMEM_TWO) == (case != "segment_64_max")
+    assert plan.regions["hreg"] >= plan.regions["X"]
+    # phase B keeps the alpha entering each (ray, sample) over dact + hreg
+    assert plan.regions["dact"] + plan.regions["hreg"] >= 32 * 32
+
+
+@pytest.mark.parametrize("beyond", [dict(n_hidden=7), dict(n_fourier=48),
+                                    dict(k_extra=32)])
+def test_plan_raises_beyond_the_limits(beyond):
+    """Past the limits at width 64 no plan fits: check_plan raises."""
+    nf = beyond.get("n_fourier", 32)
+    nh = beyond.get("n_hidden", 6)
+    k1 = 6 + 2 * nf + 64 + beyond.get("k_extra", 0)
+    assert smem_plan(64, k1, nh, nf, 16) is None
+    with pytest.raises(NotImplementedError):
+        check_plan("segment backward kernel", 64, k1, nh, nf, 16)
+    assert make_plan(64, k1, nh, nf, 16, 16, 0).bytes > SMEM_LIMIT

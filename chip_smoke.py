@@ -403,7 +403,7 @@ def training(smi, reset_counts, counts, npz, tf, cam):
     for name, replaces, ms, plain, flops, nbytes, err_, extra in (
             ("mega_fwd_diff", "fvsrn_tpu/ops/fused_mega.py:962", fwd_ms,
              plain_fwd_ms, fwd_flops, fwd_bytes, img_err,
-             {"samples": n_samples}),
+             {"samples": n_samples, "ptxas": ptxas_summary("mega_fwd")}),
             ("mega_bwd", "fvsrn_tpu/ops/fused_mega.py:1023", bwd_ms,
              plain_bwd_ms, bwd_flops, bwd_bytes, grad_abs,
              {"grad_rel_err": grad_rel[worst], "samples_replayed":
@@ -645,7 +645,8 @@ def segment_paths(smi, reset_counts, counts, npz, tf, cam):
         "bound_by": bound_by, "library_ms": None, "bound_f32_ms": bound_f32_s * 1e3,
         "frame_ms": mean_ms, "stop": stop, "samples_valid": samples,
         "samples_scheduled": scheduled, "oracle_max_abs_err": oerr,
-        "phase_errors": errs, "iso_hit_share": hit}
+        "phase_errors": errs, "iso_hit_share": hit,
+        "ptxas": ptxas_summary("segment_fwd")}
 
 
 def scan_training(smi, reset_counts, counts, npz, tf, cam):
@@ -894,7 +895,8 @@ def scan_training(smi, reset_counts, counts, npz, tf, cam):
             | ({"no_scatter_ms": no_scatter_ms,
                 "scatter_share": scatter_share,
                 "ptxas": ptxas_summary("segment_bwd")}
-               if name == "segment_bwd" else {}))
+               if name == "segment_bwd"
+               else {"ptxas": ptxas_summary("segment_fwd")}))
     print(f"phase F training step, scan engine [{smi}]: {step_ms:.3f} "
           f"ms/step (fwd + L1 + bwd + Adam, mean of {TIMED_STEPS} after a "
           f"warm-up), {n_rays / step_ms / 1e3:.3f} Mrays/s; kernels fwd "
@@ -1543,7 +1545,8 @@ def main():
                      > io_bytes / PEAK_BYTES else "bytes"),
         "library_ms": None,
         "bound_f32_ms": bound_f32_s * 1e3, "frame_ms": mean_ms,
-        "samples": n_samples, "oracle_max_abs_err": oerr}
+        "samples": n_samples, "oracle_max_abs_err": oerr,
+        "ptxas": ptxas_summary("mega_fwd")}
     train_rows = training(smi, reset_counts, counts, npz, tf, cam)
     segment_row = segment_paths(smi, reset_counts, counts, npz, tf, cam)
     scan_rows = scan_training(smi, reset_counts, counts, npz, tf, cam)

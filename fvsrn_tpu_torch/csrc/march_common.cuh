@@ -15,6 +15,36 @@
 
 namespace march {
 
+// Phase timers of the forwards (clock64, summed per thread) in a build
+// with -DSMLP_PROFILE; nothing otherwise.
+#ifdef SMLP_PROFILE
+__device__ unsigned long long smlp_prof[16];
+struct FwdProf {
+  long long t;
+  unsigned long long acc[8];
+};
+#define FWD_MARK(fp, i)                                   \
+  do {                                                    \
+    if (fp) {                                             \
+      const long long n_ = clock64();                     \
+      (fp)->acc[i] += (unsigned long long)(n_ - (fp)->t); \
+      (fp)->t = n_;                                       \
+    }                                                     \
+  } while (0)
+__device__ __forceinline__ void fwd_prof_flush(const FwdProf& f) {
+  for (int i = 0; i < 8; ++i) {
+    unsigned long long v = f.acc[i];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if ((threadIdx.x & 31) == 0) atomicAdd(&smlp_prof[i], v);
+  }
+}
+#else
+struct FwdProf {};
+#define FWD_MARK(fp, i) \
+  do {                  \
+  } while (0)
+#endif
+
 constexpr int kLat = 16;        // channels in one table row (zero padded)
 
 enum Act { kNone = 0, kReLU, kSine, kSigmoid, kSoftplus, kSnake, kSnakeAlt };
@@ -113,9 +143,11 @@ __device__ __forceinline__ void head_adjoint(int head, const float* y,
 
 // The 8 corners of a trilinear fetch with grid_sample semantics
 // (align_corners=False, border clamp): x in [0, 1] maps to voxel centers
-// at (i + 0.5) / n. `row` is the voxel's index in (z, y, x) order.
+// at (i + 0.5) / n. `row` is the voxel's index in (z, y, x) order, 32 bits
+// (registers; every index of a table, times its rows and channels, stays
+// below 2^32).
 struct Corners {
-  size_t row[8];
+  uint32_t row[8];
   float w[8];
 };
 
@@ -143,7 +175,7 @@ __device__ __forceinline__ void grid_corners(int gx, int gy, int gz, float x0,
     const int cx = k & 1, cy = (k >> 1) & 1, cz = k >> 2;
     c.w[k] = (cz ? fz : 1.0f - fz) * (cy ? fy : 1.0f - fy)
              * (cx ? fx : 1.0f - fx);
-    c.row[k] = ((size_t)(cz ? hz : lz) * gy + (cy ? hy : ly)) * gx
+    c.row[k] = ((uint32_t)(cz ? hz : lz) * gy + (cy ? hy : ly)) * gx
                + (cx ? hx : lx);
   }
 }
@@ -151,6 +183,7 @@ __device__ __forceinline__ void grid_corners(int gx, int gy, int gz, float x0,
 // Table element types, one 16-channel row per call: bf16 (2 x 16 bytes)
 // and float32 (4 x 16 bytes).
 struct Bf16Table {
+  static constexpr int kBytes = 2;
   static __device__ __forceinline__ void add(const void* table, size_t row,
                                              float w, float* lat) {
     const uint4* p = static_cast<const uint4*>(table) + row * 2;
@@ -169,6 +202,7 @@ struct Bf16Table {
 };
 
 struct F32Table {
+  static constexpr int kBytes = 4;
   static __device__ __forceinline__ void add(const void* table, size_t row,
                                              float w, float* lat) {
     const float4* p = static_cast<const float4*>(table) + row * 4;

@@ -1,11 +1,11 @@
 // Device code shared by the megakernel's forward (mega_fwd.cu) and
 // backward (mega_bwd.cu): the packed-weight layout, the call's geometry,
-// the tile's rays and occupancy mask; the forward's SRN on one sample
-// (SnakeAlt MLP, density:direct head, `shade`). The per-sample pieces every
-// fused march shares (trilinear latent fetch and its adjoint, Fourier
-// phase, piecewise-linear TF, the "over" step) are in march_common.cuh.
-// The backward evaluates its samples as tiles (sample_mlp.cuh): its replay
-// agrees with `shade` to float32 rounding, not bit for bit.
+// the tile's rays and occupancy mask. The per-sample pieces every fused
+// march shares (trilinear latent fetch and its adjoint, Fourier phase,
+// piecewise-linear TF, the "over" step) are in march_common.cuh. Both
+// kernels evaluate their samples as tiles: the forward on warp_mlp.cuh,
+// the backward on sample_mlp.cuh; the backward's replay agrees with the
+// forward to float32 rounding, not bit for bit.
 #pragma once
 
 #include "march_common.cuh"
@@ -24,7 +24,7 @@ constexpr int kMaxTf = 16;      // TF control points
 struct March {
   const float* rays;        // (R, 8): start xyz, dir xyz, k0_ray, tmax
   const void* table;        // (gz, gy, gx, 16), bf16 or float32
-  const float* weights;     // packed, see `Net`
+  const float* weights;     // packed, see `Offsets`
   int n_weights;
   int gx, gy, gz;
   int n_fourier, n_hidden, tf_points;
@@ -41,14 +41,8 @@ struct March {
 // (32, K1 = 3 + 2F + 16) over [pos, cos, sin, latent]; its bias (32);
 // n_hidden hidden layers (32, 32) each, then their biases (n_hidden, 32);
 // output row (32); output bias (1); TF control points (tf_points, 5) as
-// [r, g, b, absorption, position]. The backward's weight gradient uses the
-// same layout.
-struct Net {
-  const float *B, *W1, *b1, *Wh, *bh, *Wo, *bo, *TF;
-  int F, K1, n_hidden, tf_points;
-  float p;
-};
-
+// [r, g, b, absorption, position]. Every matrix is output-major. The
+// backward's weight gradient uses the same layout.
 struct Offsets {
   int B, W1, b1, Wh, bh, Wo, bo, TF;
 };
@@ -65,117 +59,6 @@ __host__ __device__ inline Offsets weight_offsets(int F, int n_hidden) {
   o.bo = o.Wo + kHid;
   o.TF = o.bo + 1;
   return o;
-}
-
-__device__ inline Net carve(const float* w, const March& P) {
-  const Offsets o = weight_offsets(P.n_fourier, P.n_hidden);
-  Net N;
-  N.B = w + o.B; N.W1 = w + o.W1; N.b1 = w + o.b1; N.Wh = w + o.Wh;
-  N.bh = w + o.bh; N.Wo = w + o.Wo; N.bo = w + o.bo; N.TF = w + o.TF;
-  N.F = P.n_fourier;
-  N.K1 = 3 + 2 * P.n_fourier + kLat;
-  N.n_hidden = P.n_hidden;
-  N.tf_points = P.tf_points;
-  N.p = P.act_param;
-  return N;
-}
-
-// SnakeAlt: (x + 1 - cos(2 p x)) / (2 p)
-__device__ __forceinline__ float snake_alt(float x, float p) {
-  return (x + 1.0f - cosf(2.0f * p * x)) / (2.0f * p);
-}
-
-// The trilinear fetch of the (gz, gy, gx, 16) table (march_common.cuh).
-__device__ __forceinline__ void corners(const March& P, float x0, float x1,
-                                        float x2, Corners& c) {
-  grid_corners(P.gx, P.gy, P.gz, x0, x1, x2, c);
-}
-
-template <typename Table>
-__device__ __forceinline__ void trilerp(const March& P, const Corners& c,
-                                        float* lat) {
-  trilerp16<Table>(P.table, c, 1, 0, lat);
-}
-
-// The SRN on one sample: layer 1 over [pos, cos(Bx), sin(Bx), latent],
-// SnakeAlt hidden layers, the linear output row. Returns the output's
-// pre-activation y.
-__device__ __forceinline__ float mlp(const Net& N, float x0, float x1,
-                                     float x2, const float* lat) {
-  const int F = N.F, K1 = N.K1;
-  float acc[kHid];
-#pragma unroll
-  for (int o = 0; o < kHid; ++o) {
-    const float* w = N.W1 + o * K1;
-    acc[o] = fmaf(w[0], x0, fmaf(w[1], x1, fmaf(w[2], x2, N.b1[o])));
-  }
-  for (int i = 0; i < F; ++i) {
-    float sn, cs;
-    sincosf(fourier_phase(N.B, i, x0, x1, x2), &sn, &cs);
-#pragma unroll
-    for (int o = 0; o < kHid; ++o) {
-      const float* w = N.W1 + o * K1 + 3;
-      acc[o] = fmaf(w[i], cs, fmaf(w[F + i], sn, acc[o]));
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < kLat; ++c) {
-#pragma unroll
-    for (int o = 0; o < kHid; ++o)
-      acc[o] = fmaf(N.W1[o * K1 + 3 + 2 * F + c], lat[c], acc[o]);
-  }
-  float hid[kHid];
-#pragma unroll
-  for (int o = 0; o < kHid; ++o) {
-    hid[o] = snake_alt(acc[o], N.p);
-  }
-  for (int l = 0; l < N.n_hidden; ++l) {
-    const float* W = N.Wh + l * kHid * kHid;
-#pragma unroll
-    for (int o = 0; o < kHid; ++o) acc[o] = N.bh[l * kHid + o];
-#pragma unroll
-    for (int i = 0; i < kHid; ++i) {
-#pragma unroll
-      for (int o = 0; o < kHid; ++o)
-        acc[o] = fmaf(W[o * kHid + i], hid[i], acc[o]);
-    }
-#pragma unroll
-    for (int o = 0; o < kHid; ++o) {
-      hid[o] = snake_alt(acc[o], N.p);
-    }
-  }
-  float y = N.bo[0];
-#pragma unroll
-  for (int i = 0; i < kHid; ++i) y = fmaf(N.Wo[i], hid[i], y);
-  return y;
-}
-
-__device__ __forceinline__ void tf_eval(const Net& N, float d, TfSample& s) {
-  tf_lookup(N.TF, N.tf_points, d, s);
-}
-
-// One lattice sample: latent fetch, MLP, density:direct head, TF. Returns
-// false when the sample does not count (value < density_min). `y` and
-// `value` are the head's input and output.
-struct Shaded {
-  float y, value;
-  TfSample tf;
-  Corners c;
-};
-
-template <typename Table>
-__device__ __forceinline__ bool shade(const March& P, const Net& N, float x0,
-                                      float x1, float x2, Shaded& s) {
-  float lat[kLat];
-  corners(P, x0, x1, x2, s.c);
-  trilerp<Table>(P, s.c, lat);
-  s.y = mlp(N, x0, x1, x2, lat);
-  s.value = fminf(fmaxf(s.y, 0.0f), 1.0f);  // density:direct
-  if (!(s.value >= P.density_min)) return false;
-  const float d = fminf(fmaxf((s.value - P.density_min) * P.inv_range, 0.0f),
-                        1.0f);
-  tf_eval(N, d, s.tf);
-  return true;
 }
 
 // Per-ray setup shared by both kernels: the ray packet and the tile's

@@ -7,15 +7,19 @@
 // visits and the number of segments it visited, so that mega_bwd.cu can
 // replay the tile's vote in reverse. Per sample: lattice position,
 // trilinear latent fetch from the channel-last table, Fourier features,
-// the SRN's MLP in float32, output head, piecewise-linear TF and
-// Beer-Lambert "over" into the ray's carry (mega_common.cuh).
+// the SRN's MLP, output head, piecewise-linear TF and Beer-Lambert "over"
+// into the ray's carry.
 //
-// Layout: one thread block per tile of 256 rays (one thread per ray), in
-// the caller's order (the product path passes 16x16 pixel blocks). The
-// weights and TF control points are staged once per block in shared
-// memory; every thread reads the same weight at the same time, so the
-// reads are broadcasts. The table stays in L2 (1 MB bf16, 2 MB float32 at
-// 32^3 x 16).
+// Layout: one thread block per tile of 256 rays, in the caller's order
+// (the product path passes 16x16 pixel blocks): eight groups of 32 rays,
+// warp w owning group w (lane = ray). Per segment each warp evaluates its
+// rays' valid samples on the warp-owned sample tile (warp_mlp.cuh): the
+// samples listed ray by ray, tiles of 32 rows, every layer a TF32
+// three-pass mma.sync product (float32-accurate) with the SnakeAlt
+// activation in its epilogue, composited in order by a segmented scan
+// over the tile. The weights and TF control points are staged once per
+// block in shared memory; the table stays in L2 (1 MB bf16, 2 MB float32
+// at 32^3 x 16).
 //
 // Semantics kept from the TPU kernel (they decide the image):
 //  - samples sit on the global lattice t = k*h; the tile's base k0t is the
@@ -27,20 +31,28 @@
 //    the caller's occupancy mask, when given, culls a segment besides;
 //  - a sample counts when t <= tmax (already clipped) and k >= k0_ray, and
 //    its value is >= density_min.
-// A per-ray early-out would give another image; the vote is per tile.
+// A per-ray early-out would give another image; the vote is per tile. The
+// three block-wide agreements a segment needs (a live point left, a live
+// point in the segment, a ray not saturated) are taken at one barrier:
+// each warp's ballots into a word of shared memory (two slots, by the
+// segment's parity, so that no warp overwrites a word another still
+// reads). A warp whose rays have no sample in a segment waits there for
+// the others; that wait is the vote barrier's phase in the profile.
 //
 // Bound: operations. A sample costs ~7.6 kFLOP (2*(14*3 + 47*32 + 2*32*32
 // + 32) for the MLP, plus trilerp and TF) and 110 transcendentals, against
 // 44 bytes of ray data per ray (and 16 bytes per ray and visited segment
-// of stored carries in training); this first version runs it on the
-// float32 CUDA cores, one sample at a time per thread. Moving the 32-wide
-// layers to mma/wgmma over samples batched per warpgroup is later work.
+// of stored carries in training). The products run at three TF32
+// tensor-core passes each; the activations, Fourier features and latent
+// fetch stay on the CUDA cores and the SFU.
 
 #include "mega_common.cuh"
+#include "warp_mlp.cuh"
 
 namespace {
 
 using namespace mega;
+using namespace wmlp;
 
 struct FwdOut {
   float* out;               // (R, 4) rgba
@@ -49,21 +61,98 @@ struct FwdOut {
   int* seg_count;           // (R / 256,) segments visited, or null
 };
 
+// A lattice point of a chunk from its ray's fields (sx, sy, sz, dx, dy,
+// dz): t = k*h.
+struct MegaPt {
+  const March& P;
+  float base;   // the chunk's first lattice index
+  __device__ __forceinline__ void point(const float* r, int j, float& t,
+                                        float* x, float* d) const {
+    t = (base + (float)j) * P.stepsize;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      x[c] = (r[c] + t * r[3 + c] - P.bmin[c]) / P.bsize[c];
+      d[c] = 0.0f;
+    }
+  }
+};
+
+// The packed weights (mega_common.cuh's Offsets: output-major) into the
+// plan's layout, transposed to input-major rows in the tile's column
+// order (zero rows past the position); the output row as row 0 of four, B
+// padded to F4 rows, no Bd.
+__device__ __forceinline__ void stage_weights(const March& P, const FPlan& pl,
+                                              const FDims& D, float* sm) {
+  const int F = D.F, nh = D.nh, K1 = 3 + 2 * F + kLat;
+  const Offsets off = weight_offsets(F, nh);
+  const float* w = P.weights;
+  stage_matrix<kHid>(pl, sm + pl.W1, D.K, [&](int k, int o) {
+    int src;   // the packed column: pos 3, cos F, sin F, latent 16
+    if (k < D.sin) src = 3 + k - D.cos;
+    else if (k < D.lat) src = 3 + F + k - D.sin;
+    else if (k < D.pos) src = 3 + 2 * F + k - D.lat;
+    else src = k - D.pos < 3 ? k - D.pos : -1;
+    return src >= 0 ? w[off.W1 + o * K1 + src] : 0.0f;
+  });
+  for (int l = 0; l < nh; ++l)
+    stage_matrix<kHid>(pl, sm + pl.Wh + l * pl.wl, kHid, [&](int k, int o) {
+      return w[off.Wh + (l * kHid + o) * kHid + k];
+    });
+  for (int i = threadIdx.x; i < kHid; i += kTile) {
+    sm[pl.b1 + i] = w[off.b1 + i];
+    sm[pl.Wo + i] = w[off.Wo + i];
+    sm[pl.Wo + kHid + i] = 0.0f;
+    sm[pl.Wo + 2 * kHid + i] = 0.0f;
+    sm[pl.Wo + 3 * kHid + i] = 0.0f;
+  }
+  for (int i = threadIdx.x; i < nh * kHid; i += kTile)
+    sm[pl.bh + i] = w[off.bh + i];
+  for (int i = threadIdx.x; i < 4; i += kTile)
+    sm[pl.bo + i] = i == 0 ? w[off.bo] : 0.0f;
+  for (int i = threadIdx.x; i < 3 * D.F4; i += kTile) {
+    sm[pl.B + i] = i < 3 * F ? w[off.B + i] : 0.0f;
+    sm[pl.Bd + i] = 0.0f;
+  }
+  for (int i = threadIdx.x; i < 5 * D.tp; i += kTile)
+    sm[pl.TF + i] = w[off.TF + i];
+}
+
 template <typename Table, bool kMasked>
-__global__ void __launch_bounds__(kTile) mega_fwd_kernel(const March P,
-                                                         const FwdOut O) {
-  extern __shared__ float sw[];
+__global__ void __launch_bounds__(kTile, 2) mega_fwd_kernel(const March P,
+                                                            const FwdOut O,
+                                                            const FLayer L) {
+  extern __shared__ float4 smem4[];
   __shared__ float red_f[kTile / 32];
   __shared__ int red_i[kTile / 32];
+  __shared__ unsigned votes[2][kTile / 32];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const FPlan& pl = L.pl;
+  const FDims& D = L.D;
 
-  for (int i = threadIdx.x; i < P.n_weights; i += kTile) sw[i] = P.weights[i];
-  const Net N = carve(sw, P);
+  stage_weights(P, pl, D, sm);
   const Ray R = load_ray(P, red_f);  // its barrier publishes the weights
+#ifdef SMLP_PROFILE
+  FwdProf prof = {};
+  FwdProf* fp = &prof;
+  prof.t = clock64();
+#else
+  FwdProf* fp = nullptr;
+#endif
 
+  const unsigned full = 0xffffffffu;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* tile = sm + pl.tiles + warp * pl.per_warp;
+  {   // the fields its rows read: (sx, sy, sz, dx, dy, dz)
+    float4* rf =
+        reinterpret_cast<float4*>(ray_fields(pl, tile) + kRayF * lane);
+    rf[0] = make_float4(R.sx, R.sy, R.sz, R.dx);
+    rf[1] = make_float4(R.dy, R.dz, 0.0f, 0.0f);
+    __syncwarp();
+  }
+  MegaPt pt{P, 0.0f};
   const float h = P.stepsize;
   const float segf = (float)P.seg;
-  float cr = 0.0f, cg = 0.0f, cb = 0.0f, ca = 0.0f;
-  int n_samples = 0;
+  Carry cy = {make_float4(0.0f, 0.0f, 0.0f, 0.0f), 0u};
   int visited = 0;
 
   for (int s = 0; s < P.n_seg_max; ++s) {
@@ -71,34 +160,53 @@ __global__ void __launch_bounds__(kTile) mega_fwd_kernel(const March P,
     const float first = fmaxf(R.k0r, ka) * h;
     const bool later = first <= R.tmx;   // a live point at or after ka
     const bool alive = first <= fminf(R.tmx, (ka + (segf - 1.0f)) * h);
-    if (!__syncthreads_or(later)) break;          // the tile is done
-    const bool active = __syncthreads_or(alive) && segment_on<kMasked>(P, s);
+    // the tile's votes: bit 0 a live point left, bit 1 a live point in
+    // the segment, bit 2 a ray below early_alpha
+    const unsigned mine = (__any_sync(full, later) ? 1u : 0u)
+                          | (__any_sync(full, alive) ? 2u : 0u)
+                          | (__any_sync(full, cy.c.w < P.early_alpha) ? 4u
+                                                                      : 0u);
+    if (lane == 0) votes[s & 1][warp] = mine;
+    FWD_MARK(fp, 5);
+    __syncthreads();
+    unsigned v = 0u;
+#pragma unroll
+    for (int w = 0; w < kTile / 32; ++w) v |= votes[s & 1][w];
+    FWD_MARK(fp, 4);
+    if (!(v & 1u)) break;                        // the tile is done
+    const bool active = (v & 2u) && segment_on<kMasked>(P, s);
     if (O.carries != nullptr)
       O.carries[((size_t)blockIdx.x * P.n_seg_max + s) * kTile
-                + threadIdx.x] = make_float4(cr, cg, cb, ca);
+                + threadIdx.x] = cy.c;
     visited = s + 1;
-    if (!__syncthreads_or(ca < P.early_alpha)) break;  // tile saturated
-    if (!active || !alive) continue;
-
-    for (int j = 0; j < P.seg; ++j) {
-      const float k = ka + (float)j;
-      const float t = k * h;
-      if (!(t <= R.tmx && k >= R.k0r)) continue;
-      ++n_samples;
-      float x0, x1, x2;
-      sample_pos(P, R, t, x0, x1, x2);
-      Shaded sh;
-      if (!shade<Table>(P, N, x0, x1, x2, sh)) continue;
-      const float absn = sh.tf.op * h;
-      const float a = 1.0f - expf(-absn);  // Beer-Lambert
-      over(cr, cg, cb, ca, sh.tf.r, sh.tf.g, sh.tf.b, a);
+    if (!(v & 4u)) break;                        // tile saturated
+    if (!active) continue;
+#pragma unroll 1
+    for (int q0 = 0; q0 < P.seg; q0 += kRows) {
+      uint32_t mask = 0u;
+      if (alive) {
+        const int nj = min(kRows, P.seg - q0);
+        for (int j = 0; j < nj; ++j) {
+          const float k = ka + (float)(q0 + j);
+          if (k * h <= R.tmx && k >= R.k0r) mask |= 1u << j;
+        }
+      }
+      cy.n += __popc(mask);
+      if (__any_sync(full, mask != 0u)) {
+        pt.base = ka + (float)q0;
+        warp_chunk<kHid, Table, kSnakeAlt>(pl, D, sm, tile, mask, pt, cy, fp);
+      }
     }
   }
+  FWD_MARK(fp, 5);
+#ifdef SMLP_PROFILE
+  fwd_prof_flush(prof);
+#endif
 
   const int ray = blockIdx.x * kTile + threadIdx.x;
-  reinterpret_cast<float4*>(O.out)[ray] = make_float4(cr, cg, cb, ca);
-  const int n = __reduce_add_sync(0xffffffffu, n_samples);
-  if ((threadIdx.x & 31) == 0) red_i[threadIdx.x >> 5] = n;
+  reinterpret_cast<float4*>(O.out)[ray] = cy.c;
+  const unsigned n = __reduce_add_sync(full, cy.n);
+  if (lane == 0) red_i[warp] = (int)n;
   __syncthreads();
   if (threadIdx.x == 0) {
     int total = 0;
@@ -110,35 +218,88 @@ __global__ void __launch_bounds__(kTile) mega_fwd_kernel(const March P,
 }
 
 template <typename Table, bool kMasked>
-int launch_instance(const March& P, const FwdOut& O, int n_rays,
-                    cudaStream_t stream) {
-  const size_t smem = (size_t)P.n_weights * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mega_fwd_kernel<Table, kMasked>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+int launch_instance(const March& P, const FwdOut& O, const FLayer& L,
+                    int n_rays, cudaStream_t stream) {
+  const size_t smem = (size_t)L.pl.total;
+  cudaError_t e = cudaFuncSetAttribute(
+      mega_fwd_kernel<Table, kMasked>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
   const int blocks = n_rays / kTile;
   if (blocks > 0)
-    mega_fwd_kernel<Table, kMasked><<<blocks, kTile, smem, stream>>>(P, O);
+    mega_fwd_kernel<Table, kMasked><<<blocks, kTile, smem, stream>>>(P, O, L);
   return (int)cudaGetLastError();
 }
 
 // The masked march is its own instance: the unmasked one (every render
 // without a zero band, and training) compiles as if the mask did not
-// exist, and keeps its registers.
+// exist.
 template <typename Table>
-int launch(const March& P, const FwdOut& O, int n_rays, cudaStream_t stream) {
+int launch(const March& P, const FwdOut& O, const FLayer& L, int n_rays,
+           cudaStream_t stream) {
   return P.seg_active != nullptr
-             ? launch_instance<Table, true>(P, O, n_rays, stream)
-             : launch_instance<Table, false>(P, O, n_rays, stream);
+             ? launch_instance<Table, true>(P, O, L, n_rays, stream)
+             : launch_instance<Table, false>(P, O, L, n_rays, stream);
+}
+
+// The tile's dims and the shared-memory plan (eight warps a block); false
+// when it does not fit.
+bool fill_layer(FLayer& L, const March& P) {
+  FDims& D = L.D;
+  set_columns(D, P.n_fourier, 1, 0);
+  D.nh = P.n_hidden;
+  D.tp = P.tf_points;
+  D.has_dir = 0;
+  D.act = kSnakeAlt;
+  D.head = kDensityDirect;
+  D.n_out = 1;
+  D.blend_alpha = 0;
+  D.iso = 0;
+  D.p = P.act_param;
+  D.inv_p = 1.0f / P.act_param;
+  D.inv_2p = 1.0f / (2.0f * P.act_param);
+  D.iso_value = 0.0f;
+  D.density_min = P.density_min;
+  D.inv_range = P.inv_range;
+  D.h = P.stepsize;
+  D.gx = P.gx;
+  D.gy = P.gy;
+  D.gz = P.gz;
+  D.table = P.table;
+  return choose_fwd_plan(kHid, D.K, D.nh, D.F4, D.tp, kTile / 32, L.pl);
 }
 
 }  // namespace
 
-// Weights packed as in mega_common.cuh (`Net`). `table` is (gz, gy, gx, 16)
-// bf16 (table_f32 = 0) or float32 (table_f32 = 1). `carries` and
+#ifdef SMLP_PROFILE
+// The phase timers' sums since the last read (march_common.cuh), reset.
+extern "C" int smlp_prof_read(unsigned long long* out) {
+  cudaMemcpyFromSymbol(out, smlp_prof, sizeof(smlp_prof));
+  unsigned long long zero[16] = {};
+  cudaMemcpyToSymbol(smlp_prof, zero, sizeof(zero));
+  return (int)cudaGetLastError();
+}
+#endif
+
+// The shared-memory plan a launch takes (warp_mlp.cuh's choose_fwd_plan at
+// eight warps): out = [bytes, warps a block, matrices pre-split]. Returns
+// 0, or -1 when it does not fit in 227 KB.
+extern "C" int mega_fwd_smem(int n_fourier, int n_hidden, int tf_points,
+                             long* out) {
+  FDims D;
+  set_columns(D, n_fourier, 1, 0);
+  FPlan pl;
+  if (!choose_fwd_plan(kHid, D.K, n_hidden, D.F4, tf_points, kTile / 32,
+                       pl))
+    return -1;
+  out[0] = pl.total;
+  out[1] = pl.warps;
+  out[2] = pl.pre;
+  return 0;
+}
+
+// Weights packed as in mega_common.cuh (`Offsets`). `table` is (gz, gy,
+// gx, 16) bf16 (table_f32 = 0) or float32 (table_f32 = 1). `carries` and
 // `seg_count` may be null (the render); otherwise carries holds
 // n_seg_max x 256 float4 per tile. `seg_active` (tiles x mask_cols bytes,
 // or null) culls segments (mega_common.cuh `segment_on`). n_rays must be a
@@ -153,7 +314,7 @@ extern "C" int mega_fwd_launch(
     float bmin_x, float bmin_y, float bmin_z, float bsize_x, float bsize_y,
     float bsize_z, const uint8_t* seg_active, int mask_cols, void* stream) {
   if (n_fourier > kMaxFourier || n_hidden > kMaxHidden
-      || tf_points > kMaxTf || tf_points < 2)
+      || tf_points > kMaxTf || tf_points < 2 || seg < 1)
     return (int)cudaErrorInvalidValue;
   const float bmin[3] = {bmin_x, bmin_y, bmin_z};
   const float bsize[3] = {bsize_x, bsize_y, bsize_z};
@@ -163,12 +324,14 @@ extern "C" int mega_fwd_launch(
              density_min, inv_range, early_alpha, bmin, bsize);
   P.seg_active = seg_active;
   P.mask_cols = mask_cols;
+  FLayer L;
+  if (!fill_layer(L, P)) return (int)cudaErrorInvalidValue;
   FwdOut O;
   O.out = out;
   O.tile_samples = tile_samples;
   O.carries = reinterpret_cast<float4*>(carries);
   O.seg_count = seg_count;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return table_f32 ? launch<F32Table>(P, O, n_rays, st)
-                   : launch<Bf16Table>(P, O, n_rays, st);
+  return table_f32 ? launch<F32Table>(P, O, L, n_rays, st)
+                   : launch<Bf16Table>(P, O, L, n_rays, st);
 }

@@ -50,10 +50,9 @@ namespace smlp {
 
 using namespace march;
 
-// Phase timers (clock64 on thread 0 of each block) in a build with
-// -DSMLP_PROFILE; nothing otherwise.
+// Phase timers (clock64 on thread 0 of each block, into smlp_prof of
+// march_common.cuh) in a build with -DSMLP_PROFILE; nothing otherwise.
 #ifdef SMLP_PROFILE
-__device__ unsigned long long smlp_prof[16];
 #define SMLP_START(t) long long t = clock64()
 #define SMLP_MARK(t, i)                                                  \
   do {                                                                   \
@@ -325,14 +324,18 @@ __device__ __forceinline__ void frag_rc(int j, int e, int& r, int& c) {
 }
 
 // sin and cos of x: the angle reduced to [-pi, pi] by a two-constant
-// Cody-Waite step, then the SFU's __sincosf (absolute error about 4e-7 on
-// that interval). CUDA's accurate sinf/cosf cost the backwards a third of
-// their time; the gates hold the gradients to 2e-4 of the plain version.
-__device__ __forceinline__ void fast_sincos(float x, float* s, float* c) {
+// Cody-Waite step (reduce_angle), then the SFU's __sincosf (absolute error
+// about 4e-7 on that interval). CUDA's accurate sinf/cosf cost the
+// backwards a third of their time; the gates hold the gradients to 2e-4
+// of the plain version.
+__device__ __forceinline__ float reduce_angle(float x) {
   const float k = rintf(x * 0.159154943091895336f);
-  float r = fmaf(k, -6.28318548202514648f, x);   // 2 pi rounded up
-  r = fmaf(k, 1.74845553146951724e-7f, r);       // its excess
-  __sincosf(r, s, c);
+  const float r = fmaf(k, -6.28318548202514648f, x);   // 2 pi rounded up
+  return fmaf(k, 1.74845553146951724e-7f, r);          // its excess
+}
+
+__device__ __forceinline__ void fast_sincos(float x, float* s, float* c) {
+  __sincosf(reduce_angle(x), s, c);
 }
 
 // The activations without a sine (march_common.cuh's): none, ReLU,

@@ -30,32 +30,40 @@
 // Segments are independent per ray, so there is no block barrier besides
 // the one that publishes the weights.
 //
-// Layout: one thread per ray, 128 threads per block, rays in the caller's
-// order. The packed float32 weights (layout below) are staged once per
-// block in shared memory; every thread reads the same weight at the same
-// time (broadcasts). Each thread keeps its layer's accumulators in
-// registers and the activated layer in its own column of shared memory,
-// so the loops over a layer's inputs and the activation run as loops and
-// not as unrolled copies: every transcendental of the activations and
-// heads is compiled once per instance, which keeps nvcc's time in seconds.
-// Samples past tmax are not evaluated. The hidden width is a template
-// parameter (32, 48 or 64; narrower networks are zero-padded by the
-// wrapper, which is exact), the latent table type too; the activation and
-// the output head are runtime switches, uniform across the block.
+// Layout: a warp owns 32 consecutive rays of the caller's order (lane =
+// ray) and marches them on its own, segment by segment, while any of them
+// is alive; the block's warps (8, 4, 2 or 1, as the shared-memory plan
+// allows) share the staged weights. Per segment, warp_mlp.cuh: the live
+// rays' valid samples listed ray by ray, evaluated as tiles of 32 rows
+// with every layer a TF32 three-pass mma.sync product, composited in
+// order by a segmented scan over the tile. Only valid samples of live rays
+// become rows, so lanes that died or whose samples lie past tmax cost
+// nothing, and phase 1's few continuing rays fill whole tiles. The iso
+// epilogue takes a ray's first listed row above the isovalue; rows after
+// it are evaluated and ignored, and samples are counted up to the hit.
+// The hidden width is a template parameter (32, 48 or 64; narrower
+// networks are zero-padded by the wrapper, which is exact), the latent
+// table type too; the activation is a switch outside the tile's layers
+// (one instance of the layer chain each), the head a runtime switch.
 //
 // Bound: operations. A sample of the dense flagship costs ~7.6 kFLOP
 // (the MLP's multiply-adds, trilerp, TF) and ~110 transcendentals against
-// 32 bytes of ray data per ray; the table stays in L2. This first version
-// runs the MLP on the float32 CUDA cores, one sample per thread at a time.
+// 32 bytes of ray data per ray; the table stays in L2. The products run at
+// three TF32 tensor-core passes each (float32-accurate); the activations,
+// Fourier features and latent fetch stay on the CUDA cores and the SFU.
+
+#include <climits>
 
 #include "segment_common.cuh"
+#include "warp_mlp.cuh"
 
 namespace {
 
 using namespace march;
 using namespace segment;
+using namespace wmlp;
 
-constexpr int kBlock = 128;
+constexpr int kThreads = kMaxWarps * kRows;   // the largest block
 
 struct SegOut {
   float4* out;                 // (R,) rgba, or (depth, 0, 0, found) for iso
@@ -65,123 +73,246 @@ struct SegOut {
                                // ray runs (phase 0), or null
 };
 
-// Segments [s_begin, s_end) of one ray. Returns the first segment at which
-// the ray is dead: its segment start lies past tmax (then it has no valid
-// sample left) or, with `vote`, its alpha is >= early_alpha on entry. With
-// `store` (stride n_rays) the carry entering each segment it runs is kept.
-template <int H, typename Table>
-__device__ __forceinline__ int march(const Seg& P, const Wts& N, float* hs,
-                                     const Ray& r, int s_begin, int s_end,
-                                     bool vote, float4& c, unsigned& n,
-                                     float4* store) {
-  for (int s = s_begin; s < s_end; ++s) {
-    const float s0 = (float)(s * P.seg);
-    if (segment_start(P, r, s0) > r.tmx) return s;
-    if (vote && c.w >= P.early_alpha) return s;
-    if (store != nullptr) store[(size_t)s * P.n_rays] = c;
-    for (int j = 0; j < P.seg; ++j) {
-      float t;
-      if (!sample_t(P, r, s0 + (float)j, t)) continue;
-      if (P.iso && c.w > 0.5f) break;   // the hit is found: nothing changes
-      ++n;
-      float x0, x1, x2;
-      sample_pos(P, r, t, x0, x1, x2);
-      float v[4];
-      network<H, Table, kBlock, false>(P, N, hs, x0, x1, x2, r.dx, r.dy,
-                                       r.dz, v, nullptr);
-      if (P.iso) {
-        if (v[0] > P.iso_value) {
-          c.x = t;
-          c.w = 1.0f;
-        }
-        continue;
-      }
-      float cr, cg, cb, absn;
-      TfSample tf;
-      if (!sample_color(P, N, v, cr, cg, cb, absn, tf)) continue;
-      over(c.x, c.y, c.z, c.w, cr, cg, cb, sample_alpha(P, absn));
+// A sample of a chunk from its ray's fields (sx, sy, sz, dx, dy, dz, a,
+// kb): segment_common.cuh's sample_t and sample_pos.
+struct SegPt {
+  const Seg& P;
+  float base;   // the chunk's first sample, from the ray's first segment
+  __device__ __forceinline__ void point(const float* r, int j, float& t,
+                                        float* x, float* d) const {
+    const float kf = base + (float)j;
+    t = P.lattice ? __fmul_rn(r[7] + kf, P.stepsize)
+                  : __fadd_rn(r[6], __fmul_rn(kf, P.stepsize));
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      x[c] = (r[c] + t * r[3 + c] - P.bmin[c]) / P.bsize[c];
+      d[c] = r[3 + c];
     }
   }
-  return s_end;
+};
+
+// The packed weights (segment_common.cuh's Wts) into the plan's layout:
+// the first layer's inputs in the tile's column order, zeros for the
+// padding; B and Bd padded to F4 rows.
+template <int H>
+__device__ __forceinline__ void stage_weights(const Seg& P, const FPlan& pl,
+                                              const FDims& D, float* sm) {
+  const int F = D.F, nh = D.nh;
+  const int K1 = 6 + 2 * F + kLat * D.chunks;
+  const float* w = P.weights;
+  stage_matrix<H>(pl, sm + pl.W1, D.K, [&](int k, int o) {
+    int src;   // the packed row: pos 3, dir 3, cos F, sin F, latent
+    if (k < D.sin) src = 6 + k - D.cos;
+    else if (k < D.lat) src = 6 + F + k - D.sin;
+    else if (k < D.pos) src = 6 + 2 * F + k - D.lat;
+    else src = k - D.pos < (D.has_dir ? 6 : 3) ? k - D.pos : -1;
+    return src >= 0 ? w[src * H + o] : 0.0f;
+  });
+  const int off_wh = K1 * H + H;
+  for (int l = 0; l < nh; ++l)
+    stage_matrix<H>(pl, sm + pl.Wh + l * pl.wl, H, [&](int k, int o) {
+      return w[off_wh + (l * H + k) * H + o];
+    });
+  // b1; bh, Wo (4, H), bo (4) as packed; B, Bd padded; TF
+  for (int i = threadIdx.x; i < H; i += blockDim.x)
+    sm[pl.b1 + i] = w[K1 * H + i];
+  const int off_bh = off_wh + nh * H * H, n_tail = nh * H + 4 * H + 4;
+  for (int i = threadIdx.x; i < n_tail; i += blockDim.x)
+    sm[pl.bh + i] = w[off_bh + i];
+  const int off_b = off_bh + n_tail;
+  for (int i = threadIdx.x; i < 3 * D.F4; i += blockDim.x) {
+    sm[pl.B + i] = i < 3 * F ? w[off_b + i] : 0.0f;
+    sm[pl.Bd + i] = i < 3 * F ? w[off_b + 3 * F + i] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < 5 * D.tp; i += blockDim.x)
+    sm[pl.TF + i] = w[off_b + 6 * F + i];
 }
 
-// Shared memory: the packed weights, then (from a 16-byte boundary) the
-// activation scratch, H rows of kBlock floats.
 template <int H, typename Table>
-__global__ void __launch_bounds__(kBlock) segment_fwd_kernel(const Seg P,
-                                                             const SegOut O,
-                                                             int phase) {
+__global__ void __launch_bounds__(kThreads, 2) segment_fwd_kernel(
+    const Seg P, const SegOut O, const FLayer L, int phase) {
   extern __shared__ float4 smem4[];
-  float* sw = reinterpret_cast<float*>(smem4);
-  for (int i = threadIdx.x; i < P.n_weights; i += kBlock) sw[i] = P.weights[i];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const FPlan& pl = L.pl;
+  const FDims& D = L.D;
+  stage_weights<H>(P, pl, D, sm);
   __syncthreads();
-  const Wts N = carve(sw, P, H);
-  float* hs = sw + scratch_offset(P.n_weights) + threadIdx.x;
+#ifdef SMLP_PROFILE
+  FwdProf prof = {};
+  FwdProf* fp = &prof;
+  prof.t = clock64();
+#else
+  FwdProf* fp = nullptr;
+#endif
 
-  const int ray = blockIdx.x * kBlock + threadIdx.x;
+  const unsigned full = 0xffffffffu;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* tile = sm + pl.tiles + warp * pl.per_warp;
+  const int ray = (blockIdx.x * pl.warps + warp) * kRows + lane;
+  const bool real = ray < P.n_rays;
+  Ray r = {};
+  if (real) r = load_ray(P, ray);
+  {   // the fields its rows read: (sx, sy, sz, dx, dy, dz, a, kb)
+    float4* rf =
+        reinterpret_cast<float4*>(ray_fields(pl, tile) + kRayF * lane);
+    rf[0] = make_float4(r.sx, r.sy, r.sz, r.dx);
+    rf[1] = make_float4(r.dy, r.dz, r.a, r.kb);
+    __syncwarp();
+  }
+  // phase 0 marches every segment from the start, voting; phase 1
+  // continues a ray that died of saturation before the call's stop
+  int from = 0, to = P.n_seg;
+  Carry cy = {make_float4(0.0f, 0.0f, 0.0f, 0.0f), 0u};
+  if (phase == 1 && real) {
+    from = O.death[ray];
+    to = (int)O.stats[0];
+    if (from < to) cy.c = O.out[ray];
+  }
+  bool alive = real && from < to;
   int death = 0;
-  unsigned n = 0;
-  if (ray < P.n_rays) {
-    // phase 0 marches every segment from the start, voting; phase 1
-    // continues a ray that died of saturation before the call's stop
-    int from = 0, to = P.n_seg;
-    float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (phase == 1) {
-      from = O.death[ray];
-      to = (int)O.stats[0];
-      if (from < to) c = O.out[ray];
+  float4* store = (phase == 0 && O.carries != nullptr && real)
+                      ? O.carries + ray : nullptr;
+  SegPt pt{P, 0.0f};
+  int s = __reduce_min_sync(full, alive ? from : INT_MAX);
+  while (__any_sync(full, alive)) {
+    const float s0 = (float)(s * P.seg);
+    bool run = false;
+    if (alive && s >= from) {
+      if (segment_start(P, r, s0) > r.tmx
+          || (phase == 0 && cy.c.w >= P.early_alpha)) {
+        alive = false;
+        death = s;
+      } else {
+        run = true;
+        if (store != nullptr) store[(size_t)s * P.n_rays] = cy.c;
+      }
     }
-    if (from < to) {
-      const Ray r = load_ray(P, ray);
-      death = march<H, Table>(
-          P, N, hs, r, from, to, phase == 0, c, n,
-          (phase == 0 && O.carries != nullptr) ? O.carries + ray : nullptr);
+#pragma unroll 1
+    for (int q0 = 0; q0 < P.seg; q0 += kRows) {
+      uint32_t mask = 0u;
+      // with iso, a ray whose hit is found takes no more samples
+      if (run && !(P.iso && cy.c.w > 0.5f)) {
+        const int nj = min(kRows, P.seg - q0);
+        for (int j = 0; j < nj; ++j) {
+          float t;
+          if (sample_t(P, r, s0 + (float)(q0 + j), t)) mask |= 1u << j;
+        }
+      }
+      if (!P.iso) cy.n += __popc(mask);
+      if (__any_sync(full, mask != 0u)) {
+        pt.base = s0 + (float)q0;
+        warp_chunk<H, Table, -1>(pl, D, sm, tile, mask, pt, cy, fp);
+      }
     }
-    if (phase == 0) {
-      O.out[ray] = c;
-      O.death[ray] = death;
-    } else if (from < to) {
-      O.out[ray] = c;
+    ++s;
+    if (alive && s >= to) {
+      alive = false;
+      death = to;
     }
   }
+  if (real) {
+    if (phase == 0) {
+      O.out[ray] = cy.c;
+      O.death[ray] = death;
+    } else if (from < to) {
+      O.out[ray] = cy.c;
+    }
+  }
+  FWD_MARK(fp, 5);
+#ifdef SMLP_PROFILE
+  fwd_prof_flush(prof);
+#endif
   // one atomic per warp (every lane reaches here)
-  const unsigned m = __reduce_max_sync(0xffffffffu, (unsigned)death);
-  const unsigned total = __reduce_add_sync(0xffffffffu, n);
-  if ((threadIdx.x & 31) == 0) {
+  const unsigned m = __reduce_max_sync(full, (unsigned)death);
+  const unsigned total = __reduce_add_sync(full, cy.n);
+  if (lane == 0) {
     if (phase == 0) atomicMax(O.stats, (unsigned long long)m);
     atomicAdd(O.stats + 1, (unsigned long long)total);
   }
 }
 
 template <int H, typename Table>
-int launch(const Seg& P, const SegOut& O, int phase, cudaStream_t stream) {
-  const size_t smem =
-      (scratch_offset(P.n_weights) + (size_t)H * kBlock) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        segment_fwd_kernel<H, Table>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (P.n_rays + kBlock - 1) / kBlock;
+int launch(const Seg& P, const SegOut& O, const FLayer& L, int phase,
+           cudaStream_t stream) {
+  const size_t smem = (size_t)L.pl.total;
+  cudaError_t e = cudaFuncSetAttribute(
+      segment_fwd_kernel<H, Table>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int per_block = L.pl.warps * kRows;
+  const int blocks = (P.n_rays + per_block - 1) / per_block;
   if (blocks > 0)
-    segment_fwd_kernel<H, Table><<<blocks, kBlock, smem, stream>>>(P, O,
-                                                                   phase);
+    segment_fwd_kernel<H, Table><<<blocks, per_block, smem, stream>>>(
+        P, O, L, phase);
   return (int)cudaGetLastError();
 }
 
 template <typename Table>
-int launch_width(const Seg& P, const SegOut& O, int hidden, int phase,
-                 cudaStream_t stream) {
+int launch_width(const Seg& P, const SegOut& O, const FLayer& L, int hidden,
+                 int phase, cudaStream_t stream) {
   switch (hidden) {
-    case 32: return launch<32, Table>(P, O, phase, stream);
-    case 48: return launch<48, Table>(P, O, phase, stream);
-    case 64: return launch<64, Table>(P, O, phase, stream);
+    case 32: return launch<32, Table>(P, O, L, phase, stream);
+    case 48: return launch<48, Table>(P, O, L, phase, stream);
+    case 64: return launch<64, Table>(P, O, L, phase, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// The tile's dims and the shared-memory plan of a call; false when no plan
+// fits.
+bool fill_layer(FLayer& L, const Seg& P, int hidden) {
+  FDims& D = L.D;
+  set_columns(D, P.n_fourier, P.chunks, P.has_dir);
+  D.nh = P.n_hidden;
+  D.tp = P.tf_points;
+  D.has_dir = P.has_dir;
+  D.act = P.act;
+  D.head = P.head;
+  D.n_out = P.head >= kRgbo ? 4 : 1;
+  D.blend_alpha = P.blend_alpha;
+  D.iso = P.iso;
+  D.p = P.act_param;
+  D.inv_p = 1.0f / P.act_param;
+  D.inv_2p = 1.0f / (2.0f * P.act_param);
+  D.iso_value = P.iso_value;
+  D.density_min = P.density_min;
+  D.inv_range = P.inv_range;
+  D.h = P.stepsize;
+  D.gx = P.gx;
+  D.gy = P.gy;
+  D.gz = P.gz;
+  D.table = P.table;
+  return choose_fwd_plan(hidden, D.K, D.nh, D.F4, D.tp, 0, L.pl);
+}
+
 }  // namespace
+
+#ifdef SMLP_PROFILE
+// The phase timers' sums since the last read (march_common.cuh), reset.
+extern "C" int smlp_prof_read(unsigned long long* out) {
+  cudaMemcpyFromSymbol(out, smlp_prof, sizeof(smlp_prof));
+  unsigned long long zero[16] = {};
+  cudaMemcpyToSymbol(smlp_prof, zero, sizeof(zero));
+  return (int)cudaGetLastError();
+}
+#endif
+
+// The shared-memory plan a launch takes for these widths (warp_mlp.cuh's
+// choose_fwd_plan): out = [bytes, warps a block, matrices pre-split].
+// Returns 0, or -1 when no plan fits in 227 KB.
+extern "C" int segment_fwd_smem(int hidden, int n_fourier, int chunks,
+                                int n_hidden, int tf_points, int has_dir,
+                                long* out) {
+  FDims D;
+  set_columns(D, n_fourier, chunks, has_dir);
+  FPlan pl;
+  if (!choose_fwd_plan(hidden, D.K, n_hidden, D.F4, tf_points, 0, pl))
+    return -1;
+  out[0] = pl.total;
+  out[1] = pl.warps;
+  out[2] = pl.pre;
+  return 0;
+}
 
 // One phase of the march (0: each ray to its own death, 1: the
 // continuation up to the call's stop). Weights packed as `Wts`
@@ -213,12 +344,14 @@ extern "C" int segment_fwd_launch(
   if (!seg_valid(P) || (phase != 0 && phase != 1)
       || (carries != nullptr && phase != 0))
     return (int)cudaErrorInvalidValue;
+  FLayer L;
+  if (!fill_layer(L, P, hidden)) return (int)cudaErrorInvalidValue;
   SegOut O;
   O.out = reinterpret_cast<float4*>(out);
   O.death = death;
   O.stats = stats;
   O.carries = reinterpret_cast<float4*>(carries);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return table_f32 ? launch_width<F32Table>(P, O, hidden, phase, st)
-                   : launch_width<Bf16Table>(P, O, hidden, phase, st);
+  return table_f32 ? launch_width<F32Table>(P, O, L, hidden, phase, st)
+                   : launch_width<Bf16Table>(P, O, L, hidden, phase, st);
 }

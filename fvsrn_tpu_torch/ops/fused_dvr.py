@@ -45,9 +45,10 @@ float32 table; normals and shading, TF modes other than piecewise, and a
 bf16 table under ``differentiable=True`` raise ``NotImplementedError``.
 
 Bound of the kernel on the H100: operations (the dense flagship's sample
-costs ~7.6 kFLOP and ~110 transcendentals against 32 bytes per ray). This
-first version runs the MLP on the float32 CUDA cores, one sample per
-thread; tensor-core layers over batched samples are later work.
+costs ~7.6 kFLOP and ~110 transcendentals against 32 bytes per ray). A
+warp owns 32 rays and evaluates their valid samples as tiles of 32 rows,
+every layer a TF32 three-pass tensor-core product (float32-accurate;
+``csrc/warp_mlp.cuh``), composited in order by a segmented scan.
 """
 from __future__ import annotations
 
@@ -685,6 +686,11 @@ def _check_kernel_inputs(net, tf: Tensor, seg: int = 32,
     if net.layers[0].activation not in _ACTIVATIONS:
         raise NotImplementedError(f"segment kernel: activation "
                                   f"{net.layers[0].activation}")
+    from .sample_mlp import check_fwd_plan
+    check_fwd_plan("segment kernel", kernel_width(net),
+                   net.input.num_fourier, _latent_chunks(net),
+                   len(net.layers) - 2, tf.shape[0],
+                   direction=bool(net.use_direction))
     if differentiable and seg > MAX_BWD_SEG:
         raise NotImplementedError(f"segment backward kernel: seg <= "
                                   f"{MAX_BWD_SEG} only")
@@ -767,6 +773,22 @@ def _bind(lib: ctypes.CDLL):
                    + [f] + [i, i] + [f] * 4 + [f] * 6 + [i, p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def device_fwd_plan(hidden: int, n_fourier: int, chunks: int,
+                    n_hidden: int, tf_points: int, direction: bool = False):
+    """(bytes, warps a block, matrices pre-split) of the shared-memory
+    plan csrc/segment_fwd.cu takes for these widths, or None when none
+    fits (the device's own ``choose_fwd_plan``; ``ops.sample_mlp.fwd_plan``
+    mirrors it)."""
+    fn = _build.load("segment_fwd").segment_fwd_smem
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_long * 3)()
+    if fn(hidden, n_fourier, chunks, n_hidden, tf_points, int(direction),
+          out) != 0:
+        return None
+    return int(out[0]), int(out[1]), bool(out[2])
 
 
 def _check_tensors(dev, **tensors):

@@ -35,12 +35,12 @@ replays the forward's tile vote on the stored incoming carries.
 
 Bound of the kernels on the H100: operations (the forward about 7.6 kFLOP
 and 110 transcendentals per sample, 44 bytes per ray; the backward about
-four times the forward's work per contributing sample). The forward
-runs the MLP on the float32 CUDA cores, one sample per thread at a time,
-weights broadcast from shared memory and the latent table in L2. The
-backward batches the samples of 32-ray groups into tiles and runs every
-layer, transposed layer and weight gradient as a TF32 three-pass
-tensor-core product (``csrc/sample_mlp.cuh``).
+four times the forward's work per contributing sample). Both batch the
+samples of 32-ray groups into tiles of (ray, sample) rows and run every
+layer as a TF32 three-pass tensor-core product: the forward on tiles a
+warp owns, with no block barrier between layers (``csrc/warp_mlp.cuh``),
+the backward, its transposed layers and weight gradients on tiles of the
+block (``csrc/sample_mlp.cuh``).
 """
 from __future__ import annotations
 
@@ -542,8 +542,25 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
     if fm is not None and (fm.shape[1] != 3 or fm.shape[0] > MAX_FOURIER):
         raise NotImplementedError("CUDA kernel: positional Fourier only, "
                                   f"at most {MAX_FOURIER} features")
+    from .sample_mlp import check_fwd_plan
+    check_fwd_plan("CUDA kernel", HIDDEN, 0 if fm is None else fm.shape[0],
+                   1, len(net.layers) - 2, MAX_TF_POINTS, warps=tile // 32)
     if differentiable and seg != KERNEL_SEG:
         raise NotImplementedError(f"CUDA backward: seg={KERNEL_SEG} only")
+
+
+def device_fwd_plan(n_fourier: int, n_hidden: int, tf_points: int):
+    """(bytes, warps a block, matrices pre-split) of the shared-memory
+    plan csrc/mega_fwd.cu takes for these widths, or None when it does
+    not fit (the device's own ``choose_fwd_plan`` at eight warps;
+    ``ops.sample_mlp.fwd_plan`` mirrors it)."""
+    fn = _build.load("mega_fwd").mega_fwd_smem
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_long * 3)()
+    if fn(n_fourier, n_hidden, tf_points, out) != 0:
+        return None
+    return int(out[0]), int(out[1]), bool(out[2])
 
 
 def _check_tensors(dev, **tensors):

@@ -1,6 +1,8 @@
 """Host side of the batched sample MLP (``csrc/sample_mlp.cuh``), the
 device layer both training backwards (``csrc/segment_bwd.cu``,
-``csrc/mega_bwd.cu``) compute their network products on.
+``csrc/mega_bwd.cu``) compute their network products on, and of the
+warp-owned sample tile (``csrc/warp_mlp.cuh``) both forward marches
+(``csrc/segment_fwd.cu``, ``csrc/mega_fwd.cu``) evaluate on.
 
 - :func:`tf32_split`: the three-pass TF32 split the kernels apply to every
   product operand (``split`` in the header): ``x = hi + lo``, both
@@ -13,6 +15,12 @@ device layer both training backwards (``csrc/segment_bwd.cu``,
   with which an SM holds two blocks, else the largest that fits in the
   227 KB a block may use; :func:`check_plan` raises for
   widths no plan fits.
+- :func:`fwd_plan`: the forwards' shared-memory plan (``make_fwd_plan``
+  and ``choose_fwd_plan`` in warp_mlp.cuh): the layer matrices in the
+  tile's column order (pre-split into TF32 hi and lo where that fits),
+  the vectors, then per warp a tile of 32 rows (each row, its head
+  outputs and its ray's fields), with the most warps an SM holds;
+  :func:`check_fwd_plan` raises for widths no plan fits.
 """
 from __future__ import annotations
 
@@ -107,4 +115,86 @@ def check_plan(kernel: str, hidden: int, k1: int, n_hidden: int,
             f"{kernel}: no shared-memory plan fits in {SMEM_LIMIT} bytes for "
             f"width {hidden}, first-layer input {k1}, {n_hidden} hidden "
             f"layers, {n_fourier} Fourier features, {tf_points} TF points")
+    return plan
+
+
+# the forwards' warp-owned tiles (csrc/warp_mlp.cuh)
+FWD_ROWS = 32                 # rows of a tile: one a lane
+FWD_WARPS = (8, 4, 2, 1)      # warps a block, in the order tried
+
+
+def fwd_columns(n_fourier: int, chunks: int, direction: bool = False) -> int:
+    """Width K of a tile row: cos and sin of the Fourier features, the
+    latent rows, the position, the direction (with direction input),
+    zeros up to a multiple of 8."""
+    used = 2 * n_fourier + 16 * chunks + (6 if direction else 3)
+    return -(-used // 8) * 8
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    warps: int
+    pre: bool
+    regions: dict
+
+    @property
+    def floats(self) -> int:
+        return sum(self.regions.values())
+
+    @property
+    def bytes(self) -> int:
+        return 4 * self.floats
+
+
+def make_fwd_plan(hidden: int, n_fourier: int, chunks: int, n_hidden: int,
+                  tf_points: int, warps: int, pre: bool,
+                  direction: bool = False) -> FwdPlan:
+    """The regions (floats, each rounded up to 4) of a block of ``warps``
+    warps; with ``pre`` the layer matrices pre-split (hi and lo, two
+    floats an entry), else rows padded to ``hidden + 8``."""
+    f4 = -(-n_fourier // 4) * 4
+    k = fwd_columns(n_fourier, chunks, direction)
+    ldw, lds = hidden + 8, max(k, hidden) + 4
+    per = 2 * hidden if pre else ldw
+    regions = dict(
+        W1=k * per, Wh=n_hidden * hidden * per,
+        vec=(hidden + n_hidden * hidden + 4 * hidden + 4 + 6 * f4
+             + 5 * tf_points),
+        tiles=warps * FWD_ROWS * (lds + 4 + 8))
+    return FwdPlan(warps, pre, {k: _take(v) for k, v in regions.items()})
+
+
+def fwd_plan(hidden: int, n_fourier: int, chunks: int, n_hidden: int,
+             tf_points: int, warps: int | None = None,
+             direction: bool = False) -> FwdPlan | None:
+    """The plan with the most warps an SM holds (warps a block, from
+    :data:`FWD_WARPS` or only ``warps``, times the blocks its shared
+    memory holds, two or one), the first of those with pre-split
+    matrices, then with the most warps a block; None when none fits."""
+    best, plan = 0, None
+    for w in FWD_WARPS:
+        if warps is not None and w != warps:
+            continue
+        for pre in (True, False):
+            cand = make_fwd_plan(hidden, n_fourier, chunks, n_hidden,
+                                 tf_points, w, pre, direction)
+            blocks = (2 if cand.bytes <= SMEM_TWO
+                      else 1 if cand.bytes <= SMEM_LIMIT else 0)
+            if w * blocks > best:
+                best, plan = w * blocks, cand
+    return plan
+
+
+def check_fwd_plan(kernel: str, hidden: int, n_fourier: int, chunks: int,
+                   n_hidden: int, tf_points: int, warps: int | None = None,
+                   direction: bool = False) -> FwdPlan:
+    """:func:`fwd_plan`, raising ``NotImplementedError`` when none
+    fits."""
+    plan = fwd_plan(hidden, n_fourier, chunks, n_hidden, tf_points, warps,
+                    direction)
+    if plan is None:
+        raise NotImplementedError(
+            f"{kernel}: no shared-memory plan fits in {SMEM_LIMIT} bytes for "
+            f"width {hidden}, {n_fourier} Fourier features, {chunks} latent "
+            f"rows, {n_hidden} hidden layers, {tf_points} TF points")
     return plan

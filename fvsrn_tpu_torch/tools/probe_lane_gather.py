@@ -109,8 +109,10 @@ def probe_onehot(sz3p: int, device="cuda", n: Optional[int] = None,
                  iters: Optional[int] = None,
                  compare: bool = False) -> dict:
     """The sub-box resolve of (1, n) row ids from a bf16 (sz3p, 128)
-    table; the library call is the TPU's own formulation, a matmul with a
-    prebuilt (sz3p, n) one-hot."""
+    table. The library call is one ``index_select`` on the kernel's own
+    inputs (the table, seen transposed, and the int32 row ids) into the
+    kernel's (128, n) layout; no single PyTorch call also widens to
+    float32, so it writes bf16, half the kernel's output bytes."""
     dev = resolve_device(device)
     n, iters = n or N, iters or ITERS
     tab = np.random.default_rng(0).standard_normal((sz3p, 128)).astype(
@@ -120,15 +122,13 @@ def probe_onehot(sz3p: int, device="cuda", n: Optional[int] = None,
     want = _as(tab, torch.bfloat16)[lrow[0]].T
     tab_d = torch.from_numpy(tab).to(dev).to(torch.bfloat16)
     lrow_d = torch.from_numpy(lrow).to(dev)
-    onehot = (torch.arange(sz3p, device=dev)[:, None]
-              == lrow_d.to(torch.int64)).to(torch.bfloat16)
     out = probes.onehot_resolve(tab_d, lrow_d).cpu().numpy()
     rows = np.unique(lrow).size
     return _result(
         f"onehot {sz3p} bf16", np.allclose(out, want, atol=1e-3), dev,
         lambda: probes.onehot_resolve(tab_d, lrow_d),
         lambda: probes.onehot_resolve_plain(tab_d, lrow_d),
-        lambda: torch.matmul(tab_d.T, onehot), out, want,
+        lambda: torch.index_select(tab_d.T, 1, lrow_d[0]), out, want,
         lrow.nbytes + 128 * n * 4 + rows * 128 * 2, iters, compare)
 
 

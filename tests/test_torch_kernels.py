@@ -8,7 +8,9 @@ takes, image, samples and the call's stop) and its differentiable pair
 every gradient leaf over the same networks and options) and the sample
 evaluator (csrc/sample_eval.cu: density and its position gradient at
 scattered positions), the occupancy mask in all three megakernel
-launches, and the probe kernels of rows 8-11 (csrc/probes.cu). This file
+launches, the probe kernels of rows 8-11 (csrc/probes.cu), and the edges
+of the two forwards' warp-owned tiles (csrc/warp_mlp.cuh) and of the
+backwards' block tiles (csrc/sample_mlp.cuh). This file
 imports no JAX, so it runs where the GPU is:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
@@ -694,3 +696,217 @@ def test_mega_backward_deterministic():
     assert rows[0].shape[0] == rays.shape[0] // 256
     assert float(rows[0].abs().max()) > 0
     assert torch.equal(rows[0], rows[1])
+
+
+# ---------------------------------------------------------------------------
+# the redesigned forwards (csrc/warp_mlp.cuh): list and tile edges, the
+# call's stop, iso, widths, tables, determinism, the shared-memory plan
+
+SEG_FWD_KW = dict(stepsize=1 / 128, max_steps=222, seg=32, tile=128)
+
+
+def segment_fwd_matches(net, rs, rd, tf, **kw):
+    """The per-segment render kernel against its plain version on the same
+    rays: image <= 1e-4, samples and the call's stop equal. Returns the
+    kernel's (image, stats)."""
+    kw = dict(SEG_FWD_KW, **kw, return_stats=True)
+    args = (rs, rd, net, *BOX, tf.cuda())
+    got, st = fused_dvr.fused_trace_dvr(*args, **kw)
+    torch.cuda.synchronize()
+    want, st_p = fused_dvr.fused_trace_dvr_plain(*args, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    assert int(st.samples) == int(st_p.samples)
+    assert int(st.stop) == int(st_p.stop)
+    return got, st
+
+
+def segment_fwd_direct(net, rs, rd, tf, **kw):
+    """Both launches of csrc/segment_fwd.cu through launch_segment:
+    (image, stats, death)."""
+    kw = dict(SEG_FWD_KW, **kw)
+    spec, rays, kbase = fused_dvr._segment_setup(
+        rs, rd, net, *BOX, density_min=0.0, density_max=1.0,
+        blend_mode="beer_lambert", alpha_early_out=0.999, seg=kw["seg"],
+        tile=kw["tile"], differentiable=False, latent_mode="table",
+        table_dtype=torch.float32, n_seg=None, need_normals=False,
+        iso_value=None, tf_mode="piecewise", tmax_clip=None,
+        stepsize=kw["stepsize"], max_steps=kw["max_steps"],
+        enable_early_out=True)
+    tf = tf.cuda()
+    out, st, _, death = fused_dvr.launch_segment(
+        spec, net, rays, kbase, fused_dvr.pack_segment_weights(net, tf),
+        fused_dvr.segment_table(net, torch.float32, rs.device), tf.shape[0])
+    torch.cuda.synchronize()
+    return out, st, death
+
+
+def view_rays(width=60, height=44, tile=128, yaw=0.8):
+    rs, rd = generate_rays(CameraOnASphere.make(pitch=0.3, yaw=yaw,
+                                                distance=1.6),
+                           width, height, device="cuda")
+    rs, rd, _ = pad_rays(rs.reshape(-1, 3), rd.reshape(-1, 3), tile)
+    return rs, rd
+
+
+def test_segment_fwd_rows_straddle_tiles():
+    """Rays from one plane fanned out in x: each crosses the box on a chord
+    of another length, so its valid samples in its last segments are a
+    different count and its rows start and end inside the tiles of its
+    warp's list (the carry crosses tile boundaries)."""
+    needs_card()
+    net = random_net(output_mode="density").cuda()
+    tf = TransferFunctionPiecewiseLinear.make(**OPAQUE_TF).tensor
+    n = 128
+    rs = torch.zeros(n, 3, device="cuda")
+    rs[:, 0] = torch.linspace(-0.4, 0.4, n, device="cuda")
+    rs[:, 1] = 0.1
+    rs[:, 2] = -1.0
+    rd = torch.zeros_like(rs)
+    rd[:, 0] = torch.linspace(-0.45, 0.45, n, device="cuda")
+    rd[:, 2] = 1.0
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    _, st = segment_fwd_matches(net, rs, rd, tf, enable_early_out=False)
+    assert int(st.samples) > 32 * n
+
+
+def test_segment_fwd_one_live_ray_in_a_warp():
+    """A warp where one ray crosses the box and the other 31 miss it: the
+    warp's tiles are that ray's samples alone."""
+    needs_card()
+    net = random_net().cuda()
+    tf = dense_scene()[1].tensor
+    rs = torch.tensor([[2.0, 2.0, 2.0]], device="cuda").repeat(128, 1)
+    rd = torch.tensor([[1.0, 0.0, 0.0]], device="cuda").repeat(128, 1)
+    rs[37] = torch.tensor([-0.3, 0.1, -1.0])
+    rd[37] = torch.tensor([0.2, 0.1, 1.0]) / math.sqrt(1.05)
+    _, st = segment_fwd_matches(net, rs, rd, tf)
+    assert int(st.samples) > 64
+
+
+def test_segment_fwd_phase1_continuation():
+    """Rays that saturate early and die before the call's stop S composite
+    their segments up to S in the second launch: the image, samples and S
+    against the plain version."""
+    needs_card()
+    _, tf, npz = dense_scene()
+    net = load_weights(npz).cuda()
+    tf = tf.tensor
+    rs, rd = view_rays()
+    out, st, death = segment_fwd_direct(net, rs, rd, tf)
+    continued = (death < int(st.stop)) & (out[:, 3] >= 0.999)
+    assert int(continued.sum()) > 0
+    segment_fwd_matches(net, rs, rd, tf)
+
+
+def test_segment_fwd_iso_hits_inside_tiles():
+    """The iso march at a fine step: first hits fall at every position of
+    a segment and of a tile; samples are counted up to each ray's hit."""
+    needs_card()
+    net = random_net(output_mode="density").cuda()
+    tf = dense_scene()[1].tensor
+    rs, rd = view_rays()
+    got, _ = segment_fwd_matches(net, rs, rd, tf, stepsize=1 / 256,
+                                 max_steps=444, iso_value=0.55)
+    hit = got[:, 3] > 0.5
+    assert 0.05 < float(hit.float().mean()) < 0.95
+
+
+def test_segment_fwd_ray_count_off_the_block():
+    """1000 rays: a multiple of neither a warp's 32 rays nor the block."""
+    needs_card()
+    net = random_net().cuda()
+    tf = dense_scene()[1].tensor
+    rs, rd = generate_rays(CameraOnASphere.make(pitch=0.3, yaw=0.8,
+                                                distance=1.6),
+                           40, 25, device="cuda")
+    segment_fwd_matches(net, rs.reshape(-1, 3).contiguous(),
+                        rd.reshape(-1, 3).contiguous(), tf, tile=8)
+
+
+@pytest.mark.parametrize("table", ["c16_bf16", "c16_f32", "c64_f32"])
+@pytest.mark.parametrize("fourier", [0, 32])
+@pytest.mark.parametrize("width", [32, 48, 64])
+def test_segment_fwd_widths_fourier_tables(width, fourier, table):
+    """Each hidden width's instance with no Fourier feature and with the
+    largest count, one latent row as a bf16 or float32 table and four
+    rows (float32)."""
+    needs_card()
+    channels = 64 if table == "c64_f32" else 16
+    net = random_net(width=width, fourier=fourier, channels=channels).cuda()
+    dtype = torch.bfloat16 if table == "c16_bf16" else torch.float32
+    rs, rd = view_rays()
+    segment_fwd_matches(net, rs, rd, dense_scene()[1].tensor,
+                        table_dtype=dtype)
+
+
+def test_segment_fwd_deterministic():
+    """Two launches give bitwise-equal images and stats."""
+    needs_card()
+    net = random_net(direction=True).cuda()
+    tf = dense_scene()[1].tensor
+    rs, rd = view_rays()
+    a = segment_fwd_direct(net, rs, rd, tf)
+    b = segment_fwd_direct(net, rs, rd, tf)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+    assert int(a[1].samples) == int(b[1].samples)
+
+
+@pytest.mark.parametrize("fourier", [0, 32])
+@pytest.mark.parametrize("table", [torch.bfloat16, torch.float32])
+def test_mega_fwd_fourier_and_tables(fourier, table):
+    """Row 1 with no Fourier feature and with the largest count, on a bf16
+    and a float32 table: image and samples against the plain version."""
+    needs_card()
+    net = random_net(fourier=fourier).cuda()
+    rs, rd = block_rays(64, "cuda")
+    clip = torch.empty(rs.shape[0], device="cuda").uniform_(
+        1.0, 2.2, generator=torch.Generator("cuda").manual_seed(0))
+    kw = dict(stepsize=1 / 128, tmax_clip=clip, return_samples=True,
+              table_dtype=table)
+    args = (rs, rd, net, *BOX, dense_scene()[1].tensor.cuda())
+    got, samples = fused_mega.mega_trace_dvr(*args, **kw)
+    want, samples_plain = fused_mega.mega_trace_dvr_plain(*args, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    assert torch.equal(samples.long(), samples_plain)
+
+
+def test_mega_fwd_deterministic():
+    """Two launches of row 2 give bitwise-equal images, carries, samples
+    and segment counts."""
+    needs_card()
+    net, tf, rays, spec = diff_case("random", True)
+    params = fused_mega._params(net, tf)
+    widths = fused_mega._widths(params)
+    weights = fused_mega._pack_weights(params)
+    table = fused_mega._kernel_table(params[2], torch.float32, rays.device)
+    n_seg = fused_mega.segments_needed(rays, spec)
+    runs = [fused_mega._launch_fwd(rays, weights, table, spec, *widths[:3],
+                                   n_seg_max=n_seg) for _ in range(2)]
+    torch.cuda.synchronize()
+    (out, samples, carries, count), b = runs
+    assert torch.equal(out, b[0]) and torch.equal(samples, b[1])
+    assert torch.equal(count, b[3])
+    for t in range(count.shape[0]):   # the segments each tile visited
+        assert torch.equal(carries[t, :int(count[t])],
+                           b[2][t, :int(count[t])])
+
+
+@pytest.mark.parametrize("hidden", [32, 48, 64])
+def test_forward_smem_plans_match_device(hidden):
+    """The forwards' shared-memory plans on the device equal
+    ops.sample_mlp's mirror at the flagship's widths and at the kernels'
+    largest limits."""
+    needs_card()
+    from fvsrn_tpu_torch.ops import sample_mlp
+    for nf, chunks, nh, tp in ((14, 1, 2, 8), (32, 4, 6, 16)):
+        for direction in (False, True):
+            plan = sample_mlp.fwd_plan(hidden, nf, chunks, nh, tp,
+                                       direction=direction)
+            assert fused_dvr.device_fwd_plan(
+                hidden, nf, chunks, nh, tp, direction) == (
+                    plan.bytes, plan.warps, plan.pre)
+    if hidden == 32:
+        for nf, nh, tp in ((14, 2, 8), (32, 6, 16), (0, 0, 2)):
+            plan = sample_mlp.fwd_plan(32, nf, 1, nh, tp, warps=8)
+            assert fused_mega.device_fwd_plan(nf, nh, tp) == (
+                plan.bytes, 8, plan.pre)

@@ -1,17 +1,21 @@
 """Host side of the training backwards' batched sample MLP
-(fvsrn_tpu_torch/ops/sample_mlp.py, mirror of csrc/sample_mlp.cuh): the
+(fvsrn_tpu_torch/ops/sample_mlp.py, mirror of csrc/sample_mlp.cuh) and of
+the forwards' warp-owned tiles (mirror of csrc/warp_mlp.cuh): the
 three-pass TF32 split of the products' operands and the shared-memory
-plan of a launch. The device's own plan is held to this mirror on the
-card (tests/test_torch_kernels.py::test_segment_bwd_smem_plan_matches_device).
+plans of a launch. The device's own plans are held to this mirror on the
+card (tests/test_torch_kernels.py::test_segment_bwd_smem_plan_matches_device,
+::test_forward_smem_plans_match_device).
 """
 import numpy as np
 import pytest
 import torch
 
-from fvsrn_tpu_torch.ops import fused_dvr
-from fvsrn_tpu_torch.ops.sample_mlp import (SMEM_LIMIT, SMEM_TWO,
-                                            check_plan, make_plan, smem_plan,
-                                            tf32_split)
+from fvsrn_tpu_torch.ops import fused_dvr, fused_mega
+from fvsrn_tpu_torch.ops.sample_mlp import (FWD_WARPS, SMEM_LIMIT, SMEM_TWO,
+                                            check_fwd_plan, check_plan,
+                                            fwd_columns, fwd_plan,
+                                            make_fwd_plan, make_plan,
+                                            smem_plan, tf32_split)
 
 
 def _values(seed):
@@ -93,3 +97,64 @@ def test_plan_raises_beyond_the_limits(beyond):
     with pytest.raises(NotImplementedError):
         check_plan("segment backward kernel", 64, k1, nh, nf, 16)
     assert make_plan(64, k1, nh, nf, 16, 16, 0).bytes > SMEM_LIMIT
+
+
+@pytest.mark.parametrize("hidden", [32, 48, 64])
+def test_fwd_plan_fits_at_the_kernels_limits(hidden):
+    """At the per-segment kernel's largest Fourier count, latent rows,
+    hidden layers and TF points the forward's plan fits in 227 KB, with
+    fewer warps a block and the matrices split in the loop."""
+    plan = fwd_plan(hidden, fused_dvr.MAX_FOURIER,
+                    fused_dvr.MAX_LATENT_CHANNELS // 16,
+                    fused_dvr.MAX_HIDDEN_LAYERS, fused_dvr.MAX_TF_POINTS,
+                    direction=True)
+    assert plan is not None and plan.bytes <= SMEM_LIMIT
+    assert plan.warps in FWD_WARPS and not plan.pre
+    assert check_fwd_plan("k", hidden, fused_dvr.MAX_FOURIER,
+                          fused_dvr.MAX_LATENT_CHANNELS // 16,
+                          fused_dvr.MAX_HIDDEN_LAYERS,
+                          fused_dvr.MAX_TF_POINTS, direction=True) == plan
+    # the flagship's other widths: 16 warps an SM (two blocks) at 32,
+    # pre-split, and at 48, split in the loop; 8 at 64, pre-split
+    flagship = fwd_plan(hidden, 14, 1, 2, 8)
+    assert flagship.warps == 8 and flagship.pre == (hidden != 48)
+    assert (flagship.bytes <= SMEM_TWO) == (hidden != 64)
+    # the megakernel's block is its 256-ray tile: eight warps at its limits
+    mega = fwd_plan(32, fused_mega.MAX_FOURIER, 1,
+                    fused_mega.MAX_HIDDEN_LAYERS, fused_mega.MAX_TF_POINTS,
+                    warps=8)
+    assert mega is not None and mega.warps == 8
+
+
+@pytest.mark.parametrize("case", ["flagship", "flagship_dir",
+                                  "segment_64_max", "mega_max"])
+def test_fwd_plan_regions(case):
+    """The warps and bytes each width takes (hand counted from
+    csrc/warp_mlp.cuh's make_fwd_plan), and the tile row's width."""
+    args, warps, pre, nbytes, k = {
+        "flagship": ((32, 14, 1, 2, 8, None, False), 8, True, 95664, 48),
+        "flagship_dir": ((32, 14, 1, 2, 8, None, True), 8, True, 105904,
+                         56),
+        "segment_64_max": ((64, 32, 4, 6, 16, None, True), 4, False,
+                           231504, 136),
+        "mega_max": ((32, 32, 1, 6, 16, 8, False), 8, True, 180688,
+                     88)}[case]
+    plan = fwd_plan(*args)
+    assert (plan.warps, plan.pre, plan.bytes) == (warps, pre, nbytes)
+    assert fwd_columns(args[1], args[2], args[6]) == k and k % 8 == 0
+    assert all(v % 4 == 0 for v in plan.regions.values())
+    # a row, its head outputs (4) and its ray's fields (8)
+    assert plan.regions["tiles"] == warps * 32 * (max(k, args[0]) + 16)
+
+
+@pytest.mark.parametrize("beyond", [dict(n_hidden=12), dict(n_fourier=256)])
+def test_fwd_plan_raises_beyond_the_limits(beyond):
+    """Past the limits at width 64 no plan fits, not even one warp a
+    block: check_fwd_plan raises."""
+    nf = beyond.get("n_fourier", 32)
+    nh = beyond.get("n_hidden", 6)
+    assert fwd_plan(64, nf, 4, nh, 16, direction=True) is None
+    with pytest.raises(NotImplementedError):
+        check_fwd_plan("segment kernel", 64, nf, 4, nh, 16, direction=True)
+    assert make_fwd_plan(64, nf, 4, nh, 16, 1, False, True).bytes \
+        > SMEM_LIMIT

@@ -33,7 +33,9 @@ main paths on the card:
 - phases H-I, Monte-Carlo path tracing through the fused sample evaluator
   (``csrc/sample_eval.cu``): the kernel alone on 2^20 seeded positions of
   the dense flagship, value and position gradient against its plain
-  version, a bf16 table against the float32 one, timed (H); then
+  version, a bf16 table against the float32 one, timed, with the value
+  instance's persistent grid and every instance's registers and spills
+  (H); then
   ``trace_mc(use_fused=True)`` on the flagship at 512x512 (HG g=0.3, 2
   bounces, 256 iterations) against ``trace_mc`` on the plain
   ``eval_density`` with the same key, timed with and without live-ray
@@ -124,19 +126,32 @@ def check(cond, msg):
         fail(msg)
 
 
-def cuda_ms(fn, iters):
-    """Mean device milliseconds of ``fn`` over ``iters`` calls, after one
-    warm-up call (CUDA events)."""
+def cuda_timed(fn, iters):
+    """(Mean device milliseconds, mean host microseconds) a call of ``fn``
+    over ``iters`` calls, after one warm-up call (CUDA events; the host's
+    clock around the loop that enqueues them). A device-side sleep queued
+    before the first event (1 ms and 0.2 ms a call at ~2 GHz) lets the
+    host enqueue the calls ahead of the device: a kernel shorter than its
+    host-side launch cost is timed, not the shared host's launch rate,
+    and the host's cost is read apart."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6 * (1.0 + 0.2 * iters)))
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_us = (time.perf_counter() - t0) / iters * 1e6
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_us
+
+
+def cuda_ms(fn, iters):
+    """Mean device milliseconds a call of ``fn`` (:func:`cuda_timed`)."""
+    return cuda_timed(fn, iters)[0]
 
 
 def sample_flops(net, composite=True):
@@ -176,6 +191,30 @@ def ptxas_summary(name):
         elif props and ("stack frame" in line or "registers" in line):
             lines.append(f"{props}: {line.strip()}")
     return "; ".join(lines)
+
+
+def ptxas_instances(name, kernel):
+    """{instance: (registers, spill store bytes, spill load bytes)} of
+    every instance of the kernel template ``kernel`` in ``name``'s ptxas
+    report, an instance named by its template arguments."""
+    import re
+
+    from fvsrn_tpu_torch.ops import _build
+
+    found, fn = {}, None
+    for line in _build.ptxas_report(name).splitlines():
+        if "Function properties for" in line:
+            m = re.search(kernel + r"I(Li(\d+)E)?N5march\d+(\w+?Table)", line)
+            fn = (f"H{m.group(2)} " if m.group(2) else "") + m.group(3) \
+                if m else None
+        elif fn and "spill stores" in line:
+            spill = [int(v) for v in re.findall(r"(\d+) bytes spill", line)]
+            found[fn] = [None] + spill
+        elif fn and "registers" in line and fn in found:
+            found[fn][0] = int(re.search(r"Used (\d+) registers",
+                                         line).group(1))
+            fn = None
+    return {k: tuple(v) for k, v in found.items()}
 
 
 def rel_err(a, b):
@@ -989,18 +1028,41 @@ def monte_carlo(smi, reset_counts, counts, npz, tf, cam):
         return (max(flops / PEAK_BF16_TC, nbytes / PEAK_BYTES) * 1e3,
                 max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3, by)
 
-    k_ms = cuda_ms(launch, 10)
+    k_ms, k_host_us = cuda_timed(launch, 10)
     kg_ms = cuda_ms(lambda: launch(want_grad=True), 10)
     kbf_ms = cuda_ms(lambda: launch(torch.bfloat16), 10)
     plain_ms = cuda_ms(lambda: fused_eval.fused_eval_plain(net, pos01), 3)
     b_tc, b_32, bound_by = bounds(n)
+    # the value instance's persistent grid at this call's size and the
+    # MC path's, and ptxas's registers and spills of every instance: the
+    # value instances run two 256-thread blocks an SM, <= 128 registers
+    widths = (fused_dvr.kernel_width(net), net.input.num_fourier,
+              fused_dvr._latent_chunks(net), len(net.layers) - 2)
+    grid = {m: fused_eval.device_eval_grid(m, *widths)
+            for m in (n, WIDTH * HEIGHT)}
+    regs = {f"value {k}": v for k, v in ptxas_instances(
+        "sample_eval", "sample_eval_kernel").items()}
+    regs.update({f"gradient {k}": v for k, v in ptxas_instances(
+        "sample_eval", "sample_grad_kernel").items()})
+    values = [v for k, v in regs.items() if k.startswith("value")]
+    check(len(values) == 6 and all(v[0] <= 128 and v[1] == v[2] == 0
+                                   for v in values),
+          f"phase H: value instances' registers and spills {regs}")
+    print(f"phase H sample_eval value instance: plan {grid[n][0]} bytes, "
+          f"{grid[n][1]} warps a block, matrices pre-split {grid[n][2]}; "
+          f"persistent grid {grid[n][3]} blocks on {grid[n][4]} SMs for "
+          f"{n} positions, {grid[WIDTH * HEIGHT][3]} for "
+          f"{WIDTH * HEIGHT}; ptxas (registers, spill stores, spill loads) "
+          + ", ".join(f"{k} {v}" for k, v in sorted(regs.items())),
+          flush=True)
     print(f"phase H sample_eval [{smi}]: flagship, {n} positions, value "
           f"kernel vs plain max|d| {err:.3e} (tol {KERNEL_TOL}), inside "
           f"masks equal, gradient vs autograd rel norm err {grad_rel:.3e} "
           f"on {int(inner.sum())} interior positions (tol {GRAD_TOL}; "
           f"{n_flips} left out whose clip gate differs), bf16 "
           f"table vs f32 plain {bf_err:.3e} (tol {ORACLE_TOL}); kernel "
-          f"{k_ms:.4f} ms/launch ({k_ms * 1e6 / n:.4f} ns/position), "
+          f"{k_ms:.4f} ms/launch ({k_ms * 1e6 / n:.4f} ns/position; host "
+          f"{k_host_us:.1f} us a call of launch_sample_eval), "
           f"gradient instance {kg_ms:.4f} ms, bf16 table {kbf_ms:.4f} ms; "
           f"plain {plain_ms:.3f} ms; {n * sample_flops(net, False) / 1e9:.3f}"
           f" GFLOP; bound {b_tc:.5f} ms (bf16 tensor cores, share "
@@ -1122,13 +1184,14 @@ def monte_carlo(smi, reset_counts, counts, npz, tf, cam):
                        fused_eval.fused_eval_plain(net, pos_path)[0])
     check(err_path <= KERNEL_TOL, f"phase I: path launch kernel vs plain "
           f"{err_path}")
-    path_ms = cuda_ms(lambda: untimed(*first), 20)
+    path_ms, path_host_us = cuda_timed(lambda: untimed(*first), 20)
     path_plain_ms = cuda_ms(
         lambda: fused_eval.fused_eval_plain(net, pos_path), 5)
     p_tc, p_32, p_by = bounds(n_path)
     print(f"phase I path launch alone [{smi}]: {n_path} positions, kernel "
           f"vs plain max|d| {err_path:.3e}; kernel {path_ms:.4f} ms "
-          f"({path_ms * 1e6 / n_path:.4f} ns/position; x "
+          f"({path_ms * 1e6 / n_path:.4f} ns/position; host "
+          f"{path_host_us:.1f} us a call of launch_sample_eval; x "
           f"{len(events)} launches = {path_ms * len(events):.1f} ms, share "
           f"of the frame {path_ms * len(events) / inst_ms:.4f}), plain "
           f"{path_plain_ms:.3f} ms; bound {p_tc:.5f} ms (bf16 tensor cores, "
@@ -1144,7 +1207,12 @@ def monte_carlo(smi, reset_counts, counts, npz, tf, cam):
         "positions": n_path, "big_positions": n, "big_ms": k_ms,
         "big_plain_ms": plain_ms, "big_bound_ms": b_tc,
         "big_bound_f32_ms": b_32, "big_grad_ms": kg_ms,
-        "big_bf16_ms": kbf_ms, "grad_rel_err": grad_rel,
+        "big_bf16_ms": kbf_ms, "big_ns_per_position": k_ms * 1e6 / n,
+        "ns_per_position": path_ms * 1e6 / n_path,
+        "host_us": path_host_us, "big_host_us": k_host_us,
+        "grid_blocks": {str(m): g[3] for m, g in grid.items()},
+        "ptxas": {k: list(v) for k, v in regs.items()},
+        "grad_rel_err": grad_rel,
         "gate_flips": n_flips, "bf16_max_abs_err": bf_err,
         "frame_ms": med[default], "frame_ms_compact": med[compacted],
         "plain_frame_ms": plain_frame_ms,

@@ -17,14 +17,20 @@
 //    f32 (C, N), which the TPU computed as a one-hot contraction on the MXU.
 //
 // Designed for the card, not block by block:
-//  - proto: one block per 128-ray tile loops over the tile's S segments;
-//    the TPU's sequential grid dimension is that loop. Its first 128
-//    threads hold one ray each; block min-reductions of rays rows 0-2 give
-//    the starts; all 1024 threads share the box (24 elements each at the
-//    tool's shapes), summed by a block reduction; the output accumulates
-//    in registers and is written once. The counts table replaces the
-//    TPU's persistent scratch: atomicAdd(1.0f) into an output the wrapper
-//    zeroes (sums of 1.0 are exact in any order).
+//  - proto: two launches over the whole card. The TPU kernel's counts are
+//    its persistent scratch, zeroed once and incremented once per (tile,
+//    segment) box, so a cell's count is the number of the T*S boxes that
+//    cover it: the first launch (proto_fill, a grid of up to two blocks an
+//    SM) has every block reduce ray rows 0-2 of each tile to the T*S box
+//    starts in its shared memory (the lane minima, as float -> int32),
+//    then write every cell's count by testing it against the boxes (four
+//    cells a thread, one coalesced 16-byte store: no memset, no atomics),
+//    then sum the boxes' table values in items of 8 box rows, one block
+//    reduction and one partial sum an item. The second (proto_out, one
+//    128-thread block a tile) folds each box's partials in a fixed order
+//    and writes out = sum_s (sum_s + r) as the TPU's output block
+//    accumulates it. Counts are exact; the output is summed in another
+//    order than the plain version's (1e-5 relative).
 //  - gathers: one block per table row and 1024 outputs; the row is staged
 //    in shared memory (at most 928 floats) and each thread gathers four
 //    neighbouring outputs with one 16-byte index load and one 16-byte
@@ -41,20 +47,22 @@
 // Bound: bytes, all four. The gathers and the resolve move their indices
 // in and their f32 output out (8.4 MB for a (128, 8192) gather, 4.2 MB for
 // the resolve): ~2.5 and ~1.3 us at 3.35 TB/s. The prototype writes its
-// 2.96 MB counts table and reads 12 boxes of 98 KB: ~1.3 us, so launch
-// latency sets its time.
+// 2.96 MB counts table and reads 12 boxes of 98 KB: ~1 us, so its two
+// launches' latency sets its time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 128;       // rays per tile (the TPU's lane width)
-constexpr int kRows = 8;         // rows of the ray packet
-constexpr int kProtoBlock = 1024;  // threads a tile: its rays, then the box
+constexpr int kTile = 128;        // rays per tile (the TPU's lane width)
+constexpr int kRows = 8;          // rows of the ray packet
+constexpr int kProtoBlock = 256;  // threads a block of proto_fill
+constexpr int kChunkRows = 8;     // box rows a block sums into one partial
+constexpr int kMaxBoxes = 2048;   // T * S: 24 KB of box starts
 constexpr int kGatherBlock = 256;
 constexpr int kPerThread = 4;
-constexpr int kResolveN = 32;    // samples per resolve block
+constexpr int kResolveN = 32;     // samples per resolve block
 constexpr int kResolveBlock = 256;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -71,22 +79,17 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// Block-wide reduction of one float per thread (kProtoBlock threads); `red`
+// Block-wide sum of one float per thread (kProtoBlock threads); `red`
 // holds kProtoBlock / 32 floats. Every thread gets the result.
-template <bool kMin>
-__device__ __forceinline__ float block_reduce(float v, float* red) {
+__device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = kMin ? fminf(v, w) : v + w;
-  }
-  __syncthreads();
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();   // red is free: the last item's sum is read
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   float r = red[0];
 #pragma unroll
-  for (int w = 1; w < kProtoBlock / 32; ++w)
-    r = kMin ? fminf(r, red[w]) : r + red[w];
+  for (int w = 1; w < kProtoBlock / 32; ++w) r += red[w];
   return r;
 }
 
@@ -94,48 +97,101 @@ struct Proto {
   const float* rays;   // (8, R) row-major, tile t in columns [128t, 128t+128)
   const float* tab;    // (Z, Y, X)
   float* out;          // (8, R)
-  float* counts;       // (Z, Y, X), zeroed by the wrapper
-  int n_rays, n_seg, Z, Y, X, bz, by, bx;
+  float* counts;       // (Z, Y, X), written whole
+  float* part;         // (T * S, n_chunks) partial box sums
+  int n_rays, n_seg, Z, Y, X, bz, by, bx, n_chunks;
 };
 
-__global__ void __launch_bounds__(kProtoBlock) proto_kernel(const Proto P) {
-  __shared__ float red[kProtoBlock / 32];
-  const bool ray_lane = threadIdx.x < kTile;
-  const int col = blockIdx.x * kTile + threadIdx.x;
-  const float inf = __int_as_float(0x7f800000);
-  float r[kRows];
+// The (z, y, x) start of box b = t * S + s into st[3 b .. 3 b + 2], every
+// box of the call, by the block's warps: a warp reduces one ray row of one
+// tile (128 floats, four a lane) to its minimum, as float -> int32, and
+// clips it as the TPU kernel does.
+__device__ __forceinline__ void box_starts(const Proto& P, int* st) {
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int tiles = P.n_rays / kTile;
+  for (int job = threadIdx.x >> 5; job < 3 * tiles; job += warps) {
+    const int t = job / 3, row = job - 3 * t;
+    const float4 v = reinterpret_cast<const float4*>(
+        P.rays + (size_t)row * P.n_rays + (size_t)t * kTile)[lane];
+    float m = fminf(fminf(v.x, v.y), fminf(v.z, v.w));
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
-    r[i] = ray_lane ? P.rays[(size_t)i * P.n_rays + col] : inf;
-  // the slice starts: lane minima to scalars, as float -> int32
-  const int z0 = (int)block_reduce<true>(r[0], red);
-  const int y0 = (int)block_reduce<true>(r[1], red);
-  const int x0 = (int)block_reduce<true>(r[2], red);
-  const int ymin = clampi(floor_div8(y0) * 8, 0, P.Y - P.by);
-  const int xoff = clampi(x0, 0, (P.X - P.bx) / 128) * 128;
-  const int plane = P.by * P.bx;
-  const int n_box = P.bz * plane;
-
-  float acc[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) acc[i] = 0.0f;  // the s == 0 init
-  for (int s = 0; s < P.n_seg; ++s) {
-    const int zmin = clampi(z0 + s, 0, P.Z - P.bz);
-    float part = 0.0f;
-#pragma unroll 8
-    for (int e = threadIdx.x; e < n_box; e += kProtoBlock) {
-      const int z = e / plane, rem = e - z * plane;
-      const int y = rem / P.bx, x = rem - y * P.bx;
-      const size_t at = ((size_t)(zmin + z) * P.Y + (ymin + y)) * P.X
-                        + (xoff + x);
-      part += P.tab[at];
-      atomicAdd(P.counts + at, 1.0f);
+    for (int o = 16; o > 0; o >>= 1)
+      m = fminf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const int r0 = (int)m;
+    for (int s = lane; s < P.n_seg; s += 32) {
+      int* b = st + 3 * (t * P.n_seg + s) + row;
+      if (row == 0) *b = clampi(r0 + s, 0, P.Z - P.bz);
+      else if (row == 1) *b = clampi(floor_div8(r0) * 8, 0, P.Y - P.by);
+      else *b = clampi(r0, 0, (P.X - P.bx) / 128) * 128;
     }
-    const float val = block_reduce<false>(part, red);
+  }
+}
+
+// Every cell's count (grid-stride, four cells a thread a step) and every
+// item's partial box sum (block-stride over T * S * n_chunks items).
+__global__ void __launch_bounds__(kProtoBlock) proto_fill(const Proto P) {
+  extern __shared__ int st[];   // 3 * T * S box starts
+  __shared__ float red[kProtoBlock / 32];
+  box_starts(P, st);
+  __syncthreads();
+  const int n_box = P.n_rays / kTile * P.n_seg;
+  const int X4 = P.X / 4;
+  const long cells4 = (long)P.Z * P.Y * X4;
+  for (long q = (long)blockIdx.x * blockDim.x + threadIdx.x; q < cells4;
+       q += (long)gridDim.x * blockDim.x) {
+    const long zy = q / X4;
+    const int x = (int)(q - zy * X4) * 4;
+    const int y = (int)(zy % P.Y), z = (int)(zy / P.Y);
+    float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, c3 = 0.0f;
+    for (int b = 0; b < n_box; ++b) {
+      const int* s = st + 3 * b;
+      if ((unsigned)(z - s[0]) < (unsigned)P.bz
+          && (unsigned)(y - s[1]) < (unsigned)P.by) {
+        const int dx = x - s[2];
+        c0 += (unsigned)dx < (unsigned)P.bx ? 1.0f : 0.0f;
+        c1 += (unsigned)(dx + 1) < (unsigned)P.bx ? 1.0f : 0.0f;
+        c2 += (unsigned)(dx + 2) < (unsigned)P.bx ? 1.0f : 0.0f;
+        c3 += (unsigned)(dx + 3) < (unsigned)P.bx ? 1.0f : 0.0f;
+      }
+    }
+    reinterpret_cast<float4*>(P.counts)[q] = make_float4(c0, c1, c2, c3);
+  }
+  // the box sums: item = (box, kChunkRows rows of bx floats), 16-byte loads
+  const int rows = P.bz * P.by, row4 = P.bx / 4;
+  for (int it = blockIdx.x; it < n_box * P.n_chunks; it += gridDim.x) {
+    const int b = it / P.n_chunks, r0 = (it - b * P.n_chunks) * kChunkRows;
+    const int* s = st + 3 * b;
+    const int n4 = min(kChunkRows, rows - r0) * row4;
+    float part = 0.0f;
+    for (int e = threadIdx.x; e < n4; e += kProtoBlock) {
+      const int r = r0 + e / row4;
+      const int z = s[0] + r / P.by, y = s[1] + r % P.by;
+      const float4 v = reinterpret_cast<const float4*>(
+          P.tab + ((size_t)z * P.Y + y) * P.X + s[2])[e % row4];
+      part += (v.x + v.y) + (v.z + v.w);
+    }
+    part = block_sum(part, red);
+    if (threadIdx.x == 0) P.part[it] = part;
+  }
+}
+
+// One block a tile, one thread a ray: out[:, ray] = sum over s of (box
+// sum_s + the ray's rows), box sums from their partials in order.
+__global__ void __launch_bounds__(kTile) proto_out(const Proto P) {
+  const int t = blockIdx.x, col = t * kTile + threadIdx.x;
+  float r[kRows], acc[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    r[i] = P.rays[(size_t)i * P.n_rays + col];
+    acc[i] = 0.0f;   // the s == 0 init
+  }
+  for (int s = 0; s < P.n_seg; ++s) {
+    const float* pp = P.part + (size_t)(t * P.n_seg + s) * P.n_chunks;
+    float val = 0.0f;
+    for (int c = 0; c < P.n_chunks; ++c) val += pp[c];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) acc[i] += val + r[i];
   }
-  if (!ray_lane) return;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) P.out[(size_t)i * P.n_rays + col] = acc[i];
 }
@@ -209,19 +265,34 @@ int launch_gather(const void* tab, int rows, int k, const int* idx,
 
 }  // namespace
 
-// rays (8, n_rays) and tab (Z, Y, X) float32, n_rays a multiple of 128;
-// out (8, n_rays); counts (Z, Y, X) zeroed by the caller. Launches on
+// rays (8, n_rays) and tab (Z, Y, X) float32, n_rays a multiple of 128, X
+// and bx multiples of 128, all 16-byte aligned; out (8, n_rays) and
+// counts (Z, Y, X) are written whole; part holds n_part >= T * S *
+// ceil(bz * by / 8) floats of scratch (the partial box sums). Launches on
 // `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int proto_mega_launch(const float* rays, const float* tab,
-                                 float* out, float* counts, int n_rays,
-                                 int n_seg, int Z, int Y, int X, int bz,
-                                 int by, int bx, void* stream) {
-  if (n_rays <= 0 || n_rays % kTile || bz > Z || by > Y || bx > X
-      || bx % 128 || X % 128)
+                                 float* out, float* counts, float* part,
+                                 int n_part, int n_rays, int n_seg, int Z,
+                                 int Y, int X, int bz, int by, int bx,
+                                 void* stream) {
+  const long n_box = (long)(n_rays / kTile) * n_seg;
+  const int chunks = (bz * by + kChunkRows - 1) / kChunkRows;
+  if (n_rays <= 0 || n_rays % kTile || n_seg < 0 || n_box > kMaxBoxes
+      || bz <= 0 || by <= 0 || bz > Z || by > Y || bx > X || bx % 128
+      || X % 128 || n_part < n_box * chunks)
     return (int)cudaErrorInvalidValue;
-  Proto P{rays, tab, out, counts, n_rays, n_seg, Z, Y, X, bz, by, bx};
-  proto_kernel<<<n_rays / kTile, kProtoBlock, 0,
-                 static_cast<cudaStream_t>(stream)>>>(P);
+  Proto P{rays, tab, out, counts, part, n_rays, n_seg, Z, Y, X, bz, by, bx,
+          chunks};
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // enough blocks for one float4 of counts a thread, at most two an SM
+  const long cells4 = (long)Z * Y * (X / 4);
+  long blocks = (cells4 + kProtoBlock - 1) / kProtoBlock;
+  if (blocks > 2L * sms) blocks = 2L * sms;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  proto_fill<<<(int)blocks, kProtoBlock, 3 * n_box * sizeof(int), st>>>(P);
+  proto_out<<<n_rays / kTile, kTile, 0, st>>>(P);
   return (int)cudaGetLastError();
 }
 

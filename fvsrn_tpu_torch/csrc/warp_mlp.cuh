@@ -1,5 +1,7 @@
 // The warp-owned sample tile: the device layer both forward marches
-// (segment_fwd.cu, mega_fwd.cu) evaluate their network on.
+// (segment_fwd.cu, mega_fwd.cu) and the sample evaluator's value instance
+// (sample_eval.cu: a warp's 32 consecutive positions as one tile, steps 3
+// and 4 below replaced by the density head) evaluate their network on.
 //
 // A warp owns a group of 32 rays (lane = ray) and marches them segment by
 // segment on its own. Per segment (in chunks of at most 32 samples):
@@ -131,6 +133,17 @@ __host__ __device__ inline bool choose_fwd_plan(int H, int K, int nh, int F4,
     }
   }
   return best > 0;
+}
+
+// Blocks of a persistent launch over n independent rows (tiles of 32,
+// pl.warps tiles at a time a block): as many as `sms` SMs hold resident by
+// the plan (two blocks an SM or one, as choose_fwd_plan counts them), or
+// fewer when the call has fewer tiles.
+__host__ inline int persistent_blocks(long n, const FPlan& pl, int sms) {
+  const long tiles = (n + kRows - 1) / kRows;
+  const long blocks = (tiles + pl.warps - 1) / pl.warps;
+  const long resident = (long)(pl.total <= smlp::kSmemTwo ? 2 : 1) * sms;
+  return (int)(blocks < resident ? blocks : resident);
 }
 
 // The tile's columns of a network (as FDims says); `dir` with direction

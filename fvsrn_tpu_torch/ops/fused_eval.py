@@ -9,6 +9,13 @@ collisions (``raytracer.montecarlo.make_mc_sampler``). On CUDA tensors
 launch per call; on CPU tensors it runs :func:`fused_eval_plain`. On a
 CUDA tensor it never falls back to the plain version.
 
+The kernel's value instance evaluates a warp's 32 consecutive positions
+as one tile of the forward marches' warp-owned layer
+(``csrc/warp_mlp.cuh``: TF32 three-pass tensor-core layers) on a
+persistent grid; its shared-memory plan is :func:`eval_plan` and its grid
+``ops.sample_mlp.persistent_blocks``. The gradient instance keeps one
+thread a position on the CUDA cores.
+
 What it computes: ``VolumeInterpolationNetwork.eval_density`` of a density
 network in screen mode (the output clamp), every hidden layer with layer
 0's activation as the JAX kernel evaluates it (the network of the
@@ -101,12 +108,43 @@ def fused_eval_plain(net, pos01: Tensor, dirs: Optional[Tensor] = None, *,
     return value.detach(), grad
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.sample_eval_launch
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, i, p, i, p] + [i] * 9 + [f, i, i, i, p]
+def eval_plan(hidden: int, n_fourier: int, chunks: int, n_hidden: int,
+              direction: bool = False):
+    """The value instance's shared-memory plan (``ops.sample_mlp``'s
+    forward plan with no TF points); raises ``NotImplementedError`` when
+    none fits."""
+    from .sample_mlp import check_fwd_plan
+    return check_fwd_plan("sample evaluator", hidden, n_fourier, chunks,
+                          n_hidden, 0, direction=direction)
+
+
+def device_eval_grid(n: int, hidden: int, n_fourier: int, chunks: int,
+                     n_hidden: int, direction: bool = False):
+    """(plan bytes, warps a block, matrices pre-split, blocks, SMs) of the
+    value instance's launch over ``n`` positions on the current device
+    (csrc/sample_eval.cu's own plan and persistent grid), or None when no
+    plan fits."""
+    fn = _build.load("sample_eval").sample_eval_grid
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    out = (ctypes.c_long * 5)()
+    if fn(n, hidden, n_fourier, chunks, n_hidden, int(direction), out) != 0:
+        return None
+    return (int(out[0]), int(out[1]), bool(out[2]), int(out[3]),
+            int(out[4]))
+
+
+_LAUNCH = []   # the bound entry point, typed once
+
+
+def _bound():
+    if not _LAUNCH:
+        fn = _build.load("sample_eval").sample_eval_launch
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, i, p, i, p] + [i] * 9 + [f, i, i, i, p]
+        fn.restype = ctypes.c_int
+        _LAUNCH.append(fn)
+    return _LAUNCH[0]
 
 
 def launch_sample_eval(net, pos01: Tensor, dirs: Optional[Tensor],
@@ -123,7 +161,7 @@ def launch_sample_eval(net, pos01: Tensor, dirs: Optional[Tensor],
     if dirs is not None:
         _check_tensors(dev, dirs=dirs)
     gz, gy, gx = table.shape[:3]
-    fn = _bind(_build.load("sample_eval"))
+    fn = _bound()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(pos01.data_ptr(), dirs.data_ptr() if dirs is not None
@@ -165,6 +203,8 @@ def make_fused_eval(net, box_min, box_size, *, time=0.0, ensemble=0.0,
     net_dev = next(net.parameters()).device
     packed = None
     if net_dev.type == "cuda":
+        # the segment kernel's checks; its plan (two TF points) fitting,
+        # the evaluator's (eval_plan, none) fits
         _check_kernel_inputs(net, torch.tensor(_NO_TF))
         packed = (pack_segment_weights(net, torch.tensor(_NO_TF,
                                                          device=net_dev)),

@@ -11,7 +11,9 @@ plain version. The port's tools (``fvsrn_tpu_torch/tools/``) drive them.
 - :func:`proto_mega`: a (T, S) grid of (128-ray tile, segment) programs;
   each sums a (BZ, BY, BX) box of ``tab`` at starts reduced from ray rows
   0-2 into the tile's (8, 128) output block and adds ones into the counts
-  table at the same box. Returns (out (8, R), counts (Z, Y, X)).
+  table at the same box. Returns (out (8, R), counts (Z, Y, X)). The
+  kernel writes each cell's count (the boxes that cover it) whole, in two
+  launches over the card: nothing is zeroed first.
 - :func:`gather_single` / :func:`gather_chunked`: ``out[r, n] = tab[r,
   idx[r, n]]`` in float32, from a (rows, K) table (f32 or bf16 for the
   first; the second is the wide f32 table the TPU gathered in 128-column
@@ -29,7 +31,8 @@ from torch import Tensor
 
 from . import _build
 
-# kernel launches since the last reset (the plain versions never count)
+# kernel launches since the last reset (the plain versions never count);
+# one prototype launch is two kernels, proto_fill then proto_out
 PROTO_LAUNCHES = 0
 GATHER_SINGLE_LAUNCHES = 0
 GATHER_CHUNKED_LAUNCHES = 0
@@ -37,6 +40,8 @@ ONEHOT_LAUNCHES = 0
 
 TILE = 128            # rays per tile of the prototype
 BOX = (6, 16, 256)    # the prototype's (BZ, BY, BX) slice
+PROTO_CHUNK_ROWS = 8  # box rows of one partial sum (probes.cu kChunkRows)
+PROTO_MAX_BOXES = 2048  # T * S boxes the kernel takes (probes.cu kMaxBoxes)
 
 
 def reset_counts() -> None:
@@ -131,7 +136,9 @@ def proto_mega(rays: Tensor, tab: Tensor, n_seg: int = 3,
                box=BOX) -> tuple[Tensor, Tensor]:
     """The prototype on (8, R) float32 rays (R a multiple of 128) and a
     (Z, Y, X) float32 table (X a multiple of 128). Returns (out (8, R),
-    counts (Z, Y, X))."""
+    counts (Z, Y, X)). On the card the T = R / 128 tiles times ``n_seg``
+    segments are at most PROTO_MAX_BOXES boxes: every block of the kernel
+    holds all the box starts in shared memory."""
     if rays.ndim != 2 or rays.shape[0] != 8 or rays.shape[1] % TILE:
         raise ValueError(f"rays must be (8, R), R a multiple of {TILE}")
     if tab.ndim != 3 or any(b > d for b, d in zip(box, tab.shape)):
@@ -140,15 +147,23 @@ def proto_mega(rays: Tensor, tab: Tensor, n_seg: int = 3,
         return proto_mega_plain(rays, tab, n_seg, box)
     if rays.dtype != torch.float32 or tab.dtype != torch.float32:
         raise ValueError("proto_mega: float32 rays and table")
+    if rays.shape[1] // TILE * n_seg > PROTO_MAX_BOXES:
+        raise ValueError(f"proto_mega: {rays.shape[1] // TILE} tiles x "
+                         f"{n_seg} segments, more than {PROTO_MAX_BOXES} "
+                         "boxes")
     dev = rays.device
     _check(dev, rays=rays, tab=tab)
     out = torch.empty_like(rays)
-    cnt = torch.zeros_like(tab)
-    fn = _bound("proto_mega_launch", "ppppiiiiiiiip")
+    cnt = torch.empty_like(tab)
+    # the kernel's partial box sums: PROTO_CHUNK_ROWS box rows an item
+    items = -(-box[0] * box[1] // PROTO_CHUNK_ROWS)
+    part = torch.empty(max(1, rays.shape[1] // TILE * n_seg * items),
+                       dtype=torch.float32, device=dev)
+    fn = _bound("proto_mega_launch", "pppppiiiiiiiiip")
     with torch.cuda.device(dev):
         err = fn(rays.data_ptr(), tab.data_ptr(), out.data_ptr(),
-                 cnt.data_ptr(), rays.shape[1], n_seg, *tab.shape, *box,
-                 _stream(dev))
+                 cnt.data_ptr(), part.data_ptr(), part.numel(),
+                 rays.shape[1], n_seg, *tab.shape, *box, _stream(dev))
     _raise("proto_mega", err)
     global PROTO_LAUNCHES
     PROTO_LAUNCHES += 1

@@ -20,7 +20,12 @@ warp-owned sample tile (``csrc/warp_mlp.cuh``) both forward marches
   tile's column order (pre-split into TF32 hi and lo where that fits),
   the vectors, then per warp a tile of 32 rows (each row, its head
   outputs and its ray's fields), with the most warps an SM holds;
-  :func:`check_fwd_plan` raises for widths no plan fits.
+  :func:`check_fwd_plan` raises for widths no plan fits. The sample
+  evaluator (``csrc/sample_eval.cu``) takes the same plan with no TF
+  points.
+- :func:`persistent_blocks`: the blocks of a persistent launch over
+  independent rows (``persistent_blocks`` in warp_mlp.cuh), the sample
+  evaluator's grid.
 """
 from __future__ import annotations
 
@@ -198,3 +203,14 @@ def check_fwd_plan(kernel: str, hidden: int, n_fourier: int, chunks: int,
             f"width {hidden}, {n_fourier} Fourier features, {chunks} latent "
             f"rows, {n_hidden} hidden layers, {tf_points} TF points")
     return plan
+
+
+def persistent_blocks(n: int, plan: FwdPlan, sms: int) -> int:
+    """Blocks of a persistent launch over ``n`` independent rows, in tiles
+    of 32 rows, ``plan.warps`` tiles at a time a block: the blocks ``sms``
+    SMs hold resident (two an SM when each fits in half its shared
+    memory, else one, as :func:`fwd_plan` counts them), or fewer when the
+    call has fewer tiles."""
+    tiles = -(-n // FWD_ROWS)
+    per_sm = 2 if plan.bytes <= SMEM_TWO else 1
+    return min(-(-tiles // plan.warps), per_sm * sms)

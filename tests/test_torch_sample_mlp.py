@@ -1,21 +1,24 @@
 """Host side of the training backwards' batched sample MLP
 (fvsrn_tpu_torch/ops/sample_mlp.py, mirror of csrc/sample_mlp.cuh) and of
 the forwards' warp-owned tiles (mirror of csrc/warp_mlp.cuh): the
-three-pass TF32 split of the products' operands and the shared-memory
-plans of a launch. The device's own plans are held to this mirror on the
-card (tests/test_torch_kernels.py::test_segment_bwd_smem_plan_matches_device,
-::test_forward_smem_plans_match_device).
+three-pass TF32 split of the products' operands, the shared-memory plans
+of a launch, and the sample evaluator's plan and persistent grid. The
+device's own plans are held to this mirror on the card
+(tests/test_torch_kernels.py::test_segment_bwd_smem_plan_matches_device,
+::test_forward_smem_plans_match_device,
+::test_sample_eval_plan_and_grid_match_device).
 """
 import numpy as np
 import pytest
 import torch
 
-from fvsrn_tpu_torch.ops import fused_dvr, fused_mega
+from fvsrn_tpu_torch.ops import fused_dvr, fused_eval, fused_mega
 from fvsrn_tpu_torch.ops.sample_mlp import (FWD_WARPS, SMEM_LIMIT, SMEM_TWO,
                                             check_fwd_plan, check_plan,
                                             fwd_columns, fwd_plan,
                                             make_fwd_plan, make_plan,
-                                            smem_plan, tf32_split)
+                                            persistent_blocks, smem_plan,
+                                            tf32_split)
 
 
 def _values(seed):
@@ -158,3 +161,59 @@ def test_fwd_plan_raises_beyond_the_limits(beyond):
         check_fwd_plan("segment kernel", 64, nf, 4, nh, 16, direction=True)
     assert make_fwd_plan(64, nf, 4, nh, 16, 1, False, True).bytes \
         > SMEM_LIMIT
+
+
+@pytest.mark.parametrize("hidden", [32, 48, 64])
+def test_eval_plan_fits_at_the_kernels_limits(hidden):
+    """The sample evaluator's plan (the forwards' plan with no TF points)
+    fits in 227 KB at its limits: 32 Fourier features, its 16 latent
+    channels (one table row), the most hidden layers, direction input."""
+    plan = fused_eval.eval_plan(hidden, fused_dvr.MAX_FOURIER, 1,
+                                fused_dvr.MAX_HIDDEN_LAYERS, True)
+    assert plan.bytes <= SMEM_LIMIT and plan.warps in FWD_WARPS
+    assert plan == fwd_plan(hidden, fused_dvr.MAX_FOURIER, 1,
+                            fused_dvr.MAX_HIDDEN_LAYERS, 0, direction=True)
+
+
+@pytest.mark.parametrize("case", ["flagship", "flagship_48", "limits_64"])
+def test_eval_plan_regions(case):
+    """The evaluator's regions, hand counted from what csrc/sample_eval.cu
+    reads (warp_mlp.cuh's make_fwd_plan with no TF block): the first
+    layer's K rows and the hidden matrices (pre-split: 2 H floats a row;
+    else H + 8), the vectors (b1, the hidden biases, Wo (4, H), bo, B and
+    Bd padded to 4 rows, no TF), and a warp's tile of 32 rows of max(K, H)
+    + 4 floats, 32 head rows of 4 and 32 ray rows of 8."""
+    args, warps, pre, regions = {
+        # K 48: 32 Fourier columns, 16 latent, 3 position, 5 zeros
+        "flagship": ((32, 14, 1, 2, False), 8, True, dict(
+            W1=48 * 64, Wh=2 * 32 * 64, vec=32 + 64 + 128 + 4 + 96,
+            tiles=8 * 32 * (52 + 12))),
+        # pre-split, 8 warps fit one block an SM; split in the loop, two
+        "flagship_48": ((48, 14, 1, 2, False), 8, False, dict(
+            W1=48 * 56, Wh=2 * 48 * 56, vec=48 + 96 + 192 + 4 + 96,
+            tiles=8 * 32 * (52 + 12))),
+        # K 88: 64 Fourier columns, 16 latent, 6 position and direction
+        "limits_64": ((64, 32, 1, 6, True), 4, False, dict(
+            W1=88 * 72, Wh=6 * 64 * 72, vec=64 + 384 + 256 + 4 + 192,
+            tiles=4 * 32 * (92 + 12)))}[case]
+    plan = fused_eval.eval_plan(*args)
+    assert (plan.warps, plan.pre, plan.regions) == (warps, pre, regions)
+    assert plan.bytes == 4 * sum(regions.values())
+    assert (plan.bytes <= SMEM_TWO) == (case != "limits_64")
+
+
+@pytest.mark.parametrize("case", [
+    ("flagship", 0, 132, 0), ("flagship", 1, 132, 1),
+    ("flagship", 256, 132, 1), ("flagship", 257, 132, 2),
+    ("flagship", 2 ** 18, 132, 264), ("flagship", 2 ** 18 + 7, 132, 264),
+    ("flagship", 2 ** 18, 2, 4), ("limits_64", 129, 132, 2),
+    ("limits_64", 2 ** 18, 132, 132)])
+def test_persistent_blocks(case):
+    """The evaluator's persistent grid: min(the call's blocks of tiles,
+    the blocks the SMs hold resident). The flagship's plan takes 8 tiles a
+    block, two blocks an SM; the plan at the limits 4 tiles, one."""
+    plan_case, n, sms, blocks = case
+    plan = fused_eval.eval_plan(*{"flagship": (32, 14, 1, 2, False),
+                                  "limits_64": (64, 32, 1, 6, True)}[
+                                      plan_case])
+    assert persistent_blocks(n, plan, sms) == blocks

@@ -51,7 +51,16 @@ main paths on the card:
 - phase K, TPU kernel rows 8-11 (``csrc/probes.cu``): the port's probe
   tools at the JAX tools' shapes, each kernel against the tools' NumPy
   oracles and its plain version, timed beside its bound and the library
-  call.
+  call;
+- phase L, world-space training, the trainer's default mode (no TPU
+  kernel on its path): ``train.main.run --mode world`` at the flagship's
+  widths (65,536 halton samples, batch 8192, 2 epochs), then with random
+  positions, an importance-sampled half and a rebuild every epoch; JAX's
+  draws (random positions, the epoch permutation, uniform and normal) on
+  the card against the CPU's, the dataset's targets and the first step's
+  loss and gradients against the CPU's, the step timed; then
+  ``render_image`` supersampled (4 samples, 128x128), ``phase.sample`` and
+  ``sample_light_position`` from a key, card against CPU.
 
 Prints one JSON line with every kernel and a last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -66,6 +75,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 DEVICE = "cuda"
@@ -110,6 +120,16 @@ TRAIN_ARGS = ["IMPLICIT:MARSCHNER_LOBB", "--mode", "screen",
               "--screen_size", str(WIDTH), "--stepsize", str(STEPSIZE),
               "--screen_cameras", "2", "-i", "2", "-o", "Adam",
               "-lr", "1e-3"]
+WORLD_ARGS = ["IMPLICIT:MARSCHNER_LOBB", "--mode", "world",
+              "--layers", "32:32:32", "--activation", "SnakeAlt:2",
+              "--fouriercount", "14", "--outputmode", "density:direct",
+              "--volumetric_features_channels", "16",
+              "--volumetric_features_resolution", "32",
+              "--samples", "65536", "--sampler", "halton",
+              "--batch_size", "8192", "-i", "2"]
+MC_CHECK_SIZE = 128                  # phase L: render_image supersampled
+MC_CHECK_SAMPLES = 4
+MC_CHECK_STEPSIZE = 1.0 / 128
 # H100 SXM published dense peaks (NVIDIA data sheet) at 700 W
 PEAK_BF16_TC = 989e12
 PEAK_F32 = 67e12
@@ -1476,6 +1496,224 @@ def probe_rows(smi):
     return rows
 
 
+def profile_top(fn, k=6):
+    """The ``k`` CUDA kernels with the most self device time in one call
+    of ``fn`` (torch.profiler), as {name: (ms, share of the device
+    time)}; empty if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and "CUDA" in str(e.device_type)] or list(prof.key_averages())
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    total = sum(dev_us(e) for e in events)
+    if total <= 0:
+        return {}
+    top = sorted(events, key=dev_us, reverse=True)[:k]
+    return {e.key[:60]: (round(dev_us(e) / 1e3, 4),
+                         round(dev_us(e) / total, 4)) for e in top}
+
+
+def world_training(smi, reset_counts, counts, npz, tf):
+    """Phase L, the trainer's default mode: ``train.main.run --mode world``
+    at the flagship's widths on the card (JAX's random draws, the halton
+    dataset, Adam), then with random positions, an importance-sampled half
+    and a rebuild from the loss grid; the draws, the dataset and the first
+    step against the CPU's; the step timed. Then the Monte-Carlo draws and
+    supersampling that JAX's draws unblocked, card against CPU. No TPU
+    kernel lies on this path: the JAX package's world step is plain XLA.
+    Returns the figures printed."""
+    from fvsrn_tpu_torch.camera import CameraOnASphere
+    from fvsrn_tpu_torch.inference import LoadedModel
+    from fvsrn_tpu_torch.models.network_volume import \
+        VolumeInterpolationNetwork
+    from fvsrn_tpu_torch.ops import probes
+    from fvsrn_tpu_torch.phase import PhaseFunctionHenyeyGreenstein
+    from fvsrn_tpu_torch.raytracer import evaluator
+    from fvsrn_tpu_torch.raytracer.dvr import RayEvaluationSteppingDvr
+    from fvsrn_tpu_torch.raytracer.montecarlo import (
+        RayEvaluationMonteCarlo, sample_light_position)
+    from fvsrn_tpu_torch.train import main as train_main
+    from fvsrn_tpu_torch.train import world
+    from fvsrn_tpu_torch.train.losses import LossNetWorld
+    from fvsrn_tpu_torch.train.optimizer import make_optimizer
+    from fvsrn_tpu_torch.train.sampling import get_sampled_positions
+    from fvsrn_tpu_torch.utils import prng
+    from fvsrn_tpu_torch.volume.implicit import VolumeInterpolationImplicit
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    opt = vars(train_main.init_parser().parse_args(
+        WORLD_ARGS[:1] + [os.path.join(out_dir, "world_run.npz")]
+        + WORLD_ARGS[1:]))
+    n, batch = opt["samples"], opt["batch_size"]
+
+    # the draws on the card against the CPU's, bit for bit
+    key = prng.prng_key(opt["seed"])
+    for name, fn in (
+            ("random positions", lambda d: get_sampled_positions(
+                "random", n, key=key, device=d)),
+            ("epoch permutation", lambda d: prng.permutation(
+                prng.split(prng.prng_key(0))[1], n, device=d)),
+            ("uniform (-2.5, 3.7)", lambda d: prng.uniform(
+                key, (n, 3), -2.5, 3.7, device=d))):
+        check(torch.equal(fn(dev).cpu(), fn(cpu)),
+              f"phase L: {name} on the card differ from the CPU's")
+    nerr = float((prng.normal(key, (n, 3), device=dev).cpu()
+                  - prng.normal(key, (n, 3), device=cpu)).abs().max())
+    check(nerr <= 1e-6, f"phase L: normal card vs CPU {nerr}")
+
+    # the dataset: halton positions, densities of the implicit field
+    volume = VolumeInterpolationImplicit.make("MARSCHNER_LOBB")
+    t0 = time.perf_counter()
+    ds = world.build_world_dataset(volume, n, sampler=opt["sampler"],
+                                   device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ds_cpu = world.build_world_dataset(volume, n, sampler=opt["sampler"],
+                                       device=cpu)
+    terr = float((ds.targets.cpu() - ds_cpu.targets).abs().max())
+    check(torch.equal(ds.positions.cpu(), ds_cpu.positions),
+          "phase L: dataset positions")
+    check(terr <= 1e-6, f"phase L: dataset targets card vs CPU {terr}")
+
+    # the first step from the run's initial weights and its first batch,
+    # on the card and on the CPU
+    loss = LossNetWorld(mode="density", l1=opt["l1"], l2=opt["l2"])
+    perm = prng.permutation(prng.split(prng.prng_key(0))[1], n, device=dev)
+    idx = perm[:batch]
+    step_out = {}
+    for d, data in ((dev, ds), (cpu, ds_cpu)):
+        net = train_main.make_network(opt).to(d)
+        b = world.WorldDataset(*(a[idx.to(d)] for a in data))
+        total, _ = world.evaluate_world(net, b, loss)
+        total.backward()
+        step_out[d.type] = (float(total.detach()), {
+            k: p.grad.detach().cpu() for k, p in net.named_parameters()})
+    (l_dev, g_dev), (l_cpu, g_cpu) = step_out["cuda"], step_out["cpu"]
+    loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    grad_rel = {k: rel_err(g_dev[k], g_cpu[k]) for k in g_cpu}
+    worst = max(grad_rel, key=grad_rel.get)
+    check(loss_rel <= 1e-5, f"phase L: first-step loss card {l_dev} vs "
+          f"CPU {l_cpu}")
+    check(grad_rel[worst] <= 1e-5, f"phase L: first-step gradients {grad_rel}")
+
+    # the main path, twice: the JAX parser's defaults, then random
+    # positions with an importance-sampled half and a rebuild every epoch
+    runs = {}
+    for name, extra in (("halton", []),
+                        ("random+importance+rebuild",
+                         ["--sampler", "random", "--importance", "0.5",
+                          "--rebuild_dataset", "1"])):
+        o = vars(train_main.init_parser().parse_args(
+            WORLD_ARGS[:1] + [os.path.join(out_dir, "world_run.npz")]
+            + WORLD_ARGS[1:] + extra))
+        reset_counts()
+        probes.reset_counts()
+        t0 = time.perf_counter()
+        hist = train_main.run(o)["history"]
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        c_l = dict(counts(), **probes.counts())
+        print(f"phase L trainer [{smi}]: train.main.run --mode world "
+              f"{name}, {n} samples, batch {batch}, {o['epochs']} epochs "
+              f"in {run_s:.2f} s (dataset included), losses {hist}, "
+              f"kernel launches {c_l} (none on this path)", flush=True)
+        check(len(hist) == o["epochs"]
+              and all(math.isfinite(v) for v in hist) and hist[1] < hist[0],
+              f"phase L {name}: losses {hist}")
+        runs[name] = {"losses": hist, "seconds": run_s}
+
+    # the step's time: CUDA events over an epoch's steps after a warm-up
+    # epoch (forward, L1, autograd, Adam and the scheduler)
+    net = train_main.make_network(opt).to(dev)
+    step = world.make_train_step(loss, make_optimizer(
+        net.parameters(), opt["optimizer"], lr=opt["lr"]))
+    nbatch = n // batch
+    batches = [world.WorldDataset(*(a[perm[i * batch:(i + 1) * batch]]
+                                    for a in ds)) for i in range(nbatch)]
+
+    def epoch():
+        for b in batches:
+            step(net, b)
+    step_ms = cuda_ms(epoch, 1) / nbatch
+    # the step's layers: the forward and loss alone, then with autograd's
+    # backward; the rest of the step is Adam and the scheduler
+    fwd_ms = cuda_ms(lambda: world.evaluate_world(net, batches[0], loss), 8)
+    fwd_bwd_ms = cuda_ms(lambda: world.evaluate_world(
+        net, batches[0], loss)[0].backward(), 8)
+    net.zero_grad(set_to_none=True)
+    top = profile_top(epoch)
+    print(f"phase L world step [{smi}]: {step_ms:.4f} ms/step, "
+          f"{batch / step_ms * 1e3:.0f} samples/s (batch {batch}, mean of "
+          f"{nbatch} steps after a warm-up epoch): forward and loss "
+          f"{fwd_ms:.4f} ms, backward {fwd_bwd_ms - fwd_ms:.4f} ms, Adam "
+          f"and the rest {step_ms - fwd_bwd_ms:.4f} ms; the epoch's device "
+          f"time by kernel (torch.profiler, self time) {top}", flush=True)
+    print(f"phase L world data [{smi}]: dataset build "
+          f"{build_s:.3f} s ({n} halton samples, host clock); draws card "
+          f"= CPU bit for bit, normal max|d| {nerr:.2e}; targets max|d| "
+          f"{terr:.2e}; first step loss rel {loss_rel:.2e}, worst "
+          f"gradient leaf {worst} rel {grad_rel[worst]:.2e}", flush=True)
+
+    # Monte-Carlo draws from a key and supersampling, card against CPU
+    model = LoadedModel.from_checkpoint(npz, tf=tf)
+    cam = CameraOnASphere.make(**CAMERA)
+    imgs = {}
+    for d in (dev, cpu):
+        ev = evaluator.ImageEvaluatorSimple(
+            camera=cam, volume=VolumeInterpolationNetwork(
+                model.network.to(d), model.box_min, model.box_size),
+            tf=tf, ray_config=RayEvaluationSteppingDvr.make(
+                stepsize=MC_CHECK_STEPSIZE), samples=MC_CHECK_SAMPLES)
+        with torch.no_grad():
+            imgs[d.type] = evaluator.render_image(
+                ev, MC_CHECK_SIZE, MC_CHECK_SIZE, device=d).cpu()
+    img_err = float((imgs["cuda"] - imgs["cpu"]).abs().max())
+    amax = float(imgs["cuda"][:, 3].max())
+    check(img_err <= 1e-4 and amax > 0.1, f"phase L: render_image "
+          f"samples={MC_CHECK_SAMPLES} card vs CPU {img_err}, alpha {amax}")
+    dirs = torch.nn.functional.normalize(torch.from_numpy(
+        np.random.default_rng(3).standard_normal((n, 3)).astype(
+            np.float32)), dim=1)
+    phase = PhaseFunctionHenyeyGreenstein.make(g=0.3)
+    # the uniforms are equal bit for bit; the direction's trigonometry
+    # differs by ulps between the card's libm and the CPU's, held as the
+    # CPU tests hold the port against JAX (2e-5)
+    k1, _ = prng.split(key)
+    check(torch.equal(prng.uniform(k1, (n,), device=dev).cpu(),
+                      prng.uniform(k1, (n,), device=cpu)),
+          "phase L: phase.sample's uniforms")
+    ph_err = float((phase.sample(key, dirs.to(dev)).cpu()
+                    - phase.sample(key, dirs)).abs().max())
+    cfg = RayEvaluationMonteCarlo.make()
+    light_err = float((sample_light_position(
+        key, cfg, (n,), torch.float32, device=dev).cpu()
+        - sample_light_position(key, cfg, (n,), torch.float32,
+                                device=cpu)).abs().max())
+    print(f"phase L MC draws: render_image dvr samples={MC_CHECK_SAMPLES} "
+          f"{MC_CHECK_SIZE}^2 card vs CPU max|d| {img_err:.2e} (alpha max "
+          f"{amax:.3f}); phase.sample from a key {ph_err:.2e}; "
+          f"sample_light_position without ray ids {light_err:.2e}",
+          flush=True)
+    check(ph_err <= 2e-5 and light_err <= 1e-5,
+          f"phase L: MC draws card vs CPU {ph_err}, {light_err}")
+    return {"step_ms": step_ms, "samples_per_s": batch / step_ms * 1e3,
+            "forward_ms": fwd_ms, "backward_ms": fwd_bwd_ms - fwd_ms,
+            "dataset_build_s": build_s, "runs": runs,
+            "first_step_loss_rel": loss_rel,
+            "first_step_grad_rel": grad_rel[worst],
+            "render_samples_err": img_err}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1621,6 +1859,7 @@ def main():
     mc_row = monte_carlo(smi, reset_counts, counts, npz, tf, cam)
     render_row["sparse"] = sparse_arm(smi, reset_counts, counts, cam)
     probe = probe_rows(smi)
+    world_training(smi, reset_counts, counts, npz, tf)
 
     # 11. kernels
     print(json.dumps({"kernels": [render_row] + train_rows

@@ -89,12 +89,15 @@ def camera_matrix(cam: CameraOnASphere) -> Tensor:
 def generate_rays(matrix_or_camera: Union[Tensor, CameraOnASphere],
                   width: int, height: int,
                   fov_y_radians: Optional[float] = None, *,
-                  device=None,
+                  jitter: Optional[Tensor] = None, device=None,
                   dtype=torch.float32) -> tuple[Tensor, Tensor]:
     """One ray per pixel center: ndc = 2*(pix+0.5)/size - 1 and
     dir = normalize(front + ndc.x*tan(fovX/2)*right + ndc.y*tan(fovY/2)*up)
-    with front = up x right. ``device`` defaults to the matrix's.
-    Returns (ray_start, ray_dir), each (B, H, W, 3)."""
+    with front = up x right. ``jitter``: an optional (S, H, W, 2) offset in
+    [0, 1) inside each pixel for multisampling, ndc = 2*(pix+jitter)/size
+    - 1, the S samples in the batch axis (an unbatched camera only).
+    ``device`` defaults to the matrix's. Returns (ray_start, ray_dir),
+    each (B, H, W, 3)."""
     if isinstance(matrix_or_camera, CameraOnASphere):
         if fov_y_radians is None:
             fov_y_radians = matrix_or_camera.fov_y_radians
@@ -116,13 +119,21 @@ def generate_rays(matrix_or_camera: Union[Tensor, CameraOnASphere],
     front = torch.linalg.cross(up, right)
     x = torch.arange(width, dtype=dtype, device=matrix.device)
     y = torch.arange(height, dtype=dtype, device=matrix.device)
-    ndc_x = (2 * (x + 0.5) / width - 1)[None, None, :].expand(
-        1, height, width)
-    ndc_y = (2 * (y + 0.5) / height - 1)[None, :, None].expand(
-        1, height, width)
+    if jitter is None:
+        ndc_x = (2 * (x + 0.5) / width - 1)[None, None, :].expand(
+            1, height, width)
+        ndc_y = (2 * (y + 0.5) / height - 1)[None, :, None].expand(
+            1, height, width)
+    else:
+        if matrix.shape[0] != 1:
+            raise ValueError("multisampling requires an unbatched camera "
+                             "(samples occupy the batch axis)")
+        jitter = jitter.to(device=matrix.device, dtype=dtype)
+        ndc_x = 2 * (x[None, None, :] + jitter[..., 0]) / width - 1
+        ndc_y = 2 * (y[None, :, None] + jitter[..., 1]) / height - 1
     direction = normalize(front + ndc_x[..., None] * (tan_fov_x * right)
                           + ndc_y[..., None] * (tan_fov_y * up))
-    batch = matrix.shape[0]
+    batch = max(matrix.shape[0], ndc_x.shape[0])
     ray_start = eye.expand(batch, height, width, 3)
     ray_dir = direction.expand(batch, height, width, 3)
     return ray_start, ray_dir

@@ -36,11 +36,21 @@
 //    neighbouring outputs with one 16-byte index load and one 16-byte
 //    store. A chunked gather buys nothing here, so rows 9 and 10 share the
 //    device code; each has its own entry point and launch count.
-//  - resolve: a direct gather, no one-hot. One block per 32 samples: each
-//    warp reads whole table rows (8 bytes a lane, 256 contiguous bytes a
-//    row at C = 128), every load of a thread in flight at once, and the
-//    block writes the transpose through shared memory, 128 contiguous
-//    bytes per warp store.
+//  - resolve: a direct gather, no one-hot, transposed in registers. Four
+//    lanes share a table row: a warp takes 32 samples and 32 channels
+//    (V = 8 a lane where C % 8 == 0, else 4). Lane (a, b) reads the 4 row
+//    ids of samples 4a..4a+3 (one 16-byte load), then its 16 bytes of
+//    each of those 4 rows (four rows' 64-byte spans an instruction, all
+//    four loads in flight), and writes each channel's 4 samples as one
+//    float4: a store instruction fills four channel rows' 128-byte
+//    lines, and a block's four warps take consecutive sample groups, so
+//    a block writes 512 contiguous bytes of each of its channel rows. No
+//    shared memory: nothing to stage and no bank to conflict on. The
+//    table (a few hundred KB at most) stays in L1 and L2. At (128, 8192)
+//    that is 1,024 warps in 256 blocks of four, about two blocks an SM.
+//    Every warp walks the chain row ids -> rows -> stores, so the loads'
+//    latency comes before the 4.2 MB drain; fvsrn_tpu_torch/tools/
+//    resolve_variants.py times the variants and the stores alone.
 // Indices outside the table give 0, as the masked select and the one-hot
 // column give on the TPU.
 //
@@ -62,8 +72,7 @@ constexpr int kChunkRows = 8;     // box rows a block sums into one partial
 constexpr int kMaxBoxes = 2048;   // T * S: 24 KB of box starts
 constexpr int kGatherBlock = 256;
 constexpr int kPerThread = 4;
-constexpr int kResolveN = 32;     // samples per resolve block
-constexpr int kResolveBlock = 256;
+constexpr int kResolveWarps = 4;  // warps a resolve block
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(uint16_t v) {  // bf16 bits
@@ -216,38 +225,103 @@ __global__ void __launch_bounds__(kGatherBlock)
   *reinterpret_cast<float4*>(out + at) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-__global__ void __launch_bounds__(kResolveBlock)
-    resolve_kernel(const uint16_t* tab, int rows, int c, const int* lrow,
-                   float* out, int n) {
-  extern __shared__ float s[];          // (kResolveN, c + 1)
-  const int n0 = blockIdx.x * kResolveN;
-  const int stride = c + 1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // each warp reads whole table rows, 4 channels (8 bytes) a lane: all of
-  // a thread's loads are independent and in flight together
+// bf16 bits -> float: the low and the high half of a 32-bit word
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// V channels of one table row: V / 2 words, one 16-byte (V = 8) or
+// 8-byte (V = 4) load; zeros for a row outside the table
+template <int V> struct RowChunk { uint32_t w[V / 2]; };
+
+template <int V>
+__device__ __forceinline__ RowChunk<V> load_chunk(const uint16_t* tab,
+                                                  int rows, int c, int l,
+                                                  int ch0) {
+  RowChunk<V> r;
 #pragma unroll
-  for (int q = 0; q < kResolveN / (kResolveBlock / 32); ++q) {
-    const int j = warp + q * (kResolveBlock / 32);
-    const int sample = n0 + j;
-    const int l = sample < n ? lrow[sample] : -1;
-    const bool inside = l >= 0 && l < rows;
-    for (int ch = 4 * lane; ch < c; ch += 128) {
-      uint2 v = make_uint2(0u, 0u);
-      if (inside)
-        v = *reinterpret_cast<const uint2*>(tab + (size_t)l * c + ch);
-      float* d = s + j * stride + ch;
-      d[0] = __uint_as_float(v.x << 16);
-      d[1] = __uint_as_float(v.x & 0xffff0000u);
-      d[2] = __uint_as_float(v.y << 16);
-      d[3] = __uint_as_float(v.y & 0xffff0000u);
+  for (int i = 0; i < V / 2; ++i) r.w[i] = 0u;
+  if (l >= 0 && l < rows) {
+    const uint16_t* src = tab + (size_t)l * c + ch0;
+    if constexpr (V == 8) {
+      const uint4 v = *reinterpret_cast<const uint4*>(src);
+      r.w[0] = v.x; r.w[1] = v.y; r.w[2] = v.z; r.w[3] = v.w;
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(src);
+      r.w[0] = v.x; r.w[1] = v.y;
     }
   }
-  __syncthreads();
-  // the transpose out: a warp stores one channel's 32 samples (128 bytes)
-  for (int e = threadIdx.x; e < kResolveN * c; e += kResolveBlock) {
-    const int ch = e / kResolveN, j = e % kResolveN;
-    if (n0 + j < n) out[(size_t)ch * n + n0 + j] = s[j * stride + ch];
+  return r;
+}
+
+constexpr int kRowLanes = 4;  // lanes that share a table row (B)
+
+// out[ch, j] = tab[lrow[j], ch]. Lane (a, b) = (lane / B, lane % B) of a
+// warp task (sample group, channel block): samples s0..s0+3 (s0 = the
+// group's first + 4a), channels ch0..ch0+V-1 (ch0 = the block's first +
+// V b). With `vec` (n % 4 == 0) its 4 row ids are one int4 and each
+// channel's 4 samples one float4 (all in or all past n), else scalar.
+template <int V, bool vec>
+__global__ void __launch_bounds__(32 * kResolveWarps)
+    resolve_kernel(const uint16_t* tab, int rows, int c, const int* lrow,
+                   float* out, int n) {
+  constexpr int kSamples = 4 * (32 / kRowLanes);   // a warp task's samples
+  const int lane = threadIdx.x & 31;
+  const long n_groups = ((long)n + kSamples - 1) / kSamples;
+  const long task = (long)blockIdx.x * kResolveWarps + (threadIdx.x >> 5);
+  const int blocks_c = (c + V * kRowLanes - 1) / (V * kRowLanes);
+  if (task >= n_groups * blocks_c) return;
+  // a block's warps take consecutive sample groups of one channel block
+  const int cb = (int)(task / n_groups);
+  const long sg = task - (long)cb * n_groups;
+  const int s0 = (int)(sg * kSamples) + 4 * (lane / kRowLanes);
+  const int ch0 = (cb * kRowLanes + lane % kRowLanes) * V;
+  if (ch0 >= c) return;
+  int l[4] = {-1, -1, -1, -1};
+  if constexpr (vec) {
+    if (s0 < n) {
+      const int4 q = *reinterpret_cast<const int4*>(lrow + s0);
+      l[0] = q.x; l[1] = q.y; l[2] = q.z; l[3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (s0 + j < n) l[j] = lrow[s0 + j];
   }
+  RowChunk<V> r[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) r[j] = load_chunk<V>(tab, rows, c, l[j], ch0);
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = (k & 1) ? bf16_hi(r[j].w[k >> 1]) : bf16_lo(r[j].w[k >> 1]);
+    float* dst = out + (size_t)(ch0 + k) * n + s0;
+    if constexpr (vec) {
+      if (s0 < n)
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (s0 + j < n) dst[j] = v[j];
+    }
+  }
+}
+
+template <int V, bool vec>
+int launch_resolve(const uint16_t* tab, int rows, int c, const int* lrow,
+                   float* out, int n, cudaStream_t stream) {
+  constexpr int kSamples = 4 * (32 / kRowLanes);
+  const long warps = ((long)n + kSamples - 1) / kSamples
+                     * ((c + V * kRowLanes - 1) / (V * kRowLanes));
+  const long blocks = (warps + kResolveWarps - 1) / kResolveWarps;
+  resolve_kernel<V, vec><<<(unsigned)blocks, 32 * kResolveWarps, 0,
+                           stream>>>(tab, rows, c, lrow, out, n);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -316,16 +390,17 @@ extern "C" int gather_chunked_launch(const float* tab, int rows, int k,
 }
 
 // out[ch, j] = tab[lrow[j], ch] (0 outside [0, rows)): tab (rows, c) bf16
-// bits, c a multiple of 4, lrow (n,) int32, out (c, n) float32.
+// bits, c a multiple of 4, lrow (n,) int32, out (c, n) float32; tab, lrow
+// and out 16-byte aligned.
 extern "C" int onehot_resolve_launch(const uint16_t* tab, int rows, int c,
                                      const int* lrow, float* out, int n,
                                      void* stream) {
-  if (rows <= 0 || c <= 0 || c % 4 || n <= 0
-      || (size_t)kResolveN * (c + 1) * sizeof(float) > 48 * 1024)
+  if (rows <= 0 || c <= 0 || c % 4 || n <= 0)
     return (int)cudaErrorInvalidValue;
-  resolve_kernel<<<(n + kResolveN - 1) / kResolveN, kResolveBlock,
-                   kResolveN * (c + 1) * sizeof(float),
-                   static_cast<cudaStream_t>(stream)>>>(tab, rows, c, lrow,
-                                                        out, n);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c % 8 == 0)
+    return n % 4 ? launch_resolve<8, false>(tab, rows, c, lrow, out, n, st)
+                 : launch_resolve<8, true>(tab, rows, c, lrow, out, n, st);
+  return n % 4 ? launch_resolve<4, false>(tab, rows, c, lrow, out, n, st)
+               : launch_resolve<4, true>(tab, rows, c, lrow, out, n, st);
 }

@@ -6,10 +6,9 @@ sampling of the cosine) and ``sample`` (a direction in the frame of the
 incoming one). Tensors are channel-last (..., 3). Scalar parameters are
 rounded to float32 and combined in float32, as the JAX package does.
 
-``sample`` takes the uniforms ``u`` and ``u_phi``; drawing them itself
-from a key needs JAX's ``random.uniform`` bit layout, which is not
-ported, so without them it raises ``NotImplementedError``
-(``raytracer.montecarlo.trace_mc`` always passes its per-ray draws).
+``sample`` takes the uniforms ``u`` and ``u_phi``, or draws them from
+the two keys of ``split(key)`` with ``utils.prng.uniform``, JAX's bits
+(``raytracer.montecarlo.trace_mc`` passes its per-ray draws).
 """
 from __future__ import annotations
 
@@ -20,6 +19,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from .utils import prng
 from .utils.vecmath import cross, dot
 
 _1_4PI = 0.07957747154594767
@@ -51,11 +51,16 @@ def direction_from_angle(dir_in: Tensor, cos_theta: Tensor,
             + cos_theta[..., None] * v1)
 
 
-def _needs_uniforms(u, u_phi):
+def _uniforms(key, dir_in: Tensor, u, u_phi):
+    """(u, u_phi): the given ones, or two uniforms a direction drawn from
+    the two keys of ``split(key)`` on ``dir_in``'s device, as the JAX
+    package draws them."""
     if u is None or u_phi is None:
-        raise NotImplementedError(
-            "phase sampling from a key needs JAX's random.uniform bits, "
-            "which are not ported; pass the uniforms u and u_phi")
+        k1, k2 = prng.split(key)
+        shape = dir_in.shape[:-1]
+        u = prng.uniform(k1, shape, device=dir_in.device)
+        u_phi = prng.uniform(k2, shape, device=dir_in.device)
+    return u, u_phi
 
 
 @dataclass(frozen=True)
@@ -92,7 +97,7 @@ class PhaseFunctionHenyeyGreenstein:
 
     def sample(self, key, dir_in: Tensor, pos=None, b: int = 0,
                u: Tensor = None, u_phi: Tensor = None) -> Tensor:
-        _needs_uniforms(u, u_phi)
+        u, u_phi = _uniforms(key, dir_in, u, u_phi)
         return direction_from_angle(dir_in, self.sample_angle(u, b), u_phi)
 
 
@@ -122,5 +127,5 @@ class PhaseFunctionRayleigh:
 
     def sample(self, key, dir_in: Tensor, pos=None, b: int = 0,
                u: Tensor = None, u_phi: Tensor = None) -> Tensor:
-        _needs_uniforms(u, u_phi)
+        u, u_phi = _uniforms(key, dir_in, u, u_phi)
         return direction_from_angle(dir_in, self.sample_angle(u, b), u_phi)

@@ -8,8 +8,9 @@ into a running mean; ``extract_color`` takes rgba with an optional
 exposure tonemap. The "mc" mode runs ``trace_mc`` on the volume's own
 ``eval_density``, as the JAX package does.
 
-Not ported: supersampling (``samples > 1`` needs JAX's ``random.uniform``
-jitter and the camera's multisampling) and BRDF shading; both raise
+Supersampling (``samples > 1``) jitters every pixel by JAX's
+``random.uniform`` bits (``utils.prng``) and averages the samples as the
+JAX package does. Not ported: BRDF shading, which raises
 ``NotImplementedError``. Entry points render on ``device="cuda"`` unless
 the caller asks for the CPU; the volume must lie on that device.
 """
@@ -63,11 +64,11 @@ def render_image(ev: ImageEvaluatorSimple, width: int, height: int, *,
     ``background``: an optional (1, 5, H, W) rgba + depth image; rays stop
     at its depth where its alpha > 0 ("dvr"), and it is blended under the
     result. ``key``: the host key of "mc" (default ``prng_key(42)``),
-    folded with the batch entry."""
-    if ev.samples > 1:
-        raise NotImplementedError(
-            "supersampling needs JAX's random.uniform jitter and the "
-            "camera's multisampling, which are not ported")
+    folded with the batch entry, and of the supersampling jitter: with
+    ``samples`` S > 1 every pixel is traced at S offsets drawn as
+    ``uniform(key, (S, H, W, 2))`` (an unbatched camera), colors averaged,
+    normals weighted by alpha over S, depth by alpha over the summed
+    alpha."""
     if ev.brdf is not None:
         raise NotImplementedError("BRDF shading is not ported yet")
     dev = resolve_device(device)
@@ -75,7 +76,14 @@ def render_image(ev: ImageEvaluatorSimple, width: int, height: int, *,
         max_steps = max_steps_bound(ev.volume.box_size.tolist(),
                                     ev.ray_config.stepsize)
     tf = ev.tf.to(dev)
-    ray_start, ray_dir = generate_rays(ev.camera, width, height, device=dev)
+    jitter = None
+    if ev.samples > 1:
+        if key is None:
+            key = prng.prng_key(42)
+        jitter = prng.uniform(key, (ev.samples, height, width, 2),
+                              device=dev)
+    ray_start, ray_dir = generate_rays(ev.camera, width, height,
+                                       jitter=jitter, device=dev)
     tmax_in = None
     if background is not None:
         background = background.to(dev)
@@ -98,13 +106,21 @@ def render_image(ev: ImageEvaluatorSimple, width: int, height: int, *,
         raise ValueError(f"unknown ray mode {ev.ray_mode}")
 
     batch = _camera_batch(ev.camera)
-    outs = [trace_one(min(b, batch - 1), ray_start[b], ray_dir[b])
+    outs = [trace_one(min(b, batch - 1) if ev.samples == 1 else 0,
+                      ray_start[b], ray_dir[b])
             for b in range(ray_start.shape[0])]
     color = torch.stack([o.color for o in outs])        # (B, H, W, 4)
     normal = torch.stack([o.normal if o.normal is not None
                           else torch.zeros_like(o.color[..., :3])
                           for o in outs])
     depth = torch.stack([o.depth for o in outs])
+    if ev.samples > 1:
+        w = color[..., 3:4]
+        color_sum = torch.sum(color, dim=0, keepdim=True)
+        depth = torch.sum(depth * w, dim=0, keepdim=True) / torch.clamp(
+            color_sum[..., 3:4], min=1e-20)
+        normal = torch.sum(normal * w, dim=0, keepdim=True) / ev.samples
+        color = color_sum / ev.samples
     if background is not None:
         bg = torch.movedim(background[:, :4], 1, -1)
         acc_a = color[..., 3:4]

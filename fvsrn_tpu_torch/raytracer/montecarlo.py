@@ -314,15 +314,16 @@ def _light_center(config: RayEvaluationMonteCarlo, like: Tensor) -> Tensor:
 
 
 def sample_light_position(key, config: RayEvaluationMonteCarlo, shape: tuple,
-                          dtype, ray_id: Optional[Tensor] = None) -> Tensor:
-    """Uniform point on the light sphere's surface: a normalized per-ray
-    gaussian of the counters ``ray_id`` (shape ``shape``). Without them
-    the JAX package draws with JAX's ``random.normal``, whose bits are
-    not ported: raises ``NotImplementedError``."""
-    if ray_id is None:
-        raise NotImplementedError("sample_light_position without ray ids "
-                                  "needs JAX's random.normal bits")
-    g = ray_normal3(key, ray_id, dtype)
+                          dtype, ray_id: Optional[Tensor] = None,
+                          device="cuda") -> Tensor:
+    """Uniform point on the light sphere's surface: a normalized gaussian,
+    per ray from the counters ``ray_id`` (shape ``shape``, on their
+    device), or without them JAX's ``random.normal(key, shape + (3,))``
+    drawn on ``device``."""
+    if ray_id is not None:
+        g = ray_normal3(key, ray_id, dtype)
+    else:
+        g = prng.normal(key, tuple(shape) + (3,), device=device).to(dtype)
     return normalize(g) * config.light_radius + _light_center(config, g)
 
 

@@ -1,17 +1,25 @@
-"""Training entry point: screen-space SRN fitting.
+"""Training entry point: world- and screen-space SRN fitting.
 
-Counterpart of ``fvsrn_tpu/train/main.py`` for ``--mode screen``: the
-same options, the network and latent-grid initialization from the seed,
-ground truth from an implicit scene, the fused march's kernels when the
-configuration is one they take (``--no_fused`` for the plain march), and
-a ``.npz`` run file (``train.checkpoints.save_run``) written every
-``--save_frequency`` epochs and at the end. Runs on the card unless
-``--device cpu`` is given. Not ported yet: ``--mode world``,
+Counterpart of ``fvsrn_tpu/train/main.py``: the same options, the network
+and latent-grid initialization from the seed, ground truth from an
+implicit scene, and a ``.npz`` run file (``train.checkpoints.save_run``)
+written every ``--save_frequency`` epochs and at the end.
+
+- ``--mode world`` (the default): the network fitted to volume samples
+  (``train/world.py``): positions from ``--sampler``, a share
+  ``--importance`` of them importance-sampled, the dataset rebuilt every
+  ``--rebuild_dataset`` epochs from the per-voxel loss grid; JAX's random
+  draws bit for bit (``utils.prng``).
+- ``--mode screen``: a differentiable render against ground-truth
+  images, through the fused march's kernels when the configuration is one
+  they take (``--no_fused`` for the plain march).
+
+Runs on the card unless ``--device cpu`` is given. Not ported yet:
 ``--data_parallel``, ``--tensorboard`` and scene JSON files.
 
 Usage:
   python -m fvsrn_tpu_torch.train.main IMPLICIT:MARSCHNER_LOBB out.npz
-      --mode screen --layers 32:32:32 --activation SnakeAlt:2 ...
+      --mode world --layers 32:32:32 --activation SnakeAlt:2 ...
 """
 from __future__ import annotations
 
@@ -23,16 +31,22 @@ import numpy as np
 import torch
 
 from ..models.latent import LatentSpace
+from ..models.network_volume import VolumeInterpolationNetwork
 from ..models.srn import SceneRepresentationNetwork
 from ..raytracer.dvr import RayEvaluationSteppingDvr, max_steps_bound
 from ..transfer import TransferFunctionPiecewiseLinear
+from ..utils import prng
 from ..utils.device import resolve_device
 from ..volume.implicit import VolumeInterpolationImplicit
 from .checkpoints import save_run
-from .losses import LossNetScreen
+from .importance import (importance_sampling,
+                         importance_sampling_with_probability_grid,
+                         loss_probability_grid)
+from .losses import LossNetScreen, LossNetWorld
 from .optimizer import make_optimizer
 from .screen import (build_screen_dataset, fused_screen_supported,
                      screen_mega_kwargs, train_screen)
+from .world import build_world_dataset, train_world_epochs
 
 
 def init_parser() -> argparse.ArgumentParser:
@@ -57,8 +71,16 @@ def init_parser() -> argparse.ArgumentParser:
     g.add_argument("--seed", type=int, default=42)
 
     g = p.add_argument_group("Data")
-    g.add_argument("--mode", choices=["world", "screen"], default="world",
-                   help="world is not ported yet")
+    g.add_argument("--mode", choices=["world", "screen"], default="world")
+    g.add_argument("--samples", type=int, default=256 ** 2,
+                   help="world samples")
+    g.add_argument("--sampler", default="halton",
+                   choices=["random", "halton", "plastic"])
+    g.add_argument("--importance", type=float, default=0.0,
+                   help=">0: fraction of importance-sampled positions")
+    g.add_argument("--rebuild_dataset", type=int, default=0,
+                   help="rebuild the dataset every N epochs from the "
+                        "per-voxel loss grid")
     g.add_argument("--screen_cameras", type=int, default=16)
     g.add_argument("--screen_size", type=int, default=64)
     g.add_argument("--data_parallel", type=int, default=0)
@@ -69,6 +91,7 @@ def init_parser() -> argparse.ArgumentParser:
     g.add_argument("-i", "--epochs", type=int, default=50)
     g.add_argument("--lr_gamma", type=float, default=0.5)
     g.add_argument("--lr_step", type=int, default=500)
+    g.add_argument("--batch_size", type=int, default=64 * 64 * 2)
 
     g = p.add_argument_group("Loss")
     g.add_argument("-l1", type=float, default=1.0)
@@ -82,6 +105,9 @@ def init_parser() -> argparse.ArgumentParser:
     g.add_argument("--no_fused", action="store_true",
                    help="screen mode: the plain march instead of the "
                         "fused kernels")
+    g.add_argument("--scan_epoch", action="store_true",
+                   help="accepted for the JAX package's parser; world "
+                        "epochs run as a Python loop of steps either way")
     g.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the plain versions)")
     return p
@@ -99,18 +125,10 @@ def _resolve_scene(spec: str):
     return vol, tf, RayEvaluationSteppingDvr.make(stepsize=1 / 128)
 
 
-def run(opt: dict) -> dict:
-    """Programmatic entry; returns {'history', 'network', 'fused'}."""
-    if opt["mode"] != "screen":
-        raise NotImplementedError("--mode world is not ported yet")
-    for key in ("data_parallel", "tensorboard"):
-        if opt.get(key):
-            raise NotImplementedError(f"--{key} is not ported yet")
-    dev = resolve_device(opt.get("device", "cuda"))
-    volume, tf, ray_config = _resolve_scene(opt["scene"])
-    ray_config = RayEvaluationSteppingDvr.make(
-        **dict(ray_config.__dict__, stepsize=opt["stepsize"]))
-
+def make_network(opt: dict) -> SceneRepresentationNetwork:
+    """The run's initial network on the CPU: ``SceneRepresentationNetwork
+    .make`` from ``--seed``, its latent grid (when asked for) drawn from
+    ``np.random.default_rng(seed)``, as the JAX package draws it."""
     latent = LatentSpace()
     if (opt["volumetric_features_channels"] > 0
             and opt["volumetric_features_resolution"] > 0):
@@ -120,27 +138,29 @@ def run(opt: dict) -> dict:
             rng.standard_normal(
                 (opt["volumetric_features_channels"], r, r, r))
             * opt["volumetric_features_std"]).astype(np.float32)))
-    net = SceneRepresentationNetwork.make(
+    return SceneRepresentationNetwork.make(
         layers=opt["layers"], activation=opt["activation"],
         output_mode=opt["outputmode"], num_fourier=opt["fouriercount"],
-        fourier_std=opt["fourierstd"], latent=latent,
-        seed=opt["seed"]).to(dev)
-    optimizer = make_optimizer(net.parameters(), opt["optimizer"],
-                               lr=opt["lr"], lr_step=opt["lr_step"],
-                               lr_gamma=opt["lr_gamma"])
-    loss = LossNetScreen(l1=opt["l1"], l2=opt["l2"], dssim=opt["dssim"])
-    ds = build_screen_dataset(volume, tf, ray_config,
-                              num_cameras=opt["screen_cameras"],
-                              width=opt["screen_size"],
-                              height=opt["screen_size"], device=dev)
-    max_steps = max_steps_bound((1.0, 1.0, 1.0), float(ray_config.stepsize))
-    use_fused = (not opt.get("no_fused")
-                 and fused_screen_supported(net, tf, ds.width, ds.height))
-    fused_kwargs = None
-    if use_fused:
-        fused_kwargs = screen_mega_kwargs(ds)
-        print("screen mode: fused march enabled (--no_fused for the plain "
-              "march)", file=sys.stderr)
+        fourier_std=opt["fourierstd"], latent=latent, seed=opt["seed"])
+
+
+def run(opt: dict) -> dict:
+    """Programmatic entry; returns {'history', 'network'} and, in screen
+    mode, 'fused'."""
+    for key in ("data_parallel", "tensorboard"):
+        if opt.get(key):
+            raise NotImplementedError(f"--{key} is not ported yet")
+    dev = resolve_device(opt.get("device", "cuda"))
+    volume, tf, ray_config = _resolve_scene(opt["scene"])
+    ray_config = RayEvaluationSteppingDvr.make(
+        **dict(ray_config.__dict__, stepsize=opt["stepsize"]))
+
+    net = make_network(opt).to(dev)
+
+    def make_opt(params):
+        return make_optimizer(params, opt["optimizer"], lr=opt["lr"],
+                              lr_step=opt["lr_step"],
+                              lr_gamma=opt["lr_gamma"])
 
     history = []
     t_start = time.time()
@@ -150,14 +170,80 @@ def run(opt: dict) -> dict:
         if (e + 1) % opt["save_frequency"] == 0:
             save_run(opt["output"], network, opt, history)
 
-    net, _ = train_screen(
-        net, ds, tf, ray_config, loss, optimizer, epochs=opt["epochs"],
-        max_steps=max_steps,
-        generator=torch.Generator().manual_seed(opt["seed"]),
-        use_fused=use_fused, fused_kwargs=fused_kwargs, callback=epoch_cb)
+    out = {"history": history}
+    if opt["mode"] == "world":
+        net = _train_world(opt, net, volume, tf, make_opt, epoch_cb, dev)
+    else:
+        loss = LossNetScreen(l1=opt["l1"], l2=opt["l2"], dssim=opt["dssim"])
+        ds = build_screen_dataset(volume, tf, ray_config,
+                                  num_cameras=opt["screen_cameras"],
+                                  width=opt["screen_size"],
+                                  height=opt["screen_size"], device=dev)
+        max_steps = max_steps_bound((1.0, 1.0, 1.0),
+                                    float(ray_config.stepsize))
+        use_fused = (not opt.get("no_fused")
+                     and fused_screen_supported(net, tf, ds.width,
+                                                ds.height))
+        fused_kwargs = None
+        if use_fused:
+            fused_kwargs = screen_mega_kwargs(ds)
+            print("screen mode: fused march enabled (--no_fused for the "
+                  "plain march)", file=sys.stderr)
+        net, _ = train_screen(
+            net, ds, tf, ray_config, loss, make_opt(net.parameters()),
+            epochs=opt["epochs"], max_steps=max_steps,
+            generator=torch.Generator().manual_seed(opt["seed"]),
+            use_fused=use_fused, fused_kwargs=fused_kwargs,
+            callback=epoch_cb)
+        out["fused"] = use_fused
     save_run(opt["output"], net, dict(opt, seconds=time.time() - t_start),
              history)
-    return {"history": history, "network": net, "fused": use_fused}
+    out["network"] = net
+    return out
+
+
+def _train_world(opt, net, volume, tf, make_opt, epoch_cb, dev):
+    """World mode as the JAX package runs it: rgbo networks fit TF
+    colors, density networks raw densities; the dataset from
+    ``prng_key(seed)``, its last ``importance`` share importance-sampled
+    from ``prng_key(seed + 1)``, rebuilt from the loss grid with
+    ``prng_key(seed + epochs_left)`` every ``rebuild_dataset`` epochs."""
+    is_rgbo = opt["outputmode"].startswith("rgbo")
+    loss = LossNetWorld(mode="rgbo" if is_rgbo else "density",
+                        l1=opt["l1"], l2=opt["l2"])
+    key = prng.prng_key(opt["seed"])
+
+    def build_ds(positions=None):
+        return build_world_dataset(
+            volume, opt["samples"], sampler=opt["sampler"], key=key,
+            tf=(tf if is_rgbo else None), stepsize=float(opt["stepsize"]),
+            positions=positions, device=dev)
+
+    ds = build_ds()
+    if opt["importance"] > 0:
+        n_imp = int(opt["samples"] * opt["importance"])
+        pos_i, _, _ = importance_sampling(
+            prng.prng_key(opt["seed"] + 1), volume, n_imp, tf=tf,
+            min_prob=0.01, device=dev)
+        ds = build_ds(positions=torch.cat(
+            [ds.positions[:opt["samples"] - n_imp], pos_i]))
+    rebuild = opt["rebuild_dataset"]
+    epochs_left = opt["epochs"]
+    phase_len = rebuild if rebuild > 0 else epochs_left
+    while epochs_left > 0:
+        n = min(phase_len, epochs_left)
+        net, _ = train_world_epochs(
+            net, ds, loss, make_opt, batch_size=opt["batch_size"], epochs=n,
+            scan_epoch=opt.get("scan_epoch", False), callback=epoch_cb)
+        epochs_left -= n
+        if epochs_left > 0 and rebuild > 0:
+            grid = loss_probability_grid(VolumeInterpolationNetwork(net),
+                                         volume, resolution=32, device=dev)
+            pos, _, _ = importance_sampling_with_probability_grid(
+                prng.prng_key(opt["seed"] + epochs_left), volume, grid,
+                opt["samples"], min_prob=0.05, device=dev)
+            ds = build_ds(positions=pos)
+    return net
 
 
 def main(argv=None):

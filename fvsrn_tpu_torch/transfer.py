@@ -3,9 +3,13 @@
 Counterpart of ``fvsrn_tpu/transfer.py`` for the piecewise-linear TF,
 which both benchmark scenes use. ``eval_normalized`` takes a density
 already mapped to [0, 1] and returns rgba whose absorption channel is
-already multiplied by the stepsize.
+already multiplied by the stepsize; :func:`evaluate` is the tensor-level
+evaluation of raw (N, 1) densities that world-space training and
+importance sampling call.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import Tensor
@@ -24,6 +28,10 @@ class TransferFunctionPiecewiseLinear:
         opacity = torch.tensor(opacity, dtype=torch.float32)[:, None]
         positions = torch.tensor(positions, dtype=torch.float32)[:, None]
         return cls(torch.cat([rgb, opacity, positions], dim=-1))
+
+    def max_absorption(self) -> Tensor:
+        """The largest absorption of any control point."""
+        return torch.max(self.tensor[..., 3])
 
     def to(self, device) -> "TransferFunctionPiecewiseLinear":
         return TransferFunctionPiecewiseLinear(self.tensor.to(device))
@@ -44,3 +52,16 @@ class TransferFunctionPiecewiseLinear:
         frac = (torch.minimum(torch.maximum(d, p0), p1) - p0) / (p1 - p0)
         rgba = val0 + (val1 - val0) * frac[..., None]
         return torch.cat([rgba[..., :3], rgba[..., 3:4] * stepsize], dim=-1)
+
+
+def evaluate(tf, density: Tensor, density_min: float, density_max: float,
+             stepsize: Optional[float] = None) -> Tensor:
+    """Colors (N, 4) of densities (N, 1) mapped from [density_min,
+    density_max] to [0, 1]; densities below density_min give (0, 0, 0, 0).
+    The absorption is scaled by ``stepsize`` (1 when None)."""
+    d = density[..., 0]
+    inv_range = 1.0 / (density_max - density_min)
+    color = tf.eval_normalized((d - density_min) * inv_range, None, None,
+                               1.0 if stepsize is None else stepsize)
+    return torch.where((d >= density_min)[..., None], color,
+                       torch.zeros_like(color))

@@ -44,10 +44,14 @@ sys.exit(1 if bad else 0)
                                     "fvsrn_tpu_torch.raytracer.iso",
                                     "fvsrn_tpu_torch.ops.fused_eval",
                                     "fvsrn_tpu_torch.raytracer.montecarlo",
-                                    "fvsrn_tpu_torch.raytracer.evaluator"])
+                                    "fvsrn_tpu_torch.raytracer.evaluator",
+                                    "fvsrn_tpu_torch.train.world",
+                                    "fvsrn_tpu_torch.train.importance",
+                                    "fvsrn_tpu_torch.train.main"])
 def test_slice_module_imports_alone(module):
-    """The modules of the fused per-segment and isosurface renders and of
-    Monte-Carlo path tracing import on their own, loading no JAX."""
+    """The modules of the fused per-segment and isosurface renders, of
+    Monte-Carlo path tracing and of world training import on their own,
+    loading no JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", IMPORT_ONE, module],
                           cwd=ROOT, env=env, capture_output=True, text=True,

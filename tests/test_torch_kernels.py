@@ -344,6 +344,30 @@ def test_proto_mega_shapes(tiles, n_seg):
     assert torch.equal(cnt, p_cnt)
 
 
+@pytest.mark.parametrize("rows,c,n", [(128, 128, 8192), (928, 128, 8192),
+                                      (128, 128, 1000), (928, 128, 8193),
+                                      (17, 12, 37), (5, 8, 130)])
+def test_onehot_resolve_shapes(rows, c, n):
+    """Row 11 (the resolve, transposed in registers: a warp owns 128
+    samples, 4 a lane) against its plain version, exactly: the tools'
+    shapes, n not a multiple of a warp's 128 samples (1000) nor of a
+    lane's 4 (8193, 37: the scalar path), a C that takes 8-byte loads (12)
+    and row ids outside the table (zeros)."""
+    needs_card()
+    from fvsrn_tpu_torch.ops import probes
+    rng = np.random.default_rng(rows + c + n)
+    tab = torch.from_numpy(rng.standard_normal((rows, c)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    lrow = torch.from_numpy(rng.integers(-3, rows + 3, (1, n)).astype(
+        np.int32)).cuda()
+    before = probes.ONEHOT_LAUNCHES
+    out = probes.onehot_resolve(tab, lrow)
+    torch.cuda.synchronize()
+    assert probes.ONEHOT_LAUNCHES == before + 1
+    assert out.shape == (c, n)
+    assert torch.equal(out, probes.onehot_resolve_plain(tab, lrow))
+
+
 def test_proto_mega_box_limit():
     """Row 8 takes at most PROTO_MAX_BOXES tiles x segments on the card
     (every block holds the box starts in shared memory): one box more is

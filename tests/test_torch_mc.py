@@ -25,7 +25,7 @@ from fvsrn_tpu.raytracer import evaluator as jev
 from fvsrn_tpu.raytracer import montecarlo as jmc
 from fvsrn_tpu.transfer import TransferFunctionPiecewiseLinear as JTF
 from fvsrn_tpu_torch import sh
-from fvsrn_tpu_torch.camera import CameraOnASphere
+from fvsrn_tpu_torch.camera import CameraOnASphere, generate_rays
 from fvsrn_tpu_torch.convert import srn_from_arrays
 from fvsrn_tpu_torch.models.network_volume import VolumeInterpolationNetwork
 from fvsrn_tpu_torch.phase import (PhaseFunctionHenyeyGreenstein,
@@ -251,8 +251,11 @@ def test_phase_matches_jax(which):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=2e-5)
     np.testing.assert_allclose(got.norm(dim=1).numpy(), 1.0, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        port.sample(prng.prng_key(0), t(d_in))
+    # without uniforms both draw them from split(key): JAX's bits
+    got = port.sample(prng.prng_key(5), t(d_in))
+    want = ref.sample(jax.random.PRNGKey(5), jnp.asarray(d_in))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-5)
 
 
 def test_render_image_mc_and_progressive_match_jax(scene):
@@ -285,9 +288,95 @@ def test_render_image_mc_and_progressive_match_jax(scene):
 
 
 def test_render_image_supersampling_is_not_ported(scene):
+    """Supersampling is ported now: render_image(samples=2) in "mc" mode,
+    the jitter and the walks from the same key, against the JAX
+    render_image at 8x8."""
     ev = evaluator.ImageEvaluatorSimple(
         camera=CameraOnASphere.make(**CAM), volume=scene.vol, tf=scene.tf,
         ray_config=scene.cfg, phase=PhaseFunctionRayleigh.make(),
         ray_mode="mc", samples=2)
-    with pytest.raises(NotImplementedError):
-        evaluator.render_image(ev, 8, 8, device="cpu")
+    jevs = jev.ImageEvaluatorSimple(
+        camera=JCam.make(**CAM), volume=scene.jvol, tf=scene.jtf,
+        ray_config=scene.jcfg, phase=JRayleigh.make(), ray_mode="mc",
+        samples=2)
+    want = np.asarray(jev.render_image(jevs, 8, 8,
+                                       key=jax.random.PRNGKey(3)))
+    got = evaluator.render_image(ev, 8, 8, key=prng.prng_key(3),
+                                 device="cpu").numpy()
+    assert got.shape == want.shape == (1, 8, 8, 8)
+    pix = lambda a: np.moveaxis(a[0], 0, -1).reshape(64, -1)
+    assert_walks_close(pix(got[:, :4]), pix(want[:, :4]))
+
+
+@pytest.mark.parametrize("samples", [2, 3])
+def test_render_image_supersampling_dvr_matches_jax(scene, samples):
+    """render_image(samples=S) in "dvr" mode at 32x32: JAX's jitter
+    (uniform(prng_key(42), (S, H, W, 2)), bit for bit), the multisampled
+    rays, and the combination (colors and alpha-weighted normals over S,
+    depth over the summed alpha), within 1e-5."""
+    from fvsrn_tpu.raytracer.dvr import RayEvaluationSteppingDvr as JCfg
+    from fvsrn_tpu_torch.raytracer.dvr import RayEvaluationSteppingDvr
+    ev = evaluator.ImageEvaluatorSimple(
+        camera=CameraOnASphere.make(**CAM), volume=scene.vol, tf=scene.tf,
+        ray_config=RayEvaluationSteppingDvr.make(stepsize=1 / 32),
+        samples=samples)
+    jevs = jev.ImageEvaluatorSimple(
+        camera=JCam.make(**CAM), volume=scene.jvol, tf=scene.jtf,
+        ray_config=JCfg.make(stepsize=1 / 32), samples=samples)
+    want = np.asarray(jev.render_image(jevs, 32, 32))
+    with torch.no_grad():
+        got = evaluator.render_image(ev, 32, 32, device="cpu").numpy()
+    assert got.shape == want.shape == (1, 8, 32, 32)
+    assert want[:, 3].max() > 0.1
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_generate_rays_jitter_matches_jax():
+    """The camera's multisampling: (S, H, W, 2) offsets in the batch
+    axis; a batched camera refuses them."""
+    jit = np.random.default_rng(4).random((3, 6, 5, 2)).astype(np.float32)
+    want = jgenerate_rays(JCam.make(**CAM), 5, 6, jitter=jnp.asarray(jit))
+    got = generate_rays(CameraOnASphere.make(**CAM), 5, 6,
+                        jitter=torch.from_numpy(jit))
+    for g, w in zip(got, want):
+        assert g.shape == (3, 6, 5, 3)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("which", ["hg", "rayleigh"])
+def test_phase_sample_from_key_matches_jax(which):
+    """phase.sample without uniforms: u and u_phi from the two keys of
+    split(key), JAX's uniform bits, on a (4, 50) batch of directions."""
+    port, ref = {"hg": (PhaseFunctionHenyeyGreenstein.make(g=-0.4),
+                        JHG.make(g=-0.4)),
+                 "rayleigh": (PhaseFunctionRayleigh.make(),
+                              JRayleigh.make())}[which]
+    d = np.random.default_rng(6).standard_normal((4, 50, 3)).astype(
+        np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    k1, k2 = prng.split(prng.prng_key(11))
+    want_u = np.asarray(jax.random.uniform(
+        jax.random.split(jax.random.PRNGKey(11))[0], (4, 50)))
+    np.testing.assert_array_equal(prng.uniform(k1, (4, 50)).numpy(), want_u)
+    got = port.sample(prng.prng_key(11), torch.from_numpy(d))
+    want = ref.sample(jax.random.PRNGKey(11), jnp.asarray(d))
+    assert got.shape == (4, 50, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-5)
+
+
+def test_sample_light_position_without_ray_ids_matches_jax():
+    """The light sample from JAX's random.normal(key, shape + (3,)):
+    normals within 1e-6 (XLA's erf_inv polynomial), points within 1e-6."""
+    cfg = tmc.RayEvaluationMonteCarlo.make(**MC, light_radius=0.3,
+                                           light_position=(0.1, 2.0, -0.5))
+    jcfg = jmc.RayEvaluationMonteCarlo.make(**MC, light_radius=0.3,
+                                            light_position=(0.1, 2.0, -0.5))
+    got = tmc.sample_light_position(prng.prng_key(9), cfg, (7, 30),
+                                    torch.float32, device="cpu")
+    want = jmc.sample_light_position(jax.random.PRNGKey(9), jcfg, (7, 30),
+                                     jnp.float32)
+    assert got.shape == (7, 30, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)

@@ -93,3 +93,50 @@ def test_ray_normal3_matches_jax():
                           torch.float32).numpy()
     assert got.shape == (10_000, 3)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+SHAPES = [(7,), (5, 3), (2, 4, 4, 2)]
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1])
+def test_random_bits_and_uniform_match_jax(seed):
+    """random_bits, uniform and uniform with a minval/maxval pair (XLA's
+    fused multiply-add) bit for bit, for several keys and shapes."""
+    jk, k = jax.random.fold_in(jax.random.PRNGKey(seed), 1), prng.fold_in(
+        prng.prng_key(seed), 1)
+    for shape in SHAPES:
+        want = np.asarray(jax.random.bits(jk, shape)).astype(np.int64)
+        got = prng.random_bits(k, shape)
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), want)
+        for lo, hi in ((0.0, 1.0), (-2.5, 3.7)):
+            want = np.asarray(jax.random.uniform(jk, shape, minval=lo,
+                                                 maxval=hi))
+            got = prng.uniform(k, shape, lo, hi)
+            assert got.dtype == torch.float32
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1])
+def test_normal_matches_jax(seed):
+    """random.normal within 1e-6: XLA's erf_inv polynomial, its log1p an
+    ulp off PyTorch's (torch.erfinv itself reads ~1e-5 off in the
+    tails)."""
+    jk, k = jax.random.PRNGKey(seed), prng.prng_key(seed)
+    for shape in SHAPES + [(20_000, 3)]:
+        want = np.asarray(jax.random.normal(jk, shape))
+        got = prng.normal(k, shape)
+        assert got.shape == shape and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [1, 10, 4097])
+def test_permutation_matches_jax(n):
+    """random.permutation(key, n) exact: 0, 1 and 2 rounds of stable
+    sorts by fresh bits."""
+    for seed in (0, 5):
+        want = np.asarray(jax.random.permutation(jax.random.PRNGKey(seed),
+                                                 n))
+        got = prng.permutation(prng.prng_key(seed), n)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert sorted(got.tolist()) == list(range(n))

@@ -242,7 +242,7 @@ def test_trainer_matches_jax(tmp_path):
         np.testing.assert_array_equal(p.detach().numpy(), params[name])
 
 
-@pytest.mark.parametrize("extra", [["--mode", "world"],
+@pytest.mark.parametrize("extra", [["-o", "LBFGS"],
                                    ["--data_parallel", "2"],
                                    ["--tensorboard", "tb"],
                                    ["--outputmode", "rgbo"]])

@@ -60,7 +60,21 @@ main paths on the card:
   the card against the CPU's, the dataset's targets and the first step's
   loss and gradients against the CPU's, the step timed; then
   ``render_image`` supersampled (4 samples, 128x128), ``phase.sample`` and
-  ``sample_light_position`` from a key, card against CPU.
+  ``sample_light_position`` from a key, card against CPU;
+- phase M, a voxel volume end to end: MARSCHNER_LOBB voxelized at 256^3
+  on the card (``create_implicit_grid``) with a uint8 copy, written as a
+  ``.cvol`` uncompressed and LZ4-compressed and read back (equal, timed);
+  a scene JSON naming it (piecewise TF, "Grid", trilinear) resolved by
+  ``load_from_json``; the grid's three samplers, ``eval_normal`` and
+  ``eval_curvature`` on 2^20 positions card against CPU, timed;
+  ``train.main.run --mode world`` on the scene at the flagship's widths
+  (65,536 halton samples, batch 8192, 2 epochs: dataset and first step
+  card against CPU, the step timed) and in screen mode (512x512, 1/512,
+  2 cameras, 1 epoch: rows 2-3, the first step's kernels against their
+  plain version at full frame); ``LoadedModel.render_reference`` of the
+  grid and the world-trained network's FUSED render (row 1), PSNR
+  printed; a curvature-texture iso render of the grid at 128x128, card
+  against CPU.
 
 Prints one JSON line with every kernel and a last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -127,6 +141,15 @@ WORLD_ARGS = ["IMPLICIT:MARSCHNER_LOBB", "--mode", "world",
               "--volumetric_features_resolution", "32",
               "--samples", "65536", "--sampler", "halton",
               "--batch_size", "8192", "-i", "2"]
+GRID_RES = 256                       # phase M: MARSCHNER_LOBB voxelized
+GRID_POSITIONS = 1 << 20             # phase M: sampler checks and timing
+GRID_ISO_SIZE = 128                  # phase M: curvature iso render
+GRID_ISO_RANGE = 64.0                # phase M: curvature texture's range
+GRID_ISO_SHARE = 0.99                # phase M: iso pixels card = CPU (1e-4)
+# phase M's scene TF: train.main's IMPLICIT TF as a scene JSON gives it
+GRID_SCENE_TF = {"absorptionScaling": 20.0,
+                 "colorPoints": [[0.0, 0.9, 0.4, 0.1], [1.0, 1.0, 1.0, 0.6]],
+                 "opacityPoints": [[0.0, 0.0], [1.0, 1.0]]}
 MC_CHECK_SIZE = 128                  # phase L: render_image supersampled
 MC_CHECK_SAMPLES = 4
 MC_CHECK_STEPSIZE = 1.0 / 128
@@ -1520,6 +1543,34 @@ def profile_top(fn, k=6):
                          round(dev_us(e) / total, 4)) for e in top}
 
 
+def world_first_step(phase, opt, loss, ds, ds_cpu, idx):
+    """The world trainer's first step, from the run's initial weights on
+    the batch ``idx`` of the dataset ``ds`` (card) and ``ds_cpu`` (its
+    CPU copy): loss and every gradient leaf card against CPU, each within
+    1e-5 relative. Returns (loss rel, {leaf: rel}, worst leaf)."""
+    from fvsrn_tpu_torch.train import main as train_main
+    from fvsrn_tpu_torch.train import world
+
+    step_out = []
+    for data in (ds, ds_cpu):
+        d = data.positions.device
+        net = train_main.make_network(opt).to(d)
+        b = world.WorldDataset(*(a[idx.to(d)] for a in data))
+        total, _ = world.evaluate_world(net, b, loss)
+        total.backward()
+        step_out.append((float(total.detach()), {
+            k: p.grad.detach().cpu() for k, p in net.named_parameters()}))
+    (l_dev, g_dev), (l_cpu, g_cpu) = step_out
+    loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    grad_rel = {k: rel_err(g_dev[k], g_cpu[k]) for k in g_cpu}
+    worst = max(grad_rel, key=grad_rel.get)
+    check(loss_rel <= 1e-5, f"{phase}: first-step loss card {l_dev} vs "
+          f"CPU {l_cpu}")
+    check(grad_rel[worst] <= 1e-5, f"{phase}: first-step gradients "
+          f"{grad_rel}")
+    return loss_rel, grad_rel, worst
+
+
 def world_training(smi, reset_counts, counts, npz, tf):
     """Phase L, the trainer's default mode: ``train.main.run --mode world``
     at the flagship's widths on the card (JAX's random draws, the halton
@@ -1589,22 +1640,8 @@ def world_training(smi, reset_counts, counts, npz, tf):
     # on the card and on the CPU
     loss = LossNetWorld(mode="density", l1=opt["l1"], l2=opt["l2"])
     perm = prng.permutation(prng.split(prng.prng_key(0))[1], n, device=dev)
-    idx = perm[:batch]
-    step_out = {}
-    for d, data in ((dev, ds), (cpu, ds_cpu)):
-        net = train_main.make_network(opt).to(d)
-        b = world.WorldDataset(*(a[idx.to(d)] for a in data))
-        total, _ = world.evaluate_world(net, b, loss)
-        total.backward()
-        step_out[d.type] = (float(total.detach()), {
-            k: p.grad.detach().cpu() for k, p in net.named_parameters()})
-    (l_dev, g_dev), (l_cpu, g_cpu) = step_out["cuda"], step_out["cpu"]
-    loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
-    grad_rel = {k: rel_err(g_dev[k], g_cpu[k]) for k in g_cpu}
-    worst = max(grad_rel, key=grad_rel.get)
-    check(loss_rel <= 1e-5, f"phase L: first-step loss card {l_dev} vs "
-          f"CPU {l_cpu}")
-    check(grad_rel[worst] <= 1e-5, f"phase L: first-step gradients {grad_rel}")
+    loss_rel, grad_rel, worst = world_first_step("phase L", opt, loss, ds,
+                                                 ds_cpu, perm[:batch])
 
     # the main path, twice: the JAX parser's defaults, then random
     # positions with an importance-sampled half and a rebuild every epoch
@@ -1712,6 +1749,333 @@ def world_training(smi, reset_counts, counts, npz, tf):
             "first_step_loss_rel": loss_rel,
             "first_step_grad_rel": grad_rel[worst],
             "render_samples_err": img_err}
+
+
+def voxel_volume(smi, reset_counts, counts):
+    """Phase M, a voxel volume end to end: MARSCHNER_LOBB voxelized at
+    256^3 on the card, written as a ``.cvol`` uncompressed and with LZ4
+    and read back; a scene JSON naming it, resolved; the grid's samplers,
+    normal and curvature card against CPU and timed; world training and
+    screen training (rows 2-3) on the scene; the reference render and
+    the world-trained network's FUSED render (row 1); a curvature iso
+    render card against CPU. Returns the figures printed."""
+    from fvsrn_tpu_torch.camera import CameraOnASphere, generate_rays
+    from fvsrn_tpu_torch.inference import LoadedModel
+    from fvsrn_tpu_torch.modules.registry import load_from_json
+    from fvsrn_tpu_torch.ops import fused_mega
+    from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
+                                               max_steps_bound)
+    from fvsrn_tpu_torch.raytracer.iso import (RayEvaluationSteppingIso,
+                                               trace_iso)
+    from fvsrn_tpu_torch.train import main as train_main
+    from fvsrn_tpu_torch.train import world
+    from fvsrn_tpu_torch.train.losses import LossNetWorld
+    from fvsrn_tpu_torch.train.optimizer import make_optimizer
+    from fvsrn_tpu_torch.train.screen import (build_screen_dataset,
+                                              screen_mega_kwargs)
+    from fvsrn_tpu_torch.utils import prng
+    from fvsrn_tpu_torch.volume.grid import VolumeInterpolationGrid
+    from fvsrn_tpu_torch.volume.implicit import create_implicit_grid
+    from fvsrn_tpu_torch.volume.volume import Volume
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    box = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))
+
+    # M1. the volume, voxelized on the card, written twice and read back
+    t0 = time.perf_counter()
+    density = create_implicit_grid(GRID_RES, "MARSCHNER_LOBB", device=dev)
+    torch.cuda.synchronize()
+    voxel_ms = (time.perf_counter() - t0) * 1e3
+    density = density.cpu().numpy()
+    vol = Volume(world_size=(1.0, 1.0, 1.0))
+    vol.add_feature("density", density)
+    vol.add_feature("density_u8", np.round(density * 255).astype(np.uint8))
+    payload = vol.estimate_memory()
+    io = {}
+    for name, compression in (("raw", 0), ("lz4", 1)):
+        path = os.path.join(out_dir, f"mlobb{GRID_RES}_{name}.cvol")
+        t0 = time.perf_counter()
+        vol.save(path, compression=compression)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = Volume.load(path)
+        load_s = time.perf_counter() - t0
+        for f, fb in zip(vol.features, back.features, strict=True):
+            check(f.name == fb.name and np.array_equal(f.levels[0].data,
+                                                       fb.levels[0].data),
+                  f"phase M: the {name} file's {f.name} after a round trip")
+        io[name] = {"path": path, "bytes": os.path.getsize(path),
+                    "save_s": save_s, "load_s": load_s,
+                    "save_mb_s": payload / save_s / 1e6,
+                    "load_mb_s": payload / load_s / 1e6}
+    check(io["lz4"]["bytes"] < io["raw"]["bytes"],
+          f"phase M: LZ4 file {io['lz4']['bytes']} B not below the "
+          f"uncompressed {io['raw']['bytes']} B")
+    print(f"phase M volume [{smi}]: MARSCHNER_LOBB voxelized at "
+          f"{GRID_RES}^3 on the card in {voxel_ms:.2f} ms; .cvol payload "
+          f"{payload / 2**20:.1f} MiB (float32 + uint8 feature); "
+          + "; ".join(f"{k}: {v['bytes']} B, save {v['save_s']:.3f} s "
+                      f"({v['save_mb_s']:.1f} MB/s), load {v['load_s']:.3f} "
+                      f"s ({v['load_mb_s']:.1f} MB/s)" for k, v in io.items())
+          + f"; LZ4 ratio {io['lz4']['bytes'] / io['raw']['bytes']:.4f} "
+          "(host clock)", flush=True)
+
+    # M2. a scene JSON naming the compressed file, resolved
+    scene_path = os.path.join(out_dir, f"mlobb{GRID_RES}.json")
+    with open(scene_path, "w") as f:
+        json.dump({
+            "ImageEvaluator": {"Simple": {
+                "selectedCamera": "Sphere", "selectedRayEvaluator": "DVR",
+                "selectedVolume": "Grid"}},
+            "RayEvaluation": {"DVR": {"stepsize": STEPSIZE,
+                                      "selectedTF": "Piecewise"}},
+            "camera": {"Sphere": dict(CAMERA)},
+            "tf": {"Piecewise": GRID_SCENE_TF},
+            "volume": {"Grid": {
+                "source": "VOLUME", "interpolation": "TRILINEAR",
+                "volumePath": os.path.basename(io["lz4"]["path"])}}}, f)
+    sc = load_from_json(scene_path)
+    ref, tf = sc.evaluator.volume, sc.evaluator.tf
+    check(isinstance(ref, VolumeInterpolationGrid)
+          and ref.resolution == (GRID_RES,) * 3
+          and torch.equal(ref.data, torch.from_numpy(density))
+          and ref.box_size.tolist() == [1.0, 1.0, 1.0],
+          "phase M: the scene's grid is not the volume written")
+
+    # M3. samplers, normal and curvature on 2^20 positions, card vs CPU
+    pos = torch.from_numpy(np.random.default_rng(5).uniform(
+        -0.52, 0.52, (GRID_POSITIONS, 3)).astype(np.float32))
+    pos_d = pos.to(dev)
+    samplers = {}
+    for interp in ("nearest", "trilinear", "tricubic"):
+        g_c = VolumeInterpolationGrid.from_grid(ref.data,
+                                                interpolation=interp)
+        g_d = g_c.to(dev)
+        v_d, in_d = g_d.eval_density(pos_d)
+        v_c, in_c = g_c.eval_density(pos)
+        check(torch.equal(in_d.cpu(), in_c), f"phase M: {interp} inside")
+        samplers[interp] = {
+            "max_abs_err": max_err(v_d.cpu(), v_c),
+            "ns_per_position": cuda_ms(lambda: g_d.eval_density(pos_d), 10)
+            * 1e6 / GRID_POSITIONS}
+    check(samplers["nearest"]["max_abs_err"] == 0.0
+          and samplers["trilinear"]["max_abs_err"] <= 1e-6
+          and samplers["tricubic"]["max_abs_err"] <= 1e-6,
+          f"phase M: samplers card vs CPU {samplers}")
+    g_c = VolumeInterpolationGrid.from_grid(ref.data)
+    g_d = g_c.to(dev)
+    n_c = g_c.eval_normal(pos)
+    normal_rel = max_err(g_d.eval_normal(pos_d).cpu(), n_c) / float(
+        n_c.abs().max())
+    normal_ns = cuda_ms(lambda: g_d.eval_normal(pos_d), 3) * 1e6 \
+        / GRID_POSITIONS
+    k_c = g_c.eval_curvature(pos)
+    k_d = g_d.eval_curvature(pos_d).cpu()
+    gnorm = n_c.norm(dim=-1)
+    keep = gnorm >= 1e-3
+    k_err = (k_d - k_c).abs().amax(dim=-1)[keep]
+    k_scale = k_c.abs().amax(dim=-1)[keep]
+    curv = {"max_abs_err": float(k_err.max()),
+            "p999_abs_err": float(torch.quantile(k_err[:1 << 16], 0.999)),
+            "max_rel_err": float((k_err / (1.0 + k_scale)).max()),
+            "max_abs_k": float(k_scale.max()),
+            "kept_share": float(keep.float().mean()),
+            "ns_per_position": cuda_ms(lambda: g_d.eval_curvature(pos_d), 2)
+            * 1e6 / GRID_POSITIONS}
+    print(f"phase M grid [{smi}]: {GRID_POSITIONS} positions, card vs CPU "
+          + ", ".join(f"{k} max|d| {v['max_abs_err']:.2e} "
+                      f"{v['ns_per_position']:.3f} ns/position"
+                      for k, v in samplers.items())
+          + f"; eval_normal rel {normal_rel:.2e}, {normal_ns:.3f} ns/position;"
+          f" eval_curvature (|g| >= 1e-3, {curv['kept_share']:.4f} of "
+          f"positions) max|d| {curv['max_abs_err']:.3e}, p99.9 "
+          f"{curv['p999_abs_err']:.3e}, max |d| / (1 + |k|) "
+          f"{curv['max_rel_err']:.3e} (|k| up to {curv['max_abs_k']:.1f}), "
+          f"{curv['ns_per_position']:.3f} ns/position (CUDA events)",
+          flush=True)
+    check(normal_rel <= 1e-5, f"phase M: eval_normal card vs CPU "
+          f"{normal_rel}")
+    check(curv["max_rel_err"] <= 1e-3, f"phase M: eval_curvature card vs "
+          f"CPU {curv}")
+
+    # M4. world training on the scene
+    wopt = vars(train_main.init_parser().parse_args(
+        [scene_path, os.path.join(out_dir, "grid_world.npz")]
+        + WORLD_ARGS[1:]))
+    n, batch = wopt["samples"], wopt["batch_size"]
+    t0 = time.perf_counter()
+    ds = world.build_world_dataset(ref, n, sampler=wopt["sampler"],
+                                   device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ds_cpu = world.build_world_dataset(ref, n, sampler=wopt["sampler"],
+                                       device=cpu)
+    terr = max_err(ds.targets.cpu(), ds_cpu.targets)
+    check(torch.equal(ds.positions.cpu(), ds_cpu.positions)
+          and terr <= 1e-6, f"phase M: world dataset card vs CPU {terr}")
+    loss = LossNetWorld(mode="density", l1=wopt["l1"], l2=wopt["l2"])
+    perm = prng.permutation(prng.split(prng.prng_key(0))[1], n, device=dev)
+    loss_rel, grad_rel, worst = world_first_step("phase M", wopt, loss, ds,
+                                                 ds_cpu, perm[:batch])
+    reset_counts()
+    t0 = time.perf_counter()
+    wres = train_main.run(wopt)
+    torch.cuda.synchronize()
+    wrun_s = time.perf_counter() - t0
+    c_world = counts()
+    whist = wres["history"]
+    check(len(whist) == wopt["epochs"]
+          and all(math.isfinite(v) for v in whist) and whist[1] < whist[0],
+          f"phase M world: losses {whist}")
+    net = train_main.make_network(wopt).to(dev)
+    step = world.make_train_step(loss, make_optimizer(
+        net.parameters(), wopt["optimizer"], lr=wopt["lr"]))
+    batches = [world.WorldDataset(*(a[perm[i * batch:(i + 1) * batch]]
+                                    for a in ds)) for i in range(n // batch)]
+
+    def epoch():
+        for b in batches:
+            step(net, b)
+    wstep_ms = cuda_ms(epoch, 1) / len(batches)
+    print(f"phase M world [{smi}]: train.main.run {os.path.basename(scene_path)}"
+          f" --mode world, {n} halton samples, batch {batch}, "
+          f"{wopt['epochs']} epochs in {wrun_s:.2f} s, losses {whist}, "
+          f"launches {c_world}; dataset build {build_s:.4f} s (host "
+          f"clock), targets card vs CPU {terr:.2e}; first step loss rel "
+          f"{loss_rel:.2e}, worst leaf {worst} {grad_rel[worst]:.2e}; step "
+          f"{wstep_ms:.4f} ms (CUDA events, an epoch after a warm-up)",
+          flush=True)
+
+    # M5. screen training on the scene: rows 2-3 with the grid as truth
+    sopt = vars(train_main.init_parser().parse_args(
+        [scene_path, os.path.join(out_dir, "grid_screen.npz")]
+        + TRAIN_ARGS[1:] + ["-i", "1"]))
+    cfg = RayEvaluationSteppingDvr.make(**dict(
+        sc.evaluator.ray_config.__dict__, stepsize=sopt["stepsize"]))
+    t0 = time.perf_counter()
+    sds = build_screen_dataset(ref, tf, cfg,
+                               num_cameras=sopt["screen_cameras"],
+                               width=WIDTH, height=HEIGHT, device=dev)
+    torch.cuda.synchronize()
+    sds_s = time.perf_counter() - t0
+    steps = sopt["screen_cameras"] * sopt["epochs"]
+    reset_counts()
+    t0 = time.perf_counter()
+    sres = train_main.run(sopt)
+    torch.cuda.synchronize()
+    srun_s = time.perf_counter() - t0
+    c_screen = counts()
+    shist = sres["history"]
+    check(sres["fused"] and all(math.isfinite(v) for v in shist),
+          f"phase M screen: fused {sres['fused']}, losses {shist}")
+    check(c_screen["mega_fwd_diff"] >= steps and c_screen["mega_bwd"] >= steps,
+          f"phase M screen: launches {c_screen} in {steps} steps")
+    # the first step's kernels against their plain version at full frame:
+    # the run's initial weights, camera 0's block-ordered rays, L1 against
+    # the grid's render
+    kw = screen_mega_kwargs(sds)
+    rs = sds.ray_start[0][kw["block_perm"]].contiguous()
+    rd = sds.ray_dir[0][kw["block_perm"]].contiguous()
+    target = sds.targets[0][kw["block_perm"]]
+    snet = train_main.make_network(sopt).to(dev)
+    tf_d = tf.tensor.to(dev)
+    seed = {}
+
+    def fwd_bwd(fn):
+        snet.zero_grad(set_to_none=True)
+        tf_leaf = tf_d.clone().requires_grad_(True)
+        img, f_ms = cuda_once(lambda: fn(rs, rd, snet, *box, tf_leaf,
+                                         stepsize=STEPSIZE,
+                                         differentiable=True))
+        if "d" not in seed:
+            seed["d"] = torch.sign(img.detach() - target) / img.numel()
+        _, b_ms = cuda_once(lambda: img.backward(seed["d"]))
+        return img.detach(), grads_of(snet, tf_leaf), f_ms, b_ms
+
+    img_p, g_p, pf_ms, pb_ms = fwd_bwd(fused_mega.mega_trace_dvr_plain)
+    fwd_bwd(fused_mega.mega_trace_dvr)
+    img_k, g_k, kf_ms, kb_ms = fwd_bwd(fused_mega.mega_trace_dvr)
+    simg_err = max_err(img_k, img_p)
+    sgrad = {k: rel_err(g_k[k], g_p[k]) for k in g_p}
+    sworst = max(sgrad, key=sgrad.get)
+    print(f"phase M screen [{smi}]: train.main.run screen {WIDTH}x{HEIGHT} "
+          f"h=1/{round(1 / STEPSIZE)}, {steps} steps in {srun_s:.2f} s, "
+          f"losses {shist}, launches {c_screen}; dataset build (the plain "
+          f"trace_dvr of the grid, {sopt['screen_cameras']} cameras) "
+          f"{sds_s:.3f} s (host clock); first step kernels vs plain: image "
+          f"max|d| {simg_err:.3e} (tol {KERNEL_TOL}), grad rel max "
+          f"{sgrad[sworst]:.3e} ({sworst}, tol {GRAD_TOL}); kernels fwd "
+          f"{kf_ms:.2f} + bwd {kb_ms:.2f} ms, plain {pf_ms:.1f} + "
+          f"{pb_ms:.1f} ms", flush=True)
+    check(simg_err <= KERNEL_TOL, f"phase M screen: image kernel vs plain "
+          f"{simg_err}")
+    check(all(float(g.norm()) > 0 for g in g_p.values()),
+          "phase M screen: a zero gradient")
+    check(sgrad[sworst] <= GRAD_TOL, f"phase M screen: gradients {sgrad}")
+
+    # M6. the reference render and the world-trained network's FUSED one
+    model = LoadedModel(wres["network"], tf, config=RayEvaluationSteppingDvr
+                        .make(stepsize=STEPSIZE), reference_volume=ref)
+    cam = CameraOnASphere.make(**CAMERA)
+    ref_img = model.render_reference(cam, WIDTH, HEIGHT, device=dev)
+    ref_ms = cuda_ms(lambda: model.render_reference(cam, WIDTH, HEIGHT,
+                                                    device=dev), 2)
+    render = model.prepare_network_render(cam, WIDTH, HEIGHT, "FUSED",
+                                          device=dev)
+    reset_counts()
+    net_img = render()
+    torch.cuda.synchronize()
+    c_render = counts()
+    frame_ms = cuda_ms(render, 5)
+    check(render.route == "mega" and c_render["mega_fwd"] >= 1,
+          f"phase M render: route {render.route}, launches {c_render}")
+    check(bool(torch.isfinite(ref_img).all() and torch.isfinite(net_img).all())
+          and float(ref_img[..., 3].max()) > 0.5,
+          "phase M render: non-finite pixels or an empty reference")
+    mse = float(((net_img - ref_img) ** 2).mean())
+    psnr = 10 * math.log10(1.0 / max(mse, 1e-30))
+    print(f"phase M render [{smi}]: render_reference {WIDTH}x{HEIGHT} "
+          f"h=1/{round(1 / STEPSIZE)} {ref_ms:.2f} ms (the plain trace_dvr "
+          f"of the grid, CUDA events); the world-trained network FUSED "
+          f"(route {render.route}) {frame_ms:.3f} ms, launches {c_render}; "
+          f"PSNR vs the reference {psnr:.2f} dB after {wopt['epochs']} "
+          "epochs (not gated)", flush=True)
+
+    # M7. a curvature-texture iso render of the grid, card vs CPU
+    tex = np.random.default_rng(11).random((32, 32, 4)).astype(np.float32)
+    icfg = RayEvaluationSteppingIso.make(
+        stepsize=1 / 256, isovalue=0.5, surface_feature="curvature_texture",
+        isocontour_range=GRID_ISO_RANGE, isocontour_texture=tex)
+    isteps = max_steps_bound(ref.box_size.tolist(), icfg.stepsize)
+    iso = []
+    for d in (dev, cpu):
+        irs, ird = generate_rays(cam, GRID_ISO_SIZE, GRID_ISO_SIZE, device=d)
+        t0 = time.perf_counter()
+        iso.append(trace_iso(irs[0], ird[0], ref.to(d), icfg,
+                             isteps).color.cpu())
+        iso.append(time.perf_counter() - t0)
+    ic, iso_s, icc, _ = iso
+    hit = float((icc[..., 3] > 0.5).float().mean())
+    close = float(((ic - icc).abs() <= KERNEL_TOL).all(dim=-1).float().mean())
+    print(f"phase M iso [{smi}]: curvature-texture iso {GRID_ISO_SIZE}^2, "
+          f"1/256, hit share {hit:.4f}, pixels card = CPU within "
+          f"{KERNEL_TOL}: {close:.5f} (gate {GRID_ISO_SHARE}), card "
+          f"{iso_s:.3f} s (host clock)", flush=True)
+    check(hit > 0.1 and close >= GRID_ISO_SHARE,
+          f"phase M iso: hit share {hit}, close share {close}")
+    return {"io": io, "samplers": samplers, "normal_rel": normal_rel,
+            "curvature": curv, "world_step_ms": wstep_ms,
+            "world_dataset_s": build_s, "world_losses": whist,
+            "screen_dataset_s": sds_s, "screen_losses": shist,
+            "screen_img_err": simg_err, "screen_grad_rel": sgrad[sworst],
+            "reference_ms": ref_ms, "frame_ms": frame_ms, "psnr": psnr,
+            "iso_close_share": close,
+            "launches": {"mega_fwd": c_render["mega_fwd"],
+                         "mega_fwd_diff": c_screen["mega_fwd_diff"],
+                         "mega_bwd": c_screen["mega_bwd"]}}
 
 
 def main():
@@ -1860,6 +2224,9 @@ def main():
     render_row["sparse"] = sparse_arm(smi, reset_counts, counts, cam)
     probe = probe_rows(smi)
     world_training(smi, reset_counts, counts, npz, tf)
+    voxel = voxel_volume(smi, reset_counts, counts)
+    for row in [render_row] + train_rows:
+        row["phase_m_launches"] = voxel["launches"][row["name"]]
 
     # 11. kernels
     print(json.dumps({"kernels": [render_row] + train_rows

@@ -23,6 +23,10 @@ Counterpart of ``fvsrn_tpu/inference.py``. Modes:
 - ``PLAIN32``: the plain float32 march (``raytracer.dvr.trace_dvr``);
   ``PLAIN16`` the same with every weight rounded through bf16.
 
+``render_reference`` renders the ground-truth volume the model was
+trained on (a voxel grid or an implicit field) by the plain
+``raytracer.dvr.trace_dvr``.
+
 ``render_network_iso`` renders an isosurface: FUSED (float32 table) and
 FUSED_BF16 (bf16 table) on the per-segment engine
 (``ops.fused_dvr.fused_trace_iso``), any other mode by the plain
@@ -43,10 +47,11 @@ from torch import Tensor
 from .camera import CameraOnASphere, camera_matrix, generate_rays
 from .models.network_volume import VolumeInterpolationNetwork
 from .models.srn import SceneRepresentationNetwork
-from .ops.fused_dvr import (block_ray_permutation, fused_trace_dvr,
-                            fused_trace_dvr_bucketed, fused_trace_iso,
-                            mega_supported, plan_ray_buckets,
-                            probe_saturation_tmax)
+from .ops.fused_dvr import (block_ray_permutation, check_tf_mode,
+                            fused_trace_dvr, fused_trace_dvr_bucketed,
+                            fused_trace_iso, mega_supported,
+                            plan_ray_buckets, probe_saturation_tmax,
+                            tf_mode_of)
 from .ops.fused_mega import mega_trace_dvr
 from .ops.occupancy import build_occupancy, kernel_segment_occupancy
 from .raytracer.dvr import RayEvaluationSteppingDvr, max_steps_bound, trace_dvr
@@ -184,28 +189,33 @@ def round_bf16(net):
 
 
 class LoadedModel:
-    """A trained SRN with its TF, stepping configuration and box."""
+    """A trained SRN with its TF, stepping configuration and box, and
+    optionally the ground-truth volume it was trained on
+    (``reference_volume``, rendered by :meth:`render_reference`)."""
 
     def __init__(self, network: SceneRepresentationNetwork, tf,
                  config: Optional[RayEvaluationSteppingDvr] = None,
+                 reference_volume=None,
                  box_min=(-0.5, -0.5, -0.5), box_size=(1.0, 1.0, 1.0)):
         self.network = network
         self.tf = tf
         self.config = config or RayEvaluationSteppingDvr.make(
             stepsize=1 / 256)
+        self.reference_volume = reference_volume
         self.box_min = tuple(float(v) for v in box_min)
         self.box_size = tuple(float(v) for v in box_size)
 
     @classmethod
     def from_checkpoint(cls, path: str, tf=None,
-                        config: Optional[RayEvaluationSteppingDvr] = None
-                        ) -> "LoadedModel":
+                        config: Optional[RayEvaluationSteppingDvr] = None,
+                        reference_volume=None) -> "LoadedModel":
         """From the ``.npz`` weights export of a run file."""
         if tf is None:
             tf = TransferFunctionPiecewiseLinear.make(
                 rgb=[[1.0, 1.0, 1.0]] * 2, opacity=[0.0, 50.0],
                 positions=[0.0, 1.0])
-        return cls(load_weights(path), tf, config=config)
+        return cls(load_weights(path), tf, config=config,
+                   reference_volume=reference_volume)
 
     @staticmethod
     def rotation_cameras(num: int, distance: float = 1.6,
@@ -213,6 +223,30 @@ class LoadedModel:
         return [CameraOnASphere.make(pitch=pitch, yaw=2 * np.pi * i / num,
                                      distance=distance)
                 for i in range(num)]
+
+    def render_reference(self, camera: CameraOnASphere, width: int,
+                         height: int, *, device="cuda") -> Tensor:
+        """The ground-truth volume rendered by the plain ``trace_dvr``
+        with this model's TF and configuration: (H, W, 4)."""
+        if self.reference_volume is None:
+            raise ValueError("no reference volume attached")
+        return self._render_volume(self.reference_volume, camera, width,
+                                   height, device=device)
+
+    @torch.no_grad()
+    def _render_volume(self, volume, camera: CameraOnASphere, width: int,
+                       height: int, *, device="cuda") -> Tensor:
+        """``volume`` by the plain ``trace_dvr`` at ``config.stepsize``,
+        stepping over its box's diagonal: (H, W, 4)."""
+        dev = resolve_device(device)
+        volume = volume.to(dev)
+        steps = max_steps_bound(volume.box_size.tolist(),
+                                float(self.config.stepsize))
+        rs, rd = generate_rays(camera_matrix(camera), width, height,
+                               camera.fov_y_radians, device=dev)
+        out = trace_dvr(rs.reshape(-1, 3), rd.reshape(-1, 3), volume,
+                        self.tf.to(dev), self.config, steps)
+        return out.color.reshape(height, width, 4)
 
     def _occupancy_grid(self, stepsize: float, alpha_skip: float = ALPHA_SKIP,
                         *, device="cuda"):
@@ -285,6 +319,7 @@ class LoadedModel:
                 return color.reshape(height, width, 4)
             return render_plain
 
+        check_tf_mode(tf_mode_of(tf))
         table_dtype = table_dtype if table_dtype is not None \
             else torch.bfloat16
         kw = dict(stepsize=stepsize, seg=SEG, table_dtype=table_dtype,

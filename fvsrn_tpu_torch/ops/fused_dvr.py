@@ -308,14 +308,31 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def tf_mode_of(tf) -> str:
+    """The fused march's name for the kind of ``tf``, as the JAX package
+    routes it: "piecewise", "texture", "preint1d" and "preint2d" for the
+    texture TF by its preintegration, else the TF's kind in lower case."""
+    name = type(tf).__name__
+    if name == "TransferFunctionTexture":
+        return ("texture", "preint1d", "preint2d")[tf.preintegration_mode]
+    if name == "TransferFunctionPiecewiseLinear":
+        return "piecewise"
+    return name.replace("TransferFunction", "").lower()
+
+
+def check_tf_mode(tf_mode: str) -> None:
+    """The fused kernels take the piecewise TF alone."""
+    if tf_mode != "piecewise":
+        raise NotImplementedError(f"fused_trace_dvr: TF mode {tf_mode!r} "
+                                  "is not ported yet")
+
+
 def _check_segment_request(net, *, differentiable, need_normals, tf_mode,
                            iso_value, table_dtype):
     if need_normals:
         raise NotImplementedError("fused_trace_dvr: normals and shading "
                                   "are not ported yet")
-    if tf_mode != "piecewise":
-        raise NotImplementedError(f"fused_trace_dvr: TF mode {tf_mode!r} "
-                                  "is not ported yet")
+    check_tf_mode(tf_mode)
     if iso_value is not None and (differentiable or not
                                   net.output_mode.startswith("density")):
         raise ValueError("fused iso marching: forward-only density networks")

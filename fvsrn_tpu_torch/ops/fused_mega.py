@@ -49,6 +49,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import Tensor
 
 from ..models.activations import apply_activation
@@ -201,7 +202,12 @@ def _shade(spec: MarchSpec, params: list, pos01: Tensor, valid: Tensor):
     iv = torch.zeros_like(d, dtype=torch.int64)
     for q in range(1, tf.shape[0] - 1):
         iv += (tf[q, 4] <= d).to(torch.int64)
-    c0, c1 = tf[iv], tf[iv + 1]
+    # the knots as one-hot products, not gathers: the TF's gradient is
+    # then a reduction over the samples, where a gather's backward adds
+    # millions of samples one by one into a few rows
+    n_knots = tf.shape[0]
+    c0 = F.one_hot(iv, n_knots).to(tf.dtype) @ tf
+    c1 = F.one_hot(iv + 1, n_knots).to(tf.dtype) @ tf
     p0, p1 = c0[..., 4], c1[..., 4]
     interior = (d > p0) & (d < p1)
     frac = torch.where(interior, (d - p0) / (p1 - p0), (d >= p1).to(d.dtype))

@@ -8,6 +8,9 @@ lattice t = k*stepsize (first sample at ceil(tmin/stepsize)*stepsize),
 the sampling of the fused megakernel; ``tmax_in`` clamps each ray's
 march (the saturation clip of the product render). Color-output (rgbo)
 volumes skip the TF: the sample's rgb is its color, its absorption o*h.
+Where the configuration sets ``need_normals``, each sample's normal
+(``volume.eval_normal``) is fed to the TF and to the BRDF and blended
+into the ray's normal as its color is.
 
 The march is differentiable (autograd through the loop): it is the
 gradient oracle of the fused backward and the plain route of screen
@@ -27,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import blending
 from ..utils.device import strict_f32
-from ..utils.vecmath import intersect_aabb
+from ..utils.vecmath import intersect_aabb, safe_normalize
 
 
 class RayEvaluationOutput(NamedTuple):
@@ -39,13 +42,15 @@ class RayEvaluationOutput(NamedTuple):
 @dataclass(frozen=True)
 class RayEvaluationSteppingDvr:
     """Configuration of the stepping evaluator; ``stepsize`` in world
-    units."""
+    units. ``need_normals``: evaluate each sample's normal (a gradient-
+    scaled TF, a shading BRDF)."""
     stepsize: float = 0.005
     alpha_early_out: float = 0.999
     density_min: float = 0.0
     density_max: float = 1.0
     blend_mode: str = blending.BLEND_BEER_LAMBERT
     enable_early_out: bool = True
+    need_normals: bool = False
 
     @classmethod
     def make(cls, **kwargs) -> "RayEvaluationSteppingDvr":
@@ -68,9 +73,12 @@ def trace_dvr(ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
               config: RayEvaluationSteppingDvr, max_steps: int,
               tmax_in: Optional[Tensor] = None,
               lattice: bool = False,
-              checkpoint_chunk: Optional[int] = None) -> RayEvaluationOutput:
+              checkpoint_chunk: Optional[int] = None,
+              brdf: Any = None) -> RayEvaluationOutput:
     """March rays (..., 3) through ``volume`` (``eval_density`` + box)
-    with the TF ``tf``. Returns rgba and depth.
+    with the TF ``tf`` and, where given, the BRDF ``brdf`` (its normal is
+    zero unless ``config.need_normals``). Returns rgba and depth, and the
+    alpha-blended normal when ``config.need_normals``.
 
     ``checkpoint_chunk``: None stores every step for the backward; c >= 1
     runs the march in chunks of c steps under ``torch.utils.checkpoint``,
@@ -94,12 +102,13 @@ def trace_dvr(ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
     prev = torch.full_like(alpha, -1.0)
     k0 = torch.ceil(tmin / h) if lattice else None
 
-    def step(i, rgb, alpha, depth, prev):
+    def step(i, rgb, alpha, depth, prev, normal_acc=None):
         t = (k0 + i) * h if lattice else tmin + i * h
         valid = t <= tmax
         if config.enable_early_out:
             valid = valid & (alpha < config.alpha_early_out)
         position = ray_start + ray_dir * t
+        n = None
         if skip_tf:
             # color field: the volume gives rgbo, absorption scaled by h
             value4 = volume.eval_density(position, ray_dir)[0]
@@ -110,16 +119,30 @@ def trace_dvr(ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
             value = volume.eval_density(position, ray_dir)[0][..., None]
             density2 = (value - config.density_min) * inv_range
             require = valid & (value >= config.density_min)
+            if config.need_normals:
+                n = volume.eval_normal(position, ray_dir)
             color = tf.eval_normalized(torch.clamp(density2[..., 0], 0, 1),
-                                       None, prev[..., 0], h)
+                                       n, prev[..., 0], h)
             color = torch.where(require, color, torch.zeros_like(color))
+        if n is None and (brdf is not None or normal_acc is not None):
+            n = torch.zeros_like(position)
+        shaded = color if brdf is None else brdf.eval(color, position, n,
+                                                      ray_dir)
         contribute = valid & (color[..., 3:4] > 0)
-        new_rgb, new_alpha, new_depth = blending.blend_step(
-            rgb, alpha, color, config.blend_mode,
-            acc_depth=depth, contrib_depth=t)
+        if normal_acc is None:
+            new_rgb, new_alpha, new_depth = blending.blend_step(
+                rgb, alpha, shaded, config.blend_mode,
+                acc_depth=depth, contrib_depth=t)
+            extra = ()
+        else:
+            new_rgb, new_alpha, new_normal, new_depth = blending.blend_step(
+                rgb, alpha, shaded, config.blend_mode,
+                acc_normal=normal_acc, contrib_normal=safe_normalize(n),
+                acc_depth=depth, contrib_depth=t)
+            extra = (torch.where(contribute, new_normal, normal_acc),)
         return (torch.where(contribute, new_rgb, rgb),
                 torch.where(contribute, new_alpha, alpha),
-                torch.where(contribute, new_depth, depth), density2)
+                torch.where(contribute, new_depth, depth), density2) + extra
 
     def chunk(first, n, *carry):
         for i in range(first, first + n):
@@ -127,6 +150,8 @@ def trace_dvr(ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
         return carry
 
     carry = (rgb, alpha, depth, prev)
+    if config.need_normals:
+        carry = carry + (torch.zeros_like(rgb),)
     if checkpoint_chunk is None or not torch.is_grad_enabled():
         carry = chunk(0, max_steps, *carry)
     else:
@@ -136,6 +161,8 @@ def trace_dvr(ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
         for first in range(0, max_steps, c):
             carry = checkpoint(chunk, first, min(c, max_steps - first),
                                *carry, use_reentrant=False)
-    rgb, alpha, depth, _ = carry
+    rgb, alpha, depth = carry[:3]
     return RayEvaluationOutput(color=torch.cat([rgb, alpha], dim=-1),
-                               depth=depth)
+                               depth=depth,
+                               normal=carry[4] if config.need_normals
+                               else None)

@@ -10,9 +10,10 @@ exposure tonemap. The "mc" mode runs ``trace_mc`` on the volume's own
 
 Supersampling (``samples > 1``) jitters every pixel by JAX's
 ``random.uniform`` bits (``utils.prng``) and averages the samples as the
-JAX package does. Not ported: BRDF shading, which raises
-``NotImplementedError``. Entry points render on ``device="cuda"`` unless
-the caller asks for the CPU; the volume must lie on that device.
+JAX package does. A BRDF (``brdf.BRDFLambert``) shades every sample of
+"dvr" in the plain march. Entry points render on ``device="cuda"``
+unless the caller asks for the CPU; the volume must lie on that
+device.
 """
 from __future__ import annotations
 
@@ -69,8 +70,6 @@ def render_image(ev: ImageEvaluatorSimple, width: int, height: int, *,
     ``uniform(key, (S, H, W, 2))`` (an unbatched camera), colors averaged,
     normals weighted by alpha over S, depth by alpha over the summed
     alpha."""
-    if ev.brdf is not None:
-        raise NotImplementedError("BRDF shading is not ported yet")
     dev = resolve_device(device)
     if max_steps is None and ev.ray_mode != "mc":
         max_steps = max_steps_bound(ev.volume.box_size.tolist(),
@@ -95,7 +94,7 @@ def render_image(ev: ImageEvaluatorSimple, width: int, height: int, *,
     def trace_one(b: int, rs: Tensor, rd: Tensor) -> RayEvaluationOutput:
         if ev.ray_mode == "dvr":
             return trace_dvr(rs, rd, ev.volume, tf, ev.ray_config, max_steps,
-                             tmax_in=tmax_in)
+                             tmax_in=tmax_in, brdf=ev.brdf)
         if ev.ray_mode == "iso":
             return trace_iso(rs, rd, ev.volume, ev.ray_config, max_steps)
         if ev.ray_mode == "mc":

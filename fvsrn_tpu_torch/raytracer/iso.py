@@ -6,8 +6,12 @@ until the density exceeds the isovalue, refine the hit by
 first inside sample, then shade with ``dot(normal, ray_dir)``.
 ``refine_and_shade`` is per-ray work and serves both the plain march
 (``trace_iso``) and the fused one (``ops.fused_dvr.fused_trace_iso``).
-Only ``surface_feature="off"`` is ported; the curvature features need
-``eval_curvature`` and raise ``NotImplementedError``.
+A surface feature colors the hit from the volume's principal curvatures
+(``eval_curvature``, which voxel grids have): the first or second
+principal curvature, their mean or product through a 1D isocontour
+texture, or both through a 2D one (``curvature_texture``). On a volume
+without ``eval_curvature`` a feature raises ``AttributeError``, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -22,41 +26,87 @@ from ..utils.vecmath import intersect_aabb, safe_normalize
 from .dvr import RayEvaluationOutput
 
 SURFACE_FEATURE_OFF = "off"
+SURFACE_FEATURE_CURVATURE_TEXTURE = "curvature_texture"
+SURFACE_FEATURE_FIRST = "first_principal"
+SURFACE_FEATURE_SECOND = "second_principal"
+SURFACE_FEATURE_MEAN = "mean"
+SURFACE_FEATURE_GAUSSIAN = "gaussian"
+SURFACE_FEATURES = (SURFACE_FEATURE_OFF, SURFACE_FEATURE_CURVATURE_TEXTURE,
+                    SURFACE_FEATURE_FIRST, SURFACE_FEATURE_SECOND,
+                    SURFACE_FEATURE_MEAN, SURFACE_FEATURE_GAUSSIAN)
 
 
 def _f32(v) -> float:
     return float(torch.tensor(float(v), dtype=torch.float32))
 
 
-@dataclass(frozen=True)
+@dataclass(frozen=True, eq=False)
 class RayEvaluationSteppingIso:
     """Configuration of the isosurface evaluator; numbers rounded to
-    float32 as the JAX package stores them."""
+    float32 as the JAX package stores them. ``isocontour_texture``: (R, 4)
+    for the 1D features, (R, R, 4) for ``curvature_texture``, indexed by
+    the feature mapped from [-range, range] to [0, 1]."""
     stepsize: float = 0.005
     isovalue: float = 0.5
     binary_search_steps: int = 8
     surface_feature: str = SURFACE_FEATURE_OFF
+    isocontour_range: float = 1.0
+    isocontour_texture: Optional[Tensor] = None
 
     @classmethod
     def make(cls, stepsize=0.005, isovalue=0.5, binary_search_steps=8,
-             surface_feature=SURFACE_FEATURE_OFF
-             ) -> "RayEvaluationSteppingIso":
-        if surface_feature != SURFACE_FEATURE_OFF:
-            raise NotImplementedError(
-                f"surface feature {surface_feature!r} needs eval_curvature, "
-                "which is not ported yet")
+             surface_feature=SURFACE_FEATURE_OFF, isocontour_range=1.0,
+             isocontour_texture=None) -> "RayEvaluationSteppingIso":
+        if surface_feature not in SURFACE_FEATURES:
+            raise ValueError(f"unknown surface feature {surface_feature!r}")
+        if isocontour_texture is not None:
+            isocontour_texture = torch.as_tensor(isocontour_texture,
+                                                 dtype=torch.float32)
         return cls(stepsize=_f32(stepsize), isovalue=_f32(isovalue),
                    binary_search_steps=int(binary_search_steps),
-                   surface_feature=surface_feature)
+                   surface_feature=surface_feature,
+                   isocontour_range=_f32(isocontour_range),
+                   isocontour_texture=isocontour_texture)
 
 
-def _shade(volume: Any, position: Tensor, ray_dir: Tensor, found: Tensor):
-    """(color, normal) at the hit: white times dot(normal, ray_dir),
-    alpha 1, zero where nothing was found."""
+def _feature_color(config: RayEvaluationSteppingIso, volume: Any,
+                   position: Tensor, ray_dir: Tensor) -> Tensor:
+    """(..., 4) color of the surface feature at the hit."""
+    curv = volume.eval_curvature(position, ray_dir)
+    rng = config.isocontour_range
+    tex = config.isocontour_texture.to(position.device)
+    r = tex.shape[0]
+    feature = config.surface_feature
+    if feature == SURFACE_FEATURE_CURVATURE_TEXTURE:
+        tx = (curv[..., 0] + rng) / (2 * rng)
+        ty = (-curv[..., 1] + rng) / (2 * rng)
+        ix = torch.clamp((tx * r).to(torch.int64), 0, r - 1)
+        iy = torch.clamp((ty * r).to(torch.int64), 0, r - 1)
+        return tex[iy, ix]
+    if feature == SURFACE_FEATURE_FIRST:
+        f = curv[..., 0]
+    elif feature == SURFACE_FEATURE_SECOND:
+        f = curv[..., 1]
+    elif feature == SURFACE_FEATURE_MEAN:
+        f = 0.5 * (curv[..., 0] + curv[..., 1])
+    else:
+        f = curv[..., 0] * curv[..., 1]
+    f = (f + rng) / (2 * rng)
+    return tex[torch.clamp((f * r).to(torch.int64), 0, r - 1)]
+
+
+def _shade(config: RayEvaluationSteppingIso, volume: Any, position: Tensor,
+           ray_dir: Tensor, found: Tensor):
+    """(color, normal) at the hit: the feature's color (white when off)
+    times dot(normal, ray_dir), alpha 1, zero where nothing was found."""
     n = safe_normalize(volume.eval_normal(position, ray_dir))
     shade = torch.sum(n * ray_dir, dim=-1, keepdim=True)
-    color = torch.cat([shade.expand(shade.shape[:-1] + (3,)),
-                       torch.ones_like(shade)], dim=-1)
+    if config.surface_feature == SURFACE_FEATURE_OFF:
+        color = torch.cat([shade.expand(shade.shape[:-1] + (3,)),
+                           torch.ones_like(shade)], dim=-1)
+    else:
+        color = _feature_color(config, volume, position, ray_dir) * shade
+        color = torch.cat([color[..., :3], torch.ones_like(shade)], dim=-1)
     return (torch.where(found, color, torch.zeros_like(color)),
             torch.where(found, n, torch.zeros_like(n)))
 
@@ -79,8 +129,9 @@ def refine_and_shade(ray_start: Tensor, ray_dir: Tensor, volume: Any,
         depth = torch.where(inside, d_test, depth)
         d_in = torch.where(inside, d_test, d_in)
         d_out = torch.where(inside, d_out, d_test)
-    color, _ = _shade(volume, ray_start + ray_dir * depth, ray_dir, found)
-    return RayEvaluationOutput(color=color, depth=depth)
+    color, normal = _shade(config, volume, ray_start + ray_dir * depth,
+                           ray_dir, found)
+    return RayEvaluationOutput(color=color, depth=depth, normal=normal)
 
 
 @torch.no_grad()

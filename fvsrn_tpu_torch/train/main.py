@@ -2,8 +2,11 @@
 
 Counterpart of ``fvsrn_tpu/train/main.py``: the same options, the network
 and latent-grid initialization from the seed, ground truth from an
-implicit scene, and a ``.npz`` run file (``train.checkpoints.save_run``)
-written every ``--save_frequency`` epochs and at the end.
+implicit field (``IMPLICIT:<EQUATION>``) or a scene JSON file
+(``modules.registry.load_from_json``: its selected volume, a ``.cvol``
+voxel grid or an implicit field, with its TF and stepping), and a
+``.npz`` run file (``train.checkpoints.save_run``) written every
+``--save_frequency`` epochs and at the end.
 
 - ``--mode world`` (the default): the network fitted to volume samples
   (``train/world.py``): positions from ``--sampler``, a share
@@ -15,10 +18,10 @@ written every ``--save_frequency`` epochs and at the end.
   they take (``--no_fused`` for the plain march).
 
 Runs on the card unless ``--device cpu`` is given. Not ported yet:
-``--data_parallel``, ``--tensorboard`` and scene JSON files.
+``--data_parallel`` and ``--tensorboard``.
 
 Usage:
-  python -m fvsrn_tpu_torch.train.main IMPLICIT:MARSCHNER_LOBB out.npz
+  python -m fvsrn_tpu_torch.train.main <scene.json|IMPLICIT:NAME> out.npz
       --mode world --layers 32:32:32 --activation SnakeAlt:2 ...
 """
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from ..models.latent import LatentSpace
 from ..models.network_volume import VolumeInterpolationNetwork
 from ..models.srn import SceneRepresentationNetwork
+from ..modules.registry import load_from_json
 from ..raytracer.dvr import RayEvaluationSteppingDvr, max_steps_bound
 from ..transfer import TransferFunctionPiecewiseLinear
 from ..utils import prng
@@ -52,7 +56,7 @@ from .world import build_world_dataset, train_world_epochs
 def init_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Train a scene representation network")
-    p.add_argument("scene", help="IMPLICIT:<EQUATION>")
+    p.add_argument("scene", help="scene JSON path or IMPLICIT:<EQUATION>")
     p.add_argument("output", help="output .npz run file")
 
     g = p.add_argument_group("Network")
@@ -114,15 +118,18 @@ def init_parser() -> argparse.ArgumentParser:
 
 
 def _resolve_scene(spec: str):
-    """(volume, tf, stepping config) of ``IMPLICIT:<EQUATION>``."""
-    if not spec.startswith("IMPLICIT:"):
-        raise NotImplementedError("scene JSON files are not ported yet; "
-                                  "use IMPLICIT:<EQUATION>")
-    vol = VolumeInterpolationImplicit.make(spec.split(":", 1)[1])
-    tf = TransferFunctionPiecewiseLinear.make(
-        rgb=[[0.9, 0.4, 0.1], [1.0, 1.0, 0.6]],
-        opacity=[0.0, 20.0], positions=[0.0, 1.0])
-    return vol, tf, RayEvaluationSteppingDvr.make(stepsize=1 / 128)
+    """(volume, tf, stepping config) of ``IMPLICIT:<EQUATION>`` or of a
+    scene JSON file's selected modules."""
+    if spec.startswith("IMPLICIT:"):
+        vol = VolumeInterpolationImplicit.make(spec.split(":", 1)[1])
+        tf = TransferFunctionPiecewiseLinear.make(
+            rgb=[[0.9, 0.4, 0.1], [1.0, 1.0, 0.6]],
+            opacity=[0.0, 20.0], positions=[0.0, 1.0])
+        return vol, tf, RayEvaluationSteppingDvr.make(stepsize=1 / 128)
+    ev = load_from_json(spec).evaluator
+    if ev.volume is None:
+        raise ValueError("scene has no loadable volume (dataset missing?)")
+    return ev.volume, ev.tf, ev.ray_config
 
 
 def make_network(opt: dict) -> SceneRepresentationNetwork:

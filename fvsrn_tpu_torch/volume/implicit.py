@@ -3,17 +3,21 @@
 Counterpart of ``fvsrn_tpu/volume/implicit.py``: the equation table, one
 formula per equation on world coordinates inside the equation's own
 source box, and ``VolumeInterpolationImplicit``, which maps the
-renderer's box onto that source box and evaluates the density. They are
-the ground truth of screen-space training. The central-difference normal
-and the voxelization (``create_implicit_grid``) are not ported yet.
+renderer's box onto that source box and evaluates the density, with
+its central-difference normal. They are the ground truth of screen-space
+and world-space training. ``create_implicit_grid`` voxelizes an
+equation, as ``Volume.create_implicit_dataset`` does.
 """
 from __future__ import annotations
 
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 from torch import Tensor
+
+from ..utils.device import resolve_device
 
 
 def _sqr(x):
@@ -192,3 +196,27 @@ class VolumeInterpolationImplicit:
         p01 = (position - self.box_min) / self.box_size
         p = p01 * (smax - smin) + smin
         return fn(p[..., 0], p[..., 1], p[..., 2]), inside
+
+    def eval_normal(self, position: Tensor, direction=None,
+                    step: float = 1e-3) -> Tensor:
+        """Central-difference density gradient (..., 3), step ``step``."""
+        offs = torch.eye(3, dtype=position.dtype,
+                         device=position.device) * step
+        return torch.stack(
+            [(self.eval_density(position + offs[i])[0]
+              - self.eval_density(position - offs[i])[0]) / (2 * step)
+             for i in range(3)], dim=-1)
+
+
+def create_implicit_grid(resolution: int, equation: str,
+                         dtype=torch.float32, *, device="cuda",
+                         **params) -> Tensor:
+    """The equation voxelized as a (res, res, res) tensor indexed [x, y,
+    z] on ``device``: voxel i samples the source box at smin + i * (smax -
+    smin) / (res - 1), those coordinates computed in float64 on the host
+    and then cast to ``dtype``."""
+    fn, smin, smax = IMPLICIT_EQUATIONS[equation]
+    coords = smin + np.arange(resolution) * (smax - smin) / (resolution - 1)
+    c = torch.as_tensor(coords, dtype=dtype, device=resolve_device(device))
+    return fn(c[:, None, None], c[None, :, None], c[None, None, :],
+              **params).to(dtype)

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``fvsrn_tpu_torch``
-loads neither ``jax`` nor ``fvsrn_tpu``, and no file of the port (nor
-``chip_smoke.py``) names them."""
+loads neither ``jax`` nor ``fvsrn_tpu``, no file of the port (nor
+``chip_smoke.py``) names them, and none reaches into the JAX package's
+native code (the port builds its own copy of the LZ4 codec)."""
 import os
 import re
 import subprocess
@@ -47,11 +48,17 @@ sys.exit(1 if bad else 0)
                                     "fvsrn_tpu_torch.raytracer.evaluator",
                                     "fvsrn_tpu_torch.train.world",
                                     "fvsrn_tpu_torch.train.importance",
-                                    "fvsrn_tpu_torch.train.main"])
+                                    "fvsrn_tpu_torch.train.main",
+                                    "fvsrn_tpu_torch.volume.lz4io",
+                                    "fvsrn_tpu_torch.volume.volume",
+                                    "fvsrn_tpu_torch.volume.grid",
+                                    "fvsrn_tpu_torch.modules.registry",
+                                    "fvsrn_tpu_torch.brdf",
+                                    "fvsrn_tpu_torch.transfer"])
 def test_slice_module_imports_alone(module):
     """The modules of the fused per-segment and isosurface renders, of
-    Monte-Carlo path tracing and of world training import on their own,
-    loading no JAX."""
+    Monte-Carlo path tracing, of world training and of voxel volumes and
+    scene files import on their own, loading no JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", IMPORT_ONE, module],
                           cwd=ROOT, env=env, capture_output=True, text=True,
@@ -62,13 +69,27 @@ def test_slice_module_imports_alone(module):
 def _port_files():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
-            if f.endswith((".py", ".cu", ".cuh")):
+            if f.endswith((".py", ".cu", ".cuh", ".cpp")):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
 
 
 def test_sources_name_no_jax():
-    pattern = re.compile(r"\bjax\b|\bjaxlib\b|\bfvsrn_tpu\.")
+    _assert_no_match(re.compile(r"\bjax\b|\bjaxlib\b|\bfvsrn_tpu\."))
+
+
+def test_sources_reach_no_jax_native_code():
+    """No path into the JAX package's native directory, its Makefile or
+    its library: the port compiles its own ``native/lz4.cpp`` into the
+    repository's build directory."""
+    _assert_no_match(re.compile(r"\bfvsrn_tpu[/\\]+native|Makefile|"
+                                r"libfvsrn_native"))
+    from fvsrn_tpu_torch.volume import lz4io
+    assert lz4io.SOURCE == os.path.join(PKG, "native", "lz4.cpp")
+    assert lz4io.BUILD_DIR == os.path.join(ROOT, "build", "fvsrn_tpu_torch")
+
+
+def _assert_no_match(pattern):
     files = list(_port_files())
     assert len(files) > 15
     offenders = []

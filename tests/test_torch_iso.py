@@ -116,6 +116,23 @@ def test_render_network_iso_matches_jax(jnet, mode, size):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
 
 
-def test_iso_rejects_curvature_features():
-    with pytest.raises(NotImplementedError):
-        RayEvaluationSteppingIso.make(surface_feature="mean")
+def test_iso_rejects_curvature_features(jnet):
+    """A curvature feature needs ``eval_curvature``, which network volumes
+    lack: the render raises ``AttributeError``, as the JAX package's does
+    (grids render it: tests/test_torch_volume.py). An unknown feature is
+    refused when the configuration is made."""
+    rs, rd = jgenerate_rays(JCam.make(**CAM), 4, 4)
+    rs = np.asarray(rs).reshape(-1, 3)
+    rd = np.asarray(rd).reshape(-1, 3)
+    tex = np.ones((8, 4), np.float32)
+    with pytest.raises(AttributeError):
+        jtrace_iso(jnp.asarray(rs), jnp.asarray(rd), JVolume.make(jnet),
+                   JIso.make(**ISO, surface_feature="mean",
+                             isocontour_texture=jnp.asarray(tex)), 64)
+    cfg = RayEvaluationSteppingIso.make(**ISO, surface_feature="mean",
+                                        isocontour_texture=tex)
+    with pytest.raises(AttributeError):
+        trace_iso(torch.tensor(rs), torch.tensor(rd),
+                  VolumeInterpolationNetwork(port(jnet)), cfg, 64)
+    with pytest.raises(ValueError):
+        RayEvaluationSteppingIso.make(surface_feature="bogus")

@@ -74,7 +74,20 @@ main paths on the card:
   plain version at full frame); ``LoadedModel.render_reference`` of the
   grid and the world-trained network's FUSED render (row 1), PSNR
   printed; a curvature-texture iso render of the grid at 128x128, card
-  against CPU.
+  against CPU;
+- phase N, the TF modes of rows 1-6 (texture, 1D- and 2D-preintegrated,
+  Gaussians: ``scenes.dense_tf_modes``, the dense ramp as a 256-texel
+  texture, its 512-row and 128^2 preintegrations, four Gaussians) on the
+  flagship at 512x512, 1/512: ``train.main.run --mode screen`` on a scene
+  JSON naming a texture TF (rows 2-3); then per mode the product render on
+  route 1 (``prepare_network_render(mode="FUSED")``, which refuses the
+  Gaussians; the Gaussians through ``mega_trace_dvr``) and the per-segment
+  engine on route 2's rays (``fused_trace_dvr``), each kernel against its
+  plain version and the f32 oracle (``trace_dvr``) on 16384 rays, and one
+  differentiable step (mean(img^2)) on each engine (rows 2-3 and 5-6),
+  every gradient leaf (the TF's tables too) against the plain pair;
+  frames, kernels and steps timed beside phases 6, 10 and F's piecewise
+  figures, the launches counted.
 
 Prints one JSON line with every kernel and a last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -150,6 +163,27 @@ GRID_ISO_SHARE = 0.99                # phase M: iso pixels card = CPU (1e-4)
 GRID_SCENE_TF = {"absorptionScaling": 20.0,
                  "colorPoints": [[0.0, 0.9, 0.4, 0.1], [1.0, 1.0, 1.0, 0.6]],
                  "opacityPoints": [[0.0, 0.0], [1.0, 1.0]]}
+# phase N: the 1D preintegration's near branch (|d - prev| < 1e-3) and the
+# 2D table's nearest cell are discontinuous in the density; where the
+# kernel's TF32 three-pass products and the plain float32 ones round a
+# density (~1e-6 apart) to the two sides of an edge, the sample takes the
+# other branch. Those modes bound the share of rays off KERNEL_TOL and how
+# far off they are.
+TF_FLIP_SHARE = 2e-3
+TF_FLIP_TOL = 5e-2
+# their gradients: a flipped sample's adjoint differs whole (the near
+# branch's 1/(d - prev) factors are ~1e3), so each leaf of those modes is
+# held to TF_FLIP_GRAD times the plain version's own change when every
+# weight moves by a seeded relative TF_FLIP_EPS (a density noise of the
+# two versions' size), or GRAD_TOL if larger
+TF_FLIP_GRAD = 2.0
+TF_FLIP_EPS = 1e-6
+TF_ORACLE_RAYS = 16384
+# operations of a sample's TF beyond the piecewise lookup's (phase N's
+# bound): two lerped texels (8 multiply-adds); preint1d three lerps, the
+# quotients and an exp; preint2d one cell and a divide; four Gaussians'
+# exps and multiply-adds
+TF_FLOPS = {"texture": 16, "preint1d": 64, "preint2d": 12, "gaussian": 72}
 MC_CHECK_SIZE = 128                  # phase L: render_image supersampled
 MC_CHECK_SAMPLES = 4
 MC_CHECK_STEPSIZE = 1.0 / 128
@@ -2078,6 +2112,302 @@ def voxel_volume(smi, reset_counts, counts):
                          "mega_bwd": c_screen["mega_bwd"]}}
 
 
+def image_check(phase, got, want, mode):
+    """(largest error, share of rays off KERNEL_TOL) of a TF mode's kernel
+    image against its plain version; fails past the mode's bound (every
+    ray, or for the discontinuous modes TF_FLIP_SHARE of the rays within
+    TF_FLIP_TOL)."""
+    err = (got - want).abs().reshape(-1, 4).amax(dim=1)
+    mx, off = float(err.max()), float((err > KERNEL_TOL).float().mean())
+    if mode in ("preint1d", "preint2d"):
+        check(off <= TF_FLIP_SHARE and mx <= TF_FLIP_TOL,
+              f"{phase} {mode}: kernel vs plain {mx} ({off} of the rays)")
+    else:
+        check(mx <= KERNEL_TOL, f"{phase} {mode}: kernel vs plain {mx}")
+    return mx, off
+
+
+def tf_step(march, args, tf, pre, kw):
+    """(image, gradients incl. "tf" and "pre") of one differentiable
+    march on the flagship with loss mean(img^2)."""
+    net = args[2]
+    net.zero_grad(set_to_none=True)
+    tf_leaf = tf.detach().clone().requires_grad_(True)
+    pre_leaf = (pre.detach().clone().requires_grad_(True)
+                if pre is not None else None)
+    img = march(*args, tf_leaf, tf_pre=pre_leaf, **kw)
+    (img ** 2).mean().backward()
+    g = {n: p.grad.detach().clone() for n, p in net.named_parameters()
+         if p.grad is not None}
+    for name, leaf in (("tf", tf_leaf), ("pre", pre_leaf)):
+        if leaf is not None and leaf.grad is not None:
+            g[name] = leaf.grad.detach().clone()
+    return img.detach(), g
+
+
+def tf_modes(smi, reset_counts, counts, npz, cam, frame_ms):
+    """Phase N, the TF modes of rows 1-6 (see the module doc), each timed
+    beside the piecewise ramp's figures from the same call (``frame_ms``:
+    phase 6's frame; the rest timed here). Returns {mode: {figures}} with
+    "piecewise" among them, and the trainer's counts."""
+    from fvsrn_tpu_torch.camera import camera_matrix, generate_rays
+    from fvsrn_tpu_torch.inference import LoadedModel
+    from fvsrn_tpu_torch.models.network_volume import \
+        VolumeInterpolationNetwork
+    from fvsrn_tpu_torch.ops import fused_dvr, fused_mega
+    from fvsrn_tpu_torch.ops.fused_dvr import (block_ray_permutation,
+                                               fused_tf_args)
+    from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
+                                               max_steps_bound, trace_dvr)
+    from fvsrn_tpu_torch.scenes import dense_scene, dense_tf_modes
+    from fvsrn_tpu_torch.train import main as train_main
+    from fvsrn_tpu_torch.train.checkpoints import load_weights
+
+    dev = torch.device(DEVICE)
+    root = os.path.dirname(os.path.abspath(__file__))
+    box = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))
+    modes = dense_tf_modes(STEPSIZE)
+    cfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE)
+    ocfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE,
+                                         enable_early_out=False)
+    steps = max_steps_bound(box[1], STEPSIZE)
+
+    # N1. the trainer on a scene JSON naming a texture TF (rows 2-3)
+    out_dir = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    tex = modes["texture"].tensor
+    scene_path = os.path.join(out_dir, "mlobb_texture.json")
+    with open(scene_path, "w") as f:
+        json.dump({
+            "ImageEvaluator": {"Simple": {
+                "selectedCamera": "Sphere", "selectedRayEvaluator": "DVR",
+                "selectedVolume": "Implicit"}},
+            "RayEvaluation": {"DVR": {"stepsize": STEPSIZE,
+                                      "selectedTF": "Texture"}},
+            "camera": {"Sphere": dict(CAMERA)},
+            "tf": {"Texture": {
+                "absorptionScaling": 1.0,
+                "colorPoints": [[(i + 0.5) / tex.shape[0], *tex[i, :3]
+                                 .tolist()] for i in range(tex.shape[0])],
+                "opacityPoints": tex[:, 3].tolist()}},
+            "volume": {"Implicit": {"function": "MarschnerLobb"}}}, f)
+    opt = vars(train_main.init_parser().parse_args(
+        [scene_path, os.path.join(out_dir, "train_texture.npz")]
+        + TRAIN_ARGS[1:] + ["-i", "1"]))
+    reset_counts()
+    t0 = time.perf_counter()
+    result = train_main.run(opt)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trainer_counts = counts()
+    hist = result["history"]
+    print(f"phase N trainer: train.main.run screen on a texture-TF scene "
+          f"JSON, {WIDTH}x{HEIGHT} h=1/{round(1 / STEPSIZE)}, 2 steps in "
+          f"{train_s:.1f} s (dataset included), fused {result['fused']}, "
+          f"losses {hist}, launches {trainer_counts}", flush=True)
+    check(result["fused"] and all(math.isfinite(v) for v in hist),
+          f"phase N trainer: fused {result['fused']}, losses {hist}")
+    check(trainer_counts["mega_fwd_diff"] >= 2
+          and trainer_counts["mega_bwd"] >= 2,
+          f"phase N trainer: launches {trainer_counts}")
+
+    net = load_weights(npz).to(dev)
+    rs, rd = generate_rays(camera_matrix(cam), WIDTH, HEIGHT,
+                           cam.fov_y_radians, device=dev)
+    rs = rs.reshape(-1, 3).contiguous()
+    rd = rd.reshape(-1, 3).contiguous()
+    perm, _ = block_ray_permutation(WIDTH, HEIGHT, 16, 16, device=dev)
+    rs_b, rd_b = rs[perm].contiguous(), rd[perm].contiguous()
+    vol = VolumeInterpolationNetwork(net, *box)
+    n_o = TF_ORACLE_RAYS
+    engines = (
+        ("mega", ("mega_fwd_diff", "mega_bwd"), fused_mega.mega_trace_dvr,
+         fused_mega.mega_trace_dvr_plain,
+         dict(stepsize=STEPSIZE, differentiable=True), rs_b, rd_b),
+        ("scan", ("segment_fwd_diff", "segment_bwd"),
+         fused_dvr.fused_trace_dvr, fused_dvr.fused_trace_dvr_plain,
+         dict(stepsize=STEPSIZE, max_steps=steps, enable_early_out=False,
+              differentiable=True), rs, rd))
+    # the piecewise ramp's figures in this call
+    ramp = dense_scene()[1].tensor.to(dev)
+    pw = {"frame_ms": frame_ms,
+          "row1_ms": cuda_ms(lambda: fused_mega.mega_trace_dvr(
+              rs_b, rd_b, net, *box, ramp, stepsize=STEPSIZE), 5),
+          "row4_ms": cuda_ms(lambda: fused_dvr.fused_trace_dvr(
+              rs, rd, net, *box, ramp, stepsize=STEPSIZE, max_steps=steps,
+              tile=128, table_dtype=torch.bfloat16), 5)}
+    for engine, _, march, _, kw, r_, d_ in engines:
+        pw[f"{engine}_step_ms"] = cuda_ms(lambda: tf_step(
+            march, (r_, d_, net, *box), ramp, None, kw), TIMED_STEPS)
+    print(f"phase N piecewise [{smi}]: frame {pw['frame_ms']:.3f} ms, row 1 "
+          f"{pw['row1_ms']:.3f} ms, row 4 {pw['row4_ms']:.3f} ms, step mega "
+          f"{pw['mega_step_ms']:.3f} ms, scan {pw['scan_step_ms']:.3f} ms "
+          "(fwd + mean(img^2) + bwd)", flush=True)
+    figures = {"piecewise": pw}
+    for mode, tfo in modes.items():
+        tfo = tfo.to(dev)
+        tensor, tf_kw = fused_tf_args(tfo)
+        pre = tf_kw.pop("tf_pre", None)
+        fig = {}
+        # N2. row 1, route 1: the product render (its clip), or for the
+        # Gaussians, which it refuses, the megakernel on its rays
+        model = LoadedModel(net, tfo, config=cfg)
+        if mode == "gaussian":
+            try:
+                model.prepare_network_render(cam, WIDTH, HEIGHT, "FUSED",
+                                             device=dev)
+                fail("phase N: the FUSED render took a Gaussian TF")
+            except NotImplementedError:
+                pass
+            args = (rs_b, rd_b, net, *box, tensor)
+            kw = dict(stepsize=STEPSIZE, tf_pre=pre, **tf_kw)
+            clip = None
+
+            def frame(fn=fused_mega.mega_trace_dvr):
+                return fn(*args, **kw)
+        else:
+            render = model.prepare_network_render(cam, WIDTH, HEIGHT,
+                                                  "FUSED", device=dev)
+            check(render.route == "mega"
+                  and render.march_kwargs["tf_mode"] == mode,
+                  f"phase N {mode}: route {render.route}")
+            clip = render.tmax_clip
+
+            def frame(fn=None):
+                return render() if fn is None else render.march(fn)
+        reset_counts()
+        img = frame()
+        torch.cuda.synchronize()
+        c1 = counts()
+        check(c1["mega_fwd"] == 1 and bool(torch.isfinite(img).all())
+              and float(img[..., 3].max()) > 0.5,
+              f"phase N {mode} row 1: launches {c1}")
+        got = frame(fused_mega.mega_trace_dvr).reshape(-1, 4)
+        plain, plain_ms = cuda_once(
+            lambda: frame(fused_mega.mega_trace_dvr_plain).reshape(-1, 4))
+        fig["row1_err"], fig["row1_off"] = image_check("phase N row 1", got,
+                                                       plain, mode)
+        # whole tiles spread over the frame (the megakernel's tiles march
+        # on their own)
+        tiles = torch.linspace(0, rs_b.shape[0] // 256 - 1, n_o // 256,
+                               device=dev).long()
+        sel = (tiles[:, None] * 256 + torch.arange(256, device=dev)
+               ).reshape(-1)
+        with torch.no_grad():
+            oracle = trace_dvr(rs_b[sel], rd_b[sel], vol, tfo, ocfg, steps,
+                               tmax_in=None if clip is None else clip[sel],
+                               lattice=True).color
+        fig["row1_oracle"] = float((got[sel] - oracle).abs().max())
+        check(fig["row1_oracle"] < ORACLE_TOL,
+              f"phase N {mode} row 1 vs oracle {fig['row1_oracle']}")
+        fig["frame_ms"] = cuda_ms(frame, 5)
+        fig["row1_ms"] = cuda_ms(lambda: frame(fused_mega.mega_trace_dvr), 5)
+        fig["row1_plain_ms"] = plain_ms
+        fig["row1_launches"] = c1["mega_fwd"]
+        per_sample = sample_flops(net) + TF_FLOPS[mode]
+        n1 = int(fused_mega.mega_trace_dvr(
+            rs_b, rd_b, net, *box, tensor, stepsize=STEPSIZE, tmax_clip=clip,
+            tf_pre=pre, return_samples=True, **tf_kw)[1].sum())
+        fig["row1_samples"] = n1
+        fig["row1_bound_ms"] = n1 * per_sample / PEAK_BF16_TC * 1e3
+
+        # N3. row 4: the per-segment engine on route 2's (row-major) rays
+        seg_kw = dict(stepsize=STEPSIZE, max_steps=steps, tile=128,
+                      table_dtype=torch.bfloat16, tf_pre=pre, **tf_kw)
+        reset_counts()
+        got4 = fused_dvr.fused_trace_dvr(rs, rd, net, *box, tensor,
+                                         **seg_kw)
+        torch.cuda.synchronize()
+        c4 = counts()
+        check(c4["segment_fwd"] == 2,
+              f"phase N {mode} row 4: launches {c4}")
+        plain4, plain4_ms = cuda_once(lambda: fused_dvr.fused_trace_dvr_plain(
+            rs, rd, net, *box, tensor, **seg_kw))
+        fig["row4_err"], fig["row4_off"] = image_check("phase N row 4", got4,
+                                                       plain4, mode)
+        sel = torch.arange(0, rs.shape[0], rs.shape[0] // n_o, device=dev)
+        with torch.no_grad():
+            oracle4 = trace_dvr(rs[sel], rd[sel], vol, tfo, ocfg,
+                                steps).color
+        fig["row4_oracle"] = float((got4[sel] - oracle4).abs().max())
+        check(fig["row4_oracle"] < ORACLE_TOL,
+              f"phase N {mode} row 4 vs oracle {fig['row4_oracle']}")
+        fig["row4_ms"] = cuda_ms(lambda: fused_dvr.fused_trace_dvr(
+            rs, rd, net, *box, tensor, **seg_kw), 5)
+        fig["row4_plain_ms"] = plain4_ms
+        fig["row4_launches"] = c4["segment_fwd"]
+        n4 = int(fused_dvr.fused_trace_dvr(rs, rd, net, *box, tensor,
+                                           return_stats=True,
+                                           **seg_kw)[1].samples)
+        fig["row4_samples"] = n4
+        fig["row4_bound_ms"] = n4 * per_sample / PEAK_BF16_TC * 1e3
+
+        # N4. one differentiable step on each engine, kernels vs plain
+        for engine, rows, march, plain_march, mkw, r_, d_ in engines:
+            kw = dict(mkw, **tf_kw)
+            args = (r_, d_, net, *box)
+            reset_counts()
+            img_k, g_k = tf_step(march, args, tensor, pre, kw)
+            torch.cuda.synchronize()
+            ck = counts()
+            check(ck[rows[0]] == 1 and ck[rows[1]] == 1,
+                  f"phase N {mode} {engine} step: launches {ck}")
+            (img_p, g_p), pms = cuda_once(
+                lambda: tf_step(plain_march, args, tensor, pre, kw))
+            ierr, ioff = image_check(f"phase N {engine} step", img_k, img_p,
+                                     mode)
+            check(sorted(g_k) == sorted(g_p), f"phase N {mode}: leaves")
+            rel = {n: (rel_err(g_k[n], g_p[n]) if float(g_p[n].norm()) > 0
+                       else float(g_k[n].norm())) for n in g_p}
+            tol = {n: GRAD_TOL for n in g_p}
+            if mode in ("preint1d", "preint2d"):
+                moved = copy.deepcopy(net)
+                gen = torch.Generator(dev).manual_seed(0)
+                with torch.no_grad():
+                    for p in moved.parameters():
+                        p.mul_(1.0 + TF_FLIP_EPS * torch.randn(
+                            p.shape, device=dev, generator=gen))
+                _, g_q = tf_step(plain_march, (r_, d_, moved, *box), tensor,
+                                 pre, kw)
+                tol = {n: max(GRAD_TOL, TF_FLIP_GRAD * rel_err(g_q[n], g_p[n]))
+                       if float(g_p[n].norm()) > 0 else GRAD_TOL for n in g_p}
+            worst = max(rel, key=lambda n: rel[n] / tol[n])
+            check(rel[worst] <= tol[worst],
+                  f"phase N {mode} {engine}: grad {worst} {rel[worst]} "
+                  f"(tol {tol[worst]})")
+            fig[f"{engine}_grad_tol"] = tol[worst]
+            fig[f"{engine}_step_ms"] = cuda_ms(
+                lambda: tf_step(march, args, tensor, pre, kw), TIMED_STEPS)
+            fig[f"{engine}_plain_ms"] = pms
+            fig[f"{engine}_img_err"] = ierr
+            fig[f"{engine}_grad_rel"] = rel[worst]
+            fig[f"{engine}_grad_worst"] = worst
+            fig[f"{engine}_launches"] = [ck[rows[0]], ck[rows[1]]]
+        print(f"phase N {mode} [{smi}]: row 1 frame {fig['frame_ms']:.3f} "
+              f"ms (piecewise {pw['frame_ms']:.3f}), kernel "
+              f"{fig['row1_ms']:.3f} ms, plain {plain_ms:.1f} ms, vs plain "
+              f"max|d| {fig['row1_err']:.3e} ({fig['row1_off']:.2e} of rays "
+              f"> {KERNEL_TOL}), vs oracle {fig['row1_oracle']:.3e}, "
+              f"bound {fig['row1_bound_ms']:.4f} ms ({n1} samples); row 4 "
+              f"{fig['row4_ms']:.3f} ms (piecewise {pw['row4_ms']:.3f}), "
+              f"plain {plain4_ms:.1f} ms, vs plain "
+              f"{fig['row4_err']:.3e} ({fig['row4_off']:.2e}), vs oracle "
+              f"{fig['row4_oracle']:.3e}, bound {fig['row4_bound_ms']:.4f} "
+              f"ms ({n4} samples); step mega "
+              f"{fig['mega_step_ms']:.3f} ms (piecewise "
+              f"{pw['mega_step_ms']:.3f}), grad rel "
+              f"{fig['mega_grad_rel']:.2e} ({fig['mega_grad_worst']}, tol "
+              f"{fig['mega_grad_tol']:.2e}); step "
+              f"scan {fig['scan_step_ms']:.3f} ms (piecewise "
+              f"{pw['scan_step_ms']:.3f}), grad rel "
+              f"{fig['scan_grad_rel']:.2e} ({fig['scan_grad_worst']}, tol "
+              f"{fig['scan_grad_tol']:.2e}); plain "
+              f"steps {fig['mega_plain_ms']:.0f} / {fig['scan_plain_ms']:.0f}"
+              f" ms", flush=True)
+        figures[mode] = fig
+    return figures, trainer_counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2227,6 +2557,24 @@ def main():
     voxel = voxel_volume(smi, reset_counts, counts)
     for row in [render_row] + train_rows:
         row["phase_m_launches"] = voxel["launches"][row["name"]]
+    tfm, tfm_counts = tf_modes(smi, reset_counts, counts, npz, cam, mean_ms)
+    # each TF mode's figures ride on its rows (1-6)
+    keys = {"mega_fwd": ("row1_ms", "row1_err", "row1_launches"),
+            "segment_fwd": ("row4_ms", "row4_err", "row4_launches"),
+            "mega_fwd_diff": ("mega_step_ms", "mega_img_err",
+                              "mega_launches"),
+            "mega_bwd": ("mega_step_ms", "mega_grad_rel", "mega_launches"),
+            "segment_fwd_diff": ("scan_step_ms", "scan_img_err",
+                                 "scan_launches"),
+            "segment_bwd": ("scan_step_ms", "scan_grad_rel",
+                            "scan_launches")}
+    for row in [render_row, segment_row] + train_rows + scan_rows:
+        ms_key, err_key, n_key = keys[row["name"]]
+        row["tf_modes"] = {
+            mode: {"ms" if "step" not in ms_key else "step_ms": f[ms_key],
+                   "err": f.get(err_key), "launches": f.get(n_key)}
+            for mode, f in tfm.items()}
+    render_row["tf_modes_trainer_launches"] = tfm_counts
 
     # 11. kernels
     print(json.dumps({"kernels": [render_row] + train_rows

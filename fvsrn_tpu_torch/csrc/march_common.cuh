@@ -5,7 +5,9 @@
 // semantics from a channel-last table in rows of 16 channels, its adjoint,
 // the Fourier phase, the activations with their derivatives, the output
 // heads with their adjoints, the piecewise-linear TF with its interval
-// choice and its adjoint, and the front-to-back "over" step. The adjoints
+// choice and its adjoint, the other TF modes (texture, 1D- and
+// 2D-preintegrated, Gaussians) with theirs, and the front-to-back "over"
+// step. The adjoints
 // gate every clip strictly (a gradient passes only strictly inside it),
 // as the TPU kernels' hand-written adjoints do.
 #pragma once
@@ -305,6 +307,248 @@ __device__ __forceinline__ float tf_adjoint(const float* TF,
   g0[4] += d_frac * (s.frac - 1.0f) * inv_dp;
   g1[4] += -d_frac * s.frac * inv_dp;
   return d_frac * inv_dp;
+}
+
+// ---------------------------------------------------------------------------
+// the other TF modes (ops/fused_dvr.py TF_MODES, the kernels' template
+// parameter), after the JAX package's _march_epilogue and its adjoint
+// (fvsrn_tpu/ops/fused_dvr.py:1871-1990, fused_dvr_bwd.py:663-860). `T` is
+// the mode's table as rows of 4 floats (texture: R texels; preint1d: R
+// texels, then the Rp rows of the cumulative table), or (G, 6) Gaussians
+// [r, g, b, opacity, mean, sigma]; `T2` the (R2, R2) float4 cells of the
+// preint2d table, read through the read-only path (256 KB at R2 = 128, over
+// a block's shared memory). A sample's color is (r, g, b, absorption):
+// texture and Gaussian absorptions are scaled by the stepsize, the
+// preintegrated ones are opacities already (the blend turns each into
+// alpha the same way).
+
+enum TfMode { kTfPiecewise = 0, kTfTexture, kTfPreint1d, kTfPreint2d,
+              kTfGaussian };
+
+// A lerped lookup of a table of r rows at s: rows lo and hi, fraction f.
+struct Lut {
+  int lo, hi;
+  float f;
+};
+
+// The texture convention: x = s r - 0.5, the ends clamped.
+__device__ __forceinline__ Lut lut_texture(float s, int r) {
+  const float x = s * (float)r - 0.5f;
+  const float i0 = floorf(x);
+  Lut l;
+  l.f = x - i0;
+  l.lo = (int)fminf(fmaxf(i0, 0.0f), (float)(r - 1));
+  l.hi = (int)fminf(fmaxf(i0 + 1.0f, 0.0f), (float)(r - 1));
+  return l;
+}
+
+// The cumulative convention: x = clip(s, 0, 1) (r - 1).
+__device__ __forceinline__ Lut lut_cumulative(float s, int r) {
+  const float x = fminf(fmaxf(s, 0.0f), 1.0f) * (float)(r - 1);
+  const float lo = fminf(fmaxf(floorf(x), 0.0f), (float)(r - 2));
+  Lut l;
+  l.lo = (int)lo;
+  l.hi = l.lo + 1;
+  l.f = x - lo;
+  return l;
+}
+
+__device__ __forceinline__ float4 lerp_rows(const float* T, const Lut& l) {
+  const float* a = T + 4 * l.lo;
+  const float* b = T + 4 * l.hi;
+  const float g = 1.0f - l.f;
+  return make_float4(a[0] * g + b[0] * l.f, a[1] * g + b[1] * l.f,
+                     a[2] * g + b[2] * l.f, a[3] * g + b[3] * l.f);
+}
+
+// The (front, back) cell of the preint2d table at the previous density
+// (clipped; none: d) and d, both clipped.
+__device__ __forceinline__ int cell_2d(float d, float prev, int r2) {
+  const float pe = prev < 0.0f ? d : fminf(fmaxf(prev, 0.0f), 1.0f);
+  const float fr = (float)r2;
+  const int i = (int)fminf(floorf(pe * fr), fr - 1.0f);
+  const int j = (int)fminf(floorf(d * fr), fr - 1.0f);
+  return i * r2 + j;
+}
+
+__device__ __forceinline__ float guarded_inv(float a) {
+  return a > 1e-5f ? 1.0f / fmaxf(a, 1e-5f) : 1.0f;
+}
+
+// (r, g, b, absorption) of a sample of clipped density d whose previous
+// sample's normalized density is `prev` (unclipped; < 0: none), in mode
+// TFM (not piecewise). `r` the table's rows (texels, Gaussians, R2), `rp`
+// the cumulative table's.
+template <int TFM>
+__device__ __forceinline__ float4 tf_color(const float* T, const float4* T2,
+                                           int r, int rp, float d,
+                                           float prev, float h) {
+  if (TFM == kTfGaussian) {
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int q = 0; q < r; ++q) {
+      const float* gq = T + 6 * q;
+      const float u = d - gq[4];
+      const float w = expf(-(u * u) / (gq[5] * gq[5]));
+      acc.x = fmaf(w, gq[0], acc.x);
+      acc.y = fmaf(w, gq[1], acc.y);
+      acc.z = fmaf(w, gq[2], acc.z);
+      acc.w = fmaf(w, gq[3], acc.w);
+    }
+    acc.w *= h;
+    return acc;
+  }
+  if (TFM == kTfPreint2d) {
+    const float4 v = __ldg(T2 + cell_2d(d, prev, r));
+    const float inv = guarded_inv(v.w);
+    return make_float4(v.x * inv, v.y * inv, v.z * inv, v.w);
+  }
+  float4 plain = lerp_rows(T, lut_texture(d, r));
+  plain.w *= h;
+  if (TFM == kTfTexture) return plain;
+  const float pe = prev < 0.0f ? d : prev;
+  const float denom = d - pe;
+  if (fabsf(denom) < 1e-3f) return plain;   // the near branch
+  const float* C = T + 4 * r;
+  const float4 vf = lerp_rows(C, lut_cumulative(pe, rp));
+  const float4 vb = lerp_rows(C, lut_cumulative(d, rp));
+  const float a = 1.0f - expf(-h * (vb.w - vf.w) / denom);
+  const float inv = guarded_inv(a);
+  return make_float4(h * (vb.x - vf.x) / denom * inv,
+                     h * (vb.y - vf.y) / denom * inv,
+                     h * (vb.z - vf.z) / denom * inv, a);
+}
+
+// What the adjoint of tf_color leaves for the table's gradient: up to two
+// lookups (lo < 0: none) of the rows [lo, hi] by the fraction f, the first
+// with cotangent dc, the second with -dc (texture and preint1d); or, for
+// the Gaussians, d and dc.
+struct TfRecord {
+  float lo1, hi1, f1, lo2, hi2, f2;
+  float4 dc;
+};
+
+// Adjoint of tf_color at (d, prev) for the cotangent dcol of its
+// (r, g, b, absorption): returns the cotangent of d (the clipped density)
+// and sets d_prev (that of `prev`; 0 where there is none) and the record.
+// preint2d takes none (nearest cells) and adds dcol's cell gradient to
+// dT2 by atomics.
+template <int TFM>
+__device__ __forceinline__ float tf_color_adjoint(
+    const float* T, const float4* T2, float4* dT2, int r, int rp, float d,
+    float prev, float h, float4 dcol, float& d_prev, TfRecord& rec) {
+  d_prev = 0.0f;
+  rec.lo1 = rec.lo2 = -1.0f;
+  rec.hi1 = rec.hi2 = rec.f1 = rec.f2 = 0.0f;
+  rec.dc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (TFM == kTfGaussian) {
+    const float4 df = make_float4(dcol.x, dcol.y, dcol.z, dcol.w * h);
+    float dd = 0.0f;
+    for (int q = 0; q < r; ++q) {
+      const float* gq = T + 6 * q;
+      const float u = d - gq[4];
+      const float s2 = gq[5] * gq[5];
+      const float w = expf(-(u * u) / s2);
+      const float dgw = gq[0] * df.x + gq[1] * df.y + gq[2] * df.z
+                        + gq[3] * df.w;
+      dd += dgw * w * (-2.0f) * (u / s2);
+    }
+    rec.f1 = d;
+    rec.dc = df;
+    return dd;
+  }
+  if (TFM == kTfPreint2d) {
+    const int c = cell_2d(d, prev, r);
+    const float4 v = __ldg(T2 + c);
+    const float inv = guarded_inv(v.w);
+    const float d_inv = dcol.x * v.x + dcol.y * v.y + dcol.z * v.z;
+    const float da = dcol.w + d_inv * (v.w > 1e-5f
+                                           ? -1.0f / (fmaxf(v.w, 1e-5f)
+                                                      * fmaxf(v.w, 1e-5f))
+                                           : 0.0f);
+    atomicAdd(dT2 + c, make_float4(dcol.x * inv, dcol.y * inv,
+                                   dcol.z * inv, da));
+    return 0.0f;
+  }
+  const float pe = prev < 0.0f ? d : prev;
+  const float denom = d - pe;
+  if (TFM == kTfTexture || fabsf(denom) < 1e-3f) {
+    // the plain texture fetch: its slope times r
+    const Lut l = lut_texture(d, r);
+    rec.dc = make_float4(dcol.x, dcol.y, dcol.z, dcol.w * h);
+    rec.lo1 = (float)l.lo;
+    rec.hi1 = (float)l.hi;
+    rec.f1 = l.f;
+    const float* a = T + 4 * l.lo;
+    const float* b = T + 4 * l.hi;
+    return (rec.dc.x * (b[0] - a[0]) + rec.dc.y * (b[1] - a[1])
+            + rec.dc.z * (b[2] - a[2]) + rec.dc.w * (b[3] - a[3]))
+           * (float)r;
+  }
+  const float* C = T + 4 * r;
+  const Lut lf = lut_cumulative(pe, rp), lb = lut_cumulative(d, rp);
+  const float4 vf = lerp_rows(C, lf), vb = lerp_rows(C, lb);
+  const float coef = h / denom;
+  const float rp3[3] = {(vb.x - vf.x) * coef, (vb.y - vf.y) * coef,
+                        (vb.z - vf.z) * coef};
+  const float m = (vb.w - vf.w) * coef;
+  const float a = 1.0f - expf(-m);
+  const float inv = guarded_inv(a);
+  const float drgb[3] = {dcol.x * inv, dcol.y * inv, dcol.z * inv};
+  const float d_inv = dcol.x * rp3[0] + dcol.y * rp3[1] + dcol.z * rp3[2];
+  const float d_a = dcol.w + d_inv * (a > 1e-5f ? -1.0f / (fmaxf(a, 1e-5f)
+                                                           * fmaxf(a, 1e-5f))
+                                                : 0.0f);
+  const float d_m = d_a * expf(-m);
+  const float4 dv = make_float4(drgb[0] * coef, drgb[1] * coef,
+                                drgb[2] * coef, d_m * coef);
+  const float d_denom = -(drgb[0] * rp3[0] + drgb[1] * rp3[1]
+                          + drgb[2] * rp3[2] + d_m * m) / denom;
+  const float* b0 = C + 4 * lb.lo;
+  const float* b1 = C + 4 * lb.hi;
+  const float* f0 = C + 4 * lf.lo;
+  const float* f1 = C + 4 * lf.hi;
+  float sb = (dv.x * (b1[0] - b0[0]) + dv.y * (b1[1] - b0[1])
+              + dv.z * (b1[2] - b0[2]) + dv.w * (b1[3] - b0[3]))
+             * (float)(rp - 1);
+  float sf = -(dv.x * (f1[0] - f0[0]) + dv.y * (f1[1] - f0[1])
+               + dv.z * (f1[2] - f0[2]) + dv.w * (f1[3] - f0[3]))
+             * (float)(rp - 1);
+  if (!(d > 0.0f && d < 1.0f)) sb = 0.0f;     // the cumulative clip
+  if (!(pe > 0.0f && pe < 1.0f)) sf = 0.0f;
+  rec.dc = dv;
+  rec.lo1 = (float)(r + lb.lo);
+  rec.hi1 = (float)(r + lb.hi);
+  rec.f1 = lb.f;
+  rec.lo2 = (float)(r + lf.lo);
+  rec.hi2 = (float)(r + lf.hi);
+  rec.f2 = lf.f;
+  d_prev = sf - d_denom;   // off the near branch prev is no sentinel
+  return sb + d_denom;
+}
+
+// Whether the TF of a call is one the kernels take: tf_points knots (2 to
+// max_points, the kernel's limit), texels (>= 2; preint1d also tf_pre >= 2
+// cumulative rows), Gaussians (1 to max_points) or R2 >= 1, and tf_floats
+// of the packed TF.
+inline bool tf_valid(int tfm, int tf_points, int tf_pre, int tf_floats,
+                     const void* tf2d, int max_points) {
+  switch (tfm) {
+    case kTfPiecewise:
+      return tf_points >= 2 && tf_points <= max_points
+             && tf_floats == 5 * tf_points;
+    case kTfTexture:
+      return tf_points >= 2 && tf_floats == 4 * tf_points;
+    case kTfPreint1d:
+      return tf_points >= 2 && tf_pre >= 2
+             && tf_floats == 4 * (tf_points + tf_pre);
+    case kTfPreint2d:
+      return tf_points >= 1 && tf_floats == 0 && tf2d != nullptr;
+    case kTfGaussian:
+      return tf_points >= 1 && tf_points <= max_points
+             && tf_floats == 6 * tf_points;
+    default:
+      return false;
+  }
 }
 
 // One front-to-back "over" step of a sample of color (r, g, b) and alpha

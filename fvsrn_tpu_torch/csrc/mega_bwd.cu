@@ -4,8 +4,13 @@
 // (per-segment math fvsrn_tpu/ops/fused_dvr_bwd.py:bwd_segment_core). It
 // computes the same gradients, not the TPU's layout: from the cotangent of
 // the march's rgba, the gradients of the Fourier matrix, every layer's
-// weight and bias, the TF control points (packed as the forward's weights,
-// one partial row per tile) and the float32 latent table.
+// weight and bias, the TF (control points, or the texture, preint1d and
+// Gaussian tables; packed as the forward's weights, one partial row per
+// tile; the preint2d table's by float atomics into its own array, the one
+// leaf not bitwise reproducible) and the float32 latent table. The TF
+// mode is a template parameter (sample_mlp.cuh's group_segment_tf for the
+// modes other than piecewise: the previous-density chain runs through
+// the stored densities and a cotangent carried to each segment's start).
 //
 // Layout: one block per 256-ray tile, 256 threads, thread i owning ray i
 // of the tile, as the forward. Segments run in reverse from the tile's
@@ -48,6 +53,7 @@ struct BwdArgs {
   float* d_weights;         // (tiles, n_weights) partial rows
   int* tile_work;           // (tiles, 2): samples replayed, contributing
   Layer L;                  // the plan, dims and gradient layout
+  const float* dens_carries;  // (tiles, n_seg_max, 256) (TF modes)
 };
 
 // A lattice point's position from the group's staged rays.
@@ -67,6 +73,7 @@ struct MegaSrc {
   }
 };
 
+template <int TFM>
 __global__ void __launch_bounds__(kTile, 2) mega_bwd_kernel(const March P,
                                                             const BwdArgs A) {
   extern __shared__ float4 smem4[];
@@ -120,6 +127,7 @@ __global__ void __launch_bounds__(kTile, 2) mega_bwd_kernel(const March P,
   const int ray = blockIdx.x * kTile + threadIdx.x;
   const float4 dout = A.d_out[ray];
   float da = dout.w;                      // cotangent of the carry's alpha
+  float dpc = 0.0f;          // and of its last density (TF modes)
   unsigned n_rep = 0, n_con = 0;
 
   for (int s = A.seg_count[blockIdx.x] - 1; s >= 0; --s) {
@@ -132,9 +140,13 @@ __global__ void __launch_bounds__(kTile, 2) mega_bwd_kernel(const March P,
     const bool vote = __syncthreads_or(cin.w < P.early_alpha);
     if (!(active && vote)) continue;
     src.ka = ka;
+    float pin = 0.0f;
+    if (TFM != kTfPiecewise)
+      pin = A.dens_carries[((size_t)blockIdx.x * P.n_seg_max + s) * kTile
+                           + threadIdx.x];
 #pragma unroll 1
     for (int grp = 0; grp < kTile / kGroup; ++grp) {
-      uint32_t valid = 0u;
+      uint32_t valid = 0u, first = 0u, donly = 0u;
       if (warp == grp) {
         float* sr = S.sray() + lane * kRayF;
         sr[0] = R.sx; sr[1] = R.sy; sr[2] = R.sz;
@@ -142,17 +154,40 @@ __global__ void __launch_bounds__(kTile, 2) mega_bwd_kernel(const March P,
         for (int j = 0; j < kSegMax; ++j) {
           const float k = ka + (float)j;
           if (k * h <= R.tmx && k >= R.k0r) valid |= 1u << j;
+          if (TFM != kTfPiecewise && k == R.k0r) first |= 1u << j;
         }
+        // the masked forward's density-only point (mega_fwd.cu)
+        if ((TFM == kTfPreint1d || TFM == kTfPreint2d)
+            && P.seg_active != nullptr && valid == 0u
+            && R.k0r > ka + (segf - 1.0f))
+          donly = 1u << (kSegMax - 1);
       }
-      group_segment<kHid, kTile>(A.L.D, S, A.L.G, g, src, grp, valid,
-                                 cin.w, dout.x, dout.y, dout.z, da, n_rep,
-                                 n_con);
+      if constexpr (TFM == kTfPiecewise)
+        group_segment<kHid, kTile>(A.L.D, S, A.L.G, g, src, grp, valid,
+                                   cin.w, dout.x, dout.y, dout.z, da, n_rep,
+                                   n_con);
+      else
+        group_segment_tf<kHid, kTile, MegaSrc, TFM>(
+            A.L.D, S, A.L.G, g, src, grp, valid, first, pin, cin.w, dout.x,
+            dout.y, dout.z, da, dpc, n_rep, n_con, donly);
     }
   }
   if (threadIdx.x == 0) {
     A.tile_work[2 * blockIdx.x] = (int)n_rep;
     A.tile_work[2 * blockIdx.x + 1] = (int)n_con;
   }
+}
+
+template <int TFM>
+int launch(const March& P, const BwdArgs& A, int n_rays, cudaStream_t st) {
+  const size_t smem = (size_t)A.L.pl.total;
+  cudaError_t e = cudaFuncSetAttribute(
+      mega_bwd_kernel<TFM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = n_rays / kTile;
+  if (blocks > 0) mega_bwd_kernel<TFM><<<blocks, kTile, smem, st>>>(P, A);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -162,7 +197,10 @@ __global__ void __launch_bounds__(kTile, 2) mega_bwd_kernel(const March P,
 // rgba cotangent `d_out` (R, 4). Writes `d_weights` (tiles x n_weights
 // partial rows, packed as the weights) and `tile_work` (tiles x 2: samples
 // replayed, samples contributing), and ADDS into `d_table` (zeroed by the
-// caller). `seg_active` is the forward's mask (or null). seg must be 32.
+// caller). `seg_active` is the forward's mask (or null). The TF as
+// mega_fwd_launch takes it, with the forward's `dens_carries` (TF modes);
+// preint2d ADDS its table's gradient into `d_tf2d` ((tf_points, tf_points)
+// float4, zeroed by the caller). seg must be 32.
 // Returns cudaGetLastError() (0 on success).
 extern "C" int mega_bwd_launch(
     const float* rays, const float* table, const float* weights,
@@ -173,9 +211,14 @@ extern "C" int mega_bwd_launch(
     float stepsize,
     float density_min, float inv_range, float early_alpha, float bmin_x,
     float bmin_y, float bmin_z, float bsize_x, float bsize_y, float bsize_z,
-    const uint8_t* seg_active, int mask_cols, void* stream) {
+    const uint8_t* seg_active, int mask_cols, int tfm, int tf_pre,
+    int tf_floats, const float* tf2d, float* d_tf2d,
+    const float* dens_carries, void* stream) {
   if (seg != kSegMax || n_fourier > kMaxFourier || n_hidden > kMaxHidden
-      || tf_points > kMaxTf || tf_points < 2 || n_lat > kLat)
+      || !tf_valid(tfm, tf_points, tf_pre, tf_floats, tf2d, kMaxTf)
+      || n_lat > kLat
+      || (tfm != kTfPiecewise && dens_carries == nullptr)
+      || (tfm == kTfPreint2d && d_tf2d == nullptr))
     return (int)cudaErrorInvalidValue;
   const float bmin[3] = {bmin_x, bmin_y, bmin_z};
   const float bsize[3] = {bsize_x, bsize_y, bsize_z};
@@ -187,16 +230,19 @@ extern "C" int mega_bwd_launch(
   P.mask_cols = mask_cols;
   BwdArgs A;
   A.carries = reinterpret_cast<const float4*>(carries);
+  A.dens_carries = dens_carries;
   A.seg_count = seg_count;
   A.d_out = reinterpret_cast<const float4*>(d_out);
   A.d_weights = d_weights;
   A.tile_work = tile_work;
   const int F = n_fourier, nh = n_hidden, K1 = 3 + 2 * F + kLat;
-  if (!choose_plan(kHid, K1, nh, F, tf_points, A.L.pl))
+  if (!choose_plan(kHid, K1, nh, F, tf_floats, A.L.pl, tfm != kTfPiecewise))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)A.L.pl.total;
   Dims& D = A.L.D;
   D.F = F; D.nh = nh; D.chunks = 1; D.n_lat = n_lat; D.tp = tf_points;
+  D.tpre = tf_pre;
+  D.tf2d = reinterpret_cast<const float4*>(tf2d);
+  D.d_tf2d = reinterpret_cast<float4*>(d_tf2d);
   D.K1 = K1; D.n_out = 1;
   D.pos = 0; D.dir = -1; D.cos = 3; D.sin = 3 + F; D.lat = 3 + 2 * F;
   D.has_dir = 0; D.act = kSnakeAlt; D.head = kDensityDirect;
@@ -214,13 +260,12 @@ extern "C" int mega_bwd_launch(
   G.Wh = off.Wh; G.Wh_l = kHid * kHid; G.Wh_i = 1; G.Wh_o = kHid;
   G.b1 = off.b1; G.bh = off.bh; G.Wo = off.Wo; G.Wo_r = 0; G.bo = off.bo;
   G.B = off.B; G.Bd = -1; G.TF = off.TF;
-  cudaError_t e = cudaFuncSetAttribute(
-      mega_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = n_rays / kTile;
-  if (blocks > 0)
-    mega_bwd_kernel<<<blocks, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
-        P, A);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (tfm) {
+    case kTfTexture: return launch<kTfTexture>(P, A, n_rays, st);
+    case kTfPreint1d: return launch<kTfPreint1d>(P, A, n_rays, st);
+    case kTfPreint2d: return launch<kTfPreint2d>(P, A, n_rays, st);
+    case kTfGaussian: return launch<kTfGaussian>(P, A, n_rays, st);
+    default: return launch<kTfPiecewise>(P, A, n_rays, st);
+  }
 }

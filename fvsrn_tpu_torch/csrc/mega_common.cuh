@@ -2,7 +2,7 @@
 // backward (mega_bwd.cu): the packed-weight layout, the call's geometry,
 // the tile's rays and occupancy mask. The per-sample pieces every fused
 // march shares (trilinear latent fetch and its adjoint, Fourier phase,
-// piecewise-linear TF, the "over" step) are in march_common.cuh. Both
+// TFs of every mode, the "over" step) are in march_common.cuh. Both
 // kernels evaluate their samples as tiles: the forward on warp_mlp.cuh,
 // the backward on sample_mlp.cuh; the backward's replay agrees with the
 // forward to float32 rounding, not bit for bit.
@@ -40,9 +40,11 @@ struct March {
 // Packed float32 weights, in this order: Fourier matrix B (F, 3); layer 1
 // (32, K1 = 3 + 2F + 16) over [pos, cos, sin, latent]; its bias (32);
 // n_hidden hidden layers (32, 32) each, then their biases (n_hidden, 32);
-// output row (32); output bias (1); TF control points (tf_points, 5) as
-// [r, g, b, absorption, position]. Every matrix is output-major. The
-// backward's weight gradient uses the same layout.
+// output row (32); output bias (1); the TF: control points (tf_points, 5)
+// as [r, g, b, absorption, position], or the other modes' table
+// (tf_floats floats; none for preint2d, whose table is its own array).
+// Every matrix is output-major. The backward's weight gradient uses the
+// same layout.
 struct Offsets {
   int B, W1, b1, Wh, bh, Wo, bo, TF;
 };
@@ -126,6 +128,7 @@ inline void fill_march(March& P, const float* rays, const void* table,
   P.seg_active = nullptr;
   P.mask_cols = 0;
 }
+
 
 // The caller's per-(tile, segment) occupancy mask (the JAX kernel's
 // `segment_active`), ANDed into a segment's activity by both kernels: a 0

@@ -7,8 +7,12 @@
 // visits and the number of segments it visited, so that mega_bwd.cu can
 // replay the tile's vote in reverse. Per sample: lattice position,
 // trilinear latent fetch from the channel-last table, Fourier features,
-// the SRN's MLP, output head, piecewise-linear TF and Beer-Lambert "over"
-// into the ray's carry.
+// the SRN's MLP, output head, the TF (piecewise-linear, texture, 1D- or
+// 2D-preintegrated, Gaussians: a template parameter, one instance each)
+// and Beer-Lambert "over" into the ray's carry. The preintegrating modes
+// carry each ray's last normalized density besides (in registers, across
+// segments and the vote; a culled or skipped segment leaves it alone, as
+// the JAX kernel's carry row 4), stored with the carries for training.
 //
 // Layout: one thread block per tile of 256 rays, in the caller's order
 // (the product path passes 16x16 pixel blocks): eight groups of 32 rays,
@@ -62,10 +66,13 @@ struct FwdOut {
 };
 
 // A lattice point of a chunk from its ray's fields (sx, sy, sz, dx, dy,
-// dz): t = k*h.
+// dz, k0r): t = k*h; the ray's first point is k = k0r.
 struct MegaPt {
   const March& P;
   float base;   // the chunk's first lattice index
+  __device__ __forceinline__ bool first(const float* r, int j) const {
+    return base + (float)j == r[6];
+  }
   __device__ __forceinline__ void point(const float* r, int j, float& t,
                                         float* x, float* d) const {
     t = (base + (float)j) * P.stepsize;
@@ -113,14 +120,15 @@ __device__ __forceinline__ void stage_weights(const March& P, const FPlan& pl,
     sm[pl.B + i] = i < 3 * F ? w[off.B + i] : 0.0f;
     sm[pl.Bd + i] = 0.0f;
   }
-  for (int i = threadIdx.x; i < 5 * D.tp; i += kTile)
+  for (int i = threadIdx.x; i < D.tfn; i += kTile)
     sm[pl.TF + i] = w[off.TF + i];
 }
 
-template <typename Table, bool kMasked>
-__global__ void __launch_bounds__(kTile, 2) mega_fwd_kernel(const March P,
-                                                            const FwdOut O,
-                                                            const FLayer L) {
+// `dens_carries` (the TF modes'): (R / 256, n_seg_max, 256) last densities
+// entering each visited segment, or null.
+template <typename Table, bool kMasked, int TFM>
+__global__ void __launch_bounds__(kTile, 2) mega_fwd_kernel(
+    const March P, const FwdOut O, const FLayer L, float* dens_carries) {
   extern __shared__ float4 smem4[];
   __shared__ float red_f[kTile / 32];
   __shared__ int red_i[kTile / 32];
@@ -142,17 +150,19 @@ __global__ void __launch_bounds__(kTile, 2) mega_fwd_kernel(const March P,
   const unsigned full = 0xffffffffu;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* tile = sm + pl.tiles + warp * pl.per_warp;
-  {   // the fields its rows read: (sx, sy, sz, dx, dy, dz)
+  {   // the fields its rows read: (sx, sy, sz, dx, dy, dz, k0r)
     float4* rf =
         reinterpret_cast<float4*>(ray_fields(pl, tile) + kRayF * lane);
     rf[0] = make_float4(R.sx, R.sy, R.sz, R.dx);
-    rf[1] = make_float4(R.dy, R.dz, 0.0f, 0.0f);
+    rf[1] = make_float4(R.dy, R.dz, TFM != kTfPiecewise ? R.k0r : 0.0f,
+                        0.0f);
     __syncwarp();
   }
   MegaPt pt{P, 0.0f};
   const float h = P.stepsize;
   const float segf = (float)P.seg;
   Carry cy = {make_float4(0.0f, 0.0f, 0.0f, 0.0f), 0u};
+  float dp = -1.0f;   // the last normalized density (TF modes)
   int visited = 0;
 
   for (int s = 0; s < P.n_seg_max; ++s) {
@@ -178,6 +188,9 @@ __global__ void __launch_bounds__(kTile, 2) mega_fwd_kernel(const March P,
     if (O.carries != nullptr)
       O.carries[((size_t)blockIdx.x * P.n_seg_max + s) * kTile
                 + threadIdx.x] = cy.c;
+    if (TFM != kTfPiecewise && dens_carries != nullptr)
+      dens_carries[((size_t)blockIdx.x * P.n_seg_max + s) * kTile
+                   + threadIdx.x] = dp;
     visited = s + 1;
     if (!(v & 4u)) break;                        // tile saturated
     if (!active) continue;
@@ -192,9 +205,22 @@ __global__ void __launch_bounds__(kTile, 2) mega_fwd_kernel(const March P,
         }
       }
       cy.n += __popc(mask);
-      if (__any_sync(full, mask != 0u)) {
+      // The JAX kernel's carry row 4 is every ray's density at the
+      // segment's last point, valid or not. A ray that starts past this
+      // segment reads it at its first sample only when the segment that
+      // holds that sample is culled (else its first sample reads none):
+      // the masked preintegrating instances evaluate that point's density
+      // alone (a row that does not count).
+      uint32_t donly = 0u;
+      if constexpr (kMasked && (TFM == kTfPreint1d || TFM == kTfPreint2d)) {
+        if (!alive && R.k0r > ka + (segf - 1.0f) && q0 + kRows >= P.seg)
+          donly = 1u << (P.seg - 1 - q0);
+      }
+      if (__any_sync(full, (mask | donly) != 0u)) {
         pt.base = ka + (float)q0;
-        warp_chunk<kHid, Table, kSnakeAlt>(pl, D, sm, tile, mask, pt, cy, fp);
+        warp_chunk<kHid, Table, kSnakeAlt, MegaPt, TFM>(pl, D, sm, tile,
+                                                        mask | donly, pt, cy,
+                                                        fp, dp, donly);
       }
     }
   }
@@ -217,38 +243,73 @@ __global__ void __launch_bounds__(kTile, 2) mega_fwd_kernel(const March P,
   }
 }
 
-template <typename Table, bool kMasked>
+// What a launch passes besides March, FwdOut and FLayer: the TF mode and
+// the stored densities.
+struct TfArgs {
+  int tfm;
+  float* dens_carries;
+};
+
+template <typename Table, bool kMasked, int TFM>
 int launch_instance(const March& P, const FwdOut& O, const FLayer& L,
-                    int n_rays, cudaStream_t stream) {
+                    const TfArgs& T, int n_rays, cudaStream_t stream) {
   const size_t smem = (size_t)L.pl.total;
   cudaError_t e = cudaFuncSetAttribute(
-      mega_fwd_kernel<Table, kMasked>,
+      mega_fwd_kernel<Table, kMasked, TFM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int blocks = n_rays / kTile;
   if (blocks > 0)
-    mega_fwd_kernel<Table, kMasked><<<blocks, kTile, smem, stream>>>(P, O, L);
+    mega_fwd_kernel<Table, kMasked, TFM><<<blocks, kTile, smem, stream>>>(
+        P, O, L, T.dens_carries);
   return (int)cudaGetLastError();
+}
+
+template <typename Table, bool kMasked>
+int launch_tf(const March& P, const FwdOut& O, const FLayer& L,
+              const TfArgs& T, int n_rays, cudaStream_t stream) {
+  switch (T.tfm) {
+    case kTfTexture:
+      return launch_instance<Table, kMasked, kTfTexture>(P, O, L, T, n_rays,
+                                                         stream);
+    case kTfPreint1d:
+      return launch_instance<Table, kMasked, kTfPreint1d>(P, O, L, T,
+                                                          n_rays, stream);
+    case kTfPreint2d:
+      return launch_instance<Table, kMasked, kTfPreint2d>(P, O, L, T,
+                                                          n_rays, stream);
+    case kTfGaussian:
+      return launch_instance<Table, kMasked, kTfGaussian>(P, O, L, T,
+                                                          n_rays, stream);
+    default:
+      return launch_instance<Table, kMasked, kTfPiecewise>(P, O, L, T,
+                                                           n_rays, stream);
+  }
 }
 
 // The masked march is its own instance: the unmasked one (every render
 // without a zero band, and training) compiles as if the mask did not
 // exist.
 template <typename Table>
-int launch(const March& P, const FwdOut& O, const FLayer& L, int n_rays,
-           cudaStream_t stream) {
+int launch(const March& P, const FwdOut& O, const FLayer& L,
+           const TfArgs& T, int n_rays, cudaStream_t stream) {
   return P.seg_active != nullptr
-             ? launch_instance<Table, true>(P, O, L, n_rays, stream)
-             : launch_instance<Table, false>(P, O, L, n_rays, stream);
+             ? launch_tf<Table, true>(P, O, L, T, n_rays, stream)
+             : launch_tf<Table, false>(P, O, L, T, n_rays, stream);
 }
 
-// The tile's dims and the shared-memory plan (eight warps a block); false
-// when it does not fit.
-bool fill_layer(FLayer& L, const March& P) {
+// The tile's dims and the shared-memory plan (eight warps a block) with the
+// TF's cumulative rows, packed floats and preint2d table; false when it
+// does not fit.
+bool fill_layer(FLayer& L, const March& P, int tf_pre, int tf_floats,
+                const float* tf2d) {
   FDims& D = L.D;
   set_columns(D, P.n_fourier, 1, 0);
   D.nh = P.n_hidden;
   D.tp = P.tf_points;
+  D.tpre = tf_pre;
+  D.tfn = tf_floats;
+  D.tf2d = reinterpret_cast<const float4*>(tf2d);
   D.has_dir = 0;
   D.act = kSnakeAlt;
   D.head = kDensityDirect;
@@ -266,7 +327,7 @@ bool fill_layer(FLayer& L, const March& P) {
   D.gy = P.gy;
   D.gz = P.gz;
   D.table = P.table;
-  return choose_fwd_plan(kHid, D.K, D.nh, D.F4, D.tp, kTile / 32, L.pl);
+  return choose_fwd_plan(kHid, D.K, D.nh, D.F4, D.tfn, kTile / 32, L.pl);
 }
 
 }  // namespace
@@ -282,14 +343,15 @@ extern "C" int smlp_prof_read(unsigned long long* out) {
 #endif
 
 // The shared-memory plan a launch takes (warp_mlp.cuh's choose_fwd_plan at
-// eight warps): out = [bytes, warps a block, matrices pre-split]. Returns
-// 0, or -1 when it does not fit in 227 KB.
-extern "C" int mega_fwd_smem(int n_fourier, int n_hidden, int tf_points,
+// eight warps) with `tf_floats` TF floats (5 a piecewise knot): out =
+// [bytes, warps a block, matrices pre-split]. Returns 0, or -1 when it
+// does not fit in 227 KB.
+extern "C" int mega_fwd_smem(int n_fourier, int n_hidden, int tf_floats,
                              long* out) {
   FDims D;
   set_columns(D, n_fourier, 1, 0);
   FPlan pl;
-  if (!choose_fwd_plan(kHid, D.K, n_hidden, D.F4, tf_points, kTile / 32,
+  if (!choose_fwd_plan(kHid, D.K, n_hidden, D.F4, tf_floats, kTile / 32,
                        pl))
     return -1;
   out[0] = pl.total;
@@ -302,8 +364,12 @@ extern "C" int mega_fwd_smem(int n_fourier, int n_hidden, int tf_points,
 // gx, 16) bf16 (table_f32 = 0) or float32 (table_f32 = 1). `carries` and
 // `seg_count` may be null (the render); otherwise carries holds
 // n_seg_max x 256 float4 per tile. `seg_active` (tiles x mask_cols bytes,
-// or null) culls segments (mega_common.cuh `segment_on`). n_rays must be a
-// multiple of 256.
+// or null) culls segments (mega_common.cuh `segment_on`). The TF: mode
+// `tfm` (march_common.cuh's TfMode), `tf_points` rows, `tf_pre` cumulative
+// rows, `tf_floats` packed floats, `tf2d` the preint2d table ((tf_points,
+// tf_points) float4); with `dens_carries` (like carries, one float) the
+// last density entering each visited segment is stored too. n_rays must be
+// a multiple of 256.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int mega_fwd_launch(
     const float* rays, const void* table, int table_f32, const float* weights,
@@ -312,9 +378,11 @@ extern "C" int mega_fwd_launch(
     int n_hidden, int tf_points, float act_param, int seg, int n_seg_max,
     float stepsize, float density_min, float inv_range, float early_alpha,
     float bmin_x, float bmin_y, float bmin_z, float bsize_x, float bsize_y,
-    float bsize_z, const uint8_t* seg_active, int mask_cols, void* stream) {
-  if (n_fourier > kMaxFourier || n_hidden > kMaxHidden
-      || tf_points > kMaxTf || tf_points < 2 || seg < 1)
+    float bsize_z, const uint8_t* seg_active, int mask_cols, int tfm,
+    int tf_pre, int tf_floats, const float* tf2d, float* dens_carries,
+    void* stream) {
+  if (n_fourier > kMaxFourier || n_hidden > kMaxHidden || seg < 1
+      || !tf_valid(tfm, tf_points, tf_pre, tf_floats, tf2d, kMaxTf))
     return (int)cudaErrorInvalidValue;
   const float bmin[3] = {bmin_x, bmin_y, bmin_z};
   const float bsize[3] = {bsize_x, bsize_y, bsize_z};
@@ -325,13 +393,15 @@ extern "C" int mega_fwd_launch(
   P.seg_active = seg_active;
   P.mask_cols = mask_cols;
   FLayer L;
-  if (!fill_layer(L, P)) return (int)cudaErrorInvalidValue;
+  if (!fill_layer(L, P, tf_pre, tf_floats, tf2d))
+    return (int)cudaErrorInvalidValue;
   FwdOut O;
   O.out = out;
   O.tile_samples = tile_samples;
   O.carries = reinterpret_cast<float4*>(carries);
   O.seg_count = seg_count;
+  const TfArgs T = {tfm, dens_carries};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return table_f32 ? launch<F32Table>(P, O, L, n_rays, st)
-                   : launch<Bf16Table>(P, O, L, n_rays, st);
+  return table_f32 ? launch<F32Table>(P, O, L, T, n_rays, st)
+                   : launch<Bf16Table>(P, O, L, T, n_rays, st);
 }

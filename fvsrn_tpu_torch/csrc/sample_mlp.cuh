@@ -34,7 +34,9 @@
 // B fragments) or H where only that fits, the vectors (biases, output
 // rows, Fourier matrices, TF), the tile's first-layer input X (M x K16),
 // each layer's activation derivative and output (M x (H + 4)), per-row
-// scalars, and the group's per-(ray, sample) state. M is 64, 48, 32 or
+// scalars, and the group's per-(ray, sample) state (in the TF modes other
+// than piecewise also each sample's density and its cotangent, and each
+// ray's incoming density). M is 64, 48, 32 or
 // 16: the largest with which an SM holds two blocks of 256 threads (the
 // kernels' launch bounds cap them at 128 registers), else the largest
 // that fits one block in 227 KB.
@@ -81,9 +83,14 @@ constexpr long kSmemTwo = 115712;   // bytes each of two blocks an SM holds
 
 // Per-row scalars: [0] the row's (ray << 5 | sample) or -1, [1, 5) the
 // head's input y, [5, 9) its cotangent, [9] the TF interval (or -2),
-// [10, 15) and [15, 20) the TF gradient of its two control points.
+// [10, 15) and [15, 20) the TF gradient of its two control points. In the
+// other TF modes [9, 19) hold march_common.cuh's TfRecord of the row:
+// lo1, hi1, f1, dc (4), lo2, hi2, f2 (lo1 < 0: none).
 enum Row { kRowId = 0, kRowY = 1, kRowDy = 5, kRowIv = 9, kRowG0 = 10,
            kRowG1 = 15 };
+enum RowTf { kRecLo1 = 9, kRecHi1 = 10, kRecF1 = 11, kRecDc = 12,
+             kRecLo2 = 16, kRecHi2 = 17, kRecF2 = 18 };
+constexpr int kScTf = 4 * kGroup * kSegMax + kGroup;   // sc in the TF modes
 
 __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -102,8 +109,11 @@ __host__ __device__ inline int take(int& o, long n) {
   return at;
 }
 
+// `tfn` TF floats in the vectors; `tf_state`: the TF modes' per-sample
+// state (sc of kScTf floats, else two per (ray, sample)).
 __host__ __device__ inline Plan make_plan(int H, int K1, int nh, int F,
-                                          int tp, int M, int pad) {
+                                          int tfn, int M, int pad,
+                                          int tf_state = 0) {
   Plan p;
   p.M = M;
   p.pad = pad;
@@ -112,7 +122,7 @@ __host__ __device__ inline Plan make_plan(int H, int K1, int nh, int F,
   p.K16 = round_up(K1, 16);
   p.ldx = p.K16 + 4;
   p.lda = H + 4;
-  p.n_vec = H + nh * H + 4 * H + 4 + 6 * F + 5 * tp;
+  p.n_vec = H + nh * H + 4 * H + 4 + 6 * F + tfn;
   int o = 0;
   p.W1 = take(o, (long)p.K16 * p.ldw);
   p.Wh = take(o, (long)nh * H * p.ldw);
@@ -123,7 +133,7 @@ __host__ __device__ inline Plan make_plan(int H, int K1, int nh, int F,
   const long xn = (long)M * p.ldx;
   p.hreg = take(o, hn > xn ? hn : xn);
   p.rows = take(o, (long)M * kRowF);
-  p.sc = take(o, 2L * kGroup * kSegMax);
+  p.sc = take(o, tf_state ? (long)kScTf : 2L * kGroup * kSegMax);
   p.sray = take(o, (long)kGroup * kRayF);
   p.masks = take(o, 4L * kGroup);
   p.list = take(o, kGroup * kSegMax / 2);   // uint16 entries
@@ -143,12 +153,13 @@ __host__ __device__ inline Plan make_plan(int H, int K1, int nh, int F,
 // with padded weight rows, then 16 rows unpadded, that lets an SM hold two
 // blocks; else the first that fits one. False when none fits.
 __host__ __device__ inline bool choose_plan(int H, int K1, int nh, int F,
-                                            int tp, Plan& p) {
+                                            int tfn, Plan& p,
+                                            int tf_state = 0) {
   const int Ms[5] = {64, 48, 32, 16, 16};
   const int pads[5] = {8, 8, 8, 8, 0};
   for (int lim = 0; lim < 2; ++lim)
     for (int c = 0; c < 5; ++c) {
-      p = make_plan(H, K1, nh, F, tp, Ms[c], pads[c]);
+      p = make_plan(H, K1, nh, F, tfn, Ms[c], pads[c], tf_state);
       if (p.total <= (lim ? kSmemLimit : kSmemTwo)) return true;
     }
   return false;
@@ -164,6 +175,9 @@ struct Dims {
   int gx, gy, gz;
   const float* table;            // float32 (gz, gy, gx, 16 * chunks)
   float* d_table;
+  int tpre;                      // cumulative TF rows (preint1d)
+  const float4* tf2d;            // the preint2d table, and its gradient
+  float4* d_tf2d;
 };
 
 // Where each gradient entry goes in the block's partial row: base offset
@@ -206,6 +220,12 @@ struct Smem {
   }
   __device__ uint32_t* counted() const { return valid() + kGroup; }
   __device__ uint32_t* contrib() const { return valid() + 2 * kGroup; }
+  __device__ uint32_t* first() const { return valid() + 3 * kGroup; }
+  // the TF modes' state: each (ray, sample)'s normalized density and its
+  // cotangent, each ray's incoming density
+  __device__ float* dens() const { return sc() + 2 * kGroup * kSegMax; }
+  __device__ float* ddens() const { return sc() + 3 * kGroup * kSegMax; }
+  __device__ float* pin() const { return sc() + 4 * kGroup * kSegMax; }
   __device__ uint16_t* list() const {
     return reinterpret_cast<uint16_t*>(s + p.list);
   }
@@ -678,9 +698,76 @@ __device__ __forceinline__ void input_grad(const Smem& S, const float* dZ,
   }
 }
 
+// The TF gradient of the tile's rows in mode TFM (texture, preint1d:
+// each texel's thread over the rows' records; Gaussians: each entry's
+// thread, the weights recomputed), added into the partial row: every
+// entry owned by one thread, the rows in order. preint2d's goes by atomics
+// (tf_color_adjoint).
+template <int NTH, int TFM>
+__device__ __forceinline__ void tf_mode_grad(const Dims& D, const Smem& S,
+                                             const GOut& G, float* g) {
+  const int M = S.p.M;
+  if constexpr (TFM == kTfGaussian) {
+#pragma unroll 1
+    for (int e = threadIdx.x; e < 6 * D.tp; e += NTH) {
+      const int q = e / 6, c = e % 6;
+      const float* gq = S.TF() + 6 * q;
+      const float s2 = gq[5] * gq[5];
+      float acc = 0.0f;
+#pragma unroll 1
+      for (int m = 0; m < M; ++m) {
+        const float* rw = S.rows() + m * kRowF;
+        if (rw[kRecLo1] < 0.0f) continue;
+        const float* df = rw + kRecDc;
+        const float u = rw[kRecF1] - gq[4];
+        const float w = expf(-(u * u) / s2);
+        if (c < 4) {
+          acc += w * df[c];
+        } else {
+          const float core = (gq[0] * df[0] + gq[1] * df[1] + gq[2] * df[2]
+                              + gq[3] * df[3]) * w;
+          const float t = 2.0f * core * (u / s2);
+          acc += c == 4 ? t : t * u / gq[5];
+        }
+      }
+      g[G.TF + e] += acc;
+    }
+  } else if constexpr (TFM == kTfTexture || TFM == kTfPreint1d) {
+    const int rows = D.tp + (TFM == kTfPreint1d ? D.tpre : 0);
+#pragma unroll 1
+    for (int q = threadIdx.x; q < rows; q += NTH) {
+      const float fq = (float)q;
+      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+#pragma unroll 1
+      for (int m = 0; m < M; ++m) {
+        const float* rw = S.rows() + m * kRowF;
+        if (rw[kRecLo1] < 0.0f) continue;
+        float w = 0.0f;
+        if (rw[kRecLo1] == fq) w += 1.0f - rw[kRecF1];
+        if (rw[kRecHi1] == fq) w += rw[kRecF1];
+        if (rw[kRecLo2] >= 0.0f) {
+          if (rw[kRecLo2] == fq) w -= 1.0f - rw[kRecF2];
+          if (rw[kRecHi2] == fq) w -= rw[kRecF2];
+        }
+        if (w != 0.0f) {
+          a0 = fmaf(w, rw[kRecDc], a0);
+          a1 = fmaf(w, rw[kRecDc + 1], a1);
+          a2 = fmaf(w, rw[kRecDc + 2], a2);
+          a3 = fmaf(w, rw[kRecDc + 3], a3);
+        }
+      }
+      float* gq = g + G.TF + 4 * q;
+      gq[0] += a0;
+      gq[1] += a1;
+      gq[2] += a2;
+      gq[3] += a3;
+    }
+  }
+}
+
 // The tile's adjoint, the rows' cotangent dy set: every gradient of the
 // tile added into the block's partial row, the latent's into d_table.
-template <int H, int NTH>
+template <int H, int NTH, int TFM = kTfPiecewise>
 __device__ __forceinline__ void backward(const Dims& D, const Smem& S,
                                          const GOut& G, float* g) {
   SMLP_START(tb);
@@ -752,7 +839,9 @@ __device__ __forceinline__ void backward(const Dims& D, const Smem& S,
       outer_grad<NTH>(S, dX + D.cos, S.p.ldx, f16, F, S.X() + D.dir,
                       S.p.ldx, 16, 3, g, G.Bd, 3, 1, 3);
   }
-  if (D.head < kRgbo) {
+  if constexpr (TFM != kTfPiecewise) {
+    tf_mode_grad<NTH, TFM>(D, S, G, g);
+  } else if (D.head < kRgbo) {
     // eight lanes an entry, each over every eighth row, then a fixed
     // shuffle tree
     const int lane = threadIdx.x & 31, sub = lane & 7;
@@ -996,6 +1085,203 @@ __device__ __forceinline__ void group_segment(const Dims& D, const Smem& S,
     SMLP_MARK(tg, 6);
     backward<H, NTH>(D, S, G, g);
     SMLP_MARK(tg, 11);
+  }
+}
+
+// One segment of one group in TF mode TFM (texture, preint1d, preint2d,
+// Gaussians; density heads), as group_segment with the previous-density
+// chain: `first` marks each lane's ray's first lattice sample, `pin` its
+// incoming density (the stored carry's), `dpc` the cotangent of the
+// density its next segment read as its previous one, carried to the
+// segment's start. The replay (A) keeps each valid sample's density; the
+// group's warp then takes the colors in sample order (each reads its
+// predecessor's density), the reverse recurrence (B), and the TF adjoint
+// in reverse (each sample's density cotangent: its own TF's, gated inside
+// (0, 1), plus, unclipped, what the next sample's TF read of it). The
+// adjoint (C) runs over the samples whose density has a cotangent (a
+// sample that does not count still passes the chain), and their TF
+// records go into the table's gradient. preint2d's cells take no density
+// cotangent: its table's gradient goes by atomics, and no sample reaches
+// the network. The samples of `donly` (a lane's ray with no valid sample
+// here) are replayed for their density alone: the next segment's first
+// sample may have read it (mega_fwd.cu), and its cotangent then reaches
+// the network there.
+template <int H, int NTH, class Src, int TFM>
+__device__ __forceinline__ void group_segment_tf(
+    const Dims& D, const Smem& S, const GOut& G, float* g, const Src& src,
+    int gw, uint32_t valid, uint32_t first, float pin, float alpha0,
+    float dr, float dg, float db, float& da, float& dpc, unsigned& n_rep,
+    unsigned& n_con, uint32_t donly = 0u) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, M = S.p.M;
+  constexpr int kGS = kGroup * kSegMax;
+  if (warp == gw) {
+    S.counted()[lane] = 0u;
+    S.contrib()[lane] = 0u;
+    S.valid()[lane] = valid;
+    S.first()[lane] = first;
+    S.pin()[lane] = pin;
+    float* rr = S.sray() + lane * kRayF;   // the ray's rgb cotangent
+    rr[9] = dr;
+    rr[10] = dg;
+    rr[11] = db;
+    const int n = list_samples(S, valid | donly);
+    if (lane == 0) S.misc()[0] = n;
+  }
+  __syncthreads();
+  const int n_valid = S.misc()[0];
+  if (threadIdx.x == 0) n_rep += n_valid;
+
+  // A. the replay: each listed sample's normalized density
+#pragma unroll 1
+  for (int tile0 = 0; tile0 < n_valid; tile0 += M) {
+    build_rows<NTH>(D, S, src, tile0, n_valid);
+    forward<H, NTH>(D, S, false);
+    for (int m = threadIdx.x; m < min(M, n_valid - tile0); m += NTH) {
+      const float* rw = S.rows() + m * kRowF;
+      const int e = __float_as_int(rw[kRowId]);
+      float v[4];
+      head_value(D.head, rw + kRowY, v);
+      S.dens()[(e & 31) * kGroup + (e >> 5)] =
+          (v[0] - D.density_min) * D.inv_range;
+    }
+    __syncthreads();
+  }
+
+  // the colors, B. the reverse recurrence, the TF adjoint: per ray
+  if (warp == gw) {
+    const float* rr = S.sray() + lane * kRayF;
+    const float cr = rr[9], cg = rr[10], cb = rr[11];
+    float* sd = S.sc() + lane;            // dr r + dg g + db b, then w
+    float* sa = sd + kGS;                 // absorption, then its cotangent
+    const float* dn = S.dens() + lane;
+    float* dd = S.ddens() + lane;
+    uint32_t counted = 0u, contrib = 0u;
+    float prev = pin;
+#pragma unroll 1
+    for (uint32_t m = valid; m; m &= m - 1) {
+      const int j = __ffs(m) - 1, o = j * kGroup;
+      if ((first >> j) & 1u) prev = -1.0f;
+      const float d2 = dn[o];
+      if (d2 >= 0.0f) {                  // the value reaches density_min
+        const float4 c = tf_color<TFM>(S.TF(), D.tf2d, D.tp, D.tpre,
+                                       fminf(d2, 1.0f), prev, D.h);
+        sd[o] = cr * c.x + cg * c.y + cb * c.z;
+        sa[o] = c.w;
+        counted |= 1u << j;
+        if (c.w > 0.0f) contrib |= 1u << j;
+      }
+      prev = d2;
+    }
+    float* ain = S.dact() + lane;
+    float alpha = alpha0;
+#pragma unroll 1
+    for (int j = 0; j < kSegMax; ++j) {
+      ain[j * kGroup] = alpha;
+      if ((counted >> j) & 1u)
+        alpha = alpha + (1.0f - alpha) * row_alpha(D, sa[j * kGroup]);
+    }
+#pragma unroll 1
+    for (int j = kSegMax - 1; j >= 0; --j) {
+      if (!((contrib >> j) & 1u)) continue;
+      const int o = j * kGroup;
+      const float absn = sa[o];
+      const float a = row_alpha(D, absn);
+      const float trans = 1.0f - ain[o];
+      const float dw = sd[o] + da;
+      da = da - a * dw;
+      sd[o] = trans * a;
+      sa[o] = D.blend_alpha ? (absn < 1.0f ? trans * dw : 0.0f)
+                            : trans * dw * expf(-absn);
+    }
+    // the TF adjoint and the density chain, last sample first
+    uint32_t need = 0u;
+    float chain = dpc;
+    const uint32_t listed = valid | donly;
+#pragma unroll 1
+    for (int j = kSegMax - 1; j >= 0; --j) {
+      if (!((listed >> j) & 1u)) continue;
+      const int o = j * kGroup;
+      const float d2 = dn[o];
+      float own = 0.0f, d_prev = 0.0f;
+      if ((contrib >> j) & 1u) {
+        const float p = ((first >> j) & 1u) ? -1.0f
+                        : (j > 0 && ((valid >> (j - 1)) & 1u)) ? dn[o - kGroup]
+                                                               : pin;
+        const float w = sd[o];
+        TfRecord rec;
+        own = tf_color_adjoint<TFM>(
+            S.TF(), D.tf2d, D.d_tf2d, D.tp, D.tpre, fminf(fmaxf(d2, 0.0f),
+                                                          1.0f),
+            p, D.h, make_float4(w * cr, w * cg, w * cb, sa[o]), d_prev, rec);
+      }
+      const float tot = ((d2 > 0.0f && d2 < 1.0f) ? own : 0.0f) + chain;
+      dd[o] = tot;
+      if (tot != 0.0f || ((contrib >> j) & 1u)) need |= 1u << j;
+      chain = d_prev;
+    }
+    if (listed) dpc = chain;
+    if (TFM == kTfPreint2d) need = 0u;
+    S.contrib()[lane] = contrib;
+    const int n = list_samples(S, need);
+    if (lane == 0) S.misc()[1] = n;
+  }
+  __syncthreads();
+  const int n_c = S.misc()[1];
+  if (threadIdx.x == 0) n_con += n_c;
+
+  // C. the adjoint
+#pragma unroll 1
+  for (int tile0 = 0; tile0 < n_c; tile0 += M) {
+    build_rows<NTH>(D, S, src, tile0, n_c);
+    forward<H, NTH>(D, S, true);
+    for (int m = threadIdx.x; m < M; m += NTH) {
+      float* rw = S.rows() + m * kRowF;
+      const int e = __float_as_int(rw[kRowId]);
+      float dy[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      TfRecord rec;
+      rec.lo1 = rec.lo2 = -1.0f;
+      rec.hi1 = rec.hi2 = rec.f1 = rec.f2 = 0.0f;
+      rec.dc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (e >= 0) {
+        const int rl = e >> 5, j = e & 31, o = j * kGroup + rl;
+        const float* y = rw + kRowY;
+        float v[4];
+        head_value(D.head, y, v);
+        if ((S.contrib()[rl] >> j) & 1u) {
+          const uint32_t vm = S.valid()[rl];
+          const float* dn = S.dens();
+          const float p = ((S.first()[rl] >> j) & 1u) ? -1.0f
+                          : (j > 0 && ((vm >> (j - 1)) & 1u))
+                              ? dn[o - kGroup] : S.pin()[rl];
+          const float* rr = S.sray() + rl * kRayF;
+          const float w = S.sc()[o];
+          float d_prev;
+          tf_color_adjoint<TFM>(
+              S.TF(), D.tf2d, D.d_tf2d, D.tp, D.tpre,
+              fminf(fmaxf(dn[o], 0.0f), 1.0f), p, D.h,
+              make_float4(w * rr[9], w * rr[10], w * rr[11],
+                          S.sc()[kGS + o]),
+              d_prev, rec);
+          if (TFM == kTfGaussian) rec.lo1 = 0.0f;
+        }
+        const float d_v[4] = {S.ddens()[o] * D.inv_range, 0.0f, 0.0f, 0.0f};
+        head_adjoint(D.head, y, v, d_v, dy);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) rw[kRowDy + q] = dy[q];
+      rw[kRecLo1] = rec.lo1;
+      rw[kRecHi1] = rec.hi1;
+      rw[kRecF1] = rec.f1;
+      rw[kRecDc] = rec.dc.x;
+      rw[kRecDc + 1] = rec.dc.y;
+      rw[kRecDc + 2] = rec.dc.z;
+      rw[kRecDc + 3] = rec.dc.w;
+      rw[kRecLo2] = rec.lo2;
+      rw[kRecHi2] = rec.hi2;
+      rw[kRecF2] = rec.f2;
+    }
+    __syncthreads();
+    backward<H, NTH, TFM>(D, S, G, g);
   }
 }
 

@@ -7,9 +7,13 @@
 // gradients, not the TPU's layout: from the cotangent of the march's rgba,
 // the gradients of every layer's weight and bias, the Fourier matrix (its
 // position and direction blocks), the TF control points (colors, opacity,
-// interior knot positions; packed as the forward's weights, one partial
-// row per block) and the float32 latent table. The rays get none (the
-// TPU's custom VJP gives them zeros).
+// interior knot positions; the texture, preint1d and Gaussian tables;
+// packed as the forward's weights, one partial row per block; the preint2d
+// table's by float atomics into its own array, the one leaf not bitwise
+// reproducible) and the float32 latent table. The rays get none (the
+// TPU's custom VJP gives them zeros). The TF mode is a template parameter
+// (sample_mlp.cuh's group_segment_tf for the modes other than piecewise,
+// density heads).
 //
 // One launch per step, 64 rays per block in two groups of 32, 256
 // threads. Each ray walks its segments in reverse from its last
@@ -48,6 +52,7 @@ constexpr int kGroups = kBlockB / kGroup;   // warp w < kGroups owns group w
 
 struct BwdArgs {
   const float4* carries;       // (n_seg, R) carry entering each segment
+  const float* dens_carries;   // (n_seg, R) its last density (TF modes)
   const int* death;            // (R,) segments each ray ran
   const float4* d_out;         // (R,) rgba cotangent
   float* d_weights;            // (blocks, n_weights) partial rows, zeroed
@@ -75,7 +80,7 @@ struct SegSrc {
   }
 };
 
-template <int H>
+template <int H, int TFM>
 __global__ void __launch_bounds__(kThreads, 2) segment_bwd_kernel(const Seg P,
                                                                   const BwdArgs A) {
   extern __shared__ float4 smem4[];
@@ -112,6 +117,7 @@ __global__ void __launch_bounds__(kThreads, 2) segment_bwd_kernel(const Seg P,
   const float4 dout = live ? A.d_out[ray]
                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   float da = dout.w;                      // cotangent of the carry's alpha
+  float dpc = 0.0f;          // and of its last density (TF modes)
   const int m = __reduce_max_sync(0xffffffffu, death);
   if (lane == 0 && warp < kGroups) S.misc()[2 + warp] = m;
   __syncthreads();  // also publishes the weights
@@ -123,8 +129,8 @@ __global__ void __launch_bounds__(kThreads, 2) segment_bwd_kernel(const Seg P,
     src.s0 = (float)(s * P.seg);
 #pragma unroll 1
     for (int grp = 0; grp < kGroups; ++grp) {
-      uint32_t valid = 0u;
-      float alpha0 = 0.0f;
+      uint32_t valid = 0u, first = 0u;
+      float alpha0 = 0.0f, pin = 0.0f;
       if (warp == grp && live) {
         const Ray r = load_ray(P, ray);
         float* sr = S.sray() + lane * kRayF;
@@ -133,15 +139,25 @@ __global__ void __launch_bounds__(kThreads, 2) segment_bwd_kernel(const Seg P,
         sr[6] = r.a; sr[7] = r.tmx; sr[8] = r.kb;
         if (s < death) {
           alpha0 = A.carries[(size_t)s * P.n_rays + ray].w;
+          if (TFM != kTfPiecewise)
+            pin = A.dens_carries[(size_t)s * P.n_rays + ray];
           for (int j = 0; j < P.seg; ++j) {
             float t;
             if (sample_t(P, r, src.s0 + (float)j, t)) valid |= 1u << j;
+            if (TFM != kTfPiecewise && P.lattice
+                && r.kb + (src.s0 + (float)j) == r.a)
+              first |= 1u << j;
           }
         }
       }
-      group_segment<H, kThreads>(A.L.D, S, A.L.G, g, src, grp, valid,
-                                 alpha0, dout.x, dout.y, dout.z, da, n_rep,
-                                 n_con);
+      if constexpr (TFM == kTfPiecewise)
+        group_segment<H, kThreads>(A.L.D, S, A.L.G, g, src, grp, valid,
+                                   alpha0, dout.x, dout.y, dout.z, da, n_rep,
+                                   n_con);
+      else
+        group_segment_tf<H, kThreads, SegSrc, TFM>(
+            A.L.D, S, A.L.G, g, src, grp, valid, first, pin, alpha0, dout.x,
+            dout.y, dout.z, da, dpc, n_rep, n_con);
     }
   }
   if (threadIdx.x == 0) {
@@ -150,17 +166,28 @@ __global__ void __launch_bounds__(kThreads, 2) segment_bwd_kernel(const Seg P,
   }
 }
 
-template <int H>
+template <int H, int TFM>
 int launch(const Seg& P, const BwdArgs& A, cudaStream_t stream) {
   const size_t smem = (size_t)A.L.pl.total;
   cudaError_t e = cudaFuncSetAttribute(
-      segment_bwd_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      segment_bwd_kernel<H, TFM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int blocks = (P.n_rays + kBlockB - 1) / kBlockB;
   if (blocks > 0)
-    segment_bwd_kernel<H><<<blocks, kThreads, smem, stream>>>(P, A);
+    segment_bwd_kernel<H, TFM><<<blocks, kThreads, smem, stream>>>(P, A);
   return (int)cudaGetLastError();
+}
+
+template <int H>
+int launch_tf(const Seg& P, const BwdArgs& A, cudaStream_t stream) {
+  switch (P.tfm) {
+    case kTfTexture: return launch<H, kTfTexture>(P, A, stream);
+    case kTfPreint1d: return launch<H, kTfPreint1d>(P, A, stream);
+    case kTfPreint2d: return launch<H, kTfPreint2d>(P, A, stream);
+    case kTfGaussian: return launch<H, kTfGaussian>(P, A, stream);
+    default: return launch<H, kTfPiecewise>(P, A, stream);
+  }
 }
 
 }  // namespace
@@ -180,13 +207,15 @@ extern "C" int smlp_prof_read(unsigned long long* out) {
 #endif
 
 // The shared-memory plan a launch takes for these widths (sample_mlp.cuh's
-// choose_plan): out = [bytes, tile rows, weight-row padding]. Returns 0,
-// or -1 when no plan fits in 227 KB.
+// choose_plan) with `tf_floats` TF floats (5 a piecewise knot) and, with
+// `tf_state`, the TF modes' per-sample state: out = [bytes, tile rows,
+// weight-row padding]. Returns 0, or -1 when no plan fits in 227 KB.
 extern "C" int segment_bwd_smem(int hidden, int n_fourier, int chunks,
-                                int n_hidden, int tf_points, long* out) {
+                                int n_hidden, int tf_floats, int tf_state,
+                                long* out) {
   Plan pl;
   if (!choose_plan(hidden, 6 + 2 * n_fourier + kLat * chunks, n_hidden,
-                   n_fourier, tf_points, pl))
+                   n_fourier, tf_floats, pl, tf_state))
     return -1;
   out[0] = pl.total;
   out[1] = pl.M;
@@ -200,7 +229,10 @@ extern "C" int segment_bwd_smem(int hidden, int n_fourier, int chunks,
 // 4). Writes into `d_weights` (blocks x n_weights partial rows, packed as
 // the weights, zeroed by the caller) and ADDS into `d_table` (zeroed by the
 // caller) and `work` ([samples replayed, samples contributing], int64).
-// seg <= 32. Returns cudaGetLastError() (0 on success).
+// The TF as segment_fwd_launch takes it (modes other than piecewise:
+// density heads), with phase 0's `dens_carries`; preint2d ADDS its table's
+// gradient into `d_tf2d` ((tf_points, tf_points) float4, zeroed by the
+// caller). seg <= 32. Returns cudaGetLastError() (0 on success).
 extern "C" int segment_bwd_launch(
     const float* rays, const float* kbase, const float* table,
     const float* weights, int n_weights, const float* carries,
@@ -210,29 +242,42 @@ extern "C" int segment_bwd_launch(
     int act, float act_param, int head, int has_dir, int lattice,
     int blend_alpha, int seg, int n_seg, float stepsize, float density_min,
     float inv_range, float bmin_x, float bmin_y, float bmin_z,
-    float bsize_x, float bsize_y, float bsize_z, void* stream) {
+    float bsize_x, float bsize_y, float bsize_z, int tfm, int tf_pre,
+    int tf_floats, const float* tf2d, float* d_tf2d,
+    const float* dens_carries, void* stream) {
   const float bmin[3] = {bmin_x, bmin_y, bmin_z};
   const float bsize[3] = {bsize_x, bsize_y, bsize_z};
-  const Seg P = make_seg(rays, kbase, table, weights, n_weights, n_rays, gx,
-                         gy, gz, chunks, n_fourier, n_hidden, tf_points, act,
-                         act_param, head, has_dir, lattice, blend_alpha, 0,
-                         0.0f, seg, n_seg, stepsize, density_min, inv_range,
-                         2.0f, bmin, bsize);
-  if (!seg_valid(P) || seg > kSegMax || n_lat < 0 || n_lat > kLat * chunks)
+  Seg P = make_seg(rays, kbase, table, weights, n_weights, n_rays, gx, gy,
+                   gz, chunks, n_fourier, n_hidden, tf_points, act,
+                   act_param, head, has_dir, lattice, blend_alpha, 0, 0.0f,
+                   seg, n_seg, stepsize, density_min, inv_range, 2.0f, bmin,
+                   bsize);
+  P.tfm = tfm;
+  P.tf_pre = tf_pre;
+  P.tf_floats = tf_floats;
+  P.tf2d = reinterpret_cast<const float4*>(tf2d);
+  if (!seg_valid(P) || seg > kSegMax || n_lat < 0 || n_lat > kLat * chunks
+      || (tfm != kTfPiecewise
+          && (head >= kRgbo || dens_carries == nullptr))
+      || (tfm == kTfPreint2d && d_tf2d == nullptr))
     return (int)cudaErrorInvalidValue;
   BwdArgs A;
   A.carries = reinterpret_cast<const float4*>(carries);
+  A.dens_carries = dens_carries;
   A.death = death;
   A.d_out = reinterpret_cast<const float4*>(d_out);
   A.d_weights = d_weights;
   A.work = work;
   const int F = n_fourier, nh = n_hidden, H = hidden;
   const int K1 = 6 + 2 * F + kLat * chunks;
-  if (!choose_plan(H, K1, nh, F, tf_points, A.L.pl))
+  if (!choose_plan(H, K1, nh, F, tf_floats, A.L.pl, tfm != kTfPiecewise))
     return (int)cudaErrorInvalidValue;
   Dims& D = A.L.D;
   D.F = F; D.nh = nh; D.chunks = chunks; D.n_lat = n_lat;
   D.tp = tf_points; D.K1 = K1; D.n_out = head >= kRgbo ? 4 : 1;
+  D.tpre = tf_pre;
+  D.tf2d = reinterpret_cast<const float4*>(tf2d);
+  D.d_tf2d = reinterpret_cast<float4*>(d_tf2d);
   D.pos = 0; D.dir = 3; D.cos = 6; D.sin = 6 + F; D.lat = 6 + 2 * F;
   D.has_dir = has_dir; D.act = act; D.head = head;
   D.blend_alpha = blend_alpha;
@@ -255,9 +300,9 @@ extern "C" int segment_bwd_launch(
   G.TF = G.B + 6 * F;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hidden) {
-    case 32: return launch<32>(P, A, st);
-    case 48: return launch<48>(P, A, st);
-    case 64: return launch<64>(P, A, st);
+    case 32: return launch_tf<32>(P, A, st);
+    case 48: return launch_tf<48>(P, A, st);
+    case 64: return launch_tf<64>(P, A, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -33,12 +33,16 @@ struct Seg {
   int seg, n_seg;
   float stepsize, density_min, inv_range, early_alpha;
   float bmin[3], bsize[3];
+  int tfm;               // TF mode (march_common.cuh's TfMode)
+  int tf_pre, tf_floats; // cumulative rows (preint1d), TF floats packed
+  const float4* tf2d;    // the preint2d table (R2 = tf_points), or null
 };
 
 // Whether the call's options are ones the kernels take.
 inline bool seg_valid(const Seg& P) {
   return P.n_fourier <= kMaxFourier && P.n_hidden <= kMaxHidden
-         && P.tf_points <= kMaxTf && P.tf_points >= 2
+         && tf_valid(P.tfm, P.tf_points, P.tf_pre, P.tf_floats, P.tf2d,
+                     kMaxTf)
          && P.chunks <= kMaxChunks && P.chunks >= 0 && P.seg >= 1
          && P.act >= kNone && P.act <= kSnakeAlt && P.head >= kDensity
          && P.head <= kRgboExp;
@@ -50,9 +54,11 @@ inline bool seg_valid(const Seg& P) {
 // cos F, sin F, latent]; its bias (H); n_hidden hidden layers (H, H),
 // their biases (n_hidden, H); the output rows (4, H) (output-major) and
 // biases (4), unused rows zero; Fourier B (F, 3) over positions; its
-// direction block (F, 3); TF control points (tf_points, 5). Every block
-// before B starts at a multiple of 4 floats (H is a multiple of 16). The
-// backward's weight gradient uses the same layout.
+// direction block (F, 3); the TF: control points (tf_points, 5), or the
+// other modes' table (tf_floats floats; none for preint2d, whose table is
+// its own array). Every block before B starts at a multiple of 4 floats
+// (H is a multiple of 16). The backward's weight gradient uses the same
+// layout.
 struct Wts {
   const float *W1, *b1, *Wh, *bh, *Wo, *bo, *B, *Bd, *TF;
 };
@@ -344,6 +350,10 @@ inline Seg make_seg(const float* rays, const float* kbase, const void* table,
     P.bmin[i] = bmin[i];
     P.bsize[i] = bsize[i];
   }
+  P.tfm = kTfPiecewise;
+  P.tf_pre = 0;
+  P.tf_floats = 5 * tf_points;
+  P.tf2d = nullptr;
   return P;
 }
 

@@ -7,8 +7,13 @@
 // five output heads, direction input, no latent grid, a grid of <= 16
 // channels as a bf16 or float32 table, or more than 16 channels in
 // float32), per-ray sampling t = tmin + k*h or the lattice t = k*h from the
-// ray tile's base, the piecewise-linear TF or the rgbo heads' own color,
-// Beer-Lambert or alpha blending, and the isosurface first-hit epilogue.
+// ray tile's base, the TF (piecewise-linear, texture, 1D- or
+// 2D-preintegrated, Gaussians) or the rgbo heads' own color, Beer-Lambert
+// or alpha blending, and the isosurface first-hit epilogue. The TF modes
+// other than piecewise are template instances of SnakeAlt networks (the
+// activation a template parameter too); they carry each ray's last
+// normalized density besides its rgba, across segments and into phase 1
+// (`dens`), and store it with the carries for training.
 //
 // The differentiable march has no early-out (early_alpha = 2: every ray
 // runs until its segment start passes tmax), so it is phase 0 alone, which
@@ -70,6 +75,9 @@ struct SegOut {
   unsigned long long* stats;   // [stop segment S, samples evaluated]
   float4* carries;             // (n_seg, R) carry entering each segment the
                                // ray runs (phase 0), or null
+  float* dens;                 // (R,) last density at death (TF modes)
+  float* dens_carries;         // (n_seg, R) last density entering each
+                               // segment (with carries, TF modes), or null
 };
 
 // A sample of a chunk from its ray's fields (sx, sy, sz, dx, dy, dz, a,
@@ -77,6 +85,10 @@ struct SegOut {
 struct SegPt {
   const Seg& P;
   float base;   // the chunk's first sample, from the ray's first segment
+  // the ray's first lattice point (per-ray sampling: its carry says)
+  __device__ __forceinline__ bool first(const float* r, int j) const {
+    return P.lattice && r[7] + (base + (float)j) == r[6];
+  }
   __device__ __forceinline__ void point(const float* r, int j, float& t,
                                         float* x, float* d) const {
     const float kf = base + (float)j;
@@ -90,7 +102,7 @@ struct SegPt {
   }
 };
 
-template <int H, typename Table>
+template <int H, typename Table, int TFM>
 __global__ void __launch_bounds__(kThreads, 2) segment_fwd_kernel(
     const Seg P, const SegOut O, const FLayer L, int phase) {
   extern __shared__ float4 smem4[];
@@ -125,10 +137,14 @@ __global__ void __launch_bounds__(kThreads, 2) segment_fwd_kernel(
   // continues a ray that died of saturation before the call's stop
   int from = 0, to = P.n_seg;
   Carry cy = {make_float4(0.0f, 0.0f, 0.0f, 0.0f), 0u};
+  float dp = -1.0f;   // the last normalized density (TF modes)
   if (phase == 1 && real) {
     from = O.death[ray];
     to = (int)O.stats[0];
-    if (from < to) cy.c = O.out[ray];
+    if (from < to) {
+      cy.c = O.out[ray];
+      if (TFM != kTfPiecewise) dp = O.dens[ray];
+    }
   }
   bool alive = real && from < to;
   int death = 0;
@@ -146,7 +162,11 @@ __global__ void __launch_bounds__(kThreads, 2) segment_fwd_kernel(
         death = s;
       } else {
         run = true;
-        if (store != nullptr) store[(size_t)s * P.n_rays] = cy.c;
+        if (store != nullptr) {
+          store[(size_t)s * P.n_rays] = cy.c;
+          if (TFM != kTfPiecewise)
+            O.dens_carries[(size_t)s * P.n_rays + ray] = dp;
+        }
       }
     }
 #pragma unroll 1
@@ -163,7 +183,8 @@ __global__ void __launch_bounds__(kThreads, 2) segment_fwd_kernel(
       if (!P.iso) cy.n += __popc(mask);
       if (__any_sync(full, mask != 0u)) {
         pt.base = s0 + (float)q0;
-        warp_chunk<H, Table, -1>(pl, D, sm, tile, mask, pt, cy, fp);
+        warp_chunk<H, Table, TFM == kTfPiecewise ? -1 : (int)kSnakeAlt,
+                   SegPt, TFM>(pl, D, sm, tile, mask, pt, cy, fp, dp);
       }
     }
     ++s;
@@ -176,6 +197,7 @@ __global__ void __launch_bounds__(kThreads, 2) segment_fwd_kernel(
     if (phase == 0) {
       O.out[ray] = cy.c;
       O.death[ray] = death;
+      if (TFM != kTfPiecewise) O.dens[ray] = dp;
     } else if (from < to) {
       O.out[ray] = cy.c;
     }
@@ -193,29 +215,46 @@ __global__ void __launch_bounds__(kThreads, 2) segment_fwd_kernel(
   }
 }
 
-template <int H, typename Table>
+template <int H, typename Table, int TFM>
 int launch(const Seg& P, const SegOut& O, const FLayer& L, int phase,
            cudaStream_t stream) {
   const size_t smem = (size_t)L.pl.total;
   cudaError_t e = cudaFuncSetAttribute(
-      segment_fwd_kernel<H, Table>,
+      segment_fwd_kernel<H, Table, TFM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int per_block = L.pl.warps * kRows;
   const int blocks = (P.n_rays + per_block - 1) / per_block;
   if (blocks > 0)
-    segment_fwd_kernel<H, Table><<<blocks, per_block, smem, stream>>>(
+    segment_fwd_kernel<H, Table, TFM><<<blocks, per_block, smem, stream>>>(
         P, O, L, phase);
   return (int)cudaGetLastError();
+}
+
+template <int H, typename Table>
+int launch_tf(const Seg& P, const SegOut& O, const FLayer& L, int phase,
+              cudaStream_t stream) {
+  switch (P.tfm) {
+    case kTfTexture:
+      return launch<H, Table, kTfTexture>(P, O, L, phase, stream);
+    case kTfPreint1d:
+      return launch<H, Table, kTfPreint1d>(P, O, L, phase, stream);
+    case kTfPreint2d:
+      return launch<H, Table, kTfPreint2d>(P, O, L, phase, stream);
+    case kTfGaussian:
+      return launch<H, Table, kTfGaussian>(P, O, L, phase, stream);
+    default:
+      return launch<H, Table, kTfPiecewise>(P, O, L, phase, stream);
+  }
 }
 
 template <typename Table>
 int launch_width(const Seg& P, const SegOut& O, const FLayer& L, int hidden,
                  int phase, cudaStream_t stream) {
   switch (hidden) {
-    case 32: return launch<32, Table>(P, O, L, phase, stream);
-    case 48: return launch<48, Table>(P, O, L, phase, stream);
-    case 64: return launch<64, Table>(P, O, L, phase, stream);
+    case 32: return launch_tf<32, Table>(P, O, L, phase, stream);
+    case 48: return launch_tf<48, Table>(P, O, L, phase, stream);
+    case 64: return launch_tf<64, Table>(P, O, L, phase, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -233,15 +272,16 @@ extern "C" int smlp_prof_read(unsigned long long* out) {
 #endif
 
 // The shared-memory plan a launch takes for these widths (warp_mlp.cuh's
-// choose_fwd_plan): out = [bytes, warps a block, matrices pre-split].
-// Returns 0, or -1 when no plan fits in 227 KB.
+// choose_fwd_plan) with `tf_floats` TF floats (5 a piecewise knot): out =
+// [bytes, warps a block, matrices pre-split]. Returns 0, or -1 when no
+// plan fits in 227 KB.
 extern "C" int segment_fwd_smem(int hidden, int n_fourier, int chunks,
-                                int n_hidden, int tf_points, int has_dir,
+                                int n_hidden, int tf_floats, int has_dir,
                                 long* out) {
   FDims D;
   set_columns(D, n_fourier, chunks, has_dir);
   FPlan pl;
-  if (!choose_fwd_plan(hidden, D.K, n_hidden, D.F4, tf_points, 0, pl))
+  if (!choose_fwd_plan(hidden, D.K, n_hidden, D.F4, tf_floats, 0, pl))
     return -1;
   out[0] = pl.total;
   out[1] = pl.warps;
@@ -257,8 +297,13 @@ extern "C" int segment_fwd_smem(int hidden, int n_fourier, int chunks,
 // only. `stats` ([S, samples], int64) must be zero before phase 0. With
 // `carries` ((n_seg, R) float4, phase 0 only) each ray also stores the
 // carry entering every segment it runs, for the backward
-// (segment_bwd.cu). Launches on `stream` and returns cudaGetLastError() (0
-// on success).
+// (segment_bwd.cu). The TF: mode `tfm` (march_common.cuh's TfMode; modes
+// other than piecewise take SnakeAlt networks), `tf_points` rows, `tf_pre`
+// cumulative rows, `tf_floats` packed floats, `tf2d` the preint2d table
+// ((tf_points, tf_points) float4); those modes keep each ray's last density
+// in `dens` ((R,) float, phase 0 writes it, phase 1 reads it) and, with
+// carries, in `dens_carries` ((n_seg, R) float). Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
 extern "C" int segment_fwd_launch(
     const float* rays, const float* kbase, const void* table, int table_f32,
     const float* weights, int n_weights, float* out, int* death,
@@ -268,16 +313,25 @@ extern "C" int segment_fwd_launch(
     int lattice, int blend_alpha, int iso, float iso_value, int seg,
     int n_seg, float stepsize, float density_min, float inv_range,
     float early_alpha, float bmin_x, float bmin_y, float bmin_z,
-    float bsize_x, float bsize_y, float bsize_z, int phase, void* stream) {
+    float bsize_x, float bsize_y, float bsize_z, int phase, int tfm,
+    int tf_pre, int tf_floats, const float* tf2d, float* dens,
+    float* dens_carries, void* stream) {
   const float bmin[3] = {bmin_x, bmin_y, bmin_z};
   const float bsize[3] = {bsize_x, bsize_y, bsize_z};
-  const Seg P = make_seg(rays, kbase, table, weights, n_weights, n_rays, gx,
-                         gy, gz, chunks, n_fourier, n_hidden, tf_points, act,
-                         act_param, head, has_dir, lattice, blend_alpha, iso,
-                         iso_value, seg, n_seg, stepsize, density_min,
-                         inv_range, early_alpha, bmin, bsize);
+  Seg P = make_seg(rays, kbase, table, weights, n_weights, n_rays, gx, gy,
+                   gz, chunks, n_fourier, n_hidden, tf_points, act,
+                   act_param, head, has_dir, lattice, blend_alpha, iso,
+                   iso_value, seg, n_seg, stepsize, density_min, inv_range,
+                   early_alpha, bmin, bsize);
+  P.tfm = tfm;
+  P.tf_pre = tf_pre;
+  P.tf_floats = tf_floats;
+  P.tf2d = reinterpret_cast<const float4*>(tf2d);
   if (!seg_valid(P) || (phase != 0 && phase != 1)
-      || (carries != nullptr && phase != 0))
+      || (carries != nullptr && phase != 0)
+      || (tfm != kTfPiecewise
+          && (act != kSnakeAlt || iso || dens == nullptr
+              || (carries != nullptr && dens_carries == nullptr))))
     return (int)cudaErrorInvalidValue;
   FLayer L;
   if (!fill_layer(L, P, hidden, P.tf_points))
@@ -287,6 +341,8 @@ extern "C" int segment_fwd_launch(
   O.death = death;
   O.stats = stats;
   O.carries = reinterpret_cast<float4*>(carries);
+  O.dens = dens;
+  O.dens_carries = dens_carries;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return table_f32 ? launch_width<F32Table>(P, O, L, hidden, phase, st)
                    : launch_width<Bf16Table>(P, O, L, hidden, phase, st);

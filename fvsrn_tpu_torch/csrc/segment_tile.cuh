@@ -16,7 +16,7 @@ using wmlp::FPlan;
 
 // The packed weights into the plan's layout: the first layer's inputs in
 // the tile's column order, zeros for the padding; B and Bd padded to F4
-// rows; D.tp TF points (none for the evaluator).
+// rows; D.tfn floats of the TF (none for the evaluator).
 template <int H>
 __device__ __forceinline__ void stage_weights(const Seg& P, const FPlan& pl,
                                               const FDims& D, float* sm) {
@@ -48,17 +48,20 @@ __device__ __forceinline__ void stage_weights(const Seg& P, const FPlan& pl,
     sm[pl.B + i] = i < 3 * F ? w[off_b + i] : 0.0f;
     sm[pl.Bd + i] = i < 3 * F ? w[off_b + 3 * F + i] : 0.0f;
   }
-  for (int i = threadIdx.x; i < 5 * D.tp; i += blockDim.x)
+  for (int i = threadIdx.x; i < D.tfn; i += blockDim.x)
     sm[pl.TF + i] = w[off_b + 6 * F + i];
 }
 
 // The tile's dims and the shared-memory plan of a call whose block takes
-// `tp` TF points; false when no plan fits.
+// `tp` TF points (the call's TF; 0: none); false when no plan fits.
 inline bool fill_layer(FLayer& L, const Seg& P, int hidden, int tp) {
   FDims& D = L.D;
   wmlp::set_columns(D, P.n_fourier, P.chunks, P.has_dir);
   D.nh = P.n_hidden;
   D.tp = tp;
+  D.tpre = P.tf_pre;
+  D.tfn = tp ? P.tf_floats : 0;
+  D.tf2d = P.tf2d;
   D.has_dir = P.has_dir;
   D.act = P.act;
   D.head = P.head;
@@ -76,7 +79,7 @@ inline bool fill_layer(FLayer& L, const Seg& P, int hidden, int tp) {
   D.gy = P.gy;
   D.gz = P.gz;
   D.table = P.table;
-  return wmlp::choose_fwd_plan(hidden, D.K, D.nh, D.F4, D.tp, 0, L.pl);
+  return wmlp::choose_fwd_plan(hidden, D.K, D.nh, D.F4, D.tfn, 0, L.pl);
 }
 
 }  // namespace segment

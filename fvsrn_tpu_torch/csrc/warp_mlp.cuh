@@ -38,7 +38,9 @@
 // in B-fragment order (one 16-byte load a fragment, no split in the loop)
 // where that fits, else input-major with a row stride of H + 8
 // (conflict-free B fragments); the vectors (biases, output rows, Fourier
-// matrices padded to whole groups of 4, TF); then per warp its tile: 32
+// matrices padded to whole groups of 4, the TF: 5 floats a piecewise
+// knot, 4 a texel, 6 a Gaussian, none for the preint2d table, which stays
+// in L2); then per warp its tile: 32
 // rows of max(K, H) + 4 floats (conflict-free A fragments), 32 rows of 4
 // (head outputs) and its rays' fields (8 a ray, read by the lanes that
 // build their rows). The weights are staged once per block and read-only
@@ -69,7 +71,9 @@ struct FPlan {
 // What the tile reads of the call. A tile row's columns: cos (F), sin (F),
 // latent (16 * chunks), position, direction (with direction input), zeros
 // up to K, the row's width (a multiple of 8); F4 is F rounded up to 4 (the
-// Fourier matrices' staged rows).
+// Fourier matrices' staged rows). The TF: tp rows (knots, texels,
+// Gaussians, or R2), tpre cumulative rows (preint1d), tfn floats staged,
+// tf2d the preint2d table.
 struct FDims {
   int F, F4, nh, chunks, K, tp;
   int cos, sin, lat, pos;
@@ -77,6 +81,8 @@ struct FDims {
   float p, inv_p, inv_2p, iso_value, density_min, inv_range, h;
   int gx, gy, gz;
   const void* table;
+  int tpre, tfn;
+  const float4* tf2d;
 };
 
 // What a launch passes the layer; the kernels take it by reference to
@@ -87,7 +93,7 @@ struct FLayer {
 };
 
 __host__ __device__ inline FPlan make_fwd_plan(int H, int K, int nh, int F4,
-                                               int tp, int warps, int pre) {
+                                               int tfn, int warps, int pre) {
   FPlan p;
   p.warps = warps;
   p.pre = pre;
@@ -97,7 +103,7 @@ __host__ __device__ inline FPlan make_fwd_plan(int H, int K, int nh, int F4,
   int o = 0;
   p.W1 = take(o, pre ? 2L * K * H : (long)K * p.ldw);
   p.Wh = take(o, (long)nh * p.wl);
-  p.vec = take(o, H + nh * H + 4 * H + 4 + 6 * F4 + 5 * tp);
+  p.vec = take(o, H + nh * H + 4 * H + 4 + 6 * F4 + tfn);
   p.per_warp = kRows * p.lds + kRows * 4 + kRows * kRayF;
   p.tiles = take(o, (long)warps * p.per_warp);
   p.total = o * 4;
@@ -112,18 +118,19 @@ __host__ __device__ inline FPlan make_fwd_plan(int H, int K, int nh, int F4,
 }
 
 // The plan of a launch whose block takes `warps` warps (0: any of 8, 4, 2,
-// 1): the most warps an SM holds (warps a block times the blocks that fit
-// in its shared memory, two or one), and of those the first with the
-// matrices pre-split, then the most warps a block. False when none fits.
+// 1) and stages `tfn` TF floats: the most warps an SM holds (warps a block
+// times the blocks that fit in its shared memory, two or one), and of
+// those the first with the matrices pre-split, then the most warps a
+// block. False when none fits.
 __host__ __device__ inline bool choose_fwd_plan(int H, int K, int nh, int F4,
-                                                int tp, int warps,
+                                                int tfn, int warps,
                                                 FPlan& p) {
   const int ws[4] = {8, 4, 2, 1};
   int best = 0;
   for (int c = 0; c < 4; ++c) {
     if (warps != 0 && ws[c] != warps) continue;
     for (int pre = 1; pre >= 0; --pre) {
-      const FPlan q = make_fwd_plan(H, K, nh, F4, tp, ws[c], pre);
+      const FPlan q = make_fwd_plan(H, K, nh, F4, tfn, ws[c], pre);
       const int blocks = q.total <= smlp::kSmemTwo     ? 2
                          : q.total <= smlp::kSmemLimit ? 1 : 0;
       if (ws[c] * blocks > best) {
@@ -560,6 +567,27 @@ __device__ __forceinline__ float4 row_color(const FDims& D, const float* TF,
   return make_float4(cr, cg, cb, a);
 }
 
+// Row color in TF mode TFM (not piecewise): as row_color, the density's
+// TF by tf_color at the row's normalized density `dens` and its previous
+// sample's `prev`.
+template <int TFM>
+__device__ __forceinline__ float4 row_color_tf(const FDims& D, const float* TF,
+                                               const float* y, float dens,
+                                               float prev) {
+  float v[4];
+  head_value(D.head, y, v);
+  float4 c;
+  if (D.head >= kRgbo) {
+    c = make_float4(v[0], v[1], v[2], v[3] * D.h);
+  } else {
+    if (!(v[0] >= D.density_min)) return make_float4(0.0f, 0.0f, 0.0f, -1.0f);
+    c = tf_color<TFM>(TF, D.tf2d, D.tp, D.tpre,
+                      fminf(fmaxf(dens, 0.0f), 1.0f), prev, D.h);
+  }
+  c.w = D.blend_alpha ? fminf(1.0f, c.w) : 1.0f - expf(-c.w);
+  return c;
+}
+
 // What a lane carries through its ray's samples: the carry (rgba, or
 // (depth, 0, 0, found) for iso) and the samples evaluated.
 struct Carry {
@@ -589,11 +617,21 @@ __device__ __forceinline__ float* ray_fields(const FPlan& pl, float* tile) {
 // samples a culled segment skips must (culled and unculled renders agree
 // bit for bit). The iso march takes each ray's first row above the
 // isovalue, in order, on its own lane.
-template <int H, typename Table, int ACT, class Pt>
+//
+// In a TF mode TFM other than piecewise, `dp` is the lane's ray's last
+// normalized density (-1 before its first sample): row m reads row m - 1's
+// density (a shuffle) when both are its ray's, else its ray's `dp`, or none
+// where `Pt::first(rf, j)` marks the ray's first sample; after the tile
+// each ray's `dp` is its last row's density, whether or not that row
+// counted (a culled or skipped segment leaves it alone). The rows of
+// `donly` (a subset of `mask`, each lane's) give their density and no
+// color.
+template <int H, typename Table, int ACT, class Pt, int TFM = kTfPiecewise>
 __device__ __forceinline__ void warp_chunk(const FPlan& pl, const FDims& D,
                                            const float* sm, float* tile,
                                            uint32_t mask, const Pt& pt,
-                                           Carry& cy, FwdProf* fp) {
+                                           Carry& cy, FwdProf* fp,
+                                           float& dp, uint32_t donly = 0u) {
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   float* ybuf = tile + kRows * pl.lds;
@@ -640,10 +678,32 @@ __device__ __forceinline__ void warp_chunk(const FPlan& pl, const FDims& D,
     __syncwarp();
     FWD_MARK(fp, 1);
     float4 col = make_float4(0.0f, 0.0f, 0.0f, -1.0f);
-    if (lane < cnt) {
+    float dens = 0.0f;   // the row's normalized density (TF modes)
+    if constexpr (TFM == kTfPiecewise) {
+      if (lane < cnt) {
+        const float4 y = reinterpret_cast<const float4*>(ybuf)[lane];
+        const float ya[4] = {y.x, y.y, y.z, y.w};
+        col = row_color(D, sm + pl.TF, ya);
+      }
+    } else {
       const float4 y = reinterpret_cast<const float4*>(ybuf)[lane];
       const float ya[4] = {y.x, y.y, y.z, y.w};
-      col = row_color(D, sm + pl.TF, ya);
+      if (lane < cnt && D.head < kRgbo) {
+        float v[4];
+        head_value(D.head, ya, v);
+        dens = (v[0] - D.density_min) * D.inv_range;
+      }
+      const float up = __shfl_up_sync(full, dens, 1);
+      const int up_l = __shfl_up_sync(full, L, 1);
+      const float own = __shfl_sync(full, dp, L);
+      const uint32_t dl = __shfl_sync(full, donly, L);
+      float prev = (lane > 0 && up_l == L) ? up : own;
+      if (lane < cnt) {
+        const int j = (int)__fns(ml, 0, i - ex + 1);
+        if (pt.first(rays + kRayF * L, j)) prev = -1.0f;
+        if (!((dl >> j) & 1u))
+          col = row_color_tf<TFM>(D, sm + pl.TF, ya, dens, prev);
+      }
     }
     FWD_MARK(fp, 2);
     // this lane's rows of the tile
@@ -704,6 +764,10 @@ __device__ __forceinline__ void warp_chunk(const FPlan& pl, const FDims& D,
         cy.c.y = fmaf(w, Cg, cy.c.y);
         cy.c.z = fmaf(w, Cb, cy.c.z);
         cy.c.w = fmaf(w, Ar, cy.c.w);
+      }
+      if constexpr (TFM != kTfPiecewise) {
+        const float dl = __shfl_sync(full, dens, last);
+        if (hi > lo) dp = dl;
       }
     }
     FWD_MARK(fp, 3);

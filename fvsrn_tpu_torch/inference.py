@@ -47,7 +47,7 @@ from torch import Tensor
 from .camera import CameraOnASphere, camera_matrix, generate_rays
 from .models.network_volume import VolumeInterpolationNetwork
 from .models.srn import SceneRepresentationNetwork
-from .ops.fused_dvr import (block_ray_permutation, check_tf_mode,
+from .ops.fused_dvr import (block_ray_permutation, fused_tf_args,
                             fused_trace_dvr, fused_trace_dvr_bucketed,
                             fused_trace_iso, mega_supported,
                             plan_ray_buckets, probe_saturation_tmax,
@@ -76,6 +76,21 @@ ALPHA_SKIP = 1e-5
 ZERO_BAND_SHARE = 0.02
 OCCUPANCY_RESOLUTION = 128
 OCCUPANCY_FINE = 2
+
+
+def fused_render_tf(tf) -> dict:
+    """The march's TF kwargs of a FUSED render of ``tf``, routed as the JAX
+    package routes its product render (fvsrn_tpu/inference.py:251-261):
+    the piecewise TF, and the texture TF by its preintegration (texture,
+    preint1d, preint2d) on every route. Any other TF raises
+    ``NotImplementedError``: the JAX render passes a Gaussian's (G, 6)
+    tensor to its kernels as piecewise knots, an image that is not the
+    TF's (ROADMAP, differs on purpose)."""
+    mode = tf_mode_of(tf)
+    if mode not in ("piecewise", "texture", "preint1d", "preint2d"):
+        raise NotImplementedError(f"FUSED render: TF mode {mode!r} does "
+                                  "not render fused (PLAIN32 renders it)")
+    return fused_tf_args(tf)[1]
 
 
 class FusedRender:
@@ -319,10 +334,10 @@ class LoadedModel:
                 return color.reshape(height, width, 4)
             return render_plain
 
-        check_tf_mode(tf_mode_of(tf))
+        tf_kw = fused_render_tf(tf)
         table_dtype = table_dtype if table_dtype is not None \
             else torch.bfloat16
-        kw = dict(stepsize=stepsize, seg=SEG, table_dtype=table_dtype,
+        kw = dict(tf_kw, stepsize=stepsize, seg=SEG, table_dtype=table_dtype,
                   density_min=float(self.config.density_min),
                   density_max=float(self.config.density_max))
         grid = net.latent.static_grid

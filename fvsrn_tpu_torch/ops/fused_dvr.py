@@ -35,14 +35,18 @@ ray keeps compositing until the call's last live ray is done. Latent
 features: a grid of <= 16 channels is read rounded to ``table_dtype``
 (the JAX package's neighborhood table), a wider one in float32. Each
 valid sample: the network (every activation, the five output heads,
-direction input), then the piecewise TF (density heads; a sample counts
-when its value >= density_min) or the head's own rgb with absorption o*h
-(rgbo heads), Beer-Lambert or alpha "over". With ``iso_value`` the march
-records the first sample whose density exceeds it: rgba = (depth, 0, 0,
-found), and a hit ray is dead. The differentiable march has no
-early-out (every segment runs; the JAX package's fixed-count scan) and a
-float32 table; normals and shading, TF modes other than piecewise, and a
-bf16 table under ``differentiable=True`` raise ``NotImplementedError``.
+direction input), then the TF (density heads; a sample counts when its
+value >= density_min) or the head's own rgb with absorption o*h (rgbo
+heads), Beer-Lambert or alpha "over". The TF is ``tf_mode``'s
+(:data:`TF_MODES`, :func:`prepare_tf`, :func:`tf_shade`): piecewise,
+texture, the 1D and 2D preintegrations, which read each sample's
+previous density (carried across segments), or Gaussians. With
+``iso_value`` the march records the first sample whose density exceeds
+it: rgba = (depth, 0, 0, found), and a hit ray is dead. The
+differentiable march has no early-out (every segment runs; the JAX
+package's fixed-count scan) and a float32 table; normals and shading,
+and a bf16 table under ``differentiable=True`` raise
+``NotImplementedError``.
 
 Bound of the kernel on the H100: operations (the dense flagship's sample
 costs ~7.6 kFLOP and ~110 transcendentals against 32 bytes per ray). A
@@ -67,7 +71,7 @@ from ..models.srn import SceneRepresentationNetwork
 from ..utils.device import strict_f32
 from ..utils.vecmath import intersect_aabb
 from . import _build
-from .fused_mega import _gated_clip01, _params
+from .fused_mega import TfCarries, _gated_clip01, _params, _tf_args
 
 # kernel launches since the last reset (two a call: the march and its
 # continuation up to the call's stop); the plain version never counts
@@ -80,7 +84,7 @@ KERNEL_WIDTHS = (32, 48, 64)     # hidden widths of the kernel's instances
 MAX_LATENT_CHANNELS = 64
 MAX_FOURIER = 32                 # the kernel's limits (segment_fwd.cu)
 MAX_HIDDEN_LAYERS = 6
-MAX_TF_POINTS = 16
+MAX_TF_POINTS = 16               # piecewise knots, Gaussians
 MAX_BWD_SEG = 32                 # segment_bwd.cu's segment length limit
 _ACTIVATIONS = {"None": 0, "NONE": 0, "ReLU": 1, "Sine": 2, "Sigmoid": 3,
                 "Softplus": 4, "Snake": 5, "SnakeAlt": 6}
@@ -88,6 +92,9 @@ _HEADS = {"density": 0, "density:direct": 1, "rgbo": 2, "rgbo:direct": 3,
           "rgbo:exp": 4}
 _PLAIN_CHUNK_SAMPLES = 1 << 21
 _FAR = 3.0e38
+# the TF modes of the fused marches (the JAX package's tf_mode), in the
+# order of the kernels' TF template parameter (csrc/march_common.cuh)
+TF_MODES = ("piecewise", "texture", "preint1d", "preint2d", "gaussian")
 
 
 def mega_supported(grid_shape, table_dtype=torch.float32) -> bool:
@@ -147,6 +154,7 @@ def probe_saturation_tmax(ray_start: Tensor, ray_dir: Tensor, volume, tf, *,
     lead = ray_start.shape[:-1]
     alpha = torch.zeros(lead + (1,), dtype=dtype, device=ray_start.device)
     tsat = torch.full_like(alpha, float("inf"))
+    prev = torch.full(lead, -1.0, dtype=dtype, device=ray_start.device)
     for i in range(n_steps):
         t = (k0 + float(i)) * hc
         pos = ray_start + ray_dir * t
@@ -154,8 +162,11 @@ def probe_saturation_tmax(ray_start: Tensor, ray_dir: Tensor, volume, tf, *,
         value = value[..., None]
         d2 = (value - density_min) / (density_max - density_min)
         require = (t <= tmax) & (value >= density_min)
+        # the previous coarse sample's density, as the JAX probe carries
+        # it (the preintegrating TFs read it), and zero normals
         rgba = tf.eval_normalized(torch.clamp(d2[..., 0], 0.0, 1.0),
-                                  None, None, hc)
+                                  torch.zeros_like(pos), prev, hc)
+        prev = d2[..., 0]
         absn = torch.where(require, rgba[..., 3:4], torch.zeros_like(t))
         ca = (1.0 - torch.exp(-absn) if blend_beer
               else torch.clamp(absn, max=1.0))
@@ -294,6 +305,9 @@ class SegmentSpec(NamedTuple):
     activation: tuple           # (name, param) of every hidden layer
     output_mode: str
     direction: bool             # the ray direction is a network input
+    tf_mode: str = "piecewise"
+    tf_points: int = 0          # prepare_tf's tf_points, tf_pre_rows
+    tf_pre_rows: int = 0
 
 
 class SegmentStats(NamedTuple):
@@ -320,19 +334,24 @@ def tf_mode_of(tf) -> str:
     return name.replace("TransferFunction", "").lower()
 
 
-def check_tf_mode(tf_mode: str) -> None:
-    """The fused kernels take the piecewise TF alone."""
-    if tf_mode != "piecewise":
-        raise NotImplementedError(f"fused_trace_dvr: TF mode {tf_mode!r} "
-                                  "is not ported yet")
+def fused_tf_args(tf):
+    """(tensor, kwargs) of ``tf`` for the fused marches: its tensor, and
+    the ``tf_mode`` and ``tf_pre`` that the JAX package's screen trainer
+    derives from the TF (``_tf_mode_kwargs``): the texture TF by its
+    preintegration, the Gaussians, else piecewise (no kwargs)."""
+    mode = tf_mode_of(tf)
+    if mode in ("preint1d", "preint2d"):
+        return tf.tensor, dict(tf_mode=mode, tf_pre=tf.preintegrated)
+    if mode in ("texture", "gaussian"):
+        return tf.tensor, dict(tf_mode=mode)
+    return tf.tensor, {}
 
 
-def _check_segment_request(net, *, differentiable, need_normals, tf_mode,
+def _check_segment_request(net, *, differentiable, need_normals,
                            iso_value, table_dtype):
     if need_normals:
         raise NotImplementedError("fused_trace_dvr: normals and shading "
                                   "are not ported yet")
-    check_tf_mode(tf_mode)
     if iso_value is not None and (differentiable or not
                                   net.output_mode.startswith("density")):
         raise ValueError("fused iso marching: forward-only density networks")
@@ -372,14 +391,15 @@ def _segment_setup(ray_start, ray_dir, net, box_min, box_size, *, stepsize,
                    max_steps, density_min, density_max, blend_mode,
                    alpha_early_out, enable_early_out, seg, tile,
                    differentiable, latent_mode, table_dtype, n_seg,
-                   need_normals, iso_value, tf_mode, tmax_clip):
+                   need_normals, iso_value, tf_mode, tmax_clip,
+                   tf_points=0, tf_pre_rows=0):
     """(spec, rays, kbase): the checks and the ray packet of a call. The
     differentiable march has no early-out (the JAX package's rule,
     fvsrn_tpu/ops/fused_dvr.py:2466-2473: its fixed-count scan composites
     every sample, so its backward must not gate on alpha)."""
     _check_segment_request(net, differentiable=differentiable,
-                           need_normals=need_normals, tf_mode=tf_mode,
-                           iso_value=iso_value, table_dtype=table_dtype)
+                           need_normals=need_normals, iso_value=iso_value,
+                           table_dtype=table_dtype)
     if blend_mode not in ("beer_lambert", "alpha"):
         raise ValueError(f"unknown blend mode {blend_mode}")
     if ray_start.reshape(-1, 3).shape[0] % tile:
@@ -413,7 +433,9 @@ def _segment_setup(ray_start, ray_dir, net, box_min, box_size, *, stepsize,
         box_size=tuple(float(v) for v in box_size),
         activation=(net.layers[0].activation,
                     net.layers[0].activation_param),
-        output_mode=net.output_mode, direction=net.use_direction)
+        output_mode=net.output_mode, direction=net.use_direction,
+        tf_mode=tf_mode, tf_points=int(tf_points),
+        tf_pre_rows=int(tf_pre_rows))
     return spec, rays, kbase
 
 
@@ -503,11 +525,217 @@ def _piecewise(tf: Tensor, d: Tensor) -> Tensor:
     return rgba
 
 
+# ---------------------------------------------------------------------------
+# the TF modes
+
+
+def prepare_tf(tf_tensor: Tensor, tf_mode: str = "piecewise",
+               tf_pre: Optional[Tensor] = None, device=None):
+    """(table, tf_points, tf_pre_rows): the TF tensor the fused marches
+    read in ``tf_mode``, the contract of the JAX package's ``_prepare_tf``
+    (its TPU layout aside): piecewise (R, 5) control points; texture (R, 4)
+    rgba texels; gaussian (G, 6); preint1d the plain table (R, 4) with
+    the cumulative table ``tf_pre`` (Rp, 4) stacked below it; preint2d the
+    (R2, R2, 4) table ``tf_pre`` of (front, back) density pairs as
+    (R2 * R2, 4) rows (the plain table unused), tf_points = tf_pre_rows =
+    R2. Differentiable in ``tf_tensor`` and ``tf_pre``."""
+    def f32(t):
+        return t.to(device=device if device is not None else t.device,
+                    dtype=torch.float32)
+
+    t = f32(tf_tensor)
+    cols = {"piecewise": 5, "texture": 4, "preint1d": 4, "preint2d": 4,
+            "gaussian": 6}
+    if tf_mode not in cols:
+        raise ValueError(f"unknown tf_mode {tf_mode!r} "
+                         f"({'|'.join(TF_MODES)})")
+    if tf_mode != "preint2d" and (t.ndim != 2 or t.shape[1] != cols[tf_mode]
+                                  or t.shape[0] < (2 if tf_mode != "gaussian"
+                                                   else 1)):
+        raise ValueError(f"{tf_mode} TF tensor must be (R, "
+                         f"{cols[tf_mode]}), got {tuple(t.shape)}")
+    if tf_mode in ("piecewise", "texture", "gaussian"):
+        return t, t.shape[0], 0
+    if tf_pre is None:
+        raise ValueError(f"tf_mode={tf_mode!r} needs tf_pre (the table of "
+                         "with_preintegration"
+                         f"{'_2d' if tf_mode == 'preint2d' else ''})")
+    pre = f32(tf_pre)
+    if tf_mode == "preint1d":
+        if pre.ndim != 2 or pre.shape[1] != 4 or pre.shape[0] < 2:
+            raise ValueError("preint1d: tf_pre must be (Rp >= 2, 4)")
+        return torch.cat([t, pre], dim=0), t.shape[0], pre.shape[0]
+    if pre.ndim != 3 or pre.shape[0] != pre.shape[1] or pre.shape[2] != 4:
+        raise ValueError("preint2d: tf_pre must be (R2, R2, 4)")
+    r2 = pre.shape[0]
+    return pre.reshape(r2 * r2, 4), r2, r2
+
+
+def _one_hot_chunk(n_cols: int) -> int:
+    """Samples a chunk of a one-hot reduction takes (~256 MB of float32
+    weights)."""
+    return max(1, (1 << 26) // max(1, n_cols))
+
+
+class _LerpRows(torch.autograd.Function):
+    """table[lo] (1 - f) + table[hi] f for samples (N,): the forward reads
+    the two rows, the table's gradient is the product of the samples'
+    one-hot interpolation weights with their cotangents, in chunks (a
+    reduction over the samples, as the TPU kernel contracts it: a
+    gather's backward adds millions of samples one by one into a few
+    rows, and that float32 sum drifts)."""
+
+    @staticmethod
+    def forward(ctx, table, lo, hi, f):
+        ctx.save_for_backward(table, lo, hi, f)
+        return table[lo] * (1.0 - f)[:, None] + table[hi] * f[:, None]
+
+    @staticmethod
+    def backward(ctx, dv):
+        table, lo, hi, f = ctx.saved_tensors
+        d_table = d_f = None
+        if ctx.needs_input_grad[3]:
+            d_f = ((table[hi] - table[lo]) * dv).sum(dim=1)
+        if ctx.needs_input_grad[0]:
+            r = table.shape[0]
+            d_table = torch.zeros_like(table)
+            step = _one_hot_chunk(r)
+            for a in range(0, lo.shape[0], step):
+                sl = slice(a, a + step)
+                w = (F.one_hot(lo[sl], r).to(dv.dtype) * (1.0 - f[sl])[:, None]
+                     + F.one_hot(hi[sl], r).to(dv.dtype) * f[sl][:, None])
+                d_table += w.T @ dv[sl]
+        return d_table, None, None, d_f
+
+
+class _Cell(torch.autograd.Function):
+    """Row i * r2 + j of ``table`` (r2 * r2, C) for samples (N,): the
+    forward reads the cell, the table's gradient is the product of the
+    samples' front one-hots with their back one-hots times the
+    cotangents, in chunks."""
+
+    @staticmethod
+    def forward(ctx, table, i, j, r2):
+        ctx.save_for_backward(i, j)
+        ctx.r2 = r2
+        return table[i * r2 + j]
+
+    @staticmethod
+    def backward(ctx, dv):
+        i, j = ctx.saved_tensors
+        r2, c = ctx.r2, dv.shape[1]
+        d_table = dv.new_zeros(r2, r2 * c)
+        step = _one_hot_chunk(r2 * (c + 2))
+        for a in range(0, i.shape[0], step):
+            sl = slice(a, a + step)
+            back = F.one_hot(j[sl], r2).to(dv.dtype)[:, :, None] \
+                * dv[sl][:, None, :]
+            d_table += F.one_hot(i[sl], r2).to(dv.dtype).T @ back.reshape(
+                -1, r2 * c)
+        return d_table.reshape(r2 * r2, c), None, None, None
+
+
+def _lut(table: Tensor, s: Tensor, r: int, convention: str) -> Tensor:
+    """The lerped lookup of the JAX package's ``_lut4`` on rows (r, C) at
+    s (...,): "texture" reads x = s r - 0.5 with clamped ends, "cumulative"
+    x = clip(s, 0, 1) (r - 1) (the clip's gradient strictly inside).
+    Returns (..., C); gradients to the table and to s (the lerp's
+    slope)."""
+    flat = s.reshape(-1)
+    if convention == "texture":
+        x = flat * float(r) - 0.5
+        i0 = torch.floor(x)
+        f = x - i0
+        lo = torch.clamp(i0, 0, r - 1)
+        hi = torch.clamp(i0 + 1.0, 0, r - 1)
+    else:
+        x = _gated_clip01(flat) * float(r - 1)
+        lo = torch.clamp(torch.floor(x), 0, r - 2)
+        f = x - lo
+        hi = lo + 1.0
+    out = _LerpRows.apply(table, lo.detach().long(), hi.detach().long(), f)
+    return out.reshape(s.shape + (table.shape[1],))
+
+
+def tf_shade(spec, table: Tensor, density2: Tensor,
+             prev_in: Optional[Tensor] = None,
+             first: Optional[Tensor] = None):
+    """(rgb (..., seg, 3), absorption (..., seg)) of a segment's density
+    samples in ``spec.tf_mode`` (texture, preint1d, preint2d, gaussian),
+    from their normalized densities ``density2`` (..., seg) (unclipped),
+    branch by branch as the JAX package's ``_march_epilogue`` and its
+    adjoint: texture and Gaussian absorptions are scaled by the stepsize,
+    the preintegrated ones are opacities already. The preintegrating modes
+    read each sample's previous density: the one before it in the
+    segment, ``prev_in`` (...,) for the first (-1: none), and -1 where
+    ``first`` marks a ray's first lattice sample. preint1d takes it
+    unclipped (a negative one is none), preint2d clipped."""
+    mode = spec.tf_mode
+    h = torch.tensor(spec.stepsize, dtype=torch.float32,
+                     device=density2.device)
+    r, rp = spec.tf_points, spec.tf_pre_rows
+    d = _gated_clip01(density2)
+    if mode == "gaussian":
+        mu, sg = table[:, 4], table[:, 5]
+        wg = torch.exp(-((d[..., None] - mu) ** 2) / (sg * sg))
+        rgba = wg @ table[:, :4]
+        return rgba[..., :3], rgba[..., 3] * h
+    if mode == "texture":
+        plain = _lut(table[:r], d, r, "texture")
+        return plain[..., :3], plain[..., 3] * h
+    prev = torch.cat([prev_in[..., None], density2[..., :-1]], dim=-1)
+    if first is not None:
+        prev = torch.where(first, torch.full_like(prev, -1.0), prev)
+    one = torch.ones_like(d)
+    if mode == "preint2d":
+        # nearest cell: no gradient reaches the densities (the JAX
+        # package's adjoint, as autodiff of its oracle gives)
+        dd = d.detach()
+        pe = torch.where(prev < 0, dd, torch.clamp(prev.detach(), 0.0, 1.0))
+        i = torch.clamp(torch.floor(pe * float(r)), max=float(r - 1)).long()
+        j = torch.clamp(torch.floor(dd * float(r)), max=float(r - 1)).long()
+        v = _Cell.apply(table, i.reshape(-1), j.reshape(-1), r).reshape(
+            d.shape + (4,))
+        w = v[..., 3]
+        inv = torch.where(w > 1e-5, 1.0 / torch.clamp(w, min=1e-5), one)
+        return v[..., :3] * inv[..., None], w
+    if mode != "preint1d":
+        raise ValueError(f"unknown tf_mode {mode!r}")
+    plain = _lut(table[:r], d, r, "texture")
+    prev_eff = torch.where(prev < 0, d, prev)
+    vsf = _lut(table[r:r + rp], prev_eff, rp, "cumulative")
+    vsb = _lut(table[r:r + rp], d, rp, "cumulative")
+    denom = d - prev_eff
+    near = torch.abs(denom) < 1e-3
+    safe = torch.where(near, one, denom)
+    rgb_p = h * (vsb[..., :3] - vsf[..., :3]) / safe[..., None]
+    alpha_p = 1.0 - torch.exp(-h * (vsb[..., 3] - vsf[..., 3]) / safe)
+    inv_a = torch.where(alpha_p > 1e-5,
+                        1.0 / torch.clamp(alpha_p, min=1e-5), one)
+    rgb = torch.where(near[..., None], plain[..., :3],
+                      rgb_p * inv_a[..., None])
+    return rgb, torch.where(near, plain[..., 3] * h, alpha_p)
+
+
+def carry_width(spec) -> int:
+    """Floats of a ray's carry: rgba, and the last normalized density for
+    the TF modes (-1 before the first sample)."""
+    return 4 if spec.tf_mode == "piecewise" else 5
+
+
+def initial_carry(spec, shape, device) -> Tensor:
+    carry = torch.zeros(tuple(shape) + (carry_width(spec),),
+                        dtype=torch.float32, device=device)
+    if carry.shape[-1] == 5:
+        carry[..., 4] = -1.0
+    return carry
+
+
 def _plain_segment(spec, params, rays, kbase, s, carry):
-    """Segment ``s`` of the rays (n, 8) from their ``carry`` (n, 4).
-    Returns (carry, samples evaluated). Differentiable in ``params`` and
-    ``carry`` with the TPU kernel's gradient: a sample that absorbs
-    nothing passes none."""
+    """Segment ``s`` of the rays (n, 8) from their ``carry`` (n, 4), or
+    (n, 5) with the last density in the TF modes. Returns (carry, samples
+    evaluated). Differentiable in ``params`` and ``carry`` with the TPU
+    kernel's gradient: a sample that absorbs nothing passes none."""
     dev = rays.device
     h = torch.tensor(spec.stepsize, dtype=torch.float32, device=dev)
     k = (float(s * spec.seg)
@@ -541,14 +769,22 @@ def _plain_segment(spec, params, rays, kbase, s, carry):
         carry[:, 0] = torch.where(hit, t_hit, carry[:, 0])
         carry[:, 3] = torch.where(hit, torch.ones_like(t_hit), carry[:, 3])
         return carry, n
+    prev_out = None
     if spec.output_mode.startswith("density"):
         v = vals[..., 0]
-        d = _gated_clip01((v - spec.density_min)
-                          * (1.0 / (spec.density_max - spec.density_min)))
-        rgba = _piecewise(params[0], d)
-        rgb, absn = rgba[..., :3], rgba[..., 3] * h
+        density2 = ((v - spec.density_min)
+                    * (1.0 / (spec.density_max - spec.density_min)))
+        if spec.tf_mode == "piecewise":
+            rgba = _piecewise(params[0], _gated_clip01(density2))
+            rgb, absn = rgba[..., :3], rgba[..., 3] * h
+        else:
+            rgb, absn = tf_shade(spec, params[0], density2, carry[:, 4],
+                                 (kk == a) if spec.lattice else None)
+            prev_out = density2[:, -1]
         require = valid & (v >= spec.density_min)
     else:
+        if spec.tf_mode != "piecewise":
+            prev_out = carry[:, 4]
         rgb, absn = vals[..., :3], vals[..., 3] * h
         require = valid
     absn = torch.where(require, absn, torch.zeros_like(absn))
@@ -562,7 +798,10 @@ def _plain_segment(spec, params, rays, kbase, s, carry):
         w = (1.0 - alpha) * ca[:, j]
         c = c + w[:, None] * rgb[:, j]
         alpha = alpha + (1.0 - alpha) * ca[:, j]
-    return torch.cat([c, alpha[:, None]], dim=1), valid.sum()
+    out = [c, alpha[:, None]]
+    if prev_out is not None:
+        out.append(prev_out[:, None])
+    return torch.cat(out, dim=1), valid.sum()
 
 
 def _plain_march(spec: SegmentSpec, params: list, rays: Tensor,
@@ -570,9 +809,10 @@ def _plain_march(spec: SegmentSpec, params: list, rays: Tensor,
     """The plain engine: (rgba (R, 4), SegmentStats, carries). Segment s
     runs while some ray of the call is alive at s; every ray whose segment
     start is still <= tmax composites it. With ``store`` ``carries`` is the
-    list of the (R, 4) carries entering each segment run, else None."""
+    list of the (R, 4) carries ((R, 5) in the TF modes) entering each
+    segment run, else None."""
     dev = rays.device
-    carry = torch.zeros(rays.shape[0], 4, dtype=torch.float32, device=dev)
+    carry = initial_carry(spec, (rays.shape[0],), dev)
     samples = torch.zeros((), dtype=torch.int64, device=dev)
     stop = 0
     chunk = max(1, _PLAIN_CHUNK_SAMPLES // spec.seg)
@@ -590,7 +830,7 @@ def _plain_march(spec: SegmentSpec, params: list, rays: Tensor,
                 kbase[idx] if kbase is not None else None, s, carry[idx])
             samples += n
     stats = SegmentStats(samples, torch.tensor(stop, dtype=torch.int64))
-    return carry, stats, carries
+    return carry[:, :4], stats, carries
 
 
 def _segment_done(spec: SegmentSpec, rays: Tensor, kbase, s: int) -> Tensor:
@@ -600,13 +840,6 @@ def _segment_done(spec: SegmentSpec, rays: Tensor, kbase, s: int) -> Tensor:
     t0 = ((kbase + float(s * spec.seg)) * spec.stepsize if spec.lattice
           else rays[:, 6] + s0)
     return t0 > rays[:, 7]
-
-
-def _tf_points(tf_tensor: Tensor, device) -> Tensor:
-    tf = tf_tensor.to(device=device, dtype=torch.float32)
-    if tf.ndim != 2 or tf.shape[1] != 5 or tf.shape[0] < 2:
-        raise ValueError("piecewise TF tensor must be (R >= 2, 5)")
-    return tf
 
 
 def fused_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
@@ -623,6 +856,7 @@ def fused_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
                           n_seg: Optional[int] = None,
                           need_normals: bool = False, iso_value=None,
                           tf_mode: str = "piecewise",
+                          tf_pre: Optional[Tensor] = None,
                           tmax_clip: Optional[Tensor] = None,
                           return_stats: bool = False, **tpu_schedule):
     """Plain PyTorch version of :func:`fused_trace_dvr`: the same
@@ -632,6 +866,8 @@ def fused_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
     gradient."""
     strict_f32()
     _tpu_schedule(tpu_schedule)
+    table, tf_points, tf_pre_rows = prepare_tf(tf_tensor, tf_mode, tf_pre,
+                                               ray_start.device)
     spec, rays, kbase = _segment_setup(
         ray_start, ray_dir, net, box_min, box_size, stepsize=stepsize,
         max_steps=max_steps, density_min=density_min,
@@ -640,9 +876,8 @@ def fused_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
         seg=seg, tile=tile, differentiable=differentiable,
         latent_mode=latent_mode, table_dtype=table_dtype, n_seg=n_seg,
         need_normals=need_normals, iso_value=iso_value, tf_mode=tf_mode,
-        tmax_clip=tmax_clip)
-    params = segment_params(net, _tf_points(tf_tensor, rays.device),
-                            table_dtype)
+        tmax_clip=tmax_clip, tf_points=tf_points, tf_pre_rows=tf_pre_rows)
+    params = segment_params(net, table, table_dtype)
     if differentiable:
         from .fused_dvr_bwd import _PlainSegmentMarch
         out, samples, stop = _PlainSegmentMarch.apply(rays, kbase, spec,
@@ -683,9 +918,12 @@ def kernel_width(net) -> int:
 
 
 def _check_kernel_inputs(net, tf: Tensor, seg: int = 32,
-                         differentiable: bool = False):
+                         differentiable: bool = False,
+                         tf_mode: str = "piecewise"):
     """What csrc/segment_fwd.cu (and, for gradients, segment_bwd.cu)
-    takes; the rest raises ``NotImplementedError``."""
+    takes for the TF table ``tf`` (``prepare_tf``'s) in ``tf_mode``; the
+    rest raises ``NotImplementedError``."""
+    from .sample_mlp import tf_floats_of
     kernel_width(net)
     if len(net.layers) - 2 > MAX_HIDDEN_LAYERS:
         raise NotImplementedError(f"segment kernel: at most "
@@ -697,9 +935,14 @@ def _check_kernel_inputs(net, tf: Tensor, seg: int = 32,
     if grid is not None and grid.shape[0] > MAX_LATENT_CHANNELS:
         raise NotImplementedError("segment kernel: at most "
                                   f"{MAX_LATENT_CHANNELS} latent channels")
-    if tf.shape[0] > MAX_TF_POINTS:
+    if tf_mode in ("piecewise", "gaussian") and tf.shape[0] > MAX_TF_POINTS:
         raise NotImplementedError(f"segment kernel: at most {MAX_TF_POINTS} "
-                                  "TF control points")
+                                  f"{tf_mode} TF points")
+    if tf_mode != "piecewise" and net.layers[0].activation != "SnakeAlt":
+        raise NotImplementedError(f"segment kernel: TF mode {tf_mode!r} "
+                                  "takes SnakeAlt networks only")
+    tf_floats = (5 * tf.shape[0] if tf_mode == "piecewise"
+                 else tf_floats_of(tf_mode, tf))
     if net.layers[0].activation not in _ACTIVATIONS:
         raise NotImplementedError(f"segment kernel: activation "
                                   f"{net.layers[0].activation}")
@@ -707,7 +950,7 @@ def _check_kernel_inputs(net, tf: Tensor, seg: int = 32,
     check_fwd_plan("segment kernel", kernel_width(net),
                    net.input.num_fourier, _latent_chunks(net),
                    len(net.layers) - 2, tf.shape[0],
-                   direction=bool(net.use_direction))
+                   direction=bool(net.use_direction), tf_floats=tf_floats)
     if differentiable and seg > MAX_BWD_SEG:
         raise NotImplementedError(f"segment backward kernel: seg <= "
                                   f"{MAX_BWD_SEG} only")
@@ -716,7 +959,8 @@ def _check_kernel_inputs(net, tf: Tensor, seg: int = 32,
         nf = net.input.num_fourier
         check_plan("segment backward kernel", kernel_width(net),
                    6 + 2 * nf + 16 * _latent_chunks(net),
-                   len(net.layers) - 2, nf, tf.shape[0])
+                   len(net.layers) - 2, nf, tf.shape[0], tf_floats,
+                   tf_mode != "piecewise")
 
 
 def _latent_chunks(net) -> int:
@@ -724,10 +968,12 @@ def _latent_chunks(net) -> int:
     return 0 if grid is None else -(-grid.shape[0] // 16)
 
 
-def pack_segment_weights(net, tf: Tensor) -> Tensor:
+def pack_segment_weights(net, tf: Tensor,
+                         tf_mode: str = "piecewise") -> Tensor:
     """The kernel's packed float32 weights (layout in
     csrc/segment_common.cuh, ``Wts``: matrices input-major), hidden width
-    zero-padded to :func:`kernel_width`."""
+    zero-padded to :func:`kernel_width`; the TF table last (the preint2d
+    table apart: the kernels read it as its own array)."""
     f32 = dict(dtype=torch.float32, device=tf.device)
     hp = kernel_width(net)
     fm = net.input.fourier_matrix
@@ -761,7 +1007,9 @@ def pack_segment_weights(net, tf: Tensor) -> Tensor:
     parts += [pad(l.weight.T, hp, hp) for l in hidden]
     parts += [pad(l.bias, hp) for l in hidden]
     parts += [pad(net.layers[-1].weight, 4, hp),
-              pad(net.layers[-1].bias, 4), b, bd, tf.detach()]
+              pad(net.layers[-1].bias, 4), b, bd]
+    if tf_mode != "preint2d":
+        parts.append(tf.detach())
     return torch.cat([p.reshape(-1) for p in parts]).contiguous()
 
 
@@ -787,22 +1035,26 @@ def _bind(lib: ctypes.CDLL):
     fn = lib.segment_fwd_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = ([p, p, p, i, p, i, p, p, p, p] + [i] * 10 + [f] + [i] * 5
-                   + [f] + [i, i] + [f] * 4 + [f] * 6 + [i, p])
+                   + [f] + [i, i] + [f] * 4 + [f] * 6 + [i] * 4
+                   + [p, p, p, p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def device_fwd_plan(hidden: int, n_fourier: int, chunks: int,
-                    n_hidden: int, tf_points: int, direction: bool = False):
+                    n_hidden: int, tf_points: int, direction: bool = False,
+                    tf_floats: Optional[int] = None):
     """(bytes, warps a block, matrices pre-split) of the shared-memory
-    plan csrc/segment_fwd.cu takes for these widths, or None when none
-    fits (the device's own ``choose_fwd_plan``; ``ops.sample_mlp.fwd_plan``
-    mirrors it)."""
+    plan csrc/segment_fwd.cu takes for these widths (``tf_floats`` staged
+    TF floats, 5 a piecewise knot by default), or None when none fits (the
+    device's own ``choose_fwd_plan``; ``ops.sample_mlp.fwd_plan`` mirrors
+    it)."""
     fn = _build.load("segment_fwd").segment_fwd_smem
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_long * 3)()
-    if fn(hidden, n_fourier, chunks, n_hidden, tf_points, int(direction),
+    if fn(hidden, n_fourier, chunks, n_hidden,
+          5 * tf_points if tf_floats is None else tf_floats, int(direction),
           out) != 0:
         return None
     return int(out[0]), int(out[1]), bool(out[2])
@@ -818,25 +1070,35 @@ def _check_tensors(dev, **tensors):
 
 def launch_segment(spec: SegmentSpec, net, rays: Tensor,
                    kbase: Optional[Tensor], weights: Tensor, table: Tensor,
-                   tf_points: int, store_carries: bool = False):
+                   tf_points: int, store_carries: bool = False,
+                   tf: Optional[Tensor] = None):
     """Launch csrc/segment_fwd.cu: the march, then the continuation up to
     the call's stop; with ``store_carries`` (a march with no early-out)
-    the march alone, storing the carries. Returns (rgba (R, 4),
-    SegmentStats, carries (n_seg, R, 4) or None, death (R,) int32: the
-    segments each ray ran)."""
+    the march alone, storing the carries. ``tf``: the TF modes' table
+    (``prepare_tf``'s). Returns (rgba (R, 4), SegmentStats, carries
+    (n_seg, R, 4), with the last densities (n_seg, R) a
+    ``fused_mega.TfCarries`` in the TF modes, or None; death (R,) int32:
+    the segments each ray ran)."""
     global SEGMENT_LAUNCHES
     dev = rays.device
     n_rays = rays.shape[0]
     out = torch.empty(n_rays, 4, dtype=torch.float32, device=dev)
     death = torch.empty(n_rays, dtype=torch.int32, device=dev)
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
-    carries = None
+    carries = dens_carries = dens = None
+    tfm = spec.tf_mode != "piecewise"
+    if tfm:
+        dens = torch.empty(n_rays, dtype=torch.float32, device=dev)
+        _check_tensors(dev, tf=tf)
     if store_carries:
         if spec.early_alpha < 1.5:
             raise ValueError("carries are stored by a march with no "
                              "early-out")
         carries = torch.empty(spec.n_seg, n_rays, 4, dtype=torch.float32,
                               device=dev)
+        if tfm:
+            dens_carries = torch.empty(spec.n_seg, n_rays,
+                                       dtype=torch.float32, device=dev)
     _check_tensors(dev, rays=rays, weights=weights, table=table)
     if spec.lattice:
         _check_tensors(dev, kbase=kbase)
@@ -845,6 +1107,7 @@ def launch_segment(spec: SegmentSpec, net, rays: Tensor,
         raise ValueError("float32 weights and a bf16 or float32 table")
     gz, gy, gx = table.shape[:3]
     nf = net.input.num_fourier
+    rows, *tf_args = _tf_args(spec, tf, tf_points)
     fn = _bind(_build.load("segment_fwd"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -856,7 +1119,7 @@ def launch_segment(spec: SegmentSpec, net, rays: Tensor,
                 death.data_ptr(), stats.data_ptr(),
                 carries.data_ptr() if carries is not None else None, n_rays,
                 gx, gy, gz, _latent_chunks(net), nf, len(net.layers) - 2,
-                kernel_width(net), tf_points,
+                kernel_width(net), rows,
                 _ACTIVATIONS[spec.activation[0]], spec.activation[1],
                 _HEADS[spec.output_mode], int(net.use_direction),
                 int(spec.lattice), int(spec.blend_alpha),
@@ -865,12 +1128,16 @@ def launch_segment(spec: SegmentSpec, net, rays: Tensor,
                 spec.n_seg, spec.stepsize, spec.density_min,
                 1.0 / (spec.density_max - spec.density_min),
                 spec.early_alpha, *spec.box_min, *spec.box_size, phase,
-                stream)
+                *tf_args, dens.data_ptr() if dens is not None else None,
+                (dens_carries.data_ptr() if dens_carries is not None
+                 else None), stream)
             if err != 0:
                 raise RuntimeError(f"segment_fwd launch (phase {phase}) "
                                    f"failed with CUDA error {err}")
             if not store_carries:
                 SEGMENT_LAUNCHES += 1
+    if dens_carries is not None:
+        carries = TfCarries(carries, dens_carries)
     return out, SegmentStats(stats[1], stats[0]), carries, death
 
 
@@ -886,6 +1153,7 @@ def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                     table_dtype: torch.dtype = torch.float32,
                     n_seg: Optional[int] = None, need_normals: bool = False,
                     iso_value=None, tf_mode: str = "piecewise",
+                    tf_pre: Optional[Tensor] = None,
                     tmax_clip: Optional[Tensor] = None,
                     return_stats: bool = False, **tpu_schedule):
     """The per-segment fused march (see the module doc) of rays (R, 3),
@@ -895,8 +1163,10 @@ def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
     ``differentiable`` the result carries gradients to the network's
     parameters and to ``tf_tensor`` (float32 table, no early-out: every
     segment runs); the rays get none, as from the JAX package's custom
-    VJP. ``segment_remat``/``stash_backward`` are accepted and ignored
-    (:func:`_tpu_schedule`). Returns rgba (R, 4), and
+    VJP. ``tf_mode`` (:data:`TF_MODES`) and ``tf_pre`` choose the TF as
+    in the JAX package (:func:`prepare_tf`); the gradient reaches
+    ``tf_pre`` too. ``segment_remat``/``stash_backward`` are accepted and
+    ignored (:func:`_tpu_schedule`). Returns rgba (R, 4), and
     :class:`SegmentStats` with ``return_stats``."""
     kw = dict(stepsize=stepsize, max_steps=max_steps,
               density_min=density_min, density_max=density_max,
@@ -908,16 +1178,25 @@ def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
               tf_mode=tf_mode, tmax_clip=tmax_clip)
     if ray_start.device.type == "cpu":
         return fused_trace_dvr_plain(ray_start, ray_dir, net, box_min,
-                                     box_size, tf_tensor,
+                                     box_size, tf_tensor, tf_pre=tf_pre,
                                      return_stats=return_stats, **kw,
                                      **tpu_schedule)
     if ray_start.device.type != "cuda":
         raise ValueError(f"unsupported device {ray_start.device}")
     _tpu_schedule(tpu_schedule)
+    tf, tf_points, tf_pre_rows = prepare_tf(tf_tensor, tf_mode, tf_pre,
+                                            ray_start.device)
+    if not net.output_mode.startswith("density") and tf_mode != "piecewise":
+        # the rgbo heads read no TF: the piecewise instance, a dummy TF
+        tf_mode, tf_points, tf_pre_rows = "piecewise", 2, 0
+        tf = torch.tensor([[0.0] * 5, [0.0, 0.0, 0.0, 0.0, 1.0]],
+                          device=ray_start.device)
+        kw["tf_mode"] = "piecewise"
     spec, rays, kbase = _segment_setup(ray_start, ray_dir, net, box_min,
-                                       box_size, **kw)
-    tf = _tf_points(tf_tensor, rays.device)
-    _check_kernel_inputs(net, tf, seg, differentiable)
+                                       box_size, **kw, tf_points=tf_points,
+                                       tf_pre_rows=tf_pre_rows)
+    _check_kernel_inputs(net, tf, seg, differentiable, tf_mode)
+    tfk = tf.detach().contiguous() if tf_mode != "piecewise" else None
     if differentiable:
         from .fused_dvr_bwd import _SegmentKernelMarch
         out, samples, stop = _SegmentKernelMarch.apply(
@@ -926,8 +1205,10 @@ def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
     else:
         with torch.no_grad():
             out, stats, _, _ = launch_segment(
-                spec, net, rays, kbase, pack_segment_weights(net, tf),
-                segment_table(net, table_dtype, rays.device), tf.shape[0])
+                spec, net, rays, kbase,
+                pack_segment_weights(net, tf, tf_mode),
+                segment_table(net, table_dtype, rays.device), tf.shape[0],
+                tf=tfk)
     return (out, stats) if return_stats else out
 
 

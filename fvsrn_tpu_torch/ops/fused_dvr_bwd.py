@@ -48,8 +48,9 @@ from . import _build
 from .fused_dvr import (_ACTIVATIONS, _HEADS, _PLAIN_CHUNK_SAMPLES,
                         SegmentSpec, _check_tensors, _latent_chunks,
                         _plain_march, _plain_segment, _segment_done,
-                        kernel_width, launch_segment, pack_segment_weights,
-                        segment_table)
+                        carry_width, kernel_width, launch_segment,
+                        pack_segment_weights, segment_table)
+from .fused_mega import TfCarries, _tf_args
 
 # kernel launches since the last reset (the plain version never counts):
 # the differentiable forward (csrc/segment_fwd.cu storing carries) and
@@ -71,7 +72,9 @@ def _plain_backward(spec: SegmentSpec, rays: Tensor, kbase: Optional[Tensor],
               for p in params]
     grads = [None if p is None else torch.zeros_like(p) for p in params]
     used = [i for i, p in enumerate(leaves) if p is not None]
-    dcarry = d_out.to(torch.float32).clone()
+    dcarry = torch.zeros(d_out.shape[0], carries.shape[-1],
+                         dtype=torch.float32, device=d_out.device)
+    dcarry[:, :4] = d_out
     chunk = max(1, _PLAIN_CHUNK_SAMPLES // spec.seg)
     for s in reversed(range(carries.shape[0])):
         live = ~_segment_done(spec, rays, kbase, s)
@@ -101,7 +104,7 @@ class _PlainSegmentMarch(torch.autograd.Function):
         out, stats, carries = _plain_march(spec, list(params), rays, kbase,
                                            store=True)
         stack = (torch.stack(carries) if carries
-                 else out.new_zeros(0, rays.shape[0], 4))
+                 else out.new_zeros(0, rays.shape[0], carry_width(spec)))
         ctx.spec = spec
         ctx.save_for_backward(rays, kbase, stack, *params)
         ctx.mark_non_differentiable(stats.samples, stats.stop)
@@ -122,24 +125,29 @@ def _bind_bwd(lib: ctypes.CDLL):
     fn = lib.segment_bwd_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = ([p, p, p, p, i, p, p, p, p, p, p] + [i] * 11 + [f]
-                   + [i] * 6 + [f] * 3 + [f] * 6 + [p])
+                   + [i] * 6 + [f] * 3 + [f] * 6 + [i] * 3 + [p] * 4)
     fn.restype = ctypes.c_int
     lib.segment_bwd_block.restype = ctypes.c_int
     return fn
 
 
 def device_smem_plan(hidden: int, n_fourier: int, chunks: int,
-                     n_hidden: int, tf_points: int):
+                     n_hidden: int, tf_points: int,
+                     tf_floats: Optional[int] = None,
+                     tf_state: bool = False):
     """(bytes, tile rows, weight-row padding) of the shared-memory plan
-    csrc/segment_bwd.cu takes for these widths, or None when none fits
-    (the device's own ``choose_plan``; ``ops.sample_mlp.smem_plan``
-    mirrors it)."""
+    csrc/segment_bwd.cu takes for these widths (``tf_floats`` staged TF
+    floats, 5 a piecewise knot by default; ``tf_state`` the TF modes'
+    per-sample state), or None when none fits (the device's own
+    ``choose_plan``; ``ops.sample_mlp.smem_plan`` mirrors it)."""
     lib = _build.load("segment_bwd")
     fn = lib.segment_bwd_smem
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_long * 3)()
-    if fn(hidden, n_fourier, chunks, n_hidden, tf_points, out) != 0:
+    if fn(hidden, n_fourier, chunks, n_hidden,
+          5 * tf_points if tf_floats is None else tf_floats, int(tf_state),
+          out) != 0:
         return None
     return tuple(int(v) for v in out)
 
@@ -149,17 +157,27 @@ def launch_segment_bwd(spec: SegmentSpec, net, rays: Tensor,
                        table: Tensor, carries: Tensor, death: Tensor,
                        d_out: Tensor, tf_points: int,
                        partial_rows: bool = False,
-                       n_lat: Optional[int] = None):
-    """Launch csrc/segment_bwd.cu on the forward's ``carries`` and
+                       n_lat: Optional[int] = None,
+                       tf: Optional[Tensor] = None,
+                       d_tf2d: Optional[Tensor] = None):
+    """Launch csrc/segment_bwd.cu on the forward's ``carries`` (a
+    ``fused_mega.TfCarries`` in the TF modes, whose table ``tf`` is) and
     ``death``. Returns (packed weight gradient summed over the blocks'
     partial rows, or with ``partial_rows`` the rows themselves, float32
     table gradient (D, H, W, 16 * chunks), [samples replayed, samples
-    contributing] int64). ``n_lat`` overrides the latent channels whose
-    gradient is scattered (0: none, to time the kernel without its
-    scatter)."""
+    contributing] int64). preint2d adds its table's gradient into
+    ``d_tf2d`` (zeros like ``tf``). ``n_lat`` overrides the latent
+    channels whose gradient is scattered (0: none, to time the kernel
+    without its scatter)."""
     dev = rays.device
     n_rays = rays.shape[0]
     d_out = d_out.to(torch.float32).contiguous()
+    dens = None
+    if isinstance(carries, TfCarries):
+        carries, dens = carries
+    if (spec.tf_mode == "preint2d") != (d_tf2d is not None):
+        raise ValueError("d_tf2d takes the gradient of a preint2d table")
+    rows, *tf_args = _tf_args(spec, tf, tf_points)
     _check_tensors(dev, rays=rays, weights=weights, table=table,
                    carries=carries, death=death, d_out=d_out)
     if spec.lattice:
@@ -184,23 +202,28 @@ def launch_segment_bwd(spec: SegmentSpec, net, rays: Tensor,
             gx, gy, gz, _latent_chunks(net),
             (0 if grid is None else grid.shape[0]) if n_lat is None
             else n_lat, net.input.num_fourier,
-            len(net.layers) - 2, kernel_width(net), tf_points,
+            len(net.layers) - 2, kernel_width(net), rows,
             _ACTIVATIONS[spec.activation[0]], spec.activation[1],
             _HEADS[spec.output_mode], int(net.use_direction),
             int(spec.lattice), int(spec.blend_alpha), spec.seg, spec.n_seg,
             spec.stepsize, spec.density_min,
             1.0 / (spec.density_max - spec.density_min), *spec.box_min,
-            *spec.box_size, torch.cuda.current_stream(dev).cuda_stream)
+            *spec.box_size, *tf_args,
+            d_tf2d.data_ptr() if d_tf2d is not None else None,
+            dens.data_ptr() if dens is not None else None,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_bwd launch failed with CUDA error {err}")
     return (d_rows if partial_rows else d_rows.sum(dim=0)), d_table, work
 
 
-def unpack_segment_grads(dw: Tensor, net, params: list) -> list:
+def unpack_segment_grads(dw: Tensor, net, params: list,
+                         d_tf2d: Optional[Tensor] = None) -> list:
     """Per-parameter gradients, in ``params``' order (TF, Fourier matrix,
     latent grid (None: the table gradient comes apart), each layer's
     weight and bias), from the packed gradient ``dw`` (the layout of
-    :func:`ops.fused_dvr.pack_segment_weights`). What lies in the zero
+    :func:`ops.fused_dvr.pack_segment_weights`; the preint2d table's is
+    ``d_tf2d``). What lies in the zero
     padding up to the kernel width (and in the direction rows of a
     network without direction input) is dropped."""
     hp = kernel_width(net)
@@ -209,7 +232,7 @@ def unpack_segment_grads(dw: Tensor, net, params: list) -> list:
     k1 = 6 + 2 * nf + 16 * _latent_chunks(net)
     tf = params[0]
     sizes = [k1 * hp, hp, n_hidden * hp * hp, n_hidden * hp, 4 * hp, 4,
-             3 * nf, 3 * nf, tf.numel()]
+             3 * nf, 3 * nf, 0 if d_tf2d is not None else tf.numel()]
     w1, b1, wh, bh, wo, bo, fb, fbd, dtf = dw.split(sizes)
     w1 = w1.reshape(k1, hp)
     wh = wh.reshape(n_hidden, hp, hp)
@@ -228,7 +251,8 @@ def unpack_segment_grads(dw: Tensor, net, params: list) -> list:
     d_fm = fb.reshape(nf, 3)
     if fm.shape[1] == 6:
         d_fm = torch.cat([d_fm, fbd.reshape(nf, 3)], dim=1)
-    return [dtf.reshape(tf.shape), d_fm, None] + d_layers
+    d_tf = (d_tf2d if d_tf2d is not None else dtf).reshape(tf.shape)
+    return [d_tf, d_fm, None] + d_layers
 
 
 class _SegmentKernelMarch(torch.autograd.Function):
@@ -240,30 +264,39 @@ class _SegmentKernelMarch(torch.autograd.Function):
     def forward(ctx, rays, kbase, spec, net, *params):
         global SEGMENT_DIFF_LAUNCHES
         tf = params[0]
-        weights = pack_segment_weights(net, tf)
+        tfk = (tf.detach().contiguous() if spec.tf_mode != "piecewise"
+               else None)
+        weights = pack_segment_weights(net, tf, spec.tf_mode)
         table = segment_table(net, torch.float32, rays.device)
         out, stats, carries, death = launch_segment(
             spec, net, rays, kbase, weights, table, tf.shape[0],
-            store_carries=True)
+            store_carries=True, tf=tfk)
         SEGMENT_DIFF_LAUNCHES += 1
         ctx.spec = spec
         ctx.net = net
-        ctx.save_for_backward(rays, kbase, weights, table, carries, death,
-                              *params)
+        dens = None
+        if isinstance(carries, TfCarries):
+            carries, dens = carries
+        ctx.save_for_backward(rays, kbase, weights, table, carries, dens,
+                              tfk, death, *params)
         ctx.mark_non_differentiable(stats.samples, stats.stop)
         return out, stats.samples, stats.stop
 
     @staticmethod
     def backward(ctx, d_out, _d_samples, _d_stop):
         global SEGMENT_BWD_LAUNCHES
-        rays, kbase, weights, table, carries, death, *params = \
+        rays, kbase, weights, table, carries, dens, tfk, death, *params = \
             ctx.saved_tensors
         net = ctx.net
+        if dens is not None:
+            carries = TfCarries(carries, dens)
+        d_tf2d = (torch.zeros_like(tfk) if ctx.spec.tf_mode == "preint2d"
+                  else None)
         dw, d_table, _ = launch_segment_bwd(
             ctx.spec, net, rays, kbase, weights, table, carries, death,
-            d_out, params[0].shape[0])
+            d_out, params[0].shape[0], tf=tfk, d_tf2d=d_tf2d)
         SEGMENT_BWD_LAUNCHES += 1
-        grads = unpack_segment_grads(dw, net, params)
+        grads = unpack_segment_grads(dw, net, params, d_tf2d)
         if params[2] is not None:
             c = params[2].shape[0]
             grads[2] = d_table[..., :c].permute(3, 0, 1, 2).contiguous()

@@ -23,7 +23,9 @@ start; and, with a ``segment_active`` mask (TF-aware empty-space culling,
 ``ops/occupancy.py``), where the mask keeps the (tile, segment).
 Each live sample: trilinear latent fetch (bf16 table for the render,
 float32 for training), Fourier features, the MLP in float32, the density
-head, the piecewise-linear TF, Beer-Lambert "over".
+head, the TF (piecewise-linear, texture, 1D- or 2D-preintegrated,
+Gaussians: ``tf_mode``, as ``ops.fused_dvr.prepare_tf`` packs it),
+Beer-Lambert "over".
 
 The gradient is that of the TPU kernel's adjoint, which fixes the
 subgradients at the clips: a sample that absorbs nothing passes no
@@ -89,6 +91,9 @@ class MarchSpec(NamedTuple):
     box_size: tuple
     activations: tuple          # (name, param) of every layer
     output_mode: str
+    tf_mode: str = "piecewise"  # ops.fused_dvr.TF_MODES
+    tf_points: int = 0          # ops.fused_dvr.prepare_tf's tf_points,
+    tf_pre_rows: int = 0        # tf_pre_rows
 
 
 def ray_packet(ray_start: Tensor, ray_dir: Tensor, box_min, box_size,
@@ -115,13 +120,6 @@ def ray_packet(ray_start: Tensor, ray_dir: Tensor, box_min, box_size,
     return torch.cat([rs, rd, k0, tmax], dim=1).contiguous()
 
 
-def _tf_points(tf_tensor: Tensor) -> Tensor:
-    tf = tf_tensor.to(torch.float32)
-    if tf.ndim != 2 or tf.shape[1] != 5 or tf.shape[0] < 2:
-        raise ValueError("piecewise TF tensor must be (R >= 2, 5)")
-    return tf
-
-
 def _check_network(net: SceneRepresentationNetwork):
     if not net.output_mode.startswith("density"):
         raise NotImplementedError("fused march: density output modes only")
@@ -134,7 +132,8 @@ def _check_network(net: SceneRepresentationNetwork):
 
 def _spec(net, box_min, box_size, *, stepsize, seg, tile, density_min,
           density_max, enable_early_out,
-          alpha_early_out=EARLY_ALPHA) -> MarchSpec:
+          alpha_early_out=EARLY_ALPHA, tf_mode="piecewise", tf_points=0,
+          tf_pre_rows=0) -> MarchSpec:
     return MarchSpec(
         stepsize=float(stepsize), seg=int(seg), tile=int(tile),
         density_min=float(density_min), density_max=float(density_max),
@@ -143,7 +142,8 @@ def _spec(net, box_min, box_size, *, stepsize, seg, tile, density_min,
         box_size=tuple(float(v) for v in box_size),
         activations=tuple((l.activation, l.activation_param)
                           for l in net.layers),
-        output_mode=net.output_mode)
+        output_mode=net.output_mode, tf_mode=tf_mode,
+        tf_points=int(tf_points), tf_pre_rows=int(tf_pre_rows))
 
 
 def _params(net: SceneRepresentationNetwork, tf: Tensor) -> list:
@@ -169,12 +169,16 @@ def _gated_clip01(x: Tensor) -> Tensor:
                        torch.where(x >= 1.0, torch.ones_like(x), x))
 
 
-def _shade(spec: MarchSpec, params: list, pos01: Tensor, valid: Tensor):
-    """(rgb, ca) of samples at ``pos01`` (..., 3): the network (latent
-    fetch from the grid), the density head, the piecewise TF with its
-    interior-knot interval choice, Beer-Lambert alpha. Samples that do
-    not count absorb nothing; samples that absorb nothing pass no
-    gradient."""
+def _shade(spec: MarchSpec, params: list, pos01: Tensor, valid: Tensor,
+           prev_in: Optional[Tensor] = None, first: Optional[Tensor] = None):
+    """(rgb, ca, last density) of samples at ``pos01`` (..., seg, 3): the
+    network (latent fetch from the grid), the density head, the TF (the
+    piecewise TF with its interior-knot interval choice, or the other
+    modes by ``ops.fused_dvr.tf_shade``, whose preintegrating modes read
+    ``prev_in`` and ``first``), Beer-Lambert alpha. Samples that do not
+    count absorb nothing; samples that absorb nothing pass no gradient.
+    The last density (the segment's last sample's, normalized) is None
+    for the piecewise TF."""
     tf, fourier, grid = params[0], params[1], params[2]
     layers = params[3:]
     x = pos01.reshape(-1, 3)
@@ -198,6 +202,15 @@ def _shade(spec: MarchSpec, params: list, pos01: Tensor, valid: Tensor):
     h = spec.stepsize
     density2 = ((value - spec.density_min)
                 * (1.0 / (spec.density_max - spec.density_min)))
+    if spec.tf_mode != "piecewise":
+        from .fused_dvr import tf_shade
+        rgb, absn = tf_shade(spec, tf, density2, prev_in, first)
+        require = valid & (value >= spec.density_min)
+        absn = torch.where(require, absn, torch.zeros_like(absn))
+        ca = 1.0 - torch.exp(-absn)
+        contrib = require & (absn > 0)
+        return (torch.where(contrib[..., None], rgb, rgb.detach()),
+                torch.where(contrib, ca, ca.detach()), density2[..., -1])
     d = _gated_clip01(density2)
     iv = torch.zeros_like(d, dtype=torch.int64)
     for q in range(1, tf.shape[0] - 1):
@@ -218,7 +231,7 @@ def _shade(spec: MarchSpec, params: list, pos01: Tensor, valid: Tensor):
     contrib = require & (absn > 0)
     rgb = rgba[..., :3]
     return (torch.where(contrib[..., None], rgb, rgb.detach()),
-            torch.where(contrib, ca, ca.detach()))
+            torch.where(contrib, ca, ca.detach()), None)
 
 
 def _tile_geometry(rays: Tensor, tile: int):
@@ -272,8 +285,9 @@ def _segment_state(spec, k0r, tmx, k0t, s):
 
 def _segment(spec, params, packet, k0t, s, carry):
     """March segment ``s`` of the tiles in ``packet`` (n, tile, 8) from
-    their incoming ``carry`` (n, tile, 4). Returns (outgoing carry,
-    samples evaluated per tile)."""
+    their incoming ``carry`` (n, tile, 4), or (n, tile, 5) with the last
+    density in the TF modes (a ray's first lattice point reads none).
+    Returns (outgoing carry, samples evaluated per tile)."""
     h = spec.stepsize
     dev = packet.device
     bmin = torch.tensor(spec.box_min, dtype=torch.float32, device=dev)
@@ -284,13 +298,17 @@ def _segment(spec, params, packet, k0t, s, carry):
     valid = ((k * h <= packet[..., 7:8]) & (k >= packet[..., 6:7]))
     p = packet[:, :, None, :]
     pos01 = (p[..., 0:3] + (k * h)[..., None] * p[..., 3:6] - bmin) / bsize
-    color, ca = _shade(spec, params, pos01, valid)
+    tfm = spec.tf_mode != "piecewise"
+    color, ca, last = _shade(spec, params, pos01, valid,
+                             carry[..., 4] if tfm else None,
+                             k == packet[..., 6:7] if tfm else None)
     c, a = carry[..., :3], carry[..., 3]
     for j in range(spec.seg):          # front-to-back "over"
         w = (1.0 - a) * ca[..., j]
         c = c + w[..., None] * color[..., j, :]
         a = a + (1.0 - a) * ca[..., j]
-    return torch.cat([c, a[..., None]], dim=-1), valid.sum(dim=(1, 2))
+    out = [c, a[..., None]] + ([last[..., None]] if tfm else [])
+    return torch.cat(out, dim=-1), valid.sum(dim=(1, 2))
 
 
 def _chunks(idx: Tensor, spec: MarchSpec):
@@ -300,12 +318,15 @@ def _chunks(idx: Tensor, spec: MarchSpec):
 def _plain_march(spec: MarchSpec, rays: Tensor, params: list, *,
                  store: bool = False, mask: Optional[Tensor] = None):
     """The plain forward: (rgba (R, 4), samples per tile, carries
-    (T, S, tile, 4) or None, segments visited per tile or None)."""
+    (T, S, tile, 4 or 5) or None, segments visited per tile or None). A
+    segment the tile does not run leaves its carry alone, the last
+    density too."""
+    from .fused_dvr import initial_carry
     tile = spec.tile
     packet, k0r, tmx, k0t = _tile_geometry(rays, tile)
     n_tiles = packet.shape[0]
     dev = rays.device
-    carry = torch.zeros(n_tiles, tile, 4, device=dev)
+    carry = initial_carry(spec, (n_tiles, tile), dev)
     samples = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
     count = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
     stopped = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
@@ -325,11 +346,11 @@ def _plain_march(spec: MarchSpec, rays: Tensor, params: list, *,
             carry[idx], n = _segment(spec, params, packet[idx], k0t[idx], s,
                                      carry[idx])
             samples[idx] += n
-    out = carry.reshape(-1, 4)
+    out = carry[..., :4].reshape(-1, 4)
     if not store:
         return out, samples, None, None
     stack = (torch.stack(carries, dim=1) if carries
-             else carry.new_zeros(n_tiles, 0, tile, 4))
+             else carry.new_zeros(n_tiles, 0, tile, carry.shape[-1]))
     return out, samples, stack, count
 
 
@@ -345,7 +366,9 @@ def _plain_backward(spec: MarchSpec, rays: Tensor, params: list,
               for p in params]
     grads = [None if p is None else torch.zeros_like(p) for p in params]
     used = [i for i, p in enumerate(leaves) if p is not None]
-    dcarry = d_out.reshape(-1, tile, 4).to(torch.float32).clone()
+    dcarry = torch.zeros(d_out.shape[0] // tile, tile, carries.shape[-1],
+                         dtype=torch.float32, device=d_out.device)
+    dcarry[..., :4] = d_out.reshape(-1, tile, 4)
     for s in reversed(range(carries.shape[1])):
         _, alive = _segment_state(spec, k0r, tmx, k0t, s)
         cs = carries[:, s]
@@ -405,10 +428,13 @@ def mega_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
                          differentiable: bool = False,
                          table_dtype: Optional[torch.dtype] = None,
                          segment_active: Optional[Tensor] = None,
+                         tf_mode: str = "piecewise",
+                         tf_pre: Optional[Tensor] = None,
                          return_samples: bool = False):
     """Plain PyTorch version of :func:`mega_trace_dvr`: the same schedule
     vectorized over tiles and rays, a Python loop over segments; with
     ``differentiable`` an autograd Function with the kernels' gradient."""
+    from .fused_dvr import prepare_tf
     strict_f32()
     _check_network(net)
     if ray_start.requires_grad or ray_dir.requires_grad:
@@ -419,11 +445,14 @@ def mega_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
     if rays.shape[0] % tile:
         raise ValueError(f"ray count {rays.shape[0]} must be a multiple "
                          f"of tile={tile}")
+    table, tf_points, tf_pre_rows = prepare_tf(tf_tensor, tf_mode, tf_pre,
+                                               rays.device)
     spec = _spec(net, box_min, box_size, stepsize=stepsize, seg=seg,
                  tile=tile, density_min=density_min,
                  density_max=density_max, enable_early_out=enable_early_out,
-                 alpha_early_out=alpha_early_out)
-    params = _params(net, _tf_points(tf_tensor).to(rays.device))
+                 alpha_early_out=alpha_early_out, tf_mode=tf_mode,
+                 tf_points=tf_points, tf_pre_rows=tf_pre_rows)
+    params = _params(net, table)
     mask = _check_mask(segment_active, rays.shape[0] // tile, rays.device)
     table_dtype = _table_dtype(table_dtype, differentiable)
     if params[2] is not None and table_dtype != torch.float32:
@@ -452,10 +481,11 @@ def _table_dtype(table_dtype, differentiable: bool) -> torch.dtype:
 # the CUDA kernels
 
 
-def _pack_weights(params: list) -> Tensor:
+def _pack_weights(params: list, tf_mode: str = "piecewise") -> Tensor:
     """The kernels' packed float32 weights (layout in csrc/mega_common.cuh):
     Fourier B, layer 1 with its latent columns zero-padded to 16, its
-    bias, the hidden layers, their biases, the output row and bias, TF."""
+    bias, the hidden layers, their biases, the output row and bias, TF (the
+    preint2d table apart: the kernels read it as its own array)."""
     tf, fourier, grid = params[0], params[1], params[2]
     layers = params[3:]
     f32 = dict(dtype=torch.float32, device=tf.device)
@@ -468,13 +498,17 @@ def _pack_weights(params: list) -> Tensor:
     parts = [fourier.to(**f32), w1, layers[1].to(**f32)]
     parts += [w.to(**f32) for w in hidden_w]
     parts += [b.to(**f32) for b in hidden_b]
-    parts += [layers[-2].to(**f32), layers[-1].to(**f32), tf.to(**f32)]
+    parts += [layers[-2].to(**f32), layers[-1].to(**f32)]
+    if tf_mode != "preint2d":
+        parts.append(tf.to(**f32))
     return torch.cat([p.reshape(-1) for p in parts]).contiguous()
 
 
-def _unpack_grads(dw: Tensor, params: list) -> list:
+def _unpack_grads(dw: Tensor, params: list,
+                  d_tf2d: Optional[Tensor] = None) -> list:
     """Per-parameter gradients from the packed gradient ``dw`` (the
-    inverse of :func:`_pack_weights`; padded latent columns dropped)."""
+    inverse of :func:`_pack_weights`; padded latent columns dropped); the
+    preint2d table's is ``d_tf2d``."""
     tf, fourier, grid = params[0], params[1], params[2]
     layers = params[3:]
     n_hidden = len(layers) // 2 - 2
@@ -482,7 +516,8 @@ def _unpack_grads(dw: Tensor, params: list) -> list:
     k1 = 3 + 2 * f + LATENT_CHANNELS
     sizes = [("fourier", f * 3), ("w1", HIDDEN * k1), ("b1", HIDDEN),
              ("wh", n_hidden * HIDDEN * HIDDEN), ("bh", n_hidden * HIDDEN),
-             ("wo", HIDDEN), ("bo", 1), ("tf", tf.numel())]
+             ("wo", HIDDEN), ("bo", 1),
+             ("tf", 0 if d_tf2d is not None else tf.numel())]
     parts = dict(zip([n for n, _ in sizes],
                      dw.split([n for _, n in sizes])))
     d_layers = [parts["w1"].reshape(HIDDEN, k1)[:, :layers[0].shape[1]],
@@ -492,8 +527,9 @@ def _unpack_grads(dw: Tensor, params: list) -> list:
     for i in range(n_hidden):
         d_layers += [wh[i], bh[i]]
     d_layers += [parts["wo"].reshape(1, HIDDEN), parts["bo"]]
-    return ([parts["tf"].reshape(tf.shape), parts["fourier"].reshape(f, 3),
-             None] + d_layers)
+    d_tf = (d_tf2d.reshape(tf.shape) if d_tf2d is not None
+            else parts["tf"].reshape(tf.shape))
+    return [d_tf, parts["fourier"].reshape(f, 3), None] + d_layers
 
 
 def latent_table(grid: Tensor, dtype: torch.dtype = TABLE_DTYPE) -> Tensor:
@@ -518,7 +554,8 @@ def _kernel_table(grid: Optional[Tensor], dtype: torch.dtype,
 
 
 def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
-                         differentiable: bool = False):
+                         differentiable: bool = False,
+                         tf_floats: Optional[int] = None):
     """What the kernels take: the product network's shape (32-wide
     SnakeAlt layers, ``density:direct`` head, no latent grid or one of
     <= 16 channels, positional Fourier features), 256-ray tiles, and for
@@ -550,21 +587,25 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
                                   f"at most {MAX_FOURIER} features")
     from .sample_mlp import check_fwd_plan
     check_fwd_plan("CUDA kernel", HIDDEN, 0 if fm is None else fm.shape[0],
-                   1, len(net.layers) - 2, MAX_TF_POINTS, warps=tile // 32)
+                   1, len(net.layers) - 2, MAX_TF_POINTS, warps=tile // 32,
+                   tf_floats=tf_floats)
     if differentiable and seg != KERNEL_SEG:
         raise NotImplementedError(f"CUDA backward: seg={KERNEL_SEG} only")
 
 
-def device_fwd_plan(n_fourier: int, n_hidden: int, tf_points: int):
+def device_fwd_plan(n_fourier: int, n_hidden: int, tf_points: int,
+                    tf_floats: Optional[int] = None):
     """(bytes, warps a block, matrices pre-split) of the shared-memory
-    plan csrc/mega_fwd.cu takes for these widths, or None when it does
-    not fit (the device's own ``choose_fwd_plan`` at eight warps;
+    plan csrc/mega_fwd.cu takes for these widths (``tf_floats`` staged TF
+    floats, 5 a piecewise knot by default), or None when it does not fit
+    (the device's own ``choose_fwd_plan`` at eight warps;
     ``ops.sample_mlp.fwd_plan`` mirrors it)."""
     fn = _build.load("mega_fwd").mega_fwd_smem
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_long * 3)()
-    if fn(n_fourier, n_hidden, tf_points, out) != 0:
+    if fn(n_fourier, n_hidden,
+          5 * tf_points if tf_floats is None else tf_floats, out) != 0:
         return None
     return int(out[0]), int(out[1]), bool(out[2])
 
@@ -585,7 +626,7 @@ def _bind_fwd(lib: ctypes.CDLL):
     fn = lib.mega_fwd_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, p, i, p, i, p, p, p, p, i, i, i, i, i, i, i, f, i, i,
-                   f, f, f, f, f, f, f, f, f, f, p, i, p]
+                   f, f, f, f, f, f, f, f, f, f, p, i, i, i, i, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -594,7 +635,8 @@ def _bind_bwd(lib: ctypes.CDLL):
     fn = lib.mega_bwd_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f,
-                   i, i, f, f, f, f, f, f, f, f, f, f, p, i, p]
+                   i, i, f, f, f, f, f, f, f, f, f, f, p, i, i, i, i, p, p, p,
+                   p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -625,25 +667,52 @@ def _mask_args(mask: Optional[Tensor]):
     return (None, 0) if mask is None else (mask.data_ptr(), mask.shape[1])
 
 
+class TfCarries(NamedTuple):
+    """The stored carries of the TF modes: rgba (T, S, tile, 4) and the
+    last density (T, S, tile) entering each visited segment."""
+    rgba: Tensor
+    dens: Tensor
+
+
+def _tf_args(spec: MarchSpec, tf: Optional[Tensor], tf_points: int):
+    """The TF arguments of a launch: (rows, mode id, cumulative rows, packed
+    TF floats, preint2d table pointer or None); ``tf`` is
+    ``ops.fused_dvr.prepare_tf``'s table (None: piecewise knots)."""
+    from .fused_dvr import TF_MODES
+    from .sample_mlp import tf_floats_of
+    if spec.tf_mode == "piecewise":
+        return tf_points, 0, 0, 5 * tf_points, None
+    return (spec.tf_points, TF_MODES.index(spec.tf_mode), spec.tf_pre_rows,
+            tf_floats_of(spec.tf_mode, tf),
+            tf.data_ptr() if spec.tf_mode == "preint2d" else None)
+
+
 def _launch_fwd(rays: Tensor, weights: Tensor, table: Tensor, spec: MarchSpec,
                 n_fourier: int, n_hidden: int, tf_points: int,
                 n_seg_max: Optional[int] = None,
-                mask: Optional[Tensor] = None):
+                mask: Optional[Tensor] = None, tf: Optional[Tensor] = None):
     """Launch csrc/mega_fwd.cu. With ``n_seg_max`` it also stores the
-    incoming carries and the segments visited; ``mask`` is a
-    :func:`_check_mask` occupancy mask or None. Returns (out, samples,
-    carries or None, count or None)."""
+    incoming carries (a :class:`TfCarries` in the TF modes) and the
+    segments visited; ``mask`` is a :func:`_check_mask` occupancy mask or
+    None; ``tf`` the TF modes' table (``ops.fused_dvr.prepare_tf``'s).
+    Returns (out, samples, carries or None, count or None)."""
     dev = rays.device
     n_tiles = rays.shape[0] // spec.tile
     f32 = table.dtype == torch.float32
     out = torch.empty(rays.shape[0], 4, dtype=torch.float32, device=dev)
     samples = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    carries = count = None
+    carries = count = dens = None
     if n_seg_max is not None:
         carries = torch.empty(n_tiles, n_seg_max, spec.tile, 4,
                               dtype=torch.float32, device=dev)
         count = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+        if spec.tf_mode != "piecewise":
+            dens = torch.empty(n_tiles, n_seg_max, spec.tile,
+                               dtype=torch.float32, device=dev)
     _check_tensors(dev, rays=rays, weights=weights, table=table)
+    if tf is not None:
+        _check_tensors(dev, tf=tf)
+    rows, *tf_args = _tf_args(spec, tf, tf_points)
     gz, gy, gx = table.shape[:3]
     launch = _bind_fwd(_build.load("mega_fwd"))
     with torch.cuda.device(dev):
@@ -652,34 +721,46 @@ def _launch_fwd(rays: Tensor, weights: Tensor, table: Tensor, spec: MarchSpec,
             weights.numel(), out.data_ptr(), samples.data_ptr(),
             carries.data_ptr() if carries is not None else None,
             count.data_ptr() if count is not None else None,
-            rays.shape[0], gx, gy, gz, n_fourier, n_hidden, tf_points,
+            rays.shape[0], gx, gy, gz, n_fourier, n_hidden, rows,
             spec.activations[0][1], spec.seg,
             n_seg_max if n_seg_max is not None else 1 << 30,
             spec.stepsize, spec.density_min,
             1.0 / (spec.density_max - spec.density_min), spec.early_alpha,
-            *spec.box_min, *spec.box_size, *_mask_args(mask), _stream(dev))
+            *spec.box_min, *spec.box_size, *_mask_args(mask), *tf_args,
+            dens.data_ptr() if dens is not None else None, _stream(dev))
     if err != 0:
         raise RuntimeError(f"mega_fwd launch failed with CUDA error {err}")
+    if dens is not None:
+        carries = TfCarries(carries, dens)
     return out, samples, carries, count
 
 
 def _launch_bwd(rays, weights, table, carries, count, d_out, spec,
                 n_fourier, n_hidden, tf_points, n_lat, mask=None,
-                partial_rows=False):
-    """Launch csrc/mega_bwd.cu. Returns (packed weight gradient summed
-    over tiles, or with ``partial_rows`` the tiles' rows, table gradient
-    (D, H, W, 16), (tiles, 2) samples replayed and contributing)."""
+                partial_rows=False, tf=None, d_tf2d=None):
+    """Launch csrc/mega_bwd.cu on the forward's ``carries`` (a
+    :class:`TfCarries` in the TF modes, whose table ``tf`` is). Returns
+    (packed weight gradient summed over tiles, or with ``partial_rows``
+    the tiles' rows, table gradient (D, H, W, 16), (tiles, 2) samples
+    replayed and contributing). preint2d adds its table's gradient into
+    ``d_tf2d`` (zeros like ``tf``)."""
     dev = rays.device
     n_tiles = rays.shape[0] // spec.tile
     d_out = d_out.to(torch.float32).contiguous()
+    dens = None
+    if isinstance(carries, TfCarries):
+        carries, dens = carries
     d_rows = torch.empty(n_tiles, weights.numel(), dtype=torch.float32,
                          device=dev)
     d_table = torch.zeros_like(table, dtype=torch.float32)
     work = torch.empty(n_tiles, 2, dtype=torch.int32, device=dev)
+    if (spec.tf_mode == "preint2d") != (d_tf2d is not None):
+        raise ValueError("d_tf2d takes the gradient of a preint2d table")
     _check_tensors(dev, rays=rays, weights=weights, table=table,
                    carries=carries, count=count, d_out=d_out)
     if table.dtype != torch.float32 or d_out.shape != (rays.shape[0], 4):
         raise ValueError("backward: float32 table and (R, 4) cotangent")
+    rows, *tf_args = _tf_args(spec, tf, tf_points)
     gz, gy, gx = table.shape[:3]
     launch = _bind_bwd(_build.load("mega_bwd"))
     with torch.cuda.device(dev):
@@ -688,11 +769,13 @@ def _launch_bwd(rays, weights, table, carries, count, d_out, spec,
             weights.numel(), carries.data_ptr(), count.data_ptr(),
             d_out.data_ptr(), d_rows.data_ptr(), d_table.data_ptr(),
             work.data_ptr(), rays.shape[0], gx, gy, gz, n_lat, n_fourier,
-            n_hidden, tf_points, spec.activations[0][1], spec.seg,
+            n_hidden, rows, spec.activations[0][1], spec.seg,
             carries.shape[1],
             spec.stepsize, spec.density_min,
             1.0 / (spec.density_max - spec.density_min), spec.early_alpha,
-            *spec.box_min, *spec.box_size, *_mask_args(mask), _stream(dev))
+            *spec.box_min, *spec.box_size, *_mask_args(mask), *tf_args,
+            d_tf2d.data_ptr() if d_tf2d is not None else None,
+            dens.data_ptr() if dens is not None else None, _stream(dev))
     if err != 0:
         raise RuntimeError(f"mega_bwd launch failed with CUDA error {err}")
     return (d_rows if partial_rows else d_rows.sum(dim=0)), d_table, work
@@ -712,29 +795,42 @@ class _KernelMarch(torch.autograd.Function):
     def forward(ctx, rays, spec, mask, *params):
         params = list(params)
         n_fourier, n_hidden, tf_points, n_lat = _widths(params)
-        weights = _pack_weights(params)
+        tf = (params[0].detach().contiguous()
+              if spec.tf_mode != "piecewise" else None)
+        weights = _pack_weights(params, spec.tf_mode)
         table = _kernel_table(params[2], torch.float32, rays.device)
         out, samples, carries, count = _launch_fwd(
             rays, weights, table, spec, n_fourier, n_hidden, tf_points,
-            n_seg_max=segments_needed(rays, spec), mask=mask)
+            n_seg_max=segments_needed(rays, spec), mask=mask, tf=tf)
         global DIFF_LAUNCHES
         DIFF_LAUNCHES += 1
         ctx.spec = spec
         ctx.mask = mask
-        ctx.save_for_backward(rays, weights, table, carries, count, *params)
+        ctx.tf_mode = tf is not None
+        if isinstance(carries, TfCarries):
+            carries, dens = carries
+        else:
+            dens = None
+        ctx.save_for_backward(rays, weights, table, carries, dens, count, tf,
+                              *params)
         ctx.mark_non_differentiable(samples)
         return out, samples
 
     @staticmethod
     def backward(ctx, d_out, _d_samples):
-        rays, weights, table, carries, count, *params = ctx.saved_tensors
+        rays, weights, table, carries, dens, count, tf, *params = \
+            ctx.saved_tensors
         n_fourier, n_hidden, tf_points, n_lat = _widths(params)
-        dw, d_table, _ = _launch_bwd(rays, weights, table, carries, count,
-                                  d_out, ctx.spec, n_fourier, n_hidden,
-                                  tf_points, n_lat, ctx.mask)
+        if dens is not None:
+            carries = TfCarries(carries, dens)
+        d_tf2d = (torch.zeros_like(tf) if ctx.spec.tf_mode == "preint2d"
+                  else None)
+        dw, d_table, _ = _launch_bwd(
+            rays, weights, table, carries, count, d_out, ctx.spec, n_fourier,
+            n_hidden, tf_points, n_lat, ctx.mask, tf=tf, d_tf2d=d_tf2d)
         global BWD_LAUNCHES
         BWD_LAUNCHES += 1
-        grads = _unpack_grads(dw, params)
+        grads = _unpack_grads(dw, params, d_tf2d)
         if n_lat:
             grads[2] = d_table[..., :n_lat].permute(3, 0, 1, 2).contiguous()
         return (None, None, None, *grads)
@@ -751,42 +847,52 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                    differentiable: bool = False,
                    table_dtype: Optional[torch.dtype] = None,
                    segment_active: Optional[Tensor] = None,
+                   tf_mode: str = "piecewise",
+                   tf_pre: Optional[Tensor] = None,
                    return_samples: bool = False):
     """Fused SRN march (see the module doc). CUDA tensors launch the
     kernels, CPU tensors run :func:`mega_trace_dvr_plain`. The render
     (``differentiable=False``) reads a bf16 latent table by default; with
     ``differentiable=True`` the result carries gradients to the network's
-    parameters and to ``tf_tensor``, from a float32 table.
+    parameters and to ``tf_tensor`` (and ``tf_pre``), from a float32
+    table. ``tf_mode`` (``ops.fused_dvr.TF_MODES``) and ``tf_pre`` choose
+    the TF as in the JAX package (``ops.fused_dvr.prepare_tf``).
     ``segment_active``: an (n_tiles, n_seg) bool occupancy mask ANDed into
     every (tile, segment)'s activity, forward and backward: a culled
-    segment evaluates no sample (image error bounded by the occupancy
-    threshold; TF gradients of culled samples are dropped, the network's
-    are exact where the culled samples are transparent). Returns rgba
-    (R, 4), and the samples evaluated per tile with ``return_samples``."""
+    segment evaluates no sample and leaves the carry alone, the last
+    density too (image error bounded by the occupancy threshold; TF
+    gradients of culled samples are dropped, the network's are exact
+    where the culled samples are transparent). Returns rgba (R, 4), and
+    the samples evaluated per tile with ``return_samples``."""
     kw = dict(stepsize=stepsize, tmax_clip=tmax_clip, seg=seg, tile=tile,
               density_min=density_min, density_max=density_max,
               alpha_early_out=alpha_early_out,
               enable_early_out=enable_early_out,
               differentiable=differentiable, table_dtype=table_dtype,
-              segment_active=segment_active, return_samples=return_samples)
+              segment_active=segment_active, tf_mode=tf_mode, tf_pre=tf_pre,
+              return_samples=return_samples)
     if ray_start.device.type == "cpu":
         return mega_trace_dvr_plain(ray_start, ray_dir, net, box_min,
                                     box_size, tf_tensor, **kw)
     if ray_start.device.type != "cuda":
         raise ValueError(f"unsupported device {ray_start.device}")
+    from .fused_dvr import prepare_tf
+    from .sample_mlp import tf_floats_of
     _check_network(net)
     dev = ray_start.device
     rays = ray_packet(ray_start, ray_dir, box_min, box_size, stepsize,
                       tmax_clip)
-    _check_kernel_inputs(net, rays, tile, seg, differentiable)
+    tf, tf_points, tf_pre_rows = prepare_tf(tf_tensor, tf_mode, tf_pre, dev)
+    tf_floats = tf_floats_of(tf_mode, tf)
+    _check_kernel_inputs(net, rays, tile, seg, differentiable, tf_floats)
+    if tf_mode in ("piecewise", "gaussian") and tf_points > MAX_TF_POINTS:
+        raise NotImplementedError(f"CUDA kernel: at most {MAX_TF_POINTS} "
+                                  f"{tf_mode} TF points")
     spec = _spec(net, box_min, box_size, stepsize=stepsize, seg=seg,
                  tile=tile, density_min=density_min,
                  density_max=density_max, enable_early_out=enable_early_out,
-                 alpha_early_out=alpha_early_out)
-    tf = _tf_points(tf_tensor).to(dev)
-    if tf.shape[0] > MAX_TF_POINTS:
-        raise NotImplementedError(f"CUDA kernel: at most {MAX_TF_POINTS} "
-                                  "TF control points")
+                 alpha_early_out=alpha_early_out, tf_mode=tf_mode,
+                 tf_points=tf_points, tf_pre_rows=tf_pre_rows)
     params = _params(net, tf)
     mask = _check_mask(segment_active, rays.shape[0] // tile, dev)
     table_dtype = _table_dtype(table_dtype, differentiable)
@@ -796,9 +902,11 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
         with torch.no_grad():
             n_fourier, n_hidden, tf_points, _ = _widths(params)
             out, samples, _, _ = _launch_fwd(
-                rays, _pack_weights(params),
+                rays, _pack_weights(params, tf_mode),
                 _kernel_table(params[2], table_dtype, dev), spec, n_fourier,
-                n_hidden, tf_points, mask=mask)
+                n_hidden, tf_points, mask=mask,
+                tf=tf.detach().contiguous() if tf_mode != "piecewise"
+                else None)
         global LAUNCHES
         LAUNCHES += 1
     return (out, samples) if return_samples else out

@@ -42,6 +42,17 @@ ROW_FLOATS = 24          # per-row scalars of a tile
 RAY_FLOATS = 12          # per-ray scalars a kernel stages
 # the plans tried, in order: (tile rows, weight-row padding)
 CANDIDATES = ((64, 8), (48, 8), (32, 8), (16, 8), (16, 0))
+# per-(ray, sample) state of the TF modes other than piecewise: color and
+# absorption (then their cotangents), density, its cotangent; a density a
+# ray (csrc/sample_mlp.cuh's kScTf)
+SC_TF = 4 * GROUP * SEG_MAX + GROUP
+
+
+def tf_floats_of(tf_mode: str, table) -> int:
+    """Floats of the TF the kernels stage (and pack): 5 a piecewise knot,
+    the table of the other modes, none of the preint2d table (read from
+    L2). ``table`` is ``ops.fused_dvr.prepare_tf``'s."""
+    return 0 if tf_mode == "preint2d" else int(table.numel())
 
 
 def _round_tf32(x: Tensor) -> Tensor:
@@ -82,39 +93,47 @@ class Plan:
 
 
 def make_plan(hidden: int, k1: int, n_hidden: int, n_fourier: int,
-              tf_points: int, tile_rows: int, pad: int) -> Plan:
-    """The regions (floats, each rounded up to 4) of one tile size."""
+              tf_points: int, tile_rows: int, pad: int,
+              tf_floats: int | None = None, tf_state: bool = False) -> Plan:
+    """The regions (floats, each rounded up to 4) of one tile size;
+    ``tf_floats`` staged TF floats (default 5 a piecewise knot),
+    ``tf_state`` the TF modes' per-sample state."""
     r16 = -(-k1 // 16) * 16
     ldx, lda, ldw = r16 + 4, hidden + 4, hidden + pad
+    tfn = 5 * tf_points if tf_floats is None else tf_floats
     n_vec = (hidden + n_hidden * hidden + 4 * hidden + 4 + 6 * n_fourier
-             + 5 * tf_points)
+             + tfn)
     acts = (n_hidden + 1) * tile_rows * lda
     regions = dict(
         W1=r16 * ldw, Wh=n_hidden * hidden * ldw, vec=n_vec,
         X=tile_rows * ldx, dact=acts, hreg=max(acts, tile_rows * ldx),
-        rows=tile_rows * ROW_FLOATS, sc=2 * GROUP * SEG_MAX,
+        rows=tile_rows * ROW_FLOATS,
+        sc=SC_TF if tf_state else 2 * GROUP * SEG_MAX,
         sray=GROUP * RAY_FLOATS, masks=4 * GROUP, list=GROUP * SEG_MAX // 2,
         misc=8)
     return Plan(tile_rows, pad, {k: _take(v) for k, v in regions.items()})
 
 
 def smem_plan(hidden: int, k1: int, n_hidden: int, n_fourier: int,
-              tf_points: int) -> Plan | None:
+              tf_points: int, tf_floats: int | None = None,
+              tf_state: bool = False) -> Plan | None:
     """The first of :data:`CANDIDATES` with which an SM holds two blocks,
     else the first that fits one, or None."""
     for limit in (SMEM_TWO, SMEM_LIMIT):
         for rows, pad in CANDIDATES:
             plan = make_plan(hidden, k1, n_hidden, n_fourier, tf_points,
-                             rows, pad)
+                             rows, pad, tf_floats, tf_state)
             if plan.bytes <= limit:
                 return plan
     return None
 
 
 def check_plan(kernel: str, hidden: int, k1: int, n_hidden: int,
-               n_fourier: int, tf_points: int) -> Plan:
+               n_fourier: int, tf_points: int, tf_floats: int | None = None,
+               tf_state: bool = False) -> Plan:
     """:func:`smem_plan`, raising ``NotImplementedError`` when none fits."""
-    plan = smem_plan(hidden, k1, n_hidden, n_fourier, tf_points)
+    plan = smem_plan(hidden, k1, n_hidden, n_fourier, tf_points, tf_floats,
+                     tf_state)
     if plan is None:
         raise NotImplementedError(
             f"{kernel}: no shared-memory plan fits in {SMEM_LIMIT} bytes for "
@@ -153,10 +172,12 @@ class FwdPlan:
 
 def make_fwd_plan(hidden: int, n_fourier: int, chunks: int, n_hidden: int,
                   tf_points: int, warps: int, pre: bool,
-                  direction: bool = False) -> FwdPlan:
+                  direction: bool = False,
+                  tf_floats: int | None = None) -> FwdPlan:
     """The regions (floats, each rounded up to 4) of a block of ``warps``
     warps; with ``pre`` the layer matrices pre-split (hi and lo, two
-    floats an entry), else rows padded to ``hidden + 8``."""
+    floats an entry), else rows padded to ``hidden + 8``; ``tf_floats``
+    staged TF floats (default 5 a piecewise knot)."""
     f4 = -(-n_fourier // 4) * 4
     k = fwd_columns(n_fourier, chunks, direction)
     ldw, lds = hidden + 8, max(k, hidden) + 4
@@ -164,14 +185,15 @@ def make_fwd_plan(hidden: int, n_fourier: int, chunks: int, n_hidden: int,
     regions = dict(
         W1=k * per, Wh=n_hidden * hidden * per,
         vec=(hidden + n_hidden * hidden + 4 * hidden + 4 + 6 * f4
-             + 5 * tf_points),
+             + (5 * tf_points if tf_floats is None else tf_floats)),
         tiles=warps * FWD_ROWS * (lds + 4 + 8))
     return FwdPlan(warps, pre, {k: _take(v) for k, v in regions.items()})
 
 
 def fwd_plan(hidden: int, n_fourier: int, chunks: int, n_hidden: int,
              tf_points: int, warps: int | None = None,
-             direction: bool = False) -> FwdPlan | None:
+             direction: bool = False,
+             tf_floats: int | None = None) -> FwdPlan | None:
     """The plan with the most warps an SM holds (warps a block, from
     :data:`FWD_WARPS` or only ``warps``, times the blocks its shared
     memory holds, two or one), the first of those with pre-split
@@ -182,7 +204,7 @@ def fwd_plan(hidden: int, n_fourier: int, chunks: int, n_hidden: int,
             continue
         for pre in (True, False):
             cand = make_fwd_plan(hidden, n_fourier, chunks, n_hidden,
-                                 tf_points, w, pre, direction)
+                                 tf_points, w, pre, direction, tf_floats)
             blocks = (2 if cand.bytes <= SMEM_TWO
                       else 1 if cand.bytes <= SMEM_LIMIT else 0)
             if w * blocks > best:
@@ -192,11 +214,12 @@ def fwd_plan(hidden: int, n_fourier: int, chunks: int, n_hidden: int,
 
 def check_fwd_plan(kernel: str, hidden: int, n_fourier: int, chunks: int,
                    n_hidden: int, tf_points: int, warps: int | None = None,
-                   direction: bool = False) -> FwdPlan:
+                   direction: bool = False,
+                   tf_floats: int | None = None) -> FwdPlan:
     """:func:`fwd_plan`, raising ``NotImplementedError`` when none
     fits."""
     plan = fwd_plan(hidden, n_fourier, chunks, n_hidden, tf_points, warps,
-                    direction)
+                    direction, tf_floats)
     if plan is None:
         raise NotImplementedError(
             f"{kernel}: no shared-memory plan fits in {SMEM_LIMIT} bytes for "

@@ -29,12 +29,15 @@ from torch import Tensor
 
 from ..camera import fibonacci_sphere_cameras, generate_rays
 from ..models.network_volume import VolumeInterpolationNetwork
-from ..ops.fused_dvr import block_ray_permutation, fused_trace_dvr
+from ..ops.fused_dvr import (block_ray_permutation, fused_tf_args,
+                             fused_trace_dvr)
 from ..ops.fused_mega import (KERNEL_SEG, KERNEL_TILE, LATENT_CHANNELS,
                               mega_trace_dvr)
 from ..raytracer.dvr import (RayEvaluationSteppingDvr, max_steps_bound,
                              trace_dvr)
-from ..transfer import TransferFunctionPiecewiseLinear
+from ..transfer import (TransferFunctionGaussian,
+                        TransferFunctionPiecewiseLinear,
+                        TransferFunctionTexture)
 from ..utils.device import resolve_device
 from .losses import LossNetScreen
 
@@ -87,12 +90,20 @@ def build_screen_dataset(volume, tf, config: RayEvaluationSteppingDvr, *,
 
 def fused_screen_supported(network, tf, width: int, height: int) -> bool:
     """Whether screen training routes through the fused march, by the JAX
-    package's rule: a piecewise-linear TF, images that tile into 16x16
-    pixel blocks with at least one 256-ray tile, and no latent grid or one
-    of <= 16 channels. The network is not screened here: where the fused
-    march does not take it yet, ``mega_trace_dvr`` raises
+    package's rule: a piecewise-linear, texture (any preintegration) or
+    Gaussian TF, images that tile into 16x16 pixel blocks with at least
+    one 256-ray tile, and no latent grid or one of <= 16 channels. One
+    difference on purpose: a Gaussian TF that is ``analytic`` or
+    ``scale_with_gradient`` trains by the plain march, since the fused
+    kernels evaluate neither (the JAX package routes it fused and trains
+    the plain Gaussians instead). The network is not screened here:
+    where the fused march does not take it yet, ``mega_trace_dvr`` raises
     ``NotImplementedError`` (``--no_fused`` selects the plain march)."""
-    if not isinstance(tf, TransferFunctionPiecewiseLinear):
+    if isinstance(tf, TransferFunctionGaussian):
+        if tf.analytic or tf.scale_with_gradient:
+            return False
+    elif not isinstance(tf, (TransferFunctionPiecewiseLinear,
+                             TransferFunctionTexture)):
         return False
     if width % 16 or height % 16 or width * height < KERNEL_TILE:
         return False
@@ -131,14 +142,18 @@ def evaluate_screen(network, batch_rays_start: Tensor,
     segments, 256-ray tiles, the tile vote unless ``enable_early_out`` is
     False). The remaining keys go to the march (``seg``, ``tile``,
     ``enable_early_out``, ``alpha_early_out``, ``density_min``,
-    ``density_max``, ``table_dtype``, ``latent_mode``, ...); ``interpret``
-    and ``subbox``, which only the TPU kernels read, are accepted and
-    ignored. Otherwise the plain march runs with per-step checkpointing."""
+    ``density_max``, ``table_dtype``, ``latent_mode``, ...); the TF's
+    ``tf_mode`` and ``tf_pre`` come from the TF unless given
+    (``ops.fused_dvr.fused_tf_args``); ``interpret`` and ``subbox``,
+    which only the TPU kernels read, are accepted and ignored. Otherwise
+    the plain march runs with per-step checkpointing."""
     netvol = VolumeInterpolationNetwork(network)
     box = (netvol.box_min.tolist(), netvol.box_size.tolist())
     fk = {k: v for k, v in (fused_kwargs or {}).items()
           if k not in _TPU_ONLY_KWARGS}
     engine = fk.pop("engine", "scan") if use_fused else "scan"
+    if use_fused and "tf_mode" not in fk:
+        fk.update(fused_tf_args(tf)[1])
     if use_fused and engine == "mega":
         perm = fk.pop("block_perm", None)
         inv = fk.pop("block_perm_inv", None)

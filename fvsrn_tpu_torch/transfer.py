@@ -8,8 +8,10 @@ density already mapped to [0, 1] (``previous_density < 0``: no previous
 sample) and returns rgba whose absorption channel is already multiplied
 by the stepsize; :func:`evaluate` is the tensor-level evaluation of raw
 (N, 1) densities that world-space training and importance sampling call.
-The fused kernels take the piecewise TF alone; the others run in the
-plain marches.
+The fused marches take the piecewise, texture (plain and preintegrated)
+and Gaussian TFs (``ops.fused_dvr.fused_tf_args``); the identity TF, and
+a Gaussian that is analytic or gradient-scaled, run in the plain
+marches.
 """
 from __future__ import annotations
 

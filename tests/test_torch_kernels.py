@@ -1088,3 +1088,251 @@ def test_forward_smem_plans_match_device(hidden):
             plan = sample_mlp.fwd_plan(32, nf, 1, nh, tp, warps=8)
             assert fused_mega.device_fwd_plan(nf, nh, tp) == (
                 plan.bytes, 8, plan.pre)
+
+
+# ---------------------------------------------------------------------------
+# the TF modes (texture, 1D- and 2D-preintegrated, Gaussians) in rows 1-6
+
+
+TF_MODES = ("texture", "preint1d", "preint2d", "gaussian")
+# The 1D preintegration's near branch (|d - prev| < 1e-3) and the 2D
+# table's nearest cell are discontinuous in the density: where the
+# kernel's TF32 three-pass products and the plain version's float32 ones
+# round a density (~1e-6 apart) to the two sides of an edge, the sample
+# takes the other branch or cell, and its adjoint differs whole (the near
+# branch's 1/(d - prev) factors are ~1e3). Those modes hold the share of
+# rays off by more than ATOL, and how far off they are, instead of every
+# ray, and each gradient leaf to FLIP_GRAD times the plain version's
+# largest own change when every weight moves by a seeded relative
+# FLIP_EPS (a density noise of the two versions' size; a uniform shift
+# of every density would move no d - prev), over FLIP_SEEDS seeds: one
+# flipped sample can move a leaf by 1e-3, and the moves are heavy-tailed
+# (at 64x64, h = 1/64, five seeds moved the 1D table's gradient by
+# 5.3e-5 to 1.5e-3).
+FLIP_SHARE = 0.01           # the renders'
+FLIP_SHARE_DIFF = 0.0025    # the differentiable pairs', at least
+FLIP_ATOL = 0.05
+FLIP_GRAD = 2.0
+FLIP_EPS = 1e-6
+FLIP_SEEDS = 4
+
+
+def flip_bounds(mode, plain_march, args, kw, tf, tf_kw, img, want):
+    """(share of rays off ATOL, {leaf: relative error}) that the kernel's
+    image and gradients may reach against the plain ones (``img``,
+    ``want``): FLIP_SHARE and 1e-3; in the preintegrating modes the
+    larger of FLIP_SHARE_DIFF and 1e-3 and FLIP_GRAD times the plain
+    version's largest own change when every weight moves by a relative
+    FLIP_EPS, over FLIP_SEEDS seeds."""
+    tols = {n: 1e-3 for n in want}
+    if mode not in ("preint1d", "preint2d"):
+        return FLIP_SHARE, tols
+    import copy
+    share = FLIP_SHARE_DIFF
+    for seed in range(FLIP_SEEDS):
+        moved = copy.deepcopy(args[2])
+        gen = torch.Generator(moved.layers[0].weight.device).manual_seed(seed)
+        with torch.no_grad():
+            for p in moved.parameters():
+                p.mul_(1.0 + FLIP_EPS * torch.randn(
+                    p.shape, device=p.device, generator=gen))
+        img_q, got = tf_grads(plain_march, args[:2] + (moved,) + args[3:],
+                              kw, tf, tf_kw)
+        off = float(((img_q - img).abs().amax(dim=-1) > ATOL).float().mean())
+        share = max(share, FLIP_GRAD * off)
+        for n in want:
+            if float(want[n].norm()) > 0:
+                tols[n] = max(tols[n], FLIP_GRAD * rel_err(got[n], want[n]))
+    return share, tols
+
+
+def assert_image_close(got, want, mode, share=FLIP_SHARE):
+    if mode not in ("preint1d", "preint2d"):
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+        return
+    err = (got - want).abs().amax(dim=-1)
+    assert float((err > ATOL).float().mean()) <= share
+    assert float(err.max()) <= FLIP_ATOL
+
+
+def tf_mode_args(mode, h):
+    """(tf tensor, {tf_mode, tf_pre}) of the flagship's ramp TF in
+    ``mode`` on the card (``scenes.dense_tf_modes``)."""
+    from fvsrn_tpu_torch.scenes import dense_tf_modes
+    tensor, kw = fused_dvr.fused_tf_args(dense_tf_modes(h)[mode])
+    kw = {k: (v.cuda() if torch.is_tensor(v) else v) for k, v in kw.items()}
+    return tensor.cuda(), kw
+
+
+def tf_grads(march, args, kw, tf, tf_kw):
+    """Image and every gradient leaf (the network's, "tf" and "pre") of
+    loss = sum(img^2) through ``march``."""
+    net = args[2]
+    net.zero_grad(set_to_none=True)
+    tf_leaf = tf.clone().requires_grad_(True)
+    pre = tf_kw.get("tf_pre")
+    pre_leaf = pre.clone().requires_grad_(True) if pre is not None else None
+    kw2 = dict(tf_kw, tf_pre=pre_leaf) if pre is not None else tf_kw
+    img = march(*args[:5], tf_leaf, **kw, **kw2)
+    (img ** 2).sum().backward()
+    torch.cuda.synchronize()
+    g = {n: p.grad.clone() for n, p in net.named_parameters()
+         if p.grad is not None}
+    for name, leaf in (("tf", tf_leaf), ("pre", pre_leaf)):
+        if leaf is not None and leaf.grad is not None:
+            g[name] = leaf.grad.clone()
+    return img.detach(), g
+
+
+@pytest.mark.parametrize("mode", TF_MODES)
+@pytest.mark.parametrize("which", ["random", "flagship"])
+def test_tf_mode_mega_matches_plain(mode, which):
+    """Rows 1-3 in each TF mode: the render (bf16 table), and the
+    differentiable pair's image and every gradient leaf (the TF's
+    tables too) against the plain versions, the tile vote on."""
+    needs_card()
+    net = case_net(which)
+    rs, rd = block_rays(64, "cuda")
+    clip = torch.empty(rs.shape[0], device="cuda").uniform_(
+        1.0, 2.2, generator=torch.Generator("cuda").manual_seed(0))
+    h = 1 / 128
+    tf, tf_kw = tf_mode_args(mode, h)
+    kw = dict(stepsize=h, tmax_clip=clip)
+    before = fused_mega.LAUNCHES
+    with torch.no_grad():
+        got = fused_mega.mega_trace_dvr(rs, rd, net, *BOX, tf, **kw, **tf_kw)
+        want = fused_mega.mega_trace_dvr_plain(rs, rd, net, *BOX, tf, **kw,
+                                               **tf_kw)
+    assert fused_mega.LAUNCHES == before + 1
+    assert float(want[:, 3].max()) > 0.5
+    assert_image_close(got, want, mode)
+    args = (rs, rd, net, *BOX)
+    kw = dict(kw, differentiable=True)
+    before = (fused_mega.DIFF_LAUNCHES, fused_mega.BWD_LAUNCHES)
+    img, got = tf_grads(fused_mega.mega_trace_dvr, args, kw, tf, tf_kw)
+    assert (fused_mega.DIFF_LAUNCHES, fused_mega.BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    img_plain, want = tf_grads(fused_mega.mega_trace_dvr_plain, args, kw,
+                               tf, tf_kw)
+    share, tols = flip_bounds(mode, fused_mega.mega_trace_dvr_plain, args,
+                              kw, tf, tf_kw, img_plain, want)
+    assert_image_close(img, img_plain, mode, share)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        if mode == "preint2d" and name not in ("pre",):
+            assert float(got[name].abs().max()) == 0.0, name
+            continue
+        assert rel_err(got[name], want[name]) <= tols[name], name
+
+
+@pytest.mark.parametrize("mode", TF_MODES)
+@pytest.mark.parametrize("lattice", [False, True])
+def test_tf_mode_segment_matches_plain(mode, lattice):
+    """Rows 4-6 in each TF mode: the render (both launches, the call's
+    stop; per-ray sampling or the lattice) and the differentiable pair's
+    image and every gradient leaf against the plain versions."""
+    needs_card()
+    net = case_net("random")
+    rs, rd = block_rays(64, "cuda")
+    h = 1 / 64
+    tf, tf_kw = tf_mode_args(mode, h)
+    kw = dict(stepsize=h, max_steps=112, seg=32, tile=128,
+              latent_mode="boxfeat" if lattice else "table")
+    before = fused_dvr.SEGMENT_LAUNCHES
+    with torch.no_grad():
+        got, st = fused_dvr.fused_trace_dvr(rs, rd, net, *BOX, tf,
+                                            return_stats=True, **kw, **tf_kw)
+        want, st_plain = fused_dvr.fused_trace_dvr_plain(
+            rs, rd, net, *BOX, tf, return_stats=True, **kw, **tf_kw)
+    assert fused_dvr.SEGMENT_LAUNCHES == before + 2
+    assert float(want[:, 3].max()) > 0.5
+    assert_image_close(got, want, mode)
+    assert int(st.stop) == int(st_plain.stop)
+    args = (rs, rd, net, *BOX)
+    kw = dict(kw, differentiable=True, max_steps=112)
+    before = (fused_dvr_bwd.SEGMENT_DIFF_LAUNCHES,
+              fused_dvr_bwd.SEGMENT_BWD_LAUNCHES)
+    img, got = tf_grads(fused_dvr.fused_trace_dvr, args, kw, tf, tf_kw)
+    assert (fused_dvr_bwd.SEGMENT_DIFF_LAUNCHES,
+            fused_dvr_bwd.SEGMENT_BWD_LAUNCHES) == (before[0] + 1,
+                                                    before[1] + 1)
+    img_plain, want = tf_grads(fused_dvr.fused_trace_dvr_plain, args, kw,
+                               tf, tf_kw)
+    share, tols = flip_bounds(mode, fused_dvr.fused_trace_dvr_plain, args,
+                              kw, tf, tf_kw, img_plain, want)
+    assert_image_close(img, img_plain, mode, share)
+    for name in want:
+        if mode == "preint2d" and name != "pre":
+            assert name not in got or float(got[name].abs().max()) == 0.0
+            continue
+        assert rel_err(got[name], want[name]) <= tols[name], name
+
+
+@pytest.mark.parametrize("mode", ["preint1d", "preint2d"])
+def test_tf_mode_mega_masked_matches_plain(mode):
+    """A culled segment leaves the previous density alone: the masked
+    render and the masked differentiable pair against the plain versions
+    with the same mask."""
+    needs_card()
+    net, _, rays, spec = diff_case("random", True)
+    mask = random_mask(rays, spec)
+    rs, rd = block_rays(64, "cuda")
+    clip = torch.empty(rs.shape[0], device="cuda").uniform_(
+        1.0, 2.2, generator=torch.Generator("cuda").manual_seed(0))
+    h = 1 / 128
+    tf, tf_kw = tf_mode_args(mode, h)
+    kw = dict(stepsize=h, tmax_clip=clip, segment_active=mask)
+    with torch.no_grad():
+        got = fused_mega.mega_trace_dvr(rs, rd, net, *BOX, tf, **kw, **tf_kw)
+        want = fused_mega.mega_trace_dvr_plain(rs, rd, net, *BOX, tf, **kw,
+                                               **tf_kw)
+    assert_image_close(got, want, mode)
+    args = (rs, rd, net, *BOX)
+    kw = dict(kw, differentiable=True)
+    img, got = tf_grads(fused_mega.mega_trace_dvr, args, kw, tf, tf_kw)
+    img_plain, want = tf_grads(fused_mega.mega_trace_dvr_plain, args, kw,
+                               tf, tf_kw)
+    share, tols = flip_bounds(mode, fused_mega.mega_trace_dvr_plain, args,
+                              kw, tf, tf_kw, img_plain, want)
+    assert_image_close(img, img_plain, mode, share)
+    for name in want:
+        if mode == "preint2d" and name != "pre":
+            continue
+        assert rel_err(got[name], want[name]) <= tols[name], name
+
+
+@pytest.mark.parametrize("mode", ["texture", "preint1d"])
+def test_tf_mode_backward_deterministic(mode):
+    """The texture and preint1d tables' gradients come from the blocks'
+    partial rows: two backward launches give bitwise-equal rows."""
+    needs_card()
+    net = case_net("random")
+    rs, rd = block_rays(64, "cuda")
+    h = 1 / 128
+    tf, tf_kw = tf_mode_args(mode, h)
+    rows = []
+    for _ in range(2):
+        tf_leaf = tf.clone().requires_grad_(True)
+        img = fused_mega.mega_trace_dvr(rs, rd, net, *BOX, tf_leaf,
+                                        stepsize=h, differentiable=True,
+                                        **tf_kw)
+        (img ** 2).sum().backward()
+        rows.append(tf_leaf.grad.clone())
+    torch.cuda.synchronize()
+    assert float(rows[0].abs().max()) > 0
+    assert torch.equal(rows[0], rows[1])
+
+
+def test_tf_mode_kernel_limits():
+    """What the kernels refuse in the TF modes: a TF mode on a network
+    other than SnakeAlt on the segment kernel, more Gaussians than the
+    kernels hold."""
+    tf, _, _ = fused_dvr.prepare_tf(torch.rand(256, 4), "texture")
+    with pytest.raises(NotImplementedError, match="SnakeAlt"):
+        fused_dvr._check_kernel_inputs(random_net(activation="ReLU"), tf,
+                                       tf_mode="texture")
+    fused_dvr._check_kernel_inputs(random_net(), tf, tf_mode="texture")
+    many = torch.rand(fused_dvr.MAX_TF_POINTS + 1, 6)
+    with pytest.raises(NotImplementedError, match="gaussian"):
+        fused_dvr._check_kernel_inputs(random_net(), many,
+                                       tf_mode="gaussian")

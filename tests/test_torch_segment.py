@@ -345,10 +345,15 @@ def test_engine_rejects_what_is_not_ported():
     rs, rd = rays16()
     kw = dict(stepsize=H, max_steps=112, seg=SEG, tile=TILE)
     for bad in (dict(differentiable=True, table_dtype=torch.bfloat16),
-                dict(need_normals=True), dict(tf_mode="texture")):
+                dict(need_normals=True)):
         with pytest.raises(NotImplementedError):
             fused_trace_dvr(t(rs), t(rd), net, BMIN, BSIZE, tf.tensor,
                             **kw, **bad)
+    # the TF modes are ported (tests/test_torch_tf_modes.py); a table that
+    # does not fit the mode (piecewise knots as texels) raises
+    with pytest.raises(ValueError, match="texture TF tensor"):
+        fused_trace_dvr(t(rs), t(rd), net, BMIN, BSIZE, tf.tensor,
+                        tf_mode="texture", **kw)
     with pytest.raises(ValueError):
         fused_trace_dvr(t(rs), t(rd), port(jnet_of(output_mode="rgbo")),
                         BMIN, BSIZE, tf.tensor, iso_value=0.5, **kw)

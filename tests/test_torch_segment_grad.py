@@ -161,7 +161,8 @@ def test_segment_grad_wrapper_runs_plain_on_cpu():
 
 @pytest.mark.parametrize("kw,error", [
     (dict(table_dtype=torch.bfloat16), NotImplementedError),
-    (dict(tf_mode="texture"), NotImplementedError),
+    # ported; piecewise knots are no texture table
+    (dict(tf_mode="texture"), ValueError),
     (dict(need_normals=True), NotImplementedError),
     (dict(iso_value=0.5), ValueError),
     (dict(subbox="auto"), TypeError)])

@@ -27,7 +27,10 @@ from fvsrn_tpu.train.screen import build_screen_dataset as jbuild
 from fvsrn_tpu.train.screen import evaluate_screen as jevaluate_screen
 from fvsrn_tpu.train.screen import fused_screen_supported as jsupported
 from fvsrn_tpu.train.screen import screen_mega_kwargs as jmega_kwargs
+from fvsrn_tpu.train.screen import _tf_mode_kwargs as jtf_mode_kwargs
+from fvsrn_tpu.transfer import TransferFunctionGaussian as JGauss
 from fvsrn_tpu.transfer import TransferFunctionPiecewiseLinear as JTF
+from fvsrn_tpu.transfer import TransferFunctionTexture as JTex
 from fvsrn_tpu.volume.implicit import IMPLICIT_EQUATIONS as JEQ
 from fvsrn_tpu.volume.implicit import VolumeInterpolationImplicit as JImplicit
 from fvsrn_tpu_torch.camera import fibonacci_sphere_cameras, generate_rays
@@ -42,7 +45,10 @@ from fvsrn_tpu_torch.train.screen import (ScreenDataset,
                                           evaluate_screen,
                                           fused_screen_supported,
                                           screen_mega_kwargs)
-from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
+from fvsrn_tpu_torch.ops.fused_dvr import fused_tf_args
+from fvsrn_tpu_torch.transfer import (TransferFunctionGaussian,
+                                      TransferFunctionPiecewiseLinear,
+                                      TransferFunctionTexture)
 from fvsrn_tpu_torch.volume.implicit import (IMPLICIT_EQUATIONS,
                                              VolumeInterpolationImplicit)
 from fvsrn_tpu.camera import CameraOnASphere as JCam
@@ -185,24 +191,121 @@ def test_build_screen_dataset():
                                atol=1e-5)
 
 
+def tf_pair(kind, **gauss):
+    """(JAX TF, port TF) of ``kind``: the ramp TF piecewise, as a 16-texel
+    texture (plain, preint1d, preint2d) or as two Gaussians (``gauss``:
+    their ``analytic`` and ``scale_with_gradient``)."""
+    tf = dict(rgb=[[0.9, 0.4, 0.1], [1.0, 1.0, 0.6]], opacity=[0.0, 20.0],
+              positions=[0.0, 1.0])
+    jtf = JTF.make(**tf)
+    if kind == "piecewise":
+        return jtf, TransferFunctionPiecewiseLinear.make(**tf)
+    if kind == "gaussian":
+        g = np.asarray([[0.9, 0.4, 0.1, 10.0, 0.3, 0.2],
+                        [1.0, 1.0, 0.6, 20.0, 0.8, 0.1]], np.float32)
+        return (JGauss(tensor=jnp.asarray(g), **gauss),
+                TransferFunctionGaussian(torch.tensor(g), **gauss))
+    d = (np.arange(16) + 0.5) / 16
+    jtex = JTex(tensor=jnp.asarray(jtf.eval_normalized(jnp.asarray(d), None,
+                                                       None, 1.0)))
+    jtex = {"texture": jtex, "preint1d": jtex.with_preintegration(32),
+            "preint2d": jtex.with_preintegration_2d(8)}[kind]
+    pre = jtex.preintegrated
+    return jtex, TransferFunctionTexture(
+        torch.tensor(np.asarray(jtex.tensor)),
+        None if pre is None else torch.tensor(np.asarray(pre)),
+        jtex.preintegration_mode)
+
+
+@pytest.mark.parametrize("tf_kind", ["piecewise", "texture", "preint1d",
+                                     "preint2d", "gaussian"])
 @pytest.mark.parametrize("kw,channels,size", [
     (dict(), 0, 16), (dict(), 4, 32), (dict(), 20, 16), (dict(), 4, 24),
     (dict(output_mode="rgbo"), 4, 16),
     (dict(layers="16:24", activation="ReLU", num_fourier=0), 0, 16)])
-def test_fused_route_matches_jax(kw, channels, size):
+def test_fused_route_matches_jax(kw, channels, size, tf_kind):
     """The trainer sends the same configurations through the fused march
-    as the JAX package does, whatever the network."""
+    as the JAX package does, whatever the network, with every TF the
+    fused kernels take, and with the same TF mode and table."""
     grid = (np.random.default_rng(0).standard_normal((channels, 4, 4, 4))
             .astype(np.float32) if channels else None)
     jnet = JSRN.make(latent=JLatent(static_grid=grid), **kw)
     net = SceneRepresentationNetwork.make(
         latent=LatentSpace(None if grid is None else torch.tensor(grid)),
         **kw)
-    tf = dict(rgb=[[0.9, 0.4, 0.1], [1.0, 1.0, 0.6]], opacity=[0.0, 20.0],
-              positions=[0.0, 1.0])
-    want = jsupported(jnet, JTF.make(**tf), size, size)
-    assert fused_screen_supported(net, TransferFunctionPiecewiseLinear.make(
-        **tf), size, size) == want
+    jtf, tf = tf_pair(tf_kind)
+    want = jsupported(jnet, jtf, size, size)
+    assert fused_screen_supported(net, tf, size, size) == want
+    jkw = jtf_mode_kwargs(jtf)
+    _, got = fused_tf_args(tf)
+    assert got.get("tf_mode") == jkw.get("tf_mode")
+    if "tf_pre" in jkw:
+        np.testing.assert_array_equal(got["tf_pre"].numpy(),
+                                      np.asarray(jkw["tf_pre"]))
+
+
+@pytest.mark.parametrize("gauss", [dict(analytic=True),
+                                   dict(scale_with_gradient=True)])
+def test_gaussian_variants_train_by_the_plain_march(gauss):
+    """Differs on purpose: the JAX package routes an analytic or
+    gradient-scaled Gaussian TF into its fused trainer, whose kernels
+    evaluate the plain Gaussians instead; the port trains it by the
+    plain march (ROADMAP, differs on purpose)."""
+    jnet = JSRN.make()
+    net = SceneRepresentationNetwork.make()
+    jtf, tf = tf_pair("gaussian", **gauss)
+    assert jsupported(jnet, jtf, 16, 16)
+    assert jtf_mode_kwargs(jtf) == dict(tf_mode="gaussian")
+    assert not fused_screen_supported(net, tf, 16, 16)
+    assert fused_screen_supported(net, tf_pair("gaussian")[1], 16, 16)
+
+
+def texture_scene(tmp_path) -> str:
+    """A scene JSON of the Marschner-Lobb field under a 16-texel texture
+    TF (its stepsize the run's)."""
+    import json
+    scene = {
+        "ImageEvaluator": {"Simple": {
+            "selectedCamera": "Sphere", "selectedRayEvaluator": "DVR",
+            "selectedVolume": "Implicit"}},
+        "RayEvaluation": {"DVR": {"stepsize": 0.03125, "minDensity": 0.0,
+                                  "maxDensity": 1.0,
+                                  "selectedTF": "Texture"}},
+        "camera": {"Sphere": {"center": [0.0, 0.0, 0.0], "distance": 1.7,
+                              "pitch": 0.4, "yaw": 0.7}},
+        "tf": {"Texture": {
+            "absorptionScaling": 20.0,
+            "colorPoints": [[0.0, 0.9, 0.4, 0.1], [1.0, 1.0, 1.0, 0.6]],
+            "opacityPoints": np.linspace(0.0, 1.0, 16).tolist()}},
+        "volume": {"Implicit": {"function": "MarschnerLobb"}}}
+    path = tmp_path / "texture.json"
+    path.write_text(json.dumps(scene))
+    return str(path)
+
+
+def test_texture_scene_trainer_matches_jax(tmp_path):
+    """Screen training on a scene JSON that names a texture TF goes
+    through the fused march's texture mode, as in the JAX package: two
+    epochs of one 16x16 camera, 1/32, against the JAX trainer. A sigmoid
+    head: the random network's direct densities stay below the texture's
+    first texel center, where its clamped end has no slope."""
+    args = [texture_scene(tmp_path) if a == ARGS[0] else a for a in ARGS]
+    args += ["--outputmode", "density"]
+    jopt = vars(jmain.init_parser().parse_args(
+        [str(tmp_path / "jax.hdf5") if a == "OUT" else a for a in args]))
+    want = jmain.run(jopt)
+    opt = vars(main.init_parser().parse_args(
+        [str(tmp_path / "port.npz") if a == "OUT" else a for a in args]
+        + ["--device", "cpu"]))
+    got = main.run(opt)
+    assert want["fused"] and got["fused"]
+    assert got["history"][1] < got["history"][0]
+    np.testing.assert_allclose(got["history"], want["history"], rtol=1e-4)
+    jparams, _ = network_arrays(want["network"])
+    for name, p in got["network"].named_parameters():
+        rel = (np.linalg.norm(p.detach().numpy() - jparams[name])
+               / np.linalg.norm(jparams[name]))
+        assert rel <= 1e-4, (name, rel)
 
 
 ARGS = ["IMPLICIT:MARSCHNER_LOBB", "OUT", "--mode", "screen",
@@ -245,12 +348,17 @@ def test_trainer_matches_jax(tmp_path):
 @pytest.mark.parametrize("extra", [["-o", "LBFGS"],
                                    ["--data_parallel", "2"],
                                    ["--tensorboard", "tb"],
-                                   ["--outputmode", "rgbo"]])
+                                   ["--outputmode", "rgbo"],
+                                   ["texture", "--outputmode", "rgbo"]])
 def test_trainer_rejects_what_is_not_ported(extra, tmp_path):
     """Options not ported yet raise; so does a network that the fused
     route takes in the JAX package and the port's fused march does not
-    take yet (color output), instead of training by the plain march."""
+    take yet (color output), instead of training by the plain march,
+    also under a texture TF (which the fused route now takes)."""
     args = [str(tmp_path / "x.npz") if a == "OUT" else a for a in ARGS]
+    if extra[0] == "texture":
+        args[0] = texture_scene(tmp_path)
+        extra = extra[1:]
     opt = vars(main.init_parser().parse_args(args + extra
                                              + ["--device", "cpu"]))
     with pytest.raises(NotImplementedError):

@@ -265,9 +265,10 @@ def test_render_image_with_brdf_matches_jax():
 @pytest.mark.parametrize("kind", ["texture", "texture_pre1d", "gaussian",
                                   "identity"])
 def test_fused_render_refuses_other_tfs(kind):
-    """The FUSED render's kernels take the piecewise TF alone: any other
-    raises ``NotImplementedError`` naming the TF mode the JAX package
-    routes it by; the plain march renders it."""
+    """The FUSED render takes the texture TFs (by their preintegration,
+    as the JAX package routes them; tests/test_torch_tf_modes.py holds
+    the image) and refuses the others with ``NotImplementedError``
+    naming the TF mode; the plain march renders every one."""
     from fvsrn_tpu_torch.inference import LoadedModel
     from fvsrn_tpu_torch.models.latent import LatentSpace
     from fvsrn_tpu_torch.models.srn import SceneRepresentationNetwork
@@ -279,7 +280,13 @@ def test_fused_render_refuses_other_tfs(kind):
         stepsize=1 / 16))
     cam = CameraOnASphere.make(**CAM)
     mode = {"texture_pre1d": "preint1d"}.get(kind, kind)
-    with pytest.raises(NotImplementedError, match=f"TF mode '{mode}'"):
-        m.prepare_network_render(cam, 16, 16, "FUSED", device=CPU)
+    if kind.startswith("texture"):
+        render = m.prepare_network_render(cam, 16, 16, "FUSED", device=CPU)
+        assert render.march_kwargs["tf_mode"] == mode
+        img = render()
+        assert img.shape == (16, 16, 4) and bool(torch.isfinite(img).all())
+    else:
+        with pytest.raises(NotImplementedError, match=f"TF mode '{mode}'"):
+            m.prepare_network_render(cam, 16, 16, "FUSED", device=CPU)
     img = m.render_network(cam, 16, 16, "PLAIN32", device=CPU)
     assert img.shape == (16, 16, 4) and bool(torch.isfinite(img).all())

@@ -184,6 +184,47 @@ TF_ORACLE_RAYS = 16384
 # quotients and an exp; preint2d one cell and a divide; four Gaussians'
 # exps and multiply-adds
 TF_FLOPS = {"texture": 16, "preint1d": 64, "preint2d": 12, "gaussian": 72}
+# phase O: the networks of the paper's sweeps on rows 1-3. The widest of
+# fvsrn_tpu/eval/eval_network_configs.py (NET_TRAIN_ARGS), trained
+# briefly by the trainer at NET_SIZE^2 and then timed at 512^2; the rest
+# (NET_CASES) against the plain versions at NET_SIZE^2. Each case:
+# (SceneRepresentationNetwork.make options beyond 32:32:32 SnakeAlt:2, 14
+# Fourier features and a sigmoid density head, which keeps a random
+# network's samples contributing; the latent grid's (channels,
+# resolution), or None).
+NET_SIZE = 128
+NET_TRAIN_ARGS = ["IMPLICIT:MARSCHNER_LOBB", "--mode", "screen",
+                  "--layers", "64:64:64", "--activation", "SnakeAlt:2",
+                  "--fouriercount", "14", "--outputmode", "density:direct",
+                  "--volumetric_features_channels", "16",
+                  "--volumetric_features_resolution", "32",
+                  "--screen_size", str(NET_SIZE), "--stepsize",
+                  str(STEPSIZE), "--screen_cameras", "2", "-i", "1",
+                  "-o", "Adam", "-lr", "1e-3"]
+NET_CASES = {
+    "48:48:48 8x16^3": (dict(layers="48:48:48"), (8, 16)),
+    "32:32 16x32^3": (dict(layers="32:32"), (16, 32)),
+    "64:64 no grid": (dict(layers="64:64"), None),
+    "ReLU": (dict(activation="ReLU"), (8, 16)),
+    "Sine:30": (dict(activation="Sine:30"), (8, 16)),
+    "Snake:1": (dict(activation="Snake:1"), (8, 16)),
+    "Sigmoid": (dict(activation="Sigmoid"), (8, 16)),
+    "Softplus": (dict(activation="Softplus"), (8, 16)),
+    "rgbo": (dict(output_mode="rgbo"), (8, 16)),
+    "rgbo:exp": (dict(output_mode="rgbo:exp"), (8, 16)),
+    "direction": (dict(use_direction=True, disable_direction_in_fourier=False),
+                  (8, 16)),
+}
+# Sine:30 is ill-conditioned in float32 (30x pre-activations): one ulp of
+# seeded weight noise moves the plain version's image by 6.5e-4 to 9.1e-4
+# (the card tests' 64x64 case) and its gradient leaves by 0.4-4.7%
+# (tools/port_conditioning.py, on the CPU). Its kernel-vs-plain
+# image and leaves are held to NOISE_FLIP times the plain version's own
+# change under NOISE_EPS relative weight noise (KERNEL_TOL and GRAD_TOL
+# at least), as phase N holds the discontinuous TF modes.
+NET_ILL = {"Sine:30"}
+NOISE_EPS = 1e-7
+NOISE_FLIP = 5.0
 MC_CHECK_SIZE = 128                  # phase L: render_image supersampled
 MC_CHECK_SAMPLES = 4
 MC_CHECK_STEPSIZE = 1.0 / 128
@@ -278,20 +319,13 @@ def ptxas_instances(name, kernel):
 
     from fvsrn_tpu_torch.ops import _build
 
-    found, fn = {}, None
-    for line in _build.ptxas_report(name).splitlines():
-        if "Function properties for" in line:
-            m = re.search(kernel + r"I(Li(\d+)E)?N5march\d+(\w+?Table)", line)
-            fn = (f"H{m.group(2)} " if m.group(2) else "") + m.group(3) \
-                if m else None
-        elif fn and "spill stores" in line:
-            spill = [int(v) for v in re.findall(r"(\d+) bytes spill", line)]
-            found[fn] = [None] + spill
-        elif fn and "registers" in line and fn in found:
-            found[fn][0] = int(re.search(r"Used (\d+) registers",
-                                         line).group(1))
-            fn = None
-    return {k: tuple(v) for k, v in found.items()}
+    found = {}
+    for fn, v in _build.ptxas_instances(_build.ptxas_report(name)).items():
+        m = re.search(kernel + r"I(Li(\d+)E)?N5march\d+(\w+?Table)", fn)
+        if m:
+            found[(f"H{m.group(2)} " if m.group(2) else "")
+                  + m.group(3)] = v[:3]
+    return found
 
 
 def rel_err(a, b):
@@ -479,7 +513,7 @@ def training(smi, reset_counts, counts, npz, tf, cam):
     rays = fused_mega.ray_packet(rs, rd, *box, STEPSIZE)
     params = fused_mega._params(net, tf_d)
     widths = fused_mega._widths(params)
-    weights = fused_mega._pack_weights(params)
+    weights = fused_mega._pack_weights(params, spec)
     table = fused_mega.latent_table(params[2], torch.float32)
     n_seg = fused_mega.segments_needed(rays, spec)
     fwd = fused_mega._launch_fwd(rays, weights, table, spec, *widths[:3],
@@ -2408,6 +2442,306 @@ def tf_modes(smi, reset_counts, counts, npz, cam, frame_ms):
     return figures, trainer_counts
 
 
+def mega_instances(width):
+    """{instance: (registers, spill stores, spill loads)} of the
+    megakernels' instances at ``width`` from the build's ptxas report, an
+    instance named by its kernel and mangled template arguments
+    (``mega_fwd<Li64EN5march9Bf16TableELb0ELi0ELin1E>``: width 64, bf16
+    table, unmasked, piecewise, any activation)."""
+    import re
+
+    from fvsrn_tpu_torch.ops import _build
+
+    out = {}
+    for kind in ("mega_fwd", "mega_bwd"):
+        name = kind if width == 32 else f"{kind}{width}"
+        for fn, v in _build.ptxas_instances(
+                _build.ptxas_report(name)).items():
+            args = re.search(r"_kernelI(.*?)EEv", fn)
+            out[f"{kind}<{args.group(1) if args else fn}>"] = v[:3]
+    return out
+
+
+def networks(smi, reset_counts, counts, tf, cam):
+    """Phase O, the networks of the paper's sweeps on rows 1-3: the
+    widest of eval_network_configs.py (64:64:64, 16x32^3) trained by
+    ``train.main.run`` in screen mode (rows 2-3), rendered FUSED at 512^2,
+    1/512 (row 1) and one training step, both timed; then every case of
+    NET_CASES at NET_SIZE^2: the FUSED render (route 1) kernel vs plain
+    and vs the f32 lattice oracle, the differentiable pair kernel vs
+    plain (image, every gradient leaf) and each kernel timed. Returns
+    {row name: {case: figures}}, every width's ptxas, and the trainer's
+    launches."""
+    from fvsrn_tpu_torch.camera import generate_rays
+    from fvsrn_tpu_torch.inference import LoadedModel
+    from fvsrn_tpu_torch.models.latent import LatentSpace
+    from fvsrn_tpu_torch.models.network_volume import \
+        VolumeInterpolationNetwork
+    from fvsrn_tpu_torch.models.srn import SceneRepresentationNetwork
+    from fvsrn_tpu_torch.ops import fused_mega
+    from fvsrn_tpu_torch.ops.fused_dvr import block_ray_permutation
+    from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
+                                               max_steps_bound, trace_dvr)
+    from fvsrn_tpu_torch.train import main as train_main
+    from fvsrn_tpu_torch.train.optimizer import make_optimizer
+    from fvsrn_tpu_torch.volume.implicit import VolumeInterpolationImplicit
+
+    dev = torch.device(DEVICE)
+    root = os.path.dirname(os.path.abspath(__file__))
+    box = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))
+    cfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE)
+    ocfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE,
+                                         enable_early_out=False)
+    steps_max = max_steps_bound(box[1], STEPSIZE)
+    tf_d = tf.tensor.to(dev)
+    rows = {"mega_fwd": {}, "mega_fwd_diff": {}, "mega_bwd": {}}
+    t_phase = time.perf_counter()
+
+    # O1. the widest network trained by the trainer (rows 2-3)
+    out_dir = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    opt = vars(train_main.init_parser().parse_args(
+        NET_TRAIN_ARGS[:1] + [os.path.join(out_dir, "net64_run.npz")]
+        + NET_TRAIN_ARGS[1:]))
+    steps = opt["screen_cameras"] * opt["epochs"]
+    reset_counts()
+    t0 = time.perf_counter()
+    result = train_main.run(opt)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trainer_counts = counts()
+    hist = result["history"]
+    print(f"phase O1 trainer: 64:64:64 SnakeAlt:2, 16x32^3, train.main.run "
+          f"screen {NET_SIZE}x{NET_SIZE}, {steps} steps in {train_s:.1f} s, "
+          f"fused {result['fused']}, losses {hist}, launches "
+          f"{trainer_counts}", flush=True)
+    check(result["fused"] and all(math.isfinite(v) for v in hist),
+          f"phase O1: fused {result['fused']}, losses {hist}")
+    check(trainer_counts["mega_fwd_diff"] >= steps
+          and trainer_counts["mega_bwd"] >= steps,
+          f"phase O1: launches {trainer_counts}")
+    trained = result["network"].to(dev)
+
+    def bound_ms(flops):
+        return flops / PEAK_BF16_TC * 1e3
+
+    def noisy(net, seed=3):
+        """``net`` with every parameter times (1 + NOISE_EPS N(0, 1))."""
+        out = copy.deepcopy(net)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        with torch.no_grad():
+            for p in out.parameters():
+                p.mul_(1.0 + NOISE_EPS * torch.randn(
+                    p.shape, device=p.device, generator=gen))
+        return out
+
+    def block_rays(size):
+        rs, rd = generate_rays(cam, size, size, device=dev)
+        perm, _ = block_ray_permutation(size, size, 16, 16, device=dev)
+        return (rs.reshape(-1, 3)[perm].contiguous(),
+                rd.reshape(-1, 3)[perm].contiguous())
+
+    def render_case(net, size, iters, ill=False):
+        """Row 1 on the product render: (figures, the prepared render).
+        The f32 oracle is held against the kernel on a float32 table:
+        the product's bf16 table moves a Sine:30 network's image by
+        ~6e-2 in its own right (30x pre-activations); that distance is
+        recorded, not gated."""
+        model = LoadedModel(net, tf, config=cfg)
+        render = model.prepare_network_render(cam, size, size, "FUSED",
+                                              device=dev)
+        check(render.route == "mega", f"phase O: route {render.route}")
+        reset_counts()
+        img = render()
+        torch.cuda.synchronize()
+        c = counts()
+        check(c["mega_fwd"] >= 1 and bool(torch.isfinite(img).all()),
+              f"phase O: render launches {c}")
+        got, samples = render.march(return_samples=True)
+        plain = render.march(fused_mega.mega_trace_dvr_plain)
+        err = float((got - plain).abs().max())
+        tol = KERNEL_TOL
+        if ill:
+            moved_net = noisy(render.network)
+            moved = render.march(lambda rs, rd, _net, *a, **k:
+                                 fused_mega.mega_trace_dvr_plain(
+                                     rs, rd, moved_net, *a, **k))
+            tol = max(tol, NOISE_FLIP * float((moved - plain).abs().max()))
+        check(err <= tol, f"phase O: render kernel vs plain {err} "
+              f"(tol {tol})")
+        sel = slice(None)
+        if size * size > ORACLE_TILES * 256:   # 64 tiles spread over it
+            n = size * size // 256
+            tiles = torch.arange(0, n, n // ORACLE_TILES,
+                                 device=dev)[:ORACLE_TILES]
+            sel = (tiles[:, None] * 256
+                   + torch.arange(256, device=dev)).reshape(-1)
+        vol = VolumeInterpolationNetwork(render.network, *box)
+        with torch.no_grad():
+            oracle = trace_dvr(
+                render.ray_start[sel], render.ray_dir[sel], vol, render.tf,
+                ocfg, steps_max, lattice=True,
+                tmax_in=(render.tmax_clip[sel]
+                         if render.tmax_clip is not None else None)).color
+        got32 = render.march(table_dtype=torch.float32)
+        oerr = float((got32[sel] - oracle).abs().max())
+        check(oerr < ORACLE_TOL, f"phase O: render vs oracle {oerr}")
+        ms = cuda_ms(lambda: render.march(), iters)
+        n_samples = int(samples.sum())
+        return {"ms": ms, "launches": c["mega_fwd"], "max_abs_err": err,
+                "tol": tol, "oracle_max_abs_err": oerr,
+                "oracle_bf16_max_abs_err": float(
+                    (got[sel] - oracle).abs().max()),
+                "samples": n_samples,
+                "bound_ms": bound_ms(n_samples * sample_flops(net)),
+                "alpha_max": float(got[:, 3].max())}, render
+
+    def pair(fn, net, rs, rd):
+        """(image, grads) of one fwd+bwd of mean(img^2)."""
+        net.zero_grad(set_to_none=True)
+        tf_leaf = tf_d.clone().requires_grad_(True)
+        img = fn(rs, rd, net, *box, tf_leaf, stepsize=STEPSIZE,
+                 differentiable=True)
+        img.backward(2.0 * img.detach() / img.numel())
+        return img.detach(), grads_of(net, tf_leaf)
+
+    def train_case(net, size, iters, ill=False):
+        """Rows 2-3: the kernels through mega_trace_dvr (launch counts),
+        then against the plain differentiable version (image, every
+        leaf; the cotangent of mean(img^2)), each kernel timed alone."""
+        rs, rd = block_rays(size)
+        reset_counts()
+        img_k, g_k = pair(fused_mega.mega_trace_dvr, net, rs, rd)
+        c = counts()
+        check(c["mega_fwd_diff"] >= 1 and c["mega_bwd"] >= 1,
+              f"phase O: training launches {c}")
+        img_p, g_p = pair(fused_mega.mega_trace_dvr_plain, net, rs, rd)
+        img_tol, g_tol = KERNEL_TOL, {n: GRAD_TOL for n in g_p}
+        if ill:
+            img_n, g_n = pair(fused_mega.mega_trace_dvr_plain, noisy(net),
+                              rs, rd)
+            img_tol = max(img_tol, NOISE_FLIP * float(
+                (img_n - img_p).abs().max()))
+            g_tol = {n: max(GRAD_TOL, NOISE_FLIP * rel_err(g_n[n], g_p[n]))
+                     for n in g_p if float(g_p[n].norm()) > 0}
+        img_err = float((img_k - img_p).abs().max())
+        check(img_err <= img_tol, f"phase O: image kernel vs plain "
+              f"{img_err} (tol {img_tol})")
+        rgbo = not net.output_mode.startswith("density")
+        rel = {}
+        for n in g_p:
+            if n == "tf" and rgbo:   # reads no TF: zero in both
+                check(not g_k[n].any() and not g_p[n].any(),
+                      "phase O: an rgbo TF gradient")
+                continue
+            check(float(g_p[n].norm()) > 0, f"phase O: zero gradient {n}")
+            rel[n] = rel_err(g_k[n], g_p[n])
+            check(rel[n] <= g_tol[n], f"phase O: grad kernel vs plain {n} "
+                  f"{rel[n]} (tol {g_tol[n]})")
+        worst = max(rel, key=rel.get)
+        spec = fused_mega._spec(net, *box, stepsize=STEPSIZE, seg=32,
+                                tile=256, density_min=0.0, density_max=1.0,
+                                enable_early_out=True)
+        rays = fused_mega.ray_packet(rs, rd, *box, STEPSIZE)
+        params = fused_mega._params(net, tf_d)
+        widths = fused_mega._widths(params)
+        weights = fused_mega._pack_weights(params, spec)
+        table = fused_mega._kernel_table(params[2], torch.float32, dev)
+        n_seg = fused_mega.segments_needed(rays, spec)
+        fwd = fused_mega._launch_fwd(rays, weights, table, spec, *widths[:3],
+                                     n_seg_max=n_seg)
+        d_out = 2.0 * fwd[0] / fwd[0].numel()
+        fwd_ms = cuda_ms(lambda: fused_mega._launch_fwd(
+            rays, weights, table, spec, *widths[:3], n_seg_max=n_seg), iters)
+        bwd_ms = cuda_ms(lambda: fused_mega._launch_bwd(
+            rays, weights, table, fwd[2], fwd[3], d_out, spec, *widths),
+            iters)
+        work = fused_mega._launch_bwd(rays, weights, table, fwd[2], fwd[3],
+                                      d_out, spec, *widths)[2].sum(dim=0)
+        n_samples = int(fwd[1].sum())
+        return ({"ms": fwd_ms, "launches": c["mega_fwd_diff"],
+                 "max_abs_err": img_err, "tol": img_tol,
+                 "samples": n_samples,
+                 "bound_ms": bound_ms(n_samples * sample_flops(net))},
+                {"ms": bwd_ms, "launches": c["mega_bwd"],
+                 "max_abs_err": rel[worst], "grad_worst": worst,
+                 "tol": g_tol[worst],
+                 "samples_replayed": int(work[0]),
+                 "samples_contributing": int(work[1]),
+                 "bound_ms": bound_ms(int(work[0]) * sample_flops(net)
+                                      + int(work[1]) * adjoint_flops(net))})
+
+    # O2. the trained 64:64:64 network: FUSED at 512^2 and one step, timed
+    fig1, render = render_case(trained, WIDTH, 10)
+    frame_ms, frame_std, _ = LoadedModel(trained, tf, config=cfg) \
+        .time_rendering(LoadedModel.rotation_cameras(TIMED_CAMERAS), WIDTH,
+                        HEIGHT)
+    fig1["frame_ms"] = frame_ms
+    fig1["plain_ms"] = cuda_ms(
+        lambda: render.march(fused_mega.mega_trace_dvr_plain), 1)
+    rs, rd = block_rays(WIDTH)
+    with torch.no_grad():
+        target = trace_dvr(rs, rd, VolumeInterpolationImplicit.make(
+            "MARSCHNER_LOBB", device=dev), tf.to(dev), cfg, steps_max).color
+    tnet = copy.deepcopy(trained)
+    opt_, sched = make_optimizer(tnet.parameters(), "Adam", lr=1e-3)
+
+    def train_step():
+        opt_.zero_grad(set_to_none=True)
+        img = fused_mega.mega_trace_dvr(rs, rd, tnet, *box, tf_d,
+                                        stepsize=STEPSIZE,
+                                        differentiable=True)
+        (img - target).abs().mean().backward()
+        opt_.step()
+        sched.step()
+
+    step_ms = cuda_ms(train_step, TIMED_STEPS)
+    name = "64:64:64 16x32^3"
+    rows["mega_fwd"][name] = fig1
+    fig2, fig3 = train_case(trained, NET_SIZE, 3)
+    fig2["step_ms_512"] = fig3["step_ms_512"] = step_ms
+    rows["mega_fwd_diff"][name] = fig2
+    rows["mega_bwd"][name] = fig3
+    print(f"phase O2 64:64:64 [{smi}]: FUSED {WIDTH}x{HEIGHT} frame "
+          f"{frame_ms:.3f} ms (std {frame_std:.3f}), kernel "
+          f"{fig1['ms']:.3f} ms (bound {fig1['bound_ms']:.4f}, "
+          f"{fig1['samples']} samples), plain {fig1['plain_ms']:.1f} ms, "
+          f"vs plain {fig1['max_abs_err']:.2e}, vs oracle "
+          f"{fig1['oracle_max_abs_err']:.2e}; training step {step_ms:.3f} "
+          f"ms; at {NET_SIZE}^2 fwd {fig2['ms']:.3f} ms, bwd "
+          f"{fig3['ms']:.3f} ms, grad rel {fig3['max_abs_err']:.2e} "
+          f"({fig3['grad_worst']})", flush=True)
+
+    # O3. the cases at NET_SIZE^2
+    for name, (kw, grid) in NET_CASES.items():
+        lat = LatentSpace()
+        if grid is not None:
+            c, r = grid
+            g = np.random.default_rng(7).standard_normal((c, r, r, r)) * 0.3
+            lat = LatentSpace(static_grid=torch.tensor(g, dtype=torch.float32))
+        net = SceneRepresentationNetwork.make(latent=lat, seed=7, **kw).to(dev)
+        ill = name in NET_ILL
+        if grid is not None:
+            rows["mega_fwd"][name] = render_case(net, NET_SIZE, 5, ill)[0]
+        f2, f3 = train_case(net, NET_SIZE, 3, ill)
+        rows["mega_fwd_diff"][name] = f2
+        rows["mega_bwd"][name] = f3
+        f1 = rows["mega_fwd"].get(name)
+        print(f"phase O3 {name}: "
+              + (f"render {f1['ms']:.3f} ms vs plain {f1['max_abs_err']:.2e}"
+                 f" vs oracle {f1['oracle_max_abs_err']:.2e}; "
+                 if f1 else "no grid: route 2 renders it; ")
+              + f"fwd {f2['ms']:.3f} ms image {f2['max_abs_err']:.2e}, bwd "
+              f"{f3['ms']:.3f} ms grad rel {f3['max_abs_err']:.2e} "
+              f"({f3['grad_worst']})", flush=True)
+    ptxas = {w: mega_instances(w) for w in (32, 48, 64)}
+    for w in (48, 64):
+        print(f"phase O ptxas width {w}: " + "; ".join(
+            f"{k} {v}" for k, v in ptxas[w].items()), flush=True)
+    print(f"phase O: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows, ptxas, trainer_counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2575,6 +2909,11 @@ def main():
                    "err": f.get(err_key), "launches": f.get(n_key)}
             for mode, f in tfm.items()}
     render_row["tf_modes_trainer_launches"] = tfm_counts
+    nets, ptxas, net_counts = networks(smi, reset_counts, counts, tf, cam)
+    for row in [render_row] + train_rows:   # rows 1-3
+        row["networks"] = nets[row["name"]]
+    render_row["networks_ptxas"] = {str(w): v for w, v in ptxas.items()}
+    render_row["networks_trainer_launches"] = net_counts
 
     # 11. kernels
     print(json.dumps({"kernels": [render_row] + train_rows

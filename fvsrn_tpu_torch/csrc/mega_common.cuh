@@ -5,7 +5,10 @@
 // TFs of every mode, the "over" step) are in march_common.cuh. Both
 // kernels evaluate their samples as tiles: the forward on warp_mlp.cuh,
 // the backward on sample_mlp.cuh; the backward's replay agrees with the
-// forward to float32 rounding, not bit for bit.
+// forward to float32 rounding, not bit for bit. The hidden width is a
+// template parameter of both (32, 48 or 64; narrower networks are
+// zero-padded by the wrapper, which is exact), one source per width
+// (mega_fwd.cu, mega_fwd48.cu, mega_fwd64.cu and the same for mega_bwd).
 #pragma once
 
 #include "march_common.cuh"
@@ -14,7 +17,6 @@ namespace mega {
 
 using namespace march;
 
-constexpr int kHid = 32;        // hidden width
 constexpr int kTile = 256;      // rays per block = threads per block
 constexpr int kMaxFourier = 32;
 constexpr int kMaxHidden = 6;   // hidden->hidden layers
@@ -28,7 +30,8 @@ struct March {
   int n_weights;
   int gx, gy, gz;
   int n_fourier, n_hidden, tf_points;
-  float act_param;          // SnakeAlt frequency
+  int act, head, has_dir;   // march_common.cuh's Act and Head, direction
+  float act_param;          // the activation's parameter
   int seg;
   int n_seg_max;            // segments a tile may visit (carry storage)
   float stepsize, density_min, inv_range, early_alpha;
@@ -37,30 +40,51 @@ struct March {
   int mask_cols;
 };
 
-// Packed float32 weights, in this order: Fourier matrix B (F, 3); layer 1
-// (32, K1 = 3 + 2F + 16) over [pos, cos, sin, latent]; its bias (32);
-// n_hidden hidden layers (32, 32) each, then their biases (n_hidden, 32);
-// output row (32); output bias (1); the TF: control points (tf_points, 5)
-// as [r, g, b, absorption, position], or the other modes' table
-// (tf_floats floats; none for preint2d, whose table is its own array).
-// Every matrix is output-major. The backward's weight gradient uses the
-// same layout.
+// Packed float32 weights of hidden width H (padded), in this order:
+// Fourier matrix B (F, 3) over the position; with direction input its
+// direction block Bd (F, 3); layer 1 (H, K1) over [pos 3, dir 3 (with
+// direction input), cos F, sin F, latent 16]; its bias (H); n_hidden
+// hidden layers (H, H) each, then their biases (n_hidden, H); the output
+// rows (n_out, H) (1 for a density head, 4 for rgbo) and biases (n_out);
+// a density head's TF: control points (tf_points, 5) as [r, g, b,
+// absorption, position], or the other modes' table (tf_floats floats;
+// none for preint2d, whose table is its own array). Every matrix is
+// output-major. The backward's weight gradient uses the same layout.
 struct Offsets {
-  int B, W1, b1, Wh, bh, Wo, bo, TF;
+  int B, Bd, W1, b1, Wh, bh, Wo, bo, TF, K1;
 };
 
-__host__ __device__ inline Offsets weight_offsets(int F, int n_hidden) {
+__host__ __device__ inline Offsets weight_offsets(int H, int F, int n_hidden,
+                                                  int n_out, int has_dir) {
   Offsets o;
-  const int K1 = 3 + 2 * F + kLat;
+  o.K1 = (has_dir ? 6 : 3) + 2 * F + kLat;
   o.B = 0;
-  o.W1 = o.B + 3 * F;
-  o.b1 = o.W1 + kHid * K1;
-  o.Wh = o.b1 + kHid;
-  o.bh = o.Wh + n_hidden * kHid * kHid;
-  o.Wo = o.bh + n_hidden * kHid;
-  o.bo = o.Wo + kHid;
-  o.TF = o.bo + 1;
+  o.Bd = o.B + 3 * F;
+  o.W1 = o.Bd + (has_dir ? 3 * F : 0);
+  o.b1 = o.W1 + H * o.K1;
+  o.Wh = o.b1 + H;
+  o.bh = o.Wh + n_hidden * H * H;
+  o.Wo = o.bh + n_hidden * H;
+  o.bo = o.Wo + n_out * H;
+  o.TF = o.bo + n_out;
   return o;
+}
+
+// Values of an output head.
+__host__ __device__ inline int head_outputs(int head) {
+  return head >= kRgbo ? 4 : 1;
+}
+
+// Whether a launch's network and TF are ones the kernels take: an rgbo
+// head reads no TF (piecewise with no rows), a density head one the
+// kernels hold (march_common.cuh's tf_valid).
+inline bool mega_valid(int act, int head, int tfm, int tf_points,
+                       int tf_pre, int tf_floats, const void* tf2d) {
+  if (act < kNone || act > kSnakeAlt || head < kDensity || head > kRgboExp)
+    return false;
+  if (head >= kRgbo)
+    return tfm == kTfPiecewise && tf_points == 0 && tf_floats == 0;
+  return tf_valid(tfm, tf_points, tf_pre, tf_floats, tf2d, kMaxTf);
 }
 
 // Per-ray setup shared by both kernels: the ray packet and the tile's
@@ -102,7 +126,8 @@ __device__ __forceinline__ void sample_pos(const March& P, const Ray& r,
 inline void fill_march(March& P, const float* rays, const void* table,
                        const float* weights, int n_weights, int gx, int gy,
                        int gz, int n_fourier, int n_hidden, int tf_points,
-                       float act_param, int seg, int n_seg_max,
+                       int act, float act_param, int head, int has_dir,
+                       int seg, int n_seg_max,
                        float stepsize, float density_min, float inv_range,
                        float early_alpha, const float* bmin,
                        const float* bsize) {
@@ -114,6 +139,9 @@ inline void fill_march(March& P, const float* rays, const void* table,
   P.n_fourier = n_fourier;
   P.n_hidden = n_hidden;
   P.tf_points = tf_points;
+  P.act = act;
+  P.head = head;
+  P.has_dir = has_dir;
   P.act_param = act_param;
   P.seg = seg;
   P.n_seg_max = n_seg_max;

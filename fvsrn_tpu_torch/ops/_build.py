@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -23,9 +24,11 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "fvsrn_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# every source of the port (csrc/<name>.cu)
-SOURCES = ("mega_fwd", "mega_bwd", "segment_fwd", "segment_bwd",
-           "sample_eval", "probes")
+# every source of the port (csrc/<name>.cu); the megakernel's one per
+# hidden width (32, 48, 64)
+SOURCES = ("mega_fwd", "mega_fwd48", "mega_fwd64", "mega_bwd", "mega_bwd48",
+           "mega_bwd64", "segment_fwd", "segment_bwd", "sample_eval",
+           "probes")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -101,6 +104,28 @@ def ptxas_report(name: str) -> str:
     with open(log) as f:
         return "".join(line for line in f
                        if "ptxas" in line or "stack frame" in line)
+
+
+def ptxas_instances(report: str) -> dict[str, tuple[int, int, int, int]]:
+    """{mangled kernel: (registers, spill stores, spill loads, stack
+    frame bytes)} of a ptxas -v report (:func:`ptxas_report`'s, or
+    nvcc's output)."""
+    found, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if fn and m:
+            stack, st, ld = (int(v) for v in m.groups())
+            found[fn] = [None, st, ld, stack]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if fn and m and fn in found:
+            found[fn][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in found.items() if v[0] is not None}
 
 
 def load(name: str) -> ctypes.CDLL:

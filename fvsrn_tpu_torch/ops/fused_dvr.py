@@ -71,7 +71,8 @@ from ..models.srn import SceneRepresentationNetwork
 from ..utils.device import strict_f32
 from ..utils.vecmath import intersect_aabb
 from . import _build
-from .fused_mega import TfCarries, _gated_clip01, _params, _tf_args
+from .fused_mega import (_ACTIVATIONS, _HEADS, TfCarries, _gated_clip01,
+                         _params, _tf_args, kernel_width)
 
 # kernel launches since the last reset (two a call: the march and its
 # continuation up to the call's stop); the plain version never counts
@@ -80,16 +81,11 @@ SEGMENT_LAUNCHES = 0
 # the JAX megakernel's VMEM budget for its latent slab: the route rule of
 # the fused render (a grid over it takes the bucketed per-segment engine)
 SLAB_VMEM_LIMIT = 6 * 2 ** 20
-KERNEL_WIDTHS = (32, 48, 64)     # hidden widths of the kernel's instances
 MAX_LATENT_CHANNELS = 64
 MAX_FOURIER = 32                 # the kernel's limits (segment_fwd.cu)
 MAX_HIDDEN_LAYERS = 6
 MAX_TF_POINTS = 16               # piecewise knots, Gaussians
 MAX_BWD_SEG = 32                 # segment_bwd.cu's segment length limit
-_ACTIVATIONS = {"None": 0, "NONE": 0, "ReLU": 1, "Sine": 2, "Sigmoid": 3,
-                "Softplus": 4, "Snake": 5, "SnakeAlt": 6}
-_HEADS = {"density": 0, "density:direct": 1, "rgbo": 2, "rgbo:direct": 3,
-          "rgbo:exp": 4}
 _PLAIN_CHUNK_SAMPLES = 1 << 21
 _FAR = 3.0e38
 # the TF modes of the fused marches (the JAX package's tf_mode), in the
@@ -902,19 +898,6 @@ def _tpu_schedule(kwargs: dict):
 
 # ---------------------------------------------------------------------------
 # the CUDA kernel
-
-
-def kernel_width(net) -> int:
-    """The hidden width of the kernel instance that takes ``net``: its
-    hidden layers' width rounded up to 32, 48 or 64 (zero padding is
-    exact); raises ``NotImplementedError`` for what the kernel does not
-    take."""
-    widths = {l.weight.shape[0] for l in net.layers[:-1]}
-    if len(widths) != 1 or max(widths) > KERNEL_WIDTHS[-1]:
-        raise NotImplementedError("segment kernel: hidden layers of one "
-                                  f"width <= {KERNEL_WIDTHS[-1]} only")
-    width = next(iter(widths))
-    return next(w for w in KERNEL_WIDTHS if w >= width)
 
 
 def _check_kernel_inputs(net, tf: Tensor, seg: int = 32,

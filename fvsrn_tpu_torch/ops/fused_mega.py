@@ -22,27 +22,34 @@ of the tile has alpha < ``alpha_early_out`` (0.999) at the segment's
 start; and, with a ``segment_active`` mask (TF-aware empty-space culling,
 ``ops/occupancy.py``), where the mask keeps the (tile, segment).
 Each live sample: trilinear latent fetch (bf16 table for the render,
-float32 for training), Fourier features, the MLP in float32, the density
-head, the TF (piecewise-linear, texture, 1D- or 2D-preintegrated,
-Gaussians: ``tf_mode``, as ``ops.fused_dvr.prepare_tf`` packs it),
+float32 for training), Fourier features of the position (and of the ray
+direction, with direction input), the MLP in float32 (any width, one
+activation for every hidden layer), the output head: a density head
+through the TF (piecewise-linear, texture, 1D- or 2D-preintegrated,
+Gaussians: ``tf_mode``, as ``ops.fused_dvr.prepare_tf`` packs it), or
+an rgbo head's own color and absorption (the TF is not read); then
 Beer-Lambert "over".
 
 The gradient is that of the TPU kernel's adjoint, which fixes the
 subgradients at the clips: a sample that absorbs nothing passes no
 gradient; the TF knot positions get gradients only strictly inside an
-interval; the clips of the density (0 < d < 1) and of ``density:direct``
-(0 < y < 1) are strict. The plain versions write these gates with
+interval; the clips of the density (0 < d < 1), of the ``:direct`` heads
+(0 < y < 1, y > 0) and ReLU's kink (y > 0) are strict. The plain versions write these gates with
 ``torch.where`` so that autograd reproduces them, and the backward
 replays the forward's tile vote on the stored incoming carries.
 
-Bound of the kernels on the H100: operations (the forward about 7.6 kFLOP
-and 110 transcendentals per sample, 44 bytes per ray; the backward about
-four times the forward's work per contributing sample). Both batch the
-samples of 32-ray groups into tiles of (ray, sample) rows and run every
-layer as a TF32 three-pass tensor-core product: the forward on tiles a
-warp owns, with no block barrier between layers (``csrc/warp_mlp.cuh``),
-the backward, its transposed layers and weight gradients on tiles of the
-block (``csrc/sample_mlp.cuh``).
+Bound of the kernels on the H100: operations (the flagship's forward
+about 7.6 kFLOP and 110 transcendentals per sample, a 64:64:64 network's
+about 22.5 kFLOP; 44 bytes per ray; the backward about four times the
+forward's work per contributing sample). Both batch the samples of
+32-ray groups into tiles of (ray, sample) rows and run every layer as a
+TF32 three-pass tensor-core product: the forward on tiles a warp owns,
+with no block barrier between layers (``csrc/warp_mlp.cuh``), the
+backward, its transposed layers and weight gradients on tiles of the
+block (``csrc/sample_mlp.cuh``). The hidden width is a template
+parameter of both, one source per width (``csrc/mega_fwd.cu``, ``mega_fwd48.cu``,
+``mega_fwd64.cu`` and the same for ``mega_bwd``); narrower networks are
+zero-padded to 32, 48 or 64, which is exact.
 """
 from __future__ import annotations
 
@@ -54,8 +61,6 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
-from ..models.activations import apply_activation
-from ..models.latent import grid_sample_3d
 from ..models.srn import SceneRepresentationNetwork
 from ..utils.device import strict_f32
 from ..utils.vecmath import intersect_aabb
@@ -69,11 +74,16 @@ BWD_LAUNCHES = 0
 
 KERNEL_TILE = 256
 KERNEL_SEG = 32          # the backward kernel's segment length
-HIDDEN = 32
+KERNEL_WIDTHS = (32, 48, 64)   # hidden widths of the kernels' instances
 LATENT_CHANNELS = 16
 MAX_FOURIER = 32         # the kernels' compile-time limits (mega_common.cuh)
-MAX_HIDDEN_LAYERS = 6
+MAX_HIDDEN_LAYERS = 6    # hidden->hidden layers
 MAX_TF_POINTS = 16
+# the kernels' activation and head ids (csrc/march_common.cuh)
+_ACTIVATIONS = {"None": 0, "NONE": 0, "ReLU": 1, "Sine": 2, "Sigmoid": 3,
+                "Softplus": 4, "Snake": 5, "SnakeAlt": 6}
+_HEADS = {"density": 0, "density:direct": 1, "rgbo": 2, "rgbo:direct": 3,
+          "rgbo:exp": 4}
 TABLE_DTYPE = torch.bfloat16
 EARLY_ALPHA = 0.999      # the tile vote's threshold, as in the JAX package
 _PLAIN_CHUNK_SAMPLES = 1 << 21
@@ -91,9 +101,11 @@ class MarchSpec(NamedTuple):
     box_size: tuple
     activations: tuple          # (name, param) of every layer
     output_mode: str
-    tf_mode: str = "piecewise"  # ops.fused_dvr.TF_MODES
+    tf_mode: str = "piecewise"  # ops.fused_dvr.TF_MODES (rgbo: piecewise)
     tf_points: int = 0          # ops.fused_dvr.prepare_tf's tf_points,
     tf_pre_rows: int = 0        # tf_pre_rows
+    direction: bool = False     # the ray direction is a network input
+    width: int = 32             # the hidden layers' width
 
 
 def ray_packet(ray_start: Tensor, ray_dir: Tensor, box_min, box_size,
@@ -121,19 +133,26 @@ def ray_packet(ray_start: Tensor, ray_dir: Tensor, box_min, box_size,
 
 
 def _check_network(net: SceneRepresentationNetwork):
-    if not net.output_mode.startswith("density"):
-        raise NotImplementedError("fused march: density output modes only")
-    if net.use_direction:
-        raise NotImplementedError("fused march: no direction input")
-    fm = net.input.fourier_matrix
-    if fm is not None and fm.shape[1] != 3:
-        raise NotImplementedError("fused march: positional Fourier only")
+    """The march evaluates every hidden layer with one activation, as the
+    JAX megakernel does."""
+    acts = {(l.activation, l.activation_param) for l in net.layers[:-1]}
+    if len(acts) != 1:
+        raise NotImplementedError("fused march: hidden layers of one "
+                                  "activation")
+
+
+def _density(spec) -> bool:
+    return spec.output_mode.startswith("density")
 
 
 def _spec(net, box_min, box_size, *, stepsize, seg, tile, density_min,
           density_max, enable_early_out,
           alpha_early_out=EARLY_ALPHA, tf_mode="piecewise", tf_points=0,
           tf_pre_rows=0) -> MarchSpec:
+    """The march's spec. The rgbo heads read no TF: their spec is the
+    piecewise one with no TF rows, whatever ``tf_mode`` says."""
+    if not net.output_mode.startswith("density"):
+        tf_mode, tf_points, tf_pre_rows = "piecewise", 0, 0
     return MarchSpec(
         stepsize=float(stepsize), seg=int(seg), tile=int(tile),
         density_min=float(density_min), density_max=float(density_max),
@@ -143,7 +162,9 @@ def _spec(net, box_min, box_size, *, stepsize, seg, tile, density_min,
         activations=tuple((l.activation, l.activation_param)
                           for l in net.layers),
         output_mode=net.output_mode, tf_mode=tf_mode,
-        tf_points=int(tf_points), tf_pre_rows=int(tf_pre_rows))
+        tf_points=int(tf_points), tf_pre_rows=int(tf_pre_rows),
+        direction=bool(net.use_direction),
+        width=int(net.layers[0].weight.shape[0]))
 
 
 def _params(net: SceneRepresentationNetwork, tf: Tensor) -> list:
@@ -169,48 +190,50 @@ def _gated_clip01(x: Tensor) -> Tensor:
                        torch.where(x >= 1.0, torch.ones_like(x), x))
 
 
-def _shade(spec: MarchSpec, params: list, pos01: Tensor, valid: Tensor,
+def _absorb(valid: Tensor, rgb: Tensor, absn: Tensor):
+    """(rgb, ca) of samples of absorption ``absn`` where ``valid`` says
+    they count: the others absorb nothing, and a sample that absorbs
+    nothing passes no gradient."""
+    absn = torch.where(valid, absn, torch.zeros_like(absn))
+    ca = 1.0 - torch.exp(-absn)
+    contrib = valid & (absn > 0)
+    return (torch.where(contrib[..., None], rgb, rgb.detach()),
+            torch.where(contrib, ca, ca.detach()))
+
+
+def _shade(spec: MarchSpec, params: list, pos01: Tensor,
+           dirs: Optional[Tensor], valid: Tensor,
            prev_in: Optional[Tensor] = None, first: Optional[Tensor] = None):
-    """(rgb, ca, last density) of samples at ``pos01`` (..., seg, 3): the
-    network (latent fetch from the grid), the density head, the TF (the
-    piecewise TF with its interior-knot interval choice, or the other
-    modes by ``ops.fused_dvr.tf_shade``, whose preintegrating modes read
+    """(rgb, ca, last density) of samples at ``pos01`` (..., seg, 3) along
+    rays of direction ``dirs`` (the same shape, or None without direction
+    input): the per-segment engine's plain network
+    (``ops.fused_dvr._network_values``: Fourier features, latent fetch,
+    the layers, the output head), then an rgbo head's own color and
+    absorption, or a density head's TF (the piecewise TF with its
+    interior-knot interval choice, or the other modes by
+    ``ops.fused_dvr.tf_shade``, whose preintegrating modes read
     ``prev_in`` and ``first``), Beer-Lambert alpha. Samples that do not
     count absorb nothing; samples that absorb nothing pass no gradient.
     The last density (the segment's last sample's, normalized) is None
     for the piecewise TF."""
-    tf, fourier, grid = params[0], params[1], params[2]
-    layers = params[3:]
-    x = pos01.reshape(-1, 3)
-    feats = [x]
-    if fourier.shape[0]:
-        f = x @ fourier.T
-        feats += [torch.cos(f), torch.sin(f)]
-    if grid is not None:
-        feats.append(grid_sample_3d(grid, x))
-    y = torch.cat(feats, dim=1)
-    n_layers = len(layers) // 2
-    for i in range(n_layers):
-        y = y @ layers[2 * i].T + layers[2 * i + 1]
-        name, p = spec.activations[i]
-        y = apply_activation(name, y, p)
-    y = y[:, 0].reshape(valid.shape)
-    if spec.output_mode == "density:direct":
-        value = _gated_clip01(y)
-    else:
-        value = torch.sigmoid(y)
+    from .fused_dvr import _network_values, tf_shade
+    tf = params[0]
     h = spec.stepsize
+    vals = _network_values(
+        params, pos01.reshape(-1, 3),
+        None if dirs is None else dirs.reshape(-1, 3),
+        direction=spec.direction, activation=spec.activations[0],
+        output_mode=spec.output_mode)
+    vals = vals.reshape(valid.shape + vals.shape[-1:])
+    if not _density(spec):
+        return _absorb(valid, vals[..., :3], vals[..., 3] * h) + (None,)
+    value = vals[..., 0]
     density2 = ((value - spec.density_min)
                 * (1.0 / (spec.density_max - spec.density_min)))
+    require = valid & (value >= spec.density_min)
     if spec.tf_mode != "piecewise":
-        from .fused_dvr import tf_shade
         rgb, absn = tf_shade(spec, tf, density2, prev_in, first)
-        require = valid & (value >= spec.density_min)
-        absn = torch.where(require, absn, torch.zeros_like(absn))
-        ca = 1.0 - torch.exp(-absn)
-        contrib = require & (absn > 0)
-        return (torch.where(contrib[..., None], rgb, rgb.detach()),
-                torch.where(contrib, ca, ca.detach()), density2[..., -1])
+        return _absorb(require, rgb, absn) + (density2[..., -1],)
     d = _gated_clip01(density2)
     iv = torch.zeros_like(d, dtype=torch.int64)
     for q in range(1, tf.shape[0] - 1):
@@ -225,13 +248,7 @@ def _shade(spec: MarchSpec, params: list, pos01: Tensor, valid: Tensor,
     interior = (d > p0) & (d < p1)
     frac = torch.where(interior, (d - p0) / (p1 - p0), (d >= p1).to(d.dtype))
     rgba = c0[..., :4] + frac[..., None] * (c1[..., :4] - c0[..., :4])
-    require = valid & (value >= spec.density_min)
-    absn = torch.where(require, rgba[..., 3] * h, torch.zeros_like(d))
-    ca = 1.0 - torch.exp(-absn)
-    contrib = require & (absn > 0)
-    rgb = rgba[..., :3]
-    return (torch.where(contrib[..., None], rgb, rgb.detach()),
-            torch.where(contrib, ca, ca.detach()), None)
+    return _absorb(require, rgba[..., :3], rgba[..., 3] * h) + (None,)
 
 
 def _tile_geometry(rays: Tensor, tile: int):
@@ -298,8 +315,9 @@ def _segment(spec, params, packet, k0t, s, carry):
     valid = ((k * h <= packet[..., 7:8]) & (k >= packet[..., 6:7]))
     p = packet[:, :, None, :]
     pos01 = (p[..., 0:3] + (k * h)[..., None] * p[..., 3:6] - bmin) / bsize
+    dirs = p[..., 3:6].expand(pos01.shape) if spec.direction else None
     tfm = spec.tf_mode != "piecewise"
-    color, ca, last = _shade(spec, params, pos01, valid,
+    color, ca, last = _shade(spec, params, pos01, dirs, valid,
                              carry[..., 4] if tfm else None,
                              k == packet[..., 6:7] if tfm else None)
     c, a = carry[..., :3], carry[..., 3]
@@ -481,55 +499,99 @@ def _table_dtype(table_dtype, differentiable: bool) -> torch.dtype:
 # the CUDA kernels
 
 
-def _pack_weights(params: list, tf_mode: str = "piecewise") -> Tensor:
-    """The kernels' packed float32 weights (layout in csrc/mega_common.cuh):
-    Fourier B, layer 1 with its latent columns zero-padded to 16, its
-    bias, the hidden layers, their biases, the output row and bias, TF (the
-    preint2d table apart: the kernels read it as its own array)."""
-    tf, fourier, grid = params[0], params[1], params[2]
-    layers = params[3:]
+def kernel_width(net) -> int:
+    """The hidden width of the kernel instance (either engine's) that
+    takes ``net``: its hidden layers' width rounded up to 32, 48 or 64
+    (zero padding is exact: a padded neuron's outgoing weights are zero,
+    whatever its activation gives); raises ``NotImplementedError`` for
+    layers of several widths or wider than 64."""
+    widths = {l.weight.shape[0] for l in net.layers[:-1]}
+    if len(widths) != 1 or max(widths) > KERNEL_WIDTHS[-1]:
+        raise NotImplementedError("CUDA kernels: hidden layers of one "
+                                  f"width <= {KERNEL_WIDTHS[-1]} only")
+    return _padded(next(iter(widths)))
+
+
+def _padded(width: int) -> int:
+    return next(w for w in KERNEL_WIDTHS if w >= width)
+
+
+def _n_in(spec: MarchSpec) -> int:
+    """The network's direct inputs: position, and direction with
+    direction input."""
+    return 6 if spec.direction else 3
+
+
+def _pack_weights(params: list, spec: MarchSpec) -> Tensor:
+    """The kernels' packed float32 weights (layout in csrc/mega_common.cuh,
+    ``weight_offsets``), the hidden width zero-padded to
+    :func:`kernel_width`: Fourier B over the position and, with direction
+    input, Bd over the direction (zeros when the Fourier features read no
+    direction); layer 1 over [position, direction, cos, sin, latent] with
+    its latent columns zero-padded to 16, its bias; the hidden layers,
+    their biases; the output rows (1 for a density head, 4 for rgbo) and
+    biases; a density head's TF (the preint2d table apart: the kernels
+    read it as its own array)."""
+    tf, fourier, layers = params[0], params[1], params[3:]
     f32 = dict(dtype=torch.float32, device=tf.device)
-    w1 = layers[0].to(**f32)
-    cl = 0 if grid is None else grid.shape[0]
-    w1 = torch.cat([w1, torch.zeros(w1.shape[0], LATENT_CHANNELS - cl,
-                                    **f32)], dim=1)
-    hidden_w = layers[2:-2:2]
-    hidden_b = layers[3:-2:2]
-    parts = [fourier.to(**f32), w1, layers[1].to(**f32)]
-    parts += [w.to(**f32) for w in hidden_w]
-    parts += [b.to(**f32) for b in hidden_b]
-    parts += [layers[-2].to(**f32), layers[-1].to(**f32)]
-    if tf_mode != "preint2d":
-        parts.append(tf.to(**f32))
-    return torch.cat([p.reshape(-1) for p in parts]).contiguous()
+    hp = _padded(spec.width)
+
+    def pad(t, shape):
+        out = torch.zeros(shape, **f32)
+        out[tuple(slice(0, n) for n in t.shape)] = t.detach().to(**f32)
+        return out
+
+    nf = fourier.shape[0]
+    k1 = _n_in(spec) + 2 * nf + LATENT_CHANNELS
+    parts = [fourier[:, :3]]
+    if spec.direction:
+        parts.append(pad(fourier[:, 3:6], (nf, 3)))
+    parts += [pad(layers[0], (hp, k1)), pad(layers[1], (hp,))]
+    parts += [pad(w, (hp, hp)) for w in layers[2:-2:2]]
+    parts += [pad(b, (hp,)) for b in layers[3:-2:2]]
+    parts += [pad(layers[-2], (layers[-2].shape[0], hp)), layers[-1]]
+    if _density(spec) and spec.tf_mode != "preint2d":
+        parts.append(tf)
+    return torch.cat([p.detach().to(**f32).reshape(-1)
+                      for p in parts]).contiguous()
 
 
-def _unpack_grads(dw: Tensor, params: list,
+def _unpack_grads(dw: Tensor, params: list, spec: MarchSpec,
                   d_tf2d: Optional[Tensor] = None) -> list:
     """Per-parameter gradients from the packed gradient ``dw`` (the
-    inverse of :func:`_pack_weights`; padded latent columns dropped); the
-    preint2d table's is ``d_tf2d``."""
-    tf, fourier, grid = params[0], params[1], params[2]
-    layers = params[3:]
+    inverse of :func:`_pack_weights`; what lies in the padding, and Bd's
+    where the Fourier features read no direction, is dropped); the
+    preint2d table's is ``d_tf2d``, an rgbo head's TF gets zeros."""
+    tf, fourier, layers = params[0], params[1], params[3:]
     n_hidden = len(layers) // 2 - 2
-    f = fourier.shape[0]
-    k1 = 3 + 2 * f + LATENT_CHANNELS
-    sizes = [("fourier", f * 3), ("w1", HIDDEN * k1), ("b1", HIDDEN),
-             ("wh", n_hidden * HIDDEN * HIDDEN), ("bh", n_hidden * HIDDEN),
-             ("wo", HIDDEN), ("bo", 1),
-             ("tf", 0 if d_tf2d is not None else tf.numel())]
+    hp, width = _padded(spec.width), spec.width
+    nf = fourier.shape[0]
+    n_out = layers[-2].shape[0]
+    k1 = _n_in(spec) + 2 * nf + LATENT_CHANNELS
+    tf_floats = (tf.numel() if _density(spec) and d_tf2d is None else 0)
+    sizes = [("B", nf * 3), ("Bd", nf * 3 if spec.direction else 0),
+             ("w1", hp * k1), ("b1", hp), ("wh", n_hidden * hp * hp),
+             ("bh", n_hidden * hp), ("wo", n_out * hp), ("bo", n_out),
+             ("tf", tf_floats)]
     parts = dict(zip([n for n, _ in sizes],
                      dw.split([n for _, n in sizes])))
-    d_layers = [parts["w1"].reshape(HIDDEN, k1)[:, :layers[0].shape[1]],
-                parts["b1"]]
-    wh = parts["wh"].reshape(n_hidden, HIDDEN, HIDDEN)
-    bh = parts["bh"].reshape(n_hidden, HIDDEN)
+    d_layers = [parts["w1"].reshape(hp, k1)[:width, :layers[0].shape[1]],
+                parts["b1"][:width]]
+    wh = parts["wh"].reshape(n_hidden, hp, hp)
+    bh = parts["bh"].reshape(n_hidden, hp)
     for i in range(n_hidden):
-        d_layers += [wh[i], bh[i]]
-    d_layers += [parts["wo"].reshape(1, HIDDEN), parts["bo"]]
-    d_tf = (d_tf2d.reshape(tf.shape) if d_tf2d is not None
-            else parts["tf"].reshape(tf.shape))
-    return [d_tf, parts["fourier"].reshape(f, 3), None] + d_layers
+        d_layers += [wh[i, :width, :width], bh[i, :width]]
+    d_layers += [parts["wo"].reshape(n_out, hp)[:, :width], parts["bo"]]
+    d_fm = parts["B"].reshape(nf, 3)
+    if fourier.shape[1] == 6:
+        d_fm = torch.cat([d_fm, parts["Bd"].reshape(nf, 3)], dim=1)
+    if d_tf2d is not None:
+        d_tf = d_tf2d.reshape(tf.shape)
+    elif _density(spec):
+        d_tf = parts["tf"].reshape(tf.shape)
+    else:
+        d_tf = torch.zeros_like(tf)
+    return [d_tf, d_fm, None] + d_layers
 
 
 def latent_table(grid: Tensor, dtype: torch.dtype = TABLE_DTYPE) -> Tensor:
@@ -555,12 +617,17 @@ def _kernel_table(grid: Optional[Tensor], dtype: torch.dtype,
 
 def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
                          differentiable: bool = False,
-                         tf_floats: Optional[int] = None):
-    """What the kernels take: the product network's shape (32-wide
-    SnakeAlt layers, ``density:direct`` head, no latent grid or one of
-    <= 16 channels, positional Fourier features), 256-ray tiles, and for
-    the backward 32-point segments and constant rays. Everything else
-    raises ``NotImplementedError``: the kernels do not take it yet."""
+                         tf_floats: Optional[int] = None,
+                         tf_mode: str = "piecewise"):
+    """What the kernels take: hidden layers of one width <= 64 (narrower
+    zero-padded to 32, 48 or 64) and one activation, 1 to
+    ``MAX_HIDDEN_LAYERS + 1`` of them, every output head, direction input,
+    no latent grid or one of <= 16 channels, at most ``MAX_FOURIER``
+    Fourier features; a TF mode other than piecewise on a density head of
+    a SnakeAlt network without direction input; 256-ray tiles, and for
+    the backward 32-point segments and constant rays; and a shared-memory
+    plan that fits. Everything else raises ``NotImplementedError``."""
+    from .sample_mlp import check_fwd_plan, check_plan
     if tile != KERNEL_TILE:
         raise NotImplementedError(f"CUDA kernel: tile={KERNEL_TILE} only")
     if rays.shape[0] % tile:
@@ -569,43 +636,63 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
     if rays.requires_grad:
         raise NotImplementedError("CUDA kernel: gradients with respect to "
                                   "the rays are not ported yet")
-    widths = {l.weight.shape[0] for l in net.layers[:-1]}
-    acts = {(l.activation, l.activation_param) for l in net.layers[:-1]}
-    if (widths != {HIDDEN} or len(acts) != 1
-            or next(iter(acts))[0] != "SnakeAlt"
-            or net.output_mode != "density:direct"
-            or not 2 <= len(net.layers) <= MAX_HIDDEN_LAYERS + 2):
-        raise NotImplementedError("CUDA kernel: 32-wide SnakeAlt layers "
-                                  "and a density:direct head only")
+    hp = kernel_width(net)
+    n_hidden = len(net.layers) - 2
+    if n_hidden > MAX_HIDDEN_LAYERS:
+        raise NotImplementedError(f"CUDA kernel: at most "
+                                  f"{MAX_HIDDEN_LAYERS + 1} hidden layers")
+    act = net.layers[0].activation
+    if act not in _ACTIVATIONS:
+        raise NotImplementedError(f"CUDA kernel: activation {act}")
     grid = net.latent.static_grid
     if grid is not None and grid.shape[0] > LATENT_CHANNELS:
         raise NotImplementedError("CUDA kernel: a latent grid of <= 16 "
                                   "channels")
-    fm = net.input.fourier_matrix
-    if fm is not None and (fm.shape[1] != 3 or fm.shape[0] > MAX_FOURIER):
-        raise NotImplementedError("CUDA kernel: positional Fourier only, "
-                                  f"at most {MAX_FOURIER} features")
-    from .sample_mlp import check_fwd_plan
-    check_fwd_plan("CUDA kernel", HIDDEN, 0 if fm is None else fm.shape[0],
-                   1, len(net.layers) - 2, MAX_TF_POINTS, warps=tile // 32,
-                   tf_floats=tf_floats)
+    nf = net.input.num_fourier
+    if nf > MAX_FOURIER:
+        raise NotImplementedError(f"CUDA kernel: at most {MAX_FOURIER} "
+                                  "Fourier features")
+    density = net.output_mode.startswith("density")
+    if not density:
+        tf_mode, tf_floats = "piecewise", 0
+    if tf_mode != "piecewise" and (act != "SnakeAlt" or net.use_direction):
+        raise NotImplementedError(f"CUDA kernel: TF mode {tf_mode!r} takes "
+                                  "SnakeAlt networks without direction "
+                                  "input only")
+    direction = bool(net.use_direction)
+    check_fwd_plan("CUDA kernel", hp, nf, 1, n_hidden, MAX_TF_POINTS,
+                   warps=tile // 32, direction=direction, tf_floats=tf_floats)
     if differentiable and seg != KERNEL_SEG:
         raise NotImplementedError(f"CUDA backward: seg={KERNEL_SEG} only")
+    if differentiable:
+        check_plan("CUDA backward", hp,
+                   (6 if direction else 3) + 2 * nf + LATENT_CHANNELS,
+                   n_hidden, nf, MAX_TF_POINTS, tf_floats,
+                   tf_mode != "piecewise")
+
+
+def _lib(kind: str, hidden: int) -> ctypes.CDLL:
+    """The library of ``kind`` ("mega_fwd" or "mega_bwd") for the padded
+    width ``hidden``: one source per width, ``csrc/mega_fwd.cu`` (32),
+    ``mega_fwd48.cu``, ``mega_fwd64.cu`` and the same for the backward."""
+    return _build.load(kind if hidden == 32 else f"{kind}{hidden}")
 
 
 def device_fwd_plan(n_fourier: int, n_hidden: int, tf_points: int,
-                    tf_floats: Optional[int] = None):
+                    tf_floats: Optional[int] = None, hidden: int = 32,
+                    direction: bool = False):
     """(bytes, warps a block, matrices pre-split) of the shared-memory
     plan csrc/mega_fwd.cu takes for these widths (``tf_floats`` staged TF
     floats, 5 a piecewise knot by default), or None when it does not fit
     (the device's own ``choose_fwd_plan`` at eight warps;
     ``ops.sample_mlp.fwd_plan`` mirrors it)."""
-    fn = _build.load("mega_fwd").mega_fwd_smem
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = _lib("mega_fwd", hidden).mega_fwd_smem
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_long * 3)()
     if fn(n_fourier, n_hidden,
-          5 * tf_points if tf_floats is None else tf_floats, out) != 0:
+          5 * tf_points if tf_floats is None else tf_floats, int(direction),
+          out) != 0:
         return None
     return int(out[0]), int(out[1]), bool(out[2])
 
@@ -625,8 +712,9 @@ def _stream(dev) -> int:
 def _bind_fwd(lib: ctypes.CDLL):
     fn = lib.mega_fwd_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, i, p, i, p, p, p, p, i, i, i, i, i, i, i, f, i, i,
-                   f, f, f, f, f, f, f, f, f, f, p, i, i, i, i, p, p, p]
+    fn.argtypes = [p, p, i, p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, f,
+                   i, i, i, i, f, f, f, f, f, f, f, f, f, f, p, i, i, i, i,
+                   p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -634,11 +722,25 @@ def _bind_fwd(lib: ctypes.CDLL):
 def _bind_bwd(lib: ctypes.CDLL):
     fn = lib.mega_bwd_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f,
-                   i, i, f, f, f, f, f, f, f, f, f, f, p, i, i, i, i, p, p, p,
-                   p]
+    fn.argtypes = [p, p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                   i, f, i, i, i, i, f, f, f, f, f, f, f, f, f, f, p, i, i,
+                   i, i, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _knots(spec: MarchSpec, tf_points: int) -> int:
+    """The piecewise knots a launch stages: none for an rgbo head, which
+    reads no TF (its spec is piecewise with no rows)."""
+    return tf_points if _density(spec) else 0
+
+
+def _net_args(spec: MarchSpec) -> tuple:
+    """The network arguments of a launch: padded width, activation id and
+    parameter, head id, direction input."""
+    name, param = spec.activations[0]
+    return (_padded(spec.width), _ACTIVATIONS[name], param,
+            _HEADS[spec.output_mode], int(spec.direction))
 
 
 def segments_needed(rays: Tensor, spec: MarchSpec) -> int:
@@ -712,9 +814,10 @@ def _launch_fwd(rays: Tensor, weights: Tensor, table: Tensor, spec: MarchSpec,
     _check_tensors(dev, rays=rays, weights=weights, table=table)
     if tf is not None:
         _check_tensors(dev, tf=tf)
-    rows, *tf_args = _tf_args(spec, tf, tf_points)
+    rows, *tf_args = _tf_args(spec, tf, _knots(spec, tf_points))
     gz, gy, gx = table.shape[:3]
-    launch = _bind_fwd(_build.load("mega_fwd"))
+    net_args = _net_args(spec)
+    launch = _bind_fwd(_lib("mega_fwd", net_args[0]))
     with torch.cuda.device(dev):
         err = launch(
             rays.data_ptr(), table.data_ptr(), int(f32), weights.data_ptr(),
@@ -722,7 +825,7 @@ def _launch_fwd(rays: Tensor, weights: Tensor, table: Tensor, spec: MarchSpec,
             carries.data_ptr() if carries is not None else None,
             count.data_ptr() if count is not None else None,
             rays.shape[0], gx, gy, gz, n_fourier, n_hidden, rows,
-            spec.activations[0][1], spec.seg,
+            *net_args, spec.seg,
             n_seg_max if n_seg_max is not None else 1 << 30,
             spec.stepsize, spec.density_min,
             1.0 / (spec.density_max - spec.density_min), spec.early_alpha,
@@ -760,16 +863,17 @@ def _launch_bwd(rays, weights, table, carries, count, d_out, spec,
                    carries=carries, count=count, d_out=d_out)
     if table.dtype != torch.float32 or d_out.shape != (rays.shape[0], 4):
         raise ValueError("backward: float32 table and (R, 4) cotangent")
-    rows, *tf_args = _tf_args(spec, tf, tf_points)
+    rows, *tf_args = _tf_args(spec, tf, _knots(spec, tf_points))
     gz, gy, gx = table.shape[:3]
-    launch = _bind_bwd(_build.load("mega_bwd"))
+    net_args = _net_args(spec)
+    launch = _bind_bwd(_lib("mega_bwd", net_args[0]))
     with torch.cuda.device(dev):
         err = launch(
             rays.data_ptr(), table.data_ptr(), weights.data_ptr(),
             weights.numel(), carries.data_ptr(), count.data_ptr(),
             d_out.data_ptr(), d_rows.data_ptr(), d_table.data_ptr(),
             work.data_ptr(), rays.shape[0], gx, gy, gz, n_lat, n_fourier,
-            n_hidden, rows, spec.activations[0][1], spec.seg,
+            n_hidden, rows, *net_args, spec.seg,
             carries.shape[1],
             spec.stepsize, spec.density_min,
             1.0 / (spec.density_max - spec.density_min), spec.early_alpha,
@@ -797,7 +901,7 @@ class _KernelMarch(torch.autograd.Function):
         n_fourier, n_hidden, tf_points, n_lat = _widths(params)
         tf = (params[0].detach().contiguous()
               if spec.tf_mode != "piecewise" else None)
-        weights = _pack_weights(params, spec.tf_mode)
+        weights = _pack_weights(params, spec)
         table = _kernel_table(params[2], torch.float32, rays.device)
         out, samples, carries, count = _launch_fwd(
             rays, weights, table, spec, n_fourier, n_hidden, tf_points,
@@ -830,7 +934,7 @@ class _KernelMarch(torch.autograd.Function):
             n_hidden, tf_points, n_lat, ctx.mask, tf=tf, d_tf2d=d_tf2d)
         global BWD_LAUNCHES
         BWD_LAUNCHES += 1
-        grads = _unpack_grads(dw, params, d_tf2d)
+        grads = _unpack_grads(dw, params, ctx.spec, d_tf2d)
         if n_lat:
             grads[2] = d_table[..., :n_lat].permute(3, 0, 1, 2).contiguous()
         return (None, None, None, *grads)
@@ -884,8 +988,11 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                       tmax_clip)
     tf, tf_points, tf_pre_rows = prepare_tf(tf_tensor, tf_mode, tf_pre, dev)
     tf_floats = tf_floats_of(tf_mode, tf)
-    _check_kernel_inputs(net, rays, tile, seg, differentiable, tf_floats)
-    if tf_mode in ("piecewise", "gaussian") and tf_points > MAX_TF_POINTS:
+    _check_kernel_inputs(net, rays, tile, seg, differentiable, tf_floats,
+                         tf_mode)
+    if (net.output_mode.startswith("density")
+            and tf_mode in ("piecewise", "gaussian")
+            and tf_points > MAX_TF_POINTS):
         raise NotImplementedError(f"CUDA kernel: at most {MAX_TF_POINTS} "
                                   f"{tf_mode} TF points")
     spec = _spec(net, box_min, box_size, stepsize=stepsize, seg=seg,
@@ -902,10 +1009,10 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
         with torch.no_grad():
             n_fourier, n_hidden, tf_points, _ = _widths(params)
             out, samples, _, _ = _launch_fwd(
-                rays, _pack_weights(params, tf_mode),
+                rays, _pack_weights(params, spec),
                 _kernel_table(params[2], table_dtype, dev), spec, n_fourier,
                 n_hidden, tf_points, mask=mask,
-                tf=tf.detach().contiguous() if tf_mode != "piecewise"
+                tf=tf.detach().contiguous() if spec.tf_mode != "piecewise"
                 else None)
         global LAUNCHES
         LAUNCHES += 1

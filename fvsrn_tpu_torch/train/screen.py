@@ -30,9 +30,8 @@ from torch import Tensor
 from ..camera import fibonacci_sphere_cameras, generate_rays
 from ..models.network_volume import VolumeInterpolationNetwork
 from ..ops.fused_dvr import (block_ray_permutation, fused_tf_args,
-                             fused_trace_dvr)
-from ..ops.fused_mega import (KERNEL_SEG, KERNEL_TILE, LATENT_CHANNELS,
-                              mega_trace_dvr)
+                             fused_trace_dvr, mega_supported)
+from ..ops.fused_mega import KERNEL_SEG, KERNEL_TILE, mega_trace_dvr
 from ..raytracer.dvr import (RayEvaluationSteppingDvr, max_steps_bound,
                              trace_dvr)
 from ..transfer import (TransferFunctionGaussian,
@@ -92,13 +91,16 @@ def fused_screen_supported(network, tf, width: int, height: int) -> bool:
     """Whether screen training routes through the fused march, by the JAX
     package's rule: a piecewise-linear, texture (any preintegration) or
     Gaussian TF, images that tile into 16x16 pixel blocks with at least
-    one 256-ray tile, and no latent grid or one of <= 16 channels. One
-    difference on purpose: a Gaussian TF that is ``analytic`` or
-    ``scale_with_gradient`` trains by the plain march, since the fused
-    kernels evaluate neither (the JAX package routes it fused and trains
-    the plain Gaussians instead). The network is not screened here:
-    where the fused march does not take it yet, ``mega_trace_dvr`` raises
-    ``NotImplementedError`` (``--no_fused`` selects the plain march)."""
+    one 256-ray tile, and no latent grid or one that fits the JAX
+    megakernel's float32 slab (``ops.fused_dvr.mega_supported``: <= 16
+    channels within its budget; a larger grid trains by the plain march,
+    as in JAX). One difference on purpose: a Gaussian TF that is
+    ``analytic`` or ``scale_with_gradient`` trains by the plain march,
+    since the fused kernels evaluate neither (the JAX package routes it
+    fused and trains the plain Gaussians instead). The network is not
+    screened here: where the kernels do not take it (hidden layers wider
+    than 64, say), ``mega_trace_dvr`` raises ``NotImplementedError`` on
+    the card (``--no_fused`` selects the plain march)."""
     if isinstance(tf, TransferFunctionGaussian):
         if tf.analytic or tf.scale_with_gradient:
             return False
@@ -108,7 +110,7 @@ def fused_screen_supported(network, tf, width: int, height: int) -> bool:
     if width % 16 or height % 16 or width * height < KERNEL_TILE:
         return False
     grid = network.latent.static_grid
-    return grid is None or grid.shape[0] <= LATENT_CHANNELS
+    return grid is None or mega_supported(tuple(grid.shape), torch.float32)
 
 
 def screen_mega_kwargs(dataset: ScreenDataset) -> dict:

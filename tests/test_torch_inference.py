@@ -11,19 +11,21 @@ from fvsrn_tpu.camera import CameraOnASphere as JCam
 from fvsrn_tpu.camera import camera_matrix as jcamera_matrix
 from fvsrn_tpu.camera import generate_rays as jgenerate_rays
 from fvsrn_tpu.inference import LoadedModel as JLoadedModel
+from fvsrn_tpu.models.latent import LatentSpace as JLatent
 from fvsrn_tpu.models.network_volume import \
     VolumeInterpolationNetwork as JVolume
 from fvsrn_tpu.ops.fused_dvr import block_ray_permutation as jblock_perm
 from fvsrn_tpu.ops.fused_dvr import probe_saturation_tmax as jprobe
 from fvsrn_tpu.raytracer.dvr import RayEvaluationSteppingDvr as JCfg
 from fvsrn_tpu.raytracer.dvr import max_steps_bound
+from fvsrn_tpu.models.srn import SceneRepresentationNetwork as JSRN
 from fvsrn_tpu.scenes import dense_scene as jdense_scene
 from fvsrn_tpu_torch.camera import CameraOnASphere
+from fvsrn_tpu_torch.convert import srn_from_arrays
 from fvsrn_tpu_torch.inference import LoadedModel
-from fvsrn_tpu_torch.models.latent import LatentSpace
-from fvsrn_tpu_torch.models.srn import SceneRepresentationNetwork
 from fvsrn_tpu_torch.raytracer.dvr import RayEvaluationSteppingDvr
 from fvsrn_tpu_torch.scenes import dense_scene
+from tools.export_torch_weights import network_arrays
 
 torch.set_num_threads(1)
 H = 1 / 128
@@ -96,10 +98,10 @@ def test_default_device_is_cuda(models):
 def test_mode_and_size_guards(models):
     """Every mode of the JAX package is served: W or H not a multiple of
     16 takes the per-segment engine (route 2), FUSED_BF16 is FUSED for
-    DVR and PLAIN16 a plain render; an unknown mode raises, and so does
-    the megakernel's route for a network it does not take (color
-    output: queued)."""
-    _, m = models
+    DVR and PLAIN16 a plain render; an unknown mode raises. A color
+    output network takes the megakernel's route as in the JAX package
+    and renders as its FUSED render does (atol 1e-4)."""
+    jm, m = models
     cam = CameraOnASphere.make(**CAM)
     assert m.prepare_network_render(cam, 24, 32, "FUSED",
                                     device="cpu").route == "segment"
@@ -109,13 +111,17 @@ def test_mode_and_size_guards(models):
                                     device="cpu")().shape == (W, W, 4)
     with pytest.raises(ValueError):
         m.prepare_network_render(cam, W, W, "BOGUS", device="cpu")
-    rgbo = LoadedModel(SceneRepresentationNetwork.make(
-        output_mode="rgbo", latent=LatentSpace(static_grid=torch.zeros(
-            4, 8, 8, 8))), m.tf, config=m.config)
+    jnet = JSRN.make(output_mode="rgbo", latent=JLatent(
+        static_grid=np.zeros((4, 8, 8, 8), np.float32)))
+    rgbo = LoadedModel(srn_from_arrays(*network_arrays(jnet)), m.tf,
+                       config=m.config)
     render = rgbo.prepare_network_render(cam, W, W, "FUSED", device="cpu")
     assert render.route == "mega"
-    with pytest.raises(NotImplementedError):
-        render()
+    want = np.asarray(JLoadedModel(jnet, jm.tf, config=jm.config)
+                      .render_network(JCam.make(**CAM), W, W, "FUSED",
+                                      interpret=True))
+    assert want[..., 3].max() > 0.5
+    np.testing.assert_allclose(render().numpy(), want, atol=1e-4)
 
 
 def test_rotation_cameras():

@@ -222,13 +222,21 @@ def tf_pair(kind, **gauss):
 @pytest.mark.parametrize("kw,channels,size", [
     (dict(), 0, 16), (dict(), 4, 32), (dict(), 20, 16), (dict(), 4, 24),
     (dict(output_mode="rgbo"), 4, 16),
-    (dict(layers="16:24", activation="ReLU", num_fourier=0), 0, 16)])
+    (dict(layers="16:24", activation="ReLU", num_fourier=0), 0, 16),
+    (dict(), (16, 32), 16), (dict(), (16, 40), 16), (dict(), (16, 64), 16)])
 def test_fused_route_matches_jax(kw, channels, size, tf_kind):
     """The trainer sends the same configurations through the fused march
     as the JAX package does, whatever the network, with every TF the
-    fused kernels take, and with the same TF mode and table."""
-    grid = (np.random.default_rng(0).standard_normal((channels, 4, 4, 4))
-            .astype(np.float32) if channels else None)
+    fused kernels take, and with the same TF mode and table. ``channels``
+    is the grid's channels at 4^3, or (channels, resolution): fault F6,
+    16-channel grids at 32^3 fit the JAX megakernel's float32 slab, at
+    40^3 and 64^3 they do not (zeros: only the shape decides)."""
+    res = 4
+    if isinstance(channels, tuple):
+        channels, res = channels
+    shape = (channels, res, res, res)
+    grid = ((np.random.default_rng(0).standard_normal(shape) if res == 4
+             else np.zeros(shape)).astype(np.float32) if channels else None)
     jnet = JSRN.make(latent=JLatent(static_grid=grid), **kw)
     net = SceneRepresentationNetwork.make(
         latent=LatentSpace(None if grid is None else torch.tensor(grid)),
@@ -347,35 +355,74 @@ def test_trainer_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("extra", [["-o", "LBFGS"],
                                    ["--data_parallel", "2"],
-                                   ["--tensorboard", "tb"],
-                                   ["--outputmode", "rgbo"],
-                                   ["texture", "--outputmode", "rgbo"]])
+                                   ["--tensorboard", "tb"]])
 def test_trainer_rejects_what_is_not_ported(extra, tmp_path):
-    """Options not ported yet raise; so does a network that the fused
-    route takes in the JAX package and the port's fused march does not
-    take yet (color output), instead of training by the plain march,
-    also under a texture TF (which the fused route now takes)."""
+    """Options not ported yet raise."""
     args = [str(tmp_path / "x.npz") if a == "OUT" else a for a in ARGS]
-    if extra[0] == "texture":
-        args[0] = texture_scene(tmp_path)
-        extra = extra[1:]
     opt = vars(main.init_parser().parse_args(args + extra
                                              + ["--device", "cpu"]))
     with pytest.raises(NotImplementedError):
         main.run(opt)
 
 
-def f4_case():
+# the networks of the paper's sweeps the trainer's options express (no
+# option gives direction input: test_evaluate_screen_engine_matches_jax)
+NETWORK_ARGS = {
+    "rgbo": ["--outputmode", "rgbo"],
+    "rgbo_texture": ["--outputmode", "rgbo"],
+    "rgbo_exp": ["--outputmode", "rgbo:exp"],
+    "width48": ["--layers", "48:48:48", "--outputmode", "density"],
+    "width64": ["--layers", "64:64", "--outputmode", "density"],
+    "relu": ["--activation", "ReLU", "--outputmode", "density"],
+    "sine3": ["--activation", "Sine:3", "--outputmode", "density"],
+    "snake1": ["--activation", "Snake:1", "--outputmode", "density"],
+    "sigmoid": ["--activation", "Sigmoid", "--outputmode", "density"],
+    "softplus": ["--activation", "Softplus", "--outputmode", "density"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(NETWORK_ARGS))
+def test_network_trainer_matches_jax(case, tmp_path):
+    """The sweeps' networks train through the fused march (the
+    megakernel) as in the JAX package: color outputs (whose head reads no
+    TF, also under a texture TF), widths 48 and 64, every activation;
+    two epochs of one 16x16 camera, 1/32, against the JAX trainer (loss
+    history rtol 1e-4, parameters 1e-4). A sigmoid density head keeps a
+    random network's samples contributing."""
+    args = list(ARGS) + NETWORK_ARGS[case]
+    if case == "rgbo_texture":
+        args[0] = texture_scene(tmp_path)
+    jopt = vars(jmain.init_parser().parse_args(
+        [str(tmp_path / "jax.hdf5") if a == "OUT" else a for a in args]))
+    want = jmain.run(jopt)
+    opt = vars(main.init_parser().parse_args(
+        [str(tmp_path / "port.npz") if a == "OUT" else a for a in args]
+        + ["--device", "cpu"]))
+    got = main.run(opt)
+    assert want["fused"] and got["fused"]
+    assert got["history"][1] < got["history"][0]
+    np.testing.assert_allclose(got["history"], want["history"], rtol=1e-4)
+    jparams, _ = network_arrays(want["network"])
+    for name, p in got["network"].named_parameters():
+        rel = (np.linalg.norm(p.detach().numpy() - jparams[name])
+               / np.linalg.norm(jparams[name]))
+        assert rel <= 1e-4, (name, rel)
+
+
+def f4_case(channels=8, res=8, **net_kw):
     """Fault F4's setup: a seeded 32:32:32 SnakeAlt:2 network (6 Fourier
-    features, 8-channel 8^3 grid, seed 7), one 16x16 camera, h = 1/32, L1
+    features, 8-channel 8^3 grid or ``channels`` x ``res``^3, seed 7;
+    ``net_kw`` more ``make`` options), one 16x16 camera, h = 1/32, L1
     against a zero target. Returns (JAX args, port args) of
     ``evaluate_screen`` up to ``use_fused``/``fused_kwargs``, and the two
     datasets."""
     rng = np.random.default_rng(7)
-    grid = (rng.standard_normal((8, 8, 8, 8)) * 0.3).astype(np.float32)
-    jnet = JSRN.make(layers="32:32:32", activation="SnakeAlt:2",
-                     num_fourier=6, output_mode="density:direct",
-                     latent=JLatent(static_grid=grid), seed=7)
+    grid = (rng.standard_normal((channels, res, res, res)) * 0.3).astype(
+        np.float32)
+    jnet = JSRN.make(**dict(dict(layers="32:32:32", activation="SnakeAlt:2",
+                                 num_fourier=6, output_mode="density:direct",
+                                 latent=JLatent(static_grid=grid), seed=7),
+                            **net_kw))
     rs, rd = jgenerate_rays(JCam.make(pitch=0.3, yaw=0.8, distance=1.6), 16,
                             16)
     rs = np.asarray(rs).reshape(1, -1, 3)
@@ -413,15 +460,20 @@ def f4_loss_and_grads(jargs, args, jfk, fk):
              {n: p.grad.numpy() for n, p in net.named_parameters()}))
 
 
-@pytest.mark.parametrize("engine", ["scan", "mega"])
+@pytest.mark.parametrize("engine", ["scan", "mega", "mega_direction"])
 def test_evaluate_screen_engine_matches_jax(engine):
     """Fault F4: ``evaluate_screen(use_fused=True)`` takes the JAX
     package's engine: the per-segment scan by default (no early-out),
     the megakernel only with ``engine="mega"``
     (``screen_mega_kwargs``); loss rtol 1e-5, gradients atol 2e-5 / rtol
     1e-3. The parent sent the default call to the megakernel with its
-    tile vote, 4.0e-3 off the JAX loss here."""
-    jargs, args, jds, ds = f4_case()
+    tile vote, 4.0e-3 off the JAX loss here. "mega_direction": a network
+    with direction input (in the Fourier features too) on the megakernel,
+    a sigmoid density head."""
+    jargs, args, jds, ds = (f4_case(use_direction=True,
+                                    disable_direction_in_fourier=False,
+                                    output_mode="density")
+                            if engine == "mega_direction" else f4_case())
     if engine == "scan":
         jfk, fk = dict(interpret=True), None
     else:
@@ -443,3 +495,43 @@ def test_evaluate_screen_engine_matches_jax(engine):
             parent, _ = evaluate_screen(*args, use_fused=True,
                                         fused_kwargs=dict(engine="mega"))
         assert abs(float(parent) - jl) > 1e-3
+
+
+def test_fault_f6_slab_budget_matches_jax():
+    """Fault F6: the fused-training gate holds a grid to the JAX
+    megakernel's float32 slab budget, as the JAX gate does
+    (``fvsrn_tpu/train/screen.py:fused_screen_supported``). A 16x48^3
+    grid fails it, so both packages train by the plain march and
+    ``evaluate_screen`` gives the same loss (rtol 1e-5) and gradients
+    (atol 2e-5 / rtol 1e-3). The parent took the fused lattice march
+    there (the trainer's megakernel), 8.4e-3 relative off the JAX loss;
+    now 4.3e-7."""
+    jargs, args, jds, ds = f4_case(channels=16, res=48)
+    assert not jsupported(jargs[0], jargs[4], 16, 16)
+    assert not fused_screen_supported(args[0], args[4], 16, 16)
+    (jl, jg), (loss, grads) = f4_loss_and_grads_plain(jargs, args)
+    np.testing.assert_allclose(loss, jl, rtol=1e-5)
+    assert sorted(grads) == sorted(jg)
+    for name in jg:
+        np.testing.assert_allclose(grads[name], jg[name], atol=2e-5,
+                                   rtol=1e-3, err_msg=name)
+    with torch.no_grad():   # the parent's route: the fused megakernel
+        parent, _ = evaluate_screen(*args, use_fused=True,
+                                    fused_kwargs=screen_mega_kwargs(ds))
+    assert abs(float(parent) - jl) > 1e-3 * abs(jl)
+
+
+def f4_loss_and_grads_plain(jargs, args):
+    """(JAX loss, grads), (port loss, grads) of one ``evaluate_screen`` by
+    the plain march (``use_fused=False``)."""
+    def jloss(net):
+        return jevaluate_screen(net, *jargs[1:], use_fused=False)[0]
+
+    jl, jg = jax.value_and_grad(jloss)(jargs[0])
+    net = args[0]
+    net.zero_grad(set_to_none=True)
+    total, _ = evaluate_screen(*args, use_fused=False)
+    total.backward()
+    return ((float(jl), network_arrays(jg)[0]),
+            (float(total.detach()),
+             {n: p.grad.numpy() for n, p in net.named_parameters()}))

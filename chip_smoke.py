@@ -87,7 +87,18 @@ main paths on the card:
   differentiable step (mean(img^2)) on each engine (rows 2-3 and 5-6),
   every gradient leaf (the TF's tables too) against the plain pair;
   frames, kernels and steps timed beside phases 6, 10 and F's piecewise
-  figures, the launches counted.
+  figures, the launches counted;
+- phase O, the paper's network sweeps on rows 1-3;
+- phase P, normals and shading: rows 1 and 4's normals instances on the
+  dense flagship at 512x512, 1/512 with the JAX tests' BRDF and with a
+  point light and magnitude scaling, timed beside the unshaded render in
+  the same call, kernel vs plain and the f32 kernel vs the lattice oracle
+  on 64 whole tiles (share of rays off bounded: a gradient gate flips on
+  float32 noise); the trained 64:64:64 network of phase O and a 48-wide
+  ReLU network with direction input at 128x128 on both tables; the MC
+  walk with a gradient-scaled Gaussian at 256x256 through row 7's
+  gradient instance (once a camera-walk round) against the plain walk;
+  ``eval_gradient_networks`` at its defaults.
 
 Prints one JSON line with every kernel and a last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -225,6 +236,24 @@ NET_CASES = {
 NET_ILL = {"Sine:30"}
 NOISE_EPS = 1e-7
 NOISE_FLIP = 5.0
+# phase P: normals and shading (rows 1, 4 and 7). The JAX tests' BRDF
+# (tests/test_fused.py:345) and a point light with magnitude scaling
+NRM_BRDF = dict(enable_phong=True, ambient=0.2, specular=0.3,
+                magnitude_center=0.02, magnitude_radius=0.02,
+                light=(0.3, -0.5, -1.0))
+NRM_POINT = dict(NRM_BRDF, light=(0.8, 1.2, -1.5), light_type="point",
+                 specular_exponent=5, enable_magnitude_scaling=True,
+                 magnitude_scaling=200.0)
+# kernel vs plain with normals: colour 2e-4 (shaded), normal 5e-4, depth
+# 1e-4 (the JAX package's gates) on all but this share of the rays: a
+# sample at a clip or ReLU kink, or at |g|^2 = 1e-12, switches its
+# gradient (normal, shading) on float32 noise
+NRM_FLIP_SHARE = 1e-2
+NRM_SIZE = 128                       # phase P3's networks
+MC_NRM_SIZE = 256                    # phase P4's frame
+# a gradient-scaled Gaussian TF for the MC walk (the flagship's densities
+# and |grad| put the scaled widths at ~0.05-0.5)
+MC_NRM_TF = [[0.9, 0.3, 0.2, 8.0, 0.3, 0.5], [0.2, 0.8, 0.9, 6.0, 0.7, 0.5]]
 MC_CHECK_SIZE = 128                  # phase L: render_image supersampled
 MC_CHECK_SAMPLES = 4
 MC_CHECK_STEPSIZE = 1.0 / 128
@@ -2739,7 +2768,282 @@ def networks(smi, reset_counts, counts, tf, cam):
         print(f"phase O ptxas width {w}: " + "; ".join(
             f"{k} {v}" for k, v in ptxas[w].items()), flush=True)
     print(f"phase O: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return rows, ptxas, trainer_counts
+    return rows, ptxas, trainer_counts, trained
+
+
+def position_grad_flops(net):
+    """Operations of one sample's position gradient beyond its forward:
+    the transposed layers (as many multiply-adds as the forward), the
+    Fourier features' chain (d_cos, d_sin -> d_phase -> B^T: 4 a feature
+    and 6) and the trilinear derivative (16 channels x 8 corners, x 3
+    axes)."""
+    f = net.input.num_fourier
+    mlp = sum(l.weight.numel() for l in net.layers)
+    return 2 * mlp + 10 * f + 8 * 16 * 2 + 3 * 8 * 2
+
+
+def nrm_off(got, want, shaded=True):
+    """(share of rays off the normals contract, worst ratio to its
+    tolerance) of two RayEvaluationOutputs (NRM_FLIP_SHARE's gates)."""
+    err = torch.stack([
+        (got.color - want.color).abs().amax(1) / (2e-4 if shaded else 1e-4),
+        (got.normal - want.normal).abs().amax(1) / 5e-4,
+        (got.depth - want.depth).abs().amax(1) / 1e-4], 1).amax(1)
+    return float((err > 1.0).float().mean()), float(err.max())
+
+
+def normals(smi, reset_counts, counts, npz, tf, cam, net64):
+    """Phase P, normals and shading: row 1's and row 4's normals instances
+    on the dense flagship at 512^2, 1/512 (shaded with the JAX tests'
+    BRDF and with a point light, timed beside the unshaded render of the
+    same call; kernel vs plain and vs the f32 oracle on 64 whole tiles),
+    the networks (the trained 64:64:64 of phase O, a 48-wide ReLU network
+    with direction input) at 128^2 on both tables, the MC walk with a
+    gradient-scaled Gaussian through row 7's gradient instance at 256^2,
+    and ``eval_gradient_networks`` at its defaults. Returns {row name:
+    figures}."""
+    from fvsrn_tpu_torch.brdf import BRDFLambert
+    from fvsrn_tpu_torch.eval import eval_gradient_networks as ev
+    from fvsrn_tpu_torch.models.network_volume import \
+        VolumeInterpolationNetwork
+    from fvsrn_tpu_torch.ops import _build, fused_dvr, fused_mega
+    from fvsrn_tpu_torch.ops.fused_dvr import (block_ray_permutation,
+                                               fused_trace_dvr,
+                                               fused_trace_dvr_plain)
+    from fvsrn_tpu_torch.phase import PhaseFunctionHenyeyGreenstein
+    from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
+                                               max_steps_bound, trace_dvr)
+    from fvsrn_tpu_torch.raytracer.montecarlo import (RayEvaluationMonteCarlo,
+                                                      trace_mc)
+    from fvsrn_tpu_torch.train.checkpoints import load_weights
+    from fvsrn_tpu_torch.transfer import TransferFunctionGaussian
+    from fvsrn_tpu_torch.utils.prng import prng_key
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    box = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))
+    steps = max_steps_bound(box[1], STEPSIZE)
+    net = load_weights(npz).to(dev)
+    tf_d = tf.tensor.to(dev)
+    phong = BRDFLambert.make(**NRM_BRDF)
+    point = BRDFLambert.make(**NRM_POINT)
+
+    def block_rays(size):
+        from fvsrn_tpu_torch.camera import generate_rays
+        rs, rd = generate_rays(cam, size, size, device=dev)
+        perm, _ = block_ray_permutation(size, size, 16, 16, device=dev)
+        return (rs.reshape(-1, 3)[perm].contiguous(),
+                rd.reshape(-1, 3)[perm].contiguous())
+
+    rs, rd = block_rays(WIDTH)
+    n_tiles = rs.shape[0] // 256
+    tiles = torch.arange(0, n_tiles, n_tiles // ORACLE_TILES,
+                         device=dev)[:ORACLE_TILES]
+    sel = (tiles[:, None] * 256 + torch.arange(256, device=dev)).reshape(-1)
+    rs_s, rd_s = rs[sel].contiguous(), rd[sel].contiguous()
+    fwd = sample_flops(net)
+    grad = position_grad_flops(net)
+    rows = {}
+
+    def mega(rs_, rd_, net_=net, march=fused_mega.mega_trace_dvr, **kw):
+        return march(rs_, rd_, net_, *box, tf_d, stepsize=STEPSIZE, **kw)
+
+    def seg(rs_, rd_, net_=net, march=fused_trace_dvr, **kw):
+        return march(rs_, rd_, net_, *box, tf_d, stepsize=STEPSIZE,
+                     max_steps=steps, **kw)
+
+    # P1, P2. rows 1 and 4 on the flagship at 512^2: launches, image,
+    # kernel vs plain and vs the f32 oracle on 64 whole tiles, timings
+    vol = VolumeInterpolationNetwork(net, *box)
+    ocfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE,
+                                         enable_early_out=False,
+                                         need_normals=True)
+    for row, march, plain, nkey, ukey in (
+            ("mega_fwd", mega, fused_mega.mega_trace_dvr_plain,
+             "mega_fwd_nrm", "mega_fwd"),
+            ("segment_fwd", seg, fused_trace_dvr_plain, "segment_fwd_nrm",
+             "segment_fwd")):
+        stats = ({"return_samples": True} if row == "mega_fwd"
+                 else {"return_stats": True})
+        reset_counts()
+        out, st = march(rs, rd, need_normals=True, brdf=phong, **stats)
+        torch.cuda.synchronize()
+        c = counts()
+        samples = int(st.sum() if row == "mega_fwd" else st.samples)
+        check(c[nkey] >= 1 and c[ukey] == 0,
+              f"phase P {row}: launches {c}")
+        check(bool(torch.isfinite(out.color).all()
+                   and torch.isfinite(out.normal).all()
+                   and torch.isfinite(out.depth).all())
+              and float(out.color[:, 3].max()) > 0.5
+              and float(out.normal.abs().max()) > 0.5,
+              f"phase P {row}: the shaded frame")
+        fig = {"launches": c[nkey], "samples": samples}
+        for name, b in (("phong", phong), ("point", point)):
+            got = march(rs_s, rd_s, need_normals=True, brdf=b)
+            want = march(rs_s, rd_s, march=plain, need_normals=True,
+                         brdf=b)
+            off, worst = nrm_off(got, want)
+            check(off <= NRM_FLIP_SHARE, f"phase P {row} {name}: kernel "
+                  f"vs plain, {off} of the rays off")
+            fig[f"{name}_vs_plain_off"] = off
+            fig[f"{name}_vs_plain_worst"] = worst
+            fig[f"{name}_max_abs_err"] = max_err(got.color, want.color)
+        kw32 = dict(table_dtype=torch.float32, enable_early_out=False)
+        got32 = march(rs_s, rd_s, need_normals=True, brdf=phong, **kw32)
+        with torch.no_grad():
+            oracle = trace_dvr(rs_s, rd_s, vol, tf.to(dev), ocfg, steps,
+                               brdf=phong, lattice=row == "mega_fwd")
+        fig["oracle_off"], fig["oracle_worst"] = nrm_off(got32, oracle)
+        check(fig["oracle_off"] <= NRM_FLIP_SHARE, f"phase P {row}: f32 "
+              f"kernel vs oracle, {fig['oracle_off']} of the rays off")
+        fig["oracle_max_abs_err"] = max_err(got32.color, oracle.color)
+        # the shaded and unshaded frames of this call, in turns
+        times = {"unshaded": [], "phong": [], "point": []}
+        for rep in range(2):
+            for name in (("unshaded", "phong", "point") if rep == 0
+                         else ("point", "phong", "unshaded")):
+                kw = ({} if name == "unshaded" else
+                      dict(need_normals=True,
+                           brdf=phong if name == "phong" else point))
+                times[name].append(cuda_ms(lambda: march(rs, rd, **kw),
+                                           3 if name == "unshaded" else 1))
+        fig.update({f"{k}_ms": min(v) for k, v in times.items()})
+        fig["ms"] = fig["phong_ms"]
+        fig["ns_per_sample"] = fig["ms"] * 1e6 / samples
+        fig["plain_ms"] = cuda_ms(lambda: march(
+            rs_s, rd_s, march=plain, need_normals=True, brdf=phong), 1)
+        fig["plain_rays"] = rs_s.shape[0]
+        fig["bound_ms"] = samples * (fwd + grad) / PEAK_BF16_TC * 1e3
+        fig["bound_f32_ms"] = samples * (fwd + grad) / PEAK_F32 * 1e3
+        fig["bound_by"] = "operations"
+        fig["library_ms"] = None
+        rows[row] = fig
+        print(f"phase P {row} normals [{smi}]: flagship {WIDTH}x{HEIGHT} "
+              f"h=1/{round(1 / STEPSIZE)}, {samples} samples, launches "
+              f"{c}; shaded (Phong) {fig['phong_ms']:.3f} ms, point light "
+              f"+ magnitude {fig['point_ms']:.3f} ms, unshaded "
+              f"{fig['unshaded_ms']:.3f} ms (this call), "
+              f"{fig['ns_per_sample']:.4f} ns/sample; bound "
+              f"{fig['bound_ms']:.4f} ms (bf16 tensor cores) / "
+              f"{fig['bound_f32_ms']:.4f} ms (f32); plain "
+              f"{fig['plain_ms']:.1f} ms on {rs_s.shape[0]} rays; kernel vs "
+              f"plain off {fig['phong_vs_plain_off']:.5f} / "
+              f"{fig['point_vs_plain_off']:.5f} of the rays (worst "
+              f"{fig['phong_vs_plain_worst']:.3g} / "
+              f"{fig['point_vs_plain_worst']:.3g} of the tolerance), f32 "
+              f"kernel vs oracle off {fig['oracle_off']:.5f} (colour "
+              f"max|d| {fig['oracle_max_abs_err']:.3e})", flush=True)
+
+    # P3. the networks at NRM_SIZE^2, both tables, rows 1 and 4
+    relu = relu_direction_net(dev)
+    nets = {"64:64:64 16x32^3 (phase O)": net64,
+            "48:48:48 ReLU, direction": relu}
+    rs3, rd3 = block_rays(NRM_SIZE)
+    cases = {}
+    for name, n_ in nets.items():
+        for tdt in (torch.float32, torch.bfloat16):
+            for row, march, plain in (
+                    ("mega_fwd", mega, fused_mega.mega_trace_dvr_plain),
+                    ("segment_fwd", seg, fused_trace_dvr_plain)):
+                kw = dict(need_normals=True, brdf=phong, table_dtype=tdt)
+                got = march(rs3, rd3, n_, **kw)
+                want = march(rs3, rd3, n_, march=plain, **kw)
+                off, worst = nrm_off(got, want)
+                key = f"{row} {name} {str(tdt)[6:]}"
+                cases[key] = {"off": off, "worst": worst,
+                              "max_abs_err": max_err(got.color, want.color)}
+                check(off <= NRM_FLIP_SHARE and float(
+                    want.normal.abs().max()) > 0.1, f"phase P3 {key}: "
+                    f"kernel vs plain, {off} of the rays off")
+                print(f"phase P3 {key}: kernel vs plain off {off:.5f} of "
+                      f"the rays (worst {worst:.3g} of the tolerance)",
+                      flush=True)
+    for row in ("mega_fwd", "segment_fwd"):
+        rows[row]["networks"] = {k[len(row) + 1:]: v for k, v in
+                                 cases.items() if k.startswith(row)}
+
+    # P4. the MC walk with a gradient-scaled Gaussian at MC_NRM_SIZE^2
+    from fvsrn_tpu_torch.camera import generate_rays
+    rs4, rd4 = generate_rays(cam, MC_NRM_SIZE, MC_NRM_SIZE, device=dev)
+    rs4, rd4 = rs4.reshape(-1, 3).contiguous(), rd4.reshape(-1, 3).contiguous()
+    gtf = TransferFunctionGaussian(torch.tensor(MC_NRM_TF, device=dev),
+                                   scale_with_gradient=True)
+    mcfg = RayEvaluationMonteCarlo.make(max_absorption=14.0, num_bounces=2,
+                                        max_iterations=256)
+    hg = PhaseFunctionHenyeyGreenstein.make(g=0.3)
+
+    def frame(use_fused=True):
+        return trace_mc(prng_key(11), rs4, rd4, vol, gtf, hg, mcfg,
+                        use_fused=use_fused)
+
+    reset_counts()
+    out_f, fused_ms = cuda_once(frame)
+    c = counts()
+    check(c["sample_eval_grad"] == c["normal_rounds"] > 0
+          and c["sample_eval"] == c["tracking_rounds"],
+          f"phase P4: launches {c}")
+    out_p, plain_ms = cuda_once(lambda: frame(False))
+    a = torch.cat([out_f.color, out_f.normal, out_f.depth], 1)
+    b = torch.cat([out_p.color, out_p.normal, out_p.depth], 1)
+    share = float(((a - b).abs() < MC_TOL).all(dim=1).float().mean())
+    alpha = float(out_f.color[:, 3].mean())
+    check(share >= MC_MATCH_SHARE and 0.05 < alpha < 0.95,
+          f"phase P4: {share} of the rays within {MC_TOL}, alpha {alpha}")
+    _, warm_ms = cuda_once(frame)
+    rows["sample_eval"] = {
+        "frame_ms": warm_ms, "first_frame_ms": fused_ms,
+        "plain_frame_ms": plain_ms, "rays_within_tol": share,
+        "alpha_mean": alpha, "grad_launches": c["sample_eval_grad"],
+        "value_launches": c["sample_eval"] - c["sample_eval_grad"],
+        "normal_rounds": c["normal_rounds"],
+        "tracking_rounds": c["tracking_rounds"]}
+    print(f"phase P4 trace_mc, gradient-scaled Gaussian [{smi}]: flagship "
+          f"{MC_NRM_SIZE}x{MC_NRM_SIZE}, HG g=0.3, 2 bounces; launches {c} "
+          f"(gradient instance once a camera-walk round); rays within "
+          f"{MC_TOL} of the plain walk {share:.5f} (limit "
+          f"{MC_MATCH_SHARE}), alpha mean {alpha:.4f}; fused frame "
+          f"{warm_ms:.1f} ms (first {fused_ms:.1f}), plain frame "
+          f"{plain_ms:.1f} ms", flush=True)
+
+    # P5. the gradient-network evaluation at its defaults, on the card
+    reset_counts()
+    res = ev.evaluate(ev.parse_args([]))
+    c = counts()
+    check(c["mega_fwd_nrm"] >= 1 and res["ssim"] > 0.9,
+          f"phase P5: launches {c}, SSIM {res['ssim']}")
+    rows["mega_fwd"]["eval_gradient_networks"] = dict(res, launches=c)
+    print(f"phase P5 eval_gradient_networks [{smi}]: trained in "
+          f"{res['train_s']:.1f} s, rows {res['rows']}, shaded render "
+          f"{res['ms']:.1f} ms at 128^2, SSIM {res['ssim']:.4f}, launches "
+          f"{c}", flush=True)
+
+    ptxas = {n_: {k: list(v) for k, v in _build.ptxas_instances(
+        _build.ptxas_report(n_)).items()}
+        for n_ in ("mega_fwd_nrm", "mega_fwd_nrm48", "mega_fwd_nrm64",
+                   "segment_fwd_nrm")}
+    for n_, v in ptxas.items():
+        print(f"phase P ptxas {n_}: " + "; ".join(
+            f"{k} {r}" for k, r in v.items()), flush=True)
+    rows["mega_fwd"]["ptxas"] = {k: v for k, v in ptxas.items()
+                                 if k.startswith("mega")}
+    rows["segment_fwd"]["ptxas"] = ptxas["segment_fwd_nrm"]
+    print(f"phase P: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
+def relu_direction_net(dev):
+    """Phase P3's second network: 48:48:48 ReLU with direction input, a
+    sigmoid density head and a 16x32^3 grid, seeded."""
+    from fvsrn_tpu_torch.models.latent import LatentSpace
+    from fvsrn_tpu_torch.models.srn import SceneRepresentationNetwork
+    g = np.random.default_rng(7).standard_normal((16, 32, 32, 32)) * 0.3
+    return SceneRepresentationNetwork.make(
+        layers="48:48:48", activation="ReLU", output_mode="density",
+        num_fourier=14, use_direction=True,
+        disable_direction_in_fourier=False,
+        latent=LatentSpace(static_grid=torch.tensor(g, dtype=torch.float32)),
+        seed=7).to(dev)
 
 
 def main():
@@ -2787,6 +3091,10 @@ def main():
         fused_eval.SAMPLE_EVAL_LAUNCHES = 0
         fused_eval.SAMPLE_EVAL_POSITIONS = 0
         montecarlo.TRACKING_ROUNDS = 0
+        fused_mega.NRM_LAUNCHES = 0
+        fused_dvr.SEGMENT_NRM_LAUNCHES = 0
+        fused_eval.SAMPLE_GRAD_LAUNCHES = 0
+        montecarlo.NORMAL_ROUNDS = 0
 
     def counts():
         return {"mega_fwd": fused_mega.LAUNCHES,
@@ -2797,7 +3105,11 @@ def main():
                 "segment_bwd": fused_dvr_bwd.SEGMENT_BWD_LAUNCHES,
                 "sample_eval": fused_eval.SAMPLE_EVAL_LAUNCHES,
                 "sample_eval_positions": fused_eval.SAMPLE_EVAL_POSITIONS,
-                "tracking_rounds": montecarlo.TRACKING_ROUNDS}
+                "tracking_rounds": montecarlo.TRACKING_ROUNDS,
+                "mega_fwd_nrm": fused_mega.NRM_LAUNCHES,
+                "segment_fwd_nrm": fused_dvr.SEGMENT_NRM_LAUNCHES,
+                "sample_eval_grad": fused_eval.SAMPLE_GRAD_LAUNCHES,
+                "normal_rounds": montecarlo.NORMAL_ROUNDS}
 
     # 3. the first main path: product render of the dense flagship
     _, tf, npz = dense_scene()
@@ -2909,11 +3221,16 @@ def main():
                    "err": f.get(err_key), "launches": f.get(n_key)}
             for mode, f in tfm.items()}
     render_row["tf_modes_trainer_launches"] = tfm_counts
-    nets, ptxas, net_counts = networks(smi, reset_counts, counts, tf, cam)
+    nets, ptxas, net_counts, net64 = networks(smi, reset_counts, counts, tf,
+                                              cam)
     for row in [render_row] + train_rows:   # rows 1-3
         row["networks"] = nets[row["name"]]
     render_row["networks_ptxas"] = {str(w): v for w, v in ptxas.items()}
     render_row["networks_trainer_launches"] = net_counts
+    # the normals and shading of rows 1 and 4, row 7 in the MC walk
+    nrm = normals(smi, reset_counts, counts, npz, tf, cam, net64)
+    for row in (render_row, segment_row, mc_row):
+        row["normals"] = nrm[row["name"]]
 
     # 11. kernels
     print(json.dumps({"kernels": [render_row] + train_rows

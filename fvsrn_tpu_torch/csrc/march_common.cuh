@@ -6,8 +6,9 @@
 // the Fourier phase, the activations with their derivatives, the output
 // heads with their adjoints, the piecewise-linear TF with its interval
 // choice and its adjoint, the other TF modes (texture, 1D- and
-// 2D-preintegrated, Gaussians) with theirs, and the front-to-back "over"
-// step. The adjoints
+// 2D-preintegrated, Gaussians) with theirs, the normal and the shading of
+// a sample (the normals instances of the forwards), and the front-to-back
+// "over" step. The adjoints
 // gate every clip strictly (a gradient passes only strictly inside it),
 // as the TPU kernels' hand-written adjoints do.
 #pragma once
@@ -549,6 +550,99 @@ inline bool tf_valid(int tfm, int tf_points, int tf_pre, int tf_floats,
     default:
       return false;
   }
+}
+
+// ---------------------------------------------------------------------------
+// normals and shading, after the JAX package's _march_epilogue
+// (fvsrn_tpu/ops/fused_dvr.py:1997-2051), which both engines share; the
+// plain version is ops/fused_dvr.py shade_samples. The host folds the
+// BRDF's constants (ops/fused_dvr.py brdf_tuple): the light's unit
+// direction -l/|l| for a directional light, the smoothstep's lower edge
+// center - radius and width 2 radius, and the lobe's normalisation
+// (e + 2) 0.159155.
+struct Shade {
+  int mag, phong, directional, spec_exp;
+  float m_scale, ambient, specular, edge, width, spec_norm;
+  float lx, ly, lz;   // the light's unit direction, or its position
+};
+
+// The Shade of a launch's host arrays: si = [magnitude scaling on, Phong
+// on, directional light, specular exponent], sf = [magnitude scaling,
+// ambient, specular, edge, width, lobe normalisation, light x, y, z].
+inline Shade make_shade(const int* si, const float* sf) {
+  Shade S;
+  S.mag = si[0];
+  S.phong = si[1];
+  S.directional = si[2];
+  S.spec_exp = si[3];
+  S.m_scale = sf[0];
+  S.ambient = sf[1];
+  S.specular = sf[2];
+  S.edge = sf[3];
+  S.width = sf[4];
+  S.spec_norm = sf[5];
+  S.lx = sf[6];
+  S.ly = sf[7];
+  S.lz = sf[8];
+  return S;
+}
+
+// The normal n of a sample of world-space density gradient g (g / |g|,
+// zero where |g|^2 <= 1e-12), and with S.mag or S.phong its color c (r, g,
+// b, absorption) shaded: the absorption times 1 - exp(-m |g|^2), the rgb
+// mixed from itself and a Lambert term |n.l| rgb plus a Blinn-Phong lobe
+// by the ambient strength's smoothstep of |g|. pw is the sample's world
+// position (the point light's direction), rd its ray's direction.
+__device__ __forceinline__ void shade_sample(const Shade& S, float4& c,
+                                             const float* g, const float* pw,
+                                             const float* rd, float* n) {
+  const float gns = g[0] * g[0] + g[1] * g[1] + g[2] * g[2];
+  const float inv = rsqrtf(fmaxf(gns, 1e-20f));
+  const bool nz = gns > 1e-12f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) n[k] = nz ? g[k] * inv : 0.0f;
+  if (S.mag) c.w *= 1.0f - expf(-S.m_scale * gns);
+  if (!S.phong) return;
+  float ld[3] = {S.lx, S.ly, S.lz};
+  if (!S.directional) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) ld[k] -= pw[k];
+    const float ll =
+        rsqrtf(fmaxf(ld[0] * ld[0] + ld[1] * ld[1] + ld[2] * ld[2], 1e-20f));
+#pragma unroll
+    for (int k = 0; k < 3; ++k) ld[k] *= ll;
+  }
+  const float gn = sqrtf(fmaxf(gns, 1e-20f));
+  const float t = fminf(fmaxf((gn - S.edge) / S.width, 0.0f), 1.0f);
+  const float amb = 1.0f + (S.ambient - 1.0f) * (t * t * (3.0f - 2.0f * t));
+  const float ndotl = n[0] * ld[0] + n[1] * ld[1] + n[2] * ld[2];
+  // reflect(l, -n) = l - 2 (n.l) n
+  float base = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) base += rd[k] * (ld[k] - 2.0f * ndotl * n[k]);
+  base = fmaxf(base, 0.0f);
+  float spec = 1.0f;
+  for (int e = S.spec_exp; e; e >>= 1) {   // the integer power by squaring
+    if (e & 1) spec *= base;
+    base *= base;
+  }
+  const float lobe = S.specular * (S.spec_norm * spec);
+  const float dif = fabsf(ndotl);
+  c.x = amb * c.x + (1.0f - amb) * (dif * c.x + lobe);
+  c.y = amb * c.y + (1.0f - amb) * (dif * c.y + lobe);
+  c.z = amb * c.z + (1.0f - amb) * (dif * c.z + lobe);
+}
+
+// The blend of a ray's normal and depth (nx, ny, nz, t): a run of samples
+// (N, T), each premultiplied by its sample's alpha and composed as the
+// color is, into the carry `nd` under the carry's transmittance w = 1 - A
+// (the normal and depth take the color's weights, as the JAX package's
+// _compose_tree and the reference's blending do).
+__device__ __forceinline__ void over_nd(float4& nd, float w, const float4& run) {
+  nd.x = fmaf(w, run.x, nd.x);
+  nd.y = fmaf(w, run.y, nd.y);
+  nd.z = fmaf(w, run.z, nd.z);
+  nd.w = fmaf(w, run.w, nd.w);
 }
 
 // One front-to-back "over" step of a sample of color (r, g, b) and alpha

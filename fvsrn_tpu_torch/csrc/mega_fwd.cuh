@@ -33,7 +33,12 @@
 // the layers' epilogue, no direction read), and one instance for every
 // other network (any activation, a switch outside the tile's layers as
 // in segment_fwd.cu; direction input), piecewise TF or rgbo heads only;
-// each table type, masked or not. The head is a runtime switch.
+// each table type, masked or not. The head is a runtime switch. The
+// normals instances (MEGA_NORMALS: mega_fwd_nrm.cu, mega_fwd_nrm48.cu,
+// mega_fwd_nrm64.cu, a library each) replace the JAX kernel's render with
+// need_normals and a BRDF: the generic instance's tile, then each counting
+// sample's position gradient, shading, and its normal and depth blended
+// with the colour's weights (warp_mlp.cuh's warp_chunk with RowNormal).
 //
 // Semantics kept from the TPU kernel (they decide the image):
 //  - samples sit on the global lattice t = k*h; the tile's base k0t is the
@@ -63,6 +68,9 @@
 
 #include "mega_common.cuh"
 #include "warp_mlp.cuh"
+#ifdef MEGA_NORMALS
+#include "position_grad.cuh"
+#endif
 
 #ifndef MEGA_WIDTH
 #error "define MEGA_WIDTH (32, 48 or 64) before including mega_fwd.cuh"
@@ -144,12 +152,18 @@ __device__ __forceinline__ void stage_weights(const March& P, const FPlan& pl,
     sm[pl.TF + i] = w[off.TF + i];
 }
 
-// `dens_carries` (the TF modes'): (R / 256, n_seg_max, 256) last densities
-// entering each visited segment, or null. ACT: kSnakeAlt (no direction
-// input), or -1: any activation (D.act), direction input read.
-template <int H, typename Table, bool kMasked, int TFM, int ACT>
-__global__ void __launch_bounds__(kTile, 2) mega_fwd_kernel(
-    const March P, const FwdOut O, const FLayer L, float* dens_carries) {
+// The march of one tile (the kernels' body). `dens_carries` (the TF
+// modes'): (R / 256, n_seg_max, 256) last densities entering each visited
+// segment, or null. ACT: kSnakeAlt (no direction input), or -1: any
+// activation (D.act), direction input read. With normals (`Nrm::kOn`)
+// `nd_out` ((R,) float4) takes each ray's blended normal and depth.
+template <int H, typename Table, bool kMasked, int TFM, int ACT,
+          class Nrm = NoNormal>
+__device__ __forceinline__ void mega_march(const March& P, const FwdOut& O,
+                                           const FLayer& L,
+                                           float* dens_carries,
+                                           const Nrm& nrm = Nrm(),
+                                           float4* nd_out = nullptr) {
   extern __shared__ float4 smem4[];
   __shared__ float red_f[kTile / 32];
   __shared__ int red_i[kTile / 32];
@@ -184,6 +198,7 @@ __global__ void __launch_bounds__(kTile, 2) mega_fwd_kernel(
   const float segf = (float)P.seg;
   Carry cy = {make_float4(0.0f, 0.0f, 0.0f, 0.0f), 0u};
   float dp = -1.0f;   // the last normalized density (TF modes)
+  float4 nd = make_float4(0.0f, 0.0f, 0.0f, 0.0f);   // normal, depth
   int visited = 0;
 
   for (int s = 0; s < P.n_seg_max; ++s) {
@@ -239,8 +254,8 @@ __global__ void __launch_bounds__(kTile, 2) mega_fwd_kernel(
       }
       if (__any_sync(full, (mask | donly) != 0u)) {
         pt.base = ka + (float)q0;
-        warp_chunk<H, Table, ACT, MegaPt<(ACT < 0)>, TFM>(
-            pl, D, sm, tile, mask | donly, pt, cy, fp, dp, donly);
+        warp_chunk<H, Table, ACT, MegaPt<(ACT < 0)>, TFM, Nrm>(
+            pl, D, sm, tile, mask | donly, pt, cy, fp, dp, donly, nrm, &nd);
       }
     }
   }
@@ -251,6 +266,7 @@ __global__ void __launch_bounds__(kTile, 2) mega_fwd_kernel(
 
   const int ray = blockIdx.x * kTile + threadIdx.x;
   reinterpret_cast<float4*>(O.out)[ray] = cy.c;
+  if constexpr (Nrm::kOn) nd_out[ray] = nd;
   const unsigned n = __reduce_add_sync(full, cy.n);
   if (lane == 0) red_i[warp] = (int)n;
   __syncthreads();
@@ -261,6 +277,12 @@ __global__ void __launch_bounds__(kTile, 2) mega_fwd_kernel(
     O.tile_samples[blockIdx.x] = total;
     if (O.seg_count != nullptr) O.seg_count[blockIdx.x] = visited;
   }
+}
+
+template <int H, typename Table, bool kMasked, int TFM, int ACT>
+__global__ void __launch_bounds__(kTile, 2) mega_fwd_kernel(
+    const March P, const FwdOut O, const FLayer L, float* dens_carries) {
+  mega_march<H, Table, kMasked, TFM, ACT>(P, O, L, dens_carries);
 }
 
 // What a launch passes besides March, FwdOut and FLayer: the TF mode and
@@ -358,8 +380,42 @@ bool fill_layer(FLayer& L, const March& P, int tf_pre, int tf_floats,
                          L.pl);
 }
 
+#ifdef MEGA_NORMALS
+// The normals instances (MEGA_NORMALS, their own library a width): the
+// piecewise TF of density heads, any activation and direction input, the
+// occupancy mask or none, one instance a table type. Each counting sample
+// also goes through the scalar network and its adjoint sweep
+// (position_grad.cuh RowNormal, on the engine's packed weights `NP`), is
+// shaded (`S`) and blends its normal and depth into `nd_out`.
+template <typename Table>
+__global__ void __launch_bounds__(kTile, 2) mega_nrm_kernel(
+    const March P, const FwdOut O, const FLayer L, const segment::Seg NP,
+    const Shade S, float4* nd_out) {
+  const segment::RowNormal nrm{NP, S};
+  mega_march<MEGA_WIDTH, Table, true, kTfPiecewise, -1>(P, O, L, nullptr,
+                                                         nrm, nd_out);
+}
+
+template <typename Table>
+int launch_nrm(const March& P, const FwdOut& O, const FLayer& L,
+               const segment::Seg& NP, const Shade& S, float4* nd_out,
+               int n_rays, cudaStream_t stream) {
+  const size_t smem = (size_t)L.pl.total;
+  cudaError_t e = cudaFuncSetAttribute(
+      mega_nrm_kernel<Table>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = n_rays / kTile;
+  if (blocks > 0)
+    mega_nrm_kernel<Table><<<blocks, kTile, smem, stream>>>(P, O, L, NP, S,
+                                                           nd_out);
+  return (int)cudaGetLastError();
+}
+#endif
+
 }  // namespace
 
+#ifndef MEGA_NORMALS
 #ifdef SMLP_PROFILE
 // The phase timers' sums since the last read (march_common.cuh), reset.
 extern "C" int smlp_prof_read(unsigned long long* out) {
@@ -443,3 +499,60 @@ extern "C" int mega_fwd_launch(
   return table_f32 ? launch<F32Table>(P, O, L, T, n_rays, st)
                    : launch<Bf16Table>(P, O, L, T, n_rays, st);
 }
+#else   // MEGA_NORMALS
+
+// The normals march of this width (MEGA_NORMALS): mega_fwd_launch's
+// arguments for a density head and the piecewise TF, with `nweights` the
+// network packed as the per-segment engine's `Wts` (segment_common.cuh;
+// `chunks` latent rows of 16, 0 without a grid) for the scalar network of
+// each sample's gradient, `nd_out` ((R,) float4) the blended normal and
+// depth, and the shading: shade_i = [magnitude scaling on, Phong on,
+// directional light, specular exponent], shade_f = [magnitude scaling,
+// ambient, specular, smoothstep edge, smoothstep width, lobe
+// normalisation, light x, y, z] (march_common.cuh's Shade; host arrays).
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int mega_fwd_nrm_launch(
+    const float* rays, const void* table, int table_f32, const float* weights,
+    int n_weights, const float* nweights, int n_nweights, int chunks,
+    float* out, float* nd_out, int* tile_samples, int n_rays, int gx, int gy,
+    int gz, int n_fourier, int n_hidden, int tf_points, int hidden, int act,
+    float act_param, int head, int has_dir, int seg, float stepsize,
+    float density_min, float inv_range, float early_alpha, float bmin_x,
+    float bmin_y, float bmin_z, float bsize_x, float bsize_y, float bsize_z,
+    const uint8_t* seg_active, int mask_cols, const int* shade_i,
+    const float* shade_f, void* stream) {
+  if (hidden != MEGA_WIDTH || n_fourier > kMaxFourier
+      || n_hidden > kMaxHidden || seg < 1 || head > kDensityDirect
+      || chunks < 0 || chunks > 1
+      || !mega_valid(act, head, kTfPiecewise, tf_points, 0, 5 * tf_points,
+                     nullptr))
+    return (int)cudaErrorInvalidValue;
+  const float bmin[3] = {bmin_x, bmin_y, bmin_z};
+  const float bsize[3] = {bsize_x, bsize_y, bsize_z};
+  March P;
+  fill_march(P, rays, table, weights, n_weights, gx, gy, gz, n_fourier,
+             n_hidden, tf_points, act, act_param, head, has_dir, seg,
+             1 << 30, stepsize, density_min, inv_range, early_alpha, bmin,
+             bsize);
+  P.seg_active = seg_active;
+  P.mask_cols = mask_cols;
+  FLayer L;
+  if (!fill_layer(L, P, 0, 5 * tf_points, nullptr))
+    return (int)cudaErrorInvalidValue;
+  const segment::Seg NP = segment::make_seg(
+      rays, nullptr, table, nweights, n_nweights, n_rays, gx, gy, gz, chunks,
+      n_fourier, n_hidden, tf_points, act, act_param, head, has_dir, 0, 0, 0,
+      0.0f, seg, 1, stepsize, density_min, inv_range, early_alpha, bmin,
+      bsize);
+  const Shade S = make_shade(shade_i, shade_f);
+  FwdOut O;
+  O.out = out;
+  O.tile_samples = tile_samples;
+  O.carries = nullptr;
+  O.seg_count = nullptr;
+  float4* nd = reinterpret_cast<float4*>(nd_out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return table_f32 ? launch_nrm<F32Table>(P, O, L, NP, S, nd, n_rays, st)
+                   : launch_nrm<Bf16Table>(P, O, L, NP, S, nd, n_rays, st);
+}
+#endif  // MEGA_NORMALS

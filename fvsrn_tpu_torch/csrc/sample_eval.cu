@@ -29,15 +29,12 @@
 // tiles, so a launch of 2^18 positions (8192 tiles) does not restage the
 // plan a thousand times from L2.
 //
-// The gradient instance (no path launches it; the card tests and the chip
-// smoke do) keeps the first version's scalar code: one thread a position,
-// the engine's per-sample `network` recording the evaluation (`Keep`),
-// dv/dy from the head's adjoint (strict gates: a clipped density has no
-// gradient), a sweep back through the hidden layers and, at the first
-// layer, the position rows, the Fourier term B^T (cos * d_sin - sin *
-// d_cos) and the analytic trilinear derivative (each axis' lerp factor
-// replaced by +-1, times the grid size on that axis), as the JAX kernel's
-// _mlp_position_grad_T does. No gradient with respect to the direction.
+// The gradient instance (Monte-Carlo tracking launches it once a round
+// for a gradient-scaled TF, raytracer/montecarlo.py) keeps the first
+// version's scalar code: one thread a position, the engine's per-sample
+// `network` recording the evaluation (`Keep`), then position_grad.cuh's
+// sweep, the one the fused forwards' normals instances run on their
+// samples.
 //
 // Out-of-box positions are evaluated too (the corners clamp to the grid's
 // border, as the JAX package's edge-padded table does).
@@ -49,6 +46,7 @@
 
 #include <atomic>
 
+#include "position_grad.cuh"
 #include "segment_tile.cuh"
 
 namespace {
@@ -66,99 +64,6 @@ struct EvalArgs {
   float* out;           // (n,) values, or (n, 4) [value, d/dx, d/dy, d/dz]
   int n;
 };
-
-// d value / d pos01 of one evaluation recorded in `keep` (head values `v`).
-// `hs` is the thread's column of the activation scratch (stride kBlock):
-// each transposed layer writes its outputs there, so the loop over them
-// is a loop and not H unrolled copies (nvcc's time stays in seconds).
-template <int H, typename Table>
-__device__ __forceinline__ void position_grad(const Seg& P, const Wts& N,
-                                              const Keep<H>& keep,
-                                              const float* v, float* hs,
-                                              float* g) {
-  const int F = P.n_fourier;
-  const float d_out[4] = {1.0f, 0.0f, 0.0f, 0.0f};
-  float d_y[4];
-  head_adjoint(P.head, keep.y, v, d_out, d_y);
-  float dh[H];
-#pragma unroll
-  for (int i = 0; i < H; ++i) dh[i] = N.Wo[i] * d_y[0];
-#pragma unroll 1
-  for (int l = P.n_hidden; l >= 0; --l) {
-    const float* dact = keep.dact + l * H;
-#pragma unroll
-    for (int o = 0; o < H; ++o) dh[o] *= dact[o];
-    if (l == 0) break;
-    const float* W = N.Wh + (l - 1) * H * H;
-#pragma unroll 1
-    for (int i = 0; i < H; ++i) hs[i * kBlock] = dot_row<H>(W + i * H, dh);
-#pragma unroll
-    for (int o = 0; o < H; ++o) dh[o] = hs[o * kBlock];
-  }
-  // dh: the first layer's pre-activation cotangent. Position rows:
-  float g0 = dot_row<H>(N.W1, dh);
-  float g1 = dot_row<H>(N.W1 + H, dh);
-  float g2 = dot_row<H>(N.W1 + 2 * H, dh);
-  // Fourier features: d phase_i = cos_i * d_sin_i - sin_i * d_cos_i
-#pragma unroll 1
-  for (int i = 0; i < F; ++i) {
-    const float d_cos = dot_row<H>(N.W1 + (6 + i) * H, dh);
-    const float d_sin = dot_row<H>(N.W1 + (6 + F + i) * H, dh);
-    const float d_f = keep.in1[6 + i] * d_sin - keep.in1[6 + F + i] * d_cos;
-    g0 = fmaf(N.B[3 * i], d_f, g0);
-    g1 = fmaf(N.B[3 * i + 1], d_f, g1);
-    g2 = fmaf(N.B[3 * i + 2], d_f, g2);
-  }
-  // latent grid: s_k = <d_lat, corner k's row>, then the derivative of
-  // each corner weight along each axis
-  if (P.chunks > 0) {
-    const float x0 = keep.in1[0], x1 = keep.in1[1], x2 = keep.in1[2];
-    Corners c;
-    grid_corners(P.gx, P.gy, P.gz, x0, x1, x2, c);
-    int lo, hi;
-    float fx, fy, fz;
-    corner_axis(x0, P.gx, lo, hi, fx);
-    corner_axis(x1, P.gy, lo, hi, fy);
-    corner_axis(x2, P.gz, lo, hi, fz);
-    float s[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) s[k] = 0.0f;
-#pragma unroll 1
-    for (int q = 0; q < P.chunks; ++q) {
-      float d_lat[kLat];
-#pragma unroll
-      for (int ch = 0; ch < kLat; ++ch)
-        d_lat[ch] = dot_row<H>(N.W1 + (6 + 2 * F + kLat * q + ch) * H, dh);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        float row[kLat];
-#pragma unroll
-        for (int ch = 0; ch < kLat; ++ch) row[ch] = 0.0f;
-        Table::add(P.table, c.row[k] * P.chunks + q, 1.0f, row);
-#pragma unroll
-        for (int ch = 0; ch < kLat; ++ch)
-          s[k] = fmaf(d_lat[ch], row[ch], s[k]);
-      }
-    }
-    float l0 = 0.0f, l1 = 0.0f, l2 = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int cx = k & 1, cy = (k >> 1) & 1, cz = k >> 2;
-      const float wx = cx ? fx : 1.0f - fx;
-      const float wy = cy ? fy : 1.0f - fy;
-      const float wz = cz ? fz : 1.0f - fz;
-      l0 += (cx ? s[k] : -s[k]) * wy * wz;
-      l1 += (cy ? s[k] : -s[k]) * wx * wz;
-      l2 += (cz ? s[k] : -s[k]) * wx * wy;
-    }
-    g0 = fmaf(l0, (float)P.gx, g0);
-    g1 = fmaf(l1, (float)P.gy, g1);
-    g2 = fmaf(l2, (float)P.gz, g2);
-  }
-  g[0] = g0;
-  g[1] = g1;
-  g[2] = g2;
-}
 
 // The value instance: every warp strides over the tiles of 32 positions
 // (tile t of the call: positions 32 t .. 32 t + 31), the block's weights
@@ -237,7 +142,7 @@ __global__ void __launch_bounds__(kBlock) sample_grad_kernel(
   Keep<H> keep;
   network<H, Table, kBlock, true>(P, N, hs, x0, x1, x2, d0, d1, d2, v, &keep);
   float g[3];
-  position_grad<H, Table>(P, N, keep, v, hs, g);
+  position_grad<H, Table, kBlock>(P, N, keep, v, hs, g);
   reinterpret_cast<float4*>(A.out)[i] = make_float4(v[0], g[0], g[1], g[2]);
 }
 

@@ -595,6 +595,12 @@ struct Carry {
   unsigned n;
 };
 
+// warp_chunk's `Nrm` of the instances without normals (position_grad.cuh's
+// RowNormal is the other).
+struct NoNormal {
+  static constexpr bool kOn = false;
+};
+
 // The warp's rays' fields in its tile region: 8 floats a lane.
 __device__ __forceinline__ float* ray_fields(const FPlan& pl, float* tile) {
   return tile + kRows * pl.lds + kRows * 4;
@@ -626,12 +632,22 @@ __device__ __forceinline__ float* ray_fields(const FPlan& pl, float* tile) {
 // counted (a culled or skipped segment leaves it alone). The rows of
 // `donly` (a subset of `mask`, each lane's) give their density and no
 // color.
-template <int H, typename Table, int ACT, class Pt, int TFM = kTfPiecewise>
+//
+// With normals (`Nrm::kOn`, the piecewise TF, no iso), once the tile's
+// layers have run each lane takes its row's counting sample through
+// nrm.grad (the scalar network and its adjoint sweep, the row of the tile
+// as the lane's scratch), shades it (march_common.cuh shade_sample) and
+// gives the normal and depth (n, t) besides the color; the scan composes
+// them with the color's weights into each lane's `nd` (over_nd).
+template <int H, typename Table, int ACT, class Pt, int TFM = kTfPiecewise,
+          class Nrm = NoNormal>
 __device__ __forceinline__ void warp_chunk(const FPlan& pl, const FDims& D,
                                            const float* sm, float* tile,
                                            uint32_t mask, const Pt& pt,
                                            Carry& cy, FwdProf* fp,
-                                           float& dp, uint32_t donly = 0u) {
+                                           float& dp, uint32_t donly = 0u,
+                                           const Nrm& nrm = Nrm(),
+                                           float4* nd = nullptr) {
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   float* ybuf = tile + kRows * pl.lds;
@@ -679,7 +695,33 @@ __device__ __forceinline__ void warp_chunk(const FPlan& pl, const FDims& D,
     FWD_MARK(fp, 1);
     float4 col = make_float4(0.0f, 0.0f, 0.0f, -1.0f);
     float dens = 0.0f;   // the row's normalized density (TF modes)
-    if constexpr (TFM == kTfPiecewise) {
+    float4 nt = make_float4(0.0f, 0.0f, 0.0f, 0.0f);   // normal, depth
+    if constexpr (Nrm::kOn) {
+      if (lane < cnt) {
+        const float4 y = reinterpret_cast<const float4*>(ybuf)[lane];
+        const float ya[4] = {y.x, y.y, y.z, y.w};
+        float v[4];
+        head_value(D.head, ya, v);
+        if (v[0] >= D.density_min) {
+          TfSample tf;
+          tf_lookup(sm + pl.TF, D.tp,
+                    fminf(fmaxf((v[0] - D.density_min) * D.inv_range, 0.0f),
+                          1.0f),
+                    tf);
+          col = make_float4(tf.r, tf.g, tf.b, tf.op * D.h);
+          const float* rf = rays + kRayF * L;
+          const int j = (int)__fns(ml, 0, i - ex + 1);
+          float t, x[3], d[3], g[3], n[3];
+          pt.point(rf, j, t, x, d);
+          nrm.template grad<H, Table>(tile + lane * pl.lds, x, d, g);
+          const float pw[3] = {rf[0] + t * rf[3], rf[1] + t * rf[4],
+                               rf[2] + t * rf[5]};
+          shade_sample(nrm.S, col, g, pw, rf + 3, n);
+          col.w = D.blend_alpha ? fminf(1.0f, col.w) : 1.0f - expf(-col.w);
+          nt = make_float4(n[0], n[1], n[2], t);
+        }
+      }
+    } else if constexpr (TFM == kTfPiecewise) {
       if (lane < cnt) {
         const float4 y = reinterpret_cast<const float4*>(ybuf)[lane];
         const float ya[4] = {y.x, y.y, y.z, y.w};
@@ -733,6 +775,12 @@ __device__ __forceinline__ void warp_chunk(const FPlan& pl, const FDims& D,
       float cg = counts ? col.w * col.y : 0.0f;
       float cb = counts ? col.w * col.z : 0.0f;
       float ar = counts ? col.w : 0.0f;
+      float4 cn = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if constexpr (Nrm::kOn) {
+        if (counts)
+          cn = make_float4(col.w * nt.x, col.w * nt.y, col.w * nt.z,
+                           col.w * nt.w);
+      }
       // a segment starts at row 0 and wherever the owner changes
       const int prev = __shfl_up_sync(full, L, 1);
       bool start = lane == 0 || prev != L;
@@ -743,12 +791,25 @@ __device__ __forceinline__ void warp_chunk(const FPlan& pl, const FDims& D,
         const float pb = __shfl_up_sync(full, cb, o);
         const float pa = __shfl_up_sync(full, ar, o);
         const bool ps = __shfl_up_sync(full, (int)start, o) != 0;
+        float4 pn;
+        if constexpr (Nrm::kOn) {
+          pn.x = __shfl_up_sync(full, cn.x, o);
+          pn.y = __shfl_up_sync(full, cn.y, o);
+          pn.z = __shfl_up_sync(full, cn.z, o);
+          pn.w = __shfl_up_sync(full, cn.w, o);
+        }
         if (lane >= o && !start) {
           const float tl = 1.0f - pa;
           cr = fmaf(tl, cr, pr);
           cg = fmaf(tl, cg, pg);
           cb = fmaf(tl, cb, pb);
           ar = fmaf(tl, ar, pa);
+          if constexpr (Nrm::kOn) {
+            cn.x = fmaf(tl, cn.x, pn.x);
+            cn.y = fmaf(tl, cn.y, pn.y);
+            cn.z = fmaf(tl, cn.z, pn.z);
+            cn.w = fmaf(tl, cn.w, pn.w);
+          }
           start = ps;
         }
       }
@@ -758,6 +819,12 @@ __device__ __forceinline__ void warp_chunk(const FPlan& pl, const FDims& D,
       const float Cg = __shfl_sync(full, cg, last);
       const float Cb = __shfl_sync(full, cb, last);
       const float Ar = __shfl_sync(full, ar, last);
+      if constexpr (Nrm::kOn) {
+        const float4 run = make_float4(
+            __shfl_sync(full, cn.x, last), __shfl_sync(full, cn.y, last),
+            __shfl_sync(full, cn.z, last), __shfl_sync(full, cn.w, last));
+        if (hi > lo) over_nd(*nd, 1.0f - cy.c.w, run);
+      }
       if (hi > lo) {
         const float w = 1.0f - cy.c.w;
         cy.c.x = fmaf(w, Cr, cy.c.x);

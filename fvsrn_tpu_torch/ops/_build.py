@@ -25,10 +25,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # every source of the port (csrc/<name>.cu); the megakernel's one per
-# hidden width (32, 48, 64)
-SOURCES = ("mega_fwd", "mega_fwd48", "mega_fwd64", "mega_bwd", "mega_bwd48",
-           "mega_bwd64", "segment_fwd", "segment_bwd", "sample_eval",
-           "probes")
+# hidden width (32, 48, 64), its normals instances too; the per-segment
+# engine's normals instances apart from its render's
+SOURCES = ("mega_fwd", "mega_fwd48", "mega_fwd64", "mega_fwd_nrm",
+           "mega_fwd_nrm48", "mega_fwd_nrm64", "mega_bwd", "mega_bwd48",
+           "mega_bwd64", "segment_fwd", "segment_fwd_nrm", "segment_bwd",
+           "sample_eval", "probes")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -46,7 +46,14 @@ it: rgba = (depth, 0, 0, found), and a hit ray is dead. The
 differentiable march has no early-out (every segment runs; the JAX
 package's fixed-count scan) and a float32 table; normals and shading,
 and a bf16 table under ``differentiable=True`` raise
-``NotImplementedError``.
+``NotImplementedError``. With ``need_normals`` (density heads) each valid
+sample also gets the network's world-space position gradient (the
+adjoint sweep of the JAX package's ``_mlp_position_grad_T``), its
+normalised normal (zero where |g|^2 <= 1e-12), and with a ``brdf``
+gradient-magnitude opacity scaling and Blinn-Phong shading
+(:func:`shade_samples`); the normal and the depth t blend with the
+colour's weights, and the call returns ``RayEvaluationOutput(color,
+depth, normal)``.
 
 Bound of the kernel on the H100: operations (the dense flagship's sample
 costs ~7.6 kFLOP and ~110 transcendentals against 32 bytes per ray). A
@@ -68,6 +75,7 @@ from torch import Tensor
 from ..models.activations import apply_activation
 from ..models.latent import grid_sample_3d
 from ..models.srn import SceneRepresentationNetwork
+from ..raytracer.dvr import RayEvaluationOutput
 from ..utils.device import strict_f32
 from ..utils.vecmath import intersect_aabb
 from . import _build
@@ -75,8 +83,10 @@ from .fused_mega import (_ACTIVATIONS, _HEADS, TfCarries, _gated_clip01,
                          _params, _tf_args, kernel_width)
 
 # kernel launches since the last reset (two a call: the march and its
-# continuation up to the call's stop); the plain version never counts
+# continuation up to the call's stop), the normals instances' apart; the
+# plain version never counts
 SEGMENT_LAUNCHES = 0
+SEGMENT_NRM_LAUNCHES = 0
 
 # the JAX megakernel's VMEM budget for its latent slab: the route rule of
 # the fused render (a grid over it takes the bucketed per-segment engine)
@@ -304,6 +314,8 @@ class SegmentSpec(NamedTuple):
     tf_mode: str = "piecewise"
     tf_points: int = 0          # prepare_tf's tf_points, tf_pre_rows
     tf_pre_rows: int = 0
+    normals: bool = False       # need_normals: the blended normal, depth
+    brdf: tuple = ()            # brdf_tuple's shading parameters
 
 
 class SegmentStats(NamedTuple):
@@ -343,14 +355,65 @@ def fused_tf_args(tf):
     return tf.tensor, {}
 
 
+def brdf_tuple(brdf, need_normals: bool) -> tuple:
+    """The shading parameters the fused marches take from a
+    ``brdf.BRDFLambert`` (the JAX package's ``_brdf_tuple``): () when
+    there is none or it shades nothing, else (magnitude scaling on, Phong
+    on, magnitude_scaling, ambient, specular, magnitude_center,
+    magnitude_radius, directional light, light x, y, z, specular
+    exponent). A shading BRDF without normals raises ``ValueError``."""
+    if brdf is None or not (brdf.enable_phong
+                            or brdf.enable_magnitude_scaling):
+        return ()
+    if not need_normals:
+        raise ValueError("brdf shading requires need_normals=True")
+    lp = [float(np.float32(v)) for v in brdf.light]
+    return (bool(brdf.enable_magnitude_scaling), bool(brdf.enable_phong),
+            _f32(brdf.magnitude_scaling), _f32(brdf.ambient),
+            _f32(brdf.specular), _f32(brdf.magnitude_center),
+            _f32(brdf.magnitude_radius), brdf.light_type == "direction",
+            lp[0], lp[1], lp[2], int(brdf.specular_exponent))
+
+
+def shade_args(brdf: tuple):
+    """The kernels' shading arguments of :func:`brdf_tuple`'s ``brdf``
+    (csrc/march_common.cuh ``make_shade``): int [magnitude scaling on,
+    Phong on, directional light, specular exponent] and float [magnitude
+    scaling, ambient, specular, smoothstep edge center - radius, width 2
+    radius, lobe normalisation (e + 2) 0.159155, the light's unit direction
+    -l/|l| or its position], folded in double precision as the JAX
+    package folds them; ctypes arrays. No BRDF shades nothing."""
+    si, sf = [0, 0, 1, 0], [0.0] * 9
+    if brdf:
+        (en_ms, en_phong, m_scale, ambient, specular, m_center, m_radius,
+         directional, lx, ly, lz, e) = brdf
+        light = (lx, ly, lz)
+        if directional:
+            ln = math.sqrt(lx * lx + ly * ly + lz * lz)
+            light = (-lx / ln, -ly / ln, -lz / ln)
+        si = [int(en_ms), int(en_phong), int(directional), int(e)]
+        sf = [m_scale, ambient, specular, m_center - m_radius,
+              2.0 * m_radius, (e + 2) * 0.159155, *light]
+    return (ctypes.c_int * 4)(*si), (ctypes.c_float * 9)(*sf)
+
+
+def _check_normals_request(net, *, differentiable, need_normals, iso_value):
+    """The JAX package's refusals of normals, with its exception types."""
+    rgbo = not net.output_mode.startswith("density")
+    if iso_value is not None and (differentiable or need_normals or rgbo):
+        raise ValueError("fused iso marching: forward-only density networks "
+                         "(shading happens outside the kernel)")
+    if differentiable and need_normals:
+        raise NotImplementedError("differentiable fused path: no normals or "
+                                  "shading")
+    if need_normals and rgbo:
+        raise ValueError("normals are only defined for density networks")
+
+
 def _check_segment_request(net, *, differentiable, need_normals,
                            iso_value, table_dtype):
-    if need_normals:
-        raise NotImplementedError("fused_trace_dvr: normals and shading "
-                                  "are not ported yet")
-    if iso_value is not None and (differentiable or not
-                                  net.output_mode.startswith("density")):
-        raise ValueError("fused iso marching: forward-only density networks")
+    _check_normals_request(net, differentiable=differentiable,
+                           need_normals=need_normals, iso_value=iso_value)
     if differentiable and table_dtype != torch.float32:
         raise NotImplementedError("fused_trace_dvr: the differentiable march "
                                   "takes a float32 latent table only")
@@ -388,7 +451,7 @@ def _segment_setup(ray_start, ray_dir, net, box_min, box_size, *, stepsize,
                    alpha_early_out, enable_early_out, seg, tile,
                    differentiable, latent_mode, table_dtype, n_seg,
                    need_normals, iso_value, tf_mode, tmax_clip,
-                   tf_points=0, tf_pre_rows=0):
+                   tf_points=0, tf_pre_rows=0, brdf=None):
     """(spec, rays, kbase): the checks and the ray packet of a call. The
     differentiable march has no early-out (the JAX package's rule,
     fvsrn_tpu/ops/fused_dvr.py:2466-2473: its fixed-count scan composites
@@ -431,7 +494,8 @@ def _segment_setup(ray_start, ray_dir, net, box_min, box_size, *, stepsize,
                     net.layers[0].activation_param),
         output_mode=net.output_mode, direction=net.use_direction,
         tf_mode=tf_mode, tf_points=int(tf_points),
-        tf_pre_rows=int(tf_pre_rows))
+        tf_pre_rows=int(tf_pre_rows), normals=bool(need_normals),
+        brdf=brdf_tuple(brdf, need_normals))
     return spec, rays, kbase
 
 
@@ -497,6 +561,73 @@ def _network_values(params: list, x01: Tensor, dirs: Tensor, *,
         y = _gated_relu(y) if name == "ReLU" else apply_activation(name, y, p)
     y = y @ layers[-2].T + layers[-1]
     return _head(output_mode, y)
+
+
+def network_position_grad(params: list, x01: Tensor, dirs: Tensor, **net):
+    """(value (N,), d value / d x01 (N, 3)) of :func:`_network_values`'s
+    density head at samples ``x01`` (N, 3): autograd through the plain
+    network with its strict gates (a clipped density, a ReLU at its kink
+    pass no gradient), the function the kernels' adjoint sweep computes
+    (csrc/position_grad.cuh). ``net``: _network_values' keywords."""
+    with torch.enable_grad():
+        x = x01.detach().requires_grad_(True)
+        value = _network_values([p.detach() if p is not None else None
+                                 for p in params], x, dirs, **net)[:, 0]
+        (grad,) = torch.autograd.grad(value.sum(), x)
+    return value.detach(), grad
+
+
+def shade_samples(brdf: tuple, rgb: Tensor, absn: Tensor, grad: Tensor,
+                  pos: Tensor, ray_dir: Tensor):
+    """(rgb, absorption, normal) of samples of TF colour ``rgb`` (..., 3)
+    and absorption ``absn`` (...) whose world-space density gradient is
+    ``grad`` (..., 3), at world positions ``pos`` along ``ray_dir`` (both
+    broadcasting to grad's shape): the JAX package's fused epilogue
+    (fvsrn_tpu/ops/fused_dvr.py:1997-2051), which the kernels repeat
+    (csrc/march_common.cuh ``shade_sample``). The normal is g/|g|, zero
+    where |g|^2 <= 1e-12; with a ``brdf`` (:func:`brdf_tuple`) the
+    absorption is scaled by 1 - exp(-m |g|^2) and the colour shaded by a
+    Lambert term |n.l| and a Blinn-Phong lobe (the integer exponent by
+    squaring, normalised by (e + 2) 0.159155), mixed by the ambient
+    strength's smoothstep of |g|."""
+    gns = (grad * grad).sum(dim=-1)
+    inv = torch.rsqrt(torch.clamp(gns, min=1e-20))
+    nrm = torch.where((gns > 1e-12)[..., None], grad * inv[..., None],
+                      torch.zeros_like(grad))
+    if not brdf:
+        return rgb, absn, nrm
+    (en_ms, en_phong, m_scale, ambient, specular, m_center, m_radius,
+     directional, lx, ly, lz, e) = brdf
+    if en_ms:
+        absn = absn * (1.0 - torch.exp(-m_scale * gns))
+    if en_phong:
+        if directional:
+            ln = math.sqrt(lx * lx + ly * ly + lz * lz)
+            ld = torch.tensor([-lx / ln, -ly / ln, -lz / ln],
+                              dtype=grad.dtype, device=grad.device)
+        else:
+            lv = torch.tensor([lx, ly, lz], dtype=grad.dtype,
+                              device=grad.device) - pos
+            ld = lv * torch.rsqrt(torch.clamp((lv * lv).sum(-1), min=1e-20)
+                                  )[..., None]
+        gn = torch.sqrt(torch.clamp(gns, min=1e-20))
+        t01 = torch.clamp((gn - (m_center - m_radius)) / (2.0 * m_radius),
+                          0.0, 1.0)
+        amb = 1.0 + (ambient - 1.0) * (t01 * t01 * (3.0 - 2.0 * t01))
+        ndotl = (nrm * ld).sum(-1)
+        refl = ld - 2.0 * ndotl[..., None] * nrm
+        base = torch.clamp((ray_dir * refl).sum(-1), min=0.0)
+        spec, k = torch.ones_like(base), e
+        while k:                        # the integer power by squaring
+            if k & 1:
+                spec = spec * base
+            base = base * base
+            k >>= 1
+        spec = ((e + 2) * 0.159155) * spec
+        rgb = (amb[..., None] * rgb + (1.0 - amb)[..., None]
+               * (torch.abs(ndotl)[..., None] * rgb
+                  + specular * spec[..., None]))
+    return rgb, absn, nrm
 
 
 def _piecewise(tf: Tensor, d: Tensor) -> Tensor:
@@ -714,22 +845,35 @@ def tf_shade(spec, table: Tensor, density2: Tensor,
 
 
 def carry_width(spec) -> int:
-    """Floats of a ray's carry: rgba, and the last normalized density for
-    the TF modes (-1 before the first sample)."""
+    """Floats of a ray's carry: rgba, the last normalized density for the
+    TF modes (-1 before the first sample), and with normals the blended
+    normal and depth after it (the JAX kernels' carry rows 0-8)."""
+    if spec.normals:
+        return 9
     return 4 if spec.tf_mode == "piecewise" else 5
+
+
+def march_output(spec, carry: Tensor):
+    """What a march returns from its final carry (..., carry_width):
+    rgba, or with normals ``RayEvaluationOutput`` with the blended normal
+    and depth."""
+    if not spec.normals:
+        return carry[..., :4]
+    return RayEvaluationOutput(color=carry[..., :4], depth=carry[..., 8:9],
+                               normal=carry[..., 5:8])
 
 
 def initial_carry(spec, shape, device) -> Tensor:
     carry = torch.zeros(tuple(shape) + (carry_width(spec),),
                         dtype=torch.float32, device=device)
-    if carry.shape[-1] == 5:
+    if carry.shape[-1] >= 5:
         carry[..., 4] = -1.0
     return carry
 
 
 def _plain_segment(spec, params, rays, kbase, s, carry):
-    """Segment ``s`` of the rays (n, 8) from their ``carry`` (n, 4), or
-    (n, 5) with the last density in the TF modes. Returns (carry, samples
+    """Segment ``s`` of the rays (n, 8) from their ``carry`` (n,
+    :func:`carry_width`). Returns (carry, samples
     evaluated). Differentiable in ``params`` and ``carry`` with the TPU
     kernel's gradient: a sample that absorbs nothing passes none."""
     dev = rays.device
@@ -749,10 +893,15 @@ def _plain_segment(spec, params, rays, kbase, s, carry):
     bsize = torch.tensor(spec.box_size, dtype=torch.float32, device=dev)
     x01 = ((rs + t[..., None] * rd - bmin) / bsize).reshape(-1, 3)
     dirs = rd.expand(-1, spec.seg, -1).reshape(-1, 3)
-    vals = _network_values(params, x01, dirs, direction=spec.direction,
-                           activation=spec.activation,
-                           output_mode=spec.output_mode).reshape(
-        rays.shape[0], spec.seg, -1)
+    net = dict(direction=spec.direction, activation=spec.activation,
+               output_mode=spec.output_mode)
+    if spec.normals:
+        vals, g01 = network_position_grad(params, x01, dirs, **net)
+        vals = vals.reshape(rays.shape[0], spec.seg, 1)
+        grad = g01.reshape(rays.shape[0], spec.seg, 3) / bsize
+    else:
+        vals = _network_values(params, x01, dirs, **net).reshape(
+            rays.shape[0], spec.seg, -1)
     if spec.iso_value is not None:
         carry = carry.clone()
         inside = valid & (vals[..., 0] > spec.iso_value)
@@ -778,9 +927,10 @@ def _plain_segment(spec, params, rays, kbase, s, carry):
                                  (kk == a) if spec.lattice else None)
             prev_out = density2[:, -1]
         require = valid & (v >= spec.density_min)
+        if spec.normals:
+            rgb, absn, nrm = shade_samples(spec.brdf, rgb, absn, grad,
+                                           rs + t[..., None] * rd, rd)
     else:
-        if spec.tf_mode != "piecewise":
-            prev_out = carry[:, 4]
         rgb, absn = vals[..., :3], vals[..., 3] * h
         require = valid
     absn = torch.where(require, absn, torch.zeros_like(absn))
@@ -789,15 +939,32 @@ def _plain_segment(spec, params, rays, kbase, s, carry):
     contrib = require & (absn > 0)
     rgb = torch.where(contrib[..., None], rgb, rgb.detach())
     ca = torch.where(contrib, ca, ca.detach())
-    c, alpha = carry[:, :3], carry[:, 3]
-    for j in range(spec.seg):           # front-to-back "over"
-        w = (1.0 - alpha) * ca[:, j]
-        c = c + w[:, None] * rgb[:, j]
-        alpha = alpha + (1.0 - alpha) * ca[:, j]
-    out = [c, alpha[:, None]]
-    if prev_out is not None:
-        out.append(prev_out[:, None])
-    return torch.cat(out, dim=1), valid.sum()
+    nd = torch.cat([nrm, t[..., None]], dim=-1) if spec.normals else None
+    return composite(spec, carry, rgb, ca, prev_out, nd), valid.sum()
+
+
+def composite(spec, carry: Tensor, rgb: Tensor, ca: Tensor,
+              last: Optional[Tensor] = None,
+              nd: Optional[Tensor] = None) -> Tensor:
+    """A segment's samples (..., seg) front to back "over" into ``carry``
+    (..., :func:`carry_width`): colours ``rgb`` (..., seg, 3), alphas
+    ``ca``; ``last`` the TF modes' last density (None: the carried one
+    stays); with normals ``nd`` (..., seg, 4), the samples' normal and
+    depth, blended with the colour's weights. Returns the new carry."""
+    c, alpha = carry[..., :3], carry[..., 3]
+    acc = carry[..., 5:9] if spec.normals else None
+    for j in range(spec.seg):
+        w = (1.0 - alpha) * ca[..., j]
+        c = c + w[..., None] * rgb[..., j, :]
+        if acc is not None:
+            acc = acc + w[..., None] * nd[..., j, :]
+        alpha = alpha + (1.0 - alpha) * ca[..., j]
+    out = [c, alpha[..., None]]
+    if carry.shape[-1] > 4:
+        out.append(last[..., None] if last is not None else carry[..., 4:5])
+    if acc is not None:
+        out.append(acc)
+    return torch.cat(out, dim=-1)
 
 
 def _plain_march(spec: SegmentSpec, params: list, rays: Tensor,
@@ -826,7 +993,7 @@ def _plain_march(spec: SegmentSpec, params: list, rays: Tensor,
                 kbase[idx] if kbase is not None else None, s, carry[idx])
             samples += n
     stats = SegmentStats(samples, torch.tensor(stop, dtype=torch.int64))
-    return carry[:, :4], stats, carries
+    return march_output(spec, carry), stats, carries
 
 
 def _segment_done(spec: SegmentSpec, rays: Tensor, kbase, s: int) -> Tensor:
@@ -850,8 +1017,8 @@ def fused_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
                           latent_mode: str = "table",
                           table_dtype: torch.dtype = torch.float32,
                           n_seg: Optional[int] = None,
-                          need_normals: bool = False, iso_value=None,
-                          tf_mode: str = "piecewise",
+                          need_normals: bool = False, brdf=None,
+                          iso_value=None, tf_mode: str = "piecewise",
                           tf_pre: Optional[Tensor] = None,
                           tmax_clip: Optional[Tensor] = None,
                           return_stats: bool = False, **tpu_schedule):
@@ -859,7 +1026,8 @@ def fused_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
     schedule and stop, vectorized over the rays of each segment in chunks,
     a Python loop over segments; with ``differentiable`` the autograd
     Function ``ops.fused_dvr_bwd._PlainSegmentMarch`` with the kernels'
-    gradient."""
+    gradient; with ``need_normals`` each sample's position gradient by
+    :func:`network_position_grad`."""
     strict_f32()
     _tpu_schedule(tpu_schedule)
     table, tf_points, tf_pre_rows = prepare_tf(tf_tensor, tf_mode, tf_pre,
@@ -872,7 +1040,8 @@ def fused_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
         seg=seg, tile=tile, differentiable=differentiable,
         latent_mode=latent_mode, table_dtype=table_dtype, n_seg=n_seg,
         need_normals=need_normals, iso_value=iso_value, tf_mode=tf_mode,
-        tmax_clip=tmax_clip, tf_points=tf_points, tf_pre_rows=tf_pre_rows)
+        tmax_clip=tmax_clip, tf_points=tf_points, tf_pre_rows=tf_pre_rows,
+        brdf=brdf)
     params = segment_params(net, table, table_dtype)
     if differentiable:
         from .fused_dvr_bwd import _PlainSegmentMarch
@@ -902,11 +1071,17 @@ def _tpu_schedule(kwargs: dict):
 
 def _check_kernel_inputs(net, tf: Tensor, seg: int = 32,
                          differentiable: bool = False,
-                         tf_mode: str = "piecewise"):
+                         tf_mode: str = "piecewise",
+                         need_normals: bool = False):
     """What csrc/segment_fwd.cu (and, for gradients, segment_bwd.cu)
-    takes for the TF table ``tf`` (``prepare_tf``'s) in ``tf_mode``; the
+    takes for the TF table ``tf`` (``prepare_tf``'s) in ``tf_mode``; its
+    normals instances (segment_fwd_nrm.cu) take the piecewise TF. The
     rest raises ``NotImplementedError``."""
     from .sample_mlp import tf_floats_of
+    if need_normals and tf_mode != "piecewise":
+        raise NotImplementedError(f"segment kernel: normals with TF mode "
+                                  f"{tf_mode!r} are not ported yet "
+                                  "(piecewise only)")
     kernel_width(net)
     if len(net.layers) - 2 > MAX_HIDDEN_LAYERS:
         raise NotImplementedError(f"segment kernel: at most "
@@ -1124,6 +1299,61 @@ def launch_segment(spec: SegmentSpec, net, rays: Tensor,
     return out, SegmentStats(stats[1], stats[0]), carries, death
 
 
+def _bind_nrm(lib: ctypes.CDLL):
+    fn = lib.segment_fwd_nrm_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = ([p, p, p, i, p, i, p, p, p, p] + [i] * 10 + [f] + [i] * 4
+                   + [i, i] + [f] * 4 + [f] * 6 + [i, p, p, p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_segment_nrm(spec: SegmentSpec, net, rays: Tensor,
+                       kbase: Optional[Tensor], weights: Tensor,
+                       table: Tensor, tf_points: int):
+    """Launch csrc/segment_fwd_nrm.cu: the march and its continuation (as
+    :func:`launch_segment`) with each counting sample's position gradient,
+    shading (``spec.brdf``) and the blended normal and depth. Returns
+    (RayEvaluationOutput, SegmentStats)."""
+    global SEGMENT_NRM_LAUNCHES
+    dev = rays.device
+    n_rays = rays.shape[0]
+    out = torch.empty(n_rays, 4, dtype=torch.float32, device=dev)
+    nd = torch.empty(n_rays, 4, dtype=torch.float32, device=dev)
+    death = torch.empty(n_rays, dtype=torch.int32, device=dev)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    _check_tensors(dev, rays=rays, weights=weights, table=table)
+    if spec.lattice:
+        _check_tensors(dev, kbase=kbase)
+    gz, gy, gx = table.shape[:3]
+    si, sf = shade_args(spec.brdf)
+    fn = _bind_nrm(_build.load("segment_fwd_nrm"))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for phase in (0, 1):
+            err = fn(
+                rays.data_ptr(), kbase.data_ptr() if spec.lattice else None,
+                table.data_ptr(), int(table.dtype == torch.float32),
+                weights.data_ptr(), weights.numel(), out.data_ptr(),
+                nd.data_ptr(), death.data_ptr(), stats.data_ptr(), n_rays,
+                gx, gy, gz, _latent_chunks(net), net.input.num_fourier,
+                len(net.layers) - 2, kernel_width(net), tf_points,
+                _ACTIVATIONS[spec.activation[0]], spec.activation[1],
+                _HEADS[spec.output_mode], int(net.use_direction),
+                int(spec.lattice), int(spec.blend_alpha), spec.seg,
+                spec.n_seg, spec.stepsize, spec.density_min,
+                1.0 / (spec.density_max - spec.density_min),
+                spec.early_alpha, *spec.box_min, *spec.box_size, phase, si,
+                sf, stream)
+            if err != 0:
+                raise RuntimeError(f"segment_fwd_nrm launch (phase {phase})"
+                                   f" failed with CUDA error {err}")
+            SEGMENT_NRM_LAUNCHES += 1
+    return (RayEvaluationOutput(color=out, depth=nd[:, 3:4],
+                                normal=nd[:, :3]),
+            SegmentStats(stats[1], stats[0]))
+
+
 def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                     net: SceneRepresentationNetwork, box_min, box_size,
                     tf_tensor: Tensor, *, stepsize: float, max_steps: int,
@@ -1135,7 +1365,7 @@ def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                     latent_mode: str = "table",
                     table_dtype: torch.dtype = torch.float32,
                     n_seg: Optional[int] = None, need_normals: bool = False,
-                    iso_value=None, tf_mode: str = "piecewise",
+                    brdf=None, iso_value=None, tf_mode: str = "piecewise",
                     tf_pre: Optional[Tensor] = None,
                     tmax_clip: Optional[Tensor] = None,
                     return_stats: bool = False, **tpu_schedule):
@@ -1149,7 +1379,10 @@ def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
     VJP. ``tf_mode`` (:data:`TF_MODES`) and ``tf_pre`` choose the TF as
     in the JAX package (:func:`prepare_tf`); the gradient reaches
     ``tf_pre`` too. ``segment_remat``/``stash_backward`` are accepted and
-    ignored (:func:`_tpu_schedule`). Returns rgba (R, 4), and
+    ignored (:func:`_tpu_schedule`). With ``need_normals`` (and a
+    ``brdf``) the normals instances (``csrc/segment_fwd_nrm.cu``, the
+    piecewise TF) shade the samples and blend the normal and depth.
+    Returns rgba (R, 4), or ``RayEvaluationOutput`` with normals, and
     :class:`SegmentStats` with ``return_stats``."""
     kw = dict(stepsize=stepsize, max_steps=max_steps,
               density_min=density_min, density_max=density_max,
@@ -1160,6 +1393,7 @@ def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
               need_normals=need_normals, iso_value=iso_value,
               tf_mode=tf_mode, tmax_clip=tmax_clip)
     if ray_start.device.type == "cpu":
+        kw["brdf"] = brdf
         return fused_trace_dvr_plain(ray_start, ray_dir, net, box_min,
                                      box_size, tf_tensor, tf_pre=tf_pre,
                                      return_stats=return_stats, **kw,
@@ -1177,10 +1411,15 @@ def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
         kw["tf_mode"] = "piecewise"
     spec, rays, kbase = _segment_setup(ray_start, ray_dir, net, box_min,
                                        box_size, **kw, tf_points=tf_points,
-                                       tf_pre_rows=tf_pre_rows)
-    _check_kernel_inputs(net, tf, seg, differentiable, tf_mode)
+                                       tf_pre_rows=tf_pre_rows, brdf=brdf)
+    _check_kernel_inputs(net, tf, seg, differentiable, tf_mode, need_normals)
     tfk = tf.detach().contiguous() if tf_mode != "piecewise" else None
-    if differentiable:
+    if need_normals:
+        with torch.no_grad():
+            out, stats = launch_segment_nrm(
+                spec, net, rays, kbase, pack_segment_weights(net, tf),
+                segment_table(net, table_dtype, rays.device), tf.shape[0])
+    elif differentiable:
         from .fused_dvr_bwd import _SegmentKernelMarch
         out, samples, stop = _SegmentKernelMarch.apply(
             rays, kbase, spec, net, *segment_params(net, tf))
@@ -1210,7 +1449,8 @@ def fused_trace_dvr_bucketed(ray_start: Tensor, ray_dir: Tensor, net,
     (``ops.fused_mega.mega_trace_dvr``). ``kwargs`` go to each call, with
     ``tmax_clip`` and the segment count from the plan. With
     ``return_stats`` the second result sums the buckets' samples and holds
-    their stops as a tensor."""
+    their stops as a tensor. With ``need_normals`` every field of the
+    ``RayEvaluationOutput`` is reassembled (rays of dead tiles: zeros)."""
     return_stats = kwargs.pop("return_stats", False)
     kwargs.pop("max_steps", None)
     dev = ray_start.device
@@ -1248,9 +1488,19 @@ def fused_trace_dvr_bucketed(ray_start: Tensor, ray_dir: Tensor, net,
             raise ValueError(f"unknown engine {engine!r}")
         outs.append(out)
         ofs += size
-    if plan.dead:
-        outs.insert(0, outs[0].new_zeros(plan.dead, 4))
-    out = torch.cat(outs, dim=0)[torch.as_tensor(plan.inv, device=dev)]
+    inv = torch.as_tensor(plan.inv, device=dev)
+
+    def joined(parts):
+        if plan.dead:
+            parts.insert(0, parts[0].new_zeros((plan.dead,)
+                                               + parts[0].shape[1:]))
+        return torch.cat(parts, dim=0)[inv]
+
+    if isinstance(outs[0], RayEvaluationOutput):
+        out = RayEvaluationOutput(*(joined([o[i] for o in outs])
+                                    for i in range(3)))
+    else:
+        out = joined(outs)
     if not return_stats:
         return out
     return out, SegmentStats(

@@ -38,13 +38,15 @@ from ..utils.device import strict_f32
 from . import _build
 from .fused_dvr import (_ACTIVATIONS, _HEADS, _check_kernel_inputs,
                         _check_tensors, _latent_chunks, _network_values,
-                        kernel_width, pack_segment_weights, segment_params,
-                        segment_table)
+                        kernel_width, network_position_grad,
+                        pack_segment_weights, segment_params, segment_table)
 
-# kernel launches and positions evaluated by them since the last reset; the
-# plain version never counts
+# kernel launches and positions evaluated by them since the last reset, and
+# the launches of the gradient instance among them; the plain version
+# never counts
 SAMPLE_EVAL_LAUNCHES = 0
 SAMPLE_EVAL_POSITIONS = 0
+SAMPLE_GRAD_LAUNCHES = 0
 
 # the kernel's packed weights carry a TF block; the evaluator reads none
 _NO_TF = ((0.0, 0.0, 0.0, 0.0, 0.0), (0.0, 0.0, 0.0, 0.0, 1.0))
@@ -90,22 +92,14 @@ def fused_eval_plain(net, pos01: Tensor, dirs: Optional[Tensor] = None, *,
                             table_dtype)
     if dirs is None:
         dirs = torch.zeros_like(pos01)
-
-    def values(x):
-        return _network_values(
-            params, x, dirs, direction=net.use_direction,
-            activation=(net.layers[0].activation,
-                        net.layers[0].activation_param),
-            output_mode=net.output_mode)[:, 0]
-
-    if not want_grad:
-        with torch.no_grad():
-            return values(pos01), None
-    with torch.enable_grad():
-        x = pos01.detach().requires_grad_(True)
-        value = values(x)
-        (grad,) = torch.autograd.grad(value.sum(), x)
-    return value.detach(), grad
+    kw = dict(direction=net.use_direction,
+              activation=(net.layers[0].activation,
+                          net.layers[0].activation_param),
+              output_mode=net.output_mode)
+    if want_grad:
+        return network_position_grad(params, pos01, dirs, **kw)
+    with torch.no_grad():
+        return _network_values(params, pos01, dirs, **kw)[:, 0], None
 
 
 def eval_plan(hidden: int, n_fourier: int, chunks: int, n_hidden: int,
@@ -152,7 +146,7 @@ def launch_sample_eval(net, pos01: Tensor, dirs: Optional[Tensor],
                        want_grad: bool) -> Tensor:
     """Launch csrc/sample_eval.cu on ``pos01`` (N, 3): (N,) values, or
     with ``want_grad`` (N, 4) [value, d value / d pos01]."""
-    global SAMPLE_EVAL_LAUNCHES, SAMPLE_EVAL_POSITIONS
+    global SAMPLE_EVAL_LAUNCHES, SAMPLE_EVAL_POSITIONS, SAMPLE_GRAD_LAUNCHES
     dev = pos01.device
     n = pos01.shape[0]
     out = torch.empty((n, 4) if want_grad else (n,), dtype=torch.float32,
@@ -177,6 +171,7 @@ def launch_sample_eval(net, pos01: Tensor, dirs: Optional[Tensor],
         raise RuntimeError(f"sample_eval launch failed with CUDA error {err}")
     SAMPLE_EVAL_LAUNCHES += 1
     SAMPLE_EVAL_POSITIONS += n
+    SAMPLE_GRAD_LAUNCHES += int(want_grad)
     return out
 
 

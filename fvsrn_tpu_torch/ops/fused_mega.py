@@ -28,7 +28,12 @@ activation for every hidden layer), the output head: a density head
 through the TF (piecewise-linear, texture, 1D- or 2D-preintegrated,
 Gaussians: ``tf_mode``, as ``ops.fused_dvr.prepare_tf`` packs it), or
 an rgbo head's own color and absorption (the TF is not read); then
-Beer-Lambert "over".
+Beer-Lambert "over". With ``need_normals`` (density heads; the render,
+as in the JAX package) each counting sample's world-space position
+gradient, normal and, with a ``brdf``, shading (``ops.fused_dvr.
+shade_samples``), the normal and depth blended with the colour's weights:
+the normals instances (``csrc/mega_fwd_nrm*.cu``, the piecewise TF) on
+the card, and the call returns ``RayEvaluationOutput``.
 
 The gradient is that of the TPU kernel's adjoint, which fixes the
 subgradients at the clips: a sample that absorbs nothing passes no
@@ -67,10 +72,12 @@ from ..utils.vecmath import intersect_aabb
 from . import _build
 
 # kernel launches since the last reset (the plain versions never count):
-# the render forward, the differentiable forward, the backward
+# the render forward, the differentiable forward, the backward, the normals
+# render
 LAUNCHES = 0
 DIFF_LAUNCHES = 0
 BWD_LAUNCHES = 0
+NRM_LAUNCHES = 0         # the render's normals instances (need_normals)
 
 KERNEL_TILE = 256
 KERNEL_SEG = 32          # the backward kernel's segment length
@@ -106,6 +113,8 @@ class MarchSpec(NamedTuple):
     tf_pre_rows: int = 0        # tf_pre_rows
     direction: bool = False     # the ray direction is a network input
     width: int = 32             # the hidden layers' width
+    normals: bool = False       # need_normals: the blended normal, depth
+    brdf: tuple = ()            # ops.fused_dvr.brdf_tuple's shading
 
 
 def ray_packet(ray_start: Tensor, ray_dir: Tensor, box_min, box_size,
@@ -148,9 +157,10 @@ def _density(spec) -> bool:
 def _spec(net, box_min, box_size, *, stepsize, seg, tile, density_min,
           density_max, enable_early_out,
           alpha_early_out=EARLY_ALPHA, tf_mode="piecewise", tf_points=0,
-          tf_pre_rows=0) -> MarchSpec:
+          tf_pre_rows=0, need_normals=False, brdf=None) -> MarchSpec:
     """The march's spec. The rgbo heads read no TF: their spec is the
     piecewise one with no TF rows, whatever ``tf_mode`` says."""
+    from .fused_dvr import brdf_tuple
     if not net.output_mode.startswith("density"):
         tf_mode, tf_points, tf_pre_rows = "piecewise", 0, 0
     return MarchSpec(
@@ -164,7 +174,8 @@ def _spec(net, box_min, box_size, *, stepsize, seg, tile, density_min,
         output_mode=net.output_mode, tf_mode=tf_mode,
         tf_points=int(tf_points), tf_pre_rows=int(tf_pre_rows),
         direction=bool(net.use_direction),
-        width=int(net.layers[0].weight.shape[0]))
+        width=int(net.layers[0].weight.shape[0]),
+        normals=bool(need_normals), brdf=brdf_tuple(brdf, need_normals))
 
 
 def _params(net: SceneRepresentationNetwork, tf: Tensor) -> list:
@@ -203,10 +214,11 @@ def _absorb(valid: Tensor, rgb: Tensor, absn: Tensor):
 
 def _shade(spec: MarchSpec, params: list, pos01: Tensor,
            dirs: Optional[Tensor], valid: Tensor,
-           prev_in: Optional[Tensor] = None, first: Optional[Tensor] = None):
-    """(rgb, ca, last density) of samples at ``pos01`` (..., seg, 3) along
-    rays of direction ``dirs`` (the same shape, or None without direction
-    input): the per-segment engine's plain network
+           prev_in: Optional[Tensor] = None, first: Optional[Tensor] = None,
+           world=None):
+    """(rgb, ca, last density, normal) of samples at ``pos01`` (..., seg,
+    3) along rays of direction ``dirs`` (the same shape, or None without
+    direction input): the per-segment engine's plain network
     (``ops.fused_dvr._network_values``: Fourier features, latent fetch,
     the layers, the output head), then an rgbo head's own color and
     absorption, or a density head's TF (the piecewise TF with its
@@ -215,25 +227,47 @@ def _shade(spec: MarchSpec, params: list, pos01: Tensor,
     ``prev_in`` and ``first``), Beer-Lambert alpha. Samples that do not
     count absorb nothing; samples that absorb nothing pass no gradient.
     The last density (the segment's last sample's, normalized) is None
-    for the piecewise TF."""
-    from .fused_dvr import _network_values, tf_shade
+    for the piecewise TF. With normals (``world``: the samples' world
+    positions and ray directions) each sample's position gradient and
+    ``ops.fused_dvr.shade_samples``; else the normal is None."""
+    from .fused_dvr import (_network_values, network_position_grad,
+                            shade_samples, tf_shade)
     tf = params[0]
     h = spec.stepsize
-    vals = _network_values(
-        params, pos01.reshape(-1, 3),
-        None if dirs is None else dirs.reshape(-1, 3),
-        direction=spec.direction, activation=spec.activations[0],
-        output_mode=spec.output_mode)
+    net = dict(direction=spec.direction, activation=spec.activations[0],
+               output_mode=spec.output_mode)
+    x01 = pos01.reshape(-1, 3)
+    d01 = None if dirs is None else dirs.reshape(-1, 3)
+    if spec.normals:
+        vals, g01 = network_position_grad(params, x01, d01, **net)
+        vals = vals[:, None]
+        bsize = torch.tensor(spec.box_size, dtype=torch.float32,
+                             device=pos01.device)
+        grad = g01.reshape(pos01.shape) / bsize
+    else:
+        vals = _network_values(params, x01, d01, **net)
     vals = vals.reshape(valid.shape + vals.shape[-1:])
     if not _density(spec):
-        return _absorb(valid, vals[..., :3], vals[..., 3] * h) + (None,)
+        return _absorb(valid, vals[..., :3], vals[..., 3] * h) + (None, None)
     value = vals[..., 0]
     density2 = ((value - spec.density_min)
                 * (1.0 / (spec.density_max - spec.density_min)))
     require = valid & (value >= spec.density_min)
+    last = None
     if spec.tf_mode != "piecewise":
         rgb, absn = tf_shade(spec, tf, density2, prev_in, first)
-        return _absorb(require, rgb, absn) + (density2[..., -1],)
+        last = density2[..., -1]
+    else:
+        rgb, absn = _piecewise_rgba(tf, density2, h)
+    nrm = None
+    if spec.normals:
+        rgb, absn, nrm = shade_samples(spec.brdf, rgb, absn, grad, *world)
+    return _absorb(require, rgb, absn) + (last, nrm)
+
+
+def _piecewise_rgba(tf: Tensor, density2: Tensor, h: float):
+    """(rgb, absorption) of the piecewise TF at normalized densities
+    ``density2``."""
     d = _gated_clip01(density2)
     iv = torch.zeros_like(d, dtype=torch.int64)
     for q in range(1, tf.shape[0] - 1):
@@ -248,7 +282,7 @@ def _shade(spec: MarchSpec, params: list, pos01: Tensor,
     interior = (d > p0) & (d < p1)
     frac = torch.where(interior, (d - p0) / (p1 - p0), (d >= p1).to(d.dtype))
     rgba = c0[..., :4] + frac[..., None] * (c1[..., :4] - c0[..., :4])
-    return _absorb(require, rgba[..., :3], rgba[..., 3] * h) + (None,)
+    return rgba[..., :3], rgba[..., 3] * h
 
 
 def _tile_geometry(rays: Tensor, tile: int):
@@ -303,8 +337,10 @@ def _segment_state(spec, k0r, tmx, k0t, s):
 def _segment(spec, params, packet, k0t, s, carry):
     """March segment ``s`` of the tiles in ``packet`` (n, tile, 8) from
     their incoming ``carry`` (n, tile, 4), or (n, tile, 5) with the last
-    density in the TF modes (a ray's first lattice point reads none).
-    Returns (outgoing carry, samples evaluated per tile)."""
+    density in the TF modes (a ray's first lattice point reads none), (n,
+    tile, 9) with normals (``ops.fused_dvr.carry_width``). Returns
+    (outgoing carry, samples evaluated per tile)."""
+    from .fused_dvr import composite
     h = spec.stepsize
     dev = packet.device
     bmin = torch.tensor(spec.box_min, dtype=torch.float32, device=dev)
@@ -314,19 +350,19 @@ def _segment(spec, params, packet, k0t, s, carry):
     k = k.expand(-1, packet.shape[1], -1)
     valid = ((k * h <= packet[..., 7:8]) & (k >= packet[..., 6:7]))
     p = packet[:, :, None, :]
-    pos01 = (p[..., 0:3] + (k * h)[..., None] * p[..., 3:6] - bmin) / bsize
+    t = k * h
+    pos01 = (p[..., 0:3] + t[..., None] * p[..., 3:6] - bmin) / bsize
     dirs = p[..., 3:6].expand(pos01.shape) if spec.direction else None
     tfm = spec.tf_mode != "piecewise"
-    color, ca, last = _shade(spec, params, pos01, dirs, valid,
-                             carry[..., 4] if tfm else None,
-                             k == packet[..., 6:7] if tfm else None)
-    c, a = carry[..., :3], carry[..., 3]
-    for j in range(spec.seg):          # front-to-back "over"
-        w = (1.0 - a) * ca[..., j]
-        c = c + w[..., None] * color[..., j, :]
-        a = a + (1.0 - a) * ca[..., j]
-    out = [c, a[..., None]] + ([last[..., None]] if tfm else [])
-    return torch.cat(out, dim=-1), valid.sum(dim=(1, 2))
+    world = ((p[..., 0:3] + t[..., None] * p[..., 3:6], p[..., 3:6])
+             if spec.normals else None)
+    color, ca, last, nrm = _shade(spec, params, pos01, dirs, valid,
+                                  carry[..., 4] if tfm else None,
+                                  k == packet[..., 6:7] if tfm else None,
+                                  world)
+    nd = torch.cat([nrm, t[..., None]], dim=-1) if spec.normals else None
+    return (composite(spec, carry, color, ca, last, nd),
+            valid.sum(dim=(1, 2)))
 
 
 def _chunks(idx: Tensor, spec: MarchSpec):
@@ -339,7 +375,7 @@ def _plain_march(spec: MarchSpec, rays: Tensor, params: list, *,
     (T, S, tile, 4 or 5) or None, segments visited per tile or None). A
     segment the tile does not run leaves its carry alone, the last
     density too."""
-    from .fused_dvr import initial_carry
+    from .fused_dvr import initial_carry, march_output
     tile = spec.tile
     packet, k0r, tmx, k0t = _tile_geometry(rays, tile)
     n_tiles = packet.shape[0]
@@ -364,7 +400,7 @@ def _plain_march(spec: MarchSpec, rays: Tensor, params: list, *,
             carry[idx], n = _segment(spec, params, packet[idx], k0t[idx], s,
                                      carry[idx])
             samples[idx] += n
-    out = carry[..., :4].reshape(-1, 4)
+    out = march_output(spec, carry.reshape(-1, carry.shape[-1]))
     if not store:
         return out, samples, None, None
     stack = (torch.stack(carries, dim=1) if carries
@@ -448,12 +484,17 @@ def mega_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
                          segment_active: Optional[Tensor] = None,
                          tf_mode: str = "piecewise",
                          tf_pre: Optional[Tensor] = None,
+                         need_normals: bool = False, brdf=None,
                          return_samples: bool = False):
     """Plain PyTorch version of :func:`mega_trace_dvr`: the same schedule
     vectorized over tiles and rays, a Python loop over segments; with
-    ``differentiable`` an autograd Function with the kernels' gradient."""
-    from .fused_dvr import prepare_tf
+    ``differentiable`` an autograd Function with the kernels' gradient;
+    with ``need_normals`` each sample's position gradient by
+    ``ops.fused_dvr.network_position_grad``."""
+    from .fused_dvr import _check_normals_request, prepare_tf
     strict_f32()
+    _check_normals_request(net, differentiable=differentiable,
+                           need_normals=need_normals, iso_value=None)
     _check_network(net)
     if ray_start.requires_grad or ray_dir.requires_grad:
         raise NotImplementedError("fused march: gradients with respect to "
@@ -469,7 +510,8 @@ def mega_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
                  tile=tile, density_min=density_min,
                  density_max=density_max, enable_early_out=enable_early_out,
                  alpha_early_out=alpha_early_out, tf_mode=tf_mode,
-                 tf_points=tf_points, tf_pre_rows=tf_pre_rows)
+                 tf_points=tf_points, tf_pre_rows=tf_pre_rows,
+                 need_normals=need_normals, brdf=brdf)
     params = _params(net, table)
     mask = _check_mask(segment_active, rays.shape[0] // tile, rays.device)
     table_dtype = _table_dtype(table_dtype, differentiable)
@@ -618,7 +660,8 @@ def _kernel_table(grid: Optional[Tensor], dtype: torch.dtype,
 def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
                          differentiable: bool = False,
                          tf_floats: Optional[int] = None,
-                         tf_mode: str = "piecewise"):
+                         tf_mode: str = "piecewise",
+                         need_normals: bool = False):
     """What the kernels take: hidden layers of one width <= 64 (narrower
     zero-padded to 32, 48 or 64) and one activation, 1 to
     ``MAX_HIDDEN_LAYERS + 1`` of them, every output head, direction input,
@@ -626,8 +669,14 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
     Fourier features; a TF mode other than piecewise on a density head of
     a SnakeAlt network without direction input; 256-ray tiles, and for
     the backward 32-point segments and constant rays; and a shared-memory
-    plan that fits. Everything else raises ``NotImplementedError``."""
+    plan that fits. The normals instances take every such network with a
+    density head and the piecewise TF. Everything else raises
+    ``NotImplementedError``."""
     from .sample_mlp import check_fwd_plan, check_plan
+    if need_normals and tf_mode != "piecewise":
+        raise NotImplementedError(f"CUDA kernel: normals with TF mode "
+                                  f"{tf_mode!r} are not ported yet "
+                                  "(piecewise only)")
     if tile != KERNEL_TILE:
         raise NotImplementedError(f"CUDA kernel: tile={KERNEL_TILE} only")
     if rays.shape[0] % tile:
@@ -838,6 +887,60 @@ def _launch_fwd(rays: Tensor, weights: Tensor, table: Tensor, spec: MarchSpec,
     return out, samples, carries, count
 
 
+def _bind_nrm(lib: ctypes.CDLL):
+    fn = lib.mega_fwd_nrm_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = ([p, p, i, p, i, p, i, i, p, p, p] + [i] * 9 + [f, i, i, i]
+                   + [f] * 10 + [p, i, p, p, p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_nrm(rays: Tensor, net, params: list, spec: MarchSpec,
+                table_dtype: torch.dtype, mask: Optional[Tensor] = None):
+    """Launch the normals instance of csrc/mega_fwd.cuh (the library
+    ``mega_fwd_nrm`` of the padded width): the render with each counting
+    sample's position gradient, shading (``spec.brdf``) and the blended
+    normal and depth. The scalar network of the gradient reads the
+    per-segment engine's packed weights. Returns (RayEvaluationOutput,
+    samples per tile)."""
+    from ..raytracer.dvr import RayEvaluationOutput
+    from .fused_dvr import _latent_chunks, pack_segment_weights, shade_args
+    global NRM_LAUNCHES
+    dev = rays.device
+    n_tiles = rays.shape[0] // spec.tile
+    rgba = torch.empty(rays.shape[0], 4, dtype=torch.float32, device=dev)
+    nd = torch.empty(rays.shape[0], 4, dtype=torch.float32, device=dev)
+    samples = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    weights = _pack_weights(params, spec)
+    nweights = pack_segment_weights(net, params[0])
+    table = _kernel_table(params[2], table_dtype, dev)
+    _check_tensors(dev, rays=rays, weights=weights, nweights=nweights,
+                   table=table)
+    n_fourier, n_hidden, tf_points, _ = _widths(params)
+    net_args = _net_args(spec)
+    gz, gy, gx = table.shape[:3]
+    si, sf = shade_args(spec.brdf)
+    launch = _bind_nrm(_lib("mega_fwd_nrm", net_args[0]))
+    with torch.cuda.device(dev):
+        err = launch(
+            rays.data_ptr(), table.data_ptr(),
+            int(table.dtype == torch.float32), weights.data_ptr(),
+            weights.numel(), nweights.data_ptr(), nweights.numel(),
+            _latent_chunks(net), rgba.data_ptr(), nd.data_ptr(),
+            samples.data_ptr(), rays.shape[0], gx, gy, gz, n_fourier,
+            n_hidden, tf_points, *net_args, spec.seg, spec.stepsize,
+            spec.density_min, 1.0 / (spec.density_max - spec.density_min),
+            spec.early_alpha, *spec.box_min, *spec.box_size,
+            *_mask_args(mask), si, sf, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"mega_fwd_nrm launch failed with CUDA error "
+                           f"{err}")
+    NRM_LAUNCHES += 1
+    return RayEvaluationOutput(color=rgba, depth=nd[:, 3:4],
+                               normal=nd[:, :3]), samples
+
+
 def _launch_bwd(rays, weights, table, carries, count, d_out, spec,
                 n_fourier, n_hidden, tf_points, n_lat, mask=None,
                 partial_rows=False, tf=None, d_tf2d=None):
@@ -953,6 +1056,7 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                    segment_active: Optional[Tensor] = None,
                    tf_mode: str = "piecewise",
                    tf_pre: Optional[Tensor] = None,
+                   need_normals: bool = False, brdf=None,
                    return_samples: bool = False):
     """Fused SRN march (see the module doc). CUDA tensors launch the
     kernels, CPU tensors run :func:`mega_trace_dvr_plain`. The render
@@ -966,22 +1070,27 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
     segment evaluates no sample and leaves the carry alone, the last
     density too (image error bounded by the occupancy threshold; TF
     gradients of culled samples are dropped, the network's are exact
-    where the culled samples are transparent). Returns rgba (R, 4), and
-    the samples evaluated per tile with ``return_samples``."""
+    where the culled samples are transparent). ``need_normals`` and
+    ``brdf`` (a ``brdf.BRDFLambert``) shade as the module doc says.
+    Returns rgba (R, 4), or ``RayEvaluationOutput`` with normals, and the
+    samples evaluated per tile with ``return_samples``."""
     kw = dict(stepsize=stepsize, tmax_clip=tmax_clip, seg=seg, tile=tile,
               density_min=density_min, density_max=density_max,
               alpha_early_out=alpha_early_out,
               enable_early_out=enable_early_out,
               differentiable=differentiable, table_dtype=table_dtype,
               segment_active=segment_active, tf_mode=tf_mode, tf_pre=tf_pre,
+              need_normals=need_normals, brdf=brdf,
               return_samples=return_samples)
     if ray_start.device.type == "cpu":
         return mega_trace_dvr_plain(ray_start, ray_dir, net, box_min,
                                     box_size, tf_tensor, **kw)
     if ray_start.device.type != "cuda":
         raise ValueError(f"unsupported device {ray_start.device}")
-    from .fused_dvr import prepare_tf
+    from .fused_dvr import _check_normals_request, prepare_tf
     from .sample_mlp import tf_floats_of
+    _check_normals_request(net, differentiable=differentiable,
+                           need_normals=need_normals, iso_value=None)
     _check_network(net)
     dev = ray_start.device
     rays = ray_packet(ray_start, ray_dir, box_min, box_size, stepsize,
@@ -989,7 +1098,7 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
     tf, tf_points, tf_pre_rows = prepare_tf(tf_tensor, tf_mode, tf_pre, dev)
     tf_floats = tf_floats_of(tf_mode, tf)
     _check_kernel_inputs(net, rays, tile, seg, differentiable, tf_floats,
-                         tf_mode)
+                         tf_mode, need_normals)
     if (net.output_mode.startswith("density")
             and tf_mode in ("piecewise", "gaussian")
             and tf_points > MAX_TF_POINTS):
@@ -999,11 +1108,16 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                  tile=tile, density_min=density_min,
                  density_max=density_max, enable_early_out=enable_early_out,
                  alpha_early_out=alpha_early_out, tf_mode=tf_mode,
-                 tf_points=tf_points, tf_pre_rows=tf_pre_rows)
+                 tf_points=tf_points, tf_pre_rows=tf_pre_rows,
+                 need_normals=need_normals, brdf=brdf)
     params = _params(net, tf)
     mask = _check_mask(segment_active, rays.shape[0] // tile, dev)
     table_dtype = _table_dtype(table_dtype, differentiable)
-    if differentiable:
+    if need_normals:
+        with torch.no_grad():
+            out, samples = _launch_nrm(rays, net, params, spec, table_dtype,
+                                       mask)
+    elif differentiable:
         out, samples = _KernelMarch.apply(rays, spec, mask, *params)
     else:
         with torch.no_grad():

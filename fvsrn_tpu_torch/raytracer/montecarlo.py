@@ -27,7 +27,15 @@ What the port keeps of the JAX package, and how:
 - Compaction: live rays first by a stable sort on an integer key, overflow
   rays finished at the current width, the global step carried across
   stages, so the compacted walk equals the uncompacted one bitwise.
-- Normals are evaluated once, at the recorded interaction point.
+- Normals are evaluated once, at the recorded interaction point, unless
+  the TF reads them per sample (a gradient-scaled Gaussian,
+  ``scale_with_gradient``): then every tentative collision gets its
+  normal in the loop, as in the JAX package. With the fused sampler the
+  network's adjoint normals come with the values from one launch of the
+  sample evaluator's gradient instance a round (``csrc/sample_eval.cu``,
+  :func:`make_mc_sampler` with ``want_grad``); finite-difference normals
+  (``gradient_mode="fd"``) evaluate the sampler at the three offsets; the
+  plain walk calls ``volume.eval_normal``.
 """
 from __future__ import annotations
 
@@ -43,8 +51,10 @@ from ..utils import prng
 from ..utils.vecmath import intersect_aabb, normalize, safe_normalize
 from .dvr import RayEvaluationOutput
 
-# tracking rounds run since the last reset (every walk of every call)
+# tracking rounds run since the last reset (every walk of every call), and
+# those of them that evaluated in-loop normals
 TRACKING_ROUNDS = 0
+NORMAL_ROUNDS = 0
 # rounds between two host reads of whether any ray still walks: a read
 # drains the device's queue, a round past the walk's end costs a round of
 # launches (chip_smoke.py phase I times 1, 4, 8 and 16 interleaved)
@@ -162,6 +172,7 @@ class _Walk(NamedTuple):
     t_out: Tensor     # (n, 1)
     hit_pos: Tensor   # (n, 3)
     hit_col: Tensor   # (n, 4)
+    hit_nrm: Tensor   # (n, 3) the in-loop normal at the hit (else zeros)
 
 
 @torch.no_grad()
@@ -177,7 +188,9 @@ def delta_tracking(key, ray_start: Tensor, ray_dir: Tensor, volume: Any,
     (t_out = 0) or on a real collision (t_out = t).
 
     ``sampler``: ``(position, direction) -> (density, inside)`` in place
-    of ``volume.eval_density`` (:func:`make_mc_sampler`).
+    of ``volume.eval_density`` (:func:`make_mc_sampler`); one made with
+    ``want_grad`` also returns the density's world-space gradient, which
+    the in-loop normals then take.
     ``steps_per_round``: tentative steps evaluated per round as one batch
     (every draw is a function of the global step, so the walk is the same
     for any value). ``active`` ((..., 1) bool): rays that walk at all; the
@@ -199,6 +212,8 @@ def delta_tracking(key, ray_start: Tensor, ray_dir: Tensor, volume: Any,
     inv_range = _f32(np.float32(1.0) / (np.float32(config.density_max)
                                         - np.float32(config.density_min)))
     dmin = config.density_min
+    tf_normals = bool(getattr(tf, "scale_with_gradient", False))
+    inloop_normals = need_normals and tf_normals
     k0 = int(key[0]) & prng.MASK
     # the key's second word plus every salt the walk can reach: draws
     # 2*step (free flight) and 2*step + 1 (acceptance)
@@ -206,15 +221,29 @@ def delta_tracking(key, ray_start: Tensor, ray_dir: Tensor, volume: Any,
                                            dtype=torch.int64)) & prng.MASK
 
     def eval_density(position, rd_):
+        """(value, inside, normal or None), value and inside (..., 1)."""
+        normal = None
         if sampler is not None:
-            value, inside = sampler(position, rd_)
+            value, inside, *grad = sampler(position, rd_)
+            if inloop_normals and grad:
+                normal = grad[0]
+            elif inloop_normals and getattr(volume, "gradient_mode",
+                                            "adjoint") == "fd":
+                offs = torch.eye(3, dtype=position.dtype,
+                                 device=position.device) * volume.fd_step
+                normal = torch.stack(
+                    [(sampler(position + offs[i], rd_)[0] - value)
+                     / volume.fd_step for i in range(3)], dim=-1)
         else:
             value, inside = volume.eval_density(position, rd_)
-        return value[..., None], inside[..., None]
+        if inloop_normals and normal is None:
+            normal = volume.eval_normal(position, rd_)
+        return value[..., None], inside[..., None], normal
 
     def body(w: _Walk, rs_, rd_, rid_) -> _Walk:
-        global TRACKING_ROUNDS
+        global TRACKING_ROUNDS, NORMAL_ROUNDS
         TRACKING_ROUNDS += 1
+        NORMAL_ROUNDS += int(inloop_normals)
         k1 = k1_salts[2 * w.it:2 * (w.it + K)].reshape(2 * K, 1)
         bits, _ = prng.threefry2x32(k0, k1, rid_[None],
                                     torch.zeros_like(rid_)[None])
@@ -227,12 +256,17 @@ def delta_tracking(key, ray_start: Tensor, ray_dir: Tensor, volume: Any,
             ts.append(t)
         t_j = torch.stack(ts)                            # (K, n, 1)
         position = rs_[None] + rd_[None] * t_j           # (K, n, 3)
-        value, inside = eval_density(position, rd_)
+        value, inside, normal = eval_density(position, rd_)
+        if normal is None and tf_normals:
+            # a walk without in-loop normals hands the TF zero normals, as
+            # the JAX package does (a gradient-scaled TF's narrowest
+            # Gaussians)
+            normal = torch.zeros_like(position)
         density2 = (value - dmin) * inv_range
         color = tf.eval_normalized(torch.clamp(density2[..., 0], 0.0, 1.0),
-                                   None, None, 1.0)
+                                   normal, None, 1.0)
         walking, t_out = w.valid, w.t_out
-        hit_pos, hit_col = w.hit_pos, w.hit_col
+        hit_pos, hit_col, hit_nrm = w.hit_pos, w.hit_col, w.hit_nrm
         for j in range(K):
             # the exit check precedes acceptance at the same step
             exit_now = walking & ~inside[j]
@@ -243,10 +277,13 @@ def delta_tracking(key, ray_start: Tensor, ray_dir: Tensor, volume: Any,
             real_hit = require & (color[j][..., 3:4] * inv_major > u2[j])
             hit_pos = torch.where(real_hit, position[j], hit_pos)
             hit_col = torch.where(real_hit, color[j], hit_col)
+            if normal is not None:
+                hit_nrm = torch.where(real_hit, normal[j], hit_nrm)
             t_out = torch.where(real_hit, t_j[j], t_out)
             walking = walking & ~real_hit
         tcur = torch.where(walking, t_j[K - 1], w.tcur)
-        return _Walk(w.it + K, walking, tcur, t_out, hit_pos, hit_col)
+        return _Walk(w.it + K, walking, tcur, t_out, hit_pos, hit_col,
+                     hit_nrm)
 
     def run_rounds(w: _Walk, rounds, rs_, rd_, rid_) -> _Walk:
         """Advance by up to ``rounds`` rounds (None: to the end of the walk
@@ -267,10 +304,10 @@ def delta_tracking(key, ray_start: Tensor, ray_dir: Tensor, volume: Any,
     zeros = dict(dtype=dtype, device=dev)
     w = _Walk(0, valid0, torch.zeros(n, 1, **zeros),
               torch.zeros(n, 1, **zeros), torch.zeros(n, 3, **zeros),
-              torch.zeros(n, 4, **zeros))
+              torch.zeros(n, 4, **zeros), torch.zeros(n, 3, **zeros))
     if not compact_stages:
         w = run_rounds(w, None, rs, rd, rid)
-        t_out, hit_pos, hit_col = w[3:]
+        t_out, hit_pos, hit_col, hit_nrm = w[3:]
     else:
         out = [torch.zeros_like(v) for v in w[3:]]
         cur_idx = torch.arange(n, device=dev)
@@ -297,9 +334,8 @@ def delta_tracking(key, ray_start: Tensor, ray_dir: Tensor, volume: Any,
         w = run_rounds(w, None, rs_c, rd_c, rid_c)
         for i, v in enumerate(w[3:]):
             out[i][cur_idx] = v
-        t_out, hit_pos, hit_col = out
-    hit_nrm = torch.zeros_like(hit_pos)
-    if need_normals:
+        t_out, hit_pos, hit_col, hit_nrm = out
+    if need_normals and not inloop_normals:
         hit_nrm = torch.where(t_out > 0, volume.eval_normal(hit_pos, rd),
                               hit_nrm)
     return _DeltaResult(t_out.reshape(lead + (1,)),
@@ -355,17 +391,20 @@ def eval_background(ray_start: Tensor, ray_dir: Tensor,
 
 
 def make_mc_sampler(volume: Any, *, tile: int = 2048,
-                    table_dtype=torch.float32, interpret: bool = False):
+                    table_dtype=torch.float32, interpret: bool = False,
+                    want_grad: bool = False):
     """The fused density sampler of :func:`trace_mc` over a
     ``VolumeInterpolationNetwork``: one launch of ``csrc/sample_eval.cu``
-    per tracking round on the card (the plain version on the CPU)."""
+    per tracking round on the card (the plain version on the CPU); with
+    ``want_grad`` its gradient instance, which also returns the density's
+    world-space gradient (the in-loop normals)."""
     from ..ops.fused_eval import make_fused_eval
     return make_fused_eval(
         volume.network, volume.box_min.detach().cpu().numpy(),
         volume.box_size.detach().cpu().numpy(),
         time=float(getattr(volume, "time", 0.0)),
         ensemble=float(getattr(volume, "ensemble", 0.0)), tile=tile,
-        table_dtype=table_dtype, interpret=interpret)
+        table_dtype=table_dtype, interpret=interpret, want_grad=want_grad)
 
 
 def _default_stages(n: int, floor_w: int) -> tuple:
@@ -392,7 +431,9 @@ def trace_mc(key, ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
 
     ``use_fused=True`` (network volumes) evaluates every tracking round
     with :func:`make_mc_sampler` (``fused_kwargs`` go to it); the draws are
-    unchanged. ``compact=True`` starts each walk with only the rays still
+    unchanged. For a gradient-scaled TF and adjoint normals the camera
+    walks take its gradient instance (values and normals from one launch
+    a round), the shadow walks, which read no normal, the values'. ``compact=True`` starts each walk with only the rays still
     on a path and compacts live rays inside every walk
     (``compact_schedule``, default: N/4 after 8 rounds and N/16 after 16
     more, widths rounded up to multiples of ``compact_min_width``, default
@@ -404,8 +445,14 @@ def trace_mc(key, ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
     lead = ray_start.shape[:-1]
     if ray_id is None:
         ray_id = _default_ray_id(lead, ray_start.device)
+    walk_sampler = sampler
     if sampler is None and use_fused:
-        sampler = make_mc_sampler(volume, **(fused_kwargs or {}))
+        sampler = walk_sampler = make_mc_sampler(volume,
+                                                 **(fused_kwargs or {}))
+        if (getattr(tf, "scale_with_gradient", False)
+                and getattr(volume, "gradient_mode", "adjoint") == "adjoint"):
+            walk_sampler = make_mc_sampler(volume, want_grad=True,
+                                           **(fused_kwargs or {}))
     stages = ()
     if compact:
         if compact_schedule is not None:
@@ -426,12 +473,13 @@ def trace_mc(key, ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
     position = ray_start + tmin * ray_dir
     direction = ray_dir
     valid = torch.ones(lead + (1,), dtype=torch.bool, device=ray_start.device)
-    walk = dict(b=b, ray_id=ray_id, sampler=sampler, compact_stages=stages)
+    walk = dict(b=b, ray_id=ray_id, compact_stages=stages)
 
     for bounce in range(config.num_bounces + 1):
         key, k_walk, k_light, k_shadow, k_dir = prng.split(key, 5)
         hit = delta_tracking(k_walk, position, direction, volume, tf, config,
-                             active=valid if compact else None, **walk)
+                             active=valid if compact else None,
+                             sampler=walk_sampler, **walk)
         any_hit = hit.t_out > 0
         if bounce == 0:
             out_alpha = torch.where(valid, any_hit.to(dtype), out_alpha)
@@ -449,7 +497,7 @@ def trace_mc(key, ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
         shadow = delta_tracking(k_shadow, hit.hit_position, light_dir, volume,
                                 tf, config, need_normals=False,
                                 active=(valid & any_hit) if compact else None,
-                                **walk)
+                                sampler=sampler, **walk)
         unoccluded = shadow.t_out <= 0
         contrib = beta * (p * config.light_intensity)
         emission = torch.where(any_hit & valid & unoccluded,

@@ -1444,3 +1444,170 @@ def test_tf_mode_kernel_limits():
     with pytest.raises(NotImplementedError, match="gaussian"):
         fused_dvr._check_kernel_inputs(random_net(), many,
                                        tf_mode="gaussian")
+
+
+# ---------------------------------------------------------------------------
+# normals and shading: the normals instances of rows 1 and 4
+# (csrc/mega_fwd.cuh, csrc/segment_fwd.cuh with position_grad.cuh) and row
+# 7's gradient instance inside the Monte-Carlo walk
+
+NRM_PHONG = dict(enable_phong=True, ambient=0.2, specular=0.3,
+                 magnitude_center=0.02, magnitude_radius=0.02,
+                 light=(0.3, -0.5, -1.0))
+NRM_BRDFS = {
+    "none": None,
+    "phong": NRM_PHONG,
+    "point_magnitude": dict(NRM_PHONG, light=(0.8, 1.2, -1.5),
+                            light_type="point", specular_exponent=5,
+                            enable_magnitude_scaling=True,
+                            magnitude_scaling=200.0),
+}
+# share of rays whose colour, normal or depth may leave the contract: a
+# sample at a clip or ReLU kink of the network, or at |g|^2 = 1e-12, switches
+# its gradient (and so its normal and shading) on float32 noise between the
+# kernel's scalar sweep and autograd through the plain network
+NRM_FLIP_SHARE = 1e-2
+NRM_CASES = {
+    **{f"w{w}_{tab}": dict(net=dict(width=w), table=tab)
+       for w in (32, 48, 64) for tab in ("f32", "bf16")},
+    "flagship": dict(net="flagship", table="bf16"),
+    "relu48_direction": dict(net=dict(width=48, activation="ReLU",
+                                      direction=True, output_mode="density"),
+                             table="f32"),
+    "sine_nogrid": dict(net=dict(activation="Sine", channels=0),
+                        table="f32"),
+}
+
+
+def nrm_case(case, brdf):
+    from fvsrn_tpu_torch.brdf import BRDFLambert
+    spec = NRM_CASES[case]
+    _, tf, npz = dense_scene()
+    net = (load_weights(npz) if spec["net"] == "flagship"
+           else random_net(**spec["net"])).cuda()
+    b = NRM_BRDFS[brdf]
+    return (net, tf.tensor.cuda(), BRDFLambert.make(**b) if b else None,
+            torch.bfloat16 if spec["table"] == "bf16" else torch.float32)
+
+
+def normals_match(got, want, shaded):
+    """Colour (1e-4, shaded 2e-4), normal (5e-4) and depth (1e-4) of the
+    kernel against the plain version on all but NRM_FLIP_SHARE of the
+    rays; the scene has normals."""
+    err = torch.stack([
+        (got.color - want.color).abs().amax(1) / (2e-4 if shaded else 1e-4),
+        (got.normal - want.normal).abs().amax(1) / 5e-4,
+        (got.depth - want.depth).abs().amax(1) / 1e-4], 1).amax(1)
+    off = float((err > 1.0).float().mean())
+    print(f"{off:.5f} of the rays off, worst {float(err.max()):.3g} of the "
+          "tolerance")
+    assert off <= NRM_FLIP_SHARE
+    assert float(want.normal.abs().max()) > 0.1
+    assert float(want.color[:, 3].max()) > 0.05
+
+
+@pytest.mark.parametrize("brdf", ["phong", "point_magnitude"])
+@pytest.mark.parametrize("case", sorted(NRM_CASES))
+def test_mega_normals_kernel_matches_plain(case, brdf):
+    """Row 1's normals instance of each width and table against its plain
+    version on 64x64 block-ordered rays, the tile vote on; one launch of
+    the normals instance a call, none by the plain version."""
+    needs_card()
+    net, tf, b, tdt = nrm_case(case, brdf)
+    rs, rd = block_rays(64, "cuda")
+    args = (rs, rd, net, *BOX, tf)
+    kw = dict(stepsize=1 / 128, need_normals=True, brdf=b, table_dtype=tdt)
+    before = (fused_mega.NRM_LAUNCHES, fused_mega.LAUNCHES)
+    got = fused_mega.mega_trace_dvr(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fused_mega.NRM_LAUNCHES, fused_mega.LAUNCHES) == (
+        before[0] + 1, before[1])
+    want = fused_mega.mega_trace_dvr_plain(*args, **kw)
+    assert fused_mega.NRM_LAUNCHES == before[0] + 1
+    normals_match(got, want, True)
+
+
+@pytest.mark.parametrize("lattice,brdf", [(False, "phong"),
+                                          (True, "point_magnitude"),
+                                          (False, "none")])
+@pytest.mark.parametrize("case", sorted(NRM_CASES))
+def test_segment_normals_kernel_matches_plain(case, lattice, brdf):
+    """Row 4's normals instance of each width and table against its plain
+    version on a 60x44 view padded to whole tiles, per-ray or lattice
+    sampling: colour, normal, depth, samples and the call's stop; two
+    launches a call."""
+    needs_card()
+    net, tf, b, tdt = nrm_case(case, brdf)
+    rs, rd = generate_rays(CameraOnASphere.make(pitch=0.3, yaw=0.8,
+                                                distance=1.6),
+                           60, 44, device="cuda")
+    rs, rd, _ = pad_rays(rs.reshape(-1, 3), rd.reshape(-1, 3), 128)
+    kw = dict(stepsize=1 / 128, max_steps=222, seg=32, tile=128,
+              table_dtype=tdt, need_normals=True, brdf=b, return_stats=True,
+              latent_mode="boxfeat" if lattice else "table")
+    args = (rs, rd, net, *BOX, tf)
+    before = (fused_dvr.SEGMENT_NRM_LAUNCHES, fused_dvr.SEGMENT_LAUNCHES)
+    got, stats = fused_dvr.fused_trace_dvr(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fused_dvr.SEGMENT_NRM_LAUNCHES, fused_dvr.SEGMENT_LAUNCHES) == (
+        before[0] + 2, before[1])
+    want, want_stats = fused_dvr.fused_trace_dvr_plain(*args, **kw)
+    normals_match(got, want, b is not None)
+    assert int(stats.samples) == int(want_stats.samples)
+    assert int(stats.stop) == int(want_stats.stop)
+
+
+def test_normals_kernels_refuse_other_tf_modes():
+    """The normals instances take the piecewise TF: another TF mode with
+    normals raises on the card (it does not run the plain version)."""
+    tf, _, _ = fused_dvr.prepare_tf(torch.rand(16, 4), "texture")
+    with pytest.raises(NotImplementedError, match="normals"):
+        fused_dvr._check_kernel_inputs(random_net(), tf, tf_mode="texture",
+                                       need_normals=True)
+    rays = torch.zeros(256, 8)
+    with pytest.raises(NotImplementedError, match="normals"):
+        fused_mega._check_kernel_inputs(random_net(), rays, 256,
+                                        tf_mode="texture", need_normals=True)
+
+
+def test_mc_walk_gradient_instance_matches_plain():
+    """The MC walk with a gradient-scaled Gaussian TF through the fused
+    sampler: every camera-walk round one launch of row 7's gradient
+    instance (values and normals), every shadow-walk round one of the
+    value instance; the frame against the plain trace_mc on the same key
+    (>= 98% of the rays within 1e-3)."""
+    needs_card()
+    from fvsrn_tpu_torch.models.network_volume import \
+        VolumeInterpolationNetwork
+    from fvsrn_tpu_torch.phase import PhaseFunctionHenyeyGreenstein
+    from fvsrn_tpu_torch.raytracer import montecarlo as tmc
+    from fvsrn_tpu_torch.transfer import TransferFunctionGaussian
+    from fvsrn_tpu_torch.utils import prng
+    _, _, npz = dense_scene()
+    vol = VolumeInterpolationNetwork(load_weights(npz).cuda())
+    tf = TransferFunctionGaussian(torch.tensor(
+        [[0.9, 0.3, 0.2, 8.0, 0.3, 0.5], [0.2, 0.8, 0.9, 6.0, 0.7, 0.5]],
+        device="cuda"), scale_with_gradient=True)
+    cfg = tmc.RayEvaluationMonteCarlo.make(max_absorption=14.0,
+                                           num_bounces=1, max_iterations=128)
+    rs, rd = block_rays(64, "cuda")
+    hg = PhaseFunctionHenyeyGreenstein.make(g=0.3)
+    plain = tmc.trace_mc(prng.prng_key(7), rs, rd, vol, tf, hg, cfg)
+    before = (fused_eval.SAMPLE_EVAL_LAUNCHES,
+              fused_eval.SAMPLE_GRAD_LAUNCHES, tmc.TRACKING_ROUNDS,
+              tmc.NORMAL_ROUNDS)
+    fused = tmc.trace_mc(prng.prng_key(7), rs, rd, vol, tf, hg, cfg,
+                         use_fused=True)
+    torch.cuda.synchronize()
+    launches, grads, rounds, normal_rounds = (
+        a - b for a, b in zip((fused_eval.SAMPLE_EVAL_LAUNCHES,
+                               fused_eval.SAMPLE_GRAD_LAUNCHES,
+                               tmc.TRACKING_ROUNDS, tmc.NORMAL_ROUNDS),
+                              before))
+    assert grads == normal_rounds > 0
+    assert launches == rounds
+    got = torch.cat([fused.color, fused.normal, fused.depth], 1)
+    want = torch.cat([plain.color, plain.normal, plain.depth], 1)
+    close = ((got - want).abs() < 1e-3).all(dim=1)
+    assert float(close.float().mean()) >= 0.98
+    assert 0.05 < float(plain.color[:, 3].mean()) < 1.0

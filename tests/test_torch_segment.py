@@ -345,9 +345,20 @@ def test_engine_rejects_what_is_not_ported():
     rs, rd = rays16()
     kw = dict(stepsize=H, max_steps=112, seg=SEG, tile=TILE)
     for bad in (dict(differentiable=True, table_dtype=torch.bfloat16),
-                dict(need_normals=True)):
+                dict(differentiable=True, need_normals=True)):
         with pytest.raises(NotImplementedError):
             fused_trace_dvr(t(rs), t(rd), net, BMIN, BSIZE, tf.tensor,
+                            **kw, **bad)
+    # normals and shading are ported (tests/test_torch_normals.py); they
+    # raise where the JAX package raises: normals of an rgbo head or of
+    # the iso march, a shading BRDF without normals
+    from fvsrn_tpu_torch.brdf import BRDFLambert
+    for net_, bad in (
+            (port(jnet_of(output_mode="rgbo")), dict(need_normals=True)),
+            (net, dict(need_normals=True, iso_value=0.5)),
+            (net, dict(brdf=BRDFLambert.make(enable_phong=True)))):
+        with pytest.raises(ValueError):
+            fused_trace_dvr(t(rs), t(rd), net_, BMIN, BSIZE, tf.tensor,
                             **kw, **bad)
     # the TF modes are ported (tests/test_torch_tf_modes.py); a table that
     # does not fit the mode (piecewise knots as texels) raises

@@ -98,7 +98,21 @@ main paths on the card:
   ReLU network with direction input at 128x128 on both tables; the MC
   walk with a gradient-scaled Gaussian at 256x256 through row 7's
   gradient instance (once a camera-walk round) against the plain walk;
-  ``eval_gradient_networks`` at its defaults.
+  ``eval_gradient_networks`` at its defaults;
+- phase Q, BASELINE config 5: a time- and ensemble-keyframed network at
+  the flagship's widths (time grid 8 x 8 x 32^3, ensemble grid 4 x 8 x
+  32^3) world-trained on the card to two implicit fields at two (time,
+  ensemble), the keyframed and the latent-only step's first step card
+  against CPU and timed (Q1); the FUSED render at 512^2, 1/512 at three
+  (t, e) on rows 1 and 4, each kernel against its plain version and the
+  f32 oracle of the network volume at (t, e), and an 8-frame animation
+  with the resolve and table build timed apart from the call (Q2); one
+  differentiable step on each engine: rows 5-6 at t = 3.5 on 64 whole
+  tiles with every leaf (keyframes included, those outside the bracket
+  exactly 0) against the plain pair, rows 2-3 through
+  ``evaluate_screen(engine="mega")`` on the flagship with latent vectors
+  (Q3); ``trace_mc(use_fused=True)`` at 256^2 against the plain walk and
+  row 7 alone (Q4); a ``.volnet`` round trip rendered FUSED (Q5).
 
 Prints one JSON line with every kernel and a last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -3046,6 +3060,475 @@ def relu_direction_net(dev):
         seed=7).to(dev)
 
 
+# phase Q: BASELINE config 5, a time- and ensemble-keyframed network at the
+# flagship's widths: time grid 8 keyframes x 8 channels, ensemble grid 4 x
+# 8, both 32^3 (resolved: the flagship's 16 x 32^3 table); world-trained to
+# MARSCHNER_LOBB at (t, e) = (0, 0) and SPHERE at (7, 3)
+Q_TIME, Q_ENS, Q_CHANNELS, Q_RES = 8, 4, 8, 32
+Q_FIELDS = (("MARSCHNER_LOBB", 0.0, 0.0), ("SPHERE", 7.0, 3.0))
+Q_STEPS = 200                        # world steps a keyframe pair
+Q_BATCH = 8192
+Q_SAMPLES = 65536
+Q_FRAMES = ((0.0, 0.0), (3.5, 1.5), (7.0, 3.0))
+Q_ANIMATION = 8                      # frames, t = 0 .. 7
+Q_DIFF = (3.5, 1.5)                  # rows 5-6's (t, e)
+Q_SCREEN = 128                       # rows 2-3 vs plain: 64 whole tiles
+Q_MC_SIZE = 256
+
+
+def keyframed_net(dev, seed=15):
+    """Config 5's network, seeded: 32:32:32 SnakeAlt:2, 14 Fourier
+    features, ``density:direct``, time and ensemble keyframed grids."""
+    from fvsrn_tpu_torch.models.latent import LatentSpace
+    from fvsrn_tpu_torch.models.srn import SceneRepresentationNetwork
+    rng = np.random.default_rng(seed)
+    shape = (Q_CHANNELS, Q_RES, Q_RES, Q_RES)
+    lat = LatentSpace(
+        time_grid=torch.tensor(rng.standard_normal((Q_TIME,) + shape) * 0.1,
+                               dtype=torch.float32),
+        ensemble_grid=torch.tensor(rng.standard_normal((Q_ENS,) + shape)
+                                   * 0.1, dtype=torch.float32),
+        time_dependent=True)
+    return SceneRepresentationNetwork.make(
+        layers="32:32:32", activation="SnakeAlt:2", num_fourier=14,
+        output_mode="density:direct", latent=lat, seed=seed).to(dev)
+
+
+def vector_net(npz, dev, seed=16):
+    """The flagship with a time vector (8 channels, 4 keyframes) and an
+    ensemble vector (4 channels, 3 keyframes) added before its grid's
+    channels, their layer-0 columns seeded small: the flagship's image,
+    moved by the vectors."""
+    from fvsrn_tpu_torch.models.latent import LatentSpace
+    from fvsrn_tpu_torch.train.checkpoints import load_weights
+    net = load_weights(npz)
+    rng = np.random.default_rng(seed)
+    tv = torch.tensor(rng.standard_normal((1, 8, 4)), dtype=torch.float32)
+    ev = torch.tensor(rng.standard_normal((1, 4, 3)), dtype=torch.float32)
+    w = net.layers[0].weight.detach()
+    start = net.input.num_input_channels() + 2 * net.input.num_fourier
+    cols = torch.tensor(rng.standard_normal((w.shape[0], 12)) * 0.05,
+                        dtype=torch.float32)
+    with torch.no_grad():
+        net.layers[0].weight = torch.nn.Parameter(
+            torch.cat([w[:, :start], cols, w[:, start:]], dim=1))
+    net.latent = LatentSpace(static_grid=net.latent.static_grid.detach(),
+                             time_vector=tv, ensemble_vector=ev)
+    return net.to(dev)
+
+
+def keyframes(smi, reset_counts, counts, npz, tf, cam, frame_ms):
+    """Phase Q, BASELINE config 5 on the card: a time- and
+    ensemble-keyframed network world-trained (Q1: the keyframed step and
+    the latent-only step after ``generalize_to_new_ensembles``, first step
+    card vs CPU, timed), rendered FUSED at 512^2, 1/512 at three (t, e)
+    on rows 1 and 4 (Q2: kernel vs plain, vs the f32 oracle of the
+    network volume at (t, e), an 8-frame animation with the resolve and
+    the march timed apart), one differentiable step on each engine (Q3:
+    rows 5-6 at t = 3.5 on 64 whole tiles, rows 2-3 through
+    ``evaluate_screen(engine="mega")`` on a network with latent vectors;
+    kernel vs plain, out-of-bracket keyframes exactly 0), ``trace_mc``
+    through row 7 at t = 3.5 (Q4) and a ``.volnet`` round trip rendered
+    FUSED (Q5). Returns {row name: figures}."""
+    from fvsrn_tpu_torch.camera import generate_rays
+    from fvsrn_tpu_torch.inference import LoadedModel
+    from fvsrn_tpu_torch.models.latent import resolve_grid
+    from fvsrn_tpu_torch.models.network_volume import \
+        VolumeInterpolationNetwork
+    from fvsrn_tpu_torch.ops import fused_eval, fused_mega
+    from fvsrn_tpu_torch.ops.fused_dvr import (block_ray_permutation,
+                                               fused_trace_dvr,
+                                               fused_trace_dvr_plain,
+                                               resolve_network)
+    from fvsrn_tpu_torch.phase import PhaseFunctionHenyeyGreenstein
+    from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
+                                               max_steps_bound, trace_dvr)
+    from fvsrn_tpu_torch.raytracer.montecarlo import (RayEvaluationMonteCarlo,
+                                                      trace_mc)
+    from fvsrn_tpu_torch.train import generalization, world
+    from fvsrn_tpu_torch.train.losses import LossNetScreen, LossNetWorld
+    from fvsrn_tpu_torch.train.optimizer import make_optimizer
+    from fvsrn_tpu_torch.train.screen import (evaluate_screen,
+                                              fused_screen_supported)
+    from fvsrn_tpu_torch.utils.prng import prng_key
+    from fvsrn_tpu_torch.volume.implicit import VolumeInterpolationImplicit
+
+    t_phase = time.perf_counter()
+    dev, cpu = torch.device(DEVICE), torch.device("cpu")
+    box = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))
+    steps = max_steps_bound(box[1], STEPSIZE)
+    tf_d = tf.tensor.to(dev)
+    rows = {}
+
+    # Q1. world training: one (positions, targets) set a field, on the card
+    net = keyframed_net(dev)
+    gen = torch.Generator(dev).manual_seed(5)
+    sets = []
+    for field, t_, e_ in Q_FIELDS:
+        pos = torch.rand(Q_SAMPLES, 3, device=dev, generator=gen)
+        sets.append(world.build_world_dataset(
+            VolumeInterpolationImplicit.make(field, device=dev), Q_SAMPLES,
+            positions=pos, time=t_, ensemble=e_, device=dev))
+    loss = LossNetWorld(mode="density", l1=1.0)
+
+    def first_step(name, n_dev, trainable=None):
+        """Loss and every gradient leaf of one step from ``n_dev``'s
+        weights on the first batch of each field, card vs CPU (1e-5
+        relative, phase L's gate)."""
+        worst = 0.0
+        for ds in sets:
+            out = []
+            for d in (dev, cpu):
+                n_ = copy.deepcopy(n_dev).to(d)
+                b = world.WorldDataset(*(a[:Q_BATCH].to(d) for a in ds))
+                total, _ = world.evaluate_world(n_, b, loss)
+                total.backward()
+                if trainable is not None:
+                    trainable(n_)
+                out.append((float(total.detach()), {
+                    k: p.grad.detach().cpu()
+                    for k, p in n_.named_parameters()}))
+            (l_d, g_d), (l_c, g_c) = out
+            rel = {k: (rel_err(g_d[k], g_c[k]) if float(g_c[k].norm()) > 0
+                       else float(g_d[k].norm())) for k in g_c}
+            worst = max(worst, abs(l_d - l_c) / abs(l_c), *rel.values())
+            check(abs(l_d - l_c) <= 1e-5 * abs(l_c)
+                  and max(rel.values()) <= 1e-5,
+                  f"phase Q1 {name}: first step card vs CPU, loss {l_d} vs "
+                  f"{l_c}, leaves {rel}")
+        return worst
+
+    def train(n_, trainable=None, n_steps=Q_STEPS):
+        opt = make_optimizer(n_.parameters(), "Adam", lr=1e-2)
+        step = world.make_train_step(loss, opt, trainable=trainable)
+        hist = []
+        for i in range(n_steps):
+            sl = slice((i * Q_BATCH) % Q_SAMPLES,
+                       (i * Q_BATCH) % Q_SAMPLES + Q_BATCH)
+            for ds in sets:
+                hist.append(step(n_, world.WorldDataset(
+                    *(a[sl] for a in ds)))[0])
+        torch.cuda.synchronize()
+        hist = [float(v) for v in hist]
+        batch = world.WorldDataset(*(a[:Q_BATCH] for a in sets[0]))
+        return hist, cuda_ms(lambda: step(n_, batch), 10)
+
+    key_worst = first_step("keyframed step", net)
+    t0 = time.perf_counter()
+    hist, key_ms = train(net)
+    train_s = time.perf_counter() - t0
+    check(all(math.isfinite(v) for v in hist)
+          and hist[-2] < 0.5 * hist[0] and hist[-1] < 0.5 * hist[1],
+          f"phase Q1: losses {hist[:2]} -> {hist[-2:]}")
+    gnet = generalization.generalize_to_new_ensembles(net, Q_ENS, seed=0)
+    mlp = [l.weight.detach().clone() for l in gnet.layers]
+    ens0 = gnet.latent.ensemble_grid.detach().clone()
+    mask_worst = first_step("latent-only step", gnet,
+                            generalization.latent_only_mask)
+    ghist, mask_ms = train(gnet, generalization.latent_only_mask, 20)
+    check(all(torch.equal(a, l.weight.detach())
+              for a, l in zip(mlp, gnet.layers))
+          and not torch.equal(ens0, gnet.latent.ensemble_grid.detach()),
+          "phase Q1: the latent-only step moved the MLP or not the grid")
+    q1 = {"steps": len(hist), "train_s": train_s, "loss_first": hist[:2],
+          "loss_last": hist[-2:], "step_ms": key_ms,
+          "first_step_worst_rel": key_worst,
+          "latent_only_step_ms": mask_ms,
+          "latent_only_first_step_worst_rel": mask_worst,
+          "latent_only_loss": [ghist[0], ghist[-1]]}
+    print(f"phase Q1 world training [{smi}]: config 5 (time {Q_TIME}x"
+          f"{Q_CHANNELS}, ensemble {Q_ENS}x{Q_CHANNELS}, {Q_RES}^3), "
+          f"{len(hist)} steps of {Q_BATCH} in {train_s:.1f} s, losses "
+          f"{hist[0]:.4f}/{hist[1]:.4f} -> {hist[-2]:.4f}/{hist[-1]:.4f}; "
+          f"step {key_ms:.3f} ms, latent-only step {mask_ms:.3f} ms; first "
+          f"step card vs CPU worst rel {key_worst:.2e} / "
+          f"{mask_worst:.2e}", flush=True)
+
+    # Q2. the FUSED render at three (t, e): rows 1 and 4
+    rs, rd = generate_rays(cam, WIDTH, HEIGHT, device=dev)
+    rs, rd = rs.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()
+    perm, _ = block_ray_permutation(WIDTH, HEIGHT, 16, 16, device=dev)
+    brs, brd = rs[perm].contiguous(), rd[perm].contiguous()
+    n_tiles = brs.shape[0] // 256
+    tiles = torch.arange(0, n_tiles, n_tiles // ORACLE_TILES,
+                         device=dev)[:ORACLE_TILES]
+    sel = (tiles[:, None] * 256 + torch.arange(256, device=dev)).reshape(-1)
+    ocfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE,
+                                         enable_early_out=False)
+
+    def mega(n_, t_, e_, march=fused_mega.mega_trace_dvr, rays=(brs, brd),
+             **kw):
+        return march(*rays, n_, *box, tf_d, stepsize=STEPSIZE, time=t_,
+                     ensemble=e_, **kw)
+
+    def seg(n_, t_, e_, march=fused_trace_dvr, rays=(rs, rd), **kw):
+        return march(*rays, n_, *box, tf_d, stepsize=STEPSIZE,
+                     max_steps=steps, tile=128, time=t_, ensemble=e_, **kw)
+
+    with torch.no_grad():
+        grid = resolve_grid(net.latent)
+    check(grid is not None and tuple(grid.shape) == (2 * Q_CHANNELS, Q_RES,
+                                                     Q_RES, Q_RES)
+          and not fused_screen_supported(net, tf, WIDTH, HEIGHT),
+          "phase Q2: the resolved grid or the screen gate")
+    q2 = {"mega_fwd": {}, "segment_fwd": {}}
+    for t_, e_ in Q_FRAMES:
+        for row, march, plain, key in (
+                ("mega_fwd", mega, fused_mega.mega_trace_dvr_plain,
+                 "mega_fwd"),
+                ("segment_fwd", seg, fused_trace_dvr_plain, "segment_fwd")):
+            reset_counts()
+            got, st = march(net, t_, e_, **(
+                {"return_samples": True} if row == "mega_fwd"
+                else {"return_stats": True}))
+            torch.cuda.synchronize()
+            c = counts()
+            samples = int(st.sum() if row == "mega_fwd" else st.samples)
+            check(c[key] >= 1 and sum(v for k, v in c.items()
+                                      if k != key) == 0,
+                  f"phase Q2 {row} ({t_}, {e_}): launches {c}")
+            want = march(net, t_, e_, march=plain)
+            err = max_err(got, want)
+            check(bool(torch.isfinite(got).all())
+                  and float(got[:, 3].max()) > 0.5 and err <= KERNEL_TOL,
+                  f"phase Q2 {row} ({t_}, {e_}): alpha max "
+                  f"{float(got[:, 3].max())}, kernel vs plain {err}")
+            vol = VolumeInterpolationNetwork(net, *box, time=t_,
+                                             ensemble=e_)
+            o_rays = ((brs[sel], brd[sel]) if row == "mega_fwd"
+                      else (rs[sel], rd[sel]))
+            with torch.no_grad():
+                oracle = trace_dvr(*o_rays, vol, tf.to(dev), ocfg, steps,
+                                   lattice=row == "mega_fwd").color
+            oerr = max_err(march(net, t_, e_, rays=o_rays), oracle)
+            check(oerr < ORACLE_TOL, f"phase Q2 {row} ({t_}, {e_}): vs the "
+                  f"f32 oracle {oerr}")
+            ms = cuda_ms(lambda: march(net, t_, e_), 3)
+            q2[row][f"{t_},{e_}"] = {
+                "launches": c[key], "max_abs_err": err,
+                "oracle_max_abs_err": oerr, "ms": ms, "samples": samples,
+                "ns_per_sample": ms * 1e6 / samples}
+            print(f"phase Q2 {row} (t, e) = ({t_}, {e_}) [{smi}]: "
+                  f"{WIDTH}x{HEIGHT} h=1/{round(1 / STEPSIZE)}, launches "
+                  f"{c[key]}, kernel vs plain {err:.3e}, vs f32 oracle "
+                  f"{oerr:.3e}, {ms:.3f} ms, {samples} samples "
+                  f"({ms * 1e6 / samples:.4f} ns each)", flush=True)
+    # the animation: t = 0 .. 7, e = 3t/7; the resolve plus the table
+    # build timed apart from the whole call (resolve + table + march)
+    anim = []
+    for i in range(Q_ANIMATION):
+        t_ = float(i)
+        e_ = 3.0 * i / (Q_ANIMATION - 1)
+
+        def resolve():
+            with torch.no_grad():
+                view = resolve_network(net, t_, e_)
+                return fused_mega._kernel_table(view.latent.static_grid,
+                                                torch.bfloat16, dev)
+
+        res_ms = cuda_ms(resolve, 3)
+        with torch.no_grad():
+            call_ms = cuda_ms(lambda: mega(net, t_, e_), 3)
+        anim.append({"t": t_, "e": e_, "resolve_table_ms": res_ms,
+                     "call_ms": call_ms, "march_ms": call_ms - res_ms})
+    print(f"phase Q2 animation [{smi}]: {Q_ANIMATION} frames, per frame "
+          f"resolve+table / whole call (ms): " + ", ".join(
+              f"t={a['t']:.0f} {a['resolve_table_ms']:.3f}/"
+              f"{a['call_ms']:.3f}" for a in anim)
+          + f"; phase 6's static flagship kernel {frame_ms:.3f} ms",
+          flush=True)
+
+    # Q3. one differentiable step on each engine
+    def leaf_grads(n_):
+        return {k: p.grad.detach().clone() for k, p in n_.named_parameters()
+                if p.grad is not None}
+
+    t_, e_ = Q_DIFF
+    d_rs, d_rd = rs[sel], rd[sel]
+    diff = {}
+    for fn in (fused_trace_dvr, fused_trace_dvr_plain):
+        net.zero_grad(set_to_none=True)
+        reset_counts()
+
+        def step_fn():
+            img = seg(net, t_, e_, march=fn, rays=(d_rs, d_rd),
+                      differentiable=True)
+            (img ** 2).mean().backward()
+            return img.detach()
+
+        img, ms = cuda_once(step_fn)
+        diff[fn] = (img, leaf_grads(net), counts(), ms)
+    (img_k, g_k, c_k, _), (img_p, g_p, c_p, plain_ms) = diff.values()
+    check(c_k["segment_fwd_diff"] == 1 and c_k["segment_bwd"] == 1
+          and c_p["segment_fwd_diff"] == 0, f"phase Q3 rows 5-6: {c_k}")
+    img_err = max_err(img_k, img_p)
+    rel = {k: rel_err(g_k[k], g_p[k]) for k in g_p
+           if float(g_p[k].norm()) > 0}
+    lo_t, lo_e = int(t_), int(e_)
+    outside = float(max(
+        g_k["latent.time_grid"][[k for k in range(Q_TIME)
+                                 if k not in (lo_t, lo_t + 1)]].abs().max(),
+        g_k["latent.ensemble_grid"][[k for k in range(Q_ENS)
+                                     if k not in (lo_e, lo_e + 1)]]
+        .abs().max()))
+    check(img_err <= KERNEL_TOL and max(rel.values()) <= GRAD_TOL
+          and "latent.time_grid" in rel and "latent.ensemble_grid" in rel
+          and outside == 0.0, f"phase Q3 rows 5-6: image {img_err}, leaves "
+          f"{rel}, outside the bracket {outside}")
+    net.zero_grad(set_to_none=True)
+    step_ms = cuda_ms(lambda: (seg(net, t_, e_, rays=(d_rs, d_rd),
+                                   differentiable=True) ** 2).mean()
+                      .backward(), 3)
+    q3_seg = {"launches": c_k, "max_abs_err": img_err,
+              "grad_rel_max": max(rel.values()), "outside_bracket": outside,
+              "step_ms": step_ms, "plain_step_ms": plain_ms,
+              "rays": d_rs.shape[0]}
+    print(f"phase Q3 rows 5-6 [{smi}]: fused_trace_dvr(differentiable, "
+          f"t={t_}, e={e_}) on {d_rs.shape[0]} rays, image vs plain "
+          f"{img_err:.3e}, leaves rel max {max(rel.values()):.3e} (time "
+          f"grid {rel['latent.time_grid']:.2e}, ensemble grid "
+          f"{rel['latent.ensemble_grid']:.2e}), outside the bracket "
+          f"{outside}; step {step_ms:.3f} ms (plain {plain_ms:.1f} ms)",
+          flush=True)
+
+    vnet = vector_net(npz, dev)
+    check(fused_screen_supported(vnet, tf, WIDTH, HEIGHT),
+          "phase Q3: a network with latent vectors should train fused")
+    sperm, sinv = block_ray_permutation(WIDTH, HEIGHT, 16, 16, device=dev)
+    fk = dict(engine="mega", block_perm=sperm, block_perm_inv=sinv, seg=32,
+              tile=256)
+    scfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE)
+    target = torch.zeros(1, WIDTH * HEIGHT, 4, device=dev)
+
+    def screen_step():
+        vnet.zero_grad(set_to_none=True)
+        total, _ = evaluate_screen(vnet, rs[None], rd[None], target,
+                                   tf.to(dev), scfg, LossNetScreen(l1=1.0),
+                                   steps, WIDTH, HEIGHT, use_fused=True,
+                                   fused_kwargs=fk)
+        total.backward()
+        return total
+
+    reset_counts()
+    total = screen_step()
+    torch.cuda.synchronize()
+    c_s = counts()
+    check(c_s["mega_fwd_diff"] == 1 and c_s["mega_bwd"] == 1
+          and math.isfinite(float(total.detach()))
+          and float(vnet.latent.time_vector.grad.norm()) > 0,
+          f"phase Q3 rows 2-3: launches {c_s}, loss {float(total.detach())}")
+    screen_ms = cuda_ms(screen_step, 3)
+    q_rs, q_rd = generate_rays(cam, Q_SCREEN, Q_SCREEN, device=dev)
+    qperm, _ = block_ray_permutation(Q_SCREEN, Q_SCREEN, 16, 16, device=dev)
+    q_rs = q_rs.reshape(-1, 3)[qperm].contiguous()
+    q_rd = q_rd.reshape(-1, 3)[qperm].contiguous()
+    mdiff = {}
+    for fn in (fused_mega.mega_trace_dvr, fused_mega.mega_trace_dvr_plain):
+        vnet.zero_grad(set_to_none=True)
+        img = fn(q_rs, q_rd, vnet, *box, tf_d, stepsize=STEPSIZE,
+                 differentiable=True)
+        (img ** 2).mean().backward()
+        mdiff[fn] = (img.detach(), leaf_grads(vnet))
+    (mi_k, mg_k), (mi_p, mg_p) = mdiff.values()
+    m_err = max_err(mi_k, mi_p)
+    m_rel = {k: rel_err(mg_k[k], mg_p[k]) for k in mg_p
+             if float(mg_p[k].norm()) > 0}
+    check(m_err <= KERNEL_TOL and max(m_rel.values()) <= GRAD_TOL
+          and "latent.time_vector" in m_rel
+          and "latent.ensemble_vector" in m_rel,
+          f"phase Q3 rows 2-3: image {m_err}, leaves {m_rel}")
+    q3_mega = {"launches": c_s, "max_abs_err": m_err,
+               "grad_rel_max": max(m_rel.values()), "step_ms": screen_ms}
+    print(f"phase Q3 rows 2-3 [{smi}]: evaluate_screen(engine=mega) on the "
+          f"flagship with time/ensemble vectors at {WIDTH}x{HEIGHT}, step "
+          f"{screen_ms:.3f} ms, launches {c_s}; at {Q_SCREEN}^2 image vs "
+          f"plain {m_err:.3e}, leaves rel max {max(m_rel.values()):.3e} "
+          f"(time vector {m_rel['latent.time_vector']:.2e}, ensemble vector "
+          f"{m_rel['latent.ensemble_vector']:.2e})", flush=True)
+
+    # Q4. MC through row 7 at t = 3.5
+    m_rs, m_rd = generate_rays(cam, Q_MC_SIZE, Q_MC_SIZE, device=dev)
+    m_rs, m_rd = m_rs.reshape(-1, 3).contiguous(), m_rd.reshape(-1, 3)
+    mvol = VolumeInterpolationNetwork(net, *box, time=Q_DIFF[0],
+                                      ensemble=Q_DIFF[1])
+    mcfg = RayEvaluationMonteCarlo.make(max_absorption=30.0, num_bounces=2,
+                                        max_iterations=256)
+    hg = PhaseFunctionHenyeyGreenstein.make(g=0.3)
+
+    def mc_frame(use_fused=True):
+        return trace_mc(prng_key(11), m_rs, m_rd, mvol, tf.to(dev), hg, mcfg,
+                        use_fused=use_fused).color
+
+    reset_counts()
+    out_f, mc_first = cuda_once(mc_frame)
+    c_m = counts()
+    check(c_m["sample_eval"] == c_m["tracking_rounds"] > 0,
+          f"phase Q4: launches {c_m}")
+    out_p, mc_plain = cuda_once(lambda: mc_frame(False))
+    share = float(((out_f - out_p).abs() < MC_TOL).all(dim=1).float().mean())
+    alpha = float(out_f[:, 3].mean())
+    check(share >= MC_MATCH_SHARE and 0.02 < alpha,
+          f"phase Q4: {share} of the rays within {MC_TOL}, alpha {alpha}")
+    _, mc_ms = cuda_once(mc_frame)
+    # row 7 alone at the frame's launch size, kernel vs plain at (t, e)
+    ev = fused_eval.make_fused_eval(net, *box, time=Q_DIFF[0],
+                                    ensemble=Q_DIFF[1])
+    e_pos = torch.rand(Q_MC_SIZE ** 2, 3, device=dev, generator=gen) - 0.5
+    ev_err = max_err(ev(e_pos)[0], fused_eval.fused_eval_plain(
+        net, e_pos + 0.5, time=Q_DIFF[0], ensemble=Q_DIFF[1])[0])
+    check(ev_err <= KERNEL_TOL, f"phase Q4: row 7 vs plain {ev_err}")
+    ev_ms = cuda_ms(lambda: ev(e_pos), 10)
+    q4 = {"launches": c_m["sample_eval"], "frame_ms": mc_ms,
+          "first_frame_ms": mc_first, "plain_frame_ms": mc_plain,
+          "rays_within_tol": share, "max_abs_err": ev_err, "ms": ev_ms}
+    print(f"phase Q4 trace_mc [{smi}]: config 5 at t={Q_DIFF[0]}, "
+          f"e={Q_DIFF[1]}, {Q_MC_SIZE}x{Q_MC_SIZE}, 2 bounces; launches "
+          f"{c_m}; rays within {MC_TOL} of the plain walk {share:.5f}, alpha "
+          f"mean {alpha:.4f}; frame {mc_ms:.1f} ms (first {mc_first:.1f}), "
+          f"plain {mc_plain:.1f} ms; row 7 alone on {e_pos.shape[0]} "
+          f"positions {ev_ms:.4f} ms, vs plain {ev_err:.3e}", flush=True)
+
+    # Q5. the .volnet round trip, rendered FUSED through row 1
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "build", "chip_smoke", "config5.volnet")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    cfg5 = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE)
+    LoadedModel(copy.deepcopy(net).cpu(), tf, config=cfg5).save_volnet(path)
+    loaded = LoadedModel.from_volnet(path, tf=tf, config=cfg5)
+    render = loaded.prepare_network_render(cam, WIDTH, HEIGHT, "FUSED",
+                                           device=DEVICE)
+    reset_counts()
+    img = render()
+    torch.cuda.synchronize()
+    c_v = counts()
+    got = render.march()
+    want = render.march(fused_mega.mega_trace_dvr_plain)
+    v_err = max_err(got, want)
+    check(render.route == "mega" and c_v["mega_fwd"] == 1
+          and float(img[..., 3].max()) > 0.5 and v_err <= KERNEL_TOL,
+          f"phase Q5: route {render.route}, launches {c_v}, kernel vs "
+          f"plain {v_err}")
+    q5 = {"launches": c_v["mega_fwd"], "max_abs_err": v_err,
+          "bytes": os.path.getsize(path)}
+    print(f"phase Q5 .volnet [{smi}]: {q5['bytes']} bytes, from_volnet FUSED "
+          f"{WIDTH}x{HEIGHT} route {render.route}, launches {c_v}, kernel "
+          f"vs plain {v_err:.3e}", flush=True)
+
+    mid = f"{Q_FRAMES[1][0]},{Q_FRAMES[1][1]}"
+    rows["mega_fwd"] = dict(q2["mega_fwd"][mid], frames=q2["mega_fwd"],
+                            animation=anim, volnet=q5, world=q1)
+    rows["segment_fwd"] = dict(q2["segment_fwd"][mid],
+                               frames=q2["segment_fwd"])
+    for name, q, c in (("mega_fwd_diff", q3_mega, c_s),
+                       ("mega_bwd", q3_mega, c_s),
+                       ("segment_fwd_diff", q3_seg, c_k),
+                       ("segment_bwd", q3_seg, c_k)):
+        rows[name] = dict(q, launches=c[name], ms=q["step_ms"])
+    rows["sample_eval"] = q4
+    print(f"phase Q: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3231,6 +3714,10 @@ def main():
     nrm = normals(smi, reset_counts, counts, npz, tf, cam, net64)
     for row in (render_row, segment_row, mc_row):
         row["normals"] = nrm[row["name"]]
+    # config 5, time- and ensemble-keyframed: rows 1-7 through the resolve
+    kf = keyframes(smi, reset_counts, counts, npz, tf, cam, kernel_ms)
+    for row in [render_row, segment_row, mc_row] + train_rows + scan_rows:
+        row["keyframes"] = kf[row["name"]]
 
     # 11. kernels
     print(json.dumps({"kernels": [render_row] + train_rows

@@ -45,6 +45,7 @@ import torch
 from torch import Tensor
 
 from .camera import CameraOnASphere, camera_matrix, generate_rays
+from .models.latent import resolve_grid
 from .models.network_volume import VolumeInterpolationNetwork
 from .models.srn import SceneRepresentationNetwork
 from .ops.fused_dvr import (block_ray_permutation, fused_tf_args,
@@ -232,6 +233,29 @@ class LoadedModel:
         return cls(load_weights(path), tf, config=config,
                    reference_volume=reference_volume)
 
+    @classmethod
+    def from_volnet(cls, path: str, tf=None,
+                    config: Optional[RayEvaluationSteppingDvr] = None
+                    ) -> "LoadedModel":
+        """From a ``.volnet`` file (``models.export.load_volnet``), with
+        the box it stores."""
+        from .models.export import load_volnet
+        net, box_min, box_size = load_volnet(path)
+        if tf is None:
+            tf = TransferFunctionPiecewiseLinear.make(
+                rgb=[[1.0, 1.0, 1.0]] * 2, opacity=[0.0, 50.0],
+                positions=[0.0, 1.0])
+        return cls(net, tf, config=config, box_min=box_min,
+                   box_size=box_size)
+
+    def save_volnet(self, path: str, grid_encoding: int = 0):
+        """Write the network and box as a ``.volnet`` file
+        (``models.export.save_volnet``; ``grid_encoding`` 0 float, 1 byte
+        linear, 2 byte Gaussian)."""
+        from .models.export import save_volnet
+        save_volnet(self.network, path, box_min=self.box_min,
+                    box_size=self.box_size, grid_encoding=grid_encoding)
+
     @staticmethod
     def rotation_cameras(num: int, distance: float = 1.6,
                          pitch: float = 0.3) -> list[CameraOnASphere]:
@@ -308,7 +332,9 @@ class LoadedModel:
         ``occupancy_culling``: on route 1 with a density network, cull the
         (tile, segment) programs in transparent space when the TF has a
         zero band (image within ~max_steps * ALPHA_SKIP). ``table_dtype``:
-        the latent table's type, bf16 by default.
+        the latent table's type, bf16 by default. A network with
+        keyframed grids or latent vectors renders at time 0, ensemble 0,
+        as in the JAX package; its route is chosen by the resolved grid.
         Snapshot semantics: the network and TF are copied to ``device``
         now; later changes to the model do not reach it."""
         if mode not in EVAL_MODES:
@@ -340,7 +366,8 @@ class LoadedModel:
         kw = dict(tf_kw, stepsize=stepsize, seg=SEG, table_dtype=table_dtype,
                   density_min=float(self.config.density_min),
                   density_max=float(self.config.density_max))
-        grid = net.latent.static_grid
+        with torch.no_grad():   # the route's grid, at time 0, ensemble 0
+            grid = resolve_grid(net.latent)
         if (grid is None or grid.shape[0] > 16 or width % BLOCK
                 or height % BLOCK):
             # route 2

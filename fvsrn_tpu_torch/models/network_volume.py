@@ -5,12 +5,14 @@ Counterpart of ``fvsrn_tpu/models/network_volume.py``: wraps a
 (``eval_density``, ``eval_normal`` plus the box) so the plain ray
 marchers can sample it. ``gradient_mode`` picks the normal: "adjoint"
 differentiates the density with autograd, "fd" takes forward
-differences of ``fd_step``, as the JAX package does.
+differences of ``fd_step``, as the JAX package does. ``time`` and
+``ensemble`` are the scalar conditioning every sample of the volume gets.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import Tensor, nn
 
@@ -20,6 +22,7 @@ from .srn import SceneRepresentationNetwork
 class VolumeInterpolationNetwork(nn.Module):
     def __init__(self, network: SceneRepresentationNetwork,
                  box_min=(-0.5, -0.5, -0.5), box_size=(1.0, 1.0, 1.0),
+                 time: float = 0.0, ensemble: float = 0.0,
                  gradient_mode: str = "adjoint", fd_step: float = 1e-3):
         super().__init__()
         if gradient_mode not in ("adjoint", "fd"):
@@ -27,6 +30,8 @@ class VolumeInterpolationNetwork(nn.Module):
         self.network = network
         self.gradient_mode = gradient_mode
         self.fd_step = float(fd_step)
+        self.time = float(np.float32(time))
+        self.ensemble = float(np.float32(ensemble))
         dev = next(network.parameters()).device
         self.register_buffer("box_min", torch.as_tensor(
             box_min, dtype=torch.float32, device=dev))
@@ -50,7 +55,12 @@ class VolumeInterpolationNetwork(nn.Module):
             d = (torch.zeros_like(position) if direction is None
                  else direction.expand(position.shape))
             x = torch.cat([x, d.reshape(-1, 3)], dim=1)
-        out = self.network(x, mode="screen")
+        n = x.shape[0]
+        out = self.network(
+            x, None, torch.full((n,), self.time, dtype=x.dtype,
+                                device=x.device),
+            torch.full((n,), self.ensemble, dtype=x.dtype, device=x.device),
+            mode="screen")
         if self.outputs_color:
             return out.reshape(lead + (4,)), inside
         return out.reshape(lead), inside

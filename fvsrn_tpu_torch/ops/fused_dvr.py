@@ -73,7 +73,7 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from ..models.activations import apply_activation
-from ..models.latent import grid_sample_3d
+from ..models.latent import grid_sample_3d, interp1d, resolve_grid
 from ..models.srn import SceneRepresentationNetwork
 from ..raytracer.dvr import RayEvaluationOutput
 from ..utils.device import strict_f32
@@ -289,6 +289,83 @@ def plan_ray_buckets(ray_start, ray_dir, box_min, box_size, *,
                          group_steps=tuple(steps),
                          group_segments=tuple(segments), dead=n_dead * tile,
                          tmax_clip=clip_p)
+
+
+# ---------------------------------------------------------------------------
+# the static-grid view of a time- or ensemble-conditioned network
+
+
+class StaticLatent(NamedTuple):
+    """The latent space of a :class:`NetworkView`: one static grid."""
+    static_grid: Optional[Tensor]
+
+
+class NetworkView(NamedTuple):
+    """What the fused marches read of an SRN (``input``, ``layers``,
+    ``latent.static_grid``, ``output_mode``, ``use_direction``), with the
+    latent conditioning of one (time, ensemble) folded in: see
+    :func:`resolve_network`. Its tensors are plain tensors in autograd's
+    graph, so gradients reach the network's parameters through them."""
+    input: object
+    layers: list
+    latent: StaticLatent
+    output_mode: str
+    use_direction: bool
+
+
+class _FoldedLayer(NamedTuple):
+    """Layer 0 of a :class:`NetworkView` with latent vectors folded in."""
+    weight: Tensor
+    bias: Tensor
+    activation: str
+    activation_param: float
+
+
+def _scalar_at(t, like: Tensor) -> Tensor:
+    """A scalar conditioning value as a (1, 1) float32 tensor on ``like``'s
+    device (a number is filled in place, with no host-to-device copy)."""
+    if isinstance(t, Tensor):
+        return t.reshape(1, 1).to(device=like.device, dtype=torch.float32)
+    return torch.full((1, 1), float(np.float32(t)), dtype=torch.float32,
+                      device=like.device)
+
+
+def resolve_network(net, time=0.0, ensemble=0.0):
+    """The network at scalar (time, ensemble) as the fused marches take
+    it, the JAX package's ``extract_weights`` fold plus ``resolve_grid``:
+    latent vectors (a space that is not time-dependent) interpolated at
+    (time, ensemble) and folded into layer 0's bias, b1 + W_vec z, their
+    columns cut from its weight; keyframed grids lerped into one static
+    grid (time grid channels, then ensemble grid channels). Both are
+    exact: the layer is affine and the trilerp linear in the grid's
+    values. A network with neither (and a view) is returned as it is.
+    Time Fourier features and direct time input raise ``AssertionError``,
+    as in the JAX package."""
+    if isinstance(net, NetworkView):
+        return net
+    assert net.input.fourier_matrix_time is None, \
+        "fused: no time fourier (use keyframed latent grids)"
+    assert not net.input.use_time_direct, "fused: no direct time input"
+    lat = net.latent
+    vectors = [] if lat.time_dependent else [
+        (v, at) for v, at in ((lat.ensemble_vector, ensemble),
+                              (lat.time_vector, time)) if v is not None]
+    if not lat.time_dependent and not vectors:
+        return net
+    layers = list(net.layers)
+    if vectors:
+        w1, b1 = net.layers[0].weight, net.layers[0].bias
+        z = torch.cat([interp1d(v, _scalar_at(at, v))[0, :, 0]
+                       for v, at in vectors])
+        start = net.input.num_input_channels() + 2 * net.input.num_fourier
+        stop = start + z.shape[0]
+        layers[0] = _FoldedLayer(
+            torch.cat([w1[:, :start], w1[:, stop:]], dim=1),
+            b1 + w1[:, start:stop] @ z, net.layers[0].activation,
+            net.layers[0].activation_param)
+    return NetworkView(net.input, layers,
+                       StaticLatent(resolve_grid(lat, time, ensemble)),
+                       net.output_mode, net.use_direction)
 
 
 # ---------------------------------------------------------------------------
@@ -1021,6 +1098,7 @@ def fused_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
                           iso_value=None, tf_mode: str = "piecewise",
                           tf_pre: Optional[Tensor] = None,
                           tmax_clip: Optional[Tensor] = None,
+                          time=0.0, ensemble=0.0,
                           return_stats: bool = False, **tpu_schedule):
     """Plain PyTorch version of :func:`fused_trace_dvr`: the same
     schedule and stop, vectorized over the rays of each segment in chunks,
@@ -1030,6 +1108,7 @@ def fused_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
     :func:`network_position_grad`."""
     strict_f32()
     _tpu_schedule(tpu_schedule)
+    net = resolve_network(net, time, ensemble)
     table, tf_points, tf_pre_rows = prepare_tf(tf_tensor, tf_mode, tf_pre,
                                                ray_start.device)
     spec, rays, kbase = _segment_setup(
@@ -1368,6 +1447,7 @@ def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                     brdf=None, iso_value=None, tf_mode: str = "piecewise",
                     tf_pre: Optional[Tensor] = None,
                     tmax_clip: Optional[Tensor] = None,
+                    time=0.0, ensemble=0.0,
                     return_stats: bool = False, **tpu_schedule):
     """The per-segment fused march (see the module doc) of rays (R, 3),
     R a multiple of ``tile``. CUDA tensors launch the kernel, CPU tensors
@@ -1382,8 +1462,12 @@ def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
     ignored (:func:`_tpu_schedule`). With ``need_normals`` (and a
     ``brdf``) the normals instances (``csrc/segment_fwd_nrm.cu``, the
     piecewise TF) shade the samples and blend the normal and depth.
+    ``time``/``ensemble`` condition a network with keyframed grids or
+    latent vectors (:func:`resolve_network`; the gradient reaches the
+    keyframes and vectors).
     Returns rgba (R, 4), or ``RayEvaluationOutput`` with normals, and
     :class:`SegmentStats` with ``return_stats``."""
+    net = resolve_network(net, time, ensemble)
     kw = dict(stepsize=stepsize, max_steps=max_steps,
               density_min=density_min, density_max=density_max,
               blend_mode=blend_mode, alpha_early_out=alpha_early_out,
@@ -1447,12 +1531,15 @@ def fused_trace_dvr_bucketed(ray_start: Tensor, ray_dir: Tensor, net,
     engine in lattice mode (``march``: :func:`fused_trace_dvr` or its
     plain version), ``"mega"`` the megakernel
     (``ops.fused_mega.mega_trace_dvr``). ``kwargs`` go to each call, with
-    ``tmax_clip`` and the segment count from the plan. With
+    ``tmax_clip`` and the segment count from the plan; ``time`` and
+    ``ensemble`` resolve the network once for all buckets. With
     ``return_stats`` the second result sums the buckets' samples and holds
     their stops as a tensor. With ``need_normals`` every field of the
     ``RayEvaluationOutput`` is reassembled (rays of dead tiles: zeros)."""
     return_stats = kwargs.pop("return_stats", False)
     kwargs.pop("max_steps", None)
+    net = resolve_network(net, kwargs.pop("time", 0.0),
+                          kwargs.pop("ensemble", 0.0))
     dev = ray_start.device
     perm = torch.as_tensor(plan.perm, device=dev)
     rs = ray_start.reshape(-1, 3)[perm]
@@ -1511,12 +1598,14 @@ def fused_trace_dvr_bucketed(ray_start: Tensor, ray_dir: Tensor, net,
 def fused_trace_iso(ray_start: Tensor, ray_dir: Tensor, net, box_min,
                     box_size, config, *, max_steps: int, seg: int = 32,
                     tile: int = 256, table_dtype: torch.dtype = torch.float32,
-                    march=None, return_stats: bool = False):
+                    time=0.0, ensemble=0.0, march=None,
+                    return_stats: bool = False):
     """Isosurface render on the per-segment engine: the kernel's first-hit
     march (a hit ray is dead), then bisection and shading per ray in
     plain PyTorch against the float32 network. ``config``: a
     ``raytracer.iso.RayEvaluationSteppingIso``; ``march``:
-    :func:`fused_trace_dvr` (default) or its plain version. Returns
+    :func:`fused_trace_dvr` (default) or its plain version; ``time`` and
+    ``ensemble`` condition the march and the refinement alike. Returns
     ``RayEvaluationOutput`` (and the march's stats)."""
     from ..models.network_volume import VolumeInterpolationNetwork
     from ..raytracer.iso import refine_and_shade
@@ -1525,12 +1614,14 @@ def fused_trace_iso(ray_start: Tensor, ray_dir: Tensor, net, box_min,
                              [1.0, 1.0, 1.0, 1.0, 1.0]],
                             device=ray_start.device)
     raw, stats = (march or fused_trace_dvr)(
-        ray_start, ray_dir, net, box_min, box_size, dummy_tf,
+        ray_start, ray_dir, resolve_network(net, time, ensemble), box_min,
+        box_size, dummy_tf,
         stepsize=float(config.stepsize), max_steps=max_steps, seg=seg,
         tile=tile, enable_early_out=True, alpha_early_out=0.999,
         table_dtype=table_dtype, iso_value=float(config.isovalue),
         return_stats=True)
-    vol = VolumeInterpolationNetwork(net, box_min, box_size)
+    vol = VolumeInterpolationNetwork(net, box_min, box_size, time=time,
+                                     ensemble=ensemble)
     rs = ray_start.reshape(-1, 3)
     rd = ray_dir.reshape(-1, 3)
     out = refine_and_shade(rs, rd, vol, config, raw[:, 0:1],

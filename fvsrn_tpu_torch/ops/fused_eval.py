@@ -39,7 +39,8 @@ from . import _build
 from .fused_dvr import (_ACTIVATIONS, _HEADS, _check_kernel_inputs,
                         _check_tensors, _latent_chunks, _network_values,
                         kernel_width, network_position_grad,
-                        pack_segment_weights, segment_params, segment_table)
+                        pack_segment_weights, resolve_network, segment_params,
+                        segment_table)
 
 # kernel launches and positions evaluated by them since the last reset, and
 # the launches of the gradient instance among them; the plain version
@@ -52,22 +53,16 @@ SAMPLE_GRAD_LAUNCHES = 0
 _NO_TF = ((0.0, 0.0, 0.0, 0.0, 0.0), (0.0, 0.0, 0.0, 0.0, 1.0))
 
 
-def _check_network(net, table_dtype) -> None:
-    """What the JAX package's evaluator refuses, with its exception types:
-    outputs that are not a density, time inputs (``extract_weights``'s
-    assertions) and more than 16 latent channels (the neighborhood
-    table's assertion)."""
+def _resolved(net, table_dtype, time=0.0, ensemble=0.0):
+    """The network at (time, ensemble) as the evaluator reads it
+    (``ops.fused_dvr.resolve_network``), after what the JAX package's
+    evaluator refuses, with its exception types: outputs that are not a
+    density, time inputs (``extract_weights``'s assertions) and more than
+    16 latent channels (the neighborhood table's assertion)."""
     if not net.output_mode.startswith("density"):
         raise NotImplementedError("fused sample evaluator: density "
                                   "networks (MC tracks scalar density)")
-    if getattr(net.input, "fourier_matrix_time", None) is not None:
-        raise AssertionError("fused: no time fourier (use keyframed latent "
-                             "grids)")
-    if getattr(net.input, "use_time_direct", False):
-        raise AssertionError("fused: no direct time input")
-    if getattr(net.latent, "time_dependent", False):
-        raise NotImplementedError("fused sample evaluator: keyframed "
-                                  "latents are not ported yet")
+    net = resolve_network(net, time, ensemble)
     grid = net.latent.static_grid
     if grid is not None and grid.shape[0] > 16:
         raise AssertionError("neighborhood table supports <= 16 latent "
@@ -77,17 +72,20 @@ def _check_network(net, table_dtype) -> None:
     if len(net.layers) < 2:
         raise ValueError("fused sample evaluator: the network needs a "
                          "hidden layer")
+    return net
 
 
 def fused_eval_plain(net, pos01: Tensor, dirs: Optional[Tensor] = None, *,
                      want_grad: bool = False,
-                     table_dtype: torch.dtype = torch.float32):
+                     table_dtype: torch.dtype = torch.float32,
+                     time=0.0, ensemble=0.0):
     """Plain PyTorch version of the kernel: (value (N,), d value / d pos01
     (N, 3) or None) at ``pos01`` (N, 3); ``dirs`` (N, 3) or None (a zero
     direction). The network is the per-segment engine's plain one (its
-    clips and ReLU gated strictly); the gradient is autograd's with
-    respect to the position."""
+    clips and ReLU gated strictly) at (``time``, ``ensemble``); the
+    gradient is autograd's with respect to the position."""
     strict_f32()
+    net = resolve_network(net, time, ensemble)
     params = segment_params(net, torch.tensor(_NO_TF, device=pos01.device),
                             table_dtype)
     if dirs is None:
@@ -186,24 +184,27 @@ def make_fused_eval(net, box_min, box_size, *, time=0.0, ensemble=0.0,
     weights and table are a snapshot); positions on that device launch it,
     positions on the CPU run the plain version with the network as it is.
 
-    ``time``/``ensemble`` select the latent conditioning; a static grid
-    does not depend on them. ``tile`` and ``compute_dtype`` are the TPU
-    kernel's schedule (its block of positions and its matmul precision):
-    accepted and ignored, as is ``interpret`` (Pallas interpret mode). The
-    kernel evaluates every position, with no padding to a tile."""
-    del time, ensemble, tile, compute_dtype, interpret
-    _check_network(net, table_dtype)
+    ``time``/``ensemble`` select the latent conditioning (keyframed
+    grids lerped, latent vectors folded into layer 0's bias:
+    ``ops.fused_dvr.resolve_network``); a static grid does not depend on
+    them. ``tile`` and ``compute_dtype`` are the TPU kernel's schedule
+    (its block of positions and its matmul precision): accepted and
+    ignored, as is ``interpret`` (Pallas interpret mode). The kernel
+    evaluates every position, with no padding to a tile."""
+    del tile, compute_dtype, interpret
+    net_dev = next(net.parameters()).device
+    with torch.no_grad():
+        view = _resolved(net, table_dtype, time, ensemble)
     bm = np.asarray(box_min, np.float32)
     bs = np.asarray(box_size, np.float32)
-    net_dev = next(net.parameters()).device
     packed = None
     if net_dev.type == "cuda":
         # the segment kernel's checks; its plan (two TF points) fitting,
         # the evaluator's (eval_plan, none) fits
-        _check_kernel_inputs(net, torch.tensor(_NO_TF))
-        packed = (pack_segment_weights(net, torch.tensor(_NO_TF,
-                                                         device=net_dev)),
-                  segment_table(net, table_dtype, net_dev),
+        _check_kernel_inputs(view, torch.tensor(_NO_TF))
+        packed = (pack_segment_weights(view, torch.tensor(_NO_TF,
+                                                          device=net_dev)),
+                  segment_table(view, table_dtype, net_dev),
                   torch.as_tensor(bm, device=net_dev),
                   torch.as_tensor(bs, device=net_dev))
     cpu_box = (torch.as_tensor(bm), torch.as_tensor(bs))
@@ -223,18 +224,19 @@ def make_fused_eval(net, box_min, box_size, *, time=0.0, ensemble=0.0,
         pos01 = ((pos - bm_t) / bs_t).contiguous()
         inside = (pos01 >= 0).all(dim=-1) & (pos01 <= 1).all(dim=-1)
         dirs = None
-        if net.use_direction and direction is not None:
+        if view.use_direction and direction is not None:
             dirs = direction.expand(position.shape).reshape(-1, 3).to(
                 torch.float32).contiguous()
         if dev.type == "cuda":
-            out = launch_sample_eval(net, pos01, dirs, packed[0], packed[1],
-                                     want_grad)
+            out = launch_sample_eval(view, pos01, dirs, packed[0],
+                                     packed[1], want_grad)
             value, grad01 = ((out[:, 0], out[:, 1:4]) if want_grad
                              else (out, None))
         else:
             value, grad01 = fused_eval_plain(net, pos01, dirs,
                                              want_grad=want_grad,
-                                             table_dtype=table_dtype)
+                                             table_dtype=table_dtype,
+                                             time=time, ensemble=ensemble)
         value = value.reshape(lead)
         inside = inside.reshape(lead)
         if want_grad:

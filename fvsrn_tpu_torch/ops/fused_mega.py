@@ -485,14 +485,17 @@ def mega_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
                          tf_mode: str = "piecewise",
                          tf_pre: Optional[Tensor] = None,
                          need_normals: bool = False, brdf=None,
+                         time=0.0, ensemble=0.0,
                          return_samples: bool = False):
     """Plain PyTorch version of :func:`mega_trace_dvr`: the same schedule
     vectorized over tiles and rays, a Python loop over segments; with
     ``differentiable`` an autograd Function with the kernels' gradient;
     with ``need_normals`` each sample's position gradient by
     ``ops.fused_dvr.network_position_grad``."""
-    from .fused_dvr import _check_normals_request, prepare_tf
+    from .fused_dvr import (_check_normals_request, prepare_tf,
+                            resolve_network)
     strict_f32()
+    net = resolve_network(net, time, ensemble)
     _check_normals_request(net, differentiable=differentiable,
                            need_normals=need_normals, iso_value=None)
     _check_network(net)
@@ -1057,6 +1060,7 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                    tf_mode: str = "piecewise",
                    tf_pre: Optional[Tensor] = None,
                    need_normals: bool = False, brdf=None,
+                   time=0.0, ensemble=0.0,
                    return_samples: bool = False):
     """Fused SRN march (see the module doc). CUDA tensors launch the
     kernels, CPU tensors run :func:`mega_trace_dvr_plain`. The render
@@ -1072,8 +1076,14 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
     gradients of culled samples are dropped, the network's are exact
     where the culled samples are transparent). ``need_normals`` and
     ``brdf`` (a ``brdf.BRDFLambert``) shade as the module doc says.
-    Returns rgba (R, 4), or ``RayEvaluationOutput`` with normals, and the
-    samples evaluated per tile with ``return_samples``."""
+    ``time``/``ensemble`` condition a network with keyframed grids or
+    latent vectors (``ops.fused_dvr.resolve_network``: the grid the
+    kernels read is resolved once a call, the vectors fold into layer 0's
+    bias; gradients reach both). Returns rgba (R, 4), or
+    ``RayEvaluationOutput`` with normals, and the samples evaluated per
+    tile with ``return_samples``."""
+    from .fused_dvr import resolve_network
+    net = resolve_network(net, time, ensemble)
     kw = dict(stepsize=stepsize, tmax_clip=tmax_clip, seg=seg, tile=tile,
               density_min=density_min, density_max=density_max,
               alpha_early_out=alpha_early_out,

@@ -46,7 +46,10 @@ def build_density_bounds(volume, *, resolution: int = 32, fine: int = 4,
     """Per-macrocell density [min, max] over a ``resolution``^3 grid of the
     volume's box, sampled at ``fine`` points per macrocell axis (shared
     corners), dilated by one macrocell. Returns (dmin, dmax) NumPy
-    (R, R, R) float32, index order [ix, iy, iz] over normalized [0, 1]^3."""
+    (R, R, R) float32, index order [ix, iy, iz] over normalized [0, 1]^3.
+    The densities are the volume's at its own conditioning (a network
+    volume's ``time`` and ``ensemble``; the JAX signature's ``time`` and
+    ``ensemble`` keywords are read nowhere there either)."""
     r = int(resolution)
     n = r * fine + 1
     dev = torch.as_tensor(volume.box_min).device

@@ -6,7 +6,8 @@ port reads instead the ``.npz`` that ``tools/export_torch_weights.py``
 writes from such a run file, and writes the same layout at the end of a
 training run (``save_run``): named float32 arrays keyed by their path in
 the network (``input.fourier_matrix``, ``layers.{i}.weight``,
-``latent.static_grid``) plus a JSON ``meta`` entry with the static
+``latent.static_grid``, the keyframed grids and latent vectors) plus a
+JSON ``meta`` entry with the static
 fields, read back with numpy alone (no pickle). A run file's ``meta``
 also holds the run's options and its per-epoch loss history.
 """
@@ -38,8 +39,10 @@ def load_weights(path: str) -> SceneRepresentationNetwork:
 
 
 def network_meta(network: SceneRepresentationNetwork) -> dict:
-    """The static fields ``srn_from_arrays`` needs besides the arrays."""
-    return {
+    """The static fields ``srn_from_arrays`` needs besides the arrays
+    (``use_time_direct`` and ``time_dependent`` only where set, as
+    ``tools/export_torch_weights.py`` writes them)."""
+    meta = {
         "layers": [{"activation": l.activation,
                     "activation_param": float(l.activation_param)}
                    for l in network.layers],
@@ -48,6 +51,10 @@ def network_meta(network: SceneRepresentationNetwork) -> dict:
         "disable_direction_in_fourier": bool(
             network.input.disable_direction_in_fourier),
     }
+    meta.update({k: True for k, v in (
+        ("use_time_direct", network.input.use_time_direct),
+        ("time_dependent", network.latent.time_dependent)) if v})
+    return meta
 
 
 def save_run(path: str, network: SceneRepresentationNetwork,

@@ -94,7 +94,10 @@ def fused_screen_supported(network, tf, width: int, height: int) -> bool:
     one 256-ray tile, and no latent grid or one that fits the JAX
     megakernel's float32 slab (``ops.fused_dvr.mega_supported``: <= 16
     channels within its budget; a larger grid trains by the plain march,
-    as in JAX). One difference on purpose: a Gaussian TF that is
+    as in JAX); keyframed time or ensemble grids train by the plain march
+    (their per-frame resolve is not certified by the JAX screen
+    trainer), latent vectors fused (folded into layer 0's bias at time 0,
+    ensemble 0). One difference on purpose: a Gaussian TF that is
     ``analytic`` or ``scale_with_gradient`` trains by the plain march,
     since the fused kernels evaluate neither (the JAX package routes it
     fused and trains the plain Gaussians instead). The network is not
@@ -109,7 +112,10 @@ def fused_screen_supported(network, tf, width: int, height: int) -> bool:
         return False
     if width % 16 or height % 16 or width * height < KERNEL_TILE:
         return False
-    grid = network.latent.static_grid
+    lat = network.latent
+    if lat.time_grid is not None or lat.ensemble_grid is not None:
+        return False
+    grid = lat.static_grid
     return grid is None or mega_supported(tuple(grid.shape), torch.float32)
 
 

@@ -20,7 +20,7 @@ run an epoch as one ``lax.scan``; PyTorch has no counterpart, so
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch import Tensor
@@ -73,21 +73,30 @@ def build_world_dataset(volume, num_samples: int, *, sampler: str = "random",
 
 
 def evaluate_world(network, batch: WorldDataset, loss: LossNetWorld):
-    """Forward and loss on a batch: (total, individual losses)."""
-    pred = network(batch.positions, mode="world")
+    """Forward (the batch's time and ensemble conditioning the network)
+    and loss on a batch: (total, individual losses)."""
+    pred = network(batch.positions, batch.tf, batch.time, batch.ensemble,
+                   mode="world")
     return loss(pred, batch.targets, return_individual=True)
 
 
-def make_train_step(loss: LossNetWorld, optimizer):
+def make_train_step(loss: LossNetWorld, optimizer,
+                    trainable: Optional[Callable] = None):
     """The train step on ``optimizer``, an (optimizer, scheduler) pair of
     ``train.optimizer.make_optimizer``: (network, batch) -> (total,
-    individual), the network updated in place."""
+    individual), the network updated in place. ``trainable(network)``
+    masks the gradients after the backward and before the optimizer step,
+    as the JAX package's mask of the gradient tree does (e.g.
+    ``train.generalization.latent_only_mask``: a masked gradient is zero,
+    and Adam moves no parameter whose gradients were always zero)."""
     opt, scheduler = optimizer
 
     def step(network, batch: WorldDataset):
         opt.zero_grad(set_to_none=True)
         total, individual = evaluate_world(network, batch, loss)
         total.backward()
+        if trainable is not None:
+            trainable(network)
         opt.step()
         scheduler.step()
         return total.detach(), individual

@@ -1611,3 +1611,127 @@ def test_mc_walk_gradient_instance_matches_plain():
     close = ((got - want).abs() < 1e-3).all(dim=1)
     assert float(close.float().mean()) >= 0.98
     assert 0.05 < float(plain.color[:, 3].mean()) < 1.0
+
+
+# time- and ensemble-conditioned networks (rows 1-7 through
+# ops.fused_dvr.resolve_network: keyframed grids lerped into one static
+# grid, latent vectors folded into layer 0's bias)
+
+def latent_net(kind, seed=5):
+    """A random network (``random_net``) whose latent columns belong to
+    keyframed grids ("keyframed": a 3-keyframe time grid and a 2-keyframe
+    ensemble grid, 8 channels each) or to latent vectors and a grid
+    ("vectors": an ensemble vector of 2 channels, a time vector of 4, an
+    8-channel grid)."""
+    from fvsrn_tpu_torch.models.latent import LatentSpace
+    rng = np.random.default_rng(seed)
+
+    def g(*shape):
+        return torch.tensor(rng.standard_normal(shape) * 0.3,
+                            dtype=torch.float32)
+
+    net = random_net(seed=seed, channels=16 if kind == "keyframed" else 14)
+    if kind == "keyframed":
+        net.latent = LatentSpace(time_grid=g(3, 8, 8, 8, 8),
+                                 ensemble_grid=g(2, 8, 8, 8, 8),
+                                 time_dependent=True)
+    else:
+        net.latent = LatentSpace(static_grid=g(8, 8, 8, 8),
+                                 ensemble_vector=g(1, 2, 3),
+                                 time_vector=g(1, 4, 4))
+    return net.cuda()
+
+
+LATENT_AT = dict(time=1.4, ensemble=0.6)
+
+
+@pytest.mark.parametrize("kind", ["keyframed", "vectors"])
+def test_latent_mega_matches_plain(kind):
+    """Rows 1-3 on a conditioned network: the render (bf16 table), and the
+    differentiable pair's image and every leaf, keyframes and vectors
+    included; the keyframe outside the bracket gets exactly zero."""
+    needs_card()
+    net = latent_net(kind)
+    tf = dense_scene()[1].tensor.cuda()
+    rs, rd = block_rays(64, "cuda")
+    kw = dict(stepsize=1 / 128, **LATENT_AT)
+    before = fused_mega.LAUNCHES
+    got = fused_mega.mega_trace_dvr(rs, rd, net, *BOX, tf, **kw)
+    torch.cuda.synchronize()
+    assert fused_mega.LAUNCHES == before + 1
+    want = fused_mega.mega_trace_dvr_plain(rs, rd, net, *BOX, tf, **kw)
+    assert float(want[:, 3].max()) > 0.5
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    res = {}
+    for fn in (fused_mega.mega_trace_dvr, fused_mega.mega_trace_dvr_plain):
+        net.zero_grad(set_to_none=True)
+        img = fn(rs, rd, net, *BOX, tf, differentiable=True, **kw)
+        (img ** 2).mean().backward()
+        res[fn] = (img.detach(), {n: p.grad.clone()
+                                  for n, p in net.named_parameters()})
+    (img_k, g_k), (img_p, g_p) = res.values()
+    torch.testing.assert_close(img_k, img_p, rtol=0, atol=ATOL)
+    for name in g_p:
+        assert rel_err(g_k[name], g_p[name]) <= 1e-3, name
+    if kind == "keyframed":
+        assert float(g_k["latent.time_grid"][0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kind", ["keyframed", "vectors"])
+def test_latent_segment_matches_plain(kind):
+    """Rows 4-6 on a conditioned network: the render, and the
+    differentiable pair's image and every leaf."""
+    needs_card()
+    net = latent_net(kind)
+    tf = dense_scene()[1].tensor.cuda()
+    rs, rd = generate_rays(CameraOnASphere.make(pitch=0.3, yaw=0.8,
+                                                distance=1.6),
+                           60, 44, device="cuda")
+    rs, rd, _ = pad_rays(rs.reshape(-1, 3), rd.reshape(-1, 3), 128)
+    kw = dict(stepsize=1 / 128, max_steps=222, seg=32, tile=128,
+              **LATENT_AT)
+    before = fused_dvr.SEGMENT_LAUNCHES
+    got = fused_dvr.fused_trace_dvr(rs, rd, net, *BOX, tf, **kw)
+    torch.cuda.synchronize()
+    assert fused_dvr.SEGMENT_LAUNCHES == before + 2
+    want = fused_dvr.fused_trace_dvr_plain(rs, rd, net, *BOX, tf, **kw)
+    assert float(want[:, 3].max()) > 0.5
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    res = {}
+    for fn in (fused_dvr.fused_trace_dvr, fused_dvr.fused_trace_dvr_plain):
+        net.zero_grad(set_to_none=True)
+        img = fn(rs, rd, net, *BOX, tf, differentiable=True, **kw)
+        (img ** 2).mean().backward()
+        res[fn] = (img.detach(), {n: p.grad.clone()
+                                  for n, p in net.named_parameters()})
+    (img_k, g_k), (img_p, g_p) = res.values()
+    torch.testing.assert_close(img_k, img_p, rtol=0, atol=ATOL)
+    for name in g_p:
+        assert rel_err(g_k[name], g_p[name]) <= 1e-3, name
+    if kind == "keyframed":
+        assert float(g_k["latent.time_grid"][0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("want_grad", [False, True])
+@pytest.mark.parametrize("kind", ["keyframed", "vectors"])
+def test_latent_sample_eval_matches_plain(kind, want_grad):
+    """Row 7 on a conditioned network at (1.4, 0.6): values and the
+    position gradient against the plain version at the same
+    conditioning."""
+    needs_card()
+    net = latent_net(kind)
+    gen = torch.Generator("cuda").manual_seed(0)
+    pos = torch.rand(5000, 3, device="cuda", generator=gen) * 1.4 - 0.7
+    ev = fused_eval.make_fused_eval(net, *BOX, want_grad=want_grad,
+                                    **LATENT_AT)
+    before = fused_eval.SAMPLE_EVAL_LAUNCHES
+    got = ev(pos)
+    torch.cuda.synchronize()
+    assert fused_eval.SAMPLE_EVAL_LAUNCHES == before + 1
+    value, grad = fused_eval.fused_eval_plain(net, pos + 0.5,
+                                              want_grad=want_grad,
+                                              **LATENT_AT)
+    torch.testing.assert_close(got[0], value, rtol=0, atol=ATOL)
+    if want_grad:
+        inner = (pos.abs() < 0.45).all(dim=1) & (value > 0) & (value < 1)
+        assert rel_err(got[2][inner], grad[inner]) <= 1e-3

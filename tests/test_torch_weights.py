@@ -108,8 +108,12 @@ def test_shell_density_matches_jax():
 
 
 def test_srn_from_arrays_rejects_unported_leaves():
+    """A leaf the port has no place for raises; the keyframed grids and
+    latent vectors have one now (tests/test_torch_latent.py)."""
     arrays, meta = load_arrays(dense_scene()[2])
     arrays["latent.time_grid"] = np.zeros((2, 4, 4, 4, 4), np.float32)
+    srn_from_arrays(arrays, meta)
+    arrays["latent.unknown_leaf"] = np.zeros((2, 4), np.float32)
     with pytest.raises(NotImplementedError):
         srn_from_arrays(arrays, meta)
 

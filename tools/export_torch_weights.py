@@ -44,6 +44,11 @@ def network_arrays(net) -> tuple[dict[str, np.ndarray], dict]:
         "disable_direction_in_fourier": bool(
             net.input.disable_direction_in_fourier),
     }
+    # time inputs and keyframed latents, written only where set (a
+    # missing key reads False), so static networks keep their files
+    meta.update({k: True for k, v in (
+        ("use_time_direct", net.input.use_time_direct),
+        ("time_dependent", net.latent.time_dependent)) if v})
     return arrays, meta
 
 

@@ -3,7 +3,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout and drives the port's
-main paths on the card:
+main paths on the card. The sources build in the background, as many at
+a time as the cores, in the order the phases first load them, and the
+phases run in the order K, 3-10, J, A-I, L, M, N-S, so that each starts
+once its own libraries are built while the rest still build, and those
+that compute most on the host's cores (L, M) run once most are built:
 
 - phases 3-6, the product render: the dense flagship through
   ``LoadedModel.prepare_network_render`` in FUSED mode (512x512, world
@@ -114,6 +118,22 @@ main paths on the card:
   (Q3); ``trace_mc(use_fused=True)`` at 256^2 against the plain walk and
   row 7 alone (Q4); a ``.volnet`` round trip rendered FUSED (Q5).
 
+- phase R, bench.py's contracted configuration (``bench.py:133-176``):
+  the dense and the sparse flagship at 512^2, 1/512, bench.py's camera
+  in 16x8 pixel blocks, the saturation clip, a 3-bucket plan of 128-ray
+  tiles, the sparse arm's per-bucket occupancy masks, a bf16 latent
+  table under training (``fused_trace_dvr_bucketed(engine="mega",
+  tile=128, table_dtype=bf16, segment_active_groups=...)``): the forward
+  frame and the training step (mean(c^2), SGD 1e-7) counted by kernel
+  instance and timed over 6 frames, beside a float32-table step and
+  phase 10's 256-ray float32 step; bench.py's gates against the f32
+  lattice oracle and the kernels against their plain versions on 128
+  tiles; rows 5-6 with a bf16 table against the plain pair;
+- phase S, row 3's ray gradients: the camera matrix's gradient through
+  ``generate_rays`` and ``mega_trace_dvr(ray_grads=True)`` on the
+  flagship at 512^2, the kernels against the plain version on 64 whole
+  tiles, row 3 timed with and without them.
+
 Prints one JSON line with every kernel and a last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before that line. Exits non-zero without a CUDA device.
@@ -147,8 +167,28 @@ SPARSE_P99_TOL = 2e-2
 SPARSE_MAX_TOL = 1.5e-1
 SPARSE_GRAD_TOL = 2e-2
 ORACLE_TILES = 64      # 16384 rays, the oracle subset of bench.py:67
+BENCH_TILE, BENCH_SEG = 128, 32      # phase R: bench.py's march
+BENCH_FRAMES = 6                     # phase R: bench.py's TIMED_FRAMES
+BENCH_GATE_RAYS = 16384              # phase R: bench.py's GATE_RAYS
+# phase R: a bf16 table's gradient, kernel vs plain, per element: two bf16
+# ulps (a float32 sum summed in another order may round to the
+# neighbouring bf16 value) plus GRAD_TOL of the leaf's largest
+BF16_GRID_REL = 2.0 ** -7
 TIMED_CAMERAS = 4
 TIMED_STEPS = 3
+# phase 2: the sources in the order the phases first load them (the
+# phases run K, 3-10, J, A-I, L, M, N-S), then those no phase launches
+BUILD_ORDER = ("probes", "mega_fwd", "mega_bwd", "segment_fwd",
+               "segment_bwd", "sample_eval", "mega_fwd_tf", "segment_fwd_tf",
+               "mega_fwd_any", "mega_fwd48", "mega_fwd_any48", "mega_bwd48",
+               "mega_fwd64", "mega_fwd_any64", "mega_bwd64", "mega_fwd_nrm",
+               "segment_fwd_nrm", "mega_fwd_nrm48", "mega_fwd_nrm64",
+               "mega_fwd_t128", "mega_bwd_t128", "mega_fwd_tf48",
+               "mega_fwd_tf64", "mega_fwd48_t128", "mega_bwd48_t128",
+               "mega_fwd64_t128", "mega_bwd64_t128", "mega_fwd_tf_t128",
+               "mega_fwd_tf48_t128", "mega_fwd_tf64_t128",
+               "mega_fwd_any_t128", "mega_fwd_any48_t128",
+               "mega_fwd_any64_t128")
 SEG_WIDTH, SEG_HEIGHT = 1920, 1080   # phase A: not multiples of 16
 RGBO_SIZE = 504                      # phase C
 ISO_VALUE = 0.5                      # phase E
@@ -2496,8 +2536,9 @@ def mega_instances(width):
     from fvsrn_tpu_torch.ops import _build
 
     out = {}
-    for kind in ("mega_fwd", "mega_bwd"):
-        name = kind if width == 32 else f"{kind}{width}"
+    for lib in ("mega_fwd", "mega_fwd_tf", "mega_fwd_any", "mega_bwd"):
+        name = lib if width == 32 else f"{lib}{width}"
+        kind = lib.removesuffix("_tf").removesuffix("_any")
         for fn, v in _build.ptxas_instances(
                 _build.ptxas_report(name)).items():
             args = re.search(r"_kernelI(.*?)EEv", fn)
@@ -3529,6 +3570,507 @@ def keyframes(smi, reset_counts, counts, npz, tf, cam, frame_ms):
     return rows
 
 
+def bench_grid_check(got, want):
+    """(ok, largest element error over its own value, over the leaf's
+    largest) of a bf16 table's grid gradient, kernel against plain: each
+    element within BF16_GRID_REL of its value plus GRAD_TOL of the leaf's
+    largest (the float32 contract, for sums that cancel)."""
+    err = (got - want).abs()
+    scale = float(want.abs().max())
+    bound = BF16_GRID_REL * want.abs() + GRAD_TOL * scale
+    rel_el = float((err / want.abs().clamp_min(1e-30))[
+        want.abs() > GRAD_TOL * scale].max())
+    return bool((err <= bound).all()), rel_el, float(err.max()) / scale
+
+
+def bench_step(smi, reset_counts, counts, cam):
+    """Phase R: bench.py's contracted configuration on the port: the
+    dense and the sparse flagship at 512^2, 1/512, bench.py's camera and
+    16x8 pixel blocks, the saturation clip (coarse 8, margin 16), a
+    3-bucket plan of 128-ray tiles (seg 32), the sparse arm's per-bucket
+    occupancy masks (128^3, fine 2, alpha_skip 1e-5), the march on 128-ray
+    tiles with a bf16 table, forward frame and training step (mean(c^2),
+    SGD 1e-7), each timed over bench.py's 6 frames after a warm-up, and
+    the same process's tile-256 float32-table step beside it; bench.py's
+    gates against the f32 lattice oracle, the kernels against their plain
+    versions on the gate's 128 tiles; then rows 5-6 with a bf16 table.
+    Returns rows 1-3 and 5-6's figures."""
+    from fvsrn_tpu_torch.camera import generate_rays
+    from fvsrn_tpu_torch.models.network_volume import \
+        VolumeInterpolationNetwork
+    from fvsrn_tpu_torch.ops import fused_dvr, fused_dvr_bwd, fused_mega
+    from fvsrn_tpu_torch.ops import occupancy
+    from fvsrn_tpu_torch.ops.fused_dvr import (block_ray_permutation,
+                                               fused_trace_dvr_bucketed,
+                                               plan_ray_buckets,
+                                               probe_saturation_tmax)
+    from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
+                                               max_steps_bound, trace_dvr)
+    from fvsrn_tpu_torch.scenes import dense_scene, sparse_scene
+    from fvsrn_tpu_torch.train.checkpoints import load_weights
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    box = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))
+    steps_max = max_steps_bound(box[1], STEPSIZE)
+    n_rays = WIDTH * HEIGHT
+    bf16 = torch.bfloat16
+    rs_all, rd_all = generate_rays(cam, WIDTH, HEIGHT, device=dev)
+    perm, _ = block_ray_permutation(WIDTH, HEIGHT, 16, 8, device=dev)
+    rs = rs_all.reshape(-1, 3)[perm].contiguous()
+    rd = rd_all.reshape(-1, 3)[perm].contiguous()
+    rs_np, rd_np = rs.cpu().numpy(), rd.cpu().numpy()
+    ocfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE,
+                                         enable_early_out=False)
+
+    def setup(scene, sparse):
+        """The camera-static planning pre-pass, timed: clip, plan, masks."""
+        _, tf, npz = scene()
+        net = load_weights(npz).to(dev)
+        tf_dev = tf.to(dev)
+        vol = VolumeInterpolationNetwork(net, *box)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            clip = probe_saturation_tmax(rs, rd, vol, tf_dev,
+                                         stepsize=STEPSIZE,
+                                         max_steps=steps_max, coarse=8,
+                                         margin_steps=16)
+        clip_np = clip.cpu().numpy().astype(np.float32)
+        plan = plan_ray_buckets(rs_np, rd_np, *box, stepsize=STEPSIZE,
+                                seg=BENCH_SEG, tile=BENCH_TILE, n_buckets=3,
+                                grid_sizes=(32, 32, 32), tmax_clip=clip_np)
+        occ, masks = None, None
+        if sparse:
+            occ = occupancy.build_occupancy(vol, tf_dev, resolution=128,
+                                            fine=2, stepsize=STEPSIZE,
+                                            alpha_skip=1e-5)
+            masks = tuple(torch.from_numpy(m).to(dev)
+                          for m in occupancy.plan_segment_occupancy(
+                              plan, rs_np, rd_np, occ, *box,
+                              stepsize=STEPSIZE, seg=BENCH_SEG,
+                              tile=BENCH_TILE))
+        torch.cuda.synchronize()
+        return dict(net=net, tf=tf_dev, vol=vol, plan=plan, occ=occ,
+                    masks=masks, plan_s=time.perf_counter() - t0)
+
+    def trace(a, n, t, diff, rs_=None, rd_=None, plan=None, masks=None,
+              march=None, table=bf16, stats=False):
+        return fused_trace_dvr_bucketed(
+            rs if rs_ is None else rs_, rd if rd_ is None else rd_, n, *box,
+            t, plan=a["plan"] if plan is None else plan, engine="mega",
+            march=march, stepsize=STEPSIZE, seg=BENCH_SEG, tile=BENCH_TILE,
+            enable_early_out=True, differentiable=diff, table_dtype=table,
+            segment_active_groups=(a["masks"] if masks is None else masks),
+            return_stats=stats)
+
+    arms = {"dense": setup(dense_scene, False),
+            "sparse": setup(sparse_scene, True)}
+    steps = {}
+    for name, a in arms.items():
+        a["step_net"] = copy.deepcopy(a["net"])
+        a["step_tf"] = a["tf"].tensor.clone().requires_grad_(name == "dense")
+        params = list(a["step_net"].parameters()) + (
+            [a["step_tf"]] if name == "dense" else [])
+        a["opt"] = torch.optim.SGD(params, lr=1e-7)
+
+        def step(a=a, table=bf16):
+            a["opt"].zero_grad(set_to_none=True)
+            img = trace(a, a["step_net"], a["step_tf"], True, table=table)
+            (img ** 2).mean().backward()
+            a["opt"].step()
+        steps[name] = step
+
+    # the main path: each arm's forward frame and one training step, the
+    # counts reset just before and read just after
+    reset_counts()
+    for name, a in arms.items():
+        with torch.no_grad():
+            a["img"], a["stats"] = trace(a, a["net"], a["tf"].tensor, False,
+                                         stats=True)
+        steps[name]()
+    torch.cuda.synchronize()
+    c_r = counts()
+    inst = dict(fused_mega.LAUNCHES)
+    for kind in ("mega_fwd", "mega_fwd_diff", "mega_bwd"):
+        check(inst.get(f"{kind}:t128:bf16", 0) > 0,
+              f"phase R: no {kind} launch on 128-ray tiles with a bf16 "
+              f"table ({inst})")
+    for name, a in arms.items():
+        img = a["img"]
+        check(tuple(img.shape) == (n_rays, 4)
+              and bool(torch.isfinite(img).all())
+              and float(img[:, 3].max()) > 0.5,
+              f"phase R {name}: the frame")
+    culled = {}
+    for name, a in arms.items():
+        if a["masks"] is not None:
+            tot = sum(int(m.numel()) for m in a["masks"])
+            culled[name] = 1.0 - sum(int(m.sum()) for m in a["masks"]) / tot
+    print(f"phase R main path [{smi}]: bench.py's configuration, "
+          f"{WIDTH}x{HEIGHT} h=1/{round(1 / STEPSIZE)}, 16x8 blocks, tile "
+          f"{BENCH_TILE}, seg {BENCH_SEG}, bf16 table; planning dense "
+          f"{arms['dense']['plan_s']:.2f} s, sparse "
+          f"{arms['sparse']['plan_s']:.2f} s; buckets "
+          f"{[int(n) for n in arms['dense']['plan'].group_sizes]} / "
+          f"{[int(n) for n in arms['sparse']['plan'].group_sizes]}; sparse "
+          f"culled share "
+          f"{culled['sparse']:.4f}; launches {c_r}, by instance {inst}",
+          flush=True)
+
+    # the gates: bench.py's gate_check on GATE rays from the start of the
+    # middle bucket, and the kernels against their plain versions there
+    res = {}
+    for name, a in arms.items():
+        plan = a["plan"]
+        gs = plan.dead + plan.group_sizes[0]
+        gs = min(gs, n_rays - BENCH_GATE_RAYS)
+        g_rs_np = rs_np[plan.perm][gs:gs + BENCH_GATE_RAYS]
+        g_rd_np = rd_np[plan.perm][gs:gs + BENCH_GATE_RAYS]
+        g_clip = plan.tmax_clip[gs:gs + BENCH_GATE_RAYS]
+        gplan = plan_ray_buckets(g_rs_np, g_rd_np, *box, stepsize=STEPSIZE,
+                                 seg=BENCH_SEG, tile=BENCH_TILE, n_buckets=1,
+                                 grid_sizes=(32, 32, 32), tmax_clip=g_clip)
+        g_masks = None
+        if a["occ"] is not None:
+            g_masks = tuple(torch.from_numpy(m).to(dev)
+                            for m in occupancy.plan_segment_occupancy(
+                                gplan, g_rs_np, g_rd_np, a["occ"], *box,
+                                stepsize=STEPSIZE, seg=BENCH_SEG,
+                                tile=BENCH_TILE))
+        g_rs = torch.from_numpy(g_rs_np).to(dev)
+        g_rd = torch.from_numpy(g_rd_np).to(dev)
+        net_only = name == "sparse"
+        net = a["net"]
+
+        def grads(fn):
+            net.zero_grad(set_to_none=True)
+            tf_leaf = a["tf"].tensor.clone().requires_grad_(not net_only)
+            img = fn(tf_leaf)
+            (img ** 2).mean().backward()
+            g = {n: p.grad.detach().clone() for n, p in
+                 net.named_parameters()}
+            if not net_only:
+                g["tf"] = tf_leaf.grad.detach().clone()
+            return img.detach(), g
+
+        img_k, g_k = grads(lambda t: trace(a, net, t, True, g_rs, g_rd,
+                                           gplan, g_masks))
+        (img_p, g_p), gp_ms = cuda_once(lambda: grads(
+            lambda t: trace(a, net, t, True, g_rs, g_rd, gplan, g_masks,
+                            march=fused_mega.mega_trace_dvr_plain)))
+        gsteps = int(max(gplan.group_steps))
+        img_o, g_o = grads(lambda t: trace_dvr(
+            g_rs, g_rd, a["vol"], type(a["tf"])(t), ocfg, gsteps,
+            tmax_in=torch.from_numpy(g_clip).to(dev), lattice=True,
+            checkpoint_chunk=64).color)
+        ad = (img_k - img_o).abs()
+        o_max, o_p99 = float(ad.max()), float(torch.quantile(ad.flatten(),
+                                                                0.99))
+        o_rel = {n: rel_err(g_k[n], g_o[n]) for n in g_o}
+        o_worst = max(o_rel, key=o_rel.get)
+        if net_only:
+            gate = (o_p99 < SPARSE_P99_TOL and o_max < SPARSE_MAX_TOL
+                    and o_rel[o_worst] < SPARSE_GRAD_TOL)
+        else:
+            gate = o_max < ORACLE_TOL and o_rel[o_worst] < ORACLE_GRAD_TOL
+        k_err = max_err(img_k, img_p)
+        grid = "latent.static_grid"
+        p_rel = {n: rel_err(g_k[n], g_p[n]) for n in g_p if n != grid}
+        p_worst = max(p_rel, key=p_rel.get)
+        grid_ok, grid_el, grid_leaf = bench_grid_check(g_k[grid], g_p[grid])
+        print(f"phase R {name} gates [{smi}], {BENCH_GATE_RAYS} rays: vs "
+              f"f32 lattice oracle image max|d| {o_max:.3e} (p99 "
+              f"{o_p99:.3e}), grad-norm rel err {o_rel[o_worst]:.3e} "
+              f"({o_worst}) -> {'ok' if gate else 'FAIL'}; kernels vs plain "
+              f"image max|d| {k_err:.3e} (tol {KERNEL_TOL}), leaves rel "
+              f"{p_rel[p_worst]:.3e} ({p_worst}, tol {GRAD_TOL}), bf16 grid "
+              f"largest element error {grid_el:.3e} of its value "
+              f"({grid_leaf:.3e} of the leaf's largest; bound "
+              f"{BF16_GRID_REL:.3e} + {GRAD_TOL} of the largest) -> "
+              f"{'ok' if grid_ok else 'FAIL'}; plain fwd+bwd {gp_ms:.1f} ms",
+              flush=True)
+        check(gate, f"phase R {name}: bench.py's gate")
+        check(k_err <= KERNEL_TOL, f"phase R {name}: image kernel vs plain")
+        check(all(float(g.norm()) > 0 for g in g_p.values()),
+              f"phase R {name}: a zero gradient")
+        check(p_rel[p_worst] <= GRAD_TOL, f"phase R {name}: leaves {p_rel}")
+        check(grid_ok, f"phase R {name}: the bf16 grid's gradient")
+        res[name] = {"oracle_max": o_max, "oracle_p99": o_p99,
+                     "oracle_grad_rel": o_rel[o_worst],
+                     "kernel_vs_plain": k_err,
+                     "grad_rel_plain": p_rel[p_worst],
+                     "grid_elem_rel": grid_el, "grid_leaf_rel": grid_leaf,
+                     "plain_fwd_bwd_ms": gp_ms}
+
+    # timing: bench.py's 6 frames after a warm-up; the step also with a
+    # float32 table, and phase 10's march (16x16 blocks, no clip, tile
+    # 256, float32 table) with bench.py's loss and SGD, in turns
+    perm16, _ = block_ray_permutation(WIDTH, HEIGHT, 16, 16, device=dev)
+    rs16 = rs_all.reshape(-1, 3)[perm16].contiguous()
+    rd16 = rd_all.reshape(-1, 3)[perm16].contiguous()
+
+    def kernel_ms(a):
+        """Device ms of rows 1, 2 and 3 alone, summed over the plan's
+        buckets (each its clip and mask, 128-ray tiles, the bf16 table),
+        the backward seeded with mean(c^2)'s cotangent."""
+        plan, net = a["plan"], a["net"]
+        spec = fused_mega._spec(net, *box, stepsize=STEPSIZE, seg=BENCH_SEG,
+                                tile=BENCH_TILE, density_min=0.0,
+                                density_max=1.0, enable_early_out=True)
+        params = fused_mega._params(net, a["tf"].tensor)
+        widths = fused_mega._widths(params)
+        weights = fused_mega._pack_weights(params, spec)
+        table = fused_mega.latent_table(params[2], bf16)
+        perm_t = torch.as_tensor(plan.perm, device=dev)
+        rs_p, rd_p = rs[perm_t], rd[perm_t]
+        times = [0.0, 0.0, 0.0]
+        ofs = plan.dead
+        for g, size in enumerate(plan.group_sizes):
+            sl = slice(ofs, ofs + size)
+            rays = fused_mega.ray_packet(
+                rs_p[sl], rd_p[sl], *box, STEPSIZE,
+                torch.as_tensor(plan.tmax_clip[sl], device=dev))
+            mask = (None if a["masks"] is None else fused_mega._check_mask(
+                a["masks"][g], size // BENCH_TILE, dev))
+            n_seg = fused_mega.segments_needed(rays, spec)
+            fwd = fused_mega._launch_fwd(rays, weights, table, spec,
+                                         *widths[:3], n_seg_max=n_seg,
+                                         mask=mask)
+            d_out = 2.0 * fwd[0] / n_rays
+            times[0] += cuda_ms(lambda: fused_mega._launch_fwd(
+                rays, weights, table, spec, *widths[:3], mask=mask),
+                BENCH_FRAMES)
+            times[1] += cuda_ms(lambda: fused_mega._launch_fwd(
+                rays, weights, table, spec, *widths[:3], n_seg_max=n_seg,
+                mask=mask), BENCH_FRAMES)
+            times[2] += cuda_ms(lambda: fused_mega._launch_bwd(
+                rays, weights, table, fwd[2], fwd[3], d_out, spec, *widths,
+                mask), BENCH_FRAMES)
+            ofs += size
+        return times
+
+    for name, a in arms.items():
+        def frame(a=a):
+            with torch.no_grad():
+                return trace(a, a["net"], a["tf"].tensor, False)
+
+        def step256(a=a):
+            a["opt"].zero_grad(set_to_none=True)
+            img = fused_mega.mega_trace_dvr(
+                rs16, rd16, a["step_net"], *box, a["step_tf"],
+                stepsize=STEPSIZE, differentiable=True,
+                table_dtype=torch.float32)
+            (img ** 2).mean().backward()
+            a["opt"].step()
+
+        frame_ms = cuda_ms(frame, BENCH_FRAMES)
+        step_ms = cuda_ms(steps[name], BENCH_FRAMES)
+        step_f32_ms = cuda_ms(lambda: steps[name](table=torch.float32),
+                              BENCH_FRAMES)
+        step256_ms = cuda_ms(step256, BENCH_FRAMES)
+        step_ms2 = cuda_ms(steps[name], BENCH_FRAMES)
+        k1, k2, k3 = kernel_ms(a)
+        samples = int(a["stats"].samples)
+        res[name].update({
+            "frame_ms": frame_ms, "frame_mrays": n_rays / frame_ms / 1e3,
+            "ns_per_sample": frame_ms * 1e6 / max(1, samples),
+            "step_ms": step_ms, "step_ms_again": step_ms2,
+            "step_mrays": n_rays / step_ms / 1e3,
+            "step_f32_table_ms": step_f32_ms, "step_t256_f32_ms": step256_ms,
+            "row1_ms": k1, "row2_ms": k2, "row3_ms": k3,
+            "samples": samples, "culled": culled.get(name, 0.0),
+            "plan_s": a["plan_s"],
+            "buckets": [int(n) for n in a["plan"].group_sizes]})
+        print(f"phase R {name} timing [{smi}]: forward frame "
+              f"{frame_ms:.3f} ms ({n_rays / frame_ms / 1e3:.3f} Mrays/s, "
+              f"{samples} samples, {frame_ms * 1e6 / max(1, samples):.4f} "
+              f"ns a sample); training step (fwd + mean(c^2) + bwd + SGD "
+              f"1e-7) {step_ms:.3f} / {step_ms2:.3f} ms "
+              f"({n_rays / step_ms / 1e3:.3f} Mrays/s); the same with a "
+              f"float32 table {step_f32_ms:.3f} ms; phase 10's march (tile "
+              f"256, f32 table, 16x16 blocks, no clip) {step256_ms:.3f} ms; "
+              f"the kernels alone over the buckets: row 1 {k1:.3f}, row 2 "
+              f"{k2:.3f}, row 3 {k3:.3f} ms; culled share "
+              f"{culled.get(name, 0.0):.4f} (mean of {BENCH_FRAMES} after a "
+              f"warm-up)", flush=True)
+
+    # rows 5-6 with a bf16 table: phase F's march (per ray, tile 128) of
+    # the flagship on 64 whole 256-ray tiles against the plain pair, and
+    # a full-frame step on both tables
+    a = arms["dense"]
+    net = a["net"]
+    sel = (torch.arange(0, n_rays // 256, n_rays // 256 // ORACLE_TILES,
+                        device=dev)[:ORACLE_TILES, None] * 256
+           + torch.arange(256, device=dev)).reshape(-1)
+    seg_kw = dict(stepsize=STEPSIZE, max_steps=steps_max, seg=32, tile=128,
+                  differentiable=True)
+
+    def seg_grads(fn, r_s, r_d, table):
+        net.zero_grad(set_to_none=True)
+        tf_leaf = a["tf"].tensor.clone().requires_grad_(True)
+        img = fn(r_s, r_d, net, *box, tf_leaf, table_dtype=table, **seg_kw)
+        (img ** 2).mean().backward()
+        g = {n: p.grad.detach().clone() for n, p in net.named_parameters()}
+        g["tf"] = tf_leaf.grad.detach().clone()
+        return img.detach(), g
+
+    reset_counts()
+    s_img_k, s_g_k = seg_grads(fused_dvr.fused_trace_dvr, rs16[sel],
+                               rd16[sel], bf16)
+    torch.cuda.synchronize()
+    c_s = counts()
+    s_inst = dict(fused_dvr_bwd.LAUNCHES)
+    check(s_inst.get("segment_fwd_diff:bf16", 0) > 0
+          and s_inst.get("segment_bwd:bf16", 0) > 0,
+          f"phase R rows 5-6: the bf16 instances did not run ({s_inst})")
+    s_img_p, s_g_p = seg_grads(fused_dvr.fused_trace_dvr_plain, rs16[sel],
+                               rd16[sel], bf16)
+    s_err = max_err(s_img_k, s_img_p)
+    s_rel = {n: rel_err(s_g_k[n], s_g_p[n]) for n in s_g_p
+             if n != "latent.static_grid"}
+    s_worst = max(s_rel, key=s_rel.get)
+    s_grid_ok, s_grid_el, s_grid_leaf = bench_grid_check(
+        s_g_k["latent.static_grid"], s_g_p["latent.static_grid"])
+
+    def seg_step(table):
+        return lambda: seg_grads(fused_dvr.fused_trace_dvr, rs16, rd16,
+                                 table)
+
+    s_bf16_ms = cuda_ms(seg_step(bf16), TIMED_STEPS)
+    s_f32_ms = cuda_ms(seg_step(torch.float32), TIMED_STEPS)
+    print(f"phase R rows 5-6 bf16 table [{smi}]: {sel.numel()} rays, kernel "
+          f"vs plain image max|d| {s_err:.3e} (tol {KERNEL_TOL}), leaves rel "
+          f"{s_rel[s_worst]:.3e} ({s_worst}, tol {GRAD_TOL}), bf16 grid "
+          f"largest element error {s_grid_el:.3e} of its value "
+          f"({s_grid_leaf:.3e} of the leaf's largest) -> "
+          f"{'ok' if s_grid_ok else 'FAIL'}; full-frame fwd+bwd "
+          f"{s_bf16_ms:.3f} ms bf16, {s_f32_ms:.3f} ms f32 table; launches "
+          f"{c_s}, by instance {s_inst}", flush=True)
+    check(s_err <= KERNEL_TOL, "phase R rows 5-6: image kernel vs plain")
+    check(s_rel[s_worst] <= GRAD_TOL, f"phase R rows 5-6: leaves {s_rel}")
+    check(s_grid_ok, "phase R rows 5-6: the bf16 grid's gradient")
+    res["rows56"] = {"kernel_vs_plain": s_err,
+                     "grad_rel_plain": s_rel[s_worst],
+                     "grid_elem_rel": s_grid_el,
+                     "grid_leaf_rel": s_grid_leaf,
+                     "step_bf16_ms": s_bf16_ms, "step_f32_ms": s_f32_ms,
+                     "launches": s_inst}
+    res["launches"] = inst
+    print(f"phase R: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return res
+
+
+def ray_gradients(smi, reset_counts, counts, cam):
+    """Phase S: row 3's ray gradients on the card. The flagship at 512^2,
+    1/512, the camera matrix's gradient through ``generate_rays`` and
+    ``mega_trace_dvr(ray_grads=True)`` (as the JAX package's
+    test_mega_ray_gradients_camera_matrix: no early-out, loss
+    mean(c^2)); the kernels against the plain version on 64 whole tiles
+    (the matrix's, the rays' and every leaf's gradient); row 3 timed with
+    and without the ray gradients (phase 10's march) in turns. Returns
+    row 3's figures."""
+    from fvsrn_tpu_torch.camera import camera_matrix, generate_rays
+    from fvsrn_tpu_torch.ops import fused_mega
+    from fvsrn_tpu_torch.ops.fused_dvr import block_ray_permutation
+    from fvsrn_tpu_torch.scenes import dense_scene
+    from fvsrn_tpu_torch.train.checkpoints import load_weights
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    box = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))
+    n_rays = WIDTH * HEIGHT
+    _, tf, npz = dense_scene()
+    net = load_weights(npz).to(dev)
+    tf_d = tf.tensor.to(dev)
+    perm, _ = block_ray_permutation(WIDTH, HEIGHT, 16, 16, device=dev)
+    m0 = camera_matrix(cam).to(dev)
+
+    def frame(march, sel=None):
+        """(matrix, start, direction gradients, leaves) of one step."""
+        net.zero_grad(set_to_none=True)
+        m = m0.clone().requires_grad_(True)
+        r_s, r_d = generate_rays(m, WIDTH, HEIGHT, cam.fov_y_radians)
+        r_s, r_d = r_s.reshape(-1, 3)[perm], r_d.reshape(-1, 3)[perm]
+        if sel is not None:
+            r_s, r_d = r_s[sel], r_d[sel]
+        r_s.retain_grad()
+        r_d.retain_grad()
+        img = march(r_s, r_d, net, *box, tf_d, stepsize=STEPSIZE,
+                    differentiable=True, ray_grads=True,
+                    enable_early_out=False)
+        (img ** 2).mean().backward()
+        return (m.grad.detach().clone(), r_s.grad.detach().clone(),
+                r_d.grad.detach().clone(),
+                {n: p.grad.detach().clone() for n, p in
+                 net.named_parameters()})
+
+    reset_counts()
+    g_m, _, _, _ = frame(fused_mega.mega_trace_dvr)
+    torch.cuda.synchronize()
+    c_s = counts()
+    inst = dict(fused_mega.LAUNCHES)
+    check(inst.get("mega_bwd:t256:f32:rays", 0) > 0,
+          f"phase S: the ray-gradient instance did not run ({inst})")
+    check(bool(torch.isfinite(g_m).all()) and float(g_m.abs().max()) > 0,
+          f"phase S: the camera gradient {g_m}")
+    sel = (torch.arange(0, n_rays // 256, n_rays // 256 // ORACLE_TILES,
+                        device=dev)[:ORACLE_TILES, None] * 256
+           + torch.arange(256, device=dev)).reshape(-1)
+    k = frame(fused_mega.mega_trace_dvr, sel)
+    p, p_ms = cuda_once(lambda: frame(fused_mega.mega_trace_dvr_plain, sel))
+    errs = {"matrix": rel_err(k[0], p[0]), "ray_start": rel_err(k[1], p[1]),
+            "ray_dir": rel_err(k[2], p[2])}
+    errs.update({n: rel_err(k[3][n], p[3][n]) for n in p[3]})
+    worst = max(errs, key=errs.get)
+    print(f"phase S ray gradients [{smi}]: {WIDTH}x{HEIGHT} "
+          f"h=1/{round(1 / STEPSIZE)}, camera gradient {g_m.flatten()}; "
+          f"kernels vs plain on {sel.numel()} rays: rel norm err "
+          f"{', '.join(f'{n} {v:.2e}' for n, v in errs.items())} (tol "
+          f"{GRAD_TOL}, worst {worst}); plain fwd+bwd {p_ms:.1f} ms; "
+          f"launches {c_s}, by instance {inst}", flush=True)
+    check(errs[worst] <= GRAD_TOL, f"phase S: kernel vs plain {errs}")
+
+    # row 3 alone with and without the ray gradients, phase 10's march
+    rs, rd = generate_rays(cam, WIDTH, HEIGHT, device=dev)
+    rs = rs.reshape(-1, 3)[perm].contiguous()
+    rd = rd.reshape(-1, 3)[perm].contiguous()
+    spec = fused_mega._spec(net, *box, stepsize=STEPSIZE, seg=32, tile=256,
+                            density_min=0.0, density_max=1.0,
+                            enable_early_out=True)
+    rays = fused_mega.ray_packet(rs, rd, *box, STEPSIZE)
+    params = fused_mega._params(net, tf_d)
+    widths = fused_mega._widths(params)
+    weights = fused_mega._pack_weights(params, spec)
+    table = fused_mega.latent_table(params[2], torch.float32)
+    n_seg = fused_mega.segments_needed(rays, spec)
+    fwd = fused_mega._launch_fwd(rays, weights, table, spec, *widths[:3],
+                                 n_seg_max=n_seg)
+    d_out = 2.0 * fwd[0] / fwd[0].numel()
+
+    def bwd(ray_grads):
+        return lambda: fused_mega._launch_bwd(
+            rays, weights, table, fwd[2], fwd[3], d_out, spec, *widths,
+            ray_grads=ray_grads)
+
+    t = [cuda_ms(bwd(False), TIMED_STEPS), cuda_ms(bwd(True), TIMED_STEPS),
+         cuda_ms(bwd(True), TIMED_STEPS), cuda_ms(bwd(False), TIMED_STEPS)]
+    plain_ms, rays_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    d_rays = bwd(True)()[3]
+    check(bool(torch.isfinite(d_rays).all())
+          and float(d_rays[:, :6].abs().max()) > 0
+          and float(d_rays[:, 6:].abs().max()) == 0.0,
+          "phase S: the ray cotangent's columns")
+    print(f"phase S row 3 timing [{smi}]: without ray gradients "
+          f"{t[0]:.3f} / {t[3]:.3f} ms, with {t[1]:.3f} / {t[2]:.3f} ms "
+          f"(overhead {rays_ms / plain_ms - 1.0:.4f}); phase S "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"bwd_ms": plain_ms, "bwd_ray_grads_ms": rays_ms,
+            "overhead": rays_ms / plain_ms - 1.0, "timings": t,
+            "grad_rel_plain": errs,
+            "plain_fwd_bwd_ms": p_ms,
+            "launches": inst, "camera_grad": g_m.flatten().tolist()}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3546,6 +4088,12 @@ def main():
                                                max_steps_bound, trace_dvr)
     from fvsrn_tpu_torch.scenes import dense_scene
 
+    t_start = time.perf_counter()
+
+    def clock(phase):
+        print(f"chip_smoke clock: {phase} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     # 1. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3556,46 +4104,50 @@ def main():
     print(f"phase 1 card: {kind} | torch {torch.__version__} | "
           f"CUDA {torch.version.cuda}", flush=True)
 
-    # 2. build every kernel of the path (one nvcc per source, together)
-    t0 = time.perf_counter()
-    secs = _build.build(_build.SOURCES)
-    print(f"phase 2 build: {time.perf_counter() - t0:.1f} s "
-          f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
-    for name in secs:
-        print(_build.ptxas_report(name).strip(), flush=True)
+    # 2. build every kernel of the path: one nvcc per source in the
+    # background, as many at a time as the cores, in the order the phases
+    # first load them (a phase waits for its own sources only) and below
+    # the phases' own priority
+    t_build = time.perf_counter()
+    jobs = len(os.sched_getaffinity(0))
+    builds = _build.start(BUILD_ORDER, jobs=jobs, nice=10)
+    check(set(builds) == set(_build.SOURCES), "phase 2: BUILD_ORDER is not "
+          f"the sources {sorted(set(_build.SOURCES) ^ set(builds))}")
+    print(f"phase 2 build: {len(builds)} sources, {jobs} at a time, in the "
+          "background", flush=True)
 
     def reset_counts():
-        fused_mega.LAUNCHES = 0
-        fused_mega.DIFF_LAUNCHES = 0
-        fused_mega.BWD_LAUNCHES = 0
+        fused_mega.LAUNCHES.clear()
         fused_dvr.SEGMENT_LAUNCHES = 0
-        fused_dvr_bwd.SEGMENT_DIFF_LAUNCHES = 0
-        fused_dvr_bwd.SEGMENT_BWD_LAUNCHES = 0
+        fused_dvr_bwd.LAUNCHES.clear()
         fused_eval.SAMPLE_EVAL_LAUNCHES = 0
         fused_eval.SAMPLE_EVAL_POSITIONS = 0
         montecarlo.TRACKING_ROUNDS = 0
-        fused_mega.NRM_LAUNCHES = 0
         fused_dvr.SEGMENT_NRM_LAUNCHES = 0
         fused_eval.SAMPLE_GRAD_LAUNCHES = 0
         montecarlo.NORMAL_ROUNDS = 0
 
     def counts():
-        return {"mega_fwd": fused_mega.LAUNCHES,
-                "mega_fwd_diff": fused_mega.DIFF_LAUNCHES,
-                "mega_bwd": fused_mega.BWD_LAUNCHES,
+        return {"mega_fwd": fused_mega.launches("mega_fwd"),
+                "mega_fwd_diff": fused_mega.launches("mega_fwd_diff"),
+                "mega_bwd": fused_mega.launches("mega_bwd"),
                 "segment_fwd": fused_dvr.SEGMENT_LAUNCHES,
-                "segment_fwd_diff": fused_dvr_bwd.SEGMENT_DIFF_LAUNCHES,
-                "segment_bwd": fused_dvr_bwd.SEGMENT_BWD_LAUNCHES,
+                "segment_fwd_diff": fused_dvr_bwd.launches("segment_fwd_diff"),
+                "segment_bwd": fused_dvr_bwd.launches("segment_bwd"),
                 "sample_eval": fused_eval.SAMPLE_EVAL_LAUNCHES,
                 "sample_eval_positions": fused_eval.SAMPLE_EVAL_POSITIONS,
                 "tracking_rounds": montecarlo.TRACKING_ROUNDS,
-                "mega_fwd_nrm": fused_mega.NRM_LAUNCHES,
+                "mega_fwd_nrm": fused_mega.launches("mega_fwd_nrm"),
                 "segment_fwd_nrm": fused_dvr.SEGMENT_NRM_LAUNCHES,
                 "sample_eval_grad": fused_eval.SAMPLE_GRAD_LAUNCHES,
                 "normal_rounds": montecarlo.NORMAL_ROUNDS}
 
-    # 3. the first main path: product render of the dense flagship
+    # phase K launches the smallest library
     _, tf, npz = dense_scene()
+    probe = probe_rows(smi)
+    clock("phase K")
+
+    # 3. the first main path: product render of the dense flagship
     cfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE)
     model = LoadedModel.from_checkpoint(npz, tf=tf, config=cfg)
     cam = CameraOnASphere.make(**CAMERA)
@@ -3677,16 +4229,26 @@ def main():
         "samples": n_samples, "oracle_max_abs_err": oerr,
         "ptxas": ptxas_summary("mega_fwd")}
     train_rows = training(smi, reset_counts, counts, npz, tf, cam)
-    segment_row = segment_paths(smi, reset_counts, counts, npz, tf, cam)
-    scan_rows = scan_training(smi, reset_counts, counts, npz, tf, cam)
-    mc_row = monte_carlo(smi, reset_counts, counts, npz, tf, cam)
+    clock("phases 3-10")
+    # the megakernel's sparse arm while the per-segment engine builds
     render_row["sparse"] = sparse_arm(smi, reset_counts, counts, cam)
-    probe = probe_rows(smi)
+    clock("phase J")
+    segment_row = segment_paths(smi, reset_counts, counts, npz, tf, cam)
+    clock("phases A-E")
+    scan_rows = scan_training(smi, reset_counts, counts, npz, tf, cam)
+    clock("phases F-G")
+    mc_row = monte_carlo(smi, reset_counts, counts, npz, tf, cam)
+    clock("phases H-I")
+    # the phases that compute most on the host's cores, once the sources
+    # that the phases before them need are built
     world_training(smi, reset_counts, counts, npz, tf)
+    clock("phase L")
     voxel = voxel_volume(smi, reset_counts, counts)
+    clock("phase M")
     for row in [render_row] + train_rows:
         row["phase_m_launches"] = voxel["launches"][row["name"]]
     tfm, tfm_counts = tf_modes(smi, reset_counts, counts, npz, cam, mean_ms)
+    clock("phase N")
     # each TF mode's figures ride on its rows (1-6)
     keys = {"mega_fwd": ("row1_ms", "row1_err", "row1_launches"),
             "segment_fwd": ("row4_ms", "row4_err", "row4_launches"),
@@ -3711,13 +4273,58 @@ def main():
     render_row["networks_ptxas"] = {str(w): v for w, v in ptxas.items()}
     render_row["networks_trainer_launches"] = net_counts
     # the normals and shading of rows 1 and 4, row 7 in the MC walk
+    clock("phase O")
     nrm = normals(smi, reset_counts, counts, npz, tf, cam, net64)
+    clock("phase P")
     for row in (render_row, segment_row, mc_row):
         row["normals"] = nrm[row["name"]]
     # config 5, time- and ensemble-keyframed: rows 1-7 through the resolve
     kf = keyframes(smi, reset_counts, counts, npz, tf, cam, kernel_ms)
+    clock("phase Q")
     for row in [render_row, segment_row, mc_row] + train_rows + scan_rows:
         row["keyframes"] = kf[row["name"]]
+    # bench.py's configuration (rows 1-3; rows 5-6 with a bf16 table) and
+    # row 3's ray gradients
+    bench = bench_step(smi, reset_counts, counts, cam)
+    clock("phase R")
+    keys = {"mega_fwd": ("frame_ms", "row1_ms", "frame_mrays",
+                         "ns_per_sample", "samples", "culled", "plan_s",
+                         "buckets"),
+            "mega_fwd_diff": ("row2_ms", "step_ms", "step_ms_again",
+                              "step_mrays", "step_f32_table_ms",
+                              "step_t256_f32_ms"),
+            "mega_bwd": ("row3_ms", "step_ms", "oracle_max", "oracle_p99",
+                         "oracle_grad_rel", "kernel_vs_plain",
+                         "grad_rel_plain", "grid_elem_rel", "grid_leaf_rel",
+                         "plain_fwd_bwd_ms")}
+    for row in [render_row] + train_rows:
+        row["bench_config"] = {
+            arm: {k: bench[arm][k] for k in keys[row["name"]]}
+            for arm in ("dense", "sparse")}
+        row["bench_config"]["launches"] = {
+            k: v for k, v in bench["launches"].items()
+            if k.startswith(row["name"] + ":")}
+    for row in scan_rows:
+        row["bf16_table"] = bench["rows56"]
+    train_rows[1]["ray_grads"] = ray_gradients(smi, reset_counts, counts,
+                                               cam)
+    clock("phase S")
+
+    # 2, finished: every source built, each nvcc's seconds, the seconds the
+    # phases waited for one, the ptxas reports
+    secs = {name: f.result() for name, f in builds.items()}
+    done = {k: _build.FINISHED[k] - t_build for k in secs
+            if k in _build.FINISHED}
+    print(f"phase 2 build: the last source built "
+          f"{max(done.values(), default=0.0):.1f} s after the start, "
+          f"{sum(secs.values()):.1f} s of nvcc in all "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}); the "
+          f"phases waited {sum(_build.WAITED.values()):.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in _build.WAITED.items())
+          + "); built at (s after the start) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in done.items()), flush=True)
+    for name in secs:
+        print(_build.ptxas_report(name).strip(), flush=True)
 
     # 11. kernels
     print(json.dumps({"kernels": [render_row] + train_rows
@@ -3729,4 +4336,12 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except BaseException:
+        # a failed phase stops the sources still building
+        b = sys.modules.get("fvsrn_tpu_torch.ops._build")
+        if b is not None:
+            b.stop()
+        raise
+    sys.exit(code)

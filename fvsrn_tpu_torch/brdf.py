@@ -64,8 +64,10 @@ class BRDFLambert:
                    enable_phong=bool(enable_phong), light_type=light_type)
 
     def eval(self, rgb_absorption: Tensor, position: Tensor,
-             gradient: Tensor, ray_dir: Tensor) -> Tensor:
-        """Color and absorption (..., 4) -> shaded (..., 4)."""
+             gradient: Tensor, ray_dir: Tensor, b: int = 0) -> Tensor:
+        """Color and absorption (..., 4) -> shaded (..., 4). ``b``, the
+        batch entry, is taken as the JAX package takes it: the shading
+        parameters are not batched, so every entry reads the same."""
         if not (self.enable_phong or self.enable_magnitude_scaling):
             return rgb_absorption
         rgb = rgb_absorption[..., :3]

@@ -69,6 +69,29 @@ class CameraOnASphere:
                                             dtype=torch.float32),
             orientation=orientation, fov_y_radians=fov_y_radians)
 
+    @property
+    def batch(self) -> int:
+        """The larger of ``center``'s and ``pitch_yaw_distance``'s batch
+        (1 for unbatched fields)."""
+        b = 1
+        for field in (self.center, self.pitch_yaw_distance):
+            if field.ndim == 2:
+                b = max(b, field.shape[0])
+        return b
+
+    def get_parameters(self) -> Tensor:
+        """(B, 3, 3) reference frame: rows eye, right, up."""
+        return camera_matrix(self)
+
+    def get_origin(self) -> Tensor:
+        pyd = torch.atleast_2d(self.pitch_yaw_distance)
+        return euler_to_cartesian(pyd[..., 0], pyd[..., 1], pyd[..., 2],
+                                  self.orientation) \
+            + torch.atleast_2d(self.center)
+
+    def get_front(self) -> Tensor:
+        return normalize(torch.atleast_2d(self.center) - self.get_origin())
+
 
 def camera_matrix(cam: CameraOnASphere) -> Tensor:
     """(B, 3, 3) reference frame [origin; right; up]: front =

@@ -183,6 +183,48 @@ __device__ __forceinline__ void grid_corners(int gx, int gy, int gz, float x0,
   }
 }
 
+// The derivative of a trilinear fetch with respect to the normalized
+// position: `s[k]` is <d_lat, corner k's row> for grid_corners' corner
+// order, (fx, fy, fz) the lerp factors of corner_axis; each axis' factor
+// replaced by +-1, times the grid size on that axis, ADDED into g. A
+// border-clamped axis (both corners one voxel) gives zero by itself.
+__device__ __forceinline__ void trilerp_position_grad(const float* s,
+                                                      float fx, float fy,
+                                                      float fz, int gx,
+                                                      int gy, int gz,
+                                                      float* g) {
+  float l0 = 0.0f, l1 = 0.0f, l2 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int cx = k & 1, cy = (k >> 1) & 1, cz = k >> 2;
+    const float wx = cx ? fx : 1.0f - fx;
+    const float wy = cy ? fy : 1.0f - fy;
+    const float wz = cz ? fz : 1.0f - fz;
+    l0 += (cx ? s[k] : -s[k]) * wy * wz;
+    l1 += (cy ? s[k] : -s[k]) * wx * wz;
+    l2 += (cz ? s[k] : -s[k]) * wx * wy;
+  }
+  g[0] = fmaf(l0, (float)gx, g[0]);
+  g[1] = fmaf(l1, (float)gy, g[1]);
+  g[2] = fmaf(l2, (float)gz, g[2]);
+}
+
+// Four consecutive channels of a table, the `i`-th group of four (16 bytes
+// of float32, 8 of bf16), widened to float32: the training backwards read
+// a bf16 or float32 table through it (a run-time choice, uniform across
+// the launch).
+__device__ __forceinline__ float4 table_quad(const void* table, size_t i,
+                                             bool bf16) {
+  if (bf16) {
+    const uint2 q = __ldg(static_cast<const uint2*>(table) + i);
+    return make_float4(__uint_as_float(q.x << 16),
+                       __uint_as_float(q.x & 0xffff0000u),
+                       __uint_as_float(q.y << 16),
+                       __uint_as_float(q.y & 0xffff0000u));
+  }
+  return __ldg(static_cast<const float4*>(table) + i);
+}
+
 // Table element types, one 16-channel row per call: bf16 (2 x 16 bytes)
 // and float32 (4 x 16 bytes).
 struct Bf16Table {

@@ -11,13 +11,18 @@
 // head's TF (control points, or the texture, preint1d and
 // Gaussian tables; packed as the forward's weights, one partial row per
 // tile; the preint2d table's by float atomics into its own array, the one
-// leaf not bitwise reproducible) and the float32 latent table. The TF
+// leaf not bitwise reproducible) and the latent table (read float32 or
+// bf16, the JAX kernel's slab_dtype; its gradient summed in float32,
+// rounded by the wrapper). The ray-gradient instances (kRay, the JAX
+// kernel's want_ray_grads) also return each ray's start and direction
+// cotangent (sample_mlp.cuh's ray_fold); the others compile without it. The TF
 // mode is a template parameter (sample_mlp.cuh's group_segment_tf for the
 // modes other than piecewise: the previous-density chain runs through
 // the stored densities and a cotangent carried to each segment's start).
 //
-// Layout: one block per 256-ray tile, 256 threads, thread i owning ray i
-// of the tile, as the forward. Segments run in reverse from the tile's
+// Layout: one block per tile of kTile rays (256, or 128 in the _t128
+// sources), kTile threads, thread i owning ray i of the tile, as the
+// forward. Segments run in reverse from the tile's
 // last visited one (the forward stored their count and incoming carries);
 // a segment is replayed only where the forward ran it: some ray of the
 // tile has a live point in it and the STORED incoming carry passes the
@@ -25,7 +30,7 @@
 // any) keeps it. Skipped segments pass the carry cotangent through
 // unchanged.
 //
-// Per replayed segment, the tile's rays go as eight groups of 32 (warp w
+// Per replayed segment, the tile's rays go as groups of 32 (warp w
 // owns group w) through sample_mlp.cuh's group_segment: the replay of the
 // group's lattice points from the stored carries, as tiles of samples; the
 // reverse compositing recurrence per ray (fused_dvr_bwd.py:604-628, its
@@ -55,21 +60,39 @@ using namespace mega;
 using namespace smlp;
 
 struct BwdArgs {
-  const float4* carries;    // (tiles, n_seg_max, 256)
+  const float4* carries;    // (tiles, n_seg_max, kTile)
   const int* seg_count;     // (tiles,)
   const float4* d_out;      // (R,) rgba cotangent
   float* d_weights;         // (tiles, n_weights) partial rows
   int* tile_work;           // (tiles, 2): samples replayed, contributing
   Layer L;                  // the plan, dims and gradient layout
-  const float* dens_carries;  // (tiles, n_seg_max, 256) (TF modes)
+  const float* dens_carries;  // (tiles, n_seg_max, kTile) (TF modes)
+  float* d_rays;            // (R, 8) ray cotangent (kRay instances), zeroed
 };
 
 // A lattice point's position, and its ray's direction, from the group's
-// staged rays.
+// staged rays; with kRay, the lattice point's t and the tile's rays'
+// cotangent (sample_mlp.cuh's ray_fold).
+template <bool kRay>
 struct MegaSrc {
+  static constexpr bool kRayGrads = kRay;
   const March& P;      // the kernel's parameters
   const float* sray;
   float ka;
+  float* d_rays;       // the tile's first ray's row of the (R, 8) cotangent
+  __device__ __forceinline__ float t(int j) const {
+    return (ka + (float)j) * P.stepsize;
+  }
+  // ray r of the tile: its row gets [sum d_x / bsize, sum d_x t / bsize +
+  // the direction input's], in the order ray_fold calls it
+  __device__ __forceinline__ void add_ray(int r, const float* acc) const {
+    float* o = d_rays + (size_t)r * 8;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      o[c] += acc[c] / P.bsize[c];
+      o[3 + c] += acc[3 + c] / P.bsize[c] + acc[6 + c];
+    }
+  }
   __device__ __forceinline__ void pos(int rl, int j, float* x,
                                       float* d) const {
     const float* r = sray + rl * kRayF;
@@ -82,7 +105,7 @@ struct MegaSrc {
   }
 };
 
-template <int H, int TFM>
+template <int H, int TFM, bool kRay>
 __global__ void __launch_bounds__(kTile, 2) mega_bwd_kernel(const March P,
                                                             const BwdArgs A) {
   extern __shared__ float4 smem4[];
@@ -131,7 +154,9 @@ __global__ void __launch_bounds__(kTile, 2) mega_bwd_kernel(const March P,
   const Ray R = load_ray(P, reinterpret_cast<float*>(S.misc()));
   // its barrier publishes the weights and the zeroed row
 
-  MegaSrc src{P, S.sray(), 0.0f};
+  MegaSrc<kRay> src{P, S.sray(), 0.0f,
+                    kRay ? A.d_rays + (size_t)blockIdx.x * kTile * 8
+                         : nullptr};
 
   const float h = P.stepsize;
   const float segf = (float)kSegMax;
@@ -179,7 +204,7 @@ __global__ void __launch_bounds__(kTile, 2) mega_bwd_kernel(const March P,
                                    cin.w, dout.x, dout.y, dout.z, da, n_rep,
                                    n_con);
       else
-        group_segment_tf<H, kTile, MegaSrc, TFM>(
+        group_segment_tf<H, kTile, MegaSrc<kRay>, TFM>(
             A.L.D, S, A.L.G, g, src, grp, valid, first, pin, cin.w, dout.x,
             dout.y, dout.z, da, dpc, n_rep, n_con, donly);
     }
@@ -190,36 +215,51 @@ __global__ void __launch_bounds__(kTile, 2) mega_bwd_kernel(const March P,
   }
 }
 
-template <int TFM>
-int launch(const March& P, const BwdArgs& A, int n_rays, cudaStream_t st) {
+template <int TFM, bool kRay>
+int launch_instance(const March& P, const BwdArgs& A, int n_rays,
+                    cudaStream_t st) {
   constexpr int H = MEGA_WIDTH;
   const size_t smem = (size_t)A.L.pl.total;
   cudaError_t e = cudaFuncSetAttribute(
-      mega_bwd_kernel<H, TFM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      mega_bwd_kernel<H, TFM, kRay>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int blocks = n_rays / kTile;
-  if (blocks > 0) mega_bwd_kernel<H, TFM><<<blocks, kTile, smem, st>>>(P, A);
+  if (blocks > 0)
+    mega_bwd_kernel<H, TFM, kRay><<<blocks, kTile, smem, st>>>(P, A);
   return (int)cudaGetLastError();
+}
+
+// The ray-gradient instance of a TF mode only where the caller asks for
+// the rays' cotangent.
+template <int TFM>
+int launch(const March& P, const BwdArgs& A, int n_rays, cudaStream_t st) {
+  return A.d_rays != nullptr ? launch_instance<TFM, true>(P, A, n_rays, st)
+                             : launch_instance<TFM, false>(P, A, n_rays, st);
 }
 
 }  // namespace
 
 // Inputs as mega_fwd_launch's (the TF modes other than piecewise: density
-// heads of SnakeAlt networks without direction input), with a float32
-// table, plus the forward's
-// `carries` (tiles x n_seg_max x 256 float4) and `seg_count`, and the
-// rgba cotangent `d_out` (R, 4). Writes `d_weights` (tiles x n_weights
-// partial rows, packed as the weights) and `tile_work` (tiles x 2: samples
-// replayed, samples contributing), and ADDS into `d_table` (zeroed by the
-// caller). `seg_active` is the forward's mask (or null). The TF as
+// heads of SnakeAlt networks without direction input; `table` bf16 or
+// float32 by `table_f32`), plus the forward's `carries` (tiles x n_seg_max
+// x kTile float4) and `seg_count`, and the rgba cotangent `d_out` (R, 4).
+// Writes `d_weights` (tiles x n_weights partial rows, packed as the
+// weights) and `tile_work` (tiles x 2: samples replayed, samples
+// contributing), and ADDS into `d_table` ((gz, gy, gx, 16) float32 whatever
+// the table's type, zeroed by the caller). With `d_rays` ((R, 8), zeroed
+// by the caller; null: no ray gradients) the ray-gradient instance ADDS
+// each ray's start and direction cotangent into its columns 0-5 (6-7, the
+// packet's k0_ray and tmax, stay zero as the JAX kernel's rows).
+// `seg_active` is the forward's mask (or null). The TF as
 // mega_fwd_launch takes it, with the forward's `dens_carries` (TF modes);
 // preint2d ADDS its table's gradient into `d_tf2d` ((tf_points, tf_points)
 // float4, zeroed by the caller). seg must be 32.
 // Returns cudaGetLastError() (0 on success).
 extern "C" int mega_bwd_launch(
-    const float* rays, const float* table, const float* weights,
-    int n_weights, const float* carries, const int* seg_count,
+    const float* rays, const void* table, int table_f32,
+    const float* weights, int n_weights, const float* carries,
+    const int* seg_count,
     const float* d_out, float* d_weights, float* d_table, int* tile_work,
     int n_rays, int gx, int gy, int gz, int n_lat, int n_fourier,
     int n_hidden, int tf_points, int hidden, int act, float act_param,
@@ -228,7 +268,7 @@ extern "C" int mega_bwd_launch(
     float bmin_y, float bmin_z, float bsize_x, float bsize_y, float bsize_z,
     const uint8_t* seg_active, int mask_cols, int tfm, int tf_pre,
     int tf_floats, const float* tf2d, float* d_tf2d,
-    const float* dens_carries, void* stream) {
+    const float* dens_carries, float* d_rays, void* stream) {
   if (hidden != MEGA_WIDTH || seg != kSegMax || n_fourier > kMaxFourier
       || n_hidden > kMaxHidden
       || !mega_valid(act, head, tfm, tf_points, tf_pre, tf_floats, tf2d)
@@ -253,6 +293,7 @@ extern "C" int mega_bwd_launch(
   A.d_out = reinterpret_cast<const float4*>(d_out);
   A.d_weights = d_weights;
   A.tile_work = tile_work;
+  A.d_rays = d_rays;
   const int F = n_fourier, nh = n_hidden, H = MEGA_WIDTH;
   const int n_out = head_outputs(head);
   // the packed layout (mega_common.cuh's weight_offsets); the columns of
@@ -276,6 +317,7 @@ extern "C" int mega_bwd_launch(
   D.inv_range = inv_range; D.h = stepsize;
   D.gx = gx; D.gy = gy; D.gz = gz;
   D.table = table;
+  D.table_bf16 = !table_f32;
   D.d_table = d_table;
   GOut& G = A.L.G;
   G.W1 = off.W1; G.W1_k = 1; G.W1_o = K1;

@@ -9,15 +9,30 @@
 // template parameter of both (32, 48 or 64; narrower networks are
 // zero-padded by the wrapper, which is exact), one source per width
 // (mega_fwd.cu, mega_fwd48.cu, mega_fwd64.cu and the same for mega_bwd).
+// The ray tile is MEGA_TILE rays (a block's threads), 256 unless the
+// source defines 128 first (mega_fwd_t128.cu and the like, a library
+// each). The tile is part of the result, not a schedule: the early-out
+// is a saturation vote per tile (replayed by the backward), so the two
+// tiles give different images wherever the vote fires. Only 128 and 256
+// are built: the JAX package's config chooser yields multiples of 128
+// (fvsrn_tpu/ops/fused_dvr.py:choose_fused_config), its benchmark marches
+// 128-ray tiles and its product render 256-ray ones.
 #pragma once
 
 #include "march_common.cuh"
+
+#ifndef MEGA_TILE
+#define MEGA_TILE 256
+#endif
+#if MEGA_TILE != 128 && MEGA_TILE != 256
+#error "MEGA_TILE must be 128 or 256"
+#endif
 
 namespace mega {
 
 using namespace march;
 
-constexpr int kTile = 256;      // rays per block = threads per block
+constexpr int kTile = MEGA_TILE;   // rays per block = threads per block
 constexpr int kMaxFourier = 32;
 constexpr int kMaxHidden = 6;   // hidden->hidden layers
 constexpr int kMaxTf = 16;      // TF control points

@@ -18,10 +18,11 @@
 // segments and the vote; a culled or skipped segment leaves it alone, as
 // the JAX kernel's carry row 4), stored with the carries for training.
 //
-// Layout: one thread block per tile of 256 rays, in the caller's order
-// (the product path passes 16x16 pixel blocks): eight groups of 32 rays,
-// warp w owning group w (lane = ray). Per segment each warp evaluates its
-// rays' valid samples on the warp-owned sample tile (warp_mlp.cuh): the
+// Layout: one thread block per tile of kTile rays (256, or 128 in the
+// _t128 sources; mega_common.cuh), in the caller's order (the product
+// path passes 16x16 pixel blocks, bench.py's configuration 16x8): groups
+// of 32 rays, warp w owning group w (lane = ray). Per segment each warp
+// evaluates its rays' valid samples on the warp-owned sample tile (warp_mlp.cuh): the
 // samples listed ray by ray, tiles of 32 rows, every layer a TF32
 // three-pass mma.sync product (float32-accurate) with the activation in
 // its epilogue, composited in order by a segmented scan over the tile.
@@ -33,7 +34,12 @@
 // the layers' epilogue, no direction read), and one instance for every
 // other network (any activation, a switch outside the tile's layers as
 // in segment_fwd.cu; direction input), piecewise TF or rgbo heads only;
-// each table type, masked or not. The head is a runtime switch. The
+// each table type, masked or not. The head is a runtime switch. Three
+// libraries a width and tile (MEGA_PART), so that nvcc builds them in
+// parallel and the one most paths launch is ready first: SnakeAlt networks
+// without direction input on the piecewise TF (mega_fwd*.cu), the other TF
+// modes (mega_fwd_tf*.cu), every other network (mega_fwd_any*.cu, whose
+// activation switch makes its instances the costliest to compile). The
 // normals instances (MEGA_NORMALS: mega_fwd_nrm.cu, mega_fwd_nrm48.cu,
 // mega_fwd_nrm64.cu, a library each) replace the JAX kernel's render with
 // need_normals and a BRDF: the generic instance's tile, then each counting
@@ -75,6 +81,9 @@
 #ifndef MEGA_WIDTH
 #error "define MEGA_WIDTH (32, 48 or 64) before including mega_fwd.cuh"
 #endif
+#ifndef MEGA_PART
+#define MEGA_PART 0   // 0: SnakeAlt, piecewise; 1: other TF modes; 2: others
+#endif
 
 namespace {
 
@@ -83,9 +92,9 @@ using namespace wmlp;
 
 struct FwdOut {
   float* out;               // (R, 4) rgba
-  int* tile_samples;        // (R / 256,) samples evaluated per tile
-  float4* carries;          // (R / 256, n_seg_max, 256) or null
-  int* seg_count;           // (R / 256,) segments visited, or null
+  int* tile_samples;        // (R / kTile,) samples evaluated per tile
+  float4* carries;          // (R / kTile, n_seg_max, kTile) or null
+  int* seg_count;           // (R / kTile,) segments visited, or null
 };
 
 // A lattice point of a chunk from its ray's fields (sx, sy, sz, dx, dy,
@@ -153,7 +162,7 @@ __device__ __forceinline__ void stage_weights(const March& P, const FPlan& pl,
 }
 
 // The march of one tile (the kernels' body). `dens_carries` (the TF
-// modes'): (R / 256, n_seg_max, 256) last densities entering each visited
+// modes'): (R / kTile, n_seg_max, kTile) last densities entering each visited
 // segment, or null. ACT: kSnakeAlt (no direction input), or -1: any
 // activation (D.act), direction input read. With normals (`Nrm::kOn`)
 // `nd_out` ((R,) float4) takes each ray's blended normal and depth.
@@ -310,13 +319,21 @@ int launch_instance(const March& P, const FwdOut& O, const FLayer& L,
 
 // SnakeAlt networks without direction input take their TF mode's
 // instance; every other network the generic one (piecewise TF or rgbo
-// heads; mega_fwd_launch refuses the rest).
+// heads; mega_fwd_launch refuses the rest). A library holds its part's
+// instances only (MEGA_PART) and refuses the others'.
 template <typename Table, bool kMasked>
 int launch_tf(const March& P, const FwdOut& O, const FLayer& L,
               const TfArgs& T, int n_rays, cudaStream_t stream) {
-  if (P.act != kSnakeAlt || P.has_dir)
-    return launch_instance<Table, kMasked, kTfPiecewise, -1>(P, O, L, T,
-                                                             n_rays, stream);
+  const int part = T.tfm != kTfPiecewise ? 1
+                   : (P.act != kSnakeAlt || P.has_dir) ? 2 : 0;
+  if (part != MEGA_PART) return (int)cudaErrorInvalidValue;
+#if MEGA_PART == 0
+  return launch_instance<Table, kMasked, kTfPiecewise, kSnakeAlt>(
+      P, O, L, T, n_rays, stream);
+#elif MEGA_PART == 2
+  return launch_instance<Table, kMasked, kTfPiecewise, -1>(P, O, L, T,
+                                                           n_rays, stream);
+#else
   switch (T.tfm) {
     case kTfTexture:
       return launch_instance<Table, kMasked, kTfTexture, kSnakeAlt>(
@@ -327,13 +344,11 @@ int launch_tf(const March& P, const FwdOut& O, const FLayer& L,
     case kTfPreint2d:
       return launch_instance<Table, kMasked, kTfPreint2d, kSnakeAlt>(
           P, O, L, T, n_rays, stream);
-    case kTfGaussian:
+    default:
       return launch_instance<Table, kMasked, kTfGaussian, kSnakeAlt>(
           P, O, L, T, n_rays, stream);
-    default:
-      return launch_instance<Table, kMasked, kTfPiecewise, kSnakeAlt>(
-          P, O, L, T, n_rays, stream);
   }
+#endif
 }
 
 // The masked march is its own instance: the unmasked one (every render
@@ -347,9 +362,9 @@ int launch(const March& P, const FwdOut& O, const FLayer& L,
              : launch_tf<Table, false>(P, O, L, T, n_rays, stream);
 }
 
-// The tile's dims and the shared-memory plan (eight warps a block) with the
-// TF's cumulative rows, packed floats and preint2d table; false when it
-// does not fit.
+// The tile's dims and the shared-memory plan (kTile / 32 warps a block)
+// with the TF's cumulative rows, packed floats and preint2d table; false
+// when it does not fit.
 bool fill_layer(FLayer& L, const March& P, int tf_pre, int tf_floats,
                 const float* tf2d) {
   FDims& D = L.D;
@@ -427,7 +442,7 @@ extern "C" int smlp_prof_read(unsigned long long* out) {
 #endif
 
 // The shared-memory plan a launch of this width takes (warp_mlp.cuh's
-// choose_fwd_plan at eight warps) with `tf_floats` TF floats (5 a
+// choose_fwd_plan at kTile / 32 warps) with `tf_floats` TF floats (5 a
 // piecewise knot) and direction input `has_dir`: out = [bytes, warps a
 // block, matrices pre-split]. Returns 0, or -1 when it does not fit in
 // 227 KB.
@@ -453,13 +468,13 @@ extern "C" int mega_fwd_smem(int n_fourier, int n_hidden, int tf_floats,
 // rgbo heads no TF (tfm piecewise, no rows). `table` is (gz, gy, gx, 16)
 // bf16 (table_f32 = 0) or float32 (table_f32 = 1). `carries` and
 // `seg_count` may be null (the render); otherwise carries holds
-// n_seg_max x 256 float4 per tile. `seg_active` (tiles x mask_cols bytes,
+// n_seg_max x kTile float4 per tile. `seg_active` (tiles x mask_cols bytes,
 // or null) culls segments (mega_common.cuh `segment_on`). The TF: mode
 // `tfm` (march_common.cuh's TfMode), `tf_points` rows, `tf_pre` cumulative
 // rows, `tf_floats` packed floats, `tf2d` the preint2d table ((tf_points,
 // tf_points) float4); with `dens_carries` (like carries, one float) the
 // last density entering each visited segment is stored too. n_rays must be
-// a multiple of 256.
+// a multiple of kTile (this library's tile, 256 or 128).
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int mega_fwd_launch(
     const float* rays, const void* table, int table_f32, const float* weights,

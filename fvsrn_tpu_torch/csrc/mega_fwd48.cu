@@ -1,5 +1,7 @@
-// The megakernel's forward (the render and the training forward) at hidden width 48: the kernel is
-// mega_fwd.cuh; one source per width, so that nvcc builds the widths in
-// parallel, each into its own library.
+// The megakernel's forward (the render and the training forward) at hidden
+// width 48, the instances of SnakeAlt networks without direction input on the
+// piecewise TF (the product's; the other networks and TF modes are
+// mega_fwd_any48.cu and mega_fwd_tf48.cu): the kernel is mega_fwd.cuh
+// (MEGA_PART 0), a library of its own, built in parallel with the others.
 #define MEGA_WIDTH 48
 #include "mega_fwd.cuh"

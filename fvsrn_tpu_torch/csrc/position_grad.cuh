@@ -94,20 +94,11 @@ __device__ __forceinline__ void position_grad(const Seg& P, const Wts& N,
           s[k] = fmaf(d_lat[ch], row[ch], s[k]);
       }
     }
-    float l0 = 0.0f, l1 = 0.0f, l2 = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int cx = k & 1, cy = (k >> 1) & 1, cz = k >> 2;
-      const float wx = cx ? fx : 1.0f - fx;
-      const float wy = cy ? fy : 1.0f - fy;
-      const float wz = cz ? fz : 1.0f - fz;
-      l0 += (cx ? s[k] : -s[k]) * wy * wz;
-      l1 += (cy ? s[k] : -s[k]) * wx * wz;
-      l2 += (cz ? s[k] : -s[k]) * wx * wy;
-    }
-    g0 = fmaf(l0, (float)P.gx, g0);
-    g1 = fmaf(l1, (float)P.gy, g1);
-    g2 = fmaf(l2, (float)P.gz, g2);
+    g[0] = g0;
+    g[1] = g1;
+    g[2] = g2;
+    trilerp_position_grad(s, fx, fy, fz, P.gx, P.gy, P.gz, g);
+    return;
   }
   g[0] = g0;
   g[1] = g1;

@@ -20,8 +20,14 @@
 // (a = a_hi + a_lo, a_hi b_hi + a_hi b_lo + a_lo b_hi accumulated in
 // float32), which keeps every product float32-accurate. The activations,
 // their derivatives, the Fourier features and their adjoint, the trilinear
-// latent fetch and its adjoint (16-byte atomics into the table gradient)
-// stay scalar.
+// latent fetch and its adjoint (16-byte atomics into the float32 table
+// gradient; the table itself float32 or bf16, widened as it is read) stay
+// scalar.
+//
+// Ray gradients: a source type (`Src`) with kRayGrads (the megakernel's
+// ray-gradient instances) also folds each contributing row's position
+// cotangent over the segment into its ray's start and direction
+// (`ray_fold`); every other instance compiles as if it did not exist.
 //
 // Gradients: every entry of the block's partial row (packed as the
 // weights, `GOut` gives the kernel's strides) belongs to one thread (the
@@ -173,8 +179,9 @@ struct Dims {
   float p, inv_p, inv_2p;        // activation parameter, 1/p, 1/(2p)
   float density_min, inv_range, h;
   int gx, gy, gz;
-  const float* table;            // float32 (gz, gy, gx, 16 * chunks)
-  float* d_table;
+  const void* table;             // (gz, gy, gx, 16 * chunks), float32 or
+  int table_bf16;                // bf16 (table_bf16 = 1)
+  float* d_table;                // float32, like the table
   int tpre;                      // cumulative TF rows (preint1d)
   const float4* tf2d;            // the preint2d table, and its gradient
   float4* d_tf2d;
@@ -471,10 +478,10 @@ __device__ __forceinline__ void build_rows(const Dims& D, const Smem& S, const S
       if (on) {
         Corners cn;
         grid_corners(D.gx, D.gy, D.gz, x0, x1, x2, cn);
-        const float4* tb = reinterpret_cast<const float4*>(D.table);
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
-          const float4 v = __ldg(tb + (cn.row[k] * D.chunks + q) * 4 + hq);
+          const float4 v = table_quad(
+              D.table, (cn.row[k] * D.chunks + q) * 4 + hq, D.table_bf16);
           l0 = fmaf(cn.w[k], v.x, l0);
           l1 = fmaf(cn.w[k], v.y, l1);
           l2 = fmaf(cn.w[k], v.z, l2);
@@ -890,6 +897,97 @@ __device__ __forceinline__ void backward(const Dims& D, const Smem& S,
   SMLP_MARK(tb, 10);
 }
 
+// The ray gradients of the adjoint tile's rows (`Src::kRayGrads`), after
+// backward(): each row's cotangent of its normalized position x = (start
+// + t dir - bmin) / bsize, the first layer's position rows plus the
+// Fourier phases' B^T d_f plus the trilinear fetch's position derivative
+// (trilerp_position_grad against the table as the replay read it), and
+// of the direction input, its own rows plus Bd^T d_f. Per ray of group
+// `gw`, in row order, the sums of d_x, of d_x t and of the direction's go
+// to `src.add_ray` (d_start = sum d_x / bsize, d_dir = sum d_x t / bsize
+// + the direction's). Reads X and dX (hreg) as backward() left them and
+// overwrites each row's first nine dX columns; ends with a barrier.
+template <int NTH, class Src>
+__device__ __forceinline__ void ray_fold(const Dims& D, const Smem& S,
+                                         const Src& src, int gw) {
+  const int M = S.p.M, F = D.F;
+  float* dX = S.hreg();
+#pragma unroll 1
+  for (int m = threadIdx.x; m < M; m += NTH) {
+    const int e = __float_as_int(S.rows()[m * kRowF + kRowId]);
+    if (e < 0) continue;
+    const float* xr = S.X() + (size_t)m * S.p.ldx;
+    float* dr = dX + (size_t)m * S.p.ldx;
+    float gp[3], gd[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      gp[c] = dr[D.pos + c];
+      if (D.has_dir) gd[c] = dr[D.dir + c];
+    }
+#pragma unroll 1
+    for (int i = 0; i < F; ++i) {
+      const float df = dr[D.cos + i];   // backward()'s d_f
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        gp[c] = fmaf(S.B()[3 * i + c], df, gp[c]);
+        if (D.has_dir) gd[c] = fmaf(S.Bd()[3 * i + c], df, gd[c]);
+      }
+    }
+    if (D.n_lat > 0) {
+      const float x0 = xr[D.pos], x1 = xr[D.pos + 1], x2 = xr[D.pos + 2];
+      Corners cn;
+      grid_corners(D.gx, D.gy, D.gz, x0, x1, x2, cn);
+      int lo, hi;
+      float fx, fy, fz;
+      corner_axis(x0, D.gx, lo, hi, fx);
+      corner_axis(x1, D.gy, lo, hi, fy);
+      corner_axis(x2, D.gz, lo, hi, fz);
+      float sk[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sk[k] = 0.0f;
+#pragma unroll 1
+      for (int u = 0; u < 4 * D.chunks; ++u) {
+        const int q = u >> 2, hq = u & 3;
+        const float* d = dr + D.lat + kLat * q + 4 * hq;
+        const float d0 = d[0], d1 = d[1], d2 = d[2], d3 = d[3];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float4 v = table_quad(
+              D.table, (size_t)(cn.row[k] * D.chunks + q) * 4 + hq,
+              D.table_bf16);
+          sk[k] = fmaf(d0, v.x, fmaf(d1, v.y, fmaf(d2, v.z,
+                                                   fmaf(d3, v.w, sk[k]))));
+        }
+      }
+      trilerp_position_grad(sk, fx, fy, fz, D.gx, D.gy, D.gz, gp);
+    }
+    const float t = src.t(e & 31);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      dr[c] = gp[c];
+      dr[3 + c] = gp[c] * t;
+      dr[6 + c] = gd[c];
+    }
+  }
+  __syncthreads();
+  if ((threadIdx.x >> 5) == gw) {
+    const int lane = threadIdx.x & 31;
+    float acc[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    bool any = false;
+#pragma unroll 1
+    for (int m = 0; m < M; ++m) {
+      const int e = __float_as_int(S.rows()[m * kRowF + kRowId]);
+      if (e < 0 || (e >> 5) != lane) continue;
+      const float* dr = dX + (size_t)m * S.p.ldx;
+#pragma unroll
+      for (int c = 0; c < 9; ++c) acc[c] += dr[c];
+      any = true;
+    }
+    if (any) src.add_ray(gw * kGroup + lane, acc);
+  }
+  __syncthreads();
+}
+
 // ---------------------------------------------------------------------------
 // one group of rays through one segment
 
@@ -1084,6 +1182,7 @@ __device__ __forceinline__ void group_segment(const Dims& D, const Smem& S,
     __syncthreads();
     SMLP_MARK(tg, 6);
     backward<H, NTH>(D, S, G, g);
+    if constexpr (Src::kRayGrads) ray_fold<NTH>(D, S, src, gw);
     SMLP_MARK(tg, 11);
   }
 }
@@ -1282,6 +1381,7 @@ __device__ __forceinline__ void group_segment_tf(
     }
     __syncthreads();
     backward<H, NTH, TFM>(D, S, G, g);
+    if constexpr (Src::kRayGrads) ray_fold<NTH>(D, S, src, gw);
   }
 }
 

@@ -10,7 +10,9 @@
 // interior knot positions; the texture, preint1d and Gaussian tables;
 // packed as the forward's weights, one partial row per block; the preint2d
 // table's by float atomics into its own array, the one leaf not bitwise
-// reproducible) and the float32 latent table. The rays get none (the
+// reproducible) and the latent table (read float32 or bf16, its gradient
+// summed in float32 either way, rounded by the wrapper as the JAX
+// package's table_dtype cast). The rays get none (the
 // TPU's custom VJP gives them zeros). The TF mode is a template parameter
 // (sample_mlp.cuh's group_segment_tf for the modes other than piecewise,
 // density heads).
@@ -63,6 +65,7 @@ struct BwdArgs {
 // A sample's position from the group's staged rays (segment_common.cuh's
 // sample_t and sample_pos).
 struct SegSrc {
+  static constexpr bool kRayGrads = false;   // the rays get none
   const Seg& P;        // the kernel's parameters
   const float* sray;
   float s0;
@@ -224,7 +227,8 @@ extern "C" int segment_bwd_smem(int hidden, int n_fourier, int chunks,
 }
 
 // The backward of the differentiable march (no early-out). Inputs as
-// segment_fwd_launch's, with a float32 table, plus phase 0's `carries`
+// segment_fwd_launch's (`table` bf16 or float32 by `table_f32`; its
+// gradient `d_table` float32 either way), plus phase 0's `carries`
 // ((n_seg, R) float4) and `death` (R,), and the rgba cotangent `d_out` (R,
 // 4). Writes into `d_weights` (blocks x n_weights partial rows, packed as
 // the weights, zeroed by the caller) and ADDS into `d_table` (zeroed by the
@@ -234,7 +238,7 @@ extern "C" int segment_bwd_smem(int hidden, int n_fourier, int chunks,
 // gradient into `d_tf2d` ((tf_points, tf_points) float4, zeroed by the
 // caller). seg <= 32. Returns cudaGetLastError() (0 on success).
 extern "C" int segment_bwd_launch(
-    const float* rays, const float* kbase, const float* table,
+    const float* rays, const float* kbase, const void* table, int table_f32,
     const float* weights, int n_weights, const float* carries,
     const int* death, const float* d_out, float* d_weights, float* d_table,
     unsigned long long* work, int n_rays, int gx, int gy, int gz, int chunks,
@@ -286,6 +290,7 @@ extern "C" int segment_bwd_launch(
   D.inv_range = inv_range; D.h = stepsize;
   D.gx = gx; D.gy = gy; D.gz = gz;
   D.table = table;
+  D.table_bf16 = !table_f32;
   D.d_table = d_table;
   // the packed layout (segment_common.cuh's Wts)
   GOut& G = A.L.G;

@@ -1,5 +1,7 @@
 // The per-segment fused march's forward, the render's and the training
-// forward's instances (the kernels are segment_fwd.cuh).
+// forward's instances (the kernels are segment_fwd.cuh): the piecewise
+// TF's here, the other TF modes' in segment_fwd_tf.cu, which includes this
+// file with SEGMENT_TF_MODES 1.
 
 #include "segment_fwd.cuh"
 

@@ -299,9 +299,22 @@ int launch(const Seg& P, const SegOut& O, const FLayer& L, int phase,
   return (int)cudaGetLastError();
 }
 
+// The piecewise instances (segment_fwd.cu) and the other TF modes'
+// (SEGMENT_TF_MODES: segment_fwd_tf.cu) are libraries of their own, so
+// that nvcc builds them in parallel and the piecewise one, which most
+// paths launch, is ready first; a library raises the other's modes.
+#ifndef SEGMENT_TF_MODES
+#define SEGMENT_TF_MODES 0
+#endif
+
 template <int H, typename Table>
 int launch_tf(const Seg& P, const SegOut& O, const FLayer& L, int phase,
               cudaStream_t stream) {
+  if ((P.tfm != kTfPiecewise) != (SEGMENT_TF_MODES == 1))
+    return (int)cudaErrorInvalidValue;
+#if SEGMENT_TF_MODES == 0
+  return launch<H, Table, kTfPiecewise>(P, O, L, phase, stream);
+#else
   switch (P.tfm) {
     case kTfTexture:
       return launch<H, Table, kTfTexture>(P, O, L, phase, stream);
@@ -309,11 +322,10 @@ int launch_tf(const Seg& P, const SegOut& O, const FLayer& L, int phase,
       return launch<H, Table, kTfPreint1d>(P, O, L, phase, stream);
     case kTfPreint2d:
       return launch<H, Table, kTfPreint2d>(P, O, L, phase, stream);
-    case kTfGaussian:
-      return launch<H, Table, kTfGaussian>(P, O, L, phase, stream);
     default:
-      return launch<H, Table, kTfPiecewise>(P, O, L, phase, stream);
+      return launch<H, Table, kTfGaussian>(P, O, L, phase, stream);
   }
+#endif
 }
 
 template <typename Table>

@@ -26,6 +26,8 @@ import numpy as np
 import torch
 from torch import Tensor, nn
 
+from ..utils.device import constant
+
 
 def grid_sample_3d(grid: Tensor, pos01: Tensor) -> Tensor:
     """Trilinear lookup of ``grid`` (C, D, H, W), with (D, H, W) indexed
@@ -34,13 +36,13 @@ def grid_sample_3d(grid: Tensor, pos01: Tensor) -> Tensor:
     c, dd, hh, ww = grid.shape
     lead = pos01.shape[:-1]
     p = pos01.reshape(-1, 3)
-    sizes = torch.tensor([ww, hh, dd], dtype=p.dtype, device=p.device)
+    sizes = constant((ww, hh, dd), p.dtype, p.device)
     # align_corners=False: voxel centers at (i + 0.5) / S
     v = p * sizes - 0.5
     fl = torch.floor(v)
     f = v - fl
     i0 = fl.to(torch.int64)
-    maxi = torch.tensor([ww - 1, hh - 1, dd - 1], device=p.device)
+    maxi = constant((ww - 1, hh - 1, dd - 1), torch.int64, p.device)
     lo = torch.minimum(torch.clamp(i0, min=0), maxi)
     hi = torch.minimum(torch.clamp(i0 + 1, min=0), maxi)
     # channel-last rows: one (N, C) gather per corner

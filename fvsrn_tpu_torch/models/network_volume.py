@@ -44,9 +44,10 @@ class VolumeInterpolationNetwork(nn.Module):
         return not self.network.output_mode.startswith("density")
 
     def eval_density(self, position: Tensor,
-                     direction: Optional[Tensor] = None):
+                     direction: Optional[Tensor] = None, b: int = 0):
         """World position (..., 3) -> (value, is_inside). Density
-        networks give value (...,), rgbo networks (..., 4)."""
+        networks give value (...,), rgbo networks (..., 4). A network has
+        no batch; ``b`` is taken and not read, as in the JAX package."""
         lead = position.shape[:-1]
         pos01 = (position - self.box_min) / self.box_size
         inside = (pos01 >= 0).all(dim=-1) & (pos01 <= 1).all(dim=-1)
@@ -66,7 +67,7 @@ class VolumeInterpolationNetwork(nn.Module):
         return out.reshape(lead), inside
 
     def eval_normal(self, position: Tensor,
-                    direction: Optional[Tensor] = None) -> Tensor:
+                    direction: Optional[Tensor] = None, b: int = 0) -> Tensor:
         """Gradient of the density with respect to the world position,
         (..., 3); no graph is kept."""
         if self.outputs_color:

@@ -76,7 +76,7 @@ from ..models.activations import apply_activation
 from ..models.latent import grid_sample_3d, interp1d, resolve_grid
 from ..models.srn import SceneRepresentationNetwork
 from ..raytracer.dvr import RayEvaluationOutput
-from ..utils.device import strict_f32
+from ..utils.device import as_f32, constant, strict_f32
 from ..utils.vecmath import intersect_aabb
 from . import _build
 from .fused_mega import (_ACTIVATIONS, _HEADS, TfCarries, _gated_clip01,
@@ -491,9 +491,8 @@ def _check_segment_request(net, *, differentiable, need_normals,
                            iso_value, table_dtype):
     _check_normals_request(net, differentiable=differentiable,
                            need_normals=need_normals, iso_value=iso_value)
-    if differentiable and table_dtype != torch.float32:
-        raise NotImplementedError("fused_trace_dvr: the differentiable march "
-                                  "takes a float32 latent table only")
+    if table_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"unsupported latent table dtype {table_dtype}")
     if len(net.layers) < 2:
         raise ValueError("fused_trace_dvr: the network needs a hidden layer")
 
@@ -507,9 +506,8 @@ def _segment_rays(ray_start, ray_dir, box_min, box_size, h, tile, lattice,
     rs = ray_start.reshape(-1, 3).to(torch.float32)
     rd = ray_dir.reshape(-1, 3).to(torch.float32)
     dev = rs.device
-    tmin, tmax = intersect_aabb(
-        rs, rd, torch.as_tensor(box_min, dtype=torch.float32, device=dev),
-        torch.as_tensor(box_size, dtype=torch.float32, device=dev))
+    tmin, tmax = intersect_aabb(rs, rd, as_f32(box_min, dev),
+                                as_f32(box_size, dev))
     tmin = torch.clamp(tmin, min=0.0)
     if tmax_clip is not None:
         tmax = torch.minimum(tmax, tmax_clip.reshape(tmax.shape).to(
@@ -581,12 +579,14 @@ def segment_params(net, tf: Tensor, table_dtype=torch.float32) -> list:
     the Fourier matrix ((0, 3) when there is none), the latent grid (or
     None), then every layer's weight and bias. A grid of <= 16 channels is
     read rounded to ``table_dtype`` (the JAX package's neighborhood
-    table), a wider one in float32."""
+    table), a wider one in float32; the grid's gradient goes back through
+    that cast, whose backward rounds it once per cell (the JAX op's
+    ``table_dtype`` cotangent)."""
     params = _params(net, tf)
     grid = params[2]
     if (grid is not None and grid.shape[0] <= 16
             and table_dtype != torch.float32):
-        params[2] = grid.detach().to(table_dtype).to(torch.float32)
+        params[2] = grid.to(table_dtype).to(torch.float32)
     return params
 
 
@@ -875,8 +875,7 @@ def tf_shade(spec, table: Tensor, density2: Tensor,
     ``first`` marks a ray's first lattice sample. preint1d takes it
     unclipped (a negative one is none), preint2d clipped."""
     mode = spec.tf_mode
-    h = torch.tensor(spec.stepsize, dtype=torch.float32,
-                     device=density2.device)
+    h = constant(spec.stepsize, torch.float32, density2.device)
     r, rp = spec.tf_points, spec.tf_pre_rows
     d = _gated_clip01(density2)
     if mode == "gaussian":
@@ -954,7 +953,7 @@ def _plain_segment(spec, params, rays, kbase, s, carry):
     evaluated). Differentiable in ``params`` and ``carry`` with the TPU
     kernel's gradient: a sample that absorbs nothing passes none."""
     dev = rays.device
-    h = torch.tensor(spec.stepsize, dtype=torch.float32, device=dev)
+    h = constant(spec.stepsize, torch.float32, dev)
     k = (float(s * spec.seg)
          + torch.arange(spec.seg, dtype=torch.float32, device=dev))[None, :]
     a, tmx = rays[:, 6:7], rays[:, 7:8]
@@ -966,8 +965,8 @@ def _plain_segment(spec, params, rays, kbase, s, carry):
         t = a + k * h
         valid = t <= tmx
     rs, rd = rays[:, None, 0:3], rays[:, None, 3:6]
-    bmin = torch.tensor(spec.box_min, dtype=torch.float32, device=dev)
-    bsize = torch.tensor(spec.box_size, dtype=torch.float32, device=dev)
+    bmin = constant(spec.box_min, torch.float32, dev)
+    bsize = constant(spec.box_size, torch.float32, dev)
     x01 = ((rs + t[..., None] * rd - bmin) / bsize).reshape(-1, 3)
     dirs = rd.expand(-1, spec.seg, -1).reshape(-1, 3)
     net = dict(direction=spec.direction, activation=spec.activation,
@@ -1345,7 +1344,7 @@ def launch_segment(spec: SegmentSpec, net, rays: Tensor,
     gz, gy, gx = table.shape[:3]
     nf = net.input.num_fourier
     rows, *tf_args = _tf_args(spec, tf, tf_points)
-    fn = _bind(_build.load("segment_fwd"))
+    fn = _bind(_build.load("segment_fwd_tf" if tfm else "segment_fwd"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for phase in ((0,) if store_carries else (0, 1)):
@@ -1449,24 +1448,24 @@ def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                     tmax_clip: Optional[Tensor] = None,
                     time=0.0, ensemble=0.0,
                     return_stats: bool = False, **tpu_schedule):
-    """The per-segment fused march (see the module doc) of rays (R, 3),
-    R a multiple of ``tile``. CUDA tensors launch the kernel, CPU tensors
-    run :func:`fused_trace_dvr_plain`. ``n_seg`` overrides the segment
-    count (ceil(max_steps/seg), or certified in lattice mode). With
-    ``differentiable`` the result carries gradients to the network's
-    parameters and to ``tf_tensor`` (float32 table, no early-out: every
-    segment runs); the rays get none, as from the JAX package's custom
-    VJP. ``tf_mode`` (:data:`TF_MODES`) and ``tf_pre`` choose the TF as
-    in the JAX package (:func:`prepare_tf`); the gradient reaches
-    ``tf_pre`` too. ``segment_remat``/``stash_backward`` are accepted and
-    ignored (:func:`_tpu_schedule`). With ``need_normals`` (and a
-    ``brdf``) the normals instances (``csrc/segment_fwd_nrm.cu``, the
-    piecewise TF) shade the samples and blend the normal and depth.
-    ``time``/``ensemble`` condition a network with keyframed grids or
-    latent vectors (:func:`resolve_network`; the gradient reaches the
-    keyframes and vectors).
-    Returns rgba (R, 4), or ``RayEvaluationOutput`` with normals, and
-    :class:`SegmentStats` with ``return_stats``."""
+    """The per-segment fused march (see the module doc) of rays (R, 3), R a
+    multiple of ``tile``. CUDA tensors launch the kernel, CPU tensors run
+    :func:`fused_trace_dvr_plain`. ``n_seg`` overrides the segment count
+    (ceil(max_steps/seg), or certified in lattice mode). With
+    ``differentiable`` the result carries gradients to the network's parameters
+    and to ``tf_tensor`` (no early-out: every segment runs; the latent table
+    float32 or bf16 as ``table_dtype`` says, its gradient summed in float32 and
+    rounded to it once per cell); the rays get none, as from the JAX package's
+    custom VJP. ``tf_mode`` (:data:`TF_MODES`) and ``tf_pre`` choose the TF as
+    in the JAX package (:func:`prepare_tf`); the gradient reaches ``tf_pre``
+    too. ``segment_remat``/``stash_backward`` are accepted and ignored
+    (:func:`_tpu_schedule`). With ``need_normals`` (and a ``brdf``) the normals
+    instances (``csrc/segment_fwd_nrm.cu``, the piecewise TF) shade the samples
+    and blend the normal and depth. ``time``/``ensemble`` condition a network
+    with keyframed grids or latent vectors (:func:`resolve_network`; the
+    gradient reaches the keyframes and vectors). Returns rgba (R, 4), or
+    ``RayEvaluationOutput`` with normals, and :class:`SegmentStats` with
+    ``return_stats``."""
     net = resolve_network(net, time, ensemble)
     kw = dict(stepsize=stepsize, max_steps=max_steps,
               density_min=density_min, density_max=density_max,
@@ -1506,7 +1505,8 @@ def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
     elif differentiable:
         from .fused_dvr_bwd import _SegmentKernelMarch
         out, samples, stop = _SegmentKernelMarch.apply(
-            rays, kbase, spec, net, *segment_params(net, tf))
+            rays, kbase, spec, net, table_dtype,
+            *segment_params(net, tf, table_dtype))
         stats = SegmentStats(samples, stop)
     else:
         with torch.no_grad():
@@ -1525,7 +1525,8 @@ def fused_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
 def fused_trace_dvr_bucketed(ray_start: Tensor, ray_dir: Tensor, net,
                              box_min, box_size, tf_tensor: Tensor, *,
                              plan: RayBucketPlan, engine: str = "scan",
-                             march=None, **kwargs):
+                             march=None, segment_active_groups=None,
+                             **kwargs):
     """Run the engine once per bucket of ``plan`` and reassemble the
     output in the input ray order. ``engine="scan"`` is the per-segment
     engine in lattice mode (``march``: :func:`fused_trace_dvr` or its
@@ -1535,7 +1536,14 @@ def fused_trace_dvr_bucketed(ray_start: Tensor, ray_dir: Tensor, net,
     ``ensemble`` resolve the network once for all buckets. With
     ``return_stats`` the second result sums the buckets' samples and holds
     their stops as a tensor. With ``need_normals`` every field of the
-    ``RayEvaluationOutput`` is reassembled (rays of dead tiles: zeros)."""
+    ``RayEvaluationOutput`` is reassembled (rays of dead tiles: zeros).
+    ``segment_active_groups`` (mega only, as in the JAX package): one
+    (tiles, segments) occupancy mask a bucket
+    (``ops.occupancy.plan_segment_occupancy``), each going to its
+    bucket's ``segment_active``. Gradients (``differentiable``, and the
+    rays' with ``ray_grads``) pass back through the permutation."""
+    if engine == "scan" and segment_active_groups is not None:
+        raise NotImplementedError("segment_active requires engine='mega'")
     return_stats = kwargs.pop("return_stats", False)
     kwargs.pop("max_steps", None)
     net = resolve_network(net, kwargs.pop("time", 0.0),
@@ -1546,8 +1554,10 @@ def fused_trace_dvr_bucketed(ray_start: Tensor, ray_dir: Tensor, net,
     rd = ray_dir.reshape(-1, 3)[perm]
     outs, samples, stops = [], [], []
     ofs = plan.dead
-    for size, g_steps, g_seg in zip(plan.group_sizes, plan.group_steps,
-                                    plan.group_segments):
+    masks = (segment_active_groups if segment_active_groups is not None
+             else (None,) * len(plan.group_sizes))
+    for size, g_steps, g_seg, mask in zip(plan.group_sizes, plan.group_steps,
+                                          plan.group_segments, masks):
         clip = (torch.as_tensor(plan.tmax_clip[ofs:ofs + size], device=dev)
                 if plan.tmax_clip is not None else None)
         sl = slice(ofs, ofs + size)
@@ -1556,6 +1566,8 @@ def fused_trace_dvr_bucketed(ray_start: Tensor, ray_dir: Tensor, net,
             fn = march or mega_trace_dvr
             mk = {k: v for k, v in kwargs.items()
                   if k not in ("latent_mode", "n_seg")}
+            if mask is not None:
+                mk["segment_active"] = mask
             out = fn(rs[sl].contiguous(), rd[sl].contiguous(), net, box_min,
                      box_size, tf_tensor, tmax_clip=clip,
                      return_samples=return_stats, **mk)

@@ -23,7 +23,9 @@ gradient, the TF knot positions get one only strictly inside an
 interval, the density's and the heads' clips pass one only strictly
 inside, ReLU none at 0, alpha blending none where the absorption reaches 1.
 Gradients reach every layer's weight and bias, the Fourier matrix (its
-direction block too), the latent grid and the TF tensor (colors, opacity,
+direction block too), the latent grid (read from a float32 or bf16
+table; its gradient summed in float32, then rounded through the storage
+cast's backward once per cell) and the TF tensor (colors, opacity,
 knot positions; zero for the rgbo heads, which do not read it). The rays
 get none: a zero gradient, as the JAX package's custom VJP returns
 (``fvsrn_tpu/ops/fused_dvr_bwd.py:1440``).
@@ -38,6 +40,7 @@ are TF32 three-pass tensor-core products (float32-accurate).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional
 
@@ -52,11 +55,21 @@ from .fused_dvr import (_ACTIVATIONS, _HEADS, _PLAIN_CHUNK_SAMPLES,
                         pack_segment_weights, segment_table)
 from .fused_mega import TfCarries, _tf_args
 
-# kernel launches since the last reset (the plain version never counts):
-# the differentiable forward (csrc/segment_fwd.cu storing carries) and
-# the backward (csrc/segment_bwd.cu)
-SEGMENT_DIFF_LAUNCHES = 0
-SEGMENT_BWD_LAUNCHES = 0
+# kernel launches since the last reset (the plain version never counts),
+# by the latent table's type: "<kind>:<bf16|f32>"; kind is
+# segment_fwd_diff (csrc/segment_fwd.cu storing carries) or segment_bwd
+# (csrc/segment_bwd.cu)
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def launches(kind: str) -> int:
+    """Launches of ``kind`` since the last reset, over both table types."""
+    return sum(n for key, n in LAUNCHES.items()
+               if key.split(":")[0] == kind)
+
+
+def _table_key(kind: str, table: Tensor) -> str:
+    return kind + (":bf16" if table.dtype == torch.bfloat16 else ":f32")
 
 
 # ---------------------------------------------------------------------------
@@ -124,7 +137,7 @@ class _PlainSegmentMarch(torch.autograd.Function):
 def _bind_bwd(lib: ctypes.CDLL):
     fn = lib.segment_bwd_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([p, p, p, p, i, p, p, p, p, p, p] + [i] * 11 + [f]
+    fn.argtypes = ([p, p, p, i, p, i, p, p, p, p, p, p] + [i] * 11 + [f]
                    + [i] * 6 + [f] * 3 + [f] * 6 + [i] * 3 + [p] * 4)
     fn.restype = ctypes.c_int
     lib.segment_bwd_block.restype = ctypes.c_int
@@ -161,14 +174,14 @@ def launch_segment_bwd(spec: SegmentSpec, net, rays: Tensor,
                        tf: Optional[Tensor] = None,
                        d_tf2d: Optional[Tensor] = None):
     """Launch csrc/segment_bwd.cu on the forward's ``carries`` (a
-    ``fused_mega.TfCarries`` in the TF modes, whose table ``tf`` is) and
-    ``death``. Returns (packed weight gradient summed over the blocks'
-    partial rows, or with ``partial_rows`` the rows themselves, float32
-    table gradient (D, H, W, 16 * chunks), [samples replayed, samples
-    contributing] int64). preint2d adds its table's gradient into
-    ``d_tf2d`` (zeros like ``tf``). ``n_lat`` overrides the latent
-    channels whose gradient is scattered (0: none, to time the kernel
-    without its scatter)."""
+    ``fused_mega.TfCarries`` in the TF modes, whose table ``tf`` is), ``death``
+    and the latent ``table`` (float32 or bf16). Returns (packed weight gradient
+    summed over the blocks' partial rows, or with ``partial_rows`` the rows
+    themselves, float32 table gradient (D, H, W, 16 * chunks), [samples
+    replayed, samples contributing] int64). preint2d adds its table's gradient
+    into ``d_tf2d`` (zeros like ``tf``). ``n_lat`` overrides the latent
+    channels whose gradient is scattered (0: none, to time the kernel without
+    its scatter)."""
     dev = rays.device
     n_rays = rays.shape[0]
     d_out = d_out.to(torch.float32).contiguous()
@@ -182,21 +195,24 @@ def launch_segment_bwd(spec: SegmentSpec, net, rays: Tensor,
                    carries=carries, death=death, d_out=d_out)
     if spec.lattice:
         _check_tensors(dev, kbase=kbase)
-    if table.dtype != torch.float32 or d_out.shape != (n_rays, 4):
-        raise ValueError("backward: float32 table and (R, 4) cotangent")
+    if (table.dtype not in (torch.float32, torch.bfloat16)
+            or d_out.shape != (n_rays, 4)):
+        raise ValueError("backward: a float32 or bf16 table and an (R, 4) "
+                         "cotangent")
     lib = _build.load("segment_bwd")
     fn = _bind_bwd(lib)
     n_blocks = -(-n_rays // lib.segment_bwd_block())
     d_rows = torch.zeros(n_blocks, weights.numel(), dtype=torch.float32,
                          device=dev)
-    d_table = torch.zeros_like(table)
+    d_table = torch.zeros_like(table, dtype=torch.float32)
     work = torch.zeros(2, dtype=torch.int64, device=dev)
     grid = net.latent.static_grid
     gz, gy, gx = table.shape[:3]
     with torch.cuda.device(dev):
         err = fn(
             rays.data_ptr(), kbase.data_ptr() if spec.lattice else None,
-            table.data_ptr(), weights.data_ptr(), weights.numel(),
+            table.data_ptr(), int(table.dtype == torch.float32),
+            weights.data_ptr(), weights.numel(),
             carries.data_ptr(), death.data_ptr(), d_out.data_ptr(),
             d_rows.data_ptr(), d_table.data_ptr(), work.data_ptr(), n_rays,
             gx, gy, gz, _latent_chunks(net),
@@ -258,20 +274,20 @@ def unpack_segment_grads(dw: Tensor, net, params: list,
 class _SegmentKernelMarch(torch.autograd.Function):
     """The differentiable march on the card: the forward launches
     csrc/segment_fwd.cu storing the carries, the backward
-    csrc/segment_bwd.cu. Returns (rgba, samples, stop)."""
+    csrc/segment_bwd.cu, both on the latent table of ``table_dtype``.
+    Returns (rgba, samples, stop)."""
 
     @staticmethod
-    def forward(ctx, rays, kbase, spec, net, *params):
-        global SEGMENT_DIFF_LAUNCHES
+    def forward(ctx, rays, kbase, spec, net, table_dtype, *params):
         tf = params[0]
         tfk = (tf.detach().contiguous() if spec.tf_mode != "piecewise"
                else None)
         weights = pack_segment_weights(net, tf, spec.tf_mode)
-        table = segment_table(net, torch.float32, rays.device)
+        table = segment_table(net, table_dtype, rays.device)
         out, stats, carries, death = launch_segment(
             spec, net, rays, kbase, weights, table, tf.shape[0],
             store_carries=True, tf=tfk)
-        SEGMENT_DIFF_LAUNCHES += 1
+        LAUNCHES[_table_key("segment_fwd_diff", table)] += 1
         ctx.spec = spec
         ctx.net = net
         dens = None
@@ -284,7 +300,6 @@ class _SegmentKernelMarch(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_out, _d_samples, _d_stop):
-        global SEGMENT_BWD_LAUNCHES
         rays, kbase, weights, table, carries, dens, tfk, death, *params = \
             ctx.saved_tensors
         net = ctx.net
@@ -295,9 +310,9 @@ class _SegmentKernelMarch(torch.autograd.Function):
         dw, d_table, _ = launch_segment_bwd(
             ctx.spec, net, rays, kbase, weights, table, carries, death,
             d_out, params[0].shape[0], tf=tfk, d_tf2d=d_tf2d)
-        SEGMENT_BWD_LAUNCHES += 1
+        LAUNCHES[_table_key("segment_bwd", table)] += 1
         grads = unpack_segment_grads(dw, net, params, d_tf2d)
         if params[2] is not None:
             c = params[2].shape[0]
             grads[2] = d_table[..., :c].permute(3, 0, 1, 2).contiguous()
-        return (None, None, None, None, *grads)
+        return (None, None, None, None, None, *grads)

@@ -21,8 +21,9 @@ k >= the ray's own first point) and, with the early-out, while some ray
 of the tile has alpha < ``alpha_early_out`` (0.999) at the segment's
 start; and, with a ``segment_active`` mask (TF-aware empty-space culling,
 ``ops/occupancy.py``), where the mask keeps the (tile, segment).
-Each live sample: trilinear latent fetch (bf16 table for the render,
-float32 for training), Fourier features of the position (and of the ray
+Each live sample: trilinear latent fetch (a bf16 table by default for
+the render, float32 for training, either on request: ``table_dtype``),
+Fourier features of the position (and of the ray
 direction, with direction input), the MLP in float32 (any width, one
 activation for every hidden layer), the output head: a density head
 through the TF (piecewise-linear, texture, 1D- or 2D-preintegrated,
@@ -35,8 +36,17 @@ shade_samples``), the normal and depth blended with the colour's weights:
 the normals instances (``csrc/mega_fwd_nrm*.cu``, the piecewise TF) on
 the card, and the call returns ``RayEvaluationOutput``.
 
-The gradient is that of the TPU kernel's adjoint, which fixes the
-subgradients at the clips: a sample that absorbs nothing passes no
+The gradient is that of the TPU kernel's adjoint. With a bf16 table under
+training the table's gradient is summed in float32 and rounded to bf16
+once per cell (the JAX kernel's ``slab_dtype`` output), then widened into
+the grid by the cast's backward. With ``ray_grads`` the rays get theirs
+(the JAX kernel's ``want_ray_grads``): each sample's position cotangent
+(the network's position input, the Fourier features and the trilinear
+fetch's weights) folded over the segment into d_start = sum d_x / bsize
+and d_dir = sum d_x t / bsize (plus the direction input's), ``k0`` and
+``tmax`` held constant (the a.e. derivative: lattice sampling makes the
+loss a staircase in them). The gradient fixes the subgradients at the
+clips: a sample that absorbs nothing passes no
 gradient; the TF knot positions get gradients only strictly inside an
 interval; the clips of the density (0 < d < 1), of the ``:direct`` heads
 (0 < y < 1, y > 0) and ReLU's kink (y > 0) are strict. The plain versions write these gates with
@@ -53,11 +63,13 @@ with no block barrier between layers (``csrc/warp_mlp.cuh``), the
 backward, its transposed layers and weight gradients on tiles of the
 block (``csrc/sample_mlp.cuh``). The hidden width is a template
 parameter of both, one source per width (``csrc/mega_fwd.cu``, ``mega_fwd48.cu``,
-``mega_fwd64.cu`` and the same for ``mega_bwd``); narrower networks are
-zero-padded to 32, 48 or 64, which is exact.
+``mega_fwd64.cu`` and the same for ``mega_bwd``; the forward's other TF
+modes and other networks in sources of their own, :func:`_fwd_kind`);
+narrower networks are zero-padded to 32, 48 or 64, which is exact.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import NamedTuple, Optional
@@ -67,19 +79,28 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from ..models.srn import SceneRepresentationNetwork
-from ..utils.device import strict_f32
+from ..utils.device import as_f32, constant, strict_f32
 from ..utils.vecmath import intersect_aabb
 from . import _build
 
-# kernel launches since the last reset (the plain versions never count):
-# the render forward, the differentiable forward, the backward, the normals
-# render
-LAUNCHES = 0
-DIFF_LAUNCHES = 0
-BWD_LAUNCHES = 0
-NRM_LAUNCHES = 0         # the render's normals instances (need_normals)
+# kernel launches since the last reset (the plain versions never count),
+# by instance: "<kind>:t<tile>:<bf16|f32>", ":rays" after a backward's
+# ray-gradient instance; kind is mega_fwd (the render forward),
+# mega_fwd_diff (the differentiable forward), mega_bwd (the backward) or
+# mega_fwd_nrm (the render's normals instances, need_normals)
+LAUNCHES: collections.Counter = collections.Counter()
 
-KERNEL_TILE = 256
+
+def launches(kind: str) -> int:
+    """Launches of ``kind`` since the last reset, over every instance."""
+    return sum(n for key, n in LAUNCHES.items()
+               if key.split(":")[0] == kind)
+
+KERNEL_TILE = 256        # the product render's tile
+# the tiles the kernels are built for (csrc/mega_common.cuh's MEGA_TILE):
+# the tile decides the image where the vote fires, JAX's config chooser
+# yields multiples of 128, bench.py marches 128, the product render 256
+KERNEL_TILES = (128, 256)
 KERNEL_SEG = 32          # the backward kernel's segment length
 KERNEL_WIDTHS = (32, 48, 64)   # hidden widths of the kernels' instances
 LATENT_CHANNELS = 16
@@ -121,19 +142,23 @@ def ray_packet(ray_start: Tensor, ray_dir: Tensor, box_min, box_size,
                stepsize: float, tmax_clip: Optional[Tensor] = None
                ) -> Tensor:
     """(R, 8) float32: [start xyz, dir xyz, k0_ray, tmax], with k0_ray =
-    ceil(max(tmin, 0)/stepsize) and tmax clamped by ``tmax_clip``. A ray
+    ceil(max(tmin, 0)/stepsize) and tmax clamped by ``tmax_clip``; the
+    start and direction columns keep the rays' autograd graph, k0_ray and
+    tmax are detached. A ray
     leaves the box within its diagonal, so tmax is also held below
     tmin + diagonal: exact for every ray that enters the box, and a finite
     bound for degenerate ones."""
     dev = ray_start.device
     rs = ray_start.reshape(-1, 3).to(torch.float32)
     rd = ray_dir.reshape(-1, 3).to(torch.float32)
-    bmin = torch.as_tensor(box_min, dtype=torch.float32, device=dev)
-    bsize = torch.as_tensor(box_size, dtype=torch.float32, device=dev)
-    tmin, tmax = intersect_aabb(rs, rd, bmin, bsize)
+    bmin = as_f32(box_min, dev)
+    bsize = as_f32(box_size, dev)
+    # k0_ray and tmax are constants of the march (the JAX op's VJP gives
+    # them no cotangent); only start and direction carry the rays' graph
+    tmin, tmax = intersect_aabb(rs.detach(), rd.detach(), bmin, bsize)
     tmin = torch.clamp(tmin, min=0.0)
     if tmax_clip is not None:
-        tmax = torch.minimum(tmax, tmax_clip.reshape(tmax.shape).to(
+        tmax = torch.minimum(tmax, tmax_clip.detach().reshape(tmax.shape).to(
             torch.float32))
     diag = math.sqrt(sum(float(s) ** 2 for s in box_size))
     tmax = torch.minimum(tmax, tmin + (1.001 * diag + 2.0 * stepsize))
@@ -286,10 +311,12 @@ def _piecewise_rgba(tf: Tensor, density2: Tensor, h: float):
 
 
 def _tile_geometry(rays: Tensor, tile: int):
-    """(packet (T, tile, 8), k0r, tmx (T, tile), k0t (T, 1))."""
+    """(packet (T, tile, 8), k0r, tmx (T, tile), k0t (T, 1)); the packet
+    keeps the rays' graph, the lattice geometry is detached (constants of
+    the march, as in the JAX op)."""
     n_tiles = rays.shape[0] // tile
     packet = rays.reshape(n_tiles, tile, 8)
-    k0r, tmx = packet[..., 6], packet[..., 7]
+    k0r, tmx = packet[..., 6].detach(), packet[..., 7].detach()
     # the tile's lattice base: every ray counts, box-missing ones too
     k0t = torch.where(torch.isnan(k0r), torch.inf, k0r).amin(
         dim=1, keepdim=True)
@@ -343,8 +370,8 @@ def _segment(spec, params, packet, k0t, s, carry):
     from .fused_dvr import composite
     h = spec.stepsize
     dev = packet.device
-    bmin = torch.tensor(spec.box_min, dtype=torch.float32, device=dev)
-    bsize = torch.tensor(spec.box_size, dtype=torch.float32, device=dev)
+    bmin = constant(spec.box_min, torch.float32, dev)
+    bsize = constant(spec.box_size, torch.float32, dev)
     steps = torch.arange(spec.seg, dtype=torch.float32, device=dev)
     k = (k0t + float(s * spec.seg))[:, :, None] + steps
     k = k.expand(-1, packet.shape[1], -1)
@@ -410,12 +437,15 @@ def _plain_march(spec: MarchSpec, rays: Tensor, params: list, *,
 
 def _plain_backward(spec: MarchSpec, rays: Tensor, params: list,
                     carries: Tensor, count: Tensor, d_out: Tensor,
-                    mask: Optional[Tensor] = None) -> list:
-    """Gradients of ``params`` from the rgba cotangent: segments in
-    reverse, the vote replayed on the stored carries, each segment re-run
-    from its stored carry under autograd."""
+                    mask: Optional[Tensor] = None, want_rays: bool = False):
+    """(gradients of ``params``, the ray packet's (R, 8) or None) from the
+    rgba cotangent: segments in reverse, the vote replayed on the stored
+    carries, each segment re-run from its stored carry under autograd
+    (with ``want_rays`` the tiles' packets are leaves too: only their
+    start and direction columns reach the samples' positions)."""
     tile = spec.tile
     packet, k0r, tmx, k0t = _tile_geometry(rays, tile)
+    d_packet = torch.zeros_like(packet) if want_rays else None
     leaves = [None if p is None else p.detach().requires_grad_()
               for p in params]
     grads = [None if p is None else torch.zeros_like(p) for p in params]
@@ -431,16 +461,19 @@ def _plain_backward(spec: MarchSpec, rays: Tensor, params: list,
         for idx in _chunks(torch.nonzero(run).flatten(), spec):
             with torch.enable_grad():
                 cin = cs[idx].detach().requires_grad_()
-                cout, _ = _segment(spec, leaves, packet[idx], k0t[idx], s,
-                                   cin)
+                pk = packet[idx].detach().requires_grad_(want_rays)
+                cout, _ = _segment(spec, leaves, pk, k0t[idx], s, cin)
                 g = torch.autograd.grad(
-                    cout, [cin] + [leaves[i] for i in used], dcarry[idx],
+                    cout, [cin] + [leaves[i] for i in used]
+                    + ([pk] if want_rays else []), dcarry[idx],
                     allow_unused=True)
             dcarry[idx] = g[0]
-            for i, gi in zip(used, g[1:]):
+            for i, gi in zip(used, g[1:1 + len(used)]):
                 if gi is not None:
                     grads[i] += gi
-    return grads
+            if want_rays and g[-1] is not None:
+                d_packet[idx] += g[-1]
+    return grads, (d_packet.reshape(-1, 8) if want_rays else None)
 
 
 class _PlainMarch(torch.autograd.Function):
@@ -466,9 +499,10 @@ class _PlainMarch(torch.autograd.Function):
         params = list(saved)
         if not ctx.has_grid:
             params.insert(2, None)
-        grads = _plain_backward(ctx.spec, rays, params, carries, count, d_out,
-                                ctx.mask)
-        return (None, None, None, *grads)
+        grads, d_rays = _plain_backward(ctx.spec, rays, params, carries,
+                                        count, d_out, ctx.mask,
+                                        ctx.needs_input_grad[0])
+        return (d_rays, None, None, *grads)
 
 
 def mega_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
@@ -485,12 +519,13 @@ def mega_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
                          tf_mode: str = "piecewise",
                          tf_pre: Optional[Tensor] = None,
                          need_normals: bool = False, brdf=None,
-                         time=0.0, ensemble=0.0,
+                         time=0.0, ensemble=0.0, ray_grads: bool = False,
                          return_samples: bool = False):
     """Plain PyTorch version of :func:`mega_trace_dvr`: the same schedule
     vectorized over tiles and rays, a Python loop over segments; with
-    ``differentiable`` an autograd Function with the kernels' gradient;
-    with ``need_normals`` each sample's position gradient by
+    ``differentiable`` an autograd Function with the kernels' gradient
+    (and, with ``ray_grads``, the rays' through autograd of the samples'
+    positions); with ``need_normals`` each sample's position gradient by
     ``ops.fused_dvr.network_position_grad``."""
     from .fused_dvr import (_check_normals_request, prepare_tf,
                             resolve_network)
@@ -499,9 +534,8 @@ def mega_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
     _check_normals_request(net, differentiable=differentiable,
                            need_normals=need_normals, iso_value=None)
     _check_network(net)
-    if ray_start.requires_grad or ray_dir.requires_grad:
-        raise NotImplementedError("fused march: gradients with respect to "
-                                  "the rays are not ported yet")
+    ray_start, ray_dir = _ray_leaves(ray_start, ray_dir, differentiable,
+                                     ray_grads)
     rays = ray_packet(ray_start, ray_dir, box_min, box_size, stepsize,
                       tmax_clip)
     if rays.shape[0] % tile:
@@ -529,12 +563,22 @@ def mega_trace_dvr_plain(ray_start: Tensor, ray_dir: Tensor,
     return (out, samples) if return_samples else out
 
 
+def _ray_leaves(ray_start: Tensor, ray_dir: Tensor, differentiable: bool,
+                ray_grads: bool):
+    """The rays as the march reads them: their graph kept only for ray
+    gradients of a differentiable march, else detached (the JAX op gives
+    the rays a zero cotangent without ``ray_grads``)."""
+    if differentiable and ray_grads:
+        return ray_start, ray_dir
+    return ray_start.detach(), ray_dir.detach()
+
+
 def _table_dtype(table_dtype, differentiable: bool) -> torch.dtype:
+    """The latent table's type: bf16 for the render and float32 for
+    training unless the caller chooses (both take either, as the JAX
+    megakernel's ``table_dtype``)."""
     if table_dtype is None:
         return torch.float32 if differentiable else TABLE_DTYPE
-    if differentiable and table_dtype != torch.float32:
-        raise NotImplementedError("fused march: training runs with a "
-                                  "float32 latent table only")
     if table_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported latent table dtype {table_dtype}")
     return table_dtype
@@ -670,24 +714,30 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
     ``MAX_HIDDEN_LAYERS + 1`` of them, every output head, direction input,
     no latent grid or one of <= 16 channels, at most ``MAX_FOURIER``
     Fourier features; a TF mode other than piecewise on a density head of
-    a SnakeAlt network without direction input; 256-ray tiles, and for
-    the backward 32-point segments and constant rays; and a shared-memory
-    plan that fits. The normals instances take every such network with a
-    density head and the piecewise TF. Everything else raises
-    ``NotImplementedError``."""
+    a SnakeAlt network without direction input; tiles of 128 or 256 rays
+    (``KERNEL_TILES``), and for the backward 32-point segments; and a
+    shared-memory plan that fits. The normals instances take every such
+    network with a density head, the piecewise TF and 256-ray tiles.
+    Everything else raises ``NotImplementedError``."""
     from .sample_mlp import check_fwd_plan, check_plan
     if need_normals and tf_mode != "piecewise":
         raise NotImplementedError(f"CUDA kernel: normals with TF mode "
                                   f"{tf_mode!r} are not ported yet "
                                   "(piecewise only)")
-    if tile != KERNEL_TILE:
-        raise NotImplementedError(f"CUDA kernel: tile={KERNEL_TILE} only")
+    if tile not in KERNEL_TILES:
+        # the tile is part of the result (the vote is per tile); the
+        # kernels are built for the JAX chooser's and bench.py's 128 and
+        # the product render's 256
+        raise NotImplementedError(f"CUDA kernel: tiles of {KERNEL_TILES} "
+                                  f"rays only, not {tile}")
+    if need_normals and tile != KERNEL_TILE:
+        # the shaded render marches 256-ray tiles; no 128-ray normals
+        # instance is built
+        raise NotImplementedError(f"CUDA kernel: normals on tiles of "
+                                  f"{KERNEL_TILE} rays only, not {tile}")
     if rays.shape[0] % tile:
         raise ValueError(f"ray count {rays.shape[0]} must be a multiple "
                          f"of tile={tile}")
-    if rays.requires_grad:
-        raise NotImplementedError("CUDA kernel: gradients with respect to "
-                                  "the rays are not ported yet")
     hp = kernel_width(net)
     n_hidden = len(net.layers) - 2
     if n_hidden > MAX_HIDDEN_LAYERS:
@@ -723,22 +773,40 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
                    tf_mode != "piecewise")
 
 
-def _lib(kind: str, hidden: int) -> ctypes.CDLL:
-    """The library of ``kind`` ("mega_fwd" or "mega_bwd") for the padded
-    width ``hidden``: one source per width, ``csrc/mega_fwd.cu`` (32),
-    ``mega_fwd48.cu``, ``mega_fwd64.cu`` and the same for the backward."""
-    return _build.load(kind if hidden == 32 else f"{kind}{hidden}")
+def _lib(kind: str, hidden: int, tile: int = KERNEL_TILE) -> ctypes.CDLL:
+    """The library of ``kind`` ("mega_fwd", "mega_fwd_tf", "mega_fwd_any",
+    "mega_fwd_nrm" or "mega_bwd") for the padded width ``hidden`` and the
+    ray tile ``tile``: one source per width and tile, ``csrc/mega_fwd.cu``
+    (32, 256 rays), ``mega_fwd48.cu``, ``mega_fwd64.cu``,
+    ``mega_fwd_t128.cu`` (32, 128 rays), ``mega_fwd48_t128.cu``,
+    ``mega_fwd64_t128.cu`` and the same for the forward's other parts
+    (:func:`_fwd_kind`) and the backward (the normals instances on 256-ray
+    tiles only)."""
+    name = kind if hidden == 32 else f"{kind}{hidden}"
+    return _build.load(name if tile == KERNEL_TILE else f"{name}_t{tile}")
+
+
+def _fwd_kind(spec: MarchSpec, net_args: tuple) -> str:
+    """The forward's library part (csrc/mega_fwd.cuh's MEGA_PART) for this
+    march: "mega_fwd" for SnakeAlt networks without direction input on the
+    piecewise TF, "mega_fwd_tf" for the other TF modes, "mega_fwd_any" for
+    every other network."""
+    if spec.tf_mode != "piecewise":
+        return "mega_fwd_tf"
+    if net_args[1] != _ACTIVATIONS["SnakeAlt"] or net_args[4]:
+        return "mega_fwd_any"
+    return "mega_fwd"
 
 
 def device_fwd_plan(n_fourier: int, n_hidden: int, tf_points: int,
                     tf_floats: Optional[int] = None, hidden: int = 32,
-                    direction: bool = False):
+                    direction: bool = False, tile: int = KERNEL_TILE):
     """(bytes, warps a block, matrices pre-split) of the shared-memory
     plan csrc/mega_fwd.cu takes for these widths (``tf_floats`` staged TF
     floats, 5 a piecewise knot by default), or None when it does not fit
-    (the device's own ``choose_fwd_plan`` at eight warps;
+    (the device's own ``choose_fwd_plan`` at tile / 32 warps;
     ``ops.sample_mlp.fwd_plan`` mirrors it)."""
-    fn = _lib("mega_fwd", hidden).mega_fwd_smem
+    fn = _lib("mega_fwd", hidden, tile).mega_fwd_smem
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_long * 3)()
@@ -761,6 +829,13 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _count(kind: str, tile: int, table: Tensor, rays: bool = False):
+    """One launch of ``kind`` into LAUNCHES, keyed by its tile and table
+    type."""
+    dtype = "bf16" if table.dtype == torch.bfloat16 else "f32"
+    LAUNCHES[f"{kind}:t{tile}:{dtype}" + (":rays" if rays else "")] += 1
+
+
 def _bind_fwd(lib: ctypes.CDLL):
     fn = lib.mega_fwd_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -774,9 +849,9 @@ def _bind_fwd(lib: ctypes.CDLL):
 def _bind_bwd(lib: ctypes.CDLL):
     fn = lib.mega_bwd_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
-                   i, f, i, i, i, i, f, f, f, f, f, f, f, f, f, f, p, i, i,
-                   i, i, p, p, p, p]
+    fn.argtypes = [p, p, i, p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                   i, i, f, i, i, i, i, f, f, f, f, f, f, f, f, f, f, p, i,
+                   i, i, i, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -869,7 +944,8 @@ def _launch_fwd(rays: Tensor, weights: Tensor, table: Tensor, spec: MarchSpec,
     rows, *tf_args = _tf_args(spec, tf, _knots(spec, tf_points))
     gz, gy, gx = table.shape[:3]
     net_args = _net_args(spec)
-    launch = _bind_fwd(_lib("mega_fwd", net_args[0]))
+    launch = _bind_fwd(_lib(_fwd_kind(spec, net_args), net_args[0],
+                            spec.tile))
     with torch.cuda.device(dev):
         err = launch(
             rays.data_ptr(), table.data_ptr(), int(f32), weights.data_ptr(),
@@ -909,7 +985,6 @@ def _launch_nrm(rays: Tensor, net, params: list, spec: MarchSpec,
     samples per tile)."""
     from ..raytracer.dvr import RayEvaluationOutput
     from .fused_dvr import _latent_chunks, pack_segment_weights, shade_args
-    global NRM_LAUNCHES
     dev = rays.device
     n_tiles = rays.shape[0] // spec.tile
     rgba = torch.empty(rays.shape[0], 4, dtype=torch.float32, device=dev)
@@ -924,7 +999,7 @@ def _launch_nrm(rays: Tensor, net, params: list, spec: MarchSpec,
     net_args = _net_args(spec)
     gz, gy, gx = table.shape[:3]
     si, sf = shade_args(spec.brdf)
-    launch = _bind_nrm(_lib("mega_fwd_nrm", net_args[0]))
+    launch = _bind_nrm(_lib("mega_fwd_nrm", net_args[0], spec.tile))
     with torch.cuda.device(dev):
         err = launch(
             rays.data_ptr(), table.data_ptr(),
@@ -939,20 +1014,23 @@ def _launch_nrm(rays: Tensor, net, params: list, spec: MarchSpec,
     if err != 0:
         raise RuntimeError(f"mega_fwd_nrm launch failed with CUDA error "
                            f"{err}")
-    NRM_LAUNCHES += 1
+    _count("mega_fwd_nrm", spec.tile, table)
     return RayEvaluationOutput(color=rgba, depth=nd[:, 3:4],
                                normal=nd[:, :3]), samples
 
 
 def _launch_bwd(rays, weights, table, carries, count, d_out, spec,
                 n_fourier, n_hidden, tf_points, n_lat, mask=None,
-                partial_rows=False, tf=None, d_tf2d=None):
+                partial_rows=False, tf=None, d_tf2d=None,
+                ray_grads=False):
     """Launch csrc/mega_bwd.cu on the forward's ``carries`` (a
-    :class:`TfCarries` in the TF modes, whose table ``tf`` is). Returns
-    (packed weight gradient summed over tiles, or with ``partial_rows``
-    the tiles' rows, table gradient (D, H, W, 16), (tiles, 2) samples
-    replayed and contributing). preint2d adds its table's gradient into
-    ``d_tf2d`` (zeros like ``tf``)."""
+    :class:`TfCarries` in the TF modes, whose table ``tf`` is) and its
+    latent ``table`` (bf16 or float32). Returns (packed weight gradient
+    summed over tiles, or with ``partial_rows`` the tiles' rows, float32
+    table gradient (D, H, W, 16), (tiles, 2) samples replayed and
+    contributing, the rays' (R, 8) cotangent with ``ray_grads`` (the
+    ray-gradient instance; columns 6-7 zero) or None). preint2d adds its
+    table's gradient into ``d_tf2d`` (zeros like ``tf``)."""
     dev = rays.device
     n_tiles = rays.shape[0] // spec.tile
     d_out = d_out.to(torch.float32).contiguous()
@@ -963,19 +1041,24 @@ def _launch_bwd(rays, weights, table, carries, count, d_out, spec,
                          device=dev)
     d_table = torch.zeros_like(table, dtype=torch.float32)
     work = torch.empty(n_tiles, 2, dtype=torch.int32, device=dev)
+    d_rays = (torch.zeros(rays.shape[0], 8, dtype=torch.float32, device=dev)
+              if ray_grads else None)
     if (spec.tf_mode == "preint2d") != (d_tf2d is not None):
         raise ValueError("d_tf2d takes the gradient of a preint2d table")
     _check_tensors(dev, rays=rays, weights=weights, table=table,
                    carries=carries, count=count, d_out=d_out)
-    if table.dtype != torch.float32 or d_out.shape != (rays.shape[0], 4):
-        raise ValueError("backward: float32 table and (R, 4) cotangent")
+    if (table.dtype not in (torch.float32, torch.bfloat16)
+            or d_out.shape != (rays.shape[0], 4)):
+        raise ValueError("backward: a float32 or bf16 table and an (R, 4) "
+                         "cotangent")
     rows, *tf_args = _tf_args(spec, tf, _knots(spec, tf_points))
     gz, gy, gx = table.shape[:3]
     net_args = _net_args(spec)
-    launch = _bind_bwd(_lib("mega_bwd", net_args[0]))
+    launch = _bind_bwd(_lib("mega_bwd", net_args[0], spec.tile))
     with torch.cuda.device(dev):
         err = launch(
-            rays.data_ptr(), table.data_ptr(), weights.data_ptr(),
+            rays.data_ptr(), table.data_ptr(),
+            int(table.dtype == torch.float32), weights.data_ptr(),
             weights.numel(), carries.data_ptr(), count.data_ptr(),
             d_out.data_ptr(), d_rows.data_ptr(), d_table.data_ptr(),
             work.data_ptr(), rays.shape[0], gx, gy, gz, n_lat, n_fourier,
@@ -985,10 +1068,12 @@ def _launch_bwd(rays, weights, table, carries, count, d_out, spec,
             1.0 / (spec.density_max - spec.density_min), spec.early_alpha,
             *spec.box_min, *spec.box_size, *_mask_args(mask), *tf_args,
             d_tf2d.data_ptr() if d_tf2d is not None else None,
-            dens.data_ptr() if dens is not None else None, _stream(dev))
+            dens.data_ptr() if dens is not None else None,
+            d_rays.data_ptr() if d_rays is not None else None, _stream(dev))
     if err != 0:
         raise RuntimeError(f"mega_bwd launch failed with CUDA error {err}")
-    return (d_rows if partial_rows else d_rows.sum(dim=0)), d_table, work
+    return ((d_rows if partial_rows else d_rows.sum(dim=0)), d_table, work,
+            d_rays)
 
 
 def _widths(params: list) -> tuple[int, int, int, int]:
@@ -999,21 +1084,24 @@ def _widths(params: list) -> tuple[int, int, int, int]:
 
 class _KernelMarch(torch.autograd.Function):
     """The differentiable march on the card: the forward launches
-    csrc/mega_fwd.cu storing the carries, the backward csrc/mega_bwd.cu."""
+    csrc/mega_fwd.cu storing the carries, the backward csrc/mega_bwd.cu
+    (its ray-gradient instance where the rays need a gradient), both on
+    the latent table of ``table_dtype``. The table's gradient returns in
+    float32 for ``params[2]``: with a bf16 table that is the grid cast to
+    bf16 and back, whose backward rounds it once per cell."""
 
     @staticmethod
-    def forward(ctx, rays, spec, mask, *params):
+    def forward(ctx, rays, spec, mask, table_dtype, *params):
         params = list(params)
         n_fourier, n_hidden, tf_points, n_lat = _widths(params)
         tf = (params[0].detach().contiguous()
               if spec.tf_mode != "piecewise" else None)
         weights = _pack_weights(params, spec)
-        table = _kernel_table(params[2], torch.float32, rays.device)
+        table = _kernel_table(params[2], table_dtype, rays.device)
         out, samples, carries, count = _launch_fwd(
             rays, weights, table, spec, n_fourier, n_hidden, tf_points,
             n_seg_max=segments_needed(rays, spec), mask=mask, tf=tf)
-        global DIFF_LAUNCHES
-        DIFF_LAUNCHES += 1
+        _count("mega_fwd_diff", spec.tile, table)
         ctx.spec = spec
         ctx.mask = mask
         ctx.tf_mode = tf is not None
@@ -1035,15 +1123,15 @@ class _KernelMarch(torch.autograd.Function):
             carries = TfCarries(carries, dens)
         d_tf2d = (torch.zeros_like(tf) if ctx.spec.tf_mode == "preint2d"
                   else None)
-        dw, d_table, _ = _launch_bwd(
+        dw, d_table, _, d_rays = _launch_bwd(
             rays, weights, table, carries, count, d_out, ctx.spec, n_fourier,
-            n_hidden, tf_points, n_lat, ctx.mask, tf=tf, d_tf2d=d_tf2d)
-        global BWD_LAUNCHES
-        BWD_LAUNCHES += 1
+            n_hidden, tf_points, n_lat, ctx.mask, tf=tf, d_tf2d=d_tf2d,
+            ray_grads=ctx.needs_input_grad[0])
+        _count("mega_bwd", ctx.spec.tile, table, ctx.needs_input_grad[0])
         grads = _unpack_grads(dw, params, ctx.spec, d_tf2d)
         if n_lat:
             grads[2] = d_table[..., :n_lat].permute(3, 0, 1, 2).contiguous()
-        return (None, None, None, *grads)
+        return (d_rays, None, None, None, *grads)
 
 
 def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
@@ -1060,15 +1148,20 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                    tf_mode: str = "piecewise",
                    tf_pre: Optional[Tensor] = None,
                    need_normals: bool = False, brdf=None,
-                   time=0.0, ensemble=0.0,
+                   time=0.0, ensemble=0.0, ray_grads: bool = False,
                    return_samples: bool = False):
     """Fused SRN march (see the module doc). CUDA tensors launch the
     kernels, CPU tensors run :func:`mega_trace_dvr_plain`. The render
     (``differentiable=False``) reads a bf16 latent table by default; with
     ``differentiable=True`` the result carries gradients to the network's
     parameters and to ``tf_tensor`` (and ``tf_pre``), from a float32
-    table. ``tf_mode`` (``ops.fused_dvr.TF_MODES``) and ``tf_pre`` choose
-    the TF as in the JAX package (``ops.fused_dvr.prepare_tf``).
+    table by default or a bf16 one (``table_dtype``, bench.py's training
+    step), and with ``ray_grads`` to ``ray_start`` and ``ray_dir`` (else
+    the rays are detached: the JAX op gives them a zero cotangent).
+    ``tile``: 128 or 256 rays a tile (the vote is per tile, so the tile
+    is part of the image). ``tf_mode`` (``ops.fused_dvr.TF_MODES``) and
+    ``tf_pre`` choose the TF as in the JAX package
+    (``ops.fused_dvr.prepare_tf``).
     ``segment_active``: an (n_tiles, n_seg) bool occupancy mask ANDed into
     every (tile, segment)'s activity, forward and backward: a culled
     segment evaluates no sample and leaves the carry alone, the last
@@ -1090,7 +1183,7 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
               enable_early_out=enable_early_out,
               differentiable=differentiable, table_dtype=table_dtype,
               segment_active=segment_active, tf_mode=tf_mode, tf_pre=tf_pre,
-              need_normals=need_normals, brdf=brdf,
+              need_normals=need_normals, brdf=brdf, ray_grads=ray_grads,
               return_samples=return_samples)
     if ray_start.device.type == "cpu":
         return mega_trace_dvr_plain(ray_start, ray_dir, net, box_min,
@@ -1103,6 +1196,8 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
                            need_normals=need_normals, iso_value=None)
     _check_network(net)
     dev = ray_start.device
+    ray_start, ray_dir = _ray_leaves(ray_start, ray_dir, differentiable,
+                                     ray_grads)
     rays = ray_packet(ray_start, ray_dir, box_min, box_size, stepsize,
                       tmax_clip)
     tf, tf_points, tf_pre_rows = prepare_tf(tf_tensor, tf_mode, tf_pre, dev)
@@ -1128,16 +1223,21 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
             out, samples = _launch_nrm(rays, net, params, spec, table_dtype,
                                        mask)
     elif differentiable:
-        out, samples = _KernelMarch.apply(rays, spec, mask, *params)
+        if params[2] is not None and table_dtype != torch.float32:
+            # the table's gradient goes back through the storage cast,
+            # whose backward rounds it once per cell (the JAX op's
+            # slab_dtype output)
+            params[2] = params[2].to(table_dtype).to(torch.float32)
+        out, samples = _KernelMarch.apply(rays, spec, mask, table_dtype,
+                                          *params)
     else:
         with torch.no_grad():
             n_fourier, n_hidden, tf_points, _ = _widths(params)
+            table = _kernel_table(params[2], table_dtype, dev)
             out, samples, _, _ = _launch_fwd(
-                rays, _pack_weights(params, spec),
-                _kernel_table(params[2], table_dtype, dev), spec, n_fourier,
+                rays, _pack_weights(params, spec), table, spec, n_fourier,
                 n_hidden, tf_points, mask=mask,
                 tf=tf.detach().contiguous() if spec.tf_mode != "piecewise"
                 else None)
-        global LAUNCHES
-        LAUNCHES += 1
+        _count("mega_fwd", spec.tile, table)
     return (out, samples) if return_samples else out

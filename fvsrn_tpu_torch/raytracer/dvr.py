@@ -74,11 +74,12 @@ def trace_dvr(ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
               tmax_in: Optional[Tensor] = None,
               lattice: bool = False,
               checkpoint_chunk: Optional[int] = None,
-              brdf: Any = None) -> RayEvaluationOutput:
+              brdf: Any = None, b: int = 0) -> RayEvaluationOutput:
     """March rays (..., 3) through ``volume`` (``eval_density`` + box)
     with the TF ``tf`` and, where given, the BRDF ``brdf`` (its normal is
-    zero unless ``config.need_normals``). Returns rgba and depth, and the
-    alpha-blended normal when ``config.need_normals``.
+    zero unless ``config.need_normals``), each at batch entry ``b``.
+    Returns rgba and depth, and the alpha-blended normal when
+    ``config.need_normals``.
 
     ``checkpoint_chunk``: None stores every step for the backward; c >= 1
     runs the march in chunks of c steps under ``torch.utils.checkpoint``,
@@ -111,23 +112,23 @@ def trace_dvr(ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
         n = None
         if skip_tf:
             # color field: the volume gives rgbo, absorption scaled by h
-            value4 = volume.eval_density(position, ray_dir)[0]
+            value4 = volume.eval_density(position, ray_dir, b=b)[0]
             color = torch.cat([value4[..., :3], value4[..., 3:4] * h], -1)
             color = torch.where(valid, color, torch.zeros_like(color))
             density2 = prev
         else:
-            value = volume.eval_density(position, ray_dir)[0][..., None]
+            value = volume.eval_density(position, ray_dir, b=b)[0][..., None]
             density2 = (value - config.density_min) * inv_range
             require = valid & (value >= config.density_min)
             if config.need_normals:
-                n = volume.eval_normal(position, ray_dir)
+                n = volume.eval_normal(position, ray_dir, b=b)
             color = tf.eval_normalized(torch.clamp(density2[..., 0], 0, 1),
-                                       n, prev[..., 0], h)
+                                       n, prev[..., 0], h, b=b)
             color = torch.where(require, color, torch.zeros_like(color))
         if n is None and (brdf is not None or normal_acc is not None):
             n = torch.zeros_like(position)
         shaded = color if brdf is None else brdf.eval(color, position, n,
-                                                      ray_dir)
+                                                      ray_dir, b=b)
         contribute = valid & (color[..., 3:4] > 0)
         if normal_acc is None:
             new_rgb, new_alpha, new_depth = blending.blend_step(

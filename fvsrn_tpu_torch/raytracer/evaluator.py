@@ -52,9 +52,8 @@ class ImageEvaluatorSimple:
                             background=background, key=key, device=device)
 
 
-def _camera_batch(camera) -> int:
-    pyd = camera.pitch_yaw_distance
-    return pyd.shape[0] if pyd.ndim == 2 else 1
+def _batch_of(module) -> int:
+    return getattr(module, "batch", 1)
 
 
 def render_image(ev: ImageEvaluatorSimple, width: int, height: int, *,
@@ -62,6 +61,9 @@ def render_image(ev: ImageEvaluatorSimple, width: int, height: int, *,
                  background: Optional[Tensor] = None, key=None,
                  device="cuda") -> Tensor:
     """Render a (B, 8, H, W) image, one camera of the batch per entry.
+    The scene's batch is the largest of the camera's, the volume's and
+    the TF's; camera entry b traces volume and TF entry min(b, batch -
+    1).
     ``background``: an optional (1, 5, H, W) rgba + depth image; rays stop
     at its depth where its alpha > 0 ("dvr"), and it is blended under the
     result. ``key``: the host key of "mc" (default ``prng_key(42)``),
@@ -94,9 +96,10 @@ def render_image(ev: ImageEvaluatorSimple, width: int, height: int, *,
     def trace_one(b: int, rs: Tensor, rd: Tensor) -> RayEvaluationOutput:
         if ev.ray_mode == "dvr":
             return trace_dvr(rs, rd, ev.volume, tf, ev.ray_config, max_steps,
-                             tmax_in=tmax_in, brdf=ev.brdf)
+                             tmax_in=tmax_in, brdf=ev.brdf, b=b)
         if ev.ray_mode == "iso":
-            return trace_iso(rs, rd, ev.volume, ev.ray_config, max_steps)
+            return trace_iso(rs, rd, ev.volume, ev.ray_config, max_steps,
+                             b=b)
         if ev.ray_mode == "mc":
             k = prng.fold_in(key if key is not None else prng.prng_key(42),
                              b)
@@ -104,7 +107,7 @@ def render_image(ev: ImageEvaluatorSimple, width: int, height: int, *,
                             ev.ray_config, b=b)
         raise ValueError(f"unknown ray mode {ev.ray_mode}")
 
-    batch = _camera_batch(ev.camera)
+    batch = max(_batch_of(ev.camera), _batch_of(ev.volume), _batch_of(tf))
     outs = [trace_one(min(b, batch - 1) if ev.samples == 1 else 0,
                       ray_start[b], ray_dir[b])
             for b in range(ray_start.shape[0])]
@@ -148,7 +151,7 @@ class ProgressiveRenderer:
         self.reset()
 
     def reset(self):
-        self._sums = torch.zeros(_camera_batch(self.evaluator.camera), 8,
+        self._sums = torch.zeros(self.evaluator.camera.batch, 8,
                                  self.height, self.width,
                                  device=self.device)
         self.frames = 0

@@ -70,9 +70,9 @@ class RayEvaluationSteppingIso:
 
 
 def _feature_color(config: RayEvaluationSteppingIso, volume: Any,
-                   position: Tensor, ray_dir: Tensor) -> Tensor:
+                   position: Tensor, ray_dir: Tensor, b: int) -> Tensor:
     """(..., 4) color of the surface feature at the hit."""
-    curv = volume.eval_curvature(position, ray_dir)
+    curv = volume.eval_curvature(position, ray_dir, b=b)
     rng = config.isocontour_range
     tex = config.isocontour_texture.to(position.device)
     r = tex.shape[0]
@@ -96,16 +96,16 @@ def _feature_color(config: RayEvaluationSteppingIso, volume: Any,
 
 
 def _shade(config: RayEvaluationSteppingIso, volume: Any, position: Tensor,
-           ray_dir: Tensor, found: Tensor):
+           ray_dir: Tensor, found: Tensor, b: int):
     """(color, normal) at the hit: the feature's color (white when off)
     times dot(normal, ray_dir), alpha 1, zero where nothing was found."""
-    n = safe_normalize(volume.eval_normal(position, ray_dir))
+    n = safe_normalize(volume.eval_normal(position, ray_dir, b=b))
     shade = torch.sum(n * ray_dir, dim=-1, keepdim=True)
     if config.surface_feature == SURFACE_FEATURE_OFF:
         color = torch.cat([shade.expand(shade.shape[:-1] + (3,)),
                            torch.ones_like(shade)], dim=-1)
     else:
-        color = _feature_color(config, volume, position, ray_dir) * shade
+        color = _feature_color(config, volume, position, ray_dir, b) * shade
         color = torch.cat([color[..., :3], torch.ones_like(shade)], dim=-1)
     return (torch.where(found, color, torch.zeros_like(color)),
             torch.where(found, n, torch.zeros_like(n)))
@@ -114,9 +114,10 @@ def _shade(config: RayEvaluationSteppingIso, volume: Any, position: Tensor,
 @torch.no_grad()
 def refine_and_shade(ray_start: Tensor, ray_dir: Tensor, volume: Any,
                      config: RayEvaluationSteppingIso, depth: Tensor,
-                     found: Tensor) -> RayEvaluationOutput:
-    """Bisection between depth - stepsize and depth, then shading.
-    ``depth`` (..., 1) float, ``found`` (..., 1) bool."""
+                     found: Tensor, b: int = 0) -> RayEvaluationOutput:
+    """Bisection between depth - stepsize and depth, then shading, on
+    the volume's batch entry ``b``. ``depth`` (..., 1) float, ``found``
+    (..., 1) bool."""
     h = float(config.stepsize)
     iso = float(config.isovalue)
     d_out = depth - h
@@ -124,13 +125,13 @@ def refine_and_shade(ray_start: Tensor, ray_dir: Tensor, volume: Any,
     for _ in range(config.binary_search_steps):
         d_test = 0.5 * (d_out + d_in)
         value = volume.eval_density(ray_start + ray_dir * d_test,
-                                    ray_dir)[0][..., None]
+                                    ray_dir, b=b)[0][..., None]
         inside = found & (value > iso)
         depth = torch.where(inside, d_test, depth)
         d_in = torch.where(inside, d_test, d_in)
         d_out = torch.where(inside, d_out, d_test)
     color, normal = _shade(config, volume, ray_start + ray_dir * depth,
-                           ray_dir, found)
+                           ray_dir, found, b)
     return RayEvaluationOutput(color=color, depth=depth, normal=normal)
 
 
@@ -138,10 +139,10 @@ def refine_and_shade(ray_start: Tensor, ray_dir: Tensor, volume: Any,
 def trace_iso(ray_start: Tensor, ray_dir: Tensor, volume: Any,
               config: RayEvaluationSteppingIso, max_steps: int,
               tmax_in: Optional[Tensor] = None,
-              lattice: bool = False) -> RayEvaluationOutput:
-    """The plain first-hit march of rays (..., 3) through ``volume``,
-    per-ray sampling t = tmin + i*h, or the global lattice with
-    ``lattice=True``; then :func:`refine_and_shade`."""
+              lattice: bool = False, b: int = 0) -> RayEvaluationOutput:
+    """The plain first-hit march of rays (..., 3) through ``volume``'s
+    batch entry ``b``, per-ray sampling t = tmin + i*h, or the global
+    lattice with ``lattice=True``; then :func:`refine_and_shade`."""
     strict_f32()
     dtype = ray_start.dtype
     tmin, tmax = intersect_aabb(ray_start, ray_dir,
@@ -159,9 +160,10 @@ def trace_iso(ray_start: Tensor, ray_dir: Tensor, volume: Any,
         t = (k0 + float(i)) * h if lattice else tmin + float(i) * h
         valid = (t <= tmax) & ~found
         value = volume.eval_density(ray_start + ray_dir * t,
-                                    ray_dir)[0][..., None]
+                                    ray_dir, b=b)[0][..., None]
         inside = valid & (value > iso)
         depth = torch.where(inside, t, depth)
         found = found | inside
-    return refine_and_shade(ray_start, ray_dir, volume, config, depth, found)
+    return refine_and_shade(ray_start, ray_dir, volume, config, depth, found,
+                            b)
 

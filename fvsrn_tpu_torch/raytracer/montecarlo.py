@@ -235,9 +235,9 @@ def delta_tracking(key, ray_start: Tensor, ray_dir: Tensor, volume: Any,
                     [(sampler(position + offs[i], rd_)[0] - value)
                      / volume.fd_step for i in range(3)], dim=-1)
         else:
-            value, inside = volume.eval_density(position, rd_)
+            value, inside = volume.eval_density(position, rd_, b=b)
         if inloop_normals and normal is None:
-            normal = volume.eval_normal(position, rd_)
+            normal = volume.eval_normal(position, rd_, b=b)
         return value[..., None], inside[..., None], normal
 
     def body(w: _Walk, rs_, rd_, rid_) -> _Walk:
@@ -264,7 +264,7 @@ def delta_tracking(key, ray_start: Tensor, ray_dir: Tensor, volume: Any,
             normal = torch.zeros_like(position)
         density2 = (value - dmin) * inv_range
         color = tf.eval_normalized(torch.clamp(density2[..., 0], 0.0, 1.0),
-                                   normal, None, 1.0)
+                                   normal, None, 1.0, b=b)
         walking, t_out = w.valid, w.t_out
         hit_pos, hit_col, hit_nrm = w.hit_pos, w.hit_col, w.hit_nrm
         for j in range(K):
@@ -336,7 +336,7 @@ def delta_tracking(key, ray_start: Tensor, ray_dir: Tensor, volume: Any,
             out[i][cur_idx] = v
         t_out, hit_pos, hit_col, hit_nrm = out
     if need_normals and not inloop_normals:
-        hit_nrm = torch.where(t_out > 0, volume.eval_normal(hit_pos, rd),
+        hit_nrm = torch.where(t_out > 0, volume.eval_normal(hit_pos, rd, b=b),
                               hit_nrm)
     return _DeltaResult(t_out.reshape(lead + (1,)),
                         hit_pos.reshape(lead + (3,)),

@@ -6,8 +6,10 @@ PyTorch on the device of their parameters (``.to(device)`` moves them).
 ``eval_normalized(density, normal, previous_density, stepsize)`` takes a
 density already mapped to [0, 1] (``previous_density < 0``: no previous
 sample) and returns rgba whose absorption channel is already multiplied
-by the stepsize; :func:`evaluate` is the tensor-level evaluation of raw
-(N, 1) densities that world-space training and importance sampling call.
+by the stepsize. A TF's parameters may carry a leading batch axis
+(``batch``), and ``eval_normalized(..., b=)`` reads entry ``b``.
+:func:`evaluate` is the tensor-level evaluation of raw (N, 1) densities
+that world-space training and importance sampling call.
 The fused marches take the piecewise, texture (plain and preintegrated)
 and Gaussian TFs (``ops.fused_dvr.fused_tf_args``); the identity TF, and
 a Gaussian that is analytic or gradient-scaled, run in the plain
@@ -35,6 +37,18 @@ _ERF_Q = (-1.1791602954361697e-7, 0.000023547966471313185,
 
 def _scale_absorption(rgba: Tensor, stepsize) -> Tensor:
     return torch.cat([rgba[..., :3], rgba[..., 3:4] * stepsize], dim=-1)
+
+
+def _batch_of(param: Tensor, ndim: int) -> int:
+    """The batch of a TF parameter whose unbatched form has ``ndim - 1``
+    dimensions (1 when unbatched)."""
+    return param.shape[0] if param.ndim == ndim else 1
+
+
+def _entry(param: Tensor, ndim: int, b: int) -> Tensor:
+    """Batch entry ``b`` of a TF parameter (the parameter itself when
+    unbatched)."""
+    return param[b] if param.ndim == ndim else param
 
 
 def _lerp(a: Tensor, b: Tensor, t: Tensor) -> Tensor:
@@ -82,7 +96,7 @@ def _prefix_scan(op, x: Tensor, dim: int, identity: float) -> Tensor:
 
 class TransferFunctionIdentity:
     """density d -> rgb (d * emission)^3, absorption d * absorption *
-    stepsize. ``scale_absorption_emission``: (2,) [absorption,
+    stepsize. ``scale_absorption_emission``: (2,) or (B, 2) [absorption,
     emission]."""
 
     def __init__(self, scale_absorption_emission: Tensor):
@@ -101,17 +115,26 @@ class TransferFunctionIdentity:
         return torch.max(torch.atleast_2d(self.scale_absorption_emission)
                          [:, 0])
 
+    @property
+    def batch(self) -> int:
+        return _batch_of(self.scale_absorption_emission, 2)
+
+    def _params(self, b: int) -> Tensor:
+        return _entry(self.scale_absorption_emission, 2, b)
+
     def eval_normalized(self, density: Tensor, normal=None,
-                        previous_density=None, stepsize=1.0) -> Tensor:
-        p = self.scale_absorption_emission
+                        previous_density=None, stepsize=1.0,
+                        b: int = 0) -> Tensor:
+        p = self._params(b)
         d = torch.clamp(density, 0.0, 1.0)
         rgb = (d * p[1])[..., None].expand(d.shape + (3,))
         return torch.cat([rgb, (d * p[0] * stepsize)[..., None]], dim=-1)
 
 
 class TransferFunctionPiecewiseLinear:
-    """Piecewise-linear TF over control points. ``tensor`` is (R, 5):
-    [r, g, b, absorption, position], positions ascending in [0, 1]."""
+    """Piecewise-linear TF over control points. ``tensor`` is (R, 5) or
+    (B, R, 5): [r, g, b, absorption, position], positions ascending in
+    [0, 1]."""
 
     def __init__(self, tensor: Tensor):
         self.tensor = tensor
@@ -130,9 +153,17 @@ class TransferFunctionPiecewiseLinear:
     def to(self, device) -> "TransferFunctionPiecewiseLinear":
         return TransferFunctionPiecewiseLinear(self.tensor.to(device))
 
+    @property
+    def batch(self) -> int:
+        return _batch_of(self.tensor, 3)
+
+    def _params(self, b: int) -> Tensor:
+        return _entry(self.tensor, 3, b)
+
     def eval_normalized(self, density: Tensor, normal=None,
-                        previous_density=None, stepsize=1.0) -> Tensor:
-        tf = self.tensor
+                        previous_density=None, stepsize=1.0,
+                        b: int = 0) -> Tensor:
+        tf = self._params(b)
         r = tf.shape[0]
         d = torch.clamp(density, 0.0, 1.0)
         pos = tf[:, 4].contiguous()
@@ -149,11 +180,11 @@ class TransferFunctionPiecewiseLinear:
 
 
 class TransferFunctionTexture:
-    """An rgba lookup table ``tensor`` (R, 4), read with linear
-    interpolation at d * R - 0.5, indices clamped. ``preintegration_mode``
-    1 integrates the TF over the segment [previous density, density]
-    through the cumulative table ``preintegrated`` (R2 + 1, 4); mode 2
-    reads the 2D table (R2, R2, 4) of (front, back) density pairs."""
+    """An rgba lookup table ``tensor`` (R, 4) or (B, R, 4), read with linear
+    interpolation at d * R - 0.5, indices clamped. ``preintegration_mode`` 1
+    integrates the TF over the segment [previous density, density] through the
+    cumulative table ``preintegrated`` (R2 + 1, 4); mode 2 reads the 2D table
+    (R2, R2, 4) of (front, back) density pairs."""
 
     def __init__(self, tensor: Tensor, preintegrated: Optional[Tensor] = None,
                  preintegration_mode: int = 0):
@@ -171,6 +202,13 @@ class TransferFunctionTexture:
     def max_absorption(self) -> Tensor:
         return torch.max(self.tensor[..., 3])
 
+    @property
+    def batch(self) -> int:
+        return _batch_of(self.tensor, 3)
+
+    def _params(self, b: int) -> Tensor:
+        return _entry(self.tensor, 3, b)
+
     @staticmethod
     def _lookup(table: Tensor, d: Tensor) -> Tensor:
         r = table.shape[0]
@@ -184,8 +222,9 @@ class TransferFunctionTexture:
     def with_preintegration(self, resolution: int = 512
                             ) -> "TransferFunctionTexture":
         """The cumulative table V(s) = int_0^s c(d) tau(d) dd (rgb) and
-        int_0^s tau(d) dd (w) at ``resolution`` + 1 knots."""
-        tf = self.tensor
+        int_0^s tau(d) dd (w) at ``resolution`` + 1 knots, of batch
+        entry 0."""
+        tf = self._params(0)
         d = (torch.arange(resolution, dtype=torch.float32, device=tf.device)
              + 0.5) / resolution
         samples = self._lookup(tf, d)
@@ -203,8 +242,8 @@ class TransferFunctionTexture:
         """The 2D table over (front, back) density pairs: the
         transmittance-weighted emission along a linear density segment of
         length ``stepsize``, premultiplied, by ``quadrature_steps``
-        midpoint samples."""
-        tf = self.tensor
+        midpoint samples, of batch entry 0."""
+        tf = self._params(0)
         f32 = dict(dtype=torch.float32, device=tf.device)
         s = (torch.arange(resolution, **f32) + 0.5) / resolution
         sf = s[:, None, None]
@@ -224,9 +263,10 @@ class TransferFunctionTexture:
             self.tensor, torch.cat([color, alpha[..., None]], dim=-1), 2)
 
     def eval_normalized(self, density: Tensor, normal=None,
-                        previous_density=None, stepsize=1.0) -> Tensor:
+                        previous_density=None, stepsize=1.0,
+                        b: int = 0) -> Tensor:
         d = torch.clamp(density, 0.0, 1.0)
-        plain = _scale_absorption(self._lookup(self.tensor, d), stepsize)
+        plain = _scale_absorption(self._lookup(self._params(b), d), stepsize)
         if self.preintegration_mode == 0 or previous_density is None:
             return plain
         prev = torch.where(previous_density < 0, d, previous_density)
@@ -266,9 +306,10 @@ class TransferFunctionTexture:
 
 
 class TransferFunctionGaussian:
-    """A sum of Gaussians, ``tensor`` (R, 6): [r, g, b, opacity, mean,
-    variance] (the last column is used as sigma). ``analytic`` integrates
-    each Gaussian over [previous density, density] with erf;
+    """A sum of Gaussians, ``tensor`` (R, 6) or (B, R, 6): [r, g, b,
+    opacity, mean, variance] (the last column is used as sigma).
+    ``analytic`` integrates each Gaussian over [previous density,
+    density] with erf;
     ``scale_with_gradient`` scales sigma by max(1e-5, |normal| / 10)."""
 
     def __init__(self, tensor: Tensor, analytic: bool = False,
@@ -286,9 +327,17 @@ class TransferFunctionGaussian:
         return torch.sum(torch.clamp(self.tensor[..., 3], min=0.0), dim=-1
                          ).max()
 
+    @property
+    def batch(self) -> int:
+        return _batch_of(self.tensor, 3)
+
+    def _params(self, b: int) -> Tensor:
+        return _entry(self.tensor, 3, b)
+
     def eval_normalized(self, density: Tensor, normal=None,
-                        previous_density=None, stepsize=1.0) -> Tensor:
-        tf = self.tensor
+                        previous_density=None, stepsize=1.0,
+                        b: int = 0) -> Tensor:
+        tf = self._params(b)
         d = torch.clamp(density, 0.0, 1.0)[..., None]
         ci, mu, sigma = tf[:, :4], tf[:, 4], tf[:, 5]
         if self.scale_with_gradient:

@@ -123,7 +123,10 @@ class VolumeInterpolationGrid:
                  old_resolution_behavior: bool = False):
         if interpolation not in SAMPLERS:
             raise ValueError(f"unknown interpolation {interpolation!r}")
-        self.data = data
+        # row-major, so that the gathers' flattening is a view: a volume
+        # file's array arrives transposed, and flattening that copies the
+        # whole grid at every gather
+        self.data = data.contiguous()
         self.box_min = box_min
         self.box_size = box_size
         self.interpolation = interpolation

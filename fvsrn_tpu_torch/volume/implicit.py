@@ -188,8 +188,10 @@ class VolumeInterpolationImplicit:
                                            self.box_min.to(device),
                                            self.box_size.to(device))
 
-    def eval_density(self, position: Tensor, direction=None):
-        """World position (..., 3) -> (density (...,), is_inside)."""
+    def eval_density(self, position: Tensor, direction=None, b: int = 0):
+        """World position (..., 3) -> (density (...,), is_inside); an
+        implicit volume has no batch, so ``b`` is read as the JAX package
+        reads it: not at all."""
         fn, smin, smax = IMPLICIT_EQUATIONS[self.equation]
         inside = ((position >= self.box_min).all(dim=-1)
                   & (position <= self.box_min + self.box_size).all(dim=-1))
@@ -197,7 +199,7 @@ class VolumeInterpolationImplicit:
         p = p01 * (smax - smin) + smin
         return fn(p[..., 0], p[..., 1], p[..., 2]), inside
 
-    def eval_normal(self, position: Tensor, direction=None,
+    def eval_normal(self, position: Tensor, direction=None, b: int = 0,
                     step: float = 1e-3) -> Tensor:
         """Central-difference density gradient (..., 3), step ``step``."""
         offs = torch.eye(3, dtype=position.dtype,

@@ -104,12 +104,12 @@ def test_mega_kernel_matches_plain(which, early_out):
     args = (rs, rd, net, *BOX, tf.tensor.cuda())
     kw = dict(stepsize=1 / 128, tmax_clip=clip, enable_early_out=early_out,
               return_samples=True)
-    before = fused_mega.LAUNCHES
+    before = fused_mega.launches("mega_fwd")
     got, samples = fused_mega.mega_trace_dvr(*args, **kw)
     torch.cuda.synchronize()
-    assert fused_mega.LAUNCHES == before + 1
+    assert fused_mega.launches("mega_fwd") == before + 1
     want, samples_plain = fused_mega.mega_trace_dvr_plain(*args, **kw)
-    assert fused_mega.LAUNCHES == before + 1
+    assert fused_mega.launches("mega_fwd") == before + 1
     assert float(want[:, 3].max()) > 0.5
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
     assert torch.equal(samples.long(), samples_plain)
@@ -182,12 +182,13 @@ def kernel_and_plain_grads(net, tf, rays, spec, mask=None):
     for fn in (fused_mega._KernelMarch, fused_mega._PlainMarch):
         net.zero_grad(set_to_none=True)
         tf_leaf = tf.clone().requires_grad_(True)
-        before = fused_mega.BWD_LAUNCHES
-        img, _ = fn.apply(rays, spec, mask,
+        before = fused_mega.launches("mega_bwd")
+        table = ((torch.float32,) if fn is fused_mega._KernelMarch else ())
+        img, _ = fn.apply(rays, spec, mask, *table,
                           *fused_mega._params(net, tf_leaf))
         (img * w).sum().backward()
         torch.cuda.synchronize()
-        launched = fused_mega.BWD_LAUNCHES - before
+        launched = fused_mega.launches("mega_bwd") - before
         assert launched == (1 if fn is fused_mega._KernelMarch else 0)
         g = {n: p.grad.clone() for n, p in net.named_parameters()}
         g["tf"] = tf_leaf.grad.clone()
@@ -291,10 +292,10 @@ def test_mega_networks_match_plain(case):
         1.0, 2.2, generator=torch.Generator("cuda").manual_seed(0))
     args = (rs, rd, net, *BOX, dense_scene()[1].tensor.cuda())
     kw = dict(stepsize=1 / 128, tmax_clip=clip, return_samples=True)
-    before = fused_mega.LAUNCHES
+    before = fused_mega.launches("mega_fwd")
     got, samples = fused_mega.mega_trace_dvr(*args, **kw)
     torch.cuda.synchronize()
-    assert fused_mega.LAUNCHES == before + 1
+    assert fused_mega.launches("mega_fwd") == before + 1
     want, samples_plain = fused_mega.mega_trace_dvr_plain(*args, **kw)
     assert float(want[:, 3].max()) > 0.2
     atol, gtol = ATOL, {}
@@ -499,18 +500,218 @@ def test_mega_kernel_rejects_what_it_does_not_take(net_kw, tile):
                                         differentiable=True)
     fused_mega._check_kernel_inputs(random_net(width=48), rays, 256,
                                     tf_floats=1024, tf_mode="texture")
+    for tile in fused_mega.KERNEL_TILES:   # bench.py's 128, the render's 256
+        fused_mega._check_kernel_inputs(random_net(width=64), rays, tile,
+                                        differentiable=True)
 
 
 @pytest.mark.parametrize("case", ["ray_grads", "seg"])
 def test_mega_backward_rejects_what_it_does_not_take(case):
-    """The backward kernel takes no ray gradients and 32-point segments."""
+    """The backward kernel takes 32-point segments only; rays that carry a
+    gradient (its ray-gradient instances) it takes, on both tiles."""
     rays = torch.zeros(512, 8, requires_grad=(case == "ray_grads"))
-    seg = 16 if case == "seg" else 32
-    with pytest.raises(NotImplementedError):
-        fused_mega._check_kernel_inputs(random_net(), rays, 256, seg,
+    if case == "seg":
+        with pytest.raises(NotImplementedError):
+            fused_mega._check_kernel_inputs(random_net(), rays, 256, 16,
+                                            differentiable=True)
+    for tile in fused_mega.KERNEL_TILES:
+        fused_mega._check_kernel_inputs(random_net(), rays, tile, 32,
                                         differentiable=True)
-    fused_mega._check_kernel_inputs(random_net(), rays.detach(), 256, 32,
-                                    differentiable=True)
+
+
+# ---------------------------------------------------------------------------
+# bench.py's configuration (tile 128, a bf16 table under training) and the
+# ray gradients of row 3
+
+
+def bench_case(which, width=64, tile=128):
+    """(rays, ray direction, net, tf, clip) of a width^2 view in bench.py's
+    16x8 pixel blocks, a clip that kills one ray of the second tile (so a
+    256-ray tile holding it never votes stop)."""
+    net = case_net(which)
+    rs, rd = generate_rays(CameraOnASphere.make(pitch=0.3, yaw=0.5,
+                                                distance=1.3),
+                           width, width, device="cuda")
+    perm, _ = block_ray_permutation(width, width, 16, 8, device="cuda")
+    rs = rs.reshape(-1, 3)[perm].contiguous()
+    rd = rd.reshape(-1, 3)[perm].contiguous()
+    clip = torch.empty(rs.shape[0], device="cuda").uniform_(
+        1.0, 2.2, generator=torch.Generator("cuda").manual_seed(0))
+    clip[tile + 72] = 0.0
+    return rs, rd, net, dense_scene()[1].tensor.cuda(), clip
+
+
+@pytest.mark.parametrize("which", ["random", "flagship", "width64"])
+@pytest.mark.parametrize("early_out", [True, False])
+def test_mega_tile128_render_matches_plain(which, early_out):
+    """Row 1 on 128-ray tiles (the _t128 libraries): image and samples
+    against the plain version, at tile 256 too; the two tiles' kernels
+    differ from each other as the plain versions do (where the vote fires
+    elsewhere; tests/test_torch_bench_config.py shows that it does)."""
+    needs_card()
+    rs, rd, net, tf, clip = bench_case(which)
+    args = (rs, rd, net, *BOX, tf)
+    out = {}
+    for tile in (128, 256):
+        kw = dict(stepsize=1 / 128, tmax_clip=clip, tile=tile,
+                  enable_early_out=early_out, alpha_early_out=0.95,
+                  return_samples=True)
+        before = fused_mega.launches("mega_fwd")
+        got, samples = fused_mega.mega_trace_dvr(*args, **kw)
+        torch.cuda.synchronize()
+        assert fused_mega.launches("mega_fwd") == before + 1
+        want, samples_plain = fused_mega.mega_trace_dvr_plain(*args, **kw)
+        assert float(want[:, 3].max()) > 0.5
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+        assert torch.equal(samples.long(), samples_plain)
+        out[tile] = (got, want)
+    (k128, p128), (k256, p256) = out[128], out[256]
+    torch.testing.assert_close(k128 - k256, p128 - p256, rtol=0,
+                               atol=2 * ATOL)
+
+
+@pytest.mark.parametrize("which", ["random", "nogrid", "flagship"])
+@pytest.mark.parametrize("table", ["bf16", "f32"])
+@pytest.mark.parametrize("early_out", [True, False])
+def test_mega_tile128_training_matches_plain(which, table, early_out):
+    """Rows 2-3 in bench.py's configuration: tile 128, seg 32, the bf16
+    table under training (and the float32 one): image <= 1e-4, every
+    leaf within a relative norm error of 1e-3, a bf16 grid's gradient per
+    element (``bf16_grid_close``). One launch of each kernel."""
+    needs_card()
+    rs, rd, net, tf, clip = bench_case(which)
+    dtype = torch.bfloat16 if table == "bf16" else torch.float32
+    w = torch.empty(rs.shape[0], 4, device="cuda").uniform_(
+        -1, 1, generator=torch.Generator("cuda").manual_seed(1))
+    got = {}
+    for fn in (fused_mega.mega_trace_dvr, fused_mega.mega_trace_dvr_plain):
+        net.zero_grad(set_to_none=True)
+        tf_leaf = tf.clone().requires_grad_(True)
+        before = (fused_mega.launches("mega_fwd_diff"),
+                  fused_mega.launches("mega_bwd"))
+        img = fn(rs, rd, net, *BOX, tf_leaf, stepsize=1 / 128,
+                 tmax_clip=clip, tile=128, enable_early_out=early_out,
+                 differentiable=True, table_dtype=dtype)
+        (img * w).sum().backward()
+        torch.cuda.synchronize()
+        launched = (fused_mega.launches("mega_fwd_diff") - before[0],
+                    fused_mega.launches("mega_bwd") - before[1])
+        assert launched == ((1, 1) if fn is fused_mega.mega_trace_dvr
+                            else (0, 0))
+        g = {n: p.grad.clone() for n, p in net.named_parameters()}
+        g["tf"] = tf_leaf.grad.clone()
+        got[fn] = (img.detach(), g)
+    (img_k, g_k), (img_p, g_p) = got.values()
+    assert float(img_p[:, 3].max()) > 0.5
+    torch.testing.assert_close(img_k, img_p, rtol=0, atol=ATOL)
+    for name in g_p:
+        if name == "latent.static_grid" and table == "bf16":
+            bf16_grid_close(g_k[name], g_p[name])
+        else:
+            assert rel_err(g_k[name], g_p[name]) <= 1e-3, name
+
+
+class position_noise:
+    """Within the block, ``fused_mega.ray_packet`` multiplies each ray's
+    start and direction columns by (1 + NOISE_EPS * N(0, 1)) after k0 and
+    tmax are taken: the samples' positions move by about an ulp, the
+    lattice does not. A ray's gradient takes each sample's trilinear
+    derivative, which jumps where a sample crosses a latent cell's face,
+    so an ulp moves it: the plain version's own change under this noise
+    is the float32 floor of a kernel-vs-plain comparison."""
+
+    def __enter__(self):
+        self.orig = fused_mega.ray_packet
+        gen = torch.Generator("cuda").manual_seed(5)
+
+        def noisy(*args, **kw):
+            p = self.orig(*args, **kw)
+            scale = torch.ones_like(p)
+            scale[:, :6] += NOISE_EPS * torch.randn(
+                p[:, :6].shape, device=p.device, generator=gen)
+            return p * scale
+        fused_mega.ray_packet = noisy
+
+    def __exit__(self, *exc):
+        fused_mega.ray_packet = self.orig
+
+
+def ray_grads_of(march, rs, rd, net, tf, ray_grads=True, **kw):
+    """(d ray_start, d ray_dir, {leaf: gradient}) of loss = mean(rgba^2)."""
+    net.zero_grad(set_to_none=True)
+    rs = rs.clone().requires_grad_(True)
+    rd = rd.clone().requires_grad_(True)
+    img = march(rs, rd, net, *BOX, tf, stepsize=1 / 128, differentiable=True,
+                ray_grads=ray_grads, **kw)
+    (img ** 2).mean().backward()
+    torch.cuda.synchronize()
+    return rs.grad, rd.grad, {n: p.grad.clone()
+                              for n, p in net.named_parameters()}
+
+
+@pytest.mark.parametrize("which", ["random", "flagship", "direction"])
+@pytest.mark.parametrize("tile", [128, 256])
+@pytest.mark.parametrize("table", ["bf16", "f32"])
+def test_mega_ray_grads_match_plain(which, tile, table):
+    """Row 3's ray-gradient instances: d ray_start and d ray_dir within a
+    relative norm error of 1e-3 of the plain version's, or of NOISE_FLIP
+    times the plain version's own change under an ulp of position noise
+    (``position_noise``) where that is larger; the weights' gradients
+    equal (1e-6 relative) to the same kernel pair's without the flag,
+    which leaves the rays without a gradient."""
+    needs_card()
+    rs, rd, net, tf, clip = bench_case(
+        "random" if which == "direction" else which, tile=tile)
+    if which == "direction":
+        net = random_net(direction=True, output_mode="density").cuda()
+    kw = dict(tmax_clip=clip, tile=tile, enable_early_out=True,
+              table_dtype=torch.bfloat16 if table == "bf16"
+              else torch.float32)
+    before = fused_mega.launches("mega_bwd")
+    k_rs, k_rd, k_g = ray_grads_of(fused_mega.mega_trace_dvr, rs, rd, net,
+                                   tf, **kw)
+    p_rs, p_rd, _ = ray_grads_of(fused_mega.mega_trace_dvr_plain, rs, rd,
+                                 net, tf, **kw)
+    with position_noise():
+        q_rs, q_rd, _ = ray_grads_of(fused_mega.mega_trace_dvr_plain, rs,
+                                     rd, net, tf, **kw)
+    floor = NOISE_FLIP * max(rel_err(q_rs, p_rs), rel_err(q_rd, p_rd))
+    n_rs, n_rd, n_g = ray_grads_of(fused_mega.mega_trace_dvr, rs, rd, net,
+                                   tf, ray_grads=False, **kw)
+    assert fused_mega.launches("mega_bwd") == before + 2
+    assert n_rs is None and n_rd is None
+    tol = max(1e-3, floor)
+    assert rel_err(k_rs, p_rs) <= tol and rel_err(k_rd, p_rd) <= tol, (
+        rel_err(k_rs, p_rs), rel_err(k_rd, p_rd), floor)
+    for name in n_g:
+        if name == "latent.static_grid":   # atomics: another order a run
+            assert rel_err(k_g[name], n_g[name]) <= 1e-5, name
+        else:
+            assert rel_err(k_g[name], n_g[name]) <= 1e-6, name
+
+
+def test_mega_ray_grads_camera_matrix_matches_plain():
+    """The camera matrix's gradient through generate_rays and row 3's
+    ray-gradient instance, against the plain version (relative norm
+    1e-3), on a 64x64 view of the flagship."""
+    needs_card()
+    from fvsrn_tpu_torch.camera import camera_matrix
+    net = case_net("flagship")
+    tf = dense_scene()[1].tensor.cuda()
+    cam = CameraOnASphere.make(pitch=0.25, yaw=0.7, distance=1.6)
+    got = []
+    for march in (fused_mega.mega_trace_dvr, fused_mega.mega_trace_dvr_plain):
+        m = camera_matrix(cam).cuda().requires_grad_(True)
+        rs, rd = generate_rays(m, 64, 64, cam.fov_y_radians)
+        perm, _ = block_ray_permutation(64, 64, 16, 16, device="cuda")
+        img = march(rs.reshape(-1, 3)[perm], rd.reshape(-1, 3)[perm], net,
+                    *BOX, tf, stepsize=1 / 128, differentiable=True,
+                    ray_grads=True, enable_early_out=False)
+        (img ** 2).mean().backward()
+        torch.cuda.synchronize()
+        got.append(m.grad)
+    assert float(got[1].abs().max()) > 1e-4
+    assert rel_err(got[0], got[1]) <= 1e-3
 
 
 SEGMENT_CASES = {
@@ -578,8 +779,21 @@ def test_segment_kernel_rejects_what_it_does_not_take(net_kw):
 
 # the per-segment engine's differentiable pair over SEGMENT_CASES: a float32
 # table (the bf16 cases train on float32), no iso march
-SEGMENT_GRAD_CASES = sorted(set(SEGMENT_CASES) - {"flagship_bf16_table",
-                                                  "iso"})
+SEGMENT_GRAD_CASES = sorted(set(SEGMENT_CASES) - {"iso"})
+BF16_GRID_REL = 2.0 ** -7   # two bf16 ulps: one float32 sum rounded apart
+
+
+def bf16_grid_close(got, want, floor=2e-4):
+    """A bf16 table's gradient, the float32 sum rounded to bf16 once per
+    cell, on the card and in the plain version: every element within
+    2^-7 of its value (a sum summed in another order may round to the
+    neighbouring bf16 value) plus ``floor`` of the leaf's largest (the
+    float32 contract, for sums that cancel). Both are bf16 values."""
+    assert torch.equal(got, got.to(torch.bfloat16).float())
+    assert torch.equal(want, want.to(torch.bfloat16).float())
+    bound = BF16_GRID_REL * want.abs() + floor * float(want.abs().max())
+    assert bool(((got - want).abs() <= bound).all()), float(
+        ((got - want).abs() - bound).max())
 
 
 @pytest.mark.parametrize("case", SEGMENT_GRAD_CASES)
@@ -599,6 +813,8 @@ def test_segment_grad_kernel_matches_plain(case):
                            60, 44, device="cuda")
     kw = dict(dict(stepsize=1 / 128, max_steps=222, seg=32, tile=128),
               **spec.get("kw", {}), differentiable=True)
+    if "table_dtype" in spec:
+        kw["table_dtype"] = spec["table_dtype"]
     rs, rd, _ = pad_rays(rs.reshape(-1, 3), rd.reshape(-1, 3), kw["tile"])
     w = torch.empty(rs.shape[0], 4, device="cuda").uniform_(
         -1, 1, generator=torch.Generator("cuda").manual_seed(1))
@@ -606,13 +822,13 @@ def test_segment_grad_kernel_matches_plain(case):
     for fn in (fused_dvr.fused_trace_dvr, fused_dvr.fused_trace_dvr_plain):
         net.zero_grad(set_to_none=True)
         tf_leaf = tf.tensor.cuda().requires_grad_(True)
-        before = (fused_dvr_bwd.SEGMENT_DIFF_LAUNCHES,
-                  fused_dvr_bwd.SEGMENT_BWD_LAUNCHES)
+        before = (fused_dvr_bwd.launches("segment_fwd_diff"),
+                  fused_dvr_bwd.launches("segment_bwd"))
         img = fn(rs, rd, net, *BOX, tf_leaf, **kw)
         (img * w).sum().backward()
         torch.cuda.synchronize()
-        launched = (fused_dvr_bwd.SEGMENT_DIFF_LAUNCHES - before[0],
-                    fused_dvr_bwd.SEGMENT_BWD_LAUNCHES - before[1])
+        launched = (fused_dvr_bwd.launches("segment_fwd_diff") - before[0],
+                    fused_dvr_bwd.launches("segment_bwd") - before[1])
         assert launched == ((1, 1) if fn is fused_dvr.fused_trace_dvr
                             else (0, 0))
         g = {n: p.grad.clone() for n, p in net.named_parameters()}
@@ -624,7 +840,10 @@ def test_segment_grad_kernel_matches_plain(case):
     torch.testing.assert_close(img_k, img_p, rtol=0, atol=ATOL)
     assert sorted(g_k) == sorted(g_p)
     for name in g_p:
-        assert rel_err(g_k[name], g_p[name]) <= 1e-3, name
+        if name == "latent.static_grid" and "table_dtype" in spec:
+            bf16_grid_close(g_k[name], g_p[name])   # the bf16 table's
+        else:
+            assert rel_err(g_k[name], g_p[name]) <= 1e-3, name
 
 
 def test_segment_grad_kernel_rejects_what_it_does_not_take():
@@ -1306,20 +1525,22 @@ def test_tf_mode_mega_matches_plain(mode, which):
     h = 1 / 128
     tf, tf_kw = tf_mode_args(mode, h)
     kw = dict(stepsize=h, tmax_clip=clip)
-    before = fused_mega.LAUNCHES
+    before = fused_mega.launches("mega_fwd")
     with torch.no_grad():
         got = fused_mega.mega_trace_dvr(rs, rd, net, *BOX, tf, **kw, **tf_kw)
         want = fused_mega.mega_trace_dvr_plain(rs, rd, net, *BOX, tf, **kw,
                                                **tf_kw)
-    assert fused_mega.LAUNCHES == before + 1
+    assert fused_mega.launches("mega_fwd") == before + 1
     assert float(want[:, 3].max()) > 0.5
     assert_image_close(got, want, mode)
     args = (rs, rd, net, *BOX)
     kw = dict(kw, differentiable=True)
-    before = (fused_mega.DIFF_LAUNCHES, fused_mega.BWD_LAUNCHES)
+    before = (fused_mega.launches("mega_fwd_diff"),
+              fused_mega.launches("mega_bwd"))
     img, got = tf_grads(fused_mega.mega_trace_dvr, args, kw, tf, tf_kw)
-    assert (fused_mega.DIFF_LAUNCHES, fused_mega.BWD_LAUNCHES) == (
-        before[0] + 1, before[1] + 1)
+    assert (fused_mega.launches("mega_fwd_diff"),
+            fused_mega.launches("mega_bwd")) == (before[0] + 1,
+                                                 before[1] + 1)
     img_plain, want = tf_grads(fused_mega.mega_trace_dvr_plain, args, kw,
                                tf, tf_kw)
     share, tols = flip_bounds(mode, fused_mega.mega_trace_dvr_plain, args,
@@ -1358,11 +1579,11 @@ def test_tf_mode_segment_matches_plain(mode, lattice):
     assert int(st.stop) == int(st_plain.stop)
     args = (rs, rd, net, *BOX)
     kw = dict(kw, differentiable=True, max_steps=112)
-    before = (fused_dvr_bwd.SEGMENT_DIFF_LAUNCHES,
-              fused_dvr_bwd.SEGMENT_BWD_LAUNCHES)
+    before = (fused_dvr_bwd.launches("segment_fwd_diff"),
+              fused_dvr_bwd.launches("segment_bwd"))
     img, got = tf_grads(fused_dvr.fused_trace_dvr, args, kw, tf, tf_kw)
-    assert (fused_dvr_bwd.SEGMENT_DIFF_LAUNCHES,
-            fused_dvr_bwd.SEGMENT_BWD_LAUNCHES) == (before[0] + 1,
+    assert (fused_dvr_bwd.launches("segment_fwd_diff"),
+            fused_dvr_bwd.launches("segment_bwd")) == (before[0] + 1,
                                                     before[1] + 1)
     img_plain, want = tf_grads(fused_dvr.fused_trace_dvr_plain, args, kw,
                                tf, tf_kw)
@@ -1517,13 +1738,14 @@ def test_mega_normals_kernel_matches_plain(case, brdf):
     rs, rd = block_rays(64, "cuda")
     args = (rs, rd, net, *BOX, tf)
     kw = dict(stepsize=1 / 128, need_normals=True, brdf=b, table_dtype=tdt)
-    before = (fused_mega.NRM_LAUNCHES, fused_mega.LAUNCHES)
+    before = (fused_mega.launches("mega_fwd_nrm"),
+              fused_mega.launches("mega_fwd"))
     got = fused_mega.mega_trace_dvr(*args, **kw)
     torch.cuda.synchronize()
-    assert (fused_mega.NRM_LAUNCHES, fused_mega.LAUNCHES) == (
-        before[0] + 1, before[1])
+    assert (fused_mega.launches("mega_fwd_nrm"),
+            fused_mega.launches("mega_fwd")) == (before[0] + 1, before[1])
     want = fused_mega.mega_trace_dvr_plain(*args, **kw)
-    assert fused_mega.NRM_LAUNCHES == before[0] + 1
+    assert fused_mega.launches("mega_fwd_nrm") == before[0] + 1
     normals_match(got, want, True)
 
 
@@ -1559,7 +1781,8 @@ def test_segment_normals_kernel_matches_plain(case, lattice, brdf):
 
 def test_normals_kernels_refuse_other_tf_modes():
     """The normals instances take the piecewise TF: another TF mode with
-    normals raises on the card (it does not run the plain version)."""
+    normals raises on the card (it does not run the plain version); so
+    does row 1's normals instance on a tile other than 256 rays."""
     tf, _, _ = fused_dvr.prepare_tf(torch.rand(16, 4), "texture")
     with pytest.raises(NotImplementedError, match="normals"):
         fused_dvr._check_kernel_inputs(random_net(), tf, tf_mode="texture",
@@ -1568,6 +1791,10 @@ def test_normals_kernels_refuse_other_tf_modes():
     with pytest.raises(NotImplementedError, match="normals"):
         fused_mega._check_kernel_inputs(random_net(), rays, 256,
                                         tf_mode="texture", need_normals=True)
+    with pytest.raises(NotImplementedError, match="normals on tiles"):
+        fused_mega._check_kernel_inputs(random_net(), rays, 128,
+                                        need_normals=True)
+    fused_mega._check_kernel_inputs(random_net(), rays, 128)
 
 
 def test_mc_walk_gradient_instance_matches_plain():
@@ -1655,10 +1882,10 @@ def test_latent_mega_matches_plain(kind):
     tf = dense_scene()[1].tensor.cuda()
     rs, rd = block_rays(64, "cuda")
     kw = dict(stepsize=1 / 128, **LATENT_AT)
-    before = fused_mega.LAUNCHES
+    before = fused_mega.launches("mega_fwd")
     got = fused_mega.mega_trace_dvr(rs, rd, net, *BOX, tf, **kw)
     torch.cuda.synchronize()
-    assert fused_mega.LAUNCHES == before + 1
+    assert fused_mega.launches("mega_fwd") == before + 1
     want = fused_mega.mega_trace_dvr_plain(rs, rd, net, *BOX, tf, **kw)
     assert float(want[:, 3].max()) > 0.5
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL)

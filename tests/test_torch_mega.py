@@ -156,9 +156,9 @@ def test_mega_wrapper_runs_plain_on_cpu(nets):
     rs, rd = block_rays(1.6)
     _, tf = tfs([2.0, 10.0, 30.0])
     kw = dict(stepsize=H, seg=SEG, tile=TILE)
-    before = fused_mega.LAUNCHES
+    before = fused_mega.launches("mega_fwd")
     got = mega_trace_dvr(t(rs), t(rd), nets[1], BMIN, BSIZE, tf.tensor, **kw)
     want = mega_trace_dvr_plain(t(rs), t(rd), nets[1], BMIN, BSIZE,
                                 tf.tensor, **kw)
-    assert fused_mega.LAUNCHES == before
+    assert fused_mega.launches("mega_fwd") == before
     torch.testing.assert_close(got, want, rtol=0, atol=0)

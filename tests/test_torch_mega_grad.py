@@ -166,20 +166,45 @@ def test_mega_grad_without_latent_grid():
 
 
 def test_mega_grad_rejects_ray_gradients():
+    """Without ``ray_grads`` the rays get no gradient (the JAX op's zero
+    cotangent), even where they require one; and a bf16 table trains (it
+    was refused before): the grid's gradient is the float32 sum rounded
+    to bf16 once per cell, and the other leaves are those of the float32
+    table's march on the bf16-rounded grid."""
     rs, rd = block_rays(1.6)
     net = srn_from_arrays(*network_arrays(jax_net()))
     tf = torch.tensor(np.asarray(JTF.make(rgb=RGB, opacity=[2.0, 10.0, 30.0],
                                           positions=POSITIONS).tensor))
-    with pytest.raises(NotImplementedError):
-        mega_trace_dvr_plain(torch.tensor(rs, requires_grad=True),
-                             torch.tensor(rd), net, BMIN, BSIZE, tf,
-                             stepsize=H, seg=SEG, tile=TILE,
-                             differentiable=True)
-    with pytest.raises(NotImplementedError):
-        mega_trace_dvr_plain(torch.tensor(rs), torch.tensor(rd), net, BMIN,
-                             BSIZE, tf, stepsize=H, seg=SEG, tile=TILE,
-                             differentiable=True,
-                             table_dtype=torch.bfloat16)
+    rs_leaf = torch.tensor(rs, requires_grad=True)
+    img = mega_trace_dvr_plain(rs_leaf, torch.tensor(rd), net, BMIN, BSIZE,
+                               tf, stepsize=H, seg=SEG, tile=TILE,
+                               differentiable=True)
+    img.sum().backward()
+    assert rs_leaf.grad is None
+    assert net.layers[0].weight.grad.abs().max() > 0
+    grads = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        n = srn_from_arrays(*network_arrays(jax_net()))
+        if dtype == torch.float32:
+            with torch.no_grad():
+                n.latent.static_grid.copy_(n.latent.static_grid.to(
+                    torch.bfloat16).float())
+        out = mega_trace_dvr_plain(torch.tensor(rs), torch.tensor(rd), n,
+                                   BMIN, BSIZE, tf, stepsize=H, seg=SEG,
+                                   tile=TILE, differentiable=True,
+                                   table_dtype=dtype)
+        (out ** 2).mean().backward()
+        grads[dtype] = {k: p.grad for k, p in n.named_parameters()}
+    g16, g32 = grads[torch.bfloat16], grads[torch.float32]
+    grid = g16["latent.static_grid"]
+    assert grid.abs().max() > 0
+    torch.testing.assert_close(grid, grid.to(torch.bfloat16).float(),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(grid, g32["latent.static_grid"].to(
+        torch.bfloat16).float(), rtol=0, atol=0)
+    for k in g16:
+        if k != "latent.static_grid":
+            torch.testing.assert_close(g16[k], g32[k], rtol=0, atol=0)
 
 
 def test_mega_grad_wrapper_runs_plain_on_cpu():
@@ -188,11 +213,13 @@ def test_mega_grad_wrapper_runs_plain_on_cpu():
     tf = torch.tensor(np.asarray(JTF.make(rgb=RGB, opacity=[2.0, 10.0, 30.0],
                                           positions=POSITIONS).tensor))
     kw = dict(stepsize=H, seg=SEG, tile=TILE, differentiable=True)
-    before = (fused_mega.DIFF_LAUNCHES, fused_mega.BWD_LAUNCHES)
+    before = (fused_mega.launches("mega_fwd_diff"),
+              fused_mega.launches("mega_bwd"))
     got = fused_mega.mega_trace_dvr(torch.tensor(rs), torch.tensor(rd), net,
                                     BMIN, BSIZE, tf, **kw)
     got.sum().backward()
     want = mega_trace_dvr_plain(torch.tensor(rs), torch.tensor(rd), net,
                                 BMIN, BSIZE, tf, **kw)
-    assert (fused_mega.DIFF_LAUNCHES, fused_mega.BWD_LAUNCHES) == before
+    assert (fused_mega.launches("mega_fwd_diff"),
+            fused_mega.launches("mega_bwd")) == before
     torch.testing.assert_close(got, want, rtol=0, atol=0)

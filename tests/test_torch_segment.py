@@ -344,11 +344,17 @@ def test_engine_rejects_what_is_not_ported():
     _, tf = tfs(RAMP)
     rs, rd = rays16()
     kw = dict(stepsize=H, max_steps=112, seg=SEG, tile=TILE)
-    for bad in (dict(differentiable=True, table_dtype=torch.bfloat16),
-                dict(differentiable=True, need_normals=True)):
-        with pytest.raises(NotImplementedError):
-            fused_trace_dvr(t(rs), t(rd), net, BMIN, BSIZE, tf.tensor,
-                            **kw, **bad)
+    with pytest.raises(NotImplementedError):
+        fused_trace_dvr(t(rs), t(rd), net, BMIN, BSIZE, tf.tensor, **kw,
+                        differentiable=True, need_normals=True)
+    # a bf16 table trains (held to the JAX package by
+    # tests/test_torch_bench_config.py): its grid's gradient is bf16
+    img = fused_trace_dvr(t(rs), t(rd), net, BMIN, BSIZE, tf.tensor, **kw,
+                          differentiable=True, table_dtype=torch.bfloat16)
+    img.sum().backward()
+    g = net.latent.static_grid.grad
+    assert g.abs().max() > 0
+    assert torch.equal(g, g.to(torch.bfloat16).float())
     # normals and shading are ported (tests/test_torch_normals.py); they
     # raise where the JAX package raises: normals of an rgbo head or of
     # the iso march, a shading BRDF without normals

@@ -15,7 +15,10 @@ checkout may have added to the megakernels taken out: the hidden width
 first (``Li32E`` after the name) and a last activation argument of
 SnakeAlt (``Li6E``), so that the width-32 SnakeAlt instances of
 ``mega_fwd_kernel<H, Table, kMasked, TFM, ACT>`` meet those of
-``mega_fwd_kernel<Table, kMasked, TFM>``.
+``mega_fwd_kernel<Table, kMasked, TFM>``; and a last ``false`` (``Lb0E``),
+so that ``mega_bwd_kernel<H, TFM, kRay = false>`` meets
+``mega_bwd_kernel<H, TFM>`` (the ray-gradient instances have no
+counterpart in an older checkout).
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ def key(name: str) -> str:
             name = name[end - n:]
             break
     name = re.sub(r"(kernel)ILi32E", r"\1I", name)
+    name = re.sub(r"Lb0E(E+v)", r"\1", name)   # the backward's kRay false
     return re.sub(r"Li6E(E+v)", r"\1", name)
 
 

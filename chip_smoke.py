@@ -5,7 +5,7 @@
 Builds the port's CUDA kernels from this checkout and drives the port's
 main paths on the card. The sources build in the background, as many at
 a time as the cores, in the order the phases first load them, and the
-phases run in the order K, 3-10, J, A-I, L, M, N-S, so that each starts
+phases run in the order K, 3-10, J, A-I, L, M, N-U, so that each starts
 once its own libraries are built while the rest still build, and those
 that compute most on the host's cores (L, M) run once most are built:
 
@@ -132,7 +132,21 @@ that compute most on the host's cores (L, M) run once most are built:
 - phase S, row 3's ray gradients: the camera matrix's gradient through
   ``generate_rays`` and ``mega_trace_dvr(ray_grads=True)`` on the
   flagship at 512^2, the kernels against the plain version on 64 whole
-  tiles, row 3 timed with and without them.
+  tiles, row 3 timed with and without them;
+- phase T, camera pose recovery through row 1
+  (``tools.pose_recovery_demo``: the trained flagship at 64^2 with 4
+  fixed jittered samples a pixel, 1/128, Levenberg-Marquardt on forward
+  renders), gated as the JAX package's pose tests, row 1 against its
+  plain version on one of the renders;
+- phase U, data parallelism on ``torch.distributed``, ranks spawned from
+  this script through a ``file://`` store once their libraries are
+  built: two ``gloo`` ranks sharing the card take the data-parallel
+  screen step on the flagship at 512^2 through rows 2-3 against one
+  process's step on both cameras, the overlapped latent all-reduce
+  against the trailing one (U1); one ``nccl`` rank runs ``train.main.run
+  --data_parallel 1`` against the single-process trainer (U2); the two
+  ``gloo`` ranks' halves of config 5's MC frame through row 7 against
+  one process's (U3).
 
 Prints one JSON line with every kernel and a last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -177,7 +191,7 @@ BF16_GRID_REL = 2.0 ** -7
 TIMED_CAMERAS = 4
 TIMED_STEPS = 3
 # phase 2: the sources in the order the phases first load them (the
-# phases run K, 3-10, J, A-I, L, M, N-S), then those no phase launches
+# phases run K, 3-10, J, A-I, L, M, N-U), then those no phase launches
 BUILD_ORDER = ("probes", "mega_fwd", "mega_bwd", "segment_fwd",
                "segment_bwd", "sample_eval", "mega_fwd_tf", "segment_fwd_tf",
                "mega_fwd_any", "mega_fwd48", "mega_fwd_any48", "mega_bwd48",
@@ -4071,6 +4085,348 @@ def ray_gradients(smi, reset_counts, counts, cam):
             "launches": inst, "camera_grad": g_m.flatten().tolist()}
 
 
+POSE_TOL = KERNEL_TOL                # phase T: row 1 vs plain on an LM render
+DP_SIZE = 128                        # phase U2's trainer, U3's MC frame
+DP_LOSS_RTOL = 1e-5                  # phase U: loss vs the single process
+MC_SHARD_TOL = 2e-6                  # phase U3 (tests/test_parallel.py:271)
+DP_TIME = (1.5, 0.5)                 # phase U3's (t, e) of config 5
+
+
+def pose_recovery(smi, reset_counts, counts):
+    """Phase T: camera pose recovery through row 1, the counterpart of the
+    JAX package's demo (``tools.pose_recovery_demo``: the trained
+    flagship, 64x64 with 4 fixed jittered samples a pixel, 1/128, LM for
+    15 iterations on central differences, every render one launch of
+    ``mega_fwd``), gated as JAX's tests/test_pose.py (final cost below 5%
+    of the start's, pose error below 35% of the perturbation's); row 1
+    against its plain version on the rays of the render at the recovered
+    pose (image <= 1e-4), both timed. Returns its figures."""
+    from fvsrn_tpu_torch.ops import fused_mega
+    from fvsrn_tpu_torch.tools import pose_recovery_demo as demo
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    rec = demo.run(device=DEVICE)
+    c = counts()
+    check(c["mega_fwd"] == rec["renders"] > 0,
+          f"phase T: {rec['renders']} renders, launches {c}")
+    check(rec["cost1"] < 0.05 * rec["cost0"]
+          and rec["err1"] < 0.35 * rec["err0"],
+          f"phase T: cost {rec['cost0']} -> {rec['cost1']}, pose error "
+          f"{rec['err0']} -> {rec['err1']}")
+    kernel = demo.make_render_rays(DEVICE)
+    plain = demo.make_render_rays(DEVICE, fused_mega.mega_trace_dvr_plain)
+    rays = {}
+
+    def capture(rs, rd):
+        rays["rs"], rays["rd"] = rs, rd
+        return kernel(rs, rd)
+
+    demo.make_render(capture, DEVICE)(np.asarray(rec["recovered"],
+                                                 np.float32))
+    rs, rd = rays["rs"], rays["rd"]
+    err = max_err(kernel(rs, rd), plain(rs, rd))
+    check(err <= POSE_TOL, f"phase T: row 1 vs plain {err}")
+    ms = cuda_ms(lambda: kernel(rs, rd), 10)
+    plain_ms = cuda_ms(lambda: plain(rs, rd), 1)
+    out = dict(rec, launches=c["mega_fwd"], max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, rays=rs.shape[0],
+               seconds=time.perf_counter() - t_phase)
+    print(f"phase T pose recovery [{smi}]: {rec['iterations']} iterations, "
+          f"{rec['renders']} renders of {rs.shape[0]} rays (mega_fwd "
+          f"launches {c['mega_fwd']}); cost {rec['cost0']:.4e} -> "
+          f"{rec['cost1']:.4e} (costs {rec['costs']}); pose error "
+          f"{rec['err0']:.4f} -> {rec['err1']:.3e} (ratio "
+          f"{rec['err_ratio']:.3e}), recovered {rec['recovered']}; LM wall "
+          f"{rec['wall_s']:.3f} s; row 1 vs plain {err:.3e} (tol "
+          f"{POSE_TOL}), row 1 {ms:.3f} ms, plain {plain_ms:.1f} ms a "
+          f"render; phase T {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def _grads(net):
+    return {n: p.grad.detach().cpu().clone() for n, p in
+            net.named_parameters()}
+
+
+def _rank_counts():
+    from fvsrn_tpu_torch.ops import fused_eval, fused_mega
+    return {"mega_fwd_diff": fused_mega.launches("mega_fwd_diff"),
+            "mega_bwd": fused_mega.launches("mega_bwd"),
+            "sample_eval": fused_eval.SAMPLE_EVAL_LAUNCHES}
+
+
+def _reset_rank_counts():
+    from fvsrn_tpu_torch.ops import fused_eval, fused_mega
+    fused_mega.LAUNCHES.clear()
+    fused_eval.SAMPLE_EVAL_LAUNCHES = 0
+
+
+def _dp_screen_setup(dev, npz, data):
+    """The flagship, its TF, stepping and loss, and the two-camera 512^2
+    dataset on ``dev``."""
+    from fvsrn_tpu_torch.raytracer.dvr import RayEvaluationSteppingDvr
+    from fvsrn_tpu_torch.scenes import dense_scene
+    from fvsrn_tpu_torch.train.checkpoints import load_weights
+    from fvsrn_tpu_torch.train.losses import LossNetScreen
+    from fvsrn_tpu_torch.train.screen import (ScreenDataset,
+                                              screen_mega_kwargs)
+    _, tf, _ = dense_scene()
+    ds = ScreenDataset(*(torch.from_numpy(a).to(dev) for a in data), WIDTH,
+                       HEIGHT)
+    return (load_weights(npz).to(dev), tf.to(dev),
+            RayEvaluationSteppingDvr.make(stepsize=STEPSIZE),
+            LossNetScreen(l1=1.0), ds, screen_mega_kwargs(ds))
+
+
+def _dp_gloo_ranks(mesh, npz, data):
+    """Phase U1 and U3 on one rank of two ``gloo`` ranks sharing the card:
+    the data-parallel screen step (rows 2-3) with the latent all-reduce
+    trailing, overlapped, trailing again; then this rank's half of config
+    5's MC frame through row 7. Rank 0's results go back."""
+    from fvsrn_tpu_torch.models.network_volume import \
+        VolumeInterpolationNetwork
+    from fvsrn_tpu_torch.parallel.mesh import gather_batch, shard_batch
+    from fvsrn_tpu_torch.parallel.train_step import make_dp_screen_train_step
+    from fvsrn_tpu_torch.phase import PhaseFunctionHenyeyGreenstein
+    from fvsrn_tpu_torch.raytracer.dvr import max_steps_bound
+    from fvsrn_tpu_torch.raytracer.montecarlo import (
+        RayEvaluationMonteCarlo, trace_mc)
+    from fvsrn_tpu_torch.scenes import dense_scene
+    from fvsrn_tpu_torch.train.optimizer import make_optimizer
+    from fvsrn_tpu_torch.utils.prng import prng_key
+
+    dev = mesh.device
+    out = {"backend": mesh.backend, "device": str(dev), "steps": []}
+    for overlap in (False, True, False):
+        net, tf, cfg, loss, ds, fk = _dp_screen_setup(dev, npz, data)
+        step = make_dp_screen_train_step(
+            mesh, tf, cfg, loss, make_optimizer(net.parameters(), "Adam",
+                                                lr=1e-3),
+            width=WIDTH, height=HEIGHT,
+            max_steps=max_steps_bound((1.0, 1.0, 1.0), STEPSIZE),
+            use_fused=True, fused_kwargs=fk, overlap_grads=overlap)
+        _reset_rank_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total = step(net, *shard_batch(mesh, (ds.ray_start, ds.ray_dir,
+                                              ds.targets)))
+        torch.cuda.synchronize()
+        out["steps"].append({"overlap": overlap, "loss": float(total),
+                             "grads": _grads(net),
+                             "seconds": time.perf_counter() - t0,
+                             "counts": _rank_counts()})
+    # U3: config 5's network, this rank's rays, draws keyed by ray id
+    net = vector_net(npz, dev)
+    tf = dense_scene()[1].to(dev)
+    rs, rd, rid = _mc_rays(dev)
+    vol = VolumeInterpolationNetwork(net, (-0.5, -0.5, -0.5),
+                                     (1.0, 1.0, 1.0), time=DP_TIME[0],
+                                     ensemble=DP_TIME[1])
+    cfg = RayEvaluationMonteCarlo.make(max_absorption=30.0, num_bounces=2,
+                                       max_iterations=256)
+    rs_k, rd_k, rid_k = shard_batch(mesh, (rs, rd, rid))
+    _reset_rank_counts()
+    color = trace_mc(prng_key(11), rs_k, rd_k, vol, tf,
+                     PhaseFunctionHenyeyGreenstein.make(g=0.3), cfg,
+                     ray_id=rid_k, use_fused=True).color
+    out["mc_counts"] = _rank_counts()
+    out["mc"] = gather_batch(mesh, color).cpu()
+    return out
+
+
+def _mc_rays(dev):
+    from fvsrn_tpu_torch.camera import CameraOnASphere, generate_rays
+    rs, rd = generate_rays(CameraOnASphere.make(**CAMERA), DP_SIZE, DP_SIZE,
+                           device=dev)
+    rs, rd = rs.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()
+    return rs, rd, torch.arange(rs.shape[0], dtype=torch.int64, device=dev)
+
+
+def _dp_trainer_args(out, data_parallel):
+    args = list(TRAIN_ARGS)
+    args[args.index("--screen_size") + 1] = str(DP_SIZE)
+    args[args.index("-i") + 1] = "1"
+    args.insert(1, out)
+    if data_parallel:
+        args += ["--data_parallel", str(data_parallel)]
+    return args
+
+
+def _dp_nccl_rank(mesh, out):
+    """Phase U2 on one ``nccl`` rank: ``train.main.run --data_parallel 1``
+    in the group ``spawn`` made."""
+    from fvsrn_tpu_torch.train import main as train_main
+    opt = vars(train_main.init_parser().parse_args(_dp_trainer_args(out, 1)))
+    _reset_rank_counts()
+    res = train_main.run(opt)
+    return {"backend": mesh.backend, "history": res["history"],
+            "fused": res["fused"], "counts": _rank_counts(),
+            "params": {n: p.detach().cpu() for n, p in
+                       res["network"].named_parameters()}}
+
+
+def data_parallel(smi, reset_counts, counts, npz):
+    """Phase U, data parallelism on ``torch.distributed`` (BASELINE
+    configs 4 and 5), ranks spawned from this script (``parallel.mesh
+    .spawn``, a ``file://`` store) once every library they load is
+    built; a rank's failure or a mismatch fails the run. U1: two ``gloo``
+    ranks share the card and take one data-parallel screen step on the
+    flagship at 512^2, 1/512 through rows 2-3 (two cameras, one a rank,
+    L1, Adam 1e-3) against one process's step on both cameras (loss rtol
+    1e-5, every leaf's averaged gradient within 2e-4 relative norm), the
+    latent all-reduce overlapped with the backward against the trailing
+    one. U2: one ``nccl`` rank runs ``train.main.run --data_parallel 1``
+    (2 cameras at 128^2, 1 epoch: 2 steps) against the single-process
+    trainer. U3: config 5's ray-sharded MC, the two ``gloo`` ranks' halves
+    of a 128^2 frame through row 7 (draws keyed by ray id) against one
+    process's ``trace_mc``, atol 2e-6 (JAX's bound). Returns the figures
+    of rows 2, 3 and 7."""
+    from fvsrn_tpu_torch.models.network_volume import \
+        VolumeInterpolationNetwork
+    from fvsrn_tpu_torch.ops import _build
+    from fvsrn_tpu_torch.parallel.mesh import spawn
+    from fvsrn_tpu_torch.phase import PhaseFunctionHenyeyGreenstein
+    from fvsrn_tpu_torch.raytracer.montecarlo import (
+        RayEvaluationMonteCarlo, trace_mc)
+    from fvsrn_tpu_torch.scenes import dense_scene
+    from fvsrn_tpu_torch.train import main as train_main
+    from fvsrn_tpu_torch.train.screen import (build_screen_dataset,
+                                              evaluate_screen)
+    from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
+                                               max_steps_bound)
+    from fvsrn_tpu_torch.utils.prng import prng_key
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    _build.build(["mega_fwd", "mega_bwd", "sample_eval"])
+    vol, tf, _ = dense_scene()
+    ds = build_screen_dataset(vol, tf, RayEvaluationSteppingDvr.make(
+        stepsize=STEPSIZE), num_cameras=2, width=WIDTH, height=HEIGHT,
+        device=dev)
+    data = tuple(t.cpu().numpy() for t in ds[:3])
+
+    # U1 and U3 on two gloo ranks
+    t0 = time.perf_counter()
+    ranks = spawn(_dp_gloo_ranks, 2, npz, data, device=DEVICE,
+                  backend="gloo")
+    gloo_s = time.perf_counter() - t0
+    check(ranks["backend"] == "gloo" and ranks["device"] == "cuda:0",
+          f"phase U1: {ranks['backend']} on {ranks['device']}")
+    # the single-process step on both cameras
+    net, tf_d, cfg, loss, ds_d, fk = _dp_screen_setup(dev, npz, data)
+    reset_counts()
+    total, _ = evaluate_screen(net, ds_d.ray_start, ds_d.ray_dir,
+                               ds_d.targets, tf_d, cfg, loss,
+                               max_steps_bound((1.0, 1.0, 1.0), STEPSIZE),
+                               WIDTH, HEIGHT, use_fused=True,
+                               fused_kwargs=fk)
+    total.backward()
+    total = float(total.detach())
+    c1 = counts()
+    single = _grads(net)
+    steps = ranks["steps"]
+    for s in steps:
+        check(s["counts"]["mega_fwd_diff"] >= 1 and s["counts"]["mega_bwd"]
+              >= 1, f"phase U1: a rank's launches {s['counts']}")
+    loss_rel = abs(steps[0]["loss"] - total) / abs(total)
+    rel = {n: rel_err(steps[0]["grads"][n], single[n]) for n in single}
+    worst = max(rel, key=rel.get)
+    print(f"phase U1 data-parallel screen step [{smi}]: 2 gloo ranks on "
+          f"cuda:0, flagship {WIDTH}x{HEIGHT} h=1/{round(1 / STEPSIZE)}, "
+          f"rows 2-3 (a rank's launches {steps[0]['counts']}); loss "
+          f"{steps[0]['loss']:.7e} vs one process {total:.7e} (rel "
+          f"{loss_rel:.2e}, tol {DP_LOSS_RTOL}); averaged gradients vs one "
+          f"process, rel norm "
+          f"{', '.join(f'{n} {v:.2e}' for n, v in rel.items())} (tol "
+          f"{GRAD_TOL}); a rank's steps, host clock: trailing "
+          f"{steps[0]['seconds'] * 1e3:.1f} ms (the process's first), "
+          f"overlapped {steps[1]['seconds'] * 1e3:.1f} ms, trailing "
+          f"{steps[2]['seconds'] * 1e3:.1f} ms; one process's launches "
+          f"{c1}", flush=True)
+    check(loss_rel <= DP_LOSS_RTOL and rel[worst] <= GRAD_TOL,
+          f"phase U1: loss rel {loss_rel}, gradients {rel}")
+    # overlapped vs trailing all-reduce; the trailing one twice shows what
+    # the backward's latent atomics change between two identical steps
+    a, b, again = (s["grads"] for s in steps)
+    diff = [n for n in a if not torch.equal(a[n], b[n])]
+    noisy = [n for n in a if not torch.equal(a[n], again[n])]
+    over = {n: rel_err(b[n], a[n]) for n in diff}
+    print(f"phase U1 overlap: losses {[s['loss'] for s in steps]}; leaves "
+          f"not bitwise equal, overlapped vs trailing {diff} (rel "
+          f"{over}), trailing vs trailing again {noisy}", flush=True)
+    check(steps[1]["loss"] == steps[0]["loss"] == steps[2]["loss"]
+          and set(diff) <= set(noisy)
+          and all(v <= GRAD_TOL for v in over.values()),
+          f"phase U1: overlap changed {diff} beyond the step's own "
+          f"run-to-run noise {noisy}")
+
+    # U3: config 5's MC frame, one process against the ranks' halves
+    mnet = vector_net(npz, dev)
+    rs, rd, rid = _mc_rays(dev)
+    mvol = VolumeInterpolationNetwork(mnet, (-0.5, -0.5, -0.5),
+                                      (1.0, 1.0, 1.0), time=DP_TIME[0],
+                                      ensemble=DP_TIME[1])
+    mcfg = RayEvaluationMonteCarlo.make(max_absorption=30.0, num_bounces=2,
+                                        max_iterations=256)
+    whole = trace_mc(prng_key(11), rs, rd, mvol, tf.to(dev),
+                     PhaseFunctionHenyeyGreenstein.make(g=0.3), mcfg,
+                     ray_id=rid, use_fused=True).color.cpu()
+    mc_err = float((ranks["mc"] - whole).abs().max())
+    alpha = float(whole[:, 3].mean())
+    print(f"phase U3 ray-sharded MC [{smi}]: config 5 (the flagship with "
+          f"latent vectors) at t={DP_TIME[0]}, e={DP_TIME[1]}, "
+          f"{DP_SIZE}x{DP_SIZE}, 2 bounces, 2 gloo ranks through row 7 "
+          f"(a rank's launches {ranks['mc_counts']}); max|d| vs one "
+          f"process {mc_err:.3e} (tol {MC_SHARD_TOL}), alpha mean "
+          f"{alpha:.4f}; the gloo job {gloo_s:.1f} s", flush=True)
+    check(ranks["mc_counts"]["sample_eval"] > 0 and mc_err <= MC_SHARD_TOL
+          and alpha > 0.02, f"phase U3: {mc_err}, {ranks['mc_counts']}")
+
+    # U2: one nccl rank, the trainer's --data_parallel 1, against the
+    # single-process trainer
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke")
+    os.makedirs(tmp, exist_ok=True)
+    t0 = time.perf_counter()
+    nccl = spawn(_dp_nccl_rank, 1, os.path.join(tmp, "dp1.npz"),
+                 device=DEVICE, backend="nccl")
+    nccl_s = time.perf_counter() - t0
+    plain = train_main.run(vars(train_main.init_parser().parse_args(
+        _dp_trainer_args(os.path.join(tmp, "single.npz"), 0))))
+    h_rel = float(np.max(np.abs(np.asarray(nccl["history"])
+                                - np.asarray(plain["history"]))
+                         / np.abs(np.asarray(plain["history"]))))
+    p_rel = {n: rel_err(nccl["params"][n], p.detach().cpu())
+             for n, p in plain["network"].named_parameters()}
+    worst = max(p_rel, key=p_rel.get)
+    print(f"phase U2 trainer --data_parallel 1 [{smi}]: 1 {nccl['backend']} "
+          f"rank, {DP_SIZE}x{DP_SIZE}, 2 steps, fused {nccl['fused']} "
+          f"(launches {nccl['counts']}); history {nccl['history']} vs the "
+          f"single-process trainer {plain['history']} (rel {h_rel:.2e}); "
+          f"parameters rel norm worst {worst} {p_rel[worst]:.2e} (tol "
+          f"{GRAD_TOL}); the nccl job {nccl_s:.1f} s; phase U "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(nccl["backend"] == "nccl" and nccl["fused"]
+          and nccl["counts"]["mega_bwd"] >= 2
+          and h_rel <= DP_LOSS_RTOL and p_rel[worst] <= GRAD_TOL,
+          f"phase U2: history {h_rel}, parameters {p_rel}, "
+          f"{nccl['counts']}")
+    u1 = {"launches": steps[0]["counts"], "loss_rel": loss_rel,
+          "grad_rel": rel, "step_ms": steps[2]["seconds"] * 1e3,
+          "overlap_step_ms": steps[1]["seconds"] * 1e3,
+          "first_step_ms": steps[0]["seconds"] * 1e3,
+          "overlap_not_bitwise": diff, "rerun_not_bitwise": noisy,
+          "job_s": gloo_s}
+    u2 = {"launches": nccl["counts"], "history_rel": h_rel,
+          "param_rel": p_rel, "job_s": nccl_s}
+    return {"mega_fwd_diff": {"u1": u1, "u2": u2},
+            "mega_bwd": {"u1": u1, "u2": u2},
+            "sample_eval": {"launches": ranks["mc_counts"]["sample_eval"],
+                            "max_abs_err": mc_err, "job_s": gloo_s},
+            "seconds": time.perf_counter() - t_phase}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4309,6 +4665,13 @@ def main():
     train_rows[1]["ray_grads"] = ray_gradients(smi, reset_counts, counts,
                                                cam)
     clock("phase S")
+    # pose recovery through row 1; data parallelism through rows 2-3 and 7
+    render_row["pose"] = pose_recovery(smi, reset_counts, counts)
+    clock("phase T")
+    dp = data_parallel(smi, reset_counts, counts, npz)
+    for row in train_rows + [mc_row]:
+        row["data_parallel"] = dp[row["name"]]
+    clock("phase U")
 
     # 2, finished: every source built, each nvcc's seconds, the seconds the
     # phases waited for one, the ptxas reports

@@ -27,6 +27,9 @@ Counterpart of ``fvsrn_tpu/inference.py``. Modes:
 trained on (a voxel grid or an implicit field) by the plain
 ``raytracer.dvr.trace_dvr``.
 
+``compare_modes`` tabulates each mode's mean squared difference from
+the first mode's frame.
+
 ``render_network_iso`` renders an isosurface: FUSED (float32 table) and
 FUSED_BF16 (bf16 table) on the per-segment engine
 (``ops.fused_dvr.fused_trace_iso``), any other mode by the plain
@@ -481,3 +484,16 @@ class LoadedModel:
                 times.append(start.elapsed_time(end) / max(1, repeats))
         arr = np.asarray(times if times else [0.0])
         return float(arr.mean()), float(arr.std()), arr
+
+
+def compare_modes(model: LoadedModel, camera: CameraOnASphere,
+                  width: int = 64, height: int = 64,
+                  modes=("FUSED", "PLAIN32"), *, device="cuda") -> dict:
+    """The mean squared difference of each mode's frame
+    (:meth:`LoadedModel.render_network`) from the first mode's:
+    {mode: MSE}, the first mode's 0."""
+    images = {m: model.render_network(camera, width, height, m,
+                                      device=device).double()
+              for m in modes}
+    base = images[modes[0]]
+    return {m: float(torch.mean((images[m] - base) ** 2)) for m in modes}

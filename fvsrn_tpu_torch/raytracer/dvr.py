@@ -6,8 +6,10 @@ with per-ray validity masks, front-to-back compositing, optional
 alpha early-out. With ``lattice=True`` samples sit on the global step
 lattice t = k*stepsize (first sample at ceil(tmin/stepsize)*stepsize),
 the sampling of the fused megakernel; ``tmax_in`` clamps each ray's
-march (the saturation clip of the product render). Color-output (rgbo)
-volumes skip the TF: the sample's rgb is its color, its absorption o*h.
+march (the saturation clip of the product render), ``tmin_in`` starts it
+later, and ``step_offset`` shifts the step indices (the spans of
+context-parallel marching, ``parallel.train_step.make_cp_render``).
+Color-output (rgbo) volumes skip the TF: the sample's rgb is its color, its absorption o*h.
 Where the configuration sets ``need_normals``, each sample's normal
 (``volume.eval_normal``) is fed to the TF and to the BRDF and blended
 into the ray's normal as its color is.
@@ -74,12 +76,20 @@ def trace_dvr(ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
               tmax_in: Optional[Tensor] = None,
               lattice: bool = False,
               checkpoint_chunk: Optional[int] = None,
-              brdf: Any = None, b: int = 0) -> RayEvaluationOutput:
+              brdf: Any = None, b: int = 0,
+              tmin_in: Optional[Tensor] = None,
+              step_offset: int = 0) -> RayEvaluationOutput:
     """March rays (..., 3) through ``volume`` (``eval_density`` + box)
     with the TF ``tf`` and, where given, the BRDF ``brdf`` (its normal is
     zero unless ``config.need_normals``), each at batch entry ``b``.
     Returns rgba and depth, and the alpha-blended normal when
     ``config.need_normals``.
+
+    ``tmin_in`` (..., 1): the march starts at max(tmin, tmin_in), with a
+    fresh previous-density carry (an entry clip). ``step_offset``: the
+    step indices run over [step_offset, step_offset + max_steps), so that
+    spans of the step axis march apart and composite by
+    ``parallel.train_step.compose_over`` (without early-out).
 
     ``checkpoint_chunk``: None stores every step for the backward; c >= 1
     runs the march in chunks of c steps under ``torch.utils.checkpoint``,
@@ -92,6 +102,8 @@ def trace_dvr(ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
                                 volume.box_min.to(dtype),
                                 volume.box_size.to(dtype))
     tmin = torch.clamp(tmin, min=0.0)
+    if tmin_in is not None:
+        tmin = torch.maximum(tmin, tmin_in.reshape(tmin.shape).to(dtype))
     if tmax_in is not None:
         tmax = torch.minimum(tmax, tmax_in.reshape(tmax.shape).to(dtype))
     h = float(config.stepsize)
@@ -154,14 +166,15 @@ def trace_dvr(ray_start: Tensor, ray_dir: Tensor, volume: Any, tf: Any,
     if config.need_normals:
         carry = carry + (torch.zeros_like(rgb),)
     if checkpoint_chunk is None or not torch.is_grad_enabled():
-        carry = chunk(0, max_steps, *carry)
+        carry = chunk(step_offset, max_steps, *carry)
     else:
         c = int(checkpoint_chunk)
         if c < 1:
             raise ValueError("checkpoint_chunk must be >= 1")
         for first in range(0, max_steps, c):
-            carry = checkpoint(chunk, first, min(c, max_steps - first),
-                               *carry, use_reentrant=False)
+            carry = checkpoint(chunk, step_offset + first,
+                               min(c, max_steps - first), *carry,
+                               use_reentrant=False)
     rgb, alpha, depth = carry[:3]
     return RayEvaluationOutput(color=torch.cat([rgb, alpha], dim=-1),
                                depth=depth,

@@ -15,10 +15,21 @@ voxel grid or an implicit field, with its TF and stepping), and a
   draws bit for bit (``utils.prng``).
 - ``--mode screen``: a differentiable render against ground-truth
   images, through the fused march's kernels when the configuration is one
-  they take (``--no_fused`` for the plain march).
+  they take (``--no_fused`` for the plain march). ``--data_parallel N``
+  trains on N ranks (``train.screen.train_screen`` over a mesh, BASELINE
+  config 4): under ``torchrun`` the N processes it started (its world size must
+  be N), otherwise N ranks this process spawns on its host
+  (``parallel.mesh.spawn``: ``nccl`` with a card a rank, ``gloo`` where
+  ranks share a card or on the CPU). Rank 0 alone writes the run file and
+  prints. As in the JAX package the flag is read in screen mode only.
 
-Runs on the card unless ``--device cpu`` is given. Not ported yet:
-``--data_parallel`` and ``--tensorboard``.
+``--tensorboard DIR`` logs ``loss/total`` at every epoch through
+``torch.utils.tensorboard`` where it can be imported (a line on stderr
+otherwise, and training goes on). ``--optimizer lbfgs`` is refused: the
+trainer's steps take no closure, which L-BFGS needs (the JAX trainer
+fails at its first update; ROADMAP.md, "differs on purpose").
+
+Runs on the card unless ``--device cpu`` is given.
 
 Usage:
   python -m fvsrn_tpu_torch.train.main <scene.json|IMPLICIT:NAME> out.npz
@@ -37,6 +48,7 @@ from ..models.latent import LatentSpace
 from ..models.network_volume import VolumeInterpolationNetwork
 from ..models.srn import SceneRepresentationNetwork
 from ..modules.registry import load_from_json
+from ..parallel import mesh as mesh_mod
 from ..raytracer.dvr import RayEvaluationSteppingDvr, max_steps_bound
 from ..transfer import TransferFunctionPiecewiseLinear
 from ..utils import prng
@@ -151,13 +163,61 @@ def make_network(opt: dict) -> SceneRepresentationNetwork:
         fourier_std=opt["fourierstd"], latent=latent, seed=opt["seed"])
 
 
+def open_tensorboard(logdir: str):
+    """A ``SummaryWriter`` on ``logdir``, or None (with the JAX package's
+    line on stderr) where ``torch.utils.tensorboard`` cannot be
+    imported."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        print("tensorboard unavailable; continuing without",
+              file=sys.stderr)
+        return None
+    return SummaryWriter(logdir)
+
+
+def _run_rank(mesh, opt: dict) -> dict:
+    """One rank of a spawned ``--data_parallel`` run: :func:`run` in the
+    group ``spawn`` started, the network returned on the CPU."""
+    out = run(opt)
+    out["network"] = out["network"].cpu()
+    return out
+
+
 def run(opt: dict) -> dict:
-    """Programmatic entry; returns {'history', 'network'} and, in screen
-    mode, 'fused'."""
-    for key in ("data_parallel", "tensorboard"):
-        if opt.get(key):
-            raise NotImplementedError(f"--{key} is not ported yet")
+    """Programmatic entry; returns {'history', 'network', 'rank'} and, in
+    screen mode, 'fused'. With ``data_parallel`` N > 1 in screen mode,
+    outside a process group and outside ``torchrun``, spawns the N ranks
+    and returns rank 0's result, its network on the CPU."""
+    if opt["optimizer"].lower() == "lbfgs":
+        raise ValueError("--optimizer lbfgs needs a closure at every step, "
+                         "which the trainer's steps do not pass; use "
+                         "train.optimizer.make_optimizer directly")
+    n_dp = int(opt.get("data_parallel") or 0) if opt["mode"] == "screen" \
+        else 0
+    if n_dp and opt["screen_cameras"] % n_dp:
+        raise ValueError(f"need cameras ({opt['screen_cameras']}) divisible "
+                         f"by --data_parallel ({n_dp})")
+    if (n_dp > 1 and not torch.distributed.is_initialized()
+            and not mesh_mod.under_torchrun()):
+        return mesh_mod.spawn(_run_rank, n_dp, opt,
+                              device=opt.get("device", "cuda"))
     dev = resolve_device(opt.get("device", "cuda"))
+    if not n_dp:
+        return _train(opt, dev, None)
+    own_group = not torch.distributed.is_initialized()
+    mesh = mesh_mod.make_mesh(n_dp, device=dev)
+    try:
+        return _train(opt, mesh.device, mesh)
+    finally:
+        if own_group:
+            mesh_mod.close_mesh()
+
+
+def _train(opt: dict, dev, mesh) -> dict:
+    """:func:`run`'s training on ``dev``, as one rank of ``mesh`` (or in
+    one process with None)."""
+    main_rank = mesh is None or mesh.is_main
     volume, tf, ray_config = _resolve_scene(opt["scene"])
     ray_config = RayEvaluationSteppingDvr.make(
         **dict(ray_config.__dict__, stepsize=opt["stepsize"]))
@@ -171,42 +231,58 @@ def run(opt: dict) -> dict:
 
     history = []
     t_start = time.time()
+    writer = None
+    if opt.get("tensorboard") and main_rank:
+        writer = open_tensorboard(opt["tensorboard"])
 
     def epoch_cb(e, network, loss_val):
         history.append(loss_val)
-        if (e + 1) % opt["save_frequency"] == 0:
+        if writer is not None:
+            writer.add_scalar("loss/total", loss_val, len(history) - 1)
+        if (e + 1) % opt["save_frequency"] == 0 and main_rank:
             save_run(opt["output"], network, opt, history)
 
-    out = {"history": history}
-    if opt["mode"] == "world":
-        net = _train_world(opt, net, volume, tf, make_opt, epoch_cb, dev)
-    else:
-        loss = LossNetScreen(l1=opt["l1"], l2=opt["l2"], dssim=opt["dssim"])
-        ds = build_screen_dataset(volume, tf, ray_config,
-                                  num_cameras=opt["screen_cameras"],
-                                  width=opt["screen_size"],
-                                  height=opt["screen_size"], device=dev)
-        max_steps = max_steps_bound((1.0, 1.0, 1.0),
-                                    float(ray_config.stepsize))
-        use_fused = (not opt.get("no_fused")
-                     and fused_screen_supported(net, tf, ds.width,
-                                                ds.height))
-        fused_kwargs = None
-        if use_fused:
-            fused_kwargs = screen_mega_kwargs(ds)
-            print("screen mode: fused march enabled (--no_fused for the "
-                  "plain march)", file=sys.stderr)
-        net, _ = train_screen(
-            net, ds, tf, ray_config, loss, make_opt(net.parameters()),
-            epochs=opt["epochs"], max_steps=max_steps,
-            generator=torch.Generator().manual_seed(opt["seed"]),
-            use_fused=use_fused, fused_kwargs=fused_kwargs,
-            callback=epoch_cb)
-        out["fused"] = use_fused
-    save_run(opt["output"], net, dict(opt, seconds=time.time() - t_start),
-             history)
+    out = {"history": history, "rank": 0 if mesh is None else mesh.rank}
+    try:
+        if opt["mode"] == "world":
+            net = _train_world(opt, net, volume, tf, make_opt, epoch_cb, dev)
+        else:
+            net, out["fused"] = _train_screen(opt, net, volume, tf,
+                                              ray_config, make_opt,
+                                              epoch_cb, dev, mesh)
+    finally:
+        if writer is not None:
+            writer.close()
+    if main_rank:
+        save_run(opt["output"], net,
+                 dict(opt, seconds=time.time() - t_start), history)
     out["network"] = net
     return out
+
+
+def _train_screen(opt, net, volume, tf, ray_config, make_opt, epoch_cb, dev,
+                  mesh):
+    """Screen mode as the JAX package runs it, on the ranks of ``mesh``
+    when one is given: (network, whether the fused march ran)."""
+    loss = LossNetScreen(l1=opt["l1"], l2=opt["l2"], dssim=opt["dssim"])
+    ds = build_screen_dataset(volume, tf, ray_config,
+                              num_cameras=opt["screen_cameras"],
+                              width=opt["screen_size"],
+                              height=opt["screen_size"], device=dev)
+    max_steps = max_steps_bound((1.0, 1.0, 1.0), float(ray_config.stepsize))
+    use_fused = (not opt.get("no_fused")
+                 and fused_screen_supported(net, tf, ds.width, ds.height))
+    fused_kwargs = None
+    if use_fused:
+        fused_kwargs = screen_mega_kwargs(ds)
+        if mesh is None or mesh.is_main:
+            print("screen mode: fused march enabled (--no_fused for the "
+                  "plain march)", file=sys.stderr)
+    kw = dict(epochs=opt["epochs"], max_steps=max_steps, use_fused=use_fused,
+              fused_kwargs=fused_kwargs, callback=epoch_cb)
+    net, _ = train_screen(net, ds, tf, ray_config, loss,
+                          make_opt(net.parameters()), mesh=mesh, **kw)
+    return net, use_fused
 
 
 def _train_world(opt, net, volume, tf, make_opt, epoch_cb, dev):
@@ -256,6 +332,8 @@ def _train_world(opt, net, volume, tf, make_opt, epoch_cb, dev):
 def main(argv=None):
     opt = vars(init_parser().parse_args(argv))
     result = run(opt)
+    if result["rank"] != 0:
+        return 0
     h = result["history"]
     print(f"trained {len(h)} epochs; loss {h[0]:.5f} -> {h[-1]:.5f}; "
           f"run file: {opt['output']}")

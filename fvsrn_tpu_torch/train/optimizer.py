@@ -10,7 +10,15 @@ Adam and AdamW share optax's update formula and defaults (betas 0.9 and
 0.999, eps 1e-8; AdamW's weight decay is set to optax's 1e-4, PyTorch's
 default being 1e-2). RMSprop takes optax's decay 0.9 and eps 1e-8, but
 PyTorch adds eps outside the square root where optax adds it inside, so
-its updates differ slightly. L-BFGS is not ported yet.
+its updates differ slightly.
+
+L-BFGS is ``torch.optim.LBFGS`` with the strong-Wolfe line search, the
+counterpart of optax's ``lbfgs`` with its zoom line search. It is another
+algorithm, and it steps through a closure (``opt.step(closure)``, the
+closure zeroing the gradients, computing the loss, calling
+``backward()`` and returning the loss), so the trainers, whose steps call
+``opt.step()``, refuse it. Like optax's, it takes no learning-rate
+schedule: its scheduler keeps the rate as it is.
 """
 from __future__ import annotations
 
@@ -41,7 +49,11 @@ def make_optimizer(params: Iterable[torch.Tensor], optimizer: str = "Adam",
                    **optim_params: Any):
     """(optimizer, scheduler) over ``params`` with the JAX package's
     defaults (Adam, lr=0.01, lr_step=500, lr_gamma=0.5). Step the
-    scheduler after every optimizer step."""
+    scheduler after every optimizer step. "lbfgs" builds
+    ``torch.optim.LBFGS(params, line_search_fn="strong_wolfe",
+    **optim_params)`` (``lr`` and the schedule are not read, as optax's
+    ``lbfgs`` reads neither), whose ``step`` takes a closure that
+    re-evaluates the loss (see the module doc)."""
     schedule = step_lr(lr, lr_step, lr_gamma, steps_per_epoch)
     name = optimizer.lower()
     params = list(params)
@@ -61,7 +73,9 @@ def make_optimizer(params: Iterable[torch.Tensor], optimizer: str = "Adam",
         kw.update(optim_params)
         opt = torch.optim.RMSprop(params, lr=lr, **kw)
     elif name == "lbfgs":
-        raise NotImplementedError("L-BFGS is not ported yet")
+        opt = torch.optim.LBFGS(params, line_search_fn="strong_wolfe",
+                                **optim_params)
+        return opt, LambdaLR(opt, lambda count: 1.0)
     else:
         raise ValueError(f"unknown optimizer {optimizer}")
     scheduler = LambdaLR(opt, lambda count: schedule(count) / lr)

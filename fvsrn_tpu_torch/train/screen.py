@@ -3,7 +3,10 @@
 Counterpart of ``fvsrn_tpu/train/screen.py``:
 
 - ``build_screen_dataset``: fibonacci-sphere cameras and ground-truth
-  renders of the reference volume by the plain ``trace_dvr``;
+  renders of the reference volume by the plain ``trace_dvr``, optionally
+  cached in an ``.npz`` file (the JAX package's hdf5 cache, the same
+  reuse rule: the file is read when its camera count, width and height
+  match, else the dataset is rendered again and the file rewritten);
 - ``evaluate_screen``: the differentiable render of the SRN plus the image
   loss, through a fused march chosen by the JAX package's engine rule
   (``fused_kwargs["engine"]``: "scan", the default, is the per-segment
@@ -13,14 +16,18 @@ Counterpart of ``fvsrn_tpu/train/screen.py``:
   plain versions on the CPU) or through the plain ``trace_dvr`` with
   per-step checkpointing;
 - ``train_screen``: the epoch loop over camera minibatches, one Adam step
-  and one scheduler step per minibatch, aborting on a non-finite loss.
+  and one scheduler step per minibatch, aborting on a non-finite loss;
+  given a ``parallel.mesh.Mesh``, the same loop over its ranks (BASELINE
+  config 4), the gradients averaged over the ranks
+  (``parallel.train_step.make_dp_screen_train_step``);
+  ``train_screen_dp`` is that loop under the JAX package's name.
 
-Camera order is drawn with a seeded ``torch.Generator``; it cannot repeat
-the JAX package's random order. The hdf5 dataset cache and the
-data-parallel loop are not ported yet.
+Each epoch's camera order is JAX's ``random.permutation`` of the epoch's
+key (``utils.prng``, bit for bit), as in the JAX package.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -37,6 +44,7 @@ from ..raytracer.dvr import (RayEvaluationSteppingDvr, max_steps_bound,
 from ..transfer import (TransferFunctionGaussian,
                         TransferFunctionPiecewiseLinear,
                         TransferFunctionTexture)
+from ..utils import prng
 from ..utils.device import resolve_device
 from .losses import LossNetScreen
 
@@ -60,11 +68,20 @@ def build_screen_dataset(volume, tf, config: RayEvaluationSteppingDvr, *,
                          device="cuda") -> ScreenDataset:
     """Render ground-truth images of ``volume`` from fibonacci-sphere
     cameras on ``device``. ``render_chunk`` rays are marched at a time
-    (the result does not depend on it)."""
-    if cache_path is not None:
-        raise NotImplementedError("the screen dataset cache is not ported "
-                                  "yet")
+    (the result does not depend on it). ``cache_path``: an ``.npz`` file
+    read instead of rendering when its ``num_cameras``, ``width`` and
+    ``height`` match (nothing else is compared, as in the JAX package),
+    else written after rendering."""
     dev = resolve_device(device)
+    if cache_path is not None and os.path.exists(cache_path):
+        with np.load(cache_path) as f:
+            if (int(f["num_cameras"]) == num_cameras
+                    and int(f["width"]) == width
+                    and int(f["height"]) == height):
+                return ScreenDataset(
+                    *(torch.from_numpy(f[k]).to(dev)
+                      for k in ("ray_start", "ray_dir", "targets")),
+                    width, height)
     volume = volume.to(dev)
     tf = tf.to(dev)
     cams = fibonacci_sphere_cameras(num_cameras, center=center,
@@ -83,8 +100,14 @@ def build_screen_dataset(volume, tf, config: RayEvaluationSteppingDvr, *,
                           direction[c, i:i + render_chunk], volume, tf,
                           config, max_steps).color
                 for i in range(0, start.shape[1], render_chunk)]))
-    return ScreenDataset(start, direction, torch.stack(targets), width,
-                         height)
+    ds = ScreenDataset(start, direction, torch.stack(targets), width, height)
+    if cache_path is not None:
+        # a file object: np.savez would append ".npz" to a bare path
+        with open(cache_path, "wb") as f:
+            np.savez(f, num_cameras=num_cameras, width=width, height=height,
+                     **{k: getattr(ds, k).cpu().numpy()
+                        for k in ("ray_start", "ray_dir", "targets")})
+    return ds
 
 
 def fused_screen_supported(network, tf, width: int, height: int) -> bool:
@@ -196,38 +219,70 @@ def evaluate_screen(network, batch_rays_start: Tensor,
 def train_screen(network, dataset: ScreenDataset, tf,
                  config: RayEvaluationSteppingDvr, loss: LossNetScreen,
                  optimizer, *, epochs: int, cameras_per_batch: int = 1,
-                 max_steps: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None,
+                 max_steps: Optional[int] = None, key=None,
                  use_fused: bool = False,
                  fused_kwargs: Optional[dict] = None,
-                 callback: Optional[Callable] = None):
+                 callback: Optional[Callable] = None, mesh=None):
     """Epoch loop over camera minibatches. ``optimizer`` is the
     ``(torch.optim.Optimizer, scheduler)`` pair of
     ``train.optimizer.make_optimizer``; the scheduler steps after every
-    update. Returns (network, history of per-epoch mean losses)."""
+    update. Each epoch's order is ``prng.permutation(sub, C)`` with
+    ``key, sub = prng.split(key)`` (``key`` default ``prng_key(0)``, the
+    JAX package's). ``mesh`` (a ``parallel.mesh.Mesh``): data-parallel
+    over its ranks (BASELINE config 4), called on every rank with the
+    whole dataset. The network is first broadcast from rank 0, each
+    minibatch holds ``cameras_per_batch`` cameras a rank, rank r takes
+    its slice, and the gradients are averaged over the ranks
+    (``parallel.train_step.make_dp_screen_train_step``): the
+    single-process step on the whole minibatch. Every rank draws the same
+    order. Raises ``ValueError`` when the camera count is not a multiple
+    of the world size, and ``FloatingPointError`` when an epoch's mean
+    loss is not finite. Returns (network, history of per-epoch mean
+    losses), the same on every rank."""
     opt, scheduler = optimizer
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
+    if key is None:
+        key = prng.prng_key(0)
     n_cams = dataset.ray_start.shape[0]
     if max_steps is None:
         max_steps = max_steps_bound((1.0, 1.0, 1.0), float(config.stepsize))
     tf = tf.to(dataset.ray_start.device)
-    history = []
-    for e in range(epochs):
-        perm = torch.randperm(n_cams, generator=generator)
-        totals = []
-        for i in range(0, n_cams, cameras_per_batch):
-            idx = perm[i:i + cameras_per_batch].to(dataset.ray_start.device)
+    if mesh is None:
+        def step(rs, rd, tgt):
             opt.zero_grad(set_to_none=True)
             total, _ = evaluate_screen(
-                network, dataset.ray_start[idx], dataset.ray_dir[idx],
-                dataset.targets[idx], tf, config, loss, max_steps,
+                network, rs, rd, tgt, tf, config, loss, max_steps,
                 dataset.width, dataset.height, use_fused=use_fused,
                 fused_kwargs=fused_kwargs)
             total.backward()
             opt.step()
             scheduler.step()
-            totals.append(float(total.detach()))
+            return total.detach()
+    else:
+        from ..parallel.mesh import replicate, shard_batch
+        from ..parallel.train_step import make_dp_screen_train_step
+
+        if n_cams % mesh.world_size:
+            raise ValueError(f"need cameras ({n_cams}) divisible by the "
+                             f"world size ({mesh.world_size})")
+        cameras_per_batch *= mesh.world_size
+        replicate(mesh, network)
+        dp_step = make_dp_screen_train_step(
+            mesh, tf, config, loss, optimizer, width=dataset.width,
+            height=dataset.height, max_steps=max_steps, use_fused=use_fused,
+            fused_kwargs=fused_kwargs)
+
+        def step(*batch):
+            return dp_step(network, *shard_batch(mesh, batch))
+    history = []
+    for e in range(epochs):
+        key, sub = prng.split(key)
+        perm = prng.permutation(sub, n_cams)
+        totals = []
+        for i in range(0, n_cams, cameras_per_batch):
+            idx = perm[i:i + cameras_per_batch].to(dataset.ray_start.device)
+            totals.append(float(step(dataset.ray_start[idx],
+                                     dataset.ray_dir[idx],
+                                     dataset.targets[idx])))
         history.append(float(np.mean(totals)))
         if callback is not None:
             callback(e, network, history[-1])
@@ -235,3 +290,13 @@ def train_screen(network, dataset: ScreenDataset, tf,
             raise FloatingPointError(
                 f"screen training loss became non-finite at epoch {e}")
     return network, history
+
+
+def train_screen_dp(network, dataset: ScreenDataset, tf,
+                    config: RayEvaluationSteppingDvr, loss: LossNetScreen,
+                    optimizer, *, epochs: int, mesh, **kwargs):
+    """The JAX package's name for :func:`train_screen` over the ranks of
+    ``mesh``: one camera a rank a step unless ``cameras_per_batch`` says
+    more."""
+    return train_screen(network, dataset, tf, config, loss, optimizer,
+                        epochs=epochs, mesh=mesh, **kwargs)

@@ -54,11 +54,19 @@ sys.exit(1 if bad else 0)
                                     "fvsrn_tpu_torch.volume.grid",
                                     "fvsrn_tpu_torch.modules.registry",
                                     "fvsrn_tpu_torch.brdf",
-                                    "fvsrn_tpu_torch.transfer"])
+                                    "fvsrn_tpu_torch.transfer",
+                                    "fvsrn_tpu_torch.parallel.mesh",
+                                    "fvsrn_tpu_torch.parallel.train_step",
+                                    "fvsrn_tpu_torch.train.pose",
+                                    "fvsrn_tpu_torch.train.screen",
+                                    "fvsrn_tpu_torch.raytracer.rasterization",
+                                    "fvsrn_tpu_torch.tools."
+                                    "pose_recovery_demo"])
 def test_slice_module_imports_alone(module):
     """The modules of the fused per-segment and isosurface renders, of
-    Monte-Carlo path tracing, of world training and of voxel volumes and
-    scene files import on their own, loading no JAX."""
+    Monte-Carlo path tracing, of world training, of voxel volumes and
+    scene files, of data parallelism, pose recovery and rasterization
+    import on their own, loading no JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", IMPORT_ONE, module],
                           cwd=ROOT, env=env, capture_output=True, text=True,
@@ -100,3 +108,24 @@ def _assert_no_match(pattern):
                     offenders.append(f"{os.path.relpath(path, ROOT)}:{n}: "
                                      f"{line.strip()}")
     assert not offenders, "\n".join(offenders)
+
+
+def test_parallel_states_its_backend():
+    """``parallel`` picks no backend silently: ``nccl`` where each rank
+    has a card of its own, ``gloo`` where ranks share one or run on the
+    CPU; ``nccl`` asked for with two ranks on one card (which NCCL
+    refuses) or on the CPU raises, before any group is made."""
+    import torch
+    from fvsrn_tpu_torch.parallel import mesh
+    assert mesh.choose_backend("cuda", 1, 1) == "nccl"
+    assert mesh.choose_backend("cuda", 4, 4) == "nccl"
+    assert mesh.choose_backend("cuda", 2, 1) == "gloo"
+    assert mesh.choose_backend("cpu", 2, 0) == "gloo"
+    assert mesh.choose_backend("cuda", 2, 1, "gloo") == "gloo"
+    with pytest.raises(ValueError, match="2 ranks on 1 card"):
+        mesh.choose_backend("cuda", 2, 1, "nccl")
+    with pytest.raises(ValueError, match="CPU"):
+        mesh.choose_backend("cpu", 1, 0, "nccl")
+    with pytest.raises(ValueError, match="CPU"):
+        mesh.make_mesh(1, device="cpu", backend="nccl")
+    assert not torch.distributed.is_initialized()

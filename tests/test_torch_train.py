@@ -120,8 +120,12 @@ def test_step_lr_and_optimizer():
                                      for n in range(6)], rtol=1e-12)
     for name in ("AdamW", "SGD", "RMSprop"):
         make_optimizer([p], name)
-    with pytest.raises(NotImplementedError):
-        make_optimizer([p], "lbfgs")
+    # L-BFGS: torch's with the strong-Wolfe line search, stepped through a
+    # closure (tests/test_torch_stack.py fits with it)
+    opt, sched = make_optimizer([p], "lbfgs", lr=0.5)
+    assert isinstance(opt, torch.optim.LBFGS)
+    assert opt.defaults["line_search_fn"] == "strong_wolfe"
+    assert opt.defaults["lr"] == 1.0     # like optax's, it reads no lr
 
 
 def test_fibonacci_cameras_and_rays():
@@ -356,13 +360,33 @@ def test_trainer_matches_jax(tmp_path):
 @pytest.mark.parametrize("extra", [["-o", "LBFGS"],
                                    ["--data_parallel", "2"],
                                    ["--tensorboard", "tb"]])
-def test_trainer_rejects_what_is_not_ported(extra, tmp_path):
-    """Options not ported yet raise."""
+def test_trainer_rejects_what_is_not_ported(extra, tmp_path, monkeypatch):
+    """What the trainer refuses of these options, now that each is
+    ported: ``--optimizer lbfgs`` (its steps pass no closure; the JAX
+    trainer fails at its first update) and ``--data_parallel 2`` with one
+    camera (not a multiple of the ranks, as the JAX trainer) raise
+    ``ValueError`` before any rendering; ``--tensorboard`` is refused
+    nothing (tests/test_torch_stack.py logs through it): a run with its
+    writer stubbed goes on to its end."""
     args = [str(tmp_path / "x.npz") if a == "OUT" else a for a in ARGS]
+    if extra[0] == "--tensorboard":
+        extra = ["--tensorboard", str(tmp_path / "tb"), "-i", "1"]
     opt = vars(main.init_parser().parse_args(args + extra
                                              + ["--device", "cpu"]))
-    with pytest.raises(NotImplementedError):
-        main.run(opt)
+    if extra[0] != "--tensorboard":
+        with pytest.raises(ValueError):
+            main.run(opt)
+        assert not (tmp_path / "x.npz").exists()
+        return
+    import sys
+    import types
+    writes = []
+    monkeypatch.setitem(
+        sys.modules, "torch.utils.tensorboard", types.SimpleNamespace(
+            SummaryWriter=lambda d: types.SimpleNamespace(
+                add_scalar=lambda *a: writes.append(a), close=lambda: None)))
+    out = main.run(opt)
+    assert writes == [("loss/total", out["history"][0], 0)]
 
 
 # the networks of the paper's sweeps the trainer's options express (no

@@ -5,7 +5,7 @@
 Builds the port's CUDA kernels from this checkout and drives the port's
 main paths on the card. The sources build in the background, as many at
 a time as the cores, in the order the phases first load them, and the
-phases run in the order K, 3-10, J, A-I, L, M, N-U, so that each starts
+phases run in the order K, 3-10, J, A-I, L, M, N-V, so that each starts
 once its own libraries are built while the rest still build, and those
 that compute most on the host's cores (L, M) run once most are built:
 
@@ -146,7 +146,17 @@ that compute most on the host's cores (L, M) run once most are built:
   against the trailing one (U1); one ``nccl`` rank runs ``train.main.run
   --data_parallel 1`` against the single-process trainer (U2); the two
   ``gloo`` ranks' halves of config 5's MC frame through row 7 against
-  one process's (U3).
+  one process's (U3);
+- phase V, the paper's evaluation harnesses through their own entry
+  points (``fvsrn_tpu_torch/eval``): ``eval_volumetric_features --scene
+  dense`` at its defaults (512^2, 1/512, 4 cameras, FUSED and PLAIN32
+  timed, SSIM against ``render_reference``; row 1, camera 0's FUSED frame
+  against its plain version) (V1); ``eval_screen_vs_world`` (its screen
+  entry through rows 2-3) and ``eval_density_vs_color --render`` (row 1
+  for each head) at 2 epochs, every trained network's FUSED 128^2 frame
+  against its plain version (V2); ``eval_compression_teaser`` (the SRN
+  fitted on the card, the host codecs at 64^3, each decoding to its
+  volume) (V3).
 
 Prints one JSON line with every kernel and a last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -191,7 +201,7 @@ BF16_GRID_REL = 2.0 ** -7
 TIMED_CAMERAS = 4
 TIMED_STEPS = 3
 # phase 2: the sources in the order the phases first load them (the
-# phases run K, 3-10, J, A-I, L, M, N-U), then those no phase launches
+# phases run K, 3-10, J, A-I, L, M, N-V), then those no phase launches
 BUILD_ORDER = ("probes", "mega_fwd", "mega_bwd", "segment_fwd",
                "segment_bwd", "sample_eval", "mega_fwd_tf", "segment_fwd_tf",
                "mega_fwd_any", "mega_fwd48", "mega_fwd_any48", "mega_bwd48",
@@ -4427,6 +4437,171 @@ def data_parallel(smi, reset_counts, counts, npz):
             "seconds": time.perf_counter() - t_phase}
 
 
+# phase V: the paper's evaluation harnesses (fvsrn_tpu_torch/eval)
+EVAL_EPOCHS = 2                      # V2's sweeps, cut in depth only
+EVAL_SIZE = 128                      # V2: the sweeps' FUSED render (sweep.py)
+TEASER_EPOCHS = 10                   # V3's fit
+TEASER_MIN_PSNR = 20.0               # V3: every codec decodes to its volume
+# V1: FUSED (bf16 table, lattice march) against PLAIN32 in SSIM vs the
+# reference: JAX's own harness reads them 4e-4 apart at 32^2 on the CPU
+# (tests/test_torch_eval.py)
+EVAL_SSIM_TOL = 1e-3
+
+
+def _held_frame(phase, render):
+    """A prepared FUSED render's kernel against its plain version on the
+    same rays (image <= KERNEL_TOL): the error and the kernel's ms."""
+    from fvsrn_tpu_torch.ops import fused_dvr, fused_mega
+    plain = (fused_mega.mega_trace_dvr_plain if render.route == "mega"
+             else fused_dvr.fused_trace_dvr_plain)
+    err = max_err(render.march(), render.march(plain))
+    check(err <= KERNEL_TOL, f"phase {phase}: {render.route} kernel vs "
+          f"plain {err}")
+    return err, cuda_ms(lambda: render.march(), 5)
+
+
+def evaluation(smi, reset_counts, counts):
+    """Phase V, the paper's evaluation harnesses on rows 1-3, through the
+    scripts' own entry points. V1: ``eval_volumetric_features --scene
+    dense`` at its defaults (512^2, 1/512, 4 cameras, FUSED and PLAIN32,
+    SSIM vs ``render_reference``): row 1 launched, camera 0's FUSED frame
+    the kernel's and the kernel against its plain version (<= 1e-4), both
+    SSIMs finite and within EVAL_SSIM_TOL. V2: ``eval_screen_vs_world``
+    and ``eval_density_vs_color --render`` through ``sweep_main``,
+    ``--epochs 2``: rows 2-3 launched by the screen entry, row 1 by each
+    render; every trained net's FUSED 128^2 frame against its plain
+    version (<= 1e-4). V3: ``eval_compression_teaser --train-epochs 10``
+    at 64^3: every codec decodes to its volume (PSNR >= 20 dB). Returns
+    the figures of rows 1-3."""
+    from fvsrn_tpu_torch.eval import (eval_compression_teaser,
+                                      eval_density_vs_color,
+                                      eval_screen_vs_world, sweep)
+    from fvsrn_tpu_torch.eval import eval_volumetric_features as evf
+    from fvsrn_tpu_torch.inference import LoadedModel
+    from fvsrn_tpu_torch.train.main import _resolve_scene
+
+    t_phase = time.perf_counter()
+    # V1. the headline harness on the dense flagship
+    args = evf.parse_args(["--scene", "dense"])
+    model = evf.load_model(args)
+    images = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    res = evf.evaluate(model, args, images=images)
+    torch.cuda.synchronize()
+    v1_s = time.perf_counter() - t0
+    c1 = counts()
+    cam0 = LoadedModel.rotation_cameras(args.cameras, **evf.CAMERA)[0]
+    render = model.prepare_network_render(cam0, args.width, args.height,
+                                          "FUSED", device=DEVICE)
+    check(render.route == "mega", f"phase V1: route {render.route}")
+    frame_err = max_err(images["FUSED"], render())
+    err, kernel_ms = _held_frame("V1", render)
+    fused, plain = res["FUSED"], res["PLAIN32"]
+    d_ssim = abs(fused["ssim_vs_reference"] - plain["ssim_vs_reference"])
+    modes_err = max_err(images["FUSED"], images["PLAIN32"])
+    print(f"phase V1 eval_volumetric_features --scene dense [{smi}]: "
+          f"{args.width}x{args.height}, 1/{round(1 / args.stepsize)}, "
+          f"{args.cameras} cameras: FUSED {fused['frame_ms_mean']} ms/frame "
+          f"(std {fused['frame_ms_std']}, {fused['mrays_per_s']} Mrays/s, "
+          f"SSIM {fused['ssim_vs_reference']}), PLAIN32 "
+          f"{plain['frame_ms_mean']} ms/frame (std {plain['frame_ms_std']}, "
+          f"{plain['mrays_per_s']} Mrays/s, SSIM "
+          f"{plain['ssim_vs_reference']}); LPIPS "
+          f"{fused['lpips_vs_reference']}; mega_fwd launches "
+          f"{c1['mega_fwd']}; camera 0's frame vs the kernel's "
+          f"{frame_err:.3e}, kernel vs plain {err:.3e} (tol {KERNEL_TOL}), "
+          f"kernel {kernel_ms:.3f} ms; FUSED vs PLAIN32 image max|d| "
+          f"{modes_err:.3e}, SSIM |d| {d_ssim:.2e} (tol {EVAL_SSIM_TOL}); "
+          f"harness {v1_s:.1f} s", flush=True)
+    check(c1["mega_fwd"] > 0 and frame_err <= KERNEL_TOL,
+          f"phase V1: launches {c1}, frame vs kernel {frame_err}")
+    check(all(math.isfinite(r["ssim_vs_reference"]) for r in (fused, plain))
+          and d_ssim <= EVAL_SSIM_TOL, f"phase V1: SSIM {fused} {plain}")
+    v1 = {"launches": c1["mega_fwd"], "frame_ms": fused["frame_ms_mean"],
+          "frame_ms_std": fused["frame_ms_std"],
+          "mrays_per_s": fused["mrays_per_s"],
+          "plain32_frame_ms": plain["frame_ms_mean"],
+          "ssim": fused["ssim_vs_reference"],
+          "plain32_ssim": plain["ssim_vs_reference"],
+          "max_abs_err": err, "ms": kernel_ms,
+          "fused_vs_plain32_max_abs": modes_err, "seconds": v1_s}
+
+    # V2. two sweep scripts, cut in depth only
+    v2 = {}
+    for mod, extra in ((eval_screen_vs_world, []),
+                       (eval_density_vs_color, ["--render"])):
+        name = mod.__name__.rsplit(".", 1)[1]
+        nets = {}
+        reset_counts()
+        t0 = time.perf_counter()
+        sweep.sweep_main(mod.configs, mod.__doc__,
+                         ["--epochs", str(EVAL_EPOCHS)] + extra,
+                         networks=nets)
+        torch.cuda.synchronize()
+        c = counts()
+        entry = {"launches": c, "seconds": time.perf_counter() - t0,
+                 "nets": {}}
+        if mod is eval_screen_vs_world:
+            check(c["mega_fwd_diff"] >= EVAL_EPOCHS
+                  and c["mega_bwd"] >= EVAL_EPOCHS,
+                  f"phase V2 {name}: the screen entry's launches {c}")
+        else:
+            check(c["mega_fwd"] >= 2 * len(nets),
+                  f"phase V2 {name}: render launches {c}")
+        _, tf, cfg = _resolve_scene("IMPLICIT:MARSCHNER_LOBB")
+        for key, net in nets.items():
+            lm = LoadedModel(net, tf, config=cfg)
+            r = lm.prepare_network_render(lm.rotation_cameras(1)[0],
+                                          EVAL_SIZE, EVAL_SIZE, "FUSED",
+                                          device=DEVICE)
+            reset_counts()
+            r()
+            torch.cuda.synchronize()
+            n = counts()
+            n = n["mega_fwd"] if r.route == "mega" else n["segment_fwd"]
+            check(n >= 1, f"phase V2 {name} {key}: {r.route} not launched")
+            err, ms = _held_frame(f"V2 {name} {key}", r)
+            entry["nets"][key] = {"route": r.route, "launches": n,
+                                  "max_abs_err": err, "ms": ms,
+                                  "head": net.output_mode}
+        print(f"phase V2 {name} --epochs {EVAL_EPOCHS} {' '.join(extra)} "
+              f"[{smi}]: launches {c}; {EVAL_SIZE}^2 FUSED kernel vs plain "
+              + ", ".join(f"{k} ({v['head']}, {v['route']}) "
+                          f"{v['max_abs_err']:.2e} in {v['ms']:.3f} ms"
+                          for k, v in entry["nets"].items())
+              + f"; {entry['seconds']:.1f} s", flush=True)
+        v2[name] = entry
+
+    # V3. the compression teaser
+    t0 = time.perf_counter()
+    table = eval_compression_teaser.teaser(train_epochs=TEASER_EPOCHS,
+                                           device=DEVICE)
+    v3_s = time.perf_counter() - t0
+    codecs = {k: v for k, v in table.items() if k != "network"}
+    print(f"phase V3 eval_compression_teaser --train-epochs "
+          f"{TEASER_EPOCHS} [{smi}]: 64^3, "
+          + ", ".join(f"{k} {v['bytes']} B {v['psnr']:.2f} dB"
+                      for k, v in table.items())
+          + f"; {v3_s:.1f} s", flush=True)
+    check(len(codecs) == 12 and all(
+        math.isfinite(v["psnr"]) and v["psnr"] >= TEASER_MIN_PSNR
+        and 0 < v["bytes"] < 64 ** 3 * 4 for v in codecs.values())
+          and math.isfinite(table["network"]["psnr"]),
+          f"phase V3: {table}")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase V evaluation: {seconds:.1f} s", flush=True)
+    screen = v2["eval_screen_vs_world"]["launches"]
+    renders = v2["eval_density_vs_color"]
+    return {"mega_fwd": {"v1": v1, "v2_render_launches":
+                         renders["launches"]["mega_fwd"],
+                         "v2_nets": renders["nets"],
+                         "v3": {"table": table, "seconds": v3_s},
+                         "seconds": seconds},
+            "mega_fwd_diff": {"v2_screen_launches": screen["mega_fwd_diff"]},
+            "mega_bwd": {"v2_screen_launches": screen["mega_bwd"]}}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4672,6 +4847,11 @@ def main():
     for row in train_rows + [mc_row]:
         row["data_parallel"] = dp[row["name"]]
     clock("phase U")
+    # the paper's evaluation harnesses through rows 1-3
+    ev = evaluation(smi, reset_counts, counts)
+    for row in [render_row] + train_rows:
+        row["evaluation"] = ev[row["name"]]
+    clock("phase V")
 
     # 2, finished: every source built, each nvcc's seconds, the seconds the
     # phases waited for one, the ptxas reports

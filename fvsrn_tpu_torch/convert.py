@@ -6,6 +6,8 @@ The arrays are keyed by their pytree path in the JAX network
 ``latent.time_grid``, ``latent.ensemble_grid``, ``latent.time_vector``,
 ``latent.ensemble_vector``); ``meta`` carries the static fields, which
 the arrays cannot hold. ``tools/export_torch_weights.py`` writes both.
+:func:`lpips_from_jax` carries an LPIPS model's weights across the same
+way.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from .models.latent import LatentSpace
 from .models.srn import InputParametrization, Layer, SceneRepresentationNetwork
+from .train.lpips import LPIPS
 
 LATENT_KEYS = ("static_grid", "time_grid", "ensemble_grid", "time_vector",
                "ensemble_vector")
@@ -57,3 +60,12 @@ def srn_from_arrays(arrays: dict[str, np.ndarray],
         time_dependent=bool(meta.get("time_dependent", False)))
     return SceneRepresentationNetwork(inp, layers, latent,
                                       output_mode=meta["output_mode"])
+
+
+def lpips_from_jax(conv_w, conv_b, lin_w, arch: str = "alex") -> LPIPS:
+    """The port's ``LPIPS`` from the JAX package's model's leaves as
+    NumPy arrays (``conv_w``, ``conv_b``, ``lin_w``: sequences of
+    ``np.asarray`` of its fields of those names) and its ``arch``."""
+    return LPIPS([np.asarray(w, np.float32) for w in conv_w],
+                 [np.asarray(b, np.float32) for b in conv_b],
+                 [np.asarray(w, np.float32) for w in lin_w], arch=arch)

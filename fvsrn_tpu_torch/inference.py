@@ -63,6 +63,7 @@ from .raytracer.iso import RayEvaluationSteppingIso, trace_iso
 from .train.checkpoints import load_weights
 from .transfer import TransferFunctionPiecewiseLinear
 from .utils.device import resolve_device
+from .utils.timer import GPUTimer
 
 EVAL_MODES = ("FUSED", "FUSED_BF16", "PLAIN32", "PLAIN16")
 
@@ -458,30 +459,26 @@ class LoadedModel:
     def time_rendering(self, cameras, width: int = 512, height: int = 512,
                        mode: str = "FUSED", repeats: int = 4, *,
                        device="cuda"):
-        """Frame times on the card, timed with CUDA events: per camera,
-        ``repeats`` frames back to back and one scalar reduction of the
-        last; the first camera is warm-up and discarded. Planning happens
-        before the loop. Returns (mean_ms, std_ms, per_frame_ms)."""
+        """Frame times by ``utils.timer.GPUTimer`` (CUDA events on the
+        card, the host clock on the CPU): per camera, ``repeats`` frames
+        back to back and one scalar reduction of the last; the first
+        camera is warm-up and discarded. Planning happens before the
+        loop. Returns (mean_ms, std_ms, per_frame_ms)."""
         dev = resolve_device(device)
-        if dev.type != "cuda":
-            raise RuntimeError("time_rendering times the card; it needs a "
-                               "CUDA device")
         fns = [self.prepare_network_render(c, width, height, mode,
                                            device=dev) for c in cameras]
         for fn in fns:
             fn().mean().item()
+        timer = GPUTimer(dev)
         times = []
         for i, fn in enumerate(fns):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+            timer.start()
             for _ in range(repeats):
                 out = fn()
-            total = out.mean()
-            end.record()
-            total.item()
+            out.mean()
+            ms = timer.stop()
             if i > 0:
-                times.append(start.elapsed_time(end) / max(1, repeats))
+                times.append(ms / max(1, repeats))
         arr = np.asarray(times if times else [0.0])
         return float(arr.mean()), float(arr.std()), arr
 

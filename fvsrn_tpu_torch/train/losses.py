@@ -4,13 +4,14 @@ loss stacks.
 Counterpart of ``fvsrn_tpu/train/losses.py``. SSIM uses an 11x11
 gaussian window (sigma 1.5) over (B, C, H, W) images with "valid"
 padding, in true float32 (``strict_f32``: cuDNN would round the
-convolution through TF32). LPIPS needs pretrained weights that the
-repository does not carry; requesting it raises, as it does in the JAX
-package without a model.
+convolution through TF32). LPIPS is ``train.lpips.LPIPS``, attached as
+``LossNetScreen.lpips_model``; requesting it without a model raises, as
+it does in the JAX package.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -65,27 +66,34 @@ def dssim(pred: Tensor, ref: Tensor, **kw) -> Tensor:
 
 
 def lpips_unavailable_error():
-    return NotImplementedError(
-        "LPIPS requested (lpips > 0), but its pretrained weights are not "
-        "part of the repository and the port has no LPIPS model")
+    return RuntimeError(
+        "LPIPS requested (lpips > 0) but no model attached: build one with "
+        "fvsrn_tpu_torch.train.lpips.load_lpips(backbone_path, linear_path) "
+        "(torchvision alexnet/vgg16 checkpoint + richzhang/"
+        "PerceptualSimilarity v0.1 linear heads -- the files the reference "
+        "bundles at applications/losses/lpips/weights/), move it to the "
+        "images' device and pass it as "
+        "LossNetScreen(lpips=..., lpips_model=model).")
 
 
 @dataclass(frozen=True)
 class LossNetScreen:
     """Screen-space (image) loss: weighted L1 + L2 + DSSIM on (B, 4, H, W)
-    rgba images; ``multiply_alpha`` premultiplies prediction and
-    reference rgb by the *reference* alpha."""
+    rgba images, + LPIPS of ``lpips_model`` (``train.lpips.LPIPS``) on the
+    rgb; ``multiply_alpha`` premultiplies prediction and reference rgb by
+    the *reference* alpha."""
     l1: float = 0.0
     l2: float = 0.0
     dssim: float = 0.0
     lpips: float = 0.0
     multiply_alpha: bool = False
+    lpips_model: Optional[object] = None
 
     def __call__(self, prediction: Tensor, reference: Tensor,
                  return_individual: bool = False):
         if reference.ndim != 4 or reference.shape[1] != 4:
             raise ValueError("expected (B, 4, H, W) rgba images")
-        if self.lpips > 0:
+        if self.lpips > 0 and self.lpips_model is None:
             raise lpips_unavailable_error()
         color_channels = 3 if self.multiply_alpha else 4
         if self.multiply_alpha:
@@ -99,9 +107,11 @@ class LossNetScreen:
                 "dssim": (dssim(prediction[:, :color_channels],
                                 reference[:, :color_channels])
                           if self.dssim > 0 else zero),
-                "lpips": zero}
+                "lpips": (torch.mean(self.lpips_model(
+                    prediction[:, :3], reference[:, :3]))
+                    if self.lpips > 0 else zero)}
         total = (self.l1 * vals["l1"] + self.l2 * vals["l2"]
-                 + self.dssim * vals["dssim"])
+                 + self.dssim * vals["dssim"] + self.lpips * vals["lpips"])
         vals["total"] = total
         return (total, vals) if return_individual else total
 

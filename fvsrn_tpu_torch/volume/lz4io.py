@@ -2,51 +2,32 @@
 
 Counterpart of ``fvsrn_tpu/volume/lz4io.py``. The codec is built with
 ``g++`` on first use into ``build/fvsrn_tpu_torch/lz4-<hash>.so`` at the
-repository root, keyed by a hash of the source and the flags, and
-written to a temporary file first and moved into place, so processes
-that build at once each find a whole library. A failed build raises
-with the compiler's output: nothing falls back to uncompressed writes.
+repository root (``utils.native``). A failed build raises with the
+compiler's output: nothing falls back to uncompressed writes.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 
 import numpy as np
 
-PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(PKG_DIR, "native", "lz4.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "fvsrn_tpu_torch")
-CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
+from ..utils import native
+
+SOURCE = native.source_path("lz4")
+BUILD_DIR = native.BUILD_DIR
 
 _lock = threading.Lock()
 _lib = None
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    return os.path.join(BUILD_DIR, f"lz4-{h.hexdigest()[:16]}.so")
+    return native.library_path("lz4")
 
 
 def build() -> str:
     """Compile the codec unless it is built already; returns its path."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    proc = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building {SOURCE} failed (g++ exit "
-                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return native.build("lz4")
 
 
 def _load() -> ctypes.CDLL:

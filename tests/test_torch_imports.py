@@ -61,12 +61,32 @@ sys.exit(1 if bad else 0)
                                     "fvsrn_tpu_torch.train.screen",
                                     "fvsrn_tpu_torch.raytracer.rasterization",
                                     "fvsrn_tpu_torch.tools."
-                                    "pose_recovery_demo"])
+                                    "pose_recovery_demo",
+                                    "fvsrn_tpu_torch.utils.timer",
+                                    "fvsrn_tpu_torch.train.lpips",
+                                    "fvsrn_tpu_torch.arith",
+                                    "fvsrn_tpu_torch.compression",
+                                    "fvsrn_tpu_torch.eval.sweep",
+                                    "fvsrn_tpu_torch.eval."
+                                    "eval_network_configs",
+                                    "fvsrn_tpu_torch.eval."
+                                    "eval_activation_functions",
+                                    "fvsrn_tpu_torch.eval."
+                                    "eval_density_vs_color",
+                                    "fvsrn_tpu_torch.eval.eval_fourier",
+                                    "fvsrn_tpu_torch.eval.eval_importance",
+                                    "fvsrn_tpu_torch.eval."
+                                    "eval_screen_vs_world",
+                                    "fvsrn_tpu_torch.eval."
+                                    "eval_volumetric_features",
+                                    "fvsrn_tpu_torch.eval."
+                                    "eval_compression_teaser"])
 def test_slice_module_imports_alone(module):
     """The modules of the fused per-segment and isosurface renders, of
     Monte-Carlo path tracing, of world training, of voxel volumes and
-    scene files, of data parallelism, pose recovery and rasterization
-    import on their own, loading no JAX."""
+    scene files, of data parallelism, pose recovery and rasterization, of
+    the evaluation harnesses, LPIPS and the compression tower import on
+    their own, loading no JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", IMPORT_ONE, module],
                           cwd=ROOT, env=env, capture_output=True, text=True,
@@ -88,13 +108,21 @@ def test_sources_name_no_jax():
 
 def test_sources_reach_no_jax_native_code():
     """No path into the JAX package's native directory, its Makefile or
-    its library: the port compiles its own ``native/lz4.cpp`` into the
-    repository's build directory."""
+    its library: the port compiles its own ``native/lz4.cpp`` and
+    ``native/arith.cpp`` into the repository's build directory, and no
+    loader of either runs ``make``."""
     _assert_no_match(re.compile(r"\bfvsrn_tpu[/\\]+native|Makefile|"
-                                r"libfvsrn_native"))
+                                r"libfvsrn_native|[\"']make[\"']"))
+    from fvsrn_tpu_torch import arith
+    from fvsrn_tpu_torch.utils import native
     from fvsrn_tpu_torch.volume import lz4io
+    build = os.path.join(ROOT, "build", "fvsrn_tpu_torch")
+    assert native.NATIVE_DIR == os.path.join(PKG, "native")
+    assert native.BUILD_DIR == lz4io.BUILD_DIR == build
     assert lz4io.SOURCE == os.path.join(PKG, "native", "lz4.cpp")
-    assert lz4io.BUILD_DIR == os.path.join(ROOT, "build", "fvsrn_tpu_torch")
+    assert arith.SOURCE == os.path.join(PKG, "native", "arith.cpp")
+    for path in (lz4io.library_path(), arith.library_path()):
+        assert os.path.dirname(path) == build
 
 
 def _assert_no_match(pattern):

@@ -92,7 +92,7 @@ def test_default_device_is_cuda(models):
     with pytest.raises(RuntimeError, match="CUDA"):
         m.prepare_network_render(cam, W, W, "PLAIN32")
     with pytest.raises(RuntimeError, match="CUDA"):
-        m.time_rendering([cam], W, W, device="cpu")
+        m.time_rendering([cam], W, W)
 
 
 def test_mode_and_size_guards(models):

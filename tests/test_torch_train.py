@@ -85,7 +85,7 @@ def test_loss_net_screen(kw):
     for key in jv:
         np.testing.assert_allclose(float(v[key]), float(jv[key]), atol=1e-6,
                                    rtol=1e-6, err_msg=key)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no model attached"):
         losses.LossNetScreen(lpips=1.0)(torch.tensor(a), torch.tensor(b))
 
 

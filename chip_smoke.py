@@ -5,9 +5,10 @@
 Builds the port's CUDA kernels from this checkout and drives the port's
 main paths on the card. The sources build in the background, as many at
 a time as the cores, in the order the phases first load them, and the
-phases run in the order K, 3-10, J, A-I, L, M, N-V, so that each starts
+phases run in the order K, 3-10, J, A-I, L, M, N-X, so that each starts
 once its own libraries are built while the rest still build, and those
-that compute most on the host's cores (L, M) run once most are built:
+that compute most on the host's cores (L, M) run once most are built
+(W and X come last, X's libraries last in the build):
 
 - phases 3-6, the product render: the dense flagship through
   ``LoadedModel.prepare_network_render`` in FUSED mode (512x512, world
@@ -89,7 +90,8 @@ that compute most on the host's cores (L, M) run once most are built:
   engine on route 2's rays (``fused_trace_dvr``), each kernel against its
   plain version and the f32 oracle (``trace_dvr``) on 16384 rays, and one
   differentiable step (mean(img^2)) on each engine (rows 2-3 and 5-6),
-  every gradient leaf (the TF's tables too) against the plain pair;
+  timed at full frame, every gradient leaf (the TF's tables too) against
+  the plain pair on 64 whole tiles;
   frames, kernels and steps timed beside phases 6, 10 and F's piecewise
   figures, the launches counted;
 - phase O, the paper's network sweeps on rows 1-3;
@@ -156,7 +158,28 @@ that compute most on the host's cores (L, M) run once most are built:
   for each head) at 2 epochs, every trained network's FUSED 128^2 frame
   against its plain version (V2); ``eval_compression_teaser`` (the SRN
   fitted on the card, the host codecs at 64^3, each decoding to its
-  volume) (V3).
+  volume) (V3);
+- phase W, the last modules through their entry points, no TPU kernel
+  on their paths: the viewer (``viewer.serve`` on an ephemeral port,
+  JAX's main scene: MARSCHNER_LOBB, DVR at 1/256) answering ``/``,
+  ``/meta`` and four 512^2 renders (orbits and opacity), a progressive
+  MC evaluator at 128^2 counting its passes (W1); ``eval_scaling
+  --device cuda --devices 1 2`` at its defaults, one ``nccl`` rank and
+  two ``gloo`` ranks sharing the card (no scaling figure) (W2); the
+  variant and meta networks at the JAX package's defaults world-trained
+  200 steps of 2^16 positions on MARSCHNER_LOBB, rendered PLAIN32 at
+  128^2, card against CPU, their FUSED render refused (W3); ``cli.main``
+  on a 256^3 float32 ``.xyz`` and a 256^3 UCHAR ``.dat`` to LZ4 ``.cvol``
+  with 2 mipmaps, reloaded, and ``warp_image``/``inpaint`` on a 4x512^2
+  image card against CPU (W4);
+- phase X, the texture, 1D- and 2D-preintegrated TFs on networks other
+  than SnakeAlt without direction input (the flagship's widths as ReLU
+  with direction input and as Sine:30, a 64:64:64 ReLU network with
+  direction input) through ``prepare_network_render(mode="FUSED")``:
+  route 1 at 512^2, 1/512 (``csrc/mega_fwd_anytf*.cu``) and route 2 at
+  1920x1080 (``csrc/segment_fwd_anytf.cu``), each kernel against its
+  plain version on 64 whole tiles, timed beside the same network's
+  piecewise frame and the flagship's frame in the same mode.
 
 Prints one JSON line with every kernel and a last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -201,7 +224,8 @@ BF16_GRID_REL = 2.0 ** -7
 TIMED_CAMERAS = 4
 TIMED_STEPS = 3
 # phase 2: the sources in the order the phases first load them (the
-# phases run K, 3-10, J, A-I, L, M, N-V), then those no phase launches
+# phases run K, 3-10, J, A-I, L, M, N-X), then those no phase launches,
+# then phase X's (the last phase; its four take ~840 s of nvcc)
 BUILD_ORDER = ("probes", "mega_fwd", "mega_bwd", "segment_fwd",
                "segment_bwd", "sample_eval", "mega_fwd_tf", "segment_fwd_tf",
                "mega_fwd_any", "mega_fwd48", "mega_fwd_any48", "mega_bwd48",
@@ -212,7 +236,8 @@ BUILD_ORDER = ("probes", "mega_fwd", "mega_bwd", "segment_fwd",
                "mega_fwd64_t128", "mega_bwd64_t128", "mega_fwd_tf_t128",
                "mega_fwd_tf48_t128", "mega_fwd_tf64_t128",
                "mega_fwd_any_t128", "mega_fwd_any48_t128",
-               "mega_fwd_any64_t128")
+               "mega_fwd_any64_t128", "segment_fwd_anytf", "mega_fwd_anytf",
+               "mega_fwd_anytf48", "mega_fwd_anytf64")
 SEG_WIDTH, SEG_HEIGHT = 1920, 1080   # phase A: not multiples of 16
 RGBO_SIZE = 504                      # phase C
 ISO_VALUE = 0.5                      # phase E
@@ -2253,15 +2278,15 @@ def voxel_volume(smi, reset_counts, counts):
                          "mega_bwd": c_screen["mega_bwd"]}}
 
 
-def image_check(phase, got, want, mode):
+def image_check(phase, got, want, mode, share=TF_FLIP_SHARE):
     """(largest error, share of rays off KERNEL_TOL) of a TF mode's kernel
     image against its plain version; fails past the mode's bound (every
-    ray, or for the discontinuous modes TF_FLIP_SHARE of the rays within
-    TF_FLIP_TOL)."""
+    ray, or for the discontinuous modes ``share`` of the rays, by default
+    TF_FLIP_SHARE, within TF_FLIP_TOL)."""
     err = (got - want).abs().reshape(-1, 4).amax(dim=1)
     mx, off = float(err.max()), float((err > KERNEL_TOL).float().mean())
     if mode in ("preint1d", "preint2d"):
-        check(off <= TF_FLIP_SHARE and mx <= TF_FLIP_TOL,
+        check(off <= share and mx <= TF_FLIP_TOL,
               f"{phase} {mode}: kernel vs plain {mx} ({off} of the rays)")
     else:
         check(mx <= KERNEL_TOL, f"{phase} {mode}: kernel vs plain {mx}")
@@ -2483,16 +2508,27 @@ def tf_modes(smi, reset_counts, counts, npz, cam, frame_ms):
         fig["row4_samples"] = n4
         fig["row4_bound_ms"] = n4 * per_sample / PEAK_BF16_TC * 1e3
 
-        # N4. one differentiable step on each engine, kernels vs plain
+        # N4. one differentiable step on each engine at full frame (its
+        # launches counted, timed), the kernels vs the plain pair on
+        # ORACLE_TILES whole 256-ray tiles spread over the frame (the
+        # plain pair's full-frame steps took ~60 s of the phase)
         for engine, rows, march, plain_march, mkw, r_, d_ in engines:
             kw = dict(mkw, **tf_kw)
             args = (r_, d_, net, *box)
             reset_counts()
-            img_k, g_k = tf_step(march, args, tensor, pre, kw)
+            tf_step(march, args, tensor, pre, kw)
             torch.cuda.synchronize()
             ck = counts()
             check(ck[rows[0]] == 1 and ck[rows[1]] == 1,
                   f"phase N {mode} {engine} step: launches {ck}")
+            n_t = r_.shape[0] // 256
+            step_tiles = torch.arange(0, n_t, n_t // ORACLE_TILES,
+                                      device=dev)[:ORACLE_TILES]
+            step_sel = (step_tiles[:, None] * 256
+                        + torch.arange(256, device=dev)).reshape(-1)
+            args = (r_[step_sel].contiguous(), d_[step_sel].contiguous(),
+                    net, *box)
+            img_k, g_k = tf_step(march, args, tensor, pre, kw)
             (img_p, g_p), pms = cuda_once(
                 lambda: tf_step(plain_march, args, tensor, pre, kw))
             ierr, ioff = image_check(f"phase N {engine} step", img_k, img_p,
@@ -2508,8 +2544,8 @@ def tf_modes(smi, reset_counts, counts, npz, cam, frame_ms):
                     for p in moved.parameters():
                         p.mul_(1.0 + TF_FLIP_EPS * torch.randn(
                             p.shape, device=dev, generator=gen))
-                _, g_q = tf_step(plain_march, (r_, d_, moved, *box), tensor,
-                                 pre, kw)
+                _, g_q = tf_step(plain_march, (*args[:2], moved, *box),
+                                 tensor, pre, kw)
                 tol = {n: max(GRAD_TOL, TF_FLIP_GRAD * rel_err(g_q[n], g_p[n]))
                        if float(g_p[n].norm()) > 0 else GRAD_TOL for n in g_p}
             worst = max(rel, key=lambda n: rel[n] / tol[n])
@@ -2518,7 +2554,8 @@ def tf_modes(smi, reset_counts, counts, npz, cam, frame_ms):
                   f"(tol {tol[worst]})")
             fig[f"{engine}_grad_tol"] = tol[worst]
             fig[f"{engine}_step_ms"] = cuda_ms(
-                lambda: tf_step(march, args, tensor, pre, kw), TIMED_STEPS)
+                lambda: tf_step(march, (r_, d_, net, *box), tensor, pre, kw),
+                TIMED_STEPS)
             fig[f"{engine}_plain_ms"] = pms
             fig[f"{engine}_img_err"] = ierr
             fig[f"{engine}_grad_rel"] = rel[worst]
@@ -2543,8 +2580,8 @@ def tf_modes(smi, reset_counts, counts, npz, cam, frame_ms):
               f"{pw['scan_step_ms']:.3f}), grad rel "
               f"{fig['scan_grad_rel']:.2e} ({fig['scan_grad_worst']}, tol "
               f"{fig['scan_grad_tol']:.2e}); plain "
-              f"steps {fig['mega_plain_ms']:.0f} / {fig['scan_plain_ms']:.0f}"
-              f" ms", flush=True)
+              f"steps on {ORACLE_TILES} tiles {fig['mega_plain_ms']:.0f} / "
+              f"{fig['scan_plain_ms']:.0f} ms", flush=True)
         figures[mode] = fig
     return figures, trainer_counts
 
@@ -4602,6 +4639,473 @@ def evaluation(smi, reset_counts, counts):
             "mega_bwd": {"v2_screen_launches": screen["mega_bwd"]}}
 
 
+# phase W: the last slice's modules on the card
+W_SIZE = 512                         # W1: the viewer's render requests
+W_MC_SIZE = 128                      # W1: the progressive MC evaluator
+W_ORBITS = (dict(pitch=0.35, yaw=0.6, distance=1.8),
+            dict(pitch=0.35, yaw=2.6, distance=1.8),
+            dict(pitch=0.35, yaw=0.6, distance=1.8, opacity=0.4),
+            dict(pitch=-0.3, yaw=4.0, distance=1.5, opacity=2.0))
+W_STEPS = 200                        # W3: world steps a network
+W_BATCH = 1 << 16                    # W3: positions a step
+W_RENDER = 128                       # W3: PLAIN32 render
+W_CPU_POSITIONS = 4096               # W3: card vs CPU forward
+W_NET_TOL = 1e-5                     # W3: card vs CPU forward
+W_GRID = 256                         # W4: the converted volumes
+W_IMAGE = (4, 512, 512)              # W4: imageops on the card
+W_IMAGE_TOL = 1e-6
+# phase X: the texture and preintegrated TFs on networks other than
+# SnakeAlt without direction input, rows 1 (route 1) and 4 (route 2)
+X_NETS = {
+    "relu_dir": dict(layers="32:32:32", activation="ReLU",
+                     use_direction=True, disable_direction_in_fourier=False),
+    "sine30": dict(layers="32:32:32", activation="Sine:30"),
+    "relu_dir64": dict(layers="64:64:64", activation="ReLU",
+                       use_direction=True,
+                       disable_direction_in_fourier=False),
+}
+X_MODES = ("texture", "preint1d", "preint2d")
+
+
+def _get(url, timeout=300):
+    import urllib.request
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        body, headers = r.read(), dict(r.headers)
+    return body, headers, (time.perf_counter() - t0) * 1e3
+
+
+def last_modules(smi, reset_counts, counts):
+    """Phase W, the last slice's modules on the card through their entry
+    points: W1 the viewer serving JAX's main scene (MARSCHNER_LOBB, DVR at
+    1/256) at 512^2 and a progressive MC evaluator at 128^2; W2
+    ``eval_scaling --device cuda --devices 1 2`` at its defaults (ranks
+    sharing the one card: no scaling figure); W3 the variant and meta
+    networks at the JAX package's defaults, world-trained W_STEPS steps on
+    MARSCHNER_LOBB, PLAIN32 at 128^2, card vs CPU; W4 ``cli.main`` on a
+    256^3 float32 .xyz and a 256^3 UCHAR .dat (LZ4, 2 mipmaps) and
+    ``warp_image``/``inpaint`` card vs CPU. No TPU kernel runs here; the
+    counts show none launched. Returns the figures."""
+    import urllib.error
+
+    from fvsrn_tpu_torch import cli
+    from fvsrn_tpu_torch.camera import CameraOnASphere
+    from fvsrn_tpu_torch.inference import LoadedModel
+    from fvsrn_tpu_torch.models.latent import LatentSpace
+    from fvsrn_tpu_torch.models.meta import MetaSceneNetwork
+    from fvsrn_tpu_torch.models.variants import (ModulatedSineNetwork,
+                                                 ResidualSineNetwork)
+    from fvsrn_tpu_torch.phase import PhaseFunctionHenyeyGreenstein
+    from fvsrn_tpu_torch.raytracer.dvr import RayEvaluationSteppingDvr
+    from fvsrn_tpu_torch.raytracer.evaluator import ImageEvaluatorSimple
+    from fvsrn_tpu_torch.raytracer.montecarlo import RayEvaluationMonteCarlo
+    from fvsrn_tpu_torch.train.optimizer import make_optimizer
+    from fvsrn_tpu_torch.transfer import (TransferFunctionIdentity,
+                                          TransferFunctionPiecewiseLinear)
+    from fvsrn_tpu_torch.utils.imageops import inpaint, warp_image
+    from fvsrn_tpu_torch.viewer import default_evaluator, serve
+    from fvsrn_tpu_torch.volume.implicit import (VolumeInterpolationImplicit,
+                                                 create_implicit_grid)
+    from fvsrn_tpu_torch.volume.volume import Volume
+
+    dev, cpu = torch.device(DEVICE), torch.device("cpu")
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    fig = {}
+    reset_counts()
+
+    # W1. the viewer on the card: the page, /meta, four 512^2 renders
+    server = serve(default_evaluator("MARSCHNER_LOBB", stepsize=1 / 256,
+                                     device=dev),
+                   port=0, block=False, device=dev)
+    try:
+        base = f"http://127.0.0.1:{server.server_port}"
+        page, _, _ = _get(f"{base}/")
+        meta = json.loads(_get(f"{base}/meta")[0])
+        check(b"fvsrn_tpu viewer" in page and meta["progressive"] is False,
+              f"phase W1: page or meta {meta}")
+        pngs, ms = [], []
+        for q in W_ORBITS:
+            query = "&".join(f"{k}={v}" for k, v in dict(
+                q, size=W_SIZE).items())
+            png, _, t = _get(f"{base}/render?{query}")
+            check(png[:8] == b"\x89PNG\r\n\x1a\n", f"phase W1: {query}")
+            pngs.append(png)
+            ms.append(t)
+        check(pngs[0] != pngs[1] and pngs[0] != pngs[2],
+              "phase W1: an orbit or an opacity change left the image")
+        try:
+            _get(f"{base}/render?size=-1")
+            fail("phase W1: a bad request rendered")
+        except urllib.error.HTTPError as e:
+            check(e.code == 500 and "error" in json.loads(e.read()),
+                  f"phase W1: a bad request answered {e.code}")
+    finally:
+        server.shutdown()
+    fig["viewer_ms"] = ms
+    mc = ImageEvaluatorSimple(
+        camera=CameraOnASphere.make(pitch=0.3, yaw=0.5, distance=1.6),
+        volume=VolumeInterpolationImplicit.make("SPHERE", device=dev),
+        tf=TransferFunctionIdentity.make(absorption=8.0, emission=1.0),
+        ray_config=RayEvaluationMonteCarlo.make(
+            max_absorption=8.0, density_min=0.3, num_bounces=1,
+            max_iterations=32),
+        phase=PhaseFunctionHenyeyGreenstein.make(g=0.0), ray_mode="mc")
+    server = serve(mc, port=0, block=False, device=dev)
+    try:
+        base = f"http://127.0.0.1:{server.server_port}"
+        check(json.loads(_get(f"{base}/meta")[0])["progressive"] is True,
+              "phase W1: the MC evaluator is not progressive")
+        frames, mc_ms = [], []
+        for yaw in (0.5, 0.5, 2.0):
+            png, h, t = _get(f"{base}/render?size={W_MC_SIZE}&pitch=0.3"
+                             f"&yaw={yaw}&distance=1.6")
+            check(png[:8] == b"\x89PNG\r\n\x1a\n", "phase W1: MC render")
+            frames.append(h["X-Frames"])
+            mc_ms.append(t)
+        check(frames == ["1", "2", "1"], f"phase W1: X-Frames {frames}")
+    finally:
+        server.shutdown()
+    fig["viewer_mc_ms"] = mc_ms
+    print(f"phase W1 viewer [{smi}]: {W_SIZE}^2 renders "
+          f"{', '.join(f'{t:.1f}' for t in ms)} ms a request (the first "
+          f"with the warm-up); MC {W_MC_SIZE}^2 X-Frames {frames}, "
+          f"{', '.join(f'{t:.1f}' for t in mc_ms)} ms", flush=True)
+
+    # W2. the scaling harness, one nccl rank and two gloo ranks sharing
+    # the card
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fvsrn_tpu_torch.eval.eval_scaling",
+         "--device", "cuda", "--devices", "1", "2"], cwd=root,
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"phase W2: eval_scaling exit "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    scaling = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(sorted(scaling) == ["1", "2"]
+          and all(r["rays_per_s"] > 0 for r in scaling.values())
+          and scaling["2"].get("shared_device") is True
+          and "shared_device" not in scaling["1"],
+          f"phase W2: {scaling}")
+    fig["scaling"] = scaling
+    print(f"phase W2 eval_scaling [{smi}]: n=1 (nccl) "
+          f"{scaling['1']['rays_per_s'] / 1e6:.3f} Mrays/s, n=2 (two gloo "
+          f"ranks sharing the card, not a scaling figure) "
+          f"{scaling['2']['rays_per_s'] / 1e6:.3f} Mrays/s, 256^2 h=1/64; "
+          f"{time.perf_counter() - t0:.1f} s with the spawns", flush=True)
+
+    # W3. the variant and meta networks: world training, PLAIN32, card vs
+    # CPU, the fused paths refused
+    target = VolumeInterpolationImplicit.make("MARSCHNER_LOBB", device=dev)
+    rng = np.random.default_rng(19)
+    latent = LatentSpace(ensemble_vector=torch.from_numpy(
+        rng.random((1, 4, 3)).astype(np.float32)))
+    nets = {"ResidualSine": (ResidualSineNetwork.make(), 2e-4),
+            "ModulatedSine": (ModulatedSineNetwork.make(
+                latent=copy.deepcopy(latent)), 1e-3),
+            "Meta": (MetaSceneNetwork.make(latent=copy.deepcopy(latent)),
+                     1e-3)}
+    tf = TransferFunctionPiecewiseLinear.make(
+        rgb=[[0.1, 0.1, 0.8], [0.8, 0.3, 0.1], [1.0, 1.0, 0.6]],
+        opacity=[0.0, 8.0, 25.0], positions=[0.0, 0.5, 1.0])
+    cfg = RayEvaluationSteppingDvr.make(stepsize=1 / 256)
+    cam = CameraOnASphere.make(pitch=0.35, yaw=0.6, distance=1.8)
+    gen = torch.Generator(dev).manual_seed(0)
+    fig["networks"] = {}
+    for name, (net, lr) in nets.items():
+        net = net.to(dev)
+        opt, _ = make_optimizer(net.parameters(), "Adam", lr=lr,
+                                lr_gamma=1.0)
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(W_STEPS):
+            x = torch.rand(W_BATCH, 3, device=dev, generator=gen)
+            with torch.no_grad():
+                want = target.eval_density(
+                    target.box_min + x * target.box_size)[0][:, None]
+            opt.zero_grad(set_to_none=True)
+            loss = torch.mean(torch.abs(net(x, mode="world") - want))
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / W_STEPS
+        losses = [float(v) for v in losses]
+        check(all(math.isfinite(v) for v in losses)
+              and np.mean(losses[-10:]) < 0.9 * np.mean(losses[:10]),
+              f"phase W3 {name}: losses {losses[:3]} ... {losses[-3:]}")
+        model = LoadedModel(net, tf, cfg)
+        render = model.prepare_network_render(cam, W_RENDER, W_RENDER,
+                                              "PLAIN32", device=dev)
+        img, plain_ms = cuda_once(render)
+        check(tuple(img.shape) == (W_RENDER, W_RENDER, 4)
+              and bool(torch.isfinite(img).all()),
+              f"phase W3 {name}: PLAIN32 image")
+        try:
+            model.prepare_network_render(cam, W_RENDER, W_RENDER, "FUSED",
+                                         device=dev)
+            fail(f"phase W3 {name}: a FUSED render did not raise")
+        except NotImplementedError as e:
+            check(type(net).__name__ in str(e), f"phase W3 {name}: {e}")
+        x = torch.rand(W_CPU_POSITIONS, 3, device=dev, generator=gen)
+        e = torch.full((W_CPU_POSITIONS,), 1.5, device=dev)
+        with torch.no_grad():
+            got = net(x, ensemble=e, mode="world")
+            want = copy.deepcopy(net).to(cpu)(x.cpu(), ensemble=e.cpu(),
+                                              mode="world")
+        err = float((got.cpu() - want).abs().max())
+        check(err <= W_NET_TOL, f"phase W3 {name}: card vs CPU {err}")
+        fig["networks"][name] = {
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "step_ms": step_ms, "plain32_ms": plain_ms,
+            "alpha_max": float(img[..., 3].max()), "card_vs_cpu": err}
+        print(f"phase W3 {name} [{smi}]: {W_STEPS} world steps of "
+              f"{W_BATCH} positions, L1 {losses[0]:.4f} -> {losses[-1]:.4f}, "
+              f"{step_ms:.2f} ms a step (host clock); PLAIN32 "
+              f"{W_RENDER}^2 {plain_ms:.1f} ms, alpha max "
+              f"{float(img[..., 3].max()):.3f}; FUSED refused; card vs "
+              f"CPU {err:.2e}", flush=True)
+
+    # W4. the converter on two 256^3 volumes, imageops card vs CPU
+    grid = create_implicit_grid(W_GRID, "MARSCHNER_LOBB",
+                                device=dev).cpu().numpy()     # [x, y, z]
+    xyz = os.path.join(out_dir, f"mlobb{W_GRID}.xyz")
+    with open(xyz, "wb") as f:
+        f.write(np.asarray([W_GRID] * 3, np.uint32).tobytes())
+        f.write(np.asarray([1.0] * 3, np.float64).tobytes())
+        f.write(np.ascontiguousarray(grid).tobytes())     # z fastest
+    u8 = np.round(np.clip(grid, 0, 1) * 255).astype(np.uint8)
+    with open(os.path.join(out_dir, f"mlobb{W_GRID}.raw"), "wb") as f:
+        f.write(np.ascontiguousarray(u8.transpose(2, 1, 0)).tobytes())
+    dat = os.path.join(out_dir, f"mlobb{W_GRID}.dat")
+    with open(dat, "w") as f:
+        f.write(f"ObjectFileName: mlobb{W_GRID}.raw\nResolution: {W_GRID} "
+                f"{W_GRID} {W_GRID}\nSliceThickness: 1 1 1\n"
+                "Format: UCHAR\n")
+    fig["cli"] = {}
+    for src, data in ((xyz, grid), (dat, u8)):
+        out = src[:-4] + "_lz4.cvol"
+        t0 = time.perf_counter()
+        check(cli.main([src, out, "--compression", "1", "--mipmaps",
+                        "2"]) == 0, f"phase W4: cli on {src}")
+        secs = time.perf_counter() - t0
+        back = Volume.load(out).features[0].levels[0].data[..., 0]
+        check(np.array_equal(back, data.transpose(2, 1, 0)),
+              f"phase W4: {os.path.basename(out)} reloaded")
+        mb_s = data.nbytes / secs / 1e6
+        fig["cli"][os.path.basename(src)] = {
+            "seconds": secs, "mb_s": mb_s, "bytes": os.path.getsize(out)}
+        print(f"phase W4 cli: {os.path.basename(src)} ({data.nbytes / 2**20:.0f}"
+              f" MiB) -> LZ4 .cvol with 2 mipmaps in {secs:.2f} s, "
+              f"{mb_s:.1f} MB/s (host), {os.path.getsize(out) / 2**20:.1f} "
+              f"MiB, reloaded equal", flush=True)
+    g = torch.Generator().manual_seed(3)
+    image = torch.rand(W_IMAGE, generator=g)
+    flow = (torch.rand((2,) + W_IMAGE[1:], generator=g) - 0.5) * 9.0
+    mask = (torch.rand(W_IMAGE[1:], generator=g) > 0.3).float()
+    for name, fn, args in (("warp_image", warp_image, (image, flow)),
+                           ("inpaint", inpaint, (image, mask))):
+        want = fn(*args)
+        dargs = [a.to(dev) for a in args]
+        got, ms = cuda_once(lambda: fn(*dargs))
+        ms = cuda_ms(lambda: fn(*dargs), 5)
+        err = float((got.cpu() - want).abs().max())
+        check(err <= W_IMAGE_TOL, f"phase W4 {name}: card vs CPU {err}")
+        fig[name] = {"ms": ms, "card_vs_cpu": err}
+        print(f"phase W4 {name} [{smi}]: {W_IMAGE} on the card "
+              f"{ms:.3f} ms, card vs CPU {err:.2e}", flush=True)
+    # the MC viewer's walk counts its tracking rounds; no kernel launched
+    c = {k: v for k, v in counts().items()
+         if k not in ("tracking_rounds", "normal_rounds",
+                      "sample_eval_positions")}
+    check(not any(c.values()), f"phase W: a TPU kernel launched {c}")
+    return fig
+
+
+def flip_share(plain_fn, args, kw, want):
+    """The share of rays a preintegrating mode's kernel image may have off
+    KERNEL_TOL: the larger of TF_FLIP_SHARE and NOISE_FLIP times the share
+    its plain version moves off ``want`` when every weight moves by a
+    seeded relative NOISE_EPS (one float32 ulp). The near branch and the
+    nearest 2D cell flip on density noise of that size, and an
+    ill-conditioned network (Sine:30: its 30x pre-activations) flips many
+    more rays than phase N's flagship."""
+    moved = copy.deepcopy(args[2])
+    gen = torch.Generator(moved.layers[0].weight.device).manual_seed(0)
+    with torch.no_grad():
+        for p in moved.parameters():
+            p.mul_(1.0 + NOISE_EPS * torch.randn(p.shape, device=p.device,
+                                                 generator=gen))
+    err = (plain_fn(*args[:2], moved, *args[3:], **kw) - want).abs().amax(
+        dim=-1)
+    return max(TF_FLIP_SHARE,
+               NOISE_FLIP * float((err > KERNEL_TOL).float().mean()))
+
+
+def any_tf(smi, reset_counts, counts, cam):
+    """Phase X, the texture and preintegrated TFs on networks other than
+    SnakeAlt without direction input: the flagship's widths (32:32:32, 14
+    Fourier features, a 16x32^3 grid) as ReLU with direction input and as
+    Sine:30, and a 64:64:64 ReLU network with direction input, each under
+    texture, preint1d and preint2d, through
+    ``LoadedModel.prepare_network_render(mode="FUSED")``: route 1 at
+    512^2, 1/512 (``mega_fwd_anytf*``) and route 2 at 1920x1080
+    (``segment_fwd_anytf``); each kernel against its plain version on 64
+    whole tiles (every ray within KERNEL_TOL, the preintegrated modes a
+    share of rays, ``flip_share``), and the first network's texture frames at
+    full frame; each frame timed beside the same network's piecewise
+    frame (``mega_fwd_any``) and the flagship's frame in the same mode
+    (``mega_fwd_tf``). Returns the two rows of the kernels line."""
+    from fvsrn_tpu_torch.inference import LoadedModel
+    from fvsrn_tpu_torch.models.latent import LatentSpace
+    from fvsrn_tpu_torch.models.srn import SceneRepresentationNetwork
+    from fvsrn_tpu_torch.ops import fused_dvr, fused_mega
+    from fvsrn_tpu_torch.raytracer.dvr import RayEvaluationSteppingDvr
+    from fvsrn_tpu_torch.scenes import dense_scene, dense_tf_modes
+    from fvsrn_tpu_torch.train.checkpoints import load_weights
+
+    dev = torch.device(DEVICE)
+    _, ramp, npz = dense_scene()
+    modes = dense_tf_modes(STEPSIZE)
+    cfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE)
+    flagship = load_weights(npz).to(dev)
+    grid = np.random.default_rng(23).standard_normal((16, 32, 32, 32)) * 0.3
+    rows = {"mega_fwd_anytf": {}, "segment_fwd_anytf": {}}
+
+    def subset(render, n_tile):
+        """Whole tiles of ``n_tile`` rays spread over the frame (64 of
+        them): the kernel and its plain version on the same rays."""
+        n = render.ray_start.shape[0] // n_tile
+        tiles = torch.arange(0, n, max(n // ORACLE_TILES, 1),
+                             device=dev)[:ORACLE_TILES]
+        sel = (tiles[:, None] * n_tile
+               + torch.arange(n_tile, device=dev)).reshape(-1)
+        kw = dict(render.march_kwargs)
+        if render.route == "mega":
+            kw["tmax_clip"] = render.tmax_clip[sel]
+            if render.segment_active is not None:
+                kw["segment_active"] = render.segment_active[tiles]
+        args = (render.ray_start[sel].contiguous(),
+                render.ray_dir[sel].contiguous(), render.network,
+                render.box_min, render.box_size, render.tf.tensor)
+        return args, kw
+
+    def frame_ms(net, tf, w, h):
+        r = LoadedModel(net, tf, cfg).prepare_network_render(cam, w, h,
+                                                             "FUSED")
+        return cuda_ms(r, 3)
+
+    t_phase = time.perf_counter()
+    snake_ms = {(m, size): frame_ms(flagship, modes[m], *size)
+                for m in X_MODES
+                for size in ((WIDTH, HEIGHT), (SEG_WIDTH, SEG_HEIGHT))}
+    for name, kw in X_NETS.items():
+        net = SceneRepresentationNetwork.make(
+            num_fourier=14, output_mode="density", seed=11,
+            latent=LatentSpace(static_grid=torch.tensor(
+                grid, dtype=torch.float32)), **kw).to(dev)
+        width = fused_mega.kernel_width(net)
+        pw = {size: frame_ms(net, ramp, *size)
+              for size in ((WIDTH, HEIGHT), (SEG_WIDTH, SEG_HEIGHT))}
+        for mode in X_MODES:
+            model = LoadedModel(net, modes[mode], cfg)
+            for row, size, n_tile, plain_fn in (
+                    ("mega_fwd_anytf", (WIDTH, HEIGHT), 256,
+                     fused_mega.mega_trace_dvr_plain),
+                    ("segment_fwd_anytf", (SEG_WIDTH, SEG_HEIGHT), 128,
+                     fused_dvr.fused_trace_dvr_plain)):
+                lib = (fused_mega.library_name(row, width)
+                       if row.startswith("mega") else row)
+                render = model.prepare_network_render(cam, *size, "FUSED")
+                check(render.route == ("mega" if row.startswith("mega")
+                                       else "segment"),
+                      f"phase X {name} {mode}: route {render.route}")
+                reset_counts()
+                img = render()
+                torch.cuda.synchronize()
+                c = counts()
+                libs = dict(fused_mega.LIBRARY_LAUNCHES)
+                libs.update(fused_dvr.LIBRARY_LAUNCHES)
+                want_n = 1 if row.startswith("mega") else 2
+                check(libs == {lib: want_n}
+                      and bool(torch.isfinite(img).all())
+                      and float(img[..., 3].max()) > 0.5,
+                      f"phase X {name} {mode} {row}: launches {libs}, "
+                      f"counts {c}, alpha {float(img[..., 3].max())}")
+                args, skw = subset(render, n_tile)
+                kernel = fused_mega.mega_trace_dvr if row.startswith(
+                    "mega") else fused_dvr.fused_trace_dvr
+                want = plain_fn(*args, **skw)
+                share = (flip_share(plain_fn, args, skw, want)
+                         if mode in ("preint1d", "preint2d")
+                         else TF_FLIP_SHARE)
+                err, off = image_check(f"phase X {name} {row}",
+                                       kernel(*args, **skw), want, mode,
+                                       share)
+                fig = {"launches": want_n, "max_abs_err": err,
+                       "off_share": off, "off_bound": share,
+                       "frame_ms": cuda_ms(render, 3),
+                       "ms": cuda_ms(lambda: render.march(), 3),
+                       "piecewise_frame_ms": pw[size],
+                       "snakealt_frame_ms": snake_ms[(mode, size)]}
+                if name == "relu_dir" and mode == "texture":
+                    # the row's figures: the whole frame against its plain
+                    # version, its samples and bound
+                    plain, fig["plain_ms"] = cuda_once(
+                        lambda: render.march(plain_fn))
+                    got = render.march()
+                    fig["frame_err"] = max_err(got, plain)
+                    check(fig["frame_err"] <= KERNEL_TOL,
+                          f"phase X {row}: whole frame vs plain "
+                          f"{fig['frame_err']}")
+                    if row.startswith("mega"):
+                        n_s = int(render.march(return_samples=True)[1]
+                                  .sum())
+                    else:
+                        n_s = int(render.march(return_stats=True)[1]
+                                  .samples)
+                    flops = n_s * (sample_flops(net) + TF_FLOPS[mode])
+                    io_bytes = (render.ray_start.shape[0] * (6 + 1 + 4) * 4
+                                + 16 * 32 ** 3 * 2)
+                    fig["samples"] = n_s
+                    fig["bound_ms"] = max(flops / PEAK_BF16_TC,
+                                          io_bytes / PEAK_BYTES) * 1e3
+                    fig["bound_by"] = ("operations" if flops / PEAK_BF16_TC
+                                       > io_bytes / PEAK_BYTES else "bytes")
+                rows[row][f"{name}:{mode}"] = fig
+                print(f"phase X {name} {mode} {row} [{smi}]: {size[0]}x"
+                      f"{size[1]} FUSED frame {fig['frame_ms']:.3f} ms "
+                      f"(kernel {fig['ms']:.3f}; the same network's "
+                      f"piecewise frame {pw[size]:.3f}, the flagship's "
+                      f"{mode} frame {snake_ms[(mode, size)]:.3f}), "
+                      f"launches {libs}, vs plain on {ORACLE_TILES} tiles "
+                      f"max|d| {err:.3e} ({off:.2e} of rays > "
+                      f"{KERNEL_TOL}, bound {share:.2e})", flush=True)
+    print(f"phase X: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    out = []
+    for row, src, replaces in (
+            ("mega_fwd_anytf", "fvsrn_tpu_torch/csrc/mega_fwd_anytf.cu",
+             "fvsrn_tpu/ops/fused_mega.py:274"),
+            ("segment_fwd_anytf", "fvsrn_tpu_torch/csrc/segment_fwd_anytf.cu",
+             "fvsrn_tpu/ops/fused_dvr.py:1626")):
+        main = rows[row]["relu_dir:texture"]
+        out.append({
+            "name": row, "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": sum(f["launches"] for f in rows[row].values()),
+            "max_abs_err": max(main["frame_err"], max(
+                f["max_abs_err"] for k, f in rows[row].items()
+                if not k.endswith(("preint1d", "preint2d")))),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "frame_ms": main["frame_ms"],
+            "samples": main["samples"], "cases": rows[row],
+            "ptxas": ptxas_summary(src.split("/")[-1][:-3])})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4657,6 +5161,8 @@ def main():
         fused_dvr.SEGMENT_NRM_LAUNCHES = 0
         fused_eval.SAMPLE_GRAD_LAUNCHES = 0
         montecarlo.NORMAL_ROUNDS = 0
+        fused_mega.LIBRARY_LAUNCHES.clear()
+        fused_dvr.LIBRARY_LAUNCHES.clear()
 
     def counts():
         return {"mega_fwd": fused_mega.launches("mega_fwd"),
@@ -4671,7 +5177,12 @@ def main():
                 "mega_fwd_nrm": fused_mega.launches("mega_fwd_nrm"),
                 "segment_fwd_nrm": fused_dvr.SEGMENT_NRM_LAUNCHES,
                 "sample_eval_grad": fused_eval.SAMPLE_GRAD_LAUNCHES,
-                "normal_rounds": montecarlo.NORMAL_ROUNDS}
+                "normal_rounds": montecarlo.NORMAL_ROUNDS,
+                "mega_fwd_anytf": sum(
+                    n for k, n in fused_mega.LIBRARY_LAUNCHES.items()
+                    if k.startswith("mega_fwd_anytf")),
+                "segment_fwd_anytf":
+                    fused_dvr.LIBRARY_LAUNCHES["segment_fwd_anytf"]}
 
     # phase K launches the smallest library
     _, tf, npz = dense_scene()
@@ -4852,6 +5363,12 @@ def main():
     for row in [render_row] + train_rows:
         row["evaluation"] = ev[row["name"]]
     clock("phase V")
+    # the last modules (no TPU kernel), then the texture and preintegrated
+    # TFs on every network in rows 1 and 4
+    last_modules(smi, reset_counts, counts)
+    clock("phase W")
+    anytf_rows = any_tf(smi, reset_counts, counts, cam)
+    clock("phase X")
 
     # 2, finished: every source built, each nvcc's seconds, the seconds the
     # phases waited for one, the ptxas reports
@@ -4871,7 +5388,8 @@ def main():
 
     # 11. kernels
     print(json.dumps({"kernels": [render_row] + train_rows
-                      + [segment_row] + scan_rows + [mc_row] + probe}))
+                      + [segment_row] + scan_rows + [mc_row] + probe
+                      + anytf_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

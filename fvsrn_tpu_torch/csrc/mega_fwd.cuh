@@ -31,15 +31,19 @@
 //
 // Instances: per width, every TF mode of SnakeAlt networks without
 // direction input (the product's networks; the activation compiled into
-// the layers' epilogue, no direction read), and one instance for every
-// other network (any activation, a switch outside the tile's layers as
-// in segment_fwd.cu; direction input), piecewise TF or rgbo heads only;
-// each table type, masked or not. The head is a runtime switch. Three
-// libraries a width and tile (MEGA_PART), so that nvcc builds them in
+// the layers' epilogue, no direction read), and for every other network
+// (any activation, a switch outside the tile's layers as in
+// segment_fwd.cu; direction input) the piecewise TF or rgbo heads and the
+// texture, 1D- and 2D-preintegrated TFs (no Gaussians: the render refuses
+// them); each table type, masked or not. The head is a runtime switch.
+// Four libraries a width (MEGA_PART), so that nvcc builds them in
 // parallel and the one most paths launch is ready first: SnakeAlt networks
-// without direction input on the piecewise TF (mega_fwd*.cu), the other TF
-// modes (mega_fwd_tf*.cu), every other network (mega_fwd_any*.cu, whose
-// activation switch makes its instances the costliest to compile). The
+// without direction input on the piecewise TF (mega_fwd*.cu), their other
+// TF modes (mega_fwd_tf*.cu), every other network on the piecewise TF
+// (mega_fwd_any*.cu, whose activation switch makes its instances the
+// costliest to compile), and every other network on the texture and
+// preintegrated TFs (mega_fwd_anytf*.cu, 256-ray tiles only: the render's
+// tile; the training forward takes SnakeAlt networks in those modes). The
 // normals instances (MEGA_NORMALS: mega_fwd_nrm.cu, mega_fwd_nrm48.cu,
 // mega_fwd_nrm64.cu, a library each) replace the JAX kernel's render with
 // need_normals and a BRDF: the generic instance's tile, then each counting
@@ -82,7 +86,9 @@
 #error "define MEGA_WIDTH (32, 48 or 64) before including mega_fwd.cuh"
 #endif
 #ifndef MEGA_PART
-#define MEGA_PART 0   // 0: SnakeAlt, piecewise; 1: other TF modes; 2: others
+// 0: SnakeAlt, piecewise; 1: SnakeAlt, other TF modes; 2: other networks,
+// piecewise; 3: other networks, texture and preintegrated TFs
+#define MEGA_PART 0
 #endif
 
 namespace {
@@ -318,14 +324,16 @@ int launch_instance(const March& P, const FwdOut& O, const FLayer& L,
 }
 
 // SnakeAlt networks without direction input take their TF mode's
-// instance; every other network the generic one (piecewise TF or rgbo
-// heads; mega_fwd_launch refuses the rest). A library holds its part's
-// instances only (MEGA_PART) and refuses the others'.
+// instance; every other network the generic one of its TF mode (piecewise
+// TF or rgbo heads, texture, 1D- or 2D-preintegrated; mega_fwd_launch
+// refuses Gaussians). A library holds its part's instances only
+// (MEGA_PART) and refuses the others'.
 template <typename Table, bool kMasked>
 int launch_tf(const March& P, const FwdOut& O, const FLayer& L,
               const TfArgs& T, int n_rays, cudaStream_t stream) {
-  const int part = T.tfm != kTfPiecewise ? 1
-                   : (P.act != kSnakeAlt || P.has_dir) ? 2 : 0;
+  const bool generic = P.act != kSnakeAlt || P.has_dir;
+  const int part = T.tfm != kTfPiecewise ? (generic ? 3 : 1)
+                   : generic ? 2 : 0;
   if (part != MEGA_PART) return (int)cudaErrorInvalidValue;
 #if MEGA_PART == 0
   return launch_instance<Table, kMasked, kTfPiecewise, kSnakeAlt>(
@@ -333,6 +341,20 @@ int launch_tf(const March& P, const FwdOut& O, const FLayer& L,
 #elif MEGA_PART == 2
   return launch_instance<Table, kMasked, kTfPiecewise, -1>(P, O, L, T,
                                                            n_rays, stream);
+#elif MEGA_PART == 3
+  switch (T.tfm) {
+    case kTfTexture:
+      return launch_instance<Table, kMasked, kTfTexture, -1>(
+          P, O, L, T, n_rays, stream);
+    case kTfPreint1d:
+      return launch_instance<Table, kMasked, kTfPreint1d, -1>(
+          P, O, L, T, n_rays, stream);
+    case kTfPreint2d:
+      return launch_instance<Table, kMasked, kTfPreint2d, -1>(
+          P, O, L, T, n_rays, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 #else
   switch (T.tfm) {
     case kTfTexture:
@@ -463,9 +485,10 @@ extern "C" int mega_fwd_smem(int n_fourier, int n_hidden, int tf_floats,
 // Weights packed as in mega_common.cuh (`Offsets`) at the padded hidden
 // width `hidden`, which must be this library's (MEGA_WIDTH). The network:
 // activation `act` with parameter `act_param`, output head `head`
-// (march_common.cuh's Act and Head), direction input `has_dir`; TF modes
-// other than piecewise take SnakeAlt networks without direction input,
-// rgbo heads no TF (tfm piecewise, no rows). `table` is (gz, gy, gx, 16)
+// (march_common.cuh's Act and Head), direction input `has_dir`; a
+// Gaussian TF takes SnakeAlt networks without direction input, the other
+// TF modes every network (MEGA_PART 3 for the others), rgbo heads no TF
+// (tfm piecewise, no rows). `table` is (gz, gy, gx, 16)
 // bf16 (table_f32 = 0) or float32 (table_f32 = 1). `carries` and
 // `seg_count` may be null (the render); otherwise carries holds
 // n_seg_max x kTile float4 per tile. `seg_active` (tiles x mask_cols bytes,
@@ -490,7 +513,7 @@ extern "C" int mega_fwd_launch(
   if (hidden != MEGA_WIDTH || n_fourier > kMaxFourier
       || n_hidden > kMaxHidden || seg < 1
       || !mega_valid(act, head, tfm, tf_points, tf_pre, tf_floats, tf2d)
-      || (tfm != kTfPiecewise && (act != kSnakeAlt || has_dir)))
+      || (tfm == kTfGaussian && (act != kSnakeAlt || has_dir)))
     return (int)cudaErrorInvalidValue;
   const float bmin[3] = {bmin_x, bmin_y, bmin_z};
   const float bsize[3] = {bsize_x, bsize_y, bsize_z};

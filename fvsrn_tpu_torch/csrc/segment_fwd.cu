@@ -1,7 +1,9 @@
 // The per-segment fused march's forward, the render's and the training
 // forward's instances (the kernels are segment_fwd.cuh): the piecewise
-// TF's here, the other TF modes' in segment_fwd_tf.cu, which includes this
-// file with SEGMENT_TF_MODES 1.
+// TF's here, the other TF modes' of SnakeAlt networks in segment_fwd_tf.cu
+// and the texture and preintegrated TFs' of every other activation in
+// segment_fwd_anytf.cu, which include this file with SEGMENT_TF_MODES 1
+// and 2.
 
 #include "segment_fwd.cuh"
 
@@ -41,8 +43,9 @@ extern "C" int segment_fwd_smem(int hidden, int n_fourier, int chunks,
 // only. `stats` ([S, samples], int64) must be zero before phase 0. With
 // `carries` ((n_seg, R) float4, phase 0 only) each ray also stores the
 // carry entering every segment it runs, for the backward
-// (segment_bwd.cu). The TF: mode `tfm` (march_common.cuh's TfMode; modes
-// other than piecewise take SnakeAlt networks), `tf_points` rows, `tf_pre`
+// (segment_bwd.cu). The TF: mode `tfm` (march_common.cuh's TfMode; a
+// Gaussian TF takes SnakeAlt networks, texture and the preintegrations
+// every activation), `tf_points` rows, `tf_pre`
 // cumulative rows, `tf_floats` packed floats, `tf2d` the preint2d table
 // ((tf_points, tf_points) float4); those modes keep each ray's last density
 // in `dens` ((R,) float, phase 0 writes it, phase 1 reads it) and, with
@@ -74,7 +77,8 @@ extern "C" int segment_fwd_launch(
   if (!seg_valid(P) || (phase != 0 && phase != 1)
       || (carries != nullptr && phase != 0)
       || (tfm != kTfPiecewise
-          && (act != kSnakeAlt || iso || dens == nullptr
+          && ((tfm == kTfGaussian && act != kSnakeAlt) || iso
+              || dens == nullptr
               || (carries != nullptr && dens_carries == nullptr))))
     return (int)cudaErrorInvalidValue;
   FLayer L;

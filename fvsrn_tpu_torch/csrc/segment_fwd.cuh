@@ -14,9 +14,12 @@
 // 2D-preintegrated, Gaussians) or the rgbo heads' own color, Beer-Lambert
 // or alpha blending, and the isosurface first-hit epilogue. The TF modes
 // other than piecewise are template instances of SnakeAlt networks (the
-// activation a template parameter too); they carry each ray's last
-// normalized density besides its rgba, across segments and into phase 1
-// (`dens`), and store it with the carries for training.
+// activation a template parameter too; segment_fwd_tf.cu), and the
+// texture, 1D- and 2D-preintegrated TFs also of every other activation
+// (the generic switch; segment_fwd_anytf.cu, the render's forward only);
+// they carry each ray's last normalized density besides its rgba, across
+// segments and into phase 1 (`dens`), and store it with the carries for
+// training.
 //
 // The differentiable march has no early-out (early_alpha = 2: every ray
 // runs until its segment start passes tmax), so it is phase 0 alone, which
@@ -115,8 +118,11 @@ struct SegPt {
 
 // One launch's march of the block's rays (the kernels' body). With normals
 // (`Nrm::kOn`) `nd` ((R,) float4) holds each ray's blended normal and
-// depth: phase 0 writes it, phase 1 continues from it.
-template <int H, typename Table, int TFM, class Nrm = NoNormal>
+// depth: phase 0 writes it, phase 1 continues from it. ACT: the activation
+// compiled into the layers, or -1 (D.act, any); the piecewise TF's
+// instances are generic, the other modes' SnakeAlt unless given.
+template <int H, typename Table, int TFM, class Nrm = NoNormal,
+          int ACT = (TFM == kTfPiecewise ? -1 : (int)kSnakeAlt)>
 __device__ __forceinline__ void segment_march(const Seg& P, const SegOut& O,
                                               const FLayer& L, int phase,
                                               const Nrm& nrm = Nrm(),
@@ -201,9 +207,9 @@ __device__ __forceinline__ void segment_march(const Seg& P, const SegOut& O,
       if (!P.iso) cy.n += __popc(mask);
       if (__any_sync(full, mask != 0u)) {
         pt.base = s0 + (float)q0;
-        warp_chunk<H, Table, TFM == kTfPiecewise ? -1 : (int)kSnakeAlt,
-                   SegPt, TFM, Nrm>(pl, D, sm, tile, mask, pt, cy, fp, dp,
-                                    0u, nrm, &ndc);
+        warp_chunk<H, Table, ACT, SegPt, TFM, Nrm>(pl, D, sm, tile, mask,
+                                                   pt, cy, fp, dp, 0u, nrm,
+                                                   &ndc);
       }
     }
     ++s;
@@ -236,10 +242,10 @@ __device__ __forceinline__ void segment_march(const Seg& P, const SegOut& O,
   }
 }
 
-template <int H, typename Table, int TFM>
+template <int H, typename Table, int TFM, int ACT>
 __global__ void __launch_bounds__(kThreads, 2) segment_fwd_kernel(
     const Seg P, const SegOut O, const FLayer L, int phase) {
-  segment_march<H, Table, TFM>(P, O, L, phase);
+  segment_march<H, Table, TFM, NoNormal, ACT>(P, O, L, phase);
 }
 
 // The normals instances (segment_fwd_nrm.cu): the piecewise TF of density
@@ -283,26 +289,28 @@ int launch_nrm_width(const Seg& P, const SegOut& O, const FLayer& L,
   }
 }
 
-template <int H, typename Table, int TFM>
+template <int H, typename Table, int TFM, int ACT>
 int launch(const Seg& P, const SegOut& O, const FLayer& L, int phase,
            cudaStream_t stream) {
   const size_t smem = (size_t)L.pl.total;
   cudaError_t e = cudaFuncSetAttribute(
-      segment_fwd_kernel<H, Table, TFM>,
+      segment_fwd_kernel<H, Table, TFM, ACT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int per_block = L.pl.warps * kRows;
   const int blocks = (P.n_rays + per_block - 1) / per_block;
   if (blocks > 0)
-    segment_fwd_kernel<H, Table, TFM><<<blocks, per_block, smem, stream>>>(
-        P, O, L, phase);
+    segment_fwd_kernel<H, Table, TFM, ACT>
+        <<<blocks, per_block, smem, stream>>>(P, O, L, phase);
   return (int)cudaGetLastError();
 }
 
-// The piecewise instances (segment_fwd.cu) and the other TF modes'
-// (SEGMENT_TF_MODES: segment_fwd_tf.cu) are libraries of their own, so
-// that nvcc builds them in parallel and the piecewise one, which most
-// paths launch, is ready first; a library raises the other's modes.
+// The piecewise instances (segment_fwd.cu), the other TF modes' of
+// SnakeAlt networks (SEGMENT_TF_MODES 1: segment_fwd_tf.cu) and the
+// texture and preintegrated TFs' of every other activation
+// (SEGMENT_TF_MODES 2: segment_fwd_anytf.cu) are libraries of their own,
+// so that nvcc builds them in parallel and the piecewise one, which most
+// paths launch, is ready first; a library raises the others' modes.
 #ifndef SEGMENT_TF_MODES
 #define SEGMENT_TF_MODES 0
 #endif
@@ -310,20 +318,34 @@ int launch(const Seg& P, const SegOut& O, const FLayer& L, int phase,
 template <int H, typename Table>
 int launch_tf(const Seg& P, const SegOut& O, const FLayer& L, int phase,
               cudaStream_t stream) {
-  if ((P.tfm != kTfPiecewise) != (SEGMENT_TF_MODES == 1))
-    return (int)cudaErrorInvalidValue;
+  const int part = P.tfm == kTfPiecewise ? 0 : P.act == kSnakeAlt ? 1 : 2;
+  if (part != SEGMENT_TF_MODES) return (int)cudaErrorInvalidValue;
 #if SEGMENT_TF_MODES == 0
-  return launch<H, Table, kTfPiecewise>(P, O, L, phase, stream);
+  return launch<H, Table, kTfPiecewise, -1>(P, O, L, phase, stream);
+#elif SEGMENT_TF_MODES == 1
+  switch (P.tfm) {
+    case kTfTexture:
+      return launch<H, Table, kTfTexture, kSnakeAlt>(P, O, L, phase, stream);
+    case kTfPreint1d:
+      return launch<H, Table, kTfPreint1d, kSnakeAlt>(P, O, L, phase,
+                                                      stream);
+    case kTfPreint2d:
+      return launch<H, Table, kTfPreint2d, kSnakeAlt>(P, O, L, phase,
+                                                      stream);
+    default:
+      return launch<H, Table, kTfGaussian, kSnakeAlt>(P, O, L, phase,
+                                                      stream);
+  }
 #else
   switch (P.tfm) {
     case kTfTexture:
-      return launch<H, Table, kTfTexture>(P, O, L, phase, stream);
+      return launch<H, Table, kTfTexture, -1>(P, O, L, phase, stream);
     case kTfPreint1d:
-      return launch<H, Table, kTfPreint1d>(P, O, L, phase, stream);
+      return launch<H, Table, kTfPreint1d, -1>(P, O, L, phase, stream);
     case kTfPreint2d:
-      return launch<H, Table, kTfPreint2d>(P, O, L, phase, stream);
+      return launch<H, Table, kTfPreint2d, -1>(P, O, L, phase, stream);
     default:
-      return launch<H, Table, kTfGaussian>(P, O, L, phase, stream);
+      return (int)cudaErrorInvalidValue;
   }
 #endif
 }

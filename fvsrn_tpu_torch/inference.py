@@ -55,7 +55,7 @@ from .ops.fused_dvr import (block_ray_permutation, fused_tf_args,
                             fused_trace_dvr, fused_trace_dvr_bucketed,
                             fused_trace_iso, mega_supported,
                             plan_ray_buckets, probe_saturation_tmax,
-                            tf_mode_of)
+                            require_srn, tf_mode_of)
 from .ops.fused_mega import mega_trace_dvr
 from .ops.occupancy import build_occupancy, kernel_segment_occupancy
 from .raytracer.dvr import RayEvaluationSteppingDvr, max_steps_bound, trace_dvr
@@ -364,6 +364,7 @@ class LoadedModel:
                 return color.reshape(height, width, 4)
             return render_plain
 
+        require_srn(net, f"{mode} render")
         tf_kw = fused_render_tf(tf)
         table_dtype = table_dtype if table_dtype is not None \
             else torch.bfloat16

@@ -28,18 +28,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # every source of the port (csrc/<name>.cu); the megakernel's one per
 # hidden width (32, 48, 64) and ray tile (256; 128 in the _t128 sources),
-# the forward in three parts (SnakeAlt on the piecewise TF, the other TF
-# modes, every other network: mega_fwd.cuh's MEGA_PART), its normals
-# instances too (256-ray tiles only: the shaded render's tile); the
-# per-segment engine's forward in two (the piecewise TF, the other modes),
-# its normals instances apart from its render's
+# the forward in four parts (SnakeAlt on the piecewise TF, SnakeAlt on the
+# other TF modes, every other network on the piecewise TF, every other
+# network on the texture and preintegrated TFs: mega_fwd.cuh's MEGA_PART),
+# the last and the normals instances on 256-ray tiles only (the render's
+# tile); the per-segment engine's forward in three (the piecewise TF, the
+# other modes of SnakeAlt networks, the texture and preintegrated TFs of
+# every other activation), its normals instances apart from its render's
 MEGA_SOURCES = tuple(f"{kind}{w}{t}"
                      for kind in ("mega_fwd", "mega_fwd_tf", "mega_fwd_any",
-                                  "mega_fwd_nrm", "mega_bwd")
+                                  "mega_fwd_nrm", "mega_bwd",
+                                  "mega_fwd_anytf")
                      for t in ("", "_t128") for w in ("", "48", "64")
-                     if not (kind == "mega_fwd_nrm" and t))
+                     if not (kind in ("mega_fwd_nrm", "mega_fwd_anytf")
+                             and t))
 SOURCES = MEGA_SOURCES + ("segment_fwd", "segment_fwd_tf", "segment_fwd_nrm",
-                          "segment_bwd", "sample_eval", "probes")
+                          "segment_bwd", "sample_eval", "probes",
+                          "segment_fwd_anytf")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _PENDING: dict[str, concurrent.futures.Future] = {}

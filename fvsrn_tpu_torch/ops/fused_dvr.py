@@ -63,6 +63,7 @@ every layer a TF32 three-pass tensor-core product (float32-accurate;
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import NamedTuple, Optional
@@ -87,6 +88,9 @@ from .fused_mega import (_ACTIVATIONS, _HEADS, TfCarries, _gated_clip01,
 # plain version never counts
 SEGMENT_LAUNCHES = 0
 SEGMENT_NRM_LAUNCHES = 0
+# the render's launches by library (segment_library), reset with the
+# counts above
+LIBRARY_LAUNCHES: collections.Counter = collections.Counter()
 
 # the JAX megakernel's VMEM budget for its latent slab: the route rule of
 # the fused render (a grid over it takes the bucketed per-segment engine)
@@ -330,6 +334,18 @@ def _scalar_at(t, like: Tensor) -> Tensor:
                       device=like.device)
 
 
+def require_srn(net, where: str = "fused march") -> None:
+    """Raise ``NotImplementedError`` naming the network's class unless
+    ``net`` is a ``SceneRepresentationNetwork`` (or a view of one): the
+    fused kernels take the SRN's layout only; the variant and meta
+    networks (``models/variants.py``, ``models/meta.py``) render and
+    train through the plain marches."""
+    if not isinstance(net, (SceneRepresentationNetwork, NetworkView)):
+        raise NotImplementedError(
+            f"{where}: {type(net).__name__} renders and trains through the "
+            "plain march only (trace_dvr, PLAIN32; --no_fused)")
+
+
 def resolve_network(net, time=0.0, ensemble=0.0):
     """The network at scalar (time, ensemble) as the fused marches take
     it, the JAX package's ``extract_weights`` fold plus ``resolve_grid``:
@@ -340,9 +356,11 @@ def resolve_network(net, time=0.0, ensemble=0.0):
     exact: the layer is affine and the trilerp linear in the grid's
     values. A network with neither (and a view) is returned as it is.
     Time Fourier features and direct time input raise ``AssertionError``,
-    as in the JAX package."""
+    as in the JAX package. A network that is not an SRN raises
+    ``NotImplementedError`` (:func:`require_srn`)."""
     if isinstance(net, NetworkView):
         return net
+    require_srn(net)
     assert net.input.fourier_matrix_time is None, \
         "fused: no time fourier (use keyframed latent grids)"
     assert not net.input.use_time_direct, "fused: no direct time input"
@@ -1152,9 +1170,11 @@ def _check_kernel_inputs(net, tf: Tensor, seg: int = 32,
                          tf_mode: str = "piecewise",
                          need_normals: bool = False):
     """What csrc/segment_fwd.cu (and, for gradients, segment_bwd.cu)
-    takes for the TF table ``tf`` (``prepare_tf``'s) in ``tf_mode``; its
-    normals instances (segment_fwd_nrm.cu) take the piecewise TF. The
-    rest raises ``NotImplementedError``."""
+    takes for the TF table ``tf`` (``prepare_tf``'s) in ``tf_mode``: every
+    mode on SnakeAlt networks, and the texture, 1D- and 2D-preintegrated
+    TFs on every other activation in the render's forward
+    (segment_fwd_anytf.cu); its normals instances (segment_fwd_nrm.cu)
+    take the piecewise TF. The rest raises ``NotImplementedError``."""
     from .sample_mlp import tf_floats_of
     if need_normals and tf_mode != "piecewise":
         raise NotImplementedError(f"segment kernel: normals with TF mode "
@@ -1174,9 +1194,12 @@ def _check_kernel_inputs(net, tf: Tensor, seg: int = 32,
     if tf_mode in ("piecewise", "gaussian") and tf.shape[0] > MAX_TF_POINTS:
         raise NotImplementedError(f"segment kernel: at most {MAX_TF_POINTS} "
                                   f"{tf_mode} TF points")
-    if tf_mode != "piecewise" and net.layers[0].activation != "SnakeAlt":
-        raise NotImplementedError(f"segment kernel: TF mode {tf_mode!r} "
-                                  "takes SnakeAlt networks only")
+    if (tf_mode != "piecewise" and net.layers[0].activation != "SnakeAlt"
+            and (differentiable or tf_mode == "gaussian")):
+        raise NotImplementedError(
+            f"segment kernel: TF mode {tf_mode!r} "
+            + ("in training " if differentiable else "")
+            + "takes SnakeAlt networks only")
     tf_floats = (5 * tf.shape[0] if tf_mode == "piecewise"
                  else tf_floats_of(tf_mode, tf))
     if net.layers[0].activation not in _ACTIVATIONS:
@@ -1304,6 +1327,17 @@ def _check_tensors(dev, **tensors):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def segment_library(spec: SegmentSpec) -> str:
+    """The forward's library for this march: "segment_fwd" (the piecewise
+    TF), "segment_fwd_tf" (the other TF modes of SnakeAlt networks) or
+    "segment_fwd_anytf" (the texture and preintegrated TFs of every other
+    activation)."""
+    if spec.tf_mode == "piecewise":
+        return "segment_fwd"
+    return ("segment_fwd_tf" if spec.activation[0] == "SnakeAlt"
+            else "segment_fwd_anytf")
+
+
 def launch_segment(spec: SegmentSpec, net, rays: Tensor,
                    kbase: Optional[Tensor], weights: Tensor, table: Tensor,
                    tf_points: int, store_carries: bool = False,
@@ -1344,7 +1378,8 @@ def launch_segment(spec: SegmentSpec, net, rays: Tensor,
     gz, gy, gx = table.shape[:3]
     nf = net.input.num_fourier
     rows, *tf_args = _tf_args(spec, tf, tf_points)
-    fn = _bind(_build.load("segment_fwd_tf" if tfm else "segment_fwd"))
+    lib = segment_library(spec)
+    fn = _bind(_build.load(lib))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for phase in ((0,) if store_carries else (0, 1)):
@@ -1372,6 +1407,7 @@ def launch_segment(spec: SegmentSpec, net, rays: Tensor,
                                    f"failed with CUDA error {err}")
             if not store_carries:
                 SEGMENT_LAUNCHES += 1
+                LIBRARY_LAUNCHES[lib] += 1
     if dens_carries is not None:
         carries = TfCarries(carries, dens_carries)
     return out, SegmentStats(stats[1], stats[0]), carries, death

@@ -89,6 +89,9 @@ from . import _build
 # mega_fwd_diff (the differentiable forward), mega_bwd (the backward) or
 # mega_fwd_nrm (the render's normals instances, need_normals)
 LAUNCHES: collections.Counter = collections.Counter()
+# the forward's launches by library (library_name: mega_fwd_anytf48, say),
+# the render's and the training forward's
+LIBRARY_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def launches(kind: str) -> int:
@@ -713,8 +716,10 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
     zero-padded to 32, 48 or 64) and one activation, 1 to
     ``MAX_HIDDEN_LAYERS + 1`` of them, every output head, direction input,
     no latent grid or one of <= 16 channels, at most ``MAX_FOURIER``
-    Fourier features; a TF mode other than piecewise on a density head of
-    a SnakeAlt network without direction input; tiles of 128 or 256 rays
+    Fourier features; every TF mode on a density head of a SnakeAlt
+    network without direction input, and on every other network the
+    texture, 1D- and 2D-preintegrated TFs in the render's forward on
+    256-ray tiles (``mega_fwd_anytf``); tiles of 128 or 256 rays
     (``KERNEL_TILES``), and for the backward 32-point segments; and a
     shared-memory plan that fits. The normals instances take every such
     network with a density head, the piecewise TF and 256-ray tiles.
@@ -758,9 +763,16 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
     if not density:
         tf_mode, tf_floats = "piecewise", 0
     if tf_mode != "piecewise" and (act != "SnakeAlt" or net.use_direction):
-        raise NotImplementedError(f"CUDA kernel: TF mode {tf_mode!r} takes "
-                                  "SnakeAlt networks without direction "
-                                  "input only")
+        if differentiable or tf_mode == "gaussian":
+            raise NotImplementedError(
+                f"CUDA kernel: TF mode {tf_mode!r} "
+                + ("in training " if differentiable else "")
+                + "takes SnakeAlt networks without direction input only")
+        if tile != KERNEL_TILE:
+            raise NotImplementedError(
+                f"CUDA kernel: TF mode {tf_mode!r} on a {act} network"
+                + (" with direction input" if net.use_direction else "")
+                + f" on tiles of {KERNEL_TILE} rays only, not {tile}")
     direction = bool(net.use_direction)
     check_fwd_plan("CUDA kernel", hp, nf, 1, n_hidden, MAX_TF_POINTS,
                    warps=tile // 32, direction=direction, tf_floats=tf_floats)
@@ -775,27 +787,31 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
 
 def _lib(kind: str, hidden: int, tile: int = KERNEL_TILE) -> ctypes.CDLL:
     """The library of ``kind`` ("mega_fwd", "mega_fwd_tf", "mega_fwd_any",
-    "mega_fwd_nrm" or "mega_bwd") for the padded width ``hidden`` and the
-    ray tile ``tile``: one source per width and tile, ``csrc/mega_fwd.cu``
-    (32, 256 rays), ``mega_fwd48.cu``, ``mega_fwd64.cu``,
-    ``mega_fwd_t128.cu`` (32, 128 rays), ``mega_fwd48_t128.cu``,
-    ``mega_fwd64_t128.cu`` and the same for the forward's other parts
-    (:func:`_fwd_kind`) and the backward (the normals instances on 256-ray
-    tiles only)."""
+    "mega_fwd_anytf", "mega_fwd_nrm" or "mega_bwd") for the padded width
+    ``hidden`` and the ray tile ``tile`` (:func:`library_name`)."""
+    return _build.load(library_name(kind, hidden, tile))
+
+
+def library_name(kind: str, hidden: int, tile: int = KERNEL_TILE) -> str:
+    """One source per kind, width and tile: ``csrc/mega_fwd.cu`` (32, 256
+    rays), ``mega_fwd48.cu``, ``mega_fwd64.cu``, ``mega_fwd_t128.cu`` (32,
+    128 rays), ``mega_fwd48_t128.cu``, ``mega_fwd64_t128.cu`` and the same
+    for the forward's other parts (:func:`_fwd_kind`) and the backward;
+    ``mega_fwd_anytf`` and the normals instances on 256-ray tiles only."""
     name = kind if hidden == 32 else f"{kind}{hidden}"
-    return _build.load(name if tile == KERNEL_TILE else f"{name}_t{tile}")
+    return name if tile == KERNEL_TILE else f"{name}_t{tile}"
 
 
 def _fwd_kind(spec: MarchSpec, net_args: tuple) -> str:
     """The forward's library part (csrc/mega_fwd.cuh's MEGA_PART) for this
     march: "mega_fwd" for SnakeAlt networks without direction input on the
-    piecewise TF, "mega_fwd_tf" for the other TF modes, "mega_fwd_any" for
-    every other network."""
+    piecewise TF, "mega_fwd_tf" for their other TF modes, "mega_fwd_any"
+    for every other network on the piecewise TF, "mega_fwd_anytf" for
+    every other network on the texture and preintegrated TFs."""
+    generic = net_args[1] != _ACTIVATIONS["SnakeAlt"] or net_args[4]
     if spec.tf_mode != "piecewise":
-        return "mega_fwd_tf"
-    if net_args[1] != _ACTIVATIONS["SnakeAlt"] or net_args[4]:
-        return "mega_fwd_any"
-    return "mega_fwd"
+        return "mega_fwd_anytf" if generic else "mega_fwd_tf"
+    return "mega_fwd_any" if generic else "mega_fwd"
 
 
 def device_fwd_plan(n_fourier: int, n_hidden: int, tf_points: int,
@@ -944,8 +960,8 @@ def _launch_fwd(rays: Tensor, weights: Tensor, table: Tensor, spec: MarchSpec,
     rows, *tf_args = _tf_args(spec, tf, _knots(spec, tf_points))
     gz, gy, gx = table.shape[:3]
     net_args = _net_args(spec)
-    launch = _bind_fwd(_lib(_fwd_kind(spec, net_args), net_args[0],
-                            spec.tile))
+    lib = library_name(_fwd_kind(spec, net_args), net_args[0], spec.tile)
+    launch = _bind_fwd(_build.load(lib))
     with torch.cuda.device(dev):
         err = launch(
             rays.data_ptr(), table.data_ptr(), int(f32), weights.data_ptr(),
@@ -961,6 +977,7 @@ def _launch_fwd(rays: Tensor, weights: Tensor, table: Tensor, spec: MarchSpec,
             dens.data_ptr() if dens is not None else None, _stream(dev))
     if err != 0:
         raise RuntimeError(f"mega_fwd launch failed with CUDA error {err}")
+    LIBRARY_LAUNCHES[lib] += 1
     if dens is not None:
         carries = TfCarries(carries, dens)
     return out, samples, carries, count

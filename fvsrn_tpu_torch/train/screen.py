@@ -37,7 +37,7 @@ from torch import Tensor
 from ..camera import fibonacci_sphere_cameras, generate_rays
 from ..models.network_volume import VolumeInterpolationNetwork
 from ..ops.fused_dvr import (block_ray_permutation, fused_tf_args,
-                             fused_trace_dvr, mega_supported)
+                             fused_trace_dvr, mega_supported, require_srn)
 from ..ops.fused_mega import KERNEL_SEG, KERNEL_TILE, mega_trace_dvr
 from ..raytracer.dvr import (RayEvaluationSteppingDvr, max_steps_bound,
                              trace_dvr)
@@ -126,7 +126,10 @@ def fused_screen_supported(network, tf, width: int, height: int) -> bool:
     fused and trains the plain Gaussians instead). The network is not
     screened here: where the kernels do not take it (hidden layers wider
     than 64, say), ``mega_trace_dvr`` raises ``NotImplementedError`` on
-    the card (``--no_fused`` selects the plain march)."""
+    the card (``--no_fused`` selects the plain march). A network that is
+    not an SRN (the variant and meta networks) raises
+    ``NotImplementedError``: it trains by the plain march alone."""
+    require_srn(network, "fused screen step")
     if isinstance(tf, TransferFunctionGaussian):
         if tf.analytic or tf.scale_with_gradient:
             return False

@@ -80,13 +80,23 @@ sys.exit(1 if bad else 0)
                                     "fvsrn_tpu_torch.eval."
                                     "eval_volumetric_features",
                                     "fvsrn_tpu_torch.eval."
-                                    "eval_compression_teaser"])
+                                    "eval_compression_teaser",
+                                    "fvsrn_tpu_torch.utils.imageops",
+                                    "fvsrn_tpu_torch.cli",
+                                    "fvsrn_tpu_torch.models.variants",
+                                    "fvsrn_tpu_torch.models.meta",
+                                    "fvsrn_tpu_torch.viewer",
+                                    "fvsrn_tpu_torch.eval.eval_scaling",
+                                    "fvsrn_tpu_torch.eval.figures",
+                                    "fvsrn_tpu_torch.convert"])
 def test_slice_module_imports_alone(module):
     """The modules of the fused per-segment and isosurface renders, of
     Monte-Carlo path tracing, of world training, of voxel volumes and
     scene files, of data parallelism, pose recovery and rasterization, of
-    the evaluation harnesses, LPIPS and the compression tower import on
-    their own, loading no JAX."""
+    the evaluation harnesses, LPIPS and the compression tower, and the
+    last slice's (image operations, the volume converter, the variant and
+    meta networks and their converters, the viewer, the scaling harness
+    and the figures) import on their own, loading no JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", IMPORT_ONE, module],
                           cwd=ROOT, env=env, capture_output=True, text=True,

@@ -478,20 +478,27 @@ def test_proto_mega_box_limit():
 @pytest.mark.parametrize("net_kw,tile", [
     (dict(width=96), 256),
     (dict(hidden=fused_mega.MAX_HIDDEN_LAYERS + 2), 256),
-    (dict(channels=20), 256), (dict(activation="ReLU", tf_mode="texture"), 256),
+    (dict(channels=20), 256),
+    (dict(activation="ReLU", tf_mode="texture", differentiable=True), 256),
     ({}, 64)])
 def test_mega_kernel_rejects_what_it_does_not_take(net_kw, tile):
     """What the kernels refuse: hidden layers wider than 64, more than
     MAX_HIDDEN_LAYERS + 1 of them, more than 16 latent channels, a TF
-    mode other than piecewise on a network other than SnakeAlt, tiles of
-    other than 256 rays; and what they take (widths to 64, every
-    activation and head, direction input, no grid)."""
+    mode other than piecewise on a network other than SnakeAlt in
+    training, tiles of other than 256 rays; and what they take (widths to
+    64, every activation and head, direction input, no grid; the texture
+    TF on a ReLU network with direction input in the render)."""
     rays = torch.zeros(512, 8)
     net_kw = dict(net_kw)
     tf_mode = net_kw.pop("tf_mode", "piecewise")
+    diff = net_kw.pop("differentiable", False)
     with pytest.raises(NotImplementedError):
         fused_mega._check_kernel_inputs(random_net(**net_kw), rays, tile,
-                                        tf_floats=1024, tf_mode=tf_mode)
+                                        tf_floats=1024, tf_mode=tf_mode,
+                                        differentiable=diff)
+    fused_mega._check_kernel_inputs(
+        random_net(activation="ReLU", direction=True), rays, 256,
+        tf_floats=1024, tf_mode="texture")
     for kw in ({}, dict(channels=0), dict(width=20), dict(width=64),
                dict(hidden=fused_mega.MAX_HIDDEN_LAYERS + 1),
                dict(activation="Sine", act_param=30.0),
@@ -1597,6 +1604,112 @@ def test_tf_mode_segment_matches_plain(mode, lattice):
         assert rel_err(got[name], want[name]) <= tols[name], name
 
 
+# the texture and preintegrated TFs on every other network: the render's
+# forwards of rows 1 and 4 (csrc/mega_fwd_anytf*.cu, MEGA_PART 3, and
+# csrc/segment_fwd_anytf.cu, SEGMENT_TF_MODES 2: the generic activation
+# switch, direction input read)
+ANYTF_MODES = ("texture", "preint1d", "preint2d")
+ANYTF_NETS = {
+    "relu_dir": dict(activation="ReLU", direction=True),
+    "softplus": dict(activation="Softplus"),
+    "sine30": dict(activation="Sine", act_param=30.0),
+    "relu_dir48": dict(activation="ReLU", direction=True, width=48),
+    "sine64": dict(activation="Sine", act_param=30.0, width=64),
+}
+# Sine:30's 30x pre-activations carry float32 noise far: one ulp of weight
+# noise moves the plain version's own image by up to ~1e-3 and flips a
+# share of the preintegrated modes' branches (chip_smoke.py flip_share).
+# The kernel is held to ANYTF_FLIP times the plain version's own change
+# under a seeded relative ANYTF_NOISE in every weight, and to ATOL and
+# FLIP_SHARE at least.
+ANYTF_NOISE = 1e-7
+ANYTF_FLIP = 5.0
+
+
+def assert_within_noise(got, want, plain, args, kw, mode):
+    """``got`` (the kernel's image) against ``want`` (the plain version's)
+    within ANYTF_FLIP times the plain version's own change when its
+    network's weights move by a relative ANYTF_NOISE: every ray within
+    that change's largest (ATOL at least), or in the preintegrated modes
+    its share of rays off ATOL (FLIP_SHARE at least) within FLIP_ATOL."""
+    moved = copy.deepcopy(args[2])
+    gen = torch.Generator("cuda").manual_seed(0)
+    with torch.no_grad():
+        for p in moved.parameters():
+            p.mul_(1.0 + ANYTF_NOISE * torch.randn(p.shape, device="cuda",
+                                                   generator=gen))
+        noisy = plain(*args[:2], moved, *args[3:], **kw)
+    own = (noisy - want).abs().amax(dim=-1)
+    err = (got - want).abs().amax(dim=-1)
+    if mode in ("preint1d", "preint2d"):
+        share = max(FLIP_SHARE,
+                    ANYTF_FLIP * float((own > ATOL).float().mean()))
+        assert float((err > ATOL).float().mean()) <= share
+        assert float(err.max()) <= FLIP_ATOL
+    else:
+        assert float(err.max()) <= max(ATOL, ANYTF_FLIP * float(own.max()))
+
+
+@pytest.mark.parametrize("mode", ANYTF_MODES)
+@pytest.mark.parametrize("which", sorted(ANYTF_NETS))
+def test_anytf_mega_matches_plain(mode, which):
+    """Row 1 in each texture mode on a network other than SnakeAlt
+    without direction input: one launch of the width's mega_fwd_anytf
+    library, against the plain version (bf16 table, tile vote on; within
+    the plain version's own noise, ``assert_within_noise``)."""
+    needs_card()
+    net = random_net(**ANYTF_NETS[which]).cuda()
+    rs, rd = block_rays(64, "cuda")
+    clip = torch.empty(rs.shape[0], device="cuda").uniform_(
+        1.0, 2.2, generator=torch.Generator("cuda").manual_seed(0))
+    h = 1 / 128
+    tf, tf_kw = tf_mode_args(mode, h)
+    kw = dict(stepsize=h, tmax_clip=clip)
+    width = fused_mega.kernel_width(net)
+    lib = "mega_fwd_anytf" + ("" if width == 32 else str(width))
+    before = fused_mega.LIBRARY_LAUNCHES[lib]
+    with torch.no_grad():
+        got = fused_mega.mega_trace_dvr(rs, rd, net, *BOX, tf, **kw, **tf_kw)
+        want = fused_mega.mega_trace_dvr_plain(rs, rd, net, *BOX, tf, **kw,
+                                               **tf_kw)
+    torch.cuda.synchronize()
+    assert fused_mega.LIBRARY_LAUNCHES[lib] == before + 1
+    assert float(want[:, 3].max()) > 0.5
+    assert_within_noise(got, want, fused_mega.mega_trace_dvr_plain,
+                        (rs, rd, net, *BOX, tf), dict(kw, **tf_kw), mode)
+    with pytest.raises(NotImplementedError, match="SnakeAlt"):
+        fused_mega.mega_trace_dvr(rs, rd, net, *BOX, tf, differentiable=True,
+                                  **kw, **tf_kw)
+
+
+@pytest.mark.parametrize("mode", ANYTF_MODES)
+@pytest.mark.parametrize("which", sorted(ANYTF_NETS))
+@pytest.mark.parametrize("lattice", [False, True])
+def test_anytf_segment_matches_plain(mode, which, lattice):
+    """Row 4 in each texture mode on a network other than SnakeAlt: both
+    launches of segment_fwd_anytf, the call's stop, per-ray sampling or
+    the lattice, against the plain version."""
+    needs_card()
+    net = random_net(**ANYTF_NETS[which]).cuda()
+    rs, rd = block_rays(64, "cuda")
+    h = 1 / 64
+    tf, tf_kw = tf_mode_args(mode, h)
+    kw = dict(stepsize=h, max_steps=112, seg=32, tile=128,
+              latent_mode="boxfeat" if lattice else "table")
+    before = fused_dvr.LIBRARY_LAUNCHES["segment_fwd_anytf"]
+    with torch.no_grad():
+        got, st = fused_dvr.fused_trace_dvr(rs, rd, net, *BOX, tf,
+                                            return_stats=True, **kw, **tf_kw)
+        want, st_plain = fused_dvr.fused_trace_dvr_plain(
+            rs, rd, net, *BOX, tf, return_stats=True, **kw, **tf_kw)
+    torch.cuda.synchronize()
+    assert fused_dvr.LIBRARY_LAUNCHES["segment_fwd_anytf"] == before + 2
+    assert float(want[:, 3].max()) > 0.5
+    assert_within_noise(got, want, fused_dvr.fused_trace_dvr_plain,
+                        (rs, rd, net, *BOX, tf), dict(kw, **tf_kw), mode)
+    assert int(st.stop) == int(st_plain.stop)
+
+
 @pytest.mark.parametrize("mode", ["preint1d", "preint2d"])
 def test_tf_mode_mega_masked_matches_plain(mode):
     """A culled segment leaves the previous density alone: the masked
@@ -1654,12 +1767,14 @@ def test_tf_mode_backward_deterministic(mode):
 
 def test_tf_mode_kernel_limits():
     """What the kernels refuse in the TF modes: a TF mode on a network
-    other than SnakeAlt on the segment kernel, more Gaussians than the
-    kernels hold."""
+    other than SnakeAlt in the segment kernel's training pair, more
+    Gaussians than the kernels hold; the render's forward takes it."""
     tf, _, _ = fused_dvr.prepare_tf(torch.rand(256, 4), "texture")
     with pytest.raises(NotImplementedError, match="SnakeAlt"):
         fused_dvr._check_kernel_inputs(random_net(activation="ReLU"), tf,
-                                       tf_mode="texture")
+                                       tf_mode="texture", differentiable=True)
+    fused_dvr._check_kernel_inputs(random_net(activation="ReLU"), tf,
+                                   tf_mode="texture")
     fused_dvr._check_kernel_inputs(random_net(), tf, tf_mode="texture")
     many = torch.rand(fused_dvr.MAX_TF_POINTS + 1, 6)
     with pytest.raises(NotImplementedError, match="gaussian"):

@@ -5,10 +5,10 @@
 Builds the port's CUDA kernels from this checkout and drives the port's
 main paths on the card. The sources build in the background, as many at
 a time as the cores, in the order the phases first load them, and the
-phases run in the order K, 3-10, J, A-I, L, M, N-X, so that each starts
+phases run in the order K, 3-10, J, A-I, L, M, N-Y, so that each starts
 once its own libraries are built while the rest still build, and those
 that compute most on the host's cores (L, M) run once most are built
-(W and X come last, X's libraries last in the build):
+(W, X and Y come last, X's and Y's libraries last in the build):
 
 - phases 3-6, the product render: the dense flagship through
   ``LoadedModel.prepare_network_render`` in FUSED mode (512x512, world
@@ -88,7 +88,9 @@ that compute most on the host's cores (L, M) run once most are built
   route 1 (``prepare_network_render(mode="FUSED")``, which refuses the
   Gaussians; the Gaussians through ``mega_trace_dvr``) and the per-segment
   engine on route 2's rays (``fused_trace_dvr``), each kernel against its
-  plain version and the f32 oracle (``trace_dvr``) on 16384 rays, and one
+  plain version and row 1 (row 4 in the texture mode: cut in depth, the
+  oracle takes ~3 s a call) against the f32 oracle (``trace_dvr``) on
+  16384 rays, and one
   differentiable step (mean(img^2)) on each engine (rows 2-3 and 5-6),
   timed at full frame, every gradient leaf (the TF's tables too) against
   the plain pair on 64 whole tiles;
@@ -110,8 +112,9 @@ that compute most on the host's cores (L, M) run once most are built
   32^3) world-trained on the card to two implicit fields at two (time,
   ensemble), the keyframed and the latent-only step's first step card
   against CPU and timed (Q1); the FUSED render at 512^2, 1/512 at three
-  (t, e) on rows 1 and 4, each kernel against its plain version and the
-  f32 oracle of the network volume at (t, e), and an 8-frame animation
+  (t, e) on rows 1 and 4, each kernel against its plain version, and at
+  the middle (t, e) against the f32 oracle of the network volume there
+  (cut in depth: ~6 s a call), and an 8-frame animation
   with the resolve and table build timed apart from the call (Q2); one
   differentiable step on each engine: rows 5-6 at t = 3.5 on 64 whole
   tiles with every leaf (keyframes included, those outside the bracket
@@ -151,7 +154,7 @@ that compute most on the host's cores (L, M) run once most are built
   one process's (U3);
 - phase V, the paper's evaluation harnesses through their own entry
   points (``fvsrn_tpu_torch/eval``): ``eval_volumetric_features --scene
-  dense`` at its defaults (512^2, 1/512, 4 cameras, FUSED and PLAIN32
+  dense`` at its defaults but 2 cameras (512^2, 1/512, FUSED and PLAIN32
   timed, SSIM against ``render_reference``; row 1, camera 0's FUSED frame
   against its plain version) (V1); ``eval_screen_vs_world`` (its screen
   entry through rows 2-3) and ``eval_density_vs_color --render`` (row 1
@@ -179,7 +182,21 @@ that compute most on the host's cores (L, M) run once most are built
   route 1 at 512^2, 1/512 (``csrc/mega_fwd_anytf*.cu``) and route 2 at
   1920x1080 (``csrc/segment_fwd_anytf.cu``), each kernel against its
   plain version on 64 whole tiles, timed beside the same network's
-  piecewise frame and the flagship's frame in the same mode.
+  piecewise frame and the flagship's frame in the same mode;
+- phase Y, every TF mode on every network in training: phase X's
+  networks under the texture, 1D- and 2D-preintegrated TFs and four
+  Gaussians, one differentiable step (mean(img^2)) at 512^2, 1/512 on
+  each engine, rows 2-3 (``csrc/mega_fwd_anytf*.cu`` or, for the
+  Gaussians, ``csrc/mega_fwd_anyg*.cu``; ``mega_bwd*``) and rows 5-6
+  (``csrc/segment_fwd_anytf.cu`` or ``csrc/segment_fwd_anyg.cu``;
+  ``segment_bwd``), launches counted by library; each pair against its
+  plain version on 64 whole tiles (image, every gradient leaf; row 3
+  once more on a bf16 table), each step timed beside the same network's
+  piecewise step and the flagship's in the same mode, the Gaussian
+  instances' forward alone at full frame; then ``train.main.run --mode
+  screen --activation ReLU`` on a scene JSON written to a temporary
+  directory (the voxelized MARSCHNER_LOBB ``.cvol`` with a ``Texture``,
+  then a ``Gaussian`` TF): fused, through those libraries, loss falling.
 
 Prints one JSON line with every kernel and a last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -224,8 +241,8 @@ BF16_GRID_REL = 2.0 ** -7
 TIMED_CAMERAS = 4
 TIMED_STEPS = 3
 # phase 2: the sources in the order the phases first load them (the
-# phases run K, 3-10, J, A-I, L, M, N-X), then those no phase launches,
-# then phase X's (the last phase; its four take ~840 s of nvcc)
+# phases run K, 3-10, J, A-I, L, M, N-Y), then those no phase launches,
+# then phase X's (its four take ~840 s of nvcc) and phase Y's (the last)
 BUILD_ORDER = ("probes", "mega_fwd", "mega_bwd", "segment_fwd",
                "segment_bwd", "sample_eval", "mega_fwd_tf", "segment_fwd_tf",
                "mega_fwd_any", "mega_fwd48", "mega_fwd_any48", "mega_bwd48",
@@ -237,7 +254,8 @@ BUILD_ORDER = ("probes", "mega_fwd", "mega_bwd", "segment_fwd",
                "mega_fwd_tf48_t128", "mega_fwd_tf64_t128",
                "mega_fwd_any_t128", "mega_fwd_any48_t128",
                "mega_fwd_any64_t128", "segment_fwd_anytf", "mega_fwd_anytf",
-               "mega_fwd_anytf48", "mega_fwd_anytf64")
+               "mega_fwd_anytf48", "mega_fwd_anytf64", "segment_fwd_anyg",
+               "mega_fwd_anyg", "mega_fwd_anyg48", "mega_fwd_anyg64")
 SEG_WIDTH, SEG_HEIGHT = 1920, 1080   # phase A: not multiples of 16
 RGBO_SIZE = 504                      # phase C
 ISO_VALUE = 0.5                      # phase E
@@ -298,6 +316,10 @@ TF_ORACLE_RAYS = 16384
 # quotients and an exp; preint2d one cell and a divide; four Gaussians'
 # exps and multiply-adds
 TF_FLOPS = {"texture": 16, "preint1d": 64, "preint2d": 12, "gaussian": 72}
+# phase N, cut in depth: each step timed once after a warm-up, and row
+# 4's f32 oracle (a plain trace_dvr, ~3 s a call) for these modes only
+N_TIMED_STEPS = 1
+N_ROW4_ORACLE = ("texture",)
 # phase O: the networks of the paper's sweeps on rows 1-3. The widest of
 # fvsrn_tpu/eval/eval_network_configs.py (NET_TRAIN_ARGS), trained
 # briefly by the trainer at NET_SIZE^2 and then timed at 512^2; the rest
@@ -2404,7 +2426,7 @@ def tf_modes(smi, reset_counts, counts, npz, cam, frame_ms):
               tile=128, table_dtype=torch.bfloat16), 5)}
     for engine, _, march, _, kw, r_, d_ in engines:
         pw[f"{engine}_step_ms"] = cuda_ms(lambda: tf_step(
-            march, (r_, d_, net, *box), ramp, None, kw), TIMED_STEPS)
+            march, (r_, d_, net, *box), ramp, None, kw), N_TIMED_STEPS)
     print(f"phase N piecewise [{smi}]: frame {pw['frame_ms']:.3f} ms, row 1 "
           f"{pw['row1_ms']:.3f} ms, row 4 {pw['row4_ms']:.3f} ms, step mega "
           f"{pw['mega_step_ms']:.3f} ms, scan {pw['scan_step_ms']:.3f} ms "
@@ -2491,13 +2513,16 @@ def tf_modes(smi, reset_counts, counts, npz, cam, frame_ms):
             rs, rd, net, *box, tensor, **seg_kw))
         fig["row4_err"], fig["row4_off"] = image_check("phase N row 4", got4,
                                                        plain4, mode)
-        sel = torch.arange(0, rs.shape[0], rs.shape[0] // n_o, device=dev)
-        with torch.no_grad():
-            oracle4 = trace_dvr(rs[sel], rd[sel], vol, tfo, ocfg,
-                                steps).color
-        fig["row4_oracle"] = float((got4[sel] - oracle4).abs().max())
-        check(fig["row4_oracle"] < ORACLE_TOL,
-              f"phase N {mode} row 4 vs oracle {fig['row4_oracle']}")
+        fig["row4_oracle"] = None
+        if mode in N_ROW4_ORACLE:
+            sel = torch.arange(0, rs.shape[0], rs.shape[0] // n_o,
+                               device=dev)
+            with torch.no_grad():
+                oracle4 = trace_dvr(rs[sel], rd[sel], vol, tfo, ocfg,
+                                    steps).color
+            fig["row4_oracle"] = float((got4[sel] - oracle4).abs().max())
+            check(fig["row4_oracle"] < ORACLE_TOL,
+                  f"phase N {mode} row 4 vs oracle {fig['row4_oracle']}")
         fig["row4_ms"] = cuda_ms(lambda: fused_dvr.fused_trace_dvr(
             rs, rd, net, *box, tensor, **seg_kw), 5)
         fig["row4_plain_ms"] = plain4_ms
@@ -2555,7 +2580,7 @@ def tf_modes(smi, reset_counts, counts, npz, cam, frame_ms):
             fig[f"{engine}_grad_tol"] = tol[worst]
             fig[f"{engine}_step_ms"] = cuda_ms(
                 lambda: tf_step(march, (r_, d_, net, *box), tensor, pre, kw),
-                TIMED_STEPS)
+                N_TIMED_STEPS)
             fig[f"{engine}_plain_ms"] = pms
             fig[f"{engine}_img_err"] = ierr
             fig[f"{engine}_grad_rel"] = rel[worst]
@@ -2570,7 +2595,7 @@ def tf_modes(smi, reset_counts, counts, npz, cam, frame_ms):
               f"{fig['row4_ms']:.3f} ms (piecewise {pw['row4_ms']:.3f}), "
               f"plain {plain4_ms:.1f} ms, vs plain "
               f"{fig['row4_err']:.3e} ({fig['row4_off']:.2e}), vs oracle "
-              f"{fig['row4_oracle']:.3e}, bound {fig['row4_bound_ms']:.4f} "
+              f"{fig['row4_oracle']}, bound {fig['row4_bound_ms']:.4f} "
               f"ms ({n4} samples); step mega "
               f"{fig['mega_step_ms']:.3f} ms (piecewise "
               f"{pw['mega_step_ms']:.3f}), grad rel "
@@ -2703,7 +2728,8 @@ def networks(smi, reset_counts, counts, tf, cam):
         check(c["mega_fwd"] >= 1 and bool(torch.isfinite(img).all()),
               f"phase O: render launches {c}")
         got, samples = render.march(return_samples=True)
-        plain = render.march(fused_mega.mega_trace_dvr_plain)
+        plain, plain_ms = cuda_once(
+            lambda: render.march(fused_mega.mega_trace_dvr_plain))
         err = float((got - plain).abs().max())
         tol = KERNEL_TOL
         if ill:
@@ -2734,7 +2760,7 @@ def networks(smi, reset_counts, counts, tf, cam):
         ms = cuda_ms(lambda: render.march(), iters)
         n_samples = int(samples.sum())
         return {"ms": ms, "launches": c["mega_fwd"], "max_abs_err": err,
-                "tol": tol, "oracle_max_abs_err": oerr,
+                "plain_ms": plain_ms, "tol": tol, "oracle_max_abs_err": oerr,
                 "oracle_bf16_max_abs_err": float(
                     (got[sel] - oracle).abs().max()),
                 "samples": n_samples,
@@ -2822,8 +2848,6 @@ def networks(smi, reset_counts, counts, tf, cam):
         .time_rendering(LoadedModel.rotation_cameras(TIMED_CAMERAS), WIDTH,
                         HEIGHT)
     fig1["frame_ms"] = frame_ms
-    fig1["plain_ms"] = cuda_ms(
-        lambda: render.march(fused_mega.mega_trace_dvr_plain), 1)
     rs, rd = block_rays(WIDTH)
     with torch.no_grad():
         target = trace_dvr(rs, rd, VolumeInterpolationImplicit.make(
@@ -3174,6 +3198,7 @@ Q_SAMPLES = 65536
 Q_FRAMES = ((0.0, 0.0), (3.5, 1.5), (7.0, 3.0))
 Q_ANIMATION = 8                      # frames, t = 0 .. 7
 Q_DIFF = (3.5, 1.5)                  # rows 5-6's (t, e)
+Q_ORACLE = (3.5, 1.5)                # Q2's f32 oracle (~6 s a call) here only
 Q_SCREEN = 128                       # rows 2-3 vs plain: 64 whole tiles
 Q_MC_SIZE = 256
 
@@ -3225,7 +3250,7 @@ def keyframes(smi, reset_counts, counts, npz, tf, cam, frame_ms):
     the latent-only step after ``generalize_to_new_ensembles``, first step
     card vs CPU, timed), rendered FUSED at 512^2, 1/512 at three (t, e)
     on rows 1 and 4 (Q2: kernel vs plain, vs the f32 oracle of the
-    network volume at (t, e), an 8-frame animation with the resolve and
+    network volume at Q_ORACLE, an 8-frame animation with the resolve and
     the march timed apart), one differentiable step on each engine (Q3:
     rows 5-6 at t = 3.5 on 64 whole tiles, rows 2-3 through
     ``evaluate_screen(engine="mega")`` on a network with latent vectors;
@@ -3395,16 +3420,18 @@ def keyframes(smi, reset_counts, counts, npz, tf, cam, frame_ms):
                   and float(got[:, 3].max()) > 0.5 and err <= KERNEL_TOL,
                   f"phase Q2 {row} ({t_}, {e_}): alpha max "
                   f"{float(got[:, 3].max())}, kernel vs plain {err}")
-            vol = VolumeInterpolationNetwork(net, *box, time=t_,
-                                             ensemble=e_)
-            o_rays = ((brs[sel], brd[sel]) if row == "mega_fwd"
-                      else (rs[sel], rd[sel]))
-            with torch.no_grad():
-                oracle = trace_dvr(*o_rays, vol, tf.to(dev), ocfg, steps,
-                                   lattice=row == "mega_fwd").color
-            oerr = max_err(march(net, t_, e_, rays=o_rays), oracle)
-            check(oerr < ORACLE_TOL, f"phase Q2 {row} ({t_}, {e_}): vs the "
-                  f"f32 oracle {oerr}")
+            oerr = None
+            if (t_, e_) == Q_ORACLE:
+                vol = VolumeInterpolationNetwork(net, *box, time=t_,
+                                                 ensemble=e_)
+                o_rays = ((brs[sel], brd[sel]) if row == "mega_fwd"
+                          else (rs[sel], rd[sel]))
+                with torch.no_grad():
+                    oracle = trace_dvr(*o_rays, vol, tf.to(dev), ocfg, steps,
+                                       lattice=row == "mega_fwd").color
+                oerr = max_err(march(net, t_, e_, rays=o_rays), oracle)
+                check(oerr < ORACLE_TOL, f"phase Q2 {row} ({t_}, {e_}): vs "
+                      f"the f32 oracle {oerr}")
             ms = cuda_ms(lambda: march(net, t_, e_), 3)
             q2[row][f"{t_},{e_}"] = {
                 "launches": c[key], "max_abs_err": err,
@@ -3413,7 +3440,7 @@ def keyframes(smi, reset_counts, counts, npz, tf, cam, frame_ms):
             print(f"phase Q2 {row} (t, e) = ({t_}, {e_}) [{smi}]: "
                   f"{WIDTH}x{HEIGHT} h=1/{round(1 / STEPSIZE)}, launches "
                   f"{c[key]}, kernel vs plain {err:.3e}, vs f32 oracle "
-                  f"{oerr:.3e}, {ms:.3f} ms, {samples} samples "
+                  f"{oerr}, {ms:.3f} ms, {samples} samples "
                   f"({ms * 1e6 / samples:.4f} ns each)", flush=True)
     # the animation: t = 0 .. 7, e = 3t/7; the resolve plus the table
     # build timed apart from the whole call (resolve + table + march)
@@ -4476,6 +4503,7 @@ def data_parallel(smi, reset_counts, counts, npz):
 
 # phase V: the paper's evaluation harnesses (fvsrn_tpu_torch/eval)
 EVAL_EPOCHS = 2                      # V2's sweeps, cut in depth only
+EVAL_CAMERAS = 2                     # V1: its PLAIN32 frames cut in depth
 EVAL_SIZE = 128                      # V2: the sweeps' FUSED render (sweep.py)
 TEASER_EPOCHS = 10                   # V3's fit
 TEASER_MIN_PSNR = 20.0               # V3: every codec decodes to its volume
@@ -4500,7 +4528,8 @@ def _held_frame(phase, render):
 def evaluation(smi, reset_counts, counts):
     """Phase V, the paper's evaluation harnesses on rows 1-3, through the
     scripts' own entry points. V1: ``eval_volumetric_features --scene
-    dense`` at its defaults (512^2, 1/512, 4 cameras, FUSED and PLAIN32,
+    dense`` at its defaults but EVAL_CAMERAS cameras (512^2, 1/512, the
+    plain PLAIN32 frames cut in depth; FUSED and PLAIN32,
     SSIM vs ``render_reference``): row 1 launched, camera 0's FUSED frame
     the kernel's and the kernel against its plain version (<= 1e-4), both
     SSIMs finite and within EVAL_SSIM_TOL. V2: ``eval_screen_vs_world``
@@ -4519,7 +4548,8 @@ def evaluation(smi, reset_counts, counts):
 
     t_phase = time.perf_counter()
     # V1. the headline harness on the dense flagship
-    args = evf.parse_args(["--scene", "dense"])
+    args = evf.parse_args(["--scene", "dense", "--cameras",
+                           str(EVAL_CAMERAS)])
     model = evf.load_model(args)
     images = {}
     reset_counts()
@@ -4665,6 +4695,22 @@ X_NETS = {
                        disable_direction_in_fourier=False),
 }
 X_MODES = ("texture", "preint1d", "preint2d")
+# phase Y: every TF mode on every network in training, rows 2-3 and 5-6:
+# phase X's networks (random, seeded) under phase N's four modes; the
+# networks whose gradients float32 itself conditions badly (NET_ILL's
+# rule); the trainer's own entry point on phase M's volume
+Y_MODES = ("texture", "preint1d", "preint2d", "gaussian")
+Y_ILL = {"sine30"}
+Y_BF16 = ("relu_dir", "texture")     # row 3 on a bf16 table besides
+Y_ROW_CASE = ("relu_dir", "gaussian")  # the Gaussian instances' rows
+Y_TRAIN_ARGS = ["--mode", "screen", "--layers", "32:32:32",
+                "--activation", "ReLU", "--fouriercount", "14",
+                "--outputmode", "density",
+                "--volumetric_features_channels", "16",
+                "--volumetric_features_resolution", "32",
+                "--screen_size", str(WIDTH), "--stepsize", str(STEPSIZE),
+                "--screen_cameras", "2", "-i", "3", "-o", "Adam",
+                "-lr", "1e-3"]
 
 
 def _get(url, timeout=300):
@@ -5106,6 +5152,315 @@ def any_tf(smi, reset_counts, counts, cam):
     return out
 
 
+def tf_training(smi, reset_counts, counts, cam, tfm):
+    """Phase Y, every TF mode on every network in training: phase X's
+    networks (the flagship's widths as ReLU with direction input and as
+    Sine:30, a 64:64:64 ReLU network with direction input) under the
+    texture, 1D- and 2D-preintegrated TFs and four Gaussians, one
+    differentiable step (mean(img^2)) on each engine at 512^2, 1/512:
+    rows 2-3 on 256-ray tiles (``mega_fwd_anytf*`` or ``mega_fwd_anyg*``,
+    ``mega_bwd*``) and rows 5-6 (``segment_fwd_anytf`` or
+    ``segment_fwd_anyg``, ``segment_bwd``), the launches counted by
+    library, each pair against its plain version on 64 whole tiles
+    (phase N's bounds; Sine:30's in units of its plain version's own
+    change under one ulp of weight noise, as phase O holds it), row 3
+    once more on a bf16 table, each full-frame step timed beside the same
+    network's piecewise step and the flagship's step in the same mode
+    (phase N's, ``tfm``), and the Gaussian instances' differentiable
+    forward alone at full frame (their rows of the kernels line); then
+    ``train.main.run`` in screen mode on a scene JSON written to a
+    temporary directory (phase M's voxelized MARSCHNER_LOBB, a
+    ``Texture`` and then a ``Gaussian`` TF, a ReLU network): fused,
+    through these libraries, loss falling. Returns ({row name: {case:
+    figures}} for rows 2, 3, 5 and 6, the rows of ``mega_fwd_anyg`` and
+    ``segment_fwd_anyg``)."""
+    import tempfile
+
+    from fvsrn_tpu_torch.camera import camera_matrix, generate_rays
+    from fvsrn_tpu_torch.models.latent import LatentSpace
+    from fvsrn_tpu_torch.models.srn import SceneRepresentationNetwork
+    from fvsrn_tpu_torch.ops import fused_dvr, fused_mega
+    from fvsrn_tpu_torch.ops.fused_dvr import (block_ray_permutation,
+                                               fused_tf_args)
+    from fvsrn_tpu_torch.raytracer.dvr import max_steps_bound
+    from fvsrn_tpu_torch.scenes import dense_scene, dense_tf_modes
+    from fvsrn_tpu_torch.train import main as train_main
+    from fvsrn_tpu_torch.volume.implicit import create_implicit_grid
+    from fvsrn_tpu_torch.volume.volume import Volume
+
+    dev = torch.device(DEVICE)
+    box = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))
+    modes = dense_tf_modes(STEPSIZE)
+    ramp = dense_scene()[1].tensor.to(dev)
+    steps = max_steps_bound(box[1], STEPSIZE)
+    rs, rd = generate_rays(camera_matrix(cam), WIDTH, HEIGHT,
+                           cam.fov_y_radians, device=dev)
+    rs = rs.reshape(-1, 3).contiguous()
+    rd = rd.reshape(-1, 3).contiguous()
+    perm, _ = block_ray_permutation(WIDTH, HEIGHT, 16, 16, device=dev)
+    rs_b, rd_b = rs[perm].contiguous(), rd[perm].contiguous()
+    grid = np.random.default_rng(23).standard_normal((16, 32, 32, 32)) * 0.3
+    engines = (
+        ("mega", ("mega_fwd_diff", "mega_bwd"), fused_mega.mega_trace_dvr,
+         fused_mega.mega_trace_dvr_plain,
+         dict(stepsize=STEPSIZE, differentiable=True), rs_b, rd_b),
+        ("scan", ("segment_fwd_diff", "segment_bwd"),
+         fused_dvr.fused_trace_dvr, fused_dvr.fused_trace_dvr_plain,
+         dict(stepsize=STEPSIZE, max_steps=steps, enable_early_out=False,
+              differentiable=True), rs, rd))
+    n_t = rs.shape[0] // 256
+    sub = (torch.arange(0, n_t, n_t // ORACLE_TILES,
+                        device=dev)[:ORACLE_TILES, None] * 256
+           + torch.arange(256, device=dev)).reshape(-1)
+    rows = {r: {} for r in ("mega_fwd_diff", "mega_bwd", "segment_fwd_diff",
+                            "segment_bwd")}
+
+    def noisy(net, eps):
+        out = copy.deepcopy(net)
+        gen = torch.Generator(dev).manual_seed(0)
+        with torch.no_grad():
+            for p in out.parameters():
+                p.mul_(1.0 + eps * torch.randn(p.shape, device=dev,
+                                               generator=gen))
+        return out
+
+    def library(engine, mode, width):
+        kind = "anyg" if mode == "gaussian" else "anytf"
+        if engine == "mega":
+            return fused_mega.library_name(f"mega_fwd_{kind}", width)
+        return f"segment_fwd_{kind}"
+
+    def held(name, engine, mode, net, march, plain, kw, r_, d_, tensor,
+             pre, grid_bf16=False):
+        """The pair against its plain version on the 64 tiles: (image
+        error, share off, worst leaf, its error, its bound)."""
+        ill = name in Y_ILL
+        args = (r_[sub].contiguous(), d_[sub].contiguous(), net, *box)
+        img_k, g_k = tf_step(march, args, tensor, pre, kw)
+        (img_p, g_p), pms = cuda_once(
+            lambda: tf_step(plain, args, tensor, pre, kw))
+        check(sorted(g_k) == sorted(g_p), f"phase Y {name} {mode} "
+              f"{engine}: leaves {sorted(g_k)} vs {sorted(g_p)}")
+        preint = mode in ("preint1d", "preint2d")
+        tol = {n: GRAD_TOL for n in g_p}
+        img_tol = KERNEL_TOL
+        if ill or preint:
+            eps, factor = ((NOISE_EPS, NOISE_FLIP) if ill
+                           else (TF_FLIP_EPS, TF_FLIP_GRAD))
+            img_q, g_q = tf_step(plain, (*args[:2], noisy(net, eps), *box),
+                                 tensor, pre, kw)
+            tol = {n: max(GRAD_TOL, factor * rel_err(g_q[n], g_p[n]))
+                   if float(g_p[n].norm()) > 0 else GRAD_TOL for n in g_p}
+            if ill:
+                img_tol = max(KERNEL_TOL, NOISE_FLIP * float(
+                    (img_q - img_p).abs().max()))
+        if preint:
+            share = flip_share(lambda *a, **k: plain(
+                *a, **k).detach(), (*args, tensor), dict(kw, tf_pre=pre),
+                img_p)
+            ierr, off = image_check(f"phase Y {name} {engine}", img_k,
+                                    img_p, mode, share)
+        else:
+            ierr = float((img_k - img_p).abs().max())
+            off = float(((img_k - img_p).abs().amax(dim=-1)
+                         > KERNEL_TOL).float().mean())
+            check(ierr <= img_tol, f"phase Y {name} {mode} {engine}: image "
+                  f"kernel vs plain {ierr} (tol {img_tol})")
+        rel = {}
+        for n in g_p:
+            if float(g_p[n].norm()) == 0:
+                rel[n] = float(g_k[n].norm())
+                check(rel[n] == 0.0, f"phase Y {name} {mode} {engine}: "
+                      f"{n} nonzero where plain is zero")
+                continue
+            if grid_bf16 and n == "latent.static_grid":
+                ok, el, _ = bench_grid_check(g_k[n], g_p[n])
+                check(ok, f"phase Y {name} {mode} {engine} bf16: grid per "
+                      f"element {el}")
+                rel[n] = 0.0
+                continue
+            rel[n] = rel_err(g_k[n], g_p[n])
+        worst = max(rel, key=lambda n: rel[n] / tol[n])
+        check(rel[worst] <= tol[worst],
+              f"phase Y {name} {mode} {engine}: grad {worst} {rel[worst]} "
+              f"(tol {tol[worst]})")
+        return {"img_err": ierr, "img_tol": img_tol if not preint else None,
+                "off_share": off, "grad_rel": rel[worst],
+                "grad_worst": worst, "grad_tol": tol[worst],
+                "plain_ms": pms}
+
+    def forward_row(engine, lib, net, march, plain, mkw, r_, d_, tensor,
+                    fig, launches):
+        """The kernels line's row of the Gaussian instance ``lib``: its
+        differentiable forward alone at full frame (storing the carries,
+        no backward) against its plain version, timed, with its bound
+        (the run's samples at the bf16 tensor cores' rate, or the rays,
+        the table and the carries of the segments holding samples at the
+        memory's)."""
+        kw = dict(mkw, tf_mode="gaussian")
+        stat = ({"return_samples": True} if engine == "mega"
+                else {"return_stats": True})
+        with torch.no_grad():
+            got, st = march(r_, d_, net, *box, tensor, **kw, **stat)
+            want, pms = cuda_once(lambda: plain(r_, d_, net, *box, tensor,
+                                                **kw))
+            ms = cuda_ms(lambda: march(r_, d_, net, *box, tensor, **kw), 5)
+        err = max_err(got, want)
+        check(err <= KERNEL_TOL, f"phase Y {lib}: the whole frame's "
+              f"differentiable forward vs plain {err}")
+        n_s = int(st.sum()) if engine == "mega" else int(st.samples)
+        flops = n_s * (sample_flops(net) + TF_FLOPS["gaussian"])
+        io_bytes = (r_.shape[0] * (7 + 4) * 4 + 16 * 32 ** 3 * 4
+                    + n_s // 32 * 20)
+        src = (f"fvsrn_tpu_torch/csrc/{lib}.cu" if engine == "mega"
+               else "fvsrn_tpu_torch/csrc/segment_fwd_anyg.cu")
+        return {"name": lib if engine == "scan" else "mega_fwd_anyg",
+                "route": "cuda", "source": src,
+                "replaces": ("fvsrn_tpu/ops/fused_mega.py:962"
+                             if engine == "mega"
+                             else "fvsrn_tpu/ops/fused_dvr_bwd.py:1144"),
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": pms,
+                "bound_ms": max(flops / PEAK_BF16_TC,
+                                io_bytes / PEAK_BYTES) * 1e3,
+                "bound_by": ("operations" if flops / PEAK_BF16_TC
+                             > io_bytes / PEAK_BYTES else "bytes"),
+                "library_ms": None, "samples": n_s,
+                "step_ms": fig["step_ms"], "step_grad_rel": fig["grad_rel"],
+                "ptxas": ptxas_summary(src.split("/")[-1][:-3])}
+
+    kernel_rows = {}
+    t_phase = time.perf_counter()
+    for name, nkw in X_NETS.items():
+        net = SceneRepresentationNetwork.make(
+            num_fourier=14, output_mode="density", seed=11,
+            latent=LatentSpace(static_grid=torch.tensor(
+                grid, dtype=torch.float32)), **nkw).to(dev)
+        width = fused_mega.kernel_width(net)
+        pw = {engine: cuda_ms(lambda: tf_step(
+            march, (r_, d_, net, *box), ramp, None, mkw), 1)
+            for engine, _, march, _, mkw, r_, d_ in engines}
+        for mode in Y_MODES:
+            tensor, tf_kw = fused_tf_args(modes[mode].to(dev))
+            pre = tf_kw.pop("tf_pre", None)
+            for engine, keys, march, plain, mkw, r_, d_ in engines:
+                kw = dict(mkw, **tf_kw)
+                lib = library(engine, mode, width)
+                # Y1. one full-frame step, its launches by library
+                reset_counts()
+                img, _ = tf_step(march, (r_, d_, net, *box), tensor, pre, kw)
+                torch.cuda.synchronize()
+                ck = counts()
+                libs = dict(fused_mega.LIBRARY_LAUNCHES)
+                libs.update(fused_dvr.LIBRARY_LAUNCHES)
+                check(libs == {lib: 1} and ck[keys[0]] == 1
+                      and ck[keys[1]] == 1
+                      and bool(torch.isfinite(img).all())
+                      and float(img[:, 3].max()) > 0.5,
+                      f"phase Y {name} {mode} {engine}: launches {libs}, "
+                      f"counts {ck}, alpha {float(img[:, 3].max())}")
+                # Y2. kernel vs plain on 64 whole tiles
+                fig = held(name, engine, mode, net, march, plain, kw, r_, d_,
+                           tensor, pre)
+                if engine == "mega" and (name, mode) == Y_BF16:
+                    fig["bf16_table"] = held(
+                        name, engine, mode, net, march, plain,
+                        dict(kw, table_dtype=torch.bfloat16), r_, d_, tensor,
+                        pre, grid_bf16=True)
+                # Y3. the full-frame step timed once (Y1's step warmed it)
+                _, fig["step_ms"] = cuda_once(lambda: tf_step(
+                    march, (r_, d_, net, *box), tensor, pre, kw))
+                fig["piecewise_step_ms"] = pw[engine]
+                fig["flagship_step_ms"] = tfm[mode][f"{engine}_step_ms"]
+                fig["library"] = lib
+                fig["launches"] = [libs.get(lib, 0), ck[keys[1]]]
+                if (name, mode) == Y_ROW_CASE:
+                    kernel_rows[engine] = forward_row(
+                        engine, lib, net, march, plain, mkw, r_, d_, tensor,
+                        fig, libs.get(lib, 0))
+                for row in keys:
+                    rows[row][f"{name}:{mode}"] = fig
+                print(f"phase Y {name} {mode} {engine} [{smi}]: step "
+                      f"{fig['step_ms']:.3f} ms (the network's piecewise "
+                      f"{pw[engine]:.3f}, the flagship's {mode} "
+                      f"{fig['flagship_step_ms']:.3f}), launches {libs} + "
+                      f"{keys[1]} {ck[keys[1]]}; on {ORACLE_TILES} tiles vs "
+                      f"plain image {fig['img_err']:.3e} "
+                      f"({fig['off_share']:.2e} of rays > {KERNEL_TOL}), "
+                      f"grad rel {fig['grad_rel']:.2e} ({fig['grad_worst']}, "
+                      f"tol {fig['grad_tol']:.2e}), plain step "
+                      f"{fig['plain_ms']:.0f} ms"
+                      + (f"; bf16 table grad rel "
+                         f"{fig['bf16_table']['grad_rel']:.2e} "
+                         f"({fig['bf16_table']['grad_worst']})"
+                         if "bf16_table" in fig else ""), flush=True)
+    print(f"phase Y steps: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # Y4. the trainer's entry point on a scene JSON: phase M's volume, a
+    # texture TF and then the Gaussians, a ReLU network (the trainer has
+    # no direction option, as JAX's has none)
+    tex = modes["texture"].tensor
+    tfs = {"Texture": {
+        "absorptionScaling": 1.0,
+        "colorPoints": [[(i + 0.5) / tex.shape[0], *tex[i, :3].tolist()]
+                        for i in range(tex.shape[0])],
+        "opacityPoints": tex[:, 3].tolist()},
+        "Gaussian": {"absorptionScaling": 1.0,
+                     "points": modes["gaussian"].tensor.tolist()}}
+    trainer = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        vol = Volume(world_size=(1.0, 1.0, 1.0))
+        vol.add_feature("density", create_implicit_grid(
+            GRID_RES, "MARSCHNER_LOBB", device=dev).cpu().numpy())
+        vol.save(os.path.join(tmp, f"mlobb{GRID_RES}.cvol"), compression=1)
+        for kind, lib in (("Texture", "mega_fwd_anytf"),
+                          ("Gaussian", "mega_fwd_anyg")):
+            scene = os.path.join(tmp, f"mlobb_{kind.lower()}.json")
+            with open(scene, "w") as f:
+                json.dump({
+                    "ImageEvaluator": {"Simple": {
+                        "selectedCamera": "Sphere",
+                        "selectedRayEvaluator": "DVR",
+                        "selectedVolume": "Grid"}},
+                    "RayEvaluation": {"DVR": {"stepsize": STEPSIZE,
+                                              "selectedTF": kind}},
+                    "camera": {"Sphere": dict(CAMERA)},
+                    "tf": {kind: tfs[kind]},
+                    "volume": {"Grid": {
+                        "source": "VOLUME", "interpolation": "TRILINEAR",
+                        "volumePath": f"mlobb{GRID_RES}.cvol"}}}, f)
+            opt = vars(train_main.init_parser().parse_args(
+                [scene, os.path.join(tmp, f"{kind}.npz")] + Y_TRAIN_ARGS))
+            reset_counts()
+            t0 = time.perf_counter()
+            result = train_main.run(opt)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            c = counts()
+            n_lib = fused_mega.LIBRARY_LAUNCHES[lib]
+            hist = result["history"]
+            n_steps = opt["screen_cameras"] * opt["epochs"]
+            print(f"phase Y trainer {kind} [{smi}]: train.main.run screen on "
+                  f"a {GRID_RES}^3 .cvol scene, ReLU 32:32:32, {WIDTH}x"
+                  f"{HEIGHT}, {n_steps} steps in {train_s:.1f} s (dataset "
+                  f"included), fused {result['fused']}, losses {hist}, "
+                  f"{lib} {n_lib}, launches {c}", flush=True)
+            check(result["fused"] and n_lib >= n_steps
+                  and c["mega_bwd"] >= n_steps
+                  and all(math.isfinite(v) for v in hist)
+                  and hist[-1] < hist[0],
+                  f"phase Y trainer {kind}: fused {result['fused']}, "
+                  f"{lib} {n_lib}, launches {c}, losses {hist}")
+            trainer[kind] = {"fused": result["fused"], "losses": hist,
+                             "library_launches": n_lib,
+                             "mega_bwd": c["mega_bwd"], "seconds": train_s}
+    for row in ("mega_fwd_diff", "mega_bwd"):
+        rows[row]["trainer"] = trainer
+    print(f"phase Y: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows, [kernel_rows["mega"], kernel_rows["scan"]]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5369,6 +5724,11 @@ def main():
     clock("phase W")
     anytf_rows = any_tf(smi, reset_counts, counts, cam)
     clock("phase X")
+    # every TF mode on every network in training, rows 2-3 and 5-6
+    tfn, anyg_rows = tf_training(smi, reset_counts, counts, cam, tfm)
+    for row in train_rows + scan_rows:
+        row["tf_modes_networks"] = tfn[row["name"]]
+    clock("phase Y")
 
     # 2, finished: every source built, each nvcc's seconds, the seconds the
     # phases waited for one, the ptxas reports
@@ -5389,7 +5749,7 @@ def main():
     # 11. kernels
     print(json.dumps({"kernels": [render_row] + train_rows
                       + [segment_row] + scan_rows + [mc_row] + probe
-                      + anytf_rows}))
+                      + anytf_rows + anyg_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -470,6 +470,24 @@ struct TfRecord {
   float4 dc;
 };
 
+// The gradient of a sample's preint2d cell (set in `c`) from the
+// cotangent dcol of its (r, g, b, opacity): the cell's normalized color
+// and its opacity through the guarded inverse.
+__device__ __forceinline__ float4 preint2d_cell_grad(const float4* T2,
+                                                     int r, float d,
+                                                     float prev, float4 dcol,
+                                                     int& c) {
+  c = cell_2d(d, prev, r);
+  const float4 v = __ldg(T2 + c);
+  const float inv = guarded_inv(v.w);
+  const float d_inv = dcol.x * v.x + dcol.y * v.y + dcol.z * v.z;
+  const float da = dcol.w + d_inv * (v.w > 1e-5f
+                                         ? -1.0f / (fmaxf(v.w, 1e-5f)
+                                                    * fmaxf(v.w, 1e-5f))
+                                         : 0.0f);
+  return make_float4(dcol.x * inv, dcol.y * inv, dcol.z * inv, da);
+}
+
 // Adjoint of tf_color at (d, prev) for the cotangent dcol of its
 // (r, g, b, absorption): returns the cotangent of d (the clipped density)
 // and sets d_prev (that of `prev`; 0 where there is none) and the record.
@@ -500,16 +518,9 @@ __device__ __forceinline__ float tf_color_adjoint(
     return dd;
   }
   if (TFM == kTfPreint2d) {
-    const int c = cell_2d(d, prev, r);
-    const float4 v = __ldg(T2 + c);
-    const float inv = guarded_inv(v.w);
-    const float d_inv = dcol.x * v.x + dcol.y * v.y + dcol.z * v.z;
-    const float da = dcol.w + d_inv * (v.w > 1e-5f
-                                           ? -1.0f / (fmaxf(v.w, 1e-5f)
-                                                      * fmaxf(v.w, 1e-5f))
-                                           : 0.0f);
-    atomicAdd(dT2 + c, make_float4(dcol.x * inv, dcol.y * inv,
-                                   dcol.z * inv, da));
+    int c;
+    const float4 g = preint2d_cell_grad(T2, r, d, prev, dcol, c);
+    atomicAdd(dT2 + c, g);
     return 0.0f;
   }
   const float pe = prev < 0.0f ? d : prev;

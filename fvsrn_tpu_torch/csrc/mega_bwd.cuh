@@ -18,7 +18,9 @@
 // cotangent (sample_mlp.cuh's ray_fold); the others compile without it. The TF
 // mode is a template parameter (sample_mlp.cuh's group_segment_tf for the
 // modes other than piecewise: the previous-density chain runs through
-// the stored densities and a cotangent carried to each segment's start).
+// the stored densities and a cotangent carried to each segment's start),
+// on every network: the activation, the head and the direction input are
+// run-time switches in every mode, as in the JAX kernel.
 //
 // Layout: one block per tile of kTile rays (256, or 128 in the _t128
 // sources), kTile threads, thread i owning ray i of the tile, as the
@@ -241,8 +243,8 @@ int launch(const March& P, const BwdArgs& A, int n_rays, cudaStream_t st) {
 }  // namespace
 
 // Inputs as mega_fwd_launch's (the TF modes other than piecewise: density
-// heads of SnakeAlt networks without direction input; `table` bf16 or
-// float32 by `table_f32`), plus the forward's `carries` (tiles x n_seg_max
+// heads of every network the forward takes; `table` bf16 or float32 by
+// `table_f32`), plus the forward's `carries` (tiles x n_seg_max
 // x kTile float4) and `seg_count`, and the rgba cotangent `d_out` (R, 4).
 // Writes `d_weights` (tiles x n_weights partial rows, packed as the
 // weights) and `tile_work` (tiles x 2: samples replayed, samples
@@ -272,7 +274,6 @@ extern "C" int mega_bwd_launch(
   if (hidden != MEGA_WIDTH || seg != kSegMax || n_fourier > kMaxFourier
       || n_hidden > kMaxHidden
       || !mega_valid(act, head, tfm, tf_points, tf_pre, tf_floats, tf2d)
-      || (tfm != kTfPiecewise && (act != kSnakeAlt || has_dir))
       || n_lat > kLat
       || (tfm != kTfPiecewise && dens_carries == nullptr)
       || (tfm == kTfPreint2d && d_tf2d == nullptr))

@@ -33,17 +33,19 @@
 // direction input (the product's networks; the activation compiled into
 // the layers' epilogue, no direction read), and for every other network
 // (any activation, a switch outside the tile's layers as in
-// segment_fwd.cu; direction input) the piecewise TF or rgbo heads and the
-// texture, 1D- and 2D-preintegrated TFs (no Gaussians: the render refuses
-// them); each table type, masked or not. The head is a runtime switch.
-// Four libraries a width (MEGA_PART), so that nvcc builds them in
+// segment_fwd.cu; direction input) every TF mode too: the piecewise TF or
+// rgbo heads, the texture, 1D- and 2D-preintegrated TFs, each table type,
+// masked or not, and the Gaussians unmasked (the training forward's; the
+// render refuses Gaussians). The head is a runtime switch.
+// Five libraries a width (MEGA_PART), so that nvcc builds them in
 // parallel and the one most paths launch is ready first: SnakeAlt networks
 // without direction input on the piecewise TF (mega_fwd*.cu), their other
 // TF modes (mega_fwd_tf*.cu), every other network on the piecewise TF
 // (mega_fwd_any*.cu, whose activation switch makes its instances the
-// costliest to compile), and every other network on the texture and
-// preintegrated TFs (mega_fwd_anytf*.cu, 256-ray tiles only: the render's
-// tile; the training forward takes SnakeAlt networks in those modes). The
+// costliest to compile), every other network on the texture and
+// preintegrated TFs (mega_fwd_anytf*.cu) and on the Gaussians
+// (mega_fwd_anyg*.cu), the last two on 256-ray tiles only (the render's
+// and the screen trainer's tile). The
 // normals instances (MEGA_NORMALS: mega_fwd_nrm.cu, mega_fwd_nrm48.cu,
 // mega_fwd_nrm64.cu, a library each) replace the JAX kernel's render with
 // need_normals and a BRDF: the generic instance's tile, then each counting
@@ -87,7 +89,8 @@
 #endif
 #ifndef MEGA_PART
 // 0: SnakeAlt, piecewise; 1: SnakeAlt, other TF modes; 2: other networks,
-// piecewise; 3: other networks, texture and preintegrated TFs
+// piecewise; 3: other networks, texture and preintegrated TFs; 4: other
+// networks, Gaussians (unmasked)
 #define MEGA_PART 0
 #endif
 
@@ -325,17 +328,24 @@ int launch_instance(const March& P, const FwdOut& O, const FLayer& L,
 
 // SnakeAlt networks without direction input take their TF mode's
 // instance; every other network the generic one of its TF mode (piecewise
-// TF or rgbo heads, texture, 1D- or 2D-preintegrated; mega_fwd_launch
-// refuses Gaussians). A library holds its part's instances only
-// (MEGA_PART) and refuses the others'.
+// TF or rgbo heads, texture, 1D- or 2D-preintegrated, Gaussians unmasked:
+// mega_fwd_launch refuses a mask with them). A library holds its part's
+// instances only (MEGA_PART) and refuses the others'.
 template <typename Table, bool kMasked>
 int launch_tf(const March& P, const FwdOut& O, const FLayer& L,
               const TfArgs& T, int n_rays, cudaStream_t stream) {
   const bool generic = P.act != kSnakeAlt || P.has_dir;
-  const int part = T.tfm != kTfPiecewise ? (generic ? 3 : 1)
-                   : generic ? 2 : 0;
+  const int part = T.tfm == kTfPiecewise ? (generic ? 2 : 0)
+                   : !generic ? 1 : T.tfm == kTfGaussian ? 4 : 3;
   if (part != MEGA_PART) return (int)cudaErrorInvalidValue;
-#if MEGA_PART == 0
+#if MEGA_PART == 4
+  // the training forward's Gaussians: no masked instance
+  if constexpr (kMasked)
+    return (int)cudaErrorInvalidValue;
+  else
+    return launch_instance<Table, false, kTfGaussian, -1>(P, O, L, T,
+                                                          n_rays, stream);
+#elif MEGA_PART == 0
   return launch_instance<Table, kMasked, kTfPiecewise, kSnakeAlt>(
       P, O, L, T, n_rays, stream);
 #elif MEGA_PART == 2
@@ -485,10 +495,10 @@ extern "C" int mega_fwd_smem(int n_fourier, int n_hidden, int tf_floats,
 // Weights packed as in mega_common.cuh (`Offsets`) at the padded hidden
 // width `hidden`, which must be this library's (MEGA_WIDTH). The network:
 // activation `act` with parameter `act_param`, output head `head`
-// (march_common.cuh's Act and Head), direction input `has_dir`; a
-// Gaussian TF takes SnakeAlt networks without direction input, the other
-// TF modes every network (MEGA_PART 3 for the others), rgbo heads no TF
-// (tfm piecewise, no rows). `table` is (gz, gy, gx, 16)
+// (march_common.cuh's Act and Head), direction input `has_dir`; every
+// TF mode takes every network (MEGA_PART 3 and 4 for the networks other
+// than SnakeAlt without direction input; a Gaussian TF there with no
+// `seg_active` mask), rgbo heads no TF (tfm piecewise, no rows). `table` is (gz, gy, gx, 16)
 // bf16 (table_f32 = 0) or float32 (table_f32 = 1). `carries` and
 // `seg_count` may be null (the render); otherwise carries holds
 // n_seg_max x kTile float4 per tile. `seg_active` (tiles x mask_cols bytes,
@@ -513,7 +523,8 @@ extern "C" int mega_fwd_launch(
   if (hidden != MEGA_WIDTH || n_fourier > kMaxFourier
       || n_hidden > kMaxHidden || seg < 1
       || !mega_valid(act, head, tfm, tf_points, tf_pre, tf_floats, tf2d)
-      || (tfm == kTfGaussian && (act != kSnakeAlt || has_dir)))
+      || (tfm == kTfGaussian && (act != kSnakeAlt || has_dir)
+          && seg_active != nullptr))
     return (int)cudaErrorInvalidValue;
   const float bmin[3] = {bmin_x, bmin_y, bmin_z};
   const float bsize[3] = {bsize_x, bsize_y, bsize_z};

@@ -1292,10 +1292,16 @@ __device__ __forceinline__ void group_segment_tf(
       sa[o] = D.blend_alpha ? (absn < 1.0f ? trans * dw : 0.0f)
                             : trans * dw * expf(-absn);
     }
-    // the TF adjoint and the density chain, last sample first
+    // the TF adjoint and the density chain, last sample first. preint2d:
+    // the ray's consecutive samples in one cell add in registers and the
+    // run reaches the table by one atomic (where the density varies
+    // slowly most samples share a few cells, and an atomic a sample adds
+    // terms below the float32 resolution of the cell's large sum)
     uint32_t need = 0u;
     float chain = dpc;
     const uint32_t listed = valid | donly;
+    int run_cell = -1;
+    float4 run = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll 1
     for (int j = kSegMax - 1; j >= 0; --j) {
       if (!((listed >> j) & 1u)) continue;
@@ -1307,17 +1313,34 @@ __device__ __forceinline__ void group_segment_tf(
                         : (j > 0 && ((valid >> (j - 1)) & 1u)) ? dn[o - kGroup]
                                                                : pin;
         const float w = sd[o];
-        TfRecord rec;
-        own = tf_color_adjoint<TFM>(
-            S.TF(), D.tf2d, D.d_tf2d, D.tp, D.tpre, fminf(fmaxf(d2, 0.0f),
-                                                          1.0f),
-            p, D.h, make_float4(w * cr, w * cg, w * cb, sa[o]), d_prev, rec);
+        const float dc = fminf(fmaxf(d2, 0.0f), 1.0f);
+        const float4 dcol = make_float4(w * cr, w * cg, w * cb, sa[o]);
+        if constexpr (TFM == kTfPreint2d) {
+          int c;
+          const float4 g2 = preint2d_cell_grad(D.tf2d, D.tp, dc, p, dcol, c);
+          if (c != run_cell) {
+            if (run_cell >= 0) atomicAdd(D.d_tf2d + run_cell, run);
+            run_cell = c;
+            run = g2;
+          } else {
+            run.x += g2.x;
+            run.y += g2.y;
+            run.z += g2.z;
+            run.w += g2.w;
+          }
+        } else {
+          TfRecord rec;
+          own = tf_color_adjoint<TFM>(S.TF(), D.tf2d, D.d_tf2d, D.tp,
+                                      D.tpre, dc, p, D.h, dcol, d_prev, rec);
+        }
       }
       const float tot = ((d2 > 0.0f && d2 < 1.0f) ? own : 0.0f) + chain;
       dd[o] = tot;
       if (tot != 0.0f || ((contrib >> j) & 1u)) need |= 1u << j;
       chain = d_prev;
     }
+    if (TFM == kTfPreint2d && run_cell >= 0)
+      atomicAdd(D.d_tf2d + run_cell, run);
     if (listed) dpc = chain;
     if (TFM == kTfPreint2d) need = 0u;
     S.contrib()[lane] = contrib;

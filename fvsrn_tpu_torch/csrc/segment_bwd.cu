@@ -15,7 +15,8 @@
 // package's table_dtype cast). The rays get none (the
 // TPU's custom VJP gives them zeros). The TF mode is a template parameter
 // (sample_mlp.cuh's group_segment_tf for the modes other than piecewise,
-// density heads).
+// density heads), every mode on every network: the activation and the
+// direction input are run-time switches.
 //
 // One launch per step, 64 rays per block in two groups of 32, 256
 // threads. Each ray walks its segments in reverse from its last

@@ -14,10 +14,11 @@
 // 2D-preintegrated, Gaussians) or the rgbo heads' own color, Beer-Lambert
 // or alpha blending, and the isosurface first-hit epilogue. The TF modes
 // other than piecewise are template instances of SnakeAlt networks (the
-// activation a template parameter too; segment_fwd_tf.cu), and the
-// texture, 1D- and 2D-preintegrated TFs also of every other activation
-// (the generic switch; segment_fwd_anytf.cu, the render's forward only);
-// they carry each ray's last normalized density besides its rgba, across
+// activation a template parameter too; segment_fwd_tf.cu), and of every
+// other activation (the generic switch): the texture, 1D- and
+// 2D-preintegrated TFs (segment_fwd_anytf.cu) and the Gaussians
+// (segment_fwd_anyg.cu, the training forward's: the render refuses
+// Gaussians on these networks); they carry each ray's last normalized density besides its rgba, across
 // segments and into phase 1 (`dens`), and store it with the carries for
 // training.
 //
@@ -306,11 +307,12 @@ int launch(const Seg& P, const SegOut& O, const FLayer& L, int phase,
 }
 
 // The piecewise instances (segment_fwd.cu), the other TF modes' of
-// SnakeAlt networks (SEGMENT_TF_MODES 1: segment_fwd_tf.cu) and the
-// texture and preintegrated TFs' of every other activation
-// (SEGMENT_TF_MODES 2: segment_fwd_anytf.cu) are libraries of their own,
-// so that nvcc builds them in parallel and the piecewise one, which most
-// paths launch, is ready first; a library raises the others' modes.
+// SnakeAlt networks (SEGMENT_TF_MODES 1: segment_fwd_tf.cu), the texture
+// and preintegrated TFs' of every other activation (SEGMENT_TF_MODES 2:
+// segment_fwd_anytf.cu) and their Gaussians' (SEGMENT_TF_MODES 3:
+// segment_fwd_anyg.cu) are libraries of their own, so that nvcc builds
+// them in parallel and the piecewise one, which most paths launch, is
+// ready first; a library raises the others' modes.
 #ifndef SEGMENT_TF_MODES
 #define SEGMENT_TF_MODES 0
 #endif
@@ -318,9 +320,13 @@ int launch(const Seg& P, const SegOut& O, const FLayer& L, int phase,
 template <int H, typename Table>
 int launch_tf(const Seg& P, const SegOut& O, const FLayer& L, int phase,
               cudaStream_t stream) {
-  const int part = P.tfm == kTfPiecewise ? 0 : P.act == kSnakeAlt ? 1 : 2;
+  const int part = P.tfm == kTfPiecewise ? 0
+                   : P.act == kSnakeAlt ? 1
+                   : P.tfm == kTfGaussian ? 3 : 2;
   if (part != SEGMENT_TF_MODES) return (int)cudaErrorInvalidValue;
-#if SEGMENT_TF_MODES == 0
+#if SEGMENT_TF_MODES == 3
+  return launch<H, Table, kTfGaussian, -1>(P, O, L, phase, stream);
+#elif SEGMENT_TF_MODES == 0
   return launch<H, Table, kTfPiecewise, -1>(P, O, L, phase, stream);
 #elif SEGMENT_TF_MODES == 1
   switch (P.tfm) {

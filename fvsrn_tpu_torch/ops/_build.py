@@ -28,23 +28,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # every source of the port (csrc/<name>.cu); the megakernel's one per
 # hidden width (32, 48, 64) and ray tile (256; 128 in the _t128 sources),
-# the forward in four parts (SnakeAlt on the piecewise TF, SnakeAlt on the
+# the forward in five parts (SnakeAlt on the piecewise TF, SnakeAlt on the
 # other TF modes, every other network on the piecewise TF, every other
-# network on the texture and preintegrated TFs: mega_fwd.cuh's MEGA_PART),
-# the last and the normals instances on 256-ray tiles only (the render's
-# tile); the per-segment engine's forward in three (the piecewise TF, the
-# other modes of SnakeAlt networks, the texture and preintegrated TFs of
-# every other activation), its normals instances apart from its render's
+# network on the texture and preintegrated TFs and on the Gaussians:
+# mega_fwd.cuh's MEGA_PART), the last two and the normals instances on
+# 256-ray tiles only (the render's and the screen trainer's tile); the
+# per-segment engine's forward in four (the piecewise TF, the other modes
+# of SnakeAlt networks, the texture and preintegrated TFs of every other
+# activation, their Gaussians), its normals instances apart from its
+# render's
+_TILE256_ONLY = ("mega_fwd_nrm", "mega_fwd_anytf", "mega_fwd_anyg")
 MEGA_SOURCES = tuple(f"{kind}{w}{t}"
                      for kind in ("mega_fwd", "mega_fwd_tf", "mega_fwd_any",
                                   "mega_fwd_nrm", "mega_bwd",
-                                  "mega_fwd_anytf")
+                                  "mega_fwd_anytf", "mega_fwd_anyg")
                      for t in ("", "_t128") for w in ("", "48", "64")
-                     if not (kind in ("mega_fwd_nrm", "mega_fwd_anytf")
-                             and t))
+                     if not (kind in _TILE256_ONLY and t))
 SOURCES = MEGA_SOURCES + ("segment_fwd", "segment_fwd_tf", "segment_fwd_nrm",
                           "segment_bwd", "sample_eval", "probes",
-                          "segment_fwd_anytf")
+                          "segment_fwd_anytf", "segment_fwd_anyg")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _PENDING: dict[str, concurrent.futures.Future] = {}

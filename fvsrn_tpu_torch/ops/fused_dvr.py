@@ -44,8 +44,9 @@ previous density (carried across segments), or Gaussians. With
 ``iso_value`` the march records the first sample whose density exceeds
 it: rgba = (depth, 0, 0, found), and a hit ray is dead. The
 differentiable march has no early-out (every segment runs; the JAX
-package's fixed-count scan) and a float32 table; normals and shading,
-and a bf16 table under ``differentiable=True`` raise
+package's fixed-count scan) and reads a float32 or a bf16 table
+(``table_dtype``; its gradient summed in float32 and rounded once per
+cell); normals and shading under ``differentiable=True`` raise
 ``NotImplementedError``. With ``need_normals`` (density heads) each valid
 sample also gets the network's world-space position gradient (the
 adjoint sweep of the JAX package's ``_mlp_position_grad_T``), its
@@ -88,8 +89,8 @@ from .fused_mega import (_ACTIVATIONS, _HEADS, TfCarries, _gated_clip01,
 # plain version never counts
 SEGMENT_LAUNCHES = 0
 SEGMENT_NRM_LAUNCHES = 0
-# the render's launches by library (segment_library), reset with the
-# counts above
+# the forward's launches by library (segment_library), the render's and
+# the training forward's, reset with the counts above
 LIBRARY_LAUNCHES: collections.Counter = collections.Counter()
 
 # the JAX megakernel's VMEM budget for its latent slab: the route rule of
@@ -1171,10 +1172,11 @@ def _check_kernel_inputs(net, tf: Tensor, seg: int = 32,
                          need_normals: bool = False):
     """What csrc/segment_fwd.cu (and, for gradients, segment_bwd.cu)
     takes for the TF table ``tf`` (``prepare_tf``'s) in ``tf_mode``: every
-    mode on SnakeAlt networks, and the texture, 1D- and 2D-preintegrated
-    TFs on every other activation in the render's forward
-    (segment_fwd_anytf.cu); its normals instances (segment_fwd_nrm.cu)
-    take the piecewise TF. The rest raises ``NotImplementedError``."""
+    mode on SnakeAlt networks, and on every other activation the texture,
+    1D- and 2D-preintegrated TFs (segment_fwd_anytf.cu) and in training
+    the Gaussians (segment_fwd_anyg.cu; the render refuses them); its
+    normals instances (segment_fwd_nrm.cu) take the piecewise TF. The rest
+    raises ``NotImplementedError``."""
     from .sample_mlp import tf_floats_of
     if need_normals and tf_mode != "piecewise":
         raise NotImplementedError(f"segment kernel: normals with TF mode "
@@ -1194,12 +1196,11 @@ def _check_kernel_inputs(net, tf: Tensor, seg: int = 32,
     if tf_mode in ("piecewise", "gaussian") and tf.shape[0] > MAX_TF_POINTS:
         raise NotImplementedError(f"segment kernel: at most {MAX_TF_POINTS} "
                                   f"{tf_mode} TF points")
-    if (tf_mode != "piecewise" and net.layers[0].activation != "SnakeAlt"
-            and (differentiable or tf_mode == "gaussian")):
+    if (tf_mode == "gaussian" and net.layers[0].activation != "SnakeAlt"
+            and not differentiable):
         raise NotImplementedError(
-            f"segment kernel: TF mode {tf_mode!r} "
-            + ("in training " if differentiable else "")
-            + "takes SnakeAlt networks only")
+            f"segment kernel: TF mode 'gaussian' on a "
+            f"{net.layers[0].activation} network in training only")
     tf_floats = (5 * tf.shape[0] if tf_mode == "piecewise"
                  else tf_floats_of(tf_mode, tf))
     if net.layers[0].activation not in _ACTIVATIONS:
@@ -1329,12 +1330,14 @@ def _check_tensors(dev, **tensors):
 
 def segment_library(spec: SegmentSpec) -> str:
     """The forward's library for this march: "segment_fwd" (the piecewise
-    TF), "segment_fwd_tf" (the other TF modes of SnakeAlt networks) or
+    TF), "segment_fwd_tf" (the other TF modes of SnakeAlt networks),
     "segment_fwd_anytf" (the texture and preintegrated TFs of every other
-    activation)."""
+    activation) or "segment_fwd_anyg" (their Gaussians)."""
     if spec.tf_mode == "piecewise":
         return "segment_fwd"
-    return ("segment_fwd_tf" if spec.activation[0] == "SnakeAlt"
+    if spec.activation[0] == "SnakeAlt":
+        return "segment_fwd_tf"
+    return ("segment_fwd_anyg" if spec.tf_mode == "gaussian"
             else "segment_fwd_anytf")
 
 
@@ -1405,9 +1408,9 @@ def launch_segment(spec: SegmentSpec, net, rays: Tensor,
             if err != 0:
                 raise RuntimeError(f"segment_fwd launch (phase {phase}) "
                                    f"failed with CUDA error {err}")
+            LIBRARY_LAUNCHES[lib] += 1
             if not store_carries:
                 SEGMENT_LAUNCHES += 1
-                LIBRARY_LAUNCHES[lib] += 1
     if dens_carries is not None:
         carries = TfCarries(carries, dens_carries)
     return out, SegmentStats(stats[1], stats[0]), carries, death

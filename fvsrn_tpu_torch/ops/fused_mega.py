@@ -711,19 +711,21 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
                          differentiable: bool = False,
                          tf_floats: Optional[int] = None,
                          tf_mode: str = "piecewise",
-                         need_normals: bool = False):
+                         need_normals: bool = False, masked: bool = False):
     """What the kernels take: hidden layers of one width <= 64 (narrower
     zero-padded to 32, 48 or 64) and one activation, 1 to
     ``MAX_HIDDEN_LAYERS + 1`` of them, every output head, direction input,
     no latent grid or one of <= 16 channels, at most ``MAX_FOURIER``
     Fourier features; every TF mode on a density head of a SnakeAlt
-    network without direction input, and on every other network the
-    texture, 1D- and 2D-preintegrated TFs in the render's forward on
-    256-ray tiles (``mega_fwd_anytf``); tiles of 128 or 256 rays
-    (``KERNEL_TILES``), and for the backward 32-point segments; and a
-    shared-memory plan that fits. The normals instances take every such
-    network with a density head, the piecewise TF and 256-ray tiles.
-    Everything else raises ``NotImplementedError``."""
+    network without direction input, and on every other network on
+    256-ray tiles the texture, 1D- and 2D-preintegrated TFs in the render
+    and in training (``mega_fwd_anytf``) and the Gaussians in training
+    without an occupancy mask (``masked``; ``mega_fwd_anyg``: the render
+    refuses Gaussians); tiles of 128 or 256 rays (``KERNEL_TILES``), and
+    for the backward 32-point segments; and a shared-memory plan that
+    fits. The normals instances take every such network with a density
+    head, the piecewise TF and 256-ray tiles. Everything else raises
+    ``NotImplementedError``."""
     from .sample_mlp import check_fwd_plan, check_plan
     if need_normals and tf_mode != "piecewise":
         raise NotImplementedError(f"CUDA kernel: normals with TF mode "
@@ -763,11 +765,11 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
     if not density:
         tf_mode, tf_floats = "piecewise", 0
     if tf_mode != "piecewise" and (act != "SnakeAlt" or net.use_direction):
-        if differentiable or tf_mode == "gaussian":
+        if tf_mode == "gaussian" and (masked or not differentiable):
             raise NotImplementedError(
-                f"CUDA kernel: TF mode {tf_mode!r} "
-                + ("in training " if differentiable else "")
-                + "takes SnakeAlt networks without direction input only")
+                f"CUDA kernel: TF mode 'gaussian' on a {act} network"
+                + (" with direction input" if net.use_direction else "")
+                + " in training without an occupancy mask only")
         if tile != KERNEL_TILE:
             raise NotImplementedError(
                 f"CUDA kernel: TF mode {tf_mode!r} on a {act} network"
@@ -787,8 +789,9 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
 
 def _lib(kind: str, hidden: int, tile: int = KERNEL_TILE) -> ctypes.CDLL:
     """The library of ``kind`` ("mega_fwd", "mega_fwd_tf", "mega_fwd_any",
-    "mega_fwd_anytf", "mega_fwd_nrm" or "mega_bwd") for the padded width
-    ``hidden`` and the ray tile ``tile`` (:func:`library_name`)."""
+    "mega_fwd_anytf", "mega_fwd_anyg", "mega_fwd_nrm" or "mega_bwd") for
+    the padded width ``hidden`` and the ray tile ``tile``
+    (:func:`library_name`)."""
     return _build.load(library_name(kind, hidden, tile))
 
 
@@ -797,7 +800,8 @@ def library_name(kind: str, hidden: int, tile: int = KERNEL_TILE) -> str:
     rays), ``mega_fwd48.cu``, ``mega_fwd64.cu``, ``mega_fwd_t128.cu`` (32,
     128 rays), ``mega_fwd48_t128.cu``, ``mega_fwd64_t128.cu`` and the same
     for the forward's other parts (:func:`_fwd_kind`) and the backward;
-    ``mega_fwd_anytf`` and the normals instances on 256-ray tiles only."""
+    ``mega_fwd_anytf``, ``mega_fwd_anyg`` and the normals instances on
+    256-ray tiles only."""
     name = kind if hidden == 32 else f"{kind}{hidden}"
     return name if tile == KERNEL_TILE else f"{name}_t{tile}"
 
@@ -807,11 +811,14 @@ def _fwd_kind(spec: MarchSpec, net_args: tuple) -> str:
     march: "mega_fwd" for SnakeAlt networks without direction input on the
     piecewise TF, "mega_fwd_tf" for their other TF modes, "mega_fwd_any"
     for every other network on the piecewise TF, "mega_fwd_anytf" for
-    every other network on the texture and preintegrated TFs."""
+    every other network on the texture and preintegrated TFs and
+    "mega_fwd_anyg" on the Gaussians."""
     generic = net_args[1] != _ACTIVATIONS["SnakeAlt"] or net_args[4]
-    if spec.tf_mode != "piecewise":
-        return "mega_fwd_anytf" if generic else "mega_fwd_tf"
-    return "mega_fwd_any" if generic else "mega_fwd"
+    if spec.tf_mode == "piecewise":
+        return "mega_fwd_any" if generic else "mega_fwd"
+    if not generic:
+        return "mega_fwd_tf"
+    return "mega_fwd_anyg" if spec.tf_mode == "gaussian" else "mega_fwd_anytf"
 
 
 def device_fwd_plan(n_fourier: int, n_hidden: int, tf_points: int,
@@ -1220,7 +1227,8 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
     tf, tf_points, tf_pre_rows = prepare_tf(tf_tensor, tf_mode, tf_pre, dev)
     tf_floats = tf_floats_of(tf_mode, tf)
     _check_kernel_inputs(net, rays, tile, seg, differentiable, tf_floats,
-                         tf_mode, need_normals)
+                         tf_mode, need_normals,
+                         masked=segment_active is not None)
     if (net.output_mode.startswith("density")
             and tf_mode in ("piecewise", "gaussian")
             and tf_points > MAX_TF_POINTS):

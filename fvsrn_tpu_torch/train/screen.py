@@ -124,9 +124,11 @@ def fused_screen_supported(network, tf, width: int, height: int) -> bool:
     ``analytic`` or ``scale_with_gradient`` trains by the plain march,
     since the fused kernels evaluate neither (the JAX package routes it
     fused and trains the plain Gaussians instead). The network is not
-    screened here: where the kernels do not take it (hidden layers wider
-    than 64, say), ``mega_trace_dvr`` raises ``NotImplementedError`` on
-    the card (``--no_fused`` selects the plain march). A network that is
+    screened here: the kernels train every TF mode on every activation,
+    with or without direction input, at hidden widths up to 64; where
+    they do not take a network (hidden layers wider than 64, say),
+    ``mega_trace_dvr`` raises ``NotImplementedError`` on the card
+    (``--no_fused`` selects the plain march). A network that is
     not an SRN (the variant and meta networks) raises
     ``NotImplementedError``: it trains by the plain march alone."""
     require_srn(network, "fused screen step")

@@ -479,15 +479,15 @@ def test_proto_mega_box_limit():
     (dict(width=96), 256),
     (dict(hidden=fused_mega.MAX_HIDDEN_LAYERS + 2), 256),
     (dict(channels=20), 256),
-    (dict(activation="ReLU", tf_mode="texture", differentiable=True), 256),
+    (dict(activation="ReLU", tf_mode="gaussian"), 256),
     ({}, 64)])
 def test_mega_kernel_rejects_what_it_does_not_take(net_kw, tile):
     """What the kernels refuse: hidden layers wider than 64, more than
-    MAX_HIDDEN_LAYERS + 1 of them, more than 16 latent channels, a TF
-    mode other than piecewise on a network other than SnakeAlt in
-    training, tiles of other than 256 rays; and what they take (widths to
-    64, every activation and head, direction input, no grid; the texture
-    TF on a ReLU network with direction input in the render)."""
+    MAX_HIDDEN_LAYERS + 1 of them, more than 16 latent channels, a
+    Gaussian TF on a network other than SnakeAlt in the render, tiles of
+    other than 256 rays; and what they take (widths to 64, every
+    activation and head, direction input, no grid; the texture TF on a
+    ReLU network with direction input in the render and in training)."""
     rays = torch.zeros(512, 8)
     net_kw = dict(net_kw)
     tf_mode = net_kw.pop("tf_mode", "piecewise")
@@ -496,9 +496,10 @@ def test_mega_kernel_rejects_what_it_does_not_take(net_kw, tile):
         fused_mega._check_kernel_inputs(random_net(**net_kw), rays, tile,
                                         tf_floats=1024, tf_mode=tf_mode,
                                         differentiable=diff)
-    fused_mega._check_kernel_inputs(
-        random_net(activation="ReLU", direction=True), rays, 256,
-        tf_floats=1024, tf_mode="texture")
+    for diff in (False, True):
+        fused_mega._check_kernel_inputs(
+            random_net(activation="ReLU", direction=True), rays, 256,
+            tf_floats=1024, tf_mode="texture", differentiable=diff)
     for kw in ({}, dict(channels=0), dict(width=20), dict(width=64),
                dict(hidden=fused_mega.MAX_HIDDEN_LAYERS + 1),
                dict(activation="Sine", act_param=30.0),
@@ -1677,9 +1678,9 @@ def test_anytf_mega_matches_plain(mode, which):
     assert float(want[:, 3].max()) > 0.5
     assert_within_noise(got, want, fused_mega.mega_trace_dvr_plain,
                         (rs, rd, net, *BOX, tf), dict(kw, **tf_kw), mode)
-    with pytest.raises(NotImplementedError, match="SnakeAlt"):
-        fused_mega.mega_trace_dvr(rs, rd, net, *BOX, tf, differentiable=True,
-                                  **kw, **tf_kw)
+    gauss, g_kw = tf_mode_args("gaussian", h)
+    with pytest.raises(NotImplementedError, match="gaussian"):
+        fused_mega.mega_trace_dvr(rs, rd, net, *BOX, gauss, **kw, **g_kw)
 
 
 @pytest.mark.parametrize("mode", ANYTF_MODES)
@@ -1766,20 +1767,152 @@ def test_tf_mode_backward_deterministic(mode):
 
 
 def test_tf_mode_kernel_limits():
-    """What the kernels refuse in the TF modes: a TF mode on a network
-    other than SnakeAlt in the segment kernel's training pair, more
-    Gaussians than the kernels hold; the render's forward takes it."""
+    """What the kernels refuse in the TF modes: a Gaussian TF on a network
+    other than SnakeAlt in the segment kernel's render, more Gaussians
+    than the kernels hold; the render and the training pair take the
+    texture TF on every network, the training pair the Gaussians too."""
     tf, _, _ = fused_dvr.prepare_tf(torch.rand(256, 4), "texture")
-    with pytest.raises(NotImplementedError, match="SnakeAlt"):
-        fused_dvr._check_kernel_inputs(random_net(activation="ReLU"), tf,
-                                       tf_mode="texture", differentiable=True)
-    fused_dvr._check_kernel_inputs(random_net(activation="ReLU"), tf,
-                                   tf_mode="texture")
-    fused_dvr._check_kernel_inputs(random_net(), tf, tf_mode="texture")
+    gauss = torch.rand(4, 6)
+    relu = random_net(activation="ReLU")
+    for diff in (False, True):
+        fused_dvr._check_kernel_inputs(relu, tf, tf_mode="texture",
+                                       differentiable=diff)
+        fused_dvr._check_kernel_inputs(random_net(), tf, tf_mode="texture",
+                                       differentiable=diff)
+    with pytest.raises(NotImplementedError, match="gaussian"):
+        fused_dvr._check_kernel_inputs(relu, gauss, tf_mode="gaussian")
+    fused_dvr._check_kernel_inputs(relu, gauss, tf_mode="gaussian",
+                                   differentiable=True)
     many = torch.rand(fused_dvr.MAX_TF_POINTS + 1, 6)
     with pytest.raises(NotImplementedError, match="gaussian"):
         fused_dvr._check_kernel_inputs(random_net(), many,
                                        tf_mode="gaussian")
+
+
+# every TF mode on every network in training: rows 2-3
+# (csrc/mega_fwd_anytf*.cu and, for the Gaussians, csrc/mega_fwd_anyg*.cu,
+# MEGA_PART 3 and 4; csrc/mega_bwd.cuh) and rows 5-6
+# (csrc/segment_fwd_anytf.cu and csrc/segment_fwd_anyg.cu, SEGMENT_TF_MODES
+# 2 and 3; csrc/segment_bwd.cu), the cases chip_smoke.py phase Y holds at
+# full size
+TRAIN_NETS = {
+    "relu_dir": dict(activation="ReLU", direction=True),
+    "sine30": dict(activation="Sine", act_param=30.0),
+    "relu_dir64": dict(activation="ReLU", direction=True, width=64),
+}
+
+
+def train_bounds(mode, which, plain_march, args, kw, tf, tf_kw, img, want):
+    """(image mode, share, tolerances) of a training case: flip_bounds'.
+    Sine:30's gradients are ill-conditioned in float32 in every mode (one
+    ulp of weight noise moves them by up to ~5%), so its image and every
+    leaf take the noise bounds that flip_bounds gives the preintegrating
+    modes."""
+    as_mode = "preint1d" if which == "sine30" else mode
+    share, tols = flip_bounds(as_mode, plain_march, args, kw, tf, tf_kw, img,
+                              want)
+    return as_mode, share, tols
+
+
+def assert_grads_close(mode, got, want, tols, bf16=False):
+    """Every leaf of ``got`` within its tolerance of ``want``'s (a bf16
+    table's grid per element, ``bf16_grid_close``); preint2d's network
+    leaves zero or absent on both sides."""
+    if mode != "preint2d":
+        assert sorted(got) == sorted(want)
+    for name in want:
+        if mode == "preint2d" and name != "pre":
+            assert name not in got or float(got[name].abs().max()) == 0.0
+            continue
+        if name == "latent.static_grid" and bf16:
+            bf16_grid_close(got[name], want[name])
+            continue
+        assert rel_err(got[name], want[name]) <= tols[name], name
+
+
+@pytest.mark.parametrize(
+    "which,mode,table",
+    [(w, m, "f32") for w in sorted(TRAIN_NETS) for m in TF_MODES]
+    + [("relu_dir", m, "bf16") for m in TF_MODES])
+def test_anytf_mega_training_matches_plain(which, mode, table):
+    """Rows 2-3 in each TF mode on a network other than SnakeAlt without
+    direction input: one launch of the width's mega_fwd_anytf library
+    (mega_fwd_anyg for the Gaussians) and one of mega_bwd, the image and
+    every gradient leaf against the plain pair, on a float32 table (and
+    the first network on a bf16 one)."""
+    needs_card()
+    net = random_net(**TRAIN_NETS[which]).cuda()
+    rs, rd = block_rays(64, "cuda")
+    clip = torch.empty(rs.shape[0], device="cuda").uniform_(
+        1.0, 2.2, generator=torch.Generator("cuda").manual_seed(0))
+    h = 1 / 128
+    tf, tf_kw = tf_mode_args(mode, h)
+    kw = dict(stepsize=h, tmax_clip=clip, differentiable=True,
+              table_dtype=torch.bfloat16 if table == "bf16"
+              else torch.float32)
+    args = (rs, rd, net, *BOX)
+    lib = fused_mega.library_name(
+        "mega_fwd_anyg" if mode == "gaussian" else "mega_fwd_anytf",
+        fused_mega.kernel_width(net))
+    before = (fused_mega.LIBRARY_LAUNCHES[lib],
+              fused_mega.launches("mega_bwd"))
+    img, got = tf_grads(fused_mega.mega_trace_dvr, args, kw, tf, tf_kw)
+    assert (fused_mega.LIBRARY_LAUNCHES[lib],
+            fused_mega.launches("mega_bwd")) == (before[0] + 1,
+                                                 before[1] + 1)
+    img_plain, want = tf_grads(fused_mega.mega_trace_dvr_plain, args, kw,
+                               tf, tf_kw)
+    assert float(img_plain[:, 3].max()) > 0.5
+    as_mode, share, tols = train_bounds(
+        mode, which, fused_mega.mega_trace_dvr_plain, args, kw, tf, tf_kw,
+        img_plain, want)
+    assert_image_close(img, img_plain, as_mode, share)
+    assert_grads_close(mode, got, want, tols, bf16=table == "bf16")
+
+
+@pytest.mark.parametrize("mode", TF_MODES)
+@pytest.mark.parametrize("which", sorted(TRAIN_NETS))
+def test_anytf_segment_training_matches_plain(which, mode):
+    """Rows 5-6 in each TF mode on a network other than SnakeAlt: one
+    launch of segment_fwd_anytf (segment_fwd_anyg for the Gaussians)
+    storing carries and one of segment_bwd, the image and every gradient
+    leaf against the plain pair."""
+    needs_card()
+    net = random_net(**TRAIN_NETS[which]).cuda()
+    rs, rd = block_rays(64, "cuda")
+    h = 1 / 64
+    tf, tf_kw = tf_mode_args(mode, h)
+    kw = dict(stepsize=h, max_steps=112, seg=32, tile=128,
+              differentiable=True)
+    args = (rs, rd, net, *BOX)
+    lib = "segment_fwd_anyg" if mode == "gaussian" else "segment_fwd_anytf"
+    before = (fused_dvr.LIBRARY_LAUNCHES[lib],
+              fused_dvr_bwd.launches("segment_bwd"))
+    img, got = tf_grads(fused_dvr.fused_trace_dvr, args, kw, tf, tf_kw)
+    assert (fused_dvr.LIBRARY_LAUNCHES[lib],
+            fused_dvr_bwd.launches("segment_bwd")) == (before[0] + 1,
+                                                    before[1] + 1)
+    img_plain, want = tf_grads(fused_dvr.fused_trace_dvr_plain, args, kw,
+                               tf, tf_kw)
+    assert float(img_plain[:, 3].max()) > 0.5
+    as_mode, share, tols = train_bounds(
+        mode, which, fused_dvr.fused_trace_dvr_plain, args, kw, tf, tf_kw,
+        img_plain, want)
+    assert_image_close(img, img_plain, as_mode, share)
+    assert_grads_close(mode, got, want, tols)
+
+
+def test_anytf_gaussian_mega_refuses_a_mask():
+    """The generic Gaussian instance is unmasked (the training forward
+    takes no occupancy mask on these networks): a mask raises."""
+    rays = torch.zeros(512, 8)
+    net = random_net(activation="ReLU", direction=True)
+    fused_mega._check_kernel_inputs(net, rays, 256, tf_floats=24,
+                                    tf_mode="gaussian", differentiable=True)
+    with pytest.raises(NotImplementedError, match="occupancy mask"):
+        fused_mega._check_kernel_inputs(net, rays, 256, tf_floats=24,
+                                        tf_mode="gaussian",
+                                        differentiable=True, masked=True)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,8 @@ segments, 64-ray tiles):
   read further off the same oracle (their polynomial sine: 1.6e-3 to
   4.3e-2 here), which the test asserts, so that it shows why;
 - what the kernels take: these networks in the render's forward on both
-  kernels (``_check_kernel_inputs``), and not in training.
+  kernels (``_check_kernel_inputs``), and in training
+  (tests/test_torch_tf_train_networks.py holds the training pairs).
 
 The CUDA kernels are held against these plain versions on the card by
 tests/test_torch_kernels.py (``anytf``) and chip_smoke.py phase X."""
@@ -103,15 +104,11 @@ def test_kernels_take_these_networks_in_the_render(name):
     for mode in MODES:
         tensor, tf_kw = fused_dvr.fused_tf_args(tfs[mode])
         tf, _, _ = fused_dvr.prepare_tf(tensor, mode, tf_kw.get("tf_pre"))
-        fused_mega._check_kernel_inputs(net, rays, 256, tf_floats=1024,
-                                        tf_mode=mode)
-        fused_dvr._check_kernel_inputs(net, tf, tf_mode=mode)
-        with pytest.raises(NotImplementedError, match="training"):
+        for diff in (False, True):
             fused_mega._check_kernel_inputs(net, rays, 256, tf_floats=1024,
-                                            tf_mode=mode, differentiable=True)
-        with pytest.raises(NotImplementedError, match="training"):
+                                            tf_mode=mode, differentiable=diff)
             fused_dvr._check_kernel_inputs(net, tf, tf_mode=mode,
-                                           differentiable=True)
+                                           differentiable=diff)
         with pytest.raises(NotImplementedError, match="tiles of 256"):
             fused_mega._check_kernel_inputs(net, rays, 128, tf_floats=1024,
                                             tf_mode=mode)

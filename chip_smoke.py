@@ -5,10 +5,10 @@
 Builds the port's CUDA kernels from this checkout and drives the port's
 main paths on the card. The sources build in the background, as many at
 a time as the cores, in the order the phases first load them, and the
-phases run in the order K, 3-10, J, A-I, L, M, N-Y, so that each starts
+phases run in the order K, 3-10, J, A-I, L, M, N-Z, so that each starts
 once its own libraries are built while the rest still build, and those
 that compute most on the host's cores (L, M) run once most are built
-(W, X and Y come last, X's and Y's libraries last in the build):
+(W, X, Y and Z come last, X's, Y's and Z's libraries last in the build):
 
 - phases 3-6, the product render: the dense flagship through
   ``LoadedModel.prepare_network_render`` in FUSED mode (512x512, world
@@ -64,21 +64,21 @@ that compute most on the host's cores (L, M) run once most are built
   draws (random positions, the epoch permutation, uniform and normal) on
   the card against the CPU's, the dataset's targets and the first step's
   loss and gradients against the CPU's, the step timed; then
-  ``render_image`` supersampled (4 samples, 128x128), ``phase.sample`` and
+  ``render_image`` supersampled (4 samples, 64x64), ``phase.sample`` and
   ``sample_light_position`` from a key, card against CPU;
 - phase M, a voxel volume end to end: MARSCHNER_LOBB voxelized at 256^3
   on the card (``create_implicit_grid``) with a uint8 copy, written as a
   ``.cvol`` uncompressed and LZ4-compressed and read back (equal, timed);
   a scene JSON naming it (piecewise TF, "Grid", trilinear) resolved by
   ``load_from_json``; the grid's three samplers, ``eval_normal`` and
-  ``eval_curvature`` on 2^20 positions card against CPU, timed;
+  ``eval_curvature`` timed on 2^20 positions, card against CPU on 2^18;
   ``train.main.run --mode world`` on the scene at the flagship's widths
   (65,536 halton samples, batch 8192, 2 epochs: dataset and first step
   card against CPU, the step timed) and in screen mode (512x512, 1/512,
   2 cameras, 1 epoch: rows 2-3, the first step's kernels against their
   plain version at full frame); ``LoadedModel.render_reference`` of the
   grid and the world-trained network's FUSED render (row 1), PSNR
-  printed; a curvature-texture iso render of the grid at 128x128, card
+  printed; a curvature-texture iso render of the grid at 64x64, card
   against CPU;
 - phase N, the TF modes of rows 1-6 (texture, 1D- and 2D-preintegrated,
   Gaussians: ``scenes.dense_tf_modes``, the dense ramp as a 256-texel
@@ -196,7 +196,20 @@ that compute most on the host's cores (L, M) run once most are built
   instances' forward alone at full frame; then ``train.main.run --mode
   screen --activation ReLU`` on a scene JSON written to a temporary
   directory (the voxelized MARSCHNER_LOBB ``.cvol`` with a ``Texture``,
-  then a ``Gaussian`` TF): fused, through those libraries, loss falling.
+  then a ``Gaussian`` TF): fused, through those libraries, loss falling;
+- phase Z, Table 1's wide networks through the width-128 instances
+  (``csrc/*128.cu``: hidden matrices read from device memory):
+  ``train.main.run --mode screen --layers 128:128:128`` at the flagship's
+  inputs (128x128, 2 cameras, 1 epoch; ``mega_fwd128``, ``mega_bwd128``
+  launched); the trained network's main path with the counts reset (the
+  FUSED render at 512x512, 1/512, culled under the ramp with a zero band
+  to the network's median density, route 2 at 1920x1080, a training step on each engine, row 7 at 2^20
+  positions), every kernel timed at full size and held against its
+  plain version on 64 whole tiles, steps in the piecewise and texture
+  TFs; a mixed 64:32 network (the 64 instance) on rows 1, 4 and 7 and a
+  96:96:96 ReLU network with direction input (padded to 128) on rows
+  1-7, against their plain versions; every wide instance's registers and
+  spills.
 
 Prints one JSON line with every kernel and a last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -241,8 +254,9 @@ BF16_GRID_REL = 2.0 ** -7
 TIMED_CAMERAS = 4
 TIMED_STEPS = 3
 # phase 2: the sources in the order the phases first load them (the
-# phases run K, 3-10, J, A-I, L, M, N-Y), then those no phase launches,
-# then phase X's (its four take ~840 s of nvcc) and phase Y's (the last)
+# phases run K, 3-10, J, A-I, L, M, N-Z), then those no phase launches,
+# then phase X's (its four take ~840 s of nvcc), phase Y's and phase Z's
+# width-128 instances (the last)
 BUILD_ORDER = ("probes", "mega_fwd", "mega_bwd", "segment_fwd",
                "segment_bwd", "sample_eval", "mega_fwd_tf", "segment_fwd_tf",
                "mega_fwd_any", "mega_fwd48", "mega_fwd_any48", "mega_bwd48",
@@ -255,7 +269,12 @@ BUILD_ORDER = ("probes", "mega_fwd", "mega_bwd", "segment_fwd",
                "mega_fwd_any_t128", "mega_fwd_any48_t128",
                "mega_fwd_any64_t128", "segment_fwd_anytf", "mega_fwd_anytf",
                "mega_fwd_anytf48", "mega_fwd_anytf64", "segment_fwd_anyg",
-               "mega_fwd_anyg", "mega_fwd_anyg48", "mega_fwd_anyg64")
+               "mega_fwd_anyg", "mega_fwd_anyg48", "mega_fwd_anyg64",
+               "mega_fwd128", "mega_bwd128", "segment_fwd128",
+               "segment_bwd128", "sample_eval128", "mega_fwd_any128",
+               "mega_fwd_tf128", "segment_fwd_tf128", "mega_fwd_anytf128",
+               "segment_fwd_anytf128", "mega_fwd_anyg128",
+               "segment_fwd_anyg128")
 SEG_WIDTH, SEG_HEIGHT = 1920, 1080   # phase A: not multiples of 16
 RGBO_SIZE = 504                      # phase C
 ISO_VALUE = 0.5                      # phase E
@@ -287,8 +306,9 @@ WORLD_ARGS = ["IMPLICIT:MARSCHNER_LOBB", "--mode", "world",
               "--samples", "65536", "--sampler", "halton",
               "--batch_size", "8192", "-i", "2"]
 GRID_RES = 256                       # phase M: MARSCHNER_LOBB voxelized
-GRID_POSITIONS = 1 << 20             # phase M: sampler checks and timing
-GRID_ISO_SIZE = 128                  # phase M: curvature iso render
+GRID_POSITIONS = 1 << 20             # phase M: sampler timing
+GRID_CPU_POSITIONS = 1 << 18         # phase M: card vs CPU (cut in depth)
+GRID_ISO_SIZE = 64                   # phase M: curvature iso render (cut)
 GRID_ISO_RANGE = 64.0                # phase M: curvature texture's range
 GRID_ISO_SHARE = 0.99                # phase M: iso pixels card = CPU (1e-4)
 # phase M's scene TF: train.main's IMPLICIT TF as a scene JSON gives it
@@ -317,7 +337,8 @@ TF_ORACLE_RAYS = 16384
 # exps and multiply-adds
 TF_FLOPS = {"texture": 16, "preint1d": 64, "preint2d": 12, "gaussian": 72}
 # phase N, cut in depth: each step timed once after a warm-up, and row
-# 4's f32 oracle (a plain trace_dvr, ~3 s a call) for these modes only
+# 1's and 4's f32 oracle (a plain trace_dvr, ~3 s a call) for these modes
+# only
 N_TIMED_STEPS = 1
 N_ROW4_ORACLE = ("texture",)
 # phase O: the networks of the paper's sweeps on rows 1-3. The widest of
@@ -359,6 +380,10 @@ NET_CASES = {
 # change under NOISE_EPS relative weight noise (KERNEL_TOL and GRAD_TOL
 # at least), as phase N holds the discontinuous TF modes.
 NET_ILL = {"Sine:30"}
+# O3's cases held against the f32 lattice oracle as well (~3 s a call, so
+# cut in depth to a density and an rgbo head; every case is held against
+# its plain version)
+O3_ORACLE = ("48:48:48 8x16^3", "rgbo")
 NOISE_EPS = 1e-7
 NOISE_FLIP = 5.0
 # phase P: normals and shading (rows 1, 4 and 7). The JAX tests' BRDF
@@ -379,7 +404,7 @@ MC_NRM_SIZE = 256                    # phase P4's frame
 # a gradient-scaled Gaussian TF for the MC walk (the flagship's densities
 # and |grad| put the scaled widths at ~0.05-0.5)
 MC_NRM_TF = [[0.9, 0.3, 0.2, 8.0, 0.3, 0.5], [0.2, 0.8, 0.9, 6.0, 0.7, 0.5]]
-MC_CHECK_SIZE = 128                  # phase L: render_image supersampled
+MC_CHECK_SIZE = 64                   # phase L: render_image supersampled
 MC_CHECK_SAMPLES = 4
 MC_CHECK_STEPSIZE = 1.0 / 128
 # H100 SXM published dense peaks (NVIDIA data sheet) at 700 W
@@ -2067,16 +2092,19 @@ def voxel_volume(smi, reset_counts, counts):
           and ref.box_size.tolist() == [1.0, 1.0, 1.0],
           "phase M: the scene's grid is not the volume written")
 
-    # M3. samplers, normal and curvature on 2^20 positions, card vs CPU
-    pos = torch.from_numpy(np.random.default_rng(5).uniform(
-        -0.52, 0.52, (GRID_POSITIONS, 3)).astype(np.float32))
-    pos_d = pos.to(dev)
+    # M3. samplers, normal and curvature on 2^20 positions on the card,
+    # card vs CPU on the first 2^18 (the CPU's share cut in depth: it runs
+    # beside the build)
+    pos_d = torch.from_numpy(np.random.default_rng(5).uniform(
+        -0.52, 0.52, (GRID_POSITIONS, 3)).astype(np.float32)).to(dev)
+    pos = pos_d[:GRID_CPU_POSITIONS].cpu()
+    pos_h = pos_d[:GRID_CPU_POSITIONS]
     samplers = {}
     for interp in ("nearest", "trilinear", "tricubic"):
         g_c = VolumeInterpolationGrid.from_grid(ref.data,
                                                 interpolation=interp)
         g_d = g_c.to(dev)
-        v_d, in_d = g_d.eval_density(pos_d)
+        v_d, in_d = g_d.eval_density(pos_h)
         v_c, in_c = g_c.eval_density(pos)
         check(torch.equal(in_d.cpu(), in_c), f"phase M: {interp} inside")
         samplers[interp] = {
@@ -2090,12 +2118,12 @@ def voxel_volume(smi, reset_counts, counts):
     g_c = VolumeInterpolationGrid.from_grid(ref.data)
     g_d = g_c.to(dev)
     n_c = g_c.eval_normal(pos)
-    normal_rel = max_err(g_d.eval_normal(pos_d).cpu(), n_c) / float(
+    normal_rel = max_err(g_d.eval_normal(pos_h).cpu(), n_c) / float(
         n_c.abs().max())
     normal_ns = cuda_ms(lambda: g_d.eval_normal(pos_d), 3) * 1e6 \
         / GRID_POSITIONS
     k_c = g_c.eval_curvature(pos)
-    k_d = g_d.eval_curvature(pos_d).cpu()
+    k_d = g_d.eval_curvature(pos_h).cpu()
     gnorm = n_c.norm(dim=-1)
     keep = gnorm >= 1e-3
     k_err = (k_d - k_c).abs().amax(dim=-1)[keep]
@@ -2107,7 +2135,8 @@ def voxel_volume(smi, reset_counts, counts):
             "kept_share": float(keep.float().mean()),
             "ns_per_position": cuda_ms(lambda: g_d.eval_curvature(pos_d), 2)
             * 1e6 / GRID_POSITIONS}
-    print(f"phase M grid [{smi}]: {GRID_POSITIONS} positions, card vs CPU "
+    print(f"phase M grid [{smi}]: {GRID_POSITIONS} positions timed, "
+          f"{GRID_CPU_POSITIONS} card vs CPU "
           + ", ".join(f"{k} max|d| {v['max_abs_err']:.2e} "
                       f"{v['ns_per_position']:.3f} ns/position"
                       for k, v in samplers.items())
@@ -2481,13 +2510,15 @@ def tf_modes(smi, reset_counts, counts, npz, cam, frame_ms):
                                device=dev).long()
         sel = (tiles[:, None] * 256 + torch.arange(256, device=dev)
                ).reshape(-1)
-        with torch.no_grad():
-            oracle = trace_dvr(rs_b[sel], rd_b[sel], vol, tfo, ocfg, steps,
-                               tmax_in=None if clip is None else clip[sel],
-                               lattice=True).color
-        fig["row1_oracle"] = float((got[sel] - oracle).abs().max())
-        check(fig["row1_oracle"] < ORACLE_TOL,
-              f"phase N {mode} row 1 vs oracle {fig['row1_oracle']}")
+        fig["row1_oracle"] = None
+        if mode in N_ROW4_ORACLE:
+            with torch.no_grad():
+                oracle = trace_dvr(rs_b[sel], rd_b[sel], vol, tfo, ocfg,
+                                   steps, tmax_in=None if clip is None
+                                   else clip[sel], lattice=True).color
+            fig["row1_oracle"] = float((got[sel] - oracle).abs().max())
+            check(fig["row1_oracle"] < ORACLE_TOL,
+                  f"phase N {mode} row 1 vs oracle {fig['row1_oracle']}")
         fig["frame_ms"] = cuda_ms(frame, 5)
         fig["row1_ms"] = cuda_ms(lambda: frame(fused_mega.mega_trace_dvr), 5)
         fig["row1_plain_ms"] = plain_ms
@@ -2590,7 +2621,7 @@ def tf_modes(smi, reset_counts, counts, npz, cam, frame_ms):
               f"ms (piecewise {pw['frame_ms']:.3f}), kernel "
               f"{fig['row1_ms']:.3f} ms, plain {plain_ms:.1f} ms, vs plain "
               f"max|d| {fig['row1_err']:.3e} ({fig['row1_off']:.2e} of rays "
-              f"> {KERNEL_TOL}), vs oracle {fig['row1_oracle']:.3e}, "
+              f"> {KERNEL_TOL}), vs oracle {fig['row1_oracle']}, "
               f"bound {fig['row1_bound_ms']:.4f} ms ({n1} samples); row 4 "
               f"{fig['row4_ms']:.3f} ms (piecewise {pw['row4_ms']:.3f}), "
               f"plain {plain4_ms:.1f} ms, vs plain "
@@ -2711,9 +2742,10 @@ def networks(smi, reset_counts, counts, tf, cam):
         return (rs.reshape(-1, 3)[perm].contiguous(),
                 rd.reshape(-1, 3)[perm].contiguous())
 
-    def render_case(net, size, iters, ill=False):
+    def render_case(net, size, iters, ill=False, oracle_check=True):
         """Row 1 on the product render: (figures, the prepared render).
-        The f32 oracle is held against the kernel on a float32 table:
+        With ``oracle_check`` the f32 oracle is held against the kernel
+        on a float32 table:
         the product's bf16 table moves a Sine:30 network's image by
         ~6e-2 in its own right (30x pre-activations); that distance is
         recorded, not gated."""
@@ -2747,22 +2779,25 @@ def networks(smi, reset_counts, counts, tf, cam):
                                  device=dev)[:ORACLE_TILES]
             sel = (tiles[:, None] * 256
                    + torch.arange(256, device=dev)).reshape(-1)
-        vol = VolumeInterpolationNetwork(render.network, *box)
-        with torch.no_grad():
-            oracle = trace_dvr(
-                render.ray_start[sel], render.ray_dir[sel], vol, render.tf,
-                ocfg, steps_max, lattice=True,
-                tmax_in=(render.tmax_clip[sel]
-                         if render.tmax_clip is not None else None)).color
-        got32 = render.march(table_dtype=torch.float32)
-        oerr = float((got32[sel] - oracle).abs().max())
-        check(oerr < ORACLE_TOL, f"phase O: render vs oracle {oerr}")
+        oerr = oerr_bf16 = None
+        if oracle_check:
+            vol = VolumeInterpolationNetwork(render.network, *box)
+            with torch.no_grad():
+                oracle = trace_dvr(
+                    render.ray_start[sel], render.ray_dir[sel], vol,
+                    render.tf, ocfg, steps_max, lattice=True,
+                    tmax_in=(render.tmax_clip[sel]
+                             if render.tmax_clip is not None
+                             else None)).color
+            got32 = render.march(table_dtype=torch.float32)
+            oerr = float((got32[sel] - oracle).abs().max())
+            oerr_bf16 = float((got[sel] - oracle).abs().max())
+            check(oerr < ORACLE_TOL, f"phase O: render vs oracle {oerr}")
         ms = cuda_ms(lambda: render.march(), iters)
         n_samples = int(samples.sum())
         return {"ms": ms, "launches": c["mega_fwd"], "max_abs_err": err,
                 "plain_ms": plain_ms, "tol": tol, "oracle_max_abs_err": oerr,
-                "oracle_bf16_max_abs_err": float(
-                    (got[sel] - oracle).abs().max()),
+                "oracle_bf16_max_abs_err": oerr_bf16,
                 "samples": n_samples,
                 "bound_ms": bound_ms(n_samples * sample_flops(net)),
                 "alpha_max": float(got[:, 3].max())}, render
@@ -2891,14 +2926,15 @@ def networks(smi, reset_counts, counts, tf, cam):
         net = SceneRepresentationNetwork.make(latent=lat, seed=7, **kw).to(dev)
         ill = name in NET_ILL
         if grid is not None:
-            rows["mega_fwd"][name] = render_case(net, NET_SIZE, 5, ill)[0]
+            rows["mega_fwd"][name] = render_case(
+                net, NET_SIZE, 5, ill, oracle_check=name in O3_ORACLE)[0]
         f2, f3 = train_case(net, NET_SIZE, 3, ill)
         rows["mega_fwd_diff"][name] = f2
         rows["mega_bwd"][name] = f3
         f1 = rows["mega_fwd"].get(name)
         print(f"phase O3 {name}: "
               + (f"render {f1['ms']:.3f} ms vs plain {f1['max_abs_err']:.2e}"
-                 f" vs oracle {f1['oracle_max_abs_err']:.2e}; "
+                 f" vs oracle {f1['oracle_max_abs_err']}; "
                  if f1 else "no grid: route 2 renders it; ")
               + f"fwd {f2['ms']:.3f} ms image {f2['max_abs_err']:.2e}, bwd "
               f"{f3['ms']:.3f} ms grad rel {f3['max_abs_err']:.2e} "
@@ -5461,6 +5497,469 @@ def tf_training(smi, reset_counts, counts, cam, tfm):
     return rows, [kernel_rows["mega"], kernel_rows["scan"]]
 
 
+# phase Z: Table 1's wide networks on rows 1-7 (the width-128 instances,
+# csrc/*128.cu: hidden matrices read from device memory). The flagship's
+# inputs (SnakeAlt:2, 14 Fourier features, a 16x32^3 grid, density:direct,
+# the ramp TF) at hidden layers 128:128:128, trained by the trainer as
+# phase O trains 64:64:64 (2 cameras, 1 epoch at NET_SIZE^2: cut in depth),
+# then timed at full size; a mixed 64:32 network (the 64 instance; rows 1,
+# 4 and 7: training takes one width) and a 96:96:96 ReLU network with
+# direction input (padded to 128; rows 1-7), random and seeded, held
+# against the plain versions on 64 whole tiles.
+# seed 3: at the trainer's default seed the 128-wide density:direct head
+# starts below 0 at every position (nothing renders, and its clip passes
+# no gradient, so nothing trains); at seed 3 it starts at 0-0.10, as the
+# 64-wide network does at the default
+Z_TRAIN_ARGS = [("128:128:128" if a == "64:64:64" else a)
+                for a in NET_TRAIN_ARGS] + ["--seed", "3"]
+Z_MODE = "texture"                   # the steps' TF mode besides piecewise
+Z_POSITIONS = 1 << 20                # row 7 timed
+Z_HELD = ORACLE_TILES * 256          # rays (positions) held against plain
+Z_NETS = {
+    "64:32": ((1, 4, 7), dict(layers="64:32")),
+    "96:96:96 ReLU dir": ((1, 2, 3, 4, 5, 6, 7), dict(
+        layers="96:96:96", activation="ReLU", use_direction=True,
+        disable_direction_in_fourier=False)),
+}
+Z_LIBS = ("mega_fwd128", "mega_bwd128", "segment_fwd128", "segment_bwd128",
+          "sample_eval128")
+
+
+def wide_networks(smi, reset_counts, counts, cam):
+    """Phase Z, Table 1's wide networks through the width-128 instances:
+    ``train.main.run --mode screen --layers 128:128:128`` (rows 2-3,
+    launches by library); then the trained network's main path with the
+    counts reset (the FUSED render at 512^2, 1/512 on route 1, culled
+    under a zero band to the network's median density, route 2 at
+    1920x1080, one training step on
+    each engine, row 7 at 2^20 positions), each kernel timed at full size
+    (rows 2-3 and 5-6 alone, a step on each engine in the piecewise and
+    the texture TF), every kernel against its plain version on 64 whole
+    tiles (image, every gradient leaf); the mixed 64:32 network on rows 1,
+    4 and 7 and the 96:96:96 ReLU network with direction input on rows
+    1-7 the same way; every wide instance's registers and spills. Returns
+    the kernels line's rows of the width-128 libraries."""
+    from fvsrn_tpu_torch.camera import generate_rays
+    from fvsrn_tpu_torch.inference import LoadedModel
+    from fvsrn_tpu_torch.models.latent import LatentSpace
+    from fvsrn_tpu_torch.models.srn import SceneRepresentationNetwork
+    from fvsrn_tpu_torch.ops import (_build, fused_dvr, fused_dvr_bwd,
+                                     fused_eval, fused_mega)
+    from fvsrn_tpu_torch.ops.fused_dvr import (block_ray_permutation,
+                                               fused_tf_args)
+    from fvsrn_tpu_torch.ops.fused_dvr_bwd import launch_segment_bwd
+    from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
+                                               max_steps_bound)
+    from fvsrn_tpu_torch.scenes import dense_scene, dense_tf_modes
+    from fvsrn_tpu_torch.train import main as train_main
+    from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
+
+    dev = torch.device(DEVICE)
+    root = os.path.dirname(os.path.abspath(__file__))
+    box = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))
+    cfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE)
+    ramp_tf = dense_scene()[1]
+    ramp = ramp_tf.tensor.to(dev)
+    tex, tex_kw = fused_tf_args(dense_tf_modes(STEPSIZE)[Z_MODE].to(dev))
+    tex_pre = tex_kw.pop("tf_pre", None)
+    steps_max = max_steps_bound(box[1], STEPSIZE)
+    t_phase = time.perf_counter()
+
+    def libs():
+        out = {}
+        for c in (fused_mega.LIBRARY_LAUNCHES, fused_dvr.LIBRARY_LAUNCHES,
+                  fused_mega.BWD_LIBRARY_LAUNCHES,
+                  fused_dvr_bwd.LIBRARY_LAUNCHES,
+                  fused_eval.LIBRARY_LAUNCHES):
+            out.update({k: v for k, v in c.items() if v})
+        return out
+
+    # Z1. the trainer on 128:128:128 (rows 2-3 through mega_fwd128 and
+    # mega_bwd128)
+    out_dir = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    opt = vars(train_main.init_parser().parse_args(
+        Z_TRAIN_ARGS[:1] + [os.path.join(out_dir, "net128_run.npz")]
+        + Z_TRAIN_ARGS[1:]))
+    n_steps = opt["screen_cameras"] * opt["epochs"]
+    reset_counts()
+    t0 = time.perf_counter()
+    result = train_main.run(opt)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trainer_libs = libs()
+    hist = result["history"]
+    print(f"phase Z1 trainer: 128:128:128 SnakeAlt:2, 16x32^3, "
+          f"train.main.run screen {NET_SIZE}x{NET_SIZE}, {n_steps} steps in "
+          f"{train_s:.1f} s, fused {result['fused']}, losses {hist}, "
+          f"launches by library {trainer_libs}", flush=True)
+    check(result["fused"] and all(math.isfinite(v) for v in hist)
+          and trainer_libs.get("mega_fwd128", 0) >= n_steps
+          and trainer_libs.get("mega_bwd128", 0) >= n_steps,
+          f"phase Z1: fused {result['fused']}, losses {hist}, "
+          f"{trainer_libs}")
+    trained = result["network"].to(dev)
+
+    rs, rd = generate_rays(cam, WIDTH, HEIGHT, device=dev)
+    rs, rd = rs.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()
+    perm, _ = block_ray_permutation(WIDTH, HEIGHT, 16, 16, device=dev)
+    rs_b, rd_b = rs[perm].contiguous(), rd[perm].contiguous()
+    n_t = rs.shape[0] // 256
+    sub = (torch.arange(0, n_t, n_t // ORACLE_TILES,
+                        device=dev)[:ORACLE_TILES, None] * 256
+           + torch.arange(256, device=dev)).reshape(-1)
+    mkw = dict(stepsize=STEPSIZE, differentiable=True)
+    skw = dict(stepsize=STEPSIZE, max_steps=steps_max,
+               enable_early_out=False, differentiable=True)
+    engines = {"mega": (fused_mega.mega_trace_dvr,
+                        fused_mega.mega_trace_dvr_plain, mkw, rs_b, rd_b),
+               "scan": (fused_dvr.fused_trace_dvr,
+                        fused_dvr.fused_trace_dvr_plain, skw, rs, rd)}
+    gen = torch.Generator(dev).manual_seed(5)
+    pos = torch.rand(Z_POSITIONS, 3, device=dev, generator=gen) - 0.5
+
+    def subset(render, n_tile):
+        """The render's march on 64 whole tiles spread over the frame."""
+        n = render.ray_start.shape[0] // n_tile
+        tiles = torch.arange(0, n, max(n // ORACLE_TILES, 1),
+                             device=dev)[:ORACLE_TILES]
+        sel = (tiles[:, None] * n_tile
+               + torch.arange(n_tile, device=dev)).reshape(-1)
+        kw = dict(render.march_kwargs)
+        if render.route == "mega":
+            kw["tmax_clip"] = render.tmax_clip[sel]
+            if render.segment_active is not None:
+                kw["segment_active"] = render.segment_active[tiles]
+        return (render.ray_start[sel].contiguous(),
+                render.ray_dir[sel].contiguous(), render.network,
+                render.box_min, render.box_size, render.tf.tensor), kw
+
+    def held_render(name, render, n_tile):
+        """(error, kernel ms, plain ms) of the render's kernel against its
+        plain version on 64 tiles."""
+        args, kw = subset(render, n_tile)
+        kernel, plain = ((fused_mega.mega_trace_dvr,
+                          fused_mega.mega_trace_dvr_plain)
+                         if render.route == "mega" else
+                         (fused_dvr.fused_trace_dvr,
+                          fused_dvr.fused_trace_dvr_plain))
+        got, kms = cuda_once(lambda: kernel(*args, **kw))
+        want, pms = cuda_once(lambda: plain(*args, **kw))
+        err = max_err(got, want)
+        check(err <= KERNEL_TOL and float(want[:, 3].max()) > 0.05,
+              f"phase Z {name} route {render.route}: kernel vs plain {err}, "
+              f"alpha {float(want[:, 3].max())}")
+        return err, kms, pms
+
+    def held_step(name, engine, net, tensor, pre, kw):
+        """(image error, worst leaf's relative error, the leaf, kernel ms,
+        plain ms) of one differentiable step (mean(img^2)) against the
+        plain pair on 64 tiles."""
+        march, plain, _, r_, d_ = engines[engine]
+        args = (r_[sub].contiguous(), d_[sub].contiguous(), net, *box)
+        (img_k, g_k), kms = cuda_once(lambda: tf_step(march, args, tensor,
+                                                      pre, kw))
+        (img_p, g_p), pms = cuda_once(lambda: tf_step(plain, args, tensor,
+                                                      pre, kw))
+        ierr = max_err(img_k, img_p)
+        check(sorted(g_k) == sorted(g_p) and ierr <= KERNEL_TOL
+              and float(img_p[:, 3].max()) > 0.05,
+              f"phase Z {name} {engine}: image vs plain {ierr}, leaves "
+              f"{sorted(g_k)} vs {sorted(g_p)}")
+        rel = {}
+        for n in g_p:
+            check(float(g_p[n].norm()) > 0, f"phase Z {name} {engine}: "
+                  f"zero gradient {n}")
+            rel[n] = rel_err(g_k[n], g_p[n])
+        worst = max(rel, key=rel.get)
+        check(rel[worst] <= GRAD_TOL, f"phase Z {name} {engine}: grad "
+              f"{worst} {rel[worst]} (tol {GRAD_TOL})")
+        return ierr, rel[worst], worst, kms, pms
+
+    def held_eval(name, net):
+        """(error, kernel ms, plain ms) of row 7's values on Z_HELD
+        positions against its plain version."""
+        ev = fused_eval.make_fused_eval(net, *box)
+        p = pos[:Z_HELD].contiguous()
+        (got, _), kms = cuda_once(lambda: ev(p))
+        (want, _), pms = cuda_once(lambda: fused_eval.fused_eval_plain(
+            net, p + 0.5, None))
+        err = max_err(got, want)
+        check(err <= KERNEL_TOL, f"phase Z {name}: row 7 vs plain {err}")
+        return err, kms, pms
+
+    # Z2. the main path of the trained network, counts reset: rows 1 (and
+    # culled), 4, 2-3 and 5-6 (a piecewise step each), 7. The culled
+    # render's TF: the ramp with a zero band up to the network's median
+    # density (the sparse scene's band lies above this briefly trained
+    # network's densities, which would cull every sample)
+    model = LoadedModel(trained, ramp_tf, config=cfg)
+    tnet = copy.deepcopy(trained)
+    ev = fused_eval.make_fused_eval(trained, *box)
+    band = min(max(float(ev(pos[:Z_HELD])[0].median()), 1e-3), 0.5)
+    sparse_tf = TransferFunctionPiecewiseLinear.make(
+        rgb=[[0.1, 0.1, 0.8], [0.1, 0.1, 0.8], [0.9, 0.4, 0.1],
+             [1.0, 1.0, 0.6]],
+        opacity=[0.0, 0.0, 10.0, 30.0],
+        positions=[0.0, band, band + 0.1, 1.0])
+    reset_counts()
+    render = model.prepare_network_render(cam, WIDTH, HEIGHT, "FUSED")
+    img = render()
+    culled = LoadedModel(trained, sparse_tf, config=cfg) \
+        .prepare_network_render(cam, WIDTH, HEIGHT, "FUSED")
+    img_c = culled()
+    screen = model.prepare_network_render(cam, SEG_WIDTH, SEG_HEIGHT,
+                                          "FUSED")
+    img_s = screen()
+    for engine, (march, _, kw, r_, d_) in engines.items():
+        tf_step(march, (r_, d_, tnet, *box), ramp, None, kw)
+    values, _ = ev(pos)
+    torch.cuda.synchronize()
+    launched, c_z = libs(), counts()
+    print(f"phase Z2 main path (128:128:128): launches by library "
+          f"{launched}, counts {c_z}", flush=True)
+    check(render.route == "mega" and culled.route == "mega"
+          and culled.segment_active is not None
+          and screen.route == "segment",
+          f"phase Z2: routes {render.route} {culled.route} {screen.route}")
+    check(all(launched.get(lib, 0) >= 1 for lib in Z_LIBS),
+          f"phase Z2: launches {launched}")
+    for name, im in (("render", img), ("culled", img_c), ("route 2", img_s)):
+        check(bool(torch.isfinite(im).all()) and float(im[..., 3].max())
+              > 0.05, f"phase Z2 {name}: alpha {float(im[..., 3].max())}")
+    check(bool(torch.isfinite(values).all()), "phase Z2: row 7 values")
+
+    # Z3. the trained network at full size, timed; each kernel vs plain on
+    # 64 tiles
+    z = {"trainer": {"seconds": train_s, "losses": hist,
+                     "launches": trainer_libs},
+         "main_path_launches": launched}
+    n_s1 = int(render.march(return_samples=True)[1].sum())
+    (_, st4), ms4 = cuda_once(lambda: screen.march(return_stats=True))
+    n_s4 = int(st4.samples)
+    flops1 = n_s1 * sample_flops(trained)
+    io1 = WIDTH * HEIGHT * (6 + 1 + 4) * 4 + 16 * 32 ** 3 * 2
+    flops4 = n_s4 * sample_flops(trained)
+    io4 = SEG_WIDTH * SEG_HEIGHT * (6 + 1 + 4) * 4 + 16 * 32 ** 3 * 2
+    mask = culled.segment_active
+    z["row1"] = {
+        "frame_ms": cuda_ms(render, 3), "ms": cuda_ms(render.march, 3),
+        "samples": n_s1, "flops": flops1, "io_bytes": io1,
+        "culled_frame_ms": cuda_ms(culled, 3),
+        "culled_ms": cuda_ms(culled.march, 3),
+        "culled_samples": int(culled.march(return_samples=True)[1].sum()),
+        "culled_share": 1.0 - float(mask.float().mean()),
+        "zero_band": band}
+    (z["row1"]["err"], z["row1"]["ms_64"],
+     z["row1"]["plain_ms_64"]) = held_render("128 render", render, 256)
+    z["row1"]["culled_err"] = held_render("128 culled", culled, 256)[0]
+    z["row4"] = {"frame_ms": cuda_once(screen)[1], "ms": ms4,
+                 "samples": n_s4,
+                 "flops": flops4, "io_bytes": io4}
+    (z["row4"]["err"], z["row4"]["ms_64"],
+     z["row4"]["plain_ms_64"]) = held_render("128 route 2", screen, 128)
+    z["row7"] = {"ms": cuda_ms(lambda: ev(pos), 5),
+                 "positions": Z_POSITIONS,
+                 "flops": Z_POSITIONS * sample_flops(trained, False),
+                 "io_bytes": Z_POSITIONS * 16 + 16 * 32 ** 3 * 4}
+    (z["row7"]["err"], z["row7"]["ms_64"],
+     z["row7"]["plain_ms_64"]) = held_eval("128", trained)
+    # the steps on each engine, piecewise and texture, timed once warm
+    for engine, (march, _, kw, r_, d_) in engines.items():
+        for mode, tensor, pre, mkw_ in (("piecewise", ramp, None, kw),
+                                        (Z_MODE, tex, tex_pre,
+                                         dict(kw, **tex_kw))):
+            # the held step (64 tiles) warms the full frame's
+            ierr, grel, worst, kms, pms = held_step(
+                f"128 {mode}", engine, trained, tensor, pre, mkw_)
+            _, ms = cuda_once(lambda: tf_step(march, (r_, d_, tnet, *box),
+                                              tensor, pre, mkw_))
+            z[f"{engine}_{mode}"] = {
+                "step_ms": ms, "img_err": ierr, "grad_rel": grel,
+                "grad_worst": worst, "step_ms_64": kms,
+                "plain_step_ms_64": pms}
+    # rows 2-3 and 5-6 alone at full frame (piecewise), their work
+    spec = fused_mega._spec(trained, *box, stepsize=STEPSIZE, seg=32,
+                            tile=256, density_min=0.0, density_max=1.0,
+                            enable_early_out=True)
+    rays = fused_mega.ray_packet(rs_b, rd_b, *box, STEPSIZE)
+    params = fused_mega._params(trained, ramp)
+    widths = fused_mega._widths(params)
+    weights = fused_mega._pack_weights(params, spec)
+    table = fused_mega._kernel_table(params[2], torch.float32, dev)
+    n_seg = fused_mega.segments_needed(rays, spec)
+    fwd = fused_mega._launch_fwd(rays, weights, table, spec, *widths[:3],
+                                 n_seg_max=n_seg)
+    d_out = 2.0 * fwd[0] / fwd[0].numel()
+    z["row2"] = {"ms": cuda_once(lambda: fused_mega._launch_fwd(
+        rays, weights, table, spec, *widths[:3], n_seg_max=n_seg))[1],
+        "samples": int(fwd[1].sum())}
+    bwd, z["row3"] = cuda_once(lambda: fused_mega._launch_bwd(
+        rays, weights, table, fwd[2], fwd[3], d_out, spec, *widths))
+    z["row3"] = {"ms": z["row3"]}
+    work = bwd[2].sum(dim=0)
+    z["row3"]["samples_replayed"] = int(work[0])
+    z["row3"]["samples_contributing"] = int(work[1])
+    sspec, srays, kbase = fused_dvr._segment_setup(
+        rs, rd, trained, *box, density_min=0.0, density_max=1.0,
+        blend_mode="beer_lambert", alpha_early_out=0.999, seg=32, tile=256,
+        differentiable=True, latent_mode="table", table_dtype=torch.float32,
+        n_seg=None, need_normals=False, iso_value=None, tf_mode="piecewise",
+        tmax_clip=None, stepsize=STEPSIZE, max_steps=steps_max,
+        enable_early_out=False)
+    sweights = fused_dvr.pack_segment_weights(trained, ramp)
+    stable = fused_dvr.segment_table(trained, torch.float32, dev)
+    fwd_args = (sspec, trained, srays, kbase, sweights, stable,
+                ramp.shape[0])
+    out, st, carries, death = fused_dvr.launch_segment(*fwd_args,
+                                                       store_carries=True)
+    bwd_args = (sspec, trained, srays, kbase, sweights, stable, carries,
+                death, 2.0 * out / out.numel(), ramp.shape[0])
+    z["row5"] = {"ms": cuda_once(lambda: fused_dvr.launch_segment(
+        *fwd_args, store_carries=True))[1], "samples": int(st.samples),
+        "carry_bytes": int(death.sum()) * 16}
+    sbwd, ms6 = cuda_once(lambda: launch_segment_bwd(*bwd_args))
+    z["row6"] = {"ms": ms6}
+    swork = sbwd[2]
+    z["row6"]["samples_replayed"] = int(swork[0])
+    z["row6"]["samples_contributing"] = int(swork[1])
+    # the adjoint's weights read from L2: each 16-row block of a tile reads
+    # every hidden matrix a few times (replay, adjoint forward, transposed
+    # product), 4 KB a sample and matrix a read (the forward's once)
+    l2 = 4 * 128 * 128 // 16 * (len(trained.layers) - 2)
+    z["l2_bytes_per_sample_fwd"] = l2
+    print(f"phase Z3 128:128:128 [{smi}]: FUSED {WIDTH}x{HEIGHT} frame "
+          f"{z['row1']['frame_ms']:.3f} ms, kernel {z['row1']['ms']:.3f} ms "
+          f"({n_s1} samples, {z['row1']['ms'] * 1e6 / max(n_s1, 1):.3f} ns a "
+          f"sample, bound shares bf16 "
+          f"{flops1 / PEAK_BF16_TC * 1e3 / z['row1']['ms']:.4f} / f32 "
+          f"{flops1 / PEAK_F32 * 1e3 / z['row1']['ms']:.4f}), vs plain on "
+          f"{ORACLE_TILES} tiles {z['row1']['err']:.2e}; culled frame "
+          f"{z['row1']['culled_frame_ms']:.3f} ms "
+          f"({z['row1']['culled_share']:.3f} of programs culled, vs plain "
+          f"{z['row1']['culled_err']:.2e}); "
+          f"route 2 {SEG_WIDTH}x{SEG_HEIGHT} frame "
+          f"{z['row4']['frame_ms']:.3f} ms, kernel {z['row4']['ms']:.3f} ms "
+          f"({n_s4} samples, {z['row4']['ms'] * 1e6 / max(n_s4, 1):.3f} ns), "
+          f"vs plain {z['row4']['err']:.2e}; row 7 {Z_POSITIONS} positions "
+          f"{z['row7']['ms']:.4f} ms "
+          f"({z['row7']['ms'] * 1e6 / Z_POSITIONS:.3f} ns), vs plain "
+          f"{z['row7']['err']:.2e}; rows 2/3/5/6 alone "
+          f"{z['row2']['ms']:.3f} / {z['row3']['ms']:.3f} / "
+          f"{z['row5']['ms']:.3f} / {z['row6']['ms']:.3f} ms; steps "
+          + ", ".join(f"{k} {z[k]['step_ms']:.1f} ms (grad rel "
+                      f"{z[k]['grad_rel']:.2e} {z[k]['grad_worst']}, image "
+                      f"{z[k]['img_err']:.2e})"
+                      for k in z if k.startswith(("mega_", "scan_"))),
+          flush=True)
+
+    # Z4. the mixed 64:32 network and the 96:96:96 ReLU network with
+    # direction input, against the plain versions on 64 tiles
+    grid = np.random.default_rng(23).standard_normal((16, 32, 32, 32)) * 0.3
+    for name, (rows_, kw) in Z_NETS.items():
+        net = SceneRepresentationNetwork.make(
+            num_fourier=14, output_mode="density", seed=11,
+            latent=LatentSpace(static_grid=torch.tensor(
+                grid, dtype=torch.float32)), **kw).to(dev)
+        m = LoadedModel(net, ramp_tf, config=cfg)
+        fig = {"kernel_width": fused_mega.kernel_width(net)}
+        reset_counts()
+        r1 = m.prepare_network_render(cam, WIDTH, HEIGHT, "FUSED")
+        r4 = m.prepare_network_render(cam, SEG_WIDTH, SEG_HEIGHT, "FUSED")
+        fig["row1_err"], fig["row1_ms_64"], _ = held_render(name, r1, 256)
+        fig["row4_err"], fig["row4_ms_64"], _ = held_render(name, r4, 128)
+        fig["row7_err"], fig["row7_ms_64"], _ = held_eval(name, net)
+        if 2 in rows_:
+            for engine in engines:
+                (fig[f"{engine}_img_err"], fig[f"{engine}_grad_rel"],
+                 fig[f"{engine}_grad_worst"], _, _) = held_step(
+                    name, engine, net, ramp, None, engines[engine][2])
+        torch.cuda.synchronize()
+        fig["launches"] = libs()
+        print(f"phase Z4 {name} [{smi}]: padded to {fig['kernel_width']}, "
+              f"launches {fig['launches']}, vs plain on {ORACLE_TILES} "
+              f"tiles: " + ", ".join(f"{k} {v:.2e}" for k, v in fig.items()
+                                     if k.endswith(("_err", "_rel"))),
+              flush=True)
+        z[name] = fig
+    check(z["64:32"]["launches"].get("mega_fwd64", 0) >= 1
+          and z["64:32"]["launches"].get("segment_fwd", 0) >= 1
+          and z["64:32"]["launches"].get("sample_eval", 0) >= 1,
+          f"phase Z4 64:32: launches {z['64:32']['launches']}")
+    wide = z["96:96:96 ReLU dir"]["launches"]
+    check(all(wide.get(lib, 0) >= 1 for lib in
+              ("mega_fwd_any128",) + Z_LIBS[1:]),
+          f"phase Z4 96:96:96: launches {wide}")
+
+    # Z5. registers and spills of every wide instance
+    ptxas = {}
+    for src in _build.WIDE_SOURCES:
+        ptxas[src] = {k: list(v[:3]) for k, v in _build.ptxas_instances(
+            _build.ptxas_report(src)).items()}
+        spills = max((v[1] + v[2] for v in ptxas[src].values()), default=0)
+        regs = sorted({v[0] for v in ptxas[src].values()})
+        print(f"phase Z5 ptxas {src}: {len(ptxas[src])} instances, "
+              f"registers {regs}, largest spill stores + loads {spills} B",
+              flush=True)
+    print(f"phase Z: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # the kernels line's rows: each library's main-path launches, its time
+    # at full size beside its bound; the plain version's time on 64 tiles
+    # (the full frame's plain backward takes minutes at this width)
+    def row(name, src, replaces, n, ms, flops, nbytes, err, plain_ms, **kw):
+        return dict({
+            "name": name, "route": "cuda",
+            "source": f"fvsrn_tpu_torch/csrc/{src}.cu",
+            "replaces": replaces, "launches": n, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(flops / PEAK_BF16_TC, nbytes / PEAK_BYTES) * 1e3,
+            "bound_by": ("operations" if flops / PEAK_BF16_TC
+                         > nbytes / PEAK_BYTES else "bytes"),
+            "library_ms": None,
+            "bound_f32_ms": max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3,
+            "plain_rays": Z_HELD, "ptxas": ptxas[src]}, **kw)
+
+    fa = sample_flops(trained)
+    bwd3 = (z["row3"]["samples_replayed"] * fa
+            + z["row3"]["samples_contributing"] * adjoint_flops(trained))
+    bwd6 = (z["row6"]["samples_replayed"] * fa
+            + z["row6"]["samples_contributing"] * adjoint_flops(trained))
+    wbytes = weights.numel() * 4
+    mega_step, scan_step = z["mega_piecewise"], z["scan_piecewise"]
+    return [
+        row("mega_fwd128", "mega_fwd128", "fvsrn_tpu/ops/fused_mega.py:274",
+            c_z["mega_fwd"], z["row1"]["ms"], flops1, io1,
+            z["row1"]["err"], z["row1"]["plain_ms_64"], cases=z),
+        row("mega_fwd128_diff", "mega_fwd128",
+            "fvsrn_tpu/ops/fused_mega.py:962", c_z["mega_fwd_diff"],
+            z["row2"]["ms"], z["row2"]["samples"] * fa,
+            WIDTH * HEIGHT * 48 + wbytes, mega_step["img_err"],
+            mega_step["plain_step_ms_64"]),
+        row("mega_bwd128", "mega_bwd128", "fvsrn_tpu/ops/fused_mega.py:1023",
+            launched.get("mega_bwd128", 0), z["row3"]["ms"], bwd3,
+            WIDTH * HEIGHT * 48 + wbytes, mega_step["grad_rel"],
+            mega_step["plain_step_ms_64"]),
+        row("segment_fwd128", "segment_fwd128",
+            "fvsrn_tpu/ops/fused_dvr.py:1626",
+            c_z["segment_fwd"], z["row4"]["ms"], flops4, io4,
+            z["row4"]["err"], z["row4"]["plain_ms_64"]),
+        row("segment_fwd128_diff", "segment_fwd128",
+            "fvsrn_tpu/ops/fused_dvr_bwd.py:1144", c_z["segment_fwd_diff"],
+            z["row5"]["ms"], z["row5"]["samples"] * fa,
+            WIDTH * HEIGHT * 48 + z["row5"]["carry_bytes"] + wbytes,
+            scan_step["img_err"], scan_step["plain_step_ms_64"]),
+        row("segment_bwd128", "segment_bwd128",
+            "fvsrn_tpu/ops/fused_dvr_bwd.py:1272",
+            launched.get("segment_bwd128", 0), z["row6"]["ms"], bwd6,
+            WIDTH * HEIGHT * 48 + z["row5"]["carry_bytes"] + wbytes,
+            scan_step["grad_rel"], scan_step["plain_step_ms_64"]),
+        row("sample_eval128", "sample_eval128",
+            "fvsrn_tpu/ops/fused_eval.py:42",
+            launched.get("sample_eval128", 0), z["row7"]["ms"],
+            z["row7"]["flops"], z["row7"]["io_bytes"], z["row7"]["err"],
+            z["row7"]["plain_ms_64"])]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5518,6 +6017,9 @@ def main():
         montecarlo.NORMAL_ROUNDS = 0
         fused_mega.LIBRARY_LAUNCHES.clear()
         fused_dvr.LIBRARY_LAUNCHES.clear()
+        fused_mega.BWD_LIBRARY_LAUNCHES.clear()
+        fused_dvr_bwd.LIBRARY_LAUNCHES.clear()
+        fused_eval.LIBRARY_LAUNCHES.clear()
 
     def counts():
         return {"mega_fwd": fused_mega.launches("mega_fwd"),
@@ -5729,6 +6231,9 @@ def main():
     for row in train_rows + scan_rows:
         row["tf_modes_networks"] = tfn[row["name"]]
     clock("phase Y")
+    # Table 1's wide networks on rows 1-7 (the width-128 instances)
+    wide_rows = wide_networks(smi, reset_counts, counts, cam)
+    clock("phase Z")
 
     # 2, finished: every source built, each nvcc's seconds, the seconds the
     # phases waited for one, the ptxas reports
@@ -5749,7 +6254,7 @@ def main():
     # 11. kernels
     print(json.dumps({"kernels": [render_row] + train_rows
                       + [segment_row] + scan_rows + [mc_row] + probe
-                      + anytf_rows + anyg_rows}))
+                      + anytf_rows + anyg_rows + wide_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

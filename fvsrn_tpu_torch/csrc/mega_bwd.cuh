@@ -1,6 +1,8 @@
 // Fused SRN volume-rendering march, backward (sm_90a). Included by one
-// source per hidden width (mega_bwd.cu: 32, mega_bwd48.cu, mega_bwd64.cu),
-// each defining MEGA_WIDTH first.
+// source per hidden width (mega_bwd.cu: 32, mega_bwd48.cu, mega_bwd64.cu,
+// mega_bwd128.cu), each defining MEGA_WIDTH first; width 128 takes
+// sample_mlp.cuh's wide plan (the hidden matrices read from the packed
+// weights in device memory) on 256-ray tiles, layers of one width.
 //
 // Replaces the TPU kernel fvsrn_tpu/ops/fused_mega.py:_mega_bwd_kernel
 // (per-segment math fvsrn_tpu/ops/fused_dvr_bwd.py:bwd_segment_core). It
@@ -53,7 +55,7 @@
 #include "mega_common.cuh"
 
 #ifndef MEGA_WIDTH
-#error "define MEGA_WIDTH (32, 48 or 64) before including mega_bwd.cuh"
+#error "define MEGA_WIDTH (32, 48, 64 or 128) before including mega_bwd.cuh"
 #endif
 
 namespace {
@@ -126,7 +128,8 @@ __global__ void __launch_bounds__(kTile, 2) mega_bwd_kernel(const March P,
     const int k = i / pl.ldw, o = i % pl.ldw;
     S.W1()[i] = (k < K1 && o < H) ? w[off.W1 + o * K1 + k] : 0.0f;
   }
-  for (int i = threadIdx.x; i < nh * H * pl.ldw; i += kTile) {
+  for (int i = threadIdx.x; i < (wide_width(H) ? 0 : nh * H * pl.ldw);
+       i += kTile) {
     const int l = i / (H * pl.ldw), k = (i / pl.ldw) % H, o = i % pl.ldw;
     S.Wh()[i] = o < H ? w[off.Wh + (l * H + o) * H + k] : 0.0f;
   }
@@ -320,6 +323,8 @@ extern "C" int mega_bwd_launch(
   D.table = table;
   D.table_bf16 = !table_f32;
   D.d_table = d_table;
+  D.Wg = weights + off.Wh;   // the wide plan's: the packed, output-major
+  D.wg_om = 1;
   GOut& G = A.L.G;
   G.W1 = off.W1; G.W1_k = 1; G.W1_o = K1;
   G.Wh = off.Wh; G.Wh_l = H * H; G.Wh_i = 1; G.Wh_o = H;

@@ -6,9 +6,10 @@
 // kernels evaluate their samples as tiles: the forward on warp_mlp.cuh,
 // the backward on sample_mlp.cuh; the backward's replay agrees with the
 // forward to float32 rounding, not bit for bit. The hidden width is a
-// template parameter of both (32, 48 or 64; narrower networks are
-// zero-padded by the wrapper, which is exact), one source per width
-// (mega_fwd.cu, mega_fwd48.cu, mega_fwd64.cu and the same for mega_bwd).
+// template parameter of both (32, 48, 64 or 128; every layer is
+// zero-padded by the wrapper to the instance of the widest, which is
+// exact), one source per width (mega_fwd.cu, mega_fwd48.cu, mega_fwd64.cu,
+// mega_fwd128.cu and the same for mega_bwd).
 // The ray tile is MEGA_TILE rays (a block's threads), 256 unless the
 // source defines 128 first (mega_fwd_t128.cu and the like, a library
 // each). The tile is part of the result, not a schedule: the early-out

@@ -1,7 +1,11 @@
 // Fused SRN volume-rendering march, forward (sm_90a). Included by one
-// source per hidden width (mega_fwd.cu: 32, mega_fwd48.cu, mega_fwd64.cu),
-// each defining MEGA_WIDTH first: a library each, so that nvcc builds the
-// widths in parallel.
+// source per hidden width (mega_fwd.cu: 32, mega_fwd48.cu, mega_fwd64.cu,
+// mega_fwd128.cu), each defining MEGA_WIDTH first: a library each, so that
+// nvcc builds the widths in parallel. Width 128 (every network wider than
+// 64, and mixed widths whose widest layer is) takes warp_mlp.cuh's wide
+// plan: its hidden matrices are read from the packed weights in device
+// memory; its five parts are on 256-ray tiles only and have no normals
+// instance.
 //
 // Replaces the TPU kernel fvsrn_tpu/ops/fused_mega.py:_mega_fwd_kernel in
 // both its launches: the render's (non-differentiable, bf16 latent table)
@@ -85,7 +89,7 @@
 #endif
 
 #ifndef MEGA_WIDTH
-#error "define MEGA_WIDTH (32, 48 or 64) before including mega_fwd.cuh"
+#error "define MEGA_WIDTH (32, 48, 64 or 128) before including mega_fwd.cuh"
 #endif
 #ifndef MEGA_PART
 // 0: SnakeAlt, piecewise; 1: SnakeAlt, other TF modes; 2: other networks,
@@ -148,7 +152,8 @@ __device__ __forceinline__ void stage_weights(const March& P, const FPlan& pl,
     else src = k - D.pos < n_in ? k - D.pos : -1;
     return src >= 0 ? w[off.W1 + o * K1 + src] : 0.0f;
   });
-  for (int l = 0; l < nh; ++l)
+  // the wide plan reads its hidden matrices from device memory
+  for (int l = 0; l < (smlp::wide_width(H) ? 0 : nh); ++l)
     stage_matrix<H>(pl, sm + pl.Wh + l * pl.wl, H, [&](int k, int o) {
       return w[off.Wh + (l * H + o) * H + k];
     });
@@ -298,7 +303,7 @@ __device__ __forceinline__ void mega_march(const March& P, const FwdOut& O,
 }
 
 template <int H, typename Table, bool kMasked, int TFM, int ACT>
-__global__ void __launch_bounds__(kTile, 2) mega_fwd_kernel(
+__global__ void __launch_bounds__(kTile, fwd_min_blocks(H)) mega_fwd_kernel(
     const March P, const FwdOut O, const FLayer L, float* dens_carries) {
   mega_march<H, Table, kMasked, TFM, ACT>(P, O, L, dens_carries);
 }
@@ -423,6 +428,13 @@ bool fill_layer(FLayer& L, const March& P, int tf_pre, int tf_floats,
   D.gy = P.gy;
   D.gz = P.gz;
   D.table = P.table;
+  // the wide plan's hidden matrices: the packed ones, output-major
+  const Offsets off = weight_offsets(MEGA_WIDTH, P.n_fourier, P.n_hidden,
+                                     D.n_out, P.has_dir);
+  D.wg = P.weights + off.Wh;
+  D.wg_k = 1;
+  D.wg_o = MEGA_WIDTH;
+  D.wg_l = MEGA_WIDTH * MEGA_WIDTH;
   return choose_fwd_plan(MEGA_WIDTH, D.K, D.nh, D.F4, D.tfn, kTile / 32,
                          L.pl);
 }

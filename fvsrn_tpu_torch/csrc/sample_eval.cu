@@ -69,7 +69,8 @@ struct EvalArgs {
 // (tile t of the call: positions 32 t .. 32 t + 31), the block's weights
 // staged once. Shared memory: the plan `pl` (warp_mlp.cuh), no TF block.
 template <int H, typename Table>
-__global__ void __launch_bounds__(kThreads, 2) sample_eval_kernel(
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks(H))
+    sample_eval_kernel(
     const Seg P, const EvalArgs A, const FLayer L) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -228,15 +229,28 @@ int launch(const Seg& P, const EvalArgs& A, const FLayer& L, int want_grad,
                    : launch_values<H, Table>(P, A, L, stream);
 }
 
+// The widths a library holds: 32, 48 and 64, or with SAMPLE_EVAL_WIDE
+// (sample_eval128.cu, a library of its own) the value instance at 128
+// (warp_mlp.cuh's wide plan; no gradient instance).
+#ifndef SAMPLE_EVAL_WIDE
+#define SAMPLE_EVAL_WIDE 0
+#endif
+
 template <typename Table>
 int launch_width(const Seg& P, const EvalArgs& A, const FLayer& L,
                  int hidden, int want_grad, cudaStream_t stream) {
+#if SAMPLE_EVAL_WIDE
+  if (hidden != smlp::kWideWidth || want_grad)
+    return (int)cudaErrorInvalidValue;
+  return launch_values<smlp::kWideWidth, Table>(P, A, L, stream);
+#else
   switch (hidden) {
     case 32: return launch<32, Table>(P, A, L, want_grad, stream);
     case 48: return launch<48, Table>(P, A, L, want_grad, stream);
     case 64: return launch<64, Table>(P, A, L, want_grad, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+#endif
 }
 
 // The call's parameters as the per-segment engine's (no rays, two dummy
@@ -275,7 +289,8 @@ extern "C" int sample_eval_grid(int n, int hidden, int n_fourier, int chunks,
 // Evaluate the density SRN at n positions `pos01` ((n, 3), in the box's
 // [0, 1]^3): `out` (n,) values, or with want_grad (n, 4) [value, d value /
 // d pos01]. Weights packed as segment_common.cuh's `Wts` (any two TF
-// points) with the padded hidden width `hidden` (32, 48 or 64); `table` is
+// points) with the padded hidden width `hidden` (32, 48 or 64; 128, values
+// only, in sample_eval128.cu's library); `table` is
 // the channel-last latent grid (gz, gy, gx, 16 * chunks), bf16 (table_f32 =
 // 0) or float32, not read with chunks = 0. `dirs` ((n, 3)) is read with
 // has_dir only; null is a zero direction. Density heads only. Launches on

@@ -37,7 +37,10 @@
 //
 // Shared memory (`Plan`, mirrored by fvsrn_tpu_torch/ops/sample_mlp.py):
 // the layer matrices input-major with a row stride of H + 8 (conflict-free
-// B fragments) or H where only that fits, the vectors (biases, output
+// B fragments) or H where only that fits (in the wide plan, hidden widths
+// above kSmemMaxWidth, the first layer's only: the hidden matrices are read
+// from the packed weights in device memory, where they stay in L2), the
+// vectors (biases, output
 // rows, Fourier matrices, TF), the tile's first-layer input X (M x K16),
 // each layer's activation derivative and output (M x (H + 4)), per-row
 // scalars, and the group's per-(ray, sample) state (in the TF modes other
@@ -86,6 +89,16 @@ constexpr int kRayF = 12;           // per-ray scalars: [0, 9) a kernel's,
                                     // [9, 12) the ray's rgb cotangent
 constexpr long kSmemLimit = 232448; // bytes a block may use (227 KB)
 constexpr long kSmemTwo = 115712;   // bytes each of two blocks an SM holds
+// The widest hidden layer whose matrices the plans stage in shared memory;
+// the wide instances (kWideWidth) read their hidden matrices from device
+// memory: a 128 x 128 float32 matrix takes 69.6 KB in shared memory with
+// its padded rows, eight warps' forward tiles at that width 147 KB.
+constexpr int kSmemMaxWidth = 64;
+constexpr int kWideWidth = 128;
+
+__host__ __device__ constexpr bool wide_width(int H) {
+  return H > kSmemMaxWidth;
+}
 
 // Per-row scalars: [0] the row's (ray << 5 | sample) or -1, [1, 5) the
 // head's input y, [5, 9) its cotangent, [9] the TF interval (or -2),
@@ -131,7 +144,8 @@ __host__ __device__ inline Plan make_plan(int H, int K1, int nh, int F,
   p.n_vec = H + nh * H + 4 * H + 4 + 6 * F + tfn;
   int o = 0;
   p.W1 = take(o, (long)p.K16 * p.ldw);
-  p.Wh = take(o, (long)nh * H * p.ldw);
+  // the wide plan's hidden matrices stay in device memory
+  p.Wh = take(o, wide_width(H) ? 0L : (long)nh * H * p.ldw);
   p.vec = take(o, p.n_vec);
   p.X = take(o, (long)M * p.ldx);
   p.dact = take(o, (long)(nh + 1) * M * p.lda);
@@ -182,6 +196,9 @@ struct Dims {
   const void* table;             // (gz, gy, gx, 16 * chunks), float32 or
   int table_bf16;                // bf16 (table_bf16 = 1)
   float* d_table;                // float32, like the table
+  const float* Wg;               // the wide plan's hidden matrices (H x H
+  int wg_om;                     // each, in device memory): output-major
+                                 // ([o][i], wg_om = 1) or input-major
   int tpre;                      // cumulative TF rows (preint1d)
   const float4* tf2d;            // the preint2d table, and its gradient
   float4* d_tf2d;
@@ -528,7 +545,19 @@ __device__ __forceinline__ void forward(const Dims& D, const Smem& S, bool keep)
           frag_rc(j, e, r, cc);
           c[j][e] = bias[n0 + cc];
         }
-      mma16x16<false, false>(c, A, la, r0, W, S.p.ldw, n0, K);
+      if constexpr (wide_width(H)) {
+        // the hidden matrices from device memory, as they are packed
+        if (l == 0)
+          mma16x16<false, false>(c, A, la, r0, W, S.p.ldw, n0, K);
+        else if (D.wg_om)
+          mma16x16<false, true>(c, A, la, r0, D.Wg + (size_t)(l - 1) * H * H,
+                                H, n0, K);
+        else
+          mma16x16<false, false>(c, A, la, r0,
+                                 D.Wg + (size_t)(l - 1) * H * H, H, n0, K);
+      } else {
+        mma16x16<false, false>(c, A, la, r0, W, S.p.ldw, n0, K);
+      }
       // the activation on the fragment: two neighbouring columns of a row
       // per (n-tile, half)
 #pragma unroll
@@ -679,20 +708,29 @@ __device__ __forceinline__ void bias_grad(const Dims& D, const Smem& S,
 }
 
 // out (M x cols, leading dimension lo) = dZ W^T, W stored [n][o] with
-// leading dimension ldw; with `scale`, times scale elementwise (same
+// leading dimension ldw (with `om`, the wide plan's output-major matrices
+// in device memory, [o][n]); with `scale`, times scale elementwise (same
 // layout as out).
 template <int H, int NTH>
 __device__ __forceinline__ void input_grad(const Smem& S, const float* dZ,
                                            const float* W, int cols,
                                            float* out, int lo,
-                                           const float* scale) {
+                                           const float* scale, int ldw,
+                                           bool om = false) {
   constexpr int kWarps = NTH / 32;
   const int warp = threadIdx.x >> 5, rbs = S.p.M / 16;
 #pragma unroll 1
   for (int it = warp; it < rbs * (cols / 16); it += kWarps) {
     const int r0 = (it % rbs) * 16, n0 = (it / rbs) * 16;
     float c[2][4] = {};
-    mma16x16<false, true>(c, dZ, S.p.lda, r0, W, S.p.ldw, n0, H);
+    if constexpr (wide_width(H)) {
+      if (om)
+        mma16x16<false, false>(c, dZ, S.p.lda, r0, W, ldw, n0, H);
+      else
+        mma16x16<false, true>(c, dZ, S.p.lda, r0, W, ldw, n0, H);
+    } else {
+      mma16x16<false, true>(c, dZ, S.p.lda, r0, W, ldw, n0, H);
+    }
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -809,18 +847,21 @@ __device__ __forceinline__ void backward(const Dims& D, const Smem& S,
   // hidden layers, last first
 #pragma unroll 1
   for (int l = nh; l >= 1; --l) {
-    const float* W = S.Wh() + (size_t)(l - 1) * H * S.p.ldw;
+    const bool wg = wide_width(H);
+    const float* W = wg ? D.Wg + (size_t)(l - 1) * H * H
+                        : S.Wh() + (size_t)(l - 1) * H * S.p.ldw;
     outer_grad<NTH>(S, S.hbuf(l - 1), lda, H, H, S.dbuf(l), lda, H, H, g,
                     G.Wh + (l - 1) * G.Wh_l, G.Wh_i, G.Wh_o);
     input_grad<H, NTH>(S, S.dbuf(l), W, H, S.dbuf(l - 1), lda,
-                       S.dbuf(l - 1));
+                       S.dbuf(l - 1), wg ? H : S.p.ldw, wg && D.wg_om);
     __syncthreads();
   }
   SMLP_MARK(tb, 8);
   // the first layer; its input cotangent over the (dead) outputs
   outer_grad<NTH>(S, S.X(), S.p.ldx, S.p.K16, D.K1, S.dbuf(0), lda, H, H, g, G.W1,
                   G.W1_k, G.W1_o);
-  input_grad<H, NTH>(S, S.dbuf(0), S.W1(), S.p.K16, S.hreg(), S.p.ldx, nullptr);
+  input_grad<H, NTH>(S, S.dbuf(0), S.W1(), S.p.K16, S.hreg(), S.p.ldx,
+                     nullptr, S.p.ldw);
   __syncthreads();
   SMLP_MARK(tb, 9);
   // the Fourier phases' cotangent d_f = cos d_sin - sin d_cos, over d_cos

@@ -43,6 +43,13 @@
 #include "sample_mlp.cuh"
 #include "segment_common.cuh"
 
+// The widths a library holds: 32, 48 and 64, or with SEGMENT_WIDE
+// (segment_bwd128.cu, a library of its own) 128, sample_mlp.cuh's wide
+// plan (the hidden matrices read from the packed weights in device memory).
+#ifndef SEGMENT_WIDE
+#define SEGMENT_WIDE 0
+#endif
+
 namespace {
 
 using namespace march;
@@ -100,7 +107,8 @@ __global__ void __launch_bounds__(kThreads, 2) segment_bwd_kernel(const Seg P,
     S.W1()[i] = (k < K1 && o < H) ? w[k * H + o] : 0.0f;
   }
   const int off_wh = K1 * H + H;
-  for (int i = threadIdx.x; i < nh * H * pl.ldw; i += kThreads) {
+  for (int i = threadIdx.x; i < (wide_width(H) ? 0 : nh * H * pl.ldw);
+       i += kThreads) {
     const int l = i / (H * pl.ldw), k = (i / pl.ldw) % H, o = i % pl.ldw;
     S.Wh()[i] = o < H ? w[off_wh + (l * H + k) * H + o] : 0.0f;
   }
@@ -293,6 +301,8 @@ extern "C" int segment_bwd_launch(
   D.table = table;
   D.table_bf16 = !table_f32;
   D.d_table = d_table;
+  D.Wg = weights + K1 * H + H;   // the wide plan's: the packed, input-major
+  D.wg_om = 0;
   // the packed layout (segment_common.cuh's Wts)
   GOut& G = A.L.G;
   G.W1 = 0; G.W1_k = H; G.W1_o = 1;
@@ -305,10 +315,15 @@ extern "C" int segment_bwd_launch(
   G.Bd = has_dir ? G.B + 3 * F : -1;
   G.TF = G.B + 6 * F;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#if SEGMENT_WIDE
+  return hidden == kWideWidth ? launch_tf<kWideWidth>(P, A, st)
+                              : (int)cudaErrorInvalidValue;
+#else
   switch (hidden) {
     case 32: return launch_tf<32>(P, A, st);
     case 48: return launch_tf<48>(P, A, st);
     case 64: return launch_tf<64>(P, A, st);
     default: return (int)cudaErrorInvalidValue;
   }
+#endif
 }

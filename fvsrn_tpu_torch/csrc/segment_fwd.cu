@@ -38,8 +38,8 @@ extern "C" int segment_fwd_smem(int hidden, int n_fourier, int chunks,
 // One phase of the march (0: each ray to its own death, 1: the
 // continuation up to the call's stop). Weights packed as `Wts`
 // (segment_common.cuh) with the padded hidden width `hidden` (32, 48 or
-// 64). `table` is (gz, gy, gx, 16 * chunks), bf16 (table_f32 = 0) or
-// float32; with chunks = 0 it is not read. `kbase` is read in lattice mode
+// 64; 128 in the *128.cu libraries). `table` is (gz, gy, gx, 16 *
+// chunks), bf16 (table_f32 = 0) or float32; with chunks = 0 it is not read. `kbase` is read in lattice mode
 // only. `stats` ([S, samples], int64) must be zero before phase 0. With
 // `carries` ((n_seg, R) float4, phase 0 only) each ray also stores the
 // carry entering every segment it runs, for the backward

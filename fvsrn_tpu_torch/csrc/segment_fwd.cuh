@@ -54,7 +54,8 @@
 // epilogue takes a ray's first listed row above the isovalue; rows after
 // it are evaluated and ignored, and samples are counted up to the hit.
 // The hidden width is a template parameter (32, 48 or 64; narrower
-// networks are zero-padded by the wrapper, which is exact), the latent
+// networks are zero-padded by the wrapper, which is exact; 128, the wide
+// plan of warp_mlp.cuh, in the *128.cu libraries), the latent
 // table type too; the activation is a switch outside the tile's layers
 // (one instance of the layer chain each), the head a runtime switch.
 // The normals instances (segment_nrm_kernel, in segment_fwd_nrm.cu's
@@ -244,7 +245,8 @@ __device__ __forceinline__ void segment_march(const Seg& P, const SegOut& O,
 }
 
 template <int H, typename Table, int TFM, int ACT>
-__global__ void __launch_bounds__(kThreads, 2) segment_fwd_kernel(
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks(H))
+    segment_fwd_kernel(
     const Seg P, const SegOut O, const FLayer L, int phase) {
   segment_march<H, Table, TFM, NoNormal, ACT>(P, O, L, phase);
 }
@@ -356,15 +358,27 @@ int launch_tf(const Seg& P, const SegOut& O, const FLayer& L, int phase,
 #endif
 }
 
+// The widths a library holds: 32, 48 and 64, or with SEGMENT_WIDE (the
+// *128.cu sources, libraries of their own) the wide instances' 128.
+#ifndef SEGMENT_WIDE
+#define SEGMENT_WIDE 0
+#endif
+
 template <typename Table>
 int launch_width(const Seg& P, const SegOut& O, const FLayer& L, int hidden,
                  int phase, cudaStream_t stream) {
+#if SEGMENT_WIDE
+  return hidden == smlp::kWideWidth
+             ? launch_tf<smlp::kWideWidth, Table>(P, O, L, phase, stream)
+             : (int)cudaErrorInvalidValue;
+#else
   switch (hidden) {
     case 32: return launch_tf<32, Table>(P, O, L, phase, stream);
     case 48: return launch_tf<48, Table>(P, O, L, phase, stream);
     case 64: return launch_tf<64, Table>(P, O, L, phase, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+#endif
 }
 
 }  // namespace

@@ -32,7 +32,8 @@ __device__ __forceinline__ void stage_weights(const Seg& P, const FPlan& pl,
     return src >= 0 ? w[src * H + o] : 0.0f;
   });
   const int off_wh = K1 * H + H;
-  for (int l = 0; l < nh; ++l)
+  // the wide plan reads its hidden matrices from device memory
+  for (int l = 0; l < (smlp::wide_width(H) ? 0 : nh); ++l)
     wmlp::stage_matrix<H>(pl, sm + pl.Wh + l * pl.wl, H,
                           [&](int k, int o) {
                             return w[off_wh + (l * H + k) * H + o];
@@ -79,6 +80,14 @@ inline bool fill_layer(FLayer& L, const Seg& P, int hidden, int tp) {
   D.gy = P.gy;
   D.gz = P.gz;
   D.table = P.table;
+  // the wide plan's hidden matrices: the packed ones, input-major
+  D.wg = P.weights == nullptr
+             ? nullptr
+             : P.weights + (6 + 2 * P.n_fourier + kLat * P.chunks) * hidden
+                   + hidden;
+  D.wg_k = hidden;
+  D.wg_o = 1;
+  D.wg_l = hidden * hidden;
   return wmlp::choose_fwd_plan(hidden, D.K, D.nh, D.F4, D.tfn, 0, L.pl);
 }
 

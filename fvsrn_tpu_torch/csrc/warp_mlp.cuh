@@ -24,8 +24,10 @@
 // A layer's output goes from the accumulator fragments to the next
 // layer's A fragments through the warp's own tile in shared memory (the
 // C and A fragments of m16n8k8 differ), with __syncwarp: no block barrier
-// inside a segment. Every fragment of a layer is in registers before the
-// epilogue writes, so each layer writes over its own input in place.
+// inside a segment. A run of 16-row blocks keeps its H-wide accumulators
+// in registers (at width 128 one block: 64 a lane) before the epilogue
+// writes, and reads and writes only its own rows, so each layer writes
+// over its own input in place.
 //
 // Precision: every product is a = a_hi + a_lo, b = b_hi + b_lo in TF32
 // (sample_mlp.cuh's split), a_lo b_hi + a_hi b_lo + a_hi b_hi accumulated
@@ -44,7 +46,16 @@
 // rows of max(K, H) + 4 floats (conflict-free A fragments), 32 rows of 4
 // (head outputs) and its rays' fields (8 a ray, read by the lanes that
 // build their rows). The weights are staged once per block and read-only
-// after that.
+// after that. The wide plan (hidden widths above smlp::kSmemMaxWidth:
+// the 128 instances) stages the first layer (input-major, split in the
+// loop) and the vectors only; its hidden matrices are read from the packed
+// weights in device memory (L2) by the read-only path, two floats a B
+// fragment, split in the loop. A
+// warp reads each matrix once a 16-row block: H * H * 4 / 16 bytes a row,
+// 4 KB a sample and hidden layer at width 128. Its instances evaluate the
+// activation by a switch in the epilogue (one layer chain an instance, not
+// one an activation) and are built for one block an SM (the plan holds
+// one; up to 255 registers a thread).
 #pragma once
 
 #include "sample_mlp.cuh"
@@ -83,6 +94,10 @@ struct FDims {
   const void* table;
   int tpre, tfn;
   const float4* tf2d;
+  // the wide plan's hidden matrices in device memory: entry (input k,
+  // output o) of matrix l at wg[l * wg_l + k * wg_k + o * wg_o]
+  const float* wg;
+  int wg_k, wg_o, wg_l;
 };
 
 // What a launch passes the layer; the kernels take it by reference to
@@ -102,7 +117,8 @@ __host__ __device__ inline FPlan make_fwd_plan(int H, int K, int nh, int F4,
   p.wl = pre ? 2 * H * H : H * p.ldw;
   int o = 0;
   p.W1 = take(o, pre ? 2L * K * H : (long)K * p.ldw);
-  p.Wh = take(o, (long)nh * p.wl);
+  // the wide plan's hidden matrices stay in device memory
+  p.Wh = take(o, smlp::wide_width(H) ? 0L : (long)nh * p.wl);
   p.vec = take(o, H + nh * H + 4 * H + 4 + 6 * F4 + tfn);
   p.per_warp = kRows * p.lds + kRows * 4 + kRows * kRayF;
   p.tiles = take(o, (long)warps * p.per_warp);
@@ -121,7 +137,9 @@ __host__ __device__ inline FPlan make_fwd_plan(int H, int K, int nh, int F4,
 // 1) and stages `tfn` TF floats: the most warps an SM holds (warps a block
 // times the blocks that fit in its shared memory, two or one), and of
 // those the first with the matrices pre-split, then the most warps a
-// block. False when none fits.
+// block. The wide plan stages its first layer input-major (split in the
+// loop, as its hidden matrices are): one layer chain an instance to
+// compile, not two. False when none fits.
 __host__ __device__ inline bool choose_fwd_plan(int H, int K, int nh, int F4,
                                                 int tfn, int warps,
                                                 FPlan& p) {
@@ -129,7 +147,7 @@ __host__ __device__ inline bool choose_fwd_plan(int H, int K, int nh, int F4,
   int best = 0;
   for (int c = 0; c < 4; ++c) {
     if (warps != 0 && ws[c] != warps) continue;
-    for (int pre = 1; pre >= 0; --pre) {
+    for (int pre = smlp::wide_width(H) ? 0 : 1; pre >= 0; --pre) {
       const FPlan q = make_fwd_plan(H, K, nh, F4, tfn, ws[c], pre);
       const int blocks = q.total <= smlp::kSmemTwo     ? 2
                          : q.total <= smlp::kSmemLimit ? 1 : 0;
@@ -140,6 +158,12 @@ __host__ __device__ inline bool choose_fwd_plan(int H, int K, int nh, int F4,
     }
   }
   return best > 0;
+}
+
+// Blocks an SM a forward kernel of width H is built for (its launch
+// bound's minimum): two, except the wide instances' one.
+__host__ __device__ constexpr int fwd_min_blocks(int H) {
+  return smlp::wide_width(H) ? 1 : 2;
 }
 
 // Blocks of a persistent launch over n independent rows (tiles of 32,
@@ -201,9 +225,23 @@ __device__ __forceinline__ float fast_cos(float x) {
   return __cosf(smlp::reduce_angle(x));
 }
 
-// march_common.cuh's activation, one instance per activation.
+// march_common.cuh's activation, one instance per activation; kActAny
+// switches on D.act (the wide instances' epilogue).
+constexpr int kActAny = -1;
+
 template <int ACT>
 __device__ __forceinline__ float act_of(float x, const FDims& D) {
+  if constexpr (ACT == kActAny) {
+    switch (D.act) {
+      case kReLU: return act_of<kReLU>(x, D);
+      case kSine: return act_of<kSine>(x, D);
+      case kSigmoid: return act_of<kSigmoid>(x, D);
+      case kSoftplus: return act_of<kSoftplus>(x, D);
+      case kSnake: return act_of<kSnake>(x, D);
+      case kSnakeAlt: return act_of<kSnakeAlt>(x, D);
+      default: return x;
+    }
+  }
   if (ACT == kReLU) return fmaxf(x, 0.0f);
   if (ACT == kSine) return fast_sin(D.p * x);
   if (ACT == kSigmoid) return sigmoid(x);
@@ -296,6 +334,61 @@ __device__ __forceinline__ void product(float (&c)[NB][H / 8][4],
   }
 }
 
+// c[rb] = bias + A[rows, 0:H] W for a hidden matrix W (H x H) of the wide
+// plan, in device memory: entry (k, o) at W[k * sk + o * so]. Each B
+// fragment's two floats come by the read-only path and are split in the
+// loop; per accumulator the passes run in product's order.
+template <int H, int NB>
+__device__ __forceinline__ void product_global(float (&c)[NB][H / 8][4],
+                                               const float* A, int lds,
+                                               const float* __restrict__ W,
+                                               int sk, int so,
+                                               const float* bias) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < H / 8; ++nt) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * nt + 2 * t);
+#pragma unroll
+    for (int rb = 0; rb < NB; ++rb) {
+      c[rb][nt][0] = b.x;
+      c[rb][nt][1] = b.y;
+      c[rb][nt][2] = b.x;
+      c[rb][nt][3] = b.y;
+    }
+  }
+#pragma unroll 1
+  for (int k0 = 0; k0 < H; k0 += 8) {
+    uint32_t ah[NB][4], al[NB][4];
+#pragma unroll
+    for (int rb = 0; rb < NB; ++rb) {
+      const float* p = A + (16 * rb + g) * lds + k0 + t;
+      split(p[0], ah[rb][0], al[rb][0]);
+      split(p[8 * lds], ah[rb][1], al[rb][1]);
+      split(p[4], ah[rb][2], al[rb][2]);
+      split(p[8 * lds + 4], ah[rb][3], al[rb][3]);
+    }
+    const float* wp = W + (size_t)(k0 + t) * sk + (size_t)g * so;
+    float w0[H / 8], w1[H / 8];
+#pragma unroll
+    for (int nt = 0; nt < H / 8; ++nt) {
+      w0[nt] = __ldg(wp + (size_t)8 * nt * so);
+      w1[nt] = __ldg(wp + (size_t)8 * nt * so + (size_t)4 * sk);
+    }
+#pragma unroll
+    for (int nt = 0; nt < H / 8; ++nt) {
+      uint32_t h0, l0, h1, l1;
+      split(w0[nt], h0, l0);
+      split(w1[nt], h1, l1);
+#pragma unroll
+      for (int rb = 0; rb < NB; ++rb) mma(c[rb][nt], al[rb], h0, h1);
+#pragma unroll
+      for (int rb = 0; rb < NB; ++rb) mma(c[rb][nt], ah[rb], l0, l1);
+#pragma unroll
+      for (int rb = 0; rb < NB; ++rb) mma(c[rb][nt], ah[rb], h0, h1);
+    }
+  }
+}
+
 // The activation of c into the tile (in place of the layer's input).
 template <int H, int NB, int ACT>
 __device__ __forceinline__ void store_act(const float (&c)[NB][H / 8][4],
@@ -366,7 +459,15 @@ __device__ __forceinline__ void layers_run(const FPlan& pl, const FDims& D,
   for (int l = 0; l <= D.nh; ++l) {
     const float* W = l ? sm + pl.Wh + (l - 1) * pl.wl : sm + pl.W1;
     const float* bias = l ? sm + pl.bh + (l - 1) * H : sm + pl.b1;
-    product<H, NB, PRE>(c, A, pl.lds, W, pl.ldw, l ? H : D.K, bias);
+    if constexpr (smlp::wide_width(H)) {   // W: the first layer only
+      if (l)
+        product_global<H, NB>(c, A, pl.lds, D.wg + (size_t)(l - 1) * D.wg_l,
+                              D.wg_k, D.wg_o, bias);
+      else
+        product<H, NB, PRE>(c, A, pl.lds, W, pl.ldw, D.K, bias);
+    } else {
+      product<H, NB, PRE>(c, A, pl.lds, W, pl.ldw, l ? H : D.K, bias);
+    }
     if (l < D.nh)
       store_act<H, NB, ACT>(c, A, pl.lds, D);
     else if (D.n_out == 1)
@@ -400,7 +501,9 @@ template <int H, int ACT>
 __device__ __forceinline__ void layers(const FPlan& pl, const FDims& D,
                                        const float* sm, float* tile,
                                        float* ybuf, int nrb) {
-  if (pl.pre)
+  if constexpr (smlp::wide_width(H))   // the wide plan: never pre-split
+    layers_pre<H, ACT, false>(pl, D, sm, tile, ybuf, nrb);
+  else if (pl.pre)
     layers_pre<H, ACT, true>(pl, D, sm, tile, ybuf, nrb);
   else
     layers_pre<H, ACT, false>(pl, D, sm, tile, ybuf, nrb);
@@ -410,14 +513,22 @@ template <int H>
 __device__ __forceinline__ void layers_any(const FPlan& pl, const FDims& D,
                                            const float* sm, float* tile,
                                            float* ybuf, int nrb) {
-  switch (D.act) {
-    case kReLU: layers<H, kReLU>(pl, D, sm, tile, ybuf, nrb); break;
-    case kSine: layers<H, kSine>(pl, D, sm, tile, ybuf, nrb); break;
-    case kSigmoid: layers<H, kSigmoid>(pl, D, sm, tile, ybuf, nrb); break;
-    case kSoftplus: layers<H, kSoftplus>(pl, D, sm, tile, ybuf, nrb); break;
-    case kSnake: layers<H, kSnake>(pl, D, sm, tile, ybuf, nrb); break;
-    case kSnakeAlt: layers<H, kSnakeAlt>(pl, D, sm, tile, ybuf, nrb); break;
-    default: layers<H, kNone>(pl, D, sm, tile, ybuf, nrb); break;
+  if constexpr (smlp::wide_width(H)) {
+    layers<H, kActAny>(pl, D, sm, tile, ybuf, nrb);
+  } else {
+    switch (D.act) {
+      case kReLU: layers<H, kReLU>(pl, D, sm, tile, ybuf, nrb); break;
+      case kSine: layers<H, kSine>(pl, D, sm, tile, ybuf, nrb); break;
+      case kSigmoid: layers<H, kSigmoid>(pl, D, sm, tile, ybuf, nrb); break;
+      case kSoftplus:
+        layers<H, kSoftplus>(pl, D, sm, tile, ybuf, nrb);
+        break;
+      case kSnake: layers<H, kSnake>(pl, D, sm, tile, ybuf, nrb); break;
+      case kSnakeAlt:
+        layers<H, kSnakeAlt>(pl, D, sm, tile, ybuf, nrb);
+        break;
+      default: layers<H, kNone>(pl, D, sm, tile, ybuf, nrb); break;
+    }
   }
 }
 

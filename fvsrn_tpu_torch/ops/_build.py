@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # every source of the port (csrc/<name>.cu); the megakernel's one per
-# hidden width (32, 48, 64) and ray tile (256; 128 in the _t128 sources),
+# hidden width (32, 48, 64; 128 below) and ray tile (256; 128 in the _t128
+# sources),
 # the forward in five parts (SnakeAlt on the piecewise TF, SnakeAlt on the
 # other TF modes, every other network on the piecewise TF, every other
 # network on the texture and preintegrated TFs and on the Gaussians:
@@ -36,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # per-segment engine's forward in four (the piecewise TF, the other modes
 # of SnakeAlt networks, the texture and preintegrated TFs of every other
 # activation, their Gaussians), its normals instances apart from its
-# render's
+# render's; the width-128 instances last
 _TILE256_ONLY = ("mega_fwd_nrm", "mega_fwd_anytf", "mega_fwd_anyg")
 MEGA_SOURCES = tuple(f"{kind}{w}{t}"
                      for kind in ("mega_fwd", "mega_fwd_tf", "mega_fwd_any",
@@ -44,9 +45,16 @@ MEGA_SOURCES = tuple(f"{kind}{w}{t}"
                                   "mega_fwd_anytf", "mega_fwd_anyg")
                      for t in ("", "_t128") for w in ("", "48", "64")
                      if not (kind in _TILE256_ONLY and t))
+# the width-128 instances (the wide plans: hidden matrices in device
+# memory), 256-ray tiles, no normals instances
+WIDE_SOURCES = tuple(f"{kind}128" for kind in (
+    "mega_fwd", "mega_fwd_tf", "mega_fwd_any", "mega_fwd_anytf",
+    "mega_fwd_anyg", "mega_bwd", "segment_fwd", "segment_fwd_tf",
+    "segment_fwd_anytf", "segment_fwd_anyg", "segment_bwd", "sample_eval"))
 SOURCES = MEGA_SOURCES + ("segment_fwd", "segment_fwd_tf", "segment_fwd_nrm",
                           "segment_bwd", "sample_eval", "probes",
-                          "segment_fwd_anytf", "segment_fwd_anyg")
+                          "segment_fwd_anytf", "segment_fwd_anyg"
+                          ) + WIDE_SOURCES
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _PENDING: dict[str, concurrent.futures.Future] = {}

@@ -81,8 +81,9 @@ from ..raytracer.dvr import RayEvaluationOutput
 from ..utils.device import as_f32, constant, strict_f32
 from ..utils.vecmath import intersect_aabb
 from . import _build
-from .fused_mega import (_ACTIVATIONS, _HEADS, TfCarries, _gated_clip01,
-                         _params, _tf_args, kernel_width)
+from .fused_mega import (_ACTIVATIONS, _HEADS, SMEM_MAX_WIDTH, TfCarries,
+                         _gated_clip01, _params, _tf_args,
+                         check_kernel_width, kernel_width)
 
 # kernel launches since the last reset (two a call: the march and its
 # continuation up to the call's stop), the normals instances' apart; the
@@ -1175,14 +1176,17 @@ def _check_kernel_inputs(net, tf: Tensor, seg: int = 32,
     mode on SnakeAlt networks, and on every other activation the texture,
     1D- and 2D-preintegrated TFs (segment_fwd_anytf.cu) and in training
     the Gaussians (segment_fwd_anyg.cu; the render refuses them); its
-    normals instances (segment_fwd_nrm.cu) take the piecewise TF. The rest
-    raises ``NotImplementedError``."""
+    normals instances (segment_fwd_nrm.cu) take the piecewise TF. Hidden
+    layers up to 128 wide, each zero-padded to the instance of the
+    widest (32, 48, 64, or 128 in the ``*128`` libraries), several widths
+    in the render only; no normals above 64 wide. The rest raises
+    ``NotImplementedError``."""
     from .sample_mlp import tf_floats_of
     if need_normals and tf_mode != "piecewise":
         raise NotImplementedError(f"segment kernel: normals with TF mode "
                                   f"{tf_mode!r} are not ported yet "
                                   "(piecewise only)")
-    kernel_width(net)
+    check_kernel_width(net, "segment kernel", differentiable, need_normals)
     if len(net.layers) - 2 > MAX_HIDDEN_LAYERS:
         raise NotImplementedError(f"segment kernel: at most "
                                   f"{MAX_HIDDEN_LAYERS + 1} hidden layers")
@@ -1309,7 +1313,7 @@ def device_fwd_plan(hidden: int, n_fourier: int, chunks: int,
     TF floats, 5 a piecewise knot by default), or None when none fits (the
     device's own ``choose_fwd_plan``; ``ops.sample_mlp.fwd_plan`` mirrors
     it)."""
-    fn = _build.load("segment_fwd").segment_fwd_smem
+    fn = _build.load(width_library("segment_fwd", hidden)).segment_fwd_smem
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_long * 3)()
@@ -1328,17 +1332,27 @@ def _check_tensors(dev, **tensors):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def segment_library(spec: SegmentSpec) -> str:
-    """The forward's library for this march: "segment_fwd" (the piecewise
-    TF), "segment_fwd_tf" (the other TF modes of SnakeAlt networks),
-    "segment_fwd_anytf" (the texture and preintegrated TFs of every other
-    activation) or "segment_fwd_anyg" (their Gaussians)."""
+def width_library(name: str, hidden: int) -> str:
+    """The per-segment engine's and the sample evaluator's library
+    ``name`` for the padded width ``hidden``: the widths 32, 48 and 64 are
+    instances of one library, 128 (the wide plan) of ``<name>128``."""
+    return f"{name}{hidden}" if hidden > SMEM_MAX_WIDTH else name
+
+
+def segment_library(spec: SegmentSpec, hidden: int = 32) -> str:
+    """The forward's library for this march at the padded width
+    ``hidden``: "segment_fwd" (the piecewise TF), "segment_fwd_tf" (the
+    other TF modes of SnakeAlt networks), "segment_fwd_anytf" (the texture
+    and preintegrated TFs of every other activation) or "segment_fwd_anyg"
+    (their Gaussians); at width 128 the same with "128" appended."""
     if spec.tf_mode == "piecewise":
-        return "segment_fwd"
-    if spec.activation[0] == "SnakeAlt":
-        return "segment_fwd_tf"
-    return ("segment_fwd_anyg" if spec.tf_mode == "gaussian"
-            else "segment_fwd_anytf")
+        name = "segment_fwd"
+    elif spec.activation[0] == "SnakeAlt":
+        name = "segment_fwd_tf"
+    else:
+        name = ("segment_fwd_anyg" if spec.tf_mode == "gaussian"
+                else "segment_fwd_anytf")
+    return width_library(name, hidden)
 
 
 def launch_segment(spec: SegmentSpec, net, rays: Tensor,
@@ -1381,7 +1395,7 @@ def launch_segment(spec: SegmentSpec, net, rays: Tensor,
     gz, gy, gx = table.shape[:3]
     nf = net.input.num_fourier
     rows, *tf_args = _tf_args(spec, tf, tf_points)
-    lib = segment_library(spec)
+    lib = segment_library(spec, kernel_width(net))
     fn = _bind(_build.load(lib))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -52,7 +52,7 @@ from .fused_dvr import (_ACTIVATIONS, _HEADS, _PLAIN_CHUNK_SAMPLES,
                         SegmentSpec, _check_tensors, _latent_chunks,
                         _plain_march, _plain_segment, _segment_done,
                         carry_width, kernel_width, launch_segment,
-                        pack_segment_weights, segment_table)
+                        pack_segment_weights, segment_table, width_library)
 from .fused_mega import TfCarries, _tf_args
 
 # kernel launches since the last reset (the plain version never counts),
@@ -60,6 +60,9 @@ from .fused_mega import TfCarries, _tf_args
 # segment_fwd_diff (csrc/segment_fwd.cu storing carries) or segment_bwd
 # (csrc/segment_bwd.cu)
 LAUNCHES: collections.Counter = collections.Counter()
+# the backward's launches by library (segment_bwd, or segment_bwd128 for
+# the wide networks)
+LIBRARY_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def launches(kind: str) -> int:
@@ -153,7 +156,7 @@ def device_smem_plan(hidden: int, n_fourier: int, chunks: int,
     floats, 5 a piecewise knot by default; ``tf_state`` the TF modes'
     per-sample state), or None when none fits (the device's own
     ``choose_plan``; ``ops.sample_mlp.smem_plan`` mirrors it)."""
-    lib = _build.load("segment_bwd")
+    lib = _build.load(width_library("segment_bwd", hidden))
     fn = lib.segment_bwd_smem
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -199,7 +202,8 @@ def launch_segment_bwd(spec: SegmentSpec, net, rays: Tensor,
             or d_out.shape != (n_rays, 4)):
         raise ValueError("backward: a float32 or bf16 table and an (R, 4) "
                          "cotangent")
-    lib = _build.load("segment_bwd")
+    name = width_library("segment_bwd", kernel_width(net))
+    lib = _build.load(name)
     fn = _bind_bwd(lib)
     n_blocks = -(-n_rays // lib.segment_bwd_block())
     d_rows = torch.zeros(n_blocks, weights.numel(), dtype=torch.float32,
@@ -230,6 +234,7 @@ def launch_segment_bwd(spec: SegmentSpec, net, rays: Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_bwd launch failed with CUDA error {err}")
+    LIBRARY_LAUNCHES[name] += 1
     return (d_rows if partial_rows else d_rows.sum(dim=0)), d_table, work
 
 

@@ -27,6 +27,7 @@ the normalized position, as in the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional
 
@@ -38,9 +39,10 @@ from ..utils.device import strict_f32
 from . import _build
 from .fused_dvr import (_ACTIVATIONS, _HEADS, _check_kernel_inputs,
                         _check_tensors, _latent_chunks, _network_values,
-                        kernel_width, network_position_grad,
-                        pack_segment_weights, resolve_network, segment_params,
-                        segment_table)
+                        check_kernel_width, kernel_width,
+                        network_position_grad, pack_segment_weights,
+                        resolve_network, segment_params, segment_table,
+                        width_library)
 
 # kernel launches and positions evaluated by them since the last reset, and
 # the launches of the gradient instance among them; the plain version
@@ -48,6 +50,8 @@ from .fused_dvr import (_ACTIVATIONS, _HEADS, _check_kernel_inputs,
 SAMPLE_EVAL_LAUNCHES = 0
 SAMPLE_EVAL_POSITIONS = 0
 SAMPLE_GRAD_LAUNCHES = 0
+# launches by library (sample_eval, or sample_eval128 for the wide networks)
+LIBRARY_LAUNCHES: collections.Counter = collections.Counter()
 
 # the kernel's packed weights carry a TF block; the evaluator reads none
 _NO_TF = ((0.0, 0.0, 0.0, 0.0, 0.0), (0.0, 0.0, 0.0, 0.0, 1.0))
@@ -116,7 +120,7 @@ def device_eval_grid(n: int, hidden: int, n_fourier: int, chunks: int,
     value instance's launch over ``n`` positions on the current device
     (csrc/sample_eval.cu's own plan and persistent grid), or None when no
     plan fits."""
-    fn = _build.load("sample_eval").sample_eval_grid
+    fn = _build.load(width_library("sample_eval", hidden)).sample_eval_grid
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_long * 5)()
@@ -126,17 +130,17 @@ def device_eval_grid(n: int, hidden: int, n_fourier: int, chunks: int,
             int(out[4]))
 
 
-_LAUNCH = []   # the bound entry point, typed once
+_LAUNCH = {}   # the bound entry point by library, typed once
 
 
-def _bound():
-    if not _LAUNCH:
-        fn = _build.load("sample_eval").sample_eval_launch
+def _bound(name: str):
+    if name not in _LAUNCH:
+        fn = _build.load(name).sample_eval_launch
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p, p, p, i, p, i, p] + [i] * 9 + [f, i, i, i, p]
         fn.restype = ctypes.c_int
-        _LAUNCH.append(fn)
-    return _LAUNCH[0]
+        _LAUNCH[name] = fn
+    return _LAUNCH[name]
 
 
 def launch_sample_eval(net, pos01: Tensor, dirs: Optional[Tensor],
@@ -153,7 +157,8 @@ def launch_sample_eval(net, pos01: Tensor, dirs: Optional[Tensor],
     if dirs is not None:
         _check_tensors(dev, dirs=dirs)
     gz, gy, gx = table.shape[:3]
-    fn = _bound()
+    lib = width_library("sample_eval", kernel_width(net))
+    fn = _bound(lib)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(pos01.data_ptr(), dirs.data_ptr() if dirs is not None
@@ -168,6 +173,7 @@ def launch_sample_eval(net, pos01: Tensor, dirs: Optional[Tensor],
     if err != 0:
         raise RuntimeError(f"sample_eval launch failed with CUDA error {err}")
     SAMPLE_EVAL_LAUNCHES += 1
+    LIBRARY_LAUNCHES[lib] += 1
     SAMPLE_EVAL_POSITIONS += n
     SAMPLE_GRAD_LAUNCHES += int(want_grad)
     return out
@@ -200,8 +206,10 @@ def make_fused_eval(net, box_min, box_size, *, time=0.0, ensemble=0.0,
     packed = None
     if net_dev.type == "cuda":
         # the segment kernel's checks; its plan (two TF points) fitting,
-        # the evaluator's (eval_plan, none) fits
+        # the evaluator's (eval_plan, none) fits; no gradient instance
+        # above 64 wide
         _check_kernel_inputs(view, torch.tensor(_NO_TF))
+        check_kernel_width(view, "sample evaluator", need_normals=want_grad)
         packed = (pack_segment_weights(view, torch.tensor(_NO_TF,
                                                           device=net_dev)),
                   segment_table(view, table_dtype, net_dev),

@@ -63,9 +63,14 @@ with no block barrier between layers (``csrc/warp_mlp.cuh``), the
 backward, its transposed layers and weight gradients on tiles of the
 block (``csrc/sample_mlp.cuh``). The hidden width is a template
 parameter of both, one source per width (``csrc/mega_fwd.cu``, ``mega_fwd48.cu``,
-``mega_fwd64.cu`` and the same for ``mega_bwd``; the forward's other TF
-modes and other networks in sources of their own, :func:`_fwd_kind`);
-narrower networks are zero-padded to 32, 48 or 64, which is exact.
+``mega_fwd64.cu``, ``mega_fwd128.cu`` and the same for ``mega_bwd``; the
+forward's other TF modes and other networks in sources of their own,
+:func:`_fwd_kind`); every layer is zero-padded to the instance of the
+widest one, 32, 48, 64 or 128, which is exact, so layers of several
+widths render too (training takes one width: the JAX package's adjoint
+raises on several). The 128 instances read their hidden matrices from
+device memory (the wide plan of ``ops.sample_mlp``), on 256-ray tiles
+and without normals.
 """
 from __future__ import annotations
 
@@ -92,6 +97,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 # the forward's launches by library (library_name: mega_fwd_anytf48, say),
 # the render's and the training forward's
 LIBRARY_LAUNCHES: collections.Counter = collections.Counter()
+# the backward's launches by library (library_name: mega_bwd128, say)
+BWD_LIBRARY_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def launches(kind: str) -> int:
@@ -105,7 +112,10 @@ KERNEL_TILE = 256        # the product render's tile
 # yields multiples of 128, bench.py marches 128, the product render 256
 KERNEL_TILES = (128, 256)
 KERNEL_SEG = 32          # the backward kernel's segment length
-KERNEL_WIDTHS = (32, 48, 64)   # hidden widths of the kernels' instances
+KERNEL_WIDTHS = (32, 48, 64, 128)   # hidden widths of the kernels' instances
+# the widest instance with its hidden matrices in shared memory: wider
+# ones (128) take 256-ray tiles only and have no normals instances
+SMEM_MAX_WIDTH = 64
 LATENT_CHANNELS = 16
 MAX_FOURIER = 32         # the kernels' compile-time limits (mega_common.cuh)
 MAX_HIDDEN_LAYERS = 6    # hidden->hidden layers
@@ -136,7 +146,7 @@ class MarchSpec(NamedTuple):
     tf_points: int = 0          # ops.fused_dvr.prepare_tf's tf_points,
     tf_pre_rows: int = 0        # tf_pre_rows
     direction: bool = False     # the ray direction is a network input
-    width: int = 32             # the hidden layers' width
+    width: int = 32             # the widest hidden layer's width
     normals: bool = False       # need_normals: the blended normal, depth
     brdf: tuple = ()            # ops.fused_dvr.brdf_tuple's shading
 
@@ -201,8 +211,7 @@ def _spec(net, box_min, box_size, *, stepsize, seg, tile, density_min,
                           for l in net.layers),
         output_mode=net.output_mode, tf_mode=tf_mode,
         tf_points=int(tf_points), tf_pre_rows=int(tf_pre_rows),
-        direction=bool(net.use_direction),
-        width=int(net.layers[0].weight.shape[0]),
+        direction=bool(net.use_direction), width=max(_hidden_widths(net)),
         normals=bool(need_normals), brdf=brdf_tuple(brdf, need_normals))
 
 
@@ -591,17 +600,56 @@ def _table_dtype(table_dtype, differentiable: bool) -> torch.dtype:
 # the CUDA kernels
 
 
+def _hidden_widths(net) -> list:
+    """Every hidden layer's width, first to last."""
+    return [int(l.weight.shape[0]) for l in net.layers[:-1]]
+
+
 def kernel_width(net) -> int:
     """The hidden width of the kernel instance (either engine's) that
-    takes ``net``: its hidden layers' width rounded up to 32, 48 or 64
-    (zero padding is exact: a padded neuron's outgoing weights are zero,
-    whatever its activation gives); raises ``NotImplementedError`` for
-    layers of several widths or wider than 64."""
-    widths = {l.weight.shape[0] for l in net.layers[:-1]}
-    if len(widths) != 1 or max(widths) > KERNEL_WIDTHS[-1]:
-        raise NotImplementedError("CUDA kernels: hidden layers of one "
-                                  f"width <= {KERNEL_WIDTHS[-1]} only")
-    return _padded(next(iter(widths)))
+    takes ``net``: its widest hidden layer's width rounded up to 32, 48,
+    64 or 128. Every layer is zero-padded to it by its own shape (exact:
+    a padded neuron's incoming weights and bias are zero and its outgoing
+    weights are zero, whatever its activation gives), so layers of
+    several widths take the instance of the widest; raises
+    ``NotImplementedError`` above 128."""
+    widest = max(_hidden_widths(net))
+    if widest > KERNEL_WIDTHS[-1]:
+        raise NotImplementedError(f"CUDA kernels: hidden layers up to "
+                                  f"{KERNEL_WIDTHS[-1]} wide, not {widest}")
+    return _padded(widest)
+
+
+def mixed_widths(net) -> bool:
+    """Whether the hidden layers have several widths (the kernels render
+    such a network, and refuse to train it)."""
+    return len(set(_hidden_widths(net))) > 1
+
+
+def check_kernel_width(net, kernel: str, differentiable: bool = False,
+                       need_normals: bool = False,
+                       tile: int = KERNEL_TILE) -> int:
+    """:func:`kernel_width`, raising ``NotImplementedError`` for what the
+    instances of that width do not take: layers of several widths in
+    training (the JAX package's adjoint raises on them), and above
+    ``SMEM_MAX_WIDTH`` normals (and the position-gradient instance) and
+    tiles other than 256 rays."""
+    hp = kernel_width(net)
+    if differentiable and mixed_widths(net):
+        raise NotImplementedError(
+            f"{kernel}: hidden layers of several widths "
+            f"({':'.join(map(str, _hidden_widths(net)))}) render only; "
+            "training takes one width (the JAX package's adjoint raises "
+            "on several)")
+    if hp > SMEM_MAX_WIDTH and need_normals:
+        raise NotImplementedError(f"{kernel}: normals and position "
+                                  f"gradients on networks up to "
+                                  f"{SMEM_MAX_WIDTH} wide only, not {hp}")
+    if hp > SMEM_MAX_WIDTH and tile != KERNEL_TILE:
+        raise NotImplementedError(f"{kernel}: tiles of {tile} rays on "
+                                  f"networks up to {SMEM_MAX_WIDTH} wide "
+                                  f"only ({hp} takes {KERNEL_TILE})")
+    return hp
 
 
 def _padded(width: int) -> int:
@@ -712,8 +760,10 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
                          tf_floats: Optional[int] = None,
                          tf_mode: str = "piecewise",
                          need_normals: bool = False, masked: bool = False):
-    """What the kernels take: hidden layers of one width <= 64 (narrower
-    zero-padded to 32, 48 or 64) and one activation, 1 to
+    """What the kernels take: hidden layers up to 128 wide (each
+    zero-padded to the instance of the widest, 32, 48, 64 or 128; layers
+    of several widths in the render only, as the JAX package, whose
+    adjoint raises on them) and one activation, 1 to
     ``MAX_HIDDEN_LAYERS + 1`` of them, every output head, direction input,
     no latent grid or one of <= 16 channels, at most ``MAX_FOURIER``
     Fourier features; every TF mode on a density head of a SnakeAlt
@@ -723,9 +773,10 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
     without an occupancy mask (``masked``; ``mega_fwd_anyg``: the render
     refuses Gaussians); tiles of 128 or 256 rays (``KERNEL_TILES``), and
     for the backward 32-point segments; and a shared-memory plan that
-    fits. The normals instances take every such network with a density
-    head, the piecewise TF and 256-ray tiles. Everything else raises
-    ``NotImplementedError``."""
+    fits. Above 64 wide the tile is 256 rays and there is no normals
+    instance. The normals instances take every other such network with a
+    density head, the piecewise TF and 256-ray tiles. At most 16 TF knots
+    or Gaussians. Everything else raises ``NotImplementedError``."""
     from .sample_mlp import check_fwd_plan, check_plan
     if need_normals and tf_mode != "piecewise":
         raise NotImplementedError(f"CUDA kernel: normals with TF mode "
@@ -745,7 +796,8 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
     if rays.shape[0] % tile:
         raise ValueError(f"ray count {rays.shape[0]} must be a multiple "
                          f"of tile={tile}")
-    hp = kernel_width(net)
+    hp = check_kernel_width(net, "CUDA kernel", differentiable, need_normals,
+                            tile)
     n_hidden = len(net.layers) - 2
     if n_hidden > MAX_HIDDEN_LAYERS:
         raise NotImplementedError(f"CUDA kernel: at most "
@@ -797,11 +849,12 @@ def _lib(kind: str, hidden: int, tile: int = KERNEL_TILE) -> ctypes.CDLL:
 
 def library_name(kind: str, hidden: int, tile: int = KERNEL_TILE) -> str:
     """One source per kind, width and tile: ``csrc/mega_fwd.cu`` (32, 256
-    rays), ``mega_fwd48.cu``, ``mega_fwd64.cu``, ``mega_fwd_t128.cu`` (32,
-    128 rays), ``mega_fwd48_t128.cu``, ``mega_fwd64_t128.cu`` and the same
-    for the forward's other parts (:func:`_fwd_kind`) and the backward;
-    ``mega_fwd_anytf``, ``mega_fwd_anyg`` and the normals instances on
-    256-ray tiles only."""
+    rays), ``mega_fwd48.cu``, ``mega_fwd64.cu``, ``mega_fwd128.cu``,
+    ``mega_fwd_t128.cu`` (32, 128 rays), ``mega_fwd48_t128.cu``,
+    ``mega_fwd64_t128.cu`` and the same for the forward's other parts
+    (:func:`_fwd_kind`) and the backward; ``mega_fwd_anytf``,
+    ``mega_fwd_anyg``, the width 128 and the normals instances on 256-ray
+    tiles only (no normals instance at 128)."""
     name = kind if hidden == 32 else f"{kind}{hidden}"
     return name if tile == KERNEL_TILE else f"{name}_t{tile}"
 
@@ -1078,7 +1131,8 @@ def _launch_bwd(rays, weights, table, carries, count, d_out, spec,
     rows, *tf_args = _tf_args(spec, tf, _knots(spec, tf_points))
     gz, gy, gx = table.shape[:3]
     net_args = _net_args(spec)
-    launch = _bind_bwd(_lib("mega_bwd", net_args[0], spec.tile))
+    lib = library_name("mega_bwd", net_args[0], spec.tile)
+    launch = _bind_bwd(_build.load(lib))
     with torch.cuda.device(dev):
         err = launch(
             rays.data_ptr(), table.data_ptr(),
@@ -1096,6 +1150,7 @@ def _launch_bwd(rays, weights, table, carries, count, d_out, spec,
             d_rays.data_ptr() if d_rays is not None else None, _stream(dev))
     if err != 0:
         raise RuntimeError(f"mega_bwd launch failed with CUDA error {err}")
+    BWD_LIBRARY_LAUNCHES[lib] += 1
     return ((d_rows if partial_rows else d_rows.sum(dim=0)), d_table, work,
             d_rays)
 

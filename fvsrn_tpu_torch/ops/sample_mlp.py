@@ -26,6 +26,13 @@ warp-owned sample tile (``csrc/warp_mlp.cuh``) both forward marches
 - :func:`persistent_blocks`: the blocks of a persistent launch over
   independent rows (``persistent_blocks`` in warp_mlp.cuh), the sample
   evaluator's grid.
+
+Both plans have a wide form for hidden widths above
+:data:`SMEM_MAX_WIDTH` (the 128 instances): the hidden matrices are not
+staged (a 128 x 128 float32 matrix takes 69.6 KB with its padded rows,
+eight warps' forward tiles 147 KB of the 227 KB); the kernels read them
+from the packed weights in device memory, where they stay in L2, and
+stage the first layer and the vectors only.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ SMEM_LIMIT = 232448      # bytes of shared memory a block may use (227 KB)
 SMEM_TWO = 115712        # bytes each of two blocks an SM holds
 GROUP = 32               # rays of a group (one warp's lanes)
 SEG_MAX = 32             # samples per segment
+SMEM_MAX_WIDTH = 64      # the widest hidden layer staged in shared memory
 ROW_FLOATS = 24          # per-row scalars of a tile
 RAY_FLOATS = 12          # per-ray scalars a kernel stages
 # the plans tried, in order: (tile rows, weight-row padding)
@@ -82,6 +90,7 @@ class Plan:
     tile_rows: int
     pad: int
     regions: dict
+    wide: bool = False          # the hidden matrices in device memory
 
     @property
     def floats(self) -> int:
@@ -92,12 +101,20 @@ class Plan:
         return 4 * self.floats
 
 
+def wide_width(hidden: int) -> bool:
+    """Whether ``hidden`` takes the wide plans (``wide_width`` in
+    csrc/sample_mlp.cuh)."""
+    return hidden > SMEM_MAX_WIDTH
+
+
 def make_plan(hidden: int, k1: int, n_hidden: int, n_fourier: int,
               tf_points: int, tile_rows: int, pad: int,
               tf_floats: int | None = None, tf_state: bool = False) -> Plan:
     """The regions (floats, each rounded up to 4) of one tile size;
     ``tf_floats`` staged TF floats (default 5 a piecewise knot),
-    ``tf_state`` the TF modes' per-sample state."""
+    ``tf_state`` the TF modes' per-sample state; above
+    :data:`SMEM_MAX_WIDTH` the hidden matrices take no room (the wide
+    plan)."""
     r16 = -(-k1 // 16) * 16
     ldx, lda, ldw = r16 + 4, hidden + 4, hidden + pad
     tfn = 5 * tf_points if tf_floats is None else tf_floats
@@ -111,7 +128,10 @@ def make_plan(hidden: int, k1: int, n_hidden: int, n_fourier: int,
         sc=SC_TF if tf_state else 2 * GROUP * SEG_MAX,
         sray=GROUP * RAY_FLOATS, masks=4 * GROUP, list=GROUP * SEG_MAX // 2,
         misc=8)
-    return Plan(tile_rows, pad, {k: _take(v) for k, v in regions.items()})
+    if wide_width(hidden):
+        regions["Wh"] = 0
+    return Plan(tile_rows, pad, {k: _take(v) for k, v in regions.items()},
+                wide_width(hidden))
 
 
 def smem_plan(hidden: int, k1: int, n_hidden: int, n_fourier: int,
@@ -160,6 +180,7 @@ class FwdPlan:
     warps: int
     pre: bool
     regions: dict
+    wide: bool = False          # the hidden matrices in device memory
 
     @property
     def floats(self) -> int:
@@ -177,17 +198,20 @@ def make_fwd_plan(hidden: int, n_fourier: int, chunks: int, n_hidden: int,
     """The regions (floats, each rounded up to 4) of a block of ``warps``
     warps; with ``pre`` the layer matrices pre-split (hi and lo, two
     floats an entry), else rows padded to ``hidden + 8``; ``tf_floats``
-    staged TF floats (default 5 a piecewise knot)."""
+    staged TF floats (default 5 a piecewise knot); above
+    :data:`SMEM_MAX_WIDTH` the hidden matrices take no room (the wide
+    plan)."""
     f4 = -(-n_fourier // 4) * 4
     k = fwd_columns(n_fourier, chunks, direction)
     ldw, lds = hidden + 8, max(k, hidden) + 4
     per = 2 * hidden if pre else ldw
     regions = dict(
-        W1=k * per, Wh=n_hidden * hidden * per,
+        W1=k * per, Wh=0 if wide_width(hidden) else n_hidden * hidden * per,
         vec=(hidden + n_hidden * hidden + 4 * hidden + 4 + 6 * f4
              + (5 * tf_points if tf_floats is None else tf_floats)),
         tiles=warps * FWD_ROWS * (lds + 4 + 8))
-    return FwdPlan(warps, pre, {k: _take(v) for k, v in regions.items()})
+    return FwdPlan(warps, pre, {k: _take(v) for k, v in regions.items()},
+                   wide_width(hidden))
 
 
 def fwd_plan(hidden: int, n_fourier: int, chunks: int, n_hidden: int,
@@ -197,12 +221,14 @@ def fwd_plan(hidden: int, n_fourier: int, chunks: int, n_hidden: int,
     """The plan with the most warps an SM holds (warps a block, from
     :data:`FWD_WARPS` or only ``warps``, times the blocks its shared
     memory holds, two or one), the first of those with pre-split
-    matrices, then with the most warps a block; None when none fits."""
+    matrices (never in the wide plan, whose first layer is split in the
+    loop as its hidden matrices are), then with the most warps a block;
+    None when none fits."""
     best, plan = 0, None
     for w in FWD_WARPS:
         if warps is not None and w != warps:
             continue
-        for pre in (True, False):
+        for pre in (False,) if wide_width(hidden) else (True, False):
             cand = make_fwd_plan(hidden, n_fourier, chunks, n_hidden,
                                  tf_points, w, pre, direction, tf_floats)
             blocks = (2 if cand.bytes <= SMEM_TWO

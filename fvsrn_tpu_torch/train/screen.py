@@ -125,10 +125,13 @@ def fused_screen_supported(network, tf, width: int, height: int) -> bool:
     since the fused kernels evaluate neither (the JAX package routes it
     fused and trains the plain Gaussians instead). The network is not
     screened here: the kernels train every TF mode on every activation,
-    with or without direction input, at hidden widths up to 64; where
-    they do not take a network (hidden layers wider than 64, say),
-    ``mega_trace_dvr`` raises ``NotImplementedError`` on the card
-    (``--no_fused`` selects the plain march). A network that is
+    with or without direction input, at hidden widths up to 128 (one
+    width; the 128 instances read their hidden matrices from device
+    memory), with at most 16 TF knots or Gaussians. Where they do not
+    take a network (hidden layers wider than 128, layers of several
+    widths, which the JAX package's adjoint does not train either, more
+    than 16 knots), ``mega_trace_dvr`` raises ``NotImplementedError`` on
+    the card (``--no_fused`` selects the plain march). A network that is
     not an SRN (the variant and meta networks) raises
     ``NotImplementedError``: it trains by the plain march alone."""
     require_srn(network, "fused screen step")

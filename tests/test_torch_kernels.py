@@ -48,16 +48,20 @@ BOX = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))
 
 def random_net(seed=3, activation="SnakeAlt", output_mode="density:direct",
                channels=8, fourier=6, width=32, out_bias=0.4, direction=False,
-               act_param=2.0, hidden=3):
+               act_param=2.0, hidden=3, widths=None):
     """An SRN of ``hidden`` hidden layers with torch Linear-style random
     weights; no latent grid with ``channels=0``. ``out_bias`` sets the
     density's level (0.4 a visible density, 0.0 clips about half the
     samples at 0); ``direction`` adds the ray direction to the input and
-    to the Fourier features."""
+    to the Fourier features; ``widths`` (one a hidden layer) replaces
+    ``width`` and ``hidden`` (layers of mixed widths)."""
     rng = np.random.default_rng(seed)
     n_out_head = 1 if output_mode.startswith("density") else 4
     n_in = 6 if direction else 3
-    sizes = [n_in + 2 * fourier + channels] + [width] * hidden + [n_out_head]
+    if widths is None:
+        widths = [width] * hidden
+    hidden = len(widths)
+    sizes = [n_in + 2 * fourier + channels] + list(widths) + [n_out_head]
     arrays = {"input.fourier_matrix": rng.normal(0.0, 2 * math.pi,
                                                  (fourier, n_in))}
     grid = rng.standard_normal((channels, 8, 8, 8)) * 0.3
@@ -476,38 +480,51 @@ def test_proto_mega_box_limit():
 
 
 @pytest.mark.parametrize("net_kw,tile", [
-    (dict(width=96), 256),
+    (dict(width=160), 256),
     (dict(hidden=fused_mega.MAX_HIDDEN_LAYERS + 2), 256),
     (dict(channels=20), 256),
     (dict(activation="ReLU", tf_mode="gaussian"), 256),
-    ({}, 64)])
+    ({}, 64),
+    (dict(width=128, need_normals=True), 256),
+    (dict(width=96), 128),
+    (dict(widths=[64, 32], differentiable=True), 256),
+    (dict(widths=[48, 96], differentiable=True), 256)])
 def test_mega_kernel_rejects_what_it_does_not_take(net_kw, tile):
-    """What the kernels refuse: hidden layers wider than 64, more than
+    """What the kernels refuse: hidden layers wider than 128, more than
     MAX_HIDDEN_LAYERS + 1 of them, more than 16 latent channels, a
     Gaussian TF on a network other than SnakeAlt in the render, tiles of
-    other than 256 rays; and what they take (widths to 64, every
-    activation and head, direction input, no grid; the texture TF on a
-    ReLU network with direction input in the render and in training)."""
+    other than 256 rays, normals and 128-ray tiles above 64 wide, layers
+    of several widths in training; and what they take (widths to 128,
+    every activation and head, direction input, no grid; the texture TF
+    on a ReLU network with direction input in the render and in
+    training; mixed widths in the render)."""
     rays = torch.zeros(512, 8)
     net_kw = dict(net_kw)
     tf_mode = net_kw.pop("tf_mode", "piecewise")
     diff = net_kw.pop("differentiable", False)
+    normals = net_kw.pop("need_normals", False)
     with pytest.raises(NotImplementedError):
         fused_mega._check_kernel_inputs(random_net(**net_kw), rays, tile,
                                         tf_floats=1024, tf_mode=tf_mode,
-                                        differentiable=diff)
+                                        differentiable=diff,
+                                        need_normals=normals)
     for diff in (False, True):
         fused_mega._check_kernel_inputs(
             random_net(activation="ReLU", direction=True), rays, 256,
             tf_floats=1024, tf_mode="texture", differentiable=diff)
     for kw in ({}, dict(channels=0), dict(width=20), dict(width=64),
+               dict(width=96), dict(width=128),
+               dict(width=128, hidden=fused_mega.MAX_HIDDEN_LAYERS + 1),
                dict(hidden=fused_mega.MAX_HIDDEN_LAYERS + 1),
                dict(activation="Sine", act_param=30.0),
-               dict(output_mode="rgbo:exp"), dict(direction=True)):
+               dict(output_mode="rgbo:exp"), dict(direction=True),
+               dict(width=96, activation="ReLU", direction=True)):
         fused_mega._check_kernel_inputs(random_net(**kw), rays, 256,
                                         differentiable=True)
     fused_mega._check_kernel_inputs(random_net(width=48), rays, 256,
                                     tf_floats=1024, tf_mode="texture")
+    for widths in ([64, 32], [48, 96], [128, 20, 72]):
+        fused_mega._check_kernel_inputs(random_net(widths=widths), rays, 256)
     for tile in fused_mega.KERNEL_TILES:   # bench.py's 128, the render's 256
         fused_mega._check_kernel_inputs(random_net(width=64), rays, tile,
                                         differentiable=True)
@@ -777,12 +794,23 @@ def test_segment_kernel_matches_plain(case):
     assert int(stats.stop) == int(want_stats.stop)
 
 
-@pytest.mark.parametrize("net_kw", [dict(width=96), dict(channels=80)])
+@pytest.mark.parametrize("net_kw", [
+    dict(width=160), dict(channels=80), dict(width=96, need_normals=True),
+    dict(widths=[64, 32], differentiable=True)])
 def test_segment_kernel_rejects_what_it_does_not_take(net_kw):
+    """Hidden layers wider than 128, more than 64 latent channels,
+    normals above 64 wide, several widths in training; it takes widths to
+    128 and several widths in the render."""
     tf = dense_scene()[1].tensor
+    net_kw = dict(net_kw)
+    kw = {k: net_kw.pop(k) for k in ("need_normals", "differentiable")
+          if k in net_kw}
     with pytest.raises(NotImplementedError):
-        fused_dvr._check_kernel_inputs(random_net(**net_kw), tf)
+        fused_dvr._check_kernel_inputs(random_net(**net_kw), tf, **kw)
     fused_dvr._check_kernel_inputs(random_net(width=64, channels=40), tf)
+    fused_dvr._check_kernel_inputs(random_net(width=128), tf,
+                                   differentiable=True)
+    fused_dvr._check_kernel_inputs(random_net(widths=[64, 32]), tf)
 
 
 # the per-segment engine's differentiable pair over SEGMENT_CASES: a float32
@@ -1002,7 +1030,7 @@ def test_sample_eval_path_like_positions(table_dtype):
                         table_dtype=table_dtype)
 
 
-@pytest.mark.parametrize("hidden", [32, 48, 64])
+@pytest.mark.parametrize("hidden", [32, 48, 64, 128])
 def test_sample_eval_plan_and_grid_match_device(hidden):
     """The value instance's shared-memory plan and persistent grid on the
     device equal fused_eval.eval_plan and sample_mlp.persistent_blocks,
@@ -1161,7 +1189,7 @@ def test_segment_bwd_deterministic():
     assert torch.equal(a[0], b[0])
 
 
-@pytest.mark.parametrize("hidden", [32, 48, 64])
+@pytest.mark.parametrize("hidden", [32, 48, 64, 128])
 def test_segment_bwd_smem_plan_matches_device(hidden):
     """The device's shared-memory plan equals ops.sample_mlp's mirror at
     the flagship's widths and at the kernels' largest limits."""
@@ -1401,7 +1429,7 @@ def test_mega_fwd_deterministic():
                            b[2][t, :int(count[t])])
 
 
-@pytest.mark.parametrize("hidden", [32, 48, 64])
+@pytest.mark.parametrize("hidden", [32, 48, 64, 128])
 def test_forward_smem_plans_match_device(hidden):
     """The forwards' shared-memory plans on the device equal
     ops.sample_mlp's mirror at the flagship's widths and at the kernels'
@@ -2210,3 +2238,182 @@ def test_latent_sample_eval_matches_plain(kind, want_grad):
     if want_grad:
         inner = (pos.abs() < 0.45).all(dim=1) & (value > 0) & (value < 1)
         assert rel_err(got[2][inner], grad[inner]) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the wide networks (hidden widths 65-128, csrc/*128.cu: the wide plans of
+# warp_mlp.cuh and sample_mlp.cuh, hidden matrices read from device
+# memory) on rows 1-7, and layers of mixed widths (each padded to the
+# widest's instance) on the forward rows 1, 4 and 7
+
+WIDE_NETS = {
+    "w128": dict(width=128, output_mode="density"),
+    "w96_relu_dir": dict(width=96, activation="ReLU", direction=True,
+                         output_mode="density"),
+    "mixed64_32": dict(widths=[64, 32], output_mode="density"),
+    "mixed48_96": dict(widths=[48, 96], activation="ReLU", direction=True,
+                       output_mode="density"),
+}
+WIDE_TRAIN = ("w128", "w96_relu_dir")
+WIDE_MODES = ("piecewise", "texture", "gaussian")
+
+
+def wide_tf(mode, h):
+    """(tf tensor, tf keywords) of the ramp TF in ``mode`` on the card."""
+    if mode == "piecewise":
+        return dense_scene()[1].tensor.cuda(), {}
+    return tf_mode_args(mode, h)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("which", sorted(WIDE_NETS))
+def test_wide_mega_render_matches_plain(which, masked):
+    """Row 1 on a wide or mixed network: the render (bf16 table, the tile
+    vote on, clipped rays; with an occupancy mask too) against the plain
+    version, one launch of the widest layer's instance."""
+    needs_card()
+    net = random_net(**WIDE_NETS[which]).cuda()
+    _, tf, rays, spec = diff_case(None, True, net)
+    rs, rd = block_rays(64, "cuda")
+    clip = torch.empty(rs.shape[0], device="cuda").uniform_(
+        1.0, 2.2, generator=torch.Generator("cuda").manual_seed(0))
+    mask = random_mask(rays, spec) if masked else None
+    kw = dict(stepsize=1 / 128, tmax_clip=clip, return_samples=True,
+              segment_active=mask)
+    args = (rs, rd, net, *BOX, tf)
+    hp = fused_mega.kernel_width(net)
+    lib = fused_mega.library_name(
+        fused_mega._fwd_kind(spec, fused_mega._net_args(spec)), hp)
+    before = fused_mega.LIBRARY_LAUNCHES[lib]
+    got, samples = fused_mega.mega_trace_dvr(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_mega.LIBRARY_LAUNCHES[lib] == before + 1
+    want, samples_plain = fused_mega.mega_trace_dvr_plain(*args, **kw)
+    assert float(want[:, 3].max()) > 0.5
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    assert torch.equal(samples.long(), samples_plain)
+
+
+@pytest.mark.parametrize("mode", WIDE_MODES)
+@pytest.mark.parametrize("which", WIDE_TRAIN)
+def test_wide_mega_training_matches_plain(which, mode):
+    """Rows 2-3 on a wide network: one launch of the 128 instance's
+    forward and of mega_bwd128, the image and every gradient leaf against
+    the plain pair."""
+    needs_card()
+    net = random_net(**WIDE_NETS[which]).cuda()
+    rs, rd = block_rays(64, "cuda")
+    clip = torch.empty(rs.shape[0], device="cuda").uniform_(
+        1.0, 2.2, generator=torch.Generator("cuda").manual_seed(0))
+    h = 1 / 128
+    tf, tf_kw = wide_tf(mode, h)
+    kw = dict(stepsize=h, tmax_clip=clip, differentiable=True,
+              table_dtype=torch.float32)
+    args = (rs, rd, net, *BOX)
+    before = (fused_mega.LAUNCHES["mega_fwd_diff:t256:f32"],
+              fused_mega.LAUNCHES["mega_bwd:t256:f32"])
+    img, got = tf_grads(fused_mega.mega_trace_dvr, args, kw, tf, tf_kw)
+    assert (fused_mega.LAUNCHES["mega_fwd_diff:t256:f32"],
+            fused_mega.LAUNCHES["mega_bwd:t256:f32"]) == (before[0] + 1,
+                                                         before[1] + 1)
+    img_plain, want = tf_grads(fused_mega.mega_trace_dvr_plain, args, kw,
+                               tf, tf_kw)
+    assert float(img_plain[:, 3].max()) > 0.5
+    share, tols = flip_bounds(mode, fused_mega.mega_trace_dvr_plain, args,
+                              kw, tf, tf_kw, img_plain, want)
+    assert_image_close(img, img_plain, mode, share)
+    assert_grads_close(mode, got, want, tols)
+
+
+@pytest.mark.parametrize("which", sorted(WIDE_NETS))
+def test_wide_segment_matches_plain(which):
+    """Row 4 on a wide or mixed network: the per-segment engine's kernel
+    (two launches of the widest layer's library) against its plain
+    version: image, samples and the call's stop."""
+    needs_card()
+    net = random_net(**WIDE_NETS[which]).cuda()
+    tf = dense_scene()[1].tensor.cuda()
+    rs, rd = generate_rays(CameraOnASphere.make(pitch=0.3, yaw=0.8,
+                                                distance=1.6),
+                           60, 44, device="cuda")
+    kw = dict(stepsize=1 / 128, max_steps=222, seg=32, tile=128,
+              return_stats=True)
+    rs, rd, _ = pad_rays(rs.reshape(-1, 3), rd.reshape(-1, 3), 128)
+    args = (rs, rd, net, *BOX, tf)
+    lib = fused_dvr.width_library("segment_fwd", fused_mega.kernel_width(net))
+    before = fused_dvr.LIBRARY_LAUNCHES[lib]
+    got, stats = fused_dvr.fused_trace_dvr(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_dvr.LIBRARY_LAUNCHES[lib] == before + 2
+    want, want_stats = fused_dvr.fused_trace_dvr_plain(*args, **kw)
+    assert float(want[:, 3].max()) > 0.05
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    assert int(stats.samples) == int(want_stats.samples)
+    assert int(stats.stop) == int(want_stats.stop)
+
+
+@pytest.mark.parametrize("mode", WIDE_MODES)
+@pytest.mark.parametrize("which", WIDE_TRAIN)
+def test_wide_segment_training_matches_plain(which, mode):
+    """Rows 5-6 on a wide network: one launch of the 128 forward storing
+    carries and one of segment_bwd128, the image and every gradient leaf
+    against the plain pair."""
+    needs_card()
+    net = random_net(**WIDE_NETS[which]).cuda()
+    rs, rd = block_rays(64, "cuda")
+    h = 1 / 64
+    tf, tf_kw = wide_tf(mode, h)
+    kw = dict(stepsize=h, max_steps=112, seg=32, tile=128,
+              differentiable=True)
+    args = (rs, rd, net, *BOX)
+    before = (fused_dvr_bwd.launches("segment_fwd_diff"),
+              fused_dvr_bwd.launches("segment_bwd"))
+    img, got = tf_grads(fused_dvr.fused_trace_dvr, args, kw, tf, tf_kw)
+    assert (fused_dvr_bwd.launches("segment_fwd_diff"),
+            fused_dvr_bwd.launches("segment_bwd")) == (before[0] + 1,
+                                                    before[1] + 1)
+    img_plain, want = tf_grads(fused_dvr.fused_trace_dvr_plain, args, kw,
+                               tf, tf_kw)
+    assert float(img_plain[:, 3].max()) > 0.5
+    share, tols = flip_bounds(mode, fused_dvr.fused_trace_dvr_plain, args,
+                              kw, tf, tf_kw, img_plain, want)
+    assert_image_close(img, img_plain, mode, share)
+    assert_grads_close(mode, got, want, tols)
+
+
+@pytest.mark.parametrize("n", [33, 5000, 2 ** 18 + 7])
+@pytest.mark.parametrize("which", sorted(WIDE_NETS))
+def test_wide_sample_eval_matches_plain(which, n):
+    """Row 7's value instance on a wide or mixed network against its
+    plain version (sample_eval128 above 64 wide)."""
+    needs_card()
+    net = random_net(**WIDE_NETS[which]).cuda()
+    gen = torch.Generator("cuda").manual_seed(0)
+    pos = torch.rand(n, 3, device="cuda", generator=gen) * 1.4 - 0.7
+    d = torch.randn(n, 3, device="cuda", generator=gen)
+    sample_eval_matches(net, pos, d / d.norm(dim=1, keepdim=True))
+
+
+def test_wide_refusals():
+    """What the wide instances do not take: row 7's gradient instance
+    and the normals of rows 1 and 4 above 64 wide, layers of several
+    widths in training, widths above 128."""
+    rays = torch.zeros(512, 8)
+    tf = dense_scene()[1].tensor
+    wide = random_net(width=96)
+    for kernel_check in (
+            lambda: fused_mega._check_kernel_inputs(wide, rays, 256,
+                                                    need_normals=True),
+            lambda: fused_dvr._check_kernel_inputs(wide, tf,
+                                                   need_normals=True),
+            lambda: fused_mega.check_kernel_width(wide, "row 7",
+                                                  need_normals=True)):
+        with pytest.raises(NotImplementedError, match="normals"):
+            kernel_check()
+    with pytest.raises(NotImplementedError, match="tiles of 128"):
+        fused_mega._check_kernel_inputs(wide, rays, 128)
+    mixed = random_net(widths=[64, 32])
+    with pytest.raises(NotImplementedError, match="several widths"):
+        fused_dvr._check_kernel_inputs(mixed, tf, differentiable=True)
+    with pytest.raises(NotImplementedError, match="up to 128"):
+        fused_mega.kernel_width(random_net(width=144))

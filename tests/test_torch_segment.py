@@ -377,7 +377,11 @@ def test_engine_rejects_what_is_not_ported():
     with pytest.raises(ValueError):
         fused_trace_dvr(t(rs[:100]), t(rd[:100]), net, BMIN, BSIZE,
                         tf.tensor, **kw)
-    wide = port(JSRN.make(layers="128:128", activation="ReLU",
+    # the kernels take hidden layers up to 128 wide
+    # (tests/test_torch_wide_networks.py); wider ones raise
+    wide = port(JSRN.make(layers="160:160", activation="ReLU",
                           num_fourier=4, seed=1))
     with pytest.raises(NotImplementedError):
         fused_dvr.kernel_width(wide)
+    assert fused_dvr.kernel_width(port(JSRN.make(
+        layers="128:128", activation="ReLU", num_fourier=4, seed=1))) == 128

@@ -194,7 +194,7 @@ def test_sine30_grad_matches_lattice_oracle():
 
 ACTIVATIONS = ("ReLU", "Sine:30", "Sigmoid", "Softplus", "Snake:1",
                "SnakeAlt:2")
-WIDTHS = (32, 48, 64)
+WIDTHS = (32, 48, 64, 96, 128)
 
 
 def _tfs():

@@ -5,7 +5,7 @@
 Builds the port's CUDA kernels from this checkout and drives the port's
 main paths on the card. The sources build in the background, as many at
 a time as the cores, in the order the phases first load them, and the
-phases run in the order K, 3-10, J, A-I, L, M, N-Z, so that each starts
+phases run in the order K, 3-10, J, A-I, L, M, N-Z, AA, so that each starts
 once its own libraries are built while the rest still build, and those
 that compute most on the host's cores (L, M) run once most are built
 (W, X, Y and Z come last, X's, Y's and Z's libraries last in the build):
@@ -154,8 +154,8 @@ that compute most on the host's cores (L, M) run once most are built
   one process's (U3);
 - phase V, the paper's evaluation harnesses through their own entry
   points (``fvsrn_tpu_torch/eval``): ``eval_volumetric_features --scene
-  dense`` at its defaults but 2 cameras (512^2, 1/512, FUSED and PLAIN32
-  timed, SSIM against ``render_reference``; row 1, camera 0's FUSED frame
+  dense`` at its defaults but 2 cameras at 256^2 (1/512, FUSED and
+  PLAIN32 timed, SSIM against ``render_reference``; row 1, camera 0's FUSED frame
   against its plain version) (V1); ``eval_screen_vs_world`` (its screen
   entry through rows 2-3) and ``eval_density_vs_color --render`` (row 1
   for each head) at 2 epochs, every trained network's FUSED 128^2 frame
@@ -209,7 +209,21 @@ that compute most on the host's cores (L, M) run once most are built
   TFs; a mixed 64:32 network (the 64 instance) on rows 1, 4 and 7 and a
   96:96:96 ReLU network with direction input (padded to 128) on rows
   1-7, against their plain versions; every wide instance's registers and
-  spills.
+  spills;
+- phase AA, TFs of any size and normals at width 128: the dense flagship
+  with its ramp as 40 and TF_STAGED_POINTS + 1 piecewise knots (above
+  the count the kernels stage in shared memory: read from device
+  memory), counts reset, the FUSED render at 512x512 on route 1 and at
+  1920x1080 on route 2 and a training step on each engine, and a step on
+  each engine with the ramp as 24 Gaussians, each kernel held against its
+  plain version on 64 whole tiles (route 1 also against the f32 lattice
+  oracle) and timed beside the ramp's; then on phase Z's trained
+  128:128:128 network, counts reset, a Phong-shaded 512x512 frame on rows
+  1 and 4 (``csrc/mega_fwd_nrm128.cu``, ``csrc/segment_fwd_nrm128.cu``),
+  ``eval_gradient_networks``' normal scores and shaded render, row 7's
+  gradient instance (``csrc/sample_eval128.cu``) at 2^20 positions and a
+  gradient-scaled MC walk, each against its plain version, with the new
+  instances' registers and spills.
 
 Prints one JSON line with every kernel and a last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -254,11 +268,14 @@ BF16_GRID_REL = 2.0 ** -7
 TIMED_CAMERAS = 4
 TIMED_STEPS = 3
 # phase 2: the sources in the order the phases first load them (the
-# phases run K, 3-10, J, A-I, L, M, N-Z), then those no phase launches,
-# then phase X's (its four take ~840 s of nvcc), phase Y's and phase Z's
-# width-128 instances (the last)
+# phases run K, 3-10, J, A-I, L, M, N-Z, AA), then those no phase
+# launches, then phase X's (its four take ~840 s of nvcc), phase Y's and
+# phase Z's width-128 instances; phase AA's normals instances at 128, the
+# two slowest sources (~450 s of nvcc each), start with the first six, so
+# that the build does not end on them
 BUILD_ORDER = ("probes", "mega_fwd", "mega_bwd", "segment_fwd",
-               "segment_bwd", "sample_eval", "mega_fwd_tf", "segment_fwd_tf",
+               "segment_bwd", "sample_eval", "mega_fwd_nrm128",
+               "segment_fwd_nrm128", "mega_fwd_tf", "segment_fwd_tf",
                "mega_fwd_any", "mega_fwd48", "mega_fwd_any48", "mega_bwd48",
                "mega_fwd64", "mega_fwd_any64", "mega_bwd64", "mega_fwd_nrm",
                "segment_fwd_nrm", "mega_fwd_nrm48", "mega_fwd_nrm64",
@@ -4540,6 +4557,7 @@ def data_parallel(smi, reset_counts, counts, npz):
 # phase V: the paper's evaluation harnesses (fvsrn_tpu_torch/eval)
 EVAL_EPOCHS = 2                      # V2's sweeps, cut in depth only
 EVAL_CAMERAS = 2                     # V1: its PLAIN32 frames cut in depth
+EVAL_V1_SIZE = 256                   # and in size (3.2 s a frame at 512^2)
 EVAL_SIZE = 128                      # V2: the sweeps' FUSED render (sweep.py)
 TEASER_EPOCHS = 10                   # V3's fit
 TEASER_MIN_PSNR = 20.0               # V3: every codec decodes to its volume
@@ -4564,8 +4582,8 @@ def _held_frame(phase, render):
 def evaluation(smi, reset_counts, counts):
     """Phase V, the paper's evaluation harnesses on rows 1-3, through the
     scripts' own entry points. V1: ``eval_volumetric_features --scene
-    dense`` at its defaults but EVAL_CAMERAS cameras (512^2, 1/512, the
-    plain PLAIN32 frames cut in depth; FUSED and PLAIN32,
+    dense`` at its defaults but EVAL_CAMERAS cameras at EVAL_V1_SIZE^2
+    (1/512, the plain PLAIN32 frames cut in depth; FUSED and PLAIN32,
     SSIM vs ``render_reference``): row 1 launched, camera 0's FUSED frame
     the kernel's and the kernel against its plain version (<= 1e-4), both
     SSIMs finite and within EVAL_SSIM_TOL. V2: ``eval_screen_vs_world``
@@ -4585,7 +4603,8 @@ def evaluation(smi, reset_counts, counts):
     t_phase = time.perf_counter()
     # V1. the headline harness on the dense flagship
     args = evf.parse_args(["--scene", "dense", "--cameras",
-                           str(EVAL_CAMERAS)])
+                           str(EVAL_CAMERAS), "--width", str(EVAL_V1_SIZE),
+                           "--height", str(EVAL_V1_SIZE)])
     model = evf.load_model(args)
     images = {}
     reset_counts()
@@ -5538,7 +5557,8 @@ def wide_networks(smi, reset_counts, counts, cam):
     tiles (image, every gradient leaf); the mixed 64:32 network on rows 1,
     4 and 7 and the 96:96:96 ReLU network with direction input on rows
     1-7 the same way; every wide instance's registers and spills. Returns
-    the kernels line's rows of the width-128 libraries."""
+    the kernels line's rows of the width-128 libraries and the trained
+    network."""
     from fvsrn_tpu_torch.camera import generate_rays
     from fvsrn_tpu_torch.inference import LoadedModel
     from fvsrn_tpu_torch.models.latent import LatentSpace
@@ -5926,7 +5946,7 @@ def wide_networks(smi, reset_counts, counts, cam):
             + z["row6"]["samples_contributing"] * adjoint_flops(trained))
     wbytes = weights.numel() * 4
     mega_step, scan_step = z["mega_piecewise"], z["scan_piecewise"]
-    return [
+    return trained, [
         row("mega_fwd128", "mega_fwd128", "fvsrn_tpu/ops/fused_mega.py:274",
             c_z["mega_fwd"], z["row1"]["ms"], flops1, io1,
             z["row1"]["err"], z["row1"]["plain_ms_64"], cases=z),
@@ -5958,6 +5978,419 @@ def wide_networks(smi, reset_counts, counts, cam):
             launched.get("sample_eval128", 0), z["row7"]["ms"],
             z["row7"]["flops"], z["row7"]["io_bytes"], z["row7"]["err"],
             z["row7"]["plain_ms_64"])]
+
+
+# phase AA: TFs of any size on rows 1-6, the dense flagship's ramp as
+# that many points (scenes.dense_tf_points; above the kernels' staged
+# count, ops.sample_mlp.TF_STAGED_POINTS, they read it from device
+# memory), and normals and position gradients on phase Z's trained
+# 128:128:128 network (rows 1, 4, 7)
+AA_KNOTS = 40                        # and TF_STAGED_POINTS + 1
+AA_GAUSSIANS = 24
+AA_MC_SIZE = 128                     # AA2's gradient-scaled MC frame
+
+
+def tf_points_wide_normals(smi, reset_counts, counts, npz, cam, trained):
+    """Phase AA. AA1, TFs of any size: the dense flagship with its ramp as
+    AA_KNOTS and TF_STAGED_POINTS + 1 piecewise knots, counts reset: the
+    FUSED render at 512^2 on route 1 and at 1920x1080 on route 2, a
+    training step (mean(img^2)) on each engine, and a step on each
+    engine with the ramp as AA_GAUSSIANS Gaussians; every kernel held
+    against its plain version on 64 whole tiles, route 1 also against
+    the f32 lattice oracle, each timed at full size beside the ramp's in
+    the same call. AA2, phase Z's trained 128:128:128 network, counts
+    reset: a shaded frame (Phong) on rows 1 and 4 at 512^2,
+    ``eval_gradient_networks``' normal scores and shaded render, row 7's
+    gradient instance at Z_POSITIONS positions and a gradient-scaled MC
+    walk at AA_MC_SIZE^2; each held against its plain version on 64
+    tiles (Z_HELD positions), timed, with the new instances' registers
+    and spills. Returns ({row name: figures} of rows 1-6 with many
+    points, the kernels line's rows of the width-128 normals and
+    gradient instances)."""
+    from fvsrn_tpu_torch.brdf import BRDFLambert
+    from fvsrn_tpu_torch.camera import generate_rays
+    from fvsrn_tpu_torch.eval import eval_gradient_networks as egn
+    from fvsrn_tpu_torch.inference import LoadedModel
+    from fvsrn_tpu_torch.models.network_volume import \
+        VolumeInterpolationNetwork
+    from fvsrn_tpu_torch.ops import (_build, fused_dvr, fused_dvr_bwd,
+                                     fused_eval, fused_mega)
+    from fvsrn_tpu_torch.ops.fused_dvr import block_ray_permutation
+    from fvsrn_tpu_torch.ops.sample_mlp import TF_STAGED_POINTS
+    from fvsrn_tpu_torch.phase import PhaseFunctionHenyeyGreenstein
+    from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
+                                               max_steps_bound, trace_dvr)
+    from fvsrn_tpu_torch.raytracer.montecarlo import (RayEvaluationMonteCarlo,
+                                                      trace_mc)
+    from fvsrn_tpu_torch.scenes import dense_scene, dense_tf_points
+    from fvsrn_tpu_torch.train.checkpoints import load_weights
+    from fvsrn_tpu_torch.transfer import (TransferFunctionGaussian,
+                                          TransferFunctionPiecewiseLinear)
+    from fvsrn_tpu_torch.utils.prng import prng_key
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    box = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))
+    cfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE)
+    steps_max = max_steps_bound(box[1], STEPSIZE)
+    volume, ramp_tf, _ = dense_scene()
+    net = load_weights(npz).to(dev)
+    rs, rd = generate_rays(cam, WIDTH, HEIGHT, device=dev)
+    rs, rd = rs.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()
+    perm, _ = block_ray_permutation(WIDTH, HEIGHT, 16, 16, device=dev)
+    rs_b, rd_b = rs[perm].contiguous(), rd[perm].contiguous()
+    n_t = rs.shape[0] // 256
+    sub = (torch.arange(0, n_t, n_t // ORACLE_TILES,
+                        device=dev)[:ORACLE_TILES, None] * 256
+           + torch.arange(256, device=dev)).reshape(-1)
+    engines = {
+        "mega": (fused_mega.mega_trace_dvr, fused_mega.mega_trace_dvr_plain,
+                 dict(stepsize=STEPSIZE, differentiable=True), rs_b, rd_b),
+        "scan": (fused_dvr.fused_trace_dvr, fused_dvr.fused_trace_dvr_plain,
+                 dict(stepsize=STEPSIZE, max_steps=steps_max,
+                      enable_early_out=False, differentiable=True), rs, rd)}
+
+    def libs():
+        out = {}
+        for c in (fused_mega.LIBRARY_LAUNCHES, fused_dvr.LIBRARY_LAUNCHES,
+                  fused_mega.BWD_LIBRARY_LAUNCHES,
+                  fused_dvr_bwd.LIBRARY_LAUNCHES,
+                  fused_eval.LIBRARY_LAUNCHES):
+            out.update({k: v for k, v in c.items() if v})
+        return out
+
+    def subset(render, n_tile):
+        """The render's march arguments on 64 whole tiles of the frame."""
+        n = render.ray_start.shape[0] // n_tile
+        tiles = torch.arange(0, n, max(n // ORACLE_TILES, 1),
+                             device=dev)[:ORACLE_TILES]
+        sel = (tiles[:, None] * n_tile
+               + torch.arange(n_tile, device=dev)).reshape(-1)
+        kw = dict(render.march_kwargs)
+        if render.route == "mega":
+            kw["tmax_clip"] = render.tmax_clip[sel]
+        return (render.ray_start[sel].contiguous(),
+                render.ray_dir[sel].contiguous(), render.network,
+                render.box_min, render.box_size, render.tf.tensor), kw
+
+    def held_render(name, render, n_tile):
+        """(error, plain ms) of the render's kernel against its plain
+        version on 64 tiles; route 1 also (its f32-table kernel) against
+        the f32 lattice oracle: (error, plain ms, oracle error)."""
+        args, kw = subset(render, n_tile)
+        kernel, plain = ((fused_mega.mega_trace_dvr,
+                          fused_mega.mega_trace_dvr_plain)
+                         if render.route == "mega" else
+                         (fused_dvr.fused_trace_dvr,
+                          fused_dvr.fused_trace_dvr_plain))
+        got = kernel(*args, **kw)
+        want, pms = cuda_once(lambda: plain(*args, **kw))
+        err = max_err(got, want)
+        check(err <= KERNEL_TOL and float(want[:, 3].max()) > 0.5,
+              f"phase AA1 {name} route {render.route}: kernel vs plain "
+              f"{err}, alpha {float(want[:, 3].max())}")
+        if render.route != "mega":
+            return err, pms, None
+        got32 = kernel(*args, **dict(kw, table_dtype=torch.float32))
+        ocfg = RayEvaluationSteppingDvr.make(stepsize=STEPSIZE,
+                                             enable_early_out=False)
+        vol = VolumeInterpolationNetwork(render.network, *box)
+        with torch.no_grad():
+            oracle = trace_dvr(args[0], args[1], vol, render.tf, ocfg,
+                               steps_max, tmax_in=kw["tmax_clip"],
+                               lattice=True).color
+        oerr = max_err(got32, oracle)
+        check(oerr < ORACLE_TOL, f"phase AA1 {name}: f32 kernel vs the "
+              f"lattice oracle {oerr}")
+        return err, pms, oerr
+
+    def held_step(name, engine, tensor, kw):
+        """(image error, worst leaf's relative error, the leaf, plain ms)
+        of one step (mean(img^2)) against the plain pair on 64 tiles."""
+        march, plain, _, r_, d_ = engines[engine]
+        args = (r_[sub].contiguous(), d_[sub].contiguous(), net, *box)
+        img_k, g_k = tf_step(march, args, tensor, None, kw)
+        (img_p, g_p), pms = cuda_once(lambda: tf_step(plain, args, tensor,
+                                                      None, kw))
+        ierr = max_err(img_k, img_p)
+        check(sorted(g_k) == sorted(g_p) and ierr <= KERNEL_TOL
+              and float(img_p[:, 3].max()) > 0.5,
+              f"phase AA1 {name} {engine}: image vs plain {ierr}, leaves "
+              f"{sorted(g_k)} vs {sorted(g_p)}")
+        rel = {n: rel_err(g_k[n], g_p[n]) for n in g_p}
+        check(float(g_p["tf"].abs().max()) > 0,
+              f"phase AA1 {name} {engine}: the TF's gradient")
+        worst = max(rel, key=rel.get)
+        check(rel[worst] <= GRAD_TOL, f"phase AA1 {name} {engine}: grad "
+              f"{worst} {rel[worst]} (tol {GRAD_TOL})")
+        return ierr, rel[worst], worst, pms
+
+    # AA1. the main path with many knots and Gaussians, counts reset
+    n_big = TF_STAGED_POINTS + 1
+    cases = {"ramp": (ramp_tf.tensor, {})}
+    for n in (AA_KNOTS, n_big):
+        cases[f"knots{n}"] = (dense_tf_points(n), {})
+    cases[f"gauss{AA_GAUSSIANS}"] = (dense_tf_points(AA_GAUSSIANS, True),
+                                     dict(tf_mode="gaussian"))
+    renders = {}
+    reset_counts()
+    for name, (tensor, tf_kw) in cases.items():
+        if name == "ramp":
+            continue
+        if not tf_kw:
+            model = LoadedModel(net, TransferFunctionPiecewiseLinear(tensor),
+                                config=cfg)
+            r1 = model.prepare_network_render(cam, WIDTH, HEIGHT, "FUSED")
+            r4 = model.prepare_network_render(cam, SEG_WIDTH, SEG_HEIGHT,
+                                              "FUSED")
+            renders[name] = (r1, r4, r1(), r4())
+        for engine, (march, _, kw, r_, d_) in engines.items():
+            tf_step(march, (r_, d_, net, *box), tensor.to(dev), None,
+                    dict(kw, **tf_kw))
+    torch.cuda.synchronize()
+    c1, l1 = counts(), libs()
+    n_fused = len(renders)
+    n_steps = len(cases) - 1
+    print(f"phase AA1 main path (TFs of {AA_KNOTS} and {n_big} knots, "
+          f"{AA_GAUSSIANS} Gaussians; TF_STAGED_POINTS {TF_STAGED_POINTS}): "
+          f"counts {c1}, launches by library {l1}", flush=True)
+    check(all(r1.route == "mega" and r4.route == "segment"
+              for r1, r4, _, _ in renders.values()),
+          "phase AA1: FUSED routes")
+    check(c1["mega_fwd"] >= n_fused and c1["segment_fwd"] >= 2 * n_fused
+          and c1["mega_fwd_diff"] >= n_steps and c1["mega_bwd"] >= n_steps
+          and c1["segment_fwd_diff"] >= n_steps
+          and c1["segment_bwd"] >= n_steps
+          and l1.get("mega_fwd_tf", 0) >= 1
+          and l1.get("segment_fwd_tf", 0) >= 1,
+          f"phase AA1: launches {c1} {l1}")
+    for name, (_, _, i1, i4) in renders.items():
+        for im in (i1, i4):
+            check(bool(torch.isfinite(im).all())
+                  and float(im[..., 3].max()) > 0.5,
+                  f"phase AA1 {name}: the frame")
+    # each case held and timed at full size, the ramp's in the same call
+    ramp_model = LoadedModel(net, ramp_tf, config=cfg)
+    renders["ramp"] = (ramp_model.prepare_network_render(cam, WIDTH, HEIGHT,
+                                                         "FUSED"),
+                       ramp_model.prepare_network_render(
+                           cam, SEG_WIDTH, SEG_HEIGHT, "FUSED"), None, None)
+    fig = {}
+    for name, (tensor, tf_kw) in cases.items():
+        f = {"points": int(tensor.shape[0]),
+             "staged": tensor.shape[0] <= TF_STAGED_POINTS}
+        if name in renders:
+            r1, r4 = renders[name][:2]
+            f["row1_ms"] = cuda_ms(r1.march, 3)
+            f["row1_samples"] = int(r1.march(return_samples=True)[1].sum())
+            (_, st4), f["row4_ms"] = cuda_once(
+                lambda: r4.march(return_stats=True))
+            f["row4_samples"] = int(st4.samples)
+            if name != "ramp":
+                (f["row1_err"], f["row1_plain_ms_64"],
+                 f["row1_oracle_err"]) = held_render(name, r1, 256)
+                f["row4_err"], f["row4_plain_ms_64"], _ = held_render(
+                    name, r4, 128)
+        tensor = tensor.to(dev)
+        for engine, (march, _, kw, r_, d_) in engines.items():
+            kw = dict(kw, **tf_kw)
+            if name != "ramp":
+                (f[f"{engine}_img_err"], f[f"{engine}_grad_rel"],
+                 f[f"{engine}_grad_worst"],
+                 f[f"{engine}_plain_step_ms_64"]) = held_step(
+                    name, engine, tensor, kw)
+            _, f[f"{engine}_step_ms"] = cuda_once(
+                lambda: tf_step(march, (r_, d_, net, *box), tensor, None,
+                                kw))
+        fig[name] = f
+        print(f"phase AA1 {name} [{smi}]: "
+              + ", ".join(f"{k} {v:.4g}" if isinstance(v, float)
+                          else f"{k} {v}" for k, v in f.items()),
+              flush=True)
+    out = {
+        "mega_fwd": {k: {q: f.get(q) for q in ("row1_ms", "row1_samples",
+                                              "row1_err", "row1_oracle_err",
+                                              "row1_plain_ms_64")}
+                     for k, f in fig.items() if "row1_ms" in f},
+        "segment_fwd": {k: {q: f.get(q) for q in ("row4_ms", "row4_samples",
+                                                 "row4_err",
+                                                 "row4_plain_ms_64")}
+                        for k, f in fig.items() if "row4_ms" in f}}
+    for row, engine in (("mega_fwd_diff", "mega"), ("mega_bwd", "mega"),
+                        ("segment_fwd_diff", "scan"),
+                        ("segment_bwd", "scan")):
+        out[row] = {k: {q: f.get(f"{engine}_{q}") for q in
+                        ("step_ms", "img_err", "grad_rel", "grad_worst",
+                         "plain_step_ms_64")} for k, f in fig.items()}
+    for row in out:
+        out[row]["launches"] = c1
+    out["mega_fwd"]["libraries"] = l1
+
+    # AA2. the trained 128:128:128 network's normals and position
+    # gradients, counts reset
+    ramp = ramp_tf.tensor.to(dev)
+    phong = BRDFLambert.make(**NRM_BRDF)
+    gen = torch.Generator(dev).manual_seed(5)
+    pos = torch.rand(Z_POSITIONS, 3, device=dev, generator=gen) - 0.5
+
+    def shaded(row, march=None, rays=(rs_b, rd_b), **kw):
+        if row == "mega":
+            march = march or fused_mega.mega_trace_dvr
+            return march(*rays, trained, *box, ramp, stepsize=STEPSIZE,
+                         **kw)
+        march = march or fused_dvr.fused_trace_dvr
+        return march(*rays, trained, *box, ramp, stepsize=STEPSIZE,
+                     max_steps=steps_max, **kw)
+
+    rs4, rd4 = generate_rays(cam, AA_MC_SIZE, AA_MC_SIZE, device=dev)
+    rs4, rd4 = rs4.reshape(-1, 3).contiguous(), rd4.reshape(-1, 3).contiguous()
+    vol128 = VolumeInterpolationNetwork(trained, *box)
+    gtf = TransferFunctionGaussian(torch.tensor(MC_NRM_TF, device=dev),
+                                   scale_with_gradient=True)
+    mcfg = RayEvaluationMonteCarlo.make(max_absorption=14.0, num_bounces=2,
+                                        max_iterations=256)
+    hg = PhaseFunctionHenyeyGreenstein.make(g=0.3)
+
+    def mc_frame(use_fused=True):
+        return trace_mc(prng_key(11), rs4, rd4, vol128, gtf, hg, mcfg,
+                        use_fused=use_fused)
+
+    ev_g = fused_eval.make_fused_eval(trained, *box, want_grad=True)
+    reset_counts()
+    frames = {}
+    for row in ("mega", "segment"):
+        frames[row] = shaded(row, need_normals=True, brdf=phong,
+                             **({"return_samples": True} if row == "mega"
+                                else {"return_stats": True}))
+    with torch.no_grad():
+        egn_render = egn.shaded_render(trained, device=dev)
+    egn_rows = egn.normal_rows(trained, volume, eval_samples=8192,
+                               fd_step=1e-3, device=dev)
+    _, _, grad_k = ev_g(pos)
+    mc_out = mc_frame()
+    torch.cuda.synchronize()
+    c2, l2 = counts(), libs()
+    print(f"phase AA2 main path (128:128:128 normals, gradients): counts "
+          f"{c2}, launches by library {l2}", flush=True)
+    check(l2.get("mega_fwd_nrm128", 0) >= 2
+          and l2.get("segment_fwd_nrm128", 0) >= 2
+          and c2["sample_eval_grad"] >= 1 + c2["normal_rounds"]
+          and c2["normal_rounds"] > 0 and l2.get("sample_eval128", 0) >= 2,
+          f"phase AA2: launches {c2} {l2}")
+    for row, (o, _) in frames.items():
+        check(bool(torch.isfinite(o.color).all()
+                   and torch.isfinite(o.normal).all())
+              and float(o.color[:, 3].max()) > 0.05
+              and float(o.normal.abs().max()) > 0.5,
+              f"phase AA2 {row}: the shaded frame")
+    check(bool(torch.isfinite(grad_k).all()), "phase AA2: row 7 gradients")
+    check(egn_render["ssim"] > 0.9 and all(
+        math.isfinite(r["mean_cosine"]) for r in egn_rows),
+          f"phase AA2 eval_gradient_networks: SSIM {egn_render['ssim']}, "
+          f"rows {egn_rows}")
+    # held on 64 tiles, timed beside the unshaded frame of this call
+    aa2 = {"eval_gradient_networks": {"rows": egn_rows,
+                                      "ssim": egn_render["ssim"],
+                                      "ms": egn_render["ms"]},
+           "launches": c2, "libraries": l2}
+    fwd, grad = sample_flops(trained), position_grad_flops(trained)
+    for row, (o, st) in frames.items():
+        samples = int(st.sum() if row == "mega" else st.samples)
+        got = shaded(row, rays=(rs_b[sub], rd_b[sub]), need_normals=True,
+                     brdf=phong)
+        want, pms = cuda_once(lambda: shaded(
+            row, march=(fused_mega.mega_trace_dvr_plain if row == "mega"
+                        else fused_dvr.fused_trace_dvr_plain),
+            rays=(rs_b[sub], rd_b[sub]), need_normals=True, brdf=phong))
+        off, worst = nrm_off(got, want)
+        check(off <= NRM_FLIP_SHARE, f"phase AA2 {row}: kernel vs plain, "
+              f"{off} of the rays off")
+        ms = cuda_ms(lambda: shaded(row, need_normals=True, brdf=phong), 1)
+        unshaded = cuda_ms(lambda: shaded(row), 1)
+        aa2[row] = {"ms": ms, "unshaded_ms": unshaded, "samples": samples,
+                    "ns_per_sample": ms * 1e6 / max(samples, 1),
+                    "vs_plain_off": off, "vs_plain_worst": worst,
+                    "max_abs_err": max_err(got.color, want.color),
+                    "plain_ms": pms, "flops": samples * (fwd + grad)}
+    # row 7's gradient instance: timed at Z_POSITIONS, held on Z_HELD
+    g_ms = cuda_ms(lambda: ev_g(pos), 3)
+    p = pos[:Z_HELD].contiguous()
+    v_k, _, g_k = ev_g(p)
+    (v_p, g_p), g_pms = cuda_once(lambda: fused_eval.fused_eval_plain(
+        trained, p + 0.5, None, want_grad=True))
+    g_p = g_p / torch.tensor(box[1], device=dev)
+
+    def clipped(v):
+        return (v <= 0.0) | (v >= 1.0)
+    inner = (p.abs() < 0.45).all(dim=1)
+    flips = inner & (clipped(v_k) != clipped(v_p))
+    check(int(flips.sum()) <= ISO_FLIP_SHARE * int(inner.sum()) + 1,
+          f"phase AA2: {int(flips.sum())} clip gates differ")
+    inner &= ~flips
+    v_err, g_rel = max_err(v_k, v_p), rel_err(g_k[inner], g_p[inner])
+    check(v_err <= KERNEL_TOL and g_rel <= GRAD_TOL
+          and float(g_p[inner].norm()) > 0,
+          f"phase AA2 row 7: values {v_err}, gradient {g_rel}")
+    aa2["sample_eval"] = {"ms": g_ms, "positions": Z_POSITIONS,
+                          "max_abs_err": v_err, "grad_rel": g_rel,
+                          "plain_ms": g_pms, "plain_positions": Z_HELD,
+                          "flops": Z_POSITIONS * (
+                              sample_flops(trained, False) + grad)}
+    # the gradient-scaled MC walk against the plain walk, same key
+    mc_p, mc_pms = cuda_once(lambda: mc_frame(False))
+    _, mc_ms = cuda_once(mc_frame)
+    a = torch.cat([mc_out.color, mc_out.normal, mc_out.depth], 1)
+    b = torch.cat([mc_p.color, mc_p.normal, mc_p.depth], 1)
+    share = float(((a - b).abs() < MC_TOL).all(dim=1).float().mean())
+    check(share >= MC_MATCH_SHARE, f"phase AA2 MC: {share} of the rays "
+          f"within {MC_TOL}")
+    aa2["mc"] = {"frame_ms": mc_ms, "plain_frame_ms": mc_pms,
+                 "rays_within_tol": share, "size": AA_MC_SIZE,
+                 "normal_rounds": c2["normal_rounds"]}
+    ptxas = {src: {k: list(v[:3]) for k, v in _build.ptxas_instances(
+        _build.ptxas_report(src)).items()}
+        for src in ("mega_fwd_nrm128", "segment_fwd_nrm128",
+                    "sample_eval128")}
+    for src, v in ptxas.items():
+        print(f"phase AA2 ptxas {src}: " + "; ".join(
+            f"{k[-60:]} {r}" for k, r in v.items()), flush=True)
+    print(f"phase AA2 128:128:128 [{smi}]: shaded {WIDTH}x{HEIGHT} row 1 "
+          f"{aa2['mega']['ms']:.1f} ms (unshaded "
+          f"{aa2['mega']['unshaded_ms']:.1f}), row 4 "
+          f"{aa2['segment']['ms']:.1f} ms (unshaded "
+          f"{aa2['segment']['unshaded_ms']:.1f}); vs plain on "
+          f"{ORACLE_TILES} tiles off {aa2['mega']['vs_plain_off']:.5f} / "
+          f"{aa2['segment']['vs_plain_off']:.5f} of the rays; row 7 "
+          f"gradient {Z_POSITIONS} positions {g_ms:.3f} ms, values "
+          f"{v_err:.2e}, gradient rel {g_rel:.2e}; MC {AA_MC_SIZE}^2 "
+          f"{mc_ms:.1f} ms (plain {mc_pms:.1f}), {share:.5f} of the rays "
+          f"within {MC_TOL}; eval_gradient_networks SSIM "
+          f"{egn_render['ssim']:.4f}, rows {egn_rows}", flush=True)
+    out["mega_fwd"]["wide_normals"] = aa2["mega"]
+    out["segment_fwd"]["wide_normals"] = aa2["segment"]
+    print(f"phase AA: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    def row(name, src, replaces, n, f, err):
+        flops = f["flops"]
+        return {"name": name, "route": "cuda",
+                "source": f"fvsrn_tpu_torch/csrc/{src}.cu",
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": f["ms"], "plain_ms": f["plain_ms"],
+                "bound_ms": flops / PEAK_BF16_TC * 1e3,
+                "bound_by": "operations", "library_ms": None,
+                "bound_f32_ms": flops / PEAK_F32 * 1e3,
+                "plain_rays": Z_HELD, "ptxas": ptxas[src],
+                "figures": f}
+    return out, [
+        row("mega_fwd_nrm128", "mega_fwd_nrm128",
+            "fvsrn_tpu/ops/fused_mega.py:274", l2.get("mega_fwd_nrm128", 0),
+            aa2["mega"], aa2["mega"]["max_abs_err"]),
+        row("segment_fwd_nrm128", "segment_fwd_nrm128",
+            "fvsrn_tpu/ops/fused_dvr.py:1626", l2.get("segment_fwd_nrm128", 0),
+            aa2["segment"], aa2["segment"]["max_abs_err"]),
+        row("sample_eval128_grad", "sample_eval128",
+            "fvsrn_tpu/ops/fused_eval.py:42", c2["sample_eval_grad"],
+            aa2["sample_eval"], aa2["sample_eval"]["max_abs_err"])]
 
 
 def main():
@@ -6232,8 +6665,15 @@ def main():
         row["tf_modes_networks"] = tfn[row["name"]]
     clock("phase Y")
     # Table 1's wide networks on rows 1-7 (the width-128 instances)
-    wide_rows = wide_networks(smi, reset_counts, counts, cam)
+    trained128, wide_rows = wide_networks(smi, reset_counts, counts, cam)
     clock("phase Z")
+    # TFs of any size on rows 1-6; normals and position gradients on the
+    # trained 128:128:128 network (rows 1, 4, 7)
+    aa, aa_rows = tf_points_wide_normals(smi, reset_counts, counts, npz,
+                                         cam, trained128)
+    for row in [render_row, segment_row] + train_rows + scan_rows:
+        row["tf_points"] = aa[row["name"]]
+    clock("phase AA")
 
     # 2, finished: every source built, each nvcc's seconds, the seconds the
     # phases waited for one, the ptxas reports
@@ -6254,7 +6694,7 @@ def main():
     # 11. kernels
     print(json.dumps({"kernels": [render_row] + train_rows
                       + [segment_row] + scan_rows + [mc_row] + probe
-                      + anytf_rows + anyg_rows + wide_rows}))
+                      + anytf_rows + anyg_rows + wide_rows + aa_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

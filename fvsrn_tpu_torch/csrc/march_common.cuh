@@ -580,16 +580,14 @@ __device__ __forceinline__ float tf_color_adjoint(
   return sb + d_denom;
 }
 
-// Whether the TF of a call is one the kernels take: tf_points knots (2 to
-// max_points, the kernel's limit), texels (>= 2; preint1d also tf_pre >= 2
-// cumulative rows), Gaussians (1 to max_points) or R2 >= 1, and tf_floats
-// of the packed TF.
+// Whether the TF of a call is one the kernels take: tf_points knots (>=
+// 2), texels (>= 2; preint1d also tf_pre >= 2 cumulative rows), Gaussians
+// (>= 1) or R2 >= 1, and tf_floats of the packed TF.
 inline bool tf_valid(int tfm, int tf_points, int tf_pre, int tf_floats,
-                     const void* tf2d, int max_points) {
+                     const void* tf2d) {
   switch (tfm) {
     case kTfPiecewise:
-      return tf_points >= 2 && tf_points <= max_points
-             && tf_floats == 5 * tf_points;
+      return tf_points >= 2 && tf_floats == 5 * tf_points;
     case kTfTexture:
       return tf_points >= 2 && tf_floats == 4 * tf_points;
     case kTfPreint1d:
@@ -598,11 +596,23 @@ inline bool tf_valid(int tfm, int tf_points, int tf_pre, int tf_floats,
     case kTfPreint2d:
       return tf_points >= 1 && tf_floats == 0 && tf2d != nullptr;
     case kTfGaussian:
-      return tf_points >= 1 && tf_points <= max_points
-             && tf_floats == 6 * tf_points;
+      return tf_points >= 1 && tf_floats == 6 * tf_points;
     default:
       return false;
   }
+}
+
+// Piecewise knots or Gaussians a launch stages in shared memory: the
+// largest count at which every instance's plan is its 16-point plan
+// (ops/sample_mlp.py's TF_STAGED_POINTS). A larger TF is read from the
+// packed weights in device memory, and the plan counts none of it.
+constexpr int kTfStaged = 19;
+
+// TF floats a launch stages of the `tf_floats` packed ones.
+__host__ __device__ inline int staged_tf_floats(int tfm, int tf_points,
+                                                int tf_floats) {
+  return (tfm == kTfPiecewise || tfm == kTfGaussian) && tf_points > kTfStaged
+             ? 0 : tf_floats;
 }
 
 // ---------------------------------------------------------------------------

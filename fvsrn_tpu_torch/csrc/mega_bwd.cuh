@@ -304,13 +304,15 @@ extern "C" int mega_bwd_launch(
   // a row: [pos 3, dir 3 (with direction input), cos F, sin F, latent 16]
   const Offsets off = weight_offsets(H, F, nh, n_out, has_dir);
   const int K1 = off.K1, c0 = has_dir ? 6 : 3;
-  if (!choose_plan(H, K1, nh, F, tf_floats, A.L.pl, tfm != kTfPiecewise))
+  const int tfn = staged_tf_floats(tfm, tf_points, tf_floats);
+  if (!choose_plan(H, K1, nh, F, tfn, A.L.pl, tfm != kTfPiecewise))
     return (int)cudaErrorInvalidValue;
   Dims& D = A.L.D;
   D.F = F; D.nh = nh; D.chunks = 1; D.n_lat = n_lat; D.tp = tf_points;
   D.tpre = tf_pre;
   D.tf2d = reinterpret_cast<const float4*>(tf2d);
   D.d_tf2d = reinterpret_cast<float4*>(d_tf2d);
+  D.tfg = tfn < tf_floats ? weights + off.TF : nullptr;
   D.K1 = K1; D.n_out = n_out;
   D.pos = 0; D.dir = has_dir ? 3 : -1; D.cos = c0; D.sin = c0 + F;
   D.lat = c0 + 2 * F;

@@ -36,7 +36,6 @@ using namespace march;
 constexpr int kTile = MEGA_TILE;   // rays per block = threads per block
 constexpr int kMaxFourier = 32;
 constexpr int kMaxHidden = 6;   // hidden->hidden layers
-constexpr int kMaxTf = 16;      // TF control points
 
 // Geometry and options of one march, shared by both kernels.
 struct March {
@@ -100,7 +99,7 @@ inline bool mega_valid(int act, int head, int tfm, int tf_points,
     return false;
   if (head >= kRgbo)
     return tfm == kTfPiecewise && tf_points == 0 && tf_floats == 0;
-  return tf_valid(tfm, tf_points, tf_pre, tf_floats, tf2d, kMaxTf);
+  return tf_valid(tfm, tf_points, tf_pre, tf_floats, tf2d);
 }
 
 // Per-ray setup shared by both kernels: the ray packet and the tile's

@@ -4,8 +4,8 @@
 // nvcc builds the widths in parallel. Width 128 (every network wider than
 // 64, and mixed widths whose widest layer is) takes warp_mlp.cuh's wide
 // plan: its hidden matrices are read from the packed weights in device
-// memory; its five parts are on 256-ray tiles only and have no normals
-// instance.
+// memory; its five parts and its normals instance (mega_fwd_nrm128.cu)
+// are on 256-ray tiles only.
 //
 // Replaces the TPU kernel fvsrn_tpu/ops/fused_mega.py:_mega_fwd_kernel in
 // both its launches: the render's (non-differentiable, bf16 latent table)
@@ -31,7 +31,9 @@
 // three-pass mma.sync product (float32-accurate) with the activation in
 // its epilogue, composited in order by a segmented scan over the tile.
 // The weights and TF control points are staged once per block in shared
-// memory; the table stays in L2 (1 MB bf16, 2 MB float32 at 32^3 x 16).
+// memory (a piecewise or Gaussian TF above march_common.cuh's kTfStaged
+// points is read from the packed weights in device memory instead); the
+// table stays in L2 (1 MB bf16, 2 MB float32 at 32^3 x 16).
 //
 // Instances: per width, every TF mode of SnakeAlt networks without
 // direction input (the product's networks; the activation compiled into
@@ -51,7 +53,7 @@
 // (mega_fwd_anyg*.cu), the last two on 256-ray tiles only (the render's
 // and the screen trainer's tile). The
 // normals instances (MEGA_NORMALS: mega_fwd_nrm.cu, mega_fwd_nrm48.cu,
-// mega_fwd_nrm64.cu, a library each) replace the JAX kernel's render with
+// mega_fwd_nrm64.cu, mega_fwd_nrm128.cu, a library each) replace the JAX kernel's render with
 // need_normals and a BRDF: the generic instance's tile, then each counting
 // sample's position gradient, shading, and its normal and depth blended
 // with the colour's weights (warp_mlp.cuh's warp_chunk with RowNormal).
@@ -400,16 +402,17 @@ int launch(const March& P, const FwdOut& O, const FLayer& L,
 }
 
 // The tile's dims and the shared-memory plan (kTile / 32 warps a block)
-// with the TF's cumulative rows, packed floats and preint2d table; false
-// when it does not fit.
-bool fill_layer(FLayer& L, const March& P, int tf_pre, int tf_floats,
-                const float* tf2d) {
+// with the TF's mode, cumulative rows, packed floats and preint2d table
+// (a piecewise or Gaussian TF above kTfStaged points read from the packed
+// weights); false when it does not fit.
+bool fill_layer(FLayer& L, const March& P, int tfm, int tf_pre,
+                int tf_floats, const float* tf2d) {
   FDims& D = L.D;
   set_columns(D, P.n_fourier, 1, P.has_dir);
   D.nh = P.n_hidden;
   D.tp = P.tf_points;
   D.tpre = tf_pre;
-  D.tfn = tf_floats;
+  D.tfn = staged_tf_floats(tfm, P.tf_points, tf_floats);
   D.tf2d = reinterpret_cast<const float4*>(tf2d);
   D.has_dir = P.has_dir;
   D.act = P.act;
@@ -432,6 +435,7 @@ bool fill_layer(FLayer& L, const March& P, int tf_pre, int tf_floats,
   const Offsets off = weight_offsets(MEGA_WIDTH, P.n_fourier, P.n_hidden,
                                      D.n_out, P.has_dir);
   D.wg = P.weights + off.Wh;
+  D.tfg = D.tfn < tf_floats ? P.weights + off.TF : nullptr;
   D.wg_k = 1;
   D.wg_o = MEGA_WIDTH;
   D.wg_l = MEGA_WIDTH * MEGA_WIDTH;
@@ -447,7 +451,8 @@ bool fill_layer(FLayer& L, const March& P, int tf_pre, int tf_floats,
 // (position_grad.cuh RowNormal, on the engine's packed weights `NP`), is
 // shaded (`S`) and blends its normal and depth into `nd_out`.
 template <typename Table>
-__global__ void __launch_bounds__(kTile, 2) mega_nrm_kernel(
+__global__ void __launch_bounds__(kTile, fwd_min_blocks(MEGA_WIDTH))
+    mega_nrm_kernel(
     const March P, const FwdOut O, const FLayer L, const segment::Seg NP,
     const Shade S, float4* nd_out) {
   const segment::RowNormal nrm{NP, S};
@@ -548,7 +553,7 @@ extern "C" int mega_fwd_launch(
   P.seg_active = seg_active;
   P.mask_cols = mask_cols;
   FLayer L;
-  if (!fill_layer(L, P, tf_pre, tf_floats, tf2d))
+  if (!fill_layer(L, P, tfm, tf_pre, tf_floats, tf2d))
     return (int)cudaErrorInvalidValue;
   FwdOut O;
   O.out = out;
@@ -598,7 +603,7 @@ extern "C" int mega_fwd_nrm_launch(
   P.seg_active = seg_active;
   P.mask_cols = mask_cols;
   FLayer L;
-  if (!fill_layer(L, P, 0, 5 * tf_points, nullptr))
+  if (!fill_layer(L, P, kTfPiecewise, 0, 5 * tf_points, nullptr))
     return (int)cudaErrorInvalidValue;
   const segment::Seg NP = segment::make_seg(
       rays, nullptr, table, nweights, n_nweights, n_rays, gx, gy, gz, chunks,

@@ -117,16 +117,28 @@ __global__ void __launch_bounds__(kThreads, fwd_min_blocks(H))
 
 // The gradient instance (one thread a position, 128 threads a block).
 // Shared memory: the packed weights, then (from a 16-byte boundary) the
-// activation scratch, H rows of kBlock floats.
+// activation scratch, H rows of kBlock floats. The wide width (128) stages
+// no weights: they are read from device memory, where they stay in L2.
+template <int H>
+__host__ __device__ constexpr bool grad_stages_weights() {
+  return !smlp::wide_width(H);
+}
+
 template <int H, typename Table>
 __global__ void __launch_bounds__(kBlock) sample_grad_kernel(
     const Seg P, const EvalArgs A) {
   extern __shared__ float4 smem4[];
   float* sw = reinterpret_cast<float*>(smem4);
-  for (int i = threadIdx.x; i < P.n_weights; i += kBlock) sw[i] = P.weights[i];
-  __syncthreads();
-  const Wts N = carve(sw, P, H);
-  float* hs = sw + scratch_offset(P.n_weights) + threadIdx.x;
+  const float* w = P.weights;
+  float* hs = sw + threadIdx.x;
+  if constexpr (grad_stages_weights<H>()) {
+    for (int i = threadIdx.x; i < P.n_weights; i += kBlock)
+      sw[i] = P.weights[i];
+    __syncthreads();
+    w = sw;
+    hs += scratch_offset(P.n_weights);
+  }
+  const Wts N = carve(w, P, H);
 
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= A.n) return;
@@ -209,7 +221,8 @@ template <int H, typename Table>
 int launch_grad(const Seg& P, const EvalArgs& A, cudaStream_t stream) {
   static std::atomic<int> allowed[kDevices];
   const size_t smem =
-      (scratch_offset(P.n_weights) + (size_t)H * kBlock) * sizeof(float);
+      ((grad_stages_weights<H>() ? scratch_offset(P.n_weights) : 0)
+       + (size_t)H * kBlock) * sizeof(float);
   if (smem > 48 * 1024) {
     int dev = 0;
     const cudaError_t e = allow_smem(sample_grad_kernel<H, Table>, allowed,
@@ -230,8 +243,9 @@ int launch(const Seg& P, const EvalArgs& A, const FLayer& L, int want_grad,
 }
 
 // The widths a library holds: 32, 48 and 64, or with SAMPLE_EVAL_WIDE
-// (sample_eval128.cu, a library of its own) the value instance at 128
-// (warp_mlp.cuh's wide plan; no gradient instance).
+// (sample_eval128.cu, a library of its own) 128 (the value instance on
+// warp_mlp.cuh's wide plan, the gradient instance on the weights in device
+// memory).
 #ifndef SAMPLE_EVAL_WIDE
 #define SAMPLE_EVAL_WIDE 0
 #endif
@@ -240,9 +254,8 @@ template <typename Table>
 int launch_width(const Seg& P, const EvalArgs& A, const FLayer& L,
                  int hidden, int want_grad, cudaStream_t stream) {
 #if SAMPLE_EVAL_WIDE
-  if (hidden != smlp::kWideWidth || want_grad)
-    return (int)cudaErrorInvalidValue;
-  return launch_values<smlp::kWideWidth, Table>(P, A, L, stream);
+  if (hidden != smlp::kWideWidth) return (int)cudaErrorInvalidValue;
+  return launch<smlp::kWideWidth, Table>(P, A, L, want_grad, stream);
 #else
   switch (hidden) {
     case 32: return launch<32, Table>(P, A, L, want_grad, stream);
@@ -289,8 +302,8 @@ extern "C" int sample_eval_grid(int n, int hidden, int n_fourier, int chunks,
 // Evaluate the density SRN at n positions `pos01` ((n, 3), in the box's
 // [0, 1]^3): `out` (n,) values, or with want_grad (n, 4) [value, d value /
 // d pos01]. Weights packed as segment_common.cuh's `Wts` (any two TF
-// points) with the padded hidden width `hidden` (32, 48 or 64; 128, values
-// only, in sample_eval128.cu's library); `table` is
+// points) with the padded hidden width `hidden` (32, 48 or 64; 128 in
+// sample_eval128.cu's library); `table` is
 // the channel-last latent grid (gz, gy, gx, 16 * chunks), bf16 (table_f32 =
 // 0) or float32, not read with chunks = 0. `dirs` ((n, 3)) is read with
 // has_dir only; null is a zero direction. Density heads only. Launches on

@@ -1,4 +1,5 @@
-// The sample evaluator's value instance at hidden width 128 (warp_mlp.cuh's
-// wide plan; no gradient instance), a library of its own.
+// The sample evaluator at hidden width 128, a library of its own: the
+// value instance on warp_mlp.cuh's wide plan, the gradient instance (one
+// thread a position) on the packed weights in device memory.
 #define SAMPLE_EVAL_WIDE 1
 #include "sample_eval.cu"

@@ -202,6 +202,8 @@ struct Dims {
   int tpre;                      // cumulative TF rows (preint1d)
   const float4* tf2d;            // the preint2d table, and its gradient
   float4* d_tf2d;
+  const float* tfg;              // the TF in device memory when it is not
+                                 // staged (kTfStaged), else null
 };
 
 // Where each gradient entry goes in the block's partial row: base offset
@@ -601,6 +603,20 @@ __device__ __forceinline__ void forward(const Dims& D, const Smem& S, bool keep)
   __syncthreads();
 }
 
+// fn(the TF the rows of mode TFM read): a piecewise or Gaussian TF above
+// kTfStaged points in device memory (D.tfg), else the one staged in the
+// vectors. Each call inlines its own copy of fn, so that the staged one
+// reads shared memory as it would alone.
+template <int TFM, class Fn>
+__device__ __forceinline__ decltype(auto) with_tf(const Dims& D,
+                                                  const Smem& S,
+                                                  const Fn& fn) {
+  if constexpr (TFM == kTfPiecewise || TFM == kTfGaussian) {
+    if (D.tfg != nullptr) return fn(D.tfg);
+  }
+  return fn(static_cast<const float*>(S.TF()));
+}
+
 // Adjoint of tf_lookup (march_common.cuh's tf_adjoint) with the gradient
 // of its two control points in g0, g1 (zeroed by the caller).
 __device__ __forceinline__ float tf_adjoint_rows(const float* TF,
@@ -753,30 +769,32 @@ __device__ __forceinline__ void tf_mode_grad(const Dims& D, const Smem& S,
                                              const GOut& G, float* g) {
   const int M = S.p.M;
   if constexpr (TFM == kTfGaussian) {
+    with_tf<TFM>(D, S, [&](const float* T) {
 #pragma unroll 1
-    for (int e = threadIdx.x; e < 6 * D.tp; e += NTH) {
-      const int q = e / 6, c = e % 6;
-      const float* gq = S.TF() + 6 * q;
-      const float s2 = gq[5] * gq[5];
-      float acc = 0.0f;
+      for (int e = threadIdx.x; e < 6 * D.tp; e += NTH) {
+        const int q = e / 6, c = e % 6;
+        const float* gq = T + 6 * q;
+        const float s2 = gq[5] * gq[5];
+        float acc = 0.0f;
 #pragma unroll 1
-      for (int m = 0; m < M; ++m) {
-        const float* rw = S.rows() + m * kRowF;
-        if (rw[kRecLo1] < 0.0f) continue;
-        const float* df = rw + kRecDc;
-        const float u = rw[kRecF1] - gq[4];
-        const float w = expf(-(u * u) / s2);
-        if (c < 4) {
-          acc += w * df[c];
-        } else {
-          const float core = (gq[0] * df[0] + gq[1] * df[1] + gq[2] * df[2]
-                              + gq[3] * df[3]) * w;
-          const float t = 2.0f * core * (u / s2);
-          acc += c == 4 ? t : t * u / gq[5];
+        for (int m = 0; m < M; ++m) {
+          const float* rw = S.rows() + m * kRowF;
+          if (rw[kRecLo1] < 0.0f) continue;
+          const float* df = rw + kRecDc;
+          const float u = rw[kRecF1] - gq[4];
+          const float w = expf(-(u * u) / s2);
+          if (c < 4) {
+            acc += w * df[c];
+          } else {
+            const float core = (gq[0] * df[0] + gq[1] * df[1] + gq[2] * df[2]
+                                + gq[3] * df[3]) * w;
+            const float t = 2.0f * core * (u / s2);
+            acc += c == 4 ? t : t * u / gq[5];
+          }
         }
+        g[G.TF + e] += acc;
       }
-      g[G.TF + e] += acc;
-    }
+    });
   } else if constexpr (TFM == kTfTexture || TFM == kTfPreint1d) {
     const int rows = D.tp + (TFM == kTfPreint1d ? D.tpre : 0);
 #pragma unroll 1
@@ -1049,7 +1067,9 @@ __device__ __forceinline__ bool row_color(const Dims& D, const Smem& S,
   if (!(v[0] >= D.density_min)) return false;
   const float d = fminf(fmaxf((v[0] - D.density_min) * D.inv_range, 0.0f),
                         1.0f);
-  tf_lookup(S.TF(), D.tp, d, tf);
+  with_tf<kTfPiecewise>(D, S, [&](const float* T) {
+    tf_lookup(T, D.tp, d, tf);
+  });
   c[0] = tf.r;
   c[1] = tf.g;
   c[2] = tf.b;
@@ -1203,9 +1223,12 @@ __device__ __forceinline__ void group_segment(const Dims& D, const Smem& S,
           const float density2 = (v[0] - D.density_min) * D.inv_range;
           const float d = fminf(fmaxf(density2, 0.0f), 1.0f);
           TfSample tf;
-          tf_lookup(S.TF(), D.tp, d, tf);
+          const float d_d =
+              with_tf<kTfPiecewise>(D, S, [&](const float* T) {
+                tf_lookup(T, D.tp, d, tf);
+                return tf_adjoint_rows(T, tf, d, d_v, g0, g1);
+              });
           iv = tf.iv;
-          const float d_d = tf_adjoint_rows(S.TF(), tf, d, d_v, g0, g1);
           d_v[0] = (density2 > 0.0f && density2 < 1.0f) ? d_d * D.inv_range
                                                           : 0.0f;
         }
@@ -1303,8 +1326,10 @@ __device__ __forceinline__ void group_segment_tf(
       if ((first >> j) & 1u) prev = -1.0f;
       const float d2 = dn[o];
       if (d2 >= 0.0f) {                  // the value reaches density_min
-        const float4 c = tf_color<TFM>(S.TF(), D.tf2d, D.tp, D.tpre,
-                                       fminf(d2, 1.0f), prev, D.h);
+        const float4 c = with_tf<TFM>(D, S, [&](const float* T) {
+          return tf_color<TFM>(T, D.tf2d, D.tp, D.tpre, fminf(d2, 1.0f),
+                               prev, D.h);
+        });
         sd[o] = cr * c.x + cg * c.y + cb * c.z;
         sa[o] = c.w;
         counted |= 1u << j;
@@ -1371,8 +1396,10 @@ __device__ __forceinline__ void group_segment_tf(
           }
         } else {
           TfRecord rec;
-          own = tf_color_adjoint<TFM>(S.TF(), D.tf2d, D.d_tf2d, D.tp,
-                                      D.tpre, dc, p, D.h, dcol, d_prev, rec);
+          own = with_tf<TFM>(D, S, [&](const float* T) {
+            return tf_color_adjoint<TFM>(T, D.tf2d, D.d_tf2d, D.tp, D.tpre,
+                                         dc, p, D.h, dcol, d_prev, rec);
+          });
         }
       }
       const float tot = ((d2 > 0.0f && d2 < 1.0f) ? own : 0.0f) + chain;
@@ -1419,12 +1446,14 @@ __device__ __forceinline__ void group_segment_tf(
           const float* rr = S.sray() + rl * kRayF;
           const float w = S.sc()[o];
           float d_prev;
-          tf_color_adjoint<TFM>(
-              S.TF(), D.tf2d, D.d_tf2d, D.tp, D.tpre,
-              fminf(fmaxf(dn[o], 0.0f), 1.0f), p, D.h,
-              make_float4(w * rr[9], w * rr[10], w * rr[11],
-                          S.sc()[kGS + o]),
-              d_prev, rec);
+          with_tf<TFM>(D, S, [&](const float* T) {
+            tf_color_adjoint<TFM>(
+                T, D.tf2d, D.d_tf2d, D.tp, D.tpre,
+                fminf(fmaxf(dn[o], 0.0f), 1.0f), p, D.h,
+                make_float4(w * rr[9], w * rr[10], w * rr[11],
+                            S.sc()[kGS + o]),
+                d_prev, rec);
+          });
           if (TFM == kTfGaussian) rec.lo1 = 0.0f;
         }
         const float d_v[4] = {S.ddens()[o] * D.inv_range, 0.0f, 0.0f, 0.0f};

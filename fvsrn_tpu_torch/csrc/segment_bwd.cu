@@ -114,7 +114,8 @@ __global__ void __launch_bounds__(kThreads, 2) segment_bwd_kernel(const Seg P,
   }
   for (int i = threadIdx.x; i < H; i += kThreads) S.b1()[i] = w[K1 * H + i];
   const int off_bh = off_wh + nh * H * H;
-  for (int i = threadIdx.x; i < P.n_weights - off_bh; i += kThreads)
+  // the staged vectors past b1 (a TF in device memory is not staged)
+  for (int i = threadIdx.x; i < pl.n_vec - H; i += kThreads)
     S.bh()[i] = w[off_bh + i];
   for (int i = threadIdx.x; i < pl.M * pl.ldx; i += kThreads) S.X()[i] = 0.0f;
   float* g = A.d_weights + (size_t)blockIdx.x * P.n_weights;
@@ -283,7 +284,8 @@ extern "C" int segment_bwd_launch(
   A.work = work;
   const int F = n_fourier, nh = n_hidden, H = hidden;
   const int K1 = 6 + 2 * F + kLat * chunks;
-  if (!choose_plan(H, K1, nh, F, tf_floats, A.L.pl, tfm != kTfPiecewise))
+  const int tfn = staged_tf_floats(tfm, tf_points, tf_floats);
+  if (!choose_plan(H, K1, nh, F, tfn, A.L.pl, tfm != kTfPiecewise))
     return (int)cudaErrorInvalidValue;
   Dims& D = A.L.D;
   D.F = F; D.nh = nh; D.chunks = chunks; D.n_lat = n_lat;
@@ -291,6 +293,7 @@ extern "C" int segment_bwd_launch(
   D.tpre = tf_pre;
   D.tf2d = reinterpret_cast<const float4*>(tf2d);
   D.d_tf2d = reinterpret_cast<float4*>(d_tf2d);
+  D.tfg = tfn < tf_floats ? carve(weights, P, H).TF : nullptr;
   D.pos = 0; D.dir = 3; D.cos = 6; D.sin = 6 + F; D.lat = 6 + 2 * F;
   D.has_dir = has_dir; D.act = act; D.head = head;
   D.blend_alpha = blend_alpha;

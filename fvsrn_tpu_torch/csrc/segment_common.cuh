@@ -15,7 +15,6 @@ using namespace march;
 
 constexpr int kMaxFourier = 32;
 constexpr int kMaxHidden = 6;   // hidden->hidden layers
-constexpr int kMaxTf = 16;
 constexpr int kMaxChunks = 4;   // latent channels <= 64, in rows of 16
 constexpr int kMaxK1 = 6 + 2 * kMaxFourier + kLat * kMaxChunks;
 
@@ -41,8 +40,7 @@ struct Seg {
 // Whether the call's options are ones the kernels take.
 inline bool seg_valid(const Seg& P) {
   return P.n_fourier <= kMaxFourier && P.n_hidden <= kMaxHidden
-         && tf_valid(P.tfm, P.tf_points, P.tf_pre, P.tf_floats, P.tf2d,
-                     kMaxTf)
+         && tf_valid(P.tfm, P.tf_points, P.tf_pre, P.tf_floats, P.tf2d)
          && P.chunks <= kMaxChunks && P.chunks >= 0 && P.seg >= 1
          && P.act >= kNone && P.act <= kSnakeAlt && P.head >= kDensity
          && P.head <= kRgboExp;
@@ -63,7 +61,8 @@ struct Wts {
   const float *W1, *b1, *Wh, *bh, *Wo, *bo, *B, *Bd, *TF;
 };
 
-__device__ __forceinline__ Wts carve(const float* w, const Seg& P, int H) {
+__host__ __device__ __forceinline__ Wts carve(const float* w, const Seg& P,
+                                             int H) {
   const int F = P.n_fourier;
   const int K1 = 6 + 2 * F + kLat * P.chunks;
   Wts N;

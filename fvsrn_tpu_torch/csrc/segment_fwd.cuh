@@ -251,13 +251,15 @@ __global__ void __launch_bounds__(kThreads, fwd_min_blocks(H))
   segment_march<H, Table, TFM, NoNormal, ACT>(P, O, L, phase);
 }
 
-// The normals instances (segment_fwd_nrm.cu): the piecewise TF of density
-// heads, any activation and direction input, per-ray or lattice sampling,
-// one instance a width and table type. Each counting sample also goes
+// The normals instances (segment_fwd_nrm.cu; width 128 in
+// segment_fwd_nrm128.cu): the piecewise TF of density heads, any
+// activation and direction input, per-ray or lattice sampling, one
+// instance a width and table type. Each counting sample also goes
 // through the scalar network and its adjoint sweep (position_grad.cuh
 // RowNormal), is shaded (`S`) and blends its normal and depth into `nd`.
 template <int H, typename Table>
-__global__ void __launch_bounds__(kThreads, 2) segment_nrm_kernel(
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks(H))
+    segment_nrm_kernel(
     const Seg P, const SegOut O, const FLayer L, int phase, const Shade S,
     float4* nd) {
   const RowNormal nrm{P, S};
@@ -280,16 +282,29 @@ int launch_nrm(const Seg& P, const SegOut& O, const FLayer& L, int phase,
   return (int)cudaGetLastError();
 }
 
+// The widths a library holds: 32, 48 and 64, or with SEGMENT_WIDE (the
+// *128.cu sources, libraries of their own) the wide instances' 128.
+#ifndef SEGMENT_WIDE
+#define SEGMENT_WIDE 0
+#endif
+
 template <typename Table>
 int launch_nrm_width(const Seg& P, const SegOut& O, const FLayer& L,
                      int hidden, int phase, const Shade& S, float4* nd,
                      cudaStream_t stream) {
+#if SEGMENT_WIDE
+  return hidden == smlp::kWideWidth
+             ? launch_nrm<smlp::kWideWidth, Table>(P, O, L, phase, S, nd,
+                                                   stream)
+             : (int)cudaErrorInvalidValue;
+#else
   switch (hidden) {
     case 32: return launch_nrm<32, Table>(P, O, L, phase, S, nd, stream);
     case 48: return launch_nrm<48, Table>(P, O, L, phase, S, nd, stream);
     case 64: return launch_nrm<64, Table>(P, O, L, phase, S, nd, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+#endif
 }
 
 template <int H, typename Table, int TFM, int ACT>
@@ -357,12 +372,6 @@ int launch_tf(const Seg& P, const SegOut& O, const FLayer& L, int phase,
   }
 #endif
 }
-
-// The widths a library holds: 32, 48 and 64, or with SEGMENT_WIDE (the
-// *128.cu sources, libraries of their own) the wide instances' 128.
-#ifndef SEGMENT_WIDE
-#define SEGMENT_WIDE 0
-#endif
 
 template <typename Table>
 int launch_width(const Seg& P, const SegOut& O, const FLayer& L, int hidden,

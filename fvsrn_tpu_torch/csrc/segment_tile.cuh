@@ -54,15 +54,19 @@ __device__ __forceinline__ void stage_weights(const Seg& P, const FPlan& pl,
 }
 
 // The tile's dims and the shared-memory plan of a call whose block takes
-// `tp` TF points (the call's TF; 0: none); false when no plan fits.
+// `tp` TF points (the call's TF; 0: none), staged up to kTfStaged
+// piecewise knots or Gaussians; false when no plan fits.
 inline bool fill_layer(FLayer& L, const Seg& P, int hidden, int tp) {
   FDims& D = L.D;
   wmlp::set_columns(D, P.n_fourier, P.chunks, P.has_dir);
   D.nh = P.n_hidden;
   D.tp = tp;
   D.tpre = P.tf_pre;
-  D.tfn = tp ? P.tf_floats : 0;
+  D.tfn = tp ? staged_tf_floats(P.tfm, tp, P.tf_floats) : 0;
   D.tf2d = P.tf2d;
+  // a piecewise or Gaussian TF above kTfStaged points: the packed one
+  D.tfg = tp && D.tfn < P.tf_floats ? carve(P.weights, P, hidden).TF
+                                    : nullptr;
   D.has_dir = P.has_dir;
   D.act = P.act;
   D.head = P.head;

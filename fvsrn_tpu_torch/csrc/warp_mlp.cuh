@@ -84,7 +84,8 @@ struct FPlan {
 // up to K, the row's width (a multiple of 8); F4 is F rounded up to 4 (the
 // Fourier matrices' staged rows). The TF: tp rows (knots, texels,
 // Gaussians, or R2), tpre cumulative rows (preint1d), tfn floats staged,
-// tf2d the preint2d table.
+// tf2d the preint2d table; tfg the TF in device memory when it is not
+// staged (march_common.cuh's kTfStaged), else null.
 struct FDims {
   int F, F4, nh, chunks, K, tp;
   int cos, sin, lat, pos;
@@ -94,6 +95,7 @@ struct FDims {
   const void* table;
   int tpre, tfn;
   const float4* tf2d;
+  const float* tfg;
   // the wide plan's hidden matrices in device memory: entry (input k,
   // output o) of matrix l at wg[l * wg_l + k * wg_k + o * wg_o]
   const float* wg;
@@ -649,6 +651,21 @@ __device__ __forceinline__ void build_row(const FDims& D, const float* sm,
   for (; D.pos + k < D.K; ++k) pd[k] = 0.0f;
 }
 
+// fn(the TF a row of mode TFM reads): a piecewise or Gaussian TF above
+// kTfStaged points in device memory (D.tfg), else the one staged at
+// pl.TF. Each call inlines its own copy of fn, so that the staged one
+// reads shared memory as it would alone.
+template <int TFM, class Fn>
+__device__ __forceinline__ decltype(auto) with_tf(const FDims& D,
+                                                  const float* sm,
+                                                  const FPlan& pl,
+                                                  const Fn& fn) {
+  if constexpr (TFM == kTfPiecewise || TFM == kTfGaussian) {
+    if (D.tfg != nullptr) return fn(D.tfg);
+  }
+  return fn(sm + pl.TF);
+}
+
 // A row's color (r, g, b, alpha) from the head's input y, alpha < 0 when
 // the sample does not count (a density below density_min); with iso the
 // head's value in x. As segment_common.cuh's sample_color / sample_alpha.
@@ -815,10 +832,11 @@ __device__ __forceinline__ void warp_chunk(const FPlan& pl, const FDims& D,
         head_value(D.head, ya, v);
         if (v[0] >= D.density_min) {
           TfSample tf;
-          tf_lookup(sm + pl.TF, D.tp,
-                    fminf(fmaxf((v[0] - D.density_min) * D.inv_range, 0.0f),
-                          1.0f),
-                    tf);
+          const float dn =
+              fminf(fmaxf((v[0] - D.density_min) * D.inv_range, 0.0f), 1.0f);
+          with_tf<kTfPiecewise>(D, sm, pl, [&](const float* T) {
+            tf_lookup(T, D.tp, dn, tf);
+          });
           col = make_float4(tf.r, tf.g, tf.b, tf.op * D.h);
           const float* rf = rays + kRayF * L;
           const int j = (int)__fns(ml, 0, i - ex + 1);
@@ -836,7 +854,9 @@ __device__ __forceinline__ void warp_chunk(const FPlan& pl, const FDims& D,
       if (lane < cnt) {
         const float4 y = reinterpret_cast<const float4*>(ybuf)[lane];
         const float ya[4] = {y.x, y.y, y.z, y.w};
-        col = row_color(D, sm + pl.TF, ya);
+        col = with_tf<kTfPiecewise>(D, sm, pl, [&](const float* T) {
+          return row_color(D, T, ya);
+        });
       }
     } else {
       const float4 y = reinterpret_cast<const float4*>(ybuf)[lane];
@@ -855,7 +875,9 @@ __device__ __forceinline__ void warp_chunk(const FPlan& pl, const FDims& D,
         const int j = (int)__fns(ml, 0, i - ex + 1);
         if (pt.first(rays + kRayF * L, j)) prev = -1.0f;
         if (!((dl >> j) & 1u))
-          col = row_color_tf<TFM>(D, sm + pl.TF, ya, dens, prev);
+          col = with_tf<TFM>(D, sm, pl, [&](const float* T) {
+            return row_color_tf<TFM>(D, T, ya, dens, prev);
+          });
       }
     }
     FWD_MARK(fp, 2);

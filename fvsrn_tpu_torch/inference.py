@@ -86,8 +86,9 @@ OCCUPANCY_FINE = 2
 def fused_render_tf(tf) -> dict:
     """The march's TF kwargs of a FUSED render of ``tf``, routed as the JAX
     package routes its product render (fvsrn_tpu/inference.py:251-261):
-    the piecewise TF, and the texture TF by its preintegration (texture,
-    preint1d, preint2d) on every route. Any other TF raises
+    the piecewise TF of any number of knots, and the texture TF by its
+    preintegration (texture, preint1d, preint2d) on every route. Any
+    other TF raises
     ``NotImplementedError``: the JAX render passes a Gaussian's (G, 6)
     tensor to its kernels as piecewise knots, an image that is not the
     TF's (ROADMAP, differs on purpose)."""

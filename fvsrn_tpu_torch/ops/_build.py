@@ -46,11 +46,12 @@ MEGA_SOURCES = tuple(f"{kind}{w}{t}"
                      for t in ("", "_t128") for w in ("", "48", "64")
                      if not (kind in _TILE256_ONLY and t))
 # the width-128 instances (the wide plans: hidden matrices in device
-# memory), 256-ray tiles, no normals instances
+# memory), 256-ray tiles; the normals instances last
 WIDE_SOURCES = tuple(f"{kind}128" for kind in (
     "mega_fwd", "mega_fwd_tf", "mega_fwd_any", "mega_fwd_anytf",
     "mega_fwd_anyg", "mega_bwd", "segment_fwd", "segment_fwd_tf",
-    "segment_fwd_anytf", "segment_fwd_anyg", "segment_bwd", "sample_eval"))
+    "segment_fwd_anytf", "segment_fwd_anyg", "segment_bwd", "sample_eval",
+    "mega_fwd_nrm", "segment_fwd_nrm"))
 SOURCES = MEGA_SOURCES + ("segment_fwd", "segment_fwd_tf", "segment_fwd_nrm",
                           "segment_bwd", "sample_eval", "probes",
                           "segment_fwd_anytf", "segment_fwd_anyg"

@@ -90,8 +90,9 @@ from .fused_mega import (_ACTIVATIONS, _HEADS, SMEM_MAX_WIDTH, TfCarries,
 # plain version never counts
 SEGMENT_LAUNCHES = 0
 SEGMENT_NRM_LAUNCHES = 0
-# the forward's launches by library (segment_library), the render's and
-# the training forward's, reset with the counts above
+# the forward's launches by library (segment_library; the normals
+# instances' width_library), the render's and the training forward's,
+# reset with the counts above
 LIBRARY_LAUNCHES: collections.Counter = collections.Counter()
 
 # the JAX megakernel's VMEM budget for its latent slab: the route rule of
@@ -100,7 +101,6 @@ SLAB_VMEM_LIMIT = 6 * 2 ** 20
 MAX_LATENT_CHANNELS = 64
 MAX_FOURIER = 32                 # the kernel's limits (segment_fwd.cu)
 MAX_HIDDEN_LAYERS = 6
-MAX_TF_POINTS = 16               # piecewise knots, Gaussians
 MAX_BWD_SEG = 32                 # segment_bwd.cu's segment length limit
 _PLAIN_CHUNK_SAMPLES = 1 << 21
 _FAR = 3.0e38
@@ -1176,17 +1176,19 @@ def _check_kernel_inputs(net, tf: Tensor, seg: int = 32,
     mode on SnakeAlt networks, and on every other activation the texture,
     1D- and 2D-preintegrated TFs (segment_fwd_anytf.cu) and in training
     the Gaussians (segment_fwd_anyg.cu; the render refuses them); its
-    normals instances (segment_fwd_nrm.cu) take the piecewise TF. Hidden
-    layers up to 128 wide, each zero-padded to the instance of the
-    widest (32, 48, 64, or 128 in the ``*128`` libraries), several widths
-    in the render only; no normals above 64 wide. The rest raises
-    ``NotImplementedError``."""
-    from .sample_mlp import tf_floats_of
+    normals instances (segment_fwd_nrm.cu, segment_fwd_nrm128.cu) take
+    the piecewise TF. Hidden layers up to 128 wide, each zero-padded to
+    the instance of the widest (32, 48, 64, or 128 in the ``*128``
+    libraries), several widths in the render only. Any number of TF knots
+    or Gaussians: the plans count the TF up to ``TF_STAGED_POINTS``
+    points and none above (the kernels then read it from device memory).
+    The rest raises ``NotImplementedError``."""
+    from .sample_mlp import staged_tf_floats, tf_floats_of
     if need_normals and tf_mode != "piecewise":
         raise NotImplementedError(f"segment kernel: normals with TF mode "
                                   f"{tf_mode!r} are not ported yet "
                                   "(piecewise only)")
-    check_kernel_width(net, "segment kernel", differentiable, need_normals)
+    check_kernel_width(net, "segment kernel", differentiable)
     if len(net.layers) - 2 > MAX_HIDDEN_LAYERS:
         raise NotImplementedError(f"segment kernel: at most "
                                   f"{MAX_HIDDEN_LAYERS + 1} hidden layers")
@@ -1197,16 +1199,14 @@ def _check_kernel_inputs(net, tf: Tensor, seg: int = 32,
     if grid is not None and grid.shape[0] > MAX_LATENT_CHANNELS:
         raise NotImplementedError("segment kernel: at most "
                                   f"{MAX_LATENT_CHANNELS} latent channels")
-    if tf_mode in ("piecewise", "gaussian") and tf.shape[0] > MAX_TF_POINTS:
-        raise NotImplementedError(f"segment kernel: at most {MAX_TF_POINTS} "
-                                  f"{tf_mode} TF points")
     if (tf_mode == "gaussian" and net.layers[0].activation != "SnakeAlt"
             and not differentiable):
         raise NotImplementedError(
             f"segment kernel: TF mode 'gaussian' on a "
             f"{net.layers[0].activation} network in training only")
-    tf_floats = (5 * tf.shape[0] if tf_mode == "piecewise"
-                 else tf_floats_of(tf_mode, tf))
+    tf_floats = staged_tf_floats(tf_mode, 5 * tf.shape[0]
+                                 if tf_mode == "piecewise"
+                                 else tf_floats_of(tf_mode, tf))
     if net.layers[0].activation not in _ACTIVATIONS:
         raise NotImplementedError(f"segment kernel: activation "
                                   f"{net.layers[0].activation}")
@@ -1442,7 +1442,8 @@ def _bind_nrm(lib: ctypes.CDLL):
 def launch_segment_nrm(spec: SegmentSpec, net, rays: Tensor,
                        kbase: Optional[Tensor], weights: Tensor,
                        table: Tensor, tf_points: int):
-    """Launch csrc/segment_fwd_nrm.cu: the march and its continuation (as
+    """Launch csrc/segment_fwd_nrm.cu (segment_fwd_nrm128.cu at width
+    128): the march and its continuation (as
     :func:`launch_segment`) with each counting sample's position gradient,
     shading (``spec.brdf``) and the blended normal and depth. Returns
     (RayEvaluationOutput, SegmentStats)."""
@@ -1458,7 +1459,8 @@ def launch_segment_nrm(spec: SegmentSpec, net, rays: Tensor,
         _check_tensors(dev, kbase=kbase)
     gz, gy, gx = table.shape[:3]
     si, sf = shade_args(spec.brdf)
-    fn = _bind_nrm(_build.load("segment_fwd_nrm"))
+    lib = width_library("segment_fwd_nrm", kernel_width(net))
+    fn = _bind_nrm(_build.load(lib))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for phase in (0, 1):
@@ -1480,6 +1482,7 @@ def launch_segment_nrm(spec: SegmentSpec, net, rays: Tensor,
                 raise RuntimeError(f"segment_fwd_nrm launch (phase {phase})"
                                    f" failed with CUDA error {err}")
             SEGMENT_NRM_LAUNCHES += 1
+            LIBRARY_LAUNCHES[lib] += 1
     return (RayEvaluationOutput(color=out, depth=nd[:, 3:4],
                                 normal=nd[:, :3]),
             SegmentStats(stats[1], stats[0]))

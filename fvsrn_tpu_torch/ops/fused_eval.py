@@ -39,7 +39,7 @@ from ..utils.device import strict_f32
 from . import _build
 from .fused_dvr import (_ACTIVATIONS, _HEADS, _check_kernel_inputs,
                         _check_tensors, _latent_chunks, _network_values,
-                        check_kernel_width, kernel_width,
+                        kernel_width,
                         network_position_grad, pack_segment_weights,
                         resolve_network, segment_params, segment_table,
                         width_library)
@@ -206,10 +206,8 @@ def make_fused_eval(net, box_min, box_size, *, time=0.0, ensemble=0.0,
     packed = None
     if net_dev.type == "cuda":
         # the segment kernel's checks; its plan (two TF points) fitting,
-        # the evaluator's (eval_plan, none) fits; no gradient instance
-        # above 64 wide
+        # the evaluator's (eval_plan, none) fits
         _check_kernel_inputs(view, torch.tensor(_NO_TF))
-        check_kernel_width(view, "sample evaluator", need_normals=want_grad)
         packed = (pack_segment_weights(view, torch.tensor(_NO_TF,
                                                           device=net_dev)),
                   segment_table(view, table_dtype, net_dev),

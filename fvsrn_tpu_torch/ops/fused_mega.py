@@ -95,7 +95,7 @@ from . import _build
 # mega_fwd_nrm (the render's normals instances, need_normals)
 LAUNCHES: collections.Counter = collections.Counter()
 # the forward's launches by library (library_name: mega_fwd_anytf48, say),
-# the render's and the training forward's
+# the render's (the normals instances' too) and the training forward's
 LIBRARY_LAUNCHES: collections.Counter = collections.Counter()
 # the backward's launches by library (library_name: mega_bwd128, say)
 BWD_LIBRARY_LAUNCHES: collections.Counter = collections.Counter()
@@ -114,12 +114,11 @@ KERNEL_TILES = (128, 256)
 KERNEL_SEG = 32          # the backward kernel's segment length
 KERNEL_WIDTHS = (32, 48, 64, 128)   # hidden widths of the kernels' instances
 # the widest instance with its hidden matrices in shared memory: wider
-# ones (128) take 256-ray tiles only and have no normals instances
+# ones (128) take 256-ray tiles only
 SMEM_MAX_WIDTH = 64
 LATENT_CHANNELS = 16
 MAX_FOURIER = 32         # the kernels' compile-time limits (mega_common.cuh)
 MAX_HIDDEN_LAYERS = 6    # hidden->hidden layers
-MAX_TF_POINTS = 16
 # the kernels' activation and head ids (csrc/march_common.cuh)
 _ACTIVATIONS = {"None": 0, "NONE": 0, "ReLU": 1, "Sine": 2, "Sigmoid": 3,
                 "Softplus": 4, "Snake": 5, "SnakeAlt": 6}
@@ -627,13 +626,12 @@ def mixed_widths(net) -> bool:
 
 
 def check_kernel_width(net, kernel: str, differentiable: bool = False,
-                       need_normals: bool = False,
                        tile: int = KERNEL_TILE) -> int:
     """:func:`kernel_width`, raising ``NotImplementedError`` for what the
     instances of that width do not take: layers of several widths in
     training (the JAX package's adjoint raises on them), and above
-    ``SMEM_MAX_WIDTH`` normals (and the position-gradient instance) and
-    tiles other than 256 rays."""
+    ``SMEM_MAX_WIDTH`` tiles other than 256 rays. The normals and
+    position-gradient instances take every width up to 128."""
     hp = kernel_width(net)
     if differentiable and mixed_widths(net):
         raise NotImplementedError(
@@ -641,10 +639,6 @@ def check_kernel_width(net, kernel: str, differentiable: bool = False,
             f"({':'.join(map(str, _hidden_widths(net)))}) render only; "
             "training takes one width (the JAX package's adjoint raises "
             "on several)")
-    if hp > SMEM_MAX_WIDTH and need_normals:
-        raise NotImplementedError(f"{kernel}: normals and position "
-                                  f"gradients on networks up to "
-                                  f"{SMEM_MAX_WIDTH} wide only, not {hp}")
     if hp > SMEM_MAX_WIDTH and tile != KERNEL_TILE:
         raise NotImplementedError(f"{kernel}: tiles of {tile} rays on "
                                   f"networks up to {SMEM_MAX_WIDTH} wide "
@@ -773,11 +767,15 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
     without an occupancy mask (``masked``; ``mega_fwd_anyg``: the render
     refuses Gaussians); tiles of 128 or 256 rays (``KERNEL_TILES``), and
     for the backward 32-point segments; and a shared-memory plan that
-    fits. Above 64 wide the tile is 256 rays and there is no normals
-    instance. The normals instances take every other such network with a
-    density head, the piecewise TF and 256-ray tiles. At most 16 TF knots
-    or Gaussians. Everything else raises ``NotImplementedError``."""
-    from .sample_mlp import check_fwd_plan, check_plan
+    fits. Above 64 wide the tile is 256 rays. The normals instances take
+    every such network with a density head, the piecewise TF and 256-ray
+    tiles, at every width. Any number of TF knots or Gaussians: the plans
+    count the TF's ``tf_floats`` (None: ``TF_STAGED_POINTS`` knots, the
+    most a plan stages) up to ``TF_STAGED_POINTS`` points, none above
+    (the kernels then read it from device memory). Everything else raises
+    ``NotImplementedError``."""
+    from .sample_mlp import (TF_STAGED_POINTS, check_fwd_plan, check_plan,
+                             staged_tf_floats)
     if need_normals and tf_mode != "piecewise":
         raise NotImplementedError(f"CUDA kernel: normals with TF mode "
                                   f"{tf_mode!r} are not ported yet "
@@ -796,8 +794,7 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
     if rays.shape[0] % tile:
         raise ValueError(f"ray count {rays.shape[0]} must be a multiple "
                          f"of tile={tile}")
-    hp = check_kernel_width(net, "CUDA kernel", differentiable, need_normals,
-                            tile)
+    hp = check_kernel_width(net, "CUDA kernel", differentiable, tile)
     n_hidden = len(net.layers) - 2
     if n_hidden > MAX_HIDDEN_LAYERS:
         raise NotImplementedError(f"CUDA kernel: at most "
@@ -828,14 +825,16 @@ def _check_kernel_inputs(net, rays: Tensor, tile: int, seg: int = 32,
                 + (" with direction input" if net.use_direction else "")
                 + f" on tiles of {KERNEL_TILE} rays only, not {tile}")
     direction = bool(net.use_direction)
-    check_fwd_plan("CUDA kernel", hp, nf, 1, n_hidden, MAX_TF_POINTS,
+    if tf_floats is not None:
+        tf_floats = staged_tf_floats(tf_mode, tf_floats)
+    check_fwd_plan("CUDA kernel", hp, nf, 1, n_hidden, TF_STAGED_POINTS,
                    warps=tile // 32, direction=direction, tf_floats=tf_floats)
     if differentiable and seg != KERNEL_SEG:
         raise NotImplementedError(f"CUDA backward: seg={KERNEL_SEG} only")
     if differentiable:
         check_plan("CUDA backward", hp,
                    (6 if direction else 3) + 2 * nf + LATENT_CHANNELS,
-                   n_hidden, nf, MAX_TF_POINTS, tf_floats,
+                   n_hidden, nf, TF_STAGED_POINTS, tf_floats,
                    tf_mode != "piecewise")
 
 
@@ -853,8 +852,9 @@ def library_name(kind: str, hidden: int, tile: int = KERNEL_TILE) -> str:
     ``mega_fwd_t128.cu`` (32, 128 rays), ``mega_fwd48_t128.cu``,
     ``mega_fwd64_t128.cu`` and the same for the forward's other parts
     (:func:`_fwd_kind`) and the backward; ``mega_fwd_anytf``,
-    ``mega_fwd_anyg``, the width 128 and the normals instances on 256-ray
-    tiles only (no normals instance at 128)."""
+    ``mega_fwd_anyg``, the width 128 and the normals instances
+    (``mega_fwd_nrm``, ``mega_fwd_nrm48``, ``mega_fwd_nrm64``,
+    ``mega_fwd_nrm128``) on 256-ray tiles only."""
     name = kind if hidden == 32 else f"{kind}{hidden}"
     return name if tile == KERNEL_TILE else f"{name}_t{tile}"
 
@@ -1076,7 +1076,8 @@ def _launch_nrm(rays: Tensor, net, params: list, spec: MarchSpec,
     net_args = _net_args(spec)
     gz, gy, gx = table.shape[:3]
     si, sf = shade_args(spec.brdf)
-    launch = _bind_nrm(_lib("mega_fwd_nrm", net_args[0], spec.tile))
+    lib = library_name("mega_fwd_nrm", net_args[0], spec.tile)
+    launch = _bind_nrm(_build.load(lib))
     with torch.cuda.device(dev):
         err = launch(
             rays.data_ptr(), table.data_ptr(),
@@ -1092,6 +1093,7 @@ def _launch_nrm(rays: Tensor, net, params: list, spec: MarchSpec,
         raise RuntimeError(f"mega_fwd_nrm launch failed with CUDA error "
                            f"{err}")
     _count("mega_fwd_nrm", spec.tile, table)
+    LIBRARY_LAUNCHES[lib] += 1
     return RayEvaluationOutput(color=rgba, depth=nd[:, 3:4],
                                normal=nd[:, :3]), samples
 
@@ -1284,11 +1286,6 @@ def mega_trace_dvr(ray_start: Tensor, ray_dir: Tensor,
     _check_kernel_inputs(net, rays, tile, seg, differentiable, tf_floats,
                          tf_mode, need_normals,
                          masked=segment_active is not None)
-    if (net.output_mode.startswith("density")
-            and tf_mode in ("piecewise", "gaussian")
-            and tf_points > MAX_TF_POINTS):
-        raise NotImplementedError(f"CUDA kernel: at most {MAX_TF_POINTS} "
-                                  f"{tf_mode} TF points")
     spec = _spec(net, box_min, box_size, stepsize=stepsize, seg=seg,
                  tile=tile, density_min=density_min,
                  density_max=density_max, enable_early_out=enable_early_out,

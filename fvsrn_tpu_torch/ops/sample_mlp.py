@@ -56,6 +56,25 @@ CANDIDATES = ((64, 8), (48, 8), (32, 8), (16, 8), (16, 0))
 SC_TF = 4 * GROUP * SEG_MAX + GROUP
 
 
+# piecewise knots or Gaussians the kernels stage in shared memory
+# (csrc/march_common.cuh's kTfStaged): the largest count at which every
+# plan that tests/test_torch_sample_mlp.py covers is its 16-point plan
+# (tile rows, padding, pre-split, warps and blocks an SM). A larger TF is
+# read from the packed weights in device memory, and the plans count none
+# of it, so that no count changes them.
+TF_STAGED_POINTS = 19
+_FLOATS_A_POINT = {"piecewise": 5, "gaussian": 6}
+
+
+def staged_tf_floats(tf_mode: str, tf_floats: int) -> int:
+    """Of a TF's ``tf_floats`` packed floats (:func:`tf_floats_of`), those
+    the kernels stage in shared memory (``staged_tf_floats`` in
+    csrc/march_common.cuh): none of a piecewise or Gaussian TF above
+    :data:`TF_STAGED_POINTS` points, else all."""
+    per = _FLOATS_A_POINT.get(tf_mode)
+    return 0 if per and tf_floats > per * TF_STAGED_POINTS else tf_floats
+
+
 def tf_floats_of(tf_mode: str, table) -> int:
     """Floats of the TF the kernels stage (and pack): 5 a piecewise knot,
     the table of the other modes, none of the preint2d table (read from

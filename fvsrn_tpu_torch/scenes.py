@@ -70,3 +70,25 @@ def dense_tf_modes(stepsize: float, texels: int = 256,
             "preint2d": tex.with_preintegration_2d(preint_2d,
                                                    stepsize=stepsize),
             "gaussian": gauss}
+
+
+def dense_tf_points(n: int, gaussian: bool = False) -> torch.Tensor:
+    """The dense flagship's ramp TF as ``n`` piecewise knots (its values at
+    0, n - 2 evenly spaced positions jittered by up to a third of their
+    spacing, and 1, each value with a seeded ripple of 5%), or as ``n``
+    Gaussians over its colors (evenly spaced means, sigmas of 1.5
+    spacings, opacities the ramp's absorption at the mean over n / 4): a
+    TF of any size, the (n, 5) or (n, 6) tensor on the CPU."""
+    _, ramp, _ = dense_scene()
+    gen = torch.Generator().manual_seed(n)
+    pos = torch.linspace(0.0, 1.0, n)
+    if not gaussian:
+        pos[1:-1] += (torch.rand(n - 2, generator=gen) - 0.5) / (1.5 * (n - 1))
+    rgba = ramp.eval_normalized(pos, None, None, 1.0)
+    rgba = rgba * (1.0 + 0.1 * (torch.rand(n, 4, generator=gen) - 0.5))
+    rgba[:, :3] = rgba[:, :3].clamp(0.0, 1.0)
+    if gaussian:
+        sigma = torch.full((n, 1), 1.5 / max(n - 1, 1))
+        return torch.cat([rgba[:, :3], rgba[:, 3:] * 4.0 / n, pos[:, None],
+                          sigma], dim=1)
+    return torch.cat([rgba, pos[:, None]], dim=1)

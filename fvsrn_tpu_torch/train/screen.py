@@ -127,11 +127,12 @@ def fused_screen_supported(network, tf, width: int, height: int) -> bool:
     screened here: the kernels train every TF mode on every activation,
     with or without direction input, at hidden widths up to 128 (one
     width; the 128 instances read their hidden matrices from device
-    memory), with at most 16 TF knots or Gaussians. Where they do not
-    take a network (hidden layers wider than 128, layers of several
-    widths, which the JAX package's adjoint does not train either, more
-    than 16 knots), ``mega_trace_dvr`` raises ``NotImplementedError`` on
-    the card (``--no_fused`` selects the plain march). A network that is
+    memory), with any number of TF knots or Gaussians (above
+    ``ops.sample_mlp.TF_STAGED_POINTS`` read from device memory). Where
+    they do not take a network (hidden layers wider than 128, layers of
+    several widths, which the JAX package's adjoint does not train
+    either), ``mega_trace_dvr`` raises ``NotImplementedError`` on the card
+    (``--no_fused`` selects the plain march). A network that is
     not an SRN (the variant and meta networks) raises
     ``NotImplementedError``: it trains by the plain march alone."""
     require_srn(network, "fused screen step")

@@ -23,6 +23,7 @@ from fvsrn_tpu.eval import sweep as jsweep
 from fvsrn_tpu_torch.eval import eval_volumetric_features as evf
 from fvsrn_tpu_torch.eval import sweep
 from fvsrn_tpu_torch.utils import timer
+from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -8,6 +8,7 @@ import subprocess
 import sys
 
 import pytest
+from test_torch_workers import yield_cpu  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "fvsrn_tpu_torch")
@@ -32,13 +33,61 @@ def test_import_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-IMPORT_ONE = r"""
-import importlib, sys
-importlib.import_module(sys.argv[1])
-bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "fvsrn_tpu"))
-sys.exit(1 if bad else 0)
+# A process that has loaded numpy and torch (which every module of the
+# port imports first, and which load no JAX) forks one child a module named
+# on its standard input; the child imports the module alone and exits 0, or
+# 1 when the import raises, or 2 when it loaded JAX or the JAX package; the
+# parent answers "EXIT <code>" a module. One interpreter start for all the
+# modules instead of one each (torch's import was most of each start).
+IMPORT_SERVER = r"""
+import importlib, os, sys, traceback
+import numpy, torch
+for line in sys.stdin:
+    pid = os.fork()
+    if pid == 0:
+        try:
+            importlib.import_module(line.strip())
+            bad = sorted(n for n in sys.modules
+                         if n.split(".")[0] in ("jax", "jaxlib", "fvsrn_tpu"))
+            code = 2 if bad else 0
+            if bad:
+                print(bad, file=sys.stderr)
+        except BaseException:
+            traceback.print_exc()
+            code = 1
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
+    _, status = os.waitpid(pid, 0)
+    print("EXIT", os.waitstatus_to_exitcode(status), flush=True)
 """
+
+
+@pytest.fixture(scope="module")
+def import_alone(tmp_path_factory):
+    """``import_alone(module)``: (exit code, standard error) of importing
+    ``module`` in a fresh child of IMPORT_SERVER."""
+    err_path = tmp_path_factory.mktemp("imports") / "stderr.txt"
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    with open(err_path, "w+") as err:
+        proc = subprocess.Popen([sys.executable, "-c", IMPORT_SERVER],
+                                cwd=ROOT, env=env, stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+
+        def run(module):
+            start = err.tell()
+            proc.stdin.write(module + "\n")
+            proc.stdin.flush()
+            line = proc.stdout.readline()
+            while line and not line.startswith("EXIT "):
+                line = proc.stdout.readline()
+            err.seek(start)
+            return (int(line.split()[1]) if line else -1), err.read()
+
+        yield run
+        proc.stdin.close()
+        proc.wait(timeout=60)
 
 
 @pytest.mark.parametrize("module", ["fvsrn_tpu_torch.ops.fused_dvr",
@@ -89,7 +138,7 @@ sys.exit(1 if bad else 0)
                                     "fvsrn_tpu_torch.eval.eval_scaling",
                                     "fvsrn_tpu_torch.eval.figures",
                                     "fvsrn_tpu_torch.convert"])
-def test_slice_module_imports_alone(module):
+def test_slice_module_imports_alone(module, import_alone):
     """The modules of the fused per-segment and isosurface renders, of
     Monte-Carlo path tracing, of world training, of voxel volumes and
     scene files, of data parallelism, pose recovery and rasterization, of
@@ -97,11 +146,8 @@ def test_slice_module_imports_alone(module):
     last slice's (image operations, the volume converter, the variant and
     meta networks and their converters, the viewer, the scaling harness
     and the figures) import on their own, loading no JAX."""
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", IMPORT_ONE, module],
-                          cwd=ROOT, env=env, capture_output=True, text=True,
-                          timeout=120)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
+    code, err = import_alone(module)
+    assert code == 0, err
 
 
 def _port_files():

@@ -37,9 +37,11 @@ from fvsrn_tpu_torch.models.latent import grid_sample_3d
 from fvsrn_tpu_torch.ops import (fused_dvr, fused_dvr_bwd, fused_eval,
                                  fused_mega)
 from fvsrn_tpu_torch.ops.fused_dvr import block_ray_permutation
-from fvsrn_tpu_torch.scenes import dense_scene
+from fvsrn_tpu_torch.ops.sample_mlp import TF_STAGED_POINTS
+from fvsrn_tpu_torch.scenes import dense_scene, dense_tf_points
 from fvsrn_tpu_torch.train.checkpoints import load_weights
 from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
+from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 ATOL = 1e-4       # float32 kernel vs plain: the fused-vs-oracle contract
@@ -485,7 +487,7 @@ def test_proto_mega_box_limit():
     (dict(channels=20), 256),
     (dict(activation="ReLU", tf_mode="gaussian"), 256),
     ({}, 64),
-    (dict(width=128, need_normals=True), 256),
+    (dict(width=128, need_normals=True, tf_mode="texture"), 256),
     (dict(width=96), 128),
     (dict(widths=[64, 32], differentiable=True), 256),
     (dict(widths=[48, 96], differentiable=True), 256)])
@@ -493,11 +495,12 @@ def test_mega_kernel_rejects_what_it_does_not_take(net_kw, tile):
     """What the kernels refuse: hidden layers wider than 128, more than
     MAX_HIDDEN_LAYERS + 1 of them, more than 16 latent channels, a
     Gaussian TF on a network other than SnakeAlt in the render, tiles of
-    other than 256 rays, normals and 128-ray tiles above 64 wide, layers
-    of several widths in training; and what they take (widths to 128,
-    every activation and head, direction input, no grid; the texture TF
-    on a ReLU network with direction input in the render and in
-    training; mixed widths in the render)."""
+    other than 256 rays, normals with a TF mode other than piecewise (at
+    width 128 too), 128-ray tiles above 64 wide, layers of several widths
+    in training; and what they take (widths to 128, every activation and
+    head, direction input, no grid; the texture TF on a ReLU network with
+    direction input in the render and in training; mixed widths in the
+    render; normals at every width)."""
     rays = torch.zeros(512, 8)
     net_kw = dict(net_kw)
     tf_mode = net_kw.pop("tf_mode", "piecewise")
@@ -525,6 +528,11 @@ def test_mega_kernel_rejects_what_it_does_not_take(net_kw, tile):
                                     tf_floats=1024, tf_mode="texture")
     for widths in ([64, 32], [48, 96], [128, 20, 72]):
         fused_mega._check_kernel_inputs(random_net(widths=widths), rays, 256)
+        fused_mega._check_kernel_inputs(random_net(widths=widths), rays, 256,
+                                        need_normals=True)
+    for width in (96, 128):
+        fused_mega._check_kernel_inputs(random_net(width=width), rays, 256,
+                                        need_normals=True)
     for tile in fused_mega.KERNEL_TILES:   # bench.py's 128, the render's 256
         fused_mega._check_kernel_inputs(random_net(width=64), rays, tile,
                                         differentiable=True)
@@ -795,22 +803,27 @@ def test_segment_kernel_matches_plain(case):
 
 
 @pytest.mark.parametrize("net_kw", [
-    dict(width=160), dict(channels=80), dict(width=96, need_normals=True),
+    dict(width=160), dict(channels=80),
+    dict(width=96, need_normals=True, tf_mode="texture"),
     dict(widths=[64, 32], differentiable=True)])
 def test_segment_kernel_rejects_what_it_does_not_take(net_kw):
     """Hidden layers wider than 128, more than 64 latent channels,
-    normals above 64 wide, several widths in training; it takes widths to
-    128 and several widths in the render."""
+    normals with a TF mode other than piecewise (above 64 wide too),
+    several widths in training; it takes widths to 128, several widths
+    in the render, and normals at every width."""
     tf = dense_scene()[1].tensor
     net_kw = dict(net_kw)
-    kw = {k: net_kw.pop(k) for k in ("need_normals", "differentiable")
-          if k in net_kw}
+    kw = {k: net_kw.pop(k) for k in ("need_normals", "differentiable",
+                                     "tf_mode") if k in net_kw}
     with pytest.raises(NotImplementedError):
         fused_dvr._check_kernel_inputs(random_net(**net_kw), tf, **kw)
     fused_dvr._check_kernel_inputs(random_net(width=64, channels=40), tf)
     fused_dvr._check_kernel_inputs(random_net(width=128), tf,
                                    differentiable=True)
     fused_dvr._check_kernel_inputs(random_net(widths=[64, 32]), tf)
+    for kw in (dict(width=96), dict(width=128), dict(widths=[48, 96])):
+        fused_dvr._check_kernel_inputs(random_net(**kw), tf,
+                                       need_normals=True)
 
 
 # the per-segment engine's differentiable pair over SEGMENT_CASES: a float32
@@ -1796,9 +1809,9 @@ def test_tf_mode_backward_deterministic(mode):
 
 def test_tf_mode_kernel_limits():
     """What the kernels refuse in the TF modes: a Gaussian TF on a network
-    other than SnakeAlt in the segment kernel's render, more Gaussians
-    than the kernels hold; the render and the training pair take the
-    texture TF on every network, the training pair the Gaussians too."""
+    other than SnakeAlt in the segment kernel's render; the render and the
+    training pair take the texture TF on every network, the training pair
+    the Gaussians too, and any number of them."""
     tf, _, _ = fused_dvr.prepare_tf(torch.rand(256, 4), "texture")
     gauss = torch.rand(4, 6)
     relu = random_net(activation="ReLU")
@@ -1811,10 +1824,14 @@ def test_tf_mode_kernel_limits():
         fused_dvr._check_kernel_inputs(relu, gauss, tf_mode="gaussian")
     fused_dvr._check_kernel_inputs(relu, gauss, tf_mode="gaussian",
                                    differentiable=True)
-    many = torch.rand(fused_dvr.MAX_TF_POINTS + 1, 6)
-    with pytest.raises(NotImplementedError, match="gaussian"):
-        fused_dvr._check_kernel_inputs(random_net(), many,
-                                       tf_mode="gaussian")
+    for n in (TF_STAGED_POINTS + 1, 4 * TF_STAGED_POINTS):
+        many = torch.rand(n, 6)
+        for diff in (False, True):
+            fused_dvr._check_kernel_inputs(random_net(), many,
+                                           tf_mode="gaussian",
+                                           differentiable=diff)
+        fused_dvr._check_kernel_inputs(relu, many, tf_mode="gaussian",
+                                       differentiable=True)
 
 
 # every TF mode on every network in training: rows 2-3
@@ -1966,7 +1983,7 @@ NRM_BRDFS = {
 NRM_FLIP_SHARE = 1e-2
 NRM_CASES = {
     **{f"w{w}_{tab}": dict(net=dict(width=w), table=tab)
-       for w in (32, 48, 64) for tab in ("f32", "bf16")},
+       for w in (32, 48, 64, 128) for tab in ("f32", "bf16")},
     "flagship": dict(net="flagship", table="bf16"),
     "relu48_direction": dict(net=dict(width=48, activation="ReLU",
                                       direction=True, output_mode="density"),
@@ -2395,21 +2412,19 @@ def test_wide_sample_eval_matches_plain(which, n):
 
 
 def test_wide_refusals():
-    """What the wide instances do not take: row 7's gradient instance
-    and the normals of rows 1 and 4 above 64 wide, layers of several
-    widths in training, widths above 128."""
+    """What the wide instances do not take: 128-ray tiles, layers of
+    several widths in training, widths above 128. They take normals
+    (rows 1 and 4) and row 7's gradient instance; normals with a TF mode
+    other than piecewise stay refused at every width."""
     rays = torch.zeros(512, 8)
     tf = dense_scene()[1].tensor
     wide = random_net(width=96)
-    for kernel_check in (
-            lambda: fused_mega._check_kernel_inputs(wide, rays, 256,
-                                                    need_normals=True),
-            lambda: fused_dvr._check_kernel_inputs(wide, tf,
-                                                   need_normals=True),
-            lambda: fused_mega.check_kernel_width(wide, "row 7",
-                                                  need_normals=True)):
-        with pytest.raises(NotImplementedError, match="normals"):
-            kernel_check()
+    fused_mega._check_kernel_inputs(wide, rays, 256, need_normals=True)
+    fused_dvr._check_kernel_inputs(wide, tf, need_normals=True)
+    assert fused_mega.check_kernel_width(wide, "row 7") == 128
+    with pytest.raises(NotImplementedError, match="normals"):
+        fused_mega._check_kernel_inputs(wide, rays, 256, need_normals=True,
+                                        tf_floats=1024, tf_mode="texture")
     with pytest.raises(NotImplementedError, match="tiles of 128"):
         fused_mega._check_kernel_inputs(wide, rays, 128)
     mixed = random_net(widths=[64, 32])
@@ -2417,3 +2432,201 @@ def test_wide_refusals():
         fused_dvr._check_kernel_inputs(mixed, tf, differentiable=True)
     with pytest.raises(NotImplementedError, match="up to 128"):
         fused_mega.kernel_width(random_net(width=144))
+
+
+@pytest.mark.parametrize("n", [33, 5000])
+@pytest.mark.parametrize("which", sorted(WIDE_NETS))
+def test_wide_sample_eval_gradient_matches_plain(which, n):
+    """Row 7's gradient instance on a wide or mixed network (sample_eval128
+    above 64 wide, its weights read from device memory): values and the
+    position gradient against the plain version."""
+    needs_card()
+    net = random_net(**WIDE_NETS[which]).cuda()
+    gen = torch.Generator("cuda").manual_seed(1)
+    pos = torch.rand(n, 3, device="cuda", generator=gen) * 1.4 - 0.7
+    d = torch.randn(n, 3, device="cuda", generator=gen)
+    sample_eval_matches(net, pos, d / d.norm(dim=1, keepdim=True),
+                        want_grad=True)
+
+
+# ---------------------------------------------------------------------------
+# TFs of any size on rows 1-6: up to TF_STAGED_POINTS knots or Gaussians
+# staged in shared memory, more read from the packed weights in device
+# memory; the flagship's ramp as that many points (scenes.dense_tf_points)
+# at every width, on every instance family that takes the mode
+
+KNOT_COUNTS = (17, TF_STAGED_POINTS, TF_STAGED_POINTS + 1,
+               2 * TF_STAGED_POINTS)
+KNOT_WIDTHS = (32, 48, 64, 128)
+
+
+def knots_case(width, n, gaussian=False, **net_kw):
+    """(net, tf tensor, tf keywords) on the card: a density-head network
+    of ``width`` and the ramp as ``n`` knots or Gaussians."""
+    net = random_net(width=width, output_mode="density", **net_kw).cuda()
+    tf = dense_tf_points(n, gaussian).cuda()
+    return net, tf, dict(tf_mode="gaussian") if gaussian else {}
+
+
+def clipped_rays(width=32):
+    rs, rd = block_rays(width, "cuda")
+    clip = torch.empty(rs.shape[0], device="cuda").uniform_(
+        1.0, 2.2, generator=torch.Generator("cuda").manual_seed(0))
+    return rs, rd, clip
+
+
+@pytest.mark.parametrize("width", KNOT_WIDTHS)
+@pytest.mark.parametrize("n", KNOT_COUNTS)
+def test_knots_mega_render_matches_plain(n, width):
+    """Row 1 with n knots: SnakeAlt (mega_fwd), with an occupancy mask,
+    on 128-ray tiles (to 64 wide), a ReLU network with direction input
+    (mega_fwd_any) and the Gaussians on SnakeAlt (mega_fwd_tf): image and
+    samples against the plain version, one launch a call."""
+    needs_card()
+    rs, rd, clip = clipped_rays()
+    cases = [(dict(), {}, 256, False), (dict(), {}, 256, True),
+             (dict(activation="ReLU", direction=True), {}, 256, False),
+             (dict(), dict(gaussian=True), 256, False)]
+    if width <= fused_mega.SMEM_MAX_WIDTH:
+        cases.append((dict(), {}, 128, False))
+    for net_kw, tf_kw, tile, masked in cases:
+        net, tf, mode = knots_case(width, n, **tf_kw, **net_kw)
+        args = (rs, rd, net, *BOX, tf)
+        kw = dict(stepsize=1 / 128, tmax_clip=clip, tile=tile,
+                  return_samples=True, **mode)
+        if masked:
+            spec = fused_mega._spec(net, *BOX, stepsize=1 / 128, seg=32,
+                                    tile=256, density_min=0.0,
+                                    density_max=1.0, enable_early_out=True)
+            kw["segment_active"] = random_mask(fused_mega.ray_packet(
+                rs, rd, *BOX, 1 / 128, clip), spec)
+        before = fused_mega.launches("mega_fwd")
+        got, samples = fused_mega.mega_trace_dvr(*args, **kw)
+        torch.cuda.synchronize()
+        assert fused_mega.launches("mega_fwd") == before + 1
+        want, samples_plain = fused_mega.mega_trace_dvr_plain(*args, **kw)
+        assert float(want[:, 3].max()) > 0.5
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+        assert torch.equal(samples.long(), samples_plain)
+
+
+@pytest.mark.parametrize("width", KNOT_WIDTHS)
+@pytest.mark.parametrize("n", KNOT_COUNTS)
+def test_knots_segment_render_matches_plain(n, width):
+    """Row 4 with n knots (segment_fwd) and n Gaussians on SnakeAlt
+    (segment_fwd_tf): image, samples and the call's stop against the
+    plain version, two launches a call."""
+    needs_card()
+    rs, rd = view_rays()
+    for gaussian in (False, True):
+        net, tf, mode = knots_case(width, n, gaussian)
+        args = (rs, rd, net, *BOX, tf)
+        kw = dict(SEG_FWD_KW, return_stats=True, **mode)
+        before = fused_dvr.SEGMENT_LAUNCHES
+        got, stats = fused_dvr.fused_trace_dvr(*args, **kw)
+        torch.cuda.synchronize()
+        assert fused_dvr.SEGMENT_LAUNCHES == before + 2
+        want, want_stats = fused_dvr.fused_trace_dvr_plain(*args, **kw)
+        assert float(want[:, 3].max()) > 0.5
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+        assert int(stats.samples) == int(want_stats.samples)
+        assert int(stats.stop) == int(want_stats.stop)
+
+
+@pytest.mark.parametrize("engine", ["mega", "segment"])
+@pytest.mark.parametrize("width", KNOT_WIDTHS)
+@pytest.mark.parametrize("n", KNOT_COUNTS)
+def test_knots_normals_match_plain(n, width, engine):
+    """Rows 1 and 4's normals instances with n knots (Phong, a point
+    light with magnitude scaling): colour, normal and depth against the
+    plain version on all but NRM_FLIP_SHARE of the rays."""
+    needs_card()
+    from fvsrn_tpu_torch.brdf import BRDFLambert
+    net, tf, _ = knots_case(width, n)
+    b = BRDFLambert.make(**NRM_BRDFS["point_magnitude"])
+    if engine == "mega":
+        rs, rd = block_rays(32, "cuda")
+        kw = dict(stepsize=1 / 128)
+        march, plain = fused_mega.mega_trace_dvr, \
+            fused_mega.mega_trace_dvr_plain
+    else:
+        rs, rd = view_rays()
+        kw = dict(SEG_FWD_KW)
+        march, plain = fused_dvr.fused_trace_dvr, \
+            fused_dvr.fused_trace_dvr_plain
+    kw.update(need_normals=True, brdf=b, table_dtype=torch.float32)
+    args = (rs, rd, net, *BOX, tf)
+    before = (fused_mega.launches("mega_fwd_nrm"),
+              fused_dvr.SEGMENT_NRM_LAUNCHES)
+    got = march(*args, **kw)
+    torch.cuda.synchronize()
+    after = (fused_mega.launches("mega_fwd_nrm"),
+             fused_dvr.SEGMENT_NRM_LAUNCHES)
+    assert after == ((before[0] + 1, before[1]) if engine == "mega"
+                     else (before[0], before[1] + 2))
+    normals_match(got, plain(*args, **kw), True)
+
+
+@pytest.mark.parametrize("mode", ["piecewise", "gaussian"])
+@pytest.mark.parametrize("width", KNOT_WIDTHS)
+@pytest.mark.parametrize("n", KNOT_COUNTS)
+def test_knots_mega_training_matches_plain(n, width, mode):
+    """Rows 2-3 with n knots or Gaussians: SnakeAlt on a float32 and a
+    bf16 table (mega_fwd / mega_fwd_tf, mega_bwd), the ray-gradient
+    instance, and a ReLU network with direction input (mega_fwd_any /
+    mega_fwd_anyg): the image and every gradient leaf (the TF's too)
+    against the plain pair, one launch of each kernel."""
+    needs_card()
+    rs, rd, clip = clipped_rays()
+    h = 1 / 128
+    for net_kw, table, rays in (
+            (dict(), torch.float32, False), (dict(), torch.bfloat16, False),
+            (dict(), torch.float32, True),
+            (dict(activation="ReLU", direction=True), torch.float32, False)):
+        net, tf, tf_kw = knots_case(width, n, mode == "gaussian", **net_kw)
+        kw = dict(stepsize=h, tmax_clip=clip, differentiable=True,
+                  table_dtype=table)
+        if rays:
+            kw["ray_grads"] = True
+        args = (rs.clone().requires_grad_(rays),
+                rd.clone().requires_grad_(rays), net, *BOX)
+        before = (fused_mega.launches("mega_fwd_diff"),
+                  fused_mega.launches("mega_bwd"))
+        img, got = tf_grads(fused_mega.mega_trace_dvr, args, kw, tf, tf_kw)
+        assert (fused_mega.launches("mega_fwd_diff"),
+                fused_mega.launches("mega_bwd")) == (before[0] + 1,
+                                                     before[1] + 1)
+        img_plain, want = tf_grads(fused_mega.mega_trace_dvr_plain, args,
+                                   kw, tf, tf_kw)
+        assert float(img_plain[:, 3].max()) > 0.5
+        torch.testing.assert_close(img, img_plain, rtol=0, atol=ATOL)
+        assert_grads_close(mode, got, want, {k: 1e-3 for k in want},
+                           bf16=table == torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode", ["piecewise", "gaussian"])
+@pytest.mark.parametrize("width", KNOT_WIDTHS)
+@pytest.mark.parametrize("n", KNOT_COUNTS)
+def test_knots_segment_training_matches_plain(n, width, mode):
+    """Rows 5-6 with n knots or Gaussians: SnakeAlt (segment_fwd /
+    segment_fwd_tf) and ReLU (segment_fwd_anyg for the Gaussians) with
+    segment_bwd: the image and every gradient leaf against the plain
+    pair, one launch of each kernel."""
+    needs_card()
+    rs, rd = block_rays(32, "cuda")
+    for net_kw in (dict(), dict(activation="ReLU")):
+        net, tf, tf_kw = knots_case(width, n, mode == "gaussian", **net_kw)
+        kw = dict(stepsize=1 / 64, max_steps=112, seg=32, tile=128,
+                  differentiable=True)
+        args = (rs, rd, net, *BOX)
+        before = (fused_dvr_bwd.launches("segment_fwd_diff"),
+                  fused_dvr_bwd.launches("segment_bwd"))
+        img, got = tf_grads(fused_dvr.fused_trace_dvr, args, kw, tf, tf_kw)
+        assert (fused_dvr_bwd.launches("segment_fwd_diff"),
+                fused_dvr_bwd.launches("segment_bwd")) == (before[0] + 1,
+                                                        before[1] + 1)
+        img_plain, want = tf_grads(fused_dvr.fused_trace_dvr_plain, args,
+                                   kw, tf, tf_kw)
+        assert float(img_plain[:, 3].max()) > 0.5
+        torch.testing.assert_close(img, img_plain, rtol=0, atol=ATOL)
+        assert_grads_close(mode, got, want, {k: 1e-3 for k in want})

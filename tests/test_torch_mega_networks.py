@@ -57,6 +57,7 @@ from fvsrn_tpu_torch.ops.fused_mega import mega_trace_dvr_plain
 from fvsrn_tpu_torch.raytracer.dvr import RayEvaluationSteppingDvr
 from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
 from tools.export_torch_weights import network_arrays
+from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 H = 1 / 64

@@ -14,11 +14,12 @@ import torch
 
 from fvsrn_tpu_torch.ops import fused_dvr, fused_eval, fused_mega
 from fvsrn_tpu_torch.ops.sample_mlp import (FWD_WARPS, SMEM_LIMIT, SMEM_TWO,
-                                            check_fwd_plan, check_plan,
-                                            fwd_columns, fwd_plan,
+                                            TF_STAGED_POINTS, check_fwd_plan,
+                                            check_plan, fwd_columns, fwd_plan,
                                             make_fwd_plan, make_plan,
                                             persistent_blocks, smem_plan,
-                                            tf32_split)
+                                            staged_tf_floats, tf32_split)
+from test_torch_workers import yield_cpu  # noqa: F401
 
 
 def _values(seed):
@@ -59,14 +60,14 @@ def test_tf32_rounds_to_nearest_ties_away():
 @pytest.mark.parametrize("hidden", [32, 48, 64])
 def test_plan_fits_at_the_kernels_limits(hidden):
     """At the per-segment kernels' largest Fourier count, latent channels,
-    hidden layers and TF points a plan fits in 227 KB."""
+    hidden layers and staged TF points a plan fits in 227 KB."""
     k1 = 6 + 2 * fused_dvr.MAX_FOURIER + fused_dvr.MAX_LATENT_CHANNELS
     plan = smem_plan(hidden, k1, fused_dvr.MAX_HIDDEN_LAYERS,
-                     fused_dvr.MAX_FOURIER, fused_dvr.MAX_TF_POINTS)
+                     fused_dvr.MAX_FOURIER, TF_STAGED_POINTS)
     assert plan is not None and plan.bytes <= SMEM_LIMIT
     assert plan.tile_rows in (16, 32, 48, 64) and plan.pad in (0, 8)
     assert check_plan("k", hidden, k1, fused_dvr.MAX_HIDDEN_LAYERS,
-                      fused_dvr.MAX_FOURIER, fused_dvr.MAX_TF_POINTS) == plan
+                      fused_dvr.MAX_FOURIER, TF_STAGED_POINTS) == plan
 
 
 @pytest.mark.parametrize("case", ["segment_64_max", "segment_flagship",
@@ -105,18 +106,18 @@ def test_plan_raises_beyond_the_limits(beyond):
 @pytest.mark.parametrize("hidden", [32, 48, 64])
 def test_fwd_plan_fits_at_the_kernels_limits(hidden):
     """At the per-segment kernel's largest Fourier count, latent rows,
-    hidden layers and TF points the forward's plan fits in 227 KB, with
-    fewer warps a block and the matrices split in the loop."""
+    hidden layers and staged TF points the forward's plan fits in 227 KB,
+    with fewer warps a block and the matrices split in the loop."""
     plan = fwd_plan(hidden, fused_dvr.MAX_FOURIER,
                     fused_dvr.MAX_LATENT_CHANNELS // 16,
-                    fused_dvr.MAX_HIDDEN_LAYERS, fused_dvr.MAX_TF_POINTS,
+                    fused_dvr.MAX_HIDDEN_LAYERS, TF_STAGED_POINTS,
                     direction=True)
     assert plan is not None and plan.bytes <= SMEM_LIMIT
     assert plan.warps in FWD_WARPS and not plan.pre
     assert check_fwd_plan("k", hidden, fused_dvr.MAX_FOURIER,
                           fused_dvr.MAX_LATENT_CHANNELS // 16,
                           fused_dvr.MAX_HIDDEN_LAYERS,
-                          fused_dvr.MAX_TF_POINTS, direction=True) == plan
+                          TF_STAGED_POINTS, direction=True) == plan
     # the flagship's other widths: 16 warps an SM (two blocks) at 32,
     # pre-split, and at 48, split in the loop; 8 at 64, pre-split
     flagship = fwd_plan(hidden, 14, 1, 2, 8)
@@ -124,7 +125,7 @@ def test_fwd_plan_fits_at_the_kernels_limits(hidden):
     assert (flagship.bytes <= SMEM_TWO) == (hidden != 64)
     # the megakernel's block is its 256-ray tile: eight warps at its limits
     mega = fwd_plan(32, fused_mega.MAX_FOURIER, 1,
-                    fused_mega.MAX_HIDDEN_LAYERS, fused_mega.MAX_TF_POINTS,
+                    fused_mega.MAX_HIDDEN_LAYERS, TF_STAGED_POINTS,
                     warps=8)
     assert mega is not None and mega.warps == 8
 
@@ -217,3 +218,72 @@ def test_persistent_blocks(case):
                                   "limits_64": (64, 32, 1, 6, True)}[
                                       plan_case])
     assert persistent_blocks(n, plan, sms) == blocks
+
+
+# the shapes the plan tests cover: this file's, the device plans'
+# (tests/test_torch_kernels.py) and Table 1's (tests/
+# test_torch_wide_networks.py); forwards as (hidden, Fourier, latent rows,
+# hidden->hidden layers, warps or None, direction), backwards as (hidden,
+# first-layer input, hidden->hidden layers, Fourier)
+def _covered_shapes():
+    fwd, bwd = set(), set()
+    for h in (32, 48, 64, 128):
+        for d in (False, True):
+            fwd |= {(h, 32, 4, 6, None, d), (h, 14, 1, 2, None, d)}
+            fwd |= {(h, nf, 1, nh, 8, d) for nf, nh in
+                    ((14, 2), (32, 6), (0, 0))}
+        fwd |= {(h, 14, 1, nh, 8, False) for nh in (1, 3, 5)}
+        bwd |= {(h, 6 + 2 * nf + 16 * c, nh, nf)
+                for nf, c, nh in ((14, 1, 2), (32, 4, 6))}
+        bwd |= {(h, 47, nh, 14) for nh in (1, 3, 5)}
+    bwd |= {(64, 134, 6, 32), (32, 50, 2, 14), (32, 83, 6, 32)}
+    return sorted(fwd, key=str), sorted(bwd)
+
+
+def _plans(points, per):
+    """Each covered shape's plans at ``points`` TF points of ``per``
+    floats (5 a piecewise knot, 6 a Gaussian, the TF modes' state with
+    the Gaussians): the forwards' (warps, pre-split, blocks an SM), the
+    backwards' (tile rows, padding, blocks an SM); None where none
+    fits."""
+    fwd, bwd = _covered_shapes()
+    keys = []
+    for h, nf, ch, nh, w, d in fwd:
+        p = fwd_plan(h, nf, ch, nh, points, w, d, per * points)
+        keys.append(p and (p.warps, p.pre, p.bytes <= SMEM_TWO))
+    for h, k1, nh, nf in bwd:
+        p = smem_plan(h, k1, nh, nf, points, per * points, per == 6)
+        keys.append(p and (p.tile_rows, p.pad, p.bytes <= SMEM_TWO))
+    return keys
+
+
+@pytest.mark.parametrize("per", [5, 6])
+def test_tf_staged_points_keep_every_plan(per):
+    """TF_STAGED_POINTS is the largest count at which every covered
+    shape's plans are its 16-point plans, piecewise knots and Gaussians:
+    every count up to it gives them, one more changes one."""
+    want = _plans(16, per)
+    for points in range(17, TF_STAGED_POINTS + 1):
+        assert _plans(points, per) == want, points
+    if per == 5:    # the knots' 20th moves a 128-wide backward's padding
+        assert _plans(TF_STAGED_POINTS + 1, per) != want
+
+
+def test_staged_tf_floats():
+    """Up to TF_STAGED_POINTS knots or Gaussians the plans count the TF,
+    above none of it; the texture modes' tables always; the device's
+    constant is the same."""
+    s = TF_STAGED_POINTS
+    assert staged_tf_floats("piecewise", 5 * s) == 5 * s
+    assert staged_tf_floats("piecewise", 5 * s + 5) == 0
+    assert staged_tf_floats("gaussian", 6 * s) == 6 * s
+    assert staged_tf_floats("gaussian", 6 * s + 6) == 0
+    assert staged_tf_floats("texture", 4 * 1024) == 4 * 1024
+    assert staged_tf_floats("preint2d", 0) == 0
+    header = (fused_dvr._build.CSRC_DIR + "/march_common.cuh")
+    with open(header) as f:
+        assert f"constexpr int kTfStaged = {s};" in f.read()
+    # above it the plan is the plan of no TF
+    assert fwd_plan(32, 14, 1, 2, s + 1, 8, False,
+                    staged_tf_floats("piecewise", 5 * s + 5)) \
+        == fwd_plan(32, 14, 1, 2, 0, 8, False, 0)

@@ -55,6 +55,7 @@ from fvsrn_tpu.camera import CameraOnASphere as JCam
 from fvsrn_tpu.raytracer.dvr import max_steps_bound
 from fvsrn_tpu_torch.convert import srn_from_arrays
 from tools.export_torch_weights import network_arrays
+from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 

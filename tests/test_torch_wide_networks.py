@@ -14,7 +14,11 @@ package in Pallas interpret mode, on the same numpy-seeded networks, at
   the port's kernel checks of both engines; the port's plain march trains
   such a network (a deliberate difference, ROADMAP §C).
 - Row 7's values on 1,024 positions, 128 wide and mixed: values atol
-  2e-5, the inside mask equal.
+  2e-5, the inside mask equal; its position gradient on 1,024 interior
+  positions of a 128:128:128 network: atol 2e-5 / rtol 1e-3.
+- Normals and Phong shading of rows 1 and 4 on a 128:128:128 network
+  against the JAX normals megakernel and segment engine: colour 2e-4,
+  normal 5e-4, depth 1e-4 (tests/test_fused.py's gates).
 - ``srn_from_arrays`` on those networks; ``kernel_width`` and the packing
   of both engines: every layer padded by its own shape to the instance
   of the widest, and the plain network on the packed, padded weights
@@ -31,11 +35,13 @@ import numpy as np
 import pytest
 import torch
 
+from fvsrn_tpu.brdf import BRDFLambert as JBRDF
 from fvsrn_tpu.models.latent import LatentSpace as JLatent
 from fvsrn_tpu.models.srn import SceneRepresentationNetwork as JSRN
 from fvsrn_tpu.ops.fused_dvr import fused_trace_dvr as jfused
 from fvsrn_tpu.ops.fused_eval import make_fused_eval as jmake
 from fvsrn_tpu.ops.fused_mega import mega_trace_dvr as jmega
+from fvsrn_tpu_torch.brdf import BRDFLambert
 from fvsrn_tpu_torch.convert import srn_from_arrays
 from fvsrn_tpu_torch.ops import fused_dvr, fused_mega, sample_mlp
 from fvsrn_tpu_torch.ops.fused_dvr import (_network_values,
@@ -47,6 +53,7 @@ from tests.test_torch_segment import BMIN, BSIZE, RAMP, rays16, t, tfs
 from tests.test_torch_tf_modes import SEG, STEPS, TILE
 from tests.test_torch_tf_modes_grad import both, check
 from tools.export_torch_weights import network_arrays
+from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 H = 1 / 32
@@ -168,6 +175,55 @@ def test_fused_eval_matches_jax(layers):
     jv, jin = jmake(jnet, *box, tile=128, interpret=True)(jnp.asarray(pos))
     np.testing.assert_array_equal(inside.numpy(), np.asarray(jin))
     np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=0, atol=2e-5)
+
+
+def test_fused_eval_gradient_128_matches_jax():
+    """Row 7's gradient instance at width 128: values and the world
+    position gradient at 1,024 interior positions against the JAX
+    evaluator's gradient."""
+    jnet = jnet_of("128:128:128", seed=5)
+    pos = (np.random.default_rng(4).random((1024, 3)) * 0.9 - 0.45).astype(
+        np.float32)
+    box = (BMIN, BSIZE)
+    v, _, g = make_fused_eval(port(jnet), *box, want_grad=True)(
+        torch.from_numpy(pos))
+    jv, _, jg = jmake(jnet, *box, tile=128, want_grad=True,
+                      interpret=True)(jnp.asarray(pos))
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), atol=2e-5,
+                               rtol=1e-3)
+    assert float(g.abs().max()) > 0.05
+
+
+# the JAX tests' BRDF (tests/test_fused.py:345)
+PHONG = dict(enable_phong=True, ambient=0.2, specular=0.3,
+             magnitude_center=0.02, magnitude_radius=0.02,
+             light=(0.3, -0.5, -1.0))
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_normals_128_match_jax(engine):
+    """Rows 1 and 4 with normals and Phong shading on 128:128:128: the
+    plain march against the JAX kernels (the normals megakernel, the
+    segment engine's normals march), colour, normal and depth."""
+    jnet = jnet_of("128:128:128")
+    jtf, tf = tfs(RAMP)
+    rs, rd = rays16()
+    jm = jmega if engine == "mega" else jfused
+    kw = dict(need_normals=True, enable_early_out=False)
+    jkw = dict(table_dtype=jnp.float32) if engine == "mega" else {}
+    want = render(engine, jm, jnet, rs, rd, jtf.tensor,
+                  brdf=JBRDF.make(**PHONG), interpret=True, **kw, **jkw)
+    pm = mega_trace_dvr_plain if engine == "mega" else fused_trace_dvr_plain
+    got = render(engine, pm, port(jnet), t(rs), t(rd), tf.tensor,
+                 brdf=BRDFLambert.make(**PHONG), table_dtype=torch.float32,
+                 **kw)
+    for field, tol in (("color", 2e-4), ("normal", 5e-4), ("depth", 1e-4)):
+        np.testing.assert_allclose(getattr(got, field).numpy(),
+                                   np.asarray(getattr(want, field)),
+                                   rtol=0, atol=tol, err_msg=field)
+    assert np.abs(np.asarray(want.normal)).max() > 0.1
+    assert np.asarray(want.color)[:, 3].max() > 0.1
 
 
 @pytest.mark.parametrize("layers", RENDER_NETS + ("96:96",))

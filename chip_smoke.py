@@ -6294,8 +6294,16 @@ def tf_points_wide_normals(smi, reset_counts, counts, npz, cam, trained):
                                       "ms": egn_render["ms"]},
            "launches": c2, "libraries": l2}
     fwd, grad = sample_flops(trained), position_grad_flops(trained)
+    # the bound: the tile's layers on the tensor cores for every evaluated
+    # sample, then the scalar network and its position-gradient sweep in
+    # float32 for every counting one (value >= density_min = 0: with a
+    # density head every evaluated sample counts); the float32 part is
+    # the larger by far
+    check(trained.output_mode.startswith("density"),
+          f"phase AA2: a density head, not {trained.output_mode}")
     for row, (o, st) in frames.items():
         samples = int(st.sum() if row == "mega" else st.samples)
+        counting = samples
         got = shaded(row, rays=(rs_b[sub], rd_b[sub]), need_normals=True,
                      brdf=phong)
         want, pms = cuda_once(lambda: shaded(
@@ -6311,7 +6319,9 @@ def tf_points_wide_normals(smi, reset_counts, counts, npz, cam, trained):
                     "ns_per_sample": ms * 1e6 / max(samples, 1),
                     "vs_plain_off": off, "vs_plain_worst": worst,
                     "max_abs_err": max_err(got.color, want.color),
-                    "plain_ms": pms, "flops": samples * (fwd + grad)}
+                    "plain_ms": pms, "counting_samples": counting,
+                    "flops_tc": samples * fwd,
+                    "flops_f32": counting * (fwd + grad)}
     # row 7's gradient instance: timed at Z_POSITIONS, held on Z_HELD
     g_ms = cuda_ms(lambda: ev_g(pos), 3)
     p = pos[:Z_HELD].contiguous()
@@ -6334,7 +6344,9 @@ def tf_points_wide_normals(smi, reset_counts, counts, npz, cam, trained):
     aa2["sample_eval"] = {"ms": g_ms, "positions": Z_POSITIONS,
                           "max_abs_err": v_err, "grad_rel": g_rel,
                           "plain_ms": g_pms, "plain_positions": Z_HELD,
-                          "flops": Z_POSITIONS * (
+                          "flops_tc": Z_POSITIONS * sample_flops(trained,
+                                                                 False),
+                          "flops_f32": Z_POSITIONS * (
                               sample_flops(trained, False) + grad)}
     # the gradient-scaled MC walk against the plain walk, same key
     mc_p, mc_pms = cuda_once(lambda: mc_frame(False))
@@ -6371,14 +6383,17 @@ def tf_points_wide_normals(smi, reset_counts, counts, npz, cam, trained):
     print(f"phase AA: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     def row(name, src, replaces, n, f, err):
-        flops = f["flops"]
+        tc_ms = f["flops_tc"] / PEAK_BF16_TC * 1e3
+        f32_ms = f["flops_f32"] / PEAK_F32 * 1e3
         return {"name": name, "route": "cuda",
                 "source": f"fvsrn_tpu_torch/csrc/{src}.cu",
                 "replaces": replaces, "launches": n, "max_abs_err": err,
                 "ms": f["ms"], "plain_ms": f["plain_ms"],
-                "bound_ms": flops / PEAK_BF16_TC * 1e3,
+                "bound_ms": max(tc_ms, f32_ms),
                 "bound_by": "operations", "library_ms": None,
-                "bound_f32_ms": flops / PEAK_F32 * 1e3,
+                "bound_part": ("float32 gradient sweep" if f32_ms >= tc_ms
+                               else "tensor-core layers"),
+                "bound_tc_ms": tc_ms, "bound_f32_ms": f32_ms,
                 "plain_rays": Z_HELD, "ptxas": ptxas[src],
                 "figures": f}
     return out, [

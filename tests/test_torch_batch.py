@@ -29,7 +29,6 @@ from fvsrn_tpu_torch.raytracer.evaluator import (ImageEvaluatorSimple,
                                                  render_image)
 from fvsrn_tpu_torch.raytracer.iso import RayEvaluationSteppingIso
 from fvsrn_tpu_torch.volume.grid import VolumeInterpolationGrid
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 CPU = "cpu"

@@ -79,7 +79,6 @@ from tools.export_torch_weights import network_arrays
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
 from test_torch_mega_grad import (BMIN, BSIZE, POSITIONS,  # noqa: E402
                                   RGB, jax_net)
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 H = 1 / 32

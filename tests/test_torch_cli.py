@@ -15,7 +15,6 @@ from fvsrn_tpu.cli import main as jmain
 from fvsrn_tpu.volume.volume import Volume as JVolume
 from fvsrn_tpu_torch.cli import load_any, load_dat, load_xyz, main
 from fvsrn_tpu_torch.volume.volume import Volume
-from test_torch_workers import yield_cpu  # noqa: F401
 
 FORMATS = {"UCHAR": np.uint8, "BYTE": np.uint8, "USHORT": np.uint16,
            "FLOAT": np.float32}

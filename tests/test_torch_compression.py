@@ -29,7 +29,6 @@ from fvsrn_tpu.volume.implicit import create_implicit_grid as jcreate_grid
 from fvsrn_tpu_torch import arith, compression
 from fvsrn_tpu_torch.eval import eval_compression_teaser as teaser
 from fvsrn_tpu_torch.utils import native
-from test_torch_workers import yield_cpu  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -27,7 +27,6 @@ from fvsrn_tpu_torch.raytracer.dvr import (RayEvaluationSteppingDvr,
                                            max_steps_bound, trace_dvr)
 from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 ATOL = 2e-5

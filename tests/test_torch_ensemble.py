@@ -11,7 +11,6 @@ from fvsrn_tpu.volume.ensemble import LRUCache as JLRUCache
 from fvsrn_tpu.volume.ensemble import VolumeEnsembleFactory as JFactory
 from fvsrn_tpu_torch.volume.ensemble import LRUCache, VolumeEnsembleFactory
 from fvsrn_tpu_torch.volume.volume import Volume
-from test_torch_workers import yield_cpu  # noqa: F401
 
 SETTINGS = dict(format_string="vol_e%03d_t%02d.cvol",
                 num_ensembles=3, num_timesteps=7, start_ensemble=1,

@@ -11,6 +11,7 @@ FUSED render (its interpret mode takes ~45 s at 32^2)."""
 import argparse
 import contextlib
 import csv
+import functools
 import io
 import json
 
@@ -23,7 +24,6 @@ from fvsrn_tpu.eval import sweep as jsweep
 from fvsrn_tpu_torch.eval import eval_volumetric_features as evf
 from fvsrn_tpu_torch.eval import sweep
 from fvsrn_tpu_torch.utils import timer
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -128,10 +128,12 @@ def test_script_configs(script, grid):
     assert len(mod.configs(args)) >= 2
 
 
-def test_render_arm_on_cpu(tmp_path):
-    """``render=True`` times one FUSED render of each trained net at
-    128x128; on the CPU the render is the kernels' plain versions,
-    density and rgbo heads alike."""
+def test_render_arm_on_cpu(tmp_path, monkeypatch):
+    """``render=True`` times one FUSED render of each trained net (at
+    32x32 here, the sweeps' 128x128 on the card); on the CPU the render is
+    the kernels' plain versions, density and rgbo heads alike."""
+    monkeypatch.setattr(sweep, "_render_ms", functools.partial(
+        sweep._render_ms, width=32))
     rows = sweep.run_sweep(
         [("density", {"outputmode": "density:direct",
                       "volumetric_features_channels": 4,

@@ -13,7 +13,6 @@ from PIL import Image
 
 from fvsrn_tpu.eval import figures as jfigures
 from fvsrn_tpu_torch.eval import figures
-from test_torch_workers import yield_cpu  # noqa: F401
 
 CHARTS = ("fig_compression", "fig_bench_history", "fig_scaling")
 NAMES = ["bench_history.png", "compression_rd.png", "scaling.png"]

@@ -19,7 +19,6 @@ from fvsrn_tpu_torch.convert import srn_from_arrays
 from fvsrn_tpu_torch.ops import fused_eval
 from fvsrn_tpu_torch.ops.fused_eval import make_fused_eval
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 BOX = ((-0.5, -0.5, -0.5), (1.0, 1.0, 1.0))

@@ -12,7 +12,6 @@ import torch
 from fvsrn_tpu.utils.imageops import inpaint as jinpaint
 from fvsrn_tpu.utils.imageops import warp_image as jwarp
 from fvsrn_tpu_torch.utils.imageops import inpaint, warp_image
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 TOL = 1e-6

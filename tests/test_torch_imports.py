@@ -8,7 +8,6 @@ import subprocess
 import sys
 
 import pytest
-from test_torch_workers import yield_cpu  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "fvsrn_tpu_torch")

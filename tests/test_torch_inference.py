@@ -26,7 +26,6 @@ from fvsrn_tpu_torch.inference import LoadedModel
 from fvsrn_tpu_torch.raytracer.dvr import RayEvaluationSteppingDvr
 from fvsrn_tpu_torch.scenes import dense_scene
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 H = 1 / 128

@@ -28,7 +28,6 @@ from fvsrn_tpu_torch.models.network_volume import VolumeInterpolationNetwork
 from fvsrn_tpu_torch.raytracer.iso import RayEvaluationSteppingIso, trace_iso
 from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 ATOL = 1e-4

@@ -41,7 +41,6 @@ from fvsrn_tpu_torch.ops.sample_mlp import TF_STAGED_POINTS
 from fvsrn_tpu_torch.scenes import dense_scene, dense_tf_points
 from fvsrn_tpu_torch.train.checkpoints import load_weights
 from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 ATOL = 1e-4       # float32 kernel vs plain: the fused-vs-oracle contract

@@ -43,7 +43,6 @@ from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
 from fvsrn_tpu_torch.utils import prng
 from tests.test_torch_segment import BMIN, BSIZE, RAMP, port, rays16, t, tfs
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 ATOL = 1e-4

@@ -40,7 +40,6 @@ from fvsrn_tpu_torch.train.screen import fused_screen_supported
 from fvsrn_tpu_torch.train.world import WorldDataset, make_train_step
 from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 TIMES = [0.0, 0.4, 1.0, 2.7, 3.0, 3.5, -0.5]

@@ -19,7 +19,6 @@ from fvsrn_tpu_torch.camera import (CameraOnASphere, camera_matrix,
 from fvsrn_tpu_torch.models.activations import ACTIVATIONS, parse_activation
 from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
 from fvsrn_tpu_torch.utils.vecmath import intersect_aabb
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 ATOL = 1e-6

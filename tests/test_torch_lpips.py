@@ -17,7 +17,6 @@ from fvsrn_tpu.train import losses as jlosses
 from fvsrn_tpu.train import lpips as jlpips
 from fvsrn_tpu_torch.convert import lpips_from_jax
 from fvsrn_tpu_torch.train import losses, lpips
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 

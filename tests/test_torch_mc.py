@@ -35,7 +35,6 @@ from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
 from fvsrn_tpu_torch.utils import prng
 from fvsrn_tpu_torch.utils.vecmath import intersect_aabb
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 TF = dict(rgb=[[0.9, 0.2, 0.1], [0.2, 0.9, 0.5]], opacity=[0.0, 12.0],

@@ -29,7 +29,6 @@ from fvsrn_tpu_torch.ops.fused_mega import (mega_trace_dvr,
                                             mega_trace_dvr_plain)
 from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 ATOL = 1e-4

@@ -25,7 +25,6 @@ from fvsrn_tpu_torch.convert import srn_from_arrays
 from fvsrn_tpu_torch.ops import fused_mega
 from fvsrn_tpu_torch.ops.fused_mega import mega_trace_dvr_plain
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 H = 1 / 64

@@ -57,7 +57,6 @@ from fvsrn_tpu_torch.ops.fused_mega import mega_trace_dvr_plain
 from fvsrn_tpu_torch.raytracer.dvr import RayEvaluationSteppingDvr
 from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 H = 1 / 64
@@ -241,7 +240,7 @@ def test_mega_grad_matches_jax_networks(name):
 @pytest.mark.parametrize("name", ["rgbo", "sine48"])
 def test_fused_render_matches_jax_networks(name):
     """The product render's route 1 (the megakernel) of an rgbo network
-    and of a 48-wide Sine network, 32x32 at 1/128, against the JAX
+    and of a 48-wide Sine network, 32x32 at 1/32, against the JAX
     package's FUSED render."""
     kw = dict(num_fourier=6, output_mode="density", seed=7)
     kw.update(dict(output_mode="rgbo") if name == "rgbo"
@@ -250,7 +249,7 @@ def test_fused_render_matches_jax_networks(name):
     lat = JLatent(static_grid=(rng.standard_normal((8, 8, 8, 8)) * 0.3)
                   .astype(np.float32))
     jnet = JSRN.make(latent=lat, **kw)
-    h, width = 1 / 128, 32
+    h, width = 1 / 32, 32
     cam = dict(pitch=0.3, yaw=0.5, distance=1.6)
     jm = JLoadedModel(jnet, JTF.make(**TF), config=JCfg.make(stepsize=h))
     m = LoadedModel(srn_from_arrays(*network_arrays(jnet)),

@@ -27,7 +27,6 @@ from tests.test_torch_variants import (CONDITIONS, FWD_TOL, GRAD_RTOL,
                                        MARCH_TOL, assert_fused_refused,
                                        forward_pair, jax_arrays, march_pair,
                                        port_arrays)
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 FIT_STEPS = 20

@@ -40,7 +40,6 @@ from fvsrn_tpu_torch.utils import prng
 from fvsrn_tpu_torch.utils.vecmath import intersect_aabb
 from tests.test_torch_segment import (BMIN, BSIZE, RAMP, jnet_of, port,
                                       rays16, t, tfs)
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 H = 1 / 64

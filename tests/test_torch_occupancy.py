@@ -49,7 +49,6 @@ from tools.export_torch_weights import network_arrays
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
 from test_torch_mega_grad import (BMIN, BSIZE, H, POSITIONS,  # noqa: E402
                                   RGB, SEG, TILE, block_rays, jax_net)
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 RES, FINE = 16, 2

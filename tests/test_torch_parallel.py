@@ -34,7 +34,6 @@ from fvsrn_tpu_torch.train.world import WorldDataset
 from fvsrn_tpu_torch.transfer import (TransferFunctionIdentity,
                                       TransferFunctionPiecewiseLinear)
 from fvsrn_tpu_torch.volume.implicit import VolumeInterpolationImplicit
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 RANKS = 2

@@ -31,7 +31,6 @@ from tools.export_torch_weights import network_arrays
 
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
 from test_fused import _scene  # noqa: E402
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 FOV = 0.7853981633974483

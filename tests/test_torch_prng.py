@@ -12,7 +12,6 @@ import torch
 from fvsrn_tpu.raytracer import montecarlo as jmc
 from fvsrn_tpu_torch.raytracer import montecarlo as tmc
 from fvsrn_tpu_torch.utils import prng
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 RAY_IDS = np.arange(10_000, dtype=np.uint32)

@@ -18,7 +18,6 @@ import tools.probe_lane_gather as jgather
 import tools.proto_mega as jproto
 from fvsrn_tpu_torch.ops import probes
 from fvsrn_tpu_torch.tools import probe_lane_gather, proto_mega
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 N_SMALL = 256

@@ -25,7 +25,6 @@ from fvsrn_tpu_torch.raytracer.dvr import RayEvaluationSteppingDvr
 from fvsrn_tpu_torch.raytracer.evaluator import ImageEvaluatorSimple
 from fvsrn_tpu_torch.transfer import TransferFunctionIdentity
 from fvsrn_tpu_torch.volume.implicit import VolumeInterpolationImplicit
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 CAM = dict(pitch=0.3, yaw=0.6, distance=2.0)

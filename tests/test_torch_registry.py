@@ -44,7 +44,6 @@ from fvsrn_tpu_torch.utils import prng
 from fvsrn_tpu_torch.volume.grid import VolumeInterpolationGrid
 from fvsrn_tpu_torch.volume.volume import Volume
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 CPU = "cpu"

@@ -19,7 +19,6 @@ from fvsrn_tpu_torch.ops.sample_mlp import (FWD_WARPS, SMEM_LIMIT, SMEM_TWO,
                                             make_fwd_plan, make_plan,
                                             persistent_blocks, smem_plan,
                                             staged_tf_floats, tf32_split)
-from test_torch_workers import yield_cpu  # noqa: F401
 
 
 def _values(seed):

@@ -25,7 +25,6 @@ from fvsrn_tpu.raytracer.dvr import max_steps_bound
 from fvsrn_tpu.raytracer.dvr import trace_dvr as jtrace_dvr
 from fvsrn_tpu.transfer import TransferFunctionPiecewiseLinear as JTF
 from fvsrn_tpu_torch.eval import eval_scaling
-from test_torch_workers import yield_cpu  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 32

@@ -35,7 +35,6 @@ from fvsrn_tpu_torch.ops.fused_dvr import (fused_trace_dvr,
 from fvsrn_tpu_torch.raytracer.dvr import RayEvaluationSteppingDvr, trace_dvr
 from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
 from tools.export_torch_weights import _key_name, network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 ATOL = 1e-4

@@ -32,7 +32,6 @@ from fvsrn_tpu_torch.ops.fused_dvr import (fused_trace_dvr,
 from tests.test_torch_segment import (BMIN, BSIZE, RAMP, flat, jnet_of, port,
                                       rays16, t, tfs)
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 H = 1 / 32

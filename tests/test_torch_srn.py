@@ -19,7 +19,6 @@ from fvsrn_tpu_torch.models.network_volume import VolumeInterpolationNetwork
 from fvsrn_tpu_torch.scenes import dense_scene
 from fvsrn_tpu_torch.train.checkpoints import load_weights
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 ATOL = 1e-5

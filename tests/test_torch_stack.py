@@ -46,7 +46,6 @@ from fvsrn_tpu_torch.train.world import WorldDataset, evaluate_world
 from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
 from fvsrn_tpu_torch.volume.implicit import VolumeInterpolationImplicit
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 TF = dict(rgb=[[0.9, 0.4, 0.1], [1.0, 1.0, 0.6]], opacity=[0.0, 20.0],

@@ -37,7 +37,6 @@ from fvsrn_tpu_torch.transfer import (TransferFunctionGaussian,
                                       TransferFunctionTexture)
 from tests.test_torch_segment import (BMIN, BSIZE, RAMP, jnet_of, port,
                                       rays16, t)
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 H = 1 / 32

@@ -27,7 +27,6 @@ from tests.test_torch_segment import BMIN, BSIZE, jnet_of, port, rays16, t
 from tests.test_torch_tf_modes import (ENGINES, H, MODES, SEG, STEPS, TILE,
                                        jax_tf, slow_net)
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -42,7 +42,6 @@ from fvsrn_tpu_torch.scenes import dense_tf_modes
 from tests.test_torch_segment import BMIN, BSIZE, jnet_of, port, rays16
 from tests.test_torch_tf_modes import (H, STEPS, jax_image, port_image,
                                        texture)
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 ATOL = 1e-4

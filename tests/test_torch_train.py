@@ -55,7 +55,6 @@ from fvsrn_tpu.camera import CameraOnASphere as JCam
 from fvsrn_tpu.raytracer.dvr import max_steps_bound
 from fvsrn_tpu_torch.convert import srn_from_arrays
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -388,50 +387,6 @@ def test_trainer_rejects_what_is_not_ported(extra, tmp_path, monkeypatch):
                 add_scalar=lambda *a: writes.append(a), close=lambda: None)))
     out = main.run(opt)
     assert writes == [("loss/total", out["history"][0], 0)]
-
-
-# the networks of the paper's sweeps the trainer's options express (no
-# option gives direction input: test_evaluate_screen_engine_matches_jax)
-NETWORK_ARGS = {
-    "rgbo": ["--outputmode", "rgbo"],
-    "rgbo_texture": ["--outputmode", "rgbo"],
-    "rgbo_exp": ["--outputmode", "rgbo:exp"],
-    "width48": ["--layers", "48:48:48", "--outputmode", "density"],
-    "width64": ["--layers", "64:64", "--outputmode", "density"],
-    "relu": ["--activation", "ReLU", "--outputmode", "density"],
-    "sine3": ["--activation", "Sine:3", "--outputmode", "density"],
-    "snake1": ["--activation", "Snake:1", "--outputmode", "density"],
-    "sigmoid": ["--activation", "Sigmoid", "--outputmode", "density"],
-    "softplus": ["--activation", "Softplus", "--outputmode", "density"],
-}
-
-
-@pytest.mark.parametrize("case", sorted(NETWORK_ARGS))
-def test_network_trainer_matches_jax(case, tmp_path):
-    """The sweeps' networks train through the fused march (the
-    megakernel) as in the JAX package: color outputs (whose head reads no
-    TF, also under a texture TF), widths 48 and 64, every activation;
-    two epochs of one 16x16 camera, 1/32, against the JAX trainer (loss
-    history rtol 1e-4, parameters 1e-4). A sigmoid density head keeps a
-    random network's samples contributing."""
-    args = list(ARGS) + NETWORK_ARGS[case]
-    if case == "rgbo_texture":
-        args[0] = texture_scene(tmp_path)
-    jopt = vars(jmain.init_parser().parse_args(
-        [str(tmp_path / "jax.hdf5") if a == "OUT" else a for a in args]))
-    want = jmain.run(jopt)
-    opt = vars(main.init_parser().parse_args(
-        [str(tmp_path / "port.npz") if a == "OUT" else a for a in args]
-        + ["--device", "cpu"]))
-    got = main.run(opt)
-    assert want["fused"] and got["fused"]
-    assert got["history"][1] < got["history"][0]
-    np.testing.assert_allclose(got["history"], want["history"], rtol=1e-4)
-    jparams, _ = network_arrays(want["network"])
-    for name, p in got["network"].named_parameters():
-        rel = (np.linalg.norm(p.detach().numpy() - jparams[name])
-               / np.linalg.norm(jparams[name]))
-        assert rel <= 1e-4, (name, rel)
 
 
 def f4_case(channels=8, res=8, **net_kw):

@@ -49,7 +49,6 @@ from fvsrn_tpu_torch.train.optimizer import make_optimizer
 from fvsrn_tpu_torch.train.screen import fused_screen_supported
 from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
 from tools.export_torch_weights import _key_name
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 FWD_TOL = 1e-5

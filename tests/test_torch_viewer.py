@@ -26,7 +26,6 @@ from fvsrn_tpu_torch.transfer import (TransferFunctionIdentity,
                                       TransferFunctionPiecewiseLinear)
 from fvsrn_tpu_torch.viewer import _PAGE, _encode_png, serve
 from fvsrn_tpu_torch.volume.implicit import VolumeInterpolationImplicit
-from test_torch_workers import yield_cpu  # noqa: F401
 
 LSB_SHARE = 0.99   # pixels within 1 LSB of the JAX server's
 TF = dict(rgb=[[0.9, 0.2, 0.1], [1.0, 1.0, 0.6]], opacity=[0.0, 25.0],

@@ -21,7 +21,6 @@ from fvsrn_tpu_torch.models import export
 from fvsrn_tpu_torch.raytracer.dvr import RayEvaluationSteppingDvr
 from tests.test_torch_segment import RAMP, port, tfs
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 ENCODINGS = [export.ENCODING_FLOAT, export.ENCODING_BYTE_LINEAR,

@@ -50,7 +50,6 @@ from fvsrn_tpu_torch.volume.grid import VolumeInterpolationGrid
 from fvsrn_tpu_torch.volume.implicit import (VolumeInterpolationImplicit,
                                              create_implicit_grid)
 from fvsrn_tpu_torch.volume.volume import MipmapLevel, Volume
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 CPU = "cpu"

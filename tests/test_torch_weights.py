@@ -21,7 +21,6 @@ from fvsrn_tpu_torch.models.network_volume import VolumeInterpolationNetwork
 from fvsrn_tpu_torch.scenes import dense_scene, sparse_scene
 from fvsrn_tpu_torch.train.checkpoints import load_arrays, load_weights
 from tools.export_torch_weights import _key_name, export, save_network
-from test_torch_workers import yield_cpu  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -53,7 +53,6 @@ from tests.test_torch_segment import BMIN, BSIZE, RAMP, rays16, t, tfs
 from tests.test_torch_tf_modes import SEG, STEPS, TILE
 from tests.test_torch_tf_modes_grad import both, check
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 H = 1 / 32

@@ -36,7 +36,6 @@ from fvsrn_tpu_torch.transfer import TransferFunctionPiecewiseLinear
 from fvsrn_tpu_torch.utils import prng
 from fvsrn_tpu_torch.volume.implicit import VolumeInterpolationImplicit
 from tools.export_torch_weights import network_arrays
-from test_torch_workers import yield_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 CPU = "cpu"
